@@ -1,0 +1,29 @@
+"""plslam_tpu_torch — the PyTorch + CUDA (Hopper) port of plslam_tpu.
+
+Slice 1: points-only chunked stereo VO (``tracking.batch_vo``). The JAX
+package ``plslam_tpu`` is the reference; this package imports nothing of
+it (nor of JAX) and keeps its own copies of the numpy-only modules.
+
+Entry points run on the CUDA device unless the caller passes
+``device="cpu"``. Hot ops are hand-written CUDA kernels
+(``plslam_tpu_torch/csrc``); each has a plain PyTorch version beside it,
+which runs only for CPU tensors.
+"""
+
+import torch
+
+# The reference pins all pose math to full f32 (plslam_tpu/core/lie.py
+# ``mm``, pose_gn HIGHEST-precision einsums): TF32 breaks the rotation
+# validity gates and the 6x6 solve conditioning.
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+
+
+def resolve_device(device=None) -> torch.device:
+    """``None`` means the CUDA device; raises when there is none."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "plslam_tpu_torch runs on a CUDA device by default and none is "
+            "available; pass device='cpu' to run the plain PyTorch versions")
+    return dev

@@ -1,0 +1,154 @@
+"""Build, load and launch the hand-written CUDA kernels (``csrc/*.cu``).
+
+The four kernel sources are compiled by ``nvcc`` for ``sm_90a`` at first
+use, one ``nvcc`` per source started together, and linked into one
+shared library with a plain C interface under ``_build/`` (git-ignored).
+The library name carries a hash of the sources, so an edited source is
+rebuilt. Nothing is built or loaded at import time.
+
+Every C entry point takes raw device pointers and the current CUDA
+stream last, launches without synchronising, and returns
+``cudaGetLastError()``; :func:`launch` raises when that is not 0 and
+counts the launch in :data:`LAUNCHES`.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from collections import Counter
+from typing import Dict, List, Optional
+
+import torch
+
+_DIR = os.path.dirname(os.path.abspath(__file__))
+_CSRC = os.path.join(_DIR, "csrc")
+BUILD_DIR = os.path.join(_DIR, "_build")
+SOURCES = ["image.cu", "fast.cu", "orb.cu", "hamming.cu"]
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-Xcompiler", "-fPIC"]
+
+# C signatures: p = device pointer, i = int, f = float; every entry point
+# takes the stream as one more trailing pointer.
+_SIGNATURES: Dict[str, str] = {
+    "image_sep_filter": "pppppiiiii",
+    "image_resize": "pppppppppppiiiii",
+    "fast_score": "ppppiiiff",
+    "fast_nms_block": "ppppppppiiiiiii",
+    "orb_describe": "pppppppiii",
+    "hamming_dist": "ppppppiii",
+    "hamming_match": "pppppiiiffi",
+}
+
+# launches per C entry point since the last reset (plain versions on CPU
+# tensors are never counted)
+LAUNCHES: Counter = Counter()
+
+_lock = threading.Lock()
+_lib: Optional[ctypes.CDLL] = None
+BUILD_SECONDS: Optional[float] = None
+
+
+def reset_counts() -> None:
+    LAUNCHES.clear()
+
+
+def _nvcc() -> str:
+    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found: the CUDA kernels of "
+                           "plslam_tpu_torch are built at first use and need "
+                           "the CUDA toolkit")
+    return path
+
+
+def _lib_path() -> str:
+    h = hashlib.sha1()
+    for s in SOURCES:
+        with open(os.path.join(_CSRC, s), "rb") as f:
+            h.update(f.read())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return os.path.join(BUILD_DIR, f"libplslam_kernels_{h.hexdigest()[:12]}.so")
+
+
+def build() -> str:
+    """Compile every source in parallel and link the shared library."""
+    global BUILD_SECONDS
+    out = _lib_path()
+    if os.path.exists(out):
+        return out
+    nvcc = _nvcc()
+    # objects go to a directory of this process's own, so two processes
+    # that build at once (test workers) never write the same file
+    obj_dir = os.path.join(BUILD_DIR, f"obj{os.getpid()}")
+    os.makedirs(obj_dir, exist_ok=True)
+    t0 = time.perf_counter()
+    objs: List[str] = []
+    procs = []
+    for s in SOURCES:
+        obj = os.path.join(obj_dir, s.replace(".cu", ".o"))
+        objs.append(obj)
+        procs.append((s, subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-c", os.path.join(_CSRC, s), "-o", obj],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    errors = []
+    for s, p in procs:
+        log, _ = p.communicate()
+        if p.returncode != 0:
+            errors.append(f"--- {s} ---\n{log}")
+    if errors:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(errors))
+    tmp = out + f".tmp{os.getpid()}"
+    subprocess.run([nvcc, *NVCC_FLAGS, "-shared", *objs, "-o", tmp],
+                   check=True, capture_output=True, text=True)
+    os.replace(tmp, out)
+    shutil.rmtree(obj_dir, ignore_errors=True)
+    BUILD_SECONDS = time.perf_counter() - t0
+    return out
+
+
+def lib() -> ctypes.CDLL:
+    global _lib
+    with _lock:
+        if _lib is None:
+            cdll = ctypes.CDLL(build())
+            kinds = {"p": ctypes.c_void_p, "i": ctypes.c_int,
+                     "f": ctypes.c_float}
+            for name, sig in _SIGNATURES.items():
+                fn = getattr(cdll, name)
+                fn.argtypes = [kinds[c] for c in sig] + [ctypes.c_void_p]
+                fn.restype = ctypes.c_int
+            _lib = cdll
+        return _lib
+
+
+def launch(name: str, *args) -> None:
+    """Call C entry point ``name`` on the current stream; raise on error.
+
+    Tensor arguments pass as their data pointers; they must stay alive
+    until the kernel has run, which the caller guarantees by holding them
+    (PyTorch's caching allocator keeps stream order)."""
+    conv = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
+    stream = torch.cuda.current_stream().cuda_stream
+    rc = getattr(lib(), name)(*conv, stream)
+    if rc != 0:
+        raise RuntimeError(f"CUDA kernel {name} failed to launch: error {rc}")
+    LAUNCHES[name] += 1
+
+
+def require(t: torch.Tensor, name: str, dtype: torch.dtype, shape=None) -> None:
+    """Check what a kernel takes: CUDA, dtype, contiguity, shape."""
+    if t.device.type != "cuda":
+        raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name}: expected {dtype}, got {t.dtype}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: expected a contiguous tensor")
+    if shape is not None and tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: expected shape {tuple(shape)}, "
+                         f"got {tuple(t.shape)}")

@@ -1,0 +1,161 @@
+"""Separable filters, bilinear resize and pyramids (kernel A, K3).
+
+Port of ``plslam_tpu/ops/image.py`` (``separable_filter2d``,
+``gaussian_blur``, ``resize_bilinear``, ``build_pyramid``). The reference
+runs each as banded-matrix products ``Mr @ img @ Mc^T``; here a vertical
+pass then a horizontal pass compute what those matrices hold: an
+edge-replicate correlation, and align_corners=False bilinear weights with
+the reference's exact index clamping. On CUDA tensors both run as the
+hand-written kernels of ``csrc/image.cu``; the plain PyTorch versions
+below run only for CPU tensors.
+
+Every function takes a batch: images are (N, H, W) f32.
+"""
+
+from __future__ import annotations
+
+import math
+from functools import lru_cache
+from typing import Dict, List, Tuple
+
+import numpy as np
+import torch
+
+from plslam_tpu_torch import native
+
+# device copies of the small tap / index tables, one per (table, device)
+_TABLES: Dict[tuple, torch.Tensor] = {}
+
+
+def _on(arr: np.ndarray, device: torch.device) -> torch.Tensor:
+    key = (arr.dtype.str, arr.shape, arr.tobytes(), str(device))
+    t = _TABLES.get(key)
+    if t is None:
+        t = torch.from_numpy(np.ascontiguousarray(arr)).to(device)
+        _TABLES[key] = t
+    return t
+
+
+def gaussian_kernel1d(sigma: float, radius: int) -> np.ndarray:
+    x = np.arange(-radius, radius + 1, dtype=np.float64)
+    k = np.exp(-0.5 * (x / sigma) ** 2)
+    return (k / k.sum()).astype(np.float32)
+
+
+@lru_cache(maxsize=256)
+def _resize_taps(n_out: int, n_in: int) -> Tuple[np.ndarray, ...]:
+    """Per output index: (i0, i1, w0, w1) of the reference's
+    ``_resize_matrix`` row (align_corners=False), with its f32 rounding;
+    where both taps clamp to one source the weights are merged as the
+    matrix accumulates them."""
+    i0 = np.zeros(n_out, np.int32)
+    i1 = np.zeros(n_out, np.int32)
+    w0 = np.zeros(n_out, np.float32)
+    w1 = np.zeros(n_out, np.float32)
+    scale = n_in / n_out
+    for i in range(n_out):
+        x = (i + 0.5) * scale - 0.5
+        x0 = int(np.floor(x))
+        f = x - x0
+        a = min(max(x0, 0), n_in - 1)
+        b = min(max(x0 + 1, 0), n_in - 1)
+        row = np.zeros(n_in, np.float32)
+        row[a] += 1.0 - f
+        row[b] += f
+        i0[i], w0[i] = a, row[a]
+        if b != a:
+            i1[i], w1[i] = b, row[b]
+        else:
+            i1[i] = a
+    return i0, i1, w0, w1
+
+
+# -- plain PyTorch versions (CPU tensors) -------------------------------------
+
+def _filter_axis_plain(x: torch.Tensor, k: np.ndarray, dim: int
+                       ) -> torch.Tensor:
+    n = x.shape[dim]
+    r = len(k) // 2
+    out = torch.zeros_like(x)
+    for t, kv in enumerate(k.tolist()):
+        idx = torch.clamp(torch.arange(n, device=x.device) + t - r, 0, n - 1)
+        out = out + float(np.float32(kv)) * torch.index_select(x, dim, idx)
+    return out
+
+
+def separable_filter2d_plain(img: torch.Tensor, kx: np.ndarray,
+                             ky: np.ndarray) -> torch.Tensor:
+    return _filter_axis_plain(_filter_axis_plain(img, ky, -2), kx, -1)
+
+
+def _resize_axis_plain(x: torch.Tensor, n_out: int, dim: int) -> torch.Tensor:
+    i0, i1, w0, w1 = (torch.from_numpy(a).to(x.device)
+                      for a in _resize_taps(n_out, x.shape[dim]))
+    shape = [1] * x.ndim
+    shape[dim] = n_out
+    return (w0.view(shape) * torch.index_select(x, dim, i0.long())
+            + w1.view(shape) * torch.index_select(x, dim, i1.long()))
+
+
+def resize_bilinear_plain(img: torch.Tensor, shape: Tuple[int, int]
+                          ) -> torch.Tensor:
+    return _resize_axis_plain(_resize_axis_plain(img, shape[0], -2),
+                              shape[1], -1)
+
+
+# -- kernel wrappers ------------------------------------------------------------
+
+def separable_filter2d(img: torch.Tensor, kx: np.ndarray, ky: np.ndarray
+                       ) -> torch.Tensor:
+    """Separable 2D correlation with edge replication, (N, H, W) -> same.
+    Vertical taps ``ky`` first, then horizontal ``kx`` (odd lengths)."""
+    kx = np.asarray(kx, np.float32)
+    ky = np.asarray(ky, np.float32)
+    if img.device.type == "cpu":
+        return separable_filter2d_plain(img, kx, ky)
+    N, H, W = img.shape
+    native.require(img, "separable_filter2d", torch.float32)
+    tmp = torch.empty_like(img)
+    out = torch.empty_like(img)
+    native.launch("image_sep_filter", img, tmp, out, _on(ky, img.device),
+                  _on(kx, img.device), N, H, W, len(ky) // 2, len(kx) // 2)
+    return out
+
+
+def resize_bilinear(img: torch.Tensor, shape: Tuple[int, int]
+                    ) -> torch.Tensor:
+    """(N, H, W) -> (N, h, w) bilinear, align_corners=False."""
+    if img.device.type == "cpu":
+        return resize_bilinear_plain(img, shape)
+    N, H, W = img.shape
+    Ho, Wo = shape
+    native.require(img, "resize_bilinear", torch.float32)
+    tmp = torch.empty((N, Ho, W), dtype=img.dtype, device=img.device)
+    out = torch.empty((N, Ho, Wo), dtype=img.dtype, device=img.device)
+    rows = [_on(a, img.device) for a in _resize_taps(Ho, H)]
+    cols = [_on(a, img.device) for a in _resize_taps(Wo, W)]
+    native.launch("image_resize", img, tmp, out, *rows, *cols,
+                  N, H, W, Ho, Wo)
+    return out
+
+
+def gaussian_blur(img: torch.Tensor, sigma: float) -> torch.Tensor:
+    r = max(1, int(math.ceil(2.5 * sigma)))
+    k = gaussian_kernel1d(sigma, r)
+    return separable_filter2d(img, k, k)
+
+
+def build_pyramid(img: torch.Tensor, n_levels: int, scale_factor: float,
+                  blur_sigma: float = 1.0) -> List[torch.Tensor]:
+    """Levels at 1/scale_factor^i (min 16 px a side), each blurred; each
+    level is resized from the previous UNBLURRED level, as the reference."""
+    H, W = img.shape[-2:]
+    levels = []
+    cur = img
+    for i in range(n_levels):
+        s = scale_factor ** i
+        h, w = max(int(round(H / s)), 16), max(int(round(W / s)), 16)
+        lvl = img if i == 0 else resize_bilinear(cur, (h, w))
+        cur = lvl
+        levels.append(gaussian_blur(lvl, blur_sigma))
+    return levels

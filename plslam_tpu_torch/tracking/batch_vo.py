@@ -1,0 +1,180 @@
+"""Chunked stereo VO: a chunk of B frames per call.
+
+Port of ``plslam_tpu/tracking/batch_vo.py``, batched mode
+(``tracking.batched_chunks=True``): the B stereo pairs of a chunk are
+feature-extracted as one batch, then all B consecutive-pair matches and
+robust GN solves run batched, for ``chunk_passes`` passes; non-final
+passes run the shortened "lite" GN. Scan mode (``batched_chunks=False``),
+``keep_feats`` and the line front end are not ported yet.
+
+Every tensor op is enqueued on the current CUDA stream; ``submit_chunk``
+does not wait for the device, ``drain`` fetches the per-frame poses.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional, Tuple
+
+import numpy as np
+import torch
+
+from plslam_tpu_torch import resolve_device
+from plslam_tpu_torch.config import SlamConfig
+from plslam_tpu_torch.core.camera import StereoCamera
+from plslam_tpu_torch.frontend.features import (LineObservations,
+                                                PointObservations)
+from plslam_tpu_torch.frontend.stereo_frame import extract_stereo_frame
+from plslam_tpu_torch.tracking import pose_gn
+from plslam_tpu_torch.tracking.frame_handler import (build_point_terms,
+                                                     match_f2f_points)
+
+
+class ChunkOutput(NamedTuple):
+    DT: torch.Tensor          # (B, 4, 4) relative pose prev->cur per frame
+    cov: torch.Tensor         # (B, 6, 6)
+    n_inliers: torch.Tensor   # (B,)
+    err: torch.Tensor         # (B,)
+    good: torch.Tensor        # (B,)
+    last_pts: PointObservations             # final frame's features (carry)
+    last_lns: Optional[LineObservations]
+    DT_next: torch.Tensor = None  # (4, 4) next chunk's constant-velocity prior
+
+
+def _to_f32(imgs: torch.Tensor) -> torch.Tensor:
+    """uint8 images -> [0, 1] f32 (as the reference, times f32(1/255))."""
+    if imgs.dtype == torch.uint8:
+        return imgs.to(torch.float32) * (1.0 / 255.0)
+    return imgs.to(torch.float32)
+
+
+def _frame(pts: PointObservations, i) -> PointObservations:
+    return PointObservations(*(x[i] for x in pts))
+
+
+def vo_chunk(imgs_l: torch.Tensor, imgs_r: torch.Tensor,
+             prev_pts: PointObservations,
+             prev_lns: Optional[LineObservations],
+             T_prior0: torch.Tensor, cam: StereoCamera,
+             cfg: SlamConfig) -> ChunkOutput:
+    """(B, H, W) stereo chunk (uint8 or f32) -> per-frame results.
+
+    ``prev_pts`` is the previous frame's features (no batch axis),
+    ``T_prior0`` (4, 4) the chunk-level constant-velocity prior."""
+    if prev_lns is not None or cfg.lines.has_lines:
+        raise NotImplementedError(
+            "line tracking is ROADMAP slice 2 of the port")
+    if not cfg.tracking.batched_chunks:
+        raise NotImplementedError(
+            "scan mode (tracking.batched_chunks=False) is not ported yet")
+    pts, _ = extract_stereo_frame(_to_f32(imgs_l), _to_f32(imgs_r), cam, cfg)
+    B = pts.uv.shape[0]
+    prev_p = PointObservations(*(torch.cat([h[None], t[:-1]])
+                                 for h, t in zip(prev_pts, pts)))
+
+    def solve(T_pri, c):
+        mres = match_f2f_points(prev_p, pts, T_pri, cam, c)
+        terms = build_point_terms(prev_p, pts, mres)
+        return pose_gn.optimize_pose(T_pri, cam, terms, None, c)
+
+    # non-final passes only produce the next pass's prior: shortened GN
+    lp = cfg.tracking.lite_pass_iters
+    cfg_lite = (cfg.with_updates(
+        {"tracking": {"max_iters": lp,
+                      "max_iters_ref": cfg.tracking.lite_pass_iters_ref}})
+        if lp > 0 and cfg.tracking.chunk_passes > 1 else cfg)
+
+    n_passes = max(cfg.tracking.chunk_passes, 1)
+    T_pri = T_prior0.expand(B, 4, 4)
+    res = solve(T_pri, cfg_lite if n_passes > 1 else cfg)
+    for k in range(n_passes - 1):
+        # re-solve around each pair's own estimate; failed pairs retry
+        # from their left neighbour's estimate, else the chunk prior
+        nb_T = torch.cat([T_pri[:1], res.T[:-1]])
+        nb_good = torch.cat([torch.zeros_like(res.good[:1]), res.good[:-1]])
+        T_pri = torch.where(res.good[:, None, None], res.T,
+                            torch.where(nb_good[:, None, None], nb_T, T_pri))
+        res_new = solve(T_pri, cfg if k == n_passes - 2 else cfg_lite)
+        # a pair that solved earlier keeps it over a later failed re-solve
+        keep_new = res_new.good | ~res.good
+        res = pose_gn.PoseResult(*(
+            torch.where(keep_new.reshape((B,) + (1,) * (a.ndim - 1)), a, b)
+            for a, b in zip(res_new, res)))
+
+    DT_next = torch.where(res.good[-1], res.T[-1], T_pri[-1])
+    return ChunkOutput(res.T, res.cov, res.n_inliers, res.err, res.good,
+                       _frame(pts, -1), None, DT_next=DT_next)
+
+
+def extract_one(img_l: torch.Tensor, img_r: torch.Tensor, cam: StereoCamera,
+                cfg: SlamConfig
+                ) -> Tuple[PointObservations, Optional[LineObservations]]:
+    """One (H, W) stereo pair -> its features (no batch axis)."""
+    pts, lns = extract_stereo_frame(_to_f32(img_l)[None], _to_f32(img_r)[None],
+                                    cam, cfg)
+    return _frame(pts, 0), lns
+
+
+class BatchedStereoVO:
+    """Host driver for chunked VO: feed chunks, get per-frame poses.
+
+    Runs on ``device`` (default: the CUDA device; raises without one)."""
+
+    def __init__(self, cfg: SlamConfig, cam: Optional[StereoCamera] = None,
+                 device=None):
+        self.device = resolve_device(device)
+        self.cfg = cfg
+        self.cam = cam if cam is not None else StereoCamera.from_config(
+            cfg.camera)
+        self.prev_pts: Optional[PointObservations] = None
+        self.prev_lns: Optional[LineObservations] = None
+        self.T_wc = np.eye(4, dtype=np.float32)
+        self.DT_prev = torch.eye(4, dtype=torch.float32, device=self.device)
+        self.trajectory = [self.T_wc.copy()]
+        self._pending = []
+        # host copy of the last integrated step: the tracking-failure
+        # fallback during drain (DT_prev is a device tensor)
+        self._last_step_host = np.eye(4, dtype=np.float32)
+
+    def _put(self, x) -> torch.Tensor:
+        return torch.as_tensor(x).to(self.device)
+
+    def initialize(self, img_l, img_r) -> None:
+        self.prev_pts, self.prev_lns = extract_one(
+            self._put(img_l), self._put(img_r), self.cam, self.cfg)
+
+    def process_chunk(self, imgs_l, imgs_r) -> ChunkOutput:
+        """(B, H, W) arrays -> per-frame results; updates the trajectory."""
+        out = self.submit_chunk(imgs_l, imgs_r)
+        self._integrate(out)
+        return out
+
+    def submit_chunk(self, imgs_l, imgs_r) -> ChunkOutput:
+        """Enqueue one chunk; the carry stays on the device."""
+        if self.prev_pts is None:
+            raise RuntimeError("call initialize() first")
+        out = vo_chunk(self._put(imgs_l), self._put(imgs_r), self.prev_pts,
+                       self.prev_lns, self.DT_prev, self.cam, self.cfg)
+        self.prev_pts, self.prev_lns = out.last_pts, out.last_lns
+        self.DT_prev = out.DT_next
+        self._pending.append(out)
+        return out
+
+    def drain(self) -> None:
+        """Fetch all pending chunk results and extend the trajectory."""
+        for out in list(self._pending):
+            self._integrate(out, update_prior=False)
+        self._pending = []
+
+    def _integrate(self, out: ChunkOutput, update_prior: bool = True) -> None:
+        self._pending = [p for p in self._pending if p is not out]
+        DT = out.DT.cpu().numpy()
+        good = out.good.cpu().numpy()
+        DT_prev = self._last_step_host
+        for i in range(DT.shape[0]):
+            step = DT[i] if good[i] else DT_prev
+            self.T_wc = (self.T_wc @ np.linalg.inv(step)).astype(np.float32)
+            DT_prev = step.astype(np.float32)
+            self.trajectory.append(self.T_wc.copy())
+        self._last_step_host = DT_prev
+        if update_prior:
+            self.DT_prev = torch.from_numpy(DT_prev).to(self.device)

@@ -1,0 +1,79 @@
+"""The port stands alone: no JAX, nothing of plslam_tpu, CUDA by default."""
+
+import ast
+import os
+import pkgutil
+import subprocess
+import sys
+
+import pytest
+import torch
+
+import plslam_tpu_torch
+from plslam_tpu_torch.config import SlamConfig
+from plslam_tpu_torch.tracking.batch_vo import BatchedStereoVO, extract_one
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG = os.path.join(ROOT, "plslam_tpu_torch")
+FORBIDDEN = {"jax", "jaxlib", "plslam_tpu"}
+
+
+def _port_files():
+    files = [os.path.join(ROOT, "chip_smoke.py"),
+             os.path.join(ROOT, "profile_torch_vo.py")]
+    for d, _, names in os.walk(PKG):
+        files += [os.path.join(d, n) for n in names if n.endswith(".py")]
+    return sorted(files)
+
+
+def _imported_roots(path):
+    tree = ast.parse(open(path).read(), path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for a in node.names:
+                yield a.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module.split(".")[0]
+
+
+@pytest.mark.parametrize("path", _port_files(),
+                         ids=lambda p: os.path.relpath(p, ROOT))
+def test_no_jax_or_reference_imports(path):
+    bad = sorted(set(_imported_roots(path)) & FORBIDDEN)
+    assert not bad, f"{path} imports {bad}"
+
+
+def test_import_leaves_jax_out():
+    mods = [m.name for m in pkgutil.walk_packages([PKG], "plslam_tpu_torch.")]
+    code = ("import importlib, sys\n"
+            f"for m in {mods!r}: importlib.import_module(m)\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'plslam_tpu')]\n"
+            "assert not bad, bad\n")
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr
+    assert len(mods) >= 17
+
+
+def test_default_device_is_cuda():
+    cfg = SlamConfig().with_updates({"lines": {"has_lines": False}})
+    if torch.cuda.is_available():
+        assert BatchedStereoVO(cfg).device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            BatchedStereoVO(cfg)
+        with pytest.raises(RuntimeError, match="CUDA"):
+            plslam_tpu_torch.resolve_device(None)
+    assert BatchedStereoVO(cfg, device="cpu").device.type == "cpu"
+
+
+def test_tf32_is_off():
+    assert torch.backends.cuda.matmul.allow_tf32 is False
+    assert torch.backends.cudnn.allow_tf32 is False
+
+
+def test_line_front_end_is_refused_by_name():
+    img = torch.zeros(1, 64, 64)
+    with pytest.raises(NotImplementedError, match="slice 2"):
+        extract_one(img[0], img[0], None, SlamConfig())

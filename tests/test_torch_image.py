@@ -1,0 +1,74 @@
+"""Port parity, kernel A (K3): separable filters, bilinear resize, pyramid.
+
+Same numpy inputs through ``plslam_tpu.ops.image`` (banded matmuls) and
+``plslam_tpu_torch.ops.image`` (plain stencils on the CPU). The two sum
+the taps in different orders, so agreement is to 1e-5 absolute for images
+in [0, 1]. The 15-tap moment maps of ORB orientation cancel terms whose
+magnitudes sum to 56 * 15 = 840 (pixel values <= 1), so they are held to
+2e-4 absolute: four f32 ulps of that sum.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from plslam_tpu.ops import image as jimage
+from plslam_tpu.ops import orb as jorb
+from plslam_tpu_torch.ops import image as timage
+
+ATOL = 1e-5
+
+
+def _img(seed, shape=(2, 97, 131)):
+    return np.random.default_rng(seed).uniform(0, 1, shape).astype(np.float32)
+
+
+@pytest.mark.parametrize("sigma", [1.0, 1.6])
+def test_gaussian_blur_matches_reference(sigma):
+    imgs = _img(0)
+    got = timage.gaussian_blur(torch.from_numpy(imgs), sigma).numpy()
+    for n in range(imgs.shape[0]):
+        ref = np.asarray(jimage.gaussian_blur(jnp.asarray(imgs[n]), sigma))
+        np.testing.assert_allclose(got[n], ref, atol=ATOL, rtol=0)
+
+
+def test_moment_filters_match_reference():
+    """The 15-tap half-res moment kernels of describe_multilevel."""
+    imgs = _img(1)
+    for kx, ky in ((jorb._d_h, jorb._ONES_H), (jorb._ONES_H, jorb._d_h)):
+        got = timage.separable_filter2d(torch.from_numpy(imgs), kx, ky).numpy()
+        for n in range(imgs.shape[0]):
+            ref = np.asarray(jimage.separable_filter2d(
+                jnp.asarray(imgs[n]), kx, ky))
+            np.testing.assert_allclose(got[n], ref, atol=2e-4, rtol=0)
+
+
+@pytest.mark.parametrize("shape", [(81, 109), (48, 65), (13, 200), (97, 131)])
+def test_resize_bilinear_matches_reference(shape):
+    imgs = _img(2)
+    got = timage.resize_bilinear(torch.from_numpy(imgs), shape).numpy()
+    assert got.shape == (2,) + shape
+    for n in range(imgs.shape[0]):
+        ref = np.asarray(jimage.resize_bilinear(jnp.asarray(imgs[n]), shape))
+        np.testing.assert_allclose(got[n], ref, atol=ATOL, rtol=0)
+
+
+def test_build_pyramid_matches_reference():
+    imgs = _img(3, (2, 384, 640))
+    got = timage.build_pyramid(torch.from_numpy(imgs), 3, 1.2)
+    for n in range(imgs.shape[0]):
+        ref = jimage.build_pyramid(jnp.asarray(imgs[n]), 3, 1.2)
+        assert [g.shape[1:] for g in got] == [r.shape for r in ref]
+        for g, r in zip(got, ref):
+            np.testing.assert_allclose(g[n].numpy(), np.asarray(r),
+                                       atol=ATOL, rtol=0)
+
+
+def test_kernel_wrappers_refuse_what_they_do_not_take():
+    """A CPU tensor takes the plain version; nothing else is accepted
+    silently: a wrong dtype on the kernel path raises."""
+    from plslam_tpu_torch import native
+    with pytest.raises(ValueError):
+        native.require(torch.zeros(2, 3, 4, dtype=torch.float64), "x",
+                       torch.float32)
