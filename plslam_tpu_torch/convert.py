@@ -15,7 +15,8 @@ import torch
 
 from plslam_tpu_torch.config import SlamConfig
 from plslam_tpu_torch.core.camera import StereoCamera
-from plslam_tpu_torch.frontend.features import PointObservations
+from plslam_tpu_torch.frontend.features import (LineObservations,
+                                                PointObservations)
 
 
 def config_from_dict(d: Dict[str, Any]) -> SlamConfig:
@@ -41,3 +42,15 @@ def points_from_numpy(arrays: Mapping[str, np.ndarray],
         f: torch.from_numpy(np.array(arrays[f])).to(
             device=device, dtype=_POINT_DTYPES.get(f, torch.float32))
         for f in PointObservations._fields})
+
+
+_LINE_DTYPES = {"desc": torch.uint8, "valid": torch.bool}
+
+
+def lines_from_numpy(arrays: Mapping[str, np.ndarray],
+                     device) -> LineObservations:
+    """Dict of LineObservations field arrays -> tensors on ``device``."""
+    return LineObservations(**{
+        f: torch.from_numpy(np.array(arrays[f])).to(
+            device=device, dtype=_LINE_DTYPES.get(f, torch.float32))
+        for f in LineObservations._fields})

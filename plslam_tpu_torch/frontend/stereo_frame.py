@@ -1,9 +1,9 @@
-"""Stereo frame extraction, points path (port of
+"""Stereo frame extraction, points and lines (port of
 ``plslam_tpu/frontend/stereo_frame.py::extract_stereo_frame``).
 
 Batched over B stereo pairs: the B left and B right images go through the
-point front end as one batch of 2B, then the left/right sets of each pair
-are matched on the rectified rows.
+point and the line front ends as one batch of 2B each, then the
+left/right sets of each pair are matched on the rectified rows.
 """
 
 from __future__ import annotations
@@ -16,6 +16,8 @@ from plslam_tpu_torch.config import SlamConfig
 from plslam_tpu_torch.core.camera import StereoCamera
 from plslam_tpu_torch.frontend.features import (LineObservations,
                                                 PointObservations)
+from plslam_tpu_torch.frontend.stereo_lines import (
+    detect_and_describe_lines, match_stereo_lines)
 from plslam_tpu_torch.frontend.stereo_points import (detect_and_describe,
                                                      match_stereo_points)
 from plslam_tpu_torch.ops.gather import take
@@ -25,18 +27,21 @@ def extract_stereo_frame(imgs_l: torch.Tensor, imgs_r: torch.Tensor,
                          cam: StereoCamera, cfg: SlamConfig
                          ) -> Tuple[PointObservations,
                                     Optional[LineObservations]]:
-    """(B, H, W) f32 left/right images -> points with a leading B axis."""
-    if cfg.lines.has_lines:
-        raise NotImplementedError(
-            "the line front end (lines.has_lines=True) is ROADMAP slice 2 of "
-            "the port; run with lines.has_lines=False")
+    """(B, H, W) f32 left/right images -> points and (with
+    ``lines.has_lines``) lines, each with a leading B axis."""
     if not cfg.points.has_points:
         raise NotImplementedError(
-            "the lines-only configuration (points.has_points=False) needs the "
-            "line front end, ROADMAP slice 2 of the port")
+            "the lines-only configuration (points.has_points=False) is "
+            "ROADMAP Queue 1 of the port")
     B = imgs_l.shape[0]
-    uv, desc, octv, ang, sc, val = detect_and_describe(
-        torch.cat([imgs_l, imgs_r]), cfg)
+    both = torch.cat([imgs_l, imgs_r])
+    lns = None
+    if cfg.lines.has_lines:
+        segs, d = detect_and_describe_lines(both, cfg)
+        segs_l = type(segs)(*(x[:B] for x in segs))
+        segs_r = type(segs)(*(x[B:] for x in segs))
+        lns = match_stereo_lines(segs_l, d[:B], segs_r, d[B:], cam, cfg)
+    uv, desc, octv, ang, sc, val = detect_and_describe(both, cfg)
     uv_l, uv_r = uv[:B], uv[B:]
     mres = match_stereo_points(uv_l, desc[:B], octv[:B], val[:B],
                                uv_r, desc[B:], octv[B:], val[B:], cfg)
@@ -47,4 +52,4 @@ def extract_stereo_frame(imgs_l: torch.Tensor, imgs_r: torch.Tensor,
     pts = PointObservations(uv=uv_l, uv_r=uv_rm, disp=disp, P=P,
                             desc=desc[:B], octave=octv[:B], angle=ang[:B],
                             score=sc[:B], valid=valid)
-    return pts, None
+    return pts, lns

@@ -1,6 +1,6 @@
 """Build, load and launch the hand-written CUDA kernels (``csrc/*.cu``).
 
-The four kernel sources are compiled by ``nvcc`` for ``sm_90a`` at first
+The kernel sources are compiled by ``nvcc`` for ``sm_90a`` at first
 use, one ``nvcc`` per source started together, and linked into one
 shared library with a plain C interface under ``_build/`` (git-ignored).
 The library name carries a hash of the sources, so an edited source is
@@ -29,7 +29,8 @@ import torch
 _DIR = os.path.dirname(os.path.abspath(__file__))
 _CSRC = os.path.join(_DIR, "csrc")
 BUILD_DIR = os.path.join(_DIR, "_build")
-SOURCES = ["image.cu", "fast.cu", "orb.cu", "hamming.cu"]
+SOURCES = ["image.cu", "fast.cu", "orb.cu", "hamming.cu", "lines_tile.cu",
+           "lines_label.cu", "lines_segments.cu", "lbd.cu"]
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC"]
 
@@ -43,6 +44,12 @@ _SIGNATURES: Dict[str, str] = {
     "orb_describe": "pppppppiii",
     "hamming_dist": "ppppppiii",
     "hamming_match": "pppppiiiffi",
+    "lines_sobel": "ppppppiiif",
+    "lines_moments": "pppppppiiiiii",
+    "lines_label": "pppppppiiiffi",
+    "lines_refit": "pppppppppiiifff",
+    "lines_merge": "ppppppppiifffi",
+    "lbd_describe": "ppppppppiiiiiiiff",
 }
 
 # launches per C entry point since the last reset (plain versions on CPU

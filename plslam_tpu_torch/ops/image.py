@@ -1,7 +1,9 @@
-"""Separable filters, bilinear resize and pyramids (kernel A, K3).
+"""Separable filters, bilinear resize, pyramids (kernel A, K3) and Sobel
+gradients (kernel E launch 1, K4).
 
 Port of ``plslam_tpu/ops/image.py`` (``separable_filter2d``,
-``gaussian_blur``, ``resize_bilinear``, ``build_pyramid``). The reference
+``gaussian_blur``, ``resize_bilinear``, ``build_pyramid``,
+``sobel_gradients``). The reference
 runs each as banded-matrix products ``Mr @ img @ Mc^T``; here a vertical
 pass then a horizontal pass compute what those matrices hold: an
 edge-replicate correlation, and align_corners=False bilinear weights with
@@ -159,3 +161,37 @@ def build_pyramid(img: torch.Tensor, n_levels: int, scale_factor: float,
         cur = lvl
         levels.append(gaussian_blur(lvl, blur_sigma))
     return levels
+
+
+def sobel_gradients_plain(img: torch.Tensor
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    p = torch.nn.functional.pad(img[:, None], (1, 1, 1, 1),
+                                mode="replicate")[:, 0]
+    sy = (p[:, :-2] + 2.0 * p[:, 1:-1] + p[:, 2:]) * 0.25
+    dy = (p[:, 2:] - p[:, :-2]) * 0.5
+    gx = (sy[:, :, 2:] - sy[:, :, :-2]) * 0.5
+    gy = (dy[:, :, :-2] + 2.0 * dy[:, :, 1:-1] + dy[:, :, 2:]) * 0.25
+    return gx, gy
+
+
+def sobel_launch(img: torch.Tensor, grad_th: float = None
+                 ) -> Tuple[torch.Tensor, ...]:
+    """Kernel E launch 1 on a CUDA (N, H, W) f32 batch: ``(gx, gy)``, or
+    with ``grad_th`` the line detector's planes ``(w, d2x, d2y)``."""
+    N, H, W = img.shape
+    native.require(img, "sobel_gradients", torch.float32)
+    outs = [torch.empty_like(img) for _ in range(2 if grad_th is None else 3)]
+    if grad_th is None:
+        native.launch("lines_sobel", img, outs[0], outs[1], None, None, None,
+                      N, H, W, 0.0)
+    else:
+        native.launch("lines_sobel", img, None, None, *outs, N, H, W, grad_th)
+    return tuple(outs)
+
+
+def sobel_gradients(img: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(gx, gy) of (N, H, W) images: 3x3 Sobel with edge padding, scaled
+    by 0.25 (smoothing) and 0.5 (difference) in the reference's order."""
+    if img.device.type == "cpu":
+        return sobel_gradients_plain(img)
+    return sobel_launch(img)

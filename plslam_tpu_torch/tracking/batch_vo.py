@@ -4,8 +4,10 @@ Port of ``plslam_tpu/tracking/batch_vo.py``, batched mode
 (``tracking.batched_chunks=True``): the B stereo pairs of a chunk are
 feature-extracted as one batch, then all B consecutive-pair matches and
 robust GN solves run batched, for ``chunk_passes`` passes; non-final
-passes run the shortened "lite" GN. Scan mode (``batched_chunks=False``),
-``keep_feats`` and the line front end are not ported yet.
+passes run the shortened "lite" GN. With ``lines.has_lines`` (the
+default, flagship configuration) line segments are extracted, matched and
+solved jointly with the points. Scan mode (``batched_chunks=False``),
+``keep_feats`` and the lines-only configuration are not ported yet.
 
 Every tensor op is enqueued on the current CUDA stream; ``submit_chunk``
 does not wait for the device, ``drain`` fetches the per-frame poses.
@@ -25,7 +27,9 @@ from plslam_tpu_torch.frontend.features import (LineObservations,
                                                 PointObservations)
 from plslam_tpu_torch.frontend.stereo_frame import extract_stereo_frame
 from plslam_tpu_torch.tracking import pose_gn
-from plslam_tpu_torch.tracking.frame_handler import (build_point_terms,
+from plslam_tpu_torch.tracking.frame_handler import (build_line_terms,
+                                                     build_point_terms,
+                                                     match_f2f_lines,
                                                      match_f2f_points)
 
 
@@ -38,6 +42,8 @@ class ChunkOutput(NamedTuple):
     last_pts: PointObservations             # final frame's features (carry)
     last_lns: Optional[LineObservations]
     DT_next: torch.Tensor = None  # (4, 4) next chunk's constant-velocity prior
+    n_lines: Optional[torch.Tensor] = None  # (B,) valid stereo lines per frame
+    n_line_inliers: torch.Tensor = None     # (B,) line terms among n_inliers
 
 
 def _to_f32(imgs: torch.Tensor) -> torch.Tensor:
@@ -47,8 +53,16 @@ def _to_f32(imgs: torch.Tensor) -> torch.Tensor:
     return imgs.to(torch.float32)
 
 
-def _frame(pts: PointObservations, i) -> PointObservations:
-    return PointObservations(*(x[i] for x in pts))
+def _frame(feats, i):
+    """One frame of a batched feature tuple (None stays None)."""
+    return None if feats is None else type(feats)(*(x[i] for x in feats))
+
+
+def _shift(head, tail):
+    """Previous-frame features of each pair: the carry, then all frames
+    of the chunk but the last."""
+    return type(tail)(*(torch.cat([h[None], t[:-1]])
+                        for h, t in zip(head, tail)))
 
 
 def vo_chunk(imgs_l: torch.Tensor, imgs_r: torch.Tensor,
@@ -58,23 +72,26 @@ def vo_chunk(imgs_l: torch.Tensor, imgs_r: torch.Tensor,
              cfg: SlamConfig) -> ChunkOutput:
     """(B, H, W) stereo chunk (uint8 or f32) -> per-frame results.
 
-    ``prev_pts`` is the previous frame's features (no batch axis),
+    ``prev_pts`` / ``prev_lns`` are the previous frame's features (no
+    batch axis; ``prev_lns`` None in the points-only configuration),
     ``T_prior0`` (4, 4) the chunk-level constant-velocity prior."""
-    if prev_lns is not None or cfg.lines.has_lines:
-        raise NotImplementedError(
-            "line tracking is ROADMAP slice 2 of the port")
     if not cfg.tracking.batched_chunks:
         raise NotImplementedError(
             "scan mode (tracking.batched_chunks=False) is not ported yet")
-    pts, _ = extract_stereo_frame(_to_f32(imgs_l), _to_f32(imgs_r), cam, cfg)
+    pts, lns = extract_stereo_frame(_to_f32(imgs_l), _to_f32(imgs_r), cam,
+                                    cfg)
     B = pts.uv.shape[0]
-    prev_p = PointObservations(*(torch.cat([h[None], t[:-1]])
-                                 for h, t in zip(prev_pts, pts)))
+    prev_p = _shift(prev_pts, pts)
+    prev_l = _shift(prev_lns, lns) if lns is not None else None
 
     def solve(T_pri, c):
         mres = match_f2f_points(prev_p, pts, T_pri, cam, c)
         terms = build_point_terms(prev_p, pts, mres)
-        return pose_gn.optimize_pose(T_pri, cam, terms, None, c)
+        ln_terms = None
+        if prev_l is not None:
+            ml = match_f2f_lines(prev_l, lns, T_pri, cam, c)
+            ln_terms = build_line_terms(prev_l, lns, ml)
+        return pose_gn.optimize_pose(T_pri, cam, terms, ln_terms, c)
 
     # non-final passes only produce the next pass's prior: shortened GN
     lp = cfg.tracking.lite_pass_iters
@@ -101,8 +118,10 @@ def vo_chunk(imgs_l: torch.Tensor, imgs_r: torch.Tensor,
             for a, b in zip(res_new, res)))
 
     DT_next = torch.where(res.good[-1], res.T[-1], T_pri[-1])
+    n_lines = lns.valid.sum(-1) if lns is not None else None
     return ChunkOutput(res.T, res.cov, res.n_inliers, res.err, res.good,
-                       _frame(pts, -1), None, DT_next=DT_next)
+                       _frame(pts, -1), _frame(lns, -1), DT_next=DT_next,
+                       n_lines=n_lines, n_line_inliers=res.inlier_ln.sum(-1))
 
 
 def extract_one(img_l: torch.Tensor, img_r: torch.Tensor, cam: StereoCamera,
@@ -111,7 +130,7 @@ def extract_one(img_l: torch.Tensor, img_r: torch.Tensor, cam: StereoCamera,
     """One (H, W) stereo pair -> its features (no batch axis)."""
     pts, lns = extract_stereo_frame(_to_f32(img_l)[None], _to_f32(img_r)[None],
                                     cam, cfg)
-    return _frame(pts, 0), lns
+    return _frame(pts, 0), _frame(lns, 0)
 
 
 class BatchedStereoVO:

@@ -1,0 +1,204 @@
+"""Port parity, the line detector (kernels E, F, G; K4, K8-K11).
+
+The same numpy line fields (noise plus bright strips, 160x200, as
+tests/test_line_refit_parity.py renders them) go through
+``plslam_tpu.ops.lines`` and the port's plain versions on the CPU. Each
+integer stage is fed the reference's own float maps, so a gate or a label
+can only differ through the port's code, never through summation order.
+
+Tolerances (measured on these fields in brackets):
+  * Sobel gradients and the planes w, d2x, d2y: 1e-6 absolute [0];
+  * window moments: 1e-5 of each map's largest magnitude [2e-7]: the
+    reference sums blocks with banded matmuls, the port in block order;
+  * gates and labels given the reference's maps: exactly equal;
+  * ``refit_roots`` given the reference's TileStage: the same candidate
+    slots, scores within 1e-5 relative, endpoints within 1e-3 px [5e-5];
+  * ``merge_segments`` given the reference's candidates: roots exactly
+    equal, scores within 1e-5 relative, endpoints within 1e-3 px [8e-6];
+  * ``detect_segments`` end to end: the same valid slots, endpoints
+    within 0.05 px [1.7e-4].
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from plslam_tpu.ops import image as jimage
+from plslam_tpu.ops import lines as jlines
+from plslam_tpu_torch.ops import image as timage
+from plslam_tpu_torch.ops import lines as tlines
+
+TILE = 16
+
+
+def _render_field(seed, H=160, W=200, n_lines=6):
+    """Random noise + randomly placed bright line strips."""
+    rng = np.random.default_rng(seed)
+    img = rng.random((H, W)).astype(np.float32) * 0.06
+    for _ in range(n_lines):
+        x0 = rng.uniform(10, W - 10)
+        y0 = rng.uniform(10, H - 10)
+        th = rng.uniform(0, np.pi)
+        L = rng.uniform(40, 120)
+        t = np.linspace(-L / 2, L / 2, int(3 * L))
+        xs = np.clip(x0 + t * np.cos(th), 0, W - 1).astype(int)
+        ys = np.clip(y0 + t * np.sin(th), 0, H - 1).astype(int)
+        img[ys, xs] = 1.0
+    return img
+
+
+@pytest.fixture(scope="module")
+def fields():
+    return np.stack([_render_field(s) for s in range(4)])
+
+
+@pytest.fixture(scope="module")
+def ref_stages(fields):
+    return [jlines.tile_stage(jnp.asarray(f), tile=TILE) for f in fields]
+
+
+def _t(x):
+    return torch.from_numpy(np.array(x))
+
+
+def _rel(a, b):
+    return float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-30))
+
+
+def test_sobel_and_planes_match_reference(fields):
+    gx, gy = timage.sobel_gradients(_t(fields))
+    w, d2x, d2y = tlines.gradient_planes(_t(fields), 0.02)
+    for n, f in enumerate(fields):
+        rgx, rgy = jimage.sobel_gradients(jnp.asarray(f))
+        np.testing.assert_allclose(gx[n].numpy(), rgx, atol=1e-6, rtol=0)
+        np.testing.assert_allclose(gy[n].numpy(), rgy, atol=1e-6, rtol=0)
+        mag = jnp.sqrt(rgx * rgx + rgy * rgy)
+        rw = jnp.where(mag > 0.02, mag, 0.0)
+        ms = jnp.maximum(mag, 1e-9)
+        np.testing.assert_allclose(w[n].numpy(), rw, atol=1e-6, rtol=0)
+        np.testing.assert_allclose(
+            d2x[n].numpy(), jnp.where(rw > 0, (rgx * rgx - rgy * rgy) / ms, 0),
+            atol=1e-6, rtol=0)
+        np.testing.assert_allclose(
+            d2y[n].numpy(), jnp.where(rw > 0, 2.0 * rgx * rgy / ms, 0),
+            atol=1e-6, rtol=0)
+
+
+def _ref_maps(f, u=None):
+    """The reference's reweighted window maps of one field, as its
+    tile_stage forms them (:330-375); ``u`` replaces its unit
+    orientation field."""
+    H, W = f.shape
+    gx, gy = jimage.sobel_gradients(jnp.asarray(f))
+    mag = jnp.sqrt(gx * gx + gy * gy)
+    w = jnp.where(mag > 0.02, mag, 0.0)
+    ms = jnp.maximum(mag, 1e-9)
+    d2x = jnp.where(w > 0, (gx * gx - gy * gy) / ms, 0.0)
+    d2y = jnp.where(w > 0, 2.0 * gx * gy / ms, 0.0)
+    D2x, D2y = jlines.orientation_maps(d2x, d2y, TILE, 8)
+    if u is None:
+        d2n = jnp.sqrt(D2x * D2x + D2y * D2y) + 1e-9
+        u = (D2x / d2n, D2y / d2n)
+    Th, Tw = D2x.shape
+
+    def up(m):
+        full = jnp.broadcast_to(m[:, None, :, None], (Th, 8, Tw, 8)
+                                ).reshape(Th * 8, Tw * 8)
+        return jnp.pad(full, ((4, H - Th * 8 - 4), (4, W - Tw * 8 - 4)),
+                       mode="edge")
+
+    al = (d2x * up(jnp.asarray(u[0])) + d2y * up(jnp.asarray(u[1]))
+          ) / jnp.maximum(w, 1e-9)
+    ratio = jnp.square(jnp.maximum(al, 0.0))
+    return (D2x, D2y), jlines.tile_moment_maps(w * ratio, d2x * ratio,
+                                               d2y * ratio, TILE, 8)
+
+
+def test_window_moments_match_reference(fields):
+    w, d2x, d2y = tlines.gradient_planes(_t(fields), 0.02)
+    D2x, D2y = tlines.orientation_maps(d2x, d2y, TILE, TILE // 2)
+    u = torch.rand((2,) + D2x.shape, generator=torch.Generator().manual_seed(0))
+    got = tlines.reweighted_moments(w, d2x, d2y, u[0], u[1], TILE, TILE // 2)
+    for n, f in enumerate(fields):
+        rD, ref = _ref_maps(f, (u[0, n].numpy(), u[1, n].numpy()))
+        for g, r in zip((D2x[n], D2y[n]) + tuple(x[n] for x in got),
+                        tuple(rD) + tuple(ref)):
+            assert _rel(g.numpy(), np.asarray(r)) <= 1e-5
+
+
+def test_tile_stage_matches_reference(fields, ref_stages):
+    got = tlines.tile_stage(_t(fields), tile=TILE)
+    for n, ref in enumerate(ref_stages):
+        np.testing.assert_array_equal(got.tile_ok[n].numpy(), ref.tile_ok)
+        np.testing.assert_array_equal(got.labels[n].numpy(), ref.labels)
+        for f in ("S", "Sx", "Sxx", "Sxy", "cx", "l1"):
+            assert _rel(getattr(got, f)[n].numpy(),
+                        np.asarray(getattr(ref, f))) <= 1e-5
+
+
+def test_gates_and_labels_exact_given_reference_maps(fields, ref_stages):
+    """Gates and the 8-sweep label propagation on the reference's own
+    window maps: every gate and every label identical."""
+    for f, ref in zip(fields, ref_stages):
+        _, maps = _ref_maps(f)
+        np.testing.assert_array_equal(np.asarray(maps[0]), ref.S)
+        tile_ok, angle, cx, cy, dx, dy = tlines.tile_gates(
+            *(_t(m)[None] for m in maps), TILE, 1.0, 2.5, 2.2, 0.6)[:6]
+        np.testing.assert_array_equal(tile_ok[0].numpy(), ref.tile_ok)
+        lab = tlines.propagate_labels(tile_ok, angle, cx, cy, dx, dy, 0.1,
+                                      2.0, 8)
+        np.testing.assert_array_equal(lab[0].numpy(), ref.labels)
+        assert int(np.asarray(ref.tile_ok).sum()) >= 10
+
+
+def test_refit_roots_matches_reference(fields, ref_stages):
+    H, W = fields.shape[1:]
+    for ref in ref_stages:
+        ts = tlines.TileStage(*(_t(x)[None] for x in ref))
+        sp, ep, sc = tlines.refit_roots(ts, H, W, TILE, 48, 12.0)
+        rsp, rep, rsc = (np.asarray(x) for x in jlines.refit_roots(
+            ref, H, W, TILE, 48, 12.0))
+        v = rsc > 0
+        assert v.sum() >= 4
+        np.testing.assert_array_equal(sc[0].numpy() > 0, v)
+        assert _rel(sc[0].numpy(), rsc) <= 1e-5
+        np.testing.assert_allclose(sp[0].numpy()[v], rsp[v], atol=1e-3)
+        np.testing.assert_allclose(ep[0].numpy()[v], rep[v], atol=1e-3)
+
+
+@pytest.mark.parametrize("gap_th", [14.0, 40.0])
+def test_merge_segments_matches_reference(fields, ref_stages, gap_th):
+    H, W = fields.shape[1:]
+    for ref in ref_stages:
+        rsp, rep, rsc = jlines.refit_roots(ref, H, W, TILE, 48, 12.0)
+        want = [np.asarray(x) for x in jlines.merge_segments(
+            rsp, rep, rsc, rsc > 0, ang_th=0.2, dist_th=2.0, gap_th=gap_th)]
+        got = [x[0].numpy() for x in tlines.merge_segments(
+            _t(rsp)[None], _t(rep)[None], _t(rsc)[None],
+            _t(np.asarray(rsc) > 0)[None], 0.2, 2.0, gap_th)]
+        root = want[4]
+        np.testing.assert_array_equal(got[4], root)
+        assert _rel(got[3], want[3]) <= 1e-5
+        for g, r in zip(got[:2], want[:2]):
+            np.testing.assert_allclose(g[root], r[root], atol=1e-3)
+        np.testing.assert_allclose(got[2][root], want[2][root], atol=1e-5)
+        # labels: every valid slot's label is a root of its component
+        lab = got[5]
+        assert np.all(root[lab[root]]) and np.all(lab[root] == np.nonzero(
+            root)[0])
+
+
+def test_detect_segments_matches_reference(fields):
+    got = tlines.detect_segments(_t(fields), 48, tile=TILE)
+    for n, f in enumerate(fields):
+        ref = jlines.detect_segments(jnp.asarray(f), 48, tile=TILE)
+        v = np.asarray(ref.valid)
+        assert v.sum() >= 3
+        np.testing.assert_array_equal(got.valid[n].numpy(), v)
+        np.testing.assert_allclose(got.score[n].numpy(), ref.score,
+                                   rtol=1e-5, atol=0)
+        np.testing.assert_allclose(got.sp[n].numpy()[v],
+                                   np.asarray(ref.sp)[v], atol=0.05)
+        np.testing.assert_allclose(got.ep[n].numpy()[v],
+                                   np.asarray(ref.ep)[v], atol=0.05)

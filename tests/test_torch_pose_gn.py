@@ -4,7 +4,12 @@ B problems built with numpy (noisy projections, 15% gross outliers, some
 invalid terms) go through the reference's ``optimize_pose`` one at a time
 and through the port's batched ``optimize_pose`` at once. The poses agree
 within 1e-5 (f32 normal equations summed in another order), and the
-inlier counts and ``good`` flags are identical.
+inlier counts and ``good`` flags are identical. ``line_terms_rj`` and the
+joint-MAD ``_weights`` are also held directly with real line terms
+(behind-camera endpoints and invalid lines included): residuals within
+2e-4 px (measured 6.1e-5; each cancels terms of ~1e3 px), Jacobians
+within 1e-5 relative, weights within 1e-5, the MAD scale (a lower median
+over the K + 2L norms) within 1e-6 relative.
 """
 
 import jax
@@ -39,7 +44,7 @@ def _problems(B, n_pts=180, n_lns=0, seed=0):
                       rng.uniform(4, 40, n_pts)], -1).astype(np.float32)
         xi = (rng.normal(size=6) * [0.05, 0.05, 0.3, 0.01, 0.03, 0.01]
               ).astype(np.float32)
-        T = np.asarray(jlie.exp_se3(jnp.asarray(xi)))
+        T = np.array(jlie.exp_se3(jnp.asarray(xi)))
         uv = np.asarray(JC.project(jlie.transform_points(
             jnp.asarray(T), jnp.asarray(P))))
         uv = uv + rng.normal(0, 0.5, uv.shape)
@@ -96,3 +101,39 @@ def test_optimize_pose_matches_reference(n_lns):
             np.testing.assert_allclose(res.err[b].item(), float(ref.err),
                                        rtol=1e-4)
     assert not bool(res.good[-1])
+
+
+def test_line_terms_and_joint_weights_match_reference():
+    probs = _problems(3, n_pts=120, n_lns=40, seed=5)
+    rng = np.random.default_rng(6)
+    for p in probs:
+        p["sP"][:3, 2] = -1.0                 # behind the camera
+        p["lvalid"] = rng.random(40) > 0.15
+    stack = {k: np.stack([p[k] for p in probs]) for k in probs[0]}
+    xi = np.array([0.02, -0.01, 0.1, 0.003, -0.004, 0.002], np.float32)
+    T = np.array(jlie.exp_se3(jnp.asarray(xi)))
+    lt = tgn.LineTerms(*(torch.from_numpy(stack[k])
+                         for k in ("sP", "eP", "le", "lvalid")))
+    r, J, a = tgn.line_terms_rj(torch.from_numpy(T).expand(3, 4, 4), TC, lt)
+    pt = tgn.PointTerms(torch.from_numpy(stack["P"]),
+                        torch.from_numpy(stack["uv"]),
+                        torch.from_numpy(stack["valid"]))
+    _, _, n_pt = tgn.point_terms_rj(torch.from_numpy(T).expand(3, 4, 4), TC,
+                                    pt)
+    w_pt, w_ln, sigma = tgn._weights(n_pt, pt.valid, a, lt.valid)
+    for b, p in enumerate(probs):
+        jl = jgn.LineTerms(jnp.asarray(p["sP"]), jnp.asarray(p["eP"]),
+                           jnp.asarray(p["le"]), jnp.asarray(p["lvalid"]))
+        rr, rJ, ra = jgn.line_terms_rj(jnp.asarray(T), JC, jl)
+        # r = le . (u, v, 1) cancels terms of ~1e3 px: a few f32 ulps there
+        np.testing.assert_allclose(r[b].numpy(), rr, rtol=0, atol=2e-4)
+        np.testing.assert_allclose(J[b].numpy(), rJ, rtol=1e-5, atol=1e-3)
+        assert not np.asarray(rr)[:3].any()          # behind: zeroed
+        _, _, rn = jgn.point_terms_rj(jnp.asarray(T), JC, jgn.PointTerms(
+            jnp.asarray(p["P"]), jnp.asarray(p["uv"]),
+            jnp.asarray(p["valid"])))
+        rw_pt, rw_ln, rs = jgn._weights(rn, jnp.asarray(p["valid"]), ra,
+                                        jnp.asarray(p["lvalid"]))
+        np.testing.assert_allclose(sigma[b].item(), float(rs), rtol=1e-6)
+        np.testing.assert_allclose(w_pt[b].numpy(), rw_pt, atol=1e-5)
+        np.testing.assert_allclose(w_ln[b].numpy(), rw_ln, atol=1e-5)
