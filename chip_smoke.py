@@ -7,31 +7,36 @@ Run from the repository root on a machine with an NVIDIA H100:
 
 Phases (any failure exits non-zero; nothing is caught and skipped):
   1. the card: name, count, ``nvidia-smi`` name and power limit;
-  2. build the hand-written CUDA kernels from ``plslam_tpu_torch/csrc``;
-  3. every kernel, in every mode the main path launches it, at the main
-     path's shapes, compared with its plain PyTorch version on the same
-     inputs on the card, timed with CUDA events, beside its bound, its
-     plain version's time and a one-call library yardstick: A-D on
-     KITTI-size images (376x1241, 40 images a chunk; K=1024; B=20 x 1024
-     x 1024), then the line kernels on a rendered line scene, each fed by
-     the one before: E, F and G at both scales of the detector (the 40
-     images, then their 188x620 halves), E's gradients-only mode and H on
-     the half-res maps and the path's segments, and D at the line path's
-     B=20 x 128 x 128;
-  4. the main path: the flagship point+line chunked VO
-     (``BatchedStereoVO``) at the full width of the default
-     ``SlamConfig()`` on bench.py's scene (seed 0, 500 points, 60 lines,
-     step 0.25): a warm-up chunk, then initialize + 2 chunks of 20 frames,
-     every frame tracked, ATE within its bound, stereo lines and line
-     inliers in every frame of that run, each kernel launched exactly as
-     often as the path launches it; then the points-only path
-     (``lines.has_lines=False``) the same way; then the port on the card
-     against its CPU run on two small scenes (points; points + lines);
-  5. one JSON line of the kernels, then the card line, then the result.
+  2. build the hand-written CUDA kernels from ``plslam_tpu_torch/csrc``
+     (one nvcc per source, all started together);
+  3. every kernel, in every mode the paths launch it, at the paths'
+     shapes, compared with its plain PyTorch version on the same inputs on
+     the card, timed with CUDA events, beside its bound, its plain
+     version's time and a one-call library yardstick: A-D on KITTI-size
+     images (376x1241, 40 images a chunk; K=1024; B=20 x 1024 x 1024),
+     the line kernels E-H at both detector scales and D at 20 x 128 x 128,
+     then I (K13: a GN phase of 20 pairs with and without lines), J (K14:
+     a chunk's keyframe scan; K16: the 8192 and 1024 landmark rings) and D
+     at the map matching's 8192 x 1024 and 1024 x 128;
+  4. the paths: the flagship point+line chunked VO (``BatchedStereoVO``,
+     default ``SlamConfig()``, bench.py's scene: a warm-up chunk, then
+     initialize + 2 chunks of 20 frames), the points-only VO the same way,
+     the port on the card against its CPU run on two small scenes, then
+     the fused SLAM chunk without loop closure (``FusedPLSLAM``,
+     ``loop.enabled=False``, bench_slam.py's scene at 1241x376 cut to 1 + 5
+     x 20 frames of device-resident uint8 chunks): every frame tracked, ATE
+     and keyframes against the CPU run, at least one LBA slot, no LBA
+     raising its cost, a map of points and lines, each kernel launched
+     exactly as often as the path launches it; then K (K15) launch by
+     launch, one LM step and one whole ``run_lba`` on a well-conditioned
+     window problem at the path's shapes, and one whole ``run_lba`` on
+     that run's final window problem;
+  5. one JSON line of the kernels (launches from the SLAM path), then the
+     card line, then the result.
 
-``python3 chip_smoke.py --cpu-ate`` runs the main paths' frames through
-the plain versions on the CPU: the calibration of the ATE and line-count
-bounds below.
+``python3 chip_smoke.py --cpu-ate`` runs the paths' frames through the
+plain versions on the CPU: the calibration of the ATE, line-count and
+keyframe bounds below.
 
 Imports nothing of JAX and nothing of the JAX package.
 """
@@ -196,11 +201,17 @@ def kernel_phase(images, record):
     Hb, Wb = cell_h * 8 // 8, cell_w * 16 // 8      # 8 x 16 cells
     got = fast.nms_block_max(score, chi, clo, 5, 16, Hb, Wb)
     ref = fast.nms_block_max_plain(score, chi, clo, 5, 16, Hb, Wb)
+    # library: two F.max_pool2d calls, the (2r+1)^2 NMS max (-inf pad)
+    # and the 8x8 block max with its argmax (one threshold's plane)
+    s1 = score[:, None]
+    blocks = score[:, None, :min(Hb * 8, H), :min(Wb * 8, W)]
     record("fast_nms_block", "plslam_tpu_torch/csrc/fast.cu",
            "plslam_tpu/ops/fast.py:110", list(got), list(ref), 0.0,
            lambda: fast.nms_block_max(score, chi, clo, 5, 16, Hb, Wb),
            lambda: fast.nms_block_max_plain(score, chi, clo, 5, 16, Hb, Wb),
-           npx * (4 + 1 + 1) + N * Hb * Wb * 20, npx * 40)
+           npx * (4 + 1 + 1) + N * Hb * Wb * 20, npx * 40,
+           lambda: (F.max_pool2d(s1, 11, stride=1, padding=5),
+                    F.max_pool2d(blocks, 8, stride=8, return_indices=True)))
 
     # C: pool gather + pair tests for K=1024 keypoints on 4 levels: 64
     # samples, 3 ints in, 256 bit bytes out, 256 compares and selects
@@ -550,13 +561,14 @@ EXTRACT_LINES = {"image_resize": 1, "lines_sobel": 3, "lines_moments": 4,
                  "lines_label": 2, "lines_refit": 2, "lines_merge": 2,
                  "lbd_describe": 1, "hamming_dist": 1, "hamming_match": 1}
 TRACK = {"hamming_dist": 2, "hamming_match": 2}
+GN = {"pose_gn_iters": 4}     # 2 passes x (robust phase + refinement)
 
 
 def expected_launches(lines: bool) -> dict:
     """Each kernel's launches in the main path's timed run."""
     from collections import Counter
     n = Counter()
-    for table, times in ((EXTRACT_POINTS, 3), (TRACK, 2),
+    for table, times in ((EXTRACT_POINTS, 3), (TRACK, 2), (GN, 2),
                          (EXTRACT_LINES if lines else {}, 3),
                          (TRACK if lines else {}, 2)):
         for k, v in table.items():
@@ -597,6 +609,20 @@ def cpu_reference_ate() -> None:
                     f" line_inliers min/median={n_li.min()}/"
                     f"{np.median(n_li)}")
         print(msg, flush=True)
+    from plslam_tpu_torch.backend.fused_slam import FusedPLSLAM
+    cfg, cam, seq, il, ir = slam_scene()
+    slam = FusedPLSLAM(cfg, cam, device="cpu")
+    t0 = time.perf_counter()
+    est = drive_slam(slam, il, ir)
+    flags, good, margin = decisions(slam, cfg)
+    recs = slam.summaries
+    print(f"[cpu] slam good={int(good.sum())}/{len(good)} "
+          f"ate_m={float(ate_rmse(est, seq.poses[:len(est)]))!r} keyframes="
+          f"{len(recs)} kf_frames={np.nonzero(flags)[0].tolist()} "
+          f"smallest decision margin {margin.min():.6g} landmarks "
+          f"{slam.n_landmarks()} lba costs "
+          f"{[(r.lba_cost0, r.lba_cost1) for r in recs if r.lba_cost0]} "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
 
 
 def main_path(dev, lines: bool):
@@ -750,6 +776,637 @@ def small_line_agreement(dev):
     check(dpose < 1e-3, f"card and CPU poses differ by {dpose} (lines)")
 
 
+
+# -- slice 3: the fused SLAM chunk without loop closure --------------------
+
+def sort_compares(n: int) -> int:
+    """Compare-exchanges of a bitonic sort of the next power of two >= n."""
+    S = 1 << max(n - 1, 1).bit_length()
+    lg = S.bit_length() - 1
+    return S // 2 * lg * (lg + 1) // 2
+
+
+def gn_inputs(dev, B, K, L, seed):
+    """B tracking problems at the main path's term counts: K point terms
+    (15% gross outliers, 5% invalid) and L line terms (2 behind the camera,
+    15% invalid), as tests/test_torch_pose_gn.py builds them."""
+    import torch
+    from plslam_tpu_torch.config import SlamConfig
+    from plslam_tpu_torch.core import lie
+    from plslam_tpu_torch.core.camera import StereoCamera
+    from plslam_tpu_torch.frontend.features import line_equation
+    from plslam_tpu_torch.tracking import pose_gn
+    cam = StereoCamera.from_config(SlamConfig().camera)
+    rng = np.random.default_rng(seed)
+    t = lambda a: torch.from_numpy(np.asarray(a, np.float32))
+    box = lambda n, zlo, zhi: t(np.stack([rng.uniform(-8, 8, (B, n)),
+                                          rng.uniform(-3, 3, (B, n)),
+                                          rng.uniform(zlo, zhi, (B, n))], -1))
+    P = box(K, 4, 40)
+    T = lie.exp_se3(t(rng.normal(size=(B, 6))
+                      * [0.05, 0.05, 0.3, 0.01, 0.03, 0.01]))
+    uv = cam.project(lie.transform_points(T, P)) + t(
+        rng.normal(0, 0.5, (B, K, 2)))
+    uv[:, :int(0.15 * K)] += t(rng.normal(0, 40, (B, int(0.15 * K), 2)))
+    sP = box(L, 4, 30)
+    d = rng.normal(size=(B, L, 3))
+    eP = sP + t(2.0 * d / np.linalg.norm(d, axis=-1, keepdims=True))
+    le = line_equation(cam.project(lie.transform_points(T, sP)),
+                       cam.project(lie.transform_points(T, eP)))
+    sP[:, :2, 2] = -1.0
+    mask = lambda n, p: torch.from_numpy(rng.random((B, n)) > p).to(dev)
+    pts = pose_gn.PointTerms(P.to(dev), uv.to(dev), mask(K, 0.05))
+    lns = pose_gn.LineTerms(sP.to(dev), eP.to(dev), le.to(dev),
+                            mask(L, 0.15))
+    return cam, pts, lns
+
+
+def slam_kernel_phase(dev, record):
+    """Kernels I (K13, both configurations), J (K14, K16) and D at the map
+    matching's shapes, against their plain versions on the card."""
+    import torch
+    from plslam_tpu_torch.backend import fused_slam, map as tmap
+    from plslam_tpu_torch.config import SlamConfig
+    from plslam_tpu_torch.core import lie
+    from plslam_tpu_torch.tracking import pose_gn
+
+    cfg = SlamConfig()
+    # I: one GN phase of the 20 pairs of a chunk, K = 1024 point and
+    # L = 128 line terms (L = 0 points only): the final pass's 8
+    # iterations, and the lite pass's 6
+    T0 = torch.eye(4, device=dev).expand(CHUNK, 4, 4)
+    t = cfg.tracking
+    for L, n_it, tag in ((cfg.lines.max_lines, t.max_iters, ""),
+                         (0, t.max_iters, "@points"),
+                         (cfg.lines.max_lines, t.lite_pass_iters, "@lite")):
+        K = cfg.points.max_kpts
+        cam, pts, lns = gn_inputs(dev, CHUNK, K, L, seed=3 + L)
+        got = pose_gn.gn_iters(T0, cam, pts, lns, n_it)
+        ref = pose_gn.gn_iters_plain(T0, cam, pts, lns, n_it)
+        record("pose_gn_iters" + tag, "plslam_tpu_torch/csrc/pose_gn.cu",
+               "plslam_tpu/tracking/pose_gn.py:67", [got], [ref], 1e-5,
+               lambda: pose_gn.gn_iters(T0, cam, pts, lns, n_it),
+               lambda: pose_gn.gn_iters_plain(T0, cam, pts, lns, n_it),
+               CHUNK * (64 * 2 + K * 21 + L * 37),
+               n_it * CHUNK * (K * 150 + L * 300 + sort_compares(K + 2 * L)),
+               entry="pose_gn_iters", err_kind="pose entries")
+
+    # J, kf_scan: a chunk of 20 tracked frames against the carry
+    rng = np.random.default_rng(4)
+    xi = rng.normal(size=(CHUNK, 6)) * [0.05, 0.02, 0.4, 0.01, 0.03, 0.01]
+    DT = lie.exp_se3(torch.from_numpy(xi.astype(np.float32))).to(dev)
+    A = rng.normal(size=(CHUNK, 6, 6)) * 1e-3
+    cov = torch.from_numpy((A @ A.transpose(0, 2, 1) + 1e-6 * np.eye(6))
+                           .astype(np.float32)).to(dev)
+    good = torch.from_numpy(rng.random(CHUNK) > 0.1).to(dev)
+    carry = fused_slam.init_crit_carry(dev)
+    kmax = cfg.system.kf_batch
+    got = fused_slam.kf_scan(DT, cov, good, carry, cfg, kmax)
+    ref = fused_slam.kf_scan_plain(DT, cov, good, carry, cfg, kmax)
+    record("kf_scan", "plslam_tpu_torch/csrc/slam.cu",
+           "plslam_tpu/backend/fused_slam.py:83", list(got[:4]),
+           list(ref[:4]), [0.0, 1e-5, 1e-4, 0.0],
+           lambda: fused_slam.kf_scan(DT, cov, good, carry, cfg, kmax),
+           lambda: fused_slam.kf_scan_plain(DT, cov, good, carry, cfg, kmax),
+           CHUNK * (64 + 144 + 1) + CHUNK * (1 + 64 + 4 + 1) + 2 * 300,
+           CHUNK * 2500, err_kind="flags, blocked exact; T_acc, ratio")
+
+    # J, medoid: the 4-deep rings of the 8192 map points and 1024 lines
+    g = torch.Generator(device="cpu").manual_seed(6)
+    R = cfg.mapping.desc_ring
+    for N, tag in ((cfg.mapping.max_points, "@points"),
+                   (cfg.mapping.max_lines, "@lines")):
+        ring = torch.randint(-2 ** 31, 2 ** 31 - 1, (N, R, 8), generator=g,
+                             dtype=torch.int64).to(torch.int32)
+        ring[: N // 4, 1] = ring[: N // 4, 0]                  # ties
+        ring = ring.to(dev)
+        count = torch.randint(0, 7, (N,), generator=g).to(torch.int32).to(dev)
+        record("medoid" + tag, "plslam_tpu_torch/csrc/slam.cu",
+               "plslam_tpu/backend/map.py:112",
+               [tmap._medoid_desc(ring, count)],
+               [tmap._medoid_desc_plain(ring, count)], 0.0,
+               lambda: tmap._medoid_desc(ring, count),
+               lambda: tmap._medoid_desc_plain(ring, count),
+               N * (R * 32 + 4 + 32), N * (R * R * 8 * 3 + R * R),
+               entry="medoid")
+
+    # D at the map matching's shapes: 8192 map points x 1024 features,
+    # 1024 map lines x 128 segments, with the f2f window mask
+    for N, M, tag in ((cfg.mapping.max_points, cfg.points.max_kpts, "@map"),
+                      (cfg.mapping.max_lines, cfg.lines.max_lines,
+                       "@map_lines")):
+        map_matching_case(record, g, dev, N, M, tag,
+                          cfg.matching.f2f_window)
+
+
+def map_matching_case(record, g, dev, N, M, tag, window):
+    """Kernel D (both launches) at (1, N, M): map landmarks against one
+    keyframe's features, as ``map.add_keyframe`` matches them."""
+    import torch
+    from plslam_tpu_torch.ops import hamming
+    bits_a = torch.randint(0, 2, (1, N, 256), generator=g, dtype=torch.uint8)
+    perm = torch.randperm(N, generator=g)[:M]
+    bits_b = bits_a[:, perm] ^ (torch.rand((1, M, 256), generator=g)
+                                < 0.05).to(torch.uint8)
+    va = torch.rand((1, N), generator=g) > 0.3
+    vb = torch.rand((1, M), generator=g) > 0.1
+    pos_a = torch.rand((1, N, 2), generator=g) * torch.tensor([1241., 376.])
+    pos_b = pos_a[:, perm] + torch.randn((1, M, 2), generator=g) * 5
+    bits_a, bits_b, va, vb = (x.to(dev) for x in (bits_a, bits_b, va, vb))
+    mask = hamming.window_mask(pos_a.to(dev), pos_b.to(dev), window)
+    dist = hamming.hamming_matrix(bits_a, bits_b, va, vb, mask)
+    ref = hamming.hamming_matrix_plain(bits_a, bits_b, va, vb, mask)
+    fa, fb = bits_a.float(), bits_b.float()
+    record("hamming_dist" + tag, "plslam_tpu_torch/csrc/hamming.cu",
+           "plslam_tpu/ops/hamming.py:30", [dist], [ref], 0.0,
+           lambda: hamming.hamming_matrix(bits_a, bits_b, va, vb, mask),
+           lambda: hamming.hamming_matrix_plain(bits_a, bits_b, va, vb, mask),
+           N * M * (1 + 4) + (N + M) * 256, N * M * 24,
+           lambda: torch.cdist(fa, fb, p=0), entry="hamming_dist")
+    got = hamming.match_nnr(dist, 80, 0.75)
+    ref = hamming.match_nnr_plain(dist, 80, 0.75)
+    check(int(ref.valid.sum()) > M // 20, f"too few matches in D{tag}")
+    record("hamming_match" + tag, "plslam_tpu_torch/csrc/hamming.cu",
+           "plslam_tpu/ops/hamming.py:57", list(got), list(ref), 0.0,
+           lambda: hamming.match_nnr(dist, 80, 0.75),
+           lambda: hamming.match_nnr_plain(dist, 80, 0.75),
+           N * M * 4 + N * 9, N * M * 4, entry="hamming_match")
+
+
+# ATE bound of the SLAM path (m), its keyframe count and keyframe frames:
+# the port's own CPU run of the same frames (``--cpu-ate``: the plain
+# versions, device="cpu"); the bound leaves a margin of 2x plus 2 cm
+SLAM_ATE_CPU_MEASURED = 0.03783400356687165
+SLAM_KF_FRAMES_CPU = [3, 7, 11, 15, 20, 24, 28, 32, 40, 44, 48, 52, 60, 64,
+                      68, 72, 80, 84, 88, 92]
+SLAM_CHUNKS = 5
+THRESHOLD_MARGIN = 1e-4
+
+
+def slam_scene():
+    """bench_slam.py's scene (seed 0, loop, 400 points, 60 lines, noise
+    0.004, step 0.15) at the full KITTI width, cut to 1 + 5 x 20 frames,
+    as uint8 frames the way bench_slam.py feeds them."""
+    from plslam_tpu_torch.config import SlamConfig
+    from plslam_tpu_torch.core.camera import StereoCamera
+    from plslam_tpu_torch.io import synthetic
+    cfg = SlamConfig().with_updates({"loop": {"enabled": False}})
+    cam = StereoCamera.from_config(cfg.camera)
+    n = 1 + SLAM_CHUNKS * CHUNK
+    t0 = time.perf_counter()
+    seq = synthetic.make_sequence(cam, n_frames=n, seed=0, kind="loop",
+                                  n_points=400, n_lines=60, noise=0.004,
+                                  step=0.15)
+    u8 = lambda a: np.clip(a * 255.0 + 0.5, 0, 255).astype(np.uint8)
+    print(f"[slam] rendered {n} frames in {time.perf_counter() - t0:.1f} s "
+          "(host)", flush=True)
+    return cfg, cam, seq, u8(np.asarray(seq.images_l)), u8(
+        np.asarray(seq.images_r))
+
+
+def drive_slam(slam, il, ir, dev_chunks=None):
+    slam.initialize(il[0], ir[0])
+    for c in range(SLAM_CHUNKS):
+        lo = 1 + c * CHUNK
+        if dev_chunks is not None:
+            slam.process_chunk(dev_chunks[c])
+        else:
+            slam.process_chunk(il[lo:lo + CHUNK], ir[lo:lo + CHUNK])
+    return slam.finish()
+
+
+def decisions(slam, cfg):
+    """Per frame: (keyframe flag, margin of its closest threshold)."""
+    rows = np.concatenate(slam.frame_rows)
+    k = cfg.keyframe
+    T = rows[:, 16:32].reshape(-1, 4, 4).astype(np.float64)
+    t = np.linalg.norm(T[:, :3, 3], axis=-1)
+    r = np.arccos(np.clip((np.trace(T[:, :3, :3], axis1=1, axis2=2) - 1)
+                          * 0.5, -1, 1))
+    ratio = rows[:, 36]
+    margin = np.minimum(np.abs(np.nan_to_num(ratio - k.min_entropy_ratio,
+                                             nan=np.inf)),
+                        np.minimum(np.abs(t - k.max_kf_t_dist),
+                                   np.abs(r - np.deg2rad(k.max_kf_r_dist))))
+    return rows[:, 33] > 0.5, rows[:, 32] > 0.5, margin
+
+
+def expected_slam_launches(n_kfs: int, n_lba: int) -> dict:
+    """Launches of the SLAM path: initialize (one extraction and one
+    keyframe insertion), 5 chunks (extraction, tracking with 4 GN phases,
+    kf_scan), every keyframe's insertion (a medoid and a map match for
+    points and for lines) and every window LBA (6 LM iterations: per
+    iteration one step of 6 launches and a trial cost of 2, plus the
+    initial cost and the post-hoc flags)."""
+    from collections import Counter
+    n = Counter()
+    iters = 6
+    per_kf = {"medoid": 2, "hamming_dist": 2, "hamming_match": 2}
+    per_lba = {"lba_terms": 2 * iters + 2, "lba_sigma": 2 * iters + 2,
+               "lba_camera": iters, "lba_bin": iters, "lba_schur": iters,
+               "lba_backsub": iters}
+    per_chunk = {"pose_gn_iters": 4, "kf_scan": 1}
+    for table, times in ((EXTRACT_POINTS, SLAM_CHUNKS + 1),
+                         (EXTRACT_LINES, SLAM_CHUNKS + 1),
+                         (TRACK, 2 * SLAM_CHUNKS), (per_chunk, SLAM_CHUNKS),
+                         (per_kf, n_kfs), (per_lba, n_lba)):
+        for k, v in table.items():
+            n[k] += v * times
+    return dict(n)
+
+
+def slam_path(dev):
+    """FusedPLSLAM (loops off) on the 101 frames: a warm-up run, then the
+    timed run with device-resident chunks; returns (launches, slam)."""
+    import torch
+    from plslam_tpu_torch import native
+    from plslam_tpu_torch.backend.chunk_backend import lba_slot_flags
+    from plslam_tpu_torch.backend.fused_slam import FusedPLSLAM
+    from plslam_tpu_torch.utils.evaluation import ate_rmse
+
+    cfg, cam, seq, il, ir = slam_scene()
+    dev_chunks = [torch.from_numpy(np.stack([il[lo:lo + CHUNK],
+                                             ir[lo:lo + CHUNK]])).to(dev)
+                  for lo in range(1, 1 + SLAM_CHUNKS * CHUNK, CHUNK)]
+    warm = FusedPLSLAM(cfg, cam)
+    warm.initialize(il[0], ir[0])
+    for c in dev_chunks[:2]:
+        warm.process_chunk(c)
+    warm.finish()
+
+    slam = FusedPLSLAM(cfg, cam)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    native.reset_counts()
+    t0 = time.perf_counter()
+    est = drive_slam(slam, il, ir, dev_chunks)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(native.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    n_frames = SLAM_CHUNKS * CHUNK
+    flags, good, margin = decisions(slam, cfg)
+    kf_frames = np.nonzero(flags)[0]
+    ate = float(ate_rmse(est, seq.poses[:len(est)]))
+    recs = slam.summaries
+    kmax = cfg.system.kf_batch
+    n_lba = sum(sum(lba_slot_flags([True] * int(f.sum())
+                                   + [False] * (kmax - int(f.sum())),
+                                   cfg.mapping.lba_kf_stride))
+                for f in np.split(flags, SLAM_CHUNKS))
+    n_pts, n_lns = slam.n_landmarks()
+    print(f"[slam] frames={n_frames} good={int(good.sum())} keyframes="
+          f"{len(recs)} (frames {kf_frames.tolist()}) lba_slots={n_lba} "
+          f"map points={n_pts} lines={n_lns} ate_m={ate:.6f}", flush=True)
+    print(f"[slam] fps={n_frames / wall:.2f} ms_per_frame="
+          f"{1e3 * wall / n_frames:.3f} (host clock, initialize + 5 chunks "
+          f"+ finish, ends in synchronize) max_memory_allocated_bytes={peak}",
+          flush=True)
+    print(f"[slam] smallest keyframe-decision margin {margin.min():.6g} "
+          f"(frame {int(np.argmin(margin))})", flush=True)
+    lba_recs = [r for r in recs if r.lba_cost0 != 0.0]
+    costs = [(r.lba_cost0, r.lba_cost1) for r in lba_recs]
+    print(f"[slam] lba cost0 -> cost1 per LBA slot: {costs}", flush=True)
+    print(f"[slam] launches={json.dumps(launches, sort_keys=True)}",
+          flush=True)
+    check(bool(good.all()), f"slam: frames not tracked: "
+          f"{np.nonzero(~good)[0]}")
+    if SLAM_ATE_CPU_MEASURED is not None:
+        bound_m = 2 * SLAM_ATE_CPU_MEASURED + 0.02
+        check(math.isfinite(ate) and ate < bound_m,
+              f"slam: ATE {ate} m outside its bound {bound_m} m")
+    if SLAM_KF_FRAMES_CPU is not None:
+        cpu = np.zeros(n_frames, bool)
+        cpu[SLAM_KF_FRAMES_CPU] = True
+        differ = np.nonzero(cpu != flags)[0]
+        if differ.size:
+            first = int(differ[0])
+            print(f"[slam] first keyframe decision that differs from the CPU "
+                  f"run: frame {first}, margin {margin[first]:.6g}",
+                  flush=True)
+        check(len(kf_frames) == int(cpu.sum())
+              or (differ.size and margin[differ[0]] <= THRESHOLD_MARGIN),
+              f"slam: {len(kf_frames)} keyframes, the CPU run "
+              f"{int(cpu.sum())}")
+    check(n_lba >= 1 and len(lba_recs) == n_lba,
+          f"slam: {n_lba} LBA slots, {len(lba_recs)} with costs")
+    check(all(r.lba_cost1 <= r.lba_cost0 for r in lba_recs),
+          "slam: an LBA raised its cost")
+    check(n_pts > 0 and n_lns > 0, "slam: empty map")
+    want = expected_slam_launches(1 + len(recs), n_lba)
+    check(launches == want, f"slam: launches {launches} differ from the "
+          f"path's {want}")
+    return launches, slam
+
+
+def lba_window_problem(dev, cfg, cam, seed=5):
+    """A well-conditioned window problem at the SLAM path's LBA shapes
+    (W = window_kfs + fixed_kfs = 10 poses, K = 1024, L = 128, P = 4096
+    points, Q = 1024 endpoints of 512 lines), built as
+    tests/test_lba.py::make_lba_problem builds its own: each KF sees a
+    sliding run of the landmark ids, so every landmark has two or three
+    observations, all inside the 1241x376 image; 0.3 px of noise, 10% of the observations detached, the
+    oldest fixed_kfs KFs fixed and exact, the free ones perturbed by 0.03
+    (rad, m) and the landmarks by 5 cm. Its MAD scale stays far above the
+    1e-4 floor."""
+    import torch
+    from plslam_tpu_torch.backend import lba
+    from plslam_tpu_torch.core import lie
+    m = cfg.mapping
+    W = m.window_kfs + m.fixed_kfs
+    K, L = cfg.points.max_kpts, cfg.lines.max_lines
+    P, M = m.lba_max_points, m.lba_max_lines
+    rng = np.random.default_rng(seed)
+    u = lambda lo, hi, n: rng.uniform(lo, hi, n)
+    # in the frustum of every KF: the last is 2.7 m further on
+    frustum = lambda n, z: np.stack([z * u(-0.4, 0.4, n),
+                                     z * u(-0.15, 0.15, n), z], -1)
+    pts = frustum(P, u(8, 40, P))
+    eps = frustum(2 * M, u(8, 40, 2 * M))
+    xi = np.array([[0.05 * w, 0.01 * w, -0.3 * w, 0.0, 0.015 * w, 0.0]
+                   for w in range(W)], np.float32)
+    poses = lie.exp_se3(torch.from_numpy(xi)).numpy().astype(np.float64)
+    noisy = lambda a: a + 0.3 * rng.normal(size=a.shape)
+
+    def proj(T, X):
+        Pc = X @ T[:3, :3].T + T[:3, 3]
+        return np.stack([cam.fx * Pc[:, 0] / Pc[:, 2] + cam.cx,
+                         cam.fy * Pc[:, 1] / Pc[:, 2] + cam.cy], -1), Pc[:, 2]
+    obs_id = np.stack([(w * (P // W) + np.arange(K)) % P for w in range(W)])
+    lines = np.stack([(w * (M // W) + np.arange(L)) % M for w in range(W)])
+    uv, disp, les = [], [], []
+    for w, T in enumerate(poses):
+        uv_w, z = proj(T, pts[obs_id[w]])
+        uv.append(noisy(uv_w))
+        disp.append(noisy(cam.fx * cam.b / z))
+        sp = noisy(proj(T, eps[2 * lines[w]])[0])
+        ep = noisy(proj(T, eps[2 * lines[w] + 1])[0])
+        le = np.stack([sp[:, 1] - ep[:, 1], ep[:, 0] - sp[:, 0],
+                       sp[:, 0] * ep[:, 1] - sp[:, 1] * ep[:, 0]], -1)
+        les.append(le / np.linalg.norm(le[:, :2], axis=-1, keepdims=True))
+    obs_id[rng.random(obs_id.shape) < 0.1] = -1
+    sid = 2 * lines
+    sid[rng.random(sid.shape) < 0.1] = -1
+    eid = np.where(sid >= 0, sid + 1, -1)
+    fixed = np.arange(W) < m.fixed_kfs
+    dpose = rng.normal(size=(W, 6)) * 0.03
+    dpose[fixed] = 0.0
+    kf_pose = (lie.exp_se3(torch.from_numpy(dpose.astype(np.float32))).numpy()
+               @ poses.astype(np.float32))
+    t = lambda a, dt=torch.float32: torch.from_numpy(np.asarray(a)).to(
+        dev).to(dt)
+    i32 = torch.int32
+    return lba.LBAProblem(
+        kf_pose=t(kf_pose), kf_fixed=t(fixed, torch.bool),
+        kf_valid=t(np.ones(W, bool), torch.bool),
+        pt_pos=t(pts + 0.05 * rng.normal(size=pts.shape)),
+        ep_pos=t(eps + 0.05 * rng.normal(size=eps.shape)),
+        obs_pt_uv=t(np.stack(uv)), obs_pt_disp=t(np.stack(disp)),
+        obs_pt_id=t(obs_id, i32), obs_ln_le=t(np.stack(les)),
+        obs_ln_sid=t(sid, i32), obs_ln_eid=t(eid, i32))
+
+
+def _rel_d(a, c) -> float:
+    """Largest entry of |a - c| over c's largest magnitude, in float64."""
+    return float((a.double() - c.double()).abs().max()
+                 / c.double().abs().max().clamp(min=1e-30))
+
+
+def _as_f64(nt):
+    """A NamedTuple of tensors with its float fields in float64."""
+    return type(nt)(*(x.double() if x.is_floating_point() else x
+                      for x in nt))
+
+
+# K15 on the well-conditioned window: each float output's distance from
+# the plain version run in float64 on the card, relative to the output's
+# largest magnitude, is held to F64_FACTOR times the plain version's own
+# distance plus F64_FLOOR; so is its distance from the plain version. That
+# bound must stay a tenth of what it measures: of 1 for the outputs of
+# one LM step, and of how far run_lba moved each state.
+F64_FACTOR = 3.0
+F64_FLOOR = 1e-5
+
+
+def lba_phase(dev, record, slam):
+    """Kernel K (K15) on two window problems at the path's shapes.
+
+    ``lba_window_problem`` (well conditioned): each launch against its
+    plain version on the card (the JSON rows), one LM step and one whole
+    ``run_lba``; the Schur pass, the back-substitution, the step and
+    ``run_lba`` are held against the plain version in float64 as
+    ``F64_FACTOR`` says.
+
+    The SLAM run's final window: one whole ``run_lba``, kernels against
+    plain versions, holding the cost (not raised; the kernels' final cost
+    within a tenth of the plain run's decrease of the plain run's) and the
+    inlier flags. Its MAD scale sits at the 1e-4 floor (most window
+    landmarks have one exactly triangulated observation), so the step is
+    ill conditioned: f32 in any summation order lands far from float64.
+    The script prints that, the Schur gradient's distances from float64
+    and how far the LBA moved the state, but holds no state tolerance
+    there."""
+    import torch
+    from plslam_tpu_torch.backend import lba
+    from plslam_tpu_torch.backend.map_handler import _build_window_problem
+    cfg, cam = slam.cfg, slam.cam
+    prob = lba_window_problem(dev, cfg, cam)
+    W, K = prob.obs_pt_id.shape
+    L = prob.obs_ln_sid.shape[1]
+    P, Q = prob.pt_pos.shape[0], prob.ep_pos.shape[0]
+    n_lm, NP, NL = P + Q, W * K, W * L
+    src, rep = "plslam_tpu_torch/csrc/lba.cu", "plslam_tpu/backend/lba.py:"
+    n_obs = int((prob.obs_pt_id >= 0).sum()) + int(
+        (prob.obs_ln_sid >= 0).sum()) * 2
+    print(f"[lba] window problem: W={W} K={K} L={L} P={P} Q={Q}, "
+          f"{n_obs} observations attached", flush=True)
+    rel = "relative to each output's largest magnitude"
+
+    def scaled(got, ref, keep=()):
+        """Float outputs relative to the plain one's largest magnitude,
+        but for those in ``keep``."""
+        s = [r.abs().max().clamp(min=1e-30)
+             if r.is_floating_point() and i not in keep else None
+             for i, r in enumerate(ref)]
+        return ([g / x if x is not None else g for g, x in zip(got, s)],
+                [r / x if x is not None else r for r, x in zip(ref, s)])
+
+    t = lba.lba_terms(prob, cam)
+    tp = lba.lba_terms_plain(prob, cam)
+    # residuals and norms in px: each cancels projections of up to 1241
+    # px, where an f32 ulp is 1.2e-4 px and the two versions' roundings
+    # differ by up to a few ulps, so 4e-4 px; Jacobians relative;
+    # validity exact
+    g_, r_ = scaled(list(t), list(tp), keep=(0, 4, 5))
+    record("lba_terms", src, rep + "79", g_, r_,
+           [4e-4, 1e-5, 1e-5, 0.0, 4e-4, 4e-4, 1e-5, 1e-5, 0.0],
+           lambda: lba.lba_terms(prob, cam),
+           lambda: lba.lba_terms_plain(prob, cam),
+           W * 64 + (P + Q) * 12 + NP * 16 + NL * 20
+           + NP * (12 + 72 + 36 + 1 + 4) + 2 * NL * (4 + 24 + 12 + 1),
+           NP * 120 + 2 * NL * 70,
+           err_kind="r_pt, rn, r_ln in px; Jacobians " + rel)
+    sig = lba.lba_sigma(tp, prob)
+    sig_p = lba.lba_sigma_plain(tp, prob)
+    check(float(sig_p[0]) > 100 * 1e-4,
+          f"lba: the window's MAD scale {float(sig_p[0])} is near its floor")
+    record("lba_sigma", src, rep + "142", list(sig), list(sig_p),
+           [1e-6 * float(sig_p[0]), 1e-5 * float(sig_p[1])],
+           lambda: lba.lba_sigma(tp, prob),
+           lambda: lba.lba_sigma_plain(tp, prob),
+           (NP + 2 * NL) * 9 + 8,
+           sort_compares(NP + 2 * NL) + (NP + 2 * NL) * 10,
+           err_kind="sigma, cost; tolerance 1e-6, 1e-5 of each")
+    free = lba._free(prob)
+    lam = torch.tensor(cfg.mapping.lambda_init, device=dev)
+    sigma = sig_p[0]
+    b = lba.lba_blocks(tp, prob, sigma, free, lam)
+    bp = lba.lba_blocks_plain(tp, prob, sigma, free, lam)
+    g_, r_ = scaled(list(b[2:]), list(bp[2:]))
+    ids = torch.clamp(prob.obs_pt_id.reshape(-1), min=0).long()
+    payload = torch.randn((NP, 30), device=dev)
+    record("lba_bin", src, rep + "182", g_, r_, [1e-5, 1e-3, 1e-5, 1e-5],
+           lambda: lba.lba_bin(tp, prob, sigma, free, lam),
+           lambda: lba.lba_bin_plain(tp, prob, sigma, free, lam),
+           (NP + 2 * NL) * 4 + NP * (72 + 36 + 12 + 5) + 2 * NL * (40 + 1)
+           + n_lm * 21 * 4 + W * n_lm * 72,
+           NP * 180 + 2 * NL * 80 + n_lm * 60,
+           lambda: torch.zeros((P, 30), device=dev).index_add_(0, ids,
+                                                                payload),
+           err_kind="H_ll, H_inv, g_l, H_cl " + rel)
+    b64 = _as_f64(bp)
+
+    def f64_gauge(name, got, ref, truth, typical=None):
+        """Prints each output's distances (kernel from float64, plain from
+        float64, kernel from plain); with ``typical``, holds the first and
+        the last to F64_FACTOR x the second + F64_FLOOR, a bound that must
+        stay under a tenth of ``typical``. Returns the bounds."""
+        d_k = [_rel_d(g, x) for g, x in zip(got, truth)]
+        d_p = [_rel_d(r, x) for r, x in zip(ref, truth)]
+        d_kp = [_rel_d(g, r) for g, r in zip(got, ref)]
+        tols = [F64_FACTOR * p + F64_FLOOR for p in d_p]
+        fmt = lambda xs: [f"{x:.3g}" for x in xs]
+        print(f"[lba] {name} ({rel}): kernel from float64 {fmt(d_k)}, plain "
+              f"from float64 {fmt(d_p)}, kernel from plain {fmt(d_kp)}; "
+              f"bound {fmt(tols)}"
+              + ("" if typical is None else f", against {fmt(typical)}"),
+              flush=True)
+        if typical is not None:
+            check(all(k <= t and kp <= t and t <= 0.1 * x for k, kp, t, x
+                      in zip(d_k, d_kp, tols, typical)),
+                  f"{name}: kernel from float64 {d_k}, from plain {d_kp}, "
+                  f"bound {tols}, against {typical}")
+        return tols
+
+    # the sums over observations (camera blocks, Schur pass, back-
+    # substitution) are held against float64 sums of the same f32 inputs
+    tols = f64_gauge("lba_camera (H_cc, g_c)", b[:2], bp[:2],
+                     lba.lba_camera_plain(_as_f64(tp), sigma.double(), free),
+                     [1, 1])
+    g_, r_ = scaled(list(b[:2]), list(bp[:2]))
+    record("lba_camera", src, rep + "226", g_, r_, tols,
+           lambda: lba.lba_camera(tp, sigma, free),
+           lambda: lba.lba_camera_plain(tp, sigma, free),
+           NP * (72 + 12 + 5) + 2 * NL * (24 + 5) + W * 168,
+           NP * 3 * 27 * 2 + 2 * NL * 27 * 2,
+           err_kind=rel + f", tolerance {F64_FACTOR:g}x the plain one's "
+           f"distance from float64 + {F64_FLOOR:g}")
+    Sm, gm = lba.lba_schur(bp, free, lam)
+    Sp, gp = lba.lba_schur_plain(bp, free, lam)
+    nz = (bp.H_cl.abs().amax(dim=(2, 3)) > 0).float()          # (W, n)
+    n_pairs = int((nz @ nz.T).sum())
+    tols = f64_gauge("lba_schur (S, g)", [Sm, gm], [Sp, gp],
+                     lba.lba_schur_plain(b64, free, lam.double()), [1, 1])
+    g_, r_ = scaled([Sm, gm], [Sp, gp])
+    record("lba_schur", src, rep + "270", g_, r_, tols,
+           lambda: lba.lba_schur(bp, free, lam),
+           lambda: lba.lba_schur_plain(bp, free, lam),
+           W * n_lm * 72 + n_lm * 48 + W * 168 + (6 * W) ** 2 * 4,
+           n_pairs * 2 * (54 + 108),
+           err_kind=rel + f", tolerance {F64_FACTOR:g}x the plain one's "
+           f"distance from float64 + {F64_FLOOR:g}")
+    dxi, _, _ = lba._assemble_and_solve(prob, cam, lam)
+    got = lba.lba_backsub(bp, dxi, P)
+    ref = lba.lba_backsub_plain(bp, dxi, P)
+    tols = f64_gauge("lba_backsub (dxi, d_pt, d_ep)", got, ref,
+                     lba.lba_backsub_plain(b64, dxi.double(), P), [1, 1, 1])
+    g_, r_ = scaled(got, ref)
+    record("lba_backsub", src, rep + "303", g_, r_, tols,
+           lambda: lba.lba_backsub(bp, dxi, P),
+           lambda: lba.lba_backsub_plain(bp, dxi, P),
+           W * n_lm * 72 + n_lm * (36 + 12 + 36 + 12) + W * 48,
+           n_lm * (W * 36 + 40),
+           err_kind=rel + f", tolerance {F64_FACTOR:g}x the plain one's "
+           f"distance from float64 + {F64_FLOOR:g}")
+    # the library's dense solve between lba_schur and lba_backsub
+    solve_ms = cuda_ms(lambda: torch.linalg.solve_ex(Sp, gp[:, None]), 20)
+    print(f"[lba] torch.linalg.solve_ex of the {6 * W}x{6 * W} reduced "
+          f"system: {solve_ms:.4f} ms", flush=True)
+
+    # one LM step and one whole run_lba, kernels against plain versions
+    p64 = _as_f64(prob)
+    step = lba._step(prob, cam, lam, lba._KERNELS)
+    step_p = lba._step(prob, cam, lam, lba._PLAIN)
+    step_t = lba._step(p64, cam, lam, lba._PLAIN)
+    f64_gauge("one LM step (dxi, d_pt, d_ep)", step, step_p, step_t,
+              [1, 1, 1])
+    fields = ("kf_pose", "pt_pos", "ep_pos")
+    res, res_p = lba.run_lba(prob, cam, cfg), lba.run_lba_plain(prob, cam, cfg)
+    res_t = lba.run_lba_plain(p64, cam, cfg)
+    moved = [_rel_d(getattr(res_t, f), getattr(prob, f)) for f in fields]
+    same_inl = float((res.obs_pt_inlier == res_p.obs_pt_inlier).float().mean())
+    print(f"[lba] run_lba: cost {float(res.cost0):.6g} -> "
+          f"{float(res.cost1):.6g} (plain {float(res_p.cost1):.6g}, float64 "
+          f"{float(res_t.cost1):.6g}); point inlier flags identical "
+          f"{same_inl:.5f}", flush=True)
+    f64_gauge("run_lba (poses, points, endpoints; bound against how far "
+              "it moved each)", [getattr(res, f) for f in fields],
+              [getattr(res_p, f) for f in fields],
+              [getattr(res_t, f) for f in fields], moved)
+    check(float(res.cost1) < float(res.cost0), "run_lba did not lower the "
+          "cost")
+    check(same_inl >= 0.999, "run_lba's inlier flags differ from the plain "
+          f"version's: {same_inl}")
+
+    # the SLAM run's final window
+    prob, _ = _build_window_problem(slam.state, cam, cfg)
+    n_obs = int((prob.obs_pt_id >= 0).sum()) + int(
+        (prob.obs_ln_sid >= 0).sum()) * 2
+    p64 = _as_f64(prob)
+    step_p = lba._step(prob, cam, lam, lba._PLAIN)
+    step_t = lba._step(p64, cam, lam, lba._PLAIN)
+    tp = lba.lba_terms_plain(prob, cam)
+    sig_w = lba.lba_sigma_plain(tp, prob)[0]
+    bp = lba.lba_blocks_plain(tp, prob, sig_w, lba._free(prob), lam)
+    b64 = _as_f64(bp)
+    free = lba._free(prob)
+    f64_gauge("SLAM window lba_schur (S, g)",
+              list(lba.lba_schur(bp, free, lam)),
+              list(lba.lba_schur_plain(bp, free, lam)),
+              lba.lba_schur_plain(b64, free, lam.double()))
+    res, res_p = lba.run_lba(prob, cam, cfg), lba.run_lba_plain(prob, cam, cfg)
+    res_t = lba.run_lba_plain(p64, cam, cfg)
+    d_run = [_rel_d(getattr(res, f), getattr(res_p, f)) for f in fields]
+    moved = [_rel_d(getattr(res_p, f), getattr(prob, f)) for f in fields]
+    same_inl = float((res.obs_pt_inlier == res_p.obs_pt_inlier).float().mean())
+    c0, c1, c1_p = float(res.cost0), float(res.cost1), float(res_p.cost1)
+    print(f"[lba] SLAM window: {n_obs} observations attached, MAD scale "
+          f"{float(sig_w):.3g}; one LM step, plain vs float64 (dxi, d_pt, "
+          f"d_ep; {rel}) "
+          f"{[f'{_rel_d(c, x):.3g}' for c, x in zip(step_p, step_t)]}; "
+          f"run_lba cost {c0:.6g} -> {c1:.6g} (plain {c1_p:.6g}, float64 "
+          f"{float(res_t.cost1):.6g}); poses, points, endpoints: kernel vs "
+          f"plain {[f'{x:.3g}' for x in d_run]}, moved by "
+          f"{[f'{x:.3g}' for x in moved]}; point inlier flags identical "
+          f"{same_inl:.5f}", flush=True)
+    check(c1 <= c0, "run_lba raised the SLAM window's cost")
+    check(abs(c1 - c1_p) <= 0.1 * (float(res_p.cost0) - c1_p),
+          f"run_lba on the SLAM window: final cost {c1} against the plain "
+          f"run's {c1_p} from {float(res_p.cost0)}")
+    check(same_inl >= 0.999, "run_lba's inlier flags on the SLAM window "
+          f"differ from the plain version's: {same_inl}")
+
+
 def main() -> int:
     if sys.argv[1:] == ["--cpu-ate"]:
         cpu_reference_ate()
@@ -798,19 +1455,22 @@ def main() -> int:
     record = Recorder()
     kernel_phase(images, record)
     line_kernel_phase(images, cfg, record)
-    entries = set(r["entry"] for r in record.rows)
-    check(entries == set(native._SIGNATURES),
-          f"kernels not checked: {set(native._SIGNATURES) - entries}")
     del images
+    slam_kernel_phase(dev, record)
 
-    # 4. the flagship main path, the points-only path, then card-vs-CPU
-    # agreement on small scenes
-    launches = main_path(dev, lines=True)
+    # 4. the flagship VO path, the points-only path, card-vs-CPU agreement
+    # on small scenes, then the SLAM path and K15 on its final map
+    main_path(dev, lines=True)
     main_path(dev, lines=False)
     small_agreement(dev)
     small_line_agreement(dev)
+    launches, slam = slam_path(dev)
+    lba_phase(dev, record, slam)
+    entries = set(r["entry"] for r in record.rows)
+    check(entries == set(native._SIGNATURES),
+          f"kernels not checked: {set(native._SIGNATURES) - entries}")
 
-    # 5. results
+    # 5. results: launches from the SLAM path, which runs every kernel
     rows = record.rows
     for r in rows:
         r["launches"] = launches[r["entry"]]

@@ -1,8 +1,9 @@
 """plslam_tpu_torch — the PyTorch + CUDA (Hopper) port of plslam_tpu.
 
-Slice 1: points-only chunked stereo VO (``tracking.batch_vo``). The JAX
-package ``plslam_tpu`` is the reference; this package imports nothing of
-it (nor of JAX) and keeps its own copies of the numpy-only modules.
+The chunked stereo VO with and without lines (``tracking.batch_vo``) and
+the fused SLAM chunk without loop closure (``backend.fused_slam``). The
+JAX package ``plslam_tpu`` is the reference; this package imports nothing
+of it (nor of JAX) and keeps its own copies of the numpy-only modules.
 
 Entry points run on the CUDA device unless the caller passes
 ``device="cpu"``. Hot ops are hand-written CUDA kernels

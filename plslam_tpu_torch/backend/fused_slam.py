@@ -1,0 +1,403 @@
+"""The fused SLAM chunk: tracking, the keyframe criterion and the back end
+of a B-frame chunk in one step, without loop closure.
+
+Port of ``plslam_tpu/backend/fused_slam.py`` with ``loop.enabled=False``
+(the CLI's ``--no-loops``): ``CritCarry``, ``init_crit_carry``,
+``kf_scan`` (K14), the fused step, the packed host block and
+``FusedPLSLAM``. Per chunk: the front end over the 2B images, the batched
+tracking of the B pairs (``batch_vo._chunk_tracking_batched``), the
+keyframe criterion as kernel J's ``kf_scan`` launch on CUDA tensors
+(``kf_scan_plain`` for CPU tensors), then the keyframes through
+``chunk_backend.backend_slots``. The step fetches the chunk's keyframe
+flags (B bytes) to know which slots run; everything else stays on the
+device until the settle fetches the one packed host block.
+
+Not ported yet (they raise): loop closure (``enable_loops=True``, the loop
+slice: ``loop/``, K17, K18 and the BoW probe of the step), KF-slot
+compaction (the compaction slice: ``force_retire_kfs``,
+``compact_keyframes``) and ``save_checkpoint`` / ``resume``.
+"""
+
+from __future__ import annotations
+
+import warnings
+from typing import List, NamedTuple, Optional, Tuple
+
+import numpy as np
+import torch
+
+from plslam_tpu_torch import native, resolve_device
+from plslam_tpu_torch.backend.chunk_backend import backend_slots
+from plslam_tpu_torch.backend.map import init_map_state
+from plslam_tpu_torch.backend.map_handler import (KeyFrameSummary,
+                                                  mapping_step_traced_lba)
+from plslam_tpu_torch.config import SlamConfig
+from plslam_tpu_torch.core import lie
+from plslam_tpu_torch.core.camera import StereoCamera
+from plslam_tpu_torch.frontend.stereo_frame import extract_stereo_frame
+from plslam_tpu_torch.tracking.batch_vo import (_chunk_tracking_batched,
+                                                _frame, _to_f32, extract_one)
+
+
+class CritCarry(NamedTuple):
+    """Keyframe-criterion state across chunks (device tensors)."""
+    cov_kf: torch.Tensor      # (6, 6) compounded covariance since last KF
+    have_cov: torch.Tensor    # () bool — cov_kf holds data
+    ef: torch.Tensor          # () entropy at the first post-KF frame
+    have_ef: torch.Tensor     # () bool
+    frames: torch.Tensor      # () int32 frames since the last KF
+    T_acc: torch.Tensor       # (4, 4) pose of the frame rel. the last KF
+    last_step: torch.Tensor   # (4, 4) last good relative step (fallback)
+
+
+def init_crit_carry(device) -> CritCarry:
+    f32 = torch.float32
+    return CritCarry(
+        cov_kf=torch.zeros((6, 6), dtype=f32, device=device),
+        have_cov=torch.zeros((), dtype=torch.bool, device=device),
+        ef=torch.zeros((), dtype=f32, device=device),
+        have_ef=torch.zeros((), dtype=torch.bool, device=device),
+        frames=torch.zeros((), dtype=torch.int32, device=device),
+        T_acc=torch.eye(4, dtype=f32, device=device),
+        last_step=torch.eye(4, dtype=f32, device=device))
+
+
+def _r_cap(cfg: SlamConfig) -> float:
+    return float(np.float32(np.deg2rad(cfg.keyframe.max_kf_r_dist)))
+
+
+def kf_scan_plain(DT, cov, good, carry: CritCarry, cfg: SlamConfig,
+                  kmax: int):
+    k = cfg.keyframe
+    r_cap = _r_cap(cfg)
+    c = carry
+    dev = DT.device
+    eye4 = torch.eye(4, dtype=torch.float32, device=dev)
+    n_fired = torch.zeros((), dtype=torch.int32, device=dev)
+    flags, T_accs, ratios, blocked = [], [], [], []
+    for i in range(DT.shape[0]):
+        step = torch.where(good[i], DT[i], c.last_step)
+        Adj = lie.adjoint_se3(DT[i])
+        cov_new = torch.where(c.have_cov, Adj @ c.cov_kf @ Adj.T + cov[i],
+                              cov[i])
+        sign, logdet = torch.linalg.slogdet(cov_new)
+        h = torch.where(sign > 0, 0.5 * logdet, -torch.inf)
+        ef_new = torch.where(c.have_ef, c.ef, h)
+        ratio = torch.where(ef_new != 0.0, h / ef_new, 1.0)
+        T_acc = c.T_acc @ lie.inverse_se3(step)
+        t_dist, r_dist = lie.se3_distance(T_acc)
+        frames = c.frames + 1
+        crit = ((ratio < k.min_entropy_ratio) | (t_dist > k.max_kf_t_dist)
+                | (r_dist > r_cap))
+        want = good[i] & (frames >= k.min_kf_n_frames) & crit
+        is_kf = want & (n_fired < kmax)
+        blocked.append(want & (n_fired >= kmax))
+        flags.append(is_kf)
+        T_accs.append(T_acc)
+        ratios.append(ratio)
+        c = CritCarry(cov_kf=cov_new, have_cov=~is_kf,
+                      ef=torch.where(is_kf, 0.0, ef_new), have_ef=~is_kf,
+                      frames=torch.where(is_kf, 0, frames),
+                      T_acc=torch.where(is_kf, eye4, T_acc), last_step=step)
+        n_fired = n_fired + is_kf.to(torch.int32)
+    return (torch.stack(flags), torch.stack(T_accs), torch.stack(ratios),
+            torch.stack(blocked), c)
+
+
+def kf_scan(DT: torch.Tensor, cov: torch.Tensor, good: torch.Tensor,
+            carry: CritCarry, cfg: SlamConfig, kmax: int):
+    """currFrameIsKF over a tracked chunk: adjoint compounding of the raw
+    per-pair covariances, entropy ratio against the first post-KF frame,
+    t/r caps, min_kf_n_frames, and at most ``kmax`` keyframes a chunk (a
+    further candidate is deferred, the criterion state not reset).
+    Returns (flags (B,), T_accs (B,4,4), ratios (B,), blocked (B,),
+    carry_out); one launch of kernel J for CUDA tensors."""
+    if DT.device.type == "cpu":
+        return kf_scan_plain(DT, cov, good, carry, cfg, kmax)
+    B = DT.shape[0]
+    dev = DT.device
+    k = cfg.keyframe
+    f = lambda x: x.to(torch.float32).contiguous()
+    u8 = lambda x: x.to(torch.uint8).contiguous()
+    args = (f(DT), f(cov), u8(good), f(carry.cov_kf), u8(carry.have_cov),
+            f(carry.ef), u8(carry.have_ef),
+            carry.frames.to(torch.int32).contiguous(), f(carry.T_acc),
+            f(carry.last_step))
+    for name, t, shape in zip(("DT", "cov", "good"), args,
+                              ((B, 4, 4), (B, 6, 6), (B,))):
+        native.require(t, f"kf_scan {name}", t.dtype, shape)
+    e = lambda *s, dt=torch.float32: torch.empty(s, dtype=dt, device=dev)
+    flags, T_accs, ratios, blocked = (e(B, dt=torch.uint8), e(B, 4, 4), e(B),
+                                      e(B, dt=torch.uint8))
+    out = CritCarry(e(6, 6), e(dt=torch.uint8), e(), e(dt=torch.uint8),
+                    e(dt=torch.int32), e(4, 4), e(4, 4))
+    native.launch("kf_scan", *args, flags, T_accs, ratios, blocked, *out, B,
+                  int(k.min_kf_n_frames), int(kmax),
+                  float(k.min_entropy_ratio), float(k.max_kf_t_dist),
+                  _r_cap(cfg))
+    out = out._replace(have_cov=out.have_cov.view(torch.bool),
+                       have_ef=out.have_ef.view(torch.bool))
+    return (flags.view(torch.bool), T_accs, ratios, blocked.view(torch.bool),
+            out)
+
+
+# The packed host block: ONE flat f32 buffer per chunk, fetched once.
+#   per frame (B rows x PF):  [DT flat 16 | T_acc flat 16 | good | flag |
+#                              n_inliers | err | ratio | blocked]
+#   per slot (kmax rows x PS): [valid | frame_idx | pose flat 16 | stats 7]
+#   then the kf_pose snapshot (F*16). The reference's loop-probe scores
+#   and covisibility rows join the block with the loop slice.
+_PF = 38
+_PS = 25
+
+
+def fused_step(imgs: torch.Tensor, prev_pts, prev_lns, T_prior0, crit,
+               state, cam: StereoCamera, cfg: SlamConfig, kmax: int):
+    """One chunk: imgs (2, B, H, W) stacked left/right, uint8 or f32 ->
+    (host_blk, state, crit, last_pts, last_lns, DT_next)."""
+    pts, lns = extract_stereo_frame(_to_f32(imgs[0]), _to_f32(imgs[1]), cam,
+                                    cfg)
+    out = _chunk_tracking_batched(pts, lns, prev_pts, prev_lns, T_prior0,
+                                  cam, cfg)
+    B = out.DT.shape[0]
+    dev = out.DT.device
+    flags, T_accs, ratios, blocked, crit2 = kf_scan(
+        out.DT, out.cov, out.good, crit, cfg, kmax)
+    # the step's one wait: which frames are keyframes (B bytes)
+    fired = np.nonzero(flags.cpu().numpy())[0][:kmax]
+    frame_idx = [int(i) for i in fired] + [0] * (kmax - len(fired))
+    kf_valid = [True] * len(fired) + [False] * (kmax - len(fired))
+    eye = torch.eye(4, dtype=torch.float32, device=dev)
+    T_rels = torch.stack([T_accs[i] if v else eye
+                          for i, v in zip(frame_idx, kf_valid)])
+    state, poses, stats = backend_slots(
+        state, pts, lns, frame_idx, kf_valid, T_rels, cam, cfg, kmax)
+    f32 = lambda x: x.to(torch.float32)
+    frame_blk = torch.cat([
+        f32(out.DT).reshape(B, 16), f32(T_accs).reshape(B, 16),
+        f32(out.good)[:, None], f32(flags)[:, None],
+        f32(out.n_inliers)[:, None], f32(out.err)[:, None],
+        f32(ratios)[:, None], f32(blocked)[:, None]], dim=1)
+    slot_blk = torch.cat([
+        torch.tensor(kf_valid, dtype=torch.float32, device=dev)[:, None],
+        torch.tensor(frame_idx, dtype=torch.float32, device=dev)[:, None],
+        poses.reshape(kmax, 16), stats], dim=1)
+    host_blk = torch.cat([frame_blk.reshape(-1), slot_blk.reshape(-1),
+                          f32(state.kf_pose).reshape(-1)])
+    return (host_blk, state, crit2, _frame(pts, -1), _frame(lns, -1),
+            out.DT_next)
+
+
+class FusedPLSLAM:
+    """Single-step-per-chunk full SLAM driver without loop closure:
+    ``initialize`` / ``process_chunk`` / ``finish``, plus ``summaries``,
+    ``online_pose``, ``kf_poses`` and ``n_landmarks``.
+
+    Runs on ``device`` (default: the CUDA device; raises without one).
+    Host chunks are stacked and copied to the device synchronously in
+    ``process_chunk`` and dispatched at once (the reference hands the copy
+    to an upload thread and dispatches a chunk once the next is queued;
+    here the step waits on its keyframe flags anyway, so a queue would buy
+    no overlap); a (2, B, H, W) device tensor is taken as it is."""
+
+    def __init__(self, cfg: SlamConfig, cam: Optional[StereoCamera] = None,
+                 enable_loops: Optional[bool] = None, device=None):
+        self.device = resolve_device(device)
+        self.cfg = cfg
+        self.cam = cam if cam is not None else StereoCamera.from_config(
+            cfg.camera)
+        self.kmax = cfg.system.kf_batch
+        self.enable_loops = (cfg.loop.enabled if enable_loops is None
+                             else enable_loops)
+        if self.enable_loops:
+            raise NotImplementedError(
+                "FusedPLSLAM: loop closure is not ported yet (the loop "
+                "slice: loop/, K17, K18); pass enable_loops=False or "
+                "loop.enabled=False")
+        self.state = init_map_state(cfg, self.device)
+        self._next_slot = 0
+        self._crit = init_crit_carry(self.device)
+        self.prev_pts = None
+        self.prev_lns = None
+        self.DT_prev = torch.eye(4, dtype=torch.float32, device=self.device)
+        self.trajectory: List[np.ndarray] = []
+        self._frame_anchor: List[Tuple[int, np.ndarray]] = []
+        self._kf_slot = -1
+        self._records: List[KeyFrameSummary] = []
+        self._pending: List[Tuple[torch.Tensor, Optional[int]]] = []
+        self._last_step_host = np.eye(4, dtype=np.float32)
+        self._T_wc = np.eye(4, dtype=np.float32)
+        self._last_settled = None
+        self.n_kf_deferral_chunks = 0   # chunks where kf_batch bound
+        # telemetry: the settled per-frame rows of the packed host block
+        # (good, keyframe flag, entropy ratio, pose since the last KF, ...)
+        self.frame_rows: List[np.ndarray] = []
+
+    def _put(self, x) -> torch.Tensor:
+        return torch.as_tensor(x).to(self.device)
+
+    # -- lifecycle -----------------------------------------------------------
+    def initialize(self, img_l, img_r) -> None:
+        # the reference extracts a uint8 first frame UNSCALED (0..255; its
+        # chunks are scaled to [0, 1]): reproduced, so that keyframes and
+        # the map match it on uint8 streams
+        raw = lambda x: self._put(x).to(torch.float32)
+        self.prev_pts, self.prev_lns = extract_one(
+            raw(img_l), raw(img_r), self.cam, self.cfg)
+        self.state = mapping_step_traced_lba(
+            self.state, self.prev_pts, self.prev_lns,
+            torch.eye(4, dtype=torch.float32, device=self.device), self.cam,
+            self.cfg, lba_flag=False)[0]
+        self._next_slot = 1
+        self._kf_slot = 0
+        self.trajectory = [np.eye(4, dtype=np.float32)]
+        self._frame_anchor = [(0, np.eye(4, dtype=np.float32))]
+
+    def process_chunk(self, imgs_l, imgs_r=None,
+                      n_valid: Optional[int] = None) -> None:
+        """Dispatch a (B, H, W) stereo chunk, or a device-resident stacked
+        (2, B, H, W) tensor with ``imgs_r=None``. A chunk's host block is
+        settled once two chunks are in flight (the reference's depth-2
+        settle queue)."""
+        if imgs_r is None:
+            imgs = imgs_l
+        else:
+            imgs = self._put(np.stack([np.asarray(imgs_l),
+                                       np.asarray(imgs_r)]))
+        self._dispatch(imgs, n_valid)
+        if len(self._pending) >= 2:
+            self._settle_one()
+
+    def _dispatch(self, imgs, n_valid):
+        if self.prev_pts is None:
+            raise RuntimeError("call initialize() first")
+        (host_blk, self.state, self._crit, self.prev_pts, self.prev_lns,
+         self.DT_prev) = fused_step(imgs, self.prev_pts, self.prev_lns,
+                                    self.DT_prev, self._crit, self.state,
+                                    self.cam, self.cfg, self.kmax)
+        self._pending.append((host_blk, n_valid))
+
+    def _settle_one(self) -> int:
+        host_ref, n_valid = self._pending.pop(0)
+        host_blk = host_ref.cpu().numpy()              # ONE transfer
+        n_slots = self.kmax
+        F = self.cfg.mapping.max_kfs
+        n_fb = host_blk.size - n_slots * _PS - F * 16
+        fb = host_blk[:n_fb].reshape(-1, _PF)
+        sb = host_blk[n_fb:n_fb + n_slots * _PS].reshape(n_slots, _PS)
+        kf_poses = host_blk[n_fb + n_slots * _PS:].reshape(F, 4, 4)
+        B = fb.shape[0] if n_valid is None else n_valid
+        self.frame_rows.append(fb[:B].copy())
+        DT = fb[:, :16].reshape(-1, 4, 4)
+        T_acc = fb[:, 16:32].reshape(-1, 4, 4)
+        good = fb[:, 32] > 0.5
+        flags = fb[:, 33] > 0.5
+        if (fb[:B, 37] > 0.5).any():
+            # the criterion wanted more than kf_batch KFs this chunk; the
+            # extra candidate fires next chunk (bounded deferral)
+            self.n_kf_deferral_chunks += 1
+            if self.n_kf_deferral_chunks == 1:
+                warnings.warn(
+                    "FusedPLSLAM: keyframe criterion hit the kf_batch cap "
+                    f"({self.kmax}) in a chunk; KF(s) deferred to the next "
+                    "chunk. If this repeats, raise system.kf_batch for this "
+                    "chunk size.")
+        # trajectory integration (fallback to the last good step)
+        n_kfs_new = 0
+        for i in range(B):
+            step = DT[i] if good[i] else self._last_step_host
+            self._T_wc = (self._T_wc @ np.linalg.inv(step)).astype(np.float32)
+            self._last_step_host = step.astype(np.float32)
+            self.trajectory.append(self._T_wc.copy())
+            self._frame_anchor.append(
+                (self._kf_slot, T_acc[i].astype(np.float32)))
+            if flags[i]:
+                self._kf_slot += 1
+                n_kfs_new += 1
+        slots_valid = sb[:, 0] > 0.5
+        poses = sb[:, 2:18].reshape(n_slots, 4, 4)
+        stats = sb[:, 18:25]
+        # tripwires: an inserted KF pose, or any KF pose of the snapshot,
+        # at an insane magnitude means state corruption upstream
+        for j in np.nonzero(slots_valid)[0]:
+            pm = float(np.abs(poses[j][:3, 3]).max())
+            if pm > 1e3:
+                print(f"[fused_slam] WARNING: settled KF slot "
+                      f"{int(stats[j, 6])} (frame ~{len(self.trajectory)}) "
+                      f"pose |t|={pm:.3g} — state corruption upstream of "
+                      "insertion")
+        tmags = np.abs(kf_poses[:max(self._next_slot, 1), :3, 3]).max(-1)
+        if tmags.size and float(tmags.max()) > 1e3:
+            print(f"[fused_slam] WARNING: kf_pose snapshot slot "
+                  f"{int(np.argmax(tmags))} |t|={tmags.max():.3g} at frame ~"
+                  f"{len(self.trajectory)} — map corrupted this chunk")
+        if slots_valid.any():
+            self._next_slot = int(stats[slots_valid, 6].max()) + 1
+        for j in np.nonzero(slots_valid)[0]:
+            self._records.append(KeyFrameSummary(
+                slot=int(stats[j, 6]), T_w_kf=poses[j].astype(np.float32),
+                n_map_matches=int(stats[j, 2]), n_new_points=int(stats[j, 3]),
+                lba_cost0=float(stats[j, 0]), lba_cost1=float(stats[j, 1]),
+                lba_pt_overflow=int(stats[j, 4]),
+                lba_ln_overflow=int(stats[j, 5])))
+        self._last_settled = np.asarray(kf_poses)
+        if self._next_slot >= self.cfg.mapping.max_kfs - 2 * self.kmax:
+            raise RuntimeError(
+                f"FusedPLSLAM: {self._next_slot} KF slots used of max_kfs="
+                f"{self.cfg.mapping.max_kfs}: KF-slot compaction is not "
+                "ported yet (the compaction slice: force_retire_kfs, "
+                "compact_keyframes); raise mapping.max_kfs")
+        return n_kfs_new
+
+    def _settle_all(self):
+        while self._pending:
+            self._settle_one()
+
+    # -- queries -------------------------------------------------------------
+    @property
+    def summaries(self):
+        return list(self._records)
+
+    def online_pose(self, drain: bool = False) -> np.ndarray:
+        """The latest settled KF's pose composed with the tracker's
+        relative chain since it (``drain=True`` settles everything first)."""
+        if drain:
+            self._settle_all()
+        if self._last_settled is None or not self._frame_anchor:
+            return self._T_wc.copy()
+        slot, T_rel = self._frame_anchor[-1]
+        return (self._last_settled[slot] @ T_rel).astype(np.float32)
+
+    def kf_poses(self) -> np.ndarray:
+        n = int(self.state.n_kfs)
+        return self.state.kf_pose[:n].cpu().numpy()
+
+    def n_landmarks(self) -> Tuple[int, int]:
+        return (int(self.state.pt_valid.sum()), int(self.state.ln_valid.sum()))
+
+    def finish(self) -> np.ndarray:
+        """Settle everything and recompose the trajectory from the
+        corrected KF poses and the per-frame relatives."""
+        self._settle_all()
+        kf_poses = self.kf_poses()
+        return np.stack([kf_poses[min(slot, len(kf_poses) - 1)] @ T_rel
+                         for slot, T_rel in self._frame_anchor])
+
+    def save_checkpoint(self, path: str) -> None:
+        raise NotImplementedError(
+            "FusedPLSLAM.save_checkpoint is not ported yet (the checkpoint "
+            "slice: backend/checkpoint.py)")
+
+    @classmethod
+    def resume(cls, path: str, cam=None, enable_loops=None, device=None):
+        raise NotImplementedError(
+            "FusedPLSLAM.resume is not ported yet (the checkpoint slice: "
+            "backend/checkpoint.py)")
+
+    def close(self):
+        if self._pending:
+            warnings.warn(
+                f"FusedPLSLAM.close() with {len(self._pending)} chunk(s) "
+                "not settled — call finish() first to settle them; "
+                "settling now", stacklevel=2)
+            self._settle_all()

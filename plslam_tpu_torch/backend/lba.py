@@ -1,0 +1,529 @@
+"""Local bundle adjustment: robust LM with an explicit Schur complement (K15).
+
+Port of ``plslam_tpu/backend/lba.py``: W window poses (T_cw, updated by
+``T <- exp(dxi) T``), P point landmarks and Q line-endpoint landmarks
+(3x3 blocks each), stereo (u, v, d) point residuals and scalar
+point-to-line endpoint residuals, t-student weights on one joint MAD
+scale, the reduced camera system S = H_cc - sum H_cl H_ll^-1 H_lc with
+the damping of the ORIGINAL H_cc diagonal and the support-gated pins,
+back-substitution with the landmark-move floors, the trust-region caps
+and the lost-observation charge of the cost.
+
+On CUDA tensors each stage is a launch of kernel K (``csrc/lba.cu``):
+``lba_terms`` (residuals, Jacobians, validity, norms per observation),
+``lba_sigma`` (the lower-median MAD scale over all observations and the
+robust cost), ``lba_camera`` (H_cc, g_c per pose), ``lba_bin`` (the
+landmark blocks, damped inverses and H_cl, one warp per landmark scanning
+the observation tables in order: no float atomics), ``lba_schur`` (S and
+the reduced gradient) and ``lba_backsub`` (landmark steps, floors, caps).
+The dense 6W x 6W solve is the library's ``torch.linalg.solve_ex``, as the
+reference calls ``jnp.linalg.solve``. The ``*_plain`` functions are the
+reference's arithmetic in PyTorch (the one-hot binning included, which is
+deterministic on the card too) and run only for CPU tensors.
+
+Landmarks are indexed in one space: points [0, P), endpoints [P, P + Q).
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Tuple
+
+import torch
+
+from plslam_tpu_torch import native
+from plslam_tpu_torch.config import SlamConfig
+from plslam_tpu_torch.core import lie, robust
+from plslam_tpu_torch.core.camera import StereoCamera
+
+_MAX_POSE_STEP = 1.0      # twist-norm cap per LM iteration (m / rad)
+_MAX_LM_STEP = 10.0       # landmark step cap per LM iteration (m)
+PIN_WEIGHT = 1e8
+
+
+class LBAProblem(NamedTuple):
+    """Static-shape LBA inputs (see the reference's LBAProblem)."""
+    kf_pose: torch.Tensor      # (W, 4, 4) T_cw
+    kf_fixed: torch.Tensor     # (W,) bool — contribute residuals, not vars
+    kf_valid: torch.Tensor     # (W,) bool
+    pt_pos: torch.Tensor       # (P, 3) world points
+    ep_pos: torch.Tensor       # (Q, 3) world line endpoints
+    obs_pt_uv: torch.Tensor    # (W, K, 2)
+    obs_pt_disp: torch.Tensor  # (W, K) observed disparity (<= 0: none)
+    obs_pt_id: torch.Tensor    # (W, K) int32 in [-1, P)
+    obs_ln_le: torch.Tensor    # (W, L, 3) normalized observed line eqs
+    obs_ln_sid: torch.Tensor   # (W, L) int32 in [-1, Q)
+    obs_ln_eid: torch.Tensor   # (W, L) int32 in [-1, Q)
+
+
+class LBAResult(NamedTuple):
+    kf_pose: torch.Tensor      # (W, 4, 4) optimized T_cw
+    pt_pos: torch.Tensor       # (P, 3)
+    ep_pos: torch.Tensor       # (Q, 3)
+    cost0: torch.Tensor
+    cost1: torch.Tensor
+    obs_pt_inlier: torch.Tensor  # (W, K) bool
+    obs_ln_inlier: torch.Tensor  # (W, L) bool
+
+
+class LBATerms(NamedTuple):
+    """Per-observation residuals of one problem state."""
+    r_pt: torch.Tensor       # (W, K, 3)
+    Jc_pt: torch.Tensor      # (W, K, 3, 6)
+    Jp_pt: torch.Tensor      # (W, K, 3, 3)
+    ok_pt: torch.Tensor      # (W, K) bool
+    rn: torch.Tensor         # (W, K) point residual norms
+    r_ln: torch.Tensor       # (2, W, L) start / end endpoint residuals
+    Jc_ln: torch.Tensor      # (2, W, L, 6)
+    Jp_ln: torch.Tensor      # (2, W, L, 3)
+    ok_ln: torch.Tensor      # (2, W, L) bool
+
+
+class LandmarkBlocks(NamedTuple):
+    """Normal-equation blocks binned onto the n = P + Q landmarks."""
+    H_cc: torch.Tensor       # (W, 6, 6)
+    g_c: torch.Tensor        # (W, 6)
+    H_ll: torch.Tensor       # (n, 3, 3) undamped
+    H_inv: torch.Tensor      # (n, 3, 3) inverse of the damped block
+    g_l: torch.Tensor        # (n, 3)
+    H_cl: torch.Tensor       # (W, n, 6, 3)
+
+
+def _eye(n, like):
+    return torch.eye(n, dtype=like.dtype, device=like.device)
+
+
+def _point_rj(kf_pose, pt_pos, obs_uv, obs_disp, obs_id, cam: StereoCamera):
+    """Stereo (u, v, d) residuals r (W,K,3), Jc (W,K,3,6), Jp (W,K,3,3),
+    valid (W,K)."""
+    Xw = pt_pos[torch.clamp(obs_id, min=0).long()]
+    R = kf_pose[:, :3, :3]
+    Pc = torch.einsum("wab,wkb->wka", R, Xw) + kf_pose[:, None, :3, 3]
+    ok = (obs_id >= 0) & (Pc[..., 2] > 0.1)
+    uv = cam.project(Pc)
+    z = torch.clamp(Pc[..., 2], min=1e-6)
+    disp = torch.full_like(z, cam.fxb) / z
+    has_d = obs_disp > 0
+    r_d = torch.where(has_d, disp - obs_disp, 0.0)
+    r = torch.where(ok[..., None], torch.cat([uv - obs_uv, r_d[..., None]],
+                                             dim=-1), 0.0)
+    Jproj = cam.project_jacobian(Pc)
+    zz = torch.zeros_like(z)
+    Jd = torch.stack([zz, zz, torch.full_like(z, -cam.fxb) / (z * z)],
+                     dim=-1)[..., None, :]
+    Jd = torch.where(has_d[..., None, None], Jd, 0.0)
+    Jproj3 = torch.cat([Jproj, Jd], dim=-2)
+    Jse3 = torch.cat([_eye(3, Pc).expand(Pc.shape[:-1] + (3, 3)),
+                      -lie.skew(Pc)], dim=-1)
+    Jc = Jproj3 @ Jse3
+    Jp = torch.einsum("wkab,wbc->wkac", Jproj3, R)
+    Jc = torch.where(ok[..., None, None], Jc, 0.0)
+    Jp = torch.where(ok[..., None, None], Jp, 0.0)
+    return r, Jc, Jp, ok
+
+
+def _endpoint_rj(kf_pose, ep_pos, obs_le, obs_id, cam: StereoCamera):
+    """Point-to-line residuals of one endpoint family: r (W,L), Jc
+    (W,L,6), Jp (W,L,3), valid (W,L)."""
+    Xw = ep_pos[torch.clamp(obs_id, min=0).long()]
+    R = kf_pose[:, :3, :3]
+    Pc = torch.einsum("wab,wlb->wla", R, Xw) + kf_pose[:, None, :3, 3]
+    ok = (obs_id >= 0) & (Pc[..., 2] > 0.1)
+    uv = cam.project(Pc)
+    r = (obs_le[..., 0] * uv[..., 0] + obs_le[..., 1] * uv[..., 1]
+         + obs_le[..., 2])
+    r = torch.where(ok, r, 0.0)
+    Jpix = torch.einsum("wli,wlic->wlc", obs_le[..., :2],
+                        cam.project_jacobian(Pc))
+    Jse3 = torch.cat([_eye(3, Pc).expand(Pc.shape[:-1] + (3, 3)),
+                      -lie.skew(Pc)], dim=-1)
+    Jc = torch.einsum("wlc,wlcs->wls", Jpix, Jse3)
+    Jp = torch.einsum("wlc,wcb->wlb", Jpix, R)
+    Jc = torch.where(ok[..., None], Jc, 0.0)
+    Jp = torch.where(ok[..., None], Jp, 0.0)
+    return r, Jc, Jp, ok
+
+
+def lba_terms_plain(problem: LBAProblem, cam: StereoCamera) -> LBATerms:
+    r, Jc, Jp, ok = _point_rj(problem.kf_pose, problem.pt_pos,
+                              problem.obs_pt_uv, problem.obs_pt_disp,
+                              problem.obs_pt_id, cam)
+    rn = torch.sqrt(torch.sum(r * r, dim=-1) + 1e-12)
+    fam = [_endpoint_rj(problem.kf_pose, problem.ep_pos, problem.obs_ln_le,
+                        ids, cam)
+           for ids in (problem.obs_ln_sid, problem.obs_ln_eid)]
+    return LBATerms(r, Jc, Jp, ok, rn, *(torch.stack([a, b])
+                                          for a, b in zip(*fam)))
+
+
+def lba_terms(problem: LBAProblem, cam: StereoCamera) -> LBATerms:
+    """Residuals, Jacobians and validity of every observation."""
+    if problem.kf_pose.device.type == "cpu":
+        return lba_terms_plain(problem, cam)
+    W, K = problem.obs_pt_id.shape
+    L = problem.obs_ln_sid.shape[1]
+    P, Q = problem.pt_pos.shape[0], problem.ep_pos.shape[0]
+    dev = problem.kf_pose.device
+    args = (_f32(problem.kf_pose), _f32(problem.pt_pos), _f32(problem.ep_pos),
+            _f32(problem.obs_pt_uv), _f32(problem.obs_pt_disp),
+            _i32(problem.obs_pt_id), _f32(problem.obs_ln_le),
+            _i32(problem.obs_ln_sid), _i32(problem.obs_ln_eid))
+    for name, x, shape in zip(
+            ("kf_pose", "pt_pos", "ep_pos", "obs_pt_uv", "obs_pt_disp",
+             "obs_pt_id", "obs_ln_le", "obs_ln_sid", "obs_ln_eid"), args,
+            ((W, 4, 4), (P, 3), (Q, 3), (W, K, 2), (W, K), (W, K),
+             (W, L, 3), (W, L), (W, L))):
+        native.require(x, f"lba_terms {name}", x.dtype, shape)
+    e = lambda *s, dt=torch.float32: torch.empty(s, dtype=dt, device=dev)
+    out = LBATerms(e(W, K, 3), e(W, K, 3, 6), e(W, K, 3, 3),
+                   e(W, K, dt=torch.uint8), e(W, K), e(2, W, L),
+                   e(2, W, L, 6), e(2, W, L, 3), e(2, W, L, dt=torch.uint8))
+    native.launch("lba_terms", *args, *out, W, K, L, P, Q, cam.fx, cam.fy,
+                  cam.cx, cam.cy, cam.fxb)
+    return out._replace(ok_pt=out.ok_pt.view(torch.bool),
+                        ok_ln=out.ok_ln.view(torch.bool))
+
+
+def _f32(x):
+    return x.to(torch.float32).contiguous()
+
+
+def _i32(x):
+    return x.to(torch.int32).contiguous()
+
+
+def _robust_sigma(rn, ok_pt, r_ln, ok_ln):
+    allr = torch.cat([rn.reshape(-1), torch.abs(r_ln).reshape(-1)])
+    allv = torch.cat([ok_pt.reshape(-1), ok_ln.reshape(-1)])
+    return robust.mad_scale_zero_centered(allr, allv)
+
+
+def _weights(t: LBATerms, sigma):
+    w = torch.where(t.ok_pt, robust.tstudent_weight(t.rn, sigma), 0.0)
+    w_ln = torch.where(t.ok_ln, robust.tstudent_weight(torch.abs(t.r_ln),
+                                                       sigma), 0.0)
+    return w, w_ln
+
+
+def lba_sigma_plain(t: LBATerms, problem: LBAProblem):
+    sigma = _robust_sigma(t.rn, t.ok_pt, t.r_ln, t.ok_ln)
+    w_pt, w_ln = _weights(t, sigma)
+    n_lost = (torch.sum((problem.obs_pt_id >= 0) & ~t.ok_pt)
+              + torch.sum((problem.obs_ln_sid >= 0) & ~t.ok_ln[0])
+              + torch.sum((problem.obs_ln_eid >= 0) & ~t.ok_ln[1]))
+    lost_penalty = 6.0 * sigma * sigma    # (dof+1) sigma^2 saturation
+    cost = (torch.sum(w_pt * t.rn ** 2) + torch.sum(w_ln[0] * t.r_ln[0] ** 2)
+            + torch.sum(w_ln[1] * t.r_ln[1] ** 2) + lost_penalty * n_lost)
+    return sigma, cost
+
+
+def lba_sigma(t: LBATerms, problem: LBAProblem):
+    """(robust MAD scale, robust cost with the lost-observation charge),
+    both 0-d tensors on the device."""
+    if t.rn.device.type == "cpu":
+        return lba_sigma_plain(t, problem)
+    W, K = t.rn.shape
+    L = t.r_ln.shape[2]
+    n = W * K + 2 * W * L
+    S = 1 << max(n - 1, 1).bit_length()
+    if S > 32768:
+        raise ValueError(f"lba_sigma: {n} observations exceed 32768")
+    dev = t.rn.device
+    sigma = torch.empty((), dtype=torch.float32, device=dev)
+    cost = torch.empty((), dtype=torch.float32, device=dev)
+    native.launch("lba_sigma", t.rn, t.ok_pt, t.r_ln, t.ok_ln,
+                  _i32(problem.obs_pt_id), _i32(problem.obs_ln_sid),
+                  _i32(problem.obs_ln_eid), sigma, cost,
+                  W * K, W * L, S)
+    return sigma, cost
+
+
+def lba_cost(problem: LBAProblem, cam: StereoCamera) -> torch.Tensor:
+    """Robust total cost for LM accept/reject: observations that exist but
+    fail the behind-camera gate are charged (dof+1) sigma^2 each."""
+    return _cost(problem, cam, _KERNELS)
+
+
+def _bin_landmark_blocks(obs_id, n_lm: int, c_hh, c_g, c_ch):
+    """One-hot contraction of per-observation (Hxx 3x3 | g 3 | H_cx 6x3)
+    payloads onto landmark slots (deterministic; obs_id < 0 bins nowhere).
+    Returns (Hxx (n,3,3), g (n,3), H_cx (W,n,6,3))."""
+    W, K = obs_id.shape
+    payload = torch.cat([c_hh.reshape(W, K, 9), c_g, c_ch.reshape(W, K, 18)],
+                        dim=-1)
+    onehot = (obs_id[..., None] == torch.arange(
+        n_lm, dtype=obs_id.dtype, device=obs_id.device)).to(payload.dtype)
+    out = torch.einsum("wkn,wkc->wnc", onehot, payload)
+    return (torch.sum(out[..., :9], dim=0).reshape(n_lm, 3, 3),
+            torch.sum(out[..., 9:12], dim=0),
+            out[..., 12:].reshape(W, n_lm, 6, 3))
+
+
+def _damped_inv(H, lam):
+    diag = torch.diagonal(H, dim1=-2, dim2=-1)
+    return lie.inv3(H + (lam * torch.clamp(diag, min=1e-3))[..., None]
+                    * _eye(3, H))
+
+
+def lba_camera_plain(t: LBATerms, sigma, free):
+    w, w_ln = _weights(t, sigma)
+    Jc = torch.where(free[:, None, None, None], t.Jc_pt, 0.0)
+    Jcl = torch.where(free[None, :, None, None], t.Jc_ln, 0.0)
+    H_cc = (torch.einsum("wk,wkia,wkib->wab", w, Jc, Jc)
+            + torch.einsum("wl,wla,wlb->wab", w_ln[0], Jcl[0], Jcl[0])
+            + torch.einsum("wl,wla,wlb->wab", w_ln[1], Jcl[1], Jcl[1]))
+    g_c = (torch.einsum("wk,wkia,wki->wa", w, Jc, t.r_pt)
+           + torch.einsum("wl,wla,wl->wa", w_ln[0], Jcl[0], t.r_ln[0])
+           + torch.einsum("wl,wla,wl->wa", w_ln[1], Jcl[1], t.r_ln[1]))
+    return H_cc, g_c
+
+
+def lba_bin_plain(t: LBATerms, problem: LBAProblem, sigma, free, lam):
+    P, Q = problem.pt_pos.shape[0], problem.ep_pos.shape[0]
+    w, w_ln = _weights(t, sigma)
+    Jc = torch.where(free[:, None, None, None], t.Jc_pt, 0.0)
+    Jcl = torch.where(free[None, :, None, None], t.Jc_ln, 0.0)
+    Hpp, g_p, H_cp = _bin_landmark_blocks(
+        problem.obs_pt_id, P,
+        torch.einsum("wk,wkia,wkib->wkab", w, t.Jp_pt, t.Jp_pt),
+        torch.einsum("wk,wkia,wki->wka", w, t.Jp_pt, t.r_pt),
+        torch.einsum("wk,wkia,wkib->wkab", w, Jc, t.Jp_pt))
+    Hqq = g_q = H_cq = 0.0
+    for f, ids in enumerate((problem.obs_ln_sid, problem.obs_ln_eid)):
+        ww, Jcx, Jpx, rx = w_ln[f], Jcl[f], t.Jp_ln[f], t.r_ln[f]
+        Hq1, gq1, Hcq1 = _bin_landmark_blocks(
+            ids, Q, torch.einsum("wl,wla,wlb->wlab", ww, Jpx, Jpx),
+            torch.einsum("wl,wla,wl->wla", ww, Jpx, rx),
+            torch.einsum("wl,wla,wlb->wlab", ww, Jcx, Jpx))
+        Hqq, g_q, H_cq = Hqq + Hq1, g_q + gq1, H_cq + Hcq1
+    H_ll = torch.cat([Hpp, Hqq])
+    return H_ll, _damped_inv(H_ll, lam), torch.cat([g_p, g_q]), torch.cat(
+        [H_cp, H_cq], dim=1)
+
+
+def lba_blocks_plain(t: LBATerms, problem: LBAProblem, sigma, free, lam
+                     ) -> LandmarkBlocks:
+    return LandmarkBlocks(*lba_camera_plain(t, sigma, free),
+                          *lba_bin_plain(t, problem, sigma, free, lam))
+
+
+def lba_camera(t: LBATerms, sigma, free):
+    """Camera blocks H_cc (W,6,6), g_c (W,6): one ``lba_camera`` launch."""
+    if t.rn.device.type == "cpu":
+        return lba_camera_plain(t, sigma, free)
+    W, K = t.rn.shape
+    L = t.r_ln.shape[2]
+    dev = t.rn.device
+    H_cc = torch.empty((W, 6, 6), dtype=torch.float32, device=dev)
+    g_c = torch.empty((W, 6), dtype=torch.float32, device=dev)
+    native.launch("lba_camera", t.Jc_pt, t.r_pt, t.rn, t.ok_pt, t.Jc_ln,
+                  t.r_ln, t.ok_ln, _f32(sigma.reshape(())),
+                  free.to(torch.uint8).contiguous(), H_cc, g_c, W, K, L)
+    return H_cc, g_c
+
+
+def lba_bin(t: LBATerms, problem: LBAProblem, sigma, free, lam):
+    """Landmark blocks (H_ll, H_inv, g_l, H_cl): one ``lba_bin`` launch."""
+    if t.rn.device.type == "cpu":
+        return lba_bin_plain(t, problem, sigma, free, lam)
+    W, K = t.rn.shape
+    L = t.r_ln.shape[2]
+    P, Q = problem.pt_pos.shape[0], problem.ep_pos.shape[0]
+    n = P + Q
+    e = lambda *s: torch.empty(s, dtype=torch.float32, device=t.rn.device)
+    H_ll, H_inv, g_l, H_cl = e(n, 3, 3), e(n, 3, 3), e(n, 3), e(W, n, 6, 3)
+    native.launch("lba_bin", _i32(problem.obs_pt_id),
+                  _i32(problem.obs_ln_sid), _i32(problem.obs_ln_eid),
+                  t.Jc_pt, t.Jp_pt, t.r_pt, t.rn, t.ok_pt, t.Jc_ln, t.Jp_ln,
+                  t.r_ln, t.ok_ln, _f32(sigma.reshape(())),
+                  free.to(torch.uint8).contiguous(), _f32(lam.reshape(())),
+                  H_ll, H_inv, g_l, H_cl, W, K, L, P, Q)
+    return H_ll, H_inv, g_l, H_cl
+
+
+def lba_blocks(t: LBATerms, problem: LBAProblem, sigma, free, lam
+               ) -> LandmarkBlocks:
+    """Camera blocks and landmark blocks of one problem state."""
+    return LandmarkBlocks(*lba_camera(t, sigma, free),
+                          *lba_bin(t, problem, sigma, free, lam))
+
+
+def lba_schur_plain(b: LandmarkBlocks, free, lam,
+                    pin_weight: float = PIN_WEIGHT):
+    W = b.H_cc.shape[0]
+    B = torch.einsum("wnab,nbc->wnac", b.H_cl, b.H_inv)
+    S = -torch.einsum("wnab,vncb->wvac", B, b.H_cl)
+    idx = torch.arange(W, device=S.device)
+    S[idx, idx] += b.H_cc
+    g_red = b.g_c - torch.einsum("wnab,nb->wa", B, b.g_l)
+    # LM damps the diagonal of the ORIGINAL H_cc (the Schur step equals
+    # the damped dense step); pins hold fixed/invalid poses and free
+    # poses without residual support (no information => do not move)
+    diag = torch.diagonal(b.H_cc, dim1=-2, dim2=-1)
+    damp = lam * torch.clamp(diag, min=1e-3)
+    eye6 = _eye(6, S)
+    S[idx, idx] += damp[..., None] * eye6 + 1e-6 * eye6
+    support = diag.sum(-1)
+    pin = torch.where(free & (support > 1.0), 0.0, pin_weight)
+    S[idx, idx] += pin[:, None, None] * eye6
+    return S.transpose(1, 2).reshape(W * 6, W * 6), g_red.reshape(W * 6)
+
+
+def lba_schur(b: LandmarkBlocks, free, lam, pin_weight: float = PIN_WEIGHT):
+    """Reduced camera system (6W, 6W) and gradient (6W,)."""
+    if b.H_cc.device.type == "cpu":
+        return lba_schur_plain(b, free, lam, pin_weight)
+    W, n = b.H_cl.shape[:2]
+    dev = b.H_cc.device
+    Sm = torch.empty((6 * W, 6 * W), dtype=torch.float32, device=dev)
+    gm = torch.empty((6 * W,), dtype=torch.float32, device=dev)
+    native.launch("lba_schur", b.H_cc, b.g_c, b.H_cl, b.H_inv, b.g_l,
+                  _f32(lam.reshape(())), free.to(torch.uint8).contiguous(),
+                  Sm, gm, W, n,
+                  float(pin_weight))
+    return Sm, gm
+
+
+def _cap_steps(dxi, d_pt, d_ep):
+    """Per-variable trust-region caps, direction preserved."""
+    n = torch.linalg.norm(dxi, dim=-1, keepdim=True)
+    dxi = dxi * torch.clamp(_MAX_POSE_STEP / torch.clamp(n, min=1e-12),
+                            max=1.0)
+    npt = torch.linalg.norm(d_pt, dim=-1, keepdim=True)
+    d_pt = d_pt * torch.clamp(_MAX_LM_STEP / torch.clamp(npt, min=1e-12),
+                              max=1.0)
+    ne = torch.linalg.norm(d_ep, dim=-1, keepdim=True)
+    d_ep = d_ep * torch.clamp(_MAX_LM_STEP / torch.clamp(ne, min=1e-12),
+                              max=1.0)
+    return dxi, d_pt, d_ep
+
+
+def lba_backsub_plain(b: LandmarkBlocks, dxi, P: int, cap: bool = True):
+    rhs = b.g_l + torch.einsum("wnab,wa->nb", b.H_cl, dxi)
+    d = -torch.einsum("nab,nb->na", b.H_inv, rhs)
+    # only landmarks with meaningful support move (round-5 guard)
+    d = torch.where((torch.diagonal(b.H_ll, dim1=-2, dim2=-1).sum(-1)
+                     > 1e-2)[:, None], d, 0.0)
+    if not cap:
+        return dxi, d[:P], d[P:]
+    return _cap_steps(dxi, d[:P], d[P:])
+
+
+def lba_backsub(b: LandmarkBlocks, dxi, P: int, cap: bool = True):
+    """Landmark steps from the pose step, with the floors and (``cap``)
+    the trust-region caps: (dxi (W,6), d_pt (P,3), d_ep (Q,3))."""
+    if dxi.device.type == "cpu":
+        return lba_backsub_plain(b, dxi, P, cap)
+    W, n = b.H_cl.shape[:2]
+    dev = dxi.device
+    d = torch.empty((n, 3), dtype=torch.float32, device=dev)
+    dxi_c = torch.empty((W, 6), dtype=torch.float32, device=dev)
+    native.launch("lba_backsub", b.H_cl, b.H_inv, b.g_l, b.H_ll, _f32(dxi),
+                  d, dxi_c, W, n, int(cap))
+    return dxi_c, d[:P], d[P:]
+
+
+def _free(problem: LBAProblem):
+    return (~problem.kf_fixed) & problem.kf_valid
+
+
+class _Ops(NamedTuple):
+    terms: object
+    sigma: object
+    blocks: object
+    schur: object
+    backsub: object
+
+
+# the launches (each dispatching on the device of its tensors), and the
+# plain versions: run_lba_plain holds the whole LM loop of kernels against
+# the same loop of plain versions on the card
+_KERNELS = _Ops(lba_terms, lba_sigma, lba_blocks, lba_schur, lba_backsub)
+_PLAIN = _Ops(lba_terms_plain, lba_sigma_plain, lba_blocks_plain,
+              lba_schur_plain, lba_backsub_plain)
+
+
+def _step(problem: LBAProblem, cam: StereoCamera, lam, ops: _Ops,
+          pin_weight: float = PIN_WEIGHT, cap: bool = True):
+    lam = torch.as_tensor(lam, dtype=torch.float32,
+                          device=problem.kf_pose.device)
+    t = ops.terms(problem, cam)
+    sigma, _ = ops.sigma(t, problem)
+    free = _free(problem)
+    b = ops.blocks(t, problem, sigma, free, lam)
+    Sm, gm = ops.schur(b, free, lam, pin_weight)
+    dxi = -torch.linalg.solve_ex(Sm, gm[:, None])[0][:, 0].reshape(-1, 6)
+    dxi = torch.where(free[:, None], dxi, 0.0)
+    return ops.backsub(b, dxi, problem.pt_pos.shape[0], cap)
+
+
+def _assemble_and_solve(problem: LBAProblem, cam: StereoCamera, lam,
+                        pin_weight: float = PIN_WEIGHT):
+    """One damped step before the trust-region caps (the reference's
+    return value): (dxi (W,6), d_pt (P,3), d_ep (Q,3))."""
+    return _step(problem, cam, lam, _KERNELS, pin_weight, cap=False)
+
+
+def _cost(problem, cam, ops: _Ops):
+    return ops.sigma(ops.terms(problem, cam), problem)[1]
+
+
+def _run(problem: LBAProblem, cam: StereoCamera, cfg: SlamConfig,
+         ops: _Ops) -> LBAResult:
+    mcfg = cfg.mapping
+    cost0 = _cost(problem, cam, ops)
+    lam = torch.tensor(mcfg.lambda_init, dtype=torch.float32,
+                       device=cost0.device)
+    prob, cost = problem, cost0
+    for _ in range(mcfg.lba_iters):
+        dxi, d_pt, d_ep = _step(prob, cam, lam, ops)
+        trial = prob._replace(kf_pose=lie.exp_se3(dxi) @ prob.kf_pose,
+                              pt_pos=prob.pt_pos + d_pt,
+                              ep_pos=prob.ep_pos + d_ep)
+        c_try = _cost(trial, cam, ops)
+        finite = (torch.isfinite(c_try) & torch.all(torch.isfinite(dxi))
+                  & torch.all(torch.isfinite(d_pt))
+                  & torch.all(torch.isfinite(d_ep)))
+        accept = finite & (c_try < cost)
+        prob = LBAProblem(*(torch.where(accept, a, b)
+                            for a, b in zip(trial, prob)))
+        lam = torch.where(accept, lam * (1.0 / mcfg.lambda_factor),
+                          lam * mcfg.lambda_factor)
+        cost = torch.where(accept, c_try, cost)
+    pt_inl, ln_inl = _posthoc(prob, cam, cfg, ops)
+    return LBAResult(prob.kf_pose, prob.pt_pos, prob.ep_pos, cost0, cost,
+                     pt_inl, ln_inl)
+
+
+def run_lba(problem: LBAProblem, cam: StereoCamera, cfg: SlamConfig
+            ) -> LBAResult:
+    """Robust LM with accept/reject (levMarquardtOptimizationLBA), a fixed
+    number of iterations, every decision on the device: per iteration one
+    step (``lba_terms``, ``lba_sigma``, ``lba_camera``, ``lba_bin``,
+    ``lba_schur``, the library solve, ``lba_backsub``) and the trial cost
+    (``lba_terms``, ``lba_sigma``)."""
+    return _run(problem, cam, cfg, _KERNELS)
+
+
+def run_lba_plain(problem: LBAProblem, cam: StereoCamera, cfg: SlamConfig
+                  ) -> LBAResult:
+    return _run(problem, cam, cfg, _PLAIN)
+
+
+def _posthoc(problem1, cam, cfg, ops: _Ops):
+    mcfg = cfg.mapping
+    t = ops.terms(problem1, cam)
+    # the gate's scale floored at the detector's pixel noise: on near-
+    # perfect data an unfloored MAD would flag every observation
+    sigma = torch.clamp(ops.sigma(t, problem1)[0], min=mcfg.lba_min_sigma)
+    k = mcfg.lba_inlier_k
+    pt_inl = t.ok_pt & (t.rn < k * sigma)
+    a = torch.abs(t.r_ln)
+    ln_inl = (t.ok_ln[0] & t.ok_ln[1] & (a[0] < k * sigma)
+              & (a[1] < k * sigma))
+    return pt_inl, ln_inl
+
+
+def posthoc_inliers(problem1: LBAProblem, cam: StereoCamera,
+                    cfg: SlamConfig) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Post-hoc outlier flags at the solved state (markers, no re-solve)."""
+    return _posthoc(problem1, cam, cfg, _KERNELS)

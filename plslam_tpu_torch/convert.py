@@ -54,3 +54,42 @@ def lines_from_numpy(arrays: Mapping[str, np.ndarray],
         f: torch.from_numpy(np.array(arrays[f])).to(
             device=device, dtype=_LINE_DTYPES.get(f, torch.float32))
         for f in LineObservations._fields})
+
+
+def _tensor(a, dtype, device) -> torch.Tensor:
+    a = np.array(a)
+    if a.dtype == np.uint32:          # packed descriptor words
+        a = a.view(np.int32)
+    return torch.from_numpy(a).to(device=device, dtype=dtype)
+
+
+_MAP_BOOL = ("kf_valid", "pt_valid", "ln_valid")
+_MAP_INT = ("n_kfs", "pt_nobs", "pt_last_kf", "pt_first_kf", "pt_desc_ring",
+            "pt_ring_n", "ln_nobs", "ln_last_kf", "ln_first_kf",
+            "ln_desc_ring", "ln_ring_n", "obs_pt_lm", "obs_ln_lm",
+            "kf_pt_desc", "kf_ln_desc")
+_MAP_U8 = ("pt_desc", "ln_desc")
+
+
+def map_state_from_numpy(arrays: Mapping[str, np.ndarray], device):
+    """Dict of MapState field arrays (the reference's
+    ``{f: np.asarray(x) for f, x in state._asdict().items()}``) -> the
+    port's MapState on ``device``; uint32 descriptor words keep their bit
+    patterns as int32."""
+    from plslam_tpu_torch.backend.map import MapState
+
+    def dt(f):
+        return (torch.bool if f in _MAP_BOOL else torch.int32
+                if f in _MAP_INT else torch.uint8 if f in _MAP_U8
+                else torch.float32)
+    return MapState(**{f: _tensor(arrays[f], dt(f), device)
+                       for f in MapState._fields})
+
+
+def crit_carry_from_numpy(arrays: Mapping[str, np.ndarray], device):
+    """Dict of CritCarry field arrays -> the port's CritCarry."""
+    from plslam_tpu_torch.backend.fused_slam import CritCarry
+    dts = {"have_cov": torch.bool, "have_ef": torch.bool,
+           "frames": torch.int32}
+    return CritCarry(**{f: _tensor(arrays[f], dts.get(f, torch.float32),
+                                   device) for f in CritCarry._fields})

@@ -60,6 +60,10 @@ class StereoCamera(NamedTuple):
         y = (uv[..., 1] - self.cy) * z / self.fy
         return torch.stack([x, y, z], dim=-1)
 
+    def in_image(self, uv: torch.Tensor, margin: float = 0.0) -> torch.Tensor:
+        return ((uv[..., 0] >= margin) & (uv[..., 0] < self.width - margin)
+                & (uv[..., 1] >= margin) & (uv[..., 1] < self.height - margin))
+
     def project_jacobian(self, P: torch.Tensor) -> torch.Tensor:
         """d(pixel)/d(camera point): (..., 2, 3)."""
         x, y = P[..., 0], P[..., 1]

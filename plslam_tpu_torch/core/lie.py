@@ -143,6 +143,54 @@ def transform_points(T: torch.Tensor, P: torch.Tensor) -> torch.Tensor:
     return P @ T[..., :3, :3].transpose(-1, -2) + T[..., None, :3, 3]
 
 
+def inv3(M: torch.Tensor) -> torch.Tensor:
+    """Closed-form Cholesky inverse of SPD (..., 3, 3) matrices, scale-
+    normalised first (the reference's op order: its landmark blocks may be
+    ~1e-7 I or ill-conditioned, where the adjugate form cancels)."""
+    s = torch.clamp(torch.amax(torch.abs(M), dim=(-2, -1)), min=1e-30)
+    M = M / s[..., None, None]
+    eps = 1e-20
+    a11, a21, a31 = M[..., 0, 0], M[..., 1, 0], M[..., 2, 0]
+    a22, a32, a33 = M[..., 1, 1], M[..., 2, 1], M[..., 2, 2]
+    l11 = torch.sqrt(torch.clamp(a11, min=eps))
+    l21 = a21 / l11
+    l31 = a31 / l11
+    l22 = torch.sqrt(torch.clamp(a22 - l21 * l21, min=eps))
+    l32 = (a32 - l31 * l21) / l22
+    l33 = torch.sqrt(torch.clamp(a33 - l31 * l31 - l32 * l32, min=eps))
+    i11 = 1.0 / l11
+    i22 = 1.0 / l22
+    i33 = 1.0 / l33
+    i21 = -l21 * i11 * i22
+    i32 = -l32 * i22 * i33
+    i31 = (l21 * l32 - l31 * l22) * i11 * i22 * i33
+    m11 = i11 * i11 + i21 * i21 + i31 * i31
+    m12 = i21 * i22 + i31 * i32
+    m13 = i31 * i33
+    m22 = i22 * i22 + i32 * i32
+    m23 = i32 * i33
+    m33 = i33 * i33
+    inv = torch.stack([torch.stack([m11, m12, m13], -1),
+                       torch.stack([m12, m22, m23], -1),
+                       torch.stack([m13, m23, m33], -1)], -2)
+    return inv / s[..., None, None]
+
+
+def adjoint_se3(T: torch.Tensor) -> torch.Tensor:
+    """(..., 4, 4) -> (..., 6, 6) adjoint in the (v, w) ordering."""
+    R = T[..., :3, :3]
+    top = torch.cat([R, skew(T[..., :3, 3]) @ R], dim=-1)
+    bot = torch.cat([torch.zeros_like(R), R], dim=-1)
+    return torch.cat([top, bot], dim=-2)
+
+
+def se3_distance(T: torch.Tensor):
+    """Translation norm (m) and rotation angle (rad) of a relative pose."""
+    t = torch.linalg.norm(T[..., :3, 3], dim=-1)
+    trace = T[..., 0, 0] + T[..., 1, 1] + T[..., 2, 2]
+    return t, torch.arccos(torch.clamp((trace - 1.0) * 0.5, -1.0, 1.0))
+
+
 def is_valid_rotation(R: torch.Tensor, tol: float = 1e-3) -> torch.Tensor:
     """Orthonormality + det(+1) check, batched."""
     ortho = torch.amax(torch.abs(R @ R.transpose(-1, -2) - _eye3(R)),

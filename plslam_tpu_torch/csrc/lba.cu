@@ -1,0 +1,591 @@
+// Kernel K: the Schur-complement local bundle adjustment (K15), six launches
+// per LM step (the dense 6W x 6W solve between them is the library's).
+//
+// Replaces plslam_tpu/backend/lba.py::_point_rj (:79), _endpoint_rj (:116),
+// _robust_sigma (:142), lba_cost (:150), _bin_landmark_blocks (:182) and
+// _assemble_and_solve (:199) with _cap_steps (:325). The reference bins
+// per-observation normal-equation blocks onto landmark slots with one-hot
+// MXU contractions and forms S with einsums.
+//
+// Bound: at the default window (W = 10 poses, W K = 10,240 point and
+// 2 W L = 2,560 endpoint observations, P = 4,096 + Q = 1,024 landmarks) the
+// step moves ~10 MB (per-observation Jacobians written and read, the
+// (W, P + Q, 6, 3) camera-landmark blocks written once and read by the
+// Schur pass) and does ~0.2 GFLOP (the Schur pass: W^2 (P + Q) 6x3x3 +
+// 6x3x6 products): a few microseconds either way. Latency dominates:
+// six dependent launches, one of them a single-block sort.
+//
+// Design, launch by launch:
+//   lba_terms   one thread per observation: transform, projection,
+//               (u, v, d) or point-to-line residual, Jc = dr/dxi,
+//               Jp = dr/dX, validity, the residual norm.
+//   lba_sigma   one block: the 12,800 |r| into shared memory (64 KB of
+//               dynamic shared memory, masked as FLT_MAX), a bitonic sort,
+//               the exact lower median (core/robust.py:18-30), then the
+//               robust cost with the lost-observation charge as a
+//               fixed-order reduction.
+//   lba_camera  one block per pose: H_cc and g_c, fixed-order reduction.
+//   lba_bin     one warp per landmark slot, scanning the observation id
+//               tables in order (ballot, then the matches in ascending
+//               index): H_ll, g_l, the damped block's inverse (the
+//               reference's scale-normalised closed-form Cholesky) and
+//               H_cl for every pose. No float atomics: the sums do not
+//               depend on scheduling.
+//   lba_schur   one block per pose pair (w, v): S[w, v] = -sum_l
+//               H_cl[w,l] H_ll^-1 H_cl[v,l]^T in a fixed order, plus on the
+//               diagonal H_cc, the damping of the original H_cc diagonal
+//               and the support-gated pins; block (w, w) also reduces the
+//               gradient.
+//   lba_backsub one thread per landmark: the step from the pose steps, the
+//               support floor, the trust-region caps (block 0 caps the
+//               pose steps).
+
+#include <cuda_runtime.h>
+#include <float.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace {
+
+struct Cam {
+  float fx, fy, cx, cy, fxb;
+};
+
+__device__ __forceinline__ float safe_z(float z) {
+  return fabsf(z) < 1e-7f ? 1e-7f : z;
+}
+
+__device__ __forceinline__ float tstudent(float r, float sigma) {
+  const float q = __fdiv_rn(r, sigma);
+  return __fdiv_rn(6.0f, __fadd_rn(5.0f, __fmul_rn(q, q)));
+}
+
+// a (3) @ [I, -skew(P)] -> 6
+__device__ __forceinline__ void se3_row(const float* a, const float* P,
+                                        float* out) {
+  out[0] = a[0];
+  out[1] = a[1];
+  out[2] = a[2];
+  out[3] = -a[1] * P[2] + a[2] * P[1];
+  out[4] = a[0] * P[2] - a[2] * P[0];
+  out[5] = -a[0] * P[1] + a[1] * P[0];
+}
+
+__global__ void terms_kernel(
+    const float* __restrict__ pose, const float* __restrict__ pt_pos,
+    const float* __restrict__ ep_pos, const float* __restrict__ obs_uv,
+    const float* __restrict__ obs_disp, const int* __restrict__ obs_id,
+    const float* __restrict__ obs_le, const int* __restrict__ sid,
+    const int* __restrict__ eid, float* __restrict__ r_pt,
+    float* __restrict__ Jc_pt, float* __restrict__ Jp_pt,
+    uint8_t* __restrict__ ok_pt, float* __restrict__ rn,
+    float* __restrict__ r_ln, float* __restrict__ Jc_ln,
+    float* __restrict__ Jp_ln, uint8_t* __restrict__ ok_ln, int W, int K,
+    int L, Cam c) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  const int NP = W * K, NL = W * L;
+  if (i >= NP + 2 * NL) return;
+  const bool is_pt = i < NP;
+  const int j = is_pt ? i : i - NP;          // (f,) w, k or l
+  const int f = is_pt ? 0 : j / NL;
+  const int wl = is_pt ? j : j % NL;
+  const int w = is_pt ? j / K : wl / L;
+  const int id = is_pt ? obs_id[j] : (f == 0 ? sid : eid)[wl];
+  const float* X = (is_pt ? pt_pos : ep_pos) + 3 * max(id, 0);
+  const float* T = pose + 16 * w;
+  float Pc[3];
+#pragma unroll
+  for (int a = 0; a < 3; ++a)
+    Pc[a] = T[a * 4] * X[0] + T[a * 4 + 1] * X[1] + T[a * 4 + 2] * X[2] +
+            T[a * 4 + 3];
+  const bool ok = id >= 0 && Pc[2] > 0.1f;
+  const float zs = safe_z(Pc[2]);
+  const float u = __fadd_rn(__fdiv_rn(__fmul_rn(c.fx, Pc[0]), zs), c.cx);
+  const float v = __fadd_rn(__fdiv_rn(__fmul_rn(c.fy, Pc[1]), zs), c.cy);
+  const float iz = 1.0f / zs, iz2 = iz * iz;
+  const float jp[2][3] = {{c.fx * iz, 0.0f, -c.fx * Pc[0] * iz2},
+                          {0.0f, c.fy * iz, -c.fy * Pc[1] * iz2}};
+  if (is_pt) {
+    const float z = fmaxf(Pc[2], 1e-6f);
+    const float d_obs = obs_disp[j];
+    const bool has_d = d_obs > 0.0f;
+    float r[3] = {__fsub_rn(u, obs_uv[2 * j]), __fsub_rn(v, obs_uv[2 * j + 1]),
+                  has_d ? __fsub_rn(__fdiv_rn(c.fxb, z), d_obs) : 0.0f};
+    float J3[3][3] = {{jp[0][0], jp[0][1], jp[0][2]},
+                      {jp[1][0], jp[1][1], jp[1][2]},
+                      {0.0f, 0.0f, has_d ? -c.fxb / (z * z) : 0.0f}};
+    float s = 0.0f;
+#pragma unroll
+    for (int a = 0; a < 3; ++a) {
+      if (!ok) r[a] = 0.0f;
+      r_pt[3 * j + a] = r[a];
+      s = __fadd_rn(s, __fmul_rn(r[a], r[a]));
+      float row[6];
+      se3_row(J3[a], Pc, row);
+#pragma unroll
+      for (int q = 0; q < 6; ++q) Jc_pt[18 * j + 6 * a + q] = ok ? row[q] : 0.0f;
+#pragma unroll
+      for (int b = 0; b < 3; ++b)
+        Jp_pt[9 * j + 3 * a + b] =
+            ok ? J3[a][0] * T[b] + J3[a][1] * T[4 + b] + J3[a][2] * T[8 + b]
+               : 0.0f;
+    }
+    rn[j] = __fsqrt_rn(__fadd_rn(s, 1e-12f));
+    ok_pt[j] = ok;
+  } else {
+    const float* le = obs_le + 3 * wl;
+    const float r = __fadd_rn(__fadd_rn(__fmul_rn(le[0], u), __fmul_rn(le[1], v)),
+                              le[2]);
+    const float jpix[3] = {le[0] * jp[0][0] + le[1] * jp[1][0],
+                           le[0] * jp[0][1] + le[1] * jp[1][1],
+                           le[0] * jp[0][2] + le[1] * jp[1][2]};
+    float row[6];
+    se3_row(jpix, Pc, row);
+    r_ln[j] = ok ? r : 0.0f;
+#pragma unroll
+    for (int q = 0; q < 6; ++q) Jc_ln[6 * j + q] = ok ? row[q] : 0.0f;
+#pragma unroll
+    for (int b = 0; b < 3; ++b)
+      Jp_ln[3 * j + b] =
+          ok ? jpix[0] * T[b] + jpix[1] * T[4 + b] + jpix[2] * T[8 + b] : 0.0f;
+    ok_ln[j] = ok;
+  }
+}
+
+constexpr int SIG_NT = 1024;
+
+template <int NV, int NT>
+__device__ void block_sum(float* acc, float (*red)[NV], float* tot) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int v = 0; v < NV; ++v) {
+    float x = acc[v];
+    for (int s = 16; s > 0; s >>= 1) x += __shfl_xor_sync(0xffffffffu, x, s);
+    if (lane == 0) red[warp][v] = x;
+  }
+  __syncthreads();
+  if (threadIdx.x < NV) {
+    float x = 0.0f;
+    for (int w = 0; w < NT / 32; ++w) x += red[w][threadIdx.x];
+    tot[threadIdx.x] = x;
+  }
+  __syncthreads();
+}
+
+__global__ void __launch_bounds__(SIG_NT)
+    sigma_kernel(const float* __restrict__ rn, const uint8_t* __restrict__ ok_pt,
+                 const float* __restrict__ r_ln,
+                 const uint8_t* __restrict__ ok_ln,
+                 const int* __restrict__ obs_id, const int* __restrict__ sid,
+                 const int* __restrict__ eid, float* sigma_out,
+                 float* cost_out, int NP, int NL, int S) {
+  extern __shared__ float sorted[];
+  __shared__ float red[SIG_NT / 32][4];
+  __shared__ float tot[4];
+  __shared__ int n_valid;
+  const int tid = threadIdx.x;
+  if (tid == 0) n_valid = 0;
+  __syncthreads();
+  int mine = 0;
+  for (int i = tid; i < S; i += SIG_NT) {
+    const bool valid =
+        i < NP ? ok_pt[i] != 0 : (i < NP + 2 * NL && ok_ln[i - NP] != 0);
+    mine += valid;
+    sorted[i] = !valid ? FLT_MAX : i < NP ? rn[i] : fabsf(r_ln[i - NP]);
+  }
+  atomicAdd(&n_valid, mine);  // integer: order-free
+  __syncthreads();
+  for (int k = 2; k <= S; k <<= 1)
+    for (int j = k >> 1; j > 0; j >>= 1) {
+      for (int i = tid; i < S; i += SIG_NT) {
+        const int ixj = i ^ j;
+        if (ixj > i) {
+          const float a = sorted[i], b = sorted[ixj];
+          if ((a > b) == ((i & k) == 0)) {
+            sorted[i] = b;
+            sorted[ixj] = a;
+          }
+        }
+      }
+      __syncthreads();
+    }
+  const int n = n_valid;
+  const float med = n > 0 ? sorted[max((n - 1) / 2, 0)] : 0.0f;
+  const float sigma = fmaxf(__fmul_rn(1.4826f, med), 1e-4f);
+  // robust cost: points, start endpoints, end endpoints, lost count
+  float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+  for (int i = tid; i < NP + 2 * NL; i += SIG_NT) {
+    if (i < NP) {
+      if (ok_pt[i]) acc[0] += tstudent(rn[i], sigma) * (rn[i] * rn[i]);
+      else if (obs_id[i] >= 0) acc[3] += 1.0f;
+    } else {
+      const int j = i - NP, f = j / NL;
+      const float r = r_ln[j];
+      if (ok_ln[j]) acc[1 + f] += tstudent(fabsf(r), sigma) * (r * r);
+      else if ((f == 0 ? sid : eid)[j % NL] >= 0) acc[3] += 1.0f;
+    }
+  }
+  block_sum<4, SIG_NT>(acc, red, tot);
+  if (tid == 0) {
+    *sigma_out = sigma;
+    *cost_out = ((tot[0] + tot[1]) + tot[2]) + (6.0f * sigma * sigma) * tot[3];
+  }
+}
+
+constexpr int CAM_NT = 256;
+
+__global__ void __launch_bounds__(CAM_NT)
+    camera_kernel(const float* __restrict__ Jc_pt, const float* __restrict__ r_pt,
+                  const float* __restrict__ rn, const uint8_t* __restrict__ ok_pt,
+                  const float* __restrict__ Jc_ln, const float* __restrict__ r_ln,
+                  const uint8_t* __restrict__ ok_ln, const float* sigma_p,
+                  const uint8_t* __restrict__ free_, float* H_cc, float* g_c,
+                  int W, int K, int L) {
+  __shared__ float red[CAM_NT / 32][27];
+  __shared__ float tot[27];
+  const int w = blockIdx.x, tid = threadIdx.x;
+  const float sigma = *sigma_p;
+  const bool fr = free_[w] != 0;
+  float acc[27];
+#pragma unroll
+  for (int v = 0; v < 27; ++v) acc[v] = 0.0f;
+  if (fr) {
+    for (int i = tid; i < K + 2 * L; i += CAM_NT) {
+      if (i < K) {
+        const int j = w * K + i;
+        if (!ok_pt[j]) continue;
+        const float wt = tstudent(rn[j], sigma);
+        for (int a = 0; a < 3; ++a) {
+          const float* J = Jc_pt + 18 * j + 6 * a;
+          const float r = r_pt[3 * j + a];
+          int o = 0;
+          for (int p = 0; p < 6; ++p)
+            for (int q = p; q < 6; ++q) acc[o++] += wt * J[p] * J[q];
+          for (int p = 0; p < 6; ++p) acc[21 + p] += wt * J[p] * r;
+        }
+      } else {
+        const int f = (i - K) / L, l = (i - K) % L;
+        const int j = f * W * L + w * L + l;
+        if (!ok_ln[j]) continue;
+        const float r = r_ln[j];
+        const float wt = tstudent(fabsf(r), sigma);
+        const float* J = Jc_ln + 6 * j;
+        int o = 0;
+        for (int p = 0; p < 6; ++p)
+          for (int q = p; q < 6; ++q) acc[o++] += wt * J[p] * J[q];
+        for (int p = 0; p < 6; ++p) acc[21 + p] += wt * J[p] * r;
+      }
+    }
+  }
+  block_sum<27, CAM_NT>(acc, red, tot);
+  if (tid < 36) {
+    int p = tid / 6, q = tid % 6;
+    if (p > q) {
+      const int t = p;
+      p = q;
+      q = t;
+    }
+    // index of (p, q), p <= q, in the row-major upper triangle
+    const int o = p * 6 - p * (p - 1) / 2 + (q - p);
+    H_cc[36 * w + tid] = tot[o];
+  }
+  if (tid < 6) g_c[6 * w + tid] = tot[21 + tid];
+}
+
+// the reference's closed-form inverse of a scale-normalised SPD 3 x 3
+__device__ void inv3(const float* Min, float* out) {
+  float s = 0.0f;
+  for (int i = 0; i < 9; ++i) s = fmaxf(s, fabsf(Min[i]));
+  s = fmaxf(s, 1e-30f);
+  float M[9];
+  for (int i = 0; i < 9; ++i) M[i] = Min[i] / s;
+  const float eps = 1e-20f;
+  const float a11 = M[0], a21 = M[3], a31 = M[6], a22 = M[4], a32 = M[7],
+              a33 = M[8];
+  const float l11 = sqrtf(fmaxf(a11, eps));
+  const float l21 = a21 / l11, l31 = a31 / l11;
+  const float l22 = sqrtf(fmaxf(a22 - l21 * l21, eps));
+  const float l32 = (a32 - l31 * l21) / l22;
+  const float l33 = sqrtf(fmaxf(a33 - l31 * l31 - l32 * l32, eps));
+  const float i11 = 1.0f / l11, i22 = 1.0f / l22, i33 = 1.0f / l33;
+  const float i21 = -l21 * i11 * i22, i32 = -l32 * i22 * i33;
+  const float i31 = (l21 * l32 - l31 * l22) * i11 * i22 * i33;
+  const float m11 = i11 * i11 + i21 * i21 + i31 * i31;
+  const float m12 = i21 * i22 + i31 * i32, m13 = i31 * i33;
+  const float m22 = i22 * i22 + i32 * i32, m23 = i32 * i33, m33 = i33 * i33;
+  const float m[9] = {m11, m12, m13, m12, m22, m23, m13, m23, m33};
+  for (int i = 0; i < 9; ++i) out[i] = m[i] / s;
+}
+
+constexpr int BIN_NT = 256;
+
+__global__ void __launch_bounds__(BIN_NT)
+    bin_kernel(const int* __restrict__ obs_id, const int* __restrict__ sid,
+               const int* __restrict__ eid, const float* __restrict__ Jc_pt,
+               const float* __restrict__ Jp_pt, const float* __restrict__ r_pt,
+               const float* __restrict__ rn, const uint8_t* __restrict__ ok_pt,
+               const float* __restrict__ Jc_ln, const float* __restrict__ Jp_ln,
+               const float* __restrict__ r_ln, const uint8_t* __restrict__ ok_ln,
+               const float* sigma_p, const uint8_t* __restrict__ free_,
+               const float* lam_p, float* H_ll, float* H_inv, float* g_l,
+               float* H_cl, int W, int K, int L, int P, int Q) {
+  const int n = (blockIdx.x * BIN_NT + threadIdx.x) / 32;
+  const int lane = threadIdx.x & 31;
+  const int N = P + Q;
+  if (n >= N) return;
+  const bool is_pt = n < P;
+  const int target = is_pt ? n : n - P;
+  const float sigma = *sigma_p;
+  float H[9] = {0}, g[3] = {0};
+  for (int w = 0; w < W; ++w) {
+    const float fr = free_[w] ? 1.0f : 0.0f;
+    float Hc[18] = {0};
+    const int n_fam = is_pt ? 1 : 2, len = is_pt ? K : L;
+    for (int f = 0; f < n_fam; ++f) {
+      const int* ids = is_pt ? obs_id : (f == 0 ? sid : eid);
+      for (int k0 = 0; k0 < len; k0 += 32) {
+        const int k = k0 + lane;
+        const bool hit = k < len && ids[w * len + k] == target;
+        unsigned mask = __ballot_sync(0xffffffffu, hit);
+        if (lane == 0) {
+          while (mask) {
+            const int kk = k0 + __ffs(mask) - 1;
+            mask &= mask - 1;
+            if (is_pt) {
+              const int j = w * K + kk;
+              if (!ok_pt[j]) continue;
+              const float wt = tstudent(rn[j], sigma);
+              const float* Jp = Jp_pt + 9 * j;
+              const float* Jc = Jc_pt + 18 * j;
+              const float* r = r_pt + 3 * j;
+              for (int a = 0; a < 3; ++a)
+                for (int b = 0; b < 3; ++b)
+                  H[3 * a + b] += wt * (Jp[a] * Jp[b] + Jp[3 + a] * Jp[3 + b] +
+                                        Jp[6 + a] * Jp[6 + b]);
+              for (int a = 0; a < 3; ++a)
+                g[a] += wt * (Jp[a] * r[0] + Jp[3 + a] * r[1] + Jp[6 + a] * r[2]);
+              for (int a = 0; a < 6; ++a)
+                for (int c = 0; c < 3; ++c)
+                  Hc[3 * a + c] +=
+                      wt * fr *
+                      (Jc[a] * Jp[c] + Jc[6 + a] * Jp[3 + c] + Jc[12 + a] * Jp[6 + c]);
+            } else {
+              const int j = f * W * L + w * L + kk;
+              if (!ok_ln[j]) continue;
+              const float r = r_ln[j];
+              const float wt = tstudent(fabsf(r), sigma);
+              const float* Jp = Jp_ln + 3 * j;
+              const float* Jc = Jc_ln + 6 * j;
+              for (int a = 0; a < 3; ++a)
+                for (int b = 0; b < 3; ++b) H[3 * a + b] += wt * Jp[a] * Jp[b];
+              for (int a = 0; a < 3; ++a) g[a] += wt * Jp[a] * r;
+              for (int a = 0; a < 6; ++a)
+                for (int c = 0; c < 3; ++c) Hc[3 * a + c] += wt * fr * Jc[a] * Jp[c];
+            }
+          }
+        }
+      }
+    }
+    if (lane == 0)
+      for (int q = 0; q < 18; ++q) H_cl[((size_t)w * N + n) * 18 + q] = Hc[q];
+  }
+  if (lane != 0) return;
+  const float lam = *lam_p;
+  float Hd[9];
+  for (int i = 0; i < 9; ++i) Hd[i] = H[i];
+  for (int a = 0; a < 3; ++a) Hd[4 * a] += lam * fmaxf(H[4 * a], 1e-3f);
+  inv3(Hd, H_inv + 9 * n);
+  for (int i = 0; i < 9; ++i) H_ll[9 * n + i] = H[i];
+  for (int a = 0; a < 3; ++a) g_l[3 * n + a] = g[a];
+}
+
+constexpr int SCHUR_NT = 256;
+
+__global__ void __launch_bounds__(SCHUR_NT)
+    schur_kernel(const float* __restrict__ H_cc, const float* __restrict__ g_c,
+                 const float* __restrict__ H_cl, const float* __restrict__ H_inv,
+                 const float* __restrict__ g_l, const float* lam_p,
+                 const uint8_t* __restrict__ free_, float* Sm, float* gm,
+                 int W, int N, float pin_weight) {
+  __shared__ float red[SCHUR_NT / 32][42];
+  __shared__ float tot[42];
+  const int w = blockIdx.y, v = blockIdx.x, tid = threadIdx.x;
+  const bool diag = w == v;
+  float acc[42];
+#pragma unroll
+  for (int q = 0; q < 42; ++q) acc[q] = 0.0f;
+  for (int n = tid; n < N; n += SCHUR_NT) {
+    const float* A = H_cl + ((size_t)w * N + n) * 18;
+    bool any = false;
+    float a[18];
+    for (int q = 0; q < 18; ++q) {
+      a[q] = A[q];
+      any |= a[q] != 0.0f;
+    }
+    if (!any) continue;
+    const float* Hi = H_inv + 9 * n;
+    float Bm[18];  // H_cl[w, n] @ H_inv[n], 6 x 3
+    for (int r = 0; r < 6; ++r)
+      for (int c = 0; c < 3; ++c)
+        Bm[3 * r + c] = a[3 * r] * Hi[c] + a[3 * r + 1] * Hi[3 + c] +
+                        a[3 * r + 2] * Hi[6 + c];
+    const float* C = H_cl + ((size_t)v * N + n) * 18;
+    for (int r = 0; r < 6; ++r)
+      for (int c = 0; c < 6; ++c)
+        acc[6 * r + c] += Bm[3 * r] * C[3 * c] + Bm[3 * r + 1] * C[3 * c + 1] +
+                          Bm[3 * r + 2] * C[3 * c + 2];
+    if (diag) {
+      const float* gg = g_l + 3 * n;
+      for (int r = 0; r < 6; ++r)
+        acc[36 + r] += Bm[3 * r] * gg[0] + Bm[3 * r + 1] * gg[1] +
+                       Bm[3 * r + 2] * gg[2];
+    }
+  }
+  block_sum<42, SCHUR_NT>(acc, red, tot);
+  const int W6 = 6 * W;
+  if (tid < 36) {
+    const int r = tid / 6, c = tid % 6;
+    float s = -tot[tid];
+    if (diag) {
+      const float* Hw = H_cc + 36 * w;
+      s += Hw[tid];
+      if (r == c) {
+        const float lam = *lam_p;
+        float support = 0.0f;
+        for (int q = 0; q < 6; ++q) support += Hw[7 * q];
+        const float pin =
+            (free_[w] != 0 && support > 1.0f) ? 0.0f : pin_weight;
+        s += lam * fmaxf(Hw[7 * r], 1e-3f) + 1e-6f;
+        s += pin;
+      }
+    }
+    Sm[(size_t)(6 * w + r) * W6 + 6 * v + c] = s;
+  }
+  if (diag && tid < 6) gm[6 * w + tid] = g_c[6 * w + tid] - tot[36 + tid];
+}
+
+__global__ void backsub_kernel(const float* __restrict__ H_cl,
+                               const float* __restrict__ H_inv,
+                               const float* __restrict__ g_l,
+                               const float* __restrict__ H_ll,
+                               const float* __restrict__ dxi, float* d_out,
+                               float* dxi_out, int W, int N, int cap) {
+  const int n = blockIdx.x * blockDim.x + threadIdx.x;
+  if (blockIdx.x == 0 && threadIdx.x < W) {
+    const float* x = dxi + 6 * threadIdx.x;
+    float s = 0.0f;
+    for (int q = 0; q < 6; ++q) s += x[q] * x[q];
+    const float sc = cap ? fminf(1.0f, 1.0f / fmaxf(sqrtf(s), 1e-12f)) : 1.0f;
+    for (int q = 0; q < 6; ++q) dxi_out[6 * threadIdx.x + q] = x[q] * sc;
+  }
+  if (n >= N) return;
+  float rhs[3] = {g_l[3 * n], g_l[3 * n + 1], g_l[3 * n + 2]};
+  for (int w = 0; w < W; ++w) {
+    const float* A = H_cl + ((size_t)w * N + n) * 18;
+    const float* x = dxi + 6 * w;
+    for (int b = 0; b < 3; ++b)
+      for (int a = 0; a < 6; ++a) rhs[b] += A[3 * a + b] * x[a];
+  }
+  const float* Hi = H_inv + 9 * n;
+  float d[3];
+  for (int a = 0; a < 3; ++a)
+    d[a] = -(Hi[3 * a] * rhs[0] + Hi[3 * a + 1] * rhs[1] + Hi[3 * a + 2] * rhs[2]);
+  const float* H = H_ll + 9 * n;
+  const bool moves = H[0] + H[4] + H[8] > 1e-2f;
+  float sc = 1.0f;
+  if (cap) {
+    const float nn = sqrtf(d[0] * d[0] + d[1] * d[1] + d[2] * d[2]);
+    sc = fminf(1.0f, 10.0f / fmaxf(nn, 1e-12f));
+  }
+  for (int a = 0; a < 3; ++a) d_out[3 * n + a] = moves ? d[a] * sc : 0.0f;
+}
+
+}  // namespace
+
+extern "C" {
+
+// problem (kf_pose (W, 4, 4) T_cw, pt_pos (P, 3), ep_pos (Q, 3), obs_pt_uv
+// (W, K, 2), obs_pt_disp (W, K), obs_pt_id (W, K), obs_ln_le (W, L, 3),
+// obs_ln_sid, obs_ln_eid (W, L)) -> r_pt (W, K, 3), Jc_pt (W, K, 3, 6),
+// Jp_pt (W, K, 3, 3), ok_pt (W, K) u8, rn (W, K), r_ln (2, W, L), Jc_ln
+// (2, W, L, 6), Jp_ln (2, W, L, 3), ok_ln (2, W, L) u8.
+int lba_terms(const float* pose, const float* pt_pos, const float* ep_pos,
+              const float* obs_uv, const float* obs_disp, const int* obs_id,
+              const float* obs_le, const int* sid, const int* eid,
+              float* r_pt, float* Jc_pt, float* Jp_pt, uint8_t* ok_pt,
+              float* rn, float* r_ln, float* Jc_ln, float* Jp_ln,
+              uint8_t* ok_ln, int W, int K, int L, int P, int Q, float fx,
+              float fy, float cx, float cy, float fxb, cudaStream_t stream) {
+  if (P < 1 || Q < 1) return (int)cudaErrorInvalidValue;
+  const int n = W * K + 2 * W * L, threads = 256;
+  terms_kernel<<<(n + threads - 1) / threads, threads, 0, stream>>>(
+      pose, pt_pos, ep_pos, obs_uv, obs_disp, obs_id, obs_le, sid, eid, r_pt,
+      Jc_pt, Jp_pt, ok_pt, rn, r_ln, Jc_ln, Jp_ln, ok_ln, W, K, L,
+      Cam{fx, fy, cx, cy, fxb});
+  return (int)cudaGetLastError();
+}
+
+// -> sigma (robust MAD scale) and the robust cost, 0-d each. S: a power of
+// two >= NP + 2 NL, at most 32768 (128 KB of shared memory).
+int lba_sigma(const float* rn, const uint8_t* ok_pt, const float* r_ln,
+              const uint8_t* ok_ln, const int* obs_id, const int* sid,
+              const int* eid, float* sigma, float* cost, int NP, int NL,
+              int S, cudaStream_t stream) {
+  const size_t smem = (size_t)S * sizeof(float);
+  cudaError_t e = cudaFuncSetAttribute(
+      sigma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  sigma_kernel<<<1, SIG_NT, smem, stream>>>(rn, ok_pt, r_ln, ok_ln, obs_id,
+                                             sid, eid, sigma, cost, NP, NL, S);
+  return (int)cudaGetLastError();
+}
+
+// -> H_cc (W, 6, 6), g_c (W, 6)
+int lba_camera(const float* Jc_pt, const float* r_pt, const float* rn,
+               const uint8_t* ok_pt, const float* Jc_ln, const float* r_ln,
+               const uint8_t* ok_ln, const float* sigma, const uint8_t* free_,
+               float* H_cc, float* g_c, int W, int K, int L,
+               cudaStream_t stream) {
+  camera_kernel<<<W, CAM_NT, 0, stream>>>(Jc_pt, r_pt, rn, ok_pt, Jc_ln, r_ln,
+                                          ok_ln, sigma, free_, H_cc, g_c, W, K,
+                                          L);
+  return (int)cudaGetLastError();
+}
+
+// -> H_ll (N, 3, 3), H_inv (N, 3, 3) of the damped blocks, g_l (N, 3),
+// H_cl (W, N, 6, 3); N = P + Q, points first.
+int lba_bin(const int* obs_id, const int* sid, const int* eid,
+            const float* Jc_pt, const float* Jp_pt, const float* r_pt,
+            const float* rn, const uint8_t* ok_pt, const float* Jc_ln,
+            const float* Jp_ln, const float* r_ln, const uint8_t* ok_ln,
+            const float* sigma, const uint8_t* free_, const float* lam,
+            float* H_ll, float* H_inv, float* g_l, float* H_cl, int W, int K,
+            int L, int P, int Q, cudaStream_t stream) {
+  const int warps = P + Q, per_block = BIN_NT / 32;
+  bin_kernel<<<(warps + per_block - 1) / per_block, BIN_NT, 0, stream>>>(
+      obs_id, sid, eid, Jc_pt, Jp_pt, r_pt, rn, ok_pt, Jc_ln, Jp_ln, r_ln,
+      ok_ln, sigma, free_, lam, H_ll, H_inv, g_l, H_cl, W, K, L, P, Q);
+  return (int)cudaGetLastError();
+}
+
+// -> Sm (6W, 6W), gm (6W): the damped, pinned reduced camera system.
+int lba_schur(const float* H_cc, const float* g_c, const float* H_cl,
+              const float* H_inv, const float* g_l, const float* lam,
+              const uint8_t* free_, float* Sm, float* gm, int W, int N,
+              float pin_weight, cudaStream_t stream) {
+  schur_kernel<<<dim3(W, W), SCHUR_NT, 0, stream>>>(
+      H_cc, g_c, H_cl, H_inv, g_l, lam, free_, Sm, gm, W, N, pin_weight);
+  return (int)cudaGetLastError();
+}
+
+// dxi (W, 6) -> landmark steps d (N, 3) and dxi (W, 6), capped if cap.
+int lba_backsub(const float* H_cl, const float* H_inv, const float* g_l,
+                const float* H_ll, const float* dxi, float* d, float* dxi_out,
+                int W, int N, int cap, cudaStream_t stream) {
+  const int threads = 256;
+  backsub_kernel<<<(N + threads - 1) / threads, threads, 0, stream>>>(
+      H_cl, H_inv, g_l, H_ll, dxi, d, dxi_out, W, N, cap);
+  return (int)cudaGetLastError();
+}
+
+}  // extern "C"

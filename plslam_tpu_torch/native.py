@@ -30,7 +30,8 @@ _DIR = os.path.dirname(os.path.abspath(__file__))
 _CSRC = os.path.join(_DIR, "csrc")
 BUILD_DIR = os.path.join(_DIR, "_build")
 SOURCES = ["image.cu", "fast.cu", "orb.cu", "hamming.cu", "lines_tile.cu",
-           "lines_label.cu", "lines_segments.cu", "lbd.cu"]
+           "lines_label.cu", "lines_segments.cu", "lbd.cu", "pose_gn.cu",
+           "slam.cu", "lba.cu"]
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC"]
 
@@ -50,6 +51,15 @@ _SIGNATURES: Dict[str, str] = {
     "lines_refit": "pppppppppiiifff",
     "lines_merge": "ppppppppiifffi",
     "lbd_describe": "ppppppppiiiiiiiff",
+    "pose_gn_iters": "pppppppppiiiiiffff",
+    "kf_scan": "p" * 21 + "iiifff",
+    "medoid": "pppii",
+    "lba_terms": "p" * 18 + "iiiii" + "fffff",
+    "lba_sigma": "p" * 9 + "iii",
+    "lba_camera": "p" * 11 + "iii",
+    "lba_bin": "p" * 19 + "iiiii",
+    "lba_schur": "p" * 9 + "iif",
+    "lba_backsub": "p" * 7 + "iii",
 }
 
 # launches per C entry point since the last reset (plain versions on CPU

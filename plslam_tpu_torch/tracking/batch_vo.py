@@ -80,6 +80,18 @@ def vo_chunk(imgs_l: torch.Tensor, imgs_r: torch.Tensor,
             "scan mode (tracking.batched_chunks=False) is not ported yet")
     pts, lns = extract_stereo_frame(_to_f32(imgs_l), _to_f32(imgs_r), cam,
                                     cfg)
+    return _chunk_tracking_batched(pts, lns, prev_pts, prev_lns, T_prior0,
+                                   cam, cfg)
+
+
+def _chunk_tracking_batched(pts: PointObservations,
+                            lns: Optional[LineObservations],
+                            prev_pts: PointObservations,
+                            prev_lns: Optional[LineObservations],
+                            T_prior0: torch.Tensor, cam: StereoCamera,
+                            cfg: SlamConfig) -> ChunkOutput:
+    """All B consecutive-pair solves of an extracted chunk (``pts``/``lns``
+    with a leading B axis), ``chunk_passes`` passes."""
     B = pts.uv.shape[0]
     prev_p = _shift(prev_pts, pts)
     prev_l = _shift(prev_lns, lns) if lns is not None else None

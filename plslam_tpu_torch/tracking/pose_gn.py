@@ -3,10 +3,14 @@
 Port of ``plslam_tpu/tracking/pose_gn.py`` (``point_terms_rj``,
 ``line_terms_rj``, ``_weights``, ``_assemble_normal_eqs``,
 ``optimize_pose``): every tensor carries a leading B axis (the frame pairs
-of a chunk) and the fixed iteration counts are Python loops. The normal
-equations are f32 ``einsum``s and the 6x6 solves batched
-``torch.linalg`` calls (K13 in ROADMAP; its fused reduction kernel is the
-next slice's first kernel). ``optimize_pose_lm`` is not ported yet.
+of a chunk). The GN iterations of a phase (K13) are one launch of kernel I
+(``csrc/pose_gn.cu``) on CUDA tensors: residuals, Jacobians, the joint
+lower-median MAD scale, t-student weights, the 6x6 normal equations, the
+damped solve and the exp update of all B pairs, every iteration of the
+phase inside the kernel. ``gn_iters_plain`` (f32 ``einsum``s and batched
+``torch.linalg`` solves) is its plain version, used only for CPU tensors.
+The outlier gate, covariance and gates stay torch. ``optimize_pose_lm`` is
+not ported yet.
 
 Residual/Jacobian conventions (left-multiplicative perturbation, twist
 ordering (v, w) as in core.lie):
@@ -21,6 +25,7 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
+from plslam_tpu_torch import native
 from plslam_tpu_torch.config import SlamConfig
 from plslam_tpu_torch.core import lie, robust
 from plslam_tpu_torch.core.camera import StereoCamera
@@ -119,6 +124,53 @@ def _no_lines(pts: PointTerms) -> LineTerms:
     return LineTerms(z, z, z, pts.valid.new_zeros(pts.valid.shape[:-1] + (0,)))
 
 
+_DAMP = 1e-6   # tiny Tikhonov term: the GN solve stays defined
+
+
+def gn_iters_plain(T: torch.Tensor, cam: StereoCamera, pts: PointTerms,
+                   lns: LineTerms, n_iters: int) -> torch.Tensor:
+    damp = _DAMP * torch.eye(6, dtype=T.dtype, device=T.device)
+    for _ in range(n_iters):
+        r_pt, J_pt, n_pt = point_terms_rj(T, cam, pts)
+        r_ln, J_ln, a_ln = line_terms_rj(T, cam, lns)
+        w_pt, w_ln, _ = _weights(n_pt, pts.valid, a_ln, lns.valid)
+        H, g = _assemble_normal_eqs(r_pt, J_pt, w_pt, r_ln, J_ln, w_ln)
+        # solve_ex: no host sync on a singular system; the finiteness
+        # guard below keeps the pose unchanged if the solve exploded
+        dxi = -torch.linalg.solve_ex(H + damp, g[..., None])[0][..., 0]
+        ok = torch.all(torch.isfinite(dxi), dim=-1)
+        T = torch.where(ok[:, None, None], lie.exp_se3(dxi) @ T, T)
+    return T
+
+
+def gn_iters(T: torch.Tensor, cam: StereoCamera, pts: PointTerms,
+             lns: LineTerms, n_iters: int) -> torch.Tensor:
+    """``n_iters`` robust GN iterations (B, 4, 4) -> (B, 4, 4) on the terms
+    whose ``valid`` is set: one launch of kernel I for a CUDA tensor."""
+    if n_iters <= 0:
+        return T
+    if T.device.type == "cpu":
+        return gn_iters_plain(T, cam, pts, lns, n_iters)
+    B, K = pts.valid.shape
+    L = lns.valid.shape[1]
+    S = 1 << max(K + 2 * L - 1, 1).bit_length()
+    if S > 8192:
+        raise ValueError(f"pose_gn_iters: {K} + 2 x {L} terms exceed 8192")
+    f = lambda x: x.to(torch.float32).contiguous()
+    u8 = lambda x: x.to(torch.uint8).contiguous()
+    args = (f(T), f(pts.P), f(pts.uv_obs), u8(pts.valid), f(lns.sP),
+            f(lns.eP), f(lns.le_obs), u8(lns.valid))
+    for name, t, shape in zip(("T", "P", "uv", "valid", "sP", "eP", "le",
+                               "line valid"), args,
+                              ((B, 4, 4), (B, K, 3), (B, K, 2), (B, K),
+                               (B, L, 3), (B, L, 3), (B, L, 3), (B, L))):
+        native.require(t, f"pose_gn_iters {name}", t.dtype, shape)
+    out = torch.empty((B, 4, 4), dtype=torch.float32, device=T.device)
+    native.launch("pose_gn_iters", *args, out, B, K, L, S, int(n_iters),
+                  cam.fx, cam.fy, cam.cx, cam.cy)
+    return out
+
+
 def optimize_pose(T0: torch.Tensor, cam: StereoCamera, pts: PointTerms,
                   lns: Optional[LineTerms], cfg: SlamConfig) -> PoseResult:
     """optimizePose: robust GN -> outlier cut -> refinement -> gates,
@@ -127,22 +179,9 @@ def optimize_pose(T0: torch.Tensor, cam: StereoCamera, pts: PointTerms,
     tcfg = cfg.tracking
     if lns is None:
         lns = _no_lines(pts)
-    damp = 1e-6 * torch.eye(6, dtype=T0.dtype, device=T0.device)
+    damp = _DAMP * torch.eye(6, dtype=T0.dtype, device=T0.device)
 
-    def gn_iter(T, pt_mask, ln_mask):
-        r_pt, J_pt, n_pt = point_terms_rj(T, cam, pts._replace(valid=pt_mask))
-        r_ln, J_ln, a_ln = line_terms_rj(T, cam, lns._replace(valid=ln_mask))
-        w_pt, w_ln, _ = _weights(n_pt, pt_mask, a_ln, ln_mask)
-        H, g = _assemble_normal_eqs(r_pt, J_pt, w_pt, r_ln, J_ln, w_ln)
-        # solve_ex: no host sync on a singular system; the finiteness
-        # guard below keeps the pose unchanged if the solve exploded
-        dxi = -torch.linalg.solve_ex(H + damp, g[..., None])[0][..., 0]
-        ok = torch.all(torch.isfinite(dxi), dim=-1)
-        return torch.where(ok[:, None, None], lie.exp_se3(dxi) @ T, T)
-
-    T1 = T0
-    for _ in range(tcfg.max_iters):
-        T1 = gn_iter(T1, pts.valid, lns.valid)
+    T1 = gn_iters(T0, cam, pts, lns, tcfg.max_iters)
 
     # outlier gate on the robust scale, floored at a quarter pixel
     _, _, n_pt = point_terms_rj(T1, cam, pts)
@@ -156,9 +195,8 @@ def optimize_pose(T0: torch.Tensor, cam: StereoCamera, pts: PointTerms,
     inlier_ln = lns.valid & torch.all(
         a_ln < tcfg.inlier_k * sigma[:, None, None], dim=-1)
 
-    T2 = T1
-    for _ in range(tcfg.max_iters_ref):
-        T2 = gn_iter(T2, inlier_pt, inlier_ln)
+    T2 = gn_iters(T1, cam, pts._replace(valid=inlier_pt),
+                  lns._replace(valid=inlier_ln), tcfg.max_iters_ref)
 
     # final statistics, covariance, gates (isGoodSolution)
     r_pt, J_pt, n_pt = point_terms_rj(T2, cam, pts._replace(valid=inlier_pt))

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where the time of the port's main path goes, on one CUDA card.
 
-    python3 profile_torch_vo.py [--reps N] [--no-lines]
+    python3 profile_torch_vo.py [--reps N] [--no-lines | --slam]
 
 The main path of ``chip_smoke.py``: the flagship point+line chunked VO
 (``plslam_tpu_torch.tracking.batch_vo.vo_chunk``) at the full width of
@@ -25,6 +25,16 @@ configuration instead. After a warm-up it reports:
   * the calls of ``ops/gather.py::take`` (K7, no hand kernel) in a chunk,
     counted in one more chunk.
 
+``--slam`` profiles the fused SLAM chunk without loop closure instead
+(``backend/fused_slam.py::fused_step``, ``SlamConfig()`` with
+``loop.enabled=False``) on chip_smoke.py's SLAM scene (bench_slam.py's,
+uint8 frames): ``FusedPLSLAM`` runs the first three chunks to build a map,
+then the fourth chunk is timed from that state as a whole and stage by
+stage (the front end, the tracking, ``kf_scan``, one keyframe's
+``add_keyframe``, one window LBA, KF retirement + landmark culling), and
+profiled once; the hand kernels' launches per chunk come from
+``native.LAUNCHES``.
+
 The last line is one JSON object of these numbers. Imports nothing of
 JAX and nothing of the JAX package.
 """
@@ -38,6 +48,7 @@ import sys
 import time
 from collections import defaultdict
 
+import numpy as np
 import torch
 
 # the hand-written kernels' device function names (csrc/*.cu)
@@ -46,7 +57,10 @@ OWN_KERNELS = ("filter_vertical", "filter_horizontal", "resize_vertical",
                "orb_describe_kernel", "dist_kernel", "col_argmin_kernel",
                "row_match_kernel", "sobel_kernel", "block_moments",
                "window_moments", "label_kernel", "refit_kernel",
-               "merge_kernel", "lbd_kernel")
+               "merge_kernel", "lbd_kernel", "pose_gn_kernel",
+               "kf_scan_kernel", "medoid_kernel", "terms_kernel",
+               "sigma_kernel", "camera_kernel", "bin_kernel", "schur_kernel",
+               "backsub_kernel")
 
 
 def host_ms(fn, reps: int) -> float:
@@ -106,15 +120,140 @@ def take_calls(chunk) -> dict:
     return calls
 
 
+def profile_chunk(chunk, wall_ms):
+    """One call of ``chunk`` under torch.profiler: (busy ms, idle share of
+    ``wall_ms``, device launches, hand-kernel ms, hand kernels, top 25)."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        chunk()
+        torch.cuda.synchronize()
+    table = device_table(prof)
+    busy_ms = sum(us for _, us in table.values()) / 1e3
+    launches = sum(n for n, _ in table.values())
+    own = {k: v for k, v in table.items()
+           if any(name in k for name in OWN_KERNELS)}
+    own_ms = sum(us for _, us in own.values()) / 1e3
+    idle = 1.0 - busy_ms / wall_ms if busy_ms > 0 else None
+    print(f"[profile] device busy {busy_ms:.3f} ms of a {wall_ms:.3f} ms "
+          f"chunk (idle share {idle}), {launches} kernel launches; "
+          f"hand-written kernels {own_ms:.3f} ms", flush=True)
+    top = sorted(table.items(), key=lambda kv: -kv[1][1])[:25]
+    for k, (n, us) in top:
+        print(f"[kernel] {us / 1e3:9.3f} ms {n:6d}x  {k[:110]}")
+    for k, (n, us) in sorted(own.items(), key=lambda kv: -kv[1][1]):
+        print(f"[own] {us / 1e3:9.3f} ms {n:6d}x  {k[:110]}")
+    from torch.autograd import DeviceType
+    host = sorted((e for e in prof.key_averages()
+                   if e.device_type == DeviceType.CPU),
+                  key=lambda e: -e.self_cpu_time_total)[:15]
+    for e in host:
+        print(f"[host] {e.self_cpu_time_total / 1e3:9.3f} ms self CPU "
+              f"{e.count:6d}x  {e.key[:80]}")
+    return busy_ms, idle, launches, own_ms, own, top
+
+
+def slam_main(reps: int, smi: str) -> int:
+    """The --slam profile (see the module docstring)."""
+    from chip_smoke import CHUNK, slam_scene
+    from plslam_tpu_torch import native
+    from plslam_tpu_torch.backend import fused_slam, map as tmap
+    from plslam_tpu_torch.backend.map_handler import run_window_lba
+    from plslam_tpu_torch.frontend.stereo_frame import extract_stereo_frame
+    from plslam_tpu_torch.tracking import batch_vo
+
+    dev = torch.device("cuda", 0)
+    cfg, cam, _, il, ir = slam_scene()
+    chunks = [torch.from_numpy(np.stack([il[lo:lo + CHUNK],
+                                         ir[lo:lo + CHUNK]])).to(dev)
+              for lo in range(1, 1 + 4 * CHUNK, CHUNK)]
+    slam = fused_slam.FusedPLSLAM(cfg, cam)
+    slam.initialize(il[0], ir[0])
+    for c in chunks[:3]:
+        slam.process_chunk(c)
+    slam._settle_all()
+    kmax = slam.kmax
+    args = (chunks[3], slam.prev_pts, slam.prev_lns, slam.DT_prev,
+            slam._crit, slam.state, cam, cfg, kmax)
+
+    def chunk():
+        return fused_slam.fused_step(*args)
+
+    imgs = chunks[3]
+    fl, fr = batch_vo._to_f32(imgs[0]), batch_vo._to_f32(imgs[1])
+    pts, lns = extract_stereo_frame(fl, fr, cam, cfg)
+    out = batch_vo._chunk_tracking_batched(pts, lns, slam.prev_pts,
+                                           slam.prev_lns, slam.DT_prev, cam,
+                                           cfg)
+    pts0, lns0 = batch_vo._frame(pts, 0), batch_vo._frame(lns, 0)
+    last = slam.state.kf_pose[int(slam.state.n_kfs) - 1]
+    T_w = last @ torch.linalg.inv(out.DT[0])
+    state1, _ = tmap.add_keyframe(slam.state, pts0, lns0, T_w, cam, cfg)
+
+    def retire_cull():
+        s, _ = tmap.remove_redundant_kfs(state1, cfg)
+        s, _ = tmap.remove_redundant_kfs_global(s, cfg)
+        return tmap.cull_landmarks(s, cfg)
+
+    stages = {
+        "chunk": host_ms(chunk, reps),
+        "front_end": host_ms(lambda: extract_stereo_frame(fl, fr, cam, cfg),
+                             reps),
+        "tracking": host_ms(lambda: batch_vo._chunk_tracking_batched(
+            pts, lns, slam.prev_pts, slam.prev_lns, slam.DT_prev, cam, cfg),
+            reps),
+        "kf_scan": host_ms(lambda: fused_slam.kf_scan(
+            out.DT, out.cov, out.good, slam._crit, cfg, kmax), reps),
+        "add_keyframe": host_ms(lambda: tmap.add_keyframe(
+            slam.state, pts0, lns0, T_w, cam, cfg), reps),
+        "window_lba": host_ms(lambda: run_window_lba(state1, cam, cfg), reps),
+        "retire_and_cull": host_ms(retire_cull, reps),
+    }
+    # the host-bound chunk drifts with the host's load: time it again
+    stages["chunk_again"] = host_ms(chunk, reps)
+    for k, v in stages.items():
+        print(f"[stage] {k}: {v:.3f} ms (host clock, mean of {reps})",
+              flush=True)
+    native.reset_counts()
+    host_blk = chunk()[0].cpu().numpy()
+    own_launches = dict(native.LAUNCHES)
+    slots = host_blk[CHUNK * fused_slam._PF:].reshape(-1)[
+        :kmax * fused_slam._PS].reshape(kmax, fused_slam._PS)
+    n_kf = int((slots[:, 0] > 0.5).sum())
+    print(f"[slam] keyframes in the profiled chunk: {n_kf}; hand-kernel "
+          f"launches {json.dumps(own_launches, sort_keys=True)}", flush=True)
+    busy_ms, idle, launches, own_ms, own, top = profile_chunk(
+        chunk, stages["chunk"])
+    print(smi)
+    print(json.dumps({
+        "device": torch.cuda.get_device_name(0), "nvidia_smi": smi,
+        "path": "slam", "frames_per_chunk": CHUNK, "keyframes_in_chunk": n_kf,
+        "stages_ms": stages, "device_busy_ms": busy_ms,
+        "device_idle_share": idle, "kernel_launches": launches,
+        "own_kernels_ms": own_ms, "own_launches": own_launches,
+        "own_kernels": {k[:60]: {"launches": n, "ms": us / 1e3}
+                        for k, (n, us) in own.items()},
+        "top_kernels": [{"name": k[:160], "launches": n, "ms": us / 1e3}
+                        for k, (n, us) in top[:10]]}))
+    return 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--no-lines", action="store_true",
                     help="the points-only configuration")
+    ap.add_argument("--slam", action="store_true",
+                    help="the fused SLAM chunk without loop closure")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("FAIL: no CUDA device", file=sys.stderr)
         return 2
+    if args.slam:
+        smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                              "--format=csv,noheader"], capture_output=True,
+                             text=True, timeout=60).stdout.strip()
+        return slam_main(args.reps, smi)
     from chip_smoke import CHUNK, main_scene
     from plslam_tpu_torch.frontend import stereo_lines, stereo_points
     from plslam_tpu_torch.frontend.stereo_frame import extract_stereo_frame
@@ -193,38 +332,13 @@ def main() -> int:
         print(f"[stage] {k}: {v:.3f} ms (host clock, mean of {args.reps})",
               flush=True)
 
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        chunk()
-        torch.cuda.synchronize()
-    table = device_table(prof)
-    busy_ms = sum(us for _, us in table.values()) / 1e3
-    launches = sum(n for n, _ in table.values())
-    own = {k: v for k, v in table.items()
-           if any(name in k for name in OWN_KERNELS)}
-    own_ms = sum(us for _, us in own.values()) / 1e3
-    idle = 1.0 - busy_ms / stages["chunk"] if busy_ms > 0 else None
-    print(f"[profile] device busy {busy_ms:.3f} ms of a {stages['chunk']:.3f}"
-          f" ms chunk (idle share {idle}), {launches} kernel launches; "
-          f"hand-written kernels {own_ms:.3f} ms", flush=True)
-    top = sorted(table.items(), key=lambda kv: -kv[1][1])[:25]
-    for k, (n, us) in top:
-        print(f"[kernel] {us / 1e3:9.3f} ms {n:6d}x  {k[:110]}")
-    for k, (n, us) in sorted(own.items(), key=lambda kv: -kv[1][1]):
-        print(f"[own] {us / 1e3:9.3f} ms {n:6d}x  {k[:110]}")
+    busy_ms, idle, launches, own_ms, own, top = profile_chunk(
+        chunk, stages["chunk"])
     takes = take_calls(chunk)
     print(f"[k7] take (clamp + torch.gather) calls per chunk: "
           f"{takes['front_end']} in the front end, {takes['tracking']} in "
           f"the tracking; chip_smoke.py's main path (initialize + 2 "
           f"chunks): {takes['main_path']}", flush=True)
-    from torch.autograd import DeviceType
-    host = sorted((e for e in prof.key_averages()
-                   if e.device_type == DeviceType.CPU),
-                  key=lambda e: -e.self_cpu_time_total)[:15]
-    for e in host:
-        print(f"[host] {e.self_cpu_time_total / 1e3:9.3f} ms self CPU "
-              f"{e.count:6d}x  {e.key[:80]}")
     print(smi)
     print(json.dumps({
         "device": torch.cuda.get_device_name(0), "nvidia_smi": smi,

@@ -1,0 +1,196 @@
+"""Port parity, the whole slice: the fused SLAM chunk without loop closure.
+
+``kf_scan`` (K14) against the reference's on the DT / cov / good
+sequences of the port's tracking of the slice's scene, on synthetic
+ones, and on synthetic ones that hit the kf_batch cap: flags and
+``blocked`` exactly equal, ratios and poses within 1e-5; each run prints
+the smallest margin |ratio - min_entropy_ratio| it saw, so that a flip
+could be told from a fault.
+
+The slice: the reference's ``FusedPLSLAM(enable_loops=False)`` and the
+port's ``FusedPLSLAM(device="cpu")`` on one synthetic loop scene (320x240,
+seed 3, 300 points, 40 lines, 1 + 3 x 8 frames, kf_batch 4, small map
+capacities). Required and measured: identical keyframe frames and slots,
+identical map matches and new points per keyframe, identical landmark
+counts; KF poses and the trajectory within 1 cm in translation and 3e-3
+in rotation entries, ATE within 5 mm of the reference's (measured 6.5 mm,
+1.03e-3 and 1.5 mm). The LBA here runs with its MAD scale at the 1e-4
+floor (most window landmarks have one observation, with zero residual),
+so its steps are ill-conditioned and f32 sums in another order move the
+poses by millimetres (the reference's own fused and chunked drivers are
+held to 1 cm of ATE in tests/test_fused_slam.py).
+"""
+
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+from plslam_tpu.backend import fused_slam as jfs
+from plslam_tpu.config import SlamConfig
+from plslam_tpu.core import lie as jlie
+from plslam_tpu.core.camera import StereoCamera
+from plslam_tpu.io import synthetic
+from plslam_tpu.utils.evaluation import ate_rmse
+from plslam_tpu_torch import convert
+from plslam_tpu_torch.backend import fused_slam as tfs
+
+CFG = SlamConfig().with_updates({
+    "camera": {"width": 320, "height": 240, "fx": 260.0, "fy": 260.0,
+               "cx": 160.0, "cy": 120.0, "baseline": 0.3},
+    "points": {"max_kpts": 128, "orb_nlevels": 2},
+    "lines": {"max_lines": 32},
+    "mapping": {"max_kfs": 32, "max_points": 512, "max_lines": 64,
+                "lba_max_points": 256, "lba_max_lines": 32,
+                "window_kfs": 4, "fixed_kfs": 2, "lba_iters": 3},
+    "system": {"kf_batch": 4},
+    "loop": {"enabled": False}})
+CAM = StereoCamera.from_config(CFG.camera)
+TCFG = convert.config_from_dict(dataclasses.asdict(CFG))
+TCAM = convert.camera_from_numpy(CAM.fx, CAM.fy, CAM.cx, CAM.cy, CAM.b,
+                                 CAM.width, CAM.height)
+# the reference as the fused step runs it: jitted (cfg and kmax static)
+_ref_scan = jax.jit(jfs.kf_scan, static_argnums=(4, 5))
+
+
+def _sequences(seed, n_chunks=3, B=20):
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n_chunks):
+        xi = rng.normal(size=(B, 6)) * [0.05, 0.02, 0.4, 0.01, 0.03, 0.01]
+        DT = np.stack([np.asarray(jlie.exp_se3(jnp.asarray(x, jnp.float32)))
+                       for x in xi])
+        A = rng.normal(size=(B, 6, 6)) * 1e-3
+        cov = (A @ A.transpose(0, 2, 1) + 1e-6 * np.eye(6)).astype(np.float32)
+        out.append((DT, cov, rng.random(B) > 0.1))
+    return out
+
+
+def _run_scans(cfg, seqs, kmax):
+    """Both scans over consecutive chunks, the carry threaded through."""
+    jc, tc = jfs.init_crit_carry(), tfs.init_crit_carry("cpu")
+    margin, n_kf, n_blocked = np.inf, 0, 0
+    tcfg = convert.config_from_dict(dataclasses.asdict(cfg))
+    for DT, cov, good in seqs:
+        want = _ref_scan(jnp.asarray(DT), jnp.asarray(cov),
+                         jnp.asarray(good), jc, cfg, kmax)
+        got = tfs.kf_scan(torch.from_numpy(DT), torch.from_numpy(cov),
+                          torch.from_numpy(good), tc, tcfg, kmax)
+        for i in (0, 3):
+            np.testing.assert_array_equal(got[i].numpy(), np.asarray(want[i]))
+        for i in (1, 2):
+            np.testing.assert_allclose(got[i].numpy(), np.asarray(want[i]),
+                                       rtol=1e-5, atol=1e-5)
+        for f in jfs.CritCarry._fields:
+            g, w = getattr(got[4], f).numpy(), np.asarray(getattr(want[4], f))
+            if np.issubdtype(w.dtype, np.floating):
+                np.testing.assert_allclose(g, w, rtol=1e-5, atol=1e-6)
+            else:
+                np.testing.assert_array_equal(g, w)
+        r = np.asarray(want[2])
+        margin = min(margin, float(np.abs(r[np.isfinite(r)]
+                                          - cfg.keyframe.min_entropy_ratio
+                                          ).min()))
+        n_kf += int(np.sum(want[0]))
+        n_blocked += int(np.sum(want[3]))
+        jc = want[4]
+        tc = convert.crit_carry_from_numpy(
+            {f: np.asarray(x) for f, x in want[4]._asdict().items()}, "cpu")
+    print(f"kf_scan: {n_kf} keyframes, {n_blocked} deferred, smallest "
+          f"|ratio - {cfg.keyframe.min_entropy_ratio}| = {margin:g}")
+    return n_kf, n_blocked
+
+
+def test_kf_scan_matches_reference_on_synthetic_chunks():
+    n_kf, _ = _run_scans(CFG, _sequences(0), kmax=4)
+    assert n_kf >= 3
+
+
+def test_kf_scan_kmax_cap_matches_reference():
+    """A keyframe every frame (min_entropy_ratio 2), at most 2 a chunk:
+    the cap defers, and the flags and ``blocked`` stay exact."""
+    cfg = CFG.with_updates({"keyframe": {"min_entropy_ratio": 2.0}})
+    n_kf, n_blocked = _run_scans(cfg, _sequences(1), kmax=2)
+    assert n_kf == 6 and n_blocked > 10
+
+
+@pytest.fixture(scope="module")
+def scene():
+    seq = synthetic.make_sequence(CAM, n_frames=25, seed=3, kind="loop",
+                                  n_points=300, n_lines=40, noise=0.004,
+                                  step=0.15)
+    u8 = lambda a: np.clip(a * 255.0 + 0.5, 0, 255).astype(np.uint8)
+    return u8(np.asarray(seq.images_l)), u8(np.asarray(seq.images_r)), seq
+
+
+def _drive(slam, il, ir):
+    slam.initialize(il[0], ir[0])
+    for lo in (1, 9, 17):
+        slam.process_chunk(il[lo:lo + 8], ir[lo:lo + 8])
+    return slam.finish()
+
+
+def test_kf_scan_matches_reference_on_recorded_chunks(scene):
+    """The DT / cov / good of the port's tracking of the scene's chunks
+    (as the fused step feeds kf_scan)."""
+    from plslam_tpu_torch.tracking.batch_vo import vo_chunk, extract_one
+    il, ir, _ = scene
+    p, l = extract_one(torch.from_numpy(il[0]), torch.from_numpy(ir[0]),
+                       TCAM, TCFG)
+    T = torch.eye(4)
+    seqs = []
+    for lo in (1, 9, 17):
+        out = vo_chunk(torch.from_numpy(il[lo:lo + 8]),
+                       torch.from_numpy(ir[lo:lo + 8]), p, l, T, TCAM, TCFG)
+        p, l, T = out.last_pts, out.last_lns, out.DT_next
+        seqs.append((out.DT.numpy(), out.cov.numpy(), out.good.numpy()))
+    n_kf, _ = _run_scans(CFG, seqs, kmax=4)
+    assert n_kf >= 6
+
+
+def test_fused_slam_matches_reference(scene):
+    il, ir, seq = scene
+    ref = jfs.FusedPLSLAM(CFG, CAM, enable_loops=False)
+    est_j = _drive(ref, il, ir)
+    port = tfs.FusedPLSLAM(TCFG, TCAM, device="cpu")
+    est_t = _drive(port, il, ir)
+    kf_frames = lambda s: np.nonzero(np.diff([a for a, _ in s._frame_anchor])
+                                     )[0]
+    np.testing.assert_array_equal(kf_frames(port), kf_frames(ref))
+    assert len(kf_frames(ref)) >= 8
+    rows = lambda s: [(r.slot, r.n_map_matches, r.n_new_points)
+                      for r in s.summaries]
+    assert rows(port) == rows(ref)
+    assert sum(r[1] for r in rows(ref)) > 50
+    kp_t, kp_j = port.kf_poses(), ref.kf_poses()
+    dt = float(np.abs(kp_t[:, :3, 3] - kp_j[:, :3, 3]).max())
+    dr = float(np.abs(kp_t[:, :3, :3] - kp_j[:, :3, :3]).max())
+    dtraj = float(np.abs(est_t[:, :3, 3] - est_j[:, :3, 3]).max())
+    print(f"KF poses: translation {dt:.3g} m, rotation entries {dr:.3g}; "
+          f"trajectory translation {dtraj:.3g} m; landmarks "
+          f"{port.n_landmarks()} vs {ref.n_landmarks()}")
+    assert dt < 0.01 and dr < 3e-3 and dtraj < 0.01
+    assert port.n_landmarks() == ref.n_landmarks()
+    ate = lambda est: float(ate_rmse(est, seq.poses[:len(est)]))
+    assert abs(ate(est_t) - ate(est_j)) < 0.005, (ate(est_t), ate(est_j))
+
+
+def test_fused_slam_raises_where_not_ported(scene):
+    with pytest.raises(NotImplementedError):
+        tfs.FusedPLSLAM(TCFG.with_updates({"loop": {"enabled": True}}),
+                        TCAM, device="cpu")
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError):
+            tfs.FusedPLSLAM(TCFG, TCAM)          # the default is the card
+    port = tfs.FusedPLSLAM(TCFG, TCAM, device="cpu")
+    with pytest.raises(NotImplementedError):
+        port.save_checkpoint("unused")
+    # the compaction point (max_kfs - 2 kf_batch slots used) raises
+    small = tfs.FusedPLSLAM(TCFG.with_updates({"mapping": {"max_kfs": 12}}),
+                            TCAM, device="cpu")
+    il, ir, _ = scene
+    with pytest.raises(RuntimeError, match="compaction"):
+        _drive(small, il, ir)

@@ -237,3 +237,218 @@ def test_hamming_kernels_at_line_shapes(cuda):
                     lambda: hamming.match_nnr(dist, 90, 0.9))
     for x, y in zip(got, hamming.match_nnr_plain(ref, 90, 0.9)):
         assert torch.equal(x.cpu(), y)
+
+
+# -- slice 3: kernels I (K13), J (K14, K16) and K (K15) -----------------------
+
+def lba_problem_np(seed, W=5, P=120, Q=40, noise_px=0.3, pose_noise=0.03,
+                   pt_noise=0.05, drop=0.1):
+    """tests/test_lba.py::make_lba_problem's construction, with numpy
+    randomness (dense visibility, endpoints paired (2q, 2q+1), the first KF
+    fixed) and ``drop`` of the observations detached (id -1). Returns a
+    dict of the LBAProblem fields and the camera."""
+    from plslam_tpu_torch.config import SlamConfig
+    from plslam_tpu_torch.core import lie
+    from plslam_tpu_torch.core.camera import StereoCamera
+    cam = StereoCamera.from_config(SlamConfig().camera)
+    rng = np.random.default_rng(seed)
+    u = lambda lo, hi, n: rng.uniform(lo, hi, n)
+    pts = np.stack([u(-6, 6, P), u(-4, 4, P), u(6, 25, P)], -1)
+    eps = np.stack([u(-6, 6, Q), u(-4, 4, Q), u(6, 25, Q)], -1)
+    xi = np.array([[0.05 * w, 0.01 * w, -0.3 * w, 0.0, 0.015 * w, 0.0]
+                   for w in range(W)], np.float32)
+    poses = lie.exp_se3(torch.from_numpy(xi)).numpy().astype(np.float64)
+
+    def proj(T, X):
+        Pc = X @ T[:3, :3].T + T[:3, 3]
+        return np.stack([cam.fx * Pc[:, 0] / Pc[:, 2] + cam.cx,
+                         cam.fy * Pc[:, 1] / Pc[:, 2] + cam.cy], -1), Pc[:, 2]
+    obs_uv, disp, les = [], [], []
+    for T in poses:
+        uv, z = proj(T, pts)
+        obs_uv.append(uv + noise_px * rng.normal(size=uv.shape))
+        disp.append(cam.fx * cam.b / z + noise_px * rng.normal(size=z.shape))
+        sp = proj(T, eps[0::2])[0] + noise_px * rng.normal(size=(Q // 2, 2))
+        ep = proj(T, eps[1::2])[0] + noise_px * rng.normal(size=(Q // 2, 2))
+        le = np.stack([sp[:, 1] - ep[:, 1], ep[:, 0] - sp[:, 0],
+                       sp[:, 0] * ep[:, 1] - sp[:, 1] * ep[:, 0]], -1)
+        les.append(le / np.linalg.norm(le[:, :2], axis=-1, keepdims=True))
+    obs_id = np.tile(np.arange(P, dtype=np.int32), (W, 1))
+    obs_id[rng.random((W, P)) < drop] = -1
+    sid = np.tile(np.arange(0, Q, 2, dtype=np.int32), (W, 1))
+    gone = rng.random(sid.shape) < drop
+    sid[gone] = -1
+    eid = np.where(sid >= 0, sid + 1, -1).astype(np.int32)
+    dpose = rng.normal(size=(W, 6)) * pose_noise
+    dpose[0] = 0.0
+    kf_pose = (lie.exp_se3(torch.from_numpy(dpose.astype(np.float32))).numpy()
+               @ poses.astype(np.float32))
+    fixed = np.zeros(W, bool)
+    fixed[0] = True
+    f32 = lambda a: np.asarray(a, np.float32)
+    return dict(
+        kf_pose=f32(kf_pose), kf_fixed=fixed, kf_valid=np.ones(W, bool),
+        pt_pos=f32(pts + pt_noise * rng.normal(size=pts.shape)),
+        ep_pos=f32(eps + pt_noise * rng.normal(size=eps.shape)),
+        obs_pt_uv=f32(obs_uv), obs_pt_disp=f32(disp), obs_pt_id=obs_id,
+        obs_ln_le=f32(les), obs_ln_sid=sid, obs_ln_eid=eid), cam
+
+
+def _lba_problem(d, dev):
+    from plslam_tpu_torch.backend import lba
+    return lba.LBAProblem(**{k: torch.from_numpy(v).to(dev)
+                             for k, v in d.items()})
+
+
+def _gn_problems(B, K, L, seed):
+    from plslam_tpu_torch.config import SlamConfig
+    from plslam_tpu_torch.core import lie
+    from plslam_tpu_torch.core.camera import StereoCamera
+    from plslam_tpu_torch.frontend.features import line_equation
+    from plslam_tpu_torch.tracking import pose_gn
+    cam = StereoCamera.from_config(SlamConfig().camera)
+    rng = np.random.default_rng(seed)
+    P = torch.from_numpy(np.stack([rng.uniform(-8, 8, (B, K)),
+                                   rng.uniform(-3, 3, (B, K)),
+                                   rng.uniform(4, 40, (B, K))], -1
+                                  ).astype(np.float32))
+    xi = torch.from_numpy((rng.normal(size=(B, 6)) * [0.05, 0.05, 0.3, 0.01,
+                                                      0.03, 0.01]
+                           ).astype(np.float32))
+    T = lie.exp_se3(xi)
+    uv = cam.project(lie.transform_points(T, P))
+    uv = uv + torch.from_numpy(rng.normal(0, 0.5, uv.shape).astype(np.float32))
+    uv[:, :K // 7] += torch.from_numpy(
+        rng.normal(0, 40, (B, K // 7, 2)).astype(np.float32))
+    pv = torch.from_numpy(rng.random((B, K)) > 0.05)
+    sP = torch.from_numpy(np.stack([rng.uniform(-8, 8, (B, L)),
+                                    rng.uniform(-3, 3, (B, L)),
+                                    rng.uniform(4, 30, (B, L))], -1
+                                   ).astype(np.float32))
+    d = rng.normal(size=(B, L, 3))
+    eP = sP + torch.from_numpy(
+        (2.0 * d / np.linalg.norm(d, axis=-1, keepdims=True)).astype(
+            np.float32))
+    le = line_equation(cam.project(lie.transform_points(T, sP)),
+                       cam.project(lie.transform_points(T, eP)))
+    if L:
+        sP[:, :2, 2] = -1.0                       # behind the camera
+    lv = torch.from_numpy(rng.random((B, L)) > 0.15)
+    return (cam, pose_gn.PointTerms(P, uv, pv),
+            pose_gn.LineTerms(sP, eP, le, lv))
+
+
+@pytest.mark.parametrize("L", [0, 32])
+def test_pose_gn_kernel(cuda, L):
+    """Kernel I (K13): 6 GN iterations of 5 pairs against the plain
+    version on the card: poses within 1e-5, with and without lines."""
+    from plslam_tpu_torch.tracking import pose_gn
+    cam, pts, lns = _gn_problems(5, 300, L, seed=L)
+    dev = lambda nt: type(nt)(*(x.to(cuda) for x in nt))
+    T0 = torch.eye(4).expand(5, 4, 4).to(cuda)
+    got = _launched("pose_gn_iters", lambda: pose_gn.gn_iters(
+        T0, cam, dev(pts), dev(lns), 6))
+    ref = pose_gn.gn_iters_plain(T0, cam, dev(pts), dev(lns), 6)
+    assert float((got - ref).abs().max()) <= 1e-5
+    assert float((ref - T0).abs().max()) > 1e-2          # it moved
+
+
+def test_kf_scan_kernel(cuda):
+    """Kernel J's kf_scan (K14): flags and blocked exactly equal to the
+    plain version on the card over random chunks with the kmax cap."""
+    from plslam_tpu_torch.backend import fused_slam
+    from plslam_tpu_torch.config import SlamConfig
+    from plslam_tpu_torch.core import lie
+    cfg = SlamConfig()
+    rng = np.random.default_rng(0)
+    carry = fused_slam.init_crit_carry(cuda)
+    n_kf = 0
+    for chunk in range(4):
+        xi = rng.normal(size=(20, 6)) * [0.05, 0.02, 0.4, 0.01, 0.03, 0.01]
+        DT = lie.exp_se3(torch.from_numpy(xi.astype(np.float32))).to(cuda)
+        A = rng.normal(size=(20, 6, 6)) * 1e-3
+        cov = torch.from_numpy((A @ A.transpose(0, 2, 1) + 1e-6 * np.eye(6)
+                                ).astype(np.float32)).to(cuda)
+        good = torch.from_numpy(rng.random(20) > 0.1).to(cuda)
+        kmax = 2 if chunk == 3 else 4
+        got = _launched("kf_scan", lambda: fused_slam.kf_scan(
+            DT, cov, good, carry, cfg, kmax))
+        ref = fused_slam.kf_scan_plain(DT, cov, good, carry, cfg, kmax)
+        assert torch.equal(got[0], ref[0]) and torch.equal(got[3], ref[3])
+        assert float((got[1] - ref[1]).abs().max()) <= 1e-5
+        assert float((got[2] - ref[2]).abs().max()) <= 1e-4
+        for g, r in zip(got[4], ref[4]):
+            if g.dtype == torch.bool or not g.is_floating_point():
+                assert torch.equal(g, r)
+        n_kf += int(ref[0].sum())
+        carry = ref[4]
+    assert n_kf >= 4
+
+
+def test_medoid_kernel(cuda):
+    """Kernel J's medoid (K16): exactly the plain version's words, ties
+    and short rings included."""
+    from plslam_tpu_torch.backend import map as tmap
+    g = torch.Generator().manual_seed(0)
+    ring = torch.randint(-2 ** 31, 2 ** 31 - 1, (3000, 4, 8), generator=g,
+                         dtype=torch.int64).to(torch.int32)
+    ring[:500, 1] = ring[:500, 0]                       # ties
+    count = torch.randint(0, 7, (3000,), generator=g).to(torch.int32)
+    got = _launched("medoid", lambda: tmap._medoid_desc(ring.to(cuda),
+                                                        count.to(cuda)))
+    assert torch.equal(got.cpu(), tmap._medoid_desc_plain(ring, count))
+
+
+def test_lba_kernels(cuda):
+    """Kernel K (K15), launch by launch and a whole run_lba, against the
+    plain version on the card. Masks and flags exact; floats relative to
+    each output's largest magnitude (f32 sums in another order)."""
+    from plslam_tpu_torch.backend import lba
+    from plslam_tpu_torch.config import SlamConfig
+    d, cam = lba_problem_np(0)
+    prob = _lba_problem(d, cuda)
+    rel = lambda a, b: float((a - b).abs().max() / b.abs().max().clamp(
+        min=1e-30))
+    t = _launched("lba_terms", lambda: lba.lba_terms(prob, cam))
+    tp = lba.lba_terms_plain(prob, cam)
+    assert torch.equal(t.ok_pt, tp.ok_pt) and torch.equal(t.ok_ln, tp.ok_ln)
+    for a, b in zip(t, tp):
+        if a.is_floating_point():
+            assert rel(a, b) <= 1e-5
+    sig, cost = _launched("lba_sigma", lambda: lba.lba_sigma(tp, prob))
+    sig_p, cost_p = lba.lba_sigma_plain(tp, prob)
+    assert rel(sig, sig_p) <= 1e-6 and rel(cost, cost_p) <= 1e-5
+    free = lba._free(prob)
+    lam = torch.tensor(1e-3, device=cuda)
+    b = lba.lba_blocks(tp, prob, sig_p, free, lam)
+    bp = lba.LandmarkBlocks(*lba.lba_camera_plain(tp, sig_p, free),
+                            *lba.lba_bin_plain(tp, prob, sig_p, free, lam))
+    # the damped blocks' inverses amplify f32 sum-order noise by their
+    # condition number: 1e-4 there
+    for x, y, tol in zip(b, bp, (1e-5, 1e-5, 1e-5, 1e-4, 1e-5, 1e-5)):
+        assert rel(x, y) <= tol
+    Sm, gm = _launched("lba_schur", lambda: lba.lba_schur(bp, free, lam))
+    Sp, gp = lba.lba_schur_plain(bp, free, lam)
+    assert rel(Sm, Sp) <= 1e-5 and rel(gm, gp) <= 1e-5
+    dxi = torch.randn((5, 6), generator=torch.Generator().manual_seed(1)
+                      ).to(cuda) * 0.3
+    for cap in (True, False):
+        got = _launched("lba_backsub", lambda: lba.lba_backsub(
+            bp, dxi, prob.pt_pos.shape[0], cap))
+        for x, y in zip(got, lba.lba_backsub_plain(bp, dxi,
+                                                   prob.pt_pos.shape[0], cap)):
+            assert rel(x, y) <= 1e-4
+    cfg = SlamConfig()
+    before = native.LAUNCHES["lba_bin"]
+    res = lba.run_lba(prob, cam, cfg)
+    torch.cuda.synchronize()
+    assert native.LAUNCHES["lba_bin"] == before + cfg.mapping.lba_iters
+    assert float(res.cost1) < float(res.cost0)
+    n_obs = int((prob.obs_pt_id >= 0).sum())
+    assert int(res.obs_pt_inlier.sum()) > 0.8 * n_obs
+    resp = lba.run_lba_plain(prob, cam, cfg)
+    assert rel(res.kf_pose, resp.kf_pose) <= 1e-4
+    assert rel(res.pt_pos, resp.pt_pos) <= 1e-4
+    assert rel(res.cost1, resp.cost1) <= 1e-3
+    assert float((res.obs_pt_inlier == resp.obs_pt_inlier).float().mean()
+                 ) >= 0.995

@@ -1,0 +1,250 @@
+"""Port parity: backend/lba.py (K15) and the new core/lie.py helpers.
+
+Problems are built like tests/test_lba.py::make_lba_problem (W=5 poses,
+P=120 points, Q=40 line endpoints, every KF observing every landmark, the
+first KF fixed) with numpy randomness (``test_torch_gpu.lba_problem_np``),
+10% of the observations detached and three points put behind the cameras
+(the lost-observation charge). The same problem goes to the jitted
+reference and to the port's plain versions on the CPU.
+
+Tolerances and what was measured on these problems:
+  * validity masks, post-hoc inlier masks: identical;
+  * residuals within 2e-4 px absolute (each cancels terms of ~1e3 px),
+    Jacobians within 1e-5 relative (1e-3 absolute);
+  * the robust cost within 1e-5 relative;
+  * one damped step and the whole LM (6 iterations): each output within
+    three times the reference's own f32 error (its distance from the
+    port's float64 evaluation of the same problem, relative to the
+    output's largest magnitude) plus 1e-6. At lambda = 1e-3 the endpoint
+    blocks are nearly singular along their lines (one scalar residual per
+    observation), so f32 sum order moves the endpoint steps: measured
+    port-vs-reference 2e-4 to 9e-3 where the reference itself is 1e-4 to
+    4e-3 from float64; poses and points agree to ~1e-6. Costs within
+    1e-4 relative; the LM's accept/reject decisions are identical, and
+    the smallest relative margin |c_try - c| / c between two compared
+    costs is recorded (a margin under 1e-5 could flip on f32 noise);
+  * the Schur step against a dense f64 assembly of the full normal
+    equations as the reference's own test_schur_equals_dense does.
+"""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from plslam_tpu.backend import lba as jlba
+from plslam_tpu.config import SlamConfig
+from plslam_tpu.core import lie as jlie
+from plslam_tpu.core import robust as jrobust
+from plslam_tpu.core.camera import StereoCamera as JCam
+from plslam_tpu_torch import convert
+from plslam_tpu_torch.backend import lba as tlba
+from plslam_tpu_torch.core import lie as tlie
+from test_torch_gpu import lba_problem_np
+
+CFG = SlamConfig()
+JC = JCam.from_config(CFG.camera)
+TCFG = convert.config_from_dict(dataclasses.asdict(CFG))
+_ref_cost = jax.jit(jlba.lba_cost)
+_ref_step = jax.jit(jlba._assemble_and_solve)
+_ref_posthoc = jax.jit(jlba.posthoc_inliers, static_argnums=(2,))
+_ref_point_rj = jax.jit(jlba._point_rj)
+_ref_endpoint_rj = jax.jit(jlba._endpoint_rj)
+
+
+def _problem(seed, **kw):
+    d, cam = lba_problem_np(seed, **kw)
+    d["pt_pos"][:3, 2] = -5.0                  # behind every camera: lost
+    jp = jlba.LBAProblem(**{k: jnp.asarray(v) for k, v in d.items()})
+    tp = tlba.LBAProblem(**{k: torch.from_numpy(v) for k, v in d.items()})
+    return jp, tp, cam
+
+
+@pytest.fixture(scope="module")
+def problem():
+    return _problem(0)
+
+
+def _rel(a, b):
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-30))
+
+
+def _f64(tp):
+    return tlba.LBAProblem(*(x.double() if x.is_floating_point() else x
+                             for x in tp))
+
+
+def _in_band(got, want, truth):
+    """The port within 3x the reference's own f32 error (+ 1e-6)."""
+    got, truth = np.asarray(got), np.asarray(truth)
+    assert _rel(got, want) <= 3.0 * _rel(want, truth) + 1e-6, (
+        _rel(got, want), _rel(want, truth))
+
+
+def test_inv3_adjoint_and_distance_match_reference():
+    rng = np.random.default_rng(0)
+    A = rng.normal(size=(200, 3, 3))
+    M = (A @ A.transpose(0, 2, 1) + 1e-3 * np.eye(3)).astype(np.float32)
+    M[:20] *= 1e-7                                # damped-but-empty blocks
+    np.testing.assert_allclose(tlie.inv3(torch.from_numpy(M)).numpy(),
+                               np.asarray(jlie.inv3(jnp.asarray(M))),
+                               rtol=1e-4, atol=0)
+    xi = (rng.normal(size=(50, 6)) * 0.3).astype(np.float32)
+    T = np.asarray(jax.vmap(jlie.exp_se3)(jnp.asarray(xi)))
+    np.testing.assert_allclose(
+        tlie.adjoint_se3(torch.from_numpy(T)).numpy(),
+        np.asarray(jlie.adjoint_se3(jnp.asarray(T))), rtol=1e-6, atol=1e-6)
+    for got, want in zip(tlie.se3_distance(torch.from_numpy(T)),
+                         jlie.se3_distance(jnp.asarray(T))):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
+                                   atol=1e-6)
+
+
+def test_point_and_endpoint_terms_match_reference(problem):
+    jp, tp, cam = problem
+    got = tlba._point_rj(tp.kf_pose, tp.pt_pos, tp.obs_pt_uv, tp.obs_pt_disp,
+                         tp.obs_pt_id, cam)
+    want = _ref_point_rj(jp.kf_pose, jp.pt_pos, jp.obs_pt_uv,
+                         jp.obs_pt_disp, jp.obs_pt_id, JC)
+    np.testing.assert_array_equal(got[3].numpy(), np.asarray(want[3]))
+    assert (~got[3].numpy()).sum() > 3 * 5 * 0.9      # behind + detached
+    np.testing.assert_allclose(got[0].numpy(), want[0], rtol=0, atol=2e-4)
+    for g, w in zip(got[1:3], want[1:3]):
+        np.testing.assert_allclose(g.numpy(), w, rtol=1e-5, atol=1e-3)
+    for ids_t, ids_j in ((tp.obs_ln_sid, jp.obs_ln_sid),
+                         (tp.obs_ln_eid, jp.obs_ln_eid)):
+        got = tlba._endpoint_rj(tp.kf_pose, tp.ep_pos, tp.obs_ln_le, ids_t,
+                                cam)
+        want = _ref_endpoint_rj(jp.kf_pose, jp.ep_pos, jp.obs_ln_le, ids_j,
+                                JC)
+        np.testing.assert_array_equal(got[3].numpy(), np.asarray(want[3]))
+        np.testing.assert_allclose(got[0].numpy(), want[0], rtol=0,
+                                   atol=2e-4)
+        for g, w in zip(got[1:3], want[1:3]):
+            np.testing.assert_allclose(g.numpy(), w, rtol=1e-5, atol=1e-3)
+
+
+def test_lba_cost_matches_reference(problem):
+    jp, tp, cam = problem
+    got = float(tlba.lba_cost(tp, cam))
+    want = float(_ref_cost(jp, JC))
+    assert abs(got - want) <= 1e-5 * abs(want)
+    # the charge: the 3 points behind all 5 cameras cost (dof+1) sigma^2
+    # per observation that is still attached
+    sigma, _ = tlba.lba_sigma(tlba.lba_terms(tp, cam), tp)
+    n_lost = int((tp.obs_pt_id[:, :3] >= 0).sum())
+    assert n_lost >= 10 and got > 6.0 * float(sigma) ** 2 * n_lost
+
+
+@pytest.mark.parametrize("lam", [1e-3, 10.0])
+def test_one_damped_step_matches_reference(problem, lam):
+    jp, tp, cam = problem
+    got = tlba._assemble_and_solve(tp, cam, lam)
+    want = _ref_step(jp, JC, jnp.float32(lam))
+    truth = tlba._assemble_and_solve(_f64(tp), cam, lam)
+    for g, w, t in zip(got, want, truth):
+        _in_band(g.numpy(), w, t.numpy())
+    capped = tlba._step(tp, cam, lam, tlba._PLAIN)
+    truth_c = tlba._step(_f64(tp), cam, lam, tlba._PLAIN)
+    for g, w, t in zip(capped, jlba._cap_steps(*want), truth_c):
+        _in_band(g.numpy(), w, t.numpy())
+
+
+def test_schur_equals_dense():
+    """The port's Schur step equals the dense normal-equation step on a
+    small point-only problem (the reference's test_schur_equals_dense)."""
+    d, cam = lba_problem_np(3, W=3, P=25, Q=2, noise_px=0.1, drop=0.0)
+    d["obs_ln_sid"][:] = -1
+    d["obs_ln_eid"][:] = -1
+    prob = tlba.LBAProblem(**{k: torch.from_numpy(v) for k, v in d.items()})
+    lam = 1e-4
+    dxi, d_pt, _ = tlba._assemble_and_solve(prob, cam, lam)
+    W, P = 3, 25
+    r, Jc, Jp, ok = tlba._point_rj(prob.kf_pose, prob.pt_pos, prob.obs_pt_uv,
+                                   prob.obs_pt_disp, prob.obs_pt_id, cam)
+    rn = torch.sqrt(torch.sum(r * r, dim=-1) + 1e-12)
+    sigma = jrobust.mad_scale_zero_centered(jnp.asarray(rn.reshape(-1)),
+                                            jnp.asarray(ok.reshape(-1)))
+    wgt = np.where(ok, np.asarray(jrobust.tstudent_weight(
+        jnp.asarray(rn), sigma)), 0.0)
+    Jc = np.where((~prob.kf_fixed).numpy()[:, None, None, None], Jc, 0.0)
+    n = 6 * W + 3 * P
+    H = np.zeros((n, n))
+    g = np.zeros(n)
+    ids = prob.obs_pt_id.numpy()
+    for w_i in range(W):
+        for k in range(P):
+            if not bool(ok[w_i, k]):
+                continue
+            p = ids[w_i, k]
+            Jrow = np.zeros((3, n))
+            Jrow[:, 6 * w_i:6 * w_i + 6] = Jc[w_i, k]
+            Jrow[:, 6 * W + 3 * p:6 * W + 3 * p + 3] = Jp[w_i, k].numpy()
+            H += wgt[w_i, k] * Jrow.T @ Jrow
+            g += wgt[w_i, k] * Jrow.T @ r[w_i, k].numpy()
+    H += np.diag(lam * np.maximum(np.diag(H).copy(), 1e-3))
+    H[0:6, 0:6] += 1e8 * np.eye(6)                      # pin fixed KF 0
+    H += 1e-6 * np.eye(n)
+    delta = -np.linalg.solve(H, g)
+    np.testing.assert_allclose(dxi.numpy(), delta[:6 * W].reshape(W, 6),
+                               atol=2e-3)
+    np.testing.assert_allclose(d_pt.numpy(), delta[6 * W:].reshape(P, 3),
+                               rtol=2e-2, atol=5e-3)
+
+
+def _decisions(prob, cam, cfg):
+    """The port's LM accept/reject sequence and the smallest relative
+    margin between the two costs compared."""
+    m = cfg.mapping
+    cost = tlba._cost(prob, cam, tlba._PLAIN)
+    lam = torch.tensor(m.lambda_init)
+    out, margin = [], np.inf
+    for _ in range(m.lba_iters):
+        dxi, d_pt, d_ep = tlba._step(prob, cam, lam, tlba._PLAIN)
+        trial = prob._replace(kf_pose=tlie.exp_se3(dxi) @ prob.kf_pose,
+                              pt_pos=prob.pt_pos + d_pt,
+                              ep_pos=prob.ep_pos + d_ep)
+        c_try = tlba._cost(trial, cam, tlba._PLAIN)
+        acc = bool(c_try < cost)
+        margin = min(margin, abs(float(c_try - cost)) / float(cost))
+        out.append(acc)
+        if acc:
+            prob, cost, lam = trial, c_try, lam / m.lambda_factor
+        else:
+            lam = lam * m.lambda_factor
+    return out, margin
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_run_lba_and_posthoc_match_reference(seed):
+    jp, tp, cam = _problem(seed)
+    got = tlba.run_lba(tp, cam, TCFG)
+    want = jlba.run_lba(jp, JC, CFG)
+    truth = tlba.run_lba(_f64(tp), cam, TCFG)
+    for name in ("kf_pose", "pt_pos", "ep_pos"):
+        _in_band(getattr(got, name).numpy(), getattr(want, name),
+                 getattr(truth, name).numpy())
+    for name in ("cost0", "cost1"):
+        assert abs(float(getattr(got, name)) - float(getattr(want, name))) \
+            <= 1e-4 * float(getattr(want, name))
+    assert float(got.cost1) < 0.01 * float(got.cost0)
+    np.testing.assert_array_equal(got.obs_pt_inlier.numpy(),
+                                  np.asarray(want.obs_pt_inlier))
+    np.testing.assert_array_equal(got.obs_ln_inlier.numpy(),
+                                  np.asarray(want.obs_ln_inlier))
+    accepts, margin = _decisions(tp, cam, TCFG)
+    print(f"LM decisions {accepts}, smallest relative cost margin {margin:g}")
+    assert margin > 1e-5
+    # post-hoc flags on their own, at the solved state
+    solved_t = tp._replace(kf_pose=got.kf_pose, pt_pos=got.pt_pos,
+                           ep_pos=got.ep_pos)
+    solved_j = jp._replace(kf_pose=jnp.asarray(got.kf_pose.numpy()),
+                           pt_pos=jnp.asarray(got.pt_pos.numpy()),
+                           ep_pos=jnp.asarray(got.ep_pos.numpy()))
+    for g, w in zip(tlba.posthoc_inliers(solved_t, cam, TCFG),
+                    _ref_posthoc(solved_j, JC, CFG)):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))

@@ -137,3 +137,41 @@ def test_line_terms_and_joint_weights_match_reference():
         np.testing.assert_allclose(sigma[b].item(), float(rs), rtol=1e-6)
         np.testing.assert_allclose(w_pt[b].numpy(), rw_pt, atol=1e-5)
         np.testing.assert_allclose(w_ln[b].numpy(), rw_ln, atol=1e-5)
+
+
+def test_gn_phases_at_main_path_shapes_match_reference():
+    """The GN phases as kernel I runs them (``gn_iters``: every iteration
+    of a phase in one call) at the main path's term counts, K = 1024 point
+    and L = 128 line terms: the whole optimize_pose against the reference,
+    poses within 1e-5, inlier masks and ``good`` identical."""
+    probs = _problems(3, n_pts=1024, n_lns=128, seed=11)
+    stack = {k: np.stack([p[k] for p in probs]) for k in probs[0]}
+    pts = tgn.PointTerms(torch.from_numpy(stack["P"]),
+                         torch.from_numpy(stack["uv"]),
+                         torch.from_numpy(stack["valid"]))
+    lns = tgn.LineTerms(*(torch.from_numpy(stack[k])
+                          for k in ("sP", "eP", "le", "lvalid")))
+    T0 = torch.eye(4).expand(3, 4, 4)
+    res = tgn.optimize_pose(T0, TC, pts, lns, TCFG)
+    for b, p in enumerate(probs):
+        ref = _ref_optimize(
+            jnp.eye(4), JC,
+            jgn.PointTerms(jnp.asarray(p["P"]), jnp.asarray(p["uv"]),
+                           jnp.asarray(p["valid"])),
+            jgn.LineTerms(jnp.asarray(p["sP"]), jnp.asarray(p["eP"]),
+                          jnp.asarray(p["le"]), jnp.asarray(p["lvalid"])),
+            CFG)
+        assert bool(res.good[b]) == bool(ref.good)
+        np.testing.assert_array_equal(res.inlier_pt[b].numpy(),
+                                      np.asarray(ref.inlier_pt))
+        np.testing.assert_array_equal(res.inlier_ln[b].numpy(),
+                                      np.asarray(ref.inlier_ln))
+        if b < len(probs) - 1:
+            np.testing.assert_allclose(res.T[b].numpy(), np.asarray(ref.T),
+                                       atol=1e-5, rtol=0)
+    # one phase on its own: n iterations in one call equal n calls of one
+    T_a = tgn.gn_iters(T0, TC, pts, lns, 3)
+    T_b = T0
+    for _ in range(3):
+        T_b = tgn.gn_iters(T_b, TC, pts, lns, 1)
+    assert torch.equal(T_a, T_b)
