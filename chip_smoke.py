@@ -31,12 +31,27 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
      launch, one LM step and one whole ``run_lba`` on a well-conditioned
      window problem at the path's shapes, and one whole ``run_lba`` on
      that run's final window problem;
-  5. one JSON line of the kernels (launches from the SLAM path), then the
-     card line, then the result.
+  5. the loop path: ``FusedPLSLAM`` with the default ``SlamConfig()``
+     (loop closure on) over two laps of a 110-frame loop with
+     bench_slam.py's world (``loop_scene``: bench_slam.py's own scene
+     closes no loop in the port's runs), 1 + 11 x 20 device-resident uint8
+     frames: every frame tracked, at least one closure, keyframes, loop
+     events and the funnel against the CPU run, the ATE bound, each kernel
+     launched exactly as often as the run's own keyframes, LBA slots,
+     verifications, closures and graph solves say; again with the graph
+     solve at every closure if no closure cleared the lazy floors, and
+     with the PCG solver after the kernels below (each run held against
+     its own CPU run); L (K17) on a keyframe of
+     that run against the real vocabularies, D at the verification shapes,
+     the covisibility gather (K7) and M (K18) launch by launch at Fb = 64
+     and 512, the whole dense and PCG solves against float64;
+  6. one JSON line of the kernels (launches from the loop path's first run
+     that launched each), then the card line, then the result.
 
-``python3 chip_smoke.py --cpu-ate`` runs the paths' frames through the
-plain versions on the CPU: the calibration of the ATE, line-count and
-keyframe bounds below.
+``python3 chip_smoke.py --cpu-ate [vo] [slam] [loops] [pcg]`` runs the
+paths' frames through the plain versions on the CPU: the calibration of the
+ATE, line-count, keyframe and loop bounds below (no part named: all;
+``pcg``: the PCG loop run alone).
 
 Imports nothing of JAX and nothing of the JAX package.
 """
@@ -586,12 +601,13 @@ def run_counts(outs):
             cat("n_line_inliers"))
 
 
-def cpu_reference_ate() -> None:
+def cpu_reference_ate(parts) -> None:
     """The main paths' scenes through the port's plain versions on the
-    CPU: the calibration run of the ATE and line-count bounds."""
+    CPU: the calibration run of the ATE, line-count, keyframe and loop
+    bounds. ``parts``: any of vo, slam, loops, pcg (none: all)."""
     from plslam_tpu_torch.tracking.batch_vo import BatchedStereoVO
     from plslam_tpu_torch.utils.evaluation import ate_rmse
-    for lines in (True, False):
+    for lines in ((True, False) if not parts or "vo" in parts else ()):
         cfg, cam, seq = main_scene(lines)
         vo = BatchedStereoVO(cfg, cam, device="cpu")
         t0 = time.perf_counter()
@@ -610,6 +626,8 @@ def cpu_reference_ate() -> None:
                     f"{np.median(n_li)}")
         print(msg, flush=True)
     from plslam_tpu_torch.backend.fused_slam import FusedPLSLAM
+    if parts and "slam" not in parts:
+        return cpu_loop_runs(parts)
     cfg, cam, seq, il, ir = slam_scene()
     slam = FusedPLSLAM(cfg, cam, device="cpu")
     t0 = time.perf_counter()
@@ -623,6 +641,48 @@ def cpu_reference_ate() -> None:
           f"{slam.n_landmarks()} lba costs "
           f"{[(r.lba_cost0, r.lba_cost1) for r in recs if r.lba_cost0]} "
           f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    cpu_loop_runs(parts)
+
+
+def cpu_loop_runs(parts) -> None:
+    """The loop path on the CPU, as ``main`` runs it on the card: with the
+    default floors, with floors 0 (the graph solve at every closure) if no
+    default closure solved, and with the PCG solver: the LOOP_CPU values.
+    ``parts``: "loops" (all three) or "pcg" (the PCG run alone, with the
+    floors LOOP_CPU's record implies)."""
+    from plslam_tpu_torch.backend.fused_slam import FusedPLSLAM
+    from plslam_tpu_torch.utils.evaluation import ate_rmse
+    tags = [t for t, part in (("default", "loops"), ("solve", "loops"),
+                              ("pcg", "pcg"))
+            if not parts or "loops" in parts or part in parts]
+    if not tags:
+        return
+    global LOOP_SCENE
+    LOOP_SCENE = loop_scene()
+    cfg0, cam, seq, il, ir = LOOP_SCENE
+    solve = SOLVE_ALWAYS if "solve" in LOOP_CPU else {}
+    for tag in tags:
+        if tag == "solve" and not solve:
+            continue            # the default run solved: no second run
+        upd = {"default": {}, "solve": SOLVE_ALWAYS,
+               "pcg": pcg_updates(solve)}[tag]
+        cfg = cfg0.with_updates(upd) if upd else cfg0
+        slam = FusedPLSLAM(cfg, cam, device="cpu")
+        t0 = time.perf_counter()
+        est = drive_slam(slam, il, ir, None, LOOP_CHUNKS)
+        kf_frames, events, funnel, good, margin = loop_summary(slam, cfg)
+        ate = float(ate_rmse(est, seq.poses[:len(est)]))
+        print(f"[cpu] loops {tag}: good={int(good.sum())}/{len(good)} "
+              f"events {slam.loop_closer.events} smallest decision margin "
+              f"{margin.min():.6g} ({time.perf_counter() - t0:.1f} s)",
+              flush=True)
+        print(f"[cpu] LOOP_CPU[{tag!r}] = " + json.dumps(dict(
+            kf_frames=kf_frames, events=events, funnel=funnel, ate=ate)),
+              flush=True)
+        if tag == "default":
+            solve = ({} if any(e.graph_cost0 > 0
+                               for e in slam.loop_closer.events)
+                     else SOLVE_ALWAYS)
 
 
 def main_path(dev, lines: bool):
@@ -936,7 +996,7 @@ def map_matching_case(record, g, dev, N, M, tag, window):
 # ATE bound of the SLAM path (m), its keyframe count and keyframe frames:
 # the port's own CPU run of the same frames (``--cpu-ate``: the plain
 # versions, device="cpu"); the bound leaves a margin of 2x plus 2 cm
-SLAM_ATE_CPU_MEASURED = 0.03783400356687165
+SLAM_ATE_CPU_MEASURED = 0.03782223584693017
 SLAM_KF_FRAMES_CPU = [3, 7, 11, 15, 20, 24, 28, 32, 40, 44, 48, 52, 60, 64,
                       68, 72, 80, 84, 88, 92]
 SLAM_CHUNKS = 5
@@ -964,9 +1024,9 @@ def slam_scene():
         np.asarray(seq.images_r))
 
 
-def drive_slam(slam, il, ir, dev_chunks=None):
+def drive_slam(slam, il, ir, dev_chunks=None, n_chunks=SLAM_CHUNKS):
     slam.initialize(il[0], ir[0])
-    for c in range(SLAM_CHUNKS):
+    for c in range(n_chunks):
         lo = 1 + c * CHUNK
         if dev_chunks is not None:
             slam.process_chunk(dev_chunks[c])
@@ -991,25 +1051,27 @@ def decisions(slam, cfg):
     return rows[:, 33] > 0.5, rows[:, 32] > 0.5, margin
 
 
-def expected_slam_launches(n_kfs: int, n_lba: int) -> dict:
+# launches of one window LBA (6 LM iterations: per iteration one step of 6
+# launches and a trial cost of 2, plus the initial cost and the post-hoc
+# flags)
+PER_LBA = {"lba_terms": 14, "lba_sigma": 14, "lba_camera": 6, "lba_bin": 6,
+           "lba_schur": 6, "lba_backsub": 6}
+
+
+def expected_slam_launches(n_kfs: int, n_lba: int,
+                           n_chunks: int = SLAM_CHUNKS) -> dict:
     """Launches of the SLAM path: initialize (one extraction and one
-    keyframe insertion), 5 chunks (extraction, tracking with 4 GN phases,
-    kf_scan), every keyframe's insertion (a medoid and a map match for
-    points and for lines) and every window LBA (6 LM iterations: per
-    iteration one step of 6 launches and a trial cost of 2, plus the
-    initial cost and the post-hoc flags)."""
+    keyframe insertion), ``n_chunks`` chunks (extraction, tracking with 4
+    GN phases, kf_scan), every keyframe's insertion (a medoid and a map
+    match for points and for lines) and every window LBA (``PER_LBA``)."""
     from collections import Counter
     n = Counter()
-    iters = 6
     per_kf = {"medoid": 2, "hamming_dist": 2, "hamming_match": 2}
-    per_lba = {"lba_terms": 2 * iters + 2, "lba_sigma": 2 * iters + 2,
-               "lba_camera": iters, "lba_bin": iters, "lba_schur": iters,
-               "lba_backsub": iters}
     per_chunk = {"pose_gn_iters": 4, "kf_scan": 1}
-    for table, times in ((EXTRACT_POINTS, SLAM_CHUNKS + 1),
-                         (EXTRACT_LINES, SLAM_CHUNKS + 1),
-                         (TRACK, 2 * SLAM_CHUNKS), (per_chunk, SLAM_CHUNKS),
-                         (per_kf, n_kfs), (per_lba, n_lba)):
+    for table, times in ((EXTRACT_POINTS, n_chunks + 1),
+                         (EXTRACT_LINES, n_chunks + 1),
+                         (TRACK, 2 * n_chunks), (per_chunk, n_chunks),
+                         (per_kf, n_kfs), (PER_LBA, n_lba)):
         for k, v in table.items():
             n[k] += v * times
     return dict(n)
@@ -1407,9 +1469,493 @@ def lba_phase(dev, record, slam):
           f"differ from the plain version's: {same_inl}")
 
 
+# -- slice 4: loop closure ---------------------------------------------------
+
+LOOP_CHUNKS = 11
+LOOP_LAP = 110
+# The loop path's CPU run (``--cpu-ate loops``: the port's plain versions,
+# device="cpu", the same frames): keyframe frames, loop events (from, to,
+# inliers), the funnel (candidates, votes, rejections by geometry,
+# uncertainty, correction, closures) and the ATE, one entry per run that
+# ``main`` makes on the card ("solve" only where no default closure
+# solved); a run without its entry fails.
+LOOP_CPU = {"default": {
+    "kf_frames": [4, 9, 14, 19, 24, 29, 34, 39, 44, 49, 54, 59, 64, 69, 74,
+                  79, 84, 89, 94, 99, 104, 109, 114, 119, 124, 129, 134, 139,
+                  144, 149, 154, 159, 164, 169, 174, 179, 184, 189, 194, 199,
+                  204, 209, 214, 219],
+    "events": [[1, 23, 252], [13, 35, 259]], "funnel": [18, 4, 2, 0, 0, 2],
+    "ate": 0.022807961584485874}, "pcg": {
+    "kf_frames": [4, 9, 14, 19, 24, 29, 34, 39, 44, 49, 54, 59, 64, 69, 74,
+                  79, 84, 89, 94, 99, 104, 109, 114, 119, 124, 129, 134, 139,
+                  144, 149, 154, 159, 164, 169, 174, 179, 184, 189, 194, 199,
+                  204, 209, 214, 219],
+    "events": [[1, 23, 252], [13, 35, 259]], "funnel": [18, 4, 2, 0, 0, 2],
+    "ate": 0.0228104777856262}}
+# floors 0: "always solve" (LoopClosureConfig.lc_min_correction_t/r)
+SOLVE_ALWAYS = {"loop": {"lc_min_correction_t": 0.0,
+                         "lc_min_correction_r": 0.0}}
+
+
+def pcg_updates(solve):
+    """The PCG run's settings: those of the run that solved (``solve``: {}
+    or SOLVE_ALWAYS) with ``pose_graph_solver="pcg"``."""
+    return {"loop": dict(solve.get("loop", {}), pose_graph_solver="pcg")}
+
+
+def loop_scene():
+    """The loop path's scene: two laps of tests/test_compact_loops.py's lap
+    trajectory (a lap rendered once, then replayed, so the second lap
+    revisits the first's views exactly) at the full KITTI width with
+    bench_slam.py's world (a ring of 400 points and 60 lines around the
+    lap's centre, noise 0.004, step 0.15 m) and the default SlamConfig()
+    (loop closure on): 1 + 11 x 20 uint8 frames. A lap is 110 frames
+    (3.27 deg of yaw a frame), so the 15 deg rotation cap makes ~22
+    keyframes a lap, more than the 20 of min_kf_separation: each second-lap
+    keyframe's twin is a candidate. bench_slam.py's own scene closes no
+    loop with the default settings (26 keyframes; its revisit spans slots
+    22-25, which may only match slots 0-5)."""
+    from plslam_tpu_torch.config import SlamConfig
+    from plslam_tpu_torch.core.camera import StereoCamera
+    from plslam_tpu_torch.io import synthetic
+    cfg = SlamConfig()
+    cam = StereoCamera.from_config(cfg.camera)
+    n = 1 + LOOP_CHUNKS * CHUNK
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(0)
+    world = synthetic.make_world(rng, n_points=400, n_lines=60, layout="ring")
+    step = synthetic._exp_se3_np(np.array(
+        [0, 0, 0.15, 0, 2 * np.pi / LOOP_LAP, 0], np.float32))
+    T = np.eye(4, dtype=np.float32)
+    lap = []
+    for _ in range(LOOP_LAP):
+        lap.append(T)
+        T = (T @ step).astype(np.float32)
+    lap = np.stack(lap)
+    c = lap[:, :3, 3].mean(0)
+    world = world._replace(points=world.points + c, line_sp=world.line_sp + c,
+                           line_ep=world.line_ep + c)
+    u8 = lambda a: np.clip(a * 255.0 + 0.5, 0, 255).astype(np.uint8)
+    frames = [synthetic.render_frame(world, P, cam, rng, noise=0.004)
+              for P in lap]
+    idx = np.arange(n) % LOOP_LAP
+    il = np.stack([u8(f[0]) for f in frames])[idx]
+    ir = np.stack([u8(f[1]) for f in frames])[idx]
+    seq = synthetic.SyntheticSequence(world, lap[idx], None, None)
+    print(f"[loop] rendered a lap of {LOOP_LAP} frames in "
+          f"{time.perf_counter() - t0:.1f} s (host), {n} frames", flush=True)
+    return cfg, cam, seq, il, ir
+
+
+class LoopProbe:
+    """Counts and times the loop closer's steps on the card (each timed
+    call is bracketed by synchronizes) and records the candidate margins.
+    Installed around the module-level functions the closer calls; it
+    changes nothing they compute."""
+
+    def __init__(self):
+        import plslam_tpu_torch.loop.loop_closer as tlc
+        self.mod = tlc
+        self.saved = {}
+        self.n = {}
+        self.ms = {}
+        self.margin = math.inf       # smallest |rel - lc_mat|
+        self.gap = math.inf          # smallest gap between ranked candidates
+        for name in ("verify_loop_geometry", "_post_loop_update",
+                     "optimize_pose_graph", "optimize_pose_graph_pcg"):
+            self._wrap(name)
+        orig = tlc.select_candidates
+        self.saved["select_candidates"] = orig
+
+        def select(scores, slot, cfg):
+            out, base = orig(scores, slot, cfg)
+            lc = cfg.loop
+            elig = scores.copy()
+            elig[max(slot - lc.min_kf_separation, 0):] = 0.0
+            rel = elig[elig > 0] / base
+            if rel.size:
+                self.margin = min(self.margin,
+                                  float(np.abs(rel - lc.lc_mat).min()))
+                top = np.sort(rel)[::-1][:lc.max_loop_candidates + 1]
+                if top.size > 1:
+                    self.gap = min(self.gap, float(np.diff(top).__abs__()
+                                                   .min()))
+            return out, base
+        tlc.select_candidates = select
+
+    def _wrap(self, name):
+        import torch
+        orig = getattr(self.mod, name)
+        self.saved[name] = orig
+
+        def timed(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = orig(*a, **k)
+            torch.cuda.synchronize()
+            self.n[name] = self.n.get(name, 0) + 1
+            self.ms.setdefault(name, []).append(
+                1e3 * (time.perf_counter() - t0))
+            return out
+        setattr(self.mod, name, timed)
+
+    def close(self):
+        for name, fn in self.saved.items():
+            setattr(self.mod, name, fn)
+
+
+def expected_loop_launches(n_kfs, n_lba, p: LoopProbe, n_closed) -> dict:
+    """The loop path's launches: the loops-off path's, plus per probe (every
+    keyframe, the first included) the BoW descent and histogram of each
+    family; per verification D twice (ORB, LBD) and two GN phases (K13);
+    per closure the landmark fusion (D twice); per dense solve one initial
+    pg_edges and 12 x (pg_edges, pg_assemble, pg_update); per PCG solve
+    one pg_edges and 12 x (pg_edges, pg_blocks, pg_pcg, pg_update); per
+    post-closure update one window LBA (K15)."""
+    from collections import Counter
+    n = Counter(expected_slam_launches(n_kfs, n_lba, LOOP_CHUNKS))
+    g = lambda k: p.n.get(k, 0)
+    for table, times in (
+            ({"bow_descend": 2, "bow_hist": 2}, n_kfs),
+            ({"hamming_dist": 2, "hamming_match": 2, "pose_gn_iters": 2},
+             g("verify_loop_geometry")),
+            ({"hamming_dist": 2, "hamming_match": 2}, n_closed),
+            ({"pg_edges": 13, "pg_assemble": 12, "pg_update": 12},
+             g("optimize_pose_graph")),
+            ({"pg_edges": 13, "pg_blocks": 12, "pg_pcg": 12,
+              "pg_update": 12}, g("optimize_pose_graph_pcg")),
+            (PER_LBA, g("_post_loop_update"))):
+        for k, v in table.items():
+            n[k] += v * times
+    return {k: v for k, v in n.items() if v}
+
+
+def loop_summary(slam, cfg):
+    """(keyframe frames, events [(from, to, inliers)], funnel, good,
+    decision margins) of a finished loop run."""
+    flags, good, margin = decisions(slam, cfg)
+    lc = slam.loop_closer
+    events = [(e.kf_from, e.kf_to, e.n_inliers) for e in lc.events]
+    funnel = (lc.n_candidates, lc.n_votes_fired, lc.n_rej_geom,
+              lc.n_rej_unc, lc.n_rej_corr, lc.n_loops_closed)
+    return np.nonzero(flags)[0].tolist(), events, funnel, good, margin
+
+
+def loop_path(dev, tag, updates=None, cpu=None):
+    """FusedPLSLAM(SlamConfig()) with loops on over ``loop_scene``'s two
+    laps, 1 + 11 x 20 device-resident uint8 frames, after a warm-up of one
+    chunk;
+    ``updates`` changes the loop settings. Returns (launches, slam, probe
+    counts)."""
+    import torch
+    from plslam_tpu_torch import native
+    from plslam_tpu_torch.backend.chunk_backend import lba_slot_flags
+    from plslam_tpu_torch.backend.fused_slam import FusedPLSLAM
+    from plslam_tpu_torch.utils.evaluation import ate_rmse
+
+    cfg, cam, seq, il, ir = LOOP_SCENE
+    if updates:
+        cfg = cfg.with_updates(updates)
+    dev_chunks = [torch.from_numpy(np.stack([il[lo:lo + CHUNK],
+                                             ir[lo:lo + CHUNK]])).to(dev)
+                  for lo in range(1, 1 + LOOP_CHUNKS * CHUNK, CHUNK)]
+    warm = FusedPLSLAM(cfg, cam)
+    warm.initialize(il[0], ir[0])
+    warm.process_chunk(dev_chunks[0])
+    warm.finish()
+
+    slam = FusedPLSLAM(cfg, cam)
+    probe = LoopProbe()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    native.reset_counts()
+    t0 = time.perf_counter()
+    try:
+        est = drive_slam(slam, il, ir, dev_chunks, LOOP_CHUNKS)
+        torch.cuda.synchronize()
+    finally:
+        probe.close()
+    wall = time.perf_counter() - t0
+    launches = dict(native.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    n_frames = LOOP_CHUNKS * CHUNK
+    kf_frames, events, funnel, good, margin = loop_summary(slam, cfg)
+    flags = np.zeros(n_frames, bool)
+    flags[kf_frames] = True
+    ate = float(ate_rmse(est, seq.poses[:len(est)]))
+    recs = slam.summaries
+    kmax = cfg.system.kf_batch
+    n_lba = sum(sum(lba_slot_flags([True] * int(f.sum())
+                                   + [False] * (kmax - int(f.sum())),
+                                   cfg.mapping.lba_kf_stride))
+                for f in np.split(flags, LOOP_CHUNKS))
+    lc = slam.loop_closer
+    ms = {k: [round(x, 3) for x in v] for k, v in probe.ms.items()}
+    print(f"[{tag}] frames={n_frames} good={int(good.sum())} keyframes="
+          f"{len(recs)} lba_slots={n_lba} ate_m={ate:.6f} closures="
+          f"{lc.n_loops_closed} events={lc.events}", flush=True)
+    print(f"[{tag}] funnel (candidates, votes, rejected geometry, "
+          f"uncertainty, correction, closed)={funnel} graph edges odo/covis/"
+          f"loop={len(lc.odo_edges)}/{len(lc.covis_edges)}/"
+          f"{len(lc.loop_edges)} frozen_events={lc.n_frozen_events} "
+          f"edges_dropped={lc.n_edges_dropped}", flush=True)
+    print(f"[{tag}] fps={n_frames / wall:.2f} ms_per_frame="
+          f"{1e3 * wall / n_frames:.3f} (host clock, initialize + "
+          f"{LOOP_CHUNKS} chunks + finish, ends in synchronize; timed loop "
+          f"steps synchronize) max_memory_allocated_bytes={peak}", flush=True)
+    print(f"[{tag}] ms per call (host clock between synchronizes): {ms}",
+          flush=True)
+    print(f"[{tag}] smallest candidate margin |rel - lc_mat| = "
+          f"{probe.margin:.6g}, smallest gap between ranked candidates "
+          f"{probe.gap:.6g}, smallest keyframe-decision margin "
+          f"{margin.min():.6g}", flush=True)
+    print(f"[{tag}] launches={json.dumps(launches, sort_keys=True)}",
+          flush=True)
+    check(bool(good.all()), f"{tag}: frames not tracked: "
+          f"{np.nonzero(~good)[0]}")
+    check(lc.n_loops_closed >= 1, f"{tag}: no loop closed")
+    check(cpu is not None, f"{tag}: no CPU record of this run in LOOP_CPU "
+          "(python3 chip_smoke.py --cpu-ate loops)")
+    same = (kf_frames == cpu["kf_frames"]
+            and [list(e) for e in events] == cpu["events"]
+            and list(funnel) == cpu["funnel"])
+    near = min(margin.min(), probe.margin, probe.gap)
+    print(f"[{tag}] CPU run: keyframes {len(cpu['kf_frames'])}, events "
+          f"{cpu['events']}, funnel {cpu['funnel']}, ATE {cpu['ate']}; "
+          f"identical: {same}", flush=True)
+    check(same or near < THRESHOLD_MARGIN,
+          f"{tag}: keyframes, events or funnel differ from the CPU run "
+          f"with the smallest margin {near}")
+    bound_m = 2 * cpu["ate"] + 0.02
+    check(math.isfinite(ate) and ate < bound_m,
+          f"{tag}: ATE {ate} m outside its bound {bound_m} m")
+    want = expected_loop_launches(1 + len(recs), n_lba, probe,
+                                  lc.n_loops_closed)
+    check(launches == want, f"{tag}: launches {launches} differ from the "
+          f"path's {want}")
+    return launches, slam, dict(probe.n)
+
+
+def loop_kernel_phase(dev, record, slam):
+    """Kernels L (K17) on a keyframe of the loop run against the real
+    vocabularies, D at the verification and fusion shapes ((1, 1024, 1024)
+    and (1, 128, 128) on packed words, mutual), the covisibility gather
+    (K7), and M (K18) launch by launch at Fb = 64 (E = 256) and Fb = 512
+    (E = 2,048, a 400-KF loop graph), each against its plain version on
+    the card, and the whole solves against the plain version in float64."""
+    import torch
+    from plslam_tpu_torch import convert
+    from plslam_tpu_torch.io import synthetic
+    from plslam_tpu_torch.loop import pose_graph as pg, vocabulary as voc
+    from plslam_tpu_torch.loop.loop_closer import covisibility_counts
+    from plslam_tpu_torch.ops import hamming
+    from plslam_tpu_torch.ops.gather import take
+
+    st, db = slam.state, slam.loop_closer.db
+    slot = 1
+    src_l, rep_l = "plslam_tpu_torch/csrc/bow.cu", "plslam_tpu/loop/vocabulary.py:"
+    for kind, v, desc, valid in (
+            ("orb", db.voc_p, st.kf_pt_desc[slot], st.obs_pt_disp[slot] > 0),
+            ("lbd", db.voc_l, st.kf_ln_desc[slot], st.obs_ln_lm[slot] >= 0)):
+        N = desc.shape[0]
+        leaves = voc.transform_leaves(v, desc)
+        ref = voc.transform_leaves_plain(v, desc)
+        # bytes: the descriptors, the leaves, and the centroid rows this
+        # run's descent reads (k children of each distinct node it passes);
+        # operations: L levels x k children x 8 words (xor, popc, add)
+        lv = ref.long().cpu()
+        rows = v.k * sum(int(torch.unique(lv // v.k ** (v.levels - l)).numel())
+                         for l in range(v.levels))
+        record(f"bow_descend@{kind}", src_l, rep_l + "129", [leaves], [ref],
+               0.0, lambda: voc.transform_leaves(v, desc),
+               lambda: voc.transform_leaves_plain(v, desc),
+               N * (32 + 4) + rows * 32, N * v.levels * v.k * 8 * 3,
+               entry="bow_descend", err_kind="leaf ids, exact")
+        print(f"[bow] {kind}: the descent of {N} descriptors reads {rows} of "
+              f"{int(v.flat.shape[0])} centroid rows", flush=True)
+        got = voc.bow_hist(v, leaves, valid)
+        ref = voc.bow_hist_plain(v, leaves, valid.to(torch.float32))
+        top = ref.abs().max()
+        bows = db.bows_p if kind == "orb" else db.bows_l
+        s_got, s_ref = voc.l1_score(bows, got[None]), voc.l1_score(bows, ref[None])
+        # bytes: leaves and valid in, idf in, the vector out
+        record(f"bow_hist@{kind}", src_l, rep_l + "145",
+               [got / top, s_got], [ref / top, s_ref], [1e-6, 1e-6],
+               lambda: voc.bow_hist(v, leaves, valid),
+               lambda: voc.bow_hist_plain(v, leaves, valid.to(torch.float32)),
+               N * 5 + v.n_leaves * 8, N + 3 * v.n_leaves, entry="bow_hist",
+               err_kind="BoW vector relative to its largest entry; its L1 "
+               "scores against the database, absolute")
+        ms = cuda_ms(lambda: voc.l1_score(bows, got[None]), 20)
+        b_ms, b_by = bound(bows.numel() * 4 + v.n_leaves * 4,
+                           3 * bows.numel())
+        print(f"[bow] {kind}: {int(valid.sum())} valid of {N} descriptors; "
+              f"l1_score over the {tuple(bows.shape)} database (torch, no "
+              f"hand kernel): ms={ms:.4f} bound_ms={b_ms:.4f} ({b_by})",
+              flush=True)
+
+    # D at the verification and fusion shapes, on the stored packed words
+    g = torch.Generator(device="cpu").manual_seed(9)
+    for N, tag, md, ratio in ((st.kf_pt_desc.shape[1], "@verify", 80, 0.75),
+                              (st.kf_ln_desc.shape[1], "@verify_lines", 90,
+                               0.9)):
+        bits_a = torch.randint(0, 2, (1, N, 256), generator=g,
+                               dtype=torch.uint8)
+        perm = torch.randperm(N, generator=g)
+        bits_b = bits_a[:, perm] ^ (torch.rand((1, N, 256), generator=g)
+                                    < 0.05).to(torch.uint8)
+        pa, pb = (hamming.pack_bits(x).to(dev) for x in (bits_a, bits_b))
+        va = (torch.rand((1, N), generator=g) > 0.2).to(dev)
+        vb = (torch.rand((1, N), generator=g) > 0.2).to(dev)
+        dist = hamming.hamming_matrix(pa, pb, va, vb)
+        ref = hamming.hamming_matrix_plain(pa, pb, va, vb,
+                                           torch.ones_like(dist, dtype=torch.bool))
+        fa, fb = bits_a.float().to(dev), bits_b.float().to(dev)
+        record("hamming_dist" + tag, "plslam_tpu_torch/csrc/hamming.cu",
+               "plslam_tpu/ops/hamming.py:30", [dist], [ref], 0.0,
+               lambda: hamming.hamming_matrix(pa, pb, va, vb),
+               lambda: hamming.hamming_matrix_plain(
+                   pa, pb, va, vb, torch.ones_like(dist, dtype=torch.bool)),
+               N * N * 4 + 2 * N * 33, N * N * 24,
+               lambda: torch.cdist(fa, fb, p=0), entry="hamming_dist")
+        got = hamming.match_nnr(dist, md, ratio, mutual=True)
+        want = hamming.match_nnr_plain(dist, md, ratio, mutual=True)
+        check(int(want.valid.sum()) > N // 4, f"too few matches in D{tag}")
+        record("hamming_match" + tag, "plslam_tpu_torch/csrc/hamming.cu",
+               "plslam_tpu/ops/hamming.py:57", list(got), list(want), 0.0,
+               lambda: hamming.match_nnr(dist, md, ratio, mutual=True),
+               lambda: hamming.match_nnr_plain(dist, md, ratio, mutual=True),
+               N * N * 4 + N * 9, N * N * 4, entry="hamming_match")
+
+    # K7: covisibility over the (512, 1024) observation table
+    F, K = st.obs_pt_lm.shape
+    P = slam.cfg.mapping.max_points
+    ms = cuda_ms(lambda: covisibility_counts(st.obs_pt_lm, slot, P), 20)
+    member = torch.rand(P, device=dev)
+    lib = cuda_ms(lambda: take(member.expand(F, P), st.obs_pt_lm), 20)
+    b_ms, b_by = bound(F * K * 4 + P * 4 + F * 4, F * K * 2)
+    print(f"[k7] covisibility_counts over ({F}, {K}) (scatter-max + clamped "
+          f"torch.gather + sum, no hand kernel): ms={ms:.4f} bound_ms="
+          f"{b_ms:.4f} ({b_by}) library_ms (the gather alone)={lib:.4f}",
+          flush=True)
+
+    # M, launch by launch, then the whole solves against float64
+    src_m, rep_m = ("plslam_tpu_torch/csrc/pose_graph.cu",
+                    "plslam_tpu/loop/pose_graph.py:")
+    rel = "relative to each output's largest magnitude"
+    for F, n, extra in ((64, 40, 60), (512, 400, 1600)):
+        d, n_edges = synthetic.drift_circle_graph(F, n, extra, seed=F)
+        gd = convert.pose_graph_from_numpy(d, dev)
+        E = 4 * F
+        print(f"[pose_graph] Fb={F}: {n} KFs, {n_edges} of {E} edge slots "
+              "used", flush=True)
+        sc = lambda xs: [x / x.abs().max().clamp(min=1e-30) for x in xs]
+        r, J, c = pg.edges(gd)
+        rp, Jp, cp = pg.edges_plain(gd)
+        record(f"pg_edges@{F}", src_m, rep_m + "89", sc([r, J, c]),
+               sc([rp, Jp, cp]), [1e-5, 1e-6, 1e-5],
+               lambda: pg.edges(gd), lambda: pg.edges_plain(gd),
+               F * 64 + E * 76 + E * 168 + 4, n_edges * 700,
+               entry="pg_edges", err_kind="r, Ji, cost " + rel)
+        freeze = torch.zeros(F, dtype=torch.bool, device=dev)
+        diag = pg._diag(gd, freeze, True)
+        inc = pg._incidence(gd)
+        H, gv = pg.assemble(gd, rp, Jp, diag, inc)
+        Hp, gvp = pg.assemble_plain(gd, rp, Jp, diag)
+        off = lambda M: M - torch.diag(torch.diag(M))
+        blocks = torch.randn((E, 36), device=dev)
+        flat_idx = (gd.edge_i.long() * F + gd.edge_j.long())
+        record(f"pg_assemble@{F}", src_m, rep_m + "125",
+               sc([off(H), torch.diag(H), gv]),
+               sc([off(Hp), torch.diag(Hp), gvp]), [1e-5, 1e-6, 1e-5],
+               lambda: pg.assemble(gd, rp, Jp, diag, inc),
+               lambda: pg.assemble_plain(gd, rp, Jp, diag),
+               E * 180 + F * 4 + (6 * F) ** 2 * 4 + 6 * F * 4,
+               n_edges * (36 * 12 + 36 * 2 + 6 * 14),
+               lambda: torch.zeros((F * F, 36), device=dev).index_add_(
+                   0, flat_idx, blocks),
+               entry="pg_assemble",
+               err_kind="H off its diagonal, H's diagonal (the pins), g "
+               + rel)
+        solve_ms = cuda_ms(lambda: torch.linalg.solve_ex(Hp, gvp[:, None]), 5)
+        print(f"[pose_graph] torch.linalg.solve_ex of the {6 * F}x{6 * F} "
+              f"dense system: {solve_ms:.4f} ms", flush=True)
+        gb, Hd = pg.blocks(gd, rp, Jp, diag, inc)
+        gbp, Hdp = pg.blocks_plain(gd, rp, Jp, diag)
+        record(f"pg_blocks@{F}", src_m, rep_m + "227", sc([gb, Hd]),
+               sc([gbp, Hdp]), [1e-5, 1e-6],
+               lambda: pg.blocks(gd, rp, Jp, diag, inc),
+               lambda: pg.blocks_plain(gd, rp, Jp, diag),
+               E * 180 + F * (4 + 168), n_edges * (36 * 12 + 6 * 14),
+               entry="pg_blocks", err_kind="g, Hd " + rel)
+        Minv = torch.linalg.inv_ex(Hdp)[0]
+        dx = pg.pcg(gd, Jp, Minv, diag, gbp, 96, inc)
+        dxp = pg.pcg_plain(gd, Jp, Minv, diag, gbp, 96)
+        record(f"pg_pcg@{F}", src_m, rep_m + "251", sc([dx]), sc([dxp]),
+               1e-3, lambda: pg.pcg(gd, Jp, Minv, diag, gbp, 96, inc),
+               lambda: pg.pcg_plain(gd, Jp, Minv, diag, gbp, 96),
+               E * 156 + F * (144 + 4 + 24) + F * 24,
+               96 * (n_edges * 160 + 6 * F * 20), iters=5,
+               entry="pg_pcg", err_kind="dx " + rel + " (96 CG steps)")
+        Pn, c1 = pg.update(gd, cp, dx, 1.0)
+        Pp, c1p = pg.update_plain(gd, cp, dx, 1.0)
+        record(f"pg_update@{F}", src_m, rep_m + "155", sc([Pn, c1]),
+               sc([Pp, c1p]), [1e-5, 1e-5],
+               lambda: pg.update(gd, cp, dx, 1.0),
+               lambda: pg.update_plain(gd, cp, dx, 1.0),
+               F * (64 * 2 + 24 + 1) + E * 84 + 8, F * 300 + n_edges * 700,
+               entry="pg_update", err_kind="poses, cost " + rel)
+        # whole solves: the kernels, the plain version, float64
+        g64 = gd._replace(poses=gd.poses.double(), edge_T=gd.edge_T.double(),
+                          edge_w=gd.edge_w.double())
+        solvers = [("pcg", lambda g, plain: pg._optimize_pcg(g, freeze, 12,
+                                                             96))]
+        if F <= 128:
+            solvers.append(("dense", lambda g, plain: pg._optimize_dense(
+                g, freeze, 12)))
+        for name, solve in solvers:
+            got = solve(gd, False)
+            torch.cuda.synchronize()
+            plain = _plain_solve(pg, name, gd, freeze)
+            truth = _plain_solve(pg, name, g64, freeze)
+            ms = cuda_ms(lambda: solve(gd, False), 3)
+            d_k = _rel_d(got[0], truth[0])
+            d_p = _rel_d(plain[0], truth[0])
+            tol = F64_FACTOR * d_p + F64_FLOOR
+            print(f"[pose_graph] {name} solve Fb={F}: {ms:.3f} ms; cost "
+                  f"{float(got[1]):.6g} -> {float(got[2]):.6g} (plain "
+                  f"{float(plain[2]):.6g}, float64 {float(truth[2]):.6g}); "
+                  f"poses from float64 ({rel}): kernel {d_k:.3g}, plain "
+                  f"{d_p:.3g}, bound {tol:.3g}", flush=True)
+            check(float(got[2]) < 0.5 * float(got[1]),
+                  f"{name} solve at Fb={F} did not lower the cost")
+            check(d_k <= tol, f"{name} solve at Fb={F}: {d_k} from float64, "
+                  f"bound {tol}")
+
+
+def _plain_solve(pg, name, g, freeze):
+    """The plain version of a whole solve on the card's tensors."""
+    import unittest.mock as mock
+    with mock.patch.multiple(pg, edges=pg.edges_plain,
+                             assemble=lambda g, r, J, d, inc=None:
+                             pg.assemble_plain(g, r, J, d),
+                             blocks=lambda g, r, J, d, inc:
+                             pg.blocks_plain(g, r, J, d),
+                             pcg=lambda g, J, M, d, gv, it, inc=None:
+                             pg.pcg_plain(g, J, M, d, gv, it),
+                             update=pg.update_plain,
+                             _incidence=lambda g: None):
+        if name == "pcg":
+            return pg._optimize_pcg(g, freeze.to(g.poses.device), 12, 96)
+        return pg._optimize_dense(g, freeze.to(g.poses.device), 12)
+
+
+LOOP_SCENE = None
+
+
 def main() -> int:
-    if sys.argv[1:] == ["--cpu-ate"]:
-        cpu_reference_ate()
+    if sys.argv[1:2] == ["--cpu-ate"]:
+        cpu_reference_ate(sys.argv[2:])
         return 0
     try:
         import torch
@@ -1466,14 +2012,34 @@ def main() -> int:
     small_line_agreement(dev)
     launches, slam = slam_path(dev)
     lba_phase(dev, record, slam)
+    del slam
+
+    # 5. the loop path: the default SlamConfig() (lazy floors), then, if no
+    # closure cleared the floors, with the graph solve at every closure;
+    # L, D, K7 and M at the path's shapes; then the path with the PCG solver
+    global LOOP_SCENE
+    LOOP_SCENE = loop_scene()
+    runs = [loop_path(dev, "loop", cpu=LOOP_CPU.get("default"))]
+    solve = {}
+    if not runs[0][2].get("optimize_pose_graph"):
+        solve = SOLVE_ALWAYS
+        runs.append(loop_path(dev, "loop_solve", solve,
+                              cpu=LOOP_CPU.get("solve")))
+    loop_kernel_phase(dev, record, runs[0][1])
+    runs.append(loop_path(dev, "loop_pcg", pcg_updates(solve),
+                          cpu=LOOP_CPU.get("pcg")))
     entries = set(r["entry"] for r in record.rows)
     check(entries == set(native._SIGNATURES),
           f"kernels not checked: {set(native._SIGNATURES) - entries}")
 
-    # 5. results: launches from the SLAM path, which runs every kernel
+    # 6. results: launches from the loop path's first run that launched
+    # each kernel (the default run launches A-L; the dense and PCG graph
+    # solves may need the later runs)
     rows = record.rows
     for r in rows:
-        r["launches"] = launches[r["entry"]]
+        r["launches"] = next((run[0][r["entry"]] for run in runs
+                              if run[0].get(r["entry"])), 0)
+        check(r["launches"] > 0, f"{r['entry']} never launched on a path")
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

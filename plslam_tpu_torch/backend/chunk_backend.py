@@ -1,15 +1,17 @@
 """Per-chunk back-end: the keyframes of a chunk, in order.
 
 Port of ``plslam_tpu/backend/chunk_backend.py::backend_slots`` as the fused
-SLAM step calls it (``probe=None``: loop closure compiled out, and
-``packed_desc=False``: the chunk's features carry unpacked descriptors).
+SLAM step calls it (``packed_desc=False``: the chunk's features carry
+unpacked descriptors; ``probe``: the loop closer's per-KF BoW probe, or
+None with loops off).
 Slot j slices its frame's features out of the chunk, inserts the KF
 relative to the previous KF's current map pose, and runs the mapping step
 with the window LBA on every ``lba_kf_stride``-th valid slot counted from
 the chunk's end (the last always solves). The slots run in order, so KF
 j+1's map matching sees KF j's insertion and LBA. The slot flags are host
 values (the fused step fetched the keyframe flags), so an empty slot is
-skipped on the host instead of being masked on the device.
+skipped on the host instead of being masked on the device; its scores
+and covisibility rows stay zero.
 """
 
 from __future__ import annotations
@@ -36,14 +38,19 @@ def lba_slot_flags(kf_valid: List[bool], stride: int) -> List[bool]:
 
 def backend_slots(state, all_pts, all_lns, frame_idx: List[int],
                   kf_valid: List[bool], T_rels: torch.Tensor, cam, cfg,
-                  kmax: int):
-    """Returns (state, poses (kmax, 4, 4), stats (kmax, 7)); stats rows:
-    [lba_cost0, lba_cost1, n_map_matches, n_new_points, lba_pt_overflow,
-    lba_ln_overflow, kf_slot]. The reference's loop-probe scores and
-    covisibility rows come with the loop slice."""
+                  kmax: int, probe=None):
+    """Returns (state, scores (kmax, F), covis (kmax, F), poses
+    (kmax, 4, 4), stats (kmax, 7)); stats rows: [lba_cost0, lba_cost1,
+    n_map_matches, n_new_points, lba_pt_overflow, lba_ln_overflow,
+    kf_slot]. ``probe(state, slot)`` runs after each valid slot's mapping
+    step, writes the slot's BoW rows in place and returns its (scores,
+    covis)."""
     dev = T_rels.device
     f32 = torch.float32
+    F = cfg.mapping.max_kfs
     lba_flags = lba_slot_flags(kf_valid, cfg.mapping.lba_kf_stride)
+    scores = torch.zeros((kmax, F), dtype=f32, device=dev)
+    covis = torch.zeros((kmax, F), dtype=f32, device=dev)
     poses, stats = [], []
     for j in range(kmax):
         if not kf_valid[j]:
@@ -57,6 +64,8 @@ def backend_slots(state, all_pts, all_lns, frame_idx: List[int],
         state, diag, c0, c1, pt_ov, ln_ov = mapping_step_traced_lba(
             state, pts_j, lns_j, T_w_kf, cam, cfg, lba_flags[j])
         slot = diag["kf_slot"]
+        if probe is not None:
+            scores[j], covis[j] = probe(state, slot)
         poses.append(state.kf_pose.index_select(0, slot.reshape(1).long())[0])
         # the device-side KF slot: the host settles chunks after later
         # chunks were submitted, so only the step knows the numbering
@@ -64,4 +73,4 @@ def backend_slots(state, all_pts, all_lns, frame_idx: List[int],
             torch.as_tensor(x, device=dev).to(f32) for x in (
                 c0, c1, diag["n_map_matches"], diag["n_new_points"], pt_ov,
                 ln_ov, slot)]))
-    return state, torch.stack(poses), torch.stack(stats)
+    return state, scores, covis, torch.stack(poses), torch.stack(stats)

@@ -1,25 +1,28 @@
-"""The fused SLAM chunk: tracking, the keyframe criterion and the back end
-of a B-frame chunk in one step, without loop closure.
+"""The fused SLAM chunk: tracking, the keyframe criterion, the back end
+and the loop closer's BoW probe of a B-frame chunk in one step.
 
-Port of ``plslam_tpu/backend/fused_slam.py`` with ``loop.enabled=False``
-(the CLI's ``--no-loops``): ``CritCarry``, ``init_crit_carry``,
-``kf_scan`` (K14), the fused step, the packed host block and
-``FusedPLSLAM``. Per chunk: the front end over the 2B images, the batched
-tracking of the B pairs (``batch_vo._chunk_tracking_batched``), the
-keyframe criterion as kernel J's ``kf_scan`` launch on CUDA tensors
-(``kf_scan_plain`` for CPU tensors), then the keyframes through
-``chunk_backend.backend_slots``. The step fetches the chunk's keyframe
-flags (B bytes) to know which slots run; everything else stays on the
-device until the settle fetches the one packed host block.
+Port of ``plslam_tpu/backend/fused_slam.py``: ``CritCarry``,
+``init_crit_carry``, ``kf_scan`` (K14), the fused step, the packed host
+block and ``FusedPLSLAM``, with loop closure (the default ``SlamConfig()``)
+or without (``loop.enabled=False``, the CLI's ``--no-loops``). Per chunk:
+the front end over the 2B images, the batched tracking of the B pairs
+(``batch_vo._chunk_tracking_batched``), the keyframe criterion as kernel
+J's ``kf_scan`` launch on CUDA tensors (``kf_scan_plain`` for CPU
+tensors), then the keyframes through ``chunk_backend.backend_slots``, each
+followed by the BoW probe (``loop_closer.probe_core``, kernel L). The step
+fetches the chunk's keyframe flags (B bytes) to know which slots run;
+everything else stays on the device until the settle fetches the one
+packed host block, whose probe rows the loop closer then consumes
+(verification, the pose graph of kernel M, the correction).
 
-Not ported yet (they raise): loop closure (``enable_loops=True``, the loop
-slice: ``loop/``, K17, K18 and the BoW probe of the step), KF-slot
-compaction (the compaction slice: ``force_retire_kfs``,
-``compact_keyframes``) and ``save_checkpoint`` / ``resume``.
+Not ported yet (they raise): KF-slot compaction (the compaction slice:
+``force_retire_kfs``, ``compact_keyframes``, ``LoopCloser.remap_slots``),
+``save_checkpoint`` / ``resume`` and ``loop.distributed=True``.
 """
 
 from __future__ import annotations
 
+import threading
 import warnings
 from typing import List, NamedTuple, Optional, Tuple
 
@@ -35,6 +38,7 @@ from plslam_tpu_torch.config import SlamConfig
 from plslam_tpu_torch.core import lie
 from plslam_tpu_torch.core.camera import StereoCamera
 from plslam_tpu_torch.frontend.stereo_frame import extract_stereo_frame
+from plslam_tpu_torch.loop.loop_closer import LoopCloser, probe_core
 from plslam_tpu_torch.tracking.batch_vo import (_chunk_tracking_batched,
                                                 _frame, _to_f32, extract_one)
 
@@ -145,16 +149,19 @@ def kf_scan(DT: torch.Tensor, cov: torch.Tensor, good: torch.Tensor,
 #   per frame (B rows x PF):  [DT flat 16 | T_acc flat 16 | good | flag |
 #                              n_inliers | err | ratio | blocked]
 #   per slot (kmax rows x PS): [valid | frame_idx | pose flat 16 | stats 7]
-#   then the kf_pose snapshot (F*16). The reference's loop-probe scores
-#   and covisibility rows join the block with the loop slice.
+#   then the probe's scores (kmax*F) | covis (kmax*F), zero for unused
+#   slots and with loops off, | the kf_pose snapshot (F*16)
 _PF = 38
 _PS = 25
 
 
 def fused_step(imgs: torch.Tensor, prev_pts, prev_lns, T_prior0, crit,
-               state, cam: StereoCamera, cfg: SlamConfig, kmax: int):
-    """One chunk: imgs (2, B, H, W) stacked left/right, uint8 or f32 ->
-    (host_blk, state, crit, last_pts, last_lns, DT_next)."""
+               state, cam: StereoCamera, cfg: SlamConfig, kmax: int,
+               probe=None):
+    """One chunk: imgs (2, B, H, W) stacked left/right, uint8 (scaled to
+    [0, 1]) or f32 -> (host_blk, state, crit, last_pts, last_lns,
+    DT_next). ``probe``: the per-KF BoW probe (``backend_slots``), or
+    None with loops off."""
     pts, lns = extract_stereo_frame(_to_f32(imgs[0]), _to_f32(imgs[1]), cam,
                                     cfg)
     out = _chunk_tracking_batched(pts, lns, prev_pts, prev_lns, T_prior0,
@@ -170,8 +177,9 @@ def fused_step(imgs: torch.Tensor, prev_pts, prev_lns, T_prior0, crit,
     eye = torch.eye(4, dtype=torch.float32, device=dev)
     T_rels = torch.stack([T_accs[i] if v else eye
                           for i, v in zip(frame_idx, kf_valid)])
-    state, poses, stats = backend_slots(
-        state, pts, lns, frame_idx, kf_valid, T_rels, cam, cfg, kmax)
+    state, scores, covis, poses, stats = backend_slots(
+        state, pts, lns, frame_idx, kf_valid, T_rels, cam, cfg, kmax,
+        probe=probe)
     f32 = lambda x: x.to(torch.float32)
     frame_blk = torch.cat([
         f32(out.DT).reshape(B, 16), f32(T_accs).reshape(B, 16),
@@ -183,15 +191,17 @@ def fused_step(imgs: torch.Tensor, prev_pts, prev_lns, T_prior0, crit,
         torch.tensor(frame_idx, dtype=torch.float32, device=dev)[:, None],
         poses.reshape(kmax, 16), stats], dim=1)
     host_blk = torch.cat([frame_blk.reshape(-1), slot_blk.reshape(-1),
+                          scores.reshape(-1), covis.reshape(-1),
                           f32(state.kf_pose).reshape(-1)])
     return (host_blk, state, crit2, _frame(pts, -1), _frame(lns, -1),
             out.DT_next)
 
 
 class FusedPLSLAM:
-    """Single-step-per-chunk full SLAM driver without loop closure:
-    ``initialize`` / ``process_chunk`` / ``finish``, plus ``summaries``,
-    ``online_pose``, ``kf_poses`` and ``n_landmarks``.
+    """Single-step-per-chunk full SLAM driver: ``initialize`` /
+    ``process_chunk`` / ``finish``, plus ``summaries``, ``online_pose``,
+    ``kf_poses``, ``n_landmarks`` and ``loop_closer`` (None with loops
+    off). To the loop closer it is the map handler (``_lock``, ``state``).
 
     Runs on ``device`` (default: the CUDA device; raises without one).
     Host chunks are stacked and copied to the device synchronously in
@@ -209,12 +219,17 @@ class FusedPLSLAM:
         self.kmax = cfg.system.kf_batch
         self.enable_loops = (cfg.loop.enabled if enable_loops is None
                              else enable_loops)
-        if self.enable_loops:
-            raise NotImplementedError(
-                "FusedPLSLAM: loop closure is not ported yet (the loop "
-                "slice: loop/, K17, K18); pass enable_loops=False or "
-                "loop.enabled=False")
+        self._lock = threading.Lock()
         self.state = init_map_state(cfg, self.device)
+        self.loop_closer = None
+        self._probe = None
+        if self.enable_loops:
+            self.loop_closer = LoopCloser(cfg, self.cam, self.device)
+            db = self.loop_closer.db
+            has_lines = db.bows_l is not None
+            self._probe = lambda st, slot: probe_core(
+                db.voc_p, db.voc_l, cfg, has_lines, st, db.bows_p, db.bows_l,
+                slot)[2:4]
         self._next_slot = 0
         self._crit = init_crit_carry(self.device)
         self.prev_pts = None
@@ -238,12 +253,8 @@ class FusedPLSLAM:
 
     # -- lifecycle -----------------------------------------------------------
     def initialize(self, img_l, img_r) -> None:
-        # the reference extracts a uint8 first frame UNSCALED (0..255; its
-        # chunks are scaled to [0, 1]): reproduced, so that keyframes and
-        # the map match it on uint8 streams
-        raw = lambda x: self._put(x).to(torch.float32)
         self.prev_pts, self.prev_lns = extract_one(
-            raw(img_l), raw(img_r), self.cam, self.cfg)
+            self._put(img_l), self._put(img_r), self.cam, self.cfg)
         self.state = mapping_step_traced_lba(
             self.state, self.prev_pts, self.prev_lns,
             torch.eye(4, dtype=torch.float32, device=self.device), self.cam,
@@ -252,6 +263,8 @@ class FusedPLSLAM:
         self._kf_slot = 0
         self.trajectory = [np.eye(4, dtype=np.float32)]
         self._frame_anchor = [(0, np.eye(4, dtype=np.float32))]
+        if self.loop_closer is not None:
+            self.loop_closer.on_keyframe(self, 0)
 
     def process_chunk(self, imgs_l, imgs_r=None,
                       n_valid: Optional[int] = None) -> None:
@@ -271,10 +284,12 @@ class FusedPLSLAM:
     def _dispatch(self, imgs, n_valid):
         if self.prev_pts is None:
             raise RuntimeError("call initialize() first")
-        (host_blk, self.state, self._crit, self.prev_pts, self.prev_lns,
-         self.DT_prev) = fused_step(imgs, self.prev_pts, self.prev_lns,
-                                    self.DT_prev, self._crit, self.state,
-                                    self.cam, self.cfg, self.kmax)
+        (host_blk, state, self._crit, self.prev_pts, self.prev_lns,
+         self.DT_prev) = fused_step(
+            imgs, self.prev_pts, self.prev_lns, self.DT_prev, self._crit,
+            self.state, self.cam, self.cfg, self.kmax, probe=self._probe)
+        with self._lock:
+            self.state = state
         self._pending.append((host_blk, n_valid))
 
     def _settle_one(self) -> int:
@@ -282,10 +297,16 @@ class FusedPLSLAM:
         host_blk = host_ref.cpu().numpy()              # ONE transfer
         n_slots = self.kmax
         F = self.cfg.mapping.max_kfs
-        n_fb = host_blk.size - n_slots * _PS - F * 16
+        n_fb = host_blk.size - n_slots * _PS - 2 * n_slots * F - F * 16
         fb = host_blk[:n_fb].reshape(-1, _PF)
-        sb = host_blk[n_fb:n_fb + n_slots * _PS].reshape(n_slots, _PS)
-        kf_poses = host_blk[n_fb + n_slots * _PS:].reshape(F, 4, 4)
+        off = n_fb
+        sb = host_blk[off:off + n_slots * _PS].reshape(n_slots, _PS)
+        off += n_slots * _PS
+        scores = host_blk[off:off + n_slots * F].reshape(n_slots, F)
+        off += n_slots * F
+        covis = host_blk[off:off + n_slots * F].reshape(n_slots, F)
+        off += n_slots * F
+        kf_poses = host_blk[off:].reshape(F, 4, 4)
         B = fb.shape[0] if n_valid is None else n_valid
         self.frame_rows.append(fb[:B].copy())
         DT = fb[:, :16].reshape(-1, 4, 4)
@@ -333,14 +354,27 @@ class FusedPLSLAM:
                   f"{len(self.trajectory)} — map corrupted this chunk")
         if slots_valid.any():
             self._next_slot = int(stats[slots_valid, 6].max()) + 1
+        corrected = None
         for j in np.nonzero(slots_valid)[0]:
+            slot = int(stats[j, 6])
             self._records.append(KeyFrameSummary(
-                slot=int(stats[j, 6]), T_w_kf=poses[j].astype(np.float32),
+                slot=slot, T_w_kf=poses[j].astype(np.float32),
                 n_map_matches=int(stats[j, 2]), n_new_points=int(stats[j, 3]),
                 lba_cost0=float(stats[j, 0]), lba_cost1=float(stats[j, 1]),
                 lba_pt_overflow=int(stats[j, 4]),
                 lba_ln_overflow=int(stats[j, 5])))
-        self._last_settled = np.asarray(kf_poses)
+            if self.loop_closer is not None:
+                if corrected is not None:
+                    # a closure earlier in this settle moved every KF: the
+                    # snapshot is stale, use the corrected poses
+                    kf_poses = corrected
+                out = self.loop_closer._handle_probe_result(
+                    self, slot, scores[j].copy(), covis[j], self._next_slot,
+                    kf_poses)
+                if out is not None:
+                    corrected = out
+        self._last_settled = (np.asarray(kf_poses) if corrected is None
+                              else corrected)
         if self._next_slot >= self.cfg.mapping.max_kfs - 2 * self.kmax:
             raise RuntimeError(
                 f"FusedPLSLAM: {self._next_slot} KF slots used of max_kfs="

@@ -17,8 +17,9 @@ The representative descriptor (K16, ``_medoid_desc``) is kernel J's
 stable ``torch.sort`` + ``cumsum``, and the reference's ``lax.top_k`` a
 stable descending sort: both break ties by the lowest index, as the
 reference does. Map matching runs kernel D at (1, P, K) and (1, M, L).
-``force_retire_kfs``, ``compact_keyframes`` and ``fuse_loop_landmarks``
-are not ported yet.
+``fuse_loop_landmarks`` (the loop slice) matches the two loop KFs'
+stored descriptors with kernel D at (1, K, K) and (1, L, L).
+``force_retire_kfs`` and ``compact_keyframes`` are not ported yet.
 """
 
 from __future__ import annotations
@@ -499,3 +500,75 @@ def cull_landmarks(state: MapState, cfg: SlamConfig) -> MapState:
     return state._replace(pt_valid=state.pt_valid & ~bad_pt,
                           ln_valid=state.ln_valid & ~bad_ln,
                           obs_pt_lm=obs_pt_lm, obs_ln_lm=obs_ln_lm)
+
+
+# -- loop closure: duplicate-landmark fusion -----------------------------------
+
+def _fusion_remap(n: int, fuse, keep, dup) -> torch.Tensor:
+    """``arange(n).at[where(fuse, dup, n)].set(where(fuse, keep, 0),
+    mode="drop")`` made transitive by two pointer-jumping hops. A slot that
+    is the dup of several fused pairs takes the keep of the LAST such pair
+    in row order, as the reference's in-order CPU scatter leaves it
+    (``index_put_`` with repeated indices is undefined on CUDA)."""
+    dev = keep.device
+    rows = torch.arange(keep.shape[0], dtype=torch.int64, device=dev)
+    last = torch.full((n + 1,), -1, dtype=torch.int64, device=dev)
+    last = last.scatter_reduce(0, torch.where(fuse, dup, n), rows, "amax")[:n]
+    ar = torch.arange(n, dtype=torch.int64, device=dev)
+    remap = torch.where(last >= 0, keep[torch.clamp(last, min=0)], ar)
+    remap = remap[remap]
+    return remap[remap]
+
+
+def _fuse_family(lm_a, lm_b, desc_a, desc_b, pos, valid, nobs, obs_lm,
+                 max_dist, ratio):
+    """One landmark family of ``fuse_loop_landmarks``: (obs_lm, valid,
+    nobs, n_fused). ``pos`` maps landmark slots to the positions whose
+    squared distance must stay below 0.25 (0.5 m)."""
+    n = valid.shape[0]
+    ok_a, ok_b = lm_a >= 0, lm_b >= 0
+    dist = hamming.hamming_matrix(desc_a[None], desc_b[None], ok_a[None],
+                                  ok_b[None])
+    mres = hamming.match_nnr(dist, max_dist, ratio, mutual=True)
+    lbm = lm_b[torch.clamp(mres.idx[0], min=0).long()]
+    la = torch.clamp(lm_a, min=0).long()
+    lb = torch.clamp(lbm, min=0).long()
+    close = torch.sum((pos(la) - pos(lb)) ** 2, dim=-1) < 0.25
+    fuse = mres.valid[0] & ok_a & (lbm >= 0) & close & (la != lb)
+    keep, dup = torch.minimum(la, lb), torch.maximum(la, lb)
+    remap = _fusion_remap(n, fuse, keep, dup)
+    obs = torch.where(obs_lm >= 0, remap[torch.clamp(obs_lm, min=0).long()],
+                      -1).to(obs_lm.dtype)
+    ar = torch.arange(n, dtype=torch.int64, device=remap.device)
+    new_nobs = _add_drop(nobs, torch.where(fuse, keep, n),
+                         torch.where(fuse, nobs[dup], 0))
+    return obs, valid & (remap == ar), new_nobs, torch.sum(fuse)
+
+
+def fuse_loop_landmarks(state: MapState, slot_a, slot_b, cfg: SlamConfig
+                        ) -> Tuple[MapState, torch.Tensor]:
+    """loopClosureFuseLandmarks parity (fusion half): landmarks observed by
+    the two loop KFs that match by descriptor (mutual NN + ratio, kernel D
+    on the stored packed words) and lie within 0.5 m are duplicates: merge
+    into the older slot and redirect every observation table entry. Points
+    by position, lines by segment midpoint. Returns (state, n_fused)."""
+    dev = state.kf_pose.device
+    sa = torch.as_tensor(slot_a, device=dev).reshape(1).long()
+    sb = torch.as_tensor(slot_b, device=dev).reshape(1).long()
+    row = lambda x, s: x.index_select(0, s)[0]
+    m = cfg.matching
+    obs_pt_lm, pt_valid, pt_nobs, n_pt = _fuse_family(
+        row(state.obs_pt_lm, sa), row(state.obs_pt_lm, sb),
+        row(state.kf_pt_desc, sa), row(state.kf_pt_desc, sb),
+        lambda i: state.pt_pos[i], state.pt_valid, state.pt_nobs,
+        state.obs_pt_lm, m.max_hamming_p, m.min_ratio_12_p)
+    mid = lambda i: 0.5 * (state.ln_spos[i] + state.ln_epos[i])
+    obs_ln_lm, ln_valid, ln_nobs, n_ln = _fuse_family(
+        row(state.obs_ln_lm, sa), row(state.obs_ln_lm, sb),
+        row(state.kf_ln_desc, sa), row(state.kf_ln_desc, sb), mid,
+        state.ln_valid, state.ln_nobs, state.obs_ln_lm, m.max_hamming_l,
+        m.min_ratio_12_l)
+    state = state._replace(obs_pt_lm=obs_pt_lm, pt_valid=pt_valid,
+                           pt_nobs=pt_nobs, obs_ln_lm=obs_ln_lm,
+                           ln_valid=ln_valid, ln_nobs=ln_nobs)
+    return state, n_pt + n_ln

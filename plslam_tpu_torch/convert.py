@@ -93,3 +93,20 @@ def crit_carry_from_numpy(arrays: Mapping[str, np.ndarray], device):
            "frames": torch.int32}
     return CritCarry(**{f: _tensor(arrays[f], dts.get(f, torch.float32),
                                    device) for f in CritCarry._fields})
+
+
+def vocabulary_from_numpy(levels, idf, k: int, device, origin: str = ""):
+    """A reference Vocabulary's per-level (k^(l+1), 256) uint8 centroid
+    bits and (n_leaves,) idf weights -> the port's Vocabulary."""
+    from plslam_tpu_torch.loop.vocabulary import _from_levels
+    return _from_levels([np.asarray(c) for c in levels], np.asarray(idf), k,
+                        origin, device)
+
+
+def pose_graph_from_numpy(arrays: Mapping[str, np.ndarray], device):
+    """Dict of PoseGraph field arrays -> the port's PoseGraph."""
+    from plslam_tpu_torch.loop.pose_graph import PoseGraph
+    dts = {"pose_valid": torch.bool, "edge_i": torch.int32,
+           "edge_j": torch.int32}
+    return PoseGraph(**{f: _tensor(arrays[f], dts.get(f, torch.float32),
+                                   device) for f in PoseGraph._fields})

@@ -10,7 +10,9 @@
 //
 // Launch 1 (lines_sobel): one thread per pixel reads its edge-clamped 3x3
 // neighbourhood from a shared tile and writes gx, gy in the reference's
-// operation order; with a threshold it writes instead the planes
+// operation order (with u8_wrap, for a uint8 image held as f32 integers,
+// the y difference wraps modulo 256 as the reference's uint8 subtraction
+// does on a uint8 first frame); with a threshold it writes instead the planes
 // w = |g| > th ? |g| : 0, d2x = (gx^2 - gy^2) / |g|, d2y = 2 gx gy / |g|.
 // Launch 2 (lines_moments): one thread per s x s block sums, in
 // block-LOCAL coordinates, either the two double-angle planes (the
@@ -50,7 +52,7 @@ __global__ void sobel_kernel(const float* __restrict__ img,
                              float* __restrict__ gx, float* __restrict__ gy,
                              float* __restrict__ w, float* __restrict__ d2x,
                              float* __restrict__ d2y, int H, int W,
-                             float grad_th) {
+                             float grad_th, int u8_wrap) {
   __shared__ float tile[BY + 2][BX + 2];
   const int x0 = blockIdx.x * BX, y0 = blockIdx.y * BY;
   const float* src = img + (size_t)blockIdx.z * H * W;
@@ -70,7 +72,9 @@ __global__ void sobel_kernel(const float* __restrict__ img,
     float a = tile[ty - 1][tx + c - 1], b = tile[ty][tx + c - 1],
           e = tile[ty + 1][tx + c - 1];
     sy[c] = mul(add(add(a, mul(2.f, b)), e), 0.25f);  // smooth along y
-    dv[c] = mul(sub(e, a), 0.5f);                     // diff along y
+    float d = sub(e, a);
+    if (u8_wrap && d < 0.f) d = add(d, 256.f);        // uint8 wrap-around
+    dv[c] = mul(d, 0.5f);                             // diff along y
   }
   const float g_x = mul(sub(sy[2], sy[0]), 0.5f);
   const float g_y = mul(add(add(dv[0], mul(2.f, dv[1])), dv[2]), 0.25f);
@@ -216,11 +220,11 @@ extern "C" {
 // img (N, H, W) -> gx, gy (N, H, W) when gx is not null, and the planes
 // w, d2x, d2y (N, H, W) when w is not null.
 int lines_sobel(const float* img, float* gx, float* gy, float* w, float* d2x,
-                float* d2y, int N, int H, int W, float grad_th,
+                float* d2y, int N, int H, int W, float grad_th, int u8_wrap,
                 cudaStream_t stream) {
   dim3 block(BX, BY);
   sobel_kernel<<<grid_for(W, H, N, block), block, 0, stream>>>(
-      img, gx, gy, w, d2x, d2y, H, W, grad_th);
+      img, gx, gy, w, d2x, d2y, H, W, grad_th, u8_wrap);
   return (int)cudaGetLastError();
 }
 

@@ -24,11 +24,14 @@ from plslam_tpu_torch.ops.gather import take
 
 
 def extract_stereo_frame(imgs_l: torch.Tensor, imgs_r: torch.Tensor,
-                         cam: StereoCamera, cfg: SlamConfig
+                         cam: StereoCamera, cfg: SlamConfig,
+                         u8_wrap: bool = False
                          ) -> Tuple[PointObservations,
                                     Optional[LineObservations]]:
     """(B, H, W) f32 left/right images -> points and (with
-    ``lines.has_lines``) lines, each with a leading B axis."""
+    ``lines.has_lines``) lines, each with a leading B axis. ``u8_wrap``:
+    the images are uint8 values taken unscaled, and the line detector's
+    full-resolution Sobel wraps as the reference's uint8 subtraction."""
     if not cfg.points.has_points:
         raise NotImplementedError(
             "the lines-only configuration (points.has_points=False) is "
@@ -37,7 +40,7 @@ def extract_stereo_frame(imgs_l: torch.Tensor, imgs_r: torch.Tensor,
     both = torch.cat([imgs_l, imgs_r])
     lns = None
     if cfg.lines.has_lines:
-        segs, d = detect_and_describe_lines(both, cfg)
+        segs, d = detect_and_describe_lines(both, cfg, u8_wrap)
         segs_l = type(segs)(*(x[:B] for x in segs))
         segs_r = type(segs)(*(x[B:] for x in segs))
         lns = match_stereo_lines(segs_l, d[:B], segs_r, d[B:], cam, cfg)

@@ -42,17 +42,23 @@ def detect_kwargs(l, half: bool, diag: float) -> dict:
         min_length=l.min_line_length * diag * h)
 
 
-def _detect(img: torch.Tensor, l, half: bool, diag: float) -> lines.Segments:
-    return lines.detect_segments(img, **detect_kwargs(l, half, diag))
+def _detect(img: torch.Tensor, l, half: bool, diag: float,
+            u8_wrap: bool = False) -> lines.Segments:
+    return lines.detect_segments(img, **detect_kwargs(l, half, diag),
+                                 u8_wrap=u8_wrap)
 
 
 def _doubled(segs: lines.Segments) -> lines.Segments:
     return segs._replace(sp=segs.sp * 2.0, ep=segs.ep * 2.0)
 
 
-def detect_and_describe_lines(imgs: torch.Tensor, cfg: SlamConfig
+def detect_and_describe_lines(imgs: torch.Tensor, cfg: SlamConfig,
+                              u8_wrap: bool = False
                               ) -> Tuple[lines.Segments, torch.Tensor]:
-    """(N, H, W) images -> segments (N, L) and LBD bits (N, L, 256)."""
+    """(N, H, W) images -> segments (N, L) and LBD bits (N, L, 256).
+    ``u8_wrap``: the images hold uint8 values, and the Sobel gradients of
+    the full-resolution image wrap as the reference's uint8 arithmetic
+    does (the half-res image is a float resize, unaffected)."""
     l = cfg.lines
     H, W = imgs.shape[-2:]
     diag = (H * H + W * W) ** 0.5
@@ -62,7 +68,7 @@ def detect_and_describe_lines(imgs: torch.Tensor, cfg: SlamConfig
     if l.use_fld_lines:
         segs = _doubled(_detect(small, l, True, diag))
     else:
-        segs = _detect(imgs, l, False, diag)
+        segs = _detect(imgs, l, False, diag, u8_wrap)
         if l.scale_levels > 1:
             coarse = _doubled(_detect(small, l, True, diag))
             segs = fuse_levels(segs, coarse, l)
@@ -74,7 +80,7 @@ def detect_and_describe_lines(imgs: torch.Tensor, cfg: SlamConfig
                                   n_samples=l.lbd_samples,
                                   samples_per_band=l.lbd_band_samples)
     else:
-        gx, gy = sobel_gradients(imgs)
+        gx, gy = sobel_gradients(imgs, u8_wrap)
         desc = lbd.describe_lines(gx, gy, segs.sp, segs.ep,
                                   n_bands=l.lbd_bands,
                                   band_width=l.lbd_band_width,

@@ -483,3 +483,40 @@ def exact_stereo_features(world: SyntheticWorld, T_wc: np.ndarray, cam,
     return dict(uv_l=uv_l, uv_r=uv_r, disp=disp, P_cam=P_c, vis=vis,
                 line_sp_px=sp_px, line_ep_px=ep_px, line_sp_cam=sp_c,
                 line_ep_cam=ep_c, line_vis=lvis)
+
+
+def drift_circle_graph(F: int, n: int, extra: int, seed: int):
+    """A pose graph the shape of a closure's essential graph: a circle of n
+    keyframes (0.5 m steps) with drifted odometry edges, one exact loop
+    edge (weight 2) and ``extra`` noisy chords, padded to F slots and 4F
+    edge slots. Returns (PoseGraph field arrays, number of edges used)."""
+    rng = np.random.default_rng(seed)
+    noisy = lambda st, sr: _exp_se3_np(np.concatenate(
+        [rng.normal(0, st, 3), rng.normal(0, sr, 3)]))
+    step = _exp_se3_np(np.array([0.5, 0, 0, 0, 2 * np.pi / n, 0]))
+    gt = [np.eye(4, dtype=np.float32)]
+    for _ in range(n - 1):
+        gt.append(gt[-1] @ step)
+    poses, edges = [gt[0]], []
+    for i in range(1, n):
+        T = np.linalg.inv(gt[i - 1]) @ gt[i] @ noisy(0.01, 0.004)
+        edges.append((i - 1, i, T, 1.0))
+        poses.append(poses[-1] @ T)
+    edges.append((n - 1, 0, np.linalg.inv(gt[n - 1]) @ gt[0], 2.0))
+    for _ in range(extra):
+        i, j = sorted(rng.choice(n, 2, replace=False))
+        edges.append((i, j, np.linalg.inv(gt[i]) @ gt[j] @ noisy(0.02, 0.005),
+                      1.0))
+    E = 4 * F
+    if len(edges) > E:
+        raise ValueError(f"{len(edges)} edges do not fit {E} edge slots")
+    d = dict(poses=np.tile(np.eye(4, dtype=np.float32), (F, 1, 1)),
+             pose_valid=np.arange(F) < n, edge_i=np.zeros(E, np.int32),
+             edge_j=np.zeros(E, np.int32),
+             edge_T=np.tile(np.eye(4, dtype=np.float32), (E, 1, 1)),
+             edge_w=np.zeros(E, np.float32))
+    d["poses"][:n] = np.stack(poses)
+    for k, (i, j, T, w) in enumerate(edges):
+        d["edge_i"][k], d["edge_j"][k], d["edge_T"][k], d["edge_w"][k] = (
+            i, j, T, w)
+    return d, len(edges)

@@ -1,0 +1,364 @@
+"""SE(3) pose-graph optimisation (the g2o replacement), kernel M (K18).
+
+Port of ``plslam_tpu/loop/pose_graph.py``: after a verified loop, the
+essential graph (odometry, covisibility and loop edges) is optimised over
+the KF poses by Gauss-Newton. Per edge the residual is
+r = log(Tm^-1 Ti^-1 Tj) with the right-perturbation Jacobians
+Ji = -Ad(Tm^-1), Jj = I; each iteration solves the normal equations with
+pins on invalid slots (1e6), on slots cut off from the gauge component
+(1e8, ``frozen_mask``) and on the first valid slot (1e8), updates
+T <- T exp(dx) and accepts only a finite cost that did not rise.
+
+Two linear solvers: dense, the (6F)^2 system through
+``torch.linalg.solve_ex`` (the reference calls ``jnp.linalg.solve``), and
+PCG, a matrix-free block-Jacobi-preconditioned CG with a fixed schedule.
+On CUDA tensors every step but the library solve and the batched 6 x 6
+inverse is a launch of ``csrc/pose_graph.cu`` (``pg_edges``,
+``pg_assemble``, ``pg_blocks``, ``pg_pcg``, ``pg_update``); the plain
+versions (the reference's arithmetic in torch) run only for CPU tensors.
+Fixed capacity: F pose slots, E edge slots, masked by ``edge_w > 0``.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Tuple
+
+import numpy as np
+import torch
+
+from plslam_tpu_torch import native
+from plslam_tpu_torch.core import lie
+
+
+class PoseGraph(NamedTuple):
+    poses: torch.Tensor        # (F, 4, 4) T_w_kf
+    pose_valid: torch.Tensor   # (F,) bool
+    edge_i: torch.Tensor       # (E,) int32
+    edge_j: torch.Tensor       # (E,)
+    edge_T: torch.Tensor       # (E, 4, 4) measured T_i^-1 T_j
+    edge_w: torch.Tensor       # (E,) weight (0 = unused slot)
+
+
+def frozen_mask(g: PoseGraph) -> np.ndarray:
+    """(F,) bool — valid poses NOT connected (through used edges) to the
+    first valid pose: both solvers pin them at their current estimates.
+    Host union-find, copied from the reference."""
+    valid = g.pose_valid.cpu().numpy()
+    F = valid.shape[0]
+    parent = np.arange(F)
+
+    def find(a):
+        while parent[a] != a:
+            parent[a] = parent[parent[a]]
+            a = parent[a]
+        return a
+
+    w = g.edge_w.cpu().numpy()
+    ei = g.edge_i.cpu().numpy()
+    ej = g.edge_j.cpu().numpy()
+    for i, j in zip(ei[w > 0], ej[w > 0]):
+        ri, rj = find(int(i)), find(int(j))
+        if ri != rj:
+            parent[ri] = rj
+    if not valid.any():
+        return ~valid
+    root = find(int(np.argmax(valid)))
+    reach = np.fromiter((find(s) == root for s in range(F)), bool, F)
+    return valid & ~reach
+
+
+def _diag(g: PoseGraph, freeze: torch.Tensor, fix_first: bool
+          ) -> torch.Tensor:
+    """(F,) diagonal added to H: the pins plus 1e-5 + 1e-6 (in the poses'
+    float type)."""
+    dt = g.poses.dtype
+    pin = ((~g.pose_valid).to(dt) * 1e6 + freeze.to(dt) * 1e8)
+    if fix_first:
+        first = torch.argmax(g.pose_valid.to(torch.uint8))
+        pin = pin.index_add(0, first.reshape(1),
+                            torch.full((1,), 1e8, dtype=dt,
+                                       device=pin.device))
+    return (pin + 1e-5) + 1e-6
+
+
+def _args(g: PoseGraph):
+    """The graph as the kernels take it (contiguous, checked)."""
+    F, E = g.poses.shape[0], g.edge_w.shape[0]
+    out = (g.poses.to(torch.float32).contiguous(),
+           g.edge_i.to(torch.int32).contiguous(),
+           g.edge_j.to(torch.int32).contiguous(),
+           g.edge_T.to(torch.float32).contiguous(),
+           g.edge_w.to(torch.float32).contiguous())
+    for name, t, dt, shape in zip(
+            ("poses", "edge_i", "edge_j", "edge_T", "edge_w"), out,
+            (torch.float32, torch.int32, torch.int32, torch.float32,
+             torch.float32),
+            ((F, 4, 4), (E,), (E,), (E, 4, 4), (E,))):
+        native.require(t, f"pose graph {name}", dt, shape)
+    return out
+
+
+def _incidence(g: PoseGraph):
+    """Edges leaving / entering each slot, each list in edge order (a
+    stable sort by endpoint): (edge ids, (F + 1,) offsets) twice; unused
+    edges are in no list."""
+    F = g.poses.shape[0]
+    used = g.edge_w > 0
+    out = []
+    for end in (g.edge_i, g.edge_j):
+        key = torch.where(used, end.long(), F)
+        order = torch.sort(key, stable=True).indices.to(torch.int32)
+        ptr = torch.zeros((F + 1,), dtype=torch.int64, device=key.device)
+        ptr[1:] = torch.cumsum(torch.bincount(key, minlength=F + 1)[:F], 0)
+        out += [order.contiguous(), ptr.to(torch.int32).contiguous()]
+    return tuple(out)
+
+
+# -- edges: residuals, Jacobians, cost ---------------------------------------
+
+def _jac(g: PoseGraph) -> torch.Tensor:
+    return -lie.adjoint_se3(lie.inverse_se3(g.edge_T))
+
+
+def edge_residuals_plain(poses: torch.Tensor, g: PoseGraph) -> torch.Tensor:
+    Ti = poses[g.edge_i.long()]
+    Tj = poses[g.edge_j.long()]
+    r = lie.log_se3(lie.inverse_se3(g.edge_T) @ lie.inverse_se3(Ti) @ Tj)
+    return torch.where((g.edge_w > 0)[:, None], r, 0.0)
+
+
+def _cost_plain(poses: torch.Tensor, g: PoseGraph) -> torch.Tensor:
+    r = edge_residuals_plain(poses, g)
+    return torch.sum(g.edge_w * torch.sum(r * r, dim=-1))
+
+
+def edges_plain(g: PoseGraph):
+    """(r (E, 6), Ji (E, 6, 6), cost ()) at ``g.poses``."""
+    r = edge_residuals_plain(g.poses, g)
+    return r, _jac(g), torch.sum(g.edge_w * torch.sum(r * r, dim=-1))
+
+
+def edges(g: PoseGraph):
+    """Residuals (0 on unused edges), Jacobians Ji and the cost at
+    ``g.poses``: one ``pg_edges`` launch on CUDA."""
+    if g.poses.device.type == "cpu":
+        return edges_plain(g)
+    a = _args(g)
+    F, E = a[0].shape[0], a[4].shape[0]
+    dev = a[0].device
+    r = torch.empty((E, 6), dtype=torch.float32, device=dev)
+    J = torch.empty((E, 6, 6), dtype=torch.float32, device=dev)
+    cost = torch.empty((), dtype=torch.float32, device=dev)
+    native.launch("pg_edges", *a, r, J, cost, F, E)
+    return r, J, cost
+
+
+def edge_residuals(poses: torch.Tensor, g: PoseGraph) -> torch.Tensor:
+    """(E, 6) residuals log(Tm^-1 Ti^-1 Tj), zeroed for unused slots."""
+    return edges(g._replace(poses=poses))[0]
+
+
+# -- dense normal equations ---------------------------------------------------
+
+def assemble_plain(g: PoseGraph, r, Ji, diag):
+    """(H (6F, 6F), g (6F,)): the reference's scatter-adds in its order."""
+    F = g.poses.shape[0]
+    ei, ej, w = g.edge_i.long(), g.edge_j.long(), g.edge_w
+    eye = torch.eye(6, dtype=w.dtype, device=w.device)
+    H = torch.zeros((F, F, 6, 6), dtype=w.dtype, device=w.device)
+    H.index_put_((ei, ei), torch.einsum("e,eap,eaq->epq", w, Ji, Ji),
+                 accumulate=True)
+    H.index_put_((ej, ej), w[:, None, None] * eye, accumulate=True)
+    Hij = torch.einsum("e,eap->epa", w, Ji)
+    H.index_put_((ei, ej), Hij, accumulate=True)
+    H.index_put_((ej, ei), Hij.transpose(-1, -2), accumulate=True)
+    gvec = torch.zeros((F, 6), dtype=w.dtype, device=w.device)
+    gvec.index_add_(0, ei, torch.einsum("e,eap,ea->ep", w, Ji, r))
+    gvec.index_add_(0, ej, w[:, None] * r)
+    idx = torch.arange(F, device=w.device)
+    H[idx, idx] += diag[:, None, None] * eye
+    return H.permute(0, 2, 1, 3).reshape(6 * F, 6 * F), gvec.reshape(-1)
+
+
+def assemble(g: PoseGraph, r, Ji, diag, inc=None):
+    """The dense system, one ``pg_assemble`` launch (a block per slot)."""
+    if g.poses.device.type == "cpu":
+        return assemble_plain(g, r, Ji, diag)
+    a = _args(g)
+    F, E = a[0].shape[0], a[4].shape[0]
+    inc = _incidence(g) if inc is None else inc
+    H = torch.empty((6 * F, 6 * F), dtype=torch.float32, device=r.device)
+    gvec = torch.empty((6 * F,), dtype=torch.float32, device=r.device)
+    native.launch("pg_assemble", *a, *inc, r.contiguous(), Ji.contiguous(),
+                  diag.to(torch.float32).contiguous(), H, gvec, F, E)
+    return H, gvec
+
+
+# -- PCG ----------------------------------------------------------------------
+
+def _incidence_onehot(g: PoseGraph):
+    """The reference's (E, F) one-hot incidence operators, zero on unused
+    edges (the plain versions' form)."""
+    F = g.poses.shape[0]
+    used = (g.edge_w > 0).to(g.edge_w.dtype)
+    one = lambda end: torch.nn.functional.one_hot(end.long(), F).to(
+        g.edge_w.dtype) * used[:, None]
+    return one(g.edge_i), one(g.edge_j)
+
+
+def blocks_plain(g: PoseGraph, r, Ji, diag):
+    """(gradient (F, 6), exact diagonal blocks of H (F, 6, 6))."""
+    F = g.poses.shape[0]
+    w = g.edge_w
+    Pi, Pj = _incidence_onehot(g)
+    gi = torch.einsum("e,eap,ea->ep", w, Ji, r)
+    gvec = Pi.T @ gi + Pj.T @ (w[:, None] * r)
+    eye = torch.eye(6, dtype=w.dtype, device=w.device)
+    Hii = torch.einsum("e,eap,eaq->epq", w, Ji, Ji)
+    Hd = (torch.einsum("ef,epq->fpq", Pi, Hii)
+          + (Pj.T @ w)[:, None, None] * eye + diag[:, None, None] * eye)
+    return gvec, Hd
+
+
+def blocks(g: PoseGraph, r, Ji, diag, inc):
+    if g.poses.device.type == "cpu":
+        return blocks_plain(g, r, Ji, diag)
+    a = _args(g)
+    F, E = a[0].shape[0], a[4].shape[0]
+    Hd = torch.empty((F, 6, 6), dtype=torch.float32, device=r.device)
+    gvec = torch.empty((F, 6), dtype=torch.float32, device=r.device)
+    native.launch("pg_blocks", *a, *inc, r.contiguous(), Ji.contiguous(),
+                  diag.to(torch.float32).contiguous(), Hd, gvec, F, E)
+    return gvec, Hd
+
+
+def pcg_plain(g: PoseGraph, Ji, Minv, diag, gvec, cg_iters: int):
+    w = g.edge_w
+    Pi, Pj = _incidence_onehot(g)
+
+    def applyH(x):
+        t = torch.einsum("eap,ep->ea", Ji, Pi @ x) + Pj @ x
+        yi = torch.einsum("e,eap,ea->ep", w, Ji, t)
+        return Pi.T @ yi + Pj.T @ (w[:, None] * t) + diag[:, None] * x
+
+    prec = lambda v: torch.einsum("fpq,fq->fp", Minv, v)
+    b = -gvec
+    b2 = torch.sum(b * b)
+    x = torch.zeros_like(b)
+    rr = b
+    z = prec(rr)
+    p = z
+    rz = torch.sum(rr * z)
+    for _ in range(cg_iters):
+        Hp = applyH(p)
+        pHp = torch.sum(p * Hp)
+        ok = (pHp > 1e-12) & (rz > 1e-12 * b2 + 1e-30)
+        alpha = torch.where(ok, rz / torch.clamp(pHp, min=1e-30), 0.0)
+        x = x + alpha * p
+        rr = rr - alpha * Hp
+        z = prec(rr)
+        rz_new = torch.sum(rr * z)
+        beta = torch.where(ok, rz_new / torch.clamp(rz, min=1e-30), 0.0)
+        p = z + beta * p
+        rz = rz_new
+    return x
+
+
+def pcg(g: PoseGraph, Ji, Minv, diag, gvec, cg_iters: int, inc=None):
+    """``cg_iters`` block-Jacobi PCG steps on H dx = -g from 0: one
+    ``pg_pcg`` launch (one block, the vectors in shared memory)."""
+    if g.poses.device.type == "cpu":
+        return pcg_plain(g, Ji, Minv, diag, gvec, cg_iters)
+    a = _args(g)
+    F, E = a[0].shape[0], a[4].shape[0]
+    if (5 * 6 * F + 6 * E) * 4 > 232448:
+        raise ValueError(f"pg_pcg: F={F}, E={E} exceed one block's shared "
+                         "memory")
+    inc = _incidence(g) if inc is None else inc
+    dx = torch.empty((F, 6), dtype=torch.float32, device=Ji.device)
+    native.launch("pg_pcg", *a, *inc, Ji.contiguous(),
+                  Minv.to(torch.float32).contiguous(),
+                  diag.to(torch.float32).contiguous(), gvec.contiguous(), dx,
+                  F, E, int(cg_iters))
+    return dx
+
+
+# -- the GN update with its accept test --------------------------------------
+
+def update_plain(g: PoseGraph, c, step, scale: float):
+    dx = torch.where(g.pose_valid[:, None], scale * step, 0.0)
+    new = g.poses @ lie.exp_se3(dx)
+    c_new = _cost_plain(new, g)
+    ok = torch.isfinite(c_new) & (c_new <= c)
+    return torch.where(ok, new, g.poses), torch.where(ok, c_new, c)
+
+
+def update(g: PoseGraph, c, step, scale: float):
+    """T <- T exp(scale * step) on valid slots, kept only if the cost is
+    finite and did not rise: (poses, cost); one ``pg_update`` launch."""
+    if g.poses.device.type == "cpu":
+        return update_plain(g, c, step, scale)
+    a = _args(g)
+    F, E = a[0].shape[0], a[4].shape[0]
+    st = step.reshape(F, 6).to(torch.float32).contiguous()
+    va = g.pose_valid.to(torch.uint8).contiguous()
+    c_in = c.to(torch.float32).reshape(()).contiguous()
+    poses = torch.empty_like(a[0])
+    c_out = torch.empty((), dtype=torch.float32, device=st.device)
+    native.launch("pg_update", *a, c_in, st, va, poses, c_out, F, E,
+                  float(scale))
+    return poses, c_out
+
+
+# -- the solvers --------------------------------------------------------------
+
+def optimize_pose_graph(g: PoseGraph, iters: int = 12, fix_first: bool = True
+                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Returns (optimized poses (F,4,4), cost0, cost1). Poses outside the
+    gauge-connected component are frozen (see frozen_mask)."""
+    freeze = torch.from_numpy(frozen_mask(g)).to(g.poses.device)
+    return _optimize_dense(g, freeze, iters, fix_first)
+
+
+def _optimize_dense(g: PoseGraph, freeze: torch.Tensor, iters: int = 12,
+                    fix_first: bool = True):
+    diag = _diag(g, freeze, fix_first)
+    F = g.poses.shape[0]
+    inc = _incidence(g) if g.poses.device.type == "cuda" else None
+    _, _, c0 = edges(g)
+    c = c0
+    for _ in range(iters):
+        r, Ji, _ = edges(g)
+        H, gvec = assemble(g, r, Ji, diag, inc)
+        sol = torch.linalg.solve_ex(H, gvec[:, None])[0][:, 0]
+        poses, c = update(g, c, sol.reshape(F, 6), -1.0)
+        g = g._replace(poses=poses)
+    return g.poses, c0, c
+
+
+def optimize_pose_graph_pcg(g: PoseGraph, iters: int = 12,
+                            cg_iters: int = 96, fix_first: bool = True
+                            ) -> Tuple[torch.Tensor, torch.Tensor,
+                                       torch.Tensor]:
+    """PCG variant of optimize_pose_graph (see _optimize_pcg)."""
+    freeze = torch.from_numpy(frozen_mask(g)).to(g.poses.device)
+    return _optimize_pcg(g, freeze, iters, cg_iters, fix_first)
+
+
+def _optimize_pcg(g: PoseGraph, freeze: torch.Tensor, iters: int = 12,
+                  cg_iters: int = 96, fix_first: bool = True):
+    """Gauss-Newton with a matrix-free block-Jacobi-preconditioned CG
+    linear solve (fixed ``cg_iters`` schedule): the sparse solver for
+    graphs past the dense (6F)^2 wall. Same contract as the dense one."""
+    diag = _diag(g, freeze, fix_first)
+    inc = _incidence(g) if g.poses.device.type == "cuda" else None
+    _, _, c0 = edges(g)
+    c = c0
+    for _ in range(iters):
+        r, Ji, _ = edges(g)
+        gvec, Hd = blocks(g, r, Ji, diag, inc)
+        Minv = torch.linalg.inv_ex(Hd)[0]
+        dx = pcg(g, Ji, Minv, diag, gvec, cg_iters, inc)
+        poses, c = update(g, c, dx, 1.0)
+        g = g._replace(poses=poses)
+    return g.poses, c0, c

@@ -31,7 +31,7 @@ _CSRC = os.path.join(_DIR, "csrc")
 BUILD_DIR = os.path.join(_DIR, "_build")
 SOURCES = ["image.cu", "fast.cu", "orb.cu", "hamming.cu", "lines_tile.cu",
            "lines_label.cu", "lines_segments.cu", "lbd.cu", "pose_gn.cu",
-           "slam.cu", "lba.cu"]
+           "slam.cu", "lba.cu", "bow.cu", "pose_graph.cu"]
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC"]
 
@@ -45,7 +45,7 @@ _SIGNATURES: Dict[str, str] = {
     "orb_describe": "pppppppiii",
     "hamming_dist": "ppppppiii",
     "hamming_match": "pppppiiiffi",
-    "lines_sobel": "ppppppiiif",
+    "lines_sobel": "ppppppiiifi",
     "lines_moments": "pppppppiiiiii",
     "lines_label": "pppppppiiiffi",
     "lines_refit": "pppppppppiiifff",
@@ -60,6 +60,13 @@ _SIGNATURES: Dict[str, str] = {
     "lba_bin": "p" * 19 + "iiiii",
     "lba_schur": "p" * 9 + "iif",
     "lba_backsub": "p" * 7 + "iii",
+    "bow_descend": "pppiii",
+    "bow_hist": "ppppii",
+    "pg_edges": "p" * 8 + "ii",
+    "pg_assemble": "p" * 14 + "ii",
+    "pg_blocks": "p" * 14 + "ii",
+    "pg_pcg": "p" * 14 + "iii",
+    "pg_update": "p" * 10 + "iif",
 }
 
 # launches per C entry point since the last reset (plain versions on CPU

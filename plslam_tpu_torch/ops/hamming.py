@@ -57,9 +57,20 @@ def window_mask(pos_a: torch.Tensor, pos_b: torch.Tensor, radius: float,
     return (torch.abs(d[..., 0]) <= radius) & (torch.abs(d[..., 1]) <= radius)
 
 
+def _bits(x: torch.Tensor) -> torch.Tensor:
+    """Descriptors as (..., 256) bits; (..., 8) packed words unpacked."""
+    return unpack_bits(x) if x.shape[-1] == 8 else x
+
+
+def _words(x: torch.Tensor) -> torch.Tensor:
+    """Descriptors as (..., 8) int32 words; (..., 256) bits packed."""
+    return x.to(torch.int32) if x.shape[-1] == 8 else pack_bits(x)
+
+
 def hamming_matrix_plain(bits_a, bits_b, valid_a, valid_b, mask):
     # with bits as +-1 the distance is (256 - a.b) / 2; f32 products of
     # +-1 summed 256 deep are exact integers
+    bits_a, bits_b = _bits(bits_a), _bits(bits_b)
     a = bits_a.to(torch.float32) * 2.0 - 1.0
     b = bits_b.to(torch.float32) * 2.0 - 1.0
     dist = (N_BITS - a @ b.transpose(-1, -2)) * 0.5
@@ -71,7 +82,8 @@ def hamming_matrix(bits_a: torch.Tensor, bits_b: torch.Tensor,
                    valid_a: Optional[torch.Tensor] = None,
                    valid_b: Optional[torch.Tensor] = None,
                    mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """(B, N, 256), (B, M, 256) bits -> (B, N, M) f32 Hamming distances,
+    """(B, N, 256), (B, M, 256) bits, or (B, N, 8), (B, M, 8) packed words
+    (the stored keyframe descriptors) -> (B, N, M) f32 Hamming distances,
     INVALID where a row or column is invalid or ``mask`` is False."""
     B, N, _ = bits_a.shape
     M = bits_b.shape[1]
@@ -84,8 +96,8 @@ def hamming_matrix(bits_a: torch.Tensor, bits_b: torch.Tensor,
         mask = torch.ones((B, N, M), dtype=torch.bool, device=dev)
     if dev.type == "cpu":
         return hamming_matrix_plain(bits_a, bits_b, valid_a, valid_b, mask)
-    pa = pack_bits(bits_a).contiguous()
-    pb = pack_bits(bits_b).contiguous()
+    pa = _words(bits_a).contiguous()
+    pb = _words(bits_b).contiguous()
     va = valid_a.to(torch.uint8).contiguous()
     vb = valid_b.to(torch.uint8).contiguous()
     mk = mask.to(torch.uint8).contiguous()

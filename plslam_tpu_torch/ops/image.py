@@ -163,35 +163,43 @@ def build_pyramid(img: torch.Tensor, n_levels: int, scale_factor: float,
     return levels
 
 
-def sobel_gradients_plain(img: torch.Tensor
+def sobel_gradients_plain(img: torch.Tensor, u8_wrap: bool = False
                           ) -> Tuple[torch.Tensor, torch.Tensor]:
     p = torch.nn.functional.pad(img[:, None], (1, 1, 1, 1),
                                 mode="replicate")[:, 0]
     sy = (p[:, :-2] + 2.0 * p[:, 1:-1] + p[:, 2:]) * 0.25
-    dy = (p[:, 2:] - p[:, :-2]) * 0.5
+    d = p[:, 2:] - p[:, :-2]
+    if u8_wrap:
+        d = torch.where(d < 0, d + 256.0, d)
+    dy = d * 0.5
     gx = (sy[:, :, 2:] - sy[:, :, :-2]) * 0.5
     gy = (dy[:, :, :-2] + 2.0 * dy[:, :, 1:-1] + dy[:, :, 2:]) * 0.25
     return gx, gy
 
 
-def sobel_launch(img: torch.Tensor, grad_th: float = None
-                 ) -> Tuple[torch.Tensor, ...]:
+def sobel_launch(img: torch.Tensor, grad_th: float = None,
+                 u8_wrap: bool = False) -> Tuple[torch.Tensor, ...]:
     """Kernel E launch 1 on a CUDA (N, H, W) f32 batch: ``(gx, gy)``, or
-    with ``grad_th`` the line detector's planes ``(w, d2x, d2y)``."""
+    with ``grad_th`` the line detector's planes ``(w, d2x, d2y)``;
+    ``u8_wrap`` as ``sobel_gradients``."""
     N, H, W = img.shape
     native.require(img, "sobel_gradients", torch.float32)
     outs = [torch.empty_like(img) for _ in range(2 if grad_th is None else 3)]
     if grad_th is None:
         native.launch("lines_sobel", img, outs[0], outs[1], None, None, None,
-                      N, H, W, 0.0)
+                      N, H, W, 0.0, int(u8_wrap))
     else:
-        native.launch("lines_sobel", img, None, None, *outs, N, H, W, grad_th)
+        native.launch("lines_sobel", img, None, None, *outs, N, H, W, grad_th,
+                      int(u8_wrap))
     return tuple(outs)
 
 
-def sobel_gradients(img: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+def sobel_gradients(img: torch.Tensor, u8_wrap: bool = False
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(gx, gy) of (N, H, W) images: 3x3 Sobel with edge padding, scaled
-    by 0.25 (smoothing) and 0.5 (difference) in the reference's order."""
+    by 0.25 (smoothing) and 0.5 (difference) in the reference's order.
+    ``u8_wrap``: the image holds uint8 values, and the y difference wraps
+    modulo 256 as the reference's Sobel of a uint8 array does."""
     if img.device.type == "cpu":
-        return sobel_gradients_plain(img)
-    return sobel_launch(img)
+        return sobel_gradients_plain(img, u8_wrap)
+    return sobel_launch(img, u8_wrap=u8_wrap)

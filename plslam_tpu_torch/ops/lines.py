@@ -82,8 +82,9 @@ def tile_grid(H: int, W: int, tile: int) -> Tuple[int, int]:
 
 # -- kernel E: gradient planes and window moments -------------------------------
 
-def gradient_planes_plain(img: torch.Tensor, grad_th: float):
-    gx, gy = sobel_gradients_plain(img)
+def gradient_planes_plain(img: torch.Tensor, grad_th: float,
+                          u8_wrap: bool = False):
+    gx, gy = sobel_gradients_plain(img, u8_wrap)
     mag = sqrt_rn(gx * gx + gy * gy)
     w = torch.where(mag > grad_th, mag, 0.0)
     mag_safe = torch.clamp(mag, min=1e-9)
@@ -92,12 +93,14 @@ def gradient_planes_plain(img: torch.Tensor, grad_th: float):
     return w, d2x, d2y
 
 
-def gradient_planes(img: torch.Tensor, grad_th: float):
+def gradient_planes(img: torch.Tensor, grad_th: float,
+                    u8_wrap: bool = False):
     """(N, H, W) -> support weight w = |g| where |g| > grad_th, and the
-    magnitude-weighted double-angle planes d2x, d2y (zero off support)."""
+    magnitude-weighted double-angle planes d2x, d2y (zero off support);
+    ``u8_wrap`` as ``image.sobel_gradients``."""
     if img.device.type == "cpu":
-        return gradient_planes_plain(img, grad_th)
-    return sobel_launch(img, grad_th)
+        return gradient_planes_plain(img, grad_th, u8_wrap)
+    return sobel_launch(img, grad_th, u8_wrap)
 
 
 def _up_index(n: int, T: int, s: int, device) -> torch.Tensor:
@@ -347,10 +350,11 @@ def tile_stage(img: torch.Tensor, tile: int = 16, grad_th: float = 0.02,
                min_support: float = 1.0, elong_th: float = 2.5,
                perp_spread_th: float = 2.2, coherence_th: float = 0.6,
                merge_iters: int = 8, merge_ang_th: float = 0.1,
-               merge_dist_th: float = 2.0) -> TileStage:
+               merge_dist_th: float = 2.0, u8_wrap: bool = False
+               ) -> TileStage:
     """Gradients, gated tile moments, connected-component labels."""
     stride = tile // 2
-    w, d2x, d2y = gradient_planes(img, grad_th)
+    w, d2x, d2y = gradient_planes(img, grad_th, u8_wrap)
     D2x, D2y = orientation_maps(d2x, d2y, tile, stride)
     d2n = sqrt_rn(D2x * D2x + D2y * D2y) + 1e-9
     u2x, u2y = D2x / d2n, D2y / d2n
@@ -572,13 +576,16 @@ def detect_segments(img: torch.Tensor, max_lines: int, tile: int = 16,
                     coherence_th: float = 0.6, merge_iters: int = 8,
                     merge_ang_th: float = 0.1, merge_dist_th: float = 2.0,
                     merge_gap_th: float = 14.0,
-                    min_length: float = 12.0) -> Segments:
-    """Up to ``max_lines`` segments in each of N (H, W) images."""
+                    min_length: float = 12.0, u8_wrap: bool = False
+                    ) -> Segments:
+    """Up to ``max_lines`` segments in each of N (H, W) images
+    (``u8_wrap`` as ``image.sobel_gradients``)."""
     H, W = img.shape[-2:]
     ts = tile_stage(img, tile=tile, grad_th=grad_th, min_support=min_support,
                     elong_th=elong_th, perp_spread_th=perp_spread_th,
                     coherence_th=coherence_th, merge_iters=merge_iters,
-                    merge_ang_th=merge_ang_th, merge_dist_th=merge_dist_th)
+                    merge_ang_th=merge_ang_th, merge_dist_th=merge_dist_th,
+                    u8_wrap=u8_wrap)
     sp_c, ep_c, c_s = refit_roots(ts, H, W, tile, max_lines, min_length)
     sp_m, ep_m, ang_m, score_m, v_m, _ = merge_segments(
         sp_c, ep_c, c_s, c_s > 0.0, ang_th=2.0 * merge_ang_th,

@@ -139,9 +139,14 @@ def _chunk_tracking_batched(pts: PointObservations,
 def extract_one(img_l: torch.Tensor, img_r: torch.Tensor, cam: StereoCamera,
                 cfg: SlamConfig
                 ) -> Tuple[PointObservations, Optional[LineObservations]]:
-    """One (H, W) stereo pair -> its features (no batch axis)."""
-    pts, lns = extract_stereo_frame(_to_f32(img_l)[None], _to_f32(img_r)[None],
-                                    cam, cfg)
+    """One (H, W) stereo pair -> its features (no batch axis). A uint8
+    pair is taken UNSCALED (0..255 as f32), as the reference's
+    ``extract_one`` takes it, uint8 arithmetic included: its line
+    detector's Sobel y difference wraps modulo 256. Only the chunk steps
+    scale uint8 to [0, 1]."""
+    f32 = lambda x: x.to(torch.float32)[None]
+    pts, lns = extract_stereo_frame(f32(img_l), f32(img_r), cam, cfg,
+                                    u8_wrap=img_l.dtype == torch.uint8)
     return _frame(pts, 0), _frame(lns, 0)
 
 

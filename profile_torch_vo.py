@@ -33,7 +33,11 @@ then the fourth chunk is timed from that state as a whole and stage by
 stage (the front end, the tracking, ``kf_scan``, one keyframe's
 ``add_keyframe``, one window LBA, KF retirement + landmark culling), and
 profiled once; the hand kernels' launches per chunk come from
-``native.LAUNCHES``.
+``native.LAUNCHES``. ``--loops`` does the same with loop closure on (the
+default ``SlamConfig()``, chip_smoke.py's loop scene, bench_slam.py's own),
+the chunk's keyframes each followed by the BoW probe, and times one probe
+(``loop_closer.probe_core``: BoW descent and histogram of both families,
+the scores against the database, the covisibility counts) as a stage.
 
 The last line is one JSON object of these numbers. Imports nothing of
 JAX and nothing of the JAX package.
@@ -60,7 +64,9 @@ OWN_KERNELS = ("filter_vertical", "filter_horizontal", "resize_vertical",
                "merge_kernel", "lbd_kernel", "pose_gn_kernel",
                "kf_scan_kernel", "medoid_kernel", "terms_kernel",
                "sigma_kernel", "camera_kernel", "bin_kernel", "schur_kernel",
-               "backsub_kernel")
+               "backsub_kernel", "bow_descend_kernel", "bow_hist_kernel",
+               "pg_edges_kernel", "pg_assemble_kernel", "pg_blocks_kernel",
+               "pg_pcg_kernel", "pg_update_kernel")
 
 
 def host_ms(fn, reps: int) -> float:
@@ -153,9 +159,9 @@ def profile_chunk(chunk, wall_ms):
     return busy_ms, idle, launches, own_ms, own, top
 
 
-def slam_main(reps: int, smi: str) -> int:
-    """The --slam profile (see the module docstring)."""
-    from chip_smoke import CHUNK, slam_scene
+def slam_main(reps: int, smi: str, loops: bool) -> int:
+    """The --slam and --loops profiles (see the module docstring)."""
+    from chip_smoke import CHUNK, loop_scene, slam_scene
     from plslam_tpu_torch import native
     from plslam_tpu_torch.backend import fused_slam, map as tmap
     from plslam_tpu_torch.backend.map_handler import run_window_lba
@@ -163,7 +169,7 @@ def slam_main(reps: int, smi: str) -> int:
     from plslam_tpu_torch.tracking import batch_vo
 
     dev = torch.device("cuda", 0)
-    cfg, cam, _, il, ir = slam_scene()
+    cfg, cam, _, il, ir = loop_scene() if loops else slam_scene()
     chunks = [torch.from_numpy(np.stack([il[lo:lo + CHUNK],
                                          ir[lo:lo + CHUNK]])).to(dev)
               for lo in range(1, 1 + 4 * CHUNK, CHUNK)]
@@ -177,7 +183,9 @@ def slam_main(reps: int, smi: str) -> int:
             slam._crit, slam.state, cam, cfg, kmax)
 
     def chunk():
-        return fused_slam.fused_step(*args)
+        # the probe rewrites the BoW rows of the chunk's keyframes in place:
+        # the same rows each time
+        return fused_slam.fused_step(*args, probe=slam._probe)
 
     imgs = chunks[3]
     fl, fr = batch_vo._to_f32(imgs[0]), batch_vo._to_f32(imgs[1])
@@ -209,6 +217,10 @@ def slam_main(reps: int, smi: str) -> int:
         "window_lba": host_ms(lambda: run_window_lba(state1, cam, cfg), reps),
         "retire_and_cull": host_ms(retire_cull, reps),
     }
+    if loops:
+        slot = int(slam.state.n_kfs) - 1
+        stages["probe"] = host_ms(lambda: slam._probe(slam.state, slot),
+                                  reps)
     # the host-bound chunk drifts with the host's load: time it again
     stages["chunk_again"] = host_ms(chunk, reps)
     for k, v in stages.items():
@@ -227,7 +239,8 @@ def slam_main(reps: int, smi: str) -> int:
     print(smi)
     print(json.dumps({
         "device": torch.cuda.get_device_name(0), "nvidia_smi": smi,
-        "path": "slam", "frames_per_chunk": CHUNK, "keyframes_in_chunk": n_kf,
+        "path": "loops" if loops else "slam", "frames_per_chunk": CHUNK,
+        "keyframes_in_chunk": n_kf,
         "stages_ms": stages, "device_busy_ms": busy_ms,
         "device_idle_share": idle, "kernel_launches": launches,
         "own_kernels_ms": own_ms, "own_launches": own_launches,
@@ -245,15 +258,17 @@ def main() -> int:
                     help="the points-only configuration")
     ap.add_argument("--slam", action="store_true",
                     help="the fused SLAM chunk without loop closure")
+    ap.add_argument("--loops", action="store_true",
+                    help="the fused SLAM chunk with loop closure")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("FAIL: no CUDA device", file=sys.stderr)
         return 2
-    if args.slam:
+    if args.slam or args.loops:
         smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                               "--format=csv,noheader"], capture_output=True,
                              text=True, timeout=60).stdout.strip()
-        return slam_main(args.reps, smi)
+        return slam_main(args.reps, smi, args.loops)
     from chip_smoke import CHUNK, main_scene
     from plslam_tpu_torch.frontend import stereo_lines, stereo_points
     from plslam_tpu_torch.frontend.stereo_frame import extract_stereo_frame

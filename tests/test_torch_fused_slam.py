@@ -179,9 +179,17 @@ def test_fused_slam_matches_reference(scene):
 
 
 def test_fused_slam_raises_where_not_ported(scene):
-    with pytest.raises(NotImplementedError):
-        tfs.FusedPLSLAM(TCFG.with_updates({"loop": {"enabled": True}}),
+    """Loops run; the sharded database (loop.distributed), compaction and
+    checkpoints raise, each naming where it is queued."""
+    looped = tfs.FusedPLSLAM(TCFG.with_updates({"loop": {"enabled": True}}),
+                             TCAM, device="cpu")
+    assert looped.loop_closer is not None
+    with pytest.raises(NotImplementedError, match="parallel"):
+        tfs.FusedPLSLAM(TCFG.with_updates({"loop": {"enabled": True,
+                                                    "distributed": True}}),
                         TCAM, device="cpu")
+    with pytest.raises(NotImplementedError, match="compaction"):
+        looped.loop_closer.remap_slots(np.arange(4), 4)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError):
             tfs.FusedPLSLAM(TCFG, TCAM)          # the default is the card
@@ -194,3 +202,84 @@ def test_fused_slam_raises_where_not_ported(scene):
     il, ir, _ = scene
     with pytest.raises(RuntimeError, match="compaction"):
         _drive(small, il, ir)
+
+
+# -- the loop slice: FusedPLSLAM with loop closure on ------------------------
+
+CFG_LOOP = CFG.with_updates({
+    "mapping": {"max_kfs": 64},
+    "keyframe": {"min_entropy_ratio": 2.0},            # a KF every frame
+    "loop": {"enabled": True, "min_kf_separation": 12,
+             "consistency_window": 2, "lc_inl": 15, "lc_trs": 3.0,
+             "lc_rot": 60.0,
+             "lc_min_correction_t": 0.0, "lc_min_correction_r": 0.0}})
+# the lazy branch: a floor above this scene's correction (0.74 m, 4.1 deg)
+LAZY = {"loop": {"lc_min_correction_t": 1.0, "lc_min_correction_r": 5.0}}
+N_LOOP = 41
+
+
+@pytest.fixture(scope="module")
+def loop_scene():
+    seq = synthetic.make_sequence(CAM, n_frames=N_LOOP, seed=3, kind="loop",
+                                  n_points=300, n_lines=40, noise=0.004,
+                                  step=0.15)
+    u8 = lambda a: np.clip(a * 255.0 + 0.5, 0, 255).astype(np.uint8)
+    return u8(np.asarray(seq.images_l)), u8(np.asarray(seq.images_r)), seq
+
+
+def _drive_loops(slam, il, ir):
+    """initialize, then chunks of kf_batch frames, then finish."""
+    slam.initialize(il[0], ir[0])
+    k = CFG_LOOP.system.kf_batch
+    for lo in range(1, N_LOOP, k):
+        slam.process_chunk(il[lo:lo + k], ir[lo:lo + k])
+    return slam.finish()
+
+
+def _funnel(lc):
+    return (lc.n_candidates, lc.n_votes_fired, lc.n_rej_geom, lc.n_rej_unc,
+            lc.n_rej_corr, lc.n_loops_closed, len(lc.odo_edges),
+            len(lc.covis_edges), len(lc.loop_edges))
+
+
+@pytest.mark.parametrize("branch", ["solve", "lazy"])
+def test_fused_slam_with_loops_matches_reference(loop_scene, branch):
+    """The reference's FusedPLSLAM(enable_loops=True) against the port's
+    on a 41-frame loop scene that closes KF 0 -> KF 32, with the graph
+    solve (floors 0: always solve) and with the lazy correction (floors
+    above the correction): identical keyframe frames, loop events (slots,
+    inliers), funnel counters and graph edges; KF poses and the trajectory
+    within the loops-off band (1 cm, 3e-3)."""
+    il, ir, seq = loop_scene
+    ref = jfs.FusedPLSLAM(CFG_LOOP, CAM, enable_loops=True)
+    tcfg = convert.config_from_dict(dataclasses.asdict(CFG_LOOP))
+    if branch == "lazy":
+        # the reference's fused step is compiled for CFG_LOOP; its closer
+        # alone reads the floors
+        ref.loop_closer.cfg = CFG_LOOP.with_updates(LAZY)
+        tcfg = tcfg.with_updates(LAZY)
+    est_j = _drive_loops(ref, il, ir)
+    port = tfs.FusedPLSLAM(tcfg, TCAM, device="cpu")
+    est_t = _drive_loops(port, il, ir)
+    kf_frames = lambda s: np.nonzero(np.diff([a for a, _ in s._frame_anchor])
+                                     )[0]
+    np.testing.assert_array_equal(kf_frames(port), kf_frames(ref))
+    lj, lt = ref.loop_closer, port.loop_closer
+    ev = lambda lc: [(e.kf_from, e.kf_to, e.n_inliers) for e in lc.events]
+    print(f"{branch}: events {lt.events} (reference {lj.events}); funnel "
+          f"{_funnel(lt)}")
+    assert ev(lt) == ev(lj) and len(ev(lj)) >= 1
+    assert _funnel(lt) == _funnel(lj)
+    for e in lt.events:
+        assert (e.graph_cost1 > 0) == (branch == "solve")
+    for a, b in zip(lt.covis_edges, lj.covis_edges):
+        assert a[:2] == b[:2] and a[4] == b[4]
+    kp_t, kp_j = port.kf_poses(), ref.kf_poses()
+    dt = float(np.abs(kp_t[:, :3, 3] - kp_j[:, :3, 3]).max())
+    dr = float(np.abs(kp_t[:, :3, :3] - kp_j[:, :3, :3]).max())
+    dtraj = float(np.abs(est_t[:, :3, 3] - est_j[:, :3, 3]).max())
+    ate = lambda est: float(ate_rmse(est, seq.poses[:len(est)]))
+    print(f"KF poses: translation {dt:.3g} m, rotation entries {dr:.3g}; "
+          f"trajectory {dtraj:.3g} m; ATE {ate(est_t):.4f} (reference "
+          f"{ate(est_j):.4f})")
+    assert dt < 0.01 and dr < 3e-3 and dtraj < 0.01

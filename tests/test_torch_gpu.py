@@ -3,8 +3,9 @@
 Needs a CUDA device: every test takes the ``cuda`` fixture, which skips
 where there is none (decided when the test runs, never at import). On the
 card: ``python -m pytest -m gpu tests/test_torch_gpu.py``. Bits, masks,
-indices and the FAST score must be exactly equal; filter and resize
-outputs agree to 1e-6 absolute (FMA contraction) for images in [0, 1].
+indices, leaf ids and the FAST score must be exactly equal; filter and
+resize outputs agree to 1e-6 absolute (FMA contraction) for images in
+[0, 1]; other tolerances are stated in each test.
 """
 
 import numpy as np
@@ -452,3 +453,91 @@ def test_lba_kernels(cuda):
     assert rel(res.cost1, resp.cost1) <= 1e-3
     assert float((res.obs_pt_inlier == resp.obs_pt_inlier).float().mean()
                  ) >= 0.995
+
+
+def test_lines_sobel_u8_wrap(cuda):
+    """Kernel E launch 1 on a uint8 image held as f32 (an unscaled first
+    frame): the y difference wraps modulo 256 exactly as the plain
+    version's, in both modes."""
+    x = torch.from_numpy(np.random.default_rng(7).integers(
+        0, 256, (2, 90, 130)).astype(np.float32))
+    got = _launched("lines_sobel", lambda: image.sobel_gradients(
+        x.to(cuda), u8_wrap=True))
+    for g, r in zip(got, image.sobel_gradients_plain(x, u8_wrap=True)):
+        assert torch.equal(g.cpu(), r)
+    got = _launched("lines_sobel", lambda: lines.gradient_planes(
+        x.to(cuda), 0.02, u8_wrap=True))
+    for g, r in zip(got, lines.gradient_planes_plain(x.to(cuda), 0.02,
+                                                     u8_wrap=True)):
+        assert torch.equal(g, r)
+
+
+def test_bow_kernels(cuda):
+    """Kernel L (K17) on the shipped vocabularies: leaf ids exactly the
+    plain version's, the BoW vector within 1e-6 of its largest entry."""
+    from plslam_tpu_torch.loop import vocabulary as voc
+    for kind, n in (("orb", 1024), ("lbd", 128)):
+        vc = voc.default_vocabulary(kind, 10, 4, "cpu")
+        vg = voc.default_vocabulary(kind, 10, 4, cuda)
+        g = torch.Generator().manual_seed(n)
+        bits = torch.randint(0, 2, (n, 256), generator=g, dtype=torch.uint8)
+        # descriptors near centroids too: ties and deep descents
+        bits[: n // 2] = voc.hamming.unpack_bits(
+            voc.level_words(vc, 3)[torch.randint(0, 10000, (n // 2,),
+                                                 generator=g)])
+        words = voc.hamming.pack_bits(bits)
+        valid = torch.rand((n,), generator=g) > 0.2
+        got = _launched("bow_descend", lambda: voc.transform_leaves(
+            vg, words.to(cuda)))
+        assert torch.equal(got.cpu(), voc.transform_leaves_plain(vc, words))
+        v = _launched("bow_hist", lambda: voc.bow_vector(vg, words.to(cuda),
+                                                         valid.to(cuda)))
+        ref = voc.bow_vector(vc, words, valid)
+        assert float((v.cpu() - ref).abs().max() / ref.abs().max()) <= 1e-6
+        assert abs(float(v.abs().sum()) - 1.0) <= 1e-5
+
+
+@pytest.mark.parametrize("F,n,extra", [(64, 40, 60), (512, 400, 1600)])
+def test_pose_graph_kernels(cuda, F, n, extra):
+    """Kernel M (K18), launch by launch and both solvers, against the
+    plain version on the card: residuals and Jacobians within 1e-5 of the
+    largest (f32 log/exp in another operation order), the dense system,
+    gradient and PCG step within 1e-4, the poses of a whole solve within
+    1e-3 of their largest translation and the cost lowered."""
+    from plslam_tpu_torch import convert
+    from plslam_tpu_torch.io import synthetic
+    from plslam_tpu_torch.loop import pose_graph as pg
+    gd = convert.pose_graph_from_numpy(
+        synthetic.drift_circle_graph(F, n, extra, seed=F)[0], cuda)
+    rel = lambda a, b: float((a - b).abs().max()
+                             / b.abs().max().clamp(min=1e-30))
+    r, J, c = _launched("pg_edges", lambda: pg.edges(gd))
+    rp, Jp, cp = pg.edges_plain(gd)
+    assert rel(r, rp) <= 1e-5 and rel(J, Jp) <= 1e-6 and rel(c, cp) <= 1e-5
+    freeze = torch.zeros(F, dtype=torch.bool, device=cuda)
+    diag = pg._diag(gd, freeze, True)
+    inc = pg._incidence(gd)
+    if F <= 128:
+        H, gv = _launched("pg_assemble", lambda: pg.assemble(gd, rp, Jp, diag,
+                                                             inc))
+        Hp, gvp = pg.assemble_plain(gd, rp, Jp, diag)
+        assert rel(H - torch.diag(torch.diag(H)), Hp - torch.diag(
+            torch.diag(Hp))) <= 1e-5 and rel(gv, gvp) <= 1e-5
+    gv, Hd = _launched("pg_blocks", lambda: pg.blocks(gd, rp, Jp, diag, inc))
+    gvp, Hdp = pg.blocks_plain(gd, rp, Jp, diag)
+    assert rel(gv, gvp) <= 1e-5 and rel(Hd, Hdp) <= 1e-5
+    Minv = torch.linalg.inv_ex(Hdp)[0]
+    dx = _launched("pg_pcg", lambda: pg.pcg(gd, Jp, Minv, diag, gvp, 96, inc))
+    assert rel(dx, pg.pcg_plain(gd, Jp, Minv, diag, gvp, 96)) <= 1e-3
+    P, c1 = _launched("pg_update", lambda: pg.update(gd, cp, dx, 1.0))
+    Pp, c1p = pg.update_plain(gd, cp, dx, 1.0)
+    assert rel(P, Pp) <= 1e-5 and rel(c1, c1p) <= 1e-5
+    for solve in ((pg._optimize_pcg, pg._optimize_dense) if F <= 128
+                  else ()):
+        got = solve(gd, freeze, 12)
+        want = solve(gd._replace(poses=gd.poses.cpu(), **{
+            f: getattr(gd, f).cpu() for f in pg.PoseGraph._fields[1:]}),
+                     freeze.cpu(), 12)
+        assert float(got[2]) < 0.5 * float(got[1])
+        t_scale = float(want[0][:, :3, 3].abs().max())
+        assert float((got[0].cpu() - want[0]).abs().max()) <= 1e-3 * t_scale

@@ -43,6 +43,47 @@ def test_no_jax_or_reference_imports(path):
     assert not bad, f"{path} imports {bad}"
 
 
+_READERS = {"open", "load", "loadtxt", "fromfile", "join", "Path", "exists",
+            "isfile", "isdir", "listdir", "scandir", "walk", "glob", "stat",
+            "read_text", "read_bytes", "load_vocabulary"}
+
+
+def _reads_reference_path(path):
+    """String constants under plslam_tpu/ in the arguments of calls that
+    open, list or join file paths."""
+    tree = ast.parse(open(path).read(), path)
+    for node in ast.walk(tree):
+        if not isinstance(node, ast.Call):
+            continue
+        f = node.func
+        name = f.attr if isinstance(f, ast.Attribute) else getattr(f, "id", "")
+        if name not in _READERS:
+            continue
+        for arg in list(node.args) + [k.value for k in node.keywords]:
+            for c in ast.walk(arg):
+                if isinstance(c, ast.Constant) and isinstance(c.value, str):
+                    v = c.value.replace("\\", "/")
+                    if (v.strip("/") == "plslam_tpu"
+                            or v.startswith("plslam_tpu/")
+                            or "/plslam_tpu/" in v):
+                        yield v
+
+
+@pytest.mark.parametrize("path", _port_files(),
+                         ids=lambda p: os.path.relpath(p, ROOT))
+def test_no_reads_under_the_reference_package(path):
+    bad = sorted(set(_reads_reference_path(path)))
+    assert not bad, f"{path} reads {bad}"
+
+
+def test_vocabularies_are_the_ports_own():
+    from plslam_tpu_torch.loop import vocabulary
+    for kind in ("orb", "lbd"):
+        p = os.path.realpath(vocabulary.default_path(kind, 10, 4))
+        assert p.startswith(os.path.join(PKG, "data") + os.sep), p
+        assert os.path.exists(p)
+
+
 def test_import_leaves_jax_out():
     mods = [m.name for m in pkgutil.walk_packages([PKG], "plslam_tpu_torch.")]
     code = ("import importlib, sys\n"

@@ -1,0 +1,468 @@
+"""Port parity of the loop closer's parts: vocabulary (K17), database,
+covisibility, the per-KF probe, verification, landmark fusion and the
+graph correction.
+
+The same numpy inputs, made from a seed, go through the jitted JAX
+function and the port's plain version (CPU tensors). Tolerances, each
+stated where it is held:
+  * the vocabulary artifacts: byte-identical copies;
+  * leaf ids, candidates, votes, the funnel counters, covisibility counts
+    and every integer field of the fused map: exactly equal;
+  * BoW vectors and scores: 1e-6 absolute (f32 sums of 10,000 leaves in
+    another order, ~1e-7 relative); the smallest |rel - lc_mat| and the
+    smallest gap between ranked candidates are printed, so that a flip
+    could be told from a fault;
+  * idf of a built vocabulary: 1e-6; its centroids identical;
+  * verification: equal ``good`` and inliers, T_ab within 1e-5 on the
+    well-conditioned pair, the floored uncertainty on the same side of
+    lc_unc (the degenerate pair's T is free along its weak axis);
+  * the graph correction: 1e-6 absolute (poses and points of unit scale).
+"""
+
+import dataclasses
+import filecmp
+from functools import partial
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+from plslam_tpu.backend import map as jmap
+from plslam_tpu.config import SlamConfig
+from plslam_tpu.core import lie as jlie
+from plslam_tpu.loop import database as jdb
+from plslam_tpu.loop import loop_closer as jlc
+from plslam_tpu.loop import vocabulary as jvoc
+from plslam_tpu.ops import hamming as jham
+from plslam_tpu_torch import convert
+from plslam_tpu_torch.backend import map as tmap
+from plslam_tpu_torch.loop import database as tdb
+from plslam_tpu_torch.loop import loop_closer as tlc
+from plslam_tpu_torch.loop import vocabulary as tvoc
+
+CFG = SlamConfig().with_updates({
+    "points": {"max_kpts": 128}, "lines": {"max_lines": 32},
+    "mapping": {"max_kfs": 16, "max_points": 512, "max_lines": 64}})
+TCFG = convert.config_from_dict(dataclasses.asdict(CFG))
+
+
+@pytest.fixture(scope="module")
+def vocs():
+    """(reference, port) default vocabularies of both families."""
+    out = {}
+    for kind in ("orb", "lbd"):
+        out[kind] = (jvoc.default_vocabulary(kind, 10, 4),
+                     tvoc.default_vocabulary(kind, 10, 4, "cpu"))
+    return out
+
+
+def test_vocabulary_artifacts_are_byte_copies(vocs):
+    for kind in ("orb", "lbd"):
+        ref_path = jvoc._DEFAULT_PATH.replace(
+            ".npz", f"_{kind}_10_4_v{jvoc._VOCAB_VERSION}.npz")
+        assert filecmp.cmp(ref_path, tvoc.default_path(kind, 10, 4),
+                           shallow=False)
+        j, t = vocs[kind]
+        np.testing.assert_array_equal(t.idf.numpy(), np.asarray(j.idf))
+        for cj, ct in zip(j.centroids, tvoc.level_bits(t)):
+            np.testing.assert_array_equal(ct, np.asarray(cj))
+
+
+def _descriptors(voc_j, n, seed):
+    """Random descriptors, half of them leaf centroids with a few bits
+    flipped (deep descents, near-ties at every level)."""
+    rng = np.random.default_rng(seed)
+    d = rng.integers(0, 2, (n, 256)).astype(np.uint8)
+    leaves = np.asarray(voc_j.centroids[-1])
+    pick = leaves[rng.integers(0, len(leaves), n // 2)].copy()
+    for row in pick:
+        row[rng.choice(256, 3, replace=False)] ^= 1
+    d[: n // 2] = pick
+    return d
+
+
+@pytest.mark.parametrize("kind,n", [("orb", 1024), ("lbd", 128)])
+def test_transform_leaves_exact(vocs, kind, n):
+    j, t = vocs[kind]
+    d = _descriptors(j, n, seed=n)
+    want = np.asarray(jvoc.transform_leaves(j, jnp.asarray(d)))
+    for x in (torch.from_numpy(d), tvoc.hamming.pack_bits(torch.from_numpy(d))):
+        np.testing.assert_array_equal(tvoc.transform_leaves(t, x).numpy(),
+                                      want)
+
+
+def test_transform_leaves_exact_on_a_keyframe(vocs):
+    """The descriptors of a real frame (the port's front end on a
+    synthetic scene) descend to the same leaves."""
+    from plslam_tpu.core.camera import StereoCamera
+    from plslam_tpu.io import synthetic
+    from plslam_tpu_torch.frontend.stereo_lines import (
+        detect_and_describe_lines)
+    from plslam_tpu_torch.tracking.batch_vo import extract_one
+    cfg = SlamConfig().with_updates({
+        "camera": {"width": 320, "height": 240, "fx": 260.0, "fy": 260.0,
+                   "cx": 160.0, "cy": 120.0, "baseline": 0.3},
+        "points": {"max_kpts": 256, "orb_nlevels": 2},
+        "lines": {"max_lines": 32}})
+    cam = StereoCamera.from_config(cfg.camera)
+    seq = synthetic.make_sequence(cam, n_frames=1, seed=4, n_points=300,
+                                  n_lines=40)
+    tcfg = convert.config_from_dict(dataclasses.asdict(cfg))
+    tcam = convert.camera_from_numpy(cam.fx, cam.fy, cam.cx, cam.cy, cam.b,
+                                     cam.width, cam.height)
+    pts, _ = extract_one(torch.from_numpy(seq.images_l[0]),
+                         torch.from_numpy(seq.images_r[0]), tcam, tcfg)
+    segs, ldesc = detect_and_describe_lines(
+        torch.from_numpy(np.asarray(seq.images_l[:1])), tcfg)
+    for kind, desc, valid in (("orb", pts.desc, pts.valid),
+                              ("lbd", ldesc[0], segs.valid[0])):
+        j, t = vocs[kind]
+        d = desc.numpy()[valid.numpy()]
+        assert len(d) >= 20
+        np.testing.assert_array_equal(
+            tvoc.transform_leaves(t, torch.from_numpy(d)).numpy(),
+            np.asarray(jvoc.transform_leaves(j, jnp.asarray(d))))
+
+
+def test_bow_vector_and_l1_score(vocs):
+    rng = np.random.default_rng(3)
+    for kind, n in (("orb", 1024), ("lbd", 128)):
+        j, t = vocs[kind]
+        ds = [_descriptors(j, n, seed=s) for s in range(3)]
+        valid = rng.random((3, n)) > 0.2
+        vj = [np.asarray(jvoc.bow_vector(j, jnp.asarray(d), jnp.asarray(v)))
+              for d, v in zip(ds, valid)]
+        vt = [tvoc.bow_vector(t, torch.from_numpy(d), torch.from_numpy(v))
+              for d, v in zip(ds, valid)]
+        for a, b in zip(vt, vj):
+            np.testing.assert_allclose(a.numpy(), b, rtol=0, atol=1e-6)
+        sj = np.asarray(jvoc.l1_score(jnp.asarray(np.stack(vj)),
+                                      jnp.asarray(vj[0])[None]))
+        st = tvoc.l1_score(torch.stack(vt), vt[0][None]).numpy()
+        np.testing.assert_allclose(st, sj, rtol=0, atol=1e-6)
+
+
+def test_build_vocabulary_matches_reference(tmp_path):
+    rng = np.random.default_rng(0)
+    centers = rng.integers(0, 2, (8, 256)).astype(np.uint8)
+    descs = []
+    for c in centers:
+        for _ in range(40):
+            d = c.copy()
+            d[rng.choice(256, size=8, replace=False)] ^= 1
+            descs.append(d)
+    descs = np.stack(descs)
+    j = jvoc.build_vocabulary(descs, k=4, levels=3, seed=0)
+    t = tvoc.build_vocabulary(descs, k=4, levels=3, seed=0, device="cpu")
+    for cj, ct in zip(j.centroids, tvoc.level_bits(t)):
+        np.testing.assert_array_equal(ct, np.asarray(cj))
+    np.testing.assert_allclose(t.idf.numpy(), np.asarray(j.idf), rtol=0,
+                               atol=1e-6)
+    assert t.origin == j.origin
+    # one npz format: the port's file loads on the reference's side
+    p = str(tmp_path / "voc.npz")
+    tvoc.save_vocabulary(t, p)
+    j2 = jvoc.load_vocabulary(p)
+    np.testing.assert_array_equal(
+        np.asarray(jvoc.transform_leaves(j2, jnp.asarray(descs))),
+        tvoc.transform_leaves(t, torch.from_numpy(descs)).numpy())
+    t2 = tvoc.load_vocabulary(p, "cpu")
+    assert torch.equal(t2.flat, t.flat) and torch.equal(t2.idf, t.idf)
+    # the reference's Vocabulary carried across as data
+    t3 = convert.vocabulary_from_numpy([np.asarray(c) for c in j.centroids],
+                                       np.asarray(j.idf), j.k, "cpu")
+    assert torch.equal(t3.flat, t.flat)
+    np.testing.assert_array_equal(t3.idf.numpy(), np.asarray(j.idf))
+
+
+def _score_sequence(seed, F=40):
+    """Recorded-like probe scores: a drifting self-similarity with a
+    revisit of the first keyframes from slot 28 on."""
+    rng = np.random.default_rng(seed)
+    seqs = []
+    for slot in range(F):
+        s = rng.uniform(0.0, 0.08, F).astype(np.float32)
+        s[max(slot - 3, 0):slot] = rng.uniform(0.1, 0.25)
+        if slot >= 28:
+            s[(slot - 28) % 6: (slot - 28) % 6 + 3] = rng.uniform(0.05, 0.3)
+        seqs.append(s)
+    return seqs
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_candidates_votes_and_gates_match_reference(seed):
+    """select_candidates, the consistency voter, the cooldown and
+    min_kf_separation gates and the funnel counters, driven through both
+    closers' ``_handle_probe_result`` on the same score sequence (the
+    verification replaced on both sides by a recorder that closes)."""
+    cfg = CFG.with_updates({"mapping": {"max_kfs": 40},
+                            "loop": {"min_kf_separation": 12,
+                                     "consistency_window": 2,
+                                     "lc_cooldown": 5}})
+    tcfg = convert.config_from_dict(dataclasses.asdict(cfg))
+    closers = {"ref": jlc.LoopCloser(cfg, None),
+               "port": tlc.LoopCloser(tcfg, None, "cpu")}
+    fired = {k: [] for k in closers}
+    for name, lc in closers.items():
+        def close(mh, a, b, poses, lc=lc, name=name):
+            fired[name].append((a, b))
+            lc.probes_since_close = 0
+            return None
+        lc._close_loop = close
+    seqs = _score_sequence(seed)
+    F = cfg.mapping.max_kfs
+    poses = np.tile(np.eye(4, dtype=np.float32), (F, 1, 1))
+    rng = np.random.default_rng(seed)
+    margin, gap = np.inf, np.inf
+    for slot, s in enumerate(seqs[:F]):
+        covis = rng.integers(0, 40, F).astype(np.float32)
+        for name, lc in closers.items():
+            lc._handle_probe_result(None, slot, s[:F].copy(), covis, slot + 1,
+                                    poses)
+        cands, base = jdb.select_candidates(
+            np.where(np.arange(F) < slot, s[:F], 0.0), slot, cfg)
+        tc, tb = tdb.select_candidates(
+            np.where(np.arange(F) < slot, s[:F], 0.0), slot, tcfg)
+        assert [tuple(c) for c in tc] == [tuple(c) for c in cands]
+        assert tb == base
+        rel = np.where(np.arange(F) < max(slot - 12, 0), s[:F], 0.0) / base
+        margin = min(margin, float(np.abs(rel[rel > 0] - 0.3).min())
+                     if (rel > 0).any() else np.inf)
+        top = np.sort(rel)[::-1][:5]
+        if len(top) > 1:
+            gap = min(gap, float(np.min(np.abs(np.diff(top)))))
+    counters = lambda lc: (lc.n_candidates, lc.n_votes_fired, len(
+        lc.odo_edges), len(lc.covis_edges), lc.probes_since_close)
+    print(f"funnel {counters(closers['port'])}, closures {fired['port']}, "
+          f"smallest |rel - lc_mat| {margin:.3g}, smallest ranked gap "
+          f"{gap:.3g}")
+    assert fired["port"] == fired["ref"]
+    assert counters(closers["port"]) == counters(closers["ref"])
+    assert closers["ref"].n_votes_fired >= 1
+    for (a, b) in zip(closers["port"].covis_edges, closers["ref"].covis_edges):
+        assert a[:2] == b[:2] and a[3:] == b[3:]
+
+
+def test_covisibility_counts():
+    """Twin of tests/test_loop.py::test_covisibility_counts."""
+    F, K, P = 6, 8, 32
+    obs = np.full((F, K), -1, np.int32)
+    obs[0, :4] = [1, 2, 3, 4]
+    obs[1, :4] = [3, 4, 5, 6]
+    obs[2, :2] = [1, 9]
+    obs[3, :3] = [20, 21, 22]
+    obs[4, :4] = [3, 3, 3, 7]          # duplicate ids count once
+    for slot in (0, 4):
+        want = np.asarray(jlc.covisibility_counts(jnp.asarray(obs),
+                                                  jnp.asarray(slot), P))
+        got = tlc.covisibility_counts(torch.from_numpy(obs), slot, P)
+        np.testing.assert_array_equal(got.numpy(), want)
+    assert list(got.numpy()[:2]) == [1, 1]
+
+
+def _random_state(seed, cfg=CFG, n_kfs=10):
+    """A reference MapState with random observation tables, descriptors,
+    landmarks and poses (numpy dict, uint32 descriptor words)."""
+    rng = np.random.default_rng(seed)
+    st = {f: np.array(x) for f, x in jmap.init_map_state(cfg)
+          ._asdict().items()}
+    F, K = st["obs_pt_lm"].shape
+    L = st["obs_ln_lm"].shape[1]
+    P, M = st["pt_pos"].shape[0], st["ln_spos"].shape[0]
+    st["n_kfs"] = np.asarray(n_kfs, np.int32)
+    st["kf_valid"][:n_kfs] = True
+    xi = rng.normal(size=(F, 6)).astype(np.float32) * [1, 1, 1, 0.2, 0.2,
+                                                        0.2]
+    st["kf_pose"] = np.asarray(jlie.exp_se3(jnp.asarray(xi.astype(
+        np.float32))))
+    st["kf_pt_desc"] = rng.integers(0, 2 ** 32, (F, K, 8), dtype=np.uint64
+                                    ).astype(np.uint32)
+    st["kf_ln_desc"] = rng.integers(0, 2 ** 32, (F, L, 8), dtype=np.uint64
+                                    ).astype(np.uint32)
+    st["obs_pt_disp"] = np.where(rng.random((F, K)) > 0.2,
+                                 rng.uniform(1, 30, (F, K)), 0.0
+                                 ).astype(np.float32)
+    st["obs_pt_lm"] = np.where(rng.random((F, K)) > 0.3,
+                               rng.integers(0, P, (F, K)), -1).astype(np.int32)
+    st["obs_ln_lm"] = np.where(rng.random((F, L)) > 0.3,
+                               rng.integers(0, M, (F, L)), -1).astype(np.int32)
+    st["pt_pos"] = rng.normal(0, 3, (P, 3)).astype(np.float32)
+    st["pt_valid"] = rng.random(P) > 0.1
+    st["pt_nobs"] = rng.integers(1, 6, P).astype(np.int32)
+    st["pt_first_kf"] = np.where(rng.random(P) > 0.2,
+                                 rng.integers(0, n_kfs, P), -1).astype(np.int32)
+    st["pt_dir"] = rng.normal(size=(P, 3)).astype(np.float32)
+    for f in ("ln_spos", "ln_epos"):
+        st[f] = rng.normal(0, 3, (M, 3)).astype(np.float32)
+    st["ln_dir"] = rng.normal(size=(M, 3)).astype(np.float32)
+    st["ln_valid"] = rng.random(M) > 0.1
+    st["ln_nobs"] = rng.integers(1, 6, M).astype(np.int32)
+    st["ln_first_kf"] = np.where(rng.random(M) > 0.2,
+                                 rng.integers(0, n_kfs, M), -1).astype(np.int32)
+    return st
+
+
+def _jstate(st):
+    return jmap.MapState(**{f: jnp.asarray(x) for f, x in st.items()})
+
+
+def test_probe_core_matches_reference(vocs):
+    """probe_core on a MapState carried across: the BoW rows written, the
+    fused scores (points and lines), covisibility and the pose."""
+    st = _random_state(1)
+    F = CFG.mapping.max_kfs
+    (jp, tp), (jl, tl) = vocs["orb"], vocs["lbd"]
+    rng = np.random.default_rng(2)
+    bp = rng.random((F, 10000)).astype(np.float32) * 1e-3
+    bl = rng.random((F, 10000)).astype(np.float32) * 1e-3
+    ref = jax.jit(partial(jlc.probe_core, jp, jl, CFG, True))
+    ts = convert.map_state_from_numpy(st, "cpu")
+    tbp, tbl = torch.from_numpy(bp.copy()), torch.from_numpy(bl.copy())
+    for slot in (0, 7, 9):
+        want = ref(_jstate(st), jnp.asarray(bp), jnp.asarray(bl),
+                   jnp.asarray(slot))
+        bp, bl = np.asarray(want[0]), np.asarray(want[1])
+        got = tlc.probe_core(tp, tl, TCFG, True, ts, tbp, tbl, slot)
+        assert got[0] is tbp and got[1] is tbl          # written in place
+        np.testing.assert_allclose(tbp.numpy(), bp, rtol=0, atol=1e-6)
+        np.testing.assert_allclose(tbl.numpy(), bl, rtol=0, atol=1e-6)
+        np.testing.assert_allclose(got[2].numpy(), np.asarray(want[2]),
+                                   rtol=0, atol=1e-6)
+        np.testing.assert_array_equal(got[3].numpy(), np.asarray(want[3]))
+        np.testing.assert_array_equal(got[4].numpy(), np.asarray(want[4]))
+
+
+def test_verify_loop_geometry_matches_reference():
+    """Twin of tests/test_loop.py::
+    test_lc_unc_gate_rejects_degenerate_geometry: a well-conditioned and
+    a degenerate pair through both verifications."""
+    from plslam_tpu.core.camera import StereoCamera
+    cfg = SlamConfig().with_updates({
+        "lines": {"has_lines": False}, "tracking": {"min_features": 8}})
+    tcfg = convert.config_from_dict(dataclasses.asdict(cfg))
+    cam = StereoCamera.from_config(cfg.camera)
+    tcam = convert.camera_from_numpy(cam.fx, cam.fy, cam.cx, cam.cy, cam.b,
+                                     cam.width, cam.height)
+    rng = np.random.default_rng(5)
+    K, L = cfg.points.max_kpts, cfg.lines.max_lines
+    T_ab = np.asarray(jlie.exp_se3(jnp.asarray(
+        [0.05, -0.02, 0.08, 0.004, 0.01, -0.006])), np.float32)
+
+    def proj(Q):
+        return np.stack([float(cam.fx) * Q[:, 0] / Q[:, 2] + float(cam.cx),
+                         float(cam.fy) * Q[:, 1] / Q[:, 2] + float(cam.cy)],
+                        -1).astype(np.float32)
+
+    n = 60
+    P_good = np.stack([rng.uniform(-6, 6, n), rng.uniform(-2, 2, n),
+                       rng.uniform(6, 18, n)], -1).astype(np.float32)
+    P_bad = np.stack([150.0 + rng.uniform(-0.15, 0.15, n),
+                      rng.uniform(-0.15, 0.15, n),
+                      180.0 + rng.uniform(-0.5, 0.5, n)], -1).astype(np.float32)
+    sides = []
+    for P in (P_good, P_bad):
+        uv_a, uv_b = np.zeros((K, 2), np.float32), np.zeros((K, 2), np.float32)
+        disp_a = np.zeros((K,), np.float32)
+        uv_a[:n] = proj(P)
+        uv_b[:n] = proj(P @ T_ab[:3, :3].T + T_ab[:3, 3])
+        disp_a[:n] = float(cam.fx * cam.b) / P[:, 2]
+        desc = np.zeros((K, 256), np.uint8)
+        desc[:n] = rng.integers(0, 2, (n, 256))
+        packed = np.asarray(jham.pack_bits(jnp.asarray(desc)))
+        zl = np.zeros((L, 8), np.uint32)
+        ze, zq = np.zeros((L, 6), np.float32), np.zeros((L, 3), np.float32)
+        args = (packed, uv_a, disp_a, packed, uv_b, zl, ze, zl, ze, zq)
+        rj, nj = jlc.verify_loop_geometry(*map(jnp.asarray, args), cam, cfg)
+        rt, nt = tlc.verify_loop_geometry(
+            *(convert._tensor(a, torch.int32 if a.dtype == np.uint32
+                              else torch.float32, "cpu") for a in args),
+            tcam, tcfg)
+        assert bool(rt.good) == bool(rj.good)
+        assert int(rt.n_inliers) == int(rj.n_inliers) and int(nt) == int(nj)
+        dT = float(np.abs(rt.T.numpy() - np.asarray(rj.T)).max())
+        if not sides:       # the degenerate pair's T is free along its
+            assert dT <= 1e-5       # weak axis: only its gate side is held
+        uj = jlc.floored_uncertainty(rj.cov, int(rj.n_inliers),
+                                     float(rj.err), cfg)
+        ut = tlc.floored_uncertainty(rt.cov.numpy(), int(rt.n_inliers),
+                                     float(rt.err), tcfg)
+        print(f"n_inliers {int(rt.n_inliers)}, T_ab diff {dT:.3g}, "
+              f"uncertainty port {ut:.4g} "
+              f"reference {uj:.4g} (lc_unc {cfg.loop.lc_unc})")
+        assert (ut > cfg.loop.lc_unc) == (uj > cfg.loop.lc_unc)
+        sides.append(ut > cfg.loop.lc_unc)
+    assert sides == [False, True]
+
+
+def _fusion_case(seed):
+    """Two loop KFs whose landmarks are near-duplicates: KF b observes the
+    same descriptors as KF a (a few bits flipped, rows shuffled) on other
+    landmark slots that sit within 0.5 m, including a chain that makes one
+    slot the dup of two pairs: (5, 9) and (9, 7)."""
+    st = _random_state(seed, n_kfs=6)
+    rng = np.random.default_rng(seed)
+    K = st["obs_pt_lm"].shape[1]
+    a, b = 1, 4
+    bits = rng.integers(0, 2, (K, 256)).astype(np.uint8)
+    perm = rng.permutation(K)
+    bits_b = bits[perm].copy()
+    bits_b[:, :3] ^= 1
+    st["kf_pt_desc"][a] = np.asarray(jham.pack_bits(jnp.asarray(bits)))
+    st["kf_pt_desc"][b] = np.asarray(jham.pack_bits(jnp.asarray(bits_b)))
+    lm_a = rng.permutation(400)[:K].astype(np.int32) + 20
+    lm_b = rng.permutation(400)[:K].astype(np.int32) + 20
+    lm_a[perm[:2]] = [5, 9]            # b's rows 0, 1 match a's rows perm
+    lm_b[:2] = [9, 7]                  # -> pairs (5, 9) and (9, 7)
+    st["obs_pt_lm"][a], st["obs_pt_lm"][b] = lm_a, lm_b
+    st["pt_pos"][lm_b] = st["pt_pos"][lm_a[perm]] + 0.05
+    st["pt_pos"][[5, 7, 9]] = 0.0
+    # lines: the same construction, midpoints within 0.5 m
+    L = st["obs_ln_lm"].shape[1]
+    lb = rng.integers(0, 2, (L, 256)).astype(np.uint8)
+    lperm = rng.permutation(L)
+    st["kf_ln_desc"][a] = np.asarray(jham.pack_bits(jnp.asarray(lb)))
+    st["kf_ln_desc"][b] = np.asarray(jham.pack_bits(jnp.asarray(lb[lperm])))
+    la = rng.permutation(60)[:L].astype(np.int32)
+    lbb = rng.permutation(60)[:L].astype(np.int32)
+    st["obs_ln_lm"][a], st["obs_ln_lm"][b] = la, lbb
+    for f in ("ln_spos", "ln_epos"):
+        st[f][lbb] = st[f][la[lperm]] + 0.02
+    return st, a, b
+
+
+def test_fuse_loop_landmarks_matches_reference():
+    """Integer fields exactly equal, the duplicate-dup chain included: a
+    slot that is the dup of two fused pairs takes the keep of the last
+    pair in row order, as the reference's CPU scatter."""
+    for seed in (0, 1):
+        st, a, b = _fusion_case(seed)
+        js, nj = jmap.fuse_loop_landmarks(_jstate(st), jnp.asarray(a),
+                                          jnp.asarray(b), CFG)
+        ts, nt = tmap.fuse_loop_landmarks(
+            convert.map_state_from_numpy(st, "cpu"), a, b, TCFG)
+        assert int(nt) == int(nj) and int(nj) > 50
+        for f in ("obs_pt_lm", "pt_valid", "pt_nobs", "obs_ln_lm",
+                  "ln_valid", "ln_nobs"):
+            np.testing.assert_array_equal(getattr(ts, f).numpy(),
+                                          np.asarray(getattr(js, f)), f)
+        # the chain 9 -> 5 and 9 -> 7 resolved the reference's way
+        assert not bool(ts.pt_valid[9])
+        assert int((ts.obs_pt_lm == 9).sum()) == 0
+
+
+def test_apply_graph_correction_matches_reference():
+    st = _random_state(3)
+    F = CFG.mapping.max_kfs
+    rng = np.random.default_rng(4)
+    new = np.asarray(jlie.exp_se3(jnp.asarray(
+        (rng.normal(size=(F, 6)) * 0.05).astype(np.float32)))) @ st["kf_pose"]
+    js = jlc.apply_graph_correction(_jstate(st), jnp.asarray(new))
+    ts = tlc.apply_graph_correction(convert.map_state_from_numpy(st, "cpu"),
+                                    torch.from_numpy(new))
+    for f in ("kf_pose", "pt_pos", "pt_dir", "ln_spos", "ln_epos", "ln_dir"):
+        np.testing.assert_allclose(getattr(ts, f).numpy(),
+                                   np.asarray(getattr(js, f)), rtol=0,
+                                   atol=1e-5 if f.endswith("pos") else 1e-6,
+                                   err_msg=f)

@@ -114,3 +114,31 @@ def test_vo_chunk_with_lines_matches_reference(seq, ref_first):
     frac, bits, n = _line_agreement(_np(ref.last_lns),
                                     _torch_np(got.last_lns))
     assert n >= 8 and frac >= 0.95 and bits >= 0.99, (frac, bits, n)
+
+
+def test_uint8_initialize_and_chunk_match_reference(seq):
+    """One uint8 pair through both ``BatchedStereoVO.initialize`` (taken
+    unscaled, the line detector's Sobel wrapping as the reference's uint8
+    arithmetic does), then one uint8 chunk through both ``process_chunk``
+    (scaled to [0, 1]): keypoints, descriptors and ``valid`` of the first
+    frame identical, its lines as the float slice above, identical
+    ``good``, poses within 1e-3 m and 1e-3 rad."""
+    u8 = lambda a: np.clip(np.asarray(a) * 255.0 + 0.5, 0, 255).astype(
+        np.uint8)
+    il, ir = u8(seq.images_l), u8(seq.images_r)
+    ref = jvo.BatchedStereoVO(CFG, CAM)
+    port = tvo.BatchedStereoVO(TCFG, TCAM, device="cpu")
+    for vo in (ref, port):
+        vo.initialize(il[0], ir[0])
+    rp, tp = _np(ref.prev_pts), _torch_np(port.prev_pts)
+    for f in ("uv", "desc", "valid"):
+        np.testing.assert_array_equal(tp[f], rp[f], err_msg=f)
+    frac, bits, n = _line_agreement(_np(ref.prev_lns),
+                                    _torch_np(port.prev_lns))
+    assert n >= 8 and frac >= 0.95 and bits >= 0.99, (frac, bits, n)
+    want = ref.process_chunk(il[1:7], ir[1:7])
+    got = port.process_chunk(il[1:7], ir[1:7])
+    assert np.asarray(want.good).all()
+    np.testing.assert_array_equal(got.good.numpy(), np.asarray(want.good))
+    d = np.abs(np.stack(port.trajectory) - np.stack(ref.trajectory))
+    assert d[:, :3, 3].max() < 1e-3 and d[:, :3, :3].max() < 1e-3
