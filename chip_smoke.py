@@ -45,19 +45,31 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
      that run against the real vocabularies, D at the verification shapes,
      the covisibility gather (K7) and M (K18) launch by launch at Fb = 64
      and 512, the whole dense and PCG solves against float64;
-  6. one JSON line of the kernels (launches from the loop path's first run
-     that launched each), then the card line, then the result.
+  6. the dataset paths, from files written to a temporary directory: the
+     app (``apps/plstvo_dataset.py``) over bench.py's scene as a
+     KITTI-layout directory of PNGs (every row filter) at 1241x376,
+     chunked (B = 20; equal to the in-memory ``BatchedStereoVO`` on the
+     same uint8 frames) and per frame (within 5 mm of chunked); an
+     EuRoC-layout raw rig (752x480, radial-tangential, a rotated cam1)
+     into the per-frame ``StereoVO`` through the reader's host
+     rectification and through ``StereoRectifier`` (N, one launch a pair),
+     the two rectifications equal where every tap is inside; every frame
+     tracked, ATE bounds, exact launches; N at 752x480 and 1241x376
+     against its plain version (bit-equal) and ``F.grid_sample``;
+  7. one JSON line of the kernels (launches from the first path run that
+     launched each), then the card line, then the result.
 
-``python3 chip_smoke.py --cpu-ate [vo] [slam] [loops] [pcg]`` runs the
-paths' frames through the plain versions on the CPU: the calibration of the
-ATE, line-count, keyframe and loop bounds below (no part named: all;
-``pcg``: the PCG loop run alone).
+``python3 chip_smoke.py --cpu-ate [vo] [slam] [loops] [pcg] [dataset]``
+runs the paths' frames through the plain versions on the CPU: the
+calibration of the ATE, line-count, keyframe and loop bounds below (no
+part named: all; ``pcg``: the PCG loop run alone).
 
 Imports nothing of JAX and nothing of the JAX package.
 """
 
 from __future__ import annotations
 
+import functools
 import json
 import math
 import subprocess
@@ -543,8 +555,10 @@ def line_kernel_phase(images, cfg, record):
 CHUNK = 20
 
 
+@functools.lru_cache(maxsize=None)
 def main_scene(lines: bool):
-    """bench.py's scene at full KITTI width: the main paths."""
+    """bench.py's scene at full KITTI width: the main paths (rendered once
+    a process; the dataset phase writes it to disk)."""
     from plslam_tpu_torch.config import SlamConfig
     from plslam_tpu_torch.core.camera import StereoCamera
     from plslam_tpu_torch.io import synthetic
@@ -604,9 +618,11 @@ def run_counts(outs):
 def cpu_reference_ate(parts) -> None:
     """The main paths' scenes through the port's plain versions on the
     CPU: the calibration run of the ATE, line-count, keyframe and loop
-    bounds. ``parts``: any of vo, slam, loops, pcg (none: all)."""
+    bounds. ``parts``: any of vo, slam, loops, pcg, dataset (none: all)."""
     from plslam_tpu_torch.tracking.batch_vo import BatchedStereoVO
     from plslam_tpu_torch.utils.evaluation import ate_rmse
+    if not parts or "dataset" in parts:
+        cpu_dataset_runs()
     for lines in ((True, False) if not parts or "vo" in parts else ()):
         cfg, cam, seq = main_scene(lines)
         vo = BatchedStereoVO(cfg, cam, device="cpu")
@@ -1950,6 +1966,509 @@ def _plain_solve(pg, name, g, freeze):
         return pg._optimize_dense(g, freeze.to(g.poses.device), 12)
 
 
+# -- the dataset paths: the app over files on disk, the raw-rig rectifier -----
+
+def _png_chunk(kind: bytes, body: bytes) -> bytes:
+    import struct
+    import zlib
+    return (struct.pack(">I", len(body)) + kind + body
+            + struct.pack(">I", zlib.crc32(kind + body)))
+
+
+def write_png(path, samples, color=0, depth=8, palette=None, trns=None,
+              ftypes=(0, 1, 2, 3, 4)):
+    """Encode (H, W[, C]) integer samples as a PNG, row y with filter
+    ``ftypes[y % len(ftypes)]`` (None, Sub, Up, Average, Paeth), so a
+    reader has to undo all five."""
+    import struct
+    import zlib
+    s = np.asarray(samples)
+    H, W = s.shape[:2]
+    ch = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}[color]
+    s = s.reshape(H, W * ch)
+    if depth == 16:
+        raw = s.astype(">u2").view(np.uint8).reshape(H, -1)
+    elif depth == 8:
+        raw = s.astype(np.uint8)
+    else:
+        bits = (s[..., None] >> np.arange(depth - 1, -1, -1)) & 1
+        raw = np.packbits(bits.astype(np.uint8).reshape(H, -1), axis=1)
+    bpp = max(1, ch * depth // 8)
+    x = raw.astype(np.int32)
+    n = x.shape[1]
+    up = np.vstack([np.zeros((1, n), np.int32), x[:-1]])
+    left = np.hstack([np.zeros((H, bpp), np.int32), x[:, :-bpp]])
+    ul = np.hstack([np.zeros((H, bpp), np.int32), up[:, :-bpp]])
+    p = left + up - ul
+    pa, pb, pc = np.abs(p - left), np.abs(p - up), np.abs(p - ul)
+    paeth = np.where((pa <= pb) & (pa <= pc), left,
+                     np.where(pb <= pc, up, ul))
+    preds = [np.zeros_like(x), left, up, (left + up) >> 1, paeth]
+    f = np.array([ftypes[y % len(ftypes)] for y in range(H)])
+    pred = np.choose(f[:, None], preds)
+    rows = np.hstack([f[:, None], (x - pred) & 0xFF]).astype(np.uint8)
+    body = [_png_chunk(b"IHDR", struct.pack(">IIBBBBB", W, H, depth, color,
+                                            0, 0, 0))]
+    if palette is not None:
+        body.append(_png_chunk(b"PLTE", np.asarray(palette,
+                                                   np.uint8).tobytes()))
+    if trns is not None:
+        body.append(_png_chunk(b"tRNS", trns))
+    body.append(_png_chunk(b"IDAT", zlib.compress(rows.tobytes(), 1)))
+    body.append(_png_chunk(b"IEND", b""))
+    with open(path, "wb") as fh:
+        fh.write(b"\x89PNG\r\n\x1a\n" + b"".join(body))
+
+
+def to_u8(img):
+    """The app's 8-bit transport rule, clip(f * 255 + 0.5)."""
+    return np.clip(img * 255.0 + 0.5, 0, 255).astype(np.uint8)
+
+
+def write_kitti(root, seq):
+    """bench.py's scene as a KITTI odometry directory: 8-bit PNG
+    image_0/ and image_1/, poses.txt."""
+    import os
+    for d, ims in (("image_0", seq.images_l), ("image_1", seq.images_r)):
+        os.makedirs(os.path.join(root, d))
+        for i, im in enumerate(ims):
+            write_png(os.path.join(root, d, f"{i:06d}.png"), to_u8(im))
+    n = len(seq.poses)
+    np.savetxt(os.path.join(root, "poses.txt"),
+               seq.poses[:, :3, :].reshape(n, 12))
+
+
+# An EuRoC-shaped raw rig (EuRoC MAV's published cam0/cam1 sensor.yaml
+# values, rounded): 752x480, radial-tangential distortion, about 1 deg of
+# relative rotation and a 0.11 m baseline, cam0's body-to-camera T_BS.
+EUROC_W, EUROC_H = 752, 480
+EUROC_K = (np.array([[458.654, 0, 367.215], [0, 457.296, 248.375],
+                     [0, 0, 1.0]]),
+           np.array([[457.587, 0, 379.999], [0, 456.134, 255.238],
+                     [0, 0, 1.0]]))
+EUROC_D = ((-0.28340811, 0.07395907, 0.00019359, 1.76187114e-05),
+           (-0.28368365, 0.07451284, -0.00010473, -3.55590700e-05))
+EUROC_T_BS0 = np.array([[0.0148655429818, -0.999880929698, 0.00414029679422,
+                         -0.0216401454975],
+                        [0.999557249008, 0.0149672133247, 0.025715529948,
+                         -0.064676986768],
+                        [-0.0257744366974, 0.00375618835797, 0.999660727178,
+                         0.00981073058949],
+                        [0.0, 0.0, 0.0, 1.0]])
+EUROC_FRAMES = 21                       # 1 + 20
+WIDE = (1080, 760)                      # the pinhole render, W x H
+
+
+def _rot(rx, ry, rz):
+    cx, sx, cy, sy = np.cos(rx), np.sin(rx), np.cos(ry), np.sin(ry)
+    cz, sz = np.cos(rz), np.sin(rz)
+    return (np.array([[cz, -sz, 0], [sz, cz, 0], [0, 0, 1]])
+            @ np.array([[cy, 0, sy], [0, 1, 0], [-sy, 0, cy]])
+            @ np.array([[1, 0, 0], [0, cx, -sx], [0, sx, cx]]))
+
+
+def euroc_rig():
+    """T_10 (x_c1 = T_10 x_c0): 1.0 deg of rotation, 0.11 m baseline."""
+    T_10 = np.eye(4)
+    T_10[:3, :3] = _rot(0.01, -0.012, 0.008)
+    T_10[:3, 3] = T_10[:3, :3] @ np.array([-0.11, 0.0, 0.0])
+    return T_10
+
+
+def _undistort_map(K, d):
+    """For every raw pixel, the pinhole (undistorted) normalized point
+    that the radial-tangential model sends there: fixed-point iteration
+    x_u = (x_d - tangential(x_u)) / radial(x_u)."""
+    k1, k2, p1, p2 = d
+    vs, us = np.mgrid[0:EUROC_H, 0:EUROC_W].astype(np.float64)
+    xd = (us - K[0, 2]) / K[0, 0]
+    yd = (vs - K[1, 2]) / K[1, 1]
+    x, y = xd.copy(), yd.copy()
+    for _ in range(40):
+        r2 = x * x + y * y
+        rad = 1 + k1 * r2 + k2 * r2 * r2
+        x = (xd - (2 * p1 * x * y + p2 * (r2 + 2 * x * x))) / rad
+        y = (yd - (p1 * (r2 + 2 * y * y) + 2 * p2 * x * y)) / rad
+    return x, y
+
+
+def _bilinear(img, u, v):
+    """Host bilinear sample with clamped coordinates (for rendering)."""
+    H, W = img.shape
+    u = np.clip(u, 0, W - 1.0001)
+    v = np.clip(v, 0, H - 1.0001)
+    x0, y0 = u.astype(np.int64), v.astype(np.int64)
+    fx, fy = u - x0, v - y0
+    return ((img[y0, x0] * (1 - fx) + img[y0, x0 + 1] * fx) * (1 - fy)
+            + (img[y0 + 1, x0] * (1 - fx) + img[y0 + 1, x0 + 1] * fx) * fy)
+
+
+def write_euroc(root, seed=11):
+    """A raw-rig EuRoC ASL directory: 1 + 20 frames of a forward flight
+    through bench.py's kind of world, each eye rendered as a wide pinhole
+    image and warped to the distorted raw image; sensor.yaml (with
+    EuRoC's own ``%YAML:1.0`` header) and the ground truth in
+    state_groundtruth_estimate0/data.csv."""
+    import os
+    from plslam_tpu_torch.io import synthetic
+    rng = np.random.default_rng(seed)
+    world = synthetic.make_world(rng, n_points=500, n_lines=60,
+                                 depth=(2.5, 14.0), extent=7.0)
+    poses = synthetic.make_trajectory(EUROC_FRAMES, kind="forward",
+                                      step=0.1, rng=rng)
+    T_10 = euroc_rig()
+    mav = os.path.join(root, "mav0")
+    fw = float(EUROC_K[0][0, 0])
+
+    class Wide:
+        fx = fy = fw
+        cx, cy = WIDE[0] / 2.0, WIDE[1] / 2.0
+        b = 0.0
+        width, height = WIDE
+
+    eyes = []
+    for c, (K, d, T_rel) in enumerate(zip(EUROC_K, EUROC_D,
+                                          (np.eye(4), T_10))):
+        cam = f"cam{c}"
+        os.makedirs(os.path.join(mav, cam, "data"))
+        T_BS = EUROC_T_BS0 @ np.linalg.inv(T_rel)
+        with open(os.path.join(mav, cam, "sensor.yaml"), "w") as f:
+            f.write("%YAML:1.0\n# General sensor definitions.\n"
+                    f"sensor_type: camera\ncomment: raw rig {cam}\n\n"
+                    "# Sensor extrinsics wrt. the body-frame.\nT_BS:\n"
+                    "  cols: 4\n  rows: 4\n  data: ["
+                    + ",\n         ".join(
+                        ", ".join(repr(float(v)) for v in row)
+                        for row in T_BS) + "]\n\n"
+                    f"rate_hz: 20\nresolution: [{EUROC_W}, {EUROC_H}]\n"
+                    "camera_model: pinhole\nintrinsics: ["
+                    f"{K[0, 0]}, {K[1, 1]}, {K[0, 2]}, {K[1, 2]}] "
+                    "#fu, fv, cu, cv\ndistortion_model: radial-tangential\n"
+                    f"distortion_coefficients: {list(d)}\n")
+        xu, yu = _undistort_map(K, d)
+        eyes.append((cam, T_rel, fw * xu + Wide.cx, fw * yu + Wide.cy))
+    rows = ["#timestamp,px,py,pz,qw,qx,qy,qz"]
+    for i, T_wc0 in enumerate(poses):
+        ns = 1403636579763555584 + i * 50000000
+        for cam, T_rel, uw, vw in eyes:
+            wide, _ = synthetic.render_frame(
+                world, T_wc0 @ np.linalg.inv(T_rel), Wide, rng, noise=0.003)
+            write_png(os.path.join(mav, cam, "data", f"{ns}.png"),
+                      to_u8(_bilinear(wide, uw, vw)))
+        T_WB = T_wc0 @ np.linalg.inv(EUROC_T_BS0)
+        R = T_WB[:3, :3]
+        w = np.sqrt(max(1 + np.trace(R), 0)) / 2
+        q = (w, (R[2, 1] - R[1, 2]) / (4 * w), (R[0, 2] - R[2, 0]) / (4 * w),
+             (R[1, 0] - R[0, 1]) / (4 * w))
+        rows.append(f"{ns}," + ",".join(repr(float(v))
+                                        for v in (*T_WB[:3, 3], *q)))
+    os.makedirs(os.path.join(mav, "state_groundtruth_estimate0"))
+    with open(os.path.join(mav, "state_groundtruth_estimate0", "data.csv"),
+              "w") as f:
+        f.write("\n".join(rows) + "\n")
+
+
+# The port's own CPU runs of the dataset paths (``python3 chip_smoke.py
+# --cpu-ate dataset``, plain versions, device="cpu"): ATE in m of the
+# KITTI-layout app per frame and chunked, and of the EuRoC-layout per-frame
+# VO over host- and device-rectified frames. Each bound is 2x + 2 cm.
+DATASET_CPU = {"kitti_frame": 0.015001279747805839,
+               "kitti_chunk": 0.015215122199535067,
+               "euroc_host": 0.003719064313032753,
+               "euroc_device": 0.003719509190102203}
+# the reference's own bound between the chunked and the per-frame driver
+# (tests/test_batch_vo.py:117)
+CHUNK_VS_FRAME_M = 5e-3
+# one pair's f2f match of one feature family, and its GN (robust phase +
+# refinement), in the per-frame driver
+TRACK_PAIR = {"hamming_dist": 1, "hamming_match": 1}
+GN_PAIR = {"pose_gn_iters": 2}
+
+
+def expected_frame_launches(n_frames: int, remaps: int = 0) -> dict:
+    """Each kernel's launches in a per-frame run with lines: n_frames
+    extractions, n_frames - 1 tracked pairs (points and lines), and
+    ``remaps`` launches of N."""
+    from collections import Counter
+    n = Counter()
+    for table, times in ((EXTRACT_POINTS, n_frames),
+                         (EXTRACT_LINES, n_frames),
+                         (TRACK_PAIR, 2 * (n_frames - 1)),
+                         (GN_PAIR, n_frames - 1)):
+        for k, v in table.items():
+            n[k] += v * times
+    if remaps:
+        n["remap_bilinear"] = remaps
+    return dict(n)
+
+
+def _ate_check(tag, ate):
+    cpu = DATASET_CPU[tag]
+    bound_m = None if cpu is None else 2 * cpu + 0.02
+    print(f"[{tag}] ate_m={ate:.6f} (bound {bound_m}; CPU run {cpu})",
+          flush=True)
+    check(bound_m is not None and math.isfinite(ate) and ate < bound_m,
+          f"{tag}: ATE {ate} m outside its bound {bound_m} m")
+
+
+def kitti_app_runs(device, root):
+    """The port's app over the KITTI-layout directory, chunked (B = 20) and
+    per frame; returns each run's record with its launches and ATE."""
+    import os
+    from plslam_tpu_torch import native
+    from plslam_tpu_torch.apps import plstvo_dataset
+    from plslam_tpu_torch.io.dataset import open_dataset
+    from plslam_tpu_torch.utils.evaluation import ate_rmse
+    gt = open_dataset(root).gt_poses
+    out = {}
+    for tag, extra in (("kitti_chunk", ["--chunk", str(CHUNK)]),
+                       ("kitti_frame", [])):
+        rec = {}
+        native.reset_counts()
+        t0 = time.perf_counter()
+        rc = plstvo_dataset.main([root, "--quiet", "--device", device,
+                                  "--out", os.path.join(root, tag + ".txt"),
+                                  *extra], record=rec)
+        rec["wall"] = time.perf_counter() - t0
+        rec["launches"] = dict(native.LAUNCHES)
+        check(rc == 0, f"{tag}: the app returned {rc}")
+        rec["ate"] = float(ate_rmse(rec["est"], gt[:len(rec["est"])]))
+        out[tag] = rec
+    return out
+
+
+def euroc_vo(device, frames, cam, cfg):
+    """The per-frame StereoVO with lines over ``frames(i)`` pairs; returns
+    the trajectory, the per-frame good flags and the launches."""
+    from plslam_tpu_torch import native
+    from plslam_tpu_torch.frontend.stereo_frame import make_extractor
+    from plslam_tpu_torch.tracking.frame_handler import StereoVO
+    vo = StereoVO(cfg, cam, make_extractor(cam, cfg, device=device),
+                  device=device)
+    native.reset_counts()
+    t0 = time.perf_counter()
+    vo.initialize(*frames(0))
+    good = [vo.insert_stereo_pair(*frames(i)).good
+            for i in range(1, EUROC_FRAMES)]
+    return dict(est=np.stack(vo.trajectory), good=np.array(good),
+                launches=dict(native.LAUNCHES),
+                ms=1e3 * (time.perf_counter() - t0) / EUROC_FRAMES)
+
+
+def euroc_runs(device, root):
+    """``open_dataset`` (host rectification) into the per-frame VO, then
+    the same raw pairs rectified by ``StereoRectifier`` (kernel N, one
+    launch a pair) into the per-frame VO. Returns both runs and the
+    dataset (the caller closes it)."""
+    from plslam_tpu_torch.config import SlamConfig
+    from plslam_tpu_torch.core.camera import StereoCamera, StereoRectifier
+    from plslam_tpu_torch.io.dataset import open_dataset
+    from plslam_tpu_torch.io.imageio import load_gray
+    from plslam_tpu_torch.utils.evaluation import ate_rmse
+    ds = open_dataset(root)
+    check(len(ds) == EUROC_FRAMES and ds.rect_maps is not None
+          and ds.gt_poses is not None, "EuRoC layout: wrong dataset")
+    cam = StereoCamera.from_config(ds.camera)
+    cfg = SlamConfig().with_updates({"camera": {
+        k: getattr(ds.camera, k) for k in ("width", "height", "fx", "fy",
+                                           "cx", "cy", "baseline")}})
+    raw = [(load_gray(l), load_gray(r)) for l, r in zip(ds.left, ds.right)]
+    rect = StereoRectifier(*ds.rect_maps, device=device)
+    out = {"euroc_host": euroc_vo(device, ds.frame, cam, cfg),
+           "euroc_device": euroc_vo(device, lambda i: rect(*raw[i]), cam,
+                                    cfg)}
+    for r in out.values():
+        r["ate"] = float(ate_rmse(r["est"], ds.gt_poses))
+    return out, ds, raw
+
+
+def cpu_dataset_runs() -> None:
+    """The dataset paths on the CPU: the DATASET_CPU values."""
+    import tempfile
+    with tempfile.TemporaryDirectory() as tmp:
+        kitti, euroc = dataset_dirs(tmp)
+        t0 = time.perf_counter()
+        runs = kitti_app_runs("cpu", kitti)
+        eu, ds, _ = euroc_runs("cpu", euroc)
+        ds.close()
+        runs.update(eu)
+        for k, r in runs.items():
+            print(f"[cpu] {k}: good={int(r['good'].sum())}/"
+                  f"{len(r['good'])} ate_m={r['ate']!r}", flush=True)
+        print("[cpu] DATASET_CPU = " + json.dumps(
+            {k: runs[k]["ate"] for k in DATASET_CPU})
+            + f" ({time.perf_counter() - t0:.1f} s)", flush=True)
+
+
+def dataset_dirs(tmp):
+    """Write the KITTI-layout and the EuRoC-layout directories."""
+    import os
+    t0 = time.perf_counter()
+    kitti, euroc = os.path.join(tmp, "kitti"), os.path.join(tmp, "euroc")
+    _, _, seq = main_scene(lines=True)
+    write_kitti(kitti, seq)
+    write_euroc(euroc)
+    print(f"[dataset] wrote the KITTI-layout ({len(seq.poses)} pairs, "
+          f"1241x376) and EuRoC-layout ({EUROC_FRAMES} raw pairs, "
+          f"{EUROC_W}x{EUROC_H}) directories in "
+          f"{time.perf_counter() - t0:.1f} s (host)", flush=True)
+    return kitti, euroc
+
+
+def kitti_rig():
+    """A KITTI-shaped distorted rig (1241x376, 0.537 m) for kernel N's
+    second shape."""
+    from plslam_tpu_torch.core.camera import stereo_rectify
+    K = np.array([[718.856, 0, 607.1928], [0, 718.856, 185.2157],
+                  [0, 0, 1.0]])
+    d = (-0.05, 0.01, 0.0002, -0.0001)
+    R = _rot(0.004, -0.006, 0.003)
+    return stereo_rectify(K, d, K, d, R, R @ np.array([-0.537, 0, 0]), 376,
+                          1241)[:2]
+
+
+def remap_case(record, dev, pair, maps, tag):
+    """Kernel N on one pair with its two maps against its plain version
+    (bit-equal), beside its bound and F.grid_sample."""
+    import torch
+    import torch.nn.functional as F
+    from plslam_tpu_torch.core import camera
+    img = torch.from_numpy(np.stack(pair)).to(dev)
+    m = torch.from_numpy(np.stack(maps)).to(dev)
+    N, H, W = img.shape
+    Ho, Wo = m.shape[1:3]
+    got = camera.remap_bilinear(img, m)
+    plain = camera.remap_bilinear_plain(img, m)
+    scale = torch.tensor([2.0 / (W - 1), 2.0 / (H - 1)], device=dev)
+    grid = m * scale - 1.0
+    record("remap_bilinear" + tag, "plslam_tpu_torch/csrc/remap.cu",
+           "plslam_tpu/core/camera.py:203", [got], [plain], 0.0,
+           lambda: camera.remap_bilinear(img, m),
+           lambda: camera.remap_bilinear_plain(img, m),
+           N * (Ho * Wo * (8 + 4) + H * W * 4), N * Ho * Wo * 13,
+           library_fn=lambda: F.grid_sample(
+               img[:, None], grid, mode="bilinear", padding_mode="zeros",
+               align_corners=True), entry="remap_bilinear",
+           err_kind="bit-equal")
+    lib = F.grid_sample(img[:, None], grid, mode="bilinear",
+                        padding_mode="zeros", align_corners=True)[:, 0]
+    print(f"[remap{tag}] {N} x {H}x{W} -> {Ho}x{Wo}; F.grid_sample "
+          f"(align_corners, zeros) differs from the kernel by "
+          f"{max_abs_err(lib, got):.3g}", flush=True)
+
+
+def dataset_path(dev, record):
+    """The app over a KITTI-layout directory at the flagship width, per
+    frame and chunked; the EuRoC-layout raw rig through host and device
+    rectification; kernel N at both shapes. Returns the launches of the
+    device-rectified run (the path of N)."""
+    import glob
+    import tempfile
+    from plslam_tpu_torch.core.camera import StereoRectifier
+    from plslam_tpu_torch.io.imageio import _remap_np, load_gray
+    from plslam_tpu_torch.tracking.batch_vo import BatchedStereoVO
+    with tempfile.TemporaryDirectory() as tmp:
+        kitti, euroc = dataset_dirs(tmp)
+
+        # the KITTI-layout app, chunked and per frame
+        runs = kitti_app_runs(dev.type, kitti)
+        cfg, cam, seq = main_scene(lines=True)
+        n = len(seq.poses)
+        ul, ur = to_u8(seq.images_l), to_u8(seq.images_r)
+        inv = np.float32(1.0) / np.float32(255.0)
+        vo = BatchedStereoVO(cfg, cam, device=dev)
+        vo.initialize(ul[0].astype(np.float32) * inv,
+                      ur[0].astype(np.float32) * inv)
+        vo.process_chunk(ul[1:1 + CHUNK], ur[1:1 + CHUNK])
+        vo.submit_chunk(ul[1 + CHUNK:], ur[1 + CHUNK:])
+        vo.drain()
+        d_mem = float(np.abs(np.stack(vo.trajectory)
+                             - runs["kitti_chunk"]["est"]).max())
+        d_cf = float(np.linalg.norm(
+            runs["kitti_chunk"]["est"][:, :3, 3]
+            - runs["kitti_frame"]["est"][:, :3, 3], axis=1).max())
+        for tag, want in (("kitti_chunk", expected_launches(True)),
+                          ("kitti_frame", expected_frame_launches(n))):
+            r = runs[tag]
+            per = sum(r["launches"].values()) / (n - 1)
+            print(f"[{tag}] frames={n} good={int(r['good'].sum())}/"
+                  f"{len(r['good'])} fps={r['fps']:.2f} (the app's clock) "
+                  f"run {r['wall']:.2f} s; {per:.1f} kernel launches a "
+                  f"frame", flush=True)
+            if "timer" in r:
+                print(f"[{tag}] stage ms a frame: {r['timer']}", flush=True)
+            _ate_check(tag, r["ate"])
+            check(bool(r["good"].all()) and len(r["good"]) == n - 1,
+                  f"{tag}: frames not tracked")
+            check(r["launches"] == want, f"{tag}: launches {r['launches']}"
+                  f" differ from the path's {want}")
+        print(f"[kitti] chunked app vs in-memory BatchedStereoVO on the "
+              f"same uint8 frames: {d_mem:.3g}; chunked vs per frame: "
+              f"{d_cf:.3g} m (bound {CHUNK_VS_FRAME_M})", flush=True)
+        check(d_mem == 0.0, "the chunked app differs from the in-memory "
+              f"run by {d_mem}")
+        check(d_cf < CHUNK_VS_FRAME_M, f"chunked vs per frame {d_cf} m")
+
+        # the EuRoC-layout raw rig, host and device rectification
+        eu, ds, raw = euroc_runs(dev.type, euroc)
+        for tag, remaps in (("euroc_host", 0),
+                            ("euroc_device", EUROC_FRAMES)):
+            r = eu[tag]
+            print(f"[{tag}] frames={EUROC_FRAMES} good="
+                  f"{int(r['good'].sum())}/{len(r['good'])} {r['ms']:.2f} ms "
+                  "a frame (host clock; the host run waits on the "
+                  "prefetcher's decode and rectification, the device run "
+                  "on N, its raw frames decoded before)", flush=True)
+            _ate_check(tag, r["ate"])
+            check(bool(r["good"].all()), f"{tag}: frames not tracked")
+            want = expected_frame_launches(EUROC_FRAMES, remaps)
+            check(r["launches"] == want, f"{tag}: launches "
+                  f"{r['launches']} differ from the path's {want}")
+
+        # the two border rules agree wherever all four taps are inside
+        ml, mr = ds.rect_maps
+        W, H = EUROC_W, EUROC_H
+        inside = []
+        for m in (ml, mr):
+            u, v = m[..., 0], m[..., 1]
+            inside.append((u >= 0) & (v >= 0) & (u <= W - 1.001)
+                          & (v <= H - 1.001))
+        rect = StereoRectifier(ml, mr, device=dev)
+        d_rule = 0.0
+        for i in range(EUROC_FRAMES):
+            got = [t.cpu().numpy() for t in rect(*raw[i])]
+            for g, h, k in zip(got, ds.frame(i), inside):
+                d_rule = max(d_rule, float(np.abs(g - h)[k].max()))
+        ds.close()
+        print(f"[euroc] device (N, out-of-bounds taps 0) vs host "
+              f"(clamped) rectification where all four taps are inside "
+              f"({100 * np.mean(inside):.2f}% of the pixels): {d_rule:.3g} "
+              f"(bound 1e-6)", flush=True)
+        check(d_rule <= 1e-6, f"device vs host rectification {d_rule}")
+
+        # host decode and rectification a frame, beside the device
+        paths = sorted(glob.glob(f"{kitti}/image_0/*.png"))
+        t0 = time.perf_counter()
+        for p in paths[:10]:
+            load_gray(p)
+        dec = (time.perf_counter() - t0) / 10 * 1e3
+        t0 = time.perf_counter()
+        for l, r in raw[:5]:
+            _remap_np(l, ml)
+            _remap_np(r, mr)
+        rec_ms = (time.perf_counter() - t0) / 5 * 1e3
+        print(f"[dataset] host: decode {dec:.3f} ms a 1241x376 PNG, "
+              f"rectify {rec_ms:.3f} ms a 752x480 pair (_remap_np)",
+              flush=True)
+
+        # kernel N at the path's shapes
+        remap_case(record, dev, raw[0], (ml, mr), "")
+        remap_case(record, dev,
+                   (seq.images_l[0], seq.images_r[0]), kitti_rig(),
+                   "@1241x376")
+    return eu["euroc_device"]["launches"]
+
+
 LOOP_SCENE = None
 
 
@@ -2028,13 +2547,18 @@ def main() -> int:
     loop_kernel_phase(dev, record, runs[0][1])
     runs.append(loop_path(dev, "loop_pcg", pcg_updates(solve),
                           cpu=LOOP_CPU.get("pcg")))
+
+    # 6. the dataset paths: the app over a KITTI-layout directory, the
+    # EuRoC-layout raw rig through host and device rectification, N
+    runs.append((dataset_path(dev, record),))
     entries = set(r["entry"] for r in record.rows)
     check(entries == set(native._SIGNATURES),
           f"kernels not checked: {set(native._SIGNATURES) - entries}")
 
-    # 6. results: launches from the loop path's first run that launched
-    # each kernel (the default run launches A-L; the dense and PCG graph
-    # solves may need the later runs)
+    # 7. results: launches from the first path run that launched each
+    # kernel (the loop path's default run launches A-L; the dense and PCG
+    # graph solves may need the later runs; N the device-rectified dataset
+    # run)
     rows = record.rows
     for r in rows:
         r["launches"] = next((run[0][r["entry"]] for run in runs

@@ -1,9 +1,11 @@
 """plslam_tpu_torch — the PyTorch + CUDA (Hopper) port of plslam_tpu.
 
-The chunked stereo VO with and without lines (``tracking.batch_vo``) and
-the fused SLAM chunk without loop closure (``backend.fused_slam``). The
-JAX package ``plslam_tpu`` is the reference; this package imports nothing
-of it (nor of JAX) and keeps its own copies of the numpy-only modules.
+The chunked stereo VO with and without lines (``tracking.batch_vo``), the
+per-frame VO (``tracking.frame_handler.StereoVO``), the fused SLAM chunk
+with and without loop closure (``backend.fused_slam``) and the dataset VO
+app (``apps.plstvo_dataset`` over ``io.dataset``). The JAX package
+``plslam_tpu`` is the reference; this package imports nothing of it (nor
+of JAX) and keeps its own copies of the numpy-only modules.
 
 Entry points run on the CUDA device unless the caller passes
 ``device="cpu"``. Hot ops are hand-written CUDA kernels

@@ -1,9 +1,11 @@
 """Stereo frame extraction, points and lines (port of
-``plslam_tpu/frontend/stereo_frame.py::extract_stereo_frame``).
+``plslam_tpu/frontend/stereo_frame.py``: ``extract_stereo_frame``,
+``make_extractor``; and ``tracking/batch_vo.py::extract_one``).
 
 Batched over B stereo pairs: the B left and B right images go through the
 point and the line front ends as one batch of 2B each, then the
-left/right sets of each pair are matched on the rectified rows.
+left/right sets of each pair are matched on the rectified rows. One pair
+is a batch of 1 (``extract_one``, ``make_extractor``).
 """
 
 from __future__ import annotations
@@ -12,15 +14,14 @@ from typing import Optional, Tuple
 
 import torch
 
+from plslam_tpu_torch import resolve_device
 from plslam_tpu_torch.config import SlamConfig
 from plslam_tpu_torch.core.camera import StereoCamera
 from plslam_tpu_torch.frontend.features import (LineObservations,
                                                 PointObservations)
 from plslam_tpu_torch.frontend.stereo_lines import (
     detect_and_describe_lines, match_stereo_lines)
-from plslam_tpu_torch.frontend.stereo_points import (detect_and_describe,
-                                                     match_stereo_points)
-from plslam_tpu_torch.ops.gather import take
+from plslam_tpu_torch.frontend.stereo_points import stereo_points_of
 
 
 def extract_stereo_frame(imgs_l: torch.Tensor, imgs_r: torch.Tensor,
@@ -44,15 +45,35 @@ def extract_stereo_frame(imgs_l: torch.Tensor, imgs_r: torch.Tensor,
         segs_l = type(segs)(*(x[:B] for x in segs))
         segs_r = type(segs)(*(x[B:] for x in segs))
         lns = match_stereo_lines(segs_l, d[:B], segs_r, d[B:], cam, cfg)
-    uv, desc, octv, ang, sc, val = detect_and_describe(both, cfg)
-    uv_l, uv_r = uv[:B], uv[B:]
-    mres = match_stereo_points(uv_l, desc[:B], octv[:B], val[:B],
-                               uv_r, desc[B:], octv[B:], val[B:], cfg)
-    uv_rm = take(uv_r, torch.clamp(mres.idx, min=0))
-    disp = uv_l[..., 0] - uv_rm[..., 0]
-    valid = mres.valid & val[:B] & (disp > cfg.matching.min_disp)
-    P = cam.back_project(uv_l, torch.where(valid, disp, 1.0))
-    pts = PointObservations(uv=uv_l, uv_r=uv_rm, disp=disp, P=P,
-                            desc=desc[:B], octave=octv[:B], angle=ang[:B],
-                            score=sc[:B], valid=valid)
-    return pts, lns
+    return stereo_points_of(both, cam, cfg), lns
+
+
+def _frame(feats, i):
+    """One frame of a batched feature tuple (None stays None)."""
+    return None if feats is None else type(feats)(*(x[i] for x in feats))
+
+
+def extract_one(img_l: torch.Tensor, img_r: torch.Tensor, cam: StereoCamera,
+                cfg: SlamConfig
+                ) -> Tuple[PointObservations, Optional[LineObservations]]:
+    """One (H, W) stereo pair -> its features (no batch axis). A uint8
+    pair is taken UNSCALED (0..255 as f32), as the reference's
+    ``extract_one`` takes it, uint8 arithmetic included: its line
+    detector's Sobel y difference wraps modulo 256. Only the chunk steps
+    scale uint8 to [0, 1]."""
+    f32 = lambda x: x.to(torch.float32)[None]
+    pts, lns = extract_stereo_frame(f32(img_l), f32(img_r), cam, cfg,
+                                    u8_wrap=img_l.dtype == torch.uint8)
+    return _frame(pts, 0), _frame(lns, 0)
+
+
+def make_extractor(cam: StereoCamera, cfg: SlamConfig, device=None):
+    """Extractor closure for the per-frame driver: ``fn(img_l, img_r) ->
+    (pts, lns)`` for one pair (numpy or tensors), extracted on ``device``
+    (default: the CUDA device; raises without one) as a batch of 1."""
+    dev = resolve_device(device)
+
+    def fn(img_l, img_r):
+        return extract_one(torch.as_tensor(img_l).to(dev),
+                           torch.as_tensor(img_r).to(dev), cam, cfg)
+    return fn

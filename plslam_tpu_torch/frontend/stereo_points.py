@@ -1,7 +1,8 @@
 """Point front end: multi-scale detection, description, stereo matching.
 
 Port of ``plslam_tpu/frontend/stereo_points.py`` (``_level_capacities``,
-``detect_and_describe``, ``match_stereo_points``), batched over images.
+``detect_and_describe``, ``match_stereo_points``,
+``extract_stereo_points``), batched over images.
 """
 
 from __future__ import annotations
@@ -12,6 +13,8 @@ import numpy as np
 import torch
 
 from plslam_tpu_torch.config import SlamConfig
+from plslam_tpu_torch.core.camera import StereoCamera
+from plslam_tpu_torch.frontend.features import PointObservations
 from plslam_tpu_torch.ops import fast, hamming, orb
 from plslam_tpu_torch.ops.gather import take
 from plslam_tpu_torch.ops.image import _on, build_pyramid
@@ -85,3 +88,30 @@ def match_stereo_points(uv_l, desc_l, oct_l, valid_l,
                                   row_ok & disp_ok & oct_ok)
     return hamming.match_nnr(dist, m.max_hamming_p, m.min_ratio_12_p,
                              mutual=m.best_lr_matches)
+
+
+def extract_stereo_points(imgs_l: torch.Tensor, imgs_r: torch.Tensor,
+                          cam: StereoCamera, cfg: SlamConfig
+                          ) -> PointObservations:
+    """The stereo point front end for B rectified pairs (B, H, W): the
+    left and right images go through the detector as one batch of 2B,
+    then each pair is matched on its rows and triangulated."""
+    return stereo_points_of(torch.cat([imgs_l, imgs_r]), cam, cfg)
+
+
+def stereo_points_of(both: torch.Tensor, cam: StereoCamera,
+                     cfg: SlamConfig) -> PointObservations:
+    """:func:`extract_stereo_points` of the (2B, H, W) left-then-right
+    batch."""
+    B = both.shape[0] // 2
+    uv, desc, octv, ang, sc, val = detect_and_describe(both, cfg)
+    uv_l, uv_r = uv[:B], uv[B:]
+    mres = match_stereo_points(uv_l, desc[:B], octv[:B], val[:B],
+                               uv_r, desc[B:], octv[B:], val[B:], cfg)
+    uv_rm = take(uv_r, torch.clamp(mres.idx, min=0))
+    disp = uv_l[..., 0] - uv_rm[..., 0]
+    valid = mres.valid & val[:B] & (disp > cfg.matching.min_disp)
+    P = cam.back_project(uv_l, torch.where(valid, disp, 1.0))
+    return PointObservations(uv=uv_l, uv_r=uv_rm, disp=disp, P=P,
+                             desc=desc[:B], octave=octv[:B], angle=ang[:B],
+                             score=sc[:B], valid=valid)

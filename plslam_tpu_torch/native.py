@@ -31,7 +31,7 @@ _CSRC = os.path.join(_DIR, "csrc")
 BUILD_DIR = os.path.join(_DIR, "_build")
 SOURCES = ["image.cu", "fast.cu", "orb.cu", "hamming.cu", "lines_tile.cu",
            "lines_label.cu", "lines_segments.cu", "lbd.cu", "pose_gn.cu",
-           "slam.cu", "lba.cu", "bow.cu", "pose_graph.cu"]
+           "slam.cu", "lba.cu", "bow.cu", "pose_graph.cu", "remap.cu"]
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC"]
 
@@ -67,6 +67,7 @@ _SIGNATURES: Dict[str, str] = {
     "pg_blocks": "p" * 14 + "ii",
     "pg_pcg": "p" * 14 + "iii",
     "pg_update": "p" * 10 + "iif",
+    "remap_bilinear": "pppiiiiii",
 }
 
 # launches per C entry point since the last reset (plain versions on CPU

@@ -15,7 +15,7 @@ does not wait for the device, ``drain`` fetches the per-frame poses.
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Tuple
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -25,7 +25,8 @@ from plslam_tpu_torch.config import SlamConfig
 from plslam_tpu_torch.core.camera import StereoCamera
 from plslam_tpu_torch.frontend.features import (LineObservations,
                                                 PointObservations)
-from plslam_tpu_torch.frontend.stereo_frame import extract_stereo_frame
+from plslam_tpu_torch.frontend.stereo_frame import (
+    _frame, extract_one, extract_stereo_frame)
 from plslam_tpu_torch.tracking import pose_gn
 from plslam_tpu_torch.tracking.frame_handler import (build_line_terms,
                                                      build_point_terms,
@@ -51,11 +52,6 @@ def _to_f32(imgs: torch.Tensor) -> torch.Tensor:
     if imgs.dtype == torch.uint8:
         return imgs.to(torch.float32) * (1.0 / 255.0)
     return imgs.to(torch.float32)
-
-
-def _frame(feats, i):
-    """One frame of a batched feature tuple (None stays None)."""
-    return None if feats is None else type(feats)(*(x[i] for x in feats))
 
 
 def _shift(head, tail):
@@ -134,20 +130,6 @@ def _chunk_tracking_batched(pts: PointObservations,
     return ChunkOutput(res.T, res.cov, res.n_inliers, res.err, res.good,
                        _frame(pts, -1), _frame(lns, -1), DT_next=DT_next,
                        n_lines=n_lines, n_line_inliers=res.inlier_ln.sum(-1))
-
-
-def extract_one(img_l: torch.Tensor, img_r: torch.Tensor, cam: StereoCamera,
-                cfg: SlamConfig
-                ) -> Tuple[PointObservations, Optional[LineObservations]]:
-    """One (H, W) stereo pair -> its features (no batch axis). A uint8
-    pair is taken UNSCALED (0..255 as f32), as the reference's
-    ``extract_one`` takes it, uint8 arithmetic included: its line
-    detector's Sobel y difference wraps modulo 256. Only the chunk steps
-    scale uint8 to [0, 1]."""
-    f32 = lambda x: x.to(torch.float32)[None]
-    pts, lns = extract_stereo_frame(f32(img_l), f32(img_r), cam, cfg,
-                                    u8_wrap=img_l.dtype == torch.uint8)
-    return _frame(pts, 0), _frame(lns, 0)
 
 
 class BatchedStereoVO:

@@ -541,3 +541,33 @@ def test_pose_graph_kernels(cuda, F, n, extra):
         assert float(got[2]) < 0.5 * float(got[1])
         t_scale = float(want[0][:, :3, 3].abs().max())
         assert float((got[0].cpu() - want[0]).abs().max()) <= 1e-3 * t_scale
+
+
+def test_remap_kernel_bit_equal(cuda):
+    """Kernel N (K19) bit-equal to its plain version on maps with
+    negative, out-of-bounds, integer and last-row/column coordinates, with
+    one shared map and with one map per image; the rectifier is one
+    launch a pair."""
+    from plslam_tpu_torch.core import camera
+    rng = np.random.default_rng(3)
+    H, W, Ho, Wo = 120, 161, 97, 133
+    img = torch.from_numpy(rng.uniform(0, 1, (2, H, W)).astype(np.float32))
+    m = np.stack([rng.uniform(-3, W + 2, (2, Ho, Wo)),
+                  rng.uniform(-3, H + 2, (2, Ho, Wo))], -1).astype(np.float32)
+    m[:, 0, :8, 0] = np.arange(8)
+    m[:, 1, :8, 0] = W - 1
+    m[:, 2, :8, 1] = H - 1
+    m[:, 3, :8] = -1.0
+    m = torch.from_numpy(m)
+    for mp in (m, m[0]):
+        got = _launched("remap_bilinear", lambda: camera.remap_bilinear(
+            img.to(cuda), mp.to(cuda)))
+        ref = camera.remap_bilinear_plain(img.to(cuda), mp.to(cuda))
+        assert torch.equal(got, ref)
+        assert torch.equal(got.cpu(), camera.remap_bilinear_plain(img, mp))
+    rect = camera.StereoRectifier(m[0].numpy(), m[1].numpy(), device=cuda)
+    out_l, out_r = _launched("remap_bilinear", lambda: rect(img[0], img[1]))
+    assert torch.equal(out_l, camera.remap_bilinear_plain(img[0].to(cuda),
+                                                          m[0].to(cuda)))
+    assert torch.equal(out_r, camera.remap_bilinear_plain(img[1].to(cuda),
+                                                          m[1].to(cuda)))

@@ -6,6 +6,7 @@ import pkgutil
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -34,6 +35,12 @@ def _imported_roots(path):
                 yield a.name.split(".")[0]
         elif isinstance(node, ast.ImportFrom) and node.level == 0:
             yield node.module.split(".")[0]
+
+
+def test_covers_every_port_package():
+    dirs = {os.path.relpath(os.path.dirname(p), PKG) for p in _port_files()
+            if p.startswith(PKG)}
+    assert {"apps", "io", "utils", "core", "tracking"} <= dirs
 
 
 @pytest.mark.parametrize("path", _port_files(),
@@ -107,6 +114,34 @@ def test_default_device_is_cuda():
         with pytest.raises(RuntimeError, match="CUDA"):
             plslam_tpu_torch.resolve_device(None)
     assert BatchedStereoVO(cfg, device="cpu").device.type == "cpu"
+
+
+def test_dataset_entry_points_default_to_cuda():
+    """StereoVO, StereoRectifier, make_extractor and the app run on the
+    CUDA device unless told otherwise, and raise without one."""
+    from plslam_tpu_torch.apps import plstvo_dataset
+    from plslam_tpu_torch.core.camera import StereoRectifier
+    from plslam_tpu_torch.frontend.stereo_frame import make_extractor
+    from plslam_tpu_torch.tracking.frame_handler import StereoVO
+    cfg = SlamConfig().with_updates({"lines": {"has_lines": False}})
+    m = np.zeros((4, 5, 2), np.float32)
+    makers = (lambda **kw: StereoVO(cfg, **kw),
+              lambda **kw: StereoRectifier(m, m, **kw),
+              lambda **kw: make_extractor(None, cfg, **kw))
+    assert plstvo_dataset.build_argparser("").parse_args([]).device == "cuda"
+    if torch.cuda.is_available():
+        assert StereoVO(cfg).device.type == "cuda"
+        assert StereoRectifier(m, m).maps.device.type == "cuda"
+    else:
+        for make in makers:
+            with pytest.raises(RuntimeError, match="device='cpu'"):
+                make()
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            plstvo_dataset.main(["--synthetic", "--frames", "2", "--quiet",
+                                 "--no-lines"])
+    assert StereoVO(cfg, device="cpu").device.type == "cpu"
+    assert StereoRectifier(m, m, device="cpu").maps.device.type == "cpu"
+    make_extractor(None, cfg, device="cpu")
 
 
 def test_tf32_is_off():
