@@ -11,13 +11,18 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
      (one nvcc per source, all started together);
   3. every kernel, in every mode the paths launch it, at the paths'
      shapes, compared with its plain PyTorch version on the same inputs on
-     the card, timed with CUDA events, beside its bound, its plain
-     version's time and a one-call library yardstick: A-D on KITTI-size
-     images (376x1241, 40 images a chunk; K=1024; B=20 x 1024 x 1024),
-     the line kernels E-H at both detector scales and D at 20 x 128 x 128,
-     then I (K13: a GN phase of 20 pairs with and without lines), J (K14:
-     a chunk's keyframe scan; K16: the 8192 and 1024 landmark rings) and D
-     at the map matching's 8192 x 1024 and 1024 x 128;
+     the card, timed with CUDA events (the wrapper: host work included)
+     and with torch.profiler (the kernels' own device time), beside its
+     bound, its plain version's time and a one-call library yardstick: A-C
+     on KITTI-size images (376x1241, 40 images a chunk; K=1024), D's
+     matcher (hamming_scan + hamming_finish) under the stereo gate and
+     the f2f window at 20 x 1024 x 1024, the line kernels E-H at both
+     detector scales and D under a mask at 20 x 128 x 128, then I (K13: a
+     GN phase of 20 pairs with and without lines), J (K14: a chunk's
+     keyframe scan; K16: the 8192 and 1024 landmark rings) and D at the
+     map matching's 8192 x 1024 and 1024 x 128; at each of D's shapes the
+     matrix-based hamming_dist + hamming_match it replaced, on the same
+     inputs, as the "before" (no path launches them);
   4. the paths: the flagship point+line chunked VO (``BatchedStereoVO``,
      default ``SlamConfig()``, bench.py's scene: a warm-up chunk, then
      initialize + 2 chunks of 20 frames), the points-only VO the same way,
@@ -28,9 +33,11 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
      and keyframes against the CPU run, at least one LBA slot, no LBA
      raising its cost, a map of points and lines, each kernel launched
      exactly as often as the path launches it; then K (K15) launch by
-     launch, one LM step and one whole ``run_lba`` on a well-conditioned
-     window problem at the path's shapes, and one whole ``run_lba`` on
-     that run's final window problem;
+     launch (the landmark index exact; lba_bin also against the scanning
+     lba_bin_scan it replaced, the "before", no path launches it), one LM
+     step and one whole ``run_lba`` on a well-conditioned window problem
+     at the path's shapes, and one whole ``run_lba`` on that run's final
+     window problem;
   5. the loop path: ``FusedPLSLAM`` with the default ``SlamConfig()``
      (loop closure on) over two laps of a 110-frame loop with
      bench_slam.py's world (``loop_scene``: bench_slam.py's own scene
@@ -63,6 +70,9 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
 runs the paths' frames through the plain versions on the CPU: the
 calibration of the ATE, line-count, keyframe and loop bounds below (no
 part named: all; ``pcg``: the PCG loop run alone).
+``python3 chip_smoke.py --bench-slam [cuda] [cpu]`` runs bench_slam.py's
+own 201-frame scene through the loop path on each device named and
+compares their keyframe decisions (``bench_slam_scene``).
 
 Imports nothing of JAX and nothing of the JAX package.
 """
@@ -80,6 +90,17 @@ import numpy as np
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3
 F32_OPS_PER_S = 67e12          # H100 SXM f32, outside the tensor cores
+# int8 on the tensor cores, dense: a Hamming distance of 256 bits is a
+# 256-deep +-1 product (the reference's own formulation, on the MXU)
+INT8_OPS_PER_S = 1979e12
+# __popc: 16 results a clock per SM (the CUDA C++ programming guide's
+# arithmetic-instruction throughput table, compute capability 9.0) x 132
+# SMs x the H100 SXM's 1.98 GHz boost clock: the floor of the popcount
+# algorithm on the CUDA cores, printed beside the card's bound
+POPC_PER_S = 16 * 132 * 1.98e9
+# entry points whose C code issues a cudaMemsetAsync of its own (counted in
+# their device time)
+OWN_MEMSETS = {"hamming_scan"}
 
 # ATE bounds of the main paths (m). The port's own CPU run of the same
 # scenes and frames (``python3 chip_smoke.py --cpu-ate``: the plain
@@ -125,9 +146,43 @@ def cuda_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound(nbytes: float, ops: float):
+def device_ms(fn, memsets: bool = False, iters: int = 10) -> float:
+    """Mean device time a call of ``fn`` spends in the hand-written
+    kernels (and, with ``memsets``, in the memsets that the entry's own C
+    code issues), from torch.profiler over ``iters`` calls after a
+    warm-up: the kernels' own time, apart from the host's launch path that
+    ``cuda_ms`` includes whenever the host is the slower side. Fails the
+    run where the profiler gave no device records."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from plslam_tpu_torch import native
+    fn()
+    torch.cuda.synchronize()
+    # a profile now and then comes back without the device's records (seen
+    # once in ~60 on the H100): take it again, up to twice
+    for attempt in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(e.device_time_total for e in prof.key_averages()
+                 if e.device_type != DeviceType.CPU
+                 and (native.is_own_kernel(e.key)
+                      or (memsets and "Memset" in e.key)))
+        if us > 0:
+            if attempt:
+                print(f"[profile] device records came on try {attempt + 1}",
+                      flush=True)
+            return us / 1e3 / iters
+    fail("torch.profiler gave no device records in 3 tries: device time "
+         "not measured")
+
+
+def bound(nbytes: float, ops: float, ops_per_s: float = F32_OPS_PER_S):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / F32_OPS_PER_S * 1e3
+    t_ops = ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -149,27 +204,39 @@ class Recorder:
 
     def __call__(self, name, source, replaces, got, plain, tol, fn, plain_fn,
                  nbytes, ops, library_fn=None, iters=20, entry=None,
-                 err_kind="absolute"):
+                 err_kind="absolute", ops_per_s=F32_OPS_PER_S, before=False,
+                 popc_ops=None):
         """``tol`` is one tolerance for every output, or a list of one per
-        output (``err_kind`` then names the unit of each)."""
+        output (``err_kind`` then names the unit of each). ``before``: a
+        kernel that a redesign replaced, kept with no main-path caller and
+        timed on the same inputs as its successor. ``popc_ops``: the
+        popcounts of the CUDA-core algorithm, whose floor the row also
+        gives (``popc_bound_ms``) beside the card's bound."""
         tols = list(tol) if isinstance(tol, (list, tuple)) else [tol] * len(got)
         errs = [max_abs_err(g, p) for g, p in zip(got, plain)]
         err = max(errs)
         ok = all(e <= t for e, t in zip(errs, tols))
         ms = cuda_ms(fn, iters)
+        dev_ms = device_ms(fn, (entry or name) in OWN_MEMSETS)
         plain_ms = cuda_ms(plain_fn, max(iters // 4, 3))
         lib_ms = cuda_ms(library_fn, iters) if library_fn else None
-        b_ms, b_by = bound(nbytes, ops)
+        b_ms, b_by = bound(nbytes, ops, ops_per_s)
+        popc_ms = None if popc_ops is None else popc_ops / POPC_PER_S * 1e3
         self.rows.append(dict(
             name=name, entry=entry or name, route="cuda", source=source,
             replaces=replaces, max_abs_err=err, errs=errs, tols=tols,
-            err_kind=err_kind, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-            bound_by=b_by, library_ms=lib_ms, ok=ok))
-        print(f"[kernel] {name}: max_abs_err={err:g} per output "
+            err_kind=err_kind, ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
+            bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms, ok=ok,
+            before=before, **({} if popc_ms is None
+                              else {"popc_bound_ms": popc_ms})))
+        print(f"[kernel] {name}{' (before: replaced)' if before else ''}"
+              f": max_abs_err={err:g} per output "
               f"{[f'{e:g}' for e in errs]} ({err_kind}; tol "
               f"{[f'{t:g}' for t in tols]}) kernel_ms={ms:.4f} "
-              f"plain_ms={plain_ms:.4f} bound_ms={b_ms:.4f} ({b_by}) "
-              f"library_ms={'null' if lib_ms is None else f'{lib_ms:.4f}'}",
+              f"device_ms={dev_ms:.4f} plain_ms={plain_ms:.4f} "
+              f"bound_ms={b_ms:.4f} ({b_by}) "
+              + ("" if popc_ms is None else f"popc_bound_ms={popc_ms:.4f} ")
+              + f"library_ms={'null' if lib_ms is None else f'{lib_ms:.4f}'}",
               flush=True)
         check(ok, f"{name} disagrees with its plain version: {errs} > {tols}")
 
@@ -179,7 +246,7 @@ def kernel_phase(images, record):
     versions."""
     import torch
     import torch.nn.functional as F
-    from plslam_tpu_torch.ops import fast, hamming, image, orb
+    from plslam_tpu_torch.ops import fast, image, orb
 
     dev = images.device
     N, H, W = images.shape                          # 40 x 376 x 1241
@@ -264,9 +331,16 @@ def kernel_phase(images, record):
            lambda: orb.pool_bits_plain(flat, center, width, bins),
            N * K * (64 * 4 + 12 + 256), N * K * 256 * 2)
 
-    # D: 20 frame pairs of 1024 x 1024 descriptors with a window mask;
-    # per entry 8 x (xor, popc, add), one mask byte in, 4 bytes out
-    hamming_case(record, g, dev, B=20, M=1024, radius=160.0, name="")
+    # D: a chunk's stereo point match (20 frames of 1024 x 1024 bit
+    # descriptors, the stereo gate) and its f2f point match (the f2f
+    # window with octaves)
+    for kind, tag in (("stereo", "@stereo"), ("window_oct", "@f2f")):
+        matcher_case(record, g, dev, 20, K, K, kind, tag)
+    # ... and the same two gates at the per-frame path's shape (StereoVO:
+    # one frame, bit descriptors packed in the kernel)
+    for kind, tag in (("stereo", "@frame_stereo"), ("window_oct",
+                                                    "@frame_f2f")):
+        matcher_case(record, g, dev, 1, K, K, kind, tag)
 
     # K7, no hand kernel: take() (clamp + torch.gather) at the point
     # terms' shape, 20 x 1024 rows of 2 floats picked by 1024 indices
@@ -282,44 +356,132 @@ def kernel_phase(images, record):
           f"(torch.gather alone)={lib:.4f}", flush=True)
 
 
-def hamming_case(record, g, dev, B, M, radius, name, angle_mask=False):
-    """Kernel D (both launches) on B pairs of M x M descriptors."""
+def matcher_case(record, g, dev, B, N, M, kind, tag, words=False, md=80,
+                 ratio=0.75, radius=160.0):
+    """Kernel D at (B, N, M) under the gate ``kind`` (``gated_case``):
+    hamming_scan and hamming_finish against their plain versions, the pair
+    exactly equal to match_gated_plain (idx, dist, valid); then, on the
+    same inputs, the matrix-based hamming_dist + hamming_match it replaced,
+    with the gate built in torch as the call sites built it (no main-path
+    caller)."""
     import torch
     from plslam_tpu_torch.ops import hamming
-    bits_a = torch.randint(0, 2, (B, M, 256), generator=g, dtype=torch.uint8)
-    flip = torch.rand((B, M, 256), generator=g) < 0.05
-    va = torch.rand((B, M), generator=g) > 0.1
+    src, rep = ("plslam_tpu_torch/csrc/hamming.cu",
+                "plslam_tpu/ops/hamming.py:")
+    a, b, va, vb, gate = gated_case(g, dev, B, N, M, kind, words, radius)
+    dist = hamming._gated_matrix_plain(a, b, va, vb, gate)
+    scan = hamming.hamming_scan(a, b, va, vb, gate)
+    scan_p = hamming.hamming_scan_plain(dist)
+    bits = hamming.unpack_bits if words else (lambda x: x)
+    fa, fb = bits(a).float(), bits(b).float()
+    # bytes: descriptors, valid flags and gate data in (the mask, where the
+    # gate is one), the row results and column keys out; operations: every
+    # pair's distance as a 256-deep +-1 product (2 ops a term) at the int8
+    # tensor-core rate, the card's fastest means for this function; the 8
+    # popcounts of a pair give the CUDA-core algorithm's floor beside it
+    desc_b = 32 if words else 256
+    gate_b = {"none": 0, "window": 8, "window_oct": 12, "stereo": 12,
+              "mask": 0}[kind]
+    nbytes = ((B * N + B * M) * (desc_b + 1 + gate_b) + B * N * 12 + B * M * 8
+              + (B * N * M if kind == "mask" else 0))
+    record("hamming_scan" + tag, src, rep + "30", list(scan), list(scan_p),
+           0.0, lambda: hamming.hamming_scan(a, b, va, vb, gate),
+           lambda: hamming.hamming_scan_plain(
+               hamming._gated_matrix_plain(a, b, va, vb, gate)),
+           nbytes, B * N * M * 512, lambda: torch.cdist(fa, fb, p=0),
+           entry="hamming_scan", ops_per_s=INT8_OPS_PER_S,
+           popc_ops=B * N * M * 8, err_kind="d1, i1, v2, column keys; exact")
+    got = hamming.hamming_finish(scan, md, ratio)
+    want = hamming.match_gated_plain(a, b, va, vb, gate, md, ratio)
+    check(int(want.valid.sum()) > B * M // 20, f"too few matches in D{tag}")
+    record("hamming_finish" + tag, src, rep + "57", list(got), list(want),
+           0.0, lambda: hamming.hamming_finish(scan, md, ratio),
+           lambda: hamming.hamming_finish_plain(scan_p, md, ratio),
+           B * N * (12 + 8 + 5), B * N * 6, entry="hamming_finish",
+           err_kind="idx, dist, valid against match_gated_plain; exact")
+
+    # before: the gate in torch, then the matrix-based pair
+    mask = hamming.gate_mask(gate)
+    if mask is None:
+        mask = torch.ones((B, N, M), dtype=torch.bool, device=dev)
+    old = hamming.hamming_matrix(a, b, va, vb, mask)
+    record("hamming_dist" + tag, src, rep + "30", [old], [dist], 0.0,
+           lambda: hamming.hamming_matrix(a, b, va, vb, mask),
+           lambda: hamming.hamming_matrix_plain(a, b, va, vb, mask),
+           B * N * M * (1 + 4) + (B * N + B * M) * desc_b,
+           B * N * M * 512, lambda: torch.cdist(fa, fb, p=0),
+           entry="hamming_dist", ops_per_s=INT8_OPS_PER_S,
+           popc_ops=B * N * M * 8, before=True)
+    record("hamming_match" + tag, src, rep + "57",
+           list(hamming.match_nnr(old, md, ratio)), list(want), 0.0,
+           lambda: hamming.match_nnr(old, md, ratio),
+           lambda: hamming.match_nnr_plain(old, md, ratio),
+           B * N * M * 4 + B * N * 9, B * N * M * 4, entry="hamming_match",
+           before=True)
+    glue = cuda_ms(lambda: hamming.gate_mask(gate), 20)
+    dev_sum = lambda rs: f"{sum(r['device_ms'] for r in rs):.4f}"
+    rows = {r["name"]: r for r in record.rows[-4:]}
+    after = rows["hamming_scan" + tag], rows["hamming_finish" + tag]
+    prior = rows["hamming_dist" + tag], rows["hamming_match" + tag]
+    print(f"[D{tag}] {B}x{N}x{M} {kind}{' words' if words else ''}: before "
+          f"(torch gate {glue:.4f} + hamming_dist + hamming_match) "
+          f"{glue + sum(r['ms'] for r in prior):.4f} ms wrapper, "
+          f"{dev_sum(prior)} ms device; after (hamming_scan + "
+          f"hamming_finish) {sum(r['ms'] for r in after):.4f} ms wrapper, "
+          f"{dev_sum(after)} ms device; "
+          f"{int(want.valid.sum())} matches", flush=True)
+
+
+GATE_KINDS = ("none", "window", "window_oct", "stereo", "mask")
+
+
+def gated_case(g, dev, B, N, M, kind, words=False, radius=160.0):
+    """Inputs of kernel D's matcher for B frames of N rows and M columns
+    under the gate ``kind`` (GATE_KINDS): half of the columns near copies
+    of random rows (5% of bits flipped), placed inside their row's gate (a
+    disparity of 2-150 px along the row for "stereo", a shift of ~20 px
+    within ``radius`` otherwise) with an octave within 1; 10% of rows and
+    columns invalid; "mask" is the window and a random 80% of the pairs.
+    ``words``: both sets as packed words. Returns (desc_a, desc_b,
+    valid_a, valid_b, gate)."""
+    import torch
+    from plslam_tpu_torch.config import SlamConfig
+    from plslam_tpu_torch.ops import hamming
+    u8 = torch.uint8
+    bits_a = torch.randint(0, 2, (B, N, 256), generator=g, dtype=u8)
+    src = torch.randint(0, N, (B, M), generator=g)
+    near = torch.gather(bits_a, 1, src[..., None].expand(B, M, 256)) ^ (
+        torch.rand((B, M, 256), generator=g) < 0.05).to(u8)
+    fresh = torch.rand((B, M), generator=g) < 0.5
+    bits_b = torch.where(fresh[..., None], torch.randint(
+        0, 2, (B, M, 256), generator=g, dtype=u8), near)
+    va = torch.rand((B, N), generator=g) > 0.1
     vb = torch.rand((B, M), generator=g) > 0.1
-    perm = torch.randperm(M, generator=g)
-    bits_b = bits_a[:, perm] ^ flip.to(torch.uint8)
-    pos_a = torch.rand((B, M, 2), generator=g) * torch.tensor([1241., 376.])
-    pos_b = pos_a[:, perm] + torch.randn((B, M, 2), generator=g) * 20
-    bits_a, bits_b, va, vb = (x.to(dev) for x in (bits_a, bits_b, va, vb))
-    mask = hamming.window_mask(pos_a.to(dev), pos_b.to(dev), radius)
-    if angle_mask:
-        # the line path's undirected angle gate (dang < 0.3)
-        from plslam_tpu_torch.frontend.stereo_lines import pair_dang
-        ang_a = torch.rand((B, M), generator=g) * math.pi - math.pi / 2
-        ang_b = (ang_a[:, perm] + torch.randn((B, M), generator=g) * 0.05)
-        mask = mask & (pair_dang(ang_a, ang_b) < 0.3).to(dev)
-    dist = hamming.hamming_matrix(bits_a, bits_b, va, vb, mask)
-    ref = hamming.hamming_matrix_plain(bits_a, bits_b, va, vb, mask)
-    fa, fb = bits_a.float(), bits_b.float()
-    record("hamming_dist" + name, "plslam_tpu_torch/csrc/hamming.cu",
-           "plslam_tpu/ops/hamming.py:30", [dist], [ref], 0.0,
-           lambda: hamming.hamming_matrix(bits_a, bits_b, va, vb, mask),
-           lambda: hamming.hamming_matrix_plain(bits_a, bits_b, va, vb, mask),
-           B * M * M * (1 + 4) + 2 * B * M * 256, B * M * M * 24,
-           lambda: torch.cdist(fa, fb, p=0), entry="hamming_dist")
-    max_d, ratio = (90, 0.9) if angle_mask else (80, 0.75)
-    got = hamming.match_nnr(dist, max_d, ratio)
-    ref = hamming.match_nnr_plain(dist, max_d, ratio)
-    check(int(ref.valid.sum()) > B * M // 20, f"too few matches in D{name}")
-    record("hamming_match" + name, "plslam_tpu_torch/csrc/hamming.cu",
-           "plslam_tpu/ops/hamming.py:57", list(got), list(ref), 0.0,
-           lambda: hamming.match_nnr(dist, max_d, ratio),
-           lambda: hamming.match_nnr_plain(dist, max_d, ratio),
-           B * M * M * 4 + B * M * 9, B * M * M * 4, entry="hamming_match")
+    pos_a = torch.rand((B, N, 2), generator=g) * torch.tensor([1241., 376.])
+    shift = torch.randn((B, M, 2), generator=g) * 20
+    if kind == "stereo":
+        shift = torch.stack([-(2 + 148 * torch.rand((B, M), generator=g)),
+                             torch.rand((B, M), generator=g) * 2 - 1], -1)
+    pos_b = torch.gather(pos_a, 1, src[..., None].expand(B, M, 2)) + shift
+    oct_a = torch.randint(0, 4, (B, N), generator=g, dtype=torch.int32)
+    oct_b = torch.clamp(torch.gather(oct_a, 1, src) + torch.randint(
+        -1, 2, (B, M), generator=g, dtype=torch.int32), 0, 3)
+    if words:
+        bits_a, bits_b = hamming.pack_bits(bits_a), hamming.pack_bits(bits_b)
+    bits_a, bits_b, va, vb, pos_a, pos_b, oct_a, oct_b = (
+        x.to(dev) for x in (bits_a, bits_b, va, vb, pos_a, pos_b, oct_a,
+                            oct_b))
+    m = SlamConfig().matching
+    gate = {"none": None,
+            "window": hamming.Window(pos_a, pos_b, radius),
+            "window_oct": hamming.Window(pos_a, pos_b, radius, oct_a, oct_b),
+            "stereo": hamming.Stereo(pos_a, pos_b, oct_a, oct_b,
+                                     m.stereo_row_tol, m.min_disp,
+                                     m.max_disp)}.get(kind)
+    if kind == "mask":
+        keep = (torch.rand((B, N, M), generator=g) < 0.8).to(dev)
+        gate = hamming.Mask(hamming.window_mask(pos_a, pos_b, radius) & keep)
+    return bits_a, bits_b, va, vb, gate
 
 
 def _rel_maps(got, ref):
@@ -545,11 +707,11 @@ def line_kernel_phase(images, cfg, record):
     print(f"[lines] segments after the fusion of the two scales "
           f"{int(segs.valid.sum())} over {N} images", flush=True)
 
-    # D at the line path's shapes: 20 pairs x 128 x 128 with the f2f
-    # window and angle masks
+    # D at the line path's shapes: 20 pairs x 128 x 128 under an explicit
+    # mask (the line matchers' angle and overlap gates stay torch)
     g = torch.Generator(device="cpu").manual_seed(5)
-    hamming_case(record, g, images.device, B=20, M=2 * 64, radius=160.0,
-                 name="@128", angle_mask=True)
+    matcher_case(record, g, images.device, 20, cfg.lines.max_lines,
+                 cfg.lines.max_lines, "mask", "@128", md=90, ratio=0.9)
 
 
 CHUNK = 20
@@ -584,12 +746,12 @@ def main_scene(lines: bool):
 # of points and, with lines, two of lines). The main path's timed run,
 # initialize + 2 chunks, is 3 extractions and 2 trackings.
 EXTRACT_POINTS = {"image_sep_filter": 12, "image_resize": 7, "fast_score": 4,
-                  "fast_nms_block": 4, "orb_describe": 1, "hamming_dist": 1,
-                  "hamming_match": 1}
+                  "fast_nms_block": 4, "orb_describe": 1, "hamming_scan": 1,
+                  "hamming_finish": 1}
 EXTRACT_LINES = {"image_resize": 1, "lines_sobel": 3, "lines_moments": 4,
                  "lines_label": 2, "lines_refit": 2, "lines_merge": 2,
-                 "lbd_describe": 1, "hamming_dist": 1, "hamming_match": 1}
-TRACK = {"hamming_dist": 2, "hamming_match": 2}
+                 "lbd_describe": 1, "hamming_scan": 1, "hamming_finish": 1}
+TRACK = {"hamming_scan": 2, "hamming_finish": 2}
 GN = {"pose_gn_iters": 4}     # 2 passes x (robust phase + refinement)
 
 
@@ -967,46 +1129,13 @@ def slam_kernel_phase(dev, record):
                entry="medoid")
 
     # D at the map matching's shapes: 8192 map points x 1024 features,
-    # 1024 map lines x 128 segments, with the f2f window mask
-    for N, M, tag in ((cfg.mapping.max_points, cfg.points.max_kpts, "@map"),
-                      (cfg.mapping.max_lines, cfg.lines.max_lines,
-                       "@map_lines")):
-        map_matching_case(record, g, dev, N, M, tag,
-                          cfg.matching.f2f_window)
-
-
-def map_matching_case(record, g, dev, N, M, tag, window):
-    """Kernel D (both launches) at (1, N, M): map landmarks against one
-    keyframe's features, as ``map.add_keyframe`` matches them."""
-    import torch
-    from plslam_tpu_torch.ops import hamming
-    bits_a = torch.randint(0, 2, (1, N, 256), generator=g, dtype=torch.uint8)
-    perm = torch.randperm(N, generator=g)[:M]
-    bits_b = bits_a[:, perm] ^ (torch.rand((1, M, 256), generator=g)
-                                < 0.05).to(torch.uint8)
-    va = torch.rand((1, N), generator=g) > 0.3
-    vb = torch.rand((1, M), generator=g) > 0.1
-    pos_a = torch.rand((1, N, 2), generator=g) * torch.tensor([1241., 376.])
-    pos_b = pos_a[:, perm] + torch.randn((1, M, 2), generator=g) * 5
-    bits_a, bits_b, va, vb = (x.to(dev) for x in (bits_a, bits_b, va, vb))
-    mask = hamming.window_mask(pos_a.to(dev), pos_b.to(dev), window)
-    dist = hamming.hamming_matrix(bits_a, bits_b, va, vb, mask)
-    ref = hamming.hamming_matrix_plain(bits_a, bits_b, va, vb, mask)
-    fa, fb = bits_a.float(), bits_b.float()
-    record("hamming_dist" + tag, "plslam_tpu_torch/csrc/hamming.cu",
-           "plslam_tpu/ops/hamming.py:30", [dist], [ref], 0.0,
-           lambda: hamming.hamming_matrix(bits_a, bits_b, va, vb, mask),
-           lambda: hamming.hamming_matrix_plain(bits_a, bits_b, va, vb, mask),
-           N * M * (1 + 4) + (N + M) * 256, N * M * 24,
-           lambda: torch.cdist(fa, fb, p=0), entry="hamming_dist")
-    got = hamming.match_nnr(dist, 80, 0.75)
-    ref = hamming.match_nnr_plain(dist, 80, 0.75)
-    check(int(ref.valid.sum()) > M // 20, f"too few matches in D{tag}")
-    record("hamming_match" + tag, "plslam_tpu_torch/csrc/hamming.cu",
-           "plslam_tpu/ops/hamming.py:57", list(got), list(ref), 0.0,
-           lambda: hamming.match_nnr(dist, 80, 0.75),
-           lambda: hamming.match_nnr_plain(dist, 80, 0.75),
-           N * M * 4 + N * 9, N * M * 4, entry="hamming_match")
+    # 1024 map lines x 128 segments, packed words, the f2f window
+    for N, M, tag, md, ratio in (
+            (cfg.mapping.max_points, cfg.points.max_kpts, "@map", 80, 0.75),
+            (cfg.mapping.max_lines, cfg.lines.max_lines, "@map_lines", 90,
+             0.9)):
+        matcher_case(record, g, dev, 1, N, M, "window", tag, words=True,
+                     md=md, ratio=ratio, radius=cfg.matching.f2f_window)
 
 
 # ATE bound of the SLAM path (m), its keyframe count and keyframe frames:
@@ -1068,10 +1197,10 @@ def decisions(slam, cfg):
 
 
 # launches of one window LBA (6 LM iterations: per iteration one step of 6
-# launches and a trial cost of 2, plus the initial cost and the post-hoc
-# flags)
-PER_LBA = {"lba_terms": 14, "lba_sigma": 14, "lba_camera": 6, "lba_bin": 6,
-           "lba_schur": 6, "lba_backsub": 6}
+# launches and a trial cost of 2, plus the initial cost, the landmark index
+# and the post-hoc flags)
+PER_LBA = {"lba_terms": 14, "lba_sigma": 14, "lba_camera": 6, "lba_index": 1,
+           "lba_bin": 6, "lba_schur": 6, "lba_backsub": 6}
 
 
 def expected_slam_launches(n_kfs: int, n_lba: int,
@@ -1082,7 +1211,7 @@ def expected_slam_launches(n_kfs: int, n_lba: int,
     match for points and for lines) and every window LBA (``PER_LBA``)."""
     from collections import Counter
     n = Counter()
-    per_kf = {"medoid": 2, "hamming_dist": 2, "hamming_match": 2}
+    per_kf = {"medoid": 2, "hamming_scan": 2, "hamming_finish": 2}
     per_chunk = {"pose_gn_iters": 4, "kf_scan": 1}
     for table, times in ((EXTRACT_POINTS, n_chunks + 1),
                          (EXTRACT_LINES, n_chunks + 1),
@@ -1338,20 +1467,47 @@ def lba_phase(dev, record, slam):
     free = lba._free(prob)
     lam = torch.tensor(cfg.mapping.lambda_init, device=dev)
     sigma = sig_p[0]
-    b = lba.lba_blocks(tp, prob, sigma, free, lam)
+    # the landmark index: exact; bytes the id tables in, offsets and lists
+    # out; operations a count, a fill and a sort step per observation; the
+    # yardstick the stable sort of the slot keys (the lists alone)
+    idx = lba.lba_index(prob)
+    pt_ids, ln_ids = prob.obs_pt_id.reshape(-1).long(), torch.stack(
+        [prob.obs_ln_sid, prob.obs_ln_eid], dim=1).reshape(-1).long()
+    keys = torch.cat([torch.where(pt_ids >= 0, pt_ids, n_lm),
+                      torch.where(ln_ids >= 0, ln_ids + P, n_lm)])
+    record("lba_index", src, rep + "182", list(idx),
+           list(lba.lba_index_plain(prob)), 0.0,
+           lambda: lba.lba_index(prob), lambda: lba.lba_index_plain(prob),
+           (NP + 2 * NL) * 4 * 2 + (n_lm + 1) * 4, (NP + 2 * NL) * 8,
+           lambda: torch.sort(keys, stable=True),
+           err_kind="offsets, lists; exact")
+    b = lba.lba_blocks(tp, prob, sigma, free, lam, idx)
     bp = lba.lba_blocks_plain(tp, prob, sigma, free, lam)
     g_, r_ = scaled(list(b[2:]), list(bp[2:]))
     ids = torch.clamp(prob.obs_pt_id.reshape(-1), min=0).long()
     payload = torch.randn((NP, 30), device=dev)
+    bin_bytes = ((NP + 2 * NL) * 4 + NP * (72 + 36 + 12 + 5)
+                 + 2 * NL * (40 + 1) + n_lm * 21 * 4 + W * n_lm * 72)
+    bin_ops = NP * 180 + 2 * NL * 80 + n_lm * 60
+    bin_lib = lambda: torch.zeros((P, 30), device=dev).index_add_(0, ids,
+                                                                  payload)
     record("lba_bin", src, rep + "182", g_, r_, [1e-5, 1e-3, 1e-5, 1e-5],
-           lambda: lba.lba_bin(tp, prob, sigma, free, lam),
+           lambda: lba.lba_bin(tp, prob, sigma, free, lam, idx),
            lambda: lba.lba_bin_plain(tp, prob, sigma, free, lam),
-           (NP + 2 * NL) * 4 + NP * (72 + 36 + 12 + 5) + 2 * NL * (40 + 1)
-           + n_lm * 21 * 4 + W * n_lm * 72,
-           NP * 180 + 2 * NL * 80 + n_lm * 60,
-           lambda: torch.zeros((P, 30), device=dev).index_add_(0, ids,
-                                                                payload),
+           bin_bytes, bin_ops, bin_lib,
            err_kind="H_ll, H_inv, g_l, H_cl " + rel)
+    old = lba.lba_bin_scan(tp, prob, sigma, free, lam)
+    g_, r_ = scaled(list(old), list(bp[2:]))
+    record("lba_bin_scan", src, rep + "182", g_, r_,
+           [1e-5, 1e-3, 1e-5, 1e-5],
+           lambda: lba.lba_bin_scan(tp, prob, sigma, free, lam),
+           lambda: lba.lba_bin_plain(tp, prob, sigma, free, lam),
+           bin_bytes, bin_ops, bin_lib, before=True,
+           err_kind="H_ll, H_inv, g_l, H_cl " + rel)
+    d_old = [max_abs_err(x, y) for x, y in zip(b[2:], old)]
+    print(f"[lba] lba_bin against the kernel it replaced (lba_bin_scan) on "
+          f"the window problem, largest |difference| per output (H_ll, "
+          f"H_inv, g_l, H_cl): {[f'{x:g}' for x in d_old]}", flush=True)
     b64 = _as_f64(bp)
 
     def f64_gauge(name, got, ref, truth, typical=None):
@@ -1423,9 +1579,10 @@ def lba_phase(dev, record, slam):
 
     # one LM step and one whole run_lba, kernels against plain versions
     p64 = _as_f64(prob)
-    step = lba._step(prob, cam, lam, lba._KERNELS)
-    step_p = lba._step(prob, cam, lam, lba._PLAIN)
-    step_t = lba._step(p64, cam, lam, lba._PLAIN)
+    step = lba._step(prob, cam, lam, lba._KERNELS, idx)
+    idx_p = lba.lba_index_plain(prob)
+    step_p = lba._step(prob, cam, lam, lba._PLAIN, idx_p)
+    step_t = lba._step(p64, cam, lam, lba._PLAIN, idx_p)
     f64_gauge("one LM step (dxi, d_pt, d_ep)", step, step_p, step_t,
               [1, 1, 1])
     fields = ("kf_pose", "pt_pos", "ep_pos")
@@ -1451,8 +1608,9 @@ def lba_phase(dev, record, slam):
     n_obs = int((prob.obs_pt_id >= 0).sum()) + int(
         (prob.obs_ln_sid >= 0).sum()) * 2
     p64 = _as_f64(prob)
-    step_p = lba._step(prob, cam, lam, lba._PLAIN)
-    step_t = lba._step(p64, cam, lam, lba._PLAIN)
+    idx_p = lba.lba_index_plain(prob)
+    step_p = lba._step(prob, cam, lam, lba._PLAIN, idx_p)
+    step_t = lba._step(p64, cam, lam, lba._PLAIN, idx_p)
     tp = lba.lba_terms_plain(prob, cam)
     sig_w = lba.lba_sigma_plain(tp, prob)[0]
     bp = lba.lba_blocks_plain(tp, prob, sig_w, lba._free(prob), lam)
@@ -1633,9 +1791,9 @@ def expected_loop_launches(n_kfs, n_lba, p: LoopProbe, n_closed) -> dict:
     g = lambda k: p.n.get(k, 0)
     for table, times in (
             ({"bow_descend": 2, "bow_hist": 2}, n_kfs),
-            ({"hamming_dist": 2, "hamming_match": 2, "pose_gn_iters": 2},
+            ({"hamming_scan": 2, "hamming_finish": 2, "pose_gn_iters": 2},
              g("verify_loop_geometry")),
-            ({"hamming_dist": 2, "hamming_match": 2}, n_closed),
+            ({"hamming_scan": 2, "hamming_finish": 2}, n_closed),
             ({"pg_edges": 13, "pg_assemble": 12, "pg_update": 12},
              g("optimize_pose_graph")),
             ({"pg_edges": 13, "pg_blocks": 12, "pg_pcg": 12,
@@ -1764,7 +1922,6 @@ def loop_kernel_phase(dev, record, slam):
     from plslam_tpu_torch.io import synthetic
     from plslam_tpu_torch.loop import pose_graph as pg, vocabulary as voc
     from plslam_tpu_torch.loop.loop_closer import covisibility_counts
-    from plslam_tpu_torch.ops import hamming
     from plslam_tpu_torch.ops.gather import take
 
     st, db = slam.state, slam.loop_closer.db
@@ -1810,38 +1967,14 @@ def loop_kernel_phase(dev, record, slam):
               f"hand kernel): ms={ms:.4f} bound_ms={b_ms:.4f} ({b_by})",
               flush=True)
 
-    # D at the verification and fusion shapes, on the stored packed words
+    # D at the verification and fusion shapes, on the stored packed words,
+    # no gate
     g = torch.Generator(device="cpu").manual_seed(9)
     for N, tag, md, ratio in ((st.kf_pt_desc.shape[1], "@verify", 80, 0.75),
                               (st.kf_ln_desc.shape[1], "@verify_lines", 90,
                                0.9)):
-        bits_a = torch.randint(0, 2, (1, N, 256), generator=g,
-                               dtype=torch.uint8)
-        perm = torch.randperm(N, generator=g)
-        bits_b = bits_a[:, perm] ^ (torch.rand((1, N, 256), generator=g)
-                                    < 0.05).to(torch.uint8)
-        pa, pb = (hamming.pack_bits(x).to(dev) for x in (bits_a, bits_b))
-        va = (torch.rand((1, N), generator=g) > 0.2).to(dev)
-        vb = (torch.rand((1, N), generator=g) > 0.2).to(dev)
-        dist = hamming.hamming_matrix(pa, pb, va, vb)
-        ref = hamming.hamming_matrix_plain(pa, pb, va, vb,
-                                           torch.ones_like(dist, dtype=torch.bool))
-        fa, fb = bits_a.float().to(dev), bits_b.float().to(dev)
-        record("hamming_dist" + tag, "plslam_tpu_torch/csrc/hamming.cu",
-               "plslam_tpu/ops/hamming.py:30", [dist], [ref], 0.0,
-               lambda: hamming.hamming_matrix(pa, pb, va, vb),
-               lambda: hamming.hamming_matrix_plain(
-                   pa, pb, va, vb, torch.ones_like(dist, dtype=torch.bool)),
-               N * N * 4 + 2 * N * 33, N * N * 24,
-               lambda: torch.cdist(fa, fb, p=0), entry="hamming_dist")
-        got = hamming.match_nnr(dist, md, ratio, mutual=True)
-        want = hamming.match_nnr_plain(dist, md, ratio, mutual=True)
-        check(int(want.valid.sum()) > N // 4, f"too few matches in D{tag}")
-        record("hamming_match" + tag, "plslam_tpu_torch/csrc/hamming.cu",
-               "plslam_tpu/ops/hamming.py:57", list(got), list(want), 0.0,
-               lambda: hamming.match_nnr(dist, md, ratio, mutual=True),
-               lambda: hamming.match_nnr_plain(dist, md, ratio, mutual=True),
-               N * N * 4 + N * 9, N * N * 4, entry="hamming_match")
+        matcher_case(record, g, dev, 1, N, N, "none", tag, words=True, md=md,
+                     ratio=ratio)
 
     # K7: covisibility over the (512, 1024) observation table
     F, K = st.obs_pt_lm.shape
@@ -2181,7 +2314,7 @@ DATASET_CPU = {"kitti_frame": 0.015001279747805839,
 CHUNK_VS_FRAME_M = 5e-3
 # one pair's f2f match of one feature family, and its GN (robust phase +
 # refinement), in the per-frame driver
-TRACK_PAIR = {"hamming_dist": 1, "hamming_match": 1}
+TRACK_PAIR = {"hamming_scan": 1, "hamming_finish": 1}
 GN_PAIR = {"pose_gn_iters": 2}
 
 
@@ -2469,12 +2602,65 @@ def dataset_path(dev, record):
     return eu["euroc_device"]["launches"]
 
 
+def bench_slam_scene(devices) -> None:
+    """bench_slam.py's own scene (201 frames, seed 0, loop, 400 points, 60
+    lines, noise 0.004, step 0.15, uint8 frames in chunks of 20) through
+    ``FusedPLSLAM(SlamConfig())`` (loops on) on each of ``devices`` ("cuda",
+    "cpu": the plain versions): keyframes and their frames, loops, the
+    funnel, the ATE and the smallest keyframe-decision margin; with two
+    devices, the first keyframe decision that differs and its margin in
+    each run. Not a phase of ``main``:
+    ``python3 chip_smoke.py --bench-slam cuda cpu``."""
+    from plslam_tpu_torch.backend.fused_slam import FusedPLSLAM
+    from plslam_tpu_torch.config import SlamConfig
+    from plslam_tpu_torch.core.camera import StereoCamera
+    from plslam_tpu_torch.io import synthetic
+    from plslam_tpu_torch.utils.evaluation import ate_rmse
+    cfg = SlamConfig()
+    cam = StereoCamera.from_config(cfg.camera)
+    n_chunks = 10
+    seq = synthetic.make_sequence(cam, n_frames=1 + n_chunks * CHUNK, seed=0,
+                                  kind="loop", n_points=400, n_lines=60,
+                                  noise=0.004, step=0.15)
+    u8 = lambda a: np.clip(a * 255.0 + 0.5, 0, 255).astype(np.uint8)
+    il, ir = u8(np.asarray(seq.images_l)), u8(np.asarray(seq.images_r))
+    runs = {}
+    for device in devices:
+        slam = FusedPLSLAM(cfg, cam, device=device)
+        t0 = time.perf_counter()
+        est = drive_slam(slam, il, ir, None, n_chunks)
+        kf_frames, events, funnel, good, margin = loop_summary(slam, cfg)
+        ate = float(ate_rmse(est, seq.poses[:len(est)]))
+        runs[device] = (np.asarray(kf_frames), margin)
+        print(f"[bench_slam] {device}: good={int(good.sum())}/{len(good)} "
+              f"keyframes={len(slam.summaries)} kf_frames={kf_frames} "
+              f"loops={len(events)} events={events} funnel={funnel} "
+              f"ate_m={ate!r} smallest keyframe-decision margin "
+              f"{margin.min():.6g} ({time.perf_counter() - t0:.1f} s)",
+              flush=True)
+    if len(runs) == 2:
+        (fa, ma), (fb, mb) = runs.values()
+        n = len(ma)
+        flags = [np.isin(np.arange(n), f) for f in (fa, fb)]
+        differ = np.nonzero(flags[0] != flags[1])[0]
+        if differ.size:
+            i = int(differ[0])
+            print(f"[bench_slam] first keyframe decision that differs: frame "
+                  f"{i}, margins {ma[i]:.6g} ({devices[0]}) and {mb[i]:.6g} "
+                  f"({devices[1]})", flush=True)
+        else:
+            print("[bench_slam] identical keyframe decisions", flush=True)
+
+
 LOOP_SCENE = None
 
 
 def main() -> int:
     if sys.argv[1:2] == ["--cpu-ate"]:
         cpu_reference_ate(sys.argv[2:])
+        return 0
+    if sys.argv[1:2] == ["--bench-slam"]:
+        bench_slam_scene(sys.argv[2:] or ["cuda"])
         return 0
     try:
         import torch
@@ -2563,7 +2749,11 @@ def main() -> int:
     for r in rows:
         r["launches"] = next((run[0][r["entry"]] for run in runs
                               if run[0].get(r["entry"])), 0)
-        check(r["launches"] > 0, f"{r['entry']} never launched on a path")
+        if r["before"]:
+            check(r["launches"] == 0, f"{r['entry']}, replaced, still "
+                  "launches on a path")
+        else:
+            check(r["launches"] > 0, f"{r['entry']} never launched on a path")
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -13,9 +13,13 @@ On CUDA tensors each stage is a launch of kernel K (``csrc/lba.cu``):
 ``lba_terms`` (residuals, Jacobians, validity, norms per observation),
 ``lba_sigma`` (the lower-median MAD scale over all observations and the
 robust cost), ``lba_camera`` (H_cc, g_c per pose), ``lba_bin`` (the
-landmark blocks, damped inverses and H_cl, one warp per landmark scanning
-the observation tables in order: no float atomics), ``lba_schur`` (S and
-the reduced gradient) and ``lba_backsub`` (landmark steps, floors, caps).
+landmark blocks, damped inverses and H_cl, one warp per landmark walking
+its observations in order: no float atomics), ``lba_schur`` (S and the
+reduced gradient) and ``lba_backsub`` (landmark steps, floors, caps);
+``lba_index`` lists each landmark's observations once a ``run_lba`` (the
+ids do not change between its LM steps) for every ``lba_bin``. The
+binning it replaced, which scans the whole id tables for each landmark,
+stays as ``lba_bin_scan`` with no main-path caller.
 The dense 6W x 6W solve is the library's ``torch.linalg.solve_ex``, as the
 reference calls ``jnp.linalg.solve``. The ``*_plain`` functions are the
 reference's arithmetic in PyTorch (the one-hot binning included, which is
@@ -76,6 +80,15 @@ class LBATerms(NamedTuple):
     Jc_ln: torch.Tensor      # (2, W, L, 6)
     Jp_ln: torch.Tensor      # (2, W, L, 3)
     ok_ln: torch.Tensor      # (2, W, L) bool
+
+
+class LBAIndex(NamedTuple):
+    """Each landmark slot's observations, CSR: ``obs[off[n]:off[n + 1]]``
+    in ascending id, points g = w K + k first, then endpoints g = W K +
+    (2 w + family) L + k, so each list runs in (pose, family, k) order;
+    detached ids are left out and the tail of ``obs`` is -1."""
+    off: torch.Tensor        # (P + Q + 1,) int32
+    obs: torch.Tensor        # (W K + 2 W L,) int32
 
 
 class LandmarkBlocks(NamedTuple):
@@ -321,30 +334,86 @@ def lba_camera(t: LBATerms, sigma, free):
     return H_cc, g_c
 
 
-def lba_bin(t: LBATerms, problem: LBAProblem, sigma, free, lam):
-    """Landmark blocks (H_ll, H_inv, g_l, H_cl): one ``lba_bin`` launch."""
+def lba_index_plain(problem: LBAProblem) -> LBAIndex:
+    """A stable sort of the observation ids by landmark slot."""
+    P, Q = problem.pt_pos.shape[0], problem.ep_pos.shape[0]
+    n = P + Q
+    pt = problem.obs_pt_id.reshape(-1).long()
+    ln = torch.stack([problem.obs_ln_sid, problem.obs_ln_eid],
+                     dim=1).reshape(-1).long()                # (W, 2, L)
+    slot = torch.cat([torch.where((pt >= 0) & (pt < P), pt, n),
+                      torch.where((ln >= 0) & (ln < Q), ln + P, n)])
+    order = torch.sort(slot, stable=True).indices
+    counts = torch.bincount(slot, minlength=n + 1)[:n]
+    off = torch.cat([counts.new_zeros(1), torch.cumsum(counts, 0)])
+    ids = torch.arange(slot.shape[0], device=slot.device)
+    obs = torch.where(ids < off[-1], order, -1)
+    return LBAIndex(off.to(torch.int32), obs.to(torch.int32))
+
+
+def lba_index(problem: LBAProblem) -> LBAIndex:
+    """Each landmark's observations: one ``lba_index`` launch."""
+    if problem.obs_pt_id.device.type == "cpu":
+        return lba_index_plain(problem)
+    W, K = problem.obs_pt_id.shape
+    L = problem.obs_ln_sid.shape[1]
+    P, Q = problem.pt_pos.shape[0], problem.ep_pos.shape[0]
+    dev = problem.obs_pt_id.device
+    off = torch.empty((P + Q + 1,), dtype=torch.int32, device=dev)
+    obs = torch.empty((W * K + 2 * W * L,), dtype=torch.int32, device=dev)
+    native.launch("lba_index", _i32(problem.obs_pt_id),
+                  _i32(problem.obs_ln_sid), _i32(problem.obs_ln_eid), off,
+                  obs, W, K, L, P, Q)
+    return LBAIndex(off, obs)
+
+
+def _bin_outputs(t: LBATerms, problem: LBAProblem):
+    W = t.rn.shape[0]
+    n = problem.pt_pos.shape[0] + problem.ep_pos.shape[0]
+    e = lambda *s: torch.empty(s, dtype=torch.float32, device=t.rn.device)
+    return e(n, 3, 3), e(n, 3, 3), e(n, 3), e(W, n, 6, 3)
+
+
+def lba_bin(t: LBATerms, problem: LBAProblem, sigma, free, lam,
+            index: LBAIndex):
+    """Landmark blocks (H_ll, H_inv, g_l, H_cl): one ``lba_bin`` launch
+    over ``index``, the problem's ``lba_index``."""
     if t.rn.device.type == "cpu":
         return lba_bin_plain(t, problem, sigma, free, lam)
     W, K = t.rn.shape
     L = t.r_ln.shape[2]
     P, Q = problem.pt_pos.shape[0], problem.ep_pos.shape[0]
-    n = P + Q
-    e = lambda *s: torch.empty(s, dtype=torch.float32, device=t.rn.device)
-    H_ll, H_inv, g_l, H_cl = e(n, 3, 3), e(n, 3, 3), e(n, 3), e(W, n, 6, 3)
-    native.launch("lba_bin", _i32(problem.obs_pt_id),
+    out = _bin_outputs(t, problem)
+    native.launch("lba_bin", index.off, index.obs, t.Jc_pt, t.Jp_pt,
+                  t.r_pt, t.rn, t.ok_pt, t.Jc_ln, t.Jp_ln, t.r_ln, t.ok_ln,
+                  _f32(sigma.reshape(())), free.to(torch.uint8).contiguous(),
+                  _f32(lam.reshape(())), *out, W, K, L, P, Q)
+    return out
+
+
+def lba_bin_scan(t: LBATerms, problem: LBAProblem, sigma, free, lam):
+    """The replaced binning: the same outputs as ``lba_bin`` from the id
+    tables themselves, one ``lba_bin_scan`` launch."""
+    if t.rn.device.type == "cpu":
+        return lba_bin_plain(t, problem, sigma, free, lam)
+    W, K = t.rn.shape
+    L = t.r_ln.shape[2]
+    P, Q = problem.pt_pos.shape[0], problem.ep_pos.shape[0]
+    out = _bin_outputs(t, problem)
+    native.launch("lba_bin_scan", _i32(problem.obs_pt_id),
                   _i32(problem.obs_ln_sid), _i32(problem.obs_ln_eid),
                   t.Jc_pt, t.Jp_pt, t.r_pt, t.rn, t.ok_pt, t.Jc_ln, t.Jp_ln,
                   t.r_ln, t.ok_ln, _f32(sigma.reshape(())),
                   free.to(torch.uint8).contiguous(), _f32(lam.reshape(())),
-                  H_ll, H_inv, g_l, H_cl, W, K, L, P, Q)
-    return H_ll, H_inv, g_l, H_cl
+                  *out, W, K, L, P, Q)
+    return out
 
 
-def lba_blocks(t: LBATerms, problem: LBAProblem, sigma, free, lam
-               ) -> LandmarkBlocks:
+def lba_blocks(t: LBATerms, problem: LBAProblem, sigma, free, lam,
+               index: LBAIndex) -> LandmarkBlocks:
     """Camera blocks and landmark blocks of one problem state."""
     return LandmarkBlocks(*lba_camera(t, sigma, free),
-                          *lba_bin(t, problem, sigma, free, lam))
+                          *lba_bin(t, problem, sigma, free, lam, index))
 
 
 def lba_schur_plain(b: LandmarkBlocks, free, lam,
@@ -429,6 +498,7 @@ def _free(problem: LBAProblem):
 class _Ops(NamedTuple):
     terms: object
     sigma: object
+    index: object
     blocks: object
     schur: object
     backsub: object
@@ -436,20 +506,25 @@ class _Ops(NamedTuple):
 
 # the launches (each dispatching on the device of its tensors), and the
 # plain versions: run_lba_plain holds the whole LM loop of kernels against
-# the same loop of plain versions on the card
-_KERNELS = _Ops(lba_terms, lba_sigma, lba_blocks, lba_schur, lba_backsub)
-_PLAIN = _Ops(lba_terms_plain, lba_sigma_plain, lba_blocks_plain,
+# the same loop of plain versions on the card (whose one-hot binning reads
+# no index)
+_KERNELS = _Ops(lba_terms, lba_sigma, lba_index, lba_blocks, lba_schur,
+                lba_backsub)
+_PLAIN = _Ops(lba_terms_plain, lba_sigma_plain, lba_index_plain,
+              lambda t, problem, sigma, free, lam, index: lba_blocks_plain(
+                  t, problem, sigma, free, lam),
               lba_schur_plain, lba_backsub_plain)
 
 
 def _step(problem: LBAProblem, cam: StereoCamera, lam, ops: _Ops,
-          pin_weight: float = PIN_WEIGHT, cap: bool = True):
+          index: LBAIndex, pin_weight: float = PIN_WEIGHT, cap: bool = True):
+    """One damped LM step; ``index``: the problem's ``ops.index``."""
     lam = torch.as_tensor(lam, dtype=torch.float32,
                           device=problem.kf_pose.device)
     t = ops.terms(problem, cam)
     sigma, _ = ops.sigma(t, problem)
     free = _free(problem)
-    b = ops.blocks(t, problem, sigma, free, lam)
+    b = ops.blocks(t, problem, sigma, free, lam, index)
     Sm, gm = ops.schur(b, free, lam, pin_weight)
     dxi = -torch.linalg.solve_ex(Sm, gm[:, None])[0][:, 0].reshape(-1, 6)
     dxi = torch.where(free[:, None], dxi, 0.0)
@@ -460,7 +535,8 @@ def _assemble_and_solve(problem: LBAProblem, cam: StereoCamera, lam,
                         pin_weight: float = PIN_WEIGHT):
     """One damped step before the trust-region caps (the reference's
     return value): (dxi (W,6), d_pt (P,3), d_ep (Q,3))."""
-    return _step(problem, cam, lam, _KERNELS, pin_weight, cap=False)
+    return _step(problem, cam, lam, _KERNELS, lba_index(problem), pin_weight,
+                 cap=False)
 
 
 def _cost(problem, cam, ops: _Ops):
@@ -474,8 +550,10 @@ def _run(problem: LBAProblem, cam: StereoCamera, cfg: SlamConfig,
     lam = torch.tensor(mcfg.lambda_init, dtype=torch.float32,
                        device=cost0.device)
     prob, cost = problem, cost0
+    # the observation ids stay as they are through the LM loop
+    index = ops.index(problem)
     for _ in range(mcfg.lba_iters):
-        dxi, d_pt, d_ep = _step(prob, cam, lam, ops)
+        dxi, d_pt, d_ep = _step(prob, cam, lam, ops, index)
         trial = prob._replace(kf_pose=lie.exp_se3(dxi) @ prob.kf_pose,
                               pt_pos=prob.pt_pos + d_pt,
                               ep_pos=prob.ep_pos + d_ep)
@@ -500,7 +578,7 @@ def run_lba(problem: LBAProblem, cam: StereoCamera, cfg: SlamConfig
     number of iterations, every decision on the device: per iteration one
     step (``lba_terms``, ``lba_sigma``, ``lba_camera``, ``lba_bin``,
     ``lba_schur``, the library solve, ``lba_backsub``) and the trial cost
-    (``lba_terms``, ``lba_sigma``)."""
+    (``lba_terms``, ``lba_sigma``); one ``lba_index`` before the loop."""
     return _run(problem, cam, cfg, _KERNELS)
 
 

@@ -198,12 +198,12 @@ def _allocate_slots(free: torch.Tensor, want: torch.Tensor) -> torch.Tensor:
 
 def _match_into_kf(lm_desc, proj_ok, f_desc, f_valid, pred, f_pos, window,
                    max_dist, ratio):
-    """Map landmarks -> this KF's features: kernel D at (1, N, K)."""
-    dist = hamming.hamming_matrix(lm_desc[None], f_desc[None], proj_ok[None],
-                                  f_valid[None],
-                                  hamming.window_mask(pred, f_pos,
-                                                      window)[None])
-    res = hamming.match_nnr(dist, max_dist, ratio, mutual=True)
+    """Map landmarks -> this KF's features (both packed words): kernel D at
+    (1, N, K) with the f2f window around each landmark's prediction."""
+    res = hamming.match_gated(lm_desc[None], f_desc[None], proj_ok[None],
+                              f_valid[None],
+                              hamming.Window(pred[None], f_pos[None], window),
+                              max_dist, ratio, mutual=True)
     return res.idx[0], res.valid[0]
 
 
@@ -274,8 +274,9 @@ def add_keyframe(state: MapState, pts: PointObservations,
               | (torch.sum(state.pt_dir * vdir_pt, dim=-1) > mcfg.view_cos_th))
     proj_ok = (state.pt_valid & recent & dir_ok & (Pc[..., 2] > 0.5)
                & cam.in_image(uv_pred, margin=-20.0))
+    pts_packed = hamming.pack_bits(pts.desc)                       # (K, 8)
     m_idx, m_valid = _match_into_kf(
-        state.pt_desc, proj_ok, pts.desc, pts.valid, uv_pred, pts.uv,
+        state.pt_desc, proj_ok, pts_packed, pts.valid, uv_pred, pts.uv,
         mtch.f2f_window, mtch.max_hamming_p, mtch.min_ratio_12_p)
     pt_matched = m_valid & has_room
     feat_of_pt = torch.clamp(m_idx, min=0).long()
@@ -290,7 +291,6 @@ def add_keyframe(state: MapState, pts: PointObservations,
     new_slot = _allocate_slots(~state.pt_valid, want_new)
     P_world = lie.transform_points(T_w_kf, pts.P)
     feat_lm = torch.where(new_slot >= 0, new_slot, feat_lm)
-    pts_packed = hamming.pack_bits(pts.desc)                       # (K, 8)
     ((pt_pos,), pt_valid, pt_nobs, pt_first, pt_last, pt_ring, pt_ring_n,
      pt_dir, pt_desc) = _insert_family(
         (state.pt_pos,), state.pt_valid, state.pt_nobs, state.pt_first_kf,
@@ -311,8 +311,9 @@ def add_keyframe(state: MapState, pts: PointObservations,
                       > mcfg.view_cos_th))
         lproj_ok = (state.ln_valid & lrecent & ldir_ok & (Pm[..., 2] > 0.5)
                     & cam.in_image(mid_pred, margin=-40.0))
+        lns_packed = hamming.pack_bits(lns.desc)
         l_idx, l_valid = _match_into_kf(
-            state.ln_desc, lproj_ok, lns.desc, lns.valid, mid_pred,
+            state.ln_desc, lproj_ok, lns_packed, lns.valid, mid_pred,
             0.5 * (lns.sp + lns.ep), mtch.f2f_window, mtch.max_hamming_l,
             mtch.min_ratio_12_l)
         ln_matched = l_valid & has_room
@@ -328,7 +329,6 @@ def add_keyframe(state: MapState, pts: PointObservations,
         lfeat_lm = torch.where(lnew_slot >= 0, lnew_slot, lfeat_lm)
         sP_w = lie.transform_points(T_w_kf, lns.sP)
         eP_w = lie.transform_points(T_w_kf, lns.eP)
-        lns_packed = hamming.pack_bits(lns.desc)
         ((ln_spos, ln_epos), ln_valid, ln_nobs, ln_first, ln_last, ln_ring,
          ln_ring_n, ln_dir, ln_desc) = _insert_family(
             (state.ln_spos, state.ln_epos), state.ln_valid, state.ln_nobs,
@@ -527,9 +527,8 @@ def _fuse_family(lm_a, lm_b, desc_a, desc_b, pos, valid, nobs, obs_lm,
     squared distance must stay below 0.25 (0.5 m)."""
     n = valid.shape[0]
     ok_a, ok_b = lm_a >= 0, lm_b >= 0
-    dist = hamming.hamming_matrix(desc_a[None], desc_b[None], ok_a[None],
-                                  ok_b[None])
-    mres = hamming.match_nnr(dist, max_dist, ratio, mutual=True)
+    mres = hamming.match_gated(desc_a[None], desc_b[None], ok_a[None],
+                               ok_b[None], None, max_dist, ratio, mutual=True)
     lbm = lm_b[torch.clamp(mres.idx[0], min=0).long()]
     la = torch.clamp(lm_a, min=0).long()
     lb = torch.clamp(lbm, min=0).long()

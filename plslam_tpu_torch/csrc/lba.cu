@@ -1,5 +1,6 @@
 // Kernel K: the Schur-complement local bundle adjustment (K15), six launches
-// per LM step (the dense 6W x 6W solve between them is the library's).
+// per LM step (the dense 6W x 6W solve between them is the library's) and
+// one landmark index per window LBA.
 //
 // Replaces plslam_tpu/backend/lba.py::_point_rj (:79), _endpoint_rj (:116),
 // _robust_sigma (:142), lba_cost (:150), _bin_landmark_blocks (:182) and
@@ -25,12 +26,26 @@
 //               robust cost with the lost-observation charge as a
 //               fixed-order reduction.
 //   lba_camera  one block per pose: H_cc and g_c, fixed-order reduction.
-//   lba_bin     one warp per landmark slot, scanning the observation id
-//               tables in order (ballot, then the matches in ascending
-//               index): H_ll, g_l, the damped block's inverse (the
-//               reference's scale-normalised closed-form Cholesky) and
-//               H_cl for every pose. No float atomics: the sums do not
-//               depend on scheduling.
+//   lba_index   once a window LBA (the observation ids do not
+//               change between LM steps): one block lists each landmark
+//               slot's observations in CSR form, points first, then the
+//               endpoints, each list in (pose, family, k) order. Integer
+//               shared-memory atomics count, one block scan gives the
+//               offsets, a fill, then an insertion sort of each short list
+//               by observation id: exact and deterministic.
+//   lba_bin     one warp per landmark slot walks its list: its
+//               lanes split the 12 + 18 entries an observation touches
+//               (H_ll, g_l; H_cl of the observation's pose, written out as
+//               the walk passes each pose, zeros included), every lane in
+//               the list's order with the t-Student weight of each
+//               observation; then the damped block's inverse (the
+//               reference's scale-normalised closed-form Cholesky). Each
+//               sum runs in the order and arithmetic of lba_bin_scan. No
+//               float atomics: the sums do not depend on scheduling.
+//   lba_bin_scan  the binning lba_bin replaced, kept as the "before"
+//               that chip_smoke.py compares (no main-path caller): one warp
+//               per slot scans every observation id of the window (ballot,
+//               then the matches in ascending index) and lane 0 sums.
 //   lba_schur   one block per pose pair (w, v): S[w, v] = -sum_l
 //               H_cl[w,l] H_ll^-1 H_cl[v,l]^T in a fixed order, plus on the
 //               diagonal H_cc, the damping of the original H_cc diagonal
@@ -399,6 +414,179 @@ __global__ void __launch_bounds__(BIN_NT)
   for (int a = 0; a < 3; ++a) g_l[3 * n + a] = g[a];
 }
 
+// -- the landmark index and the binning that reads it ----------------------
+
+constexpr int IDX_NT = 1024;
+
+// landmark slot of observation g (points g < W K, w-major; then endpoints
+// in (w, family, k) order), or -1 where it is detached
+__device__ __forceinline__ int obs_slot(int g, const int* __restrict__ obs_id,
+                                        const int* __restrict__ sid,
+                                        const int* __restrict__ eid, int W,
+                                        int K, int L, int P, int Q) {
+  const int WK = W * K;
+  if (g < WK) {
+    const int id = obs_id[g];
+    return id >= 0 && id < P ? id : -1;
+  }
+  const int h = g - WK, w = h / (2 * L), r = h - w * 2 * L;
+  const int f = r >= L ? 1 : 0;
+  const int id = (f ? eid : sid)[w * L + r - f * L];
+  return id >= 0 && id < Q ? P + id : -1;
+}
+
+__global__ void __launch_bounds__(IDX_NT)
+    lba_index_kernel(const int* __restrict__ obs_id,
+                     const int* __restrict__ sid, const int* __restrict__ eid,
+                     int* __restrict__ off, int* __restrict__ list, int W,
+                     int K, int L, int P, int Q) {
+  extern __shared__ int cnt[];  // P + Q counters, then fill cursors
+  __shared__ int part[IDX_NT];
+  const int N = P + Q, T = W * K + 2 * W * L, tid = threadIdx.x;
+  for (int n = tid; n < N; n += IDX_NT) cnt[n] = 0;
+  __syncthreads();
+  for (int g = tid; g < T; g += IDX_NT) {
+    const int s = obs_slot(g, obs_id, sid, eid, W, K, L, P, Q);
+    if (s >= 0) atomicAdd(&cnt[s], 1);
+  }
+  __syncthreads();
+  // exclusive scan: a run of slots a thread, then the runs' sums
+  const int per = (N + IDX_NT - 1) / IDX_NT;
+  const int lo = min(tid * per, N), hi = min(lo + per, N);
+  int sum = 0;
+  for (int n = lo; n < hi; ++n) sum += cnt[n];
+  part[tid] = sum;
+  __syncthreads();
+  for (int s = 1; s < IDX_NT; s <<= 1) {
+    const int v = tid >= s ? part[tid - s] : 0;
+    __syncthreads();
+    part[tid] += v;
+    __syncthreads();
+  }
+  int run = part[tid] - sum;
+  for (int n = lo; n < hi; ++n) {
+    const int c = cnt[n];
+    off[n] = run;
+    cnt[n] = run;
+    run += c;
+  }
+  const int total = part[IDX_NT - 1];
+  if (tid == 0) off[N] = total;
+  __syncthreads();
+  for (int g = tid; g < T; g += IDX_NT) {
+    const int s = obs_slot(g, obs_id, sid, eid, W, K, L, P, Q);
+    if (s >= 0) list[atomicAdd(&cnt[s], 1)] = g;
+  }
+  for (int g = total + tid; g < T; g += IDX_NT) list[g] = -1;
+  __syncthreads();
+  // each list in ascending observation id (a few entries: insertion sort)
+  for (int n = tid; n < N; n += IDX_NT) {
+    const int b = off[n], e = cnt[n];
+    for (int a = b + 1; a < e; ++a) {
+      const int v = list[a];
+      int c = a - 1;
+      while (c >= b && list[c] > v) {
+        list[c + 1] = list[c];
+        --c;
+      }
+      list[c + 1] = v;
+    }
+  }
+}
+
+__global__ void __launch_bounds__(BIN_NT)
+    bin_index_kernel(const int* __restrict__ off, const int* __restrict__ list,
+                     const float* __restrict__ Jc_pt,
+                     const float* __restrict__ Jp_pt,
+                     const float* __restrict__ r_pt,
+                     const float* __restrict__ rn,
+                     const uint8_t* __restrict__ ok_pt,
+                     const float* __restrict__ Jc_ln,
+                     const float* __restrict__ Jp_ln,
+                     const float* __restrict__ r_ln,
+                     const uint8_t* __restrict__ ok_ln, const float* sigma_p,
+                     const uint8_t* __restrict__ free_, const float* lam_p,
+                     float* H_ll, float* H_inv, float* g_l, float* H_cl, int W,
+                     int K, int L, int P, int Q) {
+  const int n = (blockIdx.x * BIN_NT + threadIdx.x) / 32;
+  const int lane = threadIdx.x & 31;
+  const int N = P + Q;
+  if (n >= N) return;
+  const float sigma = *sigma_p;
+  // a lane's entry: 0-8 H_ll (a, b), 9-11 g_l (a), 12-29 H_cl (a, c) of
+  // the current pose; 30 and 31 walk along idle
+  const int ha = lane / 3, hb = lane % 3, ga = lane - 9;
+  const int q = lane - 12, ca = q / 3, cc = q % 3;
+  const bool cl = lane >= 12 && lane < 30;
+  float acc = 0.0f;
+  int wcur = 0;
+  const int WK = W * K, end = off[n + 1];
+  for (int t = off[n]; t < end; ++t) {
+    const int g = list[t];
+    const bool pt = g < WK;
+    int w, j;
+    if (pt) {
+      w = g / K;
+      j = g;
+    } else {
+      const int h = g - WK;
+      w = h / (2 * L);
+      const int r = h - w * 2 * L, f = r >= L ? 1 : 0;
+      j = f * W * L + w * L + r - f * L;
+    }
+    if (cl)
+      for (; wcur < w; ++wcur) {
+        H_cl[((size_t)wcur * N + n) * 18 + q] = acc;
+        acc = 0.0f;
+      }
+    const float fr = free_[w] ? 1.0f : 0.0f;
+    if (pt) {
+      if (!ok_pt[j]) continue;
+      const float wt = tstudent(rn[j], sigma);
+      const float* Jp = Jp_pt + 9 * j;
+      const float* Jc = Jc_pt + 18 * j;
+      const float* r = r_pt + 3 * j;
+      if (lane < 9)
+        acc += wt * (Jp[ha] * Jp[hb] + Jp[3 + ha] * Jp[3 + hb] +
+                     Jp[6 + ha] * Jp[6 + hb]);
+      else if (lane < 12)
+        acc += wt * (Jp[ga] * r[0] + Jp[3 + ga] * r[1] + Jp[6 + ga] * r[2]);
+      else if (cl)
+        acc += wt * fr *
+               (Jc[ca] * Jp[cc] + Jc[6 + ca] * Jp[3 + cc] +
+                Jc[12 + ca] * Jp[6 + cc]);
+    } else {
+      if (!ok_ln[j]) continue;
+      const float r = r_ln[j];
+      const float wt = tstudent(fabsf(r), sigma);
+      const float* Jp = Jp_ln + 3 * j;
+      const float* Jc = Jc_ln + 6 * j;
+      if (lane < 9)
+        acc += wt * Jp[ha] * Jp[hb];
+      else if (lane < 12)
+        acc += wt * Jp[ga] * r;
+      else if (cl)
+        acc += wt * fr * Jc[ca] * Jp[cc];
+    }
+  }
+  if (cl)
+    for (; wcur < W; ++wcur) {
+      H_cl[((size_t)wcur * N + n) * 18 + q] = acc;
+      acc = 0.0f;
+    }
+  float H[9];
+#pragma unroll
+  for (int e = 0; e < 9; ++e) H[e] = __shfl_sync(0xffffffffu, acc, e);
+  if (lane < 9) H_ll[9 * n + lane] = acc;
+  else if (lane < 12) g_l[3 * n + ga] = acc;
+  if (lane != 0) return;
+  const float lam = *lam_p;
+  float Hd[9];
+  for (int i = 0; i < 9; ++i) Hd[i] = H[i];
+  for (int a = 0; a < 3; ++a) Hd[4 * a] += lam * fmaxf(H[4 * a], 1e-3f);
+  inv3(Hd, H_inv + 9 * n);
+}
+
 constexpr int SCHUR_NT = 256;
 
 __global__ void __launch_bounds__(SCHUR_NT)
@@ -552,15 +740,49 @@ int lba_camera(const float* Jc_pt, const float* r_pt, const float* rn,
   return (int)cudaGetLastError();
 }
 
-// -> H_ll (N, 3, 3), H_inv (N, 3, 3) of the damped blocks, g_l (N, 3),
-// H_cl (W, N, 6, 3); N = P + Q, points first.
-int lba_bin(const int* obs_id, const int* sid, const int* eid,
-            const float* Jc_pt, const float* Jp_pt, const float* r_pt,
-            const float* rn, const uint8_t* ok_pt, const float* Jc_ln,
-            const float* Jp_ln, const float* r_ln, const uint8_t* ok_ln,
-            const float* sigma, const uint8_t* free_, const float* lam,
-            float* H_ll, float* H_inv, float* g_l, float* H_cl, int W, int K,
-            int L, int P, int Q, cudaStream_t stream) {
+// obs_id (W, K), sid, eid (W, L) -> off (P + Q + 1) CSR offsets and list
+// (W K + 2 W L) observation ids slot by slot (points g = w K + k, then
+// endpoints W K + (w 2 + family) L + k), -1 after off[P + Q].
+int lba_index(const int* obs_id, const int* sid, const int* eid, int* off,
+              int* list, int W, int K, int L, int P, int Q,
+              cudaStream_t stream) {
+  const size_t smem = sizeof(int) * (size_t)(P + Q);
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        lba_index_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  lba_index_kernel<<<1, IDX_NT, smem, stream>>>(obs_id, sid, eid, off, list,
+                                                W, K, L, P, Q);
+  return (int)cudaGetLastError();
+}
+
+// lba_index's lists -> H_ll (N, 3, 3), H_inv (N, 3, 3) of the damped
+// blocks, g_l (N, 3), H_cl (W, N, 6, 3); N = P + Q, points first.
+int lba_bin(const int* off, const int* list, const float* Jc_pt,
+            const float* Jp_pt, const float* r_pt, const float* rn,
+            const uint8_t* ok_pt, const float* Jc_ln, const float* Jp_ln,
+            const float* r_ln, const uint8_t* ok_ln, const float* sigma,
+            const uint8_t* free_, const float* lam, float* H_ll, float* H_inv,
+            float* g_l, float* H_cl, int W, int K, int L, int P, int Q,
+            cudaStream_t stream) {
+  const int warps = P + Q, per_block = BIN_NT / 32;
+  bin_index_kernel<<<(warps + per_block - 1) / per_block, BIN_NT, 0,
+                     stream>>>(off, list, Jc_pt, Jp_pt, r_pt, rn, ok_pt,
+                               Jc_ln, Jp_ln, r_ln, ok_ln, sigma, free_, lam,
+                               H_ll, H_inv, g_l, H_cl, W, K, L, P, Q);
+  return (int)cudaGetLastError();
+}
+
+// The replaced binning: the same outputs from the id tables themselves.
+int lba_bin_scan(const int* obs_id, const int* sid, const int* eid,
+                 const float* Jc_pt, const float* Jp_pt, const float* r_pt,
+                 const float* rn, const uint8_t* ok_pt, const float* Jc_ln,
+                 const float* Jp_ln, const float* r_ln, const uint8_t* ok_ln,
+                 const float* sigma, const uint8_t* free_, const float* lam,
+                 float* H_ll, float* H_inv, float* g_l, float* H_cl, int W,
+                 int K, int L, int P, int Q, cudaStream_t stream) {
   const int warps = P + Q, per_block = BIN_NT / 32;
   bin_kernel<<<(warps + per_block - 1) / per_block, BIN_NT, 0, stream>>>(
       obs_id, sid, eid, Jc_pt, Jp_pt, r_pt, rn, ok_pt, Jc_ln, Jp_ln, r_ln,

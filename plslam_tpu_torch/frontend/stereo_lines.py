@@ -163,10 +163,9 @@ def match_stereo_lines(segs_l: lines.Segments, desc_l: torch.Tensor,
             & (seg_y_overlap(segs_l.sp, segs_l.ep, segs_r.sp, segs_r.ep)
                > m.stereo_overlap_th)
             & not_horizontal(segs_l.angle, m.line_horiz_th)[..., :, None])
-    dist = hamming.hamming_matrix(desc_l, desc_r, segs_l.valid, segs_r.valid,
-                                  mask)
-    res = hamming.match_nnr(dist, m.max_hamming_l, m.min_ratio_12_l,
-                            mutual=m.best_lr_matches)
+    res = hamming.match_gated(desc_l, desc_r, segs_l.valid, segs_r.valid,
+                              hamming.Mask(mask), m.max_hamming_l,
+                              m.min_ratio_12_l, mutual=m.best_lr_matches)
     rsel = take(torch.cat([segs_r.sp, segs_r.ep], dim=-1),
                 torch.clamp(res.idx, min=0))
     le_r = line_equation(rsel[..., :2], rsel[..., 2:])

@@ -79,15 +79,11 @@ def match_stereo_points(uv_l, desc_l, oct_l, valid_l,
     window, disparity in [min_disp, max_disp], octaves within 1, Hamming
     NN + ratio + mutual best."""
     m = cfg.matching
-    row_ok = torch.abs(uv_l[..., :, None, 1] - uv_r[..., None, :, 1]
-                       ) <= m.stereo_row_tol
-    d = uv_l[..., :, None, 0] - uv_r[..., None, :, 0]
-    disp_ok = (d >= m.min_disp) & (d <= m.max_disp)
-    oct_ok = torch.abs(oct_l[..., :, None] - oct_r[..., None, :]) <= 1
-    dist = hamming.hamming_matrix(desc_l, desc_r, valid_l, valid_r,
-                                  row_ok & disp_ok & oct_ok)
-    return hamming.match_nnr(dist, m.max_hamming_p, m.min_ratio_12_p,
-                             mutual=m.best_lr_matches)
+    gate = hamming.Stereo(uv_l, uv_r, oct_l, oct_r, m.stereo_row_tol,
+                          m.min_disp, m.max_disp)
+    return hamming.match_gated(desc_l, desc_r, valid_l, valid_r, gate,
+                               m.max_hamming_p, m.min_ratio_12_p,
+                               mutual=m.best_lr_matches)
 
 
 def extract_stereo_points(imgs_l: torch.Tensor, imgs_r: torch.Tensor,

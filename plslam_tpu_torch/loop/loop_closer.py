@@ -57,10 +57,10 @@ def verify_loop_geometry(kf_desc_a, obs_uv_a, obs_disp_a, kf_desc_b, obs_uv_b,
     axis, n_matches)."""
     valid_a = obs_disp_a > 0
     valid_b = torch.any(obs_uv_b != 0, dim=-1)
-    dist = hamming.hamming_matrix(kf_desc_a[None], kf_desc_b[None],
-                                  valid_a[None], valid_b[None])
-    mres = hamming.match_nnr(dist, cfg.matching.max_hamming_p,
-                             cfg.matching.min_ratio_12_p, mutual=True)
+    mres = hamming.match_gated(kf_desc_a[None], kf_desc_b[None],
+                               valid_a[None], valid_b[None], None,
+                               cfg.matching.max_hamming_p,
+                               cfg.matching.min_ratio_12_p, mutual=True)
     idx = torch.clamp(mres.idx[0], min=0).long()
     P_a = cam.back_project(obs_uv_a, torch.where(valid_a, obs_disp_a, 1.0))
     terms = pose_gn.PointTerms(P_a[None], obs_uv_b[idx][None],
@@ -70,10 +70,10 @@ def verify_loop_geometry(kf_desc_a, obs_uv_a, obs_disp_a, kf_desc_b, obs_uv_b,
     if cfg.lines.has_lines:
         lva = (ln_ends_a[:, 4] > 0) & (ln_ends_a[:, 5] > 0)
         lvb = (ln_ends_b[:, 4] > 0) & (ln_ends_b[:, 5] > 0)
-        ldist = hamming.hamming_matrix(ln_desc_a[None], ln_desc_b[None],
-                                       lva[None], lvb[None])
-        lres = hamming.match_nnr(ldist, cfg.matching.max_hamming_l,
-                                 cfg.matching.min_ratio_12_l, mutual=True)
+        lres = hamming.match_gated(ln_desc_a[None], ln_desc_b[None],
+                                   lva[None], lvb[None], None,
+                                   cfg.matching.max_hamming_l,
+                                   cfg.matching.min_ratio_12_l, mutual=True)
         lidx = torch.clamp(lres.idx[0], min=0).long()
         sP_a = cam.back_project(ln_ends_a[:, 0:2],
                                 torch.where(lva, ln_ends_a[:, 4], 1.0))

@@ -45,6 +45,8 @@ _SIGNATURES: Dict[str, str] = {
     "orb_describe": "pppppppiii",
     "hamming_dist": "ppppppiii",
     "hamming_match": "pppppiiiffi",
+    "hamming_scan": "pipippi" + "ppppp" + "fff" + "pppp" + "iii",
+    "hamming_finish": "p" * 6 + "iiiff",
     "lines_sobel": "ppppppiiifi",
     "lines_moments": "pppppppiiiiii",
     "lines_label": "pppppppiiiffi",
@@ -57,7 +59,9 @@ _SIGNATURES: Dict[str, str] = {
     "lba_terms": "p" * 18 + "iiiii" + "fffff",
     "lba_sigma": "p" * 9 + "iii",
     "lba_camera": "p" * 11 + "iii",
-    "lba_bin": "p" * 19 + "iiiii",
+    "lba_index": "p" * 5 + "iiiii",
+    "lba_bin": "p" * 18 + "iiiii",
+    "lba_bin_scan": "p" * 19 + "iiiii",
     "lba_schur": "p" * 9 + "iif",
     "lba_backsub": "p" * 7 + "iii",
     "bow_descend": "pppiii",
@@ -69,6 +73,31 @@ _SIGNATURES: Dict[str, str] = {
     "pg_update": "p" * 10 + "iif",
     "remap_bilinear": "pppiiiiii",
 }
+
+# the kernels' device function names (csrc/*.cu): what chip_smoke.py and
+# profile_torch_vo.py count as the hand-written kernels' device time
+KERNEL_FUNCTIONS = (
+    "filter_vertical", "filter_horizontal", "resize_vertical",
+    "resize_horizontal", "fast_score_kernel", "nms_block_kernel",
+    "orb_describe_kernel", "dist_kernel", "col_argmin_kernel",
+    "row_match_kernel", "hamming_scan_kernel", "hamming_finish_kernel",
+    "sobel_kernel", "block_moments", "window_moments", "label_kernel",
+    "refit_kernel", "merge_kernel", "lbd_kernel", "pose_gn_kernel",
+    "kf_scan_kernel", "medoid_kernel", "terms_kernel", "sigma_kernel",
+    "camera_kernel", "lba_index_kernel", "bin_index_kernel", "bin_kernel",
+    "schur_kernel", "backsub_kernel", "bow_descend_kernel", "bow_hist_kernel",
+    "pg_edges_kernel", "pg_assemble_kernel", "pg_blocks_kernel",
+    "pg_pcg_kernel", "pg_update_kernel", "remap_kernel")
+
+
+
+def is_own_kernel(name: str) -> bool:
+    """Whether a torch.profiler event name is one of KERNEL_FUNCTIONS
+    (``(anonymous namespace)::f(...)`` or ``...::f<...>``; torch's own
+    kernels may contain the same words, as ``gpu_index_kernel``)."""
+    return any(f"::{f}(" in name or f"::{f}<" in name
+               for f in KERNEL_FUNCTIONS)
+
 
 # launches per C entry point since the last reset (plain versions on CPU
 # tensors are never counted)

@@ -37,13 +37,11 @@ def match_f2f_points(prev: PointObservations, cur: PointObservations,
     position predicted by the constant-velocity prior (B, 4, 4)."""
     m = cfg.matching
     uv_pred = cam.project(lie.transform_points(T_prior, prev.P))
-    win = hamming.window_mask(uv_pred, cur.uv, m.f2f_window)
-    oct_ok = torch.abs(prev.octave[..., :, None] - cur.octave[..., None, :]
-                       ) <= 1
-    dist = hamming.hamming_matrix(prev.desc, cur.desc, prev.valid, cur.valid,
-                                  win & oct_ok)
-    return hamming.match_nnr(dist, m.max_hamming_p, m.min_ratio_12_p,
-                             mutual=m.best_lr_matches)
+    gate = hamming.Window(uv_pred, cur.uv, m.f2f_window, prev.octave,
+                          cur.octave)
+    return hamming.match_gated(prev.desc, cur.desc, prev.valid, cur.valid,
+                               gate, m.max_hamming_p, m.min_ratio_12_p,
+                               mutual=m.best_lr_matches)
 
 
 def match_f2f_lines(prev: LineObservations, cur: LineObservations,
@@ -57,10 +55,9 @@ def match_f2f_lines(prev: LineObservations, cur: LineObservations,
     mid_cur = 0.5 * (cur.sp + cur.ep)
     win = hamming.window_mask(mid_pred, mid_cur, m.f2f_window)
     ang_ok = pair_dang(prev.angle, cur.angle) < 0.3
-    dist = hamming.hamming_matrix(prev.desc, cur.desc, prev.valid, cur.valid,
-                                  win & ang_ok)
-    return hamming.match_nnr(dist, m.max_hamming_l, m.min_ratio_12_l,
-                             mutual=m.best_lr_matches)
+    return hamming.match_gated(prev.desc, cur.desc, prev.valid, cur.valid,
+                               hamming.Mask(win & ang_ok), m.max_hamming_l,
+                               m.min_ratio_12_l, mutual=m.best_lr_matches)
 
 
 def build_point_terms(prev: PointObservations, cur: PointObservations,

@@ -55,18 +55,7 @@ from collections import defaultdict
 import numpy as np
 import torch
 
-# the hand-written kernels' device function names (csrc/*.cu)
-OWN_KERNELS = ("filter_vertical", "filter_horizontal", "resize_vertical",
-               "resize_horizontal", "fast_score_kernel", "nms_block_kernel",
-               "orb_describe_kernel", "dist_kernel", "col_argmin_kernel",
-               "row_match_kernel", "sobel_kernel", "block_moments",
-               "window_moments", "label_kernel", "refit_kernel",
-               "merge_kernel", "lbd_kernel", "pose_gn_kernel",
-               "kf_scan_kernel", "medoid_kernel", "terms_kernel",
-               "sigma_kernel", "camera_kernel", "bin_kernel", "schur_kernel",
-               "backsub_kernel", "bow_descend_kernel", "bow_hist_kernel",
-               "pg_edges_kernel", "pg_assemble_kernel", "pg_blocks_kernel",
-               "pg_pcg_kernel", "pg_update_kernel")
+from plslam_tpu_torch import native
 
 
 def host_ms(fn, reps: int) -> float:
@@ -138,7 +127,7 @@ def profile_chunk(chunk, wall_ms):
     busy_ms = sum(us for _, us in table.values()) / 1e3
     launches = sum(n for n, _ in table.values())
     own = {k: v for k, v in table.items()
-           if any(name in k for name in OWN_KERNELS)}
+           if native.is_own_kernel(k)}
     own_ms = sum(us for _, us in own.values()) / 1e3
     idle = 1.0 - busy_ms / wall_ms if busy_ms > 0 else None
     print(f"[profile] device busy {busy_ms:.3f} ms of a {wall_ms:.3f} ms "
@@ -162,7 +151,6 @@ def profile_chunk(chunk, wall_ms):
 def slam_main(reps: int, smi: str, loops: bool) -> int:
     """The --slam and --loops profiles (see the module docstring)."""
     from chip_smoke import CHUNK, loop_scene, slam_scene
-    from plslam_tpu_torch import native
     from plslam_tpu_torch.backend import fused_slam, map as tmap
     from plslam_tpu_torch.backend.map_handler import run_window_lba
     from plslam_tpu_torch.frontend.stereo_frame import extract_stereo_frame

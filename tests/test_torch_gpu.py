@@ -421,7 +421,7 @@ def test_lba_kernels(cuda):
     assert rel(sig, sig_p) <= 1e-6 and rel(cost, cost_p) <= 1e-5
     free = lba._free(prob)
     lam = torch.tensor(1e-3, device=cuda)
-    b = lba.lba_blocks(tp, prob, sig_p, free, lam)
+    b = lba.lba_blocks(tp, prob, sig_p, free, lam, lba.lba_index(prob))
     bp = lba.LandmarkBlocks(*lba.lba_camera_plain(tp, sig_p, free),
                             *lba.lba_bin_plain(tp, prob, sig_p, free, lam))
     # the damped blocks' inverses amplify f32 sum-order noise by their
@@ -571,3 +571,61 @@ def test_remap_kernel_bit_equal(cuda):
                                                           m[0].to(cuda)))
     assert torch.equal(out_r, camera.remap_bilinear_plain(img[1].to(cuda),
                                                           m[1].to(cuda)))
+
+
+# -- the fused, gated matcher (D) and the LBA landmark index (K) ---------------
+
+@pytest.mark.parametrize("shape", [(20, 1024, 1024), (1, 1024, 1024),
+                                   (1, 8192, 1024), (1, 128, 128)])
+@pytest.mark.parametrize("kind", ["none", "window", "window_oct", "stereo",
+                                  "mask"])
+def test_hamming_scan_finish_exact(cuda, kind, shape):
+    """hamming_scan + hamming_finish against match_gated_plain on the card:
+    idx, dist and valid exactly equal, bits and packed words, with and
+    without the mutual check."""
+    from chip_smoke import gated_case
+    B, N, M = shape
+    g = torch.Generator().manual_seed(N + M + len(kind))
+    for words, mutual in ((False, True), (True, True), (False, False)):
+        a, b, va, vb, gate = gated_case(g, cuda, B, N, M, kind, words)
+        scan = _launched("hamming_scan", lambda: hamming.hamming_scan(
+            a, b, va, vb, gate, mutual))
+        got = _launched("hamming_finish", lambda: hamming.hamming_finish(
+            scan, 80, 0.75))
+        want = hamming.match_gated_plain(a, b, va, vb, gate, 80, 0.75, mutual)
+        for x, y in zip(got, want):
+            assert torch.equal(x, y)
+        dist = hamming._gated_matrix_plain(a, b, va, vb, gate)
+        for x, y in zip(scan, hamming.hamming_scan_plain(dist, mutual)):
+            assert (x is None and y is None) or torch.equal(x, y)
+        assert int(want.valid.sum()) > B * M // 20
+
+
+def test_lba_index_and_bin(cuda):
+    """lba_index exactly equal to its plain version; lba_bin on
+    chip_smoke.py's lba_window_problem within chip_smoke.py's tolerances
+    of the plain version (relative to each output's largest magnitude),
+    and against the scanning lba_bin_scan it replaced."""
+    from chip_smoke import lba_window_problem
+    from plslam_tpu_torch.backend import lba
+    from plslam_tpu_torch.config import SlamConfig
+    from plslam_tpu_torch.core.camera import StereoCamera
+    cfg = SlamConfig()
+    cam = StereoCamera.from_config(cfg.camera)
+    prob = lba_window_problem(cuda, cfg, cam)
+    idx = _launched("lba_index", lambda: lba.lba_index(prob))
+    for x, y in zip(idx, lba.lba_index_plain(prob)):
+        assert torch.equal(x, y)
+    tp = lba.lba_terms_plain(prob, cam)
+    sigma = lba.lba_sigma_plain(tp, prob)[0]
+    free = lba._free(prob)
+    lam = torch.tensor(cfg.mapping.lambda_init, device=cuda)
+    got = _launched("lba_bin", lambda: lba.lba_bin(tp, prob, sigma, free,
+                                                   lam, idx))
+    ref = lba.lba_bin_plain(tp, prob, sigma, free, lam)
+    old = _launched("lba_bin_scan", lambda: lba.lba_bin_scan(
+        tp, prob, sigma, free, lam))
+    for x, y, z, tol in zip(got, ref, old, (1e-5, 1e-3, 1e-5, 1e-5)):
+        top = y.abs().max()
+        assert float((x - y).abs().max() / top) <= tol
+        assert float((x - z).abs().max() / top) <= tol

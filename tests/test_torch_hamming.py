@@ -89,3 +89,106 @@ def test_pack_bits_layout_matches_reference():
     ref = np.asarray(jham.pack_bits(jnp.asarray(bits)))
     np.testing.assert_array_equal(packed.numpy().view(np.uint32), ref)
     np.testing.assert_array_equal(tham.unpack_bits(packed).numpy(), bits)
+
+
+# -- the fused, gated matcher (match_gated) ------------------------------------
+
+from plslam_tpu.config import SlamConfig as JConfig  # noqa: E402
+from plslam_tpu.frontend import stereo_points as jsp  # noqa: E402
+
+_JCFG = JConfig()
+
+
+def _gated_case(seed, N=96, M=80):
+    """Bits with near copies and duplicates (ties), positions where the
+    copies fall inside every gate, octaves, all-masked rows (invalid, or
+    far from every column) and all-masked columns."""
+    a, b, va, vb, mask = _case(seed, N, M)
+    rng = np.random.default_rng(100 + seed)
+    pa = rng.uniform(20, 400, (2, N, 2)).astype(np.float32)
+    pb = rng.uniform(20, 400, (2, M, 2)).astype(np.float32)
+    oa = rng.integers(0, 4, (2, N)).astype(np.int32)
+    ob = rng.integers(0, 4, (2, M)).astype(np.int32)
+    for n in range(2):
+        # the near copies: the source row's position shifted along its row
+        # (a disparity), and an octave within 1
+        for j in range(M // 2):
+            i = int(np.argmin((a[n] != b[n, j]).sum(-1)))
+            pb[n, j] = pa[n, i] + [-rng.uniform(2, 60), rng.uniform(-1, 1)]
+            ob[n, j] = np.clip(oa[n, i] + rng.integers(-1, 2), 0, 3)
+        pa[n, :5] += 5000.0            # rows outside every window
+        pb[n, -3:] -= 5000.0           # columns outside every window
+        va[n, 5:8] = False             # invalid rows
+        vb[n, -6:-3] = False           # invalid columns
+        mask[n, 8:10] = False          # rows the mask closes
+        mask[n, :, -8:-6] = False      # columns the mask closes
+    return a, b, va, vb, mask, pa, pb, oa, ob
+
+
+def _ref_gated(kind, a, b, va, vb, mask, pa, pb, oa, ob, n, max_d, ratio,
+               mutual):
+    """The reference's own pipeline for batch element n."""
+    j = jnp.asarray
+    if kind == "stereo":
+        m = _JCFG.matching
+        assert (m.max_hamming_p, m.min_ratio_12_p, m.best_lr_matches) == (
+            max_d, ratio, mutual)
+        return jsp.match_stereo_points(j(pa[n]), j(a[n]), j(oa[n]), j(va[n]),
+                                       j(pb[n]), j(b[n]), j(ob[n]), j(vb[n]),
+                                       _JCFG)
+    dist = jham.hamming_matrix(j(a[n]), j(b[n]), j(va[n]), j(vb[n]))
+    if kind in ("window", "window_oct"):
+        gate = jham.window_mask(j(pa[n]), j(pb[n]), 60.0)
+        if kind == "window_oct":
+            gate = gate & (jnp.abs(j(oa[n])[:, None] - j(ob[n])[None, :]) <= 1)
+        dist = jham.apply_mask(dist, gate)
+    elif kind == "mask":
+        dist = jham.apply_mask(dist, j(mask[n]))
+    return jham.match_nnr(dist, max_d, ratio, mutual=mutual)
+
+
+@pytest.mark.parametrize("form", ["bits", "words", "words_bits"])
+@pytest.mark.parametrize("kind", ["none", "window", "window_oct", "stereo",
+                                  "mask"])
+def test_match_gated_plain_matches_reference_pipeline(kind, form):
+    """match_gated_plain, and the scan/finish plain pair it is held
+    against on the card, equal the reference's hamming_matrix ->
+    gate -> match_nnr exactly: idx, dist and valid."""
+    seed = 3 + ["none", "window", "window_oct", "stereo", "mask"].index(kind)
+    a, b, va, vb, mask, pa, pb, oa, ob = _gated_case(seed)
+    ta, tb = torch.from_numpy(a), torch.from_numpy(b)
+    if form != "bits":
+        ta = tham.pack_bits(ta)                        # the stored words
+        if form == "words":
+            tb = tham.pack_bits(tb)
+    t = lambda x: torch.from_numpy(x)
+    gate = {"none": None,
+            "window": tham.Window(t(pa), t(pb), 60.0),
+            "window_oct": tham.Window(t(pa), t(pb), 60.0, t(oa), t(ob)),
+            "mask": tham.Mask(t(mask))}.get(kind)
+    if kind == "stereo":
+        m = _JCFG.matching
+        gate = tham.Stereo(t(pa), t(pb), t(oa), t(ob), m.stereo_row_tol,
+                           m.min_disp, m.max_disp)
+    mutual = kind != "mask"
+    max_d, ratio = 80, 0.75
+    got = tham.match_gated_plain(ta, tb, t(va), t(vb), gate, max_d, ratio,
+                                 mutual)
+    pair = tham.hamming_finish(tham.hamming_scan(ta, tb, t(va), t(vb), gate,
+                                                 mutual), max_d, ratio)
+    n_matched = 0
+    for n in range(2):
+        rr = _ref_gated(kind, a, b, va, vb, mask, pa, pb, oa, ob, n, max_d,
+                        ratio, mutual)
+        for res in (got, pair):
+            np.testing.assert_array_equal(res.idx[n].numpy(),
+                                          np.asarray(rr.idx))
+            np.testing.assert_array_equal(res.dist[n].numpy(),
+                                          np.asarray(rr.dist))
+            np.testing.assert_array_equal(res.valid[n].numpy(),
+                                          np.asarray(rr.valid))
+        n_matched += int(np.asarray(rr.valid).sum())
+        # the all-masked rows: column 0 at 1e9, unmatched
+        assert np.all(np.asarray(rr.dist)[5:8] == 1e9)
+        assert np.all(np.asarray(rr.idx)[5:8] == -1)
+    assert n_matched > 10

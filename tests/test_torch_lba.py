@@ -148,8 +148,9 @@ def test_one_damped_step_matches_reference(problem, lam):
     truth = tlba._assemble_and_solve(_f64(tp), cam, lam)
     for g, w, t in zip(got, want, truth):
         _in_band(g.numpy(), w, t.numpy())
-    capped = tlba._step(tp, cam, lam, tlba._PLAIN)
-    truth_c = tlba._step(_f64(tp), cam, lam, tlba._PLAIN)
+    idx = tlba.lba_index_plain(tp)
+    capped = tlba._step(tp, cam, lam, tlba._PLAIN, idx)
+    truth_c = tlba._step(_f64(tp), cam, lam, tlba._PLAIN, idx)
     for g, w, t in zip(capped, jlba._cap_steps(*want), truth_c):
         _in_band(g.numpy(), w, t.numpy())
 
@@ -204,7 +205,8 @@ def _decisions(prob, cam, cfg):
     lam = torch.tensor(m.lambda_init)
     out, margin = [], np.inf
     for _ in range(m.lba_iters):
-        dxi, d_pt, d_ep = tlba._step(prob, cam, lam, tlba._PLAIN)
+        dxi, d_pt, d_ep = tlba._step(prob, cam, lam, tlba._PLAIN,
+                                     tlba.lba_index_plain(prob))
         trial = prob._replace(kf_pose=tlie.exp_se3(dxi) @ prob.kf_pose,
                               pt_pos=prob.pt_pos + d_pt,
                               ep_pos=prob.ep_pos + d_ep)
@@ -248,3 +250,56 @@ def test_run_lba_and_posthoc_match_reference(seed):
     for g, w in zip(tlba.posthoc_inliers(solved_t, cam, TCFG),
                     _ref_posthoc(solved_j, JC, CFG)):
         np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+
+
+# -- the landmark index of the binning launch (lba_index) ----------------------
+
+def _index_ids(seed):
+    """Id tables: lba_problem_np's (seed 0), or random ones with repeated
+    slots within a pose, detached (-1) and out-of-range ids (seed 1)."""
+    if seed == 0:
+        d, _ = lba_problem_np(0)
+        P, Q = d["pt_pos"].shape[0], d["ep_pos"].shape[0]
+        return d["obs_pt_id"], d["obs_ln_sid"], d["obs_ln_eid"], P, Q
+    rng = np.random.default_rng(seed)
+    W, K, L, P, Q = 6, 50, 12, 40, 16
+    obs_id = rng.integers(-2, P + 2, (W, K)).astype(np.int32)
+    sid = rng.integers(-1, Q + 1, (W, L)).astype(np.int32)
+    eid = rng.integers(-1, Q + 1, (W, L)).astype(np.int32)
+    return obs_id, sid, eid, P, Q
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_lba_index_plain_lists_each_observation_in_order(seed):
+    """Every attached observation once, under its slot, in (pose, family,
+    k) order, with the right counts: a numpy loop over the id tables."""
+    obs_id, sid, eid, P, Q = _index_ids(seed)
+    (W, K), L = obs_id.shape, sid.shape[1]
+    want = [[] for _ in range(P + Q)]
+    for w in range(W):
+        for k in range(K):
+            if 0 <= obs_id[w, k] < P:
+                want[obs_id[w, k]].append(w * K + k)
+        for f, ids in enumerate((sid, eid)):
+            for k in range(L):
+                if 0 <= ids[w, k] < Q:
+                    want[P + ids[w, k]].append(W * K + (2 * w + f) * L + k)
+    prob = tlba.LBAProblem(
+        kf_pose=torch.zeros(W, 4, 4), kf_fixed=torch.zeros(W, dtype=bool),
+        kf_valid=torch.ones(W, dtype=bool), pt_pos=torch.zeros(P, 3),
+        ep_pos=torch.zeros(Q, 3), obs_pt_uv=torch.zeros(W, K, 2),
+        obs_pt_disp=torch.zeros(W, K), obs_pt_id=torch.from_numpy(obs_id),
+        obs_ln_le=torch.zeros(W, L, 3), obs_ln_sid=torch.from_numpy(sid),
+        obs_ln_eid=torch.from_numpy(eid))
+    idx = tlba.lba_index(prob)                  # the plain version on CPU
+    assert idx.off.dtype == idx.obs.dtype == torch.int32
+    counts = np.array([len(x) for x in want])
+    np.testing.assert_array_equal(idx.off.numpy(),
+                                  np.concatenate([[0], np.cumsum(counts)]))
+    flat = np.concatenate([np.asarray(x, np.int64) for x in want])
+    total = int(counts.sum())
+    np.testing.assert_array_equal(idx.obs[:total].numpy(), flat)
+    assert np.all(idx.obs[total:].numpy() == -1)
+    assert total == int(((obs_id >= 0) & (obs_id < P)).sum()
+                        + ((sid >= 0) & (sid < Q)).sum()
+                        + ((eid >= 0) & (eid < Q)).sum())
