@@ -14,7 +14,8 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
      the card, timed with CUDA events (the wrapper: host work included)
      and with torch.profiler (the kernels' own device time), beside its
      bound, its plain version's time and a one-call library yardstick: A-C
-     on KITTI-size images (376x1241, 40 images a chunk; K=1024), D's
+     on KITTI-size images (376x1241, 40 images a chunk, the resize to 1/1.2
+     and 1/2; K=1024), D's
      matcher (hamming_scan + hamming_finish) under the stereo gate and
      the f2f window at 20 x 1024 x 1024, the line kernels E-H at both
      detector scales and D under a mask at 20 x 128 x 128, then I (K13: a
@@ -33,11 +34,11 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
      and keyframes against the CPU run, at least one LBA slot, no LBA
      raising its cost, a map of points and lines, each kernel launched
      exactly as often as the path launches it; then K (K15) launch by
-     launch (the landmark index exact; lba_bin also against the scanning
-     lba_bin_scan it replaced, the "before", no path launches it), one LM
-     step and one whole ``run_lba`` on a well-conditioned window problem
-     at the path's shapes, and one whole ``run_lba`` on that run's final
-     window problem;
+     launch (the landmark index exact; lba_terms' scale, an exact lower
+     median, to the bit, also at K = 4096, more than 32,768
+     observations), one LM step and one whole ``run_lba`` on a
+     well-conditioned window problem at the path's shapes, and one whole
+     ``run_lba`` on that run's final window problem;
   5. the loop path: ``FusedPLSLAM`` with the default ``SlamConfig()``
      (loop closure on) over two laps of a 110-frame loop with
      bench_slam.py's world (``loop_scene``: bench_slam.py's own scene
@@ -73,6 +74,10 @@ part named: all; ``pcg``: the PCG loop run alone).
 ``python3 chip_smoke.py --bench-slam [cuda] [cpu]`` runs bench_slam.py's
 own 201-frame scene through the loop path on each device named and
 compares their keyframe decisions (``bench_slam_scene``).
+``python3 chip_smoke.py --against DIR`` holds this tree's resize and LBA
+terms, scale and cost against those of another checkout at DIR (for
+example a ``git archive`` of the parent commit), outputs and device times
+(``against``).
 
 Imports nothing of JAX and nothing of the JAX package.
 """
@@ -205,13 +210,15 @@ class Recorder:
     def __call__(self, name, source, replaces, got, plain, tol, fn, plain_fn,
                  nbytes, ops, library_fn=None, iters=20, entry=None,
                  err_kind="absolute", ops_per_s=F32_OPS_PER_S, before=False,
-                 popc_ops=None):
+                 popc_ops=None, library_what=None):
         """``tol`` is one tolerance for every output, or a list of one per
         output (``err_kind`` then names the unit of each). ``before``: a
         kernel that a redesign replaced, kept with no main-path caller and
         timed on the same inputs as its successor. ``popc_ops``: the
         popcounts of the CUDA-core algorithm, whose floor the row also
-        gives (``popc_bound_ms``) beside the card's bound."""
+        gives (``popc_bound_ms``) beside the card's bound.
+        ``library_what``: what ``library_fn`` computes where that is less
+        than the whole function."""
         tols = list(tol) if isinstance(tol, (list, tuple)) else [tol] * len(got)
         errs = [max_abs_err(g, p) for g, p in zip(got, plain)]
         err = max(errs)
@@ -228,7 +235,9 @@ class Recorder:
             err_kind=err_kind, ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
             bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms, ok=ok,
             before=before, **({} if popc_ms is None
-                              else {"popc_bound_ms": popc_ms})))
+                              else {"popc_bound_ms": popc_ms}),
+            **({} if library_what is None
+               else {"library_what": library_what})))
         print(f"[kernel] {name}{' (before: replaced)' if before else ''}"
               f": max_abs_err={err:g} per output "
               f"{[f'{e:g}' for e in errs]} ({err_kind}; tol "
@@ -236,7 +245,8 @@ class Recorder:
               f"device_ms={dev_ms:.4f} plain_ms={plain_ms:.4f} "
               f"bound_ms={b_ms:.4f} ({b_by}) "
               + ("" if popc_ms is None else f"popc_bound_ms={popc_ms:.4f} ")
-              + f"library_ms={'null' if lib_ms is None else f'{lib_ms:.4f}'}",
+              + f"library_ms={'null' if lib_ms is None else f'{lib_ms:.4f}'}"
+              + ("" if library_what is None else f" ({library_what})"),
               flush=True)
         check(ok, f"{name} disagrees with its plain version: {errs} > {tols}")
 
@@ -267,16 +277,21 @@ def kernel_phase(images, record):
            2 * npx * 4, 2 * npx * 7 * 2,
            lambda: F.conv2d(F.pad(images[:, None], (3, 3, 3, 3),
                                   mode="replicate"), k2d))
-    h1, w1 = round(H / 1.2), round(W / 1.2)
-    out = image.resize_bilinear(images, (h1, w1))
-    ref = image.resize_bilinear_plain(images, (h1, w1))
-    record("image_resize", "plslam_tpu_torch/csrc/image.cu",
-           "plslam_tpu/ops/image.py:86", [out], [ref], 1e-6,
-           lambda: image.resize_bilinear(images, (h1, w1)),
-           lambda: image.resize_bilinear_plain(images, (h1, w1)),
-           (npx + N * h1 * w1) * 4, 3 * (N * h1 * W + N * h1 * w1),
-           lambda: F.interpolate(images[:, None], size=(h1, w1),
-                                 mode="bilinear", align_corners=False))
+    # the resize, one pass: the pyramid's 1/1.2 and the half-resolution
+    # passes' 1/2 (ORB's moment levels, the line detector); 2 x 2 FMAs an
+    # output pixel
+    for tag, (h1, w1) in (("", (round(H / 1.2), round(W / 1.2))),
+                          ("@half", (H // 2, W // 2))):
+        out = image.resize_bilinear(images, (h1, w1))
+        ref = image.resize_bilinear_plain(images, (h1, w1))
+        record("image_resize" + tag, "plslam_tpu_torch/csrc/image.cu",
+               "plslam_tpu/ops/image.py:86", [out], [ref], 1e-6,
+               lambda: image.resize_bilinear(images, (h1, w1)),
+               lambda: image.resize_bilinear_plain(images, (h1, w1)),
+               (npx + N * h1 * w1) * 4, N * h1 * w1 * 8,
+               lambda: F.interpolate(images[:, None], size=(h1, w1),
+                                     mode="bilinear", align_corners=False),
+               entry="image_resize")
 
     # B: FAST score on the blurred level 0 (~300 ops per pixel: 16 taps x
     # 15, four arc tests of ~18), then NMS + block max/argmax (~40
@@ -1196,11 +1211,11 @@ def decisions(slam, cfg):
     return rows[:, 33] > 0.5, rows[:, 32] > 0.5, margin
 
 
-# launches of one window LBA (6 LM iterations: per iteration one step of 6
-# launches and a trial cost of 2, plus the initial cost, the landmark index
+# launches of one window LBA (6 LM iterations: per iteration one step of 5
+# launches and a trial cost of 1, plus the initial cost, the landmark index
 # and the post-hoc flags)
-PER_LBA = {"lba_terms": 14, "lba_sigma": 14, "lba_camera": 6, "lba_index": 1,
-           "lba_bin": 6, "lba_schur": 6, "lba_backsub": 6}
+PER_LBA = {"lba_terms": 14, "lba_camera": 6, "lba_index": 1, "lba_bin": 6,
+           "lba_schur": 6, "lba_backsub": 6}
 
 
 def expected_slam_launches(n_kfs: int, n_lba: int,
@@ -1306,10 +1321,10 @@ def slam_path(dev):
     return launches, slam
 
 
-def lba_window_problem(dev, cfg, cam, seed=5):
+def lba_window_problem(dev, cfg, cam, seed=5, K=None):
     """A well-conditioned window problem at the SLAM path's LBA shapes
-    (W = window_kfs + fixed_kfs = 10 poses, K = 1024, L = 128, P = 4096
-    points, Q = 1024 endpoints of 512 lines), built as
+    (W = window_kfs + fixed_kfs = 10 poses, K = 1024 unless given, L = 128,
+    P = 4096 points, Q = 1024 endpoints of 512 lines), built as
     tests/test_lba.py::make_lba_problem builds its own: each KF sees a
     sliding run of the landmark ids, so every landmark has two or three
     observations, all inside the 1241x376 image; 0.3 px of noise, 10% of the observations detached, the
@@ -1321,7 +1336,7 @@ def lba_window_problem(dev, cfg, cam, seed=5):
     from plslam_tpu_torch.core import lie
     m = cfg.mapping
     W = m.window_kfs + m.fixed_kfs
-    K, L = cfg.points.max_kpts, cfg.lines.max_lines
+    K, L = K or cfg.points.max_kpts, cfg.lines.max_lines
     P, M = m.lba_max_points, m.lba_max_lines
     rng = np.random.default_rng(seed)
     u = lambda lo, hi, n: rng.uniform(lo, hi, n)
@@ -1438,35 +1453,54 @@ def lba_phase(dev, record, slam):
         return ([g / x if x is not None else g for g, x in zip(got, s)],
                 [r / x if x is not None else r for r, x in zip(ref, s)])
 
-    t = lba.lba_terms(prob, cam)
-    tp = lba.lba_terms_plain(prob, cam)
+    t, sig, cost = lba.lba_terms_sigma(prob, cam)
+    tp, sig_p, _ = lba.lba_terms_sigma_plain(prob, cam)
+    check(float(sig_p) > 100 * 1e-4,
+          f"lba: the window's MAD scale {float(sig_p)} is near its floor")
     # residuals and norms in px: each cancels projections of up to 1241
     # px, where an f32 ulp is 1.2e-4 px and the two versions' roundings
     # differ by up to a few ulps, so 4e-4 px; Jacobians relative;
-    # validity exact
+    # validity exact. The scale and the cost against the plain version on
+    # the kernel's own terms: the scale (a lower median) to the bit, the
+    # cost within 1e-5 of itself.
     g_, r_ = scaled(list(t), list(tp), keep=(0, 4, 5))
-    record("lba_terms", src, rep + "79", g_, r_,
-           [4e-4, 1e-5, 1e-5, 0.0, 4e-4, 4e-4, 1e-5, 1e-5, 0.0],
-           lambda: lba.lba_terms(prob, cam),
-           lambda: lba.lba_terms_plain(prob, cam),
+    sig_t, cost_t = lba.lba_sigma_plain(t, prob)
+    nv = NP + 2 * NL
+    allr = torch.cat([t.rn.reshape(-1), t.r_ln.abs().reshape(-1)])
+    valid_r = allr[torch.cat([t.ok_pt.reshape(-1), t.ok_ln.reshape(-1)])]
+    med = torch.median(valid_r)
+    check(torch.equal(sig, torch.clamp(1.4826 * med, min=1e-4)),
+          "lba_terms: the scale is not torch.median's lower median")
+    record("lba_terms", src, rep + "79", g_ + [sig, cost / cost_t],
+           r_ + [sig_t, cost_t / cost_t],
+           [4e-4, 1e-5, 1e-5, 0.0, 4e-4, 4e-4, 1e-5, 1e-5, 0.0, 0.0, 1e-5],
+           lambda: lba.lba_terms_sigma(prob, cam),
+           lambda: lba.lba_terms_sigma_plain(prob, cam),
            W * 64 + (P + Q) * 12 + NP * 16 + NL * 20
-           + NP * (12 + 72 + 36 + 1 + 4) + 2 * NL * (4 + 24 + 12 + 1),
-           NP * 120 + 2 * NL * 70,
-           err_kind="r_pt, rn, r_ln in px; Jacobians " + rel)
-    sig = lba.lba_sigma(tp, prob)
-    sig_p = lba.lba_sigma_plain(tp, prob)
-    check(float(sig_p[0]) > 100 * 1e-4,
-          f"lba: the window's MAD scale {float(sig_p[0])} is near its floor")
-    record("lba_sigma", src, rep + "142", list(sig), list(sig_p),
-           [1e-6 * float(sig_p[0]), 1e-5 * float(sig_p[1])],
-           lambda: lba.lba_sigma(tp, prob),
-           lambda: lba.lba_sigma_plain(tp, prob),
-           (NP + 2 * NL) * 9 + 8,
-           sort_compares(NP + 2 * NL) + (NP + 2 * NL) * 10,
-           err_kind="sigma, cost; tolerance 1e-6, 1e-5 of each")
+           + NP * (12 + 72 + 36 + 1 + 4) + 2 * NL * (4 + 24 + 12 + 1) + 8,
+           NP * 120 + 2 * NL * 70 + nv * (10 + 8),
+           lambda: torch.median(valid_r),
+           library_what="torch.median of the valid |r| (the median alone)",
+           err_kind="r_pt, rn, r_ln in px; Jacobians " + rel
+           + "; sigma exact; cost relative")
+    # a window of more than 32,768 observations (K = 4,096): the scale to
+    # the bit, the cost within 1e-5
+    wide = lba_window_problem(dev, cfg, cam, K=4096)
+    tw, sig_w, cost_w = lba.lba_terms_sigma(wide, cam)
+    sig_wp, cost_wp = lba.lba_sigma_plain(tw, wide)
+    n_wide = wide.obs_pt_id.numel() + 2 * wide.obs_ln_sid.numel()
+    wide_ms = device_ms(lambda: lba.lba_terms_sigma(wide, cam))
+    print(f"[lba] lba_terms at W={W} K=4096 L={L} ({n_wide} observations): "
+          f"sigma {float(sig_w)!r} (plain {float(sig_wp)!r}), cost "
+          f"{float(cost_w)!r} (plain {float(cost_wp)!r}), device_ms="
+          f"{wide_ms:.4f}", flush=True)
+    check(n_wide > 32768 and torch.equal(sig_w, sig_wp)
+          and abs(float(cost_w) - float(cost_wp)) <= 1e-5 * float(cost_wp),
+          "lba_terms disagrees with its plain version at K = 4096")
+    del wide, tw
     free = lba._free(prob)
     lam = torch.tensor(cfg.mapping.lambda_init, device=dev)
-    sigma = sig_p[0]
+    sigma = sig_p
     # the landmark index: exact; bytes the id tables in, offsets and lists
     # out; operations a count, a fill and a sort step per observation; the
     # yardstick the stable sort of the slot keys (the lists alone)
@@ -1496,18 +1530,6 @@ def lba_phase(dev, record, slam):
            lambda: lba.lba_bin_plain(tp, prob, sigma, free, lam),
            bin_bytes, bin_ops, bin_lib,
            err_kind="H_ll, H_inv, g_l, H_cl " + rel)
-    old = lba.lba_bin_scan(tp, prob, sigma, free, lam)
-    g_, r_ = scaled(list(old), list(bp[2:]))
-    record("lba_bin_scan", src, rep + "182", g_, r_,
-           [1e-5, 1e-3, 1e-5, 1e-5],
-           lambda: lba.lba_bin_scan(tp, prob, sigma, free, lam),
-           lambda: lba.lba_bin_plain(tp, prob, sigma, free, lam),
-           bin_bytes, bin_ops, bin_lib, before=True,
-           err_kind="H_ll, H_inv, g_l, H_cl " + rel)
-    d_old = [max_abs_err(x, y) for x, y in zip(b[2:], old)]
-    print(f"[lba] lba_bin against the kernel it replaced (lba_bin_scan) on "
-          f"the window problem, largest |difference| per output (H_ll, "
-          f"H_inv, g_l, H_cl): {[f'{x:g}' for x in d_old]}", flush=True)
     b64 = _as_f64(bp)
 
     def f64_gauge(name, got, ref, truth, typical=None):
@@ -1611,8 +1633,7 @@ def lba_phase(dev, record, slam):
     idx_p = lba.lba_index_plain(prob)
     step_p = lba._step(prob, cam, lam, lba._PLAIN, idx_p)
     step_t = lba._step(p64, cam, lam, lba._PLAIN, idx_p)
-    tp = lba.lba_terms_plain(prob, cam)
-    sig_w = lba.lba_sigma_plain(tp, prob)[0]
+    tp, sig_w, _ = lba.lba_terms_sigma_plain(prob, cam)
     bp = lba.lba_blocks_plain(tp, prob, sig_w, lba._free(prob), lam)
     b64 = _as_f64(bp)
     free = lba._free(prob)
@@ -2652,6 +2673,76 @@ def bench_slam_scene(devices) -> None:
             print("[bench_slam] identical keyframe decisions", flush=True)
 
 
+def against_side(root: str, out_path: str) -> None:
+    """One process of ``--against``: image_resize at the pyramid's and the
+    half-resolution shapes on 40 seeded 376x1241 images, and the LBA's
+    terms, scale and cost on ``lba_window_problem``, through the
+    plslam_tpu_torch of the checkout at ``root`` (its kernels built
+    there); saves the outputs and each call's device time (torch.profiler)
+    to ``out_path``."""
+    sys.path.insert(0, root)
+    import torch
+    from plslam_tpu_torch.backend import lba
+    from plslam_tpu_torch.config import SlamConfig
+    from plslam_tpu_torch.core.camera import StereoCamera
+    from plslam_tpu_torch.ops import image
+    dev = torch.device("cuda", 0)
+    images = torch.from_numpy(np.random.default_rng(0).uniform(
+        0, 1, (40, 376, 1241)).astype(np.float32)).to(dev)
+    res = {}
+    for tag, shape in (("image_resize", (313, 1034)),
+                       ("image_resize@half", (188, 620))):
+        fn = lambda: [image.resize_bilinear(images, shape)]
+        res[tag] = ([x.cpu() for x in fn()], device_ms(fn, iters=20))
+    cfg = SlamConfig()
+    cam = StereoCamera.from_config(cfg.camera)
+    prob = lba_window_problem(dev, cfg, cam)
+    if hasattr(lba, "lba_terms_sigma"):
+        fn = lambda: lba.lba_terms_sigma(prob, cam)
+    else:                   # a tree whose scale is a launch of its own
+        fn = lambda: (lambda t: (t, *lba.lba_sigma(t, prob)))(
+            lba.lba_terms(prob, cam))
+    t, sig, cost = fn()
+    res["lba_terms+sigma"] = ([x.cpu() for x in (*t, sig, cost)],
+                              device_ms(fn, iters=20))
+    torch.save(res, out_path)
+
+
+def against(other: str) -> None:
+    """``python3 chip_smoke.py --against DIR``: ``against_side`` of the
+    checkout at DIR and of this one, in turns (DIR, this, this, DIR), each
+    in a process of its own; prints each output's largest difference
+    between the two trees (the scale's and the cost's as bits too) and
+    every device time."""
+    import os
+    import tempfile
+    import torch
+    here = os.path.dirname(os.path.abspath(__file__))
+    roots = {"other": os.path.abspath(other), "this": here}
+    runs = []
+    with tempfile.TemporaryDirectory() as tmp:
+        for i, who in enumerate(("other", "this", "this", "other")):
+            out = os.path.join(tmp, f"{i}.pt")
+            subprocess.run([sys.executable, os.path.abspath(__file__),
+                            "--against-side", roots[who], out],
+                           check=True, cwd=roots[who], timeout=600)
+            runs.append((who, torch.load(out)))
+    (_, a), (_, b) = runs[0], runs[1]
+    for key in a:
+        errs = [max_abs_err(x, y) for x, y in zip(a[key][0], b[key][0])]
+        times = {who: [r[key][1] for w, r in runs if w == who]
+                 for who in ("other", "this")}
+        print(f"[against] {key}: largest |this - other| per output "
+              f"{[f'{e:g}' for e in errs]}; device_ms this "
+              f"{[f'{x:.4f}' for x in times['this']]}, other "
+              f"{[f'{x:.4f}' for x in times['other']]}", flush=True)
+    sig_cost = [(r["lba_terms+sigma"][0][-2], r["lba_terms+sigma"][0][-1])
+                for _, r in runs[:2]]
+    bits = [[x.view(torch.int32).item() for x in sc] for sc in sig_cost]
+    print(f"[against] sigma, cost bits: other {bits[0]}, this {bits[1]}: "
+          f"{'equal' if bits[0] == bits[1] else 'DIFFERENT'}", flush=True)
+
+
 LOOP_SCENE = None
 
 
@@ -2661,6 +2752,12 @@ def main() -> int:
         return 0
     if sys.argv[1:2] == ["--bench-slam"]:
         bench_slam_scene(sys.argv[2:] or ["cuda"])
+        return 0
+    if sys.argv[1:2] == ["--against"]:
+        against(sys.argv[2])
+        return 0
+    if sys.argv[1:2] == ["--against-side"]:
+        against_side(*sys.argv[2:4])
         return 0
     try:
         import torch

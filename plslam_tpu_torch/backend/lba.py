@@ -10,16 +10,15 @@ back-substitution with the landmark-move floors, the trust-region caps
 and the lost-observation charge of the cost.
 
 On CUDA tensors each stage is a launch of kernel K (``csrc/lba.cu``):
-``lba_terms`` (residuals, Jacobians, validity, norms per observation),
-``lba_sigma`` (the lower-median MAD scale over all observations and the
-robust cost), ``lba_camera`` (H_cc, g_c per pose), ``lba_bin`` (the
-landmark blocks, damped inverses and H_cl, one warp per landmark walking
-its observations in order: no float atomics), ``lba_schur`` (S and the
-reduced gradient) and ``lba_backsub`` (landmark steps, floors, caps);
-``lba_index`` lists each landmark's observations once a ``run_lba`` (the
-ids do not change between its LM steps) for every ``lba_bin``. The
-binning it replaced, which scans the whole id tables for each landmark,
-stays as ``lba_bin_scan`` with no main-path caller.
+``lba_terms`` (residuals, Jacobians, validity, norms per observation, and
+in the same launch the exact lower-median MAD scale over all
+observations, a radix select, and the robust cost), ``lba_camera`` (H_cc,
+g_c per pose), ``lba_bin`` (the landmark blocks, damped inverses and
+H_cl, one warp per landmark walking its observations in order: no float
+atomics), ``lba_schur`` (S and the reduced gradient) and ``lba_backsub``
+(landmark steps, floors, caps); ``lba_index`` lists each landmark's
+observations once a ``run_lba`` (the ids do not change between its LM
+steps) for every ``lba_bin``.
 The dense 6W x 6W solve is the library's ``torch.linalg.solve_ex``, as the
 reference calls ``jnp.linalg.solve``. The ``*_plain`` functions are the
 reference's arithmetic in PyTorch (the one-hot binning included, which is
@@ -30,7 +29,7 @@ Landmarks are indexed in one space: points [0, P), endpoints [P, P + Q).
 
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+from typing import Dict, NamedTuple, Tuple
 
 import torch
 
@@ -168,10 +167,19 @@ def lba_terms_plain(problem: LBAProblem, cam: StereoCamera) -> LBATerms:
                                           for a, b in zip(*fam)))
 
 
-def lba_terms(problem: LBAProblem, cam: StereoCamera) -> LBATerms:
-    """Residuals, Jacobians and validity of every observation."""
+# lba_terms' select scratch (csrc/lba.cu SelScratch: a 2048-bin histogram,
+# two counts and a ticket), one per device, zeroed here once and left
+# zeroed by every launch; the launches run on one stream, one at a time
+_SCRATCH: Dict[torch.device, torch.Tensor] = {}
+
+
+def lba_terms_sigma(problem: LBAProblem, cam: StereoCamera
+                    ) -> Tuple[LBATerms, torch.Tensor, torch.Tensor]:
+    """Residuals, Jacobians and validity of every observation, the robust
+    MAD scale over them and the robust cost with the lost-observation
+    charge (0-d tensors on the device): one ``lba_terms`` launch."""
     if problem.kf_pose.device.type == "cpu":
-        return lba_terms_plain(problem, cam)
+        return lba_terms_sigma_plain(problem, cam)
     W, K = problem.obs_pt_id.shape
     L = problem.obs_ln_sid.shape[1]
     P, Q = problem.pt_pos.shape[0], problem.ep_pos.shape[0]
@@ -190,10 +198,15 @@ def lba_terms(problem: LBAProblem, cam: StereoCamera) -> LBATerms:
     out = LBATerms(e(W, K, 3), e(W, K, 3, 6), e(W, K, 3, 3),
                    e(W, K, dt=torch.uint8), e(W, K), e(2, W, L),
                    e(2, W, L, 6), e(2, W, L, 3), e(2, W, L, dt=torch.uint8))
-    native.launch("lba_terms", *args, *out, W, K, L, P, Q, cam.fx, cam.fy,
-                  cam.cx, cam.cy, cam.fxb)
-    return out._replace(ok_pt=out.ok_pt.view(torch.bool),
-                        ok_ln=out.ok_ln.view(torch.bool))
+    sigma, cost = e(), e()
+    scratch = _SCRATCH.get(dev)
+    if scratch is None:
+        scratch = torch.zeros(2048 + 3, dtype=torch.int32, device=dev)
+        _SCRATCH[dev] = scratch
+    native.launch("lba_terms", *args, *out, sigma, cost, scratch,
+                  W, K, L, P, Q, cam.fx, cam.fy, cam.cx, cam.cy, cam.fxb)
+    return (out._replace(ok_pt=out.ok_pt.view(torch.bool),
+                         ok_ln=out.ok_ln.view(torch.bool)), sigma, cost)
 
 
 def _f32(x):
@@ -229,25 +242,9 @@ def lba_sigma_plain(t: LBATerms, problem: LBAProblem):
     return sigma, cost
 
 
-def lba_sigma(t: LBATerms, problem: LBAProblem):
-    """(robust MAD scale, robust cost with the lost-observation charge),
-    both 0-d tensors on the device."""
-    if t.rn.device.type == "cpu":
-        return lba_sigma_plain(t, problem)
-    W, K = t.rn.shape
-    L = t.r_ln.shape[2]
-    n = W * K + 2 * W * L
-    S = 1 << max(n - 1, 1).bit_length()
-    if S > 32768:
-        raise ValueError(f"lba_sigma: {n} observations exceed 32768")
-    dev = t.rn.device
-    sigma = torch.empty((), dtype=torch.float32, device=dev)
-    cost = torch.empty((), dtype=torch.float32, device=dev)
-    native.launch("lba_sigma", t.rn, t.ok_pt, t.r_ln, t.ok_ln,
-                  _i32(problem.obs_pt_id), _i32(problem.obs_ln_sid),
-                  _i32(problem.obs_ln_eid), sigma, cost,
-                  W * K, W * L, S)
-    return sigma, cost
+def lba_terms_sigma_plain(problem: LBAProblem, cam: StereoCamera):
+    t = lba_terms_plain(problem, cam)
+    return (t, *lba_sigma_plain(t, problem))
 
 
 def lba_cost(problem: LBAProblem, cam: StereoCamera) -> torch.Tensor:
@@ -391,24 +388,6 @@ def lba_bin(t: LBATerms, problem: LBAProblem, sigma, free, lam,
     return out
 
 
-def lba_bin_scan(t: LBATerms, problem: LBAProblem, sigma, free, lam):
-    """The replaced binning: the same outputs as ``lba_bin`` from the id
-    tables themselves, one ``lba_bin_scan`` launch."""
-    if t.rn.device.type == "cpu":
-        return lba_bin_plain(t, problem, sigma, free, lam)
-    W, K = t.rn.shape
-    L = t.r_ln.shape[2]
-    P, Q = problem.pt_pos.shape[0], problem.ep_pos.shape[0]
-    out = _bin_outputs(t, problem)
-    native.launch("lba_bin_scan", _i32(problem.obs_pt_id),
-                  _i32(problem.obs_ln_sid), _i32(problem.obs_ln_eid),
-                  t.Jc_pt, t.Jp_pt, t.r_pt, t.rn, t.ok_pt, t.Jc_ln, t.Jp_ln,
-                  t.r_ln, t.ok_ln, _f32(sigma.reshape(())),
-                  free.to(torch.uint8).contiguous(), _f32(lam.reshape(())),
-                  *out, W, K, L, P, Q)
-    return out
-
-
 def lba_blocks(t: LBATerms, problem: LBAProblem, sigma, free, lam,
                index: LBAIndex) -> LandmarkBlocks:
     """Camera blocks and landmark blocks of one problem state."""
@@ -496,8 +475,7 @@ def _free(problem: LBAProblem):
 
 
 class _Ops(NamedTuple):
-    terms: object
-    sigma: object
+    terms: object      # (problem, cam) -> (LBATerms, sigma, cost)
     index: object
     blocks: object
     schur: object
@@ -508,9 +486,9 @@ class _Ops(NamedTuple):
 # plain versions: run_lba_plain holds the whole LM loop of kernels against
 # the same loop of plain versions on the card (whose one-hot binning reads
 # no index)
-_KERNELS = _Ops(lba_terms, lba_sigma, lba_index, lba_blocks, lba_schur,
+_KERNELS = _Ops(lba_terms_sigma, lba_index, lba_blocks, lba_schur,
                 lba_backsub)
-_PLAIN = _Ops(lba_terms_plain, lba_sigma_plain, lba_index_plain,
+_PLAIN = _Ops(lba_terms_sigma_plain, lba_index_plain,
               lambda t, problem, sigma, free, lam, index: lba_blocks_plain(
                   t, problem, sigma, free, lam),
               lba_schur_plain, lba_backsub_plain)
@@ -521,8 +499,7 @@ def _step(problem: LBAProblem, cam: StereoCamera, lam, ops: _Ops,
     """One damped LM step; ``index``: the problem's ``ops.index``."""
     lam = torch.as_tensor(lam, dtype=torch.float32,
                           device=problem.kf_pose.device)
-    t = ops.terms(problem, cam)
-    sigma, _ = ops.sigma(t, problem)
+    t, sigma, _ = ops.terms(problem, cam)
     free = _free(problem)
     b = ops.blocks(t, problem, sigma, free, lam, index)
     Sm, gm = ops.schur(b, free, lam, pin_weight)
@@ -540,7 +517,7 @@ def _assemble_and_solve(problem: LBAProblem, cam: StereoCamera, lam,
 
 
 def _cost(problem, cam, ops: _Ops):
-    return ops.sigma(ops.terms(problem, cam), problem)[1]
+    return ops.terms(problem, cam)[2]
 
 
 def _run(problem: LBAProblem, cam: StereoCamera, cfg: SlamConfig,
@@ -576,9 +553,9 @@ def run_lba(problem: LBAProblem, cam: StereoCamera, cfg: SlamConfig
             ) -> LBAResult:
     """Robust LM with accept/reject (levMarquardtOptimizationLBA), a fixed
     number of iterations, every decision on the device: per iteration one
-    step (``lba_terms``, ``lba_sigma``, ``lba_camera``, ``lba_bin``,
-    ``lba_schur``, the library solve, ``lba_backsub``) and the trial cost
-    (``lba_terms``, ``lba_sigma``); one ``lba_index`` before the loop."""
+    step (``lba_terms``, ``lba_camera``, ``lba_bin``, ``lba_schur``, the
+    library solve, ``lba_backsub``) and the trial cost (``lba_terms``); one
+    ``lba_index`` before the loop."""
     return _run(problem, cam, cfg, _KERNELS)
 
 
@@ -589,10 +566,10 @@ def run_lba_plain(problem: LBAProblem, cam: StereoCamera, cfg: SlamConfig
 
 def _posthoc(problem1, cam, cfg, ops: _Ops):
     mcfg = cfg.mapping
-    t = ops.terms(problem1, cam)
+    t, sigma, _ = ops.terms(problem1, cam)
     # the gate's scale floored at the detector's pixel noise: on near-
     # perfect data an unfloored MAD would flag every observation
-    sigma = torch.clamp(ops.sigma(t, problem1)[0], min=mcfg.lba_min_sigma)
+    sigma = torch.clamp(sigma, min=mcfg.lba_min_sigma)
     k = mcfg.lba_inlier_k
     pt_inl = t.ok_pt & (t.rn < k * sigma)
     a = torch.abs(t.r_ln)

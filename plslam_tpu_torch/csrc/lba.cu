@@ -1,6 +1,6 @@
-// Kernel K: the Schur-complement local bundle adjustment (K15), six launches
-// per LM step (the dense 6W x 6W solve between them is the library's) and
-// one landmark index per window LBA.
+// Kernel K: the Schur-complement local bundle adjustment (K15), five launches
+// per LM step (the dense 6W x 6W solve between them is the library's), one
+// for each trial cost, and one landmark index per window LBA.
 //
 // Replaces plslam_tpu/backend/lba.py::_point_rj (:79), _endpoint_rj (:116),
 // _robust_sigma (:142), lba_cost (:150), _bin_landmark_blocks (:182) and
@@ -14,17 +14,17 @@
 // (W, P + Q, 6, 3) camera-landmark blocks written once and read by the
 // Schur pass) and does ~0.2 GFLOP (the Schur pass: W^2 (P + Q) 6x3x3 +
 // 6x3x6 products): a few microseconds either way. Latency dominates:
-// six dependent launches, one of them a single-block sort.
+// dependent launches, each a few microseconds of work.
 //
 // Design, launch by launch:
 //   lba_terms   one thread per observation: transform, projection,
 //               (u, v, d) or point-to-line residual, Jc = dr/dxi,
-//               Jp = dr/dX, validity, the residual norm.
-//   lba_sigma   one block: the 12,800 |r| into shared memory (64 KB of
-//               dynamic shared memory, masked as FLT_MAX), a bitonic sort,
-//               the exact lower median (core/robust.py:18-30), then the
-//               robust cost with the lost-observation charge as a
-//               fixed-order reduction.
+//               Jp = dr/dX, validity, the residual norm; and in the same
+//               launch the exact lower median of the valid |r| (a radix
+//               select, its last step in the block that finishes last),
+//               the MAD scale and the robust cost with the
+//               lost-observation charge in a fixed-order reduction (below,
+//               at terms_kernel).
 //   lba_camera  one block per pose: H_cc and g_c, fixed-order reduction.
 //   lba_index   once a window LBA (the observation ids do not
 //               change between LM steps): one block lists each landmark
@@ -39,13 +39,8 @@
 //               the walk passes each pose, zeros included), every lane in
 //               the list's order with the t-Student weight of each
 //               observation; then the damped block's inverse (the
-//               reference's scale-normalised closed-form Cholesky). Each
-//               sum runs in the order and arithmetic of lba_bin_scan. No
+//               reference's scale-normalised closed-form Cholesky). No
 //               float atomics: the sums do not depend on scheduling.
-//   lba_bin_scan  the binning lba_bin replaced, kept as the "before"
-//               that chip_smoke.py compares (no main-path caller): one warp
-//               per slot scans every observation id of the window (ballot,
-//               then the matches in ascending index) and lane 0 sums.
 //   lba_schur   one block per pose pair (w, v): S[w, v] = -sum_l
 //               H_cl[w,l] H_ll^-1 H_cl[v,l]^T in a fixed order, plus on the
 //               diagonal H_cc, the damping of the original H_cc diagonal
@@ -57,6 +52,7 @@
 
 #include <cuda_runtime.h>
 #include <float.h>
+#include <limits.h>
 #include <math.h>
 #include <stdint.h>
 
@@ -86,88 +82,342 @@ __device__ __forceinline__ void se3_row(const float* a, const float* P,
   out[5] = -a[0] * P[1] + a[1] * P[0];
 }
 
-__global__ void terms_kernel(
+// -- lba_terms: the terms, the MAD scale and the robust cost, one launch --
+//
+// The scale is sigma = max(1.4826 med, 1e-4), med the lower median of the
+// valid |r| (core/robust.py:18-30): the element of rank (n - 1) / 2 among
+// the n valid ones, 0 where n = 0. Every |r| is a norm or a fabsf, and a
+// non-negative float orders as its bits, so med is found exactly by a
+// radix select over the 31 bits below the sign: digits of 11, 10 and 10
+// bits, each a histogram and a scan that picks the bucket holding the
+// rank. No sort, no sentinel, no float atomics.
+//   - every block adds its valid keys' top digit into a device-wide
+//     histogram (shared-memory counts first, then integer atomics: exact
+//     in any order) and its lost observations into a device-wide count,
+//     then takes an arrival ticket after a __threadfence();
+//   - the block that arrives last picks the top digit's bucket, walks the
+//     terms again from L2 for the second digit (stashing the bucket's keys
+//     in shared memory where they fit, else walking them again for the
+//     third), then computes the cost in the fixed order of the one-block
+//     kernel it replaced (its TERMS_NT threads, each a strided walk, a
+//     warp butterfly, the warps' sums in order), and zeroes the histogram,
+//     counts and ticket for the next launch. The scratch therefore serves
+//     one launch at a time.
+// That replaced kernel, a launch of its own, sorted all |r| in one block's
+// shared memory (a bitonic sort, 105 passes behind barriers at 12,800
+// observations, at most 32,768) to read one order statistic. Here the
+// select's work is a histogram add per value in every block and two walks
+// of the values from L2 in the last one (~10 operations a value), and the
+// scale needs no launch and no shared-memory limit of its own. What bounds
+// the launch is one SM: its last block's walks (L2's latency, then the
+// cost's two IEEE divisions a value) take as long as the terms on ~100
+// SMs before them (~7 us each at the default window on an NVIDIA H100
+// 80GB HBM3 at 700 W, by clock stamps).
+// TERMS_NT is also the replaced kernel's block, whose threads' strided
+// walks fix the cost's order of summation. A block computes the terms of
+// TERMS_OBS observations only: its stores are scattered (a point's 18 Jc
+// floats are 72 bytes from the next one's), so the terms spread over as
+// many SMs as there are, while the last block has TERMS_NT threads.
+constexpr int TERMS_NT = 1024, TERMS_OBS = 128;
+constexpr int SEL_D1 = 2048, SEL_D2 = 1024, SEL_D3 = 1024;  // 11, 10, 10 bits
+constexpr int SEL_SHIFT1 = 20, SEL_SHIFT2 = 10;
+constexpr int SEL_STASH = 4096;
+constexpr int SEL_BATCH = 8;     // loads in flight a thread in the walks
+
+struct SelScratch {              // zero between launches
+  unsigned int hist[SEL_D1];
+  unsigned int valid, lost, ticket;
+};
+
+__device__ __forceinline__ unsigned int key_of(float a) {
+  return __float_as_uint(a) & 0x7fffffffu;
+}
+
+// *count += the warp's lanes that are on, one atomic a warp. Every lane of
+// the warp calls it.
+__device__ __forceinline__ void warp_count(unsigned int* count, bool on) {
+  const unsigned int mask = __ballot_sync(0xffffffffu, on);
+  if ((threadIdx.x & 31) == 0 && mask)
+    atomicAdd(count, (unsigned int)__popc(mask));
+}
+
+// the bucket of h[0 .. NB) (counts in bucket order) that holds rank k < the
+// counts' sum, and k's rank inside it. Every thread returns the same.
+template <int NB>
+__device__ void select_bucket(const unsigned int* h, unsigned int k,
+                              int* bucket, unsigned int* rank,
+                              unsigned int* scan) {
+  constexpr int PER = NB / TERMS_NT;
+  __shared__ int s_bucket;
+  __shared__ unsigned int s_rank;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  unsigned int c[PER], sum = 0;
+#pragma unroll
+  for (int q = 0; q < PER; ++q) {
+    c[q] = h[tid * PER + q];
+    sum += c[q];
+  }
+  // inclusive scan of the threads' sums: warps, then the warps' totals
+  unsigned int x = sum;
+  for (int d = 1; d < 32; d <<= 1) {
+    const unsigned int y = __shfl_up_sync(0xffffffffu, x, d);
+    if (lane >= d) x += y;
+  }
+  if (lane == 31) scan[warp] = x;
+  __syncthreads();
+  unsigned int lo = x - sum;
+  for (int w = 0; w < warp; ++w) lo += scan[w];
+  if (k >= lo && k < lo + sum) {
+#pragma unroll
+    for (int q = 0; q < PER; ++q) {
+      if (k >= lo && k < lo + c[q]) {
+        s_bucket = tid * PER + q;
+        s_rank = k - lo;
+      }
+      lo += c[q];
+    }
+  }
+  __syncthreads();
+  *bucket = s_bucket;
+  *rank = s_rank;
+  __syncthreads();
+}
+
+__global__ void __launch_bounds__(TERMS_NT) terms_kernel(
     const float* __restrict__ pose, const float* __restrict__ pt_pos,
     const float* __restrict__ ep_pos, const float* __restrict__ obs_uv,
     const float* __restrict__ obs_disp, const int* __restrict__ obs_id,
     const float* __restrict__ obs_le, const int* __restrict__ sid,
-    const int* __restrict__ eid, float* __restrict__ r_pt,
-    float* __restrict__ Jc_pt, float* __restrict__ Jp_pt,
-    uint8_t* __restrict__ ok_pt, float* __restrict__ rn,
-    float* __restrict__ r_ln, float* __restrict__ Jc_ln,
-    float* __restrict__ Jp_ln, uint8_t* __restrict__ ok_ln, int W, int K,
-    int L, Cam c) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  const int NP = W * K, NL = W * L;
-  if (i >= NP + 2 * NL) return;
-  const bool is_pt = i < NP;
-  const int j = is_pt ? i : i - NP;          // (f,) w, k or l
-  const int f = is_pt ? 0 : j / NL;
-  const int wl = is_pt ? j : j % NL;
-  const int w = is_pt ? j / K : wl / L;
-  const int id = is_pt ? obs_id[j] : (f == 0 ? sid : eid)[wl];
-  const float* X = (is_pt ? pt_pos : ep_pos) + 3 * max(id, 0);
-  const float* T = pose + 16 * w;
-  float Pc[3];
+    const int* __restrict__ eid, float* r_pt, float* Jc_pt, float* Jp_pt,
+    uint8_t* ok_pt, float* rn, float* r_ln, float* Jc_ln, float* Jp_ln,
+    uint8_t* ok_ln, float* sigma_out, float* cost_out, SelScratch* scr,
+    int W, int K, int L, Cam c) {
+  __shared__ unsigned int sh[SEL_D1 + SEL_STASH];
+  __shared__ unsigned int s_valid, s_lost, s_scan[TERMS_NT / 32];
+  __shared__ bool s_last;
+  const int tid = threadIdx.x;
+  const int i = tid < TERMS_OBS ? blockIdx.x * TERMS_OBS + tid : INT_MAX;
+  const int NP = W * K, NL = W * L, NT = NP + 2 * NL;
+  for (int b = tid; b < SEL_D1; b += TERMS_NT) sh[b] = 0;
+  if (tid == 0) s_valid = s_lost = 0;
+  __syncthreads();
+  bool counted = false, lost = false;  // a valid |r|; a lost observation
+  unsigned int key0 = 0;
+  if (i < NT) {
+    const bool is_pt = i < NP;
+    const int j = is_pt ? i : i - NP;          // (f,) w, k or l
+    const int f = is_pt ? 0 : j / NL;
+    const int wl = is_pt ? j : j % NL;
+    const int w = is_pt ? j / K : wl / L;
+    const int id = is_pt ? obs_id[j] : (f == 0 ? sid : eid)[wl];
+    const float* X = (is_pt ? pt_pos : ep_pos) + 3 * max(id, 0);
+    const float* T = pose + 16 * w;
+    float Pc[3];
 #pragma unroll
-  for (int a = 0; a < 3; ++a)
-    Pc[a] = T[a * 4] * X[0] + T[a * 4 + 1] * X[1] + T[a * 4 + 2] * X[2] +
-            T[a * 4 + 3];
-  const bool ok = id >= 0 && Pc[2] > 0.1f;
-  const float zs = safe_z(Pc[2]);
-  const float u = __fadd_rn(__fdiv_rn(__fmul_rn(c.fx, Pc[0]), zs), c.cx);
-  const float v = __fadd_rn(__fdiv_rn(__fmul_rn(c.fy, Pc[1]), zs), c.cy);
-  const float iz = 1.0f / zs, iz2 = iz * iz;
-  const float jp[2][3] = {{c.fx * iz, 0.0f, -c.fx * Pc[0] * iz2},
-                          {0.0f, c.fy * iz, -c.fy * Pc[1] * iz2}};
-  if (is_pt) {
-    const float z = fmaxf(Pc[2], 1e-6f);
-    const float d_obs = obs_disp[j];
-    const bool has_d = d_obs > 0.0f;
-    float r[3] = {__fsub_rn(u, obs_uv[2 * j]), __fsub_rn(v, obs_uv[2 * j + 1]),
-                  has_d ? __fsub_rn(__fdiv_rn(c.fxb, z), d_obs) : 0.0f};
-    float J3[3][3] = {{jp[0][0], jp[0][1], jp[0][2]},
-                      {jp[1][0], jp[1][1], jp[1][2]},
-                      {0.0f, 0.0f, has_d ? -c.fxb / (z * z) : 0.0f}};
-    float s = 0.0f;
+    for (int a = 0; a < 3; ++a)
+      Pc[a] = T[a * 4] * X[0] + T[a * 4 + 1] * X[1] + T[a * 4 + 2] * X[2] +
+              T[a * 4 + 3];
+    const bool ok = id >= 0 && Pc[2] > 0.1f;
+    const float zs = safe_z(Pc[2]);
+    const float u = __fadd_rn(__fdiv_rn(__fmul_rn(c.fx, Pc[0]), zs), c.cx);
+    const float v = __fadd_rn(__fdiv_rn(__fmul_rn(c.fy, Pc[1]), zs), c.cy);
+    const float iz = 1.0f / zs, iz2 = iz * iz;
+    const float jp[2][3] = {{c.fx * iz, 0.0f, -c.fx * Pc[0] * iz2},
+                            {0.0f, c.fy * iz, -c.fy * Pc[1] * iz2}};
+    float a_abs;                               // |r| of the scale
+    if (is_pt) {
+      const float z = fmaxf(Pc[2], 1e-6f);
+      const float d_obs = obs_disp[j];
+      const bool has_d = d_obs > 0.0f;
+      float r[3] = {__fsub_rn(u, obs_uv[2 * j]),
+                    __fsub_rn(v, obs_uv[2 * j + 1]),
+                    has_d ? __fsub_rn(__fdiv_rn(c.fxb, z), d_obs) : 0.0f};
+      float J3[3][3] = {{jp[0][0], jp[0][1], jp[0][2]},
+                        {jp[1][0], jp[1][1], jp[1][2]},
+                        {0.0f, 0.0f, has_d ? -c.fxb / (z * z) : 0.0f}};
+      float s = 0.0f;
 #pragma unroll
-    for (int a = 0; a < 3; ++a) {
-      if (!ok) r[a] = 0.0f;
-      r_pt[3 * j + a] = r[a];
-      s = __fadd_rn(s, __fmul_rn(r[a], r[a]));
+      for (int a = 0; a < 3; ++a) {
+        if (!ok) r[a] = 0.0f;
+        r_pt[3 * j + a] = r[a];
+        s = __fadd_rn(s, __fmul_rn(r[a], r[a]));
+        float row[6];
+        se3_row(J3[a], Pc, row);
+#pragma unroll
+        for (int q = 0; q < 6; ++q)
+          Jc_pt[18 * j + 6 * a + q] = ok ? row[q] : 0.0f;
+#pragma unroll
+        for (int b = 0; b < 3; ++b)
+          Jp_pt[9 * j + 3 * a + b] =
+              ok ? J3[a][0] * T[b] + J3[a][1] * T[4 + b] + J3[a][2] * T[8 + b]
+                 : 0.0f;
+      }
+      a_abs = __fsqrt_rn(__fadd_rn(s, 1e-12f));
+      rn[j] = a_abs;
+      ok_pt[j] = ok;
+    } else {
+      const float* le = obs_le + 3 * wl;
+      const float r = __fadd_rn(
+          __fadd_rn(__fmul_rn(le[0], u), __fmul_rn(le[1], v)), le[2]);
+      const float jpix[3] = {le[0] * jp[0][0] + le[1] * jp[1][0],
+                             le[0] * jp[0][1] + le[1] * jp[1][1],
+                             le[0] * jp[0][2] + le[1] * jp[1][2]};
       float row[6];
-      se3_row(J3[a], Pc, row);
+      se3_row(jpix, Pc, row);
+      r_ln[j] = ok ? r : 0.0f;
 #pragma unroll
-      for (int q = 0; q < 6; ++q) Jc_pt[18 * j + 6 * a + q] = ok ? row[q] : 0.0f;
+      for (int q = 0; q < 6; ++q) Jc_ln[6 * j + q] = ok ? row[q] : 0.0f;
 #pragma unroll
       for (int b = 0; b < 3; ++b)
-        Jp_pt[9 * j + 3 * a + b] =
-            ok ? J3[a][0] * T[b] + J3[a][1] * T[4 + b] + J3[a][2] * T[8 + b]
+        Jp_ln[3 * j + b] =
+            ok ? jpix[0] * T[b] + jpix[1] * T[4 + b] + jpix[2] * T[8 + b]
                : 0.0f;
+      ok_ln[j] = ok;
+      a_abs = fabsf(r);
     }
-    rn[j] = __fsqrt_rn(__fadd_rn(s, 1e-12f));
-    ok_pt[j] = ok;
-  } else {
-    const float* le = obs_le + 3 * wl;
-    const float r = __fadd_rn(__fadd_rn(__fmul_rn(le[0], u), __fmul_rn(le[1], v)),
-                              le[2]);
-    const float jpix[3] = {le[0] * jp[0][0] + le[1] * jp[1][0],
-                           le[0] * jp[0][1] + le[1] * jp[1][1],
-                           le[0] * jp[0][2] + le[1] * jp[1][2]};
-    float row[6];
-    se3_row(jpix, Pc, row);
-    r_ln[j] = ok ? r : 0.0f;
-#pragma unroll
-    for (int q = 0; q < 6; ++q) Jc_ln[6 * j + q] = ok ? row[q] : 0.0f;
-#pragma unroll
-    for (int b = 0; b < 3; ++b)
-      Jp_ln[3 * j + b] =
-          ok ? jpix[0] * T[b] + jpix[1] * T[4 + b] + jpix[2] * T[8 + b] : 0.0f;
-    ok_ln[j] = ok;
+    counted = ok;
+    lost = !ok && id >= 0;
+    key0 = key_of(a_abs);
   }
-}
+  if (counted) atomicAdd(&sh[key0 >> SEL_SHIFT1], 1u);
+  warp_count(&s_valid, counted);
+  warp_count(&s_lost, lost);
+  __syncthreads();
+  for (int b = tid; b < SEL_D1; b += TERMS_NT)
+    if (sh[b]) atomicAdd(&scr->hist[b], sh[b]);
+  if (tid == 0) {
+    atomicAdd(&scr->valid, s_valid);
+    atomicAdd(&scr->lost, s_lost);
+  }
+  __threadfence();  // this block's terms and counts before its ticket
+  __syncthreads();
+  if (tid == 0) s_last = atomicAdd(&scr->ticket, 1u) == gridDim.x - 1;
+  __syncthreads();
+  if (!s_last) return;
+  __threadfence();
 
-constexpr int SIG_NT = 1024;
+  // the last block: the lower median of the valid |r|, digit by digit.
+  // Its walks read SEL_BATCH values a thread before using any: L2's
+  // latency, not its bandwidth, bounds one block's walk.
+  auto load = [&](int g, float* x, bool* valid) {  // no load under a branch
+    const int gc = min(g, NT - 1);
+    const bool pt = gc < NP;
+    const uint8_t ok = __ldcg(pt ? ok_pt + gc : ok_ln + (gc - NP));
+    *x = __ldcg(pt ? rn + gc : r_ln + (gc - NP));
+    *valid = (g < NT) & (ok != 0);
+  };
+  auto walk = [&](auto&& use) {       // use(key, valid) on every lane
+    for (int g0 = 0; g0 < NT; g0 += SEL_BATCH * TERMS_NT) {
+      float x[SEL_BATCH];
+      bool valid[SEL_BATCH];
+#pragma unroll
+      for (int u = 0; u < SEL_BATCH; ++u)
+        load(g0 + u * TERMS_NT + tid, &x[u], &valid[u]);
+#pragma unroll
+      for (int u = 0; u < SEL_BATCH; ++u) use(key_of(x[u]), valid[u]);
+    }
+  };
+  for (int b = tid; b < SEL_D1; b += TERMS_NT) sh[b] = __ldcg(&scr->hist[b]);
+  const unsigned int n = __ldcg(&scr->valid);
+  __syncthreads();
+  float med = 0.0f;
+  if (n > 0) {
+    int b1, b2, b3;
+    unsigned int k = (n - 1) / 2;
+    select_bucket<SEL_D1>(sh, k, &b1, &k, s_scan);
+    // pass 2; each warp stashes its bucket-b1 keys in a region of its own
+    // (its count in a register, the same in every lane), unless one
+    // overflows: then pass 3 walks the terms again
+    constexpr int PER_WARP = SEL_STASH / (TERMS_NT / 32);
+    __shared__ unsigned int s_count[TERMS_NT / 32];
+    __shared__ bool s_overflow;
+    const int lane = tid & 31, warp = tid >> 5;
+    unsigned int* keys = sh + SEL_D1 + warp * PER_WARP;
+    unsigned int count = 0;
+    __syncthreads();
+    for (int b = tid; b < SEL_D2; b += TERMS_NT) sh[b] = 0;
+    if (tid == 0) s_overflow = false;
+    __syncthreads();
+    walk([&](unsigned int key, bool valid) {
+      const bool in = valid && (int)(key >> SEL_SHIFT1) == b1;
+      if (in) atomicAdd(&sh[(key >> SEL_SHIFT2) & (SEL_D2 - 1)], 1u);
+      const unsigned int mask = __ballot_sync(0xffffffffu, in);
+      const unsigned int at = count + __popc(mask & ((1u << lane) - 1));
+      if (in && at < PER_WARP) keys[at] = key;
+      count += __popc(mask);
+    });
+    if (lane == 0) {
+      s_count[warp] = count;
+      if (count > PER_WARP) s_overflow = true;
+    }
+    __syncthreads();
+    select_bucket<SEL_D2>(sh, k, &b2, &k, s_scan);
+    const unsigned int prefix = ((unsigned int)b1 << (SEL_SHIFT1 - SEL_SHIFT2))
+                                | (unsigned int)b2;
+    for (int b = tid; b < SEL_D3; b += TERMS_NT) sh[b] = 0;
+    __syncthreads();
+    if (!s_overflow) {
+      for (int q = tid; q < SEL_STASH; q += TERMS_NT) {
+        const int w = q / PER_WARP, e = q - w * PER_WARP;
+        const unsigned int key =
+            e < (int)s_count[w] ? sh[SEL_D1 + q] : ~0u;
+        if (key >> SEL_SHIFT2 == prefix)
+          atomicAdd(&sh[key & (SEL_D3 - 1)], 1u);
+      }
+    } else {
+      walk([&](unsigned int key, bool valid) {
+        if (valid && key >> SEL_SHIFT2 == prefix)
+          atomicAdd(&sh[key & (SEL_D3 - 1)], 1u);
+      });
+    }
+    __syncthreads();
+    select_bucket<SEL_D3>(sh, k, &b3, &k, s_scan);
+    med = __uint_as_float((prefix << SEL_SHIFT2) | (unsigned int)b3);
+  }
+  const float sigma = fmaxf(__fmul_rn(1.4826f, med), 1e-4f);
+
+  // the robust cost in the replaced kernel's order: thread tid sums
+  // points, start and end endpoints over i = tid, tid + TERMS_NT, ...;
+  // a warp butterfly; the warps' sums in order (|r| r^2 of a line: r^2,
+  // the same bits)
+  __shared__ float red[TERMS_NT / 32][3];
+  float acc[3] = {0.0f, 0.0f, 0.0f};
+  for (int i0 = 0; i0 < NT; i0 += SEL_BATCH * TERMS_NT) {
+    float x[SEL_BATCH];
+    bool valid[SEL_BATCH];
+#pragma unroll
+    for (int u = 0; u < SEL_BATCH; ++u)
+      load(i0 + u * TERMS_NT + tid, &x[u], &valid[u]);
+#pragma unroll
+    for (int u = 0; u < SEL_BATCH; ++u) {
+      const int g = i0 + u * TERMS_NT + tid;
+      const float r = x[u];
+      const float t = tstudent(fabsf(r), sigma);
+      if (!valid[u]) continue;
+      if (g < NP) acc[0] += t * (r * r);
+      else if (g - NP < NL) acc[1] += t * (r * r);
+      else acc[2] += t * (r * r);
+    }
+  }
+  const int lane = tid & 31, warp = tid >> 5;
+#pragma unroll
+  for (int e = 0; e < 3; ++e) {
+    float x = acc[e];
+    for (int s = 16; s > 0; s >>= 1) x += __shfl_xor_sync(0xffffffffu, x, s);
+    if (lane == 0) red[warp][e] = x;
+  }
+  __syncthreads();
+  if (tid == 0) {
+    float tot[3] = {0.0f, 0.0f, 0.0f};
+    for (int e = 0; e < 3; ++e)
+      for (int w = 0; w < TERMS_NT / 32; ++w) tot[e] += red[w][e];
+    const float lost = (float)__ldcg(&scr->lost);
+    *sigma_out = sigma;
+    *cost_out = ((tot[0] + tot[1]) + tot[2]) + (6.0f * sigma * sigma) * lost;
+    scr->valid = scr->lost = scr->ticket = 0;
+  }
+  for (int b = tid; b < SEL_D1; b += TERMS_NT) scr->hist[b] = 0;
+}
 
 template <int NV, int NT>
 __device__ void block_sum(float* acc, float (*red)[NV], float* tot) {
@@ -185,66 +435,6 @@ __device__ void block_sum(float* acc, float (*red)[NV], float* tot) {
     tot[threadIdx.x] = x;
   }
   __syncthreads();
-}
-
-__global__ void __launch_bounds__(SIG_NT)
-    sigma_kernel(const float* __restrict__ rn, const uint8_t* __restrict__ ok_pt,
-                 const float* __restrict__ r_ln,
-                 const uint8_t* __restrict__ ok_ln,
-                 const int* __restrict__ obs_id, const int* __restrict__ sid,
-                 const int* __restrict__ eid, float* sigma_out,
-                 float* cost_out, int NP, int NL, int S) {
-  extern __shared__ float sorted[];
-  __shared__ float red[SIG_NT / 32][4];
-  __shared__ float tot[4];
-  __shared__ int n_valid;
-  const int tid = threadIdx.x;
-  if (tid == 0) n_valid = 0;
-  __syncthreads();
-  int mine = 0;
-  for (int i = tid; i < S; i += SIG_NT) {
-    const bool valid =
-        i < NP ? ok_pt[i] != 0 : (i < NP + 2 * NL && ok_ln[i - NP] != 0);
-    mine += valid;
-    sorted[i] = !valid ? FLT_MAX : i < NP ? rn[i] : fabsf(r_ln[i - NP]);
-  }
-  atomicAdd(&n_valid, mine);  // integer: order-free
-  __syncthreads();
-  for (int k = 2; k <= S; k <<= 1)
-    for (int j = k >> 1; j > 0; j >>= 1) {
-      for (int i = tid; i < S; i += SIG_NT) {
-        const int ixj = i ^ j;
-        if (ixj > i) {
-          const float a = sorted[i], b = sorted[ixj];
-          if ((a > b) == ((i & k) == 0)) {
-            sorted[i] = b;
-            sorted[ixj] = a;
-          }
-        }
-      }
-      __syncthreads();
-    }
-  const int n = n_valid;
-  const float med = n > 0 ? sorted[max((n - 1) / 2, 0)] : 0.0f;
-  const float sigma = fmaxf(__fmul_rn(1.4826f, med), 1e-4f);
-  // robust cost: points, start endpoints, end endpoints, lost count
-  float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-  for (int i = tid; i < NP + 2 * NL; i += SIG_NT) {
-    if (i < NP) {
-      if (ok_pt[i]) acc[0] += tstudent(rn[i], sigma) * (rn[i] * rn[i]);
-      else if (obs_id[i] >= 0) acc[3] += 1.0f;
-    } else {
-      const int j = i - NP, f = j / NL;
-      const float r = r_ln[j];
-      if (ok_ln[j]) acc[1 + f] += tstudent(fabsf(r), sigma) * (r * r);
-      else if ((f == 0 ? sid : eid)[j % NL] >= 0) acc[3] += 1.0f;
-    }
-  }
-  block_sum<4, SIG_NT>(acc, red, tot);
-  if (tid == 0) {
-    *sigma_out = sigma;
-    *cost_out = ((tot[0] + tot[1]) + tot[2]) + (6.0f * sigma * sigma) * tot[3];
-  }
 }
 
 constexpr int CAM_NT = 256;
@@ -333,86 +523,6 @@ __device__ void inv3(const float* Min, float* out) {
 }
 
 constexpr int BIN_NT = 256;
-
-__global__ void __launch_bounds__(BIN_NT)
-    bin_kernel(const int* __restrict__ obs_id, const int* __restrict__ sid,
-               const int* __restrict__ eid, const float* __restrict__ Jc_pt,
-               const float* __restrict__ Jp_pt, const float* __restrict__ r_pt,
-               const float* __restrict__ rn, const uint8_t* __restrict__ ok_pt,
-               const float* __restrict__ Jc_ln, const float* __restrict__ Jp_ln,
-               const float* __restrict__ r_ln, const uint8_t* __restrict__ ok_ln,
-               const float* sigma_p, const uint8_t* __restrict__ free_,
-               const float* lam_p, float* H_ll, float* H_inv, float* g_l,
-               float* H_cl, int W, int K, int L, int P, int Q) {
-  const int n = (blockIdx.x * BIN_NT + threadIdx.x) / 32;
-  const int lane = threadIdx.x & 31;
-  const int N = P + Q;
-  if (n >= N) return;
-  const bool is_pt = n < P;
-  const int target = is_pt ? n : n - P;
-  const float sigma = *sigma_p;
-  float H[9] = {0}, g[3] = {0};
-  for (int w = 0; w < W; ++w) {
-    const float fr = free_[w] ? 1.0f : 0.0f;
-    float Hc[18] = {0};
-    const int n_fam = is_pt ? 1 : 2, len = is_pt ? K : L;
-    for (int f = 0; f < n_fam; ++f) {
-      const int* ids = is_pt ? obs_id : (f == 0 ? sid : eid);
-      for (int k0 = 0; k0 < len; k0 += 32) {
-        const int k = k0 + lane;
-        const bool hit = k < len && ids[w * len + k] == target;
-        unsigned mask = __ballot_sync(0xffffffffu, hit);
-        if (lane == 0) {
-          while (mask) {
-            const int kk = k0 + __ffs(mask) - 1;
-            mask &= mask - 1;
-            if (is_pt) {
-              const int j = w * K + kk;
-              if (!ok_pt[j]) continue;
-              const float wt = tstudent(rn[j], sigma);
-              const float* Jp = Jp_pt + 9 * j;
-              const float* Jc = Jc_pt + 18 * j;
-              const float* r = r_pt + 3 * j;
-              for (int a = 0; a < 3; ++a)
-                for (int b = 0; b < 3; ++b)
-                  H[3 * a + b] += wt * (Jp[a] * Jp[b] + Jp[3 + a] * Jp[3 + b] +
-                                        Jp[6 + a] * Jp[6 + b]);
-              for (int a = 0; a < 3; ++a)
-                g[a] += wt * (Jp[a] * r[0] + Jp[3 + a] * r[1] + Jp[6 + a] * r[2]);
-              for (int a = 0; a < 6; ++a)
-                for (int c = 0; c < 3; ++c)
-                  Hc[3 * a + c] +=
-                      wt * fr *
-                      (Jc[a] * Jp[c] + Jc[6 + a] * Jp[3 + c] + Jc[12 + a] * Jp[6 + c]);
-            } else {
-              const int j = f * W * L + w * L + kk;
-              if (!ok_ln[j]) continue;
-              const float r = r_ln[j];
-              const float wt = tstudent(fabsf(r), sigma);
-              const float* Jp = Jp_ln + 3 * j;
-              const float* Jc = Jc_ln + 6 * j;
-              for (int a = 0; a < 3; ++a)
-                for (int b = 0; b < 3; ++b) H[3 * a + b] += wt * Jp[a] * Jp[b];
-              for (int a = 0; a < 3; ++a) g[a] += wt * Jp[a] * r;
-              for (int a = 0; a < 6; ++a)
-                for (int c = 0; c < 3; ++c) Hc[3 * a + c] += wt * fr * Jc[a] * Jp[c];
-            }
-          }
-        }
-      }
-    }
-    if (lane == 0)
-      for (int q = 0; q < 18; ++q) H_cl[((size_t)w * N + n) * 18 + q] = Hc[q];
-  }
-  if (lane != 0) return;
-  const float lam = *lam_p;
-  float Hd[9];
-  for (int i = 0; i < 9; ++i) Hd[i] = H[i];
-  for (int a = 0; a < 3; ++a) Hd[4 * a] += lam * fmaxf(H[4 * a], 1e-3f);
-  inv3(Hd, H_inv + 9 * n);
-  for (int i = 0; i < 9; ++i) H_ll[9 * n + i] = H[i];
-  for (int a = 0; a < 3; ++a) g_l[3 * n + a] = g[a];
-}
 
 // -- the landmark index and the binning that reads it ----------------------
 
@@ -696,35 +806,24 @@ extern "C" {
 // (W, K, 2), obs_pt_disp (W, K), obs_pt_id (W, K), obs_ln_le (W, L, 3),
 // obs_ln_sid, obs_ln_eid (W, L)) -> r_pt (W, K, 3), Jc_pt (W, K, 3, 6),
 // Jp_pt (W, K, 3, 3), ok_pt (W, K) u8, rn (W, K), r_ln (2, W, L), Jc_ln
-// (2, W, L, 6), Jp_ln (2, W, L, 3), ok_ln (2, W, L) u8.
+// (2, W, L, 6), Jp_ln (2, W, L, 3), ok_ln (2, W, L) u8, and sigma (the
+// robust MAD scale) and the robust cost, 0-d each. scratch: a zeroed
+// SelScratch (SEL_D1 + 3 words) that the launch leaves zeroed; launches
+// that share one must run one after another (one stream).
 int lba_terms(const float* pose, const float* pt_pos, const float* ep_pos,
               const float* obs_uv, const float* obs_disp, const int* obs_id,
               const float* obs_le, const int* sid, const int* eid,
               float* r_pt, float* Jc_pt, float* Jp_pt, uint8_t* ok_pt,
               float* rn, float* r_ln, float* Jc_ln, float* Jp_ln,
-              uint8_t* ok_ln, int W, int K, int L, int P, int Q, float fx,
-              float fy, float cx, float cy, float fxb, cudaStream_t stream) {
-  if (P < 1 || Q < 1) return (int)cudaErrorInvalidValue;
-  const int n = W * K + 2 * W * L, threads = 256;
-  terms_kernel<<<(n + threads - 1) / threads, threads, 0, stream>>>(
+              uint8_t* ok_ln, float* sigma, float* cost, void* scratch,
+              int W, int K, int L, int P, int Q, float fx, float fy,
+              float cx, float cy, float fxb, cudaStream_t stream) {
+  const int n = W * K + 2 * W * L;
+  if (P < 1 || Q < 1 || n < 1) return (int)cudaErrorInvalidValue;
+  terms_kernel<<<(n + TERMS_OBS - 1) / TERMS_OBS, TERMS_NT, 0, stream>>>(
       pose, pt_pos, ep_pos, obs_uv, obs_disp, obs_id, obs_le, sid, eid, r_pt,
-      Jc_pt, Jp_pt, ok_pt, rn, r_ln, Jc_ln, Jp_ln, ok_ln, W, K, L,
-      Cam{fx, fy, cx, cy, fxb});
-  return (int)cudaGetLastError();
-}
-
-// -> sigma (robust MAD scale) and the robust cost, 0-d each. S: a power of
-// two >= NP + 2 NL, at most 32768 (128 KB of shared memory).
-int lba_sigma(const float* rn, const uint8_t* ok_pt, const float* r_ln,
-              const uint8_t* ok_ln, const int* obs_id, const int* sid,
-              const int* eid, float* sigma, float* cost, int NP, int NL,
-              int S, cudaStream_t stream) {
-  const size_t smem = (size_t)S * sizeof(float);
-  cudaError_t e = cudaFuncSetAttribute(
-      sigma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  sigma_kernel<<<1, SIG_NT, smem, stream>>>(rn, ok_pt, r_ln, ok_ln, obs_id,
-                                             sid, eid, sigma, cost, NP, NL, S);
+      Jc_pt, Jp_pt, ok_pt, rn, r_ln, Jc_ln, Jp_ln, ok_ln, sigma, cost,
+      static_cast<SelScratch*>(scratch), W, K, L, Cam{fx, fy, cx, cy, fxb});
   return (int)cudaGetLastError();
 }
 
@@ -772,21 +871,6 @@ int lba_bin(const int* off, const int* list, const float* Jc_pt,
                      stream>>>(off, list, Jc_pt, Jp_pt, r_pt, rn, ok_pt,
                                Jc_ln, Jp_ln, r_ln, ok_ln, sigma, free_, lam,
                                H_ll, H_inv, g_l, H_cl, W, K, L, P, Q);
-  return (int)cudaGetLastError();
-}
-
-// The replaced binning: the same outputs from the id tables themselves.
-int lba_bin_scan(const int* obs_id, const int* sid, const int* eid,
-                 const float* Jc_pt, const float* Jp_pt, const float* r_pt,
-                 const float* rn, const uint8_t* ok_pt, const float* Jc_ln,
-                 const float* Jp_ln, const float* r_ln, const uint8_t* ok_ln,
-                 const float* sigma, const uint8_t* free_, const float* lam,
-                 float* H_ll, float* H_inv, float* g_l, float* H_cl, int W,
-                 int K, int L, int P, int Q, cudaStream_t stream) {
-  const int warps = P + Q, per_block = BIN_NT / 32;
-  bin_kernel<<<(warps + per_block - 1) / per_block, BIN_NT, 0, stream>>>(
-      obs_id, sid, eid, Jc_pt, Jp_pt, r_pt, rn, ok_pt, Jc_ln, Jp_ln, r_ln,
-      ok_ln, sigma, free_, lam, H_ll, H_inv, g_l, H_cl, W, K, L, P, Q);
   return (int)cudaGetLastError();
 }
 

@@ -39,7 +39,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # takes the stream as one more trailing pointer.
 _SIGNATURES: Dict[str, str] = {
     "image_sep_filter": "pppppiiiii",
-    "image_resize": "pppppppppppiiiii",
+    "image_resize": "pppiiiii",
     "fast_score": "ppppiiiff",
     "fast_nms_block": "ppppppppiiiiiii",
     "orb_describe": "pppppppiii",
@@ -56,12 +56,10 @@ _SIGNATURES: Dict[str, str] = {
     "pose_gn_iters": "pppppppppiiiiiffff",
     "kf_scan": "p" * 21 + "iiifff",
     "medoid": "pppii",
-    "lba_terms": "p" * 18 + "iiiii" + "fffff",
-    "lba_sigma": "p" * 9 + "iii",
+    "lba_terms": "p" * 21 + "iiiii" + "fffff",
     "lba_camera": "p" * 11 + "iii",
     "lba_index": "p" * 5 + "iiiii",
     "lba_bin": "p" * 18 + "iiiii",
-    "lba_bin_scan": "p" * 19 + "iiiii",
     "lba_schur": "p" * 9 + "iif",
     "lba_backsub": "p" * 7 + "iii",
     "bow_descend": "pppiii",
@@ -77,14 +75,14 @@ _SIGNATURES: Dict[str, str] = {
 # the kernels' device function names (csrc/*.cu): what chip_smoke.py and
 # profile_torch_vo.py count as the hand-written kernels' device time
 KERNEL_FUNCTIONS = (
-    "filter_vertical", "filter_horizontal", "resize_vertical",
-    "resize_horizontal", "fast_score_kernel", "nms_block_kernel",
+    "filter_vertical", "filter_horizontal", "resize_kernel",
+    "fast_score_kernel", "nms_block_kernel",
     "orb_describe_kernel", "dist_kernel", "col_argmin_kernel",
     "row_match_kernel", "hamming_scan_kernel", "hamming_finish_kernel",
     "sobel_kernel", "block_moments", "window_moments", "label_kernel",
     "refit_kernel", "merge_kernel", "lbd_kernel", "pose_gn_kernel",
-    "kf_scan_kernel", "medoid_kernel", "terms_kernel", "sigma_kernel",
-    "camera_kernel", "lba_index_kernel", "bin_index_kernel", "bin_kernel",
+    "kf_scan_kernel", "medoid_kernel", "terms_kernel",
+    "camera_kernel", "lba_index_kernel", "bin_index_kernel",
     "schur_kernel", "backsub_kernel", "bow_descend_kernel", "bow_hist_kernel",
     "pg_edges_kernel", "pg_assemble_kernel", "pg_blocks_kernel",
     "pg_pcg_kernel", "pg_update_kernel", "remap_kernel")

@@ -8,8 +8,8 @@ runs each as banded-matrix products ``Mr @ img @ Mc^T``; here a vertical
 pass then a horizontal pass compute what those matrices hold: an
 edge-replicate correlation, and align_corners=False bilinear weights with
 the reference's exact index clamping. On CUDA tensors both run as the
-hand-written kernels of ``csrc/image.cu``; the plain PyTorch versions
-below run only for CPU tensors.
+hand-written kernels of ``csrc/image.cu`` (the resize in one pass); the
+plain PyTorch versions below run only for CPU tensors.
 
 Every function takes a batch: images are (N, H, W) f32.
 """
@@ -27,6 +27,8 @@ from plslam_tpu_torch import native
 
 # device copies of the small tap / index tables, one per (table, device)
 _TABLES: Dict[tuple, torch.Tensor] = {}
+# image_resize's packed tap tables, one per (H, Ho, W, Wo, device)
+_RESIZE_TABLES: Dict[tuple, torch.Tensor] = {}
 
 
 def _on(arr: np.ndarray, device: torch.device) -> torch.Tensor:
@@ -70,6 +72,17 @@ def _resize_taps(n_out: int, n_in: int) -> Tuple[np.ndarray, ...]:
         else:
             i1[i] = a
     return i0, i1, w0, w1
+
+
+def resize_table(H: int, Ho: int, W: int, Wo: int) -> np.ndarray:
+    """The resize kernel's packed taps, (Ho + Wo, 4) int32: per output row
+    (i0, i1, w0, w1) of ``_resize_taps(Ho, H)``, then per output column
+    those of ``_resize_taps(Wo, W)``, the weights as their f32 bits."""
+    def pack(taps):
+        i0, i1, w0, w1 = taps
+        return np.stack([i0, i1, w0.view(np.int32), w1.view(np.int32)], 1)
+    return np.concatenate([pack(_resize_taps(Ho, H)),
+                           pack(_resize_taps(Wo, W))])
 
 
 # -- plain PyTorch versions (CPU tensors) -------------------------------------
@@ -132,12 +145,13 @@ def resize_bilinear(img: torch.Tensor, shape: Tuple[int, int]
     N, H, W = img.shape
     Ho, Wo = shape
     native.require(img, "resize_bilinear", torch.float32)
-    tmp = torch.empty((N, Ho, W), dtype=img.dtype, device=img.device)
+    key = (H, Ho, W, Wo, img.device)
+    taps = _RESIZE_TABLES.get(key)
+    if taps is None:
+        taps = torch.from_numpy(resize_table(H, Ho, W, Wo)).to(img.device)
+        _RESIZE_TABLES[key] = taps
     out = torch.empty((N, Ho, Wo), dtype=img.dtype, device=img.device)
-    rows = [_on(a, img.device) for a in _resize_taps(Ho, H)]
-    cols = [_on(a, img.device) for a in _resize_taps(Wo, W)]
-    native.launch("image_resize", img, tmp, out, *rows, *cols,
-                  N, H, W, Ho, Wo)
+    native.launch("image_resize", img, out, taps, N, H, W, Ho, Wo)
     return out
 
 

@@ -53,6 +53,21 @@ def test_filter_and_resize(cuda):
         assert (got.cpu() - ref).abs().max() <= 1e-6
 
 
+@pytest.mark.parametrize("N", [1, 40])
+def test_resize_one_pass(cuda, N):
+    """image_resize, one launch a call, against its plain version on the
+    card: a 376x1241 batch to the pyramid's 1/1.2 (313x1034) and the
+    half-resolution passes' 1/2 (188x620), and to an odd width that is not
+    a multiple of the kernel's 4-column strips (157x517)."""
+    x = _imgs((N, 376, 1241), seed=3).to(cuda)
+    for shape in ((313, 1034), (188, 620), (157, 517)):
+        got = _launched("image_resize",
+                        lambda: image.resize_bilinear(x, shape))
+        ref = image.resize_bilinear_plain(x, shape)
+        assert got.shape == (N,) + shape
+        assert float((got - ref).abs().max()) <= 1e-6
+
+
 def test_fast_kernels_exact(cuda):
     x = image.gaussian_blur(_imgs(seed=1), 1.0)
     th_hi, th_lo = float(np.float32(20 / 255)), float(np.float32(7 / 255))
@@ -295,6 +310,55 @@ def lba_problem_np(seed, W=5, P=120, Q=40, noise_px=0.3, pose_noise=0.03,
         obs_ln_le=f32(les), obs_ln_sid=sid, obs_ln_eid=eid), cam
 
 
+# the lower median's edge cases: odd and even counts of valid |r|, exactly
+# one and none, ties straddling the median, values one ulp apart
+MEDIAN_CASES = ("odd", "even", "one", "none", "ties", "last_bit")
+
+
+def lba_median_problem_np(case, seed=0):
+    """A problem whose valid |r| are chosen bit for bit. Every point
+    observation is detached but those of three points put behind every
+    camera (lost: charged). Each line observation's equation is (0, 0, c),
+    so its endpoint residuals are c exactly: the case's values go to the
+    start endpoints (random signs) and the other endpoints are detached.
+    ``case``: one of MEDIAN_CASES; "wide", 20,480 lines with both endpoints
+    attached (40,960 values, all in one top radix bucket; more than the
+    32,768 observations the sort it replaced could hold); "mixed",
+    lba_problem_np's own geometry, points and lines. Returns the dict of
+    LBAProblem fields, the camera and the number of valid values."""
+    if case == "mixed":
+        d, cam = lba_problem_np(seed)
+        return d, cam, None
+    W, L = (10, 2048) if case == "wide" else (4, 64)
+    d, cam = lba_problem_np(seed, W=W, Q=2 * L)
+    rng = np.random.default_rng(seed + 1)
+    d["pt_pos"][:3, 2] = -5.0
+    d["obs_pt_id"][:] = -1
+    d["obs_pt_id"][:, :3] = np.arange(3)
+    x = np.float32(0.7)
+    x1 = np.nextafter(x, np.float32(1))
+    vals = {
+        "odd": lambda: rng.lognormal(0.0, 1.0, 101),
+        "even": lambda: rng.lognormal(0.0, 1.0, 100),
+        "one": lambda: np.array([0.37]),
+        "none": lambda: np.zeros(0),
+        "ties": lambda: rng.choice([0.0, 0.5, 1.0, 1.5], 200),
+        "last_bit": lambda: rng.permutation(np.concatenate(
+            [np.full(49, x), [x1], np.full(50, np.nextafter(x1, x1 + 1))])),
+        "wide": lambda: rng.uniform(1.0, 1.1, W * L),
+    }[case]().astype(np.float32)
+    m = len(vals)
+    le = np.zeros((W * L, 3), np.float32)
+    le[:m, 2] = vals * rng.choice(np.float32([-1, 1]), m)
+    d["obs_ln_le"] = le.reshape(W, L, 3)
+    slot = np.arange(W * L).reshape(W, L)
+    d["obs_ln_sid"] = np.where(slot < m, 2 * (slot % L), -1).astype(np.int32)
+    d["obs_ln_eid"] = (np.where(slot < m, 2 * (slot % L) + 1, -1)
+                       if case == "wide" else np.full((W, L), -1)
+                       ).astype(np.int32)
+    return d, cam, 2 * m if case == "wide" else m
+
+
 def _lba_problem(d, dev):
     from plslam_tpu_torch.backend import lba
     return lba.LBAProblem(**{k: torch.from_numpy(v).to(dev)
@@ -410,15 +474,17 @@ def test_lba_kernels(cuda):
     prob = _lba_problem(d, cuda)
     rel = lambda a, b: float((a - b).abs().max() / b.abs().max().clamp(
         min=1e-30))
-    t = _launched("lba_terms", lambda: lba.lba_terms(prob, cam))
+    t, sig, cost = _launched("lba_terms",
+                             lambda: lba.lba_terms_sigma(prob, cam))
     tp = lba.lba_terms_plain(prob, cam)
     assert torch.equal(t.ok_pt, tp.ok_pt) and torch.equal(t.ok_ln, tp.ok_ln)
     for a, b in zip(t, tp):
         if a.is_floating_point():
             assert rel(a, b) <= 1e-5
-    sig, cost = _launched("lba_sigma", lambda: lba.lba_sigma(tp, prob))
-    sig_p, cost_p = lba.lba_sigma_plain(tp, prob)
-    assert rel(sig, sig_p) <= 1e-6 and rel(cost, cost_p) <= 1e-5
+    # the scale and cost of the kernel's own terms: the scale to the bit
+    sig_p, cost_p = lba.lba_sigma_plain(t, prob)
+    assert torch.equal(sig, sig_p) and rel(cost, cost_p) <= 1e-5
+    sig_p = lba.lba_sigma_plain(tp, prob)[0]
     free = lba._free(prob)
     lam = torch.tensor(1e-3, device=cuda)
     b = lba.lba_blocks(tp, prob, sig_p, free, lam, lba.lba_index(prob))
@@ -604,8 +670,7 @@ def test_hamming_scan_finish_exact(cuda, kind, shape):
 def test_lba_index_and_bin(cuda):
     """lba_index exactly equal to its plain version; lba_bin on
     chip_smoke.py's lba_window_problem within chip_smoke.py's tolerances
-    of the plain version (relative to each output's largest magnitude),
-    and against the scanning lba_bin_scan it replaced."""
+    of the plain version (relative to each output's largest magnitude)."""
     from chip_smoke import lba_window_problem
     from plslam_tpu_torch.backend import lba
     from plslam_tpu_torch.config import SlamConfig
@@ -623,9 +688,28 @@ def test_lba_index_and_bin(cuda):
     got = _launched("lba_bin", lambda: lba.lba_bin(tp, prob, sigma, free,
                                                    lam, idx))
     ref = lba.lba_bin_plain(tp, prob, sigma, free, lam)
-    old = _launched("lba_bin_scan", lambda: lba.lba_bin_scan(
-        tp, prob, sigma, free, lam))
-    for x, y, z, tol in zip(got, ref, old, (1e-5, 1e-3, 1e-5, 1e-5)):
-        top = y.abs().max()
-        assert float((x - y).abs().max() / top) <= tol
-        assert float((x - z).abs().max() / top) <= tol
+    for x, y, tol in zip(got, ref, (1e-5, 1e-3, 1e-5, 1e-5)):
+        assert float((x - y).abs().max() / y.abs().max()) <= tol
+
+
+@pytest.mark.parametrize("case", MEDIAN_CASES + ("mixed", "wide"))
+def test_lba_terms_sigma_exact(cuda, case):
+    """The one lba_terms launch's scale equal to the bit to the plain
+    lower median over the kernel's own terms (a sort), and its robust cost
+    within 1e-5 of the plain one's, on the median's edge cases
+    (lba_median_problem_np), lba_problem_np's geometry and a window of
+    40,960 values in one top radix bucket; validity masks exact."""
+    from plslam_tpu_torch.backend import lba
+    d, cam, m = lba_median_problem_np(case)
+    prob = _lba_problem(d, cuda)
+    t, sig, cost = _launched("lba_terms",
+                             lambda: lba.lba_terms_sigma(prob, cam))
+    tp = lba.lba_terms_plain(prob, cam)
+    assert torch.equal(t.ok_pt, tp.ok_pt) and torch.equal(t.ok_ln, tp.ok_ln)
+    if m is not None:
+        assert int(t.ok_pt.sum() + t.ok_ln.sum()) == m
+    sig_p, cost_p = lba.lba_sigma_plain(t, prob)
+    assert torch.equal(sig, sig_p), (float(sig), float(sig_p))
+    assert abs(float(cost) - float(cost_p)) <= 1e-5 * abs(float(cost_p))
+    # the launch leaves its scratch zeroed: a second launch agrees
+    assert torch.equal(lba.lba_terms_sigma(prob, cam)[1], sig)

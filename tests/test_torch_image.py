@@ -54,6 +54,23 @@ def test_resize_bilinear_matches_reference(shape):
         np.testing.assert_allclose(got[n], ref, atol=ATOL, rtol=0)
 
 
+@pytest.mark.parametrize("H, W, Ho, Wo", [
+    (376, 1241, 313, 1034), (376, 1241, 188, 620), (97, 131, 97, 131),
+    (48, 65, 97, 131)])
+def test_resize_table_rebuilds_reference_matrix(H, W, Ho, Wo):
+    """The resize kernel's packed taps (1/1.2, 1/2, an equal size, an
+    upscale), rebuilt into the two banded matrices, equal the reference's
+    _resize_matrix exactly."""
+    table = timage.resize_table(H, Ho, W, Wo)
+    assert table.shape == (Ho + Wo, 4) and table.dtype == np.int32
+    for taps, n_out, n_in in ((table[:Ho], Ho, H), (table[Ho:], Wo, W)):
+        M = np.zeros((n_out, n_in), np.float32)
+        rows = np.arange(n_out)
+        np.add.at(M, (rows, taps[:, 0]), taps[:, 2].view(np.float32))
+        np.add.at(M, (rows, taps[:, 1]), taps[:, 3].view(np.float32))
+        np.testing.assert_array_equal(M, jimage._resize_matrix(n_out, n_in))
+
+
 def test_build_pyramid_matches_reference():
     imgs = _img(3, (2, 384, 640))
     got = timage.build_pyramid(torch.from_numpy(imgs), 3, 1.2)

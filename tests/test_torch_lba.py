@@ -43,7 +43,7 @@ from plslam_tpu.core.camera import StereoCamera as JCam
 from plslam_tpu_torch import convert
 from plslam_tpu_torch.backend import lba as tlba
 from plslam_tpu_torch.core import lie as tlie
-from test_torch_gpu import lba_problem_np
+from test_torch_gpu import MEDIAN_CASES, lba_median_problem_np, lba_problem_np
 
 CFG = SlamConfig()
 JC = JCam.from_config(CFG.camera)
@@ -135,9 +135,35 @@ def test_lba_cost_matches_reference(problem):
     assert abs(got - want) <= 1e-5 * abs(want)
     # the charge: the 3 points behind all 5 cameras cost (dof+1) sigma^2
     # per observation that is still attached
-    sigma, _ = tlba.lba_sigma(tlba.lba_terms(tp, cam), tp)
+    _, sigma, _ = tlba.lba_terms_sigma(tp, cam)
     n_lost = int((tp.obs_pt_id[:, :3] >= 0).sum())
     assert n_lost >= 10 and got > 6.0 * float(sigma) ** 2 * n_lost
+
+
+@pytest.mark.parametrize("case", MEDIAN_CASES)
+def test_terms_sigma_median_cases_match_reference(case):
+    """The fused terms op (its plain version here) against the reference's
+    _robust_sigma over the reference's own terms and its lba_cost, on
+    problems whose valid |r| are chosen bit for bit
+    (test_torch_gpu.lba_median_problem_np): the scale to the bit, the cost
+    within 1e-5 relative, the number of valid values as built."""
+    d, cam, m = lba_median_problem_np(case)
+    jp = jlba.LBAProblem(**{k: jnp.asarray(v) for k, v in d.items()})
+    tp = tlba.LBAProblem(**{k: torch.from_numpy(v) for k, v in d.items()})
+    t, sigma, cost = tlba.lba_terms_sigma(tp, cam)
+    assert int(t.ok_pt.sum() + t.ok_ln.sum()) == m
+    r, _, _, ok = _ref_point_rj(jp.kf_pose, jp.pt_pos, jp.obs_pt_uv,
+                                jp.obs_pt_disp, jp.obs_pt_id, JC)
+    rn = jnp.sqrt(jnp.sum(r * r, axis=-1) + 1e-12)
+    rs, _, _, oks = _ref_endpoint_rj(jp.kf_pose, jp.ep_pos, jp.obs_ln_le,
+                                     jp.obs_ln_sid, JC)
+    re, _, _, oke = _ref_endpoint_rj(jp.kf_pose, jp.ep_pos, jp.obs_ln_le,
+                                     jp.obs_ln_eid, JC)
+    want = np.float32(jlba._robust_sigma(rn, ok, rs, oks, re, oke))
+    assert np.float32(sigma.numpy()).view(np.int32) == want.view(np.int32), (
+        float(sigma), float(want))
+    want_cost = float(_ref_cost(jp, JC))
+    assert abs(float(cost) - want_cost) <= 1e-5 * want_cost
 
 
 @pytest.mark.parametrize("lam", [1e-3, 10.0])
