@@ -14,8 +14,10 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
      the card, timed with CUDA events (the wrapper: host work included)
      and with torch.profiler (the kernels' own device time), beside its
      bound, its plain version's time and a one-call library yardstick: A-C
-     on KITTI-size images (376x1241, 40 images a chunk, the resize to 1/1.2
-     and 1/2; K=1024), D's
+     on KITTI-size images (376x1241, 40 images a chunk; the blur at the
+     four pyramid levels and ORB's moment pair at their four half-res
+     levels, the resize to 1/1.2 and 1/2, FAST and its NMS at the four
+     pyramid levels; K=1024), D's
      matcher (hamming_scan + hamming_finish) under the stereo gate and
      the f2f window at 20 x 1024 x 1024, the line kernels E-H at both
      detector scales and D under a mask at 20 x 128 x 128, then I (K13: a
@@ -74,10 +76,11 @@ part named: all; ``pcg``: the PCG loop run alone).
 ``python3 chip_smoke.py --bench-slam [cuda] [cpu]`` runs bench_slam.py's
 own 201-frame scene through the loop path on each device named and
 compares their keyframe decisions (``bench_slam_scene``).
-``python3 chip_smoke.py --against DIR`` holds this tree's resize and LBA
-terms, scale and cost against those of another checkout at DIR (for
-example a ``git archive`` of the parent commit), outputs and device times
-(``against``).
+``python3 chip_smoke.py --against DIR`` holds this tree's level-0 blur,
+ORB's moment pair, FAST score, resize and LBA terms, scale and cost
+against those of another checkout at DIR (for example a ``git archive``
+of the parent commit): outputs and device times, and the device kernels
+of one point front end (``against``).
 
 Imports nothing of JAX and nothing of the JAX package.
 """
@@ -103,6 +106,16 @@ INT8_OPS_PER_S = 1979e12
 # SMs x the H100 SXM's 1.98 GHz boost clock: the floor of the popcount
 # algorithm on the CUDA cores, printed beside the card's bound
 POPC_PER_S = 16 * 132 * 1.98e9
+# f32 and integer instructions outside the tensor cores: 128 lane-operations
+# a clock an SM (64 of the lanes also do integer work) x 132 SMs x
+# 1.98 GHz. The floor of work that is not fused multiply-adds.
+LANE_OPS_PER_S = 128 * 132 * 1.98e9
+# The least work of FAST-16 at two thresholds a pixel: per tap a difference,
+# 4 threshold tests, 4 bit accumulations into the masks, 2 clamps and 2 sums
+# (16 x 13), 4 arc tests, 2 ORs and the score's max: 145 f32 and 70
+# integer operations, bound by the instruction rate (the 70 on the 64
+# integer lanes take less time than the 215 on all 128)
+FAST_OPS = 16 * 13 + 4 + 2 + 1
 # entry points whose C code issues a cudaMemsetAsync of its own (counted in
 # their device time)
 OWN_MEMSETS = {"hamming_scan"}
@@ -164,9 +177,10 @@ def device_ms(fn, memsets: bool = False, iters: int = 10) -> float:
     from plslam_tpu_torch import native
     fn()
     torch.cuda.synchronize()
-    # a profile now and then comes back without the device's records (seen
-    # once in ~60 on the H100): take it again, up to twice
-    for attempt in range(3):
+    # a profile now and then comes back without the device's records (on
+    # the H100 about once in 70, at times three in a row): take it again,
+    # up to five times
+    for attempt in range(6):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
@@ -181,7 +195,7 @@ def device_ms(fn, memsets: bool = False, iters: int = 10) -> float:
                 print(f"[profile] device records came on try {attempt + 1}",
                       flush=True)
             return us / 1e3 / iters
-    fail("torch.profiler gave no device records in 3 tries: device time "
+    fail("torch.profiler gave no device records in 6 tries: device time "
          "not measured")
 
 
@@ -264,19 +278,60 @@ def kernel_phase(images, record):
 
     # Bounds: bytes count each input read once and each output written
     # once; operations count f32 flops (and integer ops) at 67 TFLOP/s.
-    # A: gaussian blur (7 taps) of level 0, and level 0 -> level 1 resize;
-    # 2 passes x 7 taps x (mul + add) per pixel
+    # A: gaussian blur (7 taps) of the four pyramid levels (376x1241,
+    # 313x1034, 261x862, 218x718: each level resized from the one before,
+    # unblurred, as build_pyramid does); 2 passes x 7 taps x (mul + add)
+    # per pixel
     k = image.gaussian_kernel1d(1.0, 3)
-    out = image.separable_filter2d(images, k, k)
-    ref = image.separable_filter2d_plain(images, k, k)
     k2d = torch.from_numpy(np.outer(k, k)).to(dev)[None, None]
-    record("image_sep_filter", "plslam_tpu_torch/csrc/image.cu",
-           "plslam_tpu/ops/image.py:71", [out], [ref], 1e-6,
-           lambda: image.separable_filter2d(images, k, k),
-           lambda: image.separable_filter2d_plain(images, k, k),
-           2 * npx * 4, 2 * npx * 7 * 2,
-           lambda: F.conv2d(F.pad(images[:, None], (3, 3, 3, 3),
-                                  mode="replicate"), k2d))
+    raw = [images]
+    for i in range(1, 4):
+        raw.append(image.resize_bilinear(
+            raw[-1], (round(H / 1.2 ** i), round(W / 1.2 ** i))))
+    for i, lvl in enumerate(raw):
+        lpx = lvl.numel()
+        record("image_sep_filter" + (f"@l{i}" if i else ""),
+               "plslam_tpu_torch/csrc/image.cu", "plslam_tpu/ops/image.py:71",
+               [image.separable_filter2d(lvl, k, k)],
+               [image.separable_filter2d_plain(lvl, k, k)], 1e-6,
+               lambda: image.separable_filter2d(lvl, k, k),
+               lambda: image.separable_filter2d_plain(lvl, k, k),
+               2 * lpx * 4, 2 * lpx * 7 * 2,
+               lambda: F.conv2d(F.pad(lvl[:, None], (3, 3, 3, 3),
+                                      mode="replicate"), k2d),
+               entry="image_sep_filter")
+    levels = image.build_pyramid(images, 4, 1.2)
+    # ... and its paired mode at ORB's four half-resolution moment levels
+    # (188x620, 156x517, 130x431, 109x359; the 15-tap _d_h / ones pair):
+    # one read, two writes; 2 filters x 2 passes x 15 taps x 2 flops a
+    # pixel. Library: one F.conv2d with the two 15x15 outer products as
+    # its two output channels.
+    k2 = torch.from_numpy(np.stack([np.outer(orb._ONES_H, orb._d_h),
+                                    np.outer(orb._d_h, orb._ONES_H)])).to(
+        dev)[:, None]
+    sets = ((orb._d_h, orb._ONES_H), (orb._ONES_H, orb._d_h))
+    for i, lvl in enumerate(levels):
+        half = image.resize_bilinear(lvl, (lvl.shape[1] // 2,
+                                           lvl.shape[2] // 2))
+        hpx = half[0].numel()
+        m10, m01 = (torch.empty((N, hpx), device=dev) for _ in range(2))
+
+        def moments():
+            image.separable_filter2d_pair(half, *sets[0], *sets[1], m10, m01)
+            return m10, m01
+
+        def moments_plain():
+            return [image.separable_filter2d_plain(half, kx, ky).reshape(
+                N, -1) for kx, ky in sets]
+
+        record("image_sep_filter@moments" + (f"_l{i}" if i else ""),
+               "plslam_tpu_torch/csrc/image.cu", "plslam_tpu/ops/image.py:71",
+               [x.clone() for x in moments()], moments_plain(), 1e-4,
+               moments, moments_plain, N * hpx * (4 + 8),
+               N * hpx * 2 * 2 * 15 * 2,
+               lambda: F.conv2d(F.pad(half[:, None], (7, 7, 7, 7),
+                                      mode="replicate"), k2),
+               entry="image_sep_filter")
     # the resize, one pass: the pyramid's 1/1.2 and the half-resolution
     # passes' 1/2 (ORB's moment levels, the line detector); 2 x 2 FMAs an
     # output pixel
@@ -293,38 +348,45 @@ def kernel_phase(images, record):
                                      mode="bilinear", align_corners=False),
                entry="image_resize")
 
-    # B: FAST score on the blurred level 0 (~300 ops per pixel: 16 taps x
-    # 15, four arc tests of ~18), then NMS + block max/argmax (~40
-    # compares per pixel)
-    lvl0 = image.separable_filter2d(images, k, k)
+    # B: FAST score on the four blurred levels, bound by operations:
+    # FAST_OPS a pixel at the card's instruction rate (LANE_OPS_PER_S);
+    # then NMS + block max/argmax of each level (~40 compares per pixel;
+    # 8 x 16 cells, radius 5, border 16). Library for the NMS: two
+    # F.max_pool2d calls, the (2r+1)^2 NMS max (-inf pad) and the 8x8
+    # block max with its argmax (one threshold's plane).
     th_hi, th_lo = float(np.float32(20 / 255.0)), float(np.float32(7 / 255.0))
-    got = fast.fast_score_map2(lvl0, th_hi, th_lo)
-    ref = fast.fast_score_map2_plain(lvl0, th_hi, th_lo)
-    record("fast_score", "plslam_tpu_torch/csrc/fast.cu",
-           "plslam_tpu/ops/fast.py:70", list(got), list(ref), 0.0,
-           lambda: fast.fast_score_map2(lvl0, th_hi, th_lo),
-           lambda: fast.fast_score_map2_plain(lvl0, th_hi, th_lo),
-           npx * (4 + 1 + 1 + 4), npx * 300)
-    chi, clo, score = got
-    cell_h, cell_w = fast._grid_dims(H, W, 8, 16)
-    Hb, Wb = cell_h * 8 // 8, cell_w * 16 // 8      # 8 x 16 cells
-    got = fast.nms_block_max(score, chi, clo, 5, 16, Hb, Wb)
-    ref = fast.nms_block_max_plain(score, chi, clo, 5, 16, Hb, Wb)
-    # library: two F.max_pool2d calls, the (2r+1)^2 NMS max (-inf pad)
-    # and the 8x8 block max with its argmax (one threshold's plane)
-    s1 = score[:, None]
-    blocks = score[:, None, :min(Hb * 8, H), :min(Wb * 8, W)]
-    record("fast_nms_block", "plslam_tpu_torch/csrc/fast.cu",
-           "plslam_tpu/ops/fast.py:110", list(got), list(ref), 0.0,
-           lambda: fast.nms_block_max(score, chi, clo, 5, 16, Hb, Wb),
-           lambda: fast.nms_block_max_plain(score, chi, clo, 5, 16, Hb, Wb),
-           npx * (4 + 1 + 1) + N * Hb * Wb * 20, npx * 40,
-           lambda: (F.max_pool2d(s1, 11, stride=1, padding=5),
-                    F.max_pool2d(blocks, 8, stride=8, return_indices=True)))
+    for i, lvl in enumerate(levels):
+        lpx = lvl.numel()
+        tag = f"@l{i}" if i else ""
+        got = fast.fast_score_map2(lvl, th_hi, th_lo)
+        ref = fast.fast_score_map2_plain(lvl, th_hi, th_lo)
+        record("fast_score" + tag, "plslam_tpu_torch/csrc/fast.cu",
+               "plslam_tpu/ops/fast.py:70", list(got), list(ref), 0.0,
+               lambda: fast.fast_score_map2(lvl, th_hi, th_lo),
+               lambda: fast.fast_score_map2_plain(lvl, th_hi, th_lo),
+               lpx * (4 + 1 + 1 + 4), lpx * FAST_OPS,
+               ops_per_s=LANE_OPS_PER_S, entry="fast_score")
+        chi, clo, score = got
+        h, w = lvl.shape[1:]
+        cell_h, cell_w = fast._grid_dims(h, w, 8, 16)
+        Hb, Wb = cell_h * 8 // 8, cell_w * 16 // 8
+        got = fast.nms_block_max(score, chi, clo, 5, 16, Hb, Wb)
+        ref = fast.nms_block_max_plain(score, chi, clo, 5, 16, Hb, Wb)
+        s1 = score[:, None]
+        blocks = score[:, None, :min(Hb * 8, h), :min(Wb * 8, w)]
+        record("fast_nms_block" + tag, "plslam_tpu_torch/csrc/fast.cu",
+               "plslam_tpu/ops/fast.py:110", list(got), list(ref), 0.0,
+               lambda: fast.nms_block_max(score, chi, clo, 5, 16, Hb, Wb),
+               lambda: fast.nms_block_max_plain(score, chi, clo, 5, 16, Hb,
+                                                Wb),
+               lpx * (4 + 1 + 1) + N * Hb * Wb * 20, lpx * 40,
+               lambda: (F.max_pool2d(s1, 11, stride=1, padding=5),
+                        F.max_pool2d(blocks, 8, stride=8,
+                                     return_indices=True)),
+               entry="fast_nms_block")
 
     # C: pool gather + pair tests for K=1024 keypoints on 4 levels: 64
     # samples, 3 ints in, 256 bit bytes out, 256 compares and selects
-    levels = image.build_pyramid(images, 4, 1.2)
     flat = torch.cat([lv.reshape(N, -1) for lv in levels], dim=1)
     K = 1024
     g = torch.Generator(device="cpu").manual_seed(0)
@@ -754,13 +816,14 @@ def main_scene(lines: bool):
 
 # Launches of each kernel in one extraction (``extract_stereo_frame`` of a
 # batch: 4 pyramid levels blurred and 3 resized, ORB's 4 half-res moment
-# levels (2 filters each), FAST on 4 levels, one stereo match each of
-# points and lines; the line detector at 2 scales, each 2 Sobel/moment
-# launches, labels, refit and merge, the half-res resize and LBD's
-# gradients) and in one chunk's tracking (chunk_passes=2: two f2f matches
-# of points and, with lines, two of lines). The main path's timed run,
-# initialize + 2 chunks, is 3 extractions and 2 trackings.
-EXTRACT_POINTS = {"image_sep_filter": 12, "image_resize": 7, "fast_score": 4,
+# levels (both maps in one paired filter launch), FAST on 4 levels, one
+# stereo match each of points and lines; the line detector at 2 scales,
+# each 2 Sobel/moment launches, labels, refit and merge, the half-res
+# resize and LBD's gradients) and in one chunk's tracking (chunk_passes=2:
+# two f2f matches of points and, with lines, two of lines). The main
+# path's timed run, initialize + 2 chunks, is 3 extractions and 2
+# trackings.
+EXTRACT_POINTS = {"image_sep_filter": 8, "image_resize": 7, "fast_score": 4,
                   "fast_nms_block": 4, "orb_describe": 1, "hamming_scan": 1,
                   "hamming_finish": 1}
 EXTRACT_LINES = {"image_resize": 1, "lines_sobel": 3, "lines_moments": 4,
@@ -2674,22 +2737,51 @@ def bench_slam_scene(devices) -> None:
 
 
 def against_side(root: str, out_path: str) -> None:
-    """One process of ``--against``: image_resize at the pyramid's and the
-    half-resolution shapes on 40 seeded 376x1241 images, and the LBA's
-    terms, scale and cost on ``lba_window_problem``, through the
-    plslam_tpu_torch of the checkout at ``root`` (its kernels built
-    there); saves the outputs and each call's device time (torch.profiler)
-    to ``out_path``."""
+    """One process of ``--against``: on 40 seeded 376x1241 images, through
+    the plslam_tpu_torch of the checkout at ``root`` (its kernels built
+    there): the level-0 blur, ORB's moment pair at 188x620 (a tree without
+    the paired filter runs two single filters), fast_score on level 0 (its
+    input the plain blur), image_resize at the pyramid's and the
+    half-resolution shapes, the LBA's terms, scale and cost on
+    ``lba_window_problem``, and the device kernels (all of them, torch's
+    too) of one point front end (``detect_and_describe``) under
+    torch.profiler; saves the outputs and each call's device time
+    (torch.profiler, the hand kernels) to ``out_path``."""
     sys.path.insert(0, root)
     import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
     from plslam_tpu_torch.backend import lba
     from plslam_tpu_torch.config import SlamConfig
     from plslam_tpu_torch.core.camera import StereoCamera
-    from plslam_tpu_torch.ops import image
+    from plslam_tpu_torch.frontend.stereo_points import detect_and_describe
+    from plslam_tpu_torch.ops import fast, image, orb
     dev = torch.device("cuda", 0)
-    images = torch.from_numpy(np.random.default_rng(0).uniform(
+    rng = np.random.default_rng(0)
+    images = torch.from_numpy(rng.uniform(
         0, 1, (40, 376, 1241)).astype(np.float32)).to(dev)
+    half = torch.from_numpy(rng.uniform(
+        0, 1, (40, 188, 620)).astype(np.float32)).to(dev)
     res = {}
+    k = image.gaussian_kernel1d(1.0, 3)
+    fn = lambda: [image.separable_filter2d(images, k, k)]
+    res["image_sep_filter"] = ([x.cpu() for x in fn()],
+                               device_ms(fn, iters=20))
+    sets = ((orb._d_h, orb._ONES_H), (orb._ONES_H, orb._d_h))
+    if hasattr(image, "separable_filter2d_pair"):
+        m = [torch.empty((40, 188 * 620), device=dev) for _ in sets]
+        fn = lambda: (image.separable_filter2d_pair(half, *sets[0], *sets[1],
+                                                    *m), m)[1]
+    else:                   # a tree with no paired mode: two single filters
+        fn = lambda: [image.separable_filter2d(half, kx, ky)
+                      for kx, ky in sets]
+    res["image_sep_filter@moments"] = ([x.reshape(40, -1).cpu()
+                                        for x in fn()],
+                                       device_ms(fn, iters=20))
+    lvl0 = image.separable_filter2d_plain(images, k, k)
+    th_hi, th_lo = float(np.float32(20 / 255.0)), float(np.float32(7 / 255.0))
+    fn = lambda: fast.fast_score_map2(lvl0, th_hi, th_lo)
+    res["fast_score"] = ([x.cpu() for x in fn()], device_ms(fn, iters=20))
     for tag, shape in (("image_resize", (313, 1034)),
                        ("image_resize@half", (188, 620))):
         fn = lambda: [image.resize_bilinear(images, shape)]
@@ -2705,6 +2797,14 @@ def against_side(root: str, out_path: str) -> None:
     t, sig, cost = fn()
     res["lba_terms+sigma"] = ([x.cpu() for x in (*t, sig, cost)],
                               device_ms(fn, iters=20))
+    detect_and_describe(images, cfg)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        detect_and_describe(images, cfg)
+        torch.cuda.synchronize()
+    res["front_end_kernels"] = sum(e.count for e in prof.key_averages()
+                                   if e.device_type != DeviceType.CPU)
     torch.save(res, out_path)
 
 
@@ -2712,8 +2812,8 @@ def against(other: str) -> None:
     """``python3 chip_smoke.py --against DIR``: ``against_side`` of the
     checkout at DIR and of this one, in turns (DIR, this, this, DIR), each
     in a process of its own; prints each output's largest difference
-    between the two trees (the scale's and the cost's as bits too) and
-    every device time."""
+    between the two trees (the scale's and the cost's as bits too), every
+    device time and the point front end's device kernels."""
     import os
     import tempfile
     import torch
@@ -2729,6 +2829,8 @@ def against(other: str) -> None:
             runs.append((who, torch.load(out)))
     (_, a), (_, b) = runs[0], runs[1]
     for key in a:
+        if key == "front_end_kernels":
+            continue
         errs = [max_abs_err(x, y) for x, y in zip(a[key][0], b[key][0])]
         times = {who: [r[key][1] for w, r in runs if w == who]
                  for who in ("other", "this")}
@@ -2741,6 +2843,11 @@ def against(other: str) -> None:
     bits = [[x.view(torch.int32).item() for x in sc] for sc in sig_cost]
     print(f"[against] sigma, cost bits: other {bits[0]}, this {bits[1]}: "
           f"{'equal' if bits[0] == bits[1] else 'DIFFERENT'}", flush=True)
+    kernels = {who: [r["front_end_kernels"] for w, r in runs if w == who]
+               for who in ("other", "this")}
+    print(f"[against] device kernels of one point front end "
+          f"(detect_and_describe, 40 images): this {kernels['this']}, "
+          f"other {kernels['other']}", flush=True)
 
 
 LOOP_SCENE = None

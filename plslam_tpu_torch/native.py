@@ -38,9 +38,9 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # C signatures: p = device pointer, i = int, f = float; every entry point
 # takes the stream as one more trailing pointer.
 _SIGNATURES: Dict[str, str] = {
-    "image_sep_filter": "pppppiiiii",
+    "image_sep_filter": "ppppiiiii",
     "image_resize": "pppiiiii",
-    "fast_score": "ppppiiiff",
+    "fast_score": "pppppiiiff",
     "fast_nms_block": "ppppppppiiiiiii",
     "orb_describe": "pppppppiii",
     "hamming_dist": "ppppppiii",
@@ -75,7 +75,7 @@ _SIGNATURES: Dict[str, str] = {
 # the kernels' device function names (csrc/*.cu): what chip_smoke.py and
 # profile_torch_vo.py count as the hand-written kernels' device time
 KERNEL_FUNCTIONS = (
-    "filter_vertical", "filter_horizontal", "resize_kernel",
+    "filter_kernel", "resize_kernel",
     "fast_score_kernel", "nms_block_kernel",
     "orb_describe_kernel", "dist_kernel", "col_argmin_kernel",
     "row_match_kernel", "hamming_scan_kernel", "hamming_finish_kernel",

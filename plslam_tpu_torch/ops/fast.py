@@ -2,7 +2,8 @@
 
 Port of ``plslam_tpu/ops/fast.py``. On CUDA tensors two hand-written
 kernels (``csrc/fast.cu``) do the per-pixel work: launch 1 the 16-tap
-masks at both thresholds, the 9-arc test and the SAD score; launch 2 the
+masks at both thresholds, the 9-arc test (from :func:`arc_table`) and the
+SAD score, into ``torch.bool`` masks; launch 2 the
 NMS, the border mask and the 8x8 block max/argmax of ``select_topk_grid``.
 The per-cell and global top-k stay in PyTorch as a stable descending sort:
 ``lax.top_k`` puts the lower index first on ties, and ties are the rule
@@ -14,7 +15,8 @@ Images are batched: (N, H, W) f32.
 
 from __future__ import annotations
 
-from typing import Tuple
+from functools import lru_cache
+from typing import Dict, Tuple
 
 import numpy as np
 import torch
@@ -30,6 +32,8 @@ _CIRCLE = np.array([
 
 _ARC = 9  # contiguous taps required
 _BLOCK = 8  # block of the max/argmax reduction before the cell top-k
+# the arc table on each device it was asked for
+_ARC_TABLES: Dict[torch.device, torch.Tensor] = {}
 
 
 def _arc9_from_bitmask(m: torch.Tensor) -> torch.Tensor:
@@ -38,6 +42,24 @@ def _arc9_from_bitmask(m: torch.Tensor) -> torch.Tensor:
     for _ in range(_ARC - 1):
         d = d & (d >> 1)
     return (d & 0xFFFF) != 0
+
+
+@lru_cache(maxsize=1)
+def arc_table() -> np.ndarray:
+    """The FAST kernel's arc test as a table, (2048,) int32: bit ``m % 32``
+    of word ``m // 32`` is ``_arc9_from_bitmask(m)``, for every 16-bit
+    mask ``m`` (1,025 of the 65,536 hold 9 circularly contiguous bits)."""
+    arc = _arc9_from_bitmask(torch.arange(1 << 16, dtype=torch.int32))
+    words = np.packbits(arc.numpy(), bitorder="little").view("<u4")
+    return words.astype(np.uint32).view(np.int32)
+
+
+def _arc_table_on(device: torch.device) -> torch.Tensor:
+    t = _ARC_TABLES.get(device)
+    if t is None:
+        t = torch.from_numpy(arc_table()).to(device)
+        _ARC_TABLES[device] = t
+    return t
 
 
 def fast_score_map2_plain(img: torch.Tensor, th_hi: float, th_lo: float
@@ -71,12 +93,13 @@ def fast_score_map2(img: torch.Tensor, th_hi: float, th_lo: float
         return fast_score_map2_plain(img, th_hi, th_lo)
     native.require(img, "fast_score_map2", torch.float32)
     N, H, W = img.shape
-    chi = torch.empty(img.shape, dtype=torch.uint8, device=img.device)
+    chi = torch.empty(img.shape, dtype=torch.bool, device=img.device)
     clo = torch.empty_like(chi)
     score = torch.empty_like(img)
-    native.launch("fast_score", img, chi, clo, score, N, H, W,
-                  float(th_hi), float(th_lo))
-    return chi.bool(), clo.bool(), score
+    native.launch("fast_score", img, chi, clo, score,
+                  _arc_table_on(img.device), N, H, W, float(th_hi),
+                  float(th_lo))
+    return chi, clo, score
 
 
 def nms(score: torch.Tensor, radius: int) -> torch.Tensor:
@@ -135,8 +158,10 @@ def nms_block_max(score: torch.Tensor, corner_hi: torch.Tensor,
     if not 0 <= radius <= 16:
         raise ValueError(f"nms radius {radius} outside the kernel's 0..16")
     N, H, W = score.shape
-    chi = corner_hi.to(torch.uint8).contiguous()
-    clo = corner_lo.to(torch.uint8).contiguous()
+    # a bool mask is bytes of 0 or 1 already: viewed, not copied
+    chi, clo = (c.view(torch.uint8) if c.dtype == torch.bool
+                else c.to(torch.uint8) for c in (corner_hi, corner_lo))
+    chi, clo = chi.contiguous(), clo.contiguous()
     dev = score.device
     bs_hi = torch.empty((N, Hb, Wb), dtype=torch.float32, device=dev)
     bs_lo = torch.empty_like(bs_hi)

@@ -8,8 +8,9 @@ runs each as banded-matrix products ``Mr @ img @ Mc^T``; here a vertical
 pass then a horizontal pass compute what those matrices hold: an
 edge-replicate correlation, and align_corners=False bilinear weights with
 the reference's exact index clamping. On CUDA tensors both run as the
-hand-written kernels of ``csrc/image.cu`` (the resize in one pass); the
-plain PyTorch versions below run only for CPU tensors.
+hand-written kernels of ``csrc/image.cu``, each in one pass (the filter
+also in a paired mode: two tap sets over one input, ORB's moment maps);
+the plain PyTorch versions below run only for CPU tensors.
 
 Every function takes a batch: images are (N, H, W) f32.
 """
@@ -120,6 +121,46 @@ def resize_bilinear_plain(img: torch.Tensor, shape: Tuple[int, int]
 
 # -- kernel wrappers ------------------------------------------------------------
 
+_MAX_RADIUS = 7      # the filter kernel's taps: 15 a set at most
+
+
+def _filter_taps(sets) -> Tuple[np.ndarray, int]:
+    """The filter kernel's taps of (kx, ky) sets: host f32 (2, 2, 16),
+    [set][vertical, horizontal], each set centred at the launch's radius
+    (the largest) and padded with zero taps; and that radius."""
+    r = max(len(k) // 2 for kxy in sets for k in kxy)
+    if r > _MAX_RADIUS or any(len(k) % 2 == 0 for kxy in sets for k in kxy):
+        raise ValueError(f"separable_filter2d: odd tap counts up to "
+                         f"{2 * _MAX_RADIUS + 1} on CUDA tensors")
+    taps = np.zeros((2, 2, 16), np.float32)
+    for f, (kx, ky) in enumerate(sets):
+        for a, k in ((0, ky), (1, kx)):
+            o = r - len(k) // 2
+            taps[f, a, o:o + len(k)] = k
+    return taps, r
+
+
+def _filter_launch(img: torch.Tensor, sets, outs) -> None:
+    """One launch of the filter kernel: ``outs`` (one or two (N, H*W) f32
+    tensors whose rows may be columns of larger buffers) get ``img``
+    filtered by each (kx, ky) of ``sets``."""
+    N, H, W = img.shape
+    native.require(img, "separable_filter2d", torch.float32)
+    for o in outs:
+        if (o.device != img.device or o.dtype != torch.float32
+                or tuple(o.shape) != (N, H * W) or o.stride(1) != 1
+                or o.stride(0) != outs[0].stride(0)):
+            raise ValueError("separable_filter2d: outputs must be (N, H*W) "
+                             "f32 rows on the input's device, one stride")
+    if len(outs) == 2 and (outs[0].data_ptr() - outs[1].data_ptr()) % 16:
+        raise ValueError("separable_filter2d_pair: the two outputs must "
+                         "share their 16-byte alignment")
+    taps, r = _filter_taps(sets)
+    native.launch("image_sep_filter", img, outs[0],
+                  outs[1] if len(outs) == 2 else None, taps.ctypes.data,
+                  N, H, W, r, outs[0].stride(0))
+
+
 def separable_filter2d(img: torch.Tensor, kx: np.ndarray, ky: np.ndarray
                        ) -> torch.Tensor:
     """Separable 2D correlation with edge replication, (N, H, W) -> same.
@@ -128,13 +169,27 @@ def separable_filter2d(img: torch.Tensor, kx: np.ndarray, ky: np.ndarray
     ky = np.asarray(ky, np.float32)
     if img.device.type == "cpu":
         return separable_filter2d_plain(img, kx, ky)
-    N, H, W = img.shape
-    native.require(img, "separable_filter2d", torch.float32)
-    tmp = torch.empty_like(img)
     out = torch.empty_like(img)
-    native.launch("image_sep_filter", img, tmp, out, _on(ky, img.device),
-                  _on(kx, img.device), N, H, W, len(ky) // 2, len(kx) // 2)
+    _filter_launch(img, [(kx, ky)], [out.view(img.shape[0], -1)])
     return out
+
+
+def separable_filter2d_pair(img: torch.Tensor, kx_a, ky_a, kx_b, ky_b,
+                            out_a: torch.Tensor, out_b: torch.Tensor
+                            ) -> None:
+    """``separable_filter2d(img, kx_a, ky_a)`` into ``out_a`` and
+    ``separable_filter2d(img, kx_b, ky_b)`` into ``out_b``, (N, H*W) each
+    (for example the columns of one level in an (N, sum of h*w) buffer),
+    on CUDA tensors in one launch that reads ``img`` once; each output
+    has the single filter's bits."""
+    sets = [tuple(np.asarray(k, np.float32) for k in kxy)
+            for kxy in ((kx_a, ky_a), (kx_b, ky_b))]
+    if img.device.type == "cpu":
+        N = img.shape[0]
+        for (kx, ky), out in zip(sets, (out_a, out_b)):
+            out.copy_(separable_filter2d_plain(img, kx, ky).reshape(N, -1))
+        return
+    _filter_launch(img, sets, [out_a, out_b])
 
 
 def resize_bilinear(img: torch.Tensor, shape: Tuple[int, int]

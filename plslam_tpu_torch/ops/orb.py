@@ -3,7 +3,8 @@
 Port of ``plslam_tpu/ops/orb.py::describe_multilevel``. The sampling
 tables are regenerated here with the reference's seed and arithmetic
 (the tests hold them equal to the reference's). The half-res moment maps
-go through kernel A, the orientation (``atan2`` of two gathered moments)
+go through kernel A (both maps of a level in one paired launch), the
+orientation (``atan2`` of two gathered moments)
 and its 32-bin quantisation through PyTorch, and the 64-point pool gather
 with the 256 pair tests through the hand-written kernel of
 ``csrc/orb.cu`` on CUDA tensors; its plain version runs only for CPU
@@ -19,7 +20,8 @@ import numpy as np
 import torch
 
 from plslam_tpu_torch import native
-from plslam_tpu_torch.ops.image import _on, resize_bilinear, separable_filter2d
+from plslam_tpu_torch.ops.image import (_on, resize_bilinear,
+                                         separable_filter2d_pair)
 
 PATCH_HALF = 15           # 31x31 support, ORB standard
 N_BITS = 256
@@ -135,11 +137,17 @@ def describe_multilevel(levels: List[torch.Tensor], uv: torch.Tensor,
         f"{full_shapes} — drop levels below that at pyramid construction")
     halves = [resize_bilinear(lvl, (s[0] // 2, s[1] // 2))
               for lvl, s in zip(levels, full_shapes)]
-    m10 = torch.cat([separable_filter2d(h, _d_h, _ONES_H).reshape(N, -1)
-                     for h in halves], dim=1)
-    m01 = torch.cat([separable_filter2d(h, _ONES_H, _d_h).reshape(N, -1)
-                     for h in halves], dim=1)
     half_shapes = [tuple(h.shape[-2:]) for h in halves]
+    # both moment maps of a level in one filter launch, written straight
+    # into the levels' concatenated buffers
+    half_bases = _bases(half_shapes)
+    n_half = sum(h * w for h, w in half_shapes)
+    m10 = torch.empty((N, n_half), dtype=torch.float32, device=dev)
+    m01 = torch.empty_like(m10)
+    for h, base, (hh, hw) in zip(halves, half_bases, half_shapes):
+        cols = slice(base, base + hh * hw)
+        separable_filter2d_pair(h, _d_h, _ONES_H, _ONES_H, _d_h,
+                                m10[:, cols], m01[:, cols])
     flat_img = torch.cat([lvl.reshape(N, -1) for lvl in levels], dim=1)
 
     def table(vals):
@@ -151,7 +159,7 @@ def describe_multilevel(levels: List[torch.Tensor], uv: torch.Tensor,
     fB = table(_bases(full_shapes))[oct_i]
     hW = table([s[1] for s in half_shapes])[oct_i]
     hH = table([s[0] for s in half_shapes])[oct_i]
-    hB = table(_bases(half_shapes))[oct_i]
+    hB = table(half_bases)[oct_i]
 
     # orientation from the half-res moment maps
     u2 = torch.minimum(torch.clamp(torch.round(uv[..., 0] * 0.5).to(

@@ -53,6 +53,7 @@ def test_fast_score_map2_exact(levels, th_hi, th_lo):
         imgs = np.stack([lv[lvl] for lv in levels])
         chi, clo, sc = tfast.fast_score_map2(torch.from_numpy(imgs),
                                              th_hi, th_lo)
+        assert chi.dtype == clo.dtype == torch.bool     # as the kernel's
         for n in range(imgs.shape[0]):
             rhi, rlo, rsc = _ref_score(jnp.asarray(imgs[n]), th_hi, th_lo)
             np.testing.assert_array_equal(chi[n].numpy(), np.asarray(rhi))
@@ -114,3 +115,107 @@ def test_top_k_tie_order_is_lax_top_k():
     rv, ri = jax.lax.top_k(jnp.asarray(x), 7)
     np.testing.assert_array_equal(v.numpy(), np.asarray(rv))
     np.testing.assert_array_equal(i.numpy(), np.asarray(ri))
+
+
+# -- the FAST kernel's arithmetic (csrc/fast.cu), checked on the CPU -------
+
+def _reverse16(m):
+    return int(f"{m:016b}"[::-1], 2)
+
+
+def test_arc_table_is_the_reference_arc_test():
+    """The kernel's 8 KB table holds the reference's arc test of every
+    16-bit mask, and is closed under bit reversal (the kernel's masks hold
+    tap i at bit 15 - i)."""
+    words = tfast.arc_table().view(np.uint32)
+    assert words.shape == (2048,)
+    m = np.arange(1 << 16, dtype=np.int64)
+    table = ((words[m >> 5] >> (m & 31).astype(np.uint32)) & 1).astype(bool)
+    ref = np.asarray(jfast._arc9_from_bitmask(jnp.asarray(m, jnp.int32)))
+    np.testing.assert_array_equal(table, ref)
+    assert int(table.sum()) == 1025
+    rev = np.array([_reverse16(int(v)) for v in m])
+    np.testing.assert_array_equal(table, table[rev])
+
+
+def _signbit_fast(img, th_hi, th_lo):
+    """fast_score_kernel's arithmetic in numpy f32 on one (H, W) image:
+    mask bits from the sign bits of th - diff and diff + th shifted in
+    (tap 0 ends at bit 15), the score terms as max(-(th_lo - diff), 0)
+    and max(-(diff + th_lo), 0) summed from +0 in circle order, the arc
+    test from the table."""
+    f32 = np.float32
+    th_hi, th_lo = f32(th_hi), f32(th_lo)
+    H, W = img.shape
+    p = np.pad(img, 3, mode="edge")
+    words = tfast.arc_table().view(np.uint32)
+    bits = [np.zeros((H, W), np.uint32) for _ in range(4)]
+    sb = np.zeros((H, W), f32)
+    sd = np.zeros((H, W), f32)
+    for dy, dx in tfast._CIRCLE.tolist():
+        diff = p[3 + dy:3 + dy + H, 3 + dx:3 + dx + W] - img
+        lo_b, lo_d = th_lo - diff, diff + th_lo
+        for j, x in enumerate((th_hi - diff, diff + th_hi, lo_b, lo_d)):
+            bits[j] = (bits[j] << 1) | np.signbit(x).astype(np.uint32)
+        sb = sb + np.maximum(-lo_b, f32(0))
+        sd = sd + np.maximum(-lo_d, f32(0))
+
+    def arc(m):
+        return ((words[m >> 5] >> (m & 31)) & 1).astype(bool)
+
+    return (arc(bits[0]) | arc(bits[1]), arc(bits[2]) | arc(bits[3]),
+            np.maximum(sb, sd))
+
+
+@pytest.mark.parametrize("case", ["default", "equal", "zero", "ties"])
+def test_signbit_arithmetic_is_the_reference(levels, case):
+    """The kernel's masks and score, emulated, equal the reference's bit
+    for bit on a real pyramid level; "ties" takes both thresholds from
+    differences that occur in the image, so pixels sit exactly on them."""
+    img = levels[0][1]
+    if case == "ties":
+        d = img[37:47, 50:60] - img[40:50, 50:60]      # tap 0's differences
+        d = np.abs(d[d != 0])
+        th_hi, th_lo = float(d.max()), float(np.median(d))
+    else:
+        th_hi, th_lo = {"default": (20 / 255.0, 7 / 255.0),
+                        "equal": (7 / 255.0, 7 / 255.0),
+                        "zero": (0.0, 0.0)}[case]
+    th_hi, th_lo = float(np.float32(th_hi)), float(np.float32(th_lo))
+    got = _signbit_fast(img, th_hi, th_lo)
+    ref = _ref_score(jnp.asarray(img), th_hi, th_lo)
+    for g, r in zip(got, ref):
+        r = np.asarray(r)
+        if r.dtype == np.float32:
+            np.testing.assert_array_equal(g.view(np.int32), r.view(np.int32))
+        else:
+            np.testing.assert_array_equal(g, r)
+
+
+def test_signbit_identities_on_ties_zeros_and_subnormals():
+    """diff > th iff th - diff < 0, diff < -th iff diff + th < 0, and the
+    score terms equal up to the sign of a zero (which a sum from +0
+    drops), on values at and around the thresholds, +-0 and subnormals."""
+    f32 = np.float32
+    tiny = np.finfo(f32).tiny
+    sub = [f32(1e-45), f32(3e-42), tiny * f32(0.5)]
+    ths = [f32(0.0), f32(20 / 255.0), f32(7 / 255.0), sub[1], tiny]
+    rng = np.random.default_rng(3)
+    vals = [f32(0.0), f32(-0.0), *sub, *[-s for s in sub], tiny, -tiny]
+    for th in ths:
+        vals += [th, -th, np.nextafter(th, f32(1)), np.nextafter(th, f32(-1)),
+                 np.nextafter(-th, f32(1)), np.nextafter(-th, f32(-1))]
+    diff = np.concatenate([np.array(vals, f32),
+                           rng.uniform(-1, 1, 4096).astype(f32)])
+    with np.errstate(over="ignore"):
+        for th in ths:
+            np.testing.assert_array_equal(np.signbit(th - diff), diff > th)
+            np.testing.assert_array_equal(np.signbit(diff + th), diff < -th)
+            for got, ref in ((np.maximum(-(th - diff), f32(0)),
+                              np.maximum(diff - th, f32(0))),
+                             (np.maximum(-(diff + th), f32(0)),
+                              np.maximum(-diff - th, f32(0)))):
+                np.testing.assert_array_equal(got, ref)      # -0 == +0
+                acc = f32(0) + got
+                np.testing.assert_array_equal(
+                    acc.view(np.int32), (f32(0) + ref).view(np.int32))

@@ -84,6 +84,73 @@ def test_fast_kernels_exact(cuda):
         assert torch.equal(g.cpu(), r)
 
 
+@pytest.mark.parametrize("shape", [(376, 1241), (313, 1034), (261, 862),
+                                   (218, 718)])
+def test_fast_score_exact_at_level_shapes(cuda, shape):
+    """fast_score at the pyramid's four level shapes (no width a multiple
+    of 4), one launch a call: masks (torch.bool) and score exactly equal
+    to the plain version; nms_block_max fed those bool masks (viewed, not
+    copied) and fed them as uint8, exactly equal to its plain version."""
+    H, W = shape
+    x = image.gaussian_blur(_imgs((2, H, W), seed=4).to(cuda), 1.0)
+    th_hi, th_lo = float(np.float32(20 / 255)), float(np.float32(7 / 255))
+    got = _launched("fast_score",
+                    lambda: fast.fast_score_map2(x, th_hi, th_lo))
+    ref = fast.fast_score_map2_plain(x, th_hi, th_lo)
+    for g, r in zip(got, ref):
+        assert g.dtype == r.dtype and torch.equal(g, r)
+    assert int(got[0].sum()) > 0
+    chi, clo, score = got
+    cell_h, cell_w = fast._grid_dims(H, W, 8, 16)
+    Hb, Wb = cell_h * 8 // 8, cell_w * 16 // 8
+    want = fast.nms_block_max_plain(score, chi, clo, 5, 16, Hb, Wb)
+    for masks in ((chi, clo), (chi.to(torch.uint8), clo.to(torch.uint8))):
+        res = _launched("fast_nms_block", lambda: fast.nms_block_max(
+            score, *masks, 5, 16, Hb, Wb))
+        for g, r in zip(res, want):
+            assert torch.equal(g, r)
+
+
+@pytest.mark.parametrize("radius", [3, 7])
+def test_sep_filter_one_launch(cuda, radius):
+    """image_sep_filter, one launch a call, at r = 3 (the blur) and r = 7
+    (a 15-tap set), on widths that are not multiples of the kernel's tiles
+    or strips, against its plain version on the card (FMA contraction:
+    1e-6 for the blur, 1e-4 for sums of up to 15 x 7)."""
+    g = image.gaussian_kernel1d(1.0, 3)
+    kx, ky, tol = (g, g, 1e-6) if radius == 3 else (orb._d_h, g, 1e-4)
+    for shape in ((3, 157, 517), (2, 37, 359), (1, 16, 9), (40, 188, 620)):
+        x = _imgs(shape, seed=5).to(cuda)
+        got = _launched("image_sep_filter",
+                        lambda: image.separable_filter2d(x, kx, ky))
+        ref = image.separable_filter2d_plain(x, kx, ky)
+        assert float((got - ref).abs().max()) <= tol
+
+
+def test_sep_filter_pair_bit_equal_to_single_calls(cuda):
+    """The paired mode, one launch, writes ORB's two moment maps into the
+    columns of one level of two larger buffers (an odd offset, so rows are
+    not 16-byte aligned); each equals its single call to the bit and the
+    other columns stay as they were. Outputs of unequal alignment raise."""
+    sets = ((orb._d_h, orb._ONES_H), (orb._ONES_H, orb._d_h))
+    for shape in ((2, 188, 620), (3, 47, 155), (1, 109, 359)):
+        N, H, W = shape
+        x = _imgs(shape, seed=6).to(cuda)
+        bufs = [torch.full((N, H * W + 11), -7.0, device=cuda)
+                for _ in sets]
+        cols = slice(3, 3 + H * W)
+        _launched("image_sep_filter", lambda: image.separable_filter2d_pair(
+            x, *sets[0], *sets[1], bufs[0][:, cols], bufs[1][:, cols]))
+        for buf, (kx, ky) in zip(bufs, sets):
+            single = image.separable_filter2d(x, kx, ky).reshape(N, -1)
+            assert torch.equal(buf[:, cols], single)
+            assert bool((buf[:, :3] == -7.0).all())
+            assert bool((buf[:, 3 + H * W:] == -7.0).all())
+    with pytest.raises(ValueError):
+        image.separable_filter2d_pair(x, *sets[0], *sets[1], bufs[0][:, cols],
+                                      bufs[1][:, 4:4 + H * W])
+
+
 def test_orb_bits_exact(cuda):
     x = _imgs((2, 120, 200), seed=2)
     flat = x.reshape(2, -1)

@@ -44,6 +44,49 @@ def test_moment_filters_match_reference():
             np.testing.assert_allclose(got[n], ref, atol=2e-4, rtol=0)
 
 
+def test_moment_pair_writes_both_maps_into_level_columns():
+    """ORB's paired filter into the columns of one level of two (N, sum of
+    h*w) buffers equals the two single filters (its plain version) there,
+    matches the reference, and leaves the other columns as they were."""
+    imgs = _img(4, (2, 41, 67))
+    x = torch.from_numpy(imgs)
+    hw = 41 * 67
+    m10 = torch.full((2, hw + 9), -7.0)
+    m01 = torch.full((2, hw + 9), -7.0)
+    sets = ((jorb._d_h, jorb._ONES_H), (jorb._ONES_H, jorb._d_h))
+    timage.separable_filter2d_pair(x, *sets[0], *sets[1], m10[:, 5:5 + hw],
+                                   m01[:, 5:5 + hw])
+    for out, (kx, ky) in zip((m10, m01), sets):
+        single = timage.separable_filter2d(x, kx, ky).reshape(2, -1)
+        assert torch.equal(out[:, 5:5 + hw], single)
+        assert bool((out[:, :5] == -7.0).all()) and bool(
+            (out[:, 5 + hw:] == -7.0).all())
+        for n in range(2):
+            ref = np.asarray(jimage.separable_filter2d(
+                jnp.asarray(imgs[n]), kx, ky)).reshape(-1)
+            np.testing.assert_allclose(out[n, 5:5 + hw].numpy(), ref,
+                                       atol=2e-4, rtol=0)
+
+
+def test_filter_taps_pack_centred_sets():
+    """The filter kernel's taps: each set centred at the launch radius (the
+    largest), zero-padded, vertical then horizontal; 15 taps at most."""
+    g = timage.gaussian_kernel1d(1.0, 3)
+    taps, r = timage._filter_taps([(jorb._d_h, g), (g, g)])
+    assert r == 7 and taps.shape == (2, 2, 16) and taps.dtype == np.float32
+    np.testing.assert_array_equal(taps[0, 0, 4:11], g)      # ky, padded
+    np.testing.assert_array_equal(taps[0, 1, :15], jorb._d_h)
+    np.testing.assert_array_equal(taps[1, 1, 4:11], g)
+    for f, a in ((0, 0), (1, 0), (1, 1)):
+        assert not taps[f, a, :4].any() and not taps[f, a, 11:].any()
+    taps, r = timage._filter_taps([(g, g)])
+    assert r == 3 and not taps[1].any()
+    np.testing.assert_array_equal(taps[0, 0, :7], g)
+    for bad in (np.ones(17, np.float32), np.ones(4, np.float32)):
+        with pytest.raises(ValueError):
+            timage._filter_taps([(bad, g)])
+
+
 @pytest.mark.parametrize("shape", [(81, 109), (48, 65), (13, 200), (97, 131)])
 def test_resize_bilinear_matches_reference(shape):
     imgs = _img(2)
