@@ -20,8 +20,12 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
      pyramid levels; K=1024), D's
      matcher (hamming_scan + hamming_finish) under the stereo gate and
      the f2f window at 20 x 1024 x 1024, the line kernels E-H at both
-     detector scales and D under a mask at 20 x 128 x 128, then I (K13: a
-     GN phase of 20 pairs with and without lines), J (K14: a chunk's
+     detector scales and D under a mask at 20 x 128 x 128, then I (K13:
+     its phase-only form, a GN phase of 20 pairs with and without lines;
+     the whole optimize_pose, one launch, at 20 pairs with and without
+     lines, the lite pass and one pair, every PoseResult field held: T,
+     the covariance against float64, err, and the decisions exactly or
+     within 1e-4 of their threshold), J (K14: a chunk's
      keyframe scan; K16: the 8192 and 1024 landmark rings) and D at the
      map matching's 8192 x 1024 and 1024 x 128; at each of D's shapes the
      matrix-based hamming_dist + hamming_match it replaced, on the same
@@ -77,10 +81,12 @@ part named: all; ``pcg``: the PCG loop run alone).
 own 201-frame scene through the loop path on each device named and
 compares their keyframe decisions (``bench_slam_scene``).
 ``python3 chip_smoke.py --against DIR`` holds this tree's level-0 blur,
-ORB's moment pair, FAST score, resize and LBA terms, scale and cost
-against those of another checkout at DIR (for example a ``git archive``
-of the parent commit): outputs and device times, and the device kernels
-of one point front end (``against``).
+ORB's moment pair, FAST score, resize, LBA terms, scale and cost, K13's
+GN phase and whole optimize_pose at 20 pairs and K2's NMS block max at
+level 0 against those of another checkout at DIR (for example a ``git
+archive`` of the parent commit): outputs and device times (K13 and K2 also
+every device kernel's, torch's too), and the device kernels of one point
+front end (``against``).
 
 Imports nothing of JAX and nothing of the JAX package.
 """
@@ -164,17 +170,14 @@ def cuda_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, memsets: bool = False, iters: int = 10) -> float:
-    """Mean device time a call of ``fn`` spends in the hand-written
-    kernels (and, with ``memsets``, in the memsets that the entry's own C
-    code issues), from torch.profiler over ``iters`` calls after a
-    warm-up: the kernels' own time, apart from the host's launch path that
-    ``cuda_ms`` includes whenever the host is the slower side. Fails the
-    run where the profiler gave no device records."""
+def _profile_device(fn, keep, iters: int):
+    """(device ms, device records) a call of ``fn`` spends in the device
+    records whose name ``keep`` accepts, from torch.profiler over
+    ``iters`` calls after a warm-up. Fails the run where the profiler gave
+    no device records."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    from plslam_tpu_torch import native
     fn()
     torch.cuda.synchronize()
     # a profile now and then comes back without the device's records (on
@@ -186,17 +189,32 @@ def device_ms(fn, memsets: bool = False, iters: int = 10) -> float:
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
-        us = sum(e.device_time_total for e in prof.key_averages()
-                 if e.device_type != DeviceType.CPU
-                 and (native.is_own_kernel(e.key)
-                      or (memsets and "Memset" in e.key)))
+        ev = [e for e in prof.key_averages()
+              if e.device_type != DeviceType.CPU and keep(e.key)]
+        us = sum(e.device_time_total for e in ev)
         if us > 0:
             if attempt:
                 print(f"[profile] device records came on try {attempt + 1}",
                       flush=True)
-            return us / 1e3 / iters
+            return us / 1e3 / iters, sum(e.count for e in ev) / iters
     fail("torch.profiler gave no device records in 6 tries: device time "
          "not measured")
+
+
+def device_ms(fn, memsets: bool = False, iters: int = 10) -> float:
+    """Mean device time a call of ``fn`` spends in the hand-written
+    kernels (and, with ``memsets``, in the memsets that the entry's own C
+    code issues): the kernels' own time, apart from the host's launch path
+    that ``cuda_ms`` includes whenever the host is the slower side."""
+    from plslam_tpu_torch import native
+    return _profile_device(fn, lambda k: native.is_own_kernel(k)
+                           or (memsets and "Memset" in k), iters)[0]
+
+
+def all_kernels(fn, iters: int = 10):
+    """(device ms, device kernels) a call of ``fn`` over every kernel and
+    copy on the device, torch's included."""
+    return _profile_device(fn, lambda k: True, iters)
 
 
 def bound(nbytes: float, ops: float, ops_per_s: float = F32_OPS_PER_S):
@@ -224,17 +242,21 @@ class Recorder:
     def __call__(self, name, source, replaces, got, plain, tol, fn, plain_fn,
                  nbytes, ops, library_fn=None, iters=20, entry=None,
                  err_kind="absolute", ops_per_s=F32_OPS_PER_S, before=False,
-                 popc_ops=None, library_what=None):
+                 popc_ops=None, library_what=None, errs=None):
         """``tol`` is one tolerance for every output, or a list of one per
-        output (``err_kind`` then names the unit of each). ``before``: a
+        output (``err_kind`` then names the unit of each). ``errs``: the
+        errors, measured by the caller, in place of the largest absolute
+        difference of each of ``got`` from ``plain``. ``before``: a
         kernel that a redesign replaced, kept with no main-path caller and
         timed on the same inputs as its successor. ``popc_ops``: the
         popcounts of the CUDA-core algorithm, whose floor the row also
         gives (``popc_bound_ms``) beside the card's bound.
         ``library_what``: what ``library_fn`` computes where that is less
         than the whole function."""
-        tols = list(tol) if isinstance(tol, (list, tuple)) else [tol] * len(got)
-        errs = [max_abs_err(g, p) for g, p in zip(got, plain)]
+        if errs is None:
+            errs = [max_abs_err(g, p) for g, p in zip(got, plain)]
+        tols = (list(tol) if isinstance(tol, (list, tuple))
+                else [tol] * len(errs))
         err = max(errs)
         ok = all(e <= t for e, t in zip(errs, tols))
         ms = cuda_ms(fn, iters)
@@ -830,7 +852,7 @@ EXTRACT_LINES = {"image_resize": 1, "lines_sobel": 3, "lines_moments": 4,
                  "lines_label": 2, "lines_refit": 2, "lines_merge": 2,
                  "lbd_describe": 1, "hamming_scan": 1, "hamming_finish": 1}
 TRACK = {"hamming_scan": 2, "hamming_finish": 2}
-GN = {"pose_gn_iters": 4}     # 2 passes x (robust phase + refinement)
+GN = {"pose_gn_optimize": 2}  # 2 passes, one optimize_pose launch each
 
 
 def expected_launches(lines: bool) -> dict:
@@ -1095,11 +1117,110 @@ def small_line_agreement(dev):
 
 # -- slice 3: the fused SLAM chunk without loop closure --------------------
 
-def sort_compares(n: int) -> int:
-    """Compare-exchanges of a bitonic sort of the next power of two >= n."""
-    S = 1 << max(n - 1, 1).bit_length()
-    lg = S.bit_length() - 1
-    return S // 2 * lg * (lg + 1) // 2
+# the least work of kernel I a term and iteration: a point's residual and
+# Jacobian (~70 flops) and its weighted 27-entry normal-equation update
+# (~80); a line's twice that; and ~10 operations a norm for a linear-time
+# selection of the median
+GN_OPS_POINT, GN_OPS_LINE, GN_OPS_SELECT = 150, 300, 10
+# optimize_pose's decisions (inlier masks, n_inliers, good) may differ from
+# the plain version's only where the plain version's own quantity lies
+# within this fraction of its threshold
+DECISION_MARGIN = 1e-4
+
+
+def gn_ops(B, K, L, iters):
+    """Operations of ``iters`` iterations' terms, medians and normal
+    equations (optimize_pose: its iterations + the gate + the final
+    statistics)."""
+    return iters * B * (K * GN_OPS_POINT + L * GN_OPS_LINE
+                        + (K + 2 * L) * GN_OPS_SELECT)
+
+
+def pose_margins(T0, cam, pts, lns, cfg):
+    """The plain version's decisions, each with its relative margin to
+    its threshold: the inlier gate of every point (B, K) and line (B, L)
+    (|max |r| - k sigma| / k sigma at the robust phase's pose) and the
+    closest of the ``good`` gates (B,) (n_inliers against min_features
+    and min_inlier_ratio x n_total, err against max_optim_error, the
+    rotation's orthonormality and determinant against their tolerance).
+    Returns (margins, the plain result, its final statistics run in
+    float64 from its pose and inliers: H (B, 6, 6), sse (B,))."""
+    import torch
+    from plslam_tpu_torch.core import robust
+    from plslam_tpu_torch.tracking import pose_gn
+    t = cfg.tracking
+    lns = pose_gn._no_lines(pts) if lns is None else lns
+    T1 = pose_gn.gn_iters_plain(T0, cam, pts, lns, t.max_iters)
+    _, _, n_pt = pose_gn.point_terms_rj(T1, cam, pts)
+    _, _, a_ln = pose_gn.line_terms_rj(T1, cam, lns)
+    sigma = torch.clamp(robust.mad_scale_zero_centered(
+        torch.cat([n_pt, a_ln.flatten(-2)], -1),
+        torch.cat([pts.valid, lns.valid.repeat_interleave(2, -1)], -1)),
+        min=0.25)
+    thr = (t.inlier_k * sigma).double()
+    m_pt = (n_pt.double() - thr[:, None]).abs() / thr[:, None]
+    m_ln = (a_ln.amax(-1).double() - thr[:, None]).abs() / thr[:, None]
+    res = pose_gn.optimize_pose_plain(T0, cam, pts, lns, cfg)
+    H, sse = pose_gn.final_normal_eqs(
+        res.T.double(), cam, _as_f64(pts._replace(valid=res.inlier_pt)),
+        _as_f64(lns._replace(valid=res.inlier_ln)))
+    n = res.n_inliers.double()
+    n_total = (pts.valid.sum(-1) + lns.valid.sum(-1)).clamp(min=1).double()
+    R = res.T[:, :3, :3].double()
+    ortho = (R @ R.transpose(-1, -2) - torch.eye(3, dtype=R.dtype,
+                                                 device=R.device)).abs()
+    rel = lambda x, c: (x - c).abs() / abs(c)
+    m_good = torch.stack([
+        rel(n, t.min_features), rel(n, t.min_inlier_ratio * n_total),
+        rel(res.err.double(), t.max_optim_error),
+        rel(ortho.amax((-1, -2)), 1e-3),
+        rel((torch.linalg.det(R) - 1.0).abs(), 1e-3)], -1).amin(-1)
+    return (m_pt, m_ln, m_good), res, H, sse
+
+
+def hold_pose(got, ref, margins, H, sse):
+    """optimize_pose on the card (``got``) against the plain version
+    (``ref``, ``pose_margins``: its float64 statistics H, sse): [T's
+    largest difference; the covariance's and err's largest ratio of their
+    distance from the float64 values (cov = sse / max(2 n - 6, 1) (H +
+    1e-6 I)^-1, err = sqrt(sse / max(2 n, 1))), and from the plain
+    version's, to F64_FACTOR x the plain version's own distance from the
+    float64 values + F64_FLOOR x their largest magnitude, K15's rule; the
+    decisions that differ with a margin of at
+    least DECISION_MARGIN], the smallest margin of any decision, err's
+    largest relative difference from the plain version's err, and the
+    pairs whose inlier masks differ (left out of the float checks)."""
+    import torch
+    m_pt, m_ln, m_good = margins
+    d_pt = got.inlier_pt != ref.inlier_pt
+    d_ln = got.inlier_ln != ref.inlier_ln
+    same = ~(d_pt.any(-1) | d_ln.any(-1))
+    far = lambda d, m: int((d & (m >= DECISION_MARGIN)).sum())
+    bad = (far(d_pt, m_pt) + far(d_ln, m_ln)
+           + far(got.good != ref.good, m_good)
+           + int(((got.n_inliers != ref.n_inliers) & same).sum()))
+    valid = lambda m, v: m[v] if v.any() else m.new_tensor([math.inf])
+    smallest = min(float(valid(m_pt, ref.inlier_pt | got.inlier_pt).min()),
+                   float(valid(m_ln, ref.inlier_ln | got.inlier_ln).min()),
+                   float(m_good.min()))
+    n_res = 2.0 * ref.n_inliers.double()
+    eye = torch.eye(6, dtype=torch.float64, device=H.device)
+    cov64 = (sse / (n_res - 6.0).clamp(min=1.0))[:, None, None] * (
+        torch.linalg.inv(H + 1e-6 * eye))
+    err64 = torch.sqrt(sse / n_res.clamp(min=1.0))
+    dist = lambda c, x: (c.double() - x.double()).abs().amax((-1, -2))
+    r_cov = torch.maximum(dist(got.cov, cov64), dist(got.cov, ref.cov)) / (
+        F64_FACTOR * dist(ref.cov, cov64)
+        + F64_FLOOR * cov64.abs().amax((-1, -2)))
+    d_err = lambda e, x: (e.double() - x.double()).abs()
+    r_err = torch.maximum(d_err(got.err, err64), d_err(got.err, ref.err)) / (
+        F64_FACTOR * d_err(ref.err, err64) + F64_FLOOR * err64.abs())
+    err_rel = (got.err.double() - ref.err.double()).abs() / (
+        ref.err.double().abs().clamp(min=1e-30))
+    s = lambda x: float(x[same].max()) if same.any() else 0.0
+    errs = [max_abs_err(got.T[same], ref.T[same]) if same.any() else 0.0,
+            s(r_cov), s(r_err), float(bad)]
+    return errs, smallest, s(err_rel), (~same).nonzero().flatten().tolist()
 
 
 def gn_inputs(dev, B, K, L, seed):
@@ -1147,25 +1268,59 @@ def slam_kernel_phase(dev, record):
     from plslam_tpu_torch.tracking import pose_gn
 
     cfg = SlamConfig()
-    # I: one GN phase of the 20 pairs of a chunk, K = 1024 point and
-    # L = 128 line terms (L = 0 points only): the final pass's 8
-    # iterations, and the lite pass's 6
-    T0 = torch.eye(4, device=dev).expand(CHUNK, 4, 4)
     t = cfg.tracking
+    K = cfg.points.max_kpts
+    # I, phase-only form (gn_iters): one GN phase of the 20 pairs of a
+    # chunk, K = 1024 point and L = 128 line terms (L = 0 points only): the
+    # final pass's 8 iterations, and the lite pass's 6
+    T0 = torch.eye(4, device=dev).expand(CHUNK, 4, 4)
     for L, n_it, tag in ((cfg.lines.max_lines, t.max_iters, ""),
-                         (0, t.max_iters, "@points"),
-                         (cfg.lines.max_lines, t.lite_pass_iters, "@lite")):
-        K = cfg.points.max_kpts
+                         (0, t.max_iters, "_points"),
+                         (cfg.lines.max_lines, t.lite_pass_iters, "_lite")):
         cam, pts, lns = gn_inputs(dev, CHUNK, K, L, seed=3 + L)
         got = pose_gn.gn_iters(T0, cam, pts, lns, n_it)
         ref = pose_gn.gn_iters_plain(T0, cam, pts, lns, n_it)
-        record("pose_gn_iters" + tag, "plslam_tpu_torch/csrc/pose_gn.cu",
-               "plslam_tpu/tracking/pose_gn.py:67", [got], [ref], 1e-5,
+        record("pose_gn_optimize@phase" + tag,
+               "plslam_tpu_torch/csrc/pose_gn.cu",
+               "plslam_tpu/tracking/pose_gn.py:144", [got], [ref], 1e-5,
                lambda: pose_gn.gn_iters(T0, cam, pts, lns, n_it),
                lambda: pose_gn.gn_iters_plain(T0, cam, pts, lns, n_it),
                CHUNK * (64 * 2 + K * 21 + L * 37),
-               n_it * CHUNK * (K * 150 + L * 300 + sort_compares(K + 2 * L)),
-               entry="pose_gn_iters", err_kind="pose entries")
+               gn_ops(CHUNK, K, L, n_it), entry="pose_gn_optimize",
+               err_kind="pose entries")
+    # I, whole (optimize_pose, one launch): the chunk's final pass (8 + 8
+    # iterations) with and without lines, its lite pass (6 + 4), and one
+    # pair (B = 1: a per-frame step, a loop verification)
+    lite = cfg.with_updates({"tracking": {
+        "max_iters": t.lite_pass_iters,
+        "max_iters_ref": t.lite_pass_iters_ref}})
+    for B, L, c, tag in ((CHUNK, cfg.lines.max_lines, cfg, ""),
+                         (CHUNK, 0, cfg, "@points"),
+                         (CHUNK, cfg.lines.max_lines, lite, "@lite"),
+                         (1, cfg.lines.max_lines, cfg, "@b1")):
+        cam, pts, lns = gn_inputs(dev, B, K, L, seed=5 + L + B)
+        lns = lns if L else None
+        T0 = torch.eye(4, device=dev).expand(B, 4, 4)
+        margins, ref, H, sse = pose_margins(T0, cam, pts, lns, c)
+        got = pose_gn.optimize_pose(T0, cam, pts, lns, c)
+        errs, smallest, err_rel, differ = hold_pose(got, ref, margins, H,
+                                                    sse)
+        print(f"[k13] optimize_pose{tag}: B={B} L={L} good "
+              f"{int(got.good.sum())}/{B} (plain {int(ref.good.sum())}); "
+              f"smallest decision margin {smallest:.6g}; err's largest "
+              f"relative difference from the plain version's {err_rel:.3g}"
+              f"; pairs whose inlier masks differ {differ}", flush=True)
+        n_it = c.tracking.max_iters + c.tracking.max_iters_ref
+        record("pose_gn_optimize" + tag, "plslam_tpu_torch/csrc/pose_gn.cu",
+               "plslam_tpu/tracking/pose_gn.py:130", None, None,
+               [1e-5, 1.0, 1.0, 0],
+               lambda: pose_gn.optimize_pose(T0, cam, pts, lns, c),
+               lambda: pose_gn.optimize_pose_plain(T0, cam, pts, lns, c),
+               B * (64 * 2 + K * 22 + L * 38 + 144 + 9),
+               gn_ops(B, K, L, n_it + 2), entry="pose_gn_optimize",
+               errs=errs, err_kind="T abs; cov and err: distance from "
+               "float64 / (3 x the plain version's + 1e-5 of the float64 "
+               "value); decisions beyond 1e-4 of their threshold")
 
     # J, kf_scan: a chunk of 20 tracked frames against the carry
     rng = np.random.default_rng(4)
@@ -1284,13 +1439,14 @@ PER_LBA = {"lba_terms": 14, "lba_camera": 6, "lba_index": 1, "lba_bin": 6,
 def expected_slam_launches(n_kfs: int, n_lba: int,
                            n_chunks: int = SLAM_CHUNKS) -> dict:
     """Launches of the SLAM path: initialize (one extraction and one
-    keyframe insertion), ``n_chunks`` chunks (extraction, tracking with 4
-    GN phases, kf_scan), every keyframe's insertion (a medoid and a map
-    match for points and for lines) and every window LBA (``PER_LBA``)."""
+    keyframe insertion), ``n_chunks`` chunks (extraction, tracking with 2
+    optimize_pose launches, kf_scan), every keyframe's insertion (a medoid
+    and a map match for points and for lines) and every window LBA
+    (``PER_LBA``)."""
     from collections import Counter
     n = Counter()
     per_kf = {"medoid": 2, "hamming_scan": 2, "hamming_finish": 2}
-    per_chunk = {"pose_gn_iters": 4, "kf_scan": 1}
+    per_chunk = {"pose_gn_optimize": 2, "kf_scan": 1}
     for table, times in ((EXTRACT_POINTS, n_chunks + 1),
                          (EXTRACT_LINES, n_chunks + 1),
                          (TRACK, 2 * n_chunks), (per_chunk, n_chunks),
@@ -1865,7 +2021,7 @@ class LoopProbe:
 def expected_loop_launches(n_kfs, n_lba, p: LoopProbe, n_closed) -> dict:
     """The loop path's launches: the loops-off path's, plus per probe (every
     keyframe, the first included) the BoW descent and histogram of each
-    family; per verification D twice (ORB, LBD) and two GN phases (K13);
+    family; per verification D twice (ORB, LBD) and one optimize_pose (K13);
     per closure the landmark fusion (D twice); per dense solve one initial
     pg_edges and 12 x (pg_edges, pg_assemble, pg_update); per PCG solve
     one pg_edges and 12 x (pg_edges, pg_blocks, pg_pcg, pg_update); per
@@ -1875,7 +2031,7 @@ def expected_loop_launches(n_kfs, n_lba, p: LoopProbe, n_closed) -> dict:
     g = lambda k: p.n.get(k, 0)
     for table, times in (
             ({"bow_descend": 2, "bow_hist": 2}, n_kfs),
-            ({"hamming_scan": 2, "hamming_finish": 2, "pose_gn_iters": 2},
+            ({"hamming_scan": 2, "hamming_finish": 2, "pose_gn_optimize": 1},
              g("verify_loop_geometry")),
             ({"hamming_scan": 2, "hamming_finish": 2}, n_closed),
             ({"pg_edges": 13, "pg_assemble": 12, "pg_update": 12},
@@ -2396,10 +2552,10 @@ DATASET_CPU = {"kitti_frame": 0.015001279747805839,
 # the reference's own bound between the chunked and the per-frame driver
 # (tests/test_batch_vo.py:117)
 CHUNK_VS_FRAME_M = 5e-3
-# one pair's f2f match of one feature family, and its GN (robust phase +
-# refinement), in the per-frame driver
+# one pair's f2f match of one feature family, and its optimize_pose, in the
+# per-frame driver
 TRACK_PAIR = {"hamming_scan": 1, "hamming_finish": 1}
-GN_PAIR = {"pose_gn_iters": 2}
+GN_PAIR = {"pose_gn_optimize": 1}
 
 
 def expected_frame_launches(n_frames: int, remaps: int = 0) -> dict:
@@ -2743,10 +2899,13 @@ def against_side(root: str, out_path: str) -> None:
     the paired filter runs two single filters), fast_score on level 0 (its
     input the plain blur), image_resize at the pyramid's and the
     half-resolution shapes, the LBA's terms, scale and cost on
-    ``lba_window_problem``, and the device kernels (all of them, torch's
+    ``lba_window_problem``, the GN phase (8 iterations) and the whole
+    optimize_pose at 20 x (1024 points, 128 lines) (``gn_inputs``), the
+    NMS block max at level 0, and the device kernels (all of them, torch's
     too) of one point front end (``detect_and_describe``) under
     torch.profiler; saves the outputs and each call's device time
-    (torch.profiler, the hand kernels) to ``out_path``."""
+    (torch.profiler, the hand kernels; for K13 and K2 also every device
+    kernel's time and count, ``all_kernels``) to ``out_path``."""
     sys.path.insert(0, root)
     import torch
     from torch.autograd import DeviceType
@@ -2797,6 +2956,23 @@ def against_side(root: str, out_path: str) -> None:
     t, sig, cost = fn()
     res["lba_terms+sigma"] = ([x.cpu() for x in (*t, sig, cost)],
                               device_ms(fn, iters=20))
+    # K13: the GN phase (8 iterations, 20 pairs, K = 1024, L = 128) and
+    # the whole optimize_pose (8 + 8) on the same inputs; K2: the NMS block
+    # max at level 0 (fast_score's masks of the plain blur)
+    from plslam_tpu_torch.tracking import pose_gn
+    cam_k, pts, lns = gn_inputs(dev, CHUNK, cfg.points.max_kpts,
+                                cfg.lines.max_lines, seed=3)
+    T0 = torch.eye(4, device=dev).expand(CHUNK, 4, 4)
+    chi, clo, score = fast.fast_score_map2(lvl0, th_hi, th_lo)
+    for key, fn in (
+            ("gn_phase@8", lambda: [pose_gn.gn_iters(
+                T0, cam_k, pts, lns, cfg.tracking.max_iters)]),
+            ("optimize_pose", lambda: list(pose_gn.optimize_pose(
+                T0, cam_k, pts, lns, cfg))),
+            ("nms_block_max@l0", lambda: list(fast.nms_block_max(
+                score, chi, clo, 5, 16, 48, 160)))):
+        res[key] = ([x.cpu() for x in fn()], device_ms(fn, iters=20),
+                    *all_kernels(fn, iters=20))
     detect_and_describe(images, cfg)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -2838,6 +3014,13 @@ def against(other: str) -> None:
               f"{[f'{e:g}' for e in errs]}; device_ms this "
               f"{[f'{x:.4f}' for x in times['this']]}, other "
               f"{[f'{x:.4f}' for x in times['other']]}", flush=True)
+        if len(a[key]) > 2:     # every device kernel, torch's too
+            alls = {who: [(r[key][2], r[key][3]) for w, r in runs
+                          if w == who] for who in ("other", "this")}
+            print(f"[against] {key}: all device kernels (ms, kernels a "
+                  f"call) this {[(f'{m:.4f}', n) for m, n in alls['this']]}"
+                  f", other {[(f'{m:.4f}', n) for m, n in alls['other']]}",
+                  flush=True)
     sig_cost = [(r["lba_terms+sigma"][0][-2], r["lba_terms+sigma"][0][-1])
                 for _, r in runs[:2]]
     bits = [[x.view(torch.int32).item() for x in sc] for sc in sig_cost]

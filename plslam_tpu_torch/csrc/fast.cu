@@ -39,11 +39,50 @@
 //  2 FMNMX). On an NVIDIA H100 80GB HBM3 at 700 W (chip_smoke.py): 0.205
 //  ms at 40 x 376x1241 against a bound of 0.120 (the per-pixel, compare-
 //  and-select kernel it replaced: 0.477).
-// Launch 2 reads score and masks once (5-pixel halo in shared memory),
-// does ~40 compares per pixel and writes 1/64 of that: bound by bytes.
-// Nothing but the inputs and outputs crosses device memory.
-//
-// Block argmax keeps the first index in row-major order, as jnp.argmax.
+// Launch 2 (nms_block_kernel): the function is bound by bytes. It reads
+// the score and the two masks once (6 bytes a pixel), writes 20 bytes an
+// 8x8 block and needs ~45 operations a pixel (a (2r+1)^2 max, the keep
+// test, two selects, the block max): at 40 x 376x1241 that is 0.035 ms of
+// memory against ~0.02 of instructions. The kernel it replaced took 6.4x
+// that: each element of the 32x32 tile and its halo staged with a division
+// and a modulo, the 11-tap maxima recomputed per pixel from shared memory,
+// the kept scores written to two shared planes and then walked serially,
+// 64 entries by 16 of 256 threads while 240 waited. So:
+//  - a block covers 64 x 64 pixels (8 x 8 blocks of 8x8); its score tile
+//    and r-halo (1.34x the tile's pixels at r = 5, against 1.72x for
+//    32x32) is staged in quads, 4 pixels from a 16-byte aligned address
+//    of the plane where all 4 lie in the image (scalar loads at a row's
+//    ends and for unaligned planes), lanes on consecutive quads, every
+//    load of a thread issued before its stores, -inf outside the image,
+//    never the edge;
+//  - the separable (2r+1) max takes 8 outputs a thread from 8 + 2r values
+//    in registers, as a suffix max, the 2r - 6 values every window shares
+//    and a prefix max (~3 operations an output, not 2r): along the rows
+//    (16-byte shared loads and stores) into a second shared plane, then
+//    down the columns into the registers of the thread that owns the
+//    column's 8 rows of a block. Both planes' pitches are 4 mod 8 floats,
+//    so 8 lanes on 8 consecutive rows hit 8 different 16-byte bank groups;
+//  - a lane then holds a column of an 8x8 block, so 8 lanes reduce a
+//    block: the kept (value, index) pairs of the column in order, then a
+//    3-step __shfl_xor_sync tree where the larger value wins and an equal
+//    value keeps the lower index, the first argmax of torch.max and
+//    jnp.argmax in whatever order the tree meets them; the count of kept
+//    high-threshold corners is a shuffle sum of the lanes' counts; the
+//    mask bytes are read there, a warp's 32 lanes a row's 32 consecutive
+//    bytes (one 32-byte sector).
+// What bounds it on the card is not the bytes: the staging alone runs
+// near the bytes bound, the maxima and reductions alone take the larger
+// part, and the two barely overlap (variants of this file without the one
+// or the other). Variants with less address arithmetic, conflict-free
+// staging stores, or the masks staged as words in shared memory (more
+// registers, fewer blocks an SM) gained nothing or lost. Holding the mask
+// bytes in registers from the start kept 56 registers and 2 blocks an SM
+// (0.091 ms at level 0 on an NVIDIA H100 80GB HBM3 at 700 W,
+// chip_smoke.py); reading them in the keep test, only where a pixel is
+// kept, keeps 32 registers and 4 blocks an SM. So the time depends on the
+// data: the flat, zero-score regions of a scene keep most of their pixels.
+// Blocks wholly in the padding give -inf and index 0, all-zero blocks 0
+// and index 0, as the plain version.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -162,81 +201,241 @@ __global__ void __launch_bounds__(FS_NX * FS_NY)
   }
 }
 
-// One thread block covers a 32x32 pixel tile = 4x4 blocks of 8x8.
-constexpr int NT = 32, NB = 8;
+// nms_block_kernel: a block of NMS_TX x NMS_TY threads covers NMS_TW x
+// NMS_TH pixels; thread (tx, ty) owns column tx of block row ty (8 rows)
+constexpr int NB = 8;                                   // the 8x8 blocks
+constexpr int NMS_TW = 64, NMS_TH = 64;
+constexpr int NMS_TX = NMS_TW, NMS_TY = NMS_TH / NB;
+constexpr int NMS_NT = NMS_TX * NMS_TY;                 // 512 threads
+// Row pitches (floats) of the score tile and of the horizontal max: 4 mod
+// 8, so the 16-byte accesses of 8 lanes on consecutive rows (a quarter
+// warp, one shared-memory wavefront) fall in 8 different 16-byte bank
+// groups
+__host__ __device__ constexpr int nms_pitch(int w) {
+  return (w + 3) / 8 * 8 + 4;
+}
+__host__ __device__ constexpr int nms_sp(int r) {
+  return nms_pitch(NMS_TW + 2 * r);
+}
+constexpr int NMS_HP = nms_pitch(NMS_TW);
 
-__global__ void nms_block_kernel(const float* __restrict__ score,
-                                 const uint8_t* __restrict__ chi,
-                                 const uint8_t* __restrict__ clo,
-                                 float* __restrict__ bs_hi,
-                                 int* __restrict__ bi_hi,
-                                 float* __restrict__ bs_lo,
-                                 int* __restrict__ bi_lo,
-                                 int* __restrict__ cnt, int H, int W, int Hb,
-                                 int Wb, int r, int border) {
-  extern __shared__ float smem[];
-  const int S = NT + 2 * r;
-  float* sc = smem;             // (S, S) score with an r halo, -inf outside
-  float* rm = sc + S * S;       // (S, NT) horizontal (2r+1)-max
-  float* vhi = rm + S * NT;     // (NT, NT) kept score at the high threshold
-  float* vlo = vhi + NT * NT;   // (NT, NT) kept score at the low threshold
-  const int n = blockIdx.z;
-  const int x0 = blockIdx.x * NT, y0 = blockIdx.y * NT;
-  const int tid = threadIdx.y * blockDim.x + threadIdx.x;
-  const int nthr = blockDim.x * blockDim.y;
-  const float* src = score + (size_t)n * H * W;
-  for (int idx = tid; idx < S * S; idx += nthr) {
-    int y = y0 - r + idx / S, x = x0 - r + idx % S;
-    sc[idx] = (y >= 0 && y < H && x >= 0 && x < W) ? src[(size_t)y * W + x]
-                                                   : -INFINITY;
-  }
-  __syncthreads();
-  for (int idx = tid; idx < S * NT; idx += nthr) {
-    int yy = idx / NT, xx = idx % NT;
-    float m = -INFINITY;
-    for (int t = 0; t <= 2 * r; ++t) m = fmaxf(m, sc[yy * S + xx + t]);
-    rm[idx] = m;
-  }
-  __syncthreads();
-  for (int idx = tid; idx < NT * NT; idx += nthr) {
-    int yy = idx / NT, xx = idx % NT;
-    int y = y0 + yy, x = x0 + xx;
-    float hi = -INFINITY, lo = -INFINITY;  // padding beyond the image
-    if (y < H && x < W) {
+__host__ __device__ constexpr size_t nms_smem(int r) {
+  return sizeof(float) * (size_t)(NMS_TH + 2 * r) * (nms_sp(r) + NMS_HP);
+}
+
+// out[j] = max(src[(j + t) * stride], t = 0 .. 2r), j = 0 .. 7. With R >= 4
+// a compile-time radius: the values every window shares (indices 7 .. 2R),
+// suffix maxima to their left and prefix maxima to their right.
+template <int R>
+__device__ __forceinline__ void window_max8(const float* src, int stride,
+                                            int r, float (&out)[8]) {
+  if constexpr (R >= 4) {
+    float v[8 + 2 * R];
+#pragma unroll
+    for (int k = 0; k < 8 + 2 * R; ++k) v[k] = src[k * stride];
+    float left[8];                        // left[j] = max(v[j .. 2R])
+    left[7] = v[7];
+#pragma unroll
+    for (int k = 8; k <= 2 * R; ++k) left[7] = fmaxf(left[7], v[k]);
+#pragma unroll
+    for (int j = 6; j >= 0; --j) left[j] = fmaxf(v[j], left[j + 1]);
+    float right = -INFINITY;              // max(v[2R + 1 .. 2R + j])
+    out[0] = left[0];
+#pragma unroll
+    for (int j = 1; j < 8; ++j) {
+      right = fmaxf(right, v[2 * R + j]);
+      out[j] = fmaxf(left[j], right);
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
       float m = -INFINITY;
-      for (int t = 0; t <= 2 * r; ++t) m = fmaxf(m, rm[(yy + t) * NT + xx]);
-      float s = sc[(yy + r) * S + xx + r];
-      bool keep = s >= m && y >= border && y < H - border && x >= border &&
-                  x < W - border;
-      size_t p = (size_t)n * H * W + (size_t)y * W + x;
-      hi = (keep && chi[p]) ? s : 0.f;
-      lo = (keep && clo[p]) ? s : 0.f;
+      for (int t = 0; t <= 2 * r; ++t) m = fmaxf(m, src[(j + t) * stride]);
+      out[j] = m;
     }
-    vhi[idx] = hi;
-    vlo[idx] = lo;
+  }
+}
+
+// Staging of the score tile: item it is quad j of tile row `row`, the 4
+// pixels of the plane from a 16-byte aligned address (lanes on
+// consecutive quads of a row), -inf outside the image. A row of CW pixels
+// touches at most (CW + 6) / 4 quads.
+struct Stage {
+  const float* src;  // the plane
+  int pm;            // the plane's first element mod 4
+  int H, W, x0, y0, r, CW, NQ, RH;
+  bool aligned;
+
+  __device__ __forceinline__ void load(int it, float (&v)[4], int& row,
+                                       int& c0) const {
+    row = it / NQ;
+    const int j = it - row * NQ;
+    const int y = y0 - r + row;
+    const bool in_y = row < RH && y >= 0 && y < H;
+    const int yW = in_y ? y * W : 0;
+    const int a = (pm + yW + x0 - r) & 3;   // the row's first pixel mod 4
+    const int xq = x0 - r - a + 4 * j;       // the quad's first column
+    c0 = 4 * j - a;                          // ... in the tile
+    if (in_y && aligned && xq >= 0 && xq + 3 < W) {
+      const float4 f = __ldg(reinterpret_cast<const float4*>(src + yW + xq));
+      v[0] = f.x;
+      v[1] = f.y;
+      v[2] = f.z;
+      v[3] = f.w;
+    } else {
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        v[e] = in_y && xq + e >= 0 && xq + e < W ? __ldg(src + yW + xq + e)
+                                                 : -INFINITY;
+    }
+    if (row >= RH) row = -1;
+  }
+
+  __device__ __forceinline__ void store(float* sc, int SP, const float (&v)[4],
+                                        int row, int c0) const {
+    if (row < 0) return;
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      if (c0 + e >= 0 && c0 + e < CW) sc[row * SP + c0 + e] = v[e];
+  }
+};
+
+// window_max8 along a row of the score tile (16-byte aligned, stride 1):
+// the 8 + 2R values by 16- and 8-byte loads
+template <int R>
+__device__ __forceinline__ void row_max8(const float* src, int r,
+                                         float (&out)[8]) {
+  if constexpr (R >= 4 && (8 + 2 * R) % 2 == 0) {
+    float v[8 + 2 * R];
+#pragma unroll
+    for (int k = 0; k + 4 <= 8 + 2 * R; k += 4) {
+      const float4 f = *reinterpret_cast<const float4*>(src + k);
+      v[k] = f.x;
+      v[k + 1] = f.y;
+      v[k + 2] = f.z;
+      v[k + 3] = f.w;
+    }
+    if constexpr ((8 + 2 * R) % 4 == 2) {
+      const float2 f = *reinterpret_cast<const float2*>(src + 6 + 2 * R);
+      v[6 + 2 * R] = f.x;
+      v[7 + 2 * R] = f.y;
+    }
+    window_max8<R>(v, 1, r, out);
+  } else {
+    window_max8<R>(src, 1, r, out);
+  }
+}
+
+// R: the NMS radius at compile time (5, the path's), or -1 for r at run time
+template <int R>
+__global__ void __launch_bounds__(NMS_NT, 4) nms_block_kernel(
+    const float* __restrict__ score, const uint8_t* __restrict__ chi,
+    const uint8_t* __restrict__ clo, float* __restrict__ bs_hi,
+    int* __restrict__ bi_hi, float* __restrict__ bs_lo,
+    int* __restrict__ bi_lo, int* __restrict__ cnt, int H, int W, int Hb,
+    int Wb, int r_rt, int border, bool aligned) {
+  extern __shared__ float smem[];
+  const int r = R >= 0 ? R : r_rt;
+  const int RH = NMS_TH + 2 * r, CW = NMS_TW + 2 * r, SP = nms_sp(r);
+  float* sc = smem;               // (RH, SP) score with an r halo
+  float* hm = sc + RH * SP;       // (RH, NMS_HP) the horizontal max
+  const int tid = threadIdx.x;
+  const int tx = tid % NMS_TX, ty = tid / NMS_TX;
+  const int n = blockIdx.z;
+  const int x0 = blockIdx.x * NMS_TW, y0 = blockIdx.y * NMS_TH;
+  const size_t plane = (size_t)n * H * W;
+  const int x = x0 + tx;
+
+  // stage the score tile: with a compile-time radius every load of a
+  // thread is issued before its first store
+  const Stage st{score + plane, (int)(plane & 3), H, W, x0, y0, r, CW,
+                 (CW + 6) / 4, RH, aligned};
+  if constexpr (R >= 0) {
+    constexpr int ITEMS = ((NMS_TH + 2 * R) * ((NMS_TW + 2 * R + 6) / 4) +
+                           NMS_NT - 1) / NMS_NT;
+    float v[ITEMS][4];
+    int row[ITEMS], c0[ITEMS];
+#pragma unroll
+    for (int u = 0; u < ITEMS; ++u)
+      st.load(tid + u * NMS_NT, v[u], row[u], c0[u]);
+#pragma unroll
+    for (int u = 0; u < ITEMS; ++u) st.store(sc, SP, v[u], row[u], c0[u]);
+  } else {
+    for (int it = tid; it < RH * st.NQ; it += NMS_NT) {
+      float v[4];
+      int row, c0;
+      st.load(it, v, row, c0);
+      st.store(sc, SP, v, row, c0);
+    }
   }
   __syncthreads();
-  const int per = NT / NB;  // blocks per tile side
-  if (tid < per * per) {
-    int by = tid / per, bx = tid % per;
-    int gby = blockIdx.y * per + by, gbx = blockIdx.x * per + bx;
-    if (gby < Hb && gbx < Wb) {
-      float mh = -INFINITY, ml = -INFINITY;
-      int ah = 0, al = 0, c = 0;
-      for (int q = 0; q < NB * NB; ++q) {
-        int idx = (by * NB + q / NB) * NT + bx * NB + q % NB;
-        float h = vhi[idx], l = vlo[idx];
-        if (h > mh) { mh = h; ah = q; }
-        if (l > ml) { ml = l; al = q; }
-        c += h > 0.f;
-      }
-      size_t o = (size_t)n * Hb * Wb + (size_t)gby * Wb + gbx;
-      bs_hi[o] = mh;
-      bi_hi[o] = ah;
-      bs_lo[o] = ml;
-      bi_lo[o] = al;
-      cnt[o] = c;
+
+  // the horizontal max: 8 outputs a task, lanes on consecutive rows
+  for (int t = tid; t < RH * (NMS_TW / 8); t += NMS_NT) {
+    const int row = t % RH, seg = t / RH;
+    float out[8];
+    row_max8<R>(sc + row * SP + 8 * seg, r, out);
+    float4* d = reinterpret_cast<float4*>(hm + row * NMS_HP + 8 * seg);
+    d[0] = make_float4(out[0], out[1], out[2], out[3]);
+    d[1] = make_float4(out[4], out[5], out[6], out[7]);
+  }
+  __syncthreads();
+
+  // the vertical max of the column's 8 rows, the keep test, the kept
+  // scores (-inf beyond the image), the column's first maxima and count
+  float m[8];
+  window_max8<R>(hm + ty * NB * NMS_HP + tx, NMS_HP, r, m);
+  float vh = -INFINITY, vl = -INFINITY;
+  int qh = tx & (NB - 1), ql = qh, c = 0;
+  const bool bx = x >= border && x < W - border;
+#pragma unroll
+  for (int k = 0; k < NB; ++k) {
+    const int y = y0 + ty * NB + k;
+    float h = -INFINITY, l = -INFINITY;
+    if (y < H && x < W) {
+      const float s = sc[(ty * NB + k + r) * SP + tx + r];
+      const bool keep = s >= m[k] && bx && y >= border && y < H - border;
+      const size_t p = plane + (size_t)y * W + x;
+      h = keep && __ldg(chi + p) ? s : 0.0f;
+      l = keep && __ldg(clo + p) ? s : 0.0f;
     }
+    const int q = k * NB + (tx & (NB - 1));
+    if (h > vh) {
+      vh = h;
+      qh = q;
+    }
+    if (l > vl) {
+      vl = l;
+      ql = q;
+    }
+    c += h > 0.0f;
+  }
+  // across the block's 8 columns: the larger value, on a tie the lower
+  // index
+#pragma unroll
+  for (int d = 1; d < NB; d <<= 1) {
+    const float oh = __shfl_xor_sync(0xffffffffu, vh, d);
+    const float ol = __shfl_xor_sync(0xffffffffu, vl, d);
+    const int oqh = __shfl_xor_sync(0xffffffffu, qh, d);
+    const int oql = __shfl_xor_sync(0xffffffffu, ql, d);
+    c += __shfl_xor_sync(0xffffffffu, c, d);
+    if (oh > vh || (oh == vh && oqh < qh)) {
+      vh = oh;
+      qh = oqh;
+    }
+    if (ol > vl || (ol == vl && oql < ql)) {
+      vl = ol;
+      ql = oql;
+    }
+  }
+  const int gbx = x >> 3, gby = blockIdx.y * NMS_TY + ty;
+  if ((tx & (NB - 1)) == 0 && gbx < Wb && gby < Hb) {
+    const size_t o = (size_t)n * Hb * Wb + (size_t)gby * Wb + gbx;
+    bs_hi[o] = vh;
+    bi_hi[o] = qh;
+    bs_lo[o] = vl;
+    bi_lo[o] = ql;
+    cnt[o] = c;
   }
 }
 
@@ -264,14 +463,19 @@ int fast_nms_block(const float* score, const uint8_t* chi, const uint8_t* clo,
                    float* bs_hi, int* bi_hi, float* bs_lo, int* bi_lo,
                    int* cnt, int N, int H, int W, int Hb, int Wb, int radius,
                    int border, cudaStream_t stream) {
-  int S = NT + 2 * radius;
-  size_t smem = sizeof(float) * ((size_t)S * S + (size_t)S * NT + 2 * NT * NT);
-  dim3 block(32, 8);
-  int per = NT / NB;
-  dim3 grid((Wb + per - 1) / per, (Hb + per - 1) / per, N);
-  nms_block_kernel<<<grid, block, smem, stream>>>(
+  if (N == 0 || Hb == 0 || Wb == 0) return 0;
+  const size_t smem = nms_smem(radius);
+  auto kernel = radius == 5 ? nms_block_kernel<5> : nms_block_kernel<-1>;
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  const dim3 grid((Wb * NB + NMS_TW - 1) / NMS_TW,
+                  (Hb * NB + NMS_TH - 1) / NMS_TH, N);
+  kernel<<<grid, NMS_NT, smem, stream>>>(
       score, chi, clo, bs_hi, bi_hi, bs_lo, bi_lo, cnt, H, W, Hb, Wb, radius,
-      border);
+      border, (reinterpret_cast<uintptr_t>(score) & 15) == 0);
   return (int)cudaGetLastError();
 }
 

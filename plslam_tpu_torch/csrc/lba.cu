@@ -56,6 +56,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "radix_select.cuh"
+
 namespace {
 
 struct Cam {
@@ -119,8 +121,8 @@ __device__ __forceinline__ void se3_row(const float* a, const float* P,
 // floats are 72 bytes from the next one's), so the terms spread over as
 // many SMs as there are, while the last block has TERMS_NT threads.
 constexpr int TERMS_NT = 1024, TERMS_OBS = 128;
-constexpr int SEL_D1 = 2048, SEL_D2 = 1024, SEL_D3 = 1024;  // 11, 10, 10 bits
-constexpr int SEL_SHIFT1 = 20, SEL_SHIFT2 = 10;
+using radix::SEL_D1, radix::SEL_D2, radix::SEL_D3;  // 11, 10, 10 bits
+using radix::SEL_SHIFT1, radix::SEL_SHIFT2;
 constexpr int SEL_STASH = 4096;
 constexpr int SEL_BATCH = 8;     // loads in flight a thread in the walks
 
@@ -129,9 +131,7 @@ struct SelScratch {              // zero between launches
   unsigned int valid, lost, ticket;
 };
 
-__device__ __forceinline__ unsigned int key_of(float a) {
-  return __float_as_uint(a) & 0x7fffffffu;
-}
+using radix::key_of;
 
 // *count += the warp's lanes that are on, one atomic a warp. Every lane of
 // the warp calls it.
@@ -139,48 +139,6 @@ __device__ __forceinline__ void warp_count(unsigned int* count, bool on) {
   const unsigned int mask = __ballot_sync(0xffffffffu, on);
   if ((threadIdx.x & 31) == 0 && mask)
     atomicAdd(count, (unsigned int)__popc(mask));
-}
-
-// the bucket of h[0 .. NB) (counts in bucket order) that holds rank k < the
-// counts' sum, and k's rank inside it. Every thread returns the same.
-template <int NB>
-__device__ void select_bucket(const unsigned int* h, unsigned int k,
-                              int* bucket, unsigned int* rank,
-                              unsigned int* scan) {
-  constexpr int PER = NB / TERMS_NT;
-  __shared__ int s_bucket;
-  __shared__ unsigned int s_rank;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  unsigned int c[PER], sum = 0;
-#pragma unroll
-  for (int q = 0; q < PER; ++q) {
-    c[q] = h[tid * PER + q];
-    sum += c[q];
-  }
-  // inclusive scan of the threads' sums: warps, then the warps' totals
-  unsigned int x = sum;
-  for (int d = 1; d < 32; d <<= 1) {
-    const unsigned int y = __shfl_up_sync(0xffffffffu, x, d);
-    if (lane >= d) x += y;
-  }
-  if (lane == 31) scan[warp] = x;
-  __syncthreads();
-  unsigned int lo = x - sum;
-  for (int w = 0; w < warp; ++w) lo += scan[w];
-  if (k >= lo && k < lo + sum) {
-#pragma unroll
-    for (int q = 0; q < PER; ++q) {
-      if (k >= lo && k < lo + c[q]) {
-        s_bucket = tid * PER + q;
-        s_rank = k - lo;
-      }
-      lo += c[q];
-    }
-  }
-  __syncthreads();
-  *bucket = s_bucket;
-  *rank = s_rank;
-  __syncthreads();
 }
 
 __global__ void __launch_bounds__(TERMS_NT) terms_kernel(
@@ -324,7 +282,7 @@ __global__ void __launch_bounds__(TERMS_NT) terms_kernel(
   if (n > 0) {
     int b1, b2, b3;
     unsigned int k = (n - 1) / 2;
-    select_bucket<SEL_D1>(sh, k, &b1, &k, s_scan);
+    radix::select_bucket<TERMS_NT, SEL_D1>(sh, k, &b1, &k, s_scan);
     // pass 2; each warp stashes its bucket-b1 keys in a region of its own
     // (its count in a register, the same in every lane), unless one
     // overflows: then pass 3 walks the terms again
@@ -351,7 +309,7 @@ __global__ void __launch_bounds__(TERMS_NT) terms_kernel(
       if (count > PER_WARP) s_overflow = true;
     }
     __syncthreads();
-    select_bucket<SEL_D2>(sh, k, &b2, &k, s_scan);
+    radix::select_bucket<TERMS_NT, SEL_D2>(sh, k, &b2, &k, s_scan);
     const unsigned int prefix = ((unsigned int)b1 << (SEL_SHIFT1 - SEL_SHIFT2))
                                 | (unsigned int)b2;
     for (int b = tid; b < SEL_D3; b += TERMS_NT) sh[b] = 0;
@@ -371,7 +329,7 @@ __global__ void __launch_bounds__(TERMS_NT) terms_kernel(
       });
     }
     __syncthreads();
-    select_bucket<SEL_D3>(sh, k, &b3, &k, s_scan);
+    radix::select_bucket<TERMS_NT, SEL_D3>(sh, k, &b3, &k, s_scan);
     med = __uint_as_float((prefix << SEL_SHIFT2) | (unsigned int)b3);
   }
   const float sigma = fmaxf(__fmul_rn(1.4826f, med), 1e-4f);

@@ -32,6 +32,8 @@ BUILD_DIR = os.path.join(_DIR, "_build")
 SOURCES = ["image.cu", "fast.cu", "orb.cu", "hamming.cu", "lines_tile.cu",
            "lines_label.cu", "lines_segments.cu", "lbd.cu", "pose_gn.cu",
            "slam.cu", "lba.cu", "bow.cu", "pose_graph.cu", "remap.cu"]
+# headers the sources include: part of the library's hash
+HEADERS = ["radix_select.cuh"]
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC"]
 
@@ -53,7 +55,7 @@ _SIGNATURES: Dict[str, str] = {
     "lines_refit": "pppppppppiiifff",
     "lines_merge": "ppppppppiifffi",
     "lbd_describe": "ppppppppiiiiiiiff",
-    "pose_gn_iters": "pppppppppiiiiiffff",
+    "pose_gn_optimize": "p" * 15 + "i" * 7 + "f" * 7,
     "kf_scan": "p" * 21 + "iiifff",
     "medoid": "pppii",
     "lba_terms": "p" * 21 + "iiiii" + "fffff",
@@ -80,7 +82,7 @@ KERNEL_FUNCTIONS = (
     "orb_describe_kernel", "dist_kernel", "col_argmin_kernel",
     "row_match_kernel", "hamming_scan_kernel", "hamming_finish_kernel",
     "sobel_kernel", "block_moments", "window_moments", "label_kernel",
-    "refit_kernel", "merge_kernel", "lbd_kernel", "pose_gn_kernel",
+    "refit_kernel", "merge_kernel", "lbd_kernel", "pose_optimize_kernel",
     "kf_scan_kernel", "medoid_kernel", "terms_kernel",
     "camera_kernel", "lba_index_kernel", "bin_index_kernel",
     "schur_kernel", "backsub_kernel", "bow_descend_kernel", "bow_hist_kernel",
@@ -121,7 +123,7 @@ def _nvcc() -> str:
 
 def _lib_path() -> str:
     h = hashlib.sha1()
-    for s in SOURCES:
+    for s in SOURCES + HEADERS:
         with open(os.path.join(_CSRC, s), "rb") as f:
             h.update(f.read())
     h.update(" ".join(NVCC_FLAGS).encode())

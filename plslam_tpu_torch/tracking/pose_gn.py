@@ -3,14 +3,15 @@
 Port of ``plslam_tpu/tracking/pose_gn.py`` (``point_terms_rj``,
 ``line_terms_rj``, ``_weights``, ``_assemble_normal_eqs``,
 ``optimize_pose``): every tensor carries a leading B axis (the frame pairs
-of a chunk). The GN iterations of a phase (K13) are one launch of kernel I
-(``csrc/pose_gn.cu``) on CUDA tensors: residuals, Jacobians, the joint
-lower-median MAD scale, t-student weights, the 6x6 normal equations, the
-damped solve and the exp update of all B pairs, every iteration of the
-phase inside the kernel. ``gn_iters_plain`` (f32 ``einsum``s and batched
-``torch.linalg`` solves) is its plain version, used only for CPU tensors.
-The outlier gate, covariance and gates stay torch. ``optimize_pose_lm`` is
-not ported yet.
+of a chunk). On CUDA tensors ``optimize_pose`` (K13) is one launch of
+kernel I (``csrc/pose_gn.cu``) for all B pairs: both GN phases (residuals,
+Jacobians, the joint lower-median MAD scale, t-student weights, the 6x6
+normal equations, the damped solve and the exp update, every iteration),
+the outlier gate, the final statistics, the covariance and the gates.
+``gn_iters`` launches the same kernel's phase-only form. Their plain
+versions, ``optimize_pose_plain`` and ``gn_iters_plain`` (f32 ``einsum``s
+and batched ``torch.linalg`` solves), run only for CPU tensors.
+``optimize_pose_lm`` is not ported yet.
 
 Residual/Jacobian conventions (left-multiplicative perturbation, twist
 ordering (v, w) as in core.lie):
@@ -143,45 +144,87 @@ def gn_iters_plain(T: torch.Tensor, cam: StereoCamera, pts: PointTerms,
     return T
 
 
-def gn_iters(T: torch.Tensor, cam: StereoCamera, pts: PointTerms,
-             lns: LineTerms, n_iters: int) -> torch.Tensor:
-    """``n_iters`` robust GN iterations (B, 4, 4) -> (B, 4, 4) on the terms
-    whose ``valid`` is set: one launch of kernel I for a CUDA tensor."""
-    if n_iters <= 0:
-        return T
-    if T.device.type == "cpu":
-        return gn_iters_plain(T, cam, pts, lns, n_iters)
+# dynamic shared memory a block of kernel I may take: 4 bytes a key
+# (K + 2L) and a byte a mask (K + L), beside its ~18 KB of static shared
+# memory, within the H100's 227 KB a block
+_GN_SMEM_MAX = 200 * 1024
+
+
+def _launch_gn(T: torch.Tensor, cam: StereoCamera, pts: PointTerms,
+               lns: LineTerms, n_iters: int, n_ref: int,
+               tcfg) -> Tuple[torch.Tensor, ...]:
+    """One launch of kernel I: ``tcfg`` None is the phase-only form (the
+    pose after ``n_iters`` iterations), else the whole optimize_pose."""
     B, K = pts.valid.shape
     L = lns.valid.shape[1]
-    S = 1 << max(K + 2 * L - 1, 1).bit_length()
-    if S > 8192:
-        raise ValueError(f"pose_gn_iters: {K} + 2 x {L} terms exceed 8192")
+    smem = 4 * (K + 2 * L) + K + L
+    if smem > _GN_SMEM_MAX:
+        raise ValueError(f"pose_gn_optimize: {K} point and {L} line terms "
+                         f"need {smem} bytes of shared memory a block, more "
+                         f"than {_GN_SMEM_MAX}")
     f = lambda x: x.to(torch.float32).contiguous()
-    u8 = lambda x: x.to(torch.uint8).contiguous()
+    # a bool mask is bytes of 0 or 1 already: viewed, not copied
+    u8 = lambda x: (x.contiguous().view(torch.uint8) if x.dtype == torch.bool
+                    else x.to(torch.uint8).contiguous())
     args = (f(T), f(pts.P), f(pts.uv_obs), u8(pts.valid), f(lns.sP),
             f(lns.eP), f(lns.le_obs), u8(lns.valid))
     for name, t, shape in zip(("T", "P", "uv", "valid", "sP", "eP", "le",
                                "line valid"), args,
                               ((B, 4, 4), (B, K, 3), (B, K, 2), (B, K),
                                (B, L, 3), (B, L, 3), (B, L, 3), (B, L))):
-        native.require(t, f"pose_gn_iters {name}", t.dtype, shape)
-    out = torch.empty((B, 4, 4), dtype=torch.float32, device=T.device)
-    native.launch("pose_gn_iters", *args, out, B, K, L, S, int(n_iters),
-                  cam.fx, cam.fy, cam.cx, cam.cy)
-    return out
+        native.require(t, f"pose_gn_optimize {name}", t.dtype, shape)
+    dev = T.device
+    outs = [torch.empty((B, 4, 4), dtype=torch.float32, device=dev)]
+    gates = (0, 0.0, 0.0, 0.0)
+    if tcfg is not None:
+        outs += [torch.empty((B, 6, 6), dtype=torch.float32, device=dev),
+                 torch.empty((B,), dtype=torch.int32, device=dev),
+                 torch.empty((B,), dtype=torch.float32, device=dev),
+                 torch.empty((B, K), dtype=torch.bool, device=dev),
+                 torch.empty((B, L), dtype=torch.bool, device=dev),
+                 torch.empty((B,), dtype=torch.bool, device=dev)]
+        gates = (int(tcfg.min_features), float(tcfg.inlier_k),
+                 float(tcfg.min_inlier_ratio), float(tcfg.max_optim_error))
+    native.launch("pose_gn_optimize", *args, *outs, *(None,) * (7 - len(outs)),
+                  B, K, L, int(n_iters), int(n_ref), int(tcfg is not None),
+                  gates[0], cam.fx, cam.fy, cam.cx, cam.cy, *gates[1:])
+    return tuple(outs)
 
 
-def optimize_pose(T0: torch.Tensor, cam: StereoCamera, pts: PointTerms,
-                  lns: Optional[LineTerms], cfg: SlamConfig) -> PoseResult:
-    """optimizePose: robust GN -> outlier cut -> refinement -> gates,
-    for B independent problems at once. ``lns=None`` is the points-only
-    configuration (zero-capacity line terms)."""
+def gn_iters(T: torch.Tensor, cam: StereoCamera, pts: PointTerms,
+             lns: LineTerms, n_iters: int) -> torch.Tensor:
+    """``n_iters`` robust GN iterations (B, 4, 4) -> (B, 4, 4) on the terms
+    whose ``valid`` is set: one launch of kernel I's phase-only form for a
+    CUDA tensor."""
+    if n_iters <= 0:
+        return T
+    if T.device.type == "cpu":
+        return gn_iters_plain(T, cam, pts, lns, n_iters)
+    return _launch_gn(T, cam, pts, lns, n_iters, 0, None)[0]
+
+
+def final_normal_eqs(T: torch.Tensor, cam: StereoCamera, pts: PointTerms,
+                     lns: LineTerms) -> Tuple[torch.Tensor, ...]:
+    """optimize_pose's final statistics at ``T`` on the inlier terms (their
+    ``valid``): the weighted H (B, 6, 6) and the robust sse (B,)."""
+    r_pt, J_pt, n_pt = point_terms_rj(T, cam, pts)
+    r_ln, J_ln, a_ln = line_terms_rj(T, cam, lns)
+    w_pt, w_ln, _ = _weights(n_pt, pts.valid, a_ln, lns.valid)
+    H, _ = _assemble_normal_eqs(r_pt, J_pt, w_pt, r_ln, J_ln, w_ln)
+    sse = (torch.sum(w_pt * n_pt ** 2, dim=-1)
+           + torch.sum(w_ln * a_ln ** 2, dim=(-2, -1)))
+    return H, sse
+
+
+def optimize_pose_plain(T0: torch.Tensor, cam: StereoCamera,
+                        pts: PointTerms, lns: Optional[LineTerms],
+                        cfg: SlamConfig) -> PoseResult:
     tcfg = cfg.tracking
     if lns is None:
         lns = _no_lines(pts)
     damp = _DAMP * torch.eye(6, dtype=T0.dtype, device=T0.device)
 
-    T1 = gn_iters(T0, cam, pts, lns, tcfg.max_iters)
+    T1 = gn_iters_plain(T0, cam, pts, lns, tcfg.max_iters)
 
     # outlier gate on the robust scale, floored at a quarter pixel
     _, _, n_pt = point_terms_rj(T1, cam, pts)
@@ -195,18 +238,14 @@ def optimize_pose(T0: torch.Tensor, cam: StereoCamera, pts: PointTerms,
     inlier_ln = lns.valid & torch.all(
         a_ln < tcfg.inlier_k * sigma[:, None, None], dim=-1)
 
-    T2 = gn_iters(T1, cam, pts._replace(valid=inlier_pt),
-                  lns._replace(valid=inlier_ln), tcfg.max_iters_ref)
+    pts_in = pts._replace(valid=inlier_pt)
+    lns_in = lns._replace(valid=inlier_ln)
+    T2 = gn_iters_plain(T1, cam, pts_in, lns_in, tcfg.max_iters_ref)
 
     # final statistics, covariance, gates (isGoodSolution)
-    r_pt, J_pt, n_pt = point_terms_rj(T2, cam, pts._replace(valid=inlier_pt))
-    r_ln, J_ln, a_ln = line_terms_rj(T2, cam, lns._replace(valid=inlier_ln))
-    w_pt, w_ln, _ = _weights(n_pt, inlier_pt, a_ln, inlier_ln)
-    H, _ = _assemble_normal_eqs(r_pt, J_pt, w_pt, r_ln, J_ln, w_ln)
+    H, sse = final_normal_eqs(T2, cam, pts_in, lns_in)
     n_inl = (inlier_pt.sum(-1) + inlier_ln.sum(-1)).to(torch.int32)
     n_res = 2.0 * n_inl.to(torch.float32)
-    sse = (torch.sum(w_pt * n_pt ** 2, dim=-1)
-           + torch.sum(w_ln * a_ln ** 2, dim=(-2, -1)))
     sigma2 = sse / torch.clamp(n_res - 6.0, min=1.0)
     cov = sigma2[:, None, None] * torch.linalg.inv_ex(H + damp)[0]
     err = torch.sqrt(sse / torch.clamp(n_res, min=1.0))
@@ -217,3 +256,17 @@ def optimize_pose(T0: torch.Tensor, cam: StereoCamera, pts: PointTerms,
             & torch.all(torch.isfinite(T2).flatten(-2), dim=-1)
             & lie.is_valid_rotation(T2[..., :3, :3]))
     return PoseResult(T2, cov, n_inl, err, inlier_pt, inlier_ln, good)
+
+
+def optimize_pose(T0: torch.Tensor, cam: StereoCamera, pts: PointTerms,
+                  lns: Optional[LineTerms], cfg: SlamConfig) -> PoseResult:
+    """optimizePose: robust GN -> outlier cut -> refinement -> gates,
+    for B independent problems at once: one launch of kernel I for a CUDA
+    tensor. ``lns=None`` is the points-only configuration (zero-capacity
+    line terms)."""
+    if T0.device.type == "cpu":
+        return optimize_pose_plain(T0, cam, pts, lns, cfg)
+    tcfg = cfg.tracking
+    return PoseResult(*_launch_gn(T0, cam, pts,
+                                  _no_lines(pts) if lns is None else lns,
+                                  tcfg.max_iters, tcfg.max_iters_ref, tcfg))

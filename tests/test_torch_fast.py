@@ -4,7 +4,11 @@ Given the reference's own pyramid level as input, the port's plain
 versions reproduce the corner masks, the SAD score, and the selected
 keypoints (uv, score, valid) EXACTLY: the score is subtract/compare/max/
 add in the same tap order, and every top-k is a stable descending sort,
-which is ``lax.top_k``'s tie order (lower index first).
+which is ``lax.top_k``'s tie order (lower index first). The NMS kernel's
+block reduction (a column's rows in order, then a shuffle tree over the 8
+columns on (value, index) pairs) and its 8-output window max are emulated
+in numpy and held against torch, the reference's block argmax and a
+direct max.
 """
 
 import jax
@@ -219,3 +223,90 @@ def test_signbit_identities_on_ties_zeros_and_subnormals():
                 acc = f32(0) + got
                 np.testing.assert_array_equal(
                     acc.view(np.int32), (f32(0) + ref).view(np.int32))
+
+
+# -- the NMS kernel's block max and window max (csrc/fast.cu), on the CPU --
+
+def _kernel_block_argmax(v):
+    """nms_block_kernel's reduction of 8x8 blocks (n, 8, 8): lane c takes
+    column c's rows in order (strict >: the first row), then lanes meet in
+    a __shfl_xor_sync tree (1, 2, 4): the larger value wins, an equal value
+    keeps the lower index."""
+    n = v.shape[0]
+    lane_v = np.full((n, 8), -np.inf, np.float32)
+    lane_q = np.tile(np.arange(8), (n, 1))
+    for k in range(8):
+        take = v[:, k, :] > lane_v
+        lane_v = np.where(take, v[:, k, :], lane_v)
+        lane_q = np.where(take, k * 8 + np.arange(8), lane_q)
+    for d in (1, 2, 4):
+        ov, oq = lane_v[:, np.arange(8) ^ d], lane_q[:, np.arange(8) ^ d]
+        take = (ov > lane_v) | ((ov == lane_v) & (oq < lane_q))
+        lane_v, lane_q = np.where(take, ov, lane_v), np.where(take, oq,
+                                                              lane_q)
+    assert (lane_v == lane_v[:, :1]).all() and (lane_q == lane_q[:, :1]).all()
+    return lane_v[:, 0], lane_q[:, 0]
+
+
+def _jax_block_argmax(v):
+    """select_topk_grid's block max + argmax (plslam_tpu/ops/fast.py:152-
+    163): a row's first maximum, then the first row with the maximum."""
+    x = jnp.asarray(v)
+    rmax, rarg = jnp.max(x, axis=-1), jnp.argmax(x, axis=-1)
+    brow = jnp.argmax(rmax, axis=-1)
+    col = jnp.take_along_axis(rarg, brow[:, None], axis=-1)[:, 0]
+    return np.asarray(jnp.max(rmax, axis=-1)), np.asarray(brow * 8 + col)
+
+
+def test_block_argmax_pair_rule_is_the_first_argmax():
+    """Tied maxima anywhere in a block, all zeros (0, index 0), all -inf
+    (padding: -inf, index 0), kept and unkept pixels beside padding: the
+    tree's pairs give torch.max's and the reference's first argmax."""
+    rng = np.random.default_rng(3)
+    blocks = [np.zeros((8, 8)), np.full((8, 8), -np.inf)]
+    for _ in range(300):
+        b = rng.integers(0, 3, (8, 8)).astype(np.float64) * 0.5
+        if rng.random() < 0.5:                 # padding on the right/bottom
+            b[:, rng.integers(1, 8):] = -np.inf
+        if rng.random() < 0.3:
+            b[rng.integers(1, 8):, :] = -np.inf
+        blocks.append(b)
+    for _ in range(100):                       # one to four tied maxima
+        b = np.where(rng.random((8, 8)) < 0.8, 0.0, rng.random((8, 8)))
+        peak = rng.integers(0, 64, rng.integers(1, 5))
+        b.flat[peak] = 2.0
+        blocks.append(b)
+    v = np.stack(blocks).astype(np.float32)
+    got_v, got_q = _kernel_block_argmax(v)
+    ref_v, ref_q = torch.max(torch.from_numpy(v).reshape(-1, 64), dim=-1)
+    jv, jq = _jax_block_argmax(v)
+    np.testing.assert_array_equal(got_v, ref_v.numpy())
+    np.testing.assert_array_equal(got_q, ref_q.numpy())
+    np.testing.assert_array_equal(got_v, jv)
+    np.testing.assert_array_equal(got_q, jq)
+    assert got_q[1] == 0 and got_v[1] == -np.inf and got_q[0] == 0
+
+
+def _window_max8(v, R):
+    """window_max8<R>: 8 windows of 2R + 1 from 8 + 2R values, by the
+    values all windows share, suffix maxima to their left and prefix
+    maxima to their right (fmaxf on -inf and ties)."""
+    left = [None] * 8
+    left[7] = v[7:2 * R + 1].max()
+    for j in range(6, -1, -1):
+        left[j] = max(v[j], left[j + 1])
+    out, right = [left[0]], -np.inf
+    for j in range(1, 8):
+        right = max(right, v[2 * R + j])
+        out.append(max(left[j], right))
+    return np.array(out, np.float32)
+
+
+@pytest.mark.parametrize("R", [4, 5, 8, 16])
+def test_window_max8_is_the_window_max(R):
+    rng = np.random.default_rng(R)
+    for _ in range(200):
+        v = rng.integers(0, 4, 8 + 2 * R).astype(np.float32)
+        v[rng.random(8 + 2 * R) < 0.3] = -np.inf
+        want = np.array([v[j:j + 2 * R + 1].max() for j in range(8)])
+        np.testing.assert_array_equal(_window_max8(v, R), want)

@@ -111,6 +111,31 @@ def test_fast_score_exact_at_level_shapes(cuda, shape):
             assert torch.equal(g, r)
 
 
+@pytest.mark.parametrize("radius", [3, 5, 7])
+def test_nms_block_max_ties_radii_alignment(cuda, radius):
+    """nms_block_max exactly equal to its plain version at the four level
+    shapes (no width a multiple of 4): scores of few values (tied maxima
+    in a block and in the NMS windows), the path's radius and the run-time
+    radius path, and a score plane at an address that is not 16-byte
+    aligned (the kernel's scalar loads)."""
+    rng = np.random.default_rng(radius)
+    for H, W in ((376, 1241), (313, 1034), (261, 862), (218, 718)):
+        score = torch.from_numpy(rng.integers(0, 4, (2, H, W)).astype(
+            np.float32) / 4).to(cuda)
+        chi = torch.from_numpy(rng.random((2, H, W)) < 0.3).to(cuda)
+        clo = chi | torch.from_numpy(rng.random((2, H, W)) < 0.3).to(cuda)
+        cell_h, cell_w = fast._grid_dims(H, W, 8, 16)
+        Hb, Wb = cell_h, cell_w * 2
+        odd = torch.empty(score.numel() + 1, device=cuda)[1:].view(
+            score.shape).copy_(score)
+        want = fast.nms_block_max_plain(score, chi, clo, radius, 16, Hb, Wb)
+        for s in (score, odd):
+            got = _launched("fast_nms_block", lambda: fast.nms_block_max(
+                s, chi, clo, radius, 16, Hb, Wb))
+            for g, r in zip(got, want):
+                assert torch.equal(g, r)
+
+
 @pytest.mark.parametrize("radius", [3, 7])
 def test_sep_filter_one_launch(cuda, radius):
     """image_sep_filter, one launch a call, at r = 3 (the blur) and r = 7
@@ -478,11 +503,55 @@ def test_pose_gn_kernel(cuda, L):
     cam, pts, lns = _gn_problems(5, 300, L, seed=L)
     dev = lambda nt: type(nt)(*(x.to(cuda) for x in nt))
     T0 = torch.eye(4).expand(5, 4, 4).to(cuda)
-    got = _launched("pose_gn_iters", lambda: pose_gn.gn_iters(
+    got = _launched("pose_gn_optimize", lambda: pose_gn.gn_iters(
         T0, cam, dev(pts), dev(lns), 6))
     ref = pose_gn.gn_iters_plain(T0, cam, dev(pts), dev(lns), 6)
     assert float((got - ref).abs().max()) <= 1e-5
     assert float((ref - T0).abs().max()) > 1e-2          # it moved
+
+
+@pytest.mark.parametrize("L", [0, 32])
+def test_pose_gn_phase_bit_equal_to_bitonic_kernel(cuda, L):
+    """Kernel I's phase-only form keeps the arithmetic of the bitonic-sort
+    kernel it replaced (the same terms, order of summation, solve and
+    update; the median exact either way): on test_pose_gn_kernel's
+    problems its 6 iterations give that kernel's saved poses
+    (tests/data/pose_gn_phase_bitonic.npz, written on the H100) to the
+    bit."""
+    import os
+    from plslam_tpu_torch.tracking import pose_gn
+    saved = np.load(os.path.join(os.path.dirname(__file__), "data",
+                                 "pose_gn_phase_bitonic.npz"))[f"T_L{L}"]
+    cam, pts, lns = _gn_problems(5, 300, L, seed=L)
+    dev = lambda nt: type(nt)(*(x.to(cuda) for x in nt))
+    T0 = torch.eye(4).expand(5, 4, 4).to(cuda)
+    got = _launched("pose_gn_optimize", lambda: pose_gn.gn_iters(
+        T0, cam, dev(pts), dev(lns), 6))
+    assert torch.equal(got.cpu(), torch.from_numpy(saved))
+
+
+@pytest.mark.parametrize("B,L", [(20, 128), (20, 0), (1, 128)])
+def test_optimize_pose_one_launch(cuda, B, L):
+    """Kernel I's whole optimize_pose (K13) is one launch, held against
+    optimize_pose_plain on the card by chip_smoke.py's rule (hold_pose): T
+    within 1e-5; the covariance and err within 3x the plain version's
+    distance from their float64 values (the plain version's statistics
+    run in float64 from its pose and inliers) + 1e-5 of those values; the
+    decisions exactly equal or within 1e-4 of their threshold."""
+    from chip_smoke import gn_inputs, hold_pose, pose_margins
+    from plslam_tpu_torch.config import SlamConfig
+    from plslam_tpu_torch.tracking import pose_gn
+    cfg = SlamConfig()
+    cam, pts, lns = gn_inputs(cuda, B, 1024, L, seed=B + L)
+    lns = lns if L else None
+    T0 = torch.eye(4, device=cuda).expand(B, 4, 4)
+    margins, ref, H, sse = pose_margins(T0, cam, pts, lns, cfg)
+    got = _launched("pose_gn_optimize", lambda: pose_gn.optimize_pose(
+        T0, cam, pts, lns, cfg))
+    errs, _, _, _ = hold_pose(got, ref, margins, H, sse)
+    assert errs[0] <= 1e-5 and errs[1] <= 1.0 and errs[2] <= 1.0
+    assert errs[3] == 0
+    assert bool(ref.good.all())
 
 
 def test_kf_scan_kernel(cuda):
