@@ -20,7 +20,8 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
      pyramid levels; K=1024), D's
      matcher (hamming_scan + hamming_finish) under the stereo gate and
      the f2f window at 20 x 1024 x 1024, the line kernels E-H at both
-     detector scales and D under a mask at 20 x 128 x 128, then I (K13:
+     detector scales (G also as the whole refit_roots and merge_segments
+     calls) and D under a mask at 20 x 128 x 128, then I (K13:
      its phase-only form, a GN phase of 20 pairs with and without lines;
      the whole optimize_pose, one launch, at 20 pairs with and without
      lines, the lite pass and one pair, every PoseResult field held: T,
@@ -82,11 +83,12 @@ own 201-frame scene through the loop path on each device named and
 compares their keyframe decisions (``bench_slam_scene``).
 ``python3 chip_smoke.py --against DIR`` holds this tree's level-0 blur,
 ORB's moment pair, FAST score, resize, LBA terms, scale and cost, K13's
-GN phase and whole optimize_pose at 20 pairs and K2's NMS block max at
-level 0 against those of another checkout at DIR (for example a ``git
-archive`` of the parent commit): outputs and device times (K13 and K2 also
-every device kernel's, torch's too), and the device kernels of one point
-front end (``against``).
+GN phase and whole optimize_pose at 20 pairs, K2's NMS block max at
+level 0 and kernel G (refit_roots and merge_segments at both detector
+scales) against those of another checkout at DIR (for example a ``git
+archive`` of the parent commit): outputs and device times (K13, K2 and G
+also every device kernel's, torch's too; G also the wrapper's), and the
+device kernels of one point front end (``against``).
 
 Imports nothing of JAX and nothing of the JAX package.
 """
@@ -689,40 +691,79 @@ def detector_case(record, img, kw, tag, min_ok_per_image):
            nt * (1 + 5 * 4 + 4), nt * (4 * 12 + iters * 10),
            entry="lines_label")
 
-    # G launch 1: refit of the top-R roots; work is the walks over the
-    # labels of the real roots (2 compares per tile each) and the members'
-    # 7-float sums and projections. Endpoints in px: the image-centre
-    # moments cancel in f32, so summation order moves them by ~0.01 px;
-    # scores (support masses) relative to the largest
+    # G launch 1: refit of the top-R roots, linear in the tiles: the labels
+    # are read once, the 12 member planes (and tile_ok) of the member tiles
+    # only, the root ids and the outputs once; 2 ops a tile for its slot,
+    # ~80 a member (payload, sums, projection), ~60 a slot. Endpoints in
+    # px: the image-centre moments cancel in f32, so summation order
+    # (the plain version's index_add_ on the card is atomic) moves them by
+    # ~0.01 px; scores (support masses) relative to the largest
     ts = lines.TileStage(lab_ref, gates[0], *S[:6], gates[2], gates[3],
                          gates[6], gates[7], gates[8])
     len_th = min(0.75 * tile + s, kw["min_length"])
-    rargs = lines.refit_inputs(ts, H, W, kw["max_lines"])
-    got = lines.refit(*rargs, H, W, len_th)
+    ml = kw["max_lines"]
+    rargs = lines.refit_inputs(ts, H, W, ml)
+    root_id = rargs[0]
+    got = lines.refit(ts, root_id, H, W, len_th)
     ref = lines.refit_plain(*rargs, H, W, len_th)
-    root_id, lab_f = rargs[0], rargs[1]
-    R, n = root_id.shape[1], lab_f.shape[1]
+    R, n = root_id.shape[1], Th * Tw
     n_roots = int((root_id >= 0).sum())
-    n_members = int((lab_f < n).sum())
+    is_root_id = torch.zeros((N, n + 1), dtype=torch.bool, device=dev)
+    is_root_id.scatter_(1, torch.where(root_id >= 0, root_id.long(), n),
+                        True)
+    is_root_id[:, n] = False
+    lab_f = lab_ref.reshape(N, n).long()
+    n_members = int(is_root_id.gather(1, torch.where(lab_f < n, lab_f, n)
+                                      ).sum())
     seg = ref[2] > 0
     check(torch.equal(got[2] > 0, seg), f"refit{tag}: kernel and plain "
           "disagree on which root slots are segments")
     smax = ref[2].abs().max()
+    refit_bytes = N * n * 4 + N * R * 4 + n_members * (12 * 4 + 1) \
+        + N * R * 5 * 4
+    refit_ops = N * n * 2 + n_members * 80 + N * R * 60
     record("lines_refit" + tag, src_s, "plslam_tpu/ops/lines.py:474",
            [got[0][seg], got[1][seg], got[2] / smax],
            [ref[0][seg], ref[1][seg], ref[2] / smax], [0.05, 0.05, 1e-5],
-           lambda: lines.refit(*rargs, H, W, len_th),
+           lambda: lines.refit(ts, root_id, H, W, len_th),
            lambda: lines.refit_plain(*rargs, H, W, len_th),
-           N * n * (4 + 7 * 4 + 3 * 4) + N * R * (4 + 5 * 4),
-           2 * n * n_roots + 20 * n_members, entry="lines_refit",
+           refit_bytes, refit_ops, entry="lines_refit",
            err_kind="sp, ep in px; score relative to the largest")
 
-    # G launch 2: merge of the 2 * max_lines candidates; M^2 pair tests
-    # (~15 ops), iters x M^2 label reads, 2 M^2 refit walks per image
-    top_s, top_i = lines.top_k(ref[2], 2 * kw["max_lines"])
-    sp_c, ep_c = lines.take(ref[0], top_i), lines.take(ref[1], top_i)
+    # the whole public call: root ids (key, stable sort), the launch, the
+    # candidate top_k and takes; plain: the torch glue + refit_plain
+    M = 2 * ml
+    min_len = kw["min_length"]
+
+    def roots_plain():
+        sp_p, ep_p, sc_p = lines.refit_plain(
+            *lines.refit_inputs(ts, H, W, ml), H, W, len_th)
+        c_s, c_i = lines.top_k(sc_p, M)
+        return lines.take(sp_p, c_i), lines.take(ep_p, c_i), c_s
+
+    got = lines.refit_roots(ts, H, W, tile, ml, min_len)
+    ref = roots_plain()
+    cand = ref[2] > 0
+    check(torch.equal(got[2] > 0, cand), f"refit_roots{tag}: kernel and "
+          "plain disagree on the candidates")
+    record("refit_roots" + tag, "plslam_tpu_torch/ops/lines.py",
+           "plslam_tpu/ops/lines.py:474",
+           [got[0][cand], got[1][cand], got[2] / smax],
+           [ref[0][cand], ref[1][cand], ref[2] / smax], [0.05, 0.05, 1e-5],
+           lambda: lines.refit_roots(ts, H, W, tile, ml, min_len),
+           roots_plain, refit_bytes + N * n * 5, refit_ops + N * n * 2,
+           entry="lines_refit",
+           err_kind="sp, ep in px; score relative to the largest")
+
+    # G launch 2: merge of the 2 * max_lines candidates, which the kernel
+    # compacts to the valid ones: their table (~60 ops a segment) and
+    # refit (~30), and the pair tests of this run's valid candidates (~16
+    # ops: both directions and their AND); the sweeps over the set bits
+    # are small. Its inputs: the plain refit's candidates (the contiguous
+    # scores); the whole call below takes refit_roots's as detect_segments
+    # passes them
+    sp_c, ep_c, top_s = (x.contiguous() for x in ref)
     valid_c = top_s > 0
-    M = sp_c.shape[1]
     margs = (sp_c, ep_c, top_s, valid_c, 2.0 * ang_th, dist_th,
              kw["merge_gap_th"])
     got = lines.merge_segments(*margs)
@@ -730,15 +771,42 @@ def detector_case(record, img, kw, tag, min_ok_per_image):
     ref = lines.merge_plain(table, valid_c, *margs[4:], 8)
     root = ref[4]
     check(int(root.sum()) >= N, f"too few merged segments{tag}")
+
+    def merge_work(valid):
+        per_image = valid.sum(1)
+        return (N * M * (5 * 4 + 1) + N * M * (4 * 4 + 4 + 4 + 1 + 4),
+                int((per_image * per_image).sum()) * 16
+                + int(per_image.sum()) * (60 + 30))
+
+    merge_tols = [0.0, 0.0, 1e-2, 1e-2, 1e-2]
+    merge_kind = "roots, labels exact; sp, ep in px; angle in rad"
     record("lines_merge" + tag, src_s, "plslam_tpu/ops/lines.py:214",
            [got[4], got[5], got[0][root], got[1][root], got[2][root]],
            [ref[4], ref[5], ref[0][root], ref[1][root], ref[2][root]],
-           [0.0, 0.0, 1e-2, 1e-2, 1e-2],
-           lambda: lines.merge_segments(*margs),
+           merge_tols, lambda: lines.merge_segments(*margs),
            lambda: lines.merge_plain(table, valid_c, *margs[4:], 8),
-           N * M * (13 * 4 + 1) + N * M * (4 * 4 + 4 + 4 + 1 + 4),
-           N * M * M * (15 + 8 + 4), entry="lines_merge",
-           err_kind="roots, labels exact; sp, ep in px; angle in rad")
+           *merge_work(valid_c), entry="lines_merge", err_kind=merge_kind)
+
+    # the whole public call as detect_segments makes it: refit_roots's
+    # candidates, its scores a strided view; plain: _segment_table +
+    # merge_plain on the same candidates
+    c_sp, c_ep, c_s = lines.refit_roots(ts, H, W, tile, ml, min_len)
+    c_v = c_s > 0
+    pargs = (2.0 * ang_th, dist_th, kw["merge_gap_th"])
+    got = lines.merge_segments(c_sp, c_ep, c_s, c_v, *pargs)
+    ref = lines.merge_plain(lines._segment_table(c_sp, c_ep, c_s, c_v), c_v,
+                            *pargs, 8)
+    root = ref[4]
+    record("merge_segments" + tag, "plslam_tpu_torch/ops/lines.py",
+           "plslam_tpu/ops/lines.py:214",
+           [got[4], got[5], got[0][root], got[1][root], got[2][root]],
+           [ref[4], ref[5], ref[0][root], ref[1][root], ref[2][root]],
+           merge_tols, lambda: lines.merge_segments(c_sp, c_ep, c_s, c_v,
+                                                    *pargs),
+           lambda: lines.merge_plain(lines._segment_table(c_sp, c_ep, c_s,
+                                                          c_v), c_v,
+                                     *pargs, 8),
+           *merge_work(c_v), entry="lines_merge", err_kind=merge_kind)
     print(f"[lines{tag}] gated-in tiles {n_ok} of {nt}, real roots "
           f"{n_roots}, candidate segments {int(valid_c.sum())}, merged "
           f"roots {int(root.sum())} over {N} images", flush=True)
@@ -2901,11 +2969,15 @@ def against_side(root: str, out_path: str) -> None:
     half-resolution shapes, the LBA's terms, scale and cost on
     ``lba_window_problem``, the GN phase (8 iterations) and the whole
     optimize_pose at 20 x (1024 points, 128 lines) (``gn_inputs``), the
-    NMS block max at level 0, and the device kernels (all of them, torch's
+    NMS block max at level 0, kernel G (``refit_roots`` on the TileStage
+    of the line scene's 40 images through kernels E and F, and
+    ``merge_segments`` on candidates of the plain refit on the CPU, at full
+    and half resolution), and the device kernels (all of them, torch's
     too) of one point front end (``detect_and_describe``) under
     torch.profiler; saves the outputs and each call's device time
-    (torch.profiler, the hand kernels; for K13 and K2 also every device
-    kernel's time and count, ``all_kernels``) to ``out_path``."""
+    (torch.profiler, the hand kernels; for K13, K2 and G also every device
+    kernel's time and count, ``all_kernels``; for G the wrapper's time,
+    CUDA events) to ``out_path``."""
     sys.path.insert(0, root)
     import torch
     from torch.autograd import DeviceType
@@ -2973,6 +3045,45 @@ def against_side(root: str, out_path: str) -> None:
                 score, chi, clo, 5, 16, 48, 160)))):
         res[key] = ([x.cpu() for x in fn()], device_ms(fn, iters=20),
                     *all_kernels(fn, iters=20))
+    # kernel G on the line scene's 40 images (kernel_phase's), full and
+    # half res, the TileStage through kernels E and F: refit_roots, then
+    # merge_segments on candidates from the plain refit on the CPU (the
+    # same on both trees)
+    from plslam_tpu_torch.frontend import stereo_lines
+    from plslam_tpu_torch.io import synthetic
+    from plslam_tpu_torch.ops import lines
+    seq = synthetic.make_sequence(cam, n_frames=20, seed=1, n_points=500,
+                                  n_lines=60, noise=0.003, step=0.25)
+    limgs = torch.from_numpy(np.concatenate([seq.images_l, seq.images_r])
+                             ).to(dev)
+    N, H, W = limgs.shape
+    for tag, img, half in (("", limgs, False), ("@half", image.resize_bilinear(
+            limgs, (H // 2, W // 2)), True)):
+        kw = stereo_lines.detect_kwargs(cfg.lines, half, math.hypot(H, W))
+        h, w = img.shape[1:]
+        tile, ml, min_len = kw["tile"], kw["max_lines"], kw["min_length"]
+        ts = lines.tile_stage(img, **{k: kw[k] for k in (
+            "tile", "grad_th", "min_support", "elong_th", "perp_spread_th",
+            "coherence_th", "merge_iters", "merge_ang_th", "merge_dist_th")})
+        len_th = min(0.75 * tile + tile // 2, min_len)
+        fn = lambda: list(lines.refit_roots(ts, h, w, tile, ml, min_len))
+        res["refit_roots" + tag] = ([x.cpu() for x in fn()],
+                                    device_ms(fn, iters=20),
+                                    *all_kernels(fn, iters=20),
+                                    cuda_ms(fn, 50))
+        cts = lines.TileStage(*(x.cpu() for x in ts))
+        sp_p, ep_p, sc_p = lines.refit_plain(
+            *lines.refit_inputs(cts, h, w, ml), h, w, len_th)
+        c_s, c_i = lines.top_k(sc_p, 2 * ml)
+        cand = [x.to(dev) for x in (lines.take(sp_p, c_i),
+                                    lines.take(ep_p, c_i), c_s)]
+        fn = lambda: list(lines.merge_segments(
+            *cand, cand[2] > 0, 2.0 * kw["merge_ang_th"],
+            kw["merge_dist_th"], kw["merge_gap_th"]))
+        res["merge_segments" + tag] = ([x.cpu() for x in fn()],
+                                       device_ms(fn, iters=20),
+                                       *all_kernels(fn, iters=20),
+                                       cuda_ms(fn, 50))
     detect_and_describe(images, cfg)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -3021,6 +3132,11 @@ def against(other: str) -> None:
                   f"call) this {[(f'{m:.4f}', n) for m, n in alls['this']]}"
                   f", other {[(f'{m:.4f}', n) for m, n in alls['other']]}",
                   flush=True)
+        if len(a[key]) > 4:     # the wrapper: CUDA events, host included
+            wr = {who: [f"{r[key][4]:.4f}" for w, r in runs if w == who]
+                  for who in ("other", "this")}
+            print(f"[against] {key}: wrapper ms this {wr['this']}, other "
+                  f"{wr['other']}", flush=True)
     sig_cost = [(r["lba_terms+sigma"][0][-2], r["lba_terms+sigma"][0][-1])
                 for _, r in runs[:2]]
     bits = [[x.view(torch.int32).item() for x in sc] for sc in sig_cost]

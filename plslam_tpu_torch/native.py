@@ -52,8 +52,8 @@ _SIGNATURES: Dict[str, str] = {
     "lines_sobel": "ppppppiiifi",
     "lines_moments": "pppppppiiiiii",
     "lines_label": "pppppppiiiffi",
-    "lines_refit": "pppppppppiiifff",
-    "lines_merge": "ppppppppiifffi",
+    "lines_refit": "p" * 17 + "iii" + "fff",
+    "lines_merge": "p" * 10 + "iii" + "fffi",
     "lbd_describe": "ppppppppiiiiiiiff",
     "pose_gn_optimize": "p" * 15 + "i" * 7 + "f" * 7,
     "kf_scan": "p" * 21 + "iiifff",

@@ -415,41 +415,54 @@ def refit_plain(root_id, lab, payload, cx, cy, he, H: int, W: int,
     return sp, ep, torch.where(seg_ok, mS, 0.0)
 
 
-def refit(root_id, lab, payload, cx, cy, he, H: int, W: int, len_th: float):
-    """Per root slot: sum the payload (S and image-centre moments, ones)
-    of its member tiles (label == root id), take the principal axis, and
-    the min/max projection of the members' centroids -+ their half-extent.
-    root_id (N, R) int32 (-1 empty), lab (N, n) int32, payload (N, n, 7),
-    cx, cy, he (N, n). Returns sp, ep (N, R, 2) and score (N, R), the
-    support mass where the segment is longer than ``len_th``, else 0."""
-    if lab.device.type == "cpu":
-        return refit_plain(root_id, lab, payload, cx, cy, he, H, W, len_th)
-    N, R = root_id.shape
-    n = lab.shape[1]
-    args = [root_id.to(torch.int32).contiguous(),
-            lab.to(torch.int32).contiguous(), payload.contiguous(),
-            cx.contiguous(), cy.contiguous(), he.contiguous()]
-    native.require(args[2], "refit payload", torch.float32, (N, n, 7))
-    for t in args[3:]:
-        native.require(t, "refit", torch.float32, (N, n))
+def refit(ts: TileStage, root_id: torch.Tensor, H: int, W: int,
+          len_th: float):
+    """Per root slot: sum the payload (S and image-centre moments, ones;
+    zero off the gates) of its member tiles (label == root id), take the
+    principal axis, and the min/max projection of the members' centroids
+    -+ their half-extent. root_id (N, R) int32 (-1 empty). Returns sp, ep
+    (N, R, 2) and score (N, R), the support mass where the segment is
+    longer than ``len_th``, else 0. On CUDA tensors one ``lines_refit``
+    launch reads the TileStage planes and builds the payload itself."""
+    if ts.labels.device.type == "cpu":
+        return refit_plain(root_id, *tile_payload(ts, H, W), H, W, len_th)
+    N, Th, Tw = ts.labels.shape
+    R = root_id.shape[1]
+    lab, ok = ts.labels.contiguous(), ts.tile_ok.contiguous()
+    native.require(lab, "refit labels", torch.int32, (N, Th, Tw))
+    native.require(ok, "refit tile_ok", torch.bool, (N, Th, Tw))
+    native.require(root_id, "refit root_id", torch.int32, (N, R))
+    planes = [p.contiguous() for p in ts[2:]]
+    for p in planes:
+        native.require(p, "refit", torch.float32, (N, Th, Tw))
     sp = torch.empty((N, R, 2), dtype=torch.float32, device=lab.device)
     ep = torch.empty_like(sp)
     score = torch.empty((N, R), dtype=torch.float32, device=lab.device)
-    native.launch("lines_refit", *args, sp, ep, score, N, R, n,
-                  0.5 * W, 0.5 * H, len_th)
+    native.launch("lines_refit", root_id, lab, ok, *planes, sp, ep, score,
+                  N, R, Th * Tw, 0.5 * W, 0.5 * H, len_th)
     return sp, ep, score
 
 
-def refit_inputs(ts: TileStage, H: int, W: int, max_lines: int):
-    """The refit's per-tile inputs: the top-R root ids by own-tile mass
-    (-1 empty; a stable sort, as ``lax.top_k``), the flat labels, the
-    payload (S and the moments shifted to the image centre, ones; zero
-    off the gates), the centroids and each tile's half-extent."""
+def root_ids(ts: TileStage, max_lines: int) -> torch.Tensor:
+    """The top-R root ids by own-tile mass, R = min(8 max_lines, n); -1
+    empty (a stable sort, as ``lax.top_k``). (N, R) int32."""
+    N, Th, Tw = ts.labels.shape
+    n = Th * Tw
+    lab = ts.labels.reshape(N, n)
+    ids = torch.arange(n, dtype=torch.int32, device=lab.device)
+    is_root = ts.tile_ok.reshape(N, n) & (lab == ids)
+    r_s, r_ids = top_k(torch.where(is_root, ts.S.reshape(N, n), -1.0),
+                       min(8 * max_lines, n))
+    return torch.where(r_s > 0, r_ids, -1).to(torch.int32)
+
+
+def tile_payload(ts: TileStage, H: int, W: int):
+    """The plain refit's per-tile inputs: the flat labels, the payload (S
+    and the moments shifted to the image centre, ones; zero off the
+    gates), the centroids and each tile's half-extent."""
     N, Th, Tw = ts.labels.shape
     n = Th * Tw
     flat = lambda a: a.reshape(N, n)
-    lab = flat(ts.labels)
-    valid_t = flat(ts.tile_ok)
     x0, y0 = 0.5 * W, 0.5 * H
     dxc = flat(ts.cx) - flat(ts.cx_l) - x0
     dyc = flat(ts.cy) - flat(ts.cy_l) - y0
@@ -460,21 +473,21 @@ def refit_inputs(ts: TileStage, H: int, W: int, max_lines: int):
         flat(ts.Syy) + 2.0 * dyc * fSy + dyc * dyc * fS,
         flat(ts.Sxy) + dyc * fSx + dxc * fSy + dxc * dyc * fS,
         torch.ones_like(fS)], dim=-1)
-    payload = torch.where(valid_t[..., None], payload, 0.0)
-    R = min(8 * max_lines, n)
-    ids = torch.arange(n, dtype=torch.int32, device=lab.device)
-    is_root = valid_t & (lab == ids)
-    r_s, r_ids = top_k(torch.where(is_root, fS, -1.0), R)
-    root_id = torch.where(r_s > 0, r_ids, -1).to(torch.int32)
+    payload = torch.where(flat(ts.tile_ok)[..., None], payload, 0.0)
     he = sqrt_rn(torch.clamp(12.0 * flat(ts.l1), min=0.0)) * 0.5
-    return root_id, lab, payload, flat(ts.cx), flat(ts.cy), he
+    return flat(ts.labels), payload, flat(ts.cx), flat(ts.cy), he
+
+
+def refit_inputs(ts: TileStage, H: int, W: int, max_lines: int):
+    """``refit_plain``'s arguments: the root ids and ``tile_payload``."""
+    return (root_ids(ts, max_lines),) + tile_payload(ts, H, W)
 
 
 def refit_roots(ts: TileStage, H: int, W: int, tile: int, max_lines: int,
                 min_length: float):
     """Top 2*max_lines candidate segments (sp, ep (N, M, 2), score (N, M);
     score 0 marks an empty slot) from the tile components."""
-    sp, ep, score = refit(*refit_inputs(ts, H, W, max_lines), H, W,
+    sp, ep, score = refit(ts, root_ids(ts, max_lines), H, W,
                           min(0.75 * tile + tile // 2, min_length))
     c_s, c_i = top_k(score, 2 * max_lines)
     return take(sp, c_i), take(ep, c_i), c_s
@@ -550,24 +563,33 @@ def merge_segments(sp, ep, score, valid, ang_th: float, dist_th: float,
     """Collinear segment-level merge of (N, M) candidates: compatibility
     (angle mod pi, mutual perpendicular midpoint offset, projection gap),
     ``iters`` sweeps of label-min propagation with a pointer hop, then a
-    support-weighted double-angle refit per root.
+    support-weighted double-angle refit per root. On CUDA tensors one
+    ``lines_merge`` launch, which builds the segment table itself.
 
     Returns (sp, ep (N, M, 2), angle, score (N, M), is_root, labels)."""
-    seg = _segment_table(sp, ep, score, valid)
     if sp.device.type == "cpu":
-        return merge_plain(seg, valid, ang_th, dist_th, gap_th, iters)
-    N, M, _ = seg.shape
-    seg = seg.contiguous()
-    vu8 = valid.to(torch.uint8).contiguous()
+        return merge_plain(_segment_table(sp, ep, score, valid), valid,
+                           ang_th, dist_th, gap_th, iters)
+    N, M = score.shape
+    sp, ep, valid = sp.contiguous(), ep.contiguous(), valid.contiguous()
+    if score.stride(-1) != 1:
+        score = score.contiguous()
+    for t in (sp, ep):
+        native.require(t, "merge_segments", torch.float32, (N, M, 2))
+    native.require(valid, "merge_segments valid", torch.bool, (N, M))
+    if score.dtype != torch.float32:
+        raise ValueError(f"merge_segments: expected float32 scores, got "
+                         f"{score.dtype}")
     sp_m = torch.empty((N, M, 2), dtype=torch.float32, device=sp.device)
     ep_m = torch.empty_like(sp_m)
     ang_m = torch.empty((N, M), dtype=torch.float32, device=sp.device)
     score_m = torch.empty_like(ang_m)
-    root = torch.empty((N, M), dtype=torch.uint8, device=sp.device)
+    root = torch.empty((N, M), dtype=torch.bool, device=sp.device)
     lab = torch.empty((N, M), dtype=torch.int32, device=sp.device)
-    native.launch("lines_merge", seg, vu8, sp_m, ep_m, ang_m, score_m, root,
-                  lab, N, M, ang_th, dist_th, gap_th, iters)
-    return sp_m, ep_m, ang_m, score_m, root.bool(), lab
+    native.launch("lines_merge", sp, ep, score, valid, sp_m, ep_m, ang_m,
+                  score_m, root, lab, N, M, score.stride(0), ang_th, dist_th,
+                  gap_th, iters)
+    return sp_m, ep_m, ang_m, score_m, root, lab
 
 
 def detect_segments(img: torch.Tensor, max_lines: int, tile: int = 16,

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where the time of the port's main path goes, on one CUDA card.
 
-    python3 profile_torch_vo.py [--reps N] [--no-lines | --slam]
+    python3 profile_torch_vo.py [--reps N] [--no-lines | --slam | --loops]
 
 The main path of ``chip_smoke.py``: the flagship point+line chunked VO
 (``plslam_tpu_torch.tracking.batch_vo.vo_chunk``) at the full width of

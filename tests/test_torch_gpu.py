@@ -14,6 +14,8 @@ import torch
 
 from plslam_tpu_torch import native
 from plslam_tpu_torch.ops import fast, hamming, image, lbd, lines, orb
+from torch_line_cases import (G_H, G_MERGE_CASES, G_REFIT_CASES, G_W,
+                              kernel_g_merge_case, kernel_g_stage, line_field)
 
 pytestmark = pytest.mark.gpu
 
@@ -219,27 +221,12 @@ def test_cuda_tensor_never_takes_the_plain_version(cuda):
                                         device=cuda), 1.0)
 
 
-def _line_field(seed, n=3, H=160, W=200, n_lines=8):
-    """Noise plus bright straight strips: line-detector inputs."""
-    rng = np.random.default_rng(seed)
-    img = rng.random((n, H, W)).astype(np.float32) * 0.06
-    for k in range(n):
-        for _ in range(n_lines):
-            x0, y0 = rng.uniform(10, W - 10), rng.uniform(10, H - 10)
-            th, L = rng.uniform(0, np.pi), rng.uniform(40, 120)
-            t = np.linspace(-L / 2, L / 2, int(3 * L))
-            xs = np.clip(x0 + t * np.cos(th), 0, W - 1).astype(int)
-            ys = np.clip(y0 + t * np.sin(th), 0, H - 1).astype(int)
-            img[k, ys, xs] = 1.0
-    return torch.from_numpy(img)
-
-
 def _rel_err(a, b):
     return float((a - b).abs().max() / b.abs().max().clamp(min=1e-30))
 
 
 def test_lines_sobel_and_moments(cuda):
-    x = _line_field(3)
+    x = line_field(3)
     got = _launched("lines_sobel", lambda: image.sobel_gradients(x.to(cuda)))
     for g, r in zip(got, image.sobel_gradients_plain(x)):
         assert torch.equal(g.cpu(), r)
@@ -274,7 +261,7 @@ def _tile_inputs(x):
 
 
 def test_lines_labels_exact(cuda):
-    tile_ok, angle, cx, cy, dx, dy = _tile_inputs(_line_field(4))[:6]
+    tile_ok, angle, cx, cy, dx, dy = _tile_inputs(line_field(4))[:6]
     args = (tile_ok, angle, cx, cy, dx, dy)
     ref = lines.propagate_labels_plain(*args, 0.1, 2.0, 9)
     got = _launched("lines_label", lambda: lines.propagate_labels(
@@ -285,14 +272,13 @@ def test_lines_labels_exact(cuda):
 
 
 def test_lines_refit_and_merge(cuda):
-    x = _line_field(5)
+    """Kernel G through its public calls, one launch each: refit_roots on
+    the card against the CPU's plain path, merge_segments the same."""
+    x = line_field(5)
     ts = lines.tile_stage(x, tile=16)
     H, W = x.shape[1:]
-    before = native.LAUNCHES["lines_refit"]
-    sp, ep, sc = lines.refit_roots(
-        lines.TileStage(*(t.to(cuda) for t in ts)), H, W, 16, 48, 12.0)
-    torch.cuda.synchronize()
-    assert native.LAUNCHES["lines_refit"] == before + 1
+    sp, ep, sc = _launched("lines_refit", lambda: lines.refit_roots(
+        lines.TileStage(*(t.to(cuda) for t in ts)), H, W, 16, 48, 12.0))
     rsp, rep, rsc = lines.refit_roots(ts, H, W, 16, 48, 12.0)
     v = rsc > 0
     assert int(v.sum()) > 5
@@ -311,8 +297,89 @@ def test_lines_refit_and_merge(cuda):
         assert (g.cpu() - r)[root].abs().max() <= 1e-3
 
 
+# -- kernel G's edge cases (torch_line_cases; the CPU tests hold the plain
+# path to the JAX reference on the same cases: tests/test_torch_lines.py) ----
+
+
+def _hold_refit(got, ref):
+    seg = ref[2] > 0
+    assert torch.equal(got[2] > 0, seg)
+    if bool(seg.any()):
+        assert _rel_err(got[2], ref[2]) <= 1e-5
+        for g, r in zip(got[:2], ref[:2]):
+            assert float((g - r)[seg].abs().max()) <= 1e-3
+
+
+def _hold_merge(got, ref):
+    root = ref[4]
+    assert torch.equal(got[4], root) and torch.equal(got[5], ref[5])
+    assert got[4].dtype == torch.bool
+    if bool(root.any()):
+        assert _rel_err(got[3], ref[3]) <= 1e-5
+        for g, r in zip(got[:3], ref[:3]):
+            assert float((g - r)[root].abs().max()) <= 1e-3
+
+
+@pytest.mark.parametrize("case", G_REFIT_CASES)
+def test_kernel_g_edge_cases(cuda, case):
+    """lines_refit (one launch) against refit_plain and lines_merge (one
+    launch) against merge_plain, both on the card, on the refit cases:
+    segments, roots and labels exactly equal, scores within 1e-5
+    relative, endpoints within 1e-3 px (the plain refit's index_add_ sums
+    in another order)."""
+    ts, ml = kernel_g_stage(case)
+    ts = lines.TileStage(*(t.to(cuda) for t in ts))
+    len_th = min(0.75 * 16 + 8, 12.0)
+    rid = lines.root_ids(ts, ml)
+    got = _launched("lines_refit", lambda: lines.refit(ts, rid, G_H, G_W,
+                                                       len_th))
+    _hold_refit(got, lines.refit_plain(*lines.refit_inputs(ts, G_H, G_W, ml),
+                                       G_H, G_W, len_th))
+    sp, ep, sc = lines.refit_roots(ts, G_H, G_W, 16, ml, 12.0)
+    assert sp.shape[1] == 2 * ml
+    v = sc > 0
+    got = _launched("lines_merge", lambda: lines.merge_segments(
+        sp, ep, sc, v, 0.2, 2.0, 14.0))
+    _hold_merge(got, lines.merge_plain(lines._segment_table(sp, ep, sc, v),
+                                       v, 0.2, 2.0, 14.0, 8))
+
+
+@pytest.mark.parametrize("case", G_MERGE_CASES)
+def test_lines_merge_edge_cases(cuda, case):
+    """lines_merge against merge_plain on the card on the merge cases
+    (the chain's labels after 2 sweeps are not yet one component)."""
+    sp, ep, sc, v, iters = (x.to(cuda) if isinstance(x, torch.Tensor) else x
+                            for x in kernel_g_merge_case(case))
+    got = _launched("lines_merge", lambda: lines.merge_segments(
+        sp, ep, sc, v, 0.2, 2.0, 14.0, iters))
+    _hold_merge(got, lines.merge_plain(lines._segment_table(sp, ep, sc, v),
+                                       v, 0.2, 2.0, 14.0, iters))
+
+
+def test_kernel_g_bit_equal_to_replaced_kernels(cuda):
+    """Kernel G keeps the summation orders of the kernels it replaced (a
+    warp a root slot walking every label; a block an image testing every
+    pair) and the torch glue's arithmetic: refit_roots and merge_segments
+    on line_field(5)'s TileStage (kernels E and F on the card) give those
+    kernels' outputs (tests/data/lines_segments_warp_per_slot.npz, written
+    on the H100 by that code) to the bit."""
+    import os
+    saved = np.load(os.path.join(os.path.dirname(__file__), "data",
+                                 "lines_segments_warp_per_slot.npz"))
+    x = line_field(5).to(cuda)
+    ts = lines.tile_stage(x, tile=16)
+    H, W = x.shape[1:]
+    sp, ep, sc = lines.refit_roots(ts, H, W, 16, 48, 12.0)
+    m = lines.merge_segments(sp, ep, sc, sc > 0, 0.2, 2.0, 14.0)
+    got = {"refit_sp": sp, "refit_ep": ep, "refit_score": sc,
+           "merge_sp": m[0], "merge_ep": m[1], "merge_angle": m[2],
+           "merge_score": m[3], "merge_root": m[4], "merge_labels": m[5]}
+    for k, g in got.items():
+        assert torch.equal(g.cpu(), torch.from_numpy(saved[k])), k
+
+
 def test_lbd_bits_exact(cuda):
-    x = _line_field(6)
+    x = line_field(6)
     gx, gy = image.sobel_gradients_plain(x)
     g = torch.Generator().manual_seed(2)
     sp = torch.rand((3, 40, 2), generator=g) * torch.tensor([199., 159.])

@@ -16,7 +16,11 @@ Tolerances (measured on these fields in brackets):
   * ``merge_segments`` given the reference's candidates: roots exactly
     equal, scores within 1e-5 relative, endpoints within 1e-3 px [8e-6];
   * ``detect_segments`` end to end: the same valid slots, endpoints
-    within 0.05 px [1.7e-4].
+    within 0.05 px [1.7e-4];
+  * kernel G's edge cases (test_torch_gpu.py builds them; the card holds
+    the kernels to the plain versions on the same cases): candidates,
+    roots and labels exactly, scores within 1e-5 relative, endpoints and
+    angles within 1e-3.
 """
 
 import jax.numpy as jnp
@@ -28,6 +32,8 @@ from plslam_tpu.ops import image as jimage
 from plslam_tpu.ops import lines as jlines
 from plslam_tpu_torch.ops import image as timage
 from plslam_tpu_torch.ops import lines as tlines
+from torch_line_cases import (G_H, G_MERGE_CASES, G_REFIT_CASES, G_W,
+                              kernel_g_merge_case, kernel_g_stage)
 
 TILE = 16
 
@@ -202,3 +208,113 @@ def test_detect_segments_matches_reference(fields):
                                    np.asarray(ref.sp)[v], atol=0.05)
         np.testing.assert_allclose(got.ep[n].numpy()[v],
                                    np.asarray(ref.ep)[v], atol=0.05)
+
+
+def _merge_labels_np(sp, ep, valid, ang_th, dist_th, gap_th, iters):
+    """The reference's merge labels (plslam_tpu/ops/lines.py:254-271) in
+    float64 numpy, for cases whose tests are far from their thresholds."""
+    M = sp.shape[0]
+    mid = 0.5 * (sp + ep)
+    d = ep - sp
+    du = d / np.sqrt((d * d).sum(-1) + 1e-12)[:, None]
+    du = np.where((du[:, 0] < 0)[:, None], -du, du)
+    ang = np.arctan2(du[:, 1], du[:, 0])
+    da = np.abs(ang[:, None] - ang[None, :])
+    da = np.minimum(da, np.pi - da)
+    rel = mid[None, :, :] - mid[:, None, :]
+    off = np.abs(-du[:, None, 1] * rel[..., 0] + du[:, None, 0] * rel[..., 1])
+    pm = du[:, None, 0] * rel[..., 0] + du[:, None, 1] * rel[..., 1]
+    half = 0.5 * np.sqrt((d * d).sum(-1))
+    gap = np.abs(pm) - (half[:, None] + half[None, :])
+    ok = ((da < ang_th) & (off < dist_th) & (gap < gap_th)
+          & valid[:, None] & valid[None, :])
+    ok = ok & ok.T
+    lab = np.where(valid, np.arange(M), M)
+    for _ in range(iters):
+        lab = np.minimum(lab, np.where(ok, lab[None, :], M).min(1))
+        lab = np.minimum(lab, lab[np.clip(lab, 0, M - 1)])
+    return lab
+
+
+def _hold_merge_to_reference(got, want, lab):
+    root = want[4]
+    np.testing.assert_array_equal(got[4], root)
+    np.testing.assert_array_equal(got[5], lab)
+    if root.any():
+        assert _rel(got[3], want[3]) <= 1e-5
+        for g, r in zip(got[:3], want[:3]):
+            np.testing.assert_allclose(g[root], r[root], atol=1e-3)
+
+
+@pytest.mark.parametrize("case", G_REFIT_CASES)
+def test_refit_and_merge_edge_cases_match_reference(case):
+    """refit_roots, then merge_segments on its candidates, against the
+    reference on kernel G's refit cases, image by image."""
+    ts, ml = kernel_g_stage(case)
+    sp, ep, sc = tlines.refit_roots(ts, G_H, G_W, TILE, ml, 12.0)
+    assert sp.shape[1] == 2 * ml
+    N, Th, Tw = ts.labels.shape
+    n = Th * Tw
+    n_roots = (ts.tile_ok & (ts.labels == torch.arange(n, dtype=torch.int32
+                                                       ).reshape(Th, Tw))
+               ).reshape(N, n).sum(1)
+    if case == "many_roots":
+        assert int(n_roots.min()) > 8 * ml          # more roots than R
+    if case == "invalid_member":
+        plain, _ = kernel_g_stage("m40")
+        before = tlines.refit_roots(plain, G_H, G_W, TILE, ml, 12.0)
+        assert not torch.equal(before[1], ep)       # the projection grew
+    for b in range(N):
+        jts = jlines.TileStage(*(jnp.asarray(x[b].numpy()) for x in ts))
+        rsp, rsc_ep, rsc = (np.asarray(x) for x in jlines.refit_roots(
+            jts, G_H, G_W, TILE, ml, 12.0))
+        v = rsc > 0
+        np.testing.assert_array_equal(sc[b].numpy() > 0, v)
+        assert v.any() == (case != "no_root")
+        if v.any():
+            assert _rel(sc[b].numpy(), rsc) <= 1e-5
+            np.testing.assert_allclose(sp[b].numpy()[v], rsp[v], atol=1e-3)
+            np.testing.assert_allclose(ep[b].numpy()[v], rsc_ep[v],
+                                       atol=1e-3)
+        want = [np.asarray(x) for x in jlines.merge_segments(
+            rsp, rsc_ep, rsc, v, ang_th=0.2, dist_th=2.0, gap_th=14.0)]
+        got = [x[0].numpy() for x in tlines.merge_segments(
+            _t(rsp)[None], _t(rsc_ep)[None], _t(rsc)[None], _t(v)[None],
+            0.2, 2.0, 14.0)]
+        root = want[4]
+        np.testing.assert_array_equal(got[4], root)
+        if root.any():
+            assert _rel(got[3], want[3]) <= 1e-5
+            for g, r in zip(got[:3], want[:3]):
+                np.testing.assert_allclose(g[root], r[root], atol=1e-3)
+        # labels: every valid slot's label is a root of its component
+        lab = got[5]
+        assert np.all(root[lab[v]]) and np.all(lab[root] == np.nonzero(
+            root)[0])
+
+
+@pytest.mark.parametrize("case", G_MERGE_CASES)
+def test_merge_edge_cases_match_reference(case):
+    """merge_segments against the reference (roots, scores, endpoints,
+    angles) and its labels against the reference's label loop, on the
+    chain longer than the sweeps and the lines across the +-pi/2 flip."""
+    sp, ep, sc, v, iters = kernel_g_merge_case(case)
+    got = [x[0].numpy() for x in tlines.merge_segments(
+        sp, ep, sc, v, 0.2, 2.0, 14.0, iters)]
+    want = [np.asarray(x) for x in jlines.merge_segments(
+        sp[0].numpy(), ep[0].numpy(), sc[0].numpy(), v[0].numpy(),
+        ang_th=0.2, dist_th=2.0, gap_th=14.0, iters=iters)]
+    lab = _merge_labels_np(sp[0].double().numpy(), ep[0].double().numpy(),
+                           v[0].numpy(), 0.2, 2.0, 14.0, iters)
+    _hold_merge_to_reference(got, want, lab)
+    frag = np.nonzero(v[0].numpy())[0]
+    if case == "chain":
+        full = _merge_labels_np(sp[0].double().numpy(),
+                                ep[0].double().numpy(), v[0].numpy(), 0.2,
+                                2.0, 14.0, 16)
+        assert len(set(full[frag])) == 3            # two chains, one cross
+        assert len(set(lab[frag])) > 3              # 2 sweeps: not yet
+    else:
+        assert len(set(lab[frag])) == 1             # one line
+        ang = sp.new_tensor(0.0) + float(got[2][got[4]][0])
+        assert abs(abs(float(ang)) - np.pi / 2) < 0.01
