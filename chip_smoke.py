@@ -43,9 +43,13 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
      exactly as often as the path launches it; then K (K15) launch by
      launch (the landmark index exact; lba_terms' scale, an exact lower
      median, to the bit, also at K = 4096, more than 32,768
-     observations), one LM step and one whole ``run_lba`` on a
-     well-conditioned window problem at the path's shapes, and one whole
-     ``run_lba`` on that run's final window problem;
+     observations), the step after the blocks (``lba_solve``: Schur
+     complement, dense solve and landmark steps in two kernels, held to
+     float64 and bit-equal launch to launch), one LM step and one whole
+     ``run_lba`` on a well-conditioned window problem at the path's
+     shapes, and the step and one whole ``run_lba`` on that run's final
+     window problem (each ``run_lba`` a replay of its CUDA graph, bit-equal
+     to the eager loop of kernels);
   5. the loop path: ``FusedPLSLAM`` with the default ``SlamConfig()``
      (loop closure on) over two laps of a 110-frame loop with
      bench_slam.py's world (``loop_scene``: bench_slam.py's own scene
@@ -173,10 +177,14 @@ def cuda_ms(fn, iters: int) -> float:
 
 
 def _profile_device(fn, keep, iters: int):
-    """(device ms, device records) a call of ``fn`` spends in the device
+    """(device ms, device kernels) a call of ``fn`` spends in the device
     records whose name ``keep`` accepts, from torch.profiler over
-    ``iters`` calls after a warm-up. Fails the run where the profiler gave
-    no device records."""
+    ``iters`` calls after a warm-up. torch.profiler may lose some of a
+    kernel's records (on the H100 often: 6 to 9 of 10 one-launch calls
+    recorded): each kernel counts its mean record's time as many times a
+    call as its records a call round up to, exact while it loses fewer
+    than ``iters`` of them. Fails the run where the profiler gave no
+    device records."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -192,13 +200,16 @@ def _profile_device(fn, keep, iters: int):
                 fn()
             torch.cuda.synchronize()
         ev = [e for e in prof.key_averages()
-              if e.device_type != DeviceType.CPU and keep(e.key)]
-        us = sum(e.device_time_total for e in ev)
-        if us > 0:
+              if e.device_type != DeviceType.CPU and keep(e.key)
+              and e.count > 0]
+        if sum(e.device_time_total for e in ev) > 0:
             if attempt:
                 print(f"[profile] device records came on try {attempt + 1}",
                       flush=True)
-            return us / 1e3 / iters, sum(e.count for e in ev) / iters
+            per = [math.ceil(e.count / iters) for e in ev]
+            us = sum(e.device_time_total / e.count * n
+                     for e, n in zip(ev, per))
+            return us / 1e3, sum(per)
     fail("torch.profiler gave no device records in 6 tries: device time "
          "not measured")
 
@@ -1497,11 +1508,13 @@ def decisions(slam, cfg):
     return rows[:, 33] > 0.5, rows[:, 32] > 0.5, margin
 
 
-# launches of one window LBA (6 LM iterations: per iteration one step of 5
+# launches of one window LBA (6 LM iterations: per iteration one step of 4
 # launches and a trial cost of 1, plus the initial cost, the landmark index
-# and the post-hoc flags)
+# and the post-hoc flags; lba_solve's entry launches two kernels, the Schur
+# complement with the solve and the landmark steps). A graph replay of
+# run_lba counts the same launches.
 PER_LBA = {"lba_terms": 14, "lba_camera": 6, "lba_index": 1, "lba_bin": 6,
-           "lba_schur": 6, "lba_backsub": 6}
+           "lba_solve": 6}
 
 
 def expected_slam_launches(n_kfs: int, n_lba: int,
@@ -1819,11 +1832,12 @@ def lba_phase(dev, record, slam):
            err_kind="H_ll, H_inv, g_l, H_cl " + rel)
     b64 = _as_f64(bp)
 
-    def f64_gauge(name, got, ref, truth, typical=None):
+    def f64_gauge(name, got, ref, truth, typical=None, hold=False):
         """Prints each output's distances (kernel from float64, plain from
-        float64, kernel from plain); with ``typical``, holds the first and
-        the last to F64_FACTOR x the second + F64_FLOOR, a bound that must
-        stay under a tenth of ``typical``. Returns the bounds."""
+        float64, kernel from plain); with ``typical`` or ``hold``, holds the
+        first and the last to F64_FACTOR x the second + F64_FLOOR, a bound
+        that with ``typical`` must stay under a tenth of it. Returns the
+        bounds."""
         d_k = [_rel_d(g, x) for g, x in zip(got, truth)]
         d_p = [_rel_d(r, x) for r, x in zip(ref, truth)]
         d_kp = [_rel_d(g, r) for g, r in zip(got, ref)]
@@ -1834,12 +1848,27 @@ def lba_phase(dev, record, slam):
               f"bound {fmt(tols)}"
               + ("" if typical is None else f", against {fmt(typical)}"),
               flush=True)
-        if typical is not None:
+        if typical is not None or hold:
+            typical = typical or [math.inf] * len(tols)
             check(all(k <= t and kp <= t and t <= 0.1 * x for k, kp, t, x
                       in zip(d_k, d_kp, tols, typical)),
                   f"{name}: kernel from float64 {d_k}, from plain {d_kp}, "
                   f"bound {tols}, against {typical}")
         return tols
+
+    def graph_vs_eager(problem, res):
+        """run_lba (a replay of its CUDA graph: the SLAM path captured this
+        shape) bit-equal to the eager loop of kernels; both timed, with
+        their device kernels."""
+        eager = lambda: lba._run(problem, cam, cfg, lba._KERNELS)
+        check(all(torch.equal(x, y) for x, y in zip(res, eager())),
+              "run_lba's graph replay differs from the eager kernel loop")
+        run = lambda: lba.run_lba(problem, cam, cfg)
+        g_ms, e_ms = cuda_ms(run, 10), cuda_ms(eager, 10)
+        (g_dev, g_n), (e_dev, e_n) = all_kernels(run, 3), all_kernels(eager, 3)
+        print(f"[lba] run_lba as a graph replay {g_ms:.4f} ms ({g_n:g} "
+              f"device kernels, {g_dev:.4f} ms device), eagerly {e_ms:.4f} ms "
+              f"({e_n:g}, {e_dev:.4f} ms device); bit-equal", flush=True)
 
     # the sums over observations (camera blocks, Schur pass, back-
     # substitution) are held against float64 sums of the same f32 inputs
@@ -1854,37 +1883,53 @@ def lba_phase(dev, record, slam):
            NP * 3 * 27 * 2 + 2 * NL * 27 * 2,
            err_kind=rel + f", tolerance {F64_FACTOR:g}x the plain one's "
            f"distance from float64 + {F64_FLOOR:g}")
-    Sm, gm = lba.lba_schur(bp, free, lam)
+    # one step after the blocks (lba_solve: the Schur complement over the
+    # observed pose pairs, the damped 6W x 6W solve and the landmark steps)
+    # on the plain blocks, held to float64; two launches bit-equal. Bytes:
+    # the observed blocks of H_cl, H_inv, g_l, H_ll's diagonal, H_cc, g_c,
+    # the index, the outputs; operations: B = C H_inv and its gradient and
+    # landmark-step products per observed pair, B C^T per observed pose
+    # pair w <= v, the LU of the free poses' block and its triangular
+    # solves, the landmark steps.
+    # The yardstick: the library's dense solve of the reduced system alone.
     Sp, gp = lba.lba_schur_plain(bp, free, lam)
-    nz = (bp.H_cl.abs().amax(dim=(2, 3)) > 0).float()          # (W, n)
-    n_pairs = int((nz @ nz.T).sum())
-    tols = f64_gauge("lba_schur (S, g)", [Sm, gm], [Sp, gp],
-                     lba.lba_schur_plain(b64, free, lam.double()), [1, 1])
-    g_, r_ = scaled([Sm, gm], [Sp, gp])
-    record("lba_schur", src, rep + "270", g_, r_, tols,
-           lambda: lba.lba_schur(bp, free, lam),
-           lambda: lba.lba_schur_plain(bp, free, lam),
-           W * n_lm * 72 + n_lm * 48 + W * 168 + (6 * W) ** 2 * 4,
-           n_pairs * 2 * (54 + 108),
-           err_kind=rel + f", tolerance {F64_FACTOR:g}x the plain one's "
-           f"distance from float64 + {F64_FLOOR:g}")
-    dxi, _, _ = lba._assemble_and_solve(prob, cam, lam)
-    got = lba.lba_backsub(bp, dxi, P)
-    ref = lba.lba_backsub_plain(bp, dxi, P)
-    tols = f64_gauge("lba_backsub (dxi, d_pt, d_ep)", got, ref,
-                     lba.lba_backsub_plain(b64, dxi.double(), P), [1, 1, 1])
+    solve = lambda: lba.lba_solve(bp, prob, free, lam, idx)
+    got = solve()
+    ref = lba.lba_solve_plain(bp, free, lam, P)
+    tols = f64_gauge("lba_solve (dxi, d_pt, d_ep)", got, ref,
+                     lba.lba_solve_plain(b64, free, lam.double(), P),
+                     [1, 1, 1])
+    check(all(torch.equal(x, y) for x, y in zip(got, solve())),
+          "lba_solve: two launches on the same blocks differ")
+    total = int(idx.off[-1])
+    g_obs = idx.obs[:total].long()
+    pose = torch.where(g_obs < W * K, g_obs // K, (g_obs - W * K) // (2 * L))
+    lm_of = torch.repeat_interleave(torch.arange(n_lm, device=dev),
+                                    (idx.off[1:] - idx.off[:-1]).long())
+    seen = torch.zeros((n_lm, W), dtype=torch.bool, device=dev)
+    seen[lm_of, pose] = True
+    seen &= free[None, :]
+    per_lm = seen.sum(1)
+    n_obs_pairs = int(per_lm.sum())
+    n_pose_pairs = int((per_lm * (per_lm + 1) // 2).sum())
+    n6, nf = 6 * W, 6 * int(free.sum())
+    solve_bytes = (n_obs_pairs * 72 + n_lm * (36 + 12 + 12 + 12)
+                   + (n_lm + 1 + total) * 4 + W * (144 + 24 + 1 + 24) + 4)
+    solve_ops = (n_obs_pairs * (108 + 36 + 36) + n_pose_pairs * 216
+                 + 2 * nf ** 3 // 3 + 2 * nf ** 2 + n_lm * 28)
+    print(f"[lba] lba_solve: {n_obs_pairs} observed (landmark, free pose) "
+          f"pairs, {n_pose_pairs} pose pairs w <= v over the landmarks; the "
+          f"LU of the free poses' {nf}x{nf} block of the {n6}x{n6} system "
+          f"is a chain of {nf} pivot steps, each behind a barrier of the "
+          f"block, that no roofline covers", flush=True)
     g_, r_ = scaled(got, ref)
-    record("lba_backsub", src, rep + "303", g_, r_, tols,
-           lambda: lba.lba_backsub(bp, dxi, P),
-           lambda: lba.lba_backsub_plain(bp, dxi, P),
-           W * n_lm * 72 + n_lm * (36 + 12 + 36 + 12) + W * 48,
-           n_lm * (W * 36 + 40),
+    record("lba_solve", src, rep + "270", g_, r_, tols, solve,
+           lambda: lba.lba_solve_plain(bp, free, lam, P), solve_bytes,
+           solve_ops, lambda: torch.linalg.solve_ex(Sp, gp[:, None]),
+           library_what=f"torch.linalg.solve_ex of the {n6}x{n6} reduced "
+           "system alone",
            err_kind=rel + f", tolerance {F64_FACTOR:g}x the plain one's "
            f"distance from float64 + {F64_FLOOR:g}")
-    # the library's dense solve between lba_schur and lba_backsub
-    solve_ms = cuda_ms(lambda: torch.linalg.solve_ex(Sp, gp[:, None]), 20)
-    print(f"[lba] torch.linalg.solve_ex of the {6 * W}x{6 * W} reduced "
-          f"system: {solve_ms:.4f} ms", flush=True)
 
     # one LM step and one whole run_lba, kernels against plain versions
     p64 = _as_f64(prob)
@@ -1897,6 +1942,7 @@ def lba_phase(dev, record, slam):
     fields = ("kf_pose", "pt_pos", "ep_pos")
     res, res_p = lba.run_lba(prob, cam, cfg), lba.run_lba_plain(prob, cam, cfg)
     res_t = lba.run_lba_plain(p64, cam, cfg)
+    graph_vs_eager(prob, res)
     moved = [_rel_d(getattr(res_t, f), getattr(prob, f)) for f in fields]
     same_inl = float((res.obs_pt_inlier == res_p.obs_pt_inlier).float().mean())
     print(f"[lba] run_lba: cost {float(res.cost0):.6g} -> "
@@ -1924,12 +1970,18 @@ def lba_phase(dev, record, slam):
     bp = lba.lba_blocks_plain(tp, prob, sig_w, lba._free(prob), lam)
     b64 = _as_f64(bp)
     free = lba._free(prob)
-    f64_gauge("SLAM window lba_schur (S, g)",
-              list(lba.lba_schur(bp, free, lam)),
-              list(lba.lba_schur_plain(bp, free, lam)),
-              lba.lba_schur_plain(b64, free, lam.double()))
+    P = prob.pt_pos.shape[0]
+    f64_gauge("SLAM window lba_solve (dxi, d_pt, d_ep)",
+              lba.lba_solve(bp, prob, free, lam, lba.lba_index(prob)),
+              lba.lba_solve_plain(bp, free, lam, P),
+              lba.lba_solve_plain(b64, free, lam.double(), P), hold=True)
     res, res_p = lba.run_lba(prob, cam, cfg), lba.run_lba_plain(prob, cam, cfg)
     res_t = lba.run_lba_plain(p64, cam, cfg)
+    graph_vs_eager(prob, res)
+    f64_gauge("SLAM window run_lba (poses, points, endpoints)",
+              [getattr(res, f) for f in fields],
+              [getattr(res_p, f) for f in fields],
+              [getattr(res_t, f) for f in fields], hold=True)
     d_run = [_rel_d(getattr(res, f), getattr(res_p, f)) for f in fields]
     moved = [_rel_d(getattr(res_p, f), getattr(prob, f)) for f in fields]
     same_inl = float((res.obs_pt_inlier == res_p.obs_pt_inlier).float().mean())
@@ -2966,7 +3018,9 @@ def against_side(root: str, out_path: str) -> None:
     there): the level-0 blur, ORB's moment pair at 188x620 (a tree without
     the paired filter runs two single filters), fast_score on level 0 (its
     input the plain blur), image_resize at the pyramid's and the
-    half-resolution shapes, the LBA's terms, scale and cost on
+    half-resolution shapes, the LBA's terms, scale and cost, its step after
+    the blocks (``lba_solve``, or a parent's ``lba_schur``, library solve
+    and ``lba_backsub``) and the whole ``run_lba`` on
     ``lba_window_problem``, the GN phase (8 iterations) and the whole
     optimize_pose at 20 x (1024 points, 128 lines) (``gn_inputs``), the
     NMS block max at level 0, kernel G (``refit_roots`` on the TileStage
@@ -3028,6 +3082,28 @@ def against_side(root: str, out_path: str) -> None:
     t, sig, cost = fn()
     res["lba_terms+sigma"] = ([x.cpu() for x in (*t, sig, cost)],
                               device_ms(fn, iters=20))
+    # K15's step after the blocks on the plain blocks (the same on both
+    # trees): lba_solve, or a parent's lba_schur, the library's solve and
+    # lba_backsub; then the whole run_lba (a parent's eager loop)
+    free = lba._free(prob)
+    lam = torch.tensor(cfg.mapping.lambda_init, device=dev)
+    tp, sg, _ = lba.lba_terms_sigma_plain(prob, cam)
+    bp = lba.lba_blocks_plain(tp, prob, sg, free, lam)
+    idx = lba.lba_index(prob)
+    if hasattr(lba, "lba_solve"):
+        fn = lambda: list(lba.lba_solve(bp, prob, free, lam, idx))
+    else:
+        def fn():
+            Sm, gm = lba.lba_schur(bp, free, lam)
+            dxi = -torch.linalg.solve_ex(Sm, gm[:, None])[0][:, 0]
+            dxi = torch.where(free[:, None], dxi.reshape(-1, 6), 0.0)
+            return list(lba.lba_backsub(bp, dxi, prob.pt_pos.shape[0]))
+    res["lba_step"] = ([x.cpu() for x in fn()], device_ms(fn, iters=20),
+                       *all_kernels(fn, iters=20), cuda_ms(fn, 50))
+    fn = lambda: list(lba.run_lba(prob, cam, cfg))
+    fn()
+    res["run_lba"] = ([x.cpu() for x in fn()], device_ms(fn, iters=5),
+                      *all_kernels(fn, iters=5), cuda_ms(fn, 10))
     # K13: the GN phase (8 iterations, 20 pairs, K = 1024, L = 128) and
     # the whole optimize_pose (8 + 8) on the same inputs; K2: the NMS block
     # max at level 0 (fast_score's masks of the plain blur)

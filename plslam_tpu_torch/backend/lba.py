@@ -15,20 +15,24 @@ in the same launch the exact lower-median MAD scale over all
 observations, a radix select, and the robust cost), ``lba_camera`` (H_cc,
 g_c per pose), ``lba_bin`` (the landmark blocks, damped inverses and
 H_cl, one warp per landmark walking its observations in order: no float
-atomics), ``lba_schur`` (S and the reduced gradient) and ``lba_backsub``
-(landmark steps, floors, caps); ``lba_index`` lists each landmark's
-observations once a ``run_lba`` (the ids do not change between its LM
-steps) for every ``lba_bin``.
-The dense 6W x 6W solve is the library's ``torch.linalg.solve_ex``, as the
-reference calls ``jnp.linalg.solve``. The ``*_plain`` functions are the
-reference's arithmetic in PyTorch (the one-hot binning included, which is
-deterministic on the card too) and run only for CPU tensors.
+atomics) and ``lba_solve`` (the Schur complement over the pose pairs that
+observe each landmark, the damped and pinned 6W x 6W solve by LU with
+partial pivoting inside the launch, where the reference calls
+``jnp.linalg.solve``, and the landmark steps: two kernels, float64
+inside); ``lba_index`` lists each landmark's observations once a
+``run_lba`` (the ids do not change between its LM steps) for every
+``lba_bin`` and ``lba_solve``. ``run_lba`` replays the whole LM loop as
+one CUDA graph.
+The ``*_plain`` functions are the reference's arithmetic in PyTorch (the
+one-hot binning included, which is deterministic on the card too; the
+dense solve ``torch.linalg.solve_ex``) and run only for CPU tensors.
 
 Landmarks are indexed in one space: points [0, P), endpoints [P, P + Q).
 """
 
 from __future__ import annotations
 
+from collections import Counter
 from typing import Dict, NamedTuple, Tuple
 
 import torch
@@ -416,21 +420,6 @@ def lba_schur_plain(b: LandmarkBlocks, free, lam,
     return S.transpose(1, 2).reshape(W * 6, W * 6), g_red.reshape(W * 6)
 
 
-def lba_schur(b: LandmarkBlocks, free, lam, pin_weight: float = PIN_WEIGHT):
-    """Reduced camera system (6W, 6W) and gradient (6W,)."""
-    if b.H_cc.device.type == "cpu":
-        return lba_schur_plain(b, free, lam, pin_weight)
-    W, n = b.H_cl.shape[:2]
-    dev = b.H_cc.device
-    Sm = torch.empty((6 * W, 6 * W), dtype=torch.float32, device=dev)
-    gm = torch.empty((6 * W,), dtype=torch.float32, device=dev)
-    native.launch("lba_schur", b.H_cc, b.g_c, b.H_cl, b.H_inv, b.g_l,
-                  _f32(lam.reshape(())), free.to(torch.uint8).contiguous(),
-                  Sm, gm, W, n,
-                  float(pin_weight))
-    return Sm, gm
-
-
 def _cap_steps(dxi, d_pt, d_ep):
     """Per-variable trust-region caps, direction preserved."""
     n = torch.linalg.norm(dxi, dim=-1, keepdim=True)
@@ -456,18 +445,67 @@ def lba_backsub_plain(b: LandmarkBlocks, dxi, P: int, cap: bool = True):
     return _cap_steps(dxi, d[:P], d[P:])
 
 
-def lba_backsub(b: LandmarkBlocks, dxi, P: int, cap: bool = True):
-    """Landmark steps from the pose step, with the floors and (``cap``)
-    the trust-region caps: (dxi (W,6), d_pt (P,3), d_ep (Q,3))."""
-    if dxi.device.type == "cpu":
-        return lba_backsub_plain(b, dxi, P, cap)
+def lba_solve_plain(b: LandmarkBlocks, free, lam, P: int,
+                    pin_weight: float = PIN_WEIGHT, cap: bool = True):
+    """The reduced system, its dense solve (the reference's
+    ``jnp.linalg.solve``: LU with partial pivoting; ``solve_ex`` does not
+    raise on a singular system, whose non-finite step the LM rejects), the
+    free mask and the back-substitution."""
+    Sm, gm = lba_schur_plain(b, free, lam, pin_weight)
+    dxi = -torch.linalg.solve_ex(Sm, gm[:, None])[0][:, 0].reshape(-1, 6)
+    dxi = torch.where(free[:, None], dxi, 0.0)
+    return lba_backsub_plain(b, dxi, P, cap)
+
+
+# lba_solve's scratch (csrc/lba.cu SolveScratch), one per device and size,
+# zeroed once and left so by every launch. A captured run_lba holds its
+# address: never freed.
+_SOLVE_SCRATCH: Dict[Tuple[torch.device, int], torch.Tensor] = {}
+_SOLVE_CH, _SOLVE_PW, _SOLVE_HEAD, _SOLVE_SLOT = 64, 5, 196, 42
+
+
+def _solve_words(W: int, n: int) -> int:
+    """Words of lba_solve's scratch for W poses and n landmarks (its
+    partials are float64, after one word of padding at most)."""
+    G = -(-n // _SOLVE_CH)
+    return (_SOLVE_HEAD + n + G * _SOLVE_PW + 1
+            + 2 * G * (W * (W + 1) // 2) * _SOLVE_SLOT)
+
+
+def lba_solve(b: LandmarkBlocks, problem: LBAProblem, free, lam,
+              index: LBAIndex, pin_weight: float = PIN_WEIGHT,
+              cap: bool = True):
+    """One LM step from the blocks: the Schur complement over ``index``
+    (the problem's ``lba_index``), the damped and pinned 6W x 6W solve and
+    the landmark steps, (dxi (W,6), d_pt (P,3), d_ep (Q,3)) masked, floored
+    and (``cap``) capped: one call of the ``lba_solve`` entry, which
+    launches two kernels (``csrc/lba.cu``: the sums and the LU in float64,
+    the LU over the free poses' rows alone, whose rows of S are the only
+    ones coupled)."""
+    P = problem.pt_pos.shape[0]
+    if b.H_cc.device.type == "cpu":
+        return lba_solve_plain(b, free, lam, P, pin_weight, cap)
     W, n = b.H_cl.shape[:2]
-    dev = dxi.device
+    K, L = problem.obs_pt_id.shape[1], problem.obs_ln_sid.shape[1]
+    if W > 16:
+        raise ValueError(f"lba_solve: at most 16 poses, got {W}")
+    dev = b.H_cc.device
+    b = LandmarkBlocks(*(_f32(x) for x in b))
+    for name, x, shape in zip(b._fields, b, ((W, 6, 6), (W, 6), (n, 3, 3),
+                                             (n, 3, 3), (n, 3), (W, n, 6, 3))):
+        native.require(x, f"lba_solve {name}", torch.float32, shape)
+    words = _solve_words(W, n)
+    scratch = _SOLVE_SCRATCH.get((dev, words))
+    if scratch is None:
+        scratch = torch.zeros(words, dtype=torch.int32, device=dev)
+        _SOLVE_SCRATCH[(dev, words)] = scratch
+    dxi = torch.empty((W, 6), dtype=torch.float32, device=dev)
     d = torch.empty((n, 3), dtype=torch.float32, device=dev)
-    dxi_c = torch.empty((W, 6), dtype=torch.float32, device=dev)
-    native.launch("lba_backsub", b.H_cl, b.H_inv, b.g_l, b.H_ll, _f32(dxi),
-                  d, dxi_c, W, n, int(cap))
-    return dxi_c, d[:P], d[P:]
+    native.launch("lba_solve", index.off, index.obs, b.H_cc, b.g_c, b.H_ll,
+                  b.H_inv, b.g_l, b.H_cl, _f32(lam.reshape(())),
+                  free.to(torch.uint8).contiguous(), dxi, d, scratch, words,
+                  W, K, L, n, float(pin_weight), int(cap))
+    return dxi, d[:P], d[P:]
 
 
 def _free(problem: LBAProblem):
@@ -478,34 +516,34 @@ class _Ops(NamedTuple):
     terms: object      # (problem, cam) -> (LBATerms, sigma, cost)
     index: object
     blocks: object
-    schur: object
-    backsub: object
+    solve: object
 
 
 # the launches (each dispatching on the device of its tensors), and the
 # plain versions: run_lba_plain holds the whole LM loop of kernels against
-# the same loop of plain versions on the card (whose one-hot binning reads
-# no index)
-_KERNELS = _Ops(lba_terms_sigma, lba_index, lba_blocks, lba_schur,
-                lba_backsub)
+# the same loop of plain versions on the card (whose one-hot binning and
+# dense Schur pass read no index)
+_KERNELS = _Ops(lba_terms_sigma, lba_index, lba_blocks, lba_solve)
 _PLAIN = _Ops(lba_terms_sigma_plain, lba_index_plain,
               lambda t, problem, sigma, free, lam, index: lba_blocks_plain(
                   t, problem, sigma, free, lam),
-              lba_schur_plain, lba_backsub_plain)
+              lambda b, problem, free, lam, index, pin_weight, cap:
+              lba_solve_plain(b, free, lam, problem.pt_pos.shape[0],
+                              pin_weight, cap))
 
 
 def _step(problem: LBAProblem, cam: StereoCamera, lam, ops: _Ops,
           index: LBAIndex, pin_weight: float = PIN_WEIGHT, cap: bool = True):
-    """One damped LM step; ``index``: the problem's ``ops.index``."""
-    lam = torch.as_tensor(lam, dtype=torch.float32,
-                          device=problem.kf_pose.device)
+    """One damped LM step; ``index``: the problem's ``ops.index``.
+    ``lam``: a float, or a float32 tensor on the problem's device (then
+    used as it is: no copy from the host inside a captured run)."""
+    if not isinstance(lam, torch.Tensor):
+        lam = torch.full((), lam, dtype=torch.float32,
+                         device=problem.kf_pose.device)
     t, sigma, _ = ops.terms(problem, cam)
     free = _free(problem)
     b = ops.blocks(t, problem, sigma, free, lam, index)
-    Sm, gm = ops.schur(b, free, lam, pin_weight)
-    dxi = -torch.linalg.solve_ex(Sm, gm[:, None])[0][:, 0].reshape(-1, 6)
-    dxi = torch.where(free[:, None], dxi, 0.0)
-    return ops.backsub(b, dxi, problem.pt_pos.shape[0], cap)
+    return ops.solve(b, problem, free, lam, index, pin_weight, cap)
 
 
 def _assemble_and_solve(problem: LBAProblem, cam: StereoCamera, lam,
@@ -524,8 +562,8 @@ def _run(problem: LBAProblem, cam: StereoCamera, cfg: SlamConfig,
          ops: _Ops) -> LBAResult:
     mcfg = cfg.mapping
     cost0 = _cost(problem, cam, ops)
-    lam = torch.tensor(mcfg.lambda_init, dtype=torch.float32,
-                       device=cost0.device)
+    lam = torch.full((), mcfg.lambda_init, dtype=torch.float32,
+                     device=cost0.device)
     prob, cost = problem, cost0
     # the observation ids stay as they are through the LM loop
     index = ops.index(problem)
@@ -549,14 +587,72 @@ def _run(problem: LBAProblem, cam: StereoCamera, cfg: SlamConfig,
                      pt_inl, ln_inl)
 
 
+class _Graph(NamedTuple):
+    """A captured ``_run``: its static inputs and outputs, and the hand
+    launches one replay makes."""
+    graph: object
+    inputs: LBAProblem
+    outputs: LBAResult
+    launches: Counter
+
+
+# one captured run per device, shapes, dtypes and the Python values the
+# capture bakes in (the camera, the LM's settings)
+_GRAPHS: Dict[tuple, _Graph] = {}
+
+
+def _graph_key(problem: LBAProblem, cam: StereoCamera, cfg: SlamConfig):
+    m = cfg.mapping
+    return (problem.kf_pose.device,
+            tuple((tuple(x.shape), x.dtype) for x in problem),
+            cam.fx, cam.fy, cam.cx, cam.cy, cam.fxb, m.lba_iters,
+            m.lambda_init, m.lambda_factor, m.lba_min_sigma, m.lba_inlier_k)
+
+
+def _capture(problem: LBAProblem, cam: StereoCamera, cfg: SlamConfig
+             ) -> _Graph:
+    """Capture ``_run`` with the kernels on static copies of ``problem``.
+    A capture executes nothing: its launches are recorded for the replays
+    and taken out of ``native.LAUNCHES`` again. Raises if capture fails."""
+    inputs = LBAProblem(*(x.clone() for x in problem))
+    before = Counter(native.LAUNCHES)
+    graph = torch.cuda.CUDAGraph()
+    try:
+        with torch.cuda.graph(graph):
+            outputs = _run(inputs, cam, cfg, _KERNELS)
+    finally:
+        launches = native.LAUNCHES - before
+        native.LAUNCHES.clear()
+        native.LAUNCHES.update(before)
+    return _Graph(graph, inputs, outputs, launches)
+
+
 def run_lba(problem: LBAProblem, cam: StereoCamera, cfg: SlamConfig
             ) -> LBAResult:
     """Robust LM with accept/reject (levMarquardtOptimizationLBA), a fixed
     number of iterations, every decision on the device: per iteration one
-    step (``lba_terms``, ``lba_camera``, ``lba_bin``, ``lba_schur``, the
-    library solve, ``lba_backsub``) and the trial cost (``lba_terms``); one
-    ``lba_index`` before the loop."""
-    return _run(problem, cam, cfg, _KERNELS)
+    step (``lba_terms``, ``lba_camera``, ``lba_bin``, ``lba_solve``) and the
+    trial cost (``lba_terms``); one ``lba_index`` before the loop.
+
+    On a CUDA device the whole loop is one CUDA graph replay, the port's
+    counterpart of the reference's single jitted program: the first call
+    of a shape runs the loop eagerly (building the kernels and their
+    scratch) and then captures it; later calls copy the problem into the
+    graph's inputs, replay it and clone its outputs. ``native.LAUNCHES``
+    counts each replay's launches, as an eager run would."""
+    if problem.kf_pose.device.type == "cpu":
+        return _run(problem, cam, cfg, _KERNELS)
+    key = _graph_key(problem, cam, cfg)
+    g = _GRAPHS.get(key)
+    if g is None:
+        res = _run(problem, cam, cfg, _KERNELS)
+        _GRAPHS[key] = _capture(problem, cam, cfg)
+        return res
+    for x, y in zip(g.inputs, problem):
+        x.copy_(y)
+    g.graph.replay()
+    native.LAUNCHES.update(g.launches)
+    return LBAResult(*(x.clone() for x in g.outputs))
 
 
 def run_lba_plain(problem: LBAProblem, cam: StereoCamera, cfg: SlamConfig

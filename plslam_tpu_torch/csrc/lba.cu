@@ -1,20 +1,21 @@
-// Kernel K: the Schur-complement local bundle adjustment (K15), five launches
-// per LM step (the dense 6W x 6W solve between them is the library's), one
-// for each trial cost, and one landmark index per window LBA.
+// Kernel K: the Schur-complement local bundle adjustment (K15), four launches
+// per LM step (the last two: the Schur complement with the dense 6W x 6W
+// solve, and the landmark steps), one for each trial cost, and one landmark
+// index per window LBA.
 //
 // Replaces plslam_tpu/backend/lba.py::_point_rj (:79), _endpoint_rj (:116),
 // _robust_sigma (:142), lba_cost (:150), _bin_landmark_blocks (:182) and
 // _assemble_and_solve (:199) with _cap_steps (:325). The reference bins
 // per-observation normal-equation blocks onto landmark slots with one-hot
-// MXU contractions and forms S with einsums.
+// MXU contractions, forms S with einsums and solves with jnp.linalg.solve.
 //
 // Bound: at the default window (W = 10 poses, W K = 10,240 point and
 // 2 W L = 2,560 endpoint observations, P = 4,096 + Q = 1,024 landmarks) the
 // step moves ~10 MB (per-observation Jacobians written and read, the
-// (W, P + Q, 6, 3) camera-landmark blocks written once and read by the
-// Schur pass) and does ~0.2 GFLOP (the Schur pass: W^2 (P + Q) 6x3x3 +
-// 6x3x6 products): a few microseconds either way. Latency dominates:
-// dependent launches, each a few microseconds of work.
+// (W, P + Q, 6, 3) camera-landmark blocks written once and read where a
+// pose observes a landmark) and does a few MFLOP: a few microseconds
+// either way. Latency dominates: dependent launches, each a few
+// microseconds of work, and the solve's chain of 6W pivot steps.
 //
 // Design, launch by launch:
 //   lba_terms   one thread per observation: transform, projection,
@@ -41,14 +42,12 @@
 //               observation; then the damped block's inverse (the
 //               reference's scale-normalised closed-form Cholesky). No
 //               float atomics: the sums do not depend on scheduling.
-//   lba_schur   one block per pose pair (w, v): S[w, v] = -sum_l
-//               H_cl[w,l] H_ll^-1 H_cl[v,l]^T in a fixed order, plus on the
-//               diagonal H_cc, the damping of the original H_cc diagonal
-//               and the support-gated pins; block (w, w) also reduces the
-//               gradient.
-//   lba_backsub one thread per landmark: the step from the pose steps, the
-//               support floor, the trust-region caps (block 0 caps the
-//               pose steps).
+//   lba_solve   landmark chunks sum S = H_cc - sum H_cl H_ll^-1 H_cl^T and
+//               the reduced gradient over the pose pairs that observe each
+//               landmark; the last block adds the chunks' partials in
+//               order, damps, pins, and solves the system by LU with
+//               partial pivoting in shared memory; a second launch steps
+//               the landmarks (below, at schur_solve_kernel).
 
 #include <cuda_runtime.h>
 #include <float.h>
@@ -655,97 +654,125 @@ __global__ void __launch_bounds__(BIN_NT)
   inv3(Hd, H_inv + 9 * n);
 }
 
-constexpr int SCHUR_NT = 256;
+// -- lba_solve: the Schur complement, the damped solve and the landmark
+//    steps of one LM step ---------------------------------------------------
+//
+// H_cl[w, n] is zero unless pose w is free and observes landmark n (lba_bin
+// writes Jc masked by free), so a landmark adds to S only over the pose
+// pairs that observe it: ~2.5 poses a landmark at the path's shapes against
+// the W = 10 a dense pass walks. Blocks take SOLVE_CH landmarks each:
+//   - the observing free poses of each landmark from lba_index's lists (a
+//     bit mask; integer shared atomics, exact), and the block's touched
+//     pose pairs w <= v;
+//   - the observed blocks C = H_cl[w, n] into shared memory (coalesced,
+//     predicated on the masks, 8 loads a thread in flight), and
+//     B = C H_inv[n] once per observed pair;
+//   - a warp a touched pair (or a run of the chunk's landmarks of one, when
+//     there are fewer pairs than warps; the runs then added in order) sums
+//     B_wn C_vn^T, and on a diagonal pair B_wn g_l[n], over the landmarks
+//     in order, a lane an entry, and writes the chunk's partials of the
+//     pairs it touched to the scratch, with the pair mask and each
+//     landmark's pose mask;
+//   - the block that takes the last ticket adds each pair's partials over
+//     the chunks that touched it in chunk order (a warp a pair), damps the
+//     ORIGINAL H_cc diagonal and pins as the plain version does, and solves
+//     the system in shared memory: LU with partial pivoting of the free
+//     poses' block augmented by its right-hand side (getrf's and getrs's
+//     operations; a zero pivot gives non-finite steps, which the LM
+//     rejects), one barrier a column, then the triangular solve in one
+//     warp. The other poses' rows and columns are zero off the diagonal
+//     (no H_cl) and their steps masked, so the full LU would leave the free
+//     rows as they are. The ticket is reset there; nothing else in the
+//     scratch is read before it is written.
+//   - a second launch, one thread a landmark, steps every landmark from the
+//     poses in its mask (the support floor and the caps).
+// The landmarks' products are summed (each in float32), and S factored and
+// solved, in float64: the endpoint steps amplify the error of dxi by their
+// blocks' condition (one scalar residual an observation), and with these
+// sums and the LU in float32 a window's endpoint steps landed further from
+// float64 than K15's band around the plain version's distance allows.
+// Inputs and outputs stay float32. No float atomics: two launches give the
+// same bits.
+//
+// Bound: the bytes of the blocks it must read (H_cl's observed blocks,
+// H_inv, g_l, H_ll, H_cc, g_c) and the products B C^T over the observed
+// pose pairs, a few microseconds. The LU is a chain of 6F pivot steps (F
+// free poses) that no roofline covers, and on an H100 it takes the
+// longest: a step's chain in warp 0 (loads, two warp reductions, a
+// shuffle, a reciprocal) and its barrier cost more than the column's work.
 
-__global__ void __launch_bounds__(SCHUR_NT)
-    schur_kernel(const float* __restrict__ H_cc, const float* __restrict__ g_c,
-                 const float* __restrict__ H_cl, const float* __restrict__ H_inv,
-                 const float* __restrict__ g_l, const float* lam_p,
-                 const uint8_t* __restrict__ free_, float* Sm, float* gm,
-                 int W, int N, float pin_weight) {
-  __shared__ float red[SCHUR_NT / 32][42];
-  __shared__ float tot[42];
-  const int w = blockIdx.y, v = blockIdx.x, tid = threadIdx.x;
-  const bool diag = w == v;
-  float acc[42];
-#pragma unroll
-  for (int q = 0; q < 42; ++q) acc[q] = 0.0f;
-  for (int n = tid; n < N; n += SCHUR_NT) {
-    const float* A = H_cl + ((size_t)w * N + n) * 18;
-    bool any = false;
-    float a[18];
-    for (int q = 0; q < 18; ++q) {
-      a[q] = A[q];
-      any |= a[q] != 0.0f;
-    }
-    if (!any) continue;
-    const float* Hi = H_inv + 9 * n;
-    float Bm[18];  // H_cl[w, n] @ H_inv[n], 6 x 3
-    for (int r = 0; r < 6; ++r)
-      for (int c = 0; c < 3; ++c)
-        Bm[3 * r + c] = a[3 * r] * Hi[c] + a[3 * r + 1] * Hi[3 + c] +
-                        a[3 * r + 2] * Hi[6 + c];
-    const float* C = H_cl + ((size_t)v * N + n) * 18;
-    for (int r = 0; r < 6; ++r)
-      for (int c = 0; c < 6; ++c)
-        acc[6 * r + c] += Bm[3 * r] * C[3 * c] + Bm[3 * r + 1] * C[3 * c + 1] +
-                          Bm[3 * r + 2] * C[3 * c + 2];
-    if (diag) {
-      const float* gg = g_l + 3 * n;
-      for (int r = 0; r < 6; ++r)
-        acc[36 + r] += Bm[3 * r] * gg[0] + Bm[3 * r + 1] * gg[1] +
-                       Bm[3 * r + 2] * gg[2];
-    }
-  }
-  block_sum<42, SCHUR_NT>(acc, red, tot);
-  const int W6 = 6 * W;
-  if (tid < 36) {
-    const int r = tid / 6, c = tid % 6;
-    float s = -tot[tid];
-    if (diag) {
-      const float* Hw = H_cc + 36 * w;
-      s += Hw[tid];
-      if (r == c) {
-        const float lam = *lam_p;
-        float support = 0.0f;
-        for (int q = 0; q < 6; ++q) support += Hw[7 * q];
-        const float pin =
-            (free_[w] != 0 && support > 1.0f) ? 0.0f : pin_weight;
-        s += lam * fmaxf(Hw[7 * r], 1e-3f) + 1e-6f;
-        s += pin;
-      }
-    }
-    Sm[(size_t)(6 * w + r) * W6 + 6 * v + c] = s;
-  }
-  if (diag && tid < 6) gm[6 * w + tid] = g_c[6 * w + tid] - tot[36 + tid];
+constexpr int SOLVE_NT = 512;
+constexpr int SOLVE_CH = 64;        // landmarks a block
+constexpr int SOLVE_MAX_W = 16;     // the 6W x (6W + 1) system in shared memory
+constexpr int SOLVE_PAIRS = SOLVE_MAX_W * (SOLVE_MAX_W + 1) / 2;
+constexpr int SOLVE_PW = (SOLVE_PAIRS + 31) / 32;   // words of a pair mask
+constexpr int SOLVE_SLOT = 42;      // a pair's partial: S_wv (36), g_w (6)
+constexpr int SOLVE_HEAD = 4 + 12 * SOLVE_MAX_W;    // ticket, pad, the step
+constexpr int STEP_NT = 256;
+
+// the scratch, in 32-bit words: a ticket (zero between launches), the
+// masked uncapped pose step (W, 6, float64), each landmark's pose mask (N),
+// each chunk's pair mask (G, SOLVE_PW) and partials (G, pairs, SOLVE_SLOT,
+// float64)
+struct SolveScratch {
+  unsigned int* ticket;
+  double* dxi;
+  unsigned int* lm_mask;
+  unsigned int* pm;
+  double* part;
+};
+
+__host__ __device__ inline SolveScratch solve_scratch(unsigned int* s, int N,
+                                                     int G) {
+  SolveScratch r;
+  r.ticket = s;
+  r.dxi = reinterpret_cast<double*>(s + 4);
+  r.lm_mask = s + SOLVE_HEAD;
+  r.pm = r.lm_mask + N;
+  // 8-byte aligned: N + G * SOLVE_PW rounded up to even words
+  r.part = reinterpret_cast<double*>(
+      r.pm + (((size_t)G * SOLVE_PW + N) & 1 ? (size_t)G * SOLVE_PW + 1
+                                             : (size_t)G * SOLVE_PW));
+  return r;
 }
 
-__global__ void backsub_kernel(const float* __restrict__ H_cl,
-                               const float* __restrict__ H_inv,
-                               const float* __restrict__ g_l,
-                               const float* __restrict__ H_ll,
-                               const float* __restrict__ dxi, float* d_out,
-                               float* dxi_out, int W, int N, int cap) {
-  const int n = blockIdx.x * blockDim.x + threadIdx.x;
-  if (blockIdx.x == 0 && threadIdx.x < W) {
-    const float* x = dxi + 6 * threadIdx.x;
-    float s = 0.0f;
-    for (int q = 0; q < 6; ++q) s += x[q] * x[q];
-    const float sc = cap ? fminf(1.0f, 1.0f / fmaxf(sqrtf(s), 1e-12f)) : 1.0f;
-    for (int q = 0; q < 6; ++q) dxi_out[6 * threadIdx.x + q] = x[q] * sc;
-  }
-  if (n >= N) return;
-  float rhs[3] = {g_l[3 * n], g_l[3 * n + 1], g_l[3 * n + 2]};
-  for (int w = 0; w < W; ++w) {
+// 1 / x to a few ulps of float64 (the hardware's approximation and two
+// Newton steps): a correctly rounded reciprocal takes several times as
+// long, on the LU's chain of pivots. 0, inf and NaN give inf or NaN.
+__device__ __forceinline__ double rcp64(double x) {
+  double r;
+  asm("rcp.approx.ftz.f64 %0, %1;" : "=d"(r) : "d"(x));
+  r = fma(r, fma(-x, r, 1.0), r);
+  return fma(r, fma(-x, r, 1.0), r);
+}
+
+__host__ __device__ inline int pair_index(int w, int v, int W) {
+  return w * W - w * (w - 1) / 2 + (v - w);      // w <= v, row-major
+}
+
+// landmark n's step from the pose step x (6W, shared) over the poses in m:
+// d = -H_inv (g_l + sum_w H_cl[w, n]^T x_w), zero under the support floor,
+// capped at 10 m
+__device__ __forceinline__ void landmark_step(
+    int n, unsigned int m, const double* x, const float* __restrict__ H_cl,
+    const float* __restrict__ H_inv, const float* __restrict__ g_l,
+    const float* __restrict__ H_ll, float* d_out, int N, int cap) {
+  double rhs[3] = {g_l[3 * n], g_l[3 * n + 1], g_l[3 * n + 2]};
+  for (; m; m &= m - 1) {
+    const int w = __ffs(m) - 1;
     const float* A = H_cl + ((size_t)w * N + n) * 18;
-    const float* x = dxi + 6 * w;
+    const double* xw = x + 6 * w;
+#pragma unroll
     for (int b = 0; b < 3; ++b)
-      for (int a = 0; a < 6; ++a) rhs[b] += A[3 * a + b] * x[a];
+#pragma unroll
+      for (int a = 0; a < 6; ++a) rhs[b] += (double)A[3 * a + b] * xw[a];
   }
   const float* Hi = H_inv + 9 * n;
   float d[3];
+#pragma unroll
   for (int a = 0; a < 3; ++a)
-    d[a] = -(Hi[3 * a] * rhs[0] + Hi[3 * a + 1] * rhs[1] + Hi[3 * a + 2] * rhs[2]);
+    d[a] = (float)-(Hi[3 * a] * rhs[0] + Hi[3 * a + 1] * rhs[1] +
+                    Hi[3 * a + 2] * rhs[2]);
   const float* H = H_ll + 9 * n;
   const bool moves = H[0] + H[4] + H[8] > 1e-2f;
   float sc = 1.0f;
@@ -753,7 +780,449 @@ __global__ void backsub_kernel(const float* __restrict__ H_cl,
     const float nn = sqrtf(d[0] * d[0] + d[1] * d[1] + d[2] * d[2]);
     sc = fminf(1.0f, 10.0f / fmaxf(nn, 1e-12f));
   }
+#pragma unroll
   for (int a = 0; a < 3; ++a) d_out[3 * n + a] = moves ? d[a] * sc : 0.0f;
+}
+
+__global__ void __launch_bounds__(SOLVE_NT) schur_solve_kernel(
+    const int* __restrict__ off, const int* __restrict__ list,
+    const float* __restrict__ H_cc, const float* __restrict__ g_c,
+    const float* __restrict__ H_inv, const float* __restrict__ g_l,
+    const float* __restrict__ H_cl, const float* lam_p,
+    const uint8_t* __restrict__ free_, float* dxi_out,
+    unsigned int* scratch, int W, int K, int L, int N, float pin_weight,
+    int cap) {
+  extern __shared__ float dyn[];
+  __shared__ unsigned int s_mask[SOLVE_CH], s_pm[SOLVE_PW];
+  __shared__ int s_off[SOLVE_CH + 1], s_pstart[SOLVE_CH + 1];
+  __shared__ unsigned char s_pw[SOLVE_PAIRS], s_pv[SOLVE_PAIRS],
+      s_plist[SOLVE_PAIRS], s_poses[SOLVE_MAX_W], s_free[SOLVE_MAX_W];
+  __shared__ int s_npl, s_npose, s_rank[SOLVE_MAX_W];
+  __shared__ int s_step[6 * SOLVE_MAX_W], s_row[6 * SOLVE_MAX_W];
+  __shared__ double s_x[6 * SOLVE_MAX_W];
+  __shared__ double s_seg[SOLVE_NT / 32][SOLVE_SLOT];
+  __shared__ bool s_last;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  constexpr int NWARP = SOLVE_NT / 32;
+  const unsigned int FULL = 0xffffffffu;
+  const int G = gridDim.x, NPAIR = W * (W + 1) / 2;
+  const int n0 = blockIdx.x * SOLVE_CH, nch = min(SOLVE_CH, N - n0);
+  const SolveScratch scr = solve_scratch(scratch, N, G);
+  float* sC = dyn;                           // observed blocks H_cl[w, n]
+  float* sB = sC + SOLVE_CH * W * 18;        // B = C H_inv[n]
+  float* sHi = sB + SOLVE_CH * W * 18;
+  float* sgl = sHi + SOLVE_CH * 9;
+  unsigned short* sq = reinterpret_cast<unsigned short*>(sgl + SOLVE_CH * 3);
+
+  // 1. each landmark's observing free poses, the chunk's poses and pairs
+  if (tid <= nch) s_off[tid] = off[n0 + tid];
+  if (tid < W) s_free[tid] = free_[tid];
+  for (int i = tid; i < nch * 9; i += SOLVE_NT) sHi[i] = H_inv[9 * n0 + i];
+  for (int i = tid; i < nch * 3; i += SOLVE_NT) sgl[i] = g_l[3 * n0 + i];
+  if (tid < SOLVE_CH) s_mask[tid] = 0;
+  if (tid < SOLVE_PW) s_pm[tid] = 0;
+  for (int p = tid; p < NPAIR; p += SOLVE_NT) {
+    int w = 0, r = p;
+    while (r >= W - w) r -= W - w++;
+    s_pw[p] = (unsigned char)w;
+    s_pv[p] = (unsigned char)(w + r);
+  }
+  __syncthreads();
+  const int WK = W * K;
+  for (int e = s_off[0] + tid; e < s_off[nch]; e += SOLVE_NT) {
+    const int g = list[e];
+    const int w = g < WK ? g / K : (g - WK) / (2 * L);
+    if (!s_free[w]) continue;
+    int lo = 0, hi = nch;            // the last t with s_off[t] <= e
+    while (hi - lo > 1) {
+      const int mid = (lo + hi) >> 1;
+      if (s_off[mid] <= e) lo = mid;
+      else hi = mid;
+    }
+    atomicOr(&s_mask[lo], 1u << w);
+  }
+  __syncthreads();
+  if (warp == 0) {   // pair offsets (a scan of the counts), the chunk's poses
+    const unsigned int m0 = 2 * lane < nch ? s_mask[2 * lane] : 0u;
+    const unsigned int m1 = 2 * lane + 1 < nch ? s_mask[2 * lane + 1] : 0u;
+    const int c0 = __popc(m0), c1 = __popc(m1);
+    int x = c0 + c1;
+#pragma unroll
+    for (int s = 1; s < 32; s <<= 1) {
+      const int y = __shfl_up_sync(FULL, x, s);
+      if (lane >= s) x += y;
+    }
+    s_pstart[2 * lane] = x - c0 - c1;
+    s_pstart[2 * lane + 1] = x - c1;
+    if (lane == 31) s_pstart[SOLVE_CH] = x;
+    const unsigned int um = __reduce_or_sync(FULL, m0 | m1);
+    if (lane == 0) s_npose = __popc(um);
+    if (lane < W && ((um >> lane) & 1u))
+      s_poses[__popc(um & ((1u << lane) - 1u))] = (unsigned char)lane;
+  } else if (tid - 32 < nch) {
+    const int t = tid - 32;
+    const unsigned int m = s_mask[t];
+    scr.lm_mask[n0 + t] = m;
+    for (unsigned int mw = m; mw; mw &= mw - 1) {
+      const int w = __ffs(mw) - 1;
+      for (unsigned int mv = mw; mv; mv &= mv - 1) {
+        const int p = pair_index(w, __ffs(mv) - 1, W);
+        atomicOr(&s_pm[p >> 5], 1u << (p & 31));
+      }
+    }
+  }
+  __syncthreads();
+
+  // 2. the observed blocks C = H_cl[w, n] of the chunk's poses (8 loads a
+  // thread in flight), then B = C H_inv[n]; the touched pairs' list
+  const int per = nch * 18, total = s_npose * per;
+  for (int i0 = tid; i0 < total; i0 += 8 * SOLVE_NT) {
+    float v[8];
+    int dst[8];
+#pragma unroll
+    for (int u = 0; u < 8; ++u) {
+      const int i = i0 + u * SOLVE_NT;
+      dst[u] = -1;
+      v[u] = 0.0f;
+      if (i < total) {
+        const int jj = i / per, r = i - jj * per, t = r / 18, e = r - 18 * t;
+        const int j = s_poses[jj];
+        const unsigned int m = s_mask[t];
+        if ((m >> j) & 1u) {
+          const int q = s_pstart[t] + __popc(m & ((1u << j) - 1u));
+          v[u] = H_cl[((size_t)j * N + n0) * 18 + r];
+          dst[u] = q * 18 + e;
+          if (e == 0) sq[q] = (unsigned short)t;
+        }
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < 8; ++u)
+      if (dst[u] >= 0) sC[dst[u]] = v[u];
+  }
+  if (warp == 0) {
+    const unsigned int bits = lane < SOLVE_PW ? s_pm[lane] : 0u;
+    const int c = __popc(bits);
+    int x = c;
+#pragma unroll
+    for (int s = 1; s < 8; s <<= 1) {
+      const int y = __shfl_up_sync(FULL, x, s);
+      if (lane >= s) x += y;
+    }
+    int at = x - c;
+    for (unsigned int b = bits; b; b &= b - 1)
+      s_plist[at++] = (unsigned char)(32 * lane + __ffs(b) - 1);
+    if (lane == SOLVE_PW - 1) s_npl = x;
+  }
+  __syncthreads();
+  const int nq = s_pstart[nch];
+  for (int i = tid; i < nq * 18; i += SOLVE_NT) {
+    const int q = i / 18, e = i - q * 18, r = e / 3, c = e - r * 3;
+    const float* a = sC + q * 18 + 3 * r;
+    const float* hi = sHi + 9 * sq[q];
+    sB[i] = a[0] * hi[c] + a[1] * hi[3 + c] + a[2] * hi[6 + c];
+  }
+  __syncthreads();
+
+  // 3. the chunk's partials: a warp sums a touched pair's S_wv[e / 6][e % 6]
+  // (lane e < 36) and, on a diagonal pair, g_w[lane] (lanes 0-5; slot
+  // entries 36-41) over the chunk's landmarks in order. With fewer pairs
+  // than warps, each pair's landmarks are cut into nseg runs, a warp each,
+  // whose sums are then added in run order.
+  double* part = scr.part + (size_t)blockIdx.x * NPAIR * SOLVE_SLOT;
+  const int npl = s_npl, nseg = npl > 0 && npl < NWARP ? NWARP / npl : 1;
+  for (int k = warp; k < npl * nseg; k += NWARP) {
+    const int pi = k / nseg, sg = k - pi * nseg;
+    const int p = s_plist[pi], w = s_pw[p], v = s_pv[p];
+    const int e1 = lane + 32;                 // the lane's second entry
+    const int r0 = lane / 6, c0 = lane - 6 * r0;
+    const int r1 = e1 < 36 ? e1 / 6 : 0, c1 = e1 < 36 ? e1 - 6 * r1 : 0;
+    const int rg = w == v && lane < 6 ? lane : 0;
+    double a0 = 0.0, a1 = 0.0, ag = 0.0;
+    // every landmark's blocks are read and those of the landmarks the pair
+    // does not observe add nothing (a select, no branch: the loads of
+    // successive landmarks overlap; the blocks read for those stay inside
+    // the shared buffer)
+#pragma unroll 4
+    for (int t = sg * nch / nseg; t < (sg + 1) * nch / nseg; ++t) {
+      const unsigned int m = s_mask[t];
+      const bool hit = (m >> w) & (m >> v) & 1u;
+      const int base = s_pstart[t];
+      const float* b = sB + (base + __popc(m & ((1u << w) - 1u))) * 18;
+      const float* C = sC + (base + __popc(m & ((1u << v) - 1u))) * 18;
+      const float* gl = sgl + 3 * t;
+      const float x0 = b[3 * r0] * C[3 * c0] + b[3 * r0 + 1] * C[3 * c0 + 1] +
+                       b[3 * r0 + 2] * C[3 * c0 + 2];
+      const float x1 = b[3 * r1] * C[3 * c1] + b[3 * r1 + 1] * C[3 * c1 + 1] +
+                       b[3 * r1 + 2] * C[3 * c1 + 2];
+      const float xg = b[3 * rg] * gl[0] + b[3 * rg + 1] * gl[1] +
+                       b[3 * rg + 2] * gl[2];
+      if (hit) {      // a landmark's products in float32, their sum in float64
+        a0 += x0;
+        a1 += x1;
+        ag += xg;
+      }
+    }
+    double* slot = nseg > 1 ? s_seg[k] : part + p * SOLVE_SLOT;
+    slot[lane] = a0;
+    if (e1 < 36) slot[e1] = a1;
+    if (w == v && lane < 6) slot[36 + lane] = ag;
+  }
+  if (nseg > 1) {
+    __syncthreads();
+    for (int i = tid; i < npl * SOLVE_SLOT; i += SOLVE_NT) {
+      const int pi = i / SOLVE_SLOT, e = i - pi * SOLVE_SLOT;
+      const int p = s_plist[pi];
+      if (e >= 36 && s_pw[p] != s_pv[p]) continue;
+      double acc = 0.0;
+      for (int sg = 0; sg < nseg; ++sg) acc += s_seg[pi * nseg + sg][e];
+      part[p * SOLVE_SLOT + e] = acc;
+    }
+  }
+  if (tid < SOLVE_PW) scr.pm[blockIdx.x * SOLVE_PW + tid] = s_pm[tid];
+  __threadfence();                   // partials and masks before the ticket
+  __syncthreads();
+  if (tid == 0) s_last = atomicAdd(scr.ticket, 1u) == (unsigned int)G - 1;
+  __syncthreads();
+  if (!s_last) return;
+  __threadfence();
+
+  // 4. the last block: each pair's partials over the chunks that touched
+  // it, in chunk order (a warp a pair, a lane an entry, 8 loads in
+  // flight), into S (both triangles) and the reduced gradient (the last
+  // column). A pose that is not free has no H_cl, so its rows and columns
+  // of S are zero off its diagonal and its step is masked to 0: the
+  // system is the free poses' alone, nf = 6 x their number (rank[w]:
+  // pose w's place among them).
+  if (tid == 0) *scr.ticket = 0;
+  if (warp == 0) {
+    const unsigned int fm =
+        __ballot_sync(FULL, lane < W && s_free[lane] != 0);
+    if (lane < W)
+      s_rank[lane] = s_free[lane] ? __popc(fm & ((1u << lane) - 1u)) : -1;
+  }
+  const int n6 = 6 * W;
+  double* A = reinterpret_cast<double*>(dyn);
+  unsigned int* spm = reinterpret_cast<unsigned int*>(A + n6 * (n6 + 1));
+  for (int i = tid; i < G * SOLVE_PW; i += SOLVE_NT) spm[i] = __ldcg(scr.pm + i);
+  __syncthreads();
+  int nfree = 0;
+  for (int w = 0; w < W; ++w) nfree += s_free[w] != 0;
+  const int nf = 6 * nfree, LD = nf + 1;
+  const float lam = *lam_p;
+  for (int p = warp; p < NPAIR; p += NWARP) {
+    const int w = s_pw[p], v = s_pv[p], word = p >> 5;
+    if (s_rank[w] < 0 || s_rank[v] < 0) continue;
+    const int fw = 6 * s_rank[w], fv = 6 * s_rank[v];
+    const unsigned int bit = 1u << (p & 31);
+    double acc0 = 0.0, acc1 = 0.0;
+    for (int b0 = 0; b0 < G; b0 += 32) {
+      unsigned int tm = __ballot_sync(
+          FULL, b0 + lane < G && (spm[(b0 + lane) * SOLVE_PW + word] & bit));
+      while (tm) {
+        double x0[8], x1[8];
+#pragma unroll
+        for (int u = 0; u < 8; ++u) {
+          x0[u] = x1[u] = 0.0;
+          if (tm) {
+            const double* src =
+                scr.part + ((size_t)(b0 + __ffs(tm) - 1) * NPAIR + p) * SOLVE_SLOT;
+            tm &= tm - 1;
+            x0[u] = __ldcg(src + lane);
+            if (lane < SOLVE_SLOT - 32) x1[u] = __ldcg(src + 32 + lane);
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < 8; ++u) {
+          acc0 += x0[u];
+          acc1 += x1[u];
+        }
+      }
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int e = lane + 32 * h;
+      const double acc = h ? acc1 : acc0;
+      if (e >= SOLVE_SLOT || (e >= 36 && w != v)) continue;
+      if (e >= 36) {
+        A[(fw + e - 36) * LD + nf] = (double)g_c[6 * w + e - 36] - acc;
+        continue;
+      }
+      const int r = e / 6, c = e - 6 * r;
+      double s = -acc;
+      if (w == v) {
+        const float* Hw = H_cc + 36 * w;
+        s += Hw[e];
+        if (r == c) {
+          float support = 0.0f;
+          for (int q = 0; q < 6; ++q) support += Hw[7 * q];
+          const float pin =
+              (s_free[w] != 0 && support > 1.0f) ? 0.0f : pin_weight;
+          s += lam * fmaxf(Hw[7 * r], 1e-3f) + 1e-6f;
+          s += pin;
+        }
+      } else {
+        A[(fv + c) * LD + fw + r] = s;
+      }
+      A[(fw + r) * LD + fv + c] = s;
+    }
+  }
+  __syncthreads();
+
+  // 5. LU with partial pivoting of [S | g] (getrf's and getrs's
+  // operations: the reference's jnp.linalg.solve), one barrier a column.
+  // s_step[s]: the column at which storage row s became a pivot row
+  // (INT_MAX: not yet); s_row[k]: the pivot row of column k. Warp 0 holds
+  // its rows s = lane + 32 m (m < 3) of the next column in registers: it
+  // updates them with the last column's multipliers, picks the pivot (the
+  // largest |a|, the lowest row on ties, NaN wins: two warp reductions on
+  // the bits of |a|) and writes the new multipliers, while the other warps
+  // update the columns right of it. A zero pivot gives non-finite steps,
+  // which the LM rejects.
+  if (tid < nf) s_step[tid] = INT_MAX;
+  __syncthreads();
+  unsigned int act = 0;              // warp 0: its rows not yet pivot rows
+  double lm[3] = {0.0, 0.0, 0.0};    // warp 0: their multipliers
+  int prow = -1;                     // warp 0: the last pivot row
+#pragma unroll
+  for (int m = 0; m < 3; ++m)
+    if (lane + 32 * m < nf) act |= 1u << m;
+  auto column = [&](int c) {         // warp 0: the pivot of column c
+    const double u = prow >= 0 ? A[prow * LD + c] : 0.0;
+    double cv[3];
+    unsigned int best = 0;
+    int brow = INT_MAX;
+#pragma unroll
+    for (int m = 0; m < 3; ++m) {
+      cv[m] = 0.0;
+      if ((act >> m) & 1u) {
+        cv[m] = A[(lane + 32 * m) * LD + c];
+        if (prow >= 0) cv[m] -= lm[m] * u;
+        // |a|'s high word orders as |a| does (to 2^-20 of it)
+        const unsigned int key = (unsigned int)__double2hiint(fabs(cv[m]));
+        if (brow == INT_MAX || key > best) {
+          best = key;
+          brow = lane + 32 * m;
+        }
+      }
+    }
+    const unsigned int mx = __reduce_max_sync(FULL, best);
+    const unsigned int row = __reduce_min_sync(
+        FULL, best == mx ? (unsigned int)brow : 0xffffffffu);
+    const int mr = row >> 5, owner = row & 31;
+    const double pv = __shfl_sync(
+        FULL, mr == 0 ? cv[0] : (mr == 1 ? cv[1] : cv[2]), owner);
+    if (lane == owner) {
+      act &= ~(1u << mr);
+      A[row * LD + c] = pv;
+    }
+    const double inv = rcp64(pv);
+#pragma unroll
+    for (int m = 0; m < 3; ++m)
+      if ((act >> m) & 1u) {
+        lm[m] = cv[m] * inv;
+        A[(lane + 32 * m) * LD + c] = lm[m];
+      }
+    if (lane == 0) {
+      s_step[row] = c;
+      s_row[c] = (int)row;
+    }
+    prow = (int)row;
+  };
+  const int o = tid - 32, ncg = nf > 0 ? (SOLVE_NT - 32) / nf : 1;
+  const int my_row = o >= 0 && nf > 0 ? o % nf : 0;
+  const int my_cg = o >= 0 && nf > 0 ? o / nf : ncg;
+  if (warp == 0 && nf > 0) column(0);
+  __syncthreads();
+  for (int k = 0; k < nf; ++k) {
+    if (warp == 0) {
+      if (k + 1 < nf) column(k + 1);
+    } else if (my_cg < ncg && s_step[my_row] > k) {
+      // columns k + 2 .. nf (the right-hand side last) of a row not yet a
+      // pivot row, 4 at a time (loads first); s_step of the row warp 0
+      // marks now stays > k
+      double* Ar = A + my_row * LD;
+      const double* U = A + s_row[k] * LD;
+      const double l = Ar[k];
+      for (int j0 = k + 2 + my_cg; j0 <= nf; j0 += 4 * ncg) {
+        double uv[4], av[4];
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const int j = j0 + q * ncg;
+          uv[q] = j <= nf ? U[j] : 0.0;
+          av[q] = j <= nf ? Ar[j] : 0.0;
+        }
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+          if (j0 + q * ncg <= nf) Ar[j0 + q * ncg] = av[q] - l * uv[q];
+      }
+    }
+    __syncthreads();
+  }
+
+  // 6. U x = y in warp 0 (a lane: the logical rows lane + 32 m; the next
+  // column's entries loaded a step ahead), then dxi = where(free, -x, 0)
+  // and the pose cap
+  if (warp == 0) {
+    double y[3], rd[3], un[3];
+    int rr[3];
+#pragma unroll
+    for (int m = 0; m < 3; ++m) {
+      const int i = lane + 32 * m;
+      rr[m] = i < nf ? s_row[i] : 0;
+      y[m] = i < nf ? A[rr[m] * LD + nf] : 0.0;
+      rd[m] = i < nf ? 1.0 / A[rr[m] * LD + i] : 0.0;
+      un[m] = i < nf ? A[rr[m] * LD + nf - 1] : 0.0;
+    }
+    for (int k = nf - 1; k >= 0; --k) {
+      const int mk = k >> 5, owner = k & 31;
+      double uc[3];
+#pragma unroll
+      for (int m = 0; m < 3; ++m) {
+        uc[m] = un[m];
+        un[m] = k > 0 ? A[rr[m] * LD + k - 1] : 0.0;
+      }
+      const double xk = __shfl_sync(
+          FULL, (mk == 0 ? y[0] : (mk == 1 ? y[1] : y[2])) *
+                    (mk == 0 ? rd[0] : (mk == 1 ? rd[1] : rd[2])),
+          owner);
+      if (lane == owner) s_x[k] = xk;
+#pragma unroll
+      for (int m = 0; m < 3; ++m)
+        if (lane + 32 * m < k) y[m] -= uc[m] * xk;
+    }
+    __syncwarp();
+    if (lane < W) {
+      float x6[6], s = 0.0f;
+      const bool fr = s_free[lane] != 0;
+#pragma unroll
+      for (int a = 0; a < 6; ++a) {
+        x6[a] = fr ? (float)-s_x[6 * s_rank[lane] + a] : 0.0f;
+        s += x6[a] * x6[a];
+      }
+      const float sc = cap ? fminf(1.0f, 1.0f / fmaxf(sqrtf(s), 1e-12f)) : 1.0f;
+#pragma unroll
+      for (int a = 0; a < 6; ++a) {
+        dxi_out[6 * lane + a] = x6[a] * sc;
+        scr.dxi[6 * lane + a] = fr ? -s_x[6 * s_rank[lane] + a] : 0.0;
+      }
+    }
+  }
+}
+
+__global__ void __launch_bounds__(STEP_NT) landmark_step_kernel(
+    const unsigned int* __restrict__ scratch, const float* __restrict__ H_cl,
+    const float* __restrict__ H_inv, const float* __restrict__ g_l,
+    const float* __restrict__ H_ll, float* d_out, int W, int N, int cap) {
+  __shared__ double x[6 * SOLVE_MAX_W];
+  const SolveScratch scr =
+      solve_scratch(const_cast<unsigned int*>(scratch), N, 1);
+  if ((int)threadIdx.x < 6 * W) x[threadIdx.x] = scr.dxi[threadIdx.x];
+  __syncthreads();
+  const int n = blockIdx.x * STEP_NT + threadIdx.x;
+  if (n < N)
+    landmark_step(n, scr.lm_mask[n], x, H_cl, H_inv, g_l, H_ll, d_out, N,
+                  cap);
 }
 
 }  // namespace
@@ -832,23 +1301,40 @@ int lba_bin(const int* off, const int* list, const float* Jc_pt,
   return (int)cudaGetLastError();
 }
 
-// -> Sm (6W, 6W), gm (6W): the damped, pinned reduced camera system.
-int lba_schur(const float* H_cc, const float* g_c, const float* H_cl,
-              const float* H_inv, const float* g_l, const float* lam,
-              const uint8_t* free_, float* Sm, float* gm, int W, int N,
-              float pin_weight, cudaStream_t stream) {
-  schur_kernel<<<dim3(W, W), SCHUR_NT, 0, stream>>>(
-      H_cc, g_c, H_cl, H_inv, g_l, lam, free_, Sm, gm, W, N, pin_weight);
-  return (int)cudaGetLastError();
-}
-
-// dxi (W, 6) -> landmark steps d (N, 3) and dxi (W, 6), capped if cap.
-int lba_backsub(const float* H_cl, const float* H_inv, const float* g_l,
-                const float* H_ll, const float* dxi, float* d, float* dxi_out,
-                int W, int N, int cap, cudaStream_t stream) {
-  const int threads = 256;
-  backsub_kernel<<<(N + threads - 1) / threads, threads, 0, stream>>>(
-      H_cl, H_inv, g_l, H_ll, dxi, d, dxi_out, W, N, cap);
+// One LM step after the blocks: the Schur complement over lba_index's
+// lists, the damped and pinned 6W x 6W solve and the landmark steps ->
+// dxi (W, 6) masked and (cap) capped, d (N, 3) floored and capped. scratch:
+// backend/lba.py::_solve_words(W, N) words, zero at first use; the launch leaves it so
+// for the next (launches that share one run one after another).
+int lba_solve(const int* off, const int* list, const float* H_cc,
+              const float* g_c, const float* H_ll, const float* H_inv,
+              const float* g_l, const float* H_cl, const float* lam,
+              const uint8_t* free_, float* dxi, float* d,
+              unsigned int* scratch, int scratch_words, int W, int K, int L,
+              int N, float pin_weight, int cap, cudaStream_t stream) {
+  if (W < 1 || W > SOLVE_MAX_W || N < 1) return (int)cudaErrorInvalidValue;
+  const int G = (N + SOLVE_CH - 1) / SOLVE_CH, npair = W * (W + 1) / 2;
+  const long long need = SOLVE_HEAD + (long long)N + (long long)G * SOLVE_PW +
+                        1 + 2LL * G * npair * SOLVE_SLOT;
+  if (scratch_words < need) return (int)cudaErrorInvalidValue;
+  const size_t smem1 = sizeof(float) * (2 * SOLVE_CH * W * 18 + SOLVE_CH * 12) +
+                       sizeof(unsigned short) * SOLVE_CH * W;
+  const size_t smem2 = sizeof(double) * 6 * W * (6 * W + 1) +
+                       sizeof(unsigned int) * G * SOLVE_PW;
+  const size_t smem = smem1 > smem2 ? smem1 : smem2;
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        schur_solve_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  schur_solve_kernel<<<G, SOLVE_NT, smem, stream>>>(
+      off, list, H_cc, g_c, H_inv, g_l, H_cl, lam, free_, dxi, scratch, W, K,
+      L, N, pin_weight, cap);
+  const cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  landmark_step_kernel<<<(N + STEP_NT - 1) / STEP_NT, STEP_NT, 0, stream>>>(
+      scratch, H_cl, H_inv, g_l, H_ll, d, W, N, cap);
   return (int)cudaGetLastError();
 }
 

@@ -62,8 +62,7 @@ _SIGNATURES: Dict[str, str] = {
     "lba_camera": "p" * 11 + "iii",
     "lba_index": "p" * 5 + "iiiii",
     "lba_bin": "p" * 18 + "iiiii",
-    "lba_schur": "p" * 9 + "iif",
-    "lba_backsub": "p" * 7 + "iii",
+    "lba_solve": "p" * 13 + "iiiii" + "fi",
     "bow_descend": "pppiii",
     "bow_hist": "ppppii",
     "pg_edges": "p" * 8 + "ii",
@@ -85,7 +84,8 @@ KERNEL_FUNCTIONS = (
     "refit_kernel", "merge_kernel", "lbd_kernel", "pose_optimize_kernel",
     "kf_scan_kernel", "medoid_kernel", "terms_kernel",
     "camera_kernel", "lba_index_kernel", "bin_index_kernel",
-    "schur_kernel", "backsub_kernel", "bow_descend_kernel", "bow_hist_kernel",
+    "schur_solve_kernel", "landmark_step_kernel", "bow_descend_kernel",
+    "bow_hist_kernel",
     "pg_edges_kernel", "pg_assemble_kernel", "pg_blocks_kernel",
     "pg_pcg_kernel", "pg_update_kernel", "remap_kernel")
 

@@ -697,17 +697,13 @@ def test_lba_kernels(cuda):
     # condition number: 1e-4 there
     for x, y, tol in zip(b, bp, (1e-5, 1e-5, 1e-5, 1e-4, 1e-5, 1e-5)):
         assert rel(x, y) <= tol
-    Sm, gm = _launched("lba_schur", lambda: lba.lba_schur(bp, free, lam))
-    Sp, gp = lba.lba_schur_plain(bp, free, lam)
-    assert rel(Sm, Sp) <= 1e-5 and rel(gm, gp) <= 1e-5
-    dxi = torch.randn((5, 6), generator=torch.Generator().manual_seed(1)
-                      ).to(cuda) * 0.3
+    P = prob.pt_pos.shape[0]
     for cap in (True, False):
-        got = _launched("lba_backsub", lambda: lba.lba_backsub(
-            bp, dxi, prob.pt_pos.shape[0], cap))
-        for x, y in zip(got, lba.lba_backsub_plain(bp, dxi,
-                                                   prob.pt_pos.shape[0], cap)):
-            assert rel(x, y) <= 1e-4
+        got = _launched("lba_solve", lambda: lba.lba_solve(
+            bp, prob, free, lam, lba.lba_index(prob), cap=cap))
+        _hold_f64(got, lba.lba_solve_plain(bp, free, lam, P, cap=cap),
+                  lba.lba_solve_plain(_f64(bp), free, lam.double(), P,
+                                      cap=cap))
     cfg = SlamConfig()
     before = native.LAUNCHES["lba_bin"]
     res = lba.run_lba(prob, cam, cfg)
@@ -722,6 +718,80 @@ def test_lba_kernels(cuda):
     assert rel(res.cost1, resp.cost1) <= 1e-3
     assert float((res.obs_pt_inlier == resp.obs_pt_inlier).float().mean()
                  ) >= 0.995
+
+
+def _f64(nt):
+    return type(nt)(*(x.double() if x.is_floating_point() else x
+                      for x in nt))
+
+
+def _hold_f64(got, ref, truth):
+    """K15's rule: each float output of the kernel, and its distance from
+    the plain version, within 3x the plain version's own distance from
+    float64 + 1e-5 (relative to the output's largest magnitude)."""
+    rel = lambda a, c: float((a.double() - c.double()).abs().max()
+                             / c.double().abs().max().clamp(min=1e-30))
+    for g, r, t in zip(got, ref, truth):
+        bound = 3.0 * rel(r, t) + 1e-5
+        assert rel(g, t) <= bound and rel(g, r) <= bound, (
+            rel(g, t), rel(g, r), bound)
+
+
+@pytest.mark.parametrize("case", ["dense", "pinned"])
+def test_lba_solve_one_launch(cuda, case):
+    """lba_solve (the Schur complement over the observed pose pairs, the
+    damped 6W x 6W solve and the landmark steps; one call of its entry)
+    against lba_solve_plain under K15's rule, on lba_problem_np and on a
+    pinned, nearly singular case (free KF 2 with every observation
+    detached, KF 3 left with four points and no lines); two launches on
+    the same blocks give the same bits."""
+    from plslam_tpu_torch.backend import lba
+    d, cam = lba_problem_np(2)
+    if case == "pinned":
+        for key in ("obs_pt_id", "obs_ln_sid", "obs_ln_eid"):
+            d[key][2] = -1
+        d["obs_pt_id"][3, 4:] = -1
+        d["obs_ln_sid"][3] = d["obs_ln_eid"][3] = -1
+    prob = _lba_problem(d, cuda)
+    free = lba._free(prob)
+    lam = torch.tensor(1e-3, device=cuda)
+    t, sigma, _ = lba.lba_terms_sigma_plain(prob, cam)
+    b = lba.lba_blocks_plain(t, prob, sigma, free, lam)
+    idx = lba.lba_index(prob)
+    P = prob.pt_pos.shape[0]
+    got = _launched("lba_solve",
+                    lambda: lba.lba_solve(b, prob, free, lam, idx))
+    _hold_f64(got, lba.lba_solve_plain(b, free, lam, P),
+              lba.lba_solve_plain(_f64(b), free, lam.double(), P))
+    for x, y in zip(got, lba.lba_solve(b, prob, free, lam, idx)):
+        assert torch.equal(x, y)
+    if case == "pinned":
+        assert float(got[0][2].abs().max()) == 0.0
+
+
+def test_run_lba_graph_replay(cuda):
+    """run_lba on a CUDA device: its first call of a shape runs eagerly and
+    captures, later calls replay the graph. On two successive problems of
+    one shape with different values (stale inputs would show) each call is
+    bit-equal to the eager loop of kernels, and native.LAUNCHES counts each
+    call as that loop's launches: PER_LBA's table, the capture uncounted."""
+    from chip_smoke import PER_LBA
+    from plslam_tpu_torch.backend import lba
+    from plslam_tpu_torch.config import SlamConfig
+    cfg = SlamConfig()
+    probs = [_lba_problem(lba_problem_np(seed, W=6, P=100, Q=30)[0], cuda)
+             for seed in (7, 8)]
+    cam = lba_problem_np(7)[1]
+    for i, prob in enumerate(probs * 2):
+        native.reset_counts()
+        got = lba.run_lba(prob, cam, cfg)
+        torch.cuda.synchronize()
+        assert dict(native.LAUNCHES) == PER_LBA, (i, dict(native.LAUNCHES))
+        want = lba._run(prob, cam, cfg, lba._KERNELS)
+        for x, y in zip(got, want):
+            assert torch.equal(x, y), i
+    assert not torch.equal(lba.run_lba(probs[0], cam, cfg).pt_pos,
+                           lba.run_lba(probs[1], cam, cfg).pt_pos)
 
 
 def test_lines_sobel_u8_wrap(cuda):

@@ -329,3 +329,103 @@ def test_lba_index_plain_lists_each_observation_in_order(seed):
     assert total == int(((obs_id >= 0) & (obs_id < P)).sum()
                         + ((sid >= 0) & (sid < Q)).sum()
                         + ((eid >= 0) & (eid < Q)).sum())
+
+
+# -- one LM step after the blocks (lba_solve) ----------------------------------
+
+def _solve_case(case):
+    """lba_problem_np (seed 2) bent to reach one branch of the step:
+    "pinned", free KF 2 with every observation detached (no support: its
+    pin holds it); "floor", point 0 put 1e5 m down every camera's axis and
+    observed there, so its H_ll trace is under the 1e-2 floor; "caps",
+    poses perturbed by 0.6 and points by 30 m, so the steps pass the 1 m
+    and 10 m caps."""
+    kw = dict(pose_noise=0.6, pt_noise=30.0) if case == "caps" else {}
+    d, cam = lba_problem_np(2, **kw)
+    if case == "pinned":
+        d["obs_pt_id"][2] = -1
+        d["obs_ln_sid"][2] = -1
+        d["obs_ln_eid"][2] = -1
+    if case == "floor":
+        far = np.array([0.0, 0.0, 1e5], np.float32)
+        d["pt_pos"][0] = far
+        T = d["kf_pose"]
+        Pc = T[:, :3, :3] @ far + T[:, :3, 3]
+        d["obs_pt_uv"][:, 0] = np.stack(
+            [cam.fx * Pc[:, 0] / Pc[:, 2] + cam.cx,
+             cam.fy * Pc[:, 1] / Pc[:, 2] + cam.cy], -1)
+        d["obs_pt_disp"][:, 0] = cam.fx * cam.b / Pc[:, 2]
+        d["obs_pt_id"][:, 0] = 0
+    jp = jlba.LBAProblem(**{k: jnp.asarray(v) for k, v in d.items()})
+    tp = tlba.LBAProblem(**{k: torch.from_numpy(v) for k, v in d.items()})
+    return jp, tp, cam
+
+
+@pytest.mark.parametrize("case", ["pinned", "floor", "caps"])
+def test_lba_solve_plain_matches_reference(case):
+    """lba_solve_plain on the port's blocks against the reference's
+    _assemble_and_solve + _cap_steps on the same problem: each output in
+    the file's band (3x the reference's distance from float64 + 1e-6),
+    and the branch the case builds taken."""
+    jp, tp, cam = _solve_case(case)
+    lam = 1e-3
+    P = tp.pt_pos.shape[0]
+    want = jlba._cap_steps(*_ref_step(jp, JC, jnp.float32(lam)))
+
+    def solve(prob):
+        t, sigma, _ = tlba.lba_terms_sigma_plain(prob, cam)
+        free = tlba._free(prob)
+        lam_t = torch.tensor(lam, dtype=prob.kf_pose.dtype)
+        b = tlba.lba_blocks_plain(t, prob, sigma, free, lam_t)
+        return b, tlba.lba_solve_plain(b, free, lam_t, P)
+    b, got = solve(tp)
+    _, truth = solve(_f64(tp))
+    for g, w, t in zip(got, want, truth):
+        _in_band(g.numpy(), w, t.numpy())
+    dxi, d_pt, d_ep = got
+    if case == "pinned":
+        assert float(torch.diagonal(b.H_cc[2]).sum()) == 0.0
+        assert float(dxi[2].abs().max()) == 0.0
+        assert float(dxi[1:].abs().max()) > 1e-4
+    if case == "floor":
+        assert float(torch.diagonal(b.H_ll[0]).sum()) < 1e-2
+        assert bool((d_pt[0] == 0).all())
+        assert float(d_pt[1:].abs().max()) > 0.0
+    if case == "caps":
+        for x, cap in ((dxi, 1.0), (torch.cat([d_pt, d_ep]), 10.0)):
+            n = torch.linalg.norm(x, dim=-1)
+            assert float(n.max()) == pytest.approx(cap, rel=1e-5)
+            assert int((n > 0.999 * cap).sum()) >= 1
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_observed_blocks_are_the_indexed_ones(seed):
+    """The Schur launch's premise: H_cl[w, n] of lba_bin_plain is zero
+    unless pose w is free and lba_index_plain lists an observation of n by
+    w, decoded as the kernel decodes it (g < W K: pose g // K; else
+    (g - W K) // (2 L)); the launch reads no other block."""
+    _, tp, cam = _problem(seed)
+    W, K = tp.obs_pt_id.shape
+    L = tp.obs_ln_sid.shape[1]
+    t, sigma, _ = tlba.lba_terms_sigma_plain(tp, cam)
+    free = tlba._free(tp)
+    H_cl = tlba.lba_bin_plain(t, tp, sigma, free, torch.tensor(1e-3))[3]
+    idx = tlba.lba_index_plain(tp)
+    off, obs = idx.off.numpy(), idx.obs.numpy()
+    seen = np.zeros(H_cl.shape[:2], bool)
+    for n in range(H_cl.shape[1]):
+        for g in obs[off[n]:off[n + 1]]:
+            w = g // K if g < W * K else (g - W * K) // (2 * L)
+            seen[w, n] = bool(free[w])
+    nonzero = (H_cl.abs().amax(dim=(2, 3)) > 0).numpy()
+    assert nonzero.sum() > 0.5 * seen.sum()
+    assert not (nonzero & ~seen).any()
+
+
+def test_run_lba_on_cpu_is_the_plain_loop():
+    """run_lba on CPU tensors runs the LM loop of plain versions (no
+    graph): equal to run_lba_plain to the bit."""
+    _, tp, cam = _problem(0)
+    got, want = tlba.run_lba(tp, cam, TCFG), tlba.run_lba_plain(tp, cam, TCFG)
+    for x, y in zip(got, want):
+        assert torch.equal(x, y)
