@@ -230,6 +230,34 @@ def all_kernels(fn, iters: int = 10):
     return _profile_device(fn, lambda k: True, iters)
 
 
+def launched_grid(fn, kernel: str):
+    """(grid, block) of a device record of ``kernel`` in a torch.profiler
+    trace of three calls of ``fn``, or None where the trace holds no such
+    record or does not give them."""
+    import os
+    import tempfile
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            fn()
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            trace = json.load(f)
+    for ev in trace.get("traceEvents", []):
+        args = ev.get("args") or {}
+        if ev.get("cat") == "kernel" and kernel in ev.get("name", "") \
+                and "grid" in args:
+            return args["grid"], args.get("block")
+    return None
+
+
 def bound(nbytes: float, ops: float, ops_per_s: float = F32_OPS_PER_S):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / ops_per_s * 1e3
@@ -255,7 +283,7 @@ class Recorder:
     def __call__(self, name, source, replaces, got, plain, tol, fn, plain_fn,
                  nbytes, ops, library_fn=None, iters=20, entry=None,
                  err_kind="absolute", ops_per_s=F32_OPS_PER_S, before=False,
-                 popc_ops=None, library_what=None, errs=None):
+                 popc_ops=None, library_what=None, errs=None, cluster=None):
         """``tol`` is one tolerance for every output, or a list of one per
         output (``err_kind`` then names the unit of each). ``errs``: the
         errors, measured by the caller, in place of the largest absolute
@@ -265,7 +293,8 @@ class Recorder:
         popcounts of the CUDA-core algorithm, whose floor the row also
         gives (``popc_bound_ms``) beside the card's bound.
         ``library_what``: what ``library_fn`` computes where that is less
-        than the whole function."""
+        than the whole function. ``cluster``: the CTAs of a kernel launched
+        as a thread-block cluster."""
         if errs is None:
             errs = [max_abs_err(g, p) for g, p in zip(got, plain)]
         tols = (list(tol) if isinstance(tol, (list, tuple))
@@ -286,7 +315,8 @@ class Recorder:
             before=before, **({} if popc_ms is None
                               else {"popc_bound_ms": popc_ms}),
             **({} if library_what is None
-               else {"library_what": library_what})))
+               else {"library_what": library_what}),
+            **({} if cluster is None else {"cluster": cluster})))
         print(f"[kernel] {name}{' (before: replaced)' if before else ''}"
               f": max_abs_err={err:g} per output "
               f"{[f'{e:g}' for e in errs]} ({err_kind}; tol "
@@ -295,7 +325,8 @@ class Recorder:
               f"bound_ms={b_ms:.4f} ({b_by}) "
               + ("" if popc_ms is None else f"popc_bound_ms={popc_ms:.4f} ")
               + f"library_ms={'null' if lib_ms is None else f'{lib_ms:.4f}'}"
-              + ("" if library_what is None else f" ({library_what})"),
+              + ("" if library_what is None else f" ({library_what})")
+              + ("" if cluster is None else f" cluster={cluster} CTA(s)"),
               flush=True)
         check(ok, f"{name} disagrees with its plain version: {errs} > {tols}")
 
@@ -1337,6 +1368,20 @@ def gn_inputs(dev, B, K, L, seed):
     return cam, pts, lns
 
 
+def medoid_inputs(g, N, R, dev):
+    """Rings of N landmarks (R packed members each, a quarter with a
+    repeated member: ties), counts 0..6 (0 and above R), three quarters of
+    the rows valid, and the rows' old descriptors."""
+    import torch
+    ring = torch.randint(-2 ** 31, 2 ** 31 - 1, (N, R, 8), generator=g,
+                         dtype=torch.int64).to(torch.int32)
+    ring[: N // 4, R - 1] = ring[: N // 4, 0]              # ties
+    count = torch.randint(0, 7, (N,), generator=g).to(torch.int32)
+    valid = torch.rand((N,), generator=g) < 0.75
+    desc = torch.randint(0, 2, (N, 256), generator=g, dtype=torch.uint8)
+    return tuple(x.to(dev) for x in (ring, count, valid, desc))
+
+
 def slam_kernel_phase(dev, record):
     """Kernels I (K13, both configurations), J (K14, K16) and D at the map
     matching's shapes, against their plain versions on the card."""
@@ -1421,24 +1466,26 @@ def slam_kernel_phase(dev, record):
            CHUNK * (64 + 144 + 1) + CHUNK * (1 + 64 + 4 + 1) + 2 * 300,
            CHUNK * 2500, err_kind="flags, blocked exact; T_acc, ratio")
 
-    # J, medoid: the 4-deep rings of the 8192 map points and 1024 lines
+    # J, medoid: the 4-deep rings of the 8192 map points and 1024 lines,
+    # gated and unpacked into the map's (N, 256) rows in the same launch
     g = torch.Generator(device="cpu").manual_seed(6)
     R = cfg.mapping.desc_ring
     for N, tag in ((cfg.mapping.max_points, "@points"),
                    (cfg.mapping.max_lines, "@lines")):
-        ring = torch.randint(-2 ** 31, 2 ** 31 - 1, (N, R, 8), generator=g,
-                             dtype=torch.int64).to(torch.int32)
-        ring[: N // 4, 1] = ring[: N // 4, 0]                  # ties
-        ring = ring.to(dev)
-        count = torch.randint(0, 7, (N,), generator=g).to(torch.int32).to(dev)
+        ring, count, valid, desc = medoid_inputs(g, N, R, dev)
+        n_valid = int(valid.sum())
+        # bytes: a valid row reads its ring, count and flag, an invalid one
+        # its flag and desc row; every row writes 256 bytes. Operations: R^2
+        # x 8 words (xor, popcount, add) a valid row
         record("medoid" + tag, "plslam_tpu_torch/csrc/slam.cu",
-               "plslam_tpu/backend/map.py:112",
-               [tmap._medoid_desc(ring, count)],
-               [tmap._medoid_desc_plain(ring, count)], 0.0,
-               lambda: tmap._medoid_desc(ring, count),
-               lambda: tmap._medoid_desc_plain(ring, count),
-               N * (R * 32 + 4 + 32), N * (R * R * 8 * 3 + R * R),
-               entry="medoid")
+               "plslam_tpu/backend/map.py:112, :242-244, :303-306",
+               [tmap._medoid_bits(ring, count, valid, desc)],
+               [tmap._medoid_bits_plain(ring, count, valid, desc)], 0.0,
+               lambda: tmap._medoid_bits(ring, count, valid, desc),
+               lambda: tmap._medoid_bits_plain(ring, count, valid, desc),
+               n_valid * (R * 32 + 4 + 1) + (N - n_valid) * (1 + 256)
+               + N * 256, n_valid * R * R * 8 * 3, entry="medoid",
+               err_kind="rows, exact")
 
     # D at the map matching's shapes: 8192 map points x 1024 features,
     # 1024 map lines x 128 segments, packed words, the f2f window
@@ -2270,6 +2317,13 @@ def loop_path(dev, tag, updates=None, cpu=None):
     return launches, slam, dict(probe.n)
 
 
+# M's graphs (``synthetic.drift_circle_graph``: slots, keyframes, extra
+# chords) at the loop closer's four slot buckets (E = 4 Fb; 512: a 400-KF
+# loop graph)
+PG_BUCKETS = ((64, 40, 60), (128, 100, 300), (256, 200, 800),
+              (512, 400, 1600))
+
+
 def loop_kernel_phase(dev, record, slam):
     """Kernels L (K17) on a keyframe of the loop run against the real
     vocabularies, D at the verification and fusion shapes ((1, 1024, 1024)
@@ -2352,68 +2406,85 @@ def loop_kernel_phase(dev, record, slam):
     src_m, rep_m = ("plslam_tpu_torch/csrc/pose_graph.cu",
                     "plslam_tpu/loop/pose_graph.py:")
     rel = "relative to each output's largest magnitude"
-    for F, n, extra in ((64, 40, 60), (512, 400, 1600)):
+    for F, n, extra in PG_BUCKETS:
         d, n_edges = synthetic.drift_circle_graph(F, n, extra, seed=F)
         gd = convert.pose_graph_from_numpy(d, dev)
         E = 4 * F
+        C, threads, smem = pg.pcg_layout(F, E)
         print(f"[pose_graph] Fb={F}: {n} KFs, {n_edges} of {E} edge slots "
-              "used", flush=True)
+              f"used; pg_pcg cluster {C} CTA(s) of {threads} threads, "
+              f"{smem} bytes of shared memory each", flush=True)
+        every = F in (64, 512)      # the other M kernels: at 64 and 512
         sc = lambda xs: [x / x.abs().max().clamp(min=1e-30) for x in xs]
-        r, J, c = pg.edges(gd)
         rp, Jp, cp = pg.edges_plain(gd)
-        record(f"pg_edges@{F}", src_m, rep_m + "89", sc([r, J, c]),
-               sc([rp, Jp, cp]), [1e-5, 1e-6, 1e-5],
-               lambda: pg.edges(gd), lambda: pg.edges_plain(gd),
-               F * 64 + E * 76 + E * 168 + 4, n_edges * 700,
-               entry="pg_edges", err_kind="r, Ji, cost " + rel)
         freeze = torch.zeros(F, dtype=torch.bool, device=dev)
         diag = pg._diag(gd, freeze, True)
         inc = pg._incidence(gd)
-        H, gv = pg.assemble(gd, rp, Jp, diag, inc)
-        Hp, gvp = pg.assemble_plain(gd, rp, Jp, diag)
-        off = lambda M: M - torch.diag(torch.diag(M))
-        blocks = torch.randn((E, 36), device=dev)
-        flat_idx = (gd.edge_i.long() * F + gd.edge_j.long())
-        record(f"pg_assemble@{F}", src_m, rep_m + "125",
-               sc([off(H), torch.diag(H), gv]),
-               sc([off(Hp), torch.diag(Hp), gvp]), [1e-5, 1e-6, 1e-5],
-               lambda: pg.assemble(gd, rp, Jp, diag, inc),
-               lambda: pg.assemble_plain(gd, rp, Jp, diag),
-               E * 180 + F * 4 + (6 * F) ** 2 * 4 + 6 * F * 4,
-               n_edges * (36 * 12 + 36 * 2 + 6 * 14),
-               lambda: torch.zeros((F * F, 36), device=dev).index_add_(
-                   0, flat_idx, blocks),
-               entry="pg_assemble",
-               err_kind="H off its diagonal, H's diagonal (the pins), g "
-               + rel)
-        solve_ms = cuda_ms(lambda: torch.linalg.solve_ex(Hp, gvp[:, None]), 5)
-        print(f"[pose_graph] torch.linalg.solve_ex of the {6 * F}x{6 * F} "
-              f"dense system: {solve_ms:.4f} ms", flush=True)
-        gb, Hd = pg.blocks(gd, rp, Jp, diag, inc)
         gbp, Hdp = pg.blocks_plain(gd, rp, Jp, diag)
-        record(f"pg_blocks@{F}", src_m, rep_m + "227", sc([gb, Hd]),
-               sc([gbp, Hdp]), [1e-5, 1e-6],
-               lambda: pg.blocks(gd, rp, Jp, diag, inc),
-               lambda: pg.blocks_plain(gd, rp, Jp, diag),
-               E * 180 + F * (4 + 168), n_edges * (36 * 12 + 6 * 14),
-               entry="pg_blocks", err_kind="g, Hd " + rel)
+        if every:
+            r, J, c = pg.edges(gd)
+            record(f"pg_edges@{F}", src_m, rep_m + "89", sc([r, J, c]),
+                   sc([rp, Jp, cp]), [1e-5, 1e-6, 1e-5],
+                   lambda: pg.edges(gd), lambda: pg.edges_plain(gd),
+                   F * 64 + E * 76 + E * 168 + 4, n_edges * 700,
+                   entry="pg_edges", err_kind="r, Ji, cost " + rel)
+            H, gv = pg.assemble(gd, rp, Jp, diag, inc)
+            Hp, gvp = pg.assemble_plain(gd, rp, Jp, diag)
+            off = lambda M: M - torch.diag(torch.diag(M))
+            blocks = torch.randn((E, 36), device=dev)
+            flat_idx = (gd.edge_i.long() * F + gd.edge_j.long())
+            record(f"pg_assemble@{F}", src_m, rep_m + "125",
+                   sc([off(H), torch.diag(H), gv]),
+                   sc([off(Hp), torch.diag(Hp), gvp]), [1e-5, 1e-6, 1e-5],
+                   lambda: pg.assemble(gd, rp, Jp, diag, inc),
+                   lambda: pg.assemble_plain(gd, rp, Jp, diag),
+                   E * 180 + F * 4 + (6 * F) ** 2 * 4 + 6 * F * 4,
+                   n_edges * (36 * 12 + 36 * 2 + 6 * 14),
+                   lambda: torch.zeros((F * F, 36), device=dev).index_add_(
+                       0, flat_idx, blocks),
+                   entry="pg_assemble",
+                   err_kind="H off its diagonal, H's diagonal (the pins), g "
+                   + rel, library_what="the (F·F, 36) block scatter alone")
+            solve_ms = cuda_ms(lambda: torch.linalg.solve_ex(
+                Hp, gvp[:, None]), 5)
+            print(f"[pose_graph] torch.linalg.solve_ex of the {6 * F}x"
+                  f"{6 * F} dense system: {solve_ms:.4f} ms", flush=True)
+            gb, Hd = pg.blocks(gd, rp, Jp, diag, inc)
+            record(f"pg_blocks@{F}", src_m, rep_m + "227", sc([gb, Hd]),
+                   sc([gbp, Hdp]), [1e-5, 1e-6],
+                   lambda: pg.blocks(gd, rp, Jp, diag, inc),
+                   lambda: pg.blocks_plain(gd, rp, Jp, diag),
+                   E * 180 + F * (4 + 168), n_edges * (36 * 12 + 6 * 14),
+                   entry="pg_blocks", err_kind="g, Hd " + rel)
         Minv = torch.linalg.inv_ex(Hdp)[0]
         dx = pg.pcg(gd, Jp, Minv, diag, gbp, 96, inc)
         dxp = pg.pcg_plain(gd, Jp, Minv, diag, gbp, 96)
+        grid = launched_grid(lambda: pg.pcg(gd, Jp, Minv, diag, gbp, 96, inc),
+                             "pg_pcg_kernel")
+        print(f"[pose_graph] pg_pcg at Fb={F} launched with grid, block "
+              f"{grid if grid else 'not recorded by the profiler'}; "
+              f"cluster {C}", flush=True)
+        check(grid is None or (list(grid[0]) == [C, 1, 1]
+                               and list(grid[1]) == [threads, 1, 1]),
+              f"pg_pcg at Fb={F}: grid, block {grid}, expected {C} CTAs of "
+              f"{threads} threads")
         record(f"pg_pcg@{F}", src_m, rep_m + "251", sc([dx]), sc([dxp]),
                1e-3, lambda: pg.pcg(gd, Jp, Minv, diag, gbp, 96, inc),
                lambda: pg.pcg_plain(gd, Jp, Minv, diag, gbp, 96),
                E * 156 + F * (144 + 4 + 24) + F * 24,
                96 * (n_edges * 160 + 6 * F * 20), iters=5,
-               entry="pg_pcg", err_kind="dx " + rel + " (96 CG steps)")
-        Pn, c1 = pg.update(gd, cp, dx, 1.0)
-        Pp, c1p = pg.update_plain(gd, cp, dx, 1.0)
-        record(f"pg_update@{F}", src_m, rep_m + "155", sc([Pn, c1]),
-               sc([Pp, c1p]), [1e-5, 1e-5],
-               lambda: pg.update(gd, cp, dx, 1.0),
-               lambda: pg.update_plain(gd, cp, dx, 1.0),
-               F * (64 * 2 + 24 + 1) + E * 84 + 8, F * 300 + n_edges * 700,
-               entry="pg_update", err_kind="poses, cost " + rel)
+               entry="pg_pcg", err_kind="dx " + rel + " (96 CG steps)",
+               cluster=C)
+        if every:
+            Pn, c1 = pg.update(gd, cp, dx, 1.0)
+            Pp, c1p = pg.update_plain(gd, cp, dx, 1.0)
+            record(f"pg_update@{F}", src_m, rep_m + "155", sc([Pn, c1]),
+                   sc([Pp, c1p]), [1e-5, 1e-5],
+                   lambda: pg.update(gd, cp, dx, 1.0),
+                   lambda: pg.update_plain(gd, cp, dx, 1.0),
+                   F * (64 * 2 + 24 + 1) + E * 84 + 8,
+                   F * 300 + n_edges * 700,
+                   entry="pg_update", err_kind="poses, cost " + rel)
         # whole solves: the kernels, the plain version, float64
         g64 = gd._replace(poses=gd.poses.double(), edge_T=gd.edge_T.double(),
                           edge_w=gd.edge_w.double())
@@ -3026,12 +3097,15 @@ def against_side(root: str, out_path: str) -> None:
     NMS block max at level 0, kernel G (``refit_roots`` on the TileStage
     of the line scene's 40 images through kernels E and F, and
     ``merge_segments`` on candidates of the plain refit on the CPU, at full
-    and half resolution), and the device kernels (all of them, torch's
-    too) of one point front end (``detect_and_describe``) under
-    torch.profiler; saves the outputs and each call's device time
-    (torch.profiler, the hand kernels; for K13, K2 and G also every device
-    kernel's time and count, ``all_kernels``; for G the wrapper's time,
-    CUDA events) to ``out_path``."""
+    and half resolution), K16's medoid rows at 8192 and 1024 landmarks
+    (``medoid_inputs``; a parent's medoid, ``unpack_bits`` and
+    ``torch.where``), ``pg_pcg`` and the whole PCG solve at
+    ``PG_BUCKETS``, and the device kernels (all of them, torch's too) of
+    one point front end (``detect_and_describe``) under torch.profiler;
+    saves the outputs and each call's device time (torch.profiler, the
+    hand kernels; for K13, K2, G, K16 and K18 also every device kernel's
+    time and count, ``all_kernels``; for G, K16 and K18 the wrapper's
+    time, CUDA events) to ``out_path``."""
     sys.path.insert(0, root)
     import torch
     from torch.autograd import DeviceType
@@ -3160,6 +3234,44 @@ def against_side(root: str, out_path: str) -> None:
                                        device_ms(fn, iters=20),
                                        *all_kernels(fn, iters=20),
                                        cuda_ms(fn, 50))
+    # K16 at the map's two shapes: this tree's one launch, or a parent's
+    # packed medoid, unpack_bits and torch.where; K18's pg_pcg and the
+    # whole PCG solve at the four slot buckets
+    from plslam_tpu_torch import convert
+    from plslam_tpu_torch.backend import map as tmap
+    from plslam_tpu_torch.loop import pose_graph as pg
+    from plslam_tpu_torch.ops import hamming
+    g = torch.Generator(device="cpu").manual_seed(6)
+    for N, tag in ((cfg.mapping.max_points, "@points"),
+                   (cfg.mapping.max_lines, "@lines")):
+        ring, count, valid, desc = medoid_inputs(g, N, cfg.mapping.desc_ring,
+                                                 dev)
+        if hasattr(tmap, "_medoid_bits"):
+            fn = lambda: [tmap._medoid_bits(ring, count, valid, desc)]
+        else:
+            fn = lambda: [torch.where(valid[:, None], hamming.unpack_bits(
+                tmap._medoid_desc(ring, count)), desc)]
+        res["medoid" + tag] = ([x.cpu() for x in fn()],
+                               device_ms(fn, iters=20),
+                               *all_kernels(fn, iters=20), cuda_ms(fn, 50))
+    for F, n, extra in PG_BUCKETS:
+        gd = convert.pose_graph_from_numpy(
+            synthetic.drift_circle_graph(F, n, extra, seed=F)[0], dev)
+        freeze = torch.zeros(F, dtype=torch.bool, device=dev)
+        diag = pg._diag(gd, freeze, True)
+        inc = pg._incidence(gd)
+        rp, Jp, _ = pg.edges_plain(gd)
+        gbp, Hdp = pg.blocks_plain(gd, rp, Jp, diag)
+        Minv = torch.linalg.inv_ex(Hdp)[0]
+        fn = lambda: [pg.pcg(gd, Jp, Minv, diag, gbp, 96, inc)]
+        res[f"pg_pcg@{F}"] = ([x.cpu() for x in fn()],
+                              device_ms(fn, iters=5),
+                              *all_kernels(fn, iters=5), cuda_ms(fn, 10))
+        fn = lambda: list(pg._optimize_pcg(gd, freeze, 12, 96))
+        res[f"optimize_pcg@{F}"] = ([x.cpu() for x in fn()],
+                                    device_ms(fn, iters=3),
+                                    *all_kernels(fn, iters=3),
+                                    cuda_ms(fn, 3))
     detect_and_describe(images, cfg)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -3195,6 +3307,12 @@ def against(other: str) -> None:
         if key == "front_end_kernels":
             continue
         errs = [max_abs_err(x, y) for x, y in zip(a[key][0], b[key][0])]
+        if all(x.is_floating_point() for x in a[key][0]):
+            rels = [e / max(float(y.double().abs().max()), 1e-30)
+                    for e, y in zip(errs, a[key][0])]
+            print(f"[against] {key}: largest |this - other| relative to the "
+                  f"other's largest magnitude per output "
+                  f"{[f'{r:g}' for r in rels]}", flush=True)
         times = {who: [r[key][1] for w, r in runs if w == who]
                  for who in ("other", "this")}
         print(f"[against] {key}: largest |this - other| per output "

@@ -12,13 +12,14 @@ holding the reference's uint32 bit patterns (``ops/hamming.pack_bits``).
 Scalar decisions (room for a KF, which KF retires, the pool-pressure
 tier) stay device tensors: no function here waits for the device.
 
-The representative descriptor (K16, ``_medoid_desc``) is kernel J's
-``medoid`` launch (``csrc/slam.cu``) on CUDA tensors. Slot allocation is a
-stable ``torch.sort`` + ``cumsum``, and the reference's ``lax.top_k`` a
-stable descending sort: both break ties by the lowest index, as the
-reference does. Map matching runs kernel D at (1, P, K) and (1, M, L).
-``fuse_loop_landmarks`` (the loop slice) matches the two loop KFs'
-stored descriptors with kernel D at (1, K, K) and (1, L, L).
+The representative descriptors (K16: the reference's ``_medoid_desc``,
+its unpack and the select after it, ``_medoid_bits``) are one launch of
+kernel J's ``medoid`` (``csrc/slam.cu``) on CUDA tensors. Slot
+allocation is a stable ``torch.sort`` + ``cumsum``, and the reference's
+``lax.top_k`` a stable descending sort: both break ties by the lowest
+index, as the reference does. Map matching runs kernel D at (1, P, K) and
+(1, M, L). ``fuse_loop_landmarks`` (the loop slice) matches the two loop
+KFs' stored descriptors with kernel D at (1, K, K) and (1, L, L).
 ``force_retire_kfs`` and ``compact_keyframes`` are not ported yet.
 """
 
@@ -160,19 +161,42 @@ def _medoid_desc_plain(ring: torch.Tensor, count: torch.Tensor):
     return torch.take_along_dim(ring, mi[:, None, None], dim=1)[:, 0]
 
 
-def _medoid_desc(ring: torch.Tensor, count: torch.Tensor) -> torch.Tensor:
-    """Representative descriptor per landmark: the ring member (N, R, 8)
-    with the least summed Hamming distance to the other ``count`` stored
-    observations (updateAverageDescDir's median descriptor) -> (N, 8)."""
+def _medoid_bits_plain(ring, count, valid, desc):
+    return torch.where(valid[:, None],
+                       hamming.unpack_bits(_medoid_desc_plain(ring, count)),
+                       desc)
+
+
+def _aligned16(t: torch.Tensor) -> torch.Tensor:
+    """``t``, or a fresh copy of it where its data is not 16-byte
+    aligned (the kernel's vector loads)."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def _medoid_bits(ring: torch.Tensor, count: torch.Tensor,
+                 valid: torch.Tensor, desc: torch.Tensor) -> torch.Tensor:
+    """The representative descriptors as the map stores them: for a valid
+    landmark the bits (N, 256) of its ring member (N, R, 8) with the least
+    summed Hamming distance to the other ``count`` stored observations
+    (updateAverageDescDir's median descriptor), else its ``desc`` row. On
+    CUDA one ``medoid`` launch (medoid, unpack and select)."""
     if ring.device.type == "cpu":
-        return _medoid_desc_plain(ring, count)
+        return _medoid_bits_plain(ring, count, valid, desc)
     N, R, _ = ring.shape
-    ring = ring.to(torch.int32).contiguous()
+    ring = _aligned16(ring.to(torch.int32).contiguous())
     count = count.to(torch.int32).contiguous()
+    valid = valid.to(torch.bool).contiguous().view(torch.uint8)
+    desc = _aligned16(desc.contiguous())
+    native.require(ring, "medoid ring", torch.int32, (N, R, 8))
     native.require(count, "medoid count", torch.int32, (N,))
-    out = torch.empty((N, 8), dtype=torch.int32, device=ring.device)
+    native.require(valid, "medoid valid", torch.uint8, (N,))
+    native.require(desc, "medoid desc", torch.uint8, (N, hamming.N_BITS))
+    if not 1 <= R <= 8:
+        raise ValueError(f"medoid: a ring of {R} (1..8)")
+    out = torch.empty((N, hamming.N_BITS), dtype=torch.uint8,
+                      device=ring.device)
     if N:
-        native.launch("medoid", ring, count, out, N, R)
+        native.launch("medoid", ring, count, valid, desc, out, N, R)
     return out
 
 
@@ -239,9 +263,7 @@ def _insert_family(state_pos, valid, nobs, first, last, ring, ring_n, dirs,
     dirs2 = torch.where(matched[:, None], dir_upd, dirs2)
     nobs2 = _add_drop(nobs2, midx, 1)
     last2 = _set_drop(last2, midx, slot)
-    desc2 = torch.where(valid2[:, None],
-                        hamming.unpack_bits(_medoid_desc(ring2, ring_n2)),
-                        desc)
+    desc2 = _medoid_bits(ring2, ring_n2, valid2, desc)
     return pos, valid2, nobs2, first2, last2, ring2, ring_n2, dirs2, desc2
 
 

@@ -27,13 +27,14 @@
 //   pg_blocks    PCG, one block per slot: g_i and the exact 6 x 6 diagonal
 //                block of H (its inverse stays torch.linalg.inv_ex, as the
 //                reference calls jnp.linalg.inv).
-//   pg_pcg       PCG, one block runs the whole fixed cg_iters schedule of one
-//                GN step with x, r, z, p, Hp (5 x 6F floats) and the per-edge
-//                t = Ji p_i + p_j (6E floats) in shared memory (111 KB at
-//                F = 512, E = 2048; dynamic shared memory). H p is applied
-//                node-wise over the edge incidence lists (edges leaving,
-//                then entering, each in edge order), so again no atomics.
-//                The ok gate, alpha and beta follow the reference.
+//   pg_pcg       PCG, one thread-block cluster (sm_90) runs the whole fixed
+//                cg_iters schedule of one GN step: each CTA owns a range of
+//                nodes and of used edges, stages their Ji rows, Minv blocks
+//                and lists in its shared memory once, and the CG steps read
+//                the other CTAs' p, z and edge products through distributed
+//                shared memory (see pg_pcg_kernel). One CTA up to F = 128
+//                (E = 512), 2 at F = 256, 4 at F = 512. The ok gate, alpha
+//                and beta follow the reference.
 //   pg_update    one block: T <- T exp(dx) on valid slots, the trial cost,
 //                and the accept (finite and c_new <= c) into the outputs.
 //
@@ -42,9 +43,13 @@
 // library's batched 6 x 6 inverse. Per solve one more pg_edges (the initial
 // cost): 37 dense, 49 PCG at 12 iterations.
 
+#include <algorithm>
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -360,90 +365,518 @@ __global__ void pg_blocks_kernel(Graph g, Incidence inc,
   }
 }
 
-__global__ void __launch_bounds__(NT)
-    pg_pcg_kernel(Graph g, Incidence inc, const float* __restrict__ J,
-                  const float* __restrict__ Minv,
-                  const float* __restrict__ diag,
-                  const float* __restrict__ gvec, int cg_iters,
-                  float* __restrict__ dx) {
-  extern __shared__ float sm[];
-  __shared__ float red[33];
-  const int F6 = 6 * g.F, tid = threadIdx.x;
-  float *x = sm, *rr = x + F6, *z = rr + F6, *p = z + F6, *Hp = p + F6,
-        *t = Hp + F6;
-  float b2p = 0.0f;
-  for (int k = tid; k < F6; k += NT) {
-    const float b = -gvec[k];
-    x[k] = 0.0f;
-    rr[k] = b;
-    b2p += b * b;
+// -- pg_pcg: one thread-block cluster, the CG state in shared memory --------
+//
+// Cluster size C (pcg_cluster): the smallest power of two up to 16 whose
+// CTAs hold their share (below) in shared memory and own at most 128 nodes;
+// the same arithmetic as loop/pose_graph.py::pcg_layout. CTA c owns nodes
+// [c NC, (c + 1) NC) with NC = ceil(F / C), and the used edges at positions
+// [c CE, (c + 1) CE) of the leaving lists oi (CE = ceil(U / C), U used
+// edges): contiguous, in edge order within each node's list. At the start
+// it stages, once, its edges' Ji rows (cp.async), w and end nodes, its
+// nodes' Minv blocks (cp.async), diag, -g and list offsets, the (rank,
+// local) address of every entry of its nodes' leaving and entering lists
+// (an entering edge's by a binary search in its tail's leaving list), and
+// the lanes of pass B. No CG step reads global memory after that. Every
+// CTA keeps z and p of all F nodes (p in two buffers, by the step's
+// parity): distributed shared memory moves ~5 bytes a cycle an SM for
+// scattered 8-byte accesses against ~39 within the CTA
+// (tools/cluster_microbench.py, H100 80GB HBM3, 700 W), so the owner of a
+// node writes its new z into every CTA once a step (24-byte rows,
+// consecutive across threads) and the edge pass reads only local memory.
+//
+// A CG step, two barriers:
+//   A  every CTA writes p = z + beta p_old of all F nodes into its other p
+//      buffer; its edges, a thread an edge: p of both ends, t = Ji p_i +
+//      p_j and u = w Ji^T t row by row of Ji, v = w t, into the CTA's uv
+//      rows (in a cluster, u summed over each warp's run of edges of one
+//      tail: pass B pulls one entry a run); p.Hp as H's own sum of squares,
+//      sum_e w |t_e|^2 + sum_n diag_n |p_n|^2 (the reference sums p.(H p):
+//      the same quantity, rounded otherwise); barrier 1 with the sum
+//   B  the owned nodes' (H p)_n = the sum of u over the node's leaving
+//      edges and of v over its entering edges (pulled from their owners)
+//      + diag p, by a team of T lanes a node (T = 1, 2, ..., 32, the least
+//      with at most 4 list entries a lane: lane k of the team takes
+//      entries k, k + T, ..., then a fixed butterfly; a hub's list is
+//      spread over up to 32 lanes); then the team's first lane: alpha, x
+//      += alpha p, r -= alpha H p, z = Minv r into every CTA, r.z;
+//      barrier 2 with the sum
+// Every sum has one fixed order and no float atomics. A dot product: each
+// warp's partial by a shuffle butterfly into one word; after a CTA barrier
+// warp 0 adds the CTA's words into one; after the cluster barrier every
+// thread adds the C words in rank order, so ok, alpha and beta are the same
+// bits in every CTA. A cluster barrier is a CTA barrier and then
+// cluster_arrive_wait. A single CTA (C = 1, up to F = 128) compiles without
+// the cluster: CTA barriers, plain shared memory. The kernel ends on a
+// cluster barrier: no CTA exits while another still reads its memory.
+
+constexpr int PCG_MAX_CLUSTER = 16;
+constexpr int PCG_MAX_NODES = 128;          // nodes a CTA
+constexpr size_t PCG_SMEM_MAX = 232448;     // dynamic shared memory a CTA
+
+// lane slots of pass B's teams (a team of T lanes takes at most 4 list
+// entries a lane, T < d / 2 for d > 4): at most NC + E, whole warps
+__host__ __device__ inline size_t pcg_task_slots(int F, int E, int C) {
+  return (size_t)((F + C - 1) / C) + E + 32;
+}
+
+// 32-bit words of one CTA's shared memory (the same offsets in every CTA)
+__host__ __device__ inline size_t pcg_words(int F, int E, int C) {
+  const size_t EC = (E + C - 1) / C, NC = (F + C - 1) / C;
+  return EC * (36 + 12 + 3) + NC * (36 + 2 * 6 + 1 + 2) + 2 + 18 * (size_t)F +
+         2 * (size_t)E + pcg_task_slots(F, E, C) + 96;
+}
+
+// the cluster size for F slots and E edge slots, 0 if none fits
+inline int pcg_cluster(int F, int E) {
+  for (int C = 1; C <= PCG_MAX_CLUSTER; C *= 2)
+    if (pcg_words(F, E, C) * 4 <= PCG_SMEM_MAX &&
+        ((F + C - 1) / C <= PCG_MAX_NODES || C == PCG_MAX_CLUSTER))
+      return C;
+  return 0;
+}
+
+struct PcgArgs {
+  const int* ei;
+  const int* ej;
+  const float* ew;
+  Incidence inc;
+  const float* J;
+  const float* Minv;
+  const float* diag;
+  const float* gvec;
+  float* dx;
+  int F, E, cg_iters;
+};
+
+__device__ __forceinline__ float warp_sum(float v) {
+  for (int s = 16; s > 0; s >>= 1) v += __shfl_xor_sync(0xffffffffu, v, s);
+  return v;
+}
+
+// 16 bytes global -> shared, asynchronous where both are 16-byte aligned
+__device__ __forceinline__ void stage16(float* dst, const float* src,
+                                        bool aligned) {
+  if (aligned) {
+    const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
+                 "l"(src));
+  } else {
+    for (int k = 0; k < 4; ++k) dst[k] = src[k];
   }
-  const float b2 = block_sum(b2p, red);  // syncs: rr is complete
-  float rzp = 0.0f;
-  for (int k = tid; k < F6; k += NT) {  // z = M^-1 r, p = z
-    const int n = k / 6, a = k % 6;
-    float s = 0.0f;
-    for (int q = 0; q < 6; ++q) s += Minv[(size_t)n * 36 + a * 6 + q] * rr[6 * n + q];
-    z[k] = s;
-    p[k] = s;
-    rzp += rr[k] * s;
+}
+
+// After a CTA barrier: thread 0's cluster-scope fence (cumulative over the
+// CTA's writes that the CTA barrier ordered before it), every thread's
+// relaxed arrive, then the aligned wait (tools/cluster_microbench.py times
+// the forms). A release arrive by thread 0 alone, in a divergent warp, hung
+// the kernel.
+__device__ __forceinline__ void cluster_arrive_wait() {
+  if (threadIdx.x == 0) asm volatile("fence.acq_rel.cluster;\n" ::: "memory");
+  __syncwarp();
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+}
+
+// The cluster, or one CTA (CL false): addresses in another CTA's shared
+// memory, barriers, and the cluster-wide sums of the warps' words.
+template <bool CL>
+struct Team {
+  int C, rank, nw;
+  float* words;  // two banks of 32 warp words and the CTA's word
+  __device__ float* at(float* buf, int r) const {
+    if (!CL || r == rank) return buf;
+    return cg::this_cluster().map_shared_rank(buf, r);
   }
-  float rz = block_sum(rzp, red);
-  for (int it = 0; it < cg_iters; ++it) {
-    for (int e = tid; e < g.E; e += NT) {  // t = Ji p_i + p_j
-      const bool used = g.ew[e] > 0.0f;
-      const float* Je = J + (size_t)e * 36;
-      const int i = g.ei[e], j = g.ej[e];
-      for (int a = 0; a < 6; ++a) {
-        float s = 0.0f;
-        for (int q = 0; q < 6; ++q) s += Je[a * 6 + q] * p[6 * i + q];
-        t[6 * e + a] = used ? s + p[6 * j + a] : 0.0f;
-      }
-    }
+  __device__ void barrier() const {
     __syncthreads();
-    float php = 0.0f;
-    for (int k = tid; k < F6; k += NT) {  // H p, node-wise
-      const int n = k / 6, a = k % 6;
-      float yi = 0.0f, yj = 0.0f;
-      for (int s = inc.pi[n]; s < inc.pi[n + 1]; ++s) {
-        const int e = inc.oi[s];
-        float d = 0.0f;
-        for (int c = 0; c < 6; ++c)
-          d += J[(size_t)e * 36 + c * 6 + a] * t[6 * e + c];
-        yi += g.ew[e] * d;
-      }
-      for (int s = inc.pj[n]; s < inc.pj[n + 1]; ++s) {
-        const int e = inc.oj[s];
-        yj += g.ew[e] * t[6 * e + a];
-      }
-      const float h = (yi + yj) + diag[n] * p[k];
-      Hp[k] = h;
-      php += p[k] * h;
+    if (CL) cluster_arrive_wait();
+  }
+  // the sum over the cluster of every thread's v, the same bits everywhere;
+  // consecutive sums alternate banks, so a bank is written again only
+  // after a barrier that follows every read of it
+  __device__ float sum(float v, int bank) const {
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    float* word = words + 33 * bank;
+    v = warp_sum(v);
+    if (lane == 0) word[warp] = v;
+    __syncthreads();
+    if (!CL) return warp_sum(lane < nw ? word[lane] : 0.0f);
+    if (warp == 0) {
+      const float s = warp_sum(lane < nw ? word[lane] : 0.0f);
+      if (lane == 0) word[32] = s;
     }
-    const float pHp = block_sum(php, red);
+    cluster_arrive_wait();
+    float s = 0.0f;
+    for (int r = 0; r < C; ++r) s += at(word, r)[32];
+    return s;
+  }
+};
+
+// six floats at an 8-byte aligned address
+__device__ __forceinline__ void load6(const float* p, float v[6]) {
+  const float2* q = reinterpret_cast<const float2*>(p);
+  const float2 a = q[0], b = q[1], c = q[2];
+  v[0] = a.x;
+  v[1] = a.y;
+  v[2] = b.x;
+  v[3] = b.y;
+  v[4] = c.x;
+  v[5] = c.y;
+}
+
+__device__ __forceinline__ void store6(float* p, const float v[6]) {
+  float2* q = reinterpret_cast<float2*>(p);
+  q[0] = make_float2(v[0], v[1]);
+  q[1] = make_float2(v[2], v[3]);
+  q[2] = make_float2(v[4], v[5]);
+}
+
+// z = M r for a 6 x 6 row-major block at a 16-byte aligned address, each
+// row summed over k in order
+__device__ __forceinline__ void mat6(const float* M, const float r[6],
+                                     float z[6]) {
+  const float4* m = reinterpret_cast<const float4*>(M);
+  float e[36];
+#pragma unroll
+  for (int i = 0; i < 9; ++i) {
+    const float4 f = m[i];
+    e[4 * i] = f.x;
+    e[4 * i + 1] = f.y;
+    e[4 * i + 2] = f.z;
+    e[4 * i + 3] = f.w;
+  }
+#pragma unroll
+  for (int q = 0; q < 6; ++q) {
+    float s = 0.0f;
+#pragma unroll
+    for (int k = 0; k < 6; ++k) s += e[q * 6 + k] * r[k];
+    z[q] = s;
+  }
+}
+
+template <bool CL>
+__global__ void __launch_bounds__(1024) pg_pcg_kernel(PcgArgs a) {
+  extern __shared__ __align__(16) float sm[];
+  const int C = CL ? (int)cg::this_cluster().num_blocks() : 1;
+  const int c = CL ? (int)cg::this_cluster().block_rank() : 0;
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const int lane = tid & 31, warp = tid >> 5, nw = nt >> 5;
+  const int F6 = 6 * a.F;
+  const int EC = (a.E + C - 1) / C, NC = (a.F + C - 1) / C;
+  float* sJ = sm;                          // EC x 36, Ji rows
+  float* sM = sJ + (size_t)EC * 36;        // NC x 36, Minv blocks
+  float* uv = sM + (size_t)NC * 36;        // EC x 12: u = w Ji^T t, v = w t
+  float* zr = uv + (size_t)EC * 12;        // F x 6: z of every node
+  float* pr = zr + F6;                     // 2 x F x 6: p, by step parity
+  float* x = pr + 2 * F6;                  // NC x 6 each: x, r
+  float* r = x + NC * 6;
+  float* dg = r + NC * 6;                  // NC
+  float* w = dg + NC;                      // EC
+  int* ti = (int*)(w + EC);                // EC: tail node
+  int* hj = ti + EC;                       // EC: head node
+  int* lst = hj + EC;                      // NC + 1: leaving lists in oi
+  int* est = lst + NC + 1;                 // NC + 1: entering lists
+  int* refs = est + NC + 1;                // 2E: each owned node's leaving,
+                                           // then entering entries: rank
+                                           // << 20 | offset of u or v in uv
+                                           // << 2 | is v << 1 | whether to
+                                           // load it
+  int* task = refs + 2 * a.E;              // pass B's lane slots
+  const int n_slots = (int)pcg_task_slots(a.F, a.E, C);
+  // two banks of 33 words for the sums, pass B's slot count
+  const Team<CL> team{C, c, nw, (float*)(task + n_slots)};
+
+  if (CL)
+    asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+
+  // the partition: nodes by NC, used edges by CE positions of oi
+  const Incidence& in = a.inc;
+  const int U = in.pi[a.F];
+  const int CE = max((U + C - 1) / C, 1);
+  const int n0 = min(c * NC, a.F), nn = min(n0 + NC, a.F) - n0;
+  const int s0 = min(c * CE, U), ne = min(s0 + CE, U) - s0;
+
+  // staging
+  const bool al = (((uintptr_t)a.J | (uintptr_t)a.Minv) & 15) == 0;
+  for (int k = tid; k < ne * 9; k += nt) {
+    const int le = k / 9, part = k - le * 9;
+    stage16(sJ + le * 36 + part * 4,
+            a.J + (size_t)in.oi[s0 + le] * 36 + part * 4, al);
+  }
+  for (int k = tid; k < nn * 9; k += nt)
+    stage16(sM + k * 4, a.Minv + (size_t)n0 * 36 + k * 4, al);
+  for (int le = tid; le < ne; le += nt) {
+    const int e = in.oi[s0 + le];
+    w[le] = a.ew[e];
+    ti[le] = a.ei[e];
+    hj[le] = a.ej[e];
+  }
+  const int b0 = in.pj[n0];
+  for (int k = tid; k <= nn; k += nt) {
+    lst[k] = in.pi[n0 + k];
+    est[k] = in.pj[n0 + k] - b0;
+  }
+  for (int k = tid; k < nn; k += nt) dg[k] = a.diag[n0 + k];
+  for (int k = tid; k < nn * 6; k += nt) {
+    r[k] = -a.gvec[(size_t)n0 * 6 + k];
+    x[k] = 0.0f;
+  }
+  for (int k = tid; k < 2 * F6; k += nt) pr[k] = 0.0f;
+  __syncthreads();
+  // each owned node's entries from (lst[ln] - lst[0]) + est[ln]: leaving at
+  // positions lst[ln] .., then entering (the edge's position in its tail's
+  // list, by a binary search)
+  const int l_all = lst[nn] - lst[0], nin = est[nn];
+  for (int k = tid; k < l_all + nin; k += nt) {
+    const bool leaving = k < l_all;
+    const int* off = leaving ? lst : est;
+    const int key = leaving ? lst[0] + k : k - l_all;
+    int lo = 0, hi = nn;  // the last node whose list starts at or before key
+    while (lo < hi) {
+      const int mid = (lo + hi + 1) >> 1;
+      if (off[mid] <= key) lo = mid; else hi = mid - 1;
+    }
+    const int ln = lo, base = lst[ln] - lst[0] + est[ln];
+    int pos, slot;
+    if (leaving) {
+      pos = key;
+      slot = base + key - lst[ln];
+    } else {
+      const int e = in.oj[b0 + key];
+      int l = in.pi[a.ei[e]], h = in.pi[a.ei[e] + 1];
+      while (l < h) {  // e's position in its tail's list (edge order)
+        const int mid = (l + h) >> 1;
+        if (in.oi[mid] < e) l = mid + 1; else h = mid;
+      }
+      pos = l;
+      slot = base + lst[ln + 1] - lst[ln] + key - est[ln];
+    }
+    // in a cluster a leaving entry is loaded only where its piece ends: the
+    // node's last entry, a warp's last lane (le % 32 == 31) or the CTA's
+    // last edge
+    const int rk = pos / CE, le = pos - rk * CE;
+    const bool load = !CL || !leaving || pos == lst[ln + 1] - 1 ||
+                      (le & 31) == 31 || pos == min((rk + 1) * CE, U) - 1;
+    refs[slot] = (rk << 20) | ((le * 12 + (leaving ? 0 : 6)) << 2) |
+                 (leaving ? 0 : 2) | load;
+  }
+  // pass B's teams, grouped by size from 32 lanes down (so every team is
+  // aligned to its size, with no gaps): slot = node << 8 | log2 T << 5 |
+  // lane in team
+  if (warp == 0) {
+    int cnt[6] = {0, 0, 0, 0, 0, 0};
+    for (int pass = 0; pass < 2; ++pass) {
+      int base_[6], seen[6] = {0, 0, 0, 0, 0, 0}, off = 0;
+      for (int cl = 5; cl >= 0; --cl) {
+        base_[cl] = off;
+        off += cnt[cl] << cl;
+      }
+      for (int b = 0; b < nn; b += 32) {
+        const int ln = b + lane;
+        int cls = -1;
+        if (ln < nn) {
+          const int d = lst[ln + 1] - lst[ln] + est[ln + 1] - est[ln];
+          cls = 0;
+          while (cls < 5 && (4 << cls) < d) ++cls;
+        }
+        for (int cl = 0; cl < 6; ++cl) {
+          const unsigned m = __ballot_sync(0xffffffffu, cls == cl);
+          if (pass == 0) {
+            cnt[cl] += __popc(m);
+          } else if (cls == cl) {
+            const int rank_ = seen[cl] + __popc(m & ((1u << lane) - 1u));
+            const int t0 = base_[cl] + (rank_ << cl);
+            for (int k = 0; k < (1 << cl); ++k)
+              task[t0 + k] = (ln << 8) | (cl << 5) | k;
+          }
+          seen[cl] += __popc(m);
+        }
+      }
+      if (pass == 1) {
+        for (int k = off + lane; k < (off + 31) / 32 * 32; k += 32)
+          task[k] = -1;
+        if (lane == 0) ((int*)team.words)[66] = (off + 31) / 32 * 32;
+      }
+    }
+  }
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+  __syncthreads();
+  const int n_task = ((const int*)team.words)[66];  // slots, whole warps
+  // every CTA of the cluster runs before the first remote write
+  if (CL) asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+
+  // z = Minv r into every CTA; b.b and r.z
+  float b2p = 0.0f, rzp = 0.0f;
+  for (int ln = tid; ln < nn; ln += nt) {
+    float rv[6], zv[6];
+    load6(r + ln * 6, rv);
+    mat6(sM + ln * 36, rv, zv);
+#pragma unroll
+    for (int q = 0; q < 6; ++q) {
+      b2p += rv[q] * rv[q];
+      rzp += rv[q] * zv[q];
+    }
+    for (int rk = 0; rk < C; ++rk) store6(team.at(zr, rk) + (n0 + ln) * 6, zv);
+  }
+  // every CTA staged and z is everywhere before the first read
+  const float b2 = team.sum(b2p, 0);
+  float rz = team.sum(rzp, 1), beta = 0.0f;
+
+  for (int it = 0; it < a.cg_iters; ++it) {
+    const float* pold = pr + ((it + 1) & 1) * F6;  // p of the last step
+    float* pnew = pr + (it & 1) * F6;
+    // A: p of every node into the other p buffer; t, u, v of the owned
+    // edges, a thread an edge; in a cluster then the sums of w u over each
+    // run of consecutive lanes with one tail node (a segmented shuffle
+    // scan): the run's last lane holds its piece of the node's leaving sum,
+    // and pass B pulls one entry a piece. p.Hp = sum_e w |t_e|^2 + sum_n
+    // diag_n |p_n|^2 (H's own form), so alpha is known after this pass
+    for (int k = tid; k < F6; k += nt) pnew[k] = fmaf(beta, pold[k], zr[k]);
+    float php = 0.0f;
+    for (int ln = tid; ln < nn; ln += nt) {
+      float po[6], zo[6], q = 0.0f;
+      load6(pold + (n0 + ln) * 6, po);
+      load6(zr + (n0 + ln) * 6, zo);
+#pragma unroll
+      for (int k = 0; k < 6; ++k) {
+        const float pn = fmaf(beta, po[k], zo[k]);
+        q += pn * pn;
+      }
+      php += dg[ln] * q;
+    }
+    for (int base = warp * 32; base < ne; base += nt) {
+      const int le = base + lane;
+      const bool act = le < ne;
+      const int li = act ? le : 0;
+      const float2* pi2 = reinterpret_cast<const float2*>(pold + ti[li] * 6);
+      const float2* zi2 = reinterpret_cast<const float2*>(zr + ti[li] * 6);
+      const float2* pj2 = reinterpret_cast<const float2*>(pold + hj[li] * 6);
+      const float2* zj2 = reinterpret_cast<const float2*>(zr + hj[li] * 6);
+      float pi_[6], pj_[6];
+#pragma unroll
+      for (int k = 0; k < 3; ++k) {
+        const float2 P = pi2[k], Z = zi2[k], Pj = pj2[k], Zj = zj2[k];
+        pi_[2 * k] = fmaf(beta, P.x, Z.x);
+        pi_[2 * k + 1] = fmaf(beta, P.y, Z.y);
+        pj_[2 * k] = fmaf(beta, Pj.x, Zj.x);
+        pj_[2 * k + 1] = fmaf(beta, Pj.y, Zj.y);
+      }
+      const float2* Je = reinterpret_cast<const float2*>(sJ + li * 36);
+      float t[6], u[6] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll
+      for (int row = 0; row < 6; ++row) {
+        const float2 j0 = Je[row * 3], j1 = Je[row * 3 + 1],
+                     j2 = Je[row * 3 + 2];
+        const float jr6[6] = {j0.x, j0.y, j1.x, j1.y, j2.x, j2.y};
+        float s = 0.0f;
+#pragma unroll
+        for (int k = 0; k < 6; ++k) s += jr6[k] * pi_[k];
+        t[row] = s + pj_[row];
+#pragma unroll
+        for (int k = 0; k < 6; ++k) u[k] += jr6[k] * t[row];
+      }
+      const float wv = act ? w[li] : 0.0f;
+      const int key = act ? ti[li] : -1 - lane;
+      php += wv * (t[0] * t[0] + t[1] * t[1] + t[2] * t[2] + t[3] * t[3] +
+                   t[4] * t[4] + t[5] * t[5]);
+#pragma unroll
+      for (int k = 0; k < 6; ++k) u[k] *= wv;
+#pragma unroll
+      for (int dl = 1; dl < (CL ? 32 : 1); dl <<= 1) {
+        const int ok_ = __shfl_up_sync(0xffffffffu, key, dl);
+#pragma unroll
+        for (int k = 0; k < 6; ++k) {
+          const float o = __shfl_up_sync(0xffffffffu, u[k], dl);
+          if (lane >= dl && ok_ == key) u[k] += o;
+        }
+      }
+      if (act) {
+        float4* o = reinterpret_cast<float4*>(uv + le * 12);
+        o[0] = make_float4(u[0], u[1], u[2], u[3]);
+        o[1] = make_float4(u[4], u[5], wv * t[0], wv * t[1]);
+        o[2] = make_float4(wv * t[2], wv * t[3], wv * t[4], wv * t[5]);
+      }
+    }
+    const float pHp = team.sum(php, 0);  // 1: u, v and p visible too
     const bool ok = (pHp > 1e-12f) && (rz > 1e-12f * b2 + 1e-30f);
     const float alpha = ok ? rz / fmaxf(pHp, 1e-30f) : 0.0f;
-    for (int k = tid; k < F6; k += NT) {
-      x[k] = x[k] + alpha * p[k];
-      rr[k] = rr[k] - alpha * Hp[k];
-    }
-    __syncthreads();
+
+    // B: of the owned nodes, H p, then x += alpha p, r -= alpha H p and
+    // z = Minv r into every CTA, and r.z
     float rzn = 0.0f;
-    for (int k = tid; k < F6; k += NT) {
-      const int n = k / 6, a = k % 6;
-      float s = 0.0f;
-      for (int q = 0; q < 6; ++q)
-        s += Minv[(size_t)n * 36 + a * 6 + q] * rr[6 * n + q];
-      z[k] = s;
-      rzn += rr[k] * s;
+    for (int base = warp * 32; base < n_task; base += nw * 32) {
+      const int tk = task[base + lane];
+      const int lt = tk < 0 ? 0 : (tk >> 5) & 7, T = 1 << lt;
+      float acc[6] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+      const int ln = tk >> 8;
+      if (tk >= 0) {
+        const int cb = lst[ln] - lst[0] + est[ln];
+        const int d = lst[ln + 1] - lst[ln] + est[ln + 1] - est[ln];
+        // four entries at a time: their addresses, then their loads, then
+        // the adds (in entry order); an entry inside a leaving piece adds 0
+        for (int k0 = tk & 31; k0 < d; k0 += 4 * T) {
+          int rf[4];
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+            rf[i] = k0 + i * T < d ? refs[cb + k0 + i * T] : 0;
+          float e[4][6];
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const bool on = rf[i] & 1, isv = rf[i] & 2;
+            const float* src =
+                on ? team.at(uv, rf[i] >> 20) + ((rf[i] >> 2) & 0x3ffff) : uv;
+            const float2 a2 =
+                *reinterpret_cast<const float2*>(src + (isv ? 0 : 4));
+            const float4 b4 =
+                *reinterpret_cast<const float4*>(src + (isv ? 2 : 0));
+            e[i][0] = on ? (isv ? a2.x : b4.x) : 0.0f;
+            e[i][1] = on ? (isv ? a2.y : b4.y) : 0.0f;
+            e[i][2] = on ? (isv ? b4.x : b4.z) : 0.0f;
+            e[i][3] = on ? (isv ? b4.y : b4.w) : 0.0f;
+            e[i][4] = on ? (isv ? b4.z : a2.x) : 0.0f;
+            e[i][5] = on ? (isv ? b4.w : a2.y) : 0.0f;
+          }
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+#pragma unroll
+            for (int j = 0; j < 6; ++j) acc[j] += e[i][j];
+        }
+      }
+      const unsigned tmax = __reduce_max_sync(0xffffffffu, (unsigned)T);
+      for (int m = 1; m < (int)tmax; m <<= 1)
+#pragma unroll
+        for (int k = 0; k < 6; ++k) {
+          const float o = __shfl_xor_sync(0xffffffffu, acc[k], m);
+          if (m < T) acc[k] += o;
+        }
+      if (tk >= 0 && (tk & 31) == 0) {
+        float pv[6], xv[6], rv[6], zv[6];
+        load6(pnew + (n0 + ln) * 6, pv);
+        load6(x + ln * 6, xv);
+        load6(r + ln * 6, rv);
+        const float dgn = dg[ln];
+#pragma unroll
+        for (int k = 0; k < 6; ++k) {
+          const float h = acc[k] + dgn * pv[k];
+          xv[k] = xv[k] + alpha * pv[k];
+          rv[k] = rv[k] - alpha * h;
+        }
+        store6(x + ln * 6, xv);
+        store6(r + ln * 6, rv);
+        mat6(sM + ln * 36, rv, zv);
+#pragma unroll
+        for (int q = 0; q < 6; ++q) rzn += rv[q] * zv[q];
+        for (int rk = 0; rk < C; ++rk)
+          store6(team.at(zr, rk) + (n0 + ln) * 6, zv);
+      }
     }
-    const float rz_new = block_sum(rzn, red);
-    const float beta = ok ? rz_new / fmaxf(rz, 1e-30f) : 0.0f;
-    for (int k = tid; k < F6; k += NT) p[k] = z[k] + beta * p[k];
+    const float rz_new = team.sum(rzn, 1);  // 2: z everywhere too
+    beta = ok ? rz_new / fmaxf(rz, 1e-30f) : 0.0f;
     rz = rz_new;
-    __syncthreads();
   }
-  for (int k = tid; k < F6; k += NT) dx[k] = x[k];
+  for (int k = tid; k < nn * 6; k += nt) a.dx[(size_t)n0 * 6 + k] = x[k];
+  if (CL) team.barrier();  // no CTA exits while another reads its memory
 }
 
 __global__ void __launch_bounds__(NT)
@@ -505,20 +938,50 @@ int pg_blocks(const float* poses, const int* ei, const int* ej,
   return (int)cudaGetLastError();
 }
 
-// PCG: cg_iters steps on H dx = -g with the block-Jacobi inverses Minv
+// PCG: cg_iters steps on H dx = -g with the block-Jacobi inverses Minv, one
+// launch of a thread-block cluster (pcg_cluster); refuses a graph that no
+// cluster of up to 16 CTAs holds, or a cluster the card cannot co-schedule
 int pg_pcg(const float* poses, const int* ei, const int* ej, const float* eT,
            const float* ew, const int* oi, const int* pi, const int* oj,
            const int* pj, const float* J, const float* Minv,
            const float* diag, const float* gvec, float* dx, int F, int E,
            int cg_iters, cudaStream_t stream) {
-  Graph g{poses, ei, ej, eT, ew, F, E};
-  Incidence inc{oi, pi, oj, pj};
-  const size_t smem = (size_t)(5 * 6 * F + 6 * E) * sizeof(float);
+  (void)poses;
+  (void)eT;
+  const int C = pcg_cluster(F, E);
+  if (C == 0) return (int)cudaErrorInvalidValue;
+  const int EC = (E + C - 1) / C;
+  const int threads = std::min(1024, std::max(64, (EC + 31) / 32 * 32));
+  const size_t smem = pcg_words(F, E, C) * 4;
+  auto kernel = C > 1 ? pg_pcg_kernel<true> : pg_pcg_kernel<false>;
   cudaError_t err = cudaFuncSetAttribute(
-      pg_pcg_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  pg_pcg_kernel<<<1, NT, smem, stream>>>(g, inc, J, Minv, diag, gvec,
-                                         cg_iters, dx);
+  if (C > 8) {
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (err != cudaSuccess) return (int)err;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(C, 1, 1);
+  cfg.blockDim = dim3(threads, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = C;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  int clusters = 0;
+  err = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
+  if (err != cudaSuccess) return (int)err;
+  if (clusters < 1) return (int)cudaErrorLaunchOutOfResources;
+  PcgArgs args{ei, ej, ew, Incidence{oi, pi, oj, pj}, J, Minv, diag, gvec,
+               dx, F, E, cg_iters};
+  err = cudaLaunchKernelEx(&cfg, kernel, args);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 

@@ -11,12 +11,23 @@
 // first post-KF frame, the pose since the last KF (T_acc inverse-step
 // compounding), its translation norm and rotation angle, and the kmax cap.
 //
-// medoid replaces plslam_tpu/backend/map.py::_medoid_desc (:112): for every
-// landmark the ring member (of R packed 256-bit descriptors, count valid)
-// with the least summed Hamming distance to the valid members, the first
-// index on ties as jnp.argmin. Bound: bytes. It reads R x 32 bytes and
-// writes 32 bytes per landmark (8192 points and 1024 lines per keyframe);
-// R^2 x 8 popcounts per landmark are cheap. One thread per landmark, exact.
+// medoid replaces plslam_tpu/backend/map.py::_medoid_desc (:112) and what
+// add_keyframe does with it (:242-244, :303-306): out[n] = valid[n] ?
+// bits(medoid(ring[n], count[n])) : desc[n], the (N, 256) uint8 rows the map
+// stores. The medoid is the ring member (of R packed 256-bit descriptors,
+// the first min(count, R) valid) with the least summed Hamming distance to
+// the valid members, the first index on ties as jnp.argmin; a row with no
+// valid member takes member 0. Bound: bytes (8192 points and 1024 lines a
+// keyframe: R x 32 bytes of ring or 256 of desc in, 256 out a row); the
+// R^2 x 8 popcounts are cheap. A group of G lanes a landmark (G = R rounded
+// up to a power of two): lane i loads member i as two 16-byte vectors
+// (coalesced over the group), takes the others' words by shuffles, sums its
+// distances, and the group's argmin is a shuffle butterfly (ties to the
+// lower index). Each lane then writes 256 / G bytes of the row in 16-byte
+// stores, the bits spread into bytes by a multiply; an invalid row copies
+// desc in 16-byte vectors. One launch replaces the packed medoid and the
+// torch unpack and select after it (~6 launches and an int64 (N, 8, 32)
+// intermediate).
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -164,32 +175,83 @@ __global__ void kf_scan_kernel(
 
 constexpr int MAX_RING = 8;
 
-__global__ void medoid_kernel(const uint32_t* __restrict__ ring,
+// four bits into the low bit of four bytes
+__device__ __forceinline__ uint32_t spread4(uint32_t nib) {
+  return (nib * 0x00204081u) & 0x01010101u;
+}
+
+template <int G>
+__global__ void medoid_kernel(const uint4* __restrict__ ring,
                               const int* __restrict__ count,
-                              uint32_t* __restrict__ out, int N, int R) {
-  const int n = blockIdx.x * blockDim.x + threadIdx.x;
-  if (n >= N) return;
-  const uint32_t* r = ring + (size_t)n * R * 8;
-  const int nv = min(count[n], R);
-  int best = 0, best_sum = 0x7fffffff;
-  for (int i = 0; i < R; ++i) {
-    int s = 1 << 30;
-    if (i < nv) {
-      s = 0;
-      for (int j = 0; j < nv; ++j) {
-        int d = 0;
+                              const uint8_t* __restrict__ valid,
+                              const uint4* __restrict__ desc,
+                              uint4* __restrict__ out, int N, int R) {
+  constexpr int PER = 16 / G;  // 16-byte chunks of the row a lane
+  const int gid = blockIdx.x * blockDim.x + threadIdx.x;
+  const int n = gid / G, i = gid % G;
+  if (n >= N) return;  // the whole group: n is the group's
+  const int lane = threadIdx.x & 31;
+  const unsigned gm = (G == 32 ? 0xffffffffu : ((1u << G) - 1u))
+                      << (lane & ~(G - 1));
+  uint4* orow = out + (size_t)n * 16 + i * PER;
+  if (!valid[n]) {
+    const uint4* drow = desc + (size_t)n * 16 + i * PER;
 #pragma unroll
-        for (int w = 0; w < 8; ++w) d += __popc(r[i * 8 + w] ^ r[j * 8 + w]);
-        s += d;
-      }
-    }
-    if (s < best_sum) {  // strict: the first index wins ties
-      best_sum = s;
-      best = i;
+    for (int k = 0; k < PER; ++k) orow[k] = drow[k];
+    return;
+  }
+  const int nv = min(count[n], R);
+  uint4 a = make_uint4(0u, 0u, 0u, 0u), b = a;
+  if (i < R) {
+    const uint4* m = ring + ((size_t)n * R + i) * 2;
+    a = m[0];
+    b = m[1];
+  }
+  int s = 0;
+  for (int j = 0; j < R; ++j) {
+    const uint32_t w0 = __shfl_sync(gm, a.x, j, G);
+    const uint32_t w1 = __shfl_sync(gm, a.y, j, G);
+    const uint32_t w2 = __shfl_sync(gm, a.z, j, G);
+    const uint32_t w3 = __shfl_sync(gm, a.w, j, G);
+    const uint32_t w4 = __shfl_sync(gm, b.x, j, G);
+    const uint32_t w5 = __shfl_sync(gm, b.y, j, G);
+    const uint32_t w6 = __shfl_sync(gm, b.z, j, G);
+    const uint32_t w7 = __shfl_sync(gm, b.w, j, G);
+    if (j < nv)
+      s += __popc(a.x ^ w0) + __popc(a.y ^ w1) + __popc(a.z ^ w2) +
+           __popc(a.w ^ w3) + __popc(b.x ^ w4) + __popc(b.y ^ w5) +
+           __popc(b.z ^ w6) + __popc(b.w ^ w7);
+  }
+  if (i >= nv) s = 1 << 30;
+  int best = i;
+#pragma unroll
+  for (int m = 1; m < G; m <<= 1) {  // argmin, the lower index on ties
+    const int so = __shfl_xor_sync(gm, s, m, G);
+    const int bo = __shfl_xor_sync(gm, best, m, G);
+    if (so < s || (so == s && bo < best)) {
+      s = so;
+      best = bo;
     }
   }
+  const uint32_t wd[8] = {
+      __shfl_sync(gm, a.x, best, G), __shfl_sync(gm, a.y, best, G),
+      __shfl_sync(gm, a.z, best, G), __shfl_sync(gm, a.w, best, G),
+      __shfl_sync(gm, b.x, best, G), __shfl_sync(gm, b.y, best, G),
+      __shfl_sync(gm, b.z, best, G), __shfl_sync(gm, b.w, best, G)};
 #pragma unroll
-  for (int w = 0; w < 8; ++w) out[(size_t)n * 8 + w] = r[best * 8 + w];
+  for (int k = 0; k < PER; ++k) {
+    // bytes 16 c .. 16 c + 15 of the row: bits (16 c) % 32 .. + 15 of word
+    // 16 c / 32 (byte 32 w + j is bit j of word w, as hamming.unpack_bits)
+    const int chunk = i * PER + k, sh = (chunk & 1) * 16;
+    uint32_t word = wd[0];
+#pragma unroll
+    for (int t = 1; t < 8; ++t)
+      if ((chunk >> 1) == t) word = wd[t];
+    orow[k] = make_uint4(spread4((word >> sh) & 15u),
+                         spread4((word >> (sh + 4)) & 15u),
+                         spread4((word >> (sh + 8)) & 15u),
+                         spread4((word >> (sh + 12)) & 15u));
+  }
 }
 
 }  // namespace
@@ -217,13 +279,38 @@ int kf_scan(const float* DT, const float* cov, const uint8_t* good,
   return (int)cudaGetLastError();
 }
 
-// ring (N, R, 8) packed words, count (N,) i32 -> out (N, 8): the medoid.
-int medoid(const uint32_t* ring, const int* count, uint32_t* out, int N, int R,
+// ring (N, R, 8) packed words, count (N,) i32, valid (N,) u8, desc (N, 256)
+// u8 -> out (N, 256) u8: valid ? the medoid's bits : desc. Every pointer
+// 16-byte aligned; R in 1..MAX_RING.
+int medoid(const uint32_t* ring, const int* count, const uint8_t* valid,
+           const uint8_t* desc, uint8_t* out, int N, int R,
            cudaStream_t stream) {
-  if (R > MAX_RING) return (int)cudaErrorInvalidValue;
+  if (R < 1 || R > MAX_RING) return (int)cudaErrorInvalidValue;
+  if ((((uintptr_t)ring) | ((uintptr_t)desc) | ((uintptr_t)out)) & 15)
+    return (int)cudaErrorMisalignedAddress;
+  const int G = R <= 1 ? 1 : R <= 2 ? 2 : R <= 4 ? 4 : 8;
   const int threads = 256;
-  medoid_kernel<<<(N + threads - 1) / threads, threads, 0, stream>>>(
-      ring, count, out, N, R);
+  const int blocks = (int)(((size_t)N * G + threads - 1) / threads);
+  const uint4* r4 = reinterpret_cast<const uint4*>(ring);
+  const uint4* d4 = reinterpret_cast<const uint4*>(desc);
+  uint4* o4 = reinterpret_cast<uint4*>(out);
+  switch (G) {
+    case 1:
+      medoid_kernel<1><<<blocks, threads, 0, stream>>>(r4, count, valid, d4,
+                                                       o4, N, R);
+      break;
+    case 2:
+      medoid_kernel<2><<<blocks, threads, 0, stream>>>(r4, count, valid, d4,
+                                                       o4, N, R);
+      break;
+    case 4:
+      medoid_kernel<4><<<blocks, threads, 0, stream>>>(r4, count, valid, d4,
+                                                       o4, N, R);
+      break;
+    default:
+      medoid_kernel<8><<<blocks, threads, 0, stream>>>(r4, count, valid, d4,
+                                                       o4, N, R);
+  }
   return (int)cudaGetLastError();
 }
 

@@ -14,8 +14,9 @@ Two linear solvers: dense, the (6F)^2 system through
 PCG, a matrix-free block-Jacobi-preconditioned CG with a fixed schedule.
 On CUDA tensors every step but the library solve and the batched 6 x 6
 inverse is a launch of ``csrc/pose_graph.cu`` (``pg_edges``,
-``pg_assemble``, ``pg_blocks``, ``pg_pcg``, ``pg_update``); the plain
-versions (the reference's arithmetic in torch) run only for CPU tensors.
+``pg_assemble``, ``pg_blocks``, ``pg_pcg`` on a thread-block cluster,
+``pg_update``); the plain versions (the reference's arithmetic in torch)
+run only for CPU tensors.
 Fixed capacity: F pose slots, E edge slots, masked by ``edge_w > 0``.
 """
 
@@ -264,16 +265,76 @@ def pcg_plain(g: PoseGraph, Ji, Minv, diag, gvec, cg_iters: int):
     return x
 
 
+# pg_pcg's cluster (csrc/pose_graph.cu::pcg_cluster, pcg_words)
+PCG_MAX_CLUSTER = 16
+PCG_MAX_NODES = 128           # nodes a CTA
+PCG_SMEM_MAX = 232448         # dynamic shared memory a CTA (sm_90)
+
+
+def pcg_layout(F: int, E: int):
+    """(cluster size C, threads a CTA, shared bytes a CTA) of the
+    ``pg_pcg`` launch for F slots and E edge slots: the smallest power of
+    two C <= 16 whose CTAs each hold ceil(E / C) edges' Ji rows, products
+    and ends, ceil(F / C) nodes' Minv blocks and vectors, z and two p
+    buffers of all F nodes, the addresses of its nodes' list entries (up
+    to 2E) and pass B's lane slots, with at most 128 nodes a CTA; a thread
+    an edge slot of a CTA; None where no cluster holds the graph. The
+    kernel's own arithmetic."""
+    C = 1
+    while C <= PCG_MAX_CLUSTER:
+        EC, NC = -(-E // C), -(-F // C)
+        slots = NC + E + 32
+        words = (EC * (36 + 12 + 3) + NC * (36 + 2 * 6 + 1 + 2) + 2
+                 + 18 * F + 2 * E + slots + 96)
+        if words * 4 <= PCG_SMEM_MAX and (NC <= PCG_MAX_NODES
+                                          or C == PCG_MAX_CLUSTER):
+            return C, min(1024, max(64, -(-EC // 32) * 32)), words * 4
+        C *= 2
+    return None
+
+
+def pcg_partition(inc, F: int, C: int):
+    """What each CTA of ``pg_pcg``'s cluster owns, computed from the
+    incidence lists as the kernel computes it: per rank a dict of its nodes
+    (a range of NC = ceil(F / C)), its used edges (positions [c CE, (c + 1)
+    CE) of the leaving lists, CE = ceil(U / C): edge ids in that order),
+    the address (rank, local edge) of each leaving-list position of its
+    nodes and of each edge entering them (in the entering lists' order;
+    found by a binary search of the edge in its tail's leaving list)."""
+    oi, pi, oj, pj = (np.asarray(x.cpu()) for x in inc)
+    U = int(pi[F])
+    NC, CE = -(-F // C), max(-(-U // C), 1)
+    ref = lambda s: (s // CE, s - (s // CE) * CE)
+    tail = {int(e): n for n in range(F) for e in oi[pi[n]:pi[n + 1]]}
+    out = []
+    for c in range(C):
+        n0, n1 = min(c * NC, F), min((c + 1) * NC, F)
+        s0, s1 = min(c * CE, U), min((c + 1) * CE, U)
+        leaving, entering = [], []
+        for n in range(n0, n1):
+            leaving.append([ref(s) for s in range(pi[n], pi[n + 1])])
+            row = []
+            for e in oj[pj[n]:pj[n + 1]]:
+                i = tail[int(e)]
+                s = int(pi[i] + np.searchsorted(oi[pi[i]:pi[i + 1]], e))
+                row.append(ref(s))
+            entering.append(row)
+        out.append(dict(nodes=(n0, n1), edges=oi[s0:s1].tolist(),
+                        leaving=leaving, entering=entering))
+    return out
+
+
 def pcg(g: PoseGraph, Ji, Minv, diag, gvec, cg_iters: int, inc=None):
     """``cg_iters`` block-Jacobi PCG steps on H dx = -g from 0: one
-    ``pg_pcg`` launch (one block, the vectors in shared memory)."""
+    ``pg_pcg`` launch, a thread-block cluster of ``pcg_layout(F, E)[0]``
+    CTAs with the Jacobians and vectors in their shared memory."""
     if g.poses.device.type == "cpu":
         return pcg_plain(g, Ji, Minv, diag, gvec, cg_iters)
     a = _args(g)
     F, E = a[0].shape[0], a[4].shape[0]
-    if (5 * 6 * F + 6 * E) * 4 > 232448:
-        raise ValueError(f"pg_pcg: F={F}, E={E} exceed one block's shared "
-                         "memory")
+    if pcg_layout(F, E) is None:
+        raise ValueError(f"pg_pcg: F={F}, E={E} exceed the shared memory of "
+                         f"a cluster of {PCG_MAX_CLUSTER} CTAs")
     inc = _incidence(g) if inc is None else inc
     dx = torch.empty((F, 6), dtype=torch.float32, device=Ji.device)
     native.launch("pg_pcg", *a, *inc, Ji.contiguous(),

@@ -57,7 +57,7 @@ _SIGNATURES: Dict[str, str] = {
     "lbd_describe": "ppppppppiiiiiiiff",
     "pose_gn_optimize": "p" * 15 + "i" * 7 + "f" * 7,
     "kf_scan": "p" * 21 + "iiifff",
-    "medoid": "pppii",
+    "medoid": "pppppii",
     "lba_terms": "p" * 21 + "iiiii" + "fffff",
     "lba_camera": "p" * 11 + "iii",
     "lba_index": "p" * 5 + "iiiii",

@@ -32,6 +32,7 @@ from plslam_tpu.config import SlamConfig
 from plslam_tpu.core.camera import StereoCamera
 from plslam_tpu.frontend.features import (LineObservations, PointObservations,
                                           line_equation)
+from plslam_tpu.ops import hamming as jhamming
 from plslam_tpu_torch import convert
 from plslam_tpu_torch.backend import map as tmap
 
@@ -164,9 +165,12 @@ def test_medoid_and_slot_allocation_exact():
     count = rng.integers(0, 7, 500).astype(np.int32)
     want = np.asarray(jax.jit(jmap._medoid_desc)(jnp.asarray(ring),
                                                  jnp.asarray(count)))
-    got = tmap._medoid_desc(torch.from_numpy(ring.view(np.int32)),
-                            torch.from_numpy(count))
-    np.testing.assert_array_equal(got.numpy(), want.view(np.int32))
+    got = tmap._medoid_bits(torch.from_numpy(ring.view(np.int32)),
+                            torch.from_numpy(count),
+                            torch.ones(500, dtype=torch.bool),
+                            torch.zeros((500, 256), dtype=torch.uint8))
+    np.testing.assert_array_equal(
+        got.numpy(), np.asarray(jhamming.unpack_bits(jnp.asarray(want))))
     for p_free in (0.1, 0.5, 0.95):
         free = rng.random(300) < p_free
         want_ = rng.random(200) < 0.4
@@ -176,6 +180,39 @@ def test_medoid_and_slot_allocation_exact():
             tmap._allocate_slots(torch.from_numpy(free),
                                  torch.from_numpy(want_)).numpy(),
             np.asarray(ref))
+
+
+@pytest.mark.parametrize("family,N,R,seed", [("points", 600, 4, 2),
+                                             ("lines", 80, 4, 3),
+                                             ("ring8", 120, 8, 4),
+                                             ("ring3", 90, 3, 5)])
+def test_medoid_bits_matches_reference(family, N, R, seed):
+    """K16 as add_keyframe stores it: the fused plain version against the
+    reference's ``jnp.where(valid, unpack_bits(_medoid_desc(ring, n)),
+    desc)`` exactly, on rings with ties (repeated and equidistant
+    members), count 0, count > R and invalid rows."""
+    rng = np.random.default_rng(seed)
+    ring = rng.integers(0, 2 ** 32, (N, R, 8), dtype=np.uint64).astype(
+        np.uint32)
+    q = N // 6
+    ring[:q, R - 1] = ring[:q, 0]                           # repeated
+    ring[q:2 * q] = ring[q:2 * q, :1]                       # all equal
+    ring[2 * q:3 * q, :, 1:] = 0                            # near ties
+    ring[2 * q:3 * q, :, 0] = rng.integers(0, 4, (q, R)).astype(np.uint32)
+    count = rng.integers(-1, R + 3, N).astype(np.int32)    # 0 and > R
+    count[:3 * q:2] = R
+    valid = rng.random(N) < 0.75
+    desc = rng.integers(0, 2, (N, 256)).astype(np.uint8)
+    want = np.asarray(jax.jit(lambda r, n, v, d: jnp.where(
+        v[:, None], jhamming.unpack_bits(jmap._medoid_desc(r, n)), d))(
+        jnp.asarray(ring), jnp.asarray(count), jnp.asarray(valid),
+        jnp.asarray(desc)))
+    got = tmap._medoid_bits(torch.from_numpy(ring.view(np.int32)),
+                            torch.from_numpy(count),
+                            torch.from_numpy(valid), torch.from_numpy(desc))
+    assert got.dtype == torch.uint8 and got.shape == (N, 256)
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert (count <= 0).any() and (count > R).any() and (~valid).any()
 
 
 def test_add_keyframe_matches_reference(run):

@@ -14,6 +14,7 @@ printed.
 """
 
 import numpy as np
+import pytest
 import torch
 
 import jax.numpy as jnp
@@ -208,3 +209,140 @@ def test_pcg_respects_invalid_slots():
         lambda g, fz: jpg._optimize_pcg(g, fz, 6, 64), "pcg, invalid slots")
     assert float((P[60:] - torch.from_numpy(d["poses"][60:])).abs().max()
                  ) < 1e-6
+
+
+# pg_pcg's cluster: the partition the kernel computes, mirrored by
+# pcg_partition, at the loop closer's four slot buckets (E = 4F; the graphs
+# chip_smoke.py times), on a hub graph with unused slots between used ones,
+# and at larger clusters than pcg_layout picks
+_BUCKETS = [(64, 40, 60, None), (128, 100, 300, None), (256, 200, 800, None),
+            (512, 400, 1600, None), (64, 40, 60, 16), (512, 400, 1600, 16)]
+
+
+def _hub_graph(F=96, seed=7):
+    """Edges into and out of slot 5 from most slots, unused slots (w = 0)
+    between used ones, repeated pairs."""
+    rng = np.random.default_rng(seed)
+    E = 4 * F
+    d = _pack(F, np.tile(np.eye(4, dtype=np.float32), (F - 10, 1, 1)), [], E)
+    for k in range(E):
+        i, j = (5, int(rng.integers(0, F - 10))) if k % 3 else tuple(
+            int(v) for v in rng.integers(0, F - 10, 2))
+        d["edge_i"][k], d["edge_j"][k] = (i, j) if k % 2 else (j, i)
+        d["edge_w"][k] = 0.0 if k % 7 == 3 else 1.0
+    return d
+
+
+@pytest.mark.parametrize("F,n,extra,C", _BUCKETS + [(96, 0, 0, None),
+                                                    (96, 0, 0, 8)])
+def test_pcg_partition_owns_every_edge_once(F, n, extra, C):
+    """Every used edge lands in exactly one CTA's list, the lists in the
+    leaving lists' order (edge order within a node); every leaving and
+    entering entry of a node addresses that edge in its owner's list."""
+    from plslam_tpu_torch.io import synthetic
+    d = (_hub_graph(F) if n == 0
+         else synthetic.drift_circle_graph(F, n, extra, seed=F)[0])
+    g = convert.pose_graph_from_numpy(d, "cpu")
+    E = g.edge_w.shape[0]
+    C_, threads, smem = tpg.pcg_layout(F, E)
+    assert smem <= tpg.PCG_SMEM_MAX and threads % 32 == 0 and threads <= 1024
+    assert C_ == {64: 1, 96: 1, 128: 1, 256: 2, 512: 4}[F]
+    C = C or C_
+    inc = tpg._incidence(g)
+    oi, pi, oj, pj = (np.asarray(x) for x in inc)
+    parts = tpg.pcg_partition(inc, F, C)
+    assert len(parts) == C
+    used = np.flatnonzero(d["edge_w"] > 0)
+    owned = sum((p["edges"] for p in parts), [])
+    assert owned == oi[:len(used)].tolist()
+    assert sorted(owned) == used.tolist()
+    ei, ej = d["edge_i"], d["edge_j"]
+    for p in parts:
+        es = p["edges"]
+        assert len(es) <= -(-E // C)
+        for a, b in zip(es, es[1:]):       # by tail, edge order within one
+            assert (ei[a], a) < (ei[b], b)
+    assert parts[-1]["nodes"][1] == F
+    for c, p in enumerate(parts):
+        n0, n1 = p["nodes"]
+        assert n1 - n0 <= -(-F // C)
+        assert c == 0 or n0 == parts[c - 1]["nodes"][1]
+        for k, node in enumerate(range(n0, n1)):
+            out_e = [parts[r]["edges"][loc] for r, loc in p["leaving"][k]]
+            in_e = [parts[r]["edges"][loc] for r, loc in p["entering"][k]]
+            assert out_e == oi[pi[node]:pi[node + 1]].tolist()
+            assert in_e == oj[pj[node]:pj[node + 1]].tolist()
+            assert all(ei[e] == node for e in out_e)
+            assert all(ej[e] == node for e in in_e)
+            assert all(0 <= r < C and 0 <= loc < 2 ** 16
+                       for r, loc in p["leaving"][k] + p["entering"][k])
+
+
+def _pcg_cluster_emulated(g, Ji, Minv, diag, gvec, iters, C):
+    """pg_pcg's data flow in float64 numpy: the partition, the edge pass
+    (p = z + beta p_old folded in at both ends, p.Hp as sum_e w |t_e|^2 +
+    sum_n diag_n |p_n|^2), the node pass through the leaving and entering
+    addresses, the dot products as sums of partials; the same schedule
+    and gates as pcg_plain."""
+    F = g.poses.shape[0]
+    parts = tpg.pcg_partition(tpg._incidence(g), F, C)
+    J, M = Ji.double().numpy(), Minv.double().numpy()
+    w, dg = g.edge_w.double().numpy(), diag.double().numpy()
+    ei, ej = g.edge_i.numpy(), g.edge_j.numpy()
+    r = -gvec.double().numpy().reshape(F, 6)
+    x, p = np.zeros((F, 6)), np.zeros((F, 6))
+    z = np.einsum("fpq,fq->fp", M, r)
+    b2, rz, beta = float(np.sum(r * r)), float(np.sum(r * z)), 0.0
+    for _ in range(iters):
+        p = z + beta * p                    # A: every CTA's p, the edges
+        uv, php = [], []
+        for part in parts:
+            rows, q = [], 0.0
+            for e in part["edges"]:
+                t = J[e] @ p[ei[e]] + p[ej[e]]
+                rows.append((w[e] * (J[e].T @ t), w[e] * t))
+                q += w[e] * float(t @ t)
+            n0, n1 = part["nodes"]
+            q += float(np.sum(dg[n0:n1] * np.sum(p[n0:n1] ** 2, axis=1)))
+            uv.append(rows)
+            php.append(q)
+        pHp = sum(php)
+        ok = pHp > 1e-12 and rz > 1e-12 * b2 + 1e-30
+        alpha = rz / max(pHp, 1e-30) if ok else 0.0
+        Hp = np.zeros((F, 6))
+        for part in parts:                  # B: the owned nodes
+            n0, n1 = part["nodes"]
+            for k, node in enumerate(range(n0, n1)):
+                y = sum((uv[rk][loc][0] for rk, loc in part["leaving"][k]),
+                        np.zeros(6))
+                y = y + sum((uv[rk][loc][1] for rk, loc in
+                             part["entering"][k]), np.zeros(6))
+                Hp[node] = y + dg[node] * p[node]
+        x = x + alpha * p
+        r = r - alpha * Hp
+        z = np.einsum("fpq,fq->fp", M, r)
+        rz_new = float(np.sum(r * z))
+        beta = rz_new / max(rz, 1e-30) if ok else 0.0
+        rz = rz_new
+    return x
+
+
+@pytest.mark.parametrize("F,n,extra,C", [(64, 40, 60, 1), (64, 40, 60, 4),
+                                         (96, 0, 0, 3), (128, 100, 300, 8)])
+def test_pcg_cluster_data_flow_matches_plain(F, n, extra, C):
+    """The kernel's data flow over the partition (float64) against the
+    plain PCG in float64 on the same system: 1e-9 of dx's largest entry
+    (only the order of the sums differs)."""
+    from plslam_tpu_torch.io import synthetic
+    d = (_hub_graph(F) if n == 0
+         else synthetic.drift_circle_graph(F, n, extra, seed=F)[0])
+    g = convert.pose_graph_from_numpy(d, "cpu")
+    g64 = g._replace(poses=g.poses.double(), edge_T=g.edge_T.double(),
+                     edge_w=g.edge_w.double())
+    r, Ji, _ = tpg.edges_plain(g64)
+    diag = tpg._diag(g64, torch.zeros(F, dtype=torch.bool), True)
+    gvec, Hd = tpg.blocks_plain(g64, r, Ji, diag)
+    Minv = torch.linalg.inv(Hd)
+    want = tpg.pcg_plain(g64, Ji, Minv, diag, gvec, 24).numpy()
+    got = _pcg_cluster_emulated(g, Ji, Minv, diag, gvec, 24, C)
+    assert np.abs(got - want).max() <= 1e-9 * np.abs(want).max()
