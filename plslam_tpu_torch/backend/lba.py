@@ -13,16 +13,16 @@ On CUDA tensors each stage is a launch of kernel K (``csrc/lba.cu``):
 ``lba_terms`` (residuals, Jacobians, validity, norms per observation, and
 in the same launch the exact lower-median MAD scale over all
 observations, a radix select, and the robust cost), ``lba_camera`` (H_cc,
-g_c per pose), ``lba_bin`` (the landmark blocks, damped inverses and
-H_cl, one warp per landmark walking its observations in order: no float
-atomics) and ``lba_solve`` (the Schur complement over the pose pairs that
-observe each landmark, the damped and pinned 6W x 6W solve by LU with
-partial pivoting inside the launch, where the reference calls
-``jnp.linalg.solve``, and the landmark steps: two kernels, float64
-inside); ``lba_index`` lists each landmark's observations once a
-``run_lba`` (the ids do not change between its LM steps) for every
-``lba_bin`` and ``lba_solve``. ``run_lba`` replays the whole LM loop as
-one CUDA graph.
+g_c per pose: a thread-block cluster a pose, ``camera_layout``),
+``lba_bin`` (the landmark blocks, damped inverses and H_cl, one warp per
+landmark walking its observations in order: no float atomics) and
+``lba_solve`` (the Schur complement over the pose pairs that observe each
+landmark, the damped and pinned 6W x 6W solve by LU with partial pivoting
+inside the launch, where the reference calls ``jnp.linalg.solve``, and
+the landmark steps: two kernels, float64 inside); ``lba_index`` lists
+each landmark's observations once a ``run_lba`` (the ids do not change
+between its LM steps) for every ``lba_bin`` and ``lba_solve``.
+``run_lba`` replays the whole LM loop as one CUDA graph.
 The ``*_plain`` functions are the reference's arithmetic in PyTorch (the
 one-hot binning included, which is deterministic on the card too; the
 dense solve ``torch.linalg.solve_ex``) and run only for CPU tensors.
@@ -320,8 +320,28 @@ def lba_blocks_plain(t: LBATerms, problem: LBAProblem, sigma, free, lam
                           *lba_bin_plain(t, problem, sigma, free, lam))
 
 
+# lba_camera's launch: a thread-block cluster of up to CAM_MAX_C CTAs a pose
+# (the portable cluster size), each taking a slice of at least CAM_MIN_SLICE
+# of the pose's K + 2L observations, one a thread, CAM_MAX_T threads at most
+CAM_MAX_C, CAM_MIN_SLICE, CAM_MAX_T = 8, 64, 256
+
+
+def camera_layout(W: int, K: int, L: int) -> Tuple[int, int, int]:
+    """(C, S, T): ``lba_camera``'s cluster of C CTAs a pose, S of the
+    pose's K + 2L observations a CTA (rank c takes [c S, (c + 1) S)), T
+    threads a CTA, which takes its slice in rounds of T, one observation a
+    thread. Raises for a shape the launch cannot take."""
+    N = K + 2 * L
+    if not (1 <= W <= 65535 and K >= 0 and L >= 0 and N >= 1):
+        raise ValueError(f"lba_camera: no launch for W={W}, K={K}, L={L}")
+    C = min(CAM_MAX_C, -(-N // CAM_MIN_SLICE))
+    S = -(-N // C)
+    return C, S, min(CAM_MAX_T, -(-S // 32) * 32)
+
+
 def lba_camera(t: LBATerms, sigma, free):
-    """Camera blocks H_cc (W,6,6), g_c (W,6): one ``lba_camera`` launch."""
+    """Camera blocks H_cc (W,6,6), g_c (W,6): one ``lba_camera`` launch, a
+    thread-block cluster a pose (``camera_layout``)."""
     if t.rn.device.type == "cpu":
         return lba_camera_plain(t, sigma, free)
     W, K = t.rn.shape
@@ -329,9 +349,10 @@ def lba_camera(t: LBATerms, sigma, free):
     dev = t.rn.device
     H_cc = torch.empty((W, 6, 6), dtype=torch.float32, device=dev)
     g_c = torch.empty((W, 6), dtype=torch.float32, device=dev)
-    native.launch("lba_camera", t.Jc_pt, t.r_pt, t.rn, t.ok_pt, t.Jc_ln,
-                  t.r_ln, t.ok_ln, _f32(sigma.reshape(())),
-                  free.to(torch.uint8).contiguous(), H_cc, g_c, W, K, L)
+    native.launch("lba_camera", *(x.contiguous() for x in (
+        t.Jc_pt, t.r_pt, t.rn, t.ok_pt, t.Jc_ln, t.r_ln, t.ok_ln)),
+        _f32(sigma.reshape(())), free.to(torch.uint8).contiguous(), H_cc,
+        g_c, W, K, L, *camera_layout(W, K, L))
     return H_cc, g_c
 
 

@@ -26,7 +26,8 @@
 //               the MAD scale and the robust cost with the
 //               lost-observation charge in a fixed-order reduction (below,
 //               at terms_kernel).
-//   lba_camera  one block per pose: H_cc and g_c, fixed-order reduction.
+//   lba_camera  a thread-block cluster of up to 8 CTAs a pose: H_cc and
+//               g_c, fixed-order reductions (below, at camera_kernel).
 //   lba_index   once a window LBA (the observation ids do not
 //               change between LM steps): one block lists each landmark
 //               slot's observations in CSR form, points first, then the
@@ -49,6 +50,7 @@
 //               partial pivoting in shared memory; a second launch steps
 //               the landmarks (below, at schur_solve_kernel).
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <float.h>
 #include <limits.h>
@@ -56,6 +58,8 @@
 #include <stdint.h>
 
 #include "radix_select.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -376,70 +380,180 @@ __global__ void __launch_bounds__(TERMS_NT) terms_kernel(
   for (int b = tid; b < SEL_D1; b += TERMS_NT) scr->hist[b] = 0;
 }
 
-template <int NV, int NT>
-__device__ void block_sum(float* acc, float (*red)[NV], float* tot) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+// -- lba_camera: the camera blocks, a thread-block cluster a pose ----------
+//
+// H_cc (W, 6, 6) and g_c (W, 6) are the t-Student-weighted sums of Jc^T Jc
+// and Jc^T r over a free pose's valid point rows and line endpoints; a fixed
+// pose gets zero blocks. Bound: bytes, ~1 MB at the default window (0.29 us
+// at 3.35 TB/s). What the launch takes is latency: the one-block-a-pose
+// kernel it replaced ran W = 10 CTAs on 10 SMs, each walking the pose's
+// K + 2L = 1,280 observations in 5 dependent strided passes with 72-byte
+// strided Jacobian loads, then one shared-memory reduction (6.8 us on an
+// NVIDIA H100 80GB HBM3 at 700 W).
+// Design: a cluster of C <= 8 CTAs a pose (the portable size), W x C CTAs
+// (80 at the default window). ``backend/lba.py::camera_layout`` plans C, the
+// slice S and the threads T; CTA rank c takes observations [c S, (c + 1) S)
+// of the pose's K + 2L (points, then the start, then the end endpoints) in
+// rounds of T, one a thread (one round at the default window):
+//   - the round's point Jacobians, contiguous (3, 6) rows, are copied into
+//     shared memory in 16-byte cp.async pieces while each thread loads its
+//     own flag, residual, norm and, for an endpoint, its 6 Jacobian floats;
+//   - each thread adds its observation's 21 upper-triangle and 6 gradient
+//     terms; a reduce-scatter butterfly a warp (31 shuffles), then the
+//     warps' sums in order, give the CTA's 27 partials, which it writes
+//     into rank 0's shared memory;
+//   - after one cluster barrier rank 0 adds the C partials in rank order
+//     and writes the blocks.
+// The order is fixed and there are no float atomics: the bits do not
+// depend on scheduling, so run_lba's graph replay equals its eager loop.
+// The order of the sums differs from the replaced kernel's.
+constexpr int CAM_MAX_C = 8, CAM_MAX_T = 256;
+
+struct CamArgs {
+  const float* Jc_pt;
+  const float* r_pt;
+  const float* rn;
+  const uint8_t* ok_pt;
+  const float* Jc_ln;
+  const float* r_ln;
+  const uint8_t* ok_ln;
+  const float* sigma;
+  const uint8_t* free_;
+  float* H_cc;
+  float* g_c;
+  int W, K, L, S;
+};
+
+// acc += w [J^T J upper triangle, J^T r] of one Jacobian row J (6)
+__device__ __forceinline__ void cam_add(float* acc, float wt, const float* J,
+                                        float r) {
+  int o = 0;
 #pragma unroll
-  for (int v = 0; v < NV; ++v) {
-    float x = acc[v];
-    for (int s = 16; s > 0; s >>= 1) x += __shfl_xor_sync(0xffffffffu, x, s);
-    if (lane == 0) red[warp][v] = x;
-  }
-  __syncthreads();
-  if (threadIdx.x < NV) {
-    float x = 0.0f;
-    for (int w = 0; w < NT / 32; ++w) x += red[w][threadIdx.x];
-    tot[threadIdx.x] = x;
-  }
-  __syncthreads();
+  for (int p = 0; p < 6; ++p)
+#pragma unroll
+    for (int q = p; q < 6; ++q) acc[o++] += wt * J[p] * J[q];
+#pragma unroll
+  for (int p = 0; p < 6; ++p) acc[21 + p] += wt * J[p] * r;
 }
 
-constexpr int CAM_NT = 256;
-
-__global__ void __launch_bounds__(CAM_NT)
-    camera_kernel(const float* __restrict__ Jc_pt, const float* __restrict__ r_pt,
-                  const float* __restrict__ rn, const uint8_t* __restrict__ ok_pt,
-                  const float* __restrict__ Jc_ln, const float* __restrict__ r_ln,
-                  const uint8_t* __restrict__ ok_ln, const float* sigma_p,
-                  const uint8_t* __restrict__ free_, float* H_cc, float* g_c,
-                  int W, int K, int L) {
-  __shared__ float red[CAM_NT / 32][27];
-  __shared__ float tot[27];
-  const int w = blockIdx.x, tid = threadIdx.x;
-  const float sigma = *sigma_p;
-  const bool fr = free_[w] != 0;
-  float acc[27];
+// one step of a warp's reduce-scatter butterfly over 2H values: the lanes
+// with bit H keep values H..2H-1 and send 0..H-1 to their partner, the
+// others the reverse; value v + H (v < H) of a lane with bit H lands in
+// acc[v]. After the steps 16, 8, 4, 2, 1, lane l's acc[0] is the warp's
+// sum of value l.
+template <int H>
+__device__ __forceinline__ void scatter_step(float* acc, int lane) {
+  const bool up = (lane & H) != 0;
 #pragma unroll
-  for (int v = 0; v < 27; ++v) acc[v] = 0.0f;
-  if (fr) {
-    for (int i = tid; i < K + 2 * L; i += CAM_NT) {
-      if (i < K) {
-        const int j = w * K + i;
-        if (!ok_pt[j]) continue;
-        const float wt = tstudent(rn[j], sigma);
-        for (int a = 0; a < 3; ++a) {
-          const float* J = Jc_pt + 18 * j + 6 * a;
-          const float r = r_pt[3 * j + a];
-          int o = 0;
-          for (int p = 0; p < 6; ++p)
-            for (int q = p; q < 6; ++q) acc[o++] += wt * J[p] * J[q];
-          for (int p = 0; p < 6; ++p) acc[21 + p] += wt * J[p] * r;
+  for (int v = 0; v < H; ++v) {
+    const float send = up ? acc[v] : acc[v + H];
+    const float keep = up ? acc[v + H] : acc[v];
+    acc[v] = keep + __shfl_xor_sync(0xffffffffu, send, H);
+  }
+}
+
+template <bool CL>
+__global__ void __launch_bounds__(CAM_MAX_T) camera_kernel(CamArgs a) {
+  __shared__ __align__(16) float jst[CAM_MAX_T * 18 + 4];
+  __shared__ float red[CAM_MAX_T / 32][27];
+  __shared__ float part[CAM_MAX_C][27];
+  const int w = blockIdx.y, c = blockIdx.x, C = gridDim.x;
+  const int tid = threadIdx.x, T = blockDim.x;
+  const int lane = tid & 31, warp = tid >> 5;
+  if (CL)
+    asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+  const int K = a.K, L = a.L, N = K + 2 * L;
+  const int lo = min(c * a.S, N), hi = min(lo + a.S, N);
+  const bool fr = a.free_[w] != 0;
+  const float sigma = *a.sigma;
+  const size_t total = (size_t)a.W * K * 18;
+  const bool aligned = ((uintptr_t)a.Jc_pt & 15) == 0;
+  float acc[32];  // 21 upper-triangle and 6 gradient sums, then padding
+#pragma unroll
+  for (int v = 0; v < 32; ++v) acc[v] = 0.0f;
+  for (int r0 = lo; fr && r0 < hi; r0 += T) {
+    const int r1 = min(r0 + T, hi), p1 = min(r1, K);
+    // the round's point rows, 18 floats each, from the 16-byte piece that
+    // holds the first: ``head`` floats into the buffer
+    int head = 0;
+    if (r0 < p1) {
+      const size_t s = ((size_t)w * K + r0) * 18;
+      const size_t q0 = s / 4, q1 = (((size_t)w * K + p1) * 18 + 3) / 4;
+      head = (int)(s - 4 * q0);
+      for (size_t q = q0 + tid; q < q1; q += T) {
+        float* dst = jst + 4 * (q - q0);
+        if (aligned && 4 * q + 4 <= total) {
+          const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+          asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
+                       "l"(a.Jc_pt + 4 * q));
+        } else {
+          for (int k = 0; k < 4; ++k)
+            if (4 * q + k < total) dst[k] = a.Jc_pt[4 * q + k];
         }
+      }
+      asm volatile("cp.async.commit_group;\n" ::: "memory");
+    }
+    // this thread's observation: its flag, residual, norm, line Jacobian,
+    // all loaded at once (each is read only where the flag is set)
+    const int i = r0 + tid;
+    bool on = false;
+    float nr = 0.0f, r[3] = {0.0f, 0.0f, 0.0f}, J[6];
+    if (i < r1) {
+      if (i < K) {
+        const size_t j = (size_t)w * K + i;
+        on = a.ok_pt[j] != 0;
+        nr = a.rn[j];
+        for (int k = 0; k < 3; ++k) r[k] = a.r_pt[3 * j + k];
       } else {
-        const int f = (i - K) / L, l = (i - K) % L;
-        const int j = f * W * L + w * L + l;
-        if (!ok_ln[j]) continue;
-        const float r = r_ln[j];
-        const float wt = tstudent(fabsf(r), sigma);
-        const float* J = Jc_ln + 6 * j;
-        int o = 0;
-        for (int p = 0; p < 6; ++p)
-          for (int q = p; q < 6; ++q) acc[o++] += wt * J[p] * J[q];
-        for (int p = 0; p < 6; ++p) acc[21 + p] += wt * J[p] * r;
+        const int f = (i - K) / L, l = i - K - f * L;
+        const size_t j = ((size_t)f * a.W + w) * L + l;
+        on = a.ok_ln[j] != 0;
+        r[0] = a.r_ln[j];
+        nr = fabsf(r[0]);
+        for (int k = 0; k < 6; ++k) J[k] = a.Jc_ln[6 * j + k];
       }
     }
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+    __syncthreads();
+    if (on) {
+      const float wt = tstudent(nr, sigma);
+      if (i < K) {
+        const float* Jp = jst + head + 18 * (i - r0);
+        for (int k = 0; k < 3; ++k) cam_add(acc, wt, Jp + 6 * k, r[k]);
+      } else {
+        cam_add(acc, wt, J, r[0]);
+      }
+    }
+    __syncthreads();  // the buffer is free for the next round
   }
-  block_sum<27, CAM_NT>(acc, red, tot);
+  // the warp's sums by a reduce-scatter butterfly (scatter_step): lane l
+  // ends with value l's sum, 31 shuffles for the 27 values, not 5 x 27
+  scatter_step<16>(acc, lane);
+  scatter_step<8>(acc, lane);
+  scatter_step<4>(acc, lane);
+  scatter_step<2>(acc, lane);
+  scatter_step<1>(acc, lane);
+  if (lane < 27) red[warp][lane] = acc[0];
+  __syncthreads();
+  // every CTA of the cluster runs before the first remote write
+  if (CL) asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+  if (tid < 27) {
+    float x = 0.0f;
+    for (int k = 0; k < T / 32; ++k) x += red[k][tid];
+    float* row = &part[c][0];
+    if (CL) row = cg::this_cluster().map_shared_rank(row, 0);
+    row[tid] = x;
+  }
+  __syncthreads();
+  if (CL) {
+    // thread 0's cluster-scope fence after the CTA barrier (cumulative over
+    // the CTA's remote writes), every thread's relaxed arrive, the wait
+    if (tid == 0) asm volatile("fence.acq_rel.cluster;\n" ::: "memory");
+    __syncwarp();
+    asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+    asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+  }
+  if (c != 0) return;
   if (tid < 36) {
     int p = tid / 6, q = tid % 6;
     if (p > q) {
@@ -449,9 +563,14 @@ __global__ void __launch_bounds__(CAM_NT)
     }
     // index of (p, q), p <= q, in the row-major upper triangle
     const int o = p * 6 - p * (p - 1) / 2 + (q - p);
-    H_cc[36 * w + tid] = tot[o];
+    float x = 0.0f;
+    for (int k = 0; k < C; ++k) x += part[k][o];
+    a.H_cc[36 * w + tid] = x;
+  } else if (tid < 42) {
+    float x = 0.0f;
+    for (int k = 0; k < C; ++k) x += part[k][21 + tid - 36];
+    a.g_c[6 * w + tid - 36] = x;
   }
-  if (tid < 6) g_c[6 * w + tid] = tot[21 + tid];
 }
 
 // the reference's closed-form inverse of a scale-normalised SPD 3 x 3
@@ -664,15 +783,16 @@ __global__ void __launch_bounds__(BIN_NT)
 //   - the observing free poses of each landmark from lba_index's lists (a
 //     bit mask; integer shared atomics, exact), and the block's touched
 //     pose pairs w <= v;
-//   - the observed blocks C = H_cl[w, n] into shared memory (coalesced,
-//     predicated on the masks, 8 loads a thread in flight), and
-//     B = C H_inv[n] once per observed pair;
+//   - each landmark's H_inv as L D L^T (ldl_factor, float64), and the
+//     observed blocks C = H_cl[w, n] row by row (predicated on the masks,
+//     4 rows a thread in flight) into shared memory as E = C L, float64;
 //   - a warp a touched pair (or a run of the chunk's landmarks of one, when
 //     there are fewer pairs than warps; the runs then added in order) sums
-//     B_wn C_vn^T, and on a diagonal pair B_wn g_l[n], over the landmarks
-//     in order, a lane an entry, and writes the chunk's partials of the
-//     pairs it touched to the scratch, with the pair mask and each
-//     landmark's pose mask;
+//     B_wn C_vn^T = E_w D E_v^T, B = C H_inv[n], and on a diagonal pair
+//     B_wn g_l[n] = E_w z, over the landmarks that observe both poses in
+//     order, a lane an entry, and writes the chunk's partials of the pairs
+//     it touched to the scratch, with the pair mask and each landmark's
+//     pose mask;
 //   - the block that takes the last ticket adds each pair's partials over
 //     the chunks that touched it in chunk order (a warp a pair), damps the
 //     ORIGINAL H_cc diagonal and pins as the plain version does, and solves
@@ -686,11 +806,15 @@ __global__ void __launch_bounds__(BIN_NT)
 //     scratch is read before it is written.
 //   - a second launch, one thread a landmark, steps every landmark from the
 //     poses in its mask (the support floor and the caps).
-// The landmarks' products are summed (each in float32), and S factored and
-// solved, in float64: the endpoint steps amplify the error of dxi by their
-// blocks' condition (one scalar residual an observation), and with these
-// sums and the LU in float32 a window's endpoint steps landed further from
-// float64 than K15's band around the plain version's distance allows.
+// The landmarks' products (B C^T and B g_l from the float32 blocks, through
+// H_inv's L D L^T factors, ldl_factor) and their sums, and S's factoring
+// and solve, are in float64: the endpoint steps amplify the error of dxi
+// by their blocks' condition (one scalar residual an observation). With
+// the sums and the LU in float32 a window's endpoint steps landed further
+// from float64 than K15's band around the plain version's distance allows,
+// and with the products alone in float32 the SLAM path's ill-conditioned
+// final window's did. H_inv is symmetric (lba_bin and the plain inv3 write
+// one value for each pair of mirrored entries); its lower triangle is read.
 // Inputs and outputs stay float32. No float atomics: two launches give the
 // same bits.
 //
@@ -784,7 +908,38 @@ __device__ __forceinline__ void landmark_step(
   for (int a = 0; a < 3; ++a) d_out[3 * n + a] = moves ? d[a] * sc : 0.0f;
 }
 
-__global__ void __launch_bounds__(SOLVE_NT) schur_solve_kernel(
+// A landmark's symmetric H_inv (float32, row-major 3 x 3) as L D L^T in
+// float64, L unit lower triangular: f = (l21, l31, l32, d1, d2, d3); and
+// z = D L^T g. Then C H_inv C'^T = E D E'^T and C H_inv g = E z with
+// E = C L: B = C H_inv's products in float64 from E, whose storage is that
+// of C and B in float32.
+__device__ __forceinline__ void ldl_factor(const float* __restrict__ h,
+                                           const float* __restrict__ g,
+                                           double* f, double* z) {
+  const double h21 = h[3], h31 = h[6];
+  const double d1 = h[0], l21 = h21 / d1, l31 = h31 / d1;
+  const double d2 = h[4] - l21 * h21;
+  const double l32 = (h[7] - l31 * h21) / d2;
+  const double d3 = h[8] - l31 * h31 - l32 * l32 * d2;
+  f[0] = l21;
+  f[1] = l31;
+  f[2] = l32;
+  f[3] = d1;
+  f[4] = d2;
+  f[5] = d3;
+  const double g0 = g[0], g1 = g[1], g2 = g[2];
+  z[0] = d1 * (g0 + l21 * g1 + l31 * g2);
+  z[1] = d2 * (g1 + l32 * g2);
+  z[2] = d3 * g2;
+}
+
+// a D b^T for the rows a, b (3) and the diagonal d (3)
+__device__ __forceinline__ double ldl_dot(const double* a, const double* d,
+                                          const double* b) {
+  return a[0] * d[0] * b[0] + a[1] * d[1] * b[1] + a[2] * d[2] * b[2];
+}
+
+__global__ void __launch_bounds__(SOLVE_NT, 1) schur_solve_kernel(
     const int* __restrict__ off, const int* __restrict__ list,
     const float* __restrict__ H_cc, const float* __restrict__ g_c,
     const float* __restrict__ H_inv, const float* __restrict__ g_l,
@@ -808,17 +963,18 @@ __global__ void __launch_bounds__(SOLVE_NT) schur_solve_kernel(
   const int G = gridDim.x, NPAIR = W * (W + 1) / 2;
   const int n0 = blockIdx.x * SOLVE_CH, nch = min(SOLVE_CH, N - n0);
   const SolveScratch scr = solve_scratch(scratch, N, G);
-  float* sC = dyn;                           // observed blocks H_cl[w, n]
-  float* sB = sC + SOLVE_CH * W * 18;        // B = C H_inv[n]
-  float* sHi = sB + SOLVE_CH * W * 18;
-  float* sgl = sHi + SOLVE_CH * 9;
-  unsigned short* sq = reinterpret_cast<unsigned short*>(sgl + SOLVE_CH * 3);
+  // E = C L of the observed blocks C = H_cl[w, n]; each landmark's
+  // H_inv = L D L^T (l21, l31, l32, D) and z = D L^T g_l
+  double* sE = reinterpret_cast<double*>(dyn);
+  double* sLD = sE + SOLVE_CH * W * 18;
+  double* sz = sLD + SOLVE_CH * 6;
 
-  // 1. each landmark's observing free poses, the chunk's poses and pairs
+  // 1. each landmark's factors; its observing free poses, the chunk's
+  // poses and pairs
+  if (tid < nch) ldl_factor(H_inv + 9 * (n0 + tid), g_l + 3 * (n0 + tid),
+                            sLD + 6 * tid, sz + 3 * tid);
   if (tid <= nch) s_off[tid] = off[n0 + tid];
   if (tid < W) s_free[tid] = free_[tid];
-  for (int i = tid; i < nch * 9; i += SOLVE_NT) sHi[i] = H_inv[9 * n0 + i];
-  for (int i = tid; i < nch * 3; i += SOLVE_NT) sgl[i] = g_l[3 * n0 + i];
   if (tid < SOLVE_CH) s_mask[tid] = 0;
   if (tid < SOLVE_PW) s_pm[tid] = 0;
   for (int p = tid; p < NPAIR; p += SOLVE_NT) {
@@ -873,32 +1029,40 @@ __global__ void __launch_bounds__(SOLVE_NT) schur_solve_kernel(
   }
   __syncthreads();
 
-  // 2. the observed blocks C = H_cl[w, n] of the chunk's poses (8 loads a
-  // thread in flight), then B = C H_inv[n]; the touched pairs' list
-  const int per = nch * 18, total = s_npose * per;
-  for (int i0 = tid; i0 < total; i0 += 8 * SOLVE_NT) {
-    float v[8];
-    int dst[8];
+  // 2. the rows of the observed blocks C = H_cl[w, n] of the chunk's poses
+  // (4 rows a thread in flight) and their E = C L in float64; the touched
+  // pairs' list
+  const int per = nch * 6, total = s_npose * per;
+  for (int i0 = tid; i0 < total; i0 += 4 * SOLVE_NT) {
+    float v[4][3];
+    int dst[4], lm[4];
 #pragma unroll
-    for (int u = 0; u < 8; ++u) {
+    for (int u = 0; u < 4; ++u) {
       const int i = i0 + u * SOLVE_NT;
       dst[u] = -1;
-      v[u] = 0.0f;
+      lm[u] = 0;
       if (i < total) {
-        const int jj = i / per, r = i - jj * per, t = r / 18, e = r - 18 * t;
+        const int jj = i / per, r = i - jj * per, t = r / 6;
         const int j = s_poses[jj];
         const unsigned int m = s_mask[t];
         if ((m >> j) & 1u) {
           const int q = s_pstart[t] + __popc(m & ((1u << j) - 1u));
-          v[u] = H_cl[((size_t)j * N + n0) * 18 + r];
-          dst[u] = q * 18 + e;
-          if (e == 0) sq[q] = (unsigned short)t;
+          const float* row = H_cl + ((size_t)j * N + n0) * 18 + 3 * r;
+          for (int k = 0; k < 3; ++k) v[u][k] = row[k];
+          dst[u] = q * 18 + 3 * (r - 6 * t);
+          lm[u] = t;
         }
       }
     }
 #pragma unroll
-    for (int u = 0; u < 8; ++u)
-      if (dst[u] >= 0) sC[dst[u]] = v[u];
+    for (int u = 0; u < 4; ++u)
+      if (dst[u] >= 0) {
+        const double* f = sLD + 6 * lm[u];
+        double* e = sE + dst[u];
+        e[0] = v[u][0] + v[u][1] * f[0] + v[u][2] * f[1];
+        e[1] = v[u][1] + v[u][2] * f[2];
+        e[2] = v[u][2];
+      }
   }
   if (warp == 0) {
     const unsigned int bits = lane < SOLVE_PW ? s_pm[lane] : 0u;
@@ -913,14 +1077,6 @@ __global__ void __launch_bounds__(SOLVE_NT) schur_solve_kernel(
     for (unsigned int b = bits; b; b &= b - 1)
       s_plist[at++] = (unsigned char)(32 * lane + __ffs(b) - 1);
     if (lane == SOLVE_PW - 1) s_npl = x;
-  }
-  __syncthreads();
-  const int nq = s_pstart[nch];
-  for (int i = tid; i < nq * 18; i += SOLVE_NT) {
-    const int q = i / 18, e = i - q * 18, r = e / 3, c = e - r * 3;
-    const float* a = sC + q * 18 + 3 * r;
-    const float* hi = sHi + 9 * sq[q];
-    sB[i] = a[0] * hi[c] + a[1] * hi[3 + c] + a[2] * hi[6 + c];
   }
   __syncthreads();
 
@@ -939,29 +1095,19 @@ __global__ void __launch_bounds__(SOLVE_NT) schur_solve_kernel(
     const int r1 = e1 < 36 ? e1 / 6 : 0, c1 = e1 < 36 ? e1 - 6 * r1 : 0;
     const int rg = w == v && lane < 6 ? lane : 0;
     double a0 = 0.0, a1 = 0.0, ag = 0.0;
-    // every landmark's blocks are read and those of the landmarks the pair
-    // does not observe add nothing (a select, no branch: the loads of
-    // successive landmarks overlap; the blocks read for those stay inside
-    // the shared buffer)
-#pragma unroll 4
+    // the landmarks the pair observes (a branch the whole warp takes):
+    // B_wn C_vn^T = E_w D E_v^T and B_wn g_l = E_w z, in float64
     for (int t = sg * nch / nseg; t < (sg + 1) * nch / nseg; ++t) {
       const unsigned int m = s_mask[t];
-      const bool hit = (m >> w) & (m >> v) & 1u;
+      if (!((m >> w) & (m >> v) & 1u)) continue;
       const int base = s_pstart[t];
-      const float* b = sB + (base + __popc(m & ((1u << w) - 1u))) * 18;
-      const float* C = sC + (base + __popc(m & ((1u << v) - 1u))) * 18;
-      const float* gl = sgl + 3 * t;
-      const float x0 = b[3 * r0] * C[3 * c0] + b[3 * r0 + 1] * C[3 * c0 + 1] +
-                       b[3 * r0 + 2] * C[3 * c0 + 2];
-      const float x1 = b[3 * r1] * C[3 * c1] + b[3 * r1 + 1] * C[3 * c1 + 1] +
-                       b[3 * r1 + 2] * C[3 * c1 + 2];
-      const float xg = b[3 * rg] * gl[0] + b[3 * rg + 1] * gl[1] +
-                       b[3 * rg + 2] * gl[2];
-      if (hit) {      // a landmark's products in float32, their sum in float64
-        a0 += x0;
-        a1 += x1;
-        ag += xg;
-      }
+      const double* Ew = sE + (base + __popc(m & ((1u << w) - 1u))) * 18;
+      const double* Ev = sE + (base + __popc(m & ((1u << v) - 1u))) * 18;
+      const double* d = sLD + 6 * t + 3;
+      const double* z = sz + 3 * t;
+      a0 += ldl_dot(Ew + 3 * r0, d, Ev + 3 * c0);
+      a1 += ldl_dot(Ew + 3 * r1, d, Ev + 3 * c1);
+      ag += Ew[3 * rg] * z[0] + Ew[3 * rg + 1] * z[1] + Ew[3 * rg + 2] * z[2];
     }
     double* slot = nseg > 1 ? s_seg[k] : part + p * SOLVE_SLOT;
     slot[lane] = a0;
@@ -1254,15 +1400,33 @@ int lba_terms(const float* pose, const float* pt_pos, const float* ep_pos,
   return (int)cudaGetLastError();
 }
 
-// -> H_cc (W, 6, 6), g_c (W, 6)
+// -> H_cc (W, 6, 6), g_c (W, 6): a cluster of C CTAs of T threads a pose,
+// each CTA S observations (backend/lba.py::camera_layout)
 int lba_camera(const float* Jc_pt, const float* r_pt, const float* rn,
                const uint8_t* ok_pt, const float* Jc_ln, const float* r_ln,
                const uint8_t* ok_ln, const float* sigma, const uint8_t* free_,
-               float* H_cc, float* g_c, int W, int K, int L,
-               cudaStream_t stream) {
-  camera_kernel<<<W, CAM_NT, 0, stream>>>(Jc_pt, r_pt, rn, ok_pt, Jc_ln, r_ln,
-                                          ok_ln, sigma, free_, H_cc, g_c, W, K,
-                                          L);
+               float* H_cc, float* g_c, int W, int K, int L, int C, int S,
+               int T, cudaStream_t stream) {
+  if (W < 1 || W > 65535 || K < 0 || L < 0 || K + 2 * L < 1 || C < 1 ||
+      C > CAM_MAX_C || S < 1 || (long long)C * S < K + 2 * L || T < 32 ||
+      T > CAM_MAX_T || T % 32 != 0)
+    return (int)cudaErrorInvalidValue;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(C, W, 1);
+  cfg.blockDim = dim3(T, 1, 1);
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = C;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = C > 1 ? 1 : 0;
+  const CamArgs args{Jc_pt, r_pt, rn,  ok_pt, Jc_ln, r_ln, ok_ln, sigma,
+                     free_, H_cc, g_c, W,  K,     L,    S};
+  auto kernel = C > 1 ? camera_kernel<true> : camera_kernel<false>;
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, args);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 
@@ -1317,17 +1481,16 @@ int lba_solve(const int* off, const int* list, const float* H_cc,
   const long long need = SOLVE_HEAD + (long long)N + (long long)G * SOLVE_PW +
                         1 + 2LL * G * npair * SOLVE_SLOT;
   if (scratch_words < need) return (int)cudaErrorInvalidValue;
-  const size_t smem1 = sizeof(float) * (2 * SOLVE_CH * W * 18 + SOLVE_CH * 12) +
-                       sizeof(unsigned short) * SOLVE_CH * W;
+  const size_t smem1 = sizeof(double) * (SOLVE_CH * W * 18 + SOLVE_CH * 9);
   const size_t smem2 = sizeof(double) * 6 * W * (6 * W + 1) +
                        sizeof(unsigned int) * G * SOLVE_PW;
   const size_t smem = smem1 > smem2 ? smem1 : smem2;
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        schur_solve_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
+  // with the kernel's static shared memory, the default 48 KB limit may be
+  // passed below 48 KB of dynamic: set the limit at every launch
+  const cudaError_t e0 = cudaFuncSetAttribute(
+      schur_solve_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (e0 != cudaSuccess) return (int)e0;
   schur_solve_kernel<<<G, SOLVE_NT, smem, stream>>>(
       off, list, H_cc, g_c, H_inv, g_l, H_cl, lam, free_, dxi, scratch, W, K,
       L, N, pin_weight, cap);

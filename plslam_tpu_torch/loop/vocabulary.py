@@ -179,12 +179,19 @@ def transform_leaves_plain(voc: Vocabulary, words: torch.Tensor
     return node.to(torch.int32)
 
 
+# the largest branching factor ``bow_descend`` takes (csrc/bow.cu)
+BOW_MAX_K = 16
+
+
 def transform_leaves(voc: Vocabulary, desc: torch.Tensor) -> torch.Tensor:
     """(N, 256) descriptor bits, or (N, 8) packed words -> (N,) int32 leaf
-    ids by the tree descent; one ``bow_descend`` launch on CUDA."""
+    ids by the tree descent; one ``bow_descend`` launch on CUDA (8 lanes a
+    descriptor, k at most ``BOW_MAX_K``)."""
     words = _packed(desc)
     if words.device.type == "cpu":
         return transform_leaves_plain(voc, words)
+    if not 1 <= voc.k <= BOW_MAX_K:
+        raise ValueError(f"bow_descend takes k <= {BOW_MAX_K}, got {voc.k}")
     words = words.contiguous()
     n = words.shape[0]
     native.require(words, "transform_leaves desc", torch.int32, (n, 8))

@@ -59,7 +59,7 @@ _SIGNATURES: Dict[str, str] = {
     "kf_scan": "p" * 21 + "iiifff",
     "medoid": "pppppii",
     "lba_terms": "p" * 21 + "iiiii" + "fffff",
-    "lba_camera": "p" * 11 + "iii",
+    "lba_camera": "p" * 11 + "iiiiii",
     "lba_index": "p" * 5 + "iiiii",
     "lba_bin": "p" * 18 + "iiiii",
     "lba_solve": "p" * 13 + "iiiii" + "fi",

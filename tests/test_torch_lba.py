@@ -429,3 +429,111 @@ def test_run_lba_on_cpu_is_the_plain_loop():
     got, want = tlba.run_lba(tp, cam, TCFG), tlba.run_lba_plain(tp, cam, TCFG)
     for x, y in zip(got, want):
         assert torch.equal(x, y)
+
+
+# lba_camera's launch plan (camera_layout, camera_rounds): the default
+# window, one observation, points only, lines only, K + 2L not a multiple
+# of the slice with two rounds a CTA, a wide window, many rounds
+CAMERA_SHAPES = [(10, 1024, 128), (1, 1, 0), (7, 64, 0), (2, 0, 33),
+                 (5, 120, 20), (3, 2501, 50), (20, 4096, 128),
+                 (1, 100003, 7)]
+
+
+def camera_rounds(W, K, L):
+    """Every (CTA rank, first, end) round of one pose's observations under
+    camera_layout, in the order csrc/lba.cu's camera_kernel takes them:
+    rank c's slice [c S, (c + 1) S) in rounds of T."""
+    C, S, T = tlba.camera_layout(W, K, L)
+    N = K + 2 * L
+    return [(c, r0, min(r0 + T, (c + 1) * S, N))
+            for c in range(C) for r0 in range(c * S, min((c + 1) * S, N), T)]
+
+
+@pytest.mark.parametrize("W,K,L", CAMERA_SHAPES)
+def test_camera_rounds_cover_each_observation_once(W, K, L):
+    """Every one of a pose's K + 2L observations is in exactly one round,
+    in order; CTA rank c's rounds lie in its slice [c S, (c + 1) S), every
+    CTA has one, none is longer than the CTA's T threads; C is at most the
+    portable cluster size 8 and T a whole number of warps up to 256."""
+    C, S, T = tlba.camera_layout(W, K, L)
+    N = K + 2 * L
+    assert 1 <= C <= 8 and C * S >= N and 32 <= T <= 256 and T % 32 == 0
+    rounds = camera_rounds(W, K, L)
+    covered = np.concatenate([np.arange(r0, r1) for _, r0, r1 in rounds])
+    assert np.array_equal(covered, np.arange(N))
+    assert sorted(set(c for c, _, _ in rounds)) == list(range(C))
+    for c, r0, r1 in rounds:
+        assert c * S <= r0 < r1 <= (c + 1) * S and r1 - r0 <= T
+    if (W, K, L) == (10, 1024, 128):
+        assert (C, S, T) == (8, 160, 160)
+
+
+@pytest.mark.parametrize("W,K,L", [(0, 10, 1), (65536, 10, 1), (3, 0, 0),
+                                   (3, -1, 4)])
+def test_camera_layout_refuses_what_the_launch_cannot_take(W, K, L):
+    with pytest.raises(ValueError):
+        tlba.camera_layout(W, K, L)
+
+
+def _camera_data_flow(t, sigma, free):
+    """camera_kernel's data flow in float64 on CPU tensors: each CTA's
+    rounds (camera_rounds), the round's point rows read from the copy of
+    the flat Jacobians that starts at the 16-byte piece holding the first
+    (``head`` floats in; zeros past the tensor's end), the endpoints'
+    (family, line) from the observation's index, the CTA's partials added
+    in rank order."""
+    W, K = t.rn.shape
+    L = t.r_ln.shape[2]
+    flat = torch.cat([t.Jc_pt.reshape(-1), t.Jc_pt.new_zeros(4)])
+    r_ln, ok_ln = t.r_ln.reshape(-1), t.ok_ln.reshape(-1)
+    J_ln = t.Jc_ln.reshape(-1, 6)
+    H = t.rn.new_zeros((W, 6, 6))
+    g = t.rn.new_zeros((W, 6))
+    for w in range(W):
+        if not free[w]:
+            continue
+        parts = {}
+        for c, r0, r1 in camera_rounds(W, K, L):
+            acc = parts.setdefault(c, [H.new_zeros((6, 6)), g.new_zeros(6)])
+            p1 = min(r1, K)
+            s = (w * K + r0) * 18
+            head = s - 4 * (s // 4)
+            buf = flat[4 * (s // 4):4 * ((((w * K + p1) * 18) + 3) // 4)]
+            for i in range(r0, r1):
+                if i < K:
+                    if not t.ok_pt[w, i]:
+                        continue
+                    Jr = buf[head + 18 * (i - r0):][:18].reshape(3, 6)
+                    r, nr = t.r_pt[w, i], t.rn[w, i]
+                else:
+                    f = (i - K) // L
+                    j = (f * W + w) * L + i - K - f * L
+                    if not ok_ln[j]:
+                        continue
+                    Jr, r = J_ln[j][None], r_ln[j][None]
+                    nr = r.abs()[0]
+                wt = 6.0 / (5.0 + (nr / sigma) ** 2)
+                acc[0] += wt * Jr.T @ Jr
+                acc[1] += wt * Jr.T @ r
+        for c in sorted(parts):
+            H[w] += parts[c][0]
+            g[w] += parts[c][1]
+    return H, g
+
+
+@pytest.mark.parametrize("case", ["fixed", "empty", "W1", "ragged"])
+def test_camera_kernel_data_flow_matches_plain(case):
+    """The kernel's reading of the terms (its rounds, the staged rows'
+    offsets, the endpoint indices, the fixed poses) in float64 against
+    lba_camera_plain in float64 on test_torch_gpu's lba_camera cases."""
+    from test_torch_gpu import camera_case_np
+    d, cam = camera_case_np(case)
+    prob = tlba.LBAProblem(**{k: torch.from_numpy(v) for k, v in d.items()})
+    t, sigma, _ = tlba.lba_terms_sigma_plain(prob, cam)
+    t64 = tlba.LBATerms(*(x.double() if x.is_floating_point() else x
+                          for x in t))
+    free = tlba._free(prob)
+    got = _camera_data_flow(t64, sigma.double(), free)
+    want = tlba.lba_camera_plain(t64, sigma.double(), free)
+    for x, y in zip(got, want):
+        assert _rel(x.numpy(), y.numpy()) <= 1e-12

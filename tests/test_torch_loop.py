@@ -466,3 +466,73 @@ def test_apply_graph_correction_matches_reference():
                                    np.asarray(getattr(js, f)), rtol=0,
                                    atol=1e-5 if f.endswith("pos") else 1e-6,
                                    err_msg=f)
+
+
+@pytest.mark.parametrize("k,n", [(10, 128), (8, 128), (10, 1)])
+def test_transform_leaves_ties_match_reference(k, n):
+    """Descriptors tied between two children at every level
+    (test_torch_gpu.tied_vocabulary_np, numpy): the plain version and the
+    reference's transform_leaves both take the first child each time."""
+    from test_torch_gpu import tied_vocabulary_np
+    cents, bits, want = tied_vocabulary_np(k, 4, n, seed=7 * k + n)
+    idf = np.ones(k ** 4, np.float32)
+    j = jvoc.Vocabulary(centroids=tuple(jnp.asarray(c) for c in cents),
+                        idf=jnp.asarray(idf), k=k, levels=4)
+    t = tvoc._from_levels(cents, idf, k, "ties", "cpu")
+    ref = np.asarray(jvoc.transform_leaves(j, jnp.asarray(bits)))
+    got = tvoc.transform_leaves_plain(t, tvoc.hamming.pack_bits(
+        torch.from_numpy(bits))).numpy()
+    np.testing.assert_array_equal(ref, want)
+    np.testing.assert_array_equal(got, want)
+
+
+def _descend_by_lanes(voc, words):
+    """bow_descend's arithmetic in numpy: a lane a packed word, each lane's
+    popcounts of its word against the k children, two children's counts
+    packed in one 32-bit word (low half the even child), the packed words
+    summed over the 8 lanes, unpacked, the first minimum in child order."""
+    flat = voc.flat.numpy().view(np.uint32)
+    x = words.numpy().view(np.uint32)                        # (n, 8)
+    n, k = x.shape[0], voc.k
+    node, off = np.zeros(n, np.int64), 0
+    pop = np.vectorize(lambda v: bin(int(v)).count("1"), otypes=[np.uint32])
+    for l in range(voc.levels):
+        rows = flat[off + node[:, None] * k + np.arange(k)]  # (n, k, 8)
+        cnt = pop(rows ^ x[:, None, :])
+        cnt = np.concatenate([cnt, np.zeros((n, k % 2, 8), np.uint32)], 1)
+        packed = cnt[:, 0::2] | (cnt[:, 1::2] << np.uint32(16))
+        s = packed.sum(-1, dtype=np.uint32)                  # (n, ceil(k/2))
+        d = np.stack([s & 0xFFFF, s >> 16], -1).reshape(n, -1)[:, :k]
+        node = node * k + d.argmin(1)
+        off += k ** (l + 1)
+    return node
+
+
+@pytest.mark.parametrize("case", ["orb10", "lbd8", "ties10", "k16"])
+def test_bow_descend_lane_arithmetic(vocs, case):
+    """_descend_by_lanes (the kernel's 8-lane packed sums and first
+    minimum) equals transform_leaves_plain on the port's 10 x 4 vocabulary,
+    the reference's tracked 8 x 4 one, tied descriptors and a built
+    16 x 3 tree (the largest k the kernel takes: eight packed words)."""
+    from test_torch_gpu import _ref_vocab_path, tied_vocabulary_np
+    rng = np.random.default_rng(len(case))
+    bits = rng.integers(0, 2, (256, 256)).astype(np.uint8)
+    if case == "orb10":
+        v = vocs["orb"][1]
+    elif case == "lbd8":
+        v = tvoc.load_vocabulary(_ref_vocab_path("lbd", 8, 4), "cpu")
+    elif case == "ties10":
+        cents, bits, _ = tied_vocabulary_np(10, 4, 256, seed=3)
+        v = tvoc._from_levels(cents, np.ones(10 ** 4, np.float32), 10,
+                              "ties", "cpu")
+    else:
+        v = tvoc.build_vocabulary(bits, k=16, levels=3, seed=2,
+                                  device="cpu")
+    if case != "ties10":        # half of them near a leaf centroid
+        leaf = tvoc.level_bits(v)[-1]
+        bits[:128] = leaf[rng.integers(0, len(leaf), 128)]
+        bits[np.arange(128), rng.integers(0, 256, 128)] ^= 1
+    words = tvoc.hamming.pack_bits(torch.from_numpy(bits))
+    assert v.k <= tvoc.BOW_MAX_K
+    np.testing.assert_array_equal(_descend_by_lanes(v, words),
+                                  tvoc.transform_leaves_plain(v, words).numpy())
