@@ -88,11 +88,13 @@ compares their keyframe decisions (``bench_slam_scene``).
 ``python3 chip_smoke.py --against DIR`` holds this tree's level-0 blur,
 ORB's moment pair, FAST score, resize, LBA terms, scale and cost, K13's
 GN phase and whole optimize_pose at 20 pairs, K2's NMS block max at
-level 0 and kernel G (refit_roots and merge_segments at both detector
-scales) against those of another checkout at DIR (for example a ``git
-archive`` of the parent commit): outputs and device times (K13, K2 and G
-also every device kernel's, torch's too; G also the wrapper's), and the
-device kernels of one point front end (``against``).
+level 0, kernel G (refit_roots and merge_segments at both detector
+scales), K14's kf_scan, K15's camera blocks, step and run_lba, K16's
+medoid rows, K17's descent and histogram and K18's PCG against those of
+another checkout at DIR (for example a ``git archive`` of the parent
+commit): outputs and device times (most also every device kernel's,
+torch's too, and the wrapper's), and the device kernels of one point
+front end (``against``).
 
 Imports nothing of JAX and nothing of the JAX package.
 """
@@ -1458,13 +1460,26 @@ def slam_kernel_phase(dev, record):
     kmax = cfg.system.kf_batch
     got = fused_slam.kf_scan(DT, cov, good, carry, cfg, kmax)
     ref = fused_slam.kf_scan_plain(DT, cov, good, carry, cfg, kmax)
+    # bytes: DT, cov and good in, flags, T_accs, ratios and blocked out,
+    # the carry's 282 bytes of fields in and out
     record("kf_scan", "plslam_tpu_torch/csrc/slam.cu",
            "plslam_tpu/backend/fused_slam.py:83", list(got[:4]),
            list(ref[:4]), [0.0, 1e-5, 1e-4, 0.0],
            lambda: fused_slam.kf_scan(DT, cov, good, carry, cfg, kmax),
            lambda: fused_slam.kf_scan_plain(DT, cov, good, carry, cfg, kmax),
-           CHUNK * (64 + 144 + 1) + CHUNK * (1 + 64 + 4 + 1) + 2 * 300,
+           CHUNK * (64 + 144 + 1) + CHUNK * (1 + 64 + 4 + 1) + 2 * 282,
            CHUNK * 2500, err_kind="flags, blocked exact; T_acc, ratio")
+    check(fused_slam._packed_base(got[4]) is not None,
+          "kf_scan: the carry out is not packed")
+    grid = launched_grid(lambda: fused_slam.kf_scan(DT, cov, good, carry,
+                                                    cfg, kmax),
+                         "kf_scan_kernel")
+    print(f"[kf_scan] B={CHUNK}: launched with grid, block "
+          f"{grid if grid else 'not recorded by the profiler'} (one CTA, "
+          "five warps scan)", flush=True)
+    check(grid is None or (list(grid[0]) == [1, 1, 1]
+                           and list(grid[1]) == [256, 1, 1]),
+          f"kf_scan: grid, block {grid}, expected 1 CTA of 256 threads")
 
     # J, medoid: the 4-deep rings of the 8192 map points and 1024 lines,
     # gated and unpacked into the map's (N, 256) rows in the same launch
@@ -2135,7 +2150,8 @@ def loop_lap():
 
 def loop_keyframe_descriptors(dev):
     """The packed ORB and LBD descriptors of the loop path's first
-    keyframe, which its probe descends (``bow_descend``): loop_scene's
+    keyframe, which its probe descends (``bow_descend``), each with the
+    valid mask its probe's ``bow_hist`` takes: loop_scene's
     first frame, rendered alone (the scene renders it first), through
     ``FusedPLSLAM(SlamConfig()).initialize``."""
     from plslam_tpu_torch.backend.fused_slam import FusedPLSLAM
@@ -2145,7 +2161,8 @@ def loop_keyframe_descriptors(dev):
     slam = FusedPLSLAM(cfg, cam, device=dev)
     slam.initialize(to_u8(il), to_u8(ir))
     st = slam.state
-    return {"orb": st.kf_pt_desc[0].cpu(), "lbd": st.kf_ln_desc[0].cpu()}
+    return {"orb": (st.kf_pt_desc[0].cpu(), (st.obs_pt_disp[0] > 0).cpu()),
+            "lbd": (st.kf_ln_desc[0].cpu(), (st.obs_ln_lm[0] >= 0).cpu())}
 
 
 def loop_scene():
@@ -2421,14 +2438,31 @@ def loop_kernel_phase(dev, record, slam):
         top = ref.abs().max()
         bows = db.bows_p if kind == "orb" else db.bows_l
         s_got, s_ref = voc.l1_score(bows, got[None]), voc.l1_score(bows, ref[None])
-        # bytes: leaves and valid in, idf in, the vector out
+        check(torch.equal(got == 0, ref == 0),
+              f"bow_hist@{kind}: zeros differ from the plain version's")
+        # bytes: leaves and valid in, the idf entry of each distinct valid
+        # leaf gathered, the vector out; operations: a count a valid
+        # descriptor, a product, an abs, an add and a divide a distinct leaf
+        n_dist = int(torch.unique(leaves[valid]).numel())
         record(f"bow_hist@{kind}", src_l, rep_l + "145",
                [got / top, s_got], [ref / top, s_ref], [1e-6, 1e-6],
                lambda: voc.bow_hist(v, leaves, valid),
                lambda: voc.bow_hist_plain(v, leaves, valid.to(torch.float32)),
-               N * 5 + v.n_leaves * 8, N + 3 * v.n_leaves, entry="bow_hist",
+               N * 5 + n_dist * 4 + v.n_leaves * 4,
+               int(valid.sum()) + 4 * n_dist, entry="bow_hist",
                err_kind="BoW vector relative to its largest entry; its L1 "
                "scores against the database, absolute")
+        grid = launched_grid(lambda: voc.bow_hist(v, leaves, valid),
+                             "bow_hist_kernel")
+        ctas = voc.hist_layout(v.n_leaves)[0]
+        print(f"[bow] {kind}: bow_hist over {n_dist} distinct leaves of "
+              f"{v.n_leaves}; launched with grid, block "
+              f"{grid if grid else 'not recorded by the profiler'} "
+              f"({ctas} CTAs, a slice of the vector each)", flush=True)
+        check(grid is None or (list(grid[0]) == [ctas, 1, 1]
+                               and list(grid[1]) == [voc.HIST_NT, 1, 1]),
+              f"bow_hist: grid, block {grid}, expected {ctas} CTAs of "
+              f"{voc.HIST_NT} threads")
         ms = cuda_ms(lambda: voc.l1_score(bows, got[None]), 20)
         b_ms, b_by = bound(bows.numel() * 4 + v.n_leaves * 4,
                            3 * bows.numel())
@@ -3181,14 +3215,18 @@ def against_side(root: str, out_path: str, desc_path: str) -> None:
     (``medoid_inputs``; a parent's medoid, ``unpack_bits`` and
     ``torch.where``), ``pg_pcg`` and the whole PCG solve at
     ``PG_BUCKETS``, K17's descent (``bow_descend``) of the ORB and LBD
-    descriptors at ``desc_path`` (``loop_keyframe_descriptors``), the grids
-    the profiler saw of ``lba_camera`` and ``bow_descend``, and the device
-    kernels (all of them, torch's too) of one point front end
+    descriptors at ``desc_path`` (``loop_keyframe_descriptors``) and its
+    histogram (``bow_hist``) of their plain leaves under their valid
+    masks, K14's ``kf_scan`` on slam_kernel_phase's chunk of 20 frames
+    from the first carry, the grids the profiler saw of ``lba_camera``,
+    ``bow_descend``, ``bow_hist`` and ``kf_scan``, and the device kernels
+    (all of them, torch's too) of one point front end
     (``detect_and_describe``) under torch.profiler;
     saves the outputs and each call's device time (torch.profiler, the
-    hand kernels; for K13, K2, G, K16 and K18 also every device kernel's
-    time and count, ``all_kernels``; for G, K15's camera blocks and step,
-    K16, K17 and K18 the wrapper's time, CUDA events) to ``out_path``."""
+    hand kernels; for K13, K2, G, K14, K16, K17 and K18 also every device
+    kernel's time and count, ``all_kernels``; for G, K14, K15's camera
+    blocks and step, K16, K17 and K18 the wrapper's time, CUDA events) to
+    ``out_path``."""
     sys.path.insert(0, root)
     import torch
     from torch.autograd import DeviceType
@@ -3370,9 +3408,9 @@ def against_side(root: str, out_path: str, desc_path: str) -> None:
     # K17's descent of the loop path's first keyframe's descriptors
     # (loop_keyframe_descriptors, computed once by ``against``)
     from plslam_tpu_torch.loop import vocabulary as voc
-    for kind, words in torch.load(desc_path).items():
+    for kind, (words, valid) in torch.load(desc_path).items():
         v = voc.default_vocabulary(kind, 10, 4, dev)
-        words = words.to(dev)
+        words, valid = words.to(dev), valid.to(dev)
         fn = lambda: [voc.transform_leaves(v, words)]
         res["bow_descend@" + kind] = ([x.cpu() for x in fn()],
                                       device_ms(fn, iters=20),
@@ -3381,6 +3419,32 @@ def against_side(root: str, out_path: str, desc_path: str) -> None:
         check(torch.equal(fn()[0], voc.transform_leaves_plain(v, words)),
               f"bow_descend@{kind} differs from its plain version")
         grids["bow_descend@" + kind] = launched_grid(fn, "bow_descend_kernel")
+        # K17's histogram of those leaves (the plain descent's, the same on
+        # both trees) under the probe's valid mask
+        leaves = voc.transform_leaves_plain(v, words)
+        fn = lambda: [voc.bow_hist(v, leaves, valid)]
+        res["bow_hist@" + kind] = ([x.cpu() for x in fn()],
+                                   device_ms(fn, iters=20),
+                                   *all_kernels(fn, iters=20),
+                                   cuda_ms(fn, 50))
+        grids["bow_hist@" + kind] = launched_grid(fn, "bow_hist_kernel")
+    # K14 on slam_kernel_phase's chunk of 20 frames from the first carry:
+    # flags, T_accs, ratios, blocked and the carry's seven fields
+    from plslam_tpu_torch.backend import fused_slam
+    from plslam_tpu_torch.core import lie
+    rng = np.random.default_rng(4)
+    xi = rng.normal(size=(CHUNK, 6)) * [0.05, 0.02, 0.4, 0.01, 0.03, 0.01]
+    DT = lie.exp_se3(torch.from_numpy(xi.astype(np.float32))).to(dev)
+    A = rng.normal(size=(CHUNK, 6, 6)) * 1e-3
+    cov = torch.from_numpy((A @ A.transpose(0, 2, 1) + 1e-6 * np.eye(6))
+                           .astype(np.float32)).to(dev)
+    good = torch.from_numpy(rng.random(CHUNK) > 0.1).to(dev)
+    carry = fused_slam.init_crit_carry(dev)
+    fn = lambda: (lambda o: [*o[:4], *o[4]])(fused_slam.kf_scan(
+        DT, cov, good, carry, cfg, cfg.system.kf_batch))
+    res["kf_scan"] = ([x.cpu() for x in fn()], device_ms(fn, iters=20),
+                      *all_kernels(fn, iters=20), cuda_ms(fn, 50))
+    grids["kf_scan"] = launched_grid(fn, "kf_scan_kernel")
     res["gauges"], res["grids"] = gauges, grids
     detect_and_describe(images, cfg)
     torch.cuda.synchronize()
@@ -3462,6 +3526,28 @@ def against(other: str) -> None:
         print(f"[against] {key}: {a[key][0][0].numel()} leaf ids equal on "
               f"both trees; grid, block this {b['grids'][key]}, other "
               f"{a['grids'][key]}", flush=True)
+        # K17's vector: within 1e-6 of the other tree's largest entry,
+        # with the same zeros
+        key = "bow_hist@" + kind
+        x, y = b[key][0][0], a[key][0][0]
+        rel = max_abs_err(x, y) / max(float(y.abs().max()), 1e-30)
+        check(torch.equal(x == 0, y == 0) and rel <= 1e-6,
+              f"{key}: the two trees' vectors differ: {rel:g} of the "
+              "largest entry, or in their zeros")
+        print(f"[against] {key}: |this - other| {rel:g} of the largest "
+              f"entry, zeros equal, bits {'equal' if torch.equal(x, y) else 'differ'}"
+              f"; grid, block this {b['grids'][key]}, other "
+              f"{a['grids'][key]}", flush=True)
+    # K14: flags and blocked exact between the trees; whether T_accs,
+    # ratios and the carry are the same bits
+    x, y = b["kf_scan"][0], a["kf_scan"][0]
+    check(torch.equal(x[0], y[0]) and torch.equal(x[3], y[3]),
+          "kf_scan: the two trees' flags or blocked differ")
+    same = [torch.equal(p, q) for p, q in zip(x, y)]
+    print(f"[against] kf_scan: flags and blocked equal; the same bits per "
+          f"output (flags, T_accs, ratios, blocked, then the carry's "
+          f"fields) {same}; grid, block this {b['grids']['kf_scan']}, "
+          f"other {a['grids']['kf_scan']}", flush=True)
     sig_cost = [(r["lba_terms+sigma"][0][-2], r["lba_terms+sigma"][0][-1])
                 for _, r in runs[:2]]
     bits = [[x.view(torch.int32).item() for x in sc] for sc in sig_cost]

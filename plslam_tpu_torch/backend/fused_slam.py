@@ -54,16 +54,66 @@ class CritCarry(NamedTuple):
     last_step: torch.Tensor   # (4, 4) last good relative step (fallback)
 
 
-def init_crit_carry(device) -> CritCarry:
-    f32 = torch.float32
+# The packed carry: CritCarry's fields as typed views into one 16-byte
+# aligned uint8 buffer, at these byte offsets (csrc/slam.cu KF_CARRY_*).
+# kf_scan's kernel reads the carry in and writes the carry out whole.
+CARRY_OFFSETS = {"cov_kf": 0, "T_acc": 144, "last_step": 208, "ef": 272,
+                 "frames": 288, "have_cov": 304, "have_ef": 320}
+CARRY_BYTES = 336
+# the largest chunk kf_scan's kernel takes (csrc/slam.cu KF_SCAN_MAX_B)
+KF_SCAN_MAX_B = 128
+_PAD = {}   # 15 zero bytes a device: the packed carry's padding
+
+
+def carry_views(buf: torch.Tensor) -> CritCarry:
+    """CritCarry's fields as views into the packed uint8 carry ``buf``
+    (its first CARRY_BYTES)."""
+    f32 = buf[:CARRY_BYTES].view(torch.float32)
     return CritCarry(
-        cov_kf=torch.zeros((6, 6), dtype=f32, device=device),
-        have_cov=torch.zeros((), dtype=torch.bool, device=device),
-        ef=torch.zeros((), dtype=f32, device=device),
-        have_ef=torch.zeros((), dtype=torch.bool, device=device),
-        frames=torch.zeros((), dtype=torch.int32, device=device),
-        T_acc=torch.eye(4, dtype=f32, device=device),
-        last_step=torch.eye(4, dtype=f32, device=device))
+        cov_kf=f32[0:36].view(6, 6), have_cov=buf[304].view(torch.bool),
+        ef=f32[68], have_ef=buf[320].view(torch.bool),
+        frames=buf[288:292].view(torch.int32)[0],
+        T_acc=f32[36:52].view(4, 4), last_step=f32[52:68].view(4, 4))
+
+
+def pack_crit_carry(c: CritCarry) -> torch.Tensor:
+    """Any CritCarry (the plain version's separate tensors) -> the packed
+    uint8 carry on its device: one concatenation."""
+    dev = c.cov_kf.device
+    if dev not in _PAD:
+        _PAD[dev] = torch.zeros(15, dtype=torch.uint8, device=dev)
+    z = _PAD[dev]
+    b = lambda t, dt: t.to(dt).reshape(-1).view(torch.uint8)
+    f32 = torch.float32
+    return torch.cat([b(c.cov_kf, f32), b(c.T_acc, f32), b(c.last_step, f32),
+                      b(c.ef, f32), z[:12], b(c.frames, torch.int32), z[:12],
+                      b(c.have_cov, torch.bool), z, b(c.have_ef, torch.bool),
+                      z])
+
+
+def _packed_base(c: CritCarry) -> Optional[torch.Tensor]:
+    """``c.cov_kf`` where ``c`` is a packed carry (every field at its
+    offset from a 16-byte aligned base, the buffer whole), else None."""
+    base = c.cov_kf.data_ptr()
+    if base % 16:
+        return None
+    for name, off in CARRY_OFFSETS.items():
+        if getattr(c, name).data_ptr() != base + off:
+            return None
+    st = c.cov_kf.untyped_storage()
+    if st.data_ptr() + st.nbytes() < base + CARRY_BYTES:
+        return None
+    return c.cov_kf
+
+
+def init_crit_carry(device) -> CritCarry:
+    """The carry before the first chunk, packed: no covariance, no
+    entropy, 0 frames, T_acc and last_step the identity."""
+    buf = np.zeros(CARRY_BYTES, np.uint8)
+    eye = np.eye(4, dtype=np.float32).view(np.uint8).reshape(-1)
+    buf[144:208] = eye
+    buf[208:272] = eye
+    return carry_views(torch.from_numpy(buf).to(device))
 
 
 def _r_cap(cfg: SlamConfig) -> float:
@@ -115,34 +165,38 @@ def kf_scan(DT: torch.Tensor, cov: torch.Tensor, good: torch.Tensor,
     t/r caps, min_kf_n_frames, and at most ``kmax`` keyframes a chunk (a
     further candidate is deferred, the criterion state not reset).
     Returns (flags (B,), T_accs (B,4,4), ratios (B,), blocked (B,),
-    carry_out); one launch of kernel J for CUDA tensors."""
+    carry_out); one launch of kernel J for CUDA tensors (B at most
+    KF_SCAN_MAX_B), whose four outputs and packed carry out are views
+    into one buffer. A carry that is not packed (the plain version's) is
+    packed first, by one concatenation."""
     if DT.device.type == "cpu":
         return kf_scan_plain(DT, cov, good, carry, cfg, kmax)
     B = DT.shape[0]
-    dev = DT.device
+    if not 1 <= B <= KF_SCAN_MAX_B:
+        raise ValueError(f"kf_scan takes 1 to {KF_SCAN_MAX_B} frames a "
+                         f"chunk, got {B}")
     k = cfg.keyframe
-    f = lambda x: x.to(torch.float32).contiguous()
-    u8 = lambda x: x.to(torch.uint8).contiguous()
-    args = (f(DT), f(cov), u8(good), f(carry.cov_kf), u8(carry.have_cov),
-            f(carry.ef), u8(carry.have_ef),
-            carry.frames.to(torch.int32).contiguous(), f(carry.T_acc),
-            f(carry.last_step))
-    for name, t, shape in zip(("DT", "cov", "good"), args,
-                              ((B, 4, 4), (B, 6, 6), (B,))):
-        native.require(t, f"kf_scan {name}", t.dtype, shape)
-    e = lambda *s, dt=torch.float32: torch.empty(s, dtype=dt, device=dev)
-    flags, T_accs, ratios, blocked = (e(B, dt=torch.uint8), e(B, 4, 4), e(B),
-                                      e(B, dt=torch.uint8))
-    out = CritCarry(e(6, 6), e(dt=torch.uint8), e(), e(dt=torch.uint8),
-                    e(dt=torch.int32), e(4, 4), e(4, 4))
-    native.launch("kf_scan", *args, flags, T_accs, ratios, blocked, *out, B,
+    DT, cov, good = DT.contiguous(), cov.contiguous(), good.contiguous()
+    if good.dtype == torch.bool:
+        good = good.view(torch.uint8)
+    native.require(DT, "kf_scan DT", torch.float32, (B, 4, 4))
+    native.require(cov, "kf_scan cov", torch.float32, (B, 6, 6))
+    native.require(good, "kf_scan good", torch.uint8, (B,))
+    cin = _packed_base(carry)
+    if cin is None:
+        cin = pack_crit_carry(carry)
+    native.require(cin, "kf_scan carry", cin.dtype)
+    buf = torch.empty(CARRY_BYTES + 70 * B, dtype=torch.uint8,
+                      device=DT.device)
+    native.launch("kf_scan", DT, cov, good, cin, buf, B,
                   int(k.min_kf_n_frames), int(kmax),
                   float(k.min_entropy_ratio), float(k.max_kf_t_dist),
                   _r_cap(cfg))
-    out = out._replace(have_cov=out.have_cov.view(torch.bool),
-                       have_ef=out.have_ef.view(torch.bool))
-    return (flags.view(torch.bool), T_accs, ratios, blocked.view(torch.bool),
-            out)
+    o = CARRY_BYTES
+    return (buf[o + 68 * B:o + 69 * B].view(torch.bool),
+            buf[o:o + 64 * B].view(torch.float32).view(B, 4, 4),
+            buf[o + 64 * B:o + 68 * B].view(torch.float32),
+            buf[o + 69 * B:o + 70 * B].view(torch.bool), carry_views(buf))
 
 
 # The packed host block: ONE flat f32 buffer per chunk, fetched once.

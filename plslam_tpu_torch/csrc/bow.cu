@@ -25,15 +25,29 @@
 // a CTA: 1,024 ORB descriptors occupy 64 CTAs, 128 LBD descriptors 8. k is
 // at most BOW_MAX_K (the wrapper raises above).
 
-// Launch 2, bow_hist: one block per vector. The block zeroes the n_leaves
-// histogram in the output, adds 1.0 per valid descriptor at its leaf with
-// float atomics, multiplies by idf and divides by max(sum |v|, 1e-9). The
-// atomics are exact in any order here and only here: every addend is 1.0
-// and every count stays far below 2^24. The L1 norm is a fixed-order
-// reduction (per-thread strided sums in index order, then a fixed tree), so
-// the result does not depend on scheduling; it differs from XLA's sum order
-// by f32 rounding (~1e-7 relative). Bound: bytes (n_leaves x 8 bytes in and
-// 4 out, 80 KB at 10,000 leaves).
+// Launch 2, bow_hist: the masked leaf histogram times idf, divided by
+// max(sum |v|, 1e-9). At most N of the n_leaves entries are nonzero (1,024
+// ORB and 128 LBD descriptors a keyframe, 10,000 leaves), so the launch
+// works on the descriptors and touches the vector only to write it.
+// Bound: bytes (N x 5 in, an idf entry a distinct leaf gathered, n_leaves
+// x 4 out); what it takes is latency. Every CTA, independently (no CTA
+// waits on another: no global atomics, no cluster barrier): a thread holds
+// descriptors tid, tid + HIST_NT, ...; their idf entries are gathered
+// first; the valid ones go into a shared-memory hash of their leaf ids
+// (linear probing, at least 2N slots), which counts each distinct leaf
+// (exact: every addend is 1) and keeps its first valid descriptor
+// (atomicMin). A descriptor that is its leaf's first gives the term
+// count * idf[leaf]; the L1 norm is a fixed-order sum of |term|: each
+// thread's terms in descriptor order, then a shuffle butterfly in each
+// warp, then the warps' sums in warp order, so it does not depend on
+// scheduling (it differs from XLA's order by f32 rounding, ~1e-7
+// relative). CTA c writes its own slice of the vector, HIST_SLICE leaves or
+// more (HIST_MAX_CTAS CTAs at most), first zeros in 16-byte stores, then,
+// after the barriers, count * idf / max(norm, 1e-9) at each distinct leaf
+// in the slice. 10,000 leaves take 10 CTAs of HIST_NT threads (1,024: a
+// thread a descriptor at N = 1,024; with fewer, each thread's inserts, one
+// after another, add to the launch's latency). N is at
+// most HIST_MAX_N (the wrapper raises above); nothing is sized by n_leaves.
 //
 // The L1 scores against the (F, n_leaves) database stay a PyTorch reduction
 // (loop/vocabulary.py::l1_score), as the reference leaves them to XLA.
@@ -43,7 +57,11 @@
 
 namespace {
 
-constexpr int NT_HIST = 1024;
+// bow_hist: threads a CTA, the most descriptors (so HIST_PER a thread),
+// the least leaves a CTA writes and the most CTAs
+constexpr int HIST_NT = 1024, HIST_MAX_N = 4096,
+              HIST_PER = HIST_MAX_N / HIST_NT, HIST_SLICE = 1024,
+              HIST_MAX_CTAS = 128;
 
 constexpr int BOW_MAX_K = 16, BOW_NT = 128, BOW_STAGED = 2;
 
@@ -131,36 +149,88 @@ __global__ void __launch_bounds__(BOW_NT)
   if (j == 0) leaves[d] = (int)node;
 }
 
-__global__ void __launch_bounds__(NT_HIST)
+// the first slot of ``leaf`` in a hash of 2^bits slots
+__device__ __forceinline__ int hist_slot(int leaf, int bits) {
+  return (int)(((uint32_t)leaf * 2654435761u) >> (32 - bits));
+}
+
+__global__ void __launch_bounds__(HIST_NT)
     bow_hist_kernel(const int* __restrict__ leaves,
                     const uint8_t* __restrict__ valid,
                     const float* __restrict__ idf, int n, int n_leaves,
-                    float* out) {
-  __shared__ float red[NT_HIST / 32];
+                    int slice, int bits, float* __restrict__ out) {
+  extern __shared__ int hist_hash[];
+  __shared__ float red[HIST_NT / 32];
   __shared__ float total;
+  const int H = 1 << bits;
+  int* key = hist_hash;
+  int* cnt = hist_hash + H;
+  int* first = hist_hash + 2 * H;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  for (int i = tid; i < n_leaves; i += NT_HIST) out[i] = 0.0f;
-  __syncthreads();
-  for (int i = tid; i < n; i += NT_HIST)
-    if (valid[i]) atomicAdd(out + leaves[i], 1.0f);  // exact: addends 1.0
-  __syncthreads();
-  float part = 0.0f;
-  for (int i = tid; i < n_leaves; i += NT_HIST) {
-    const float v = out[i] * idf[i];
-    out[i] = v;
-    part += fabsf(v);
+  // this CTA's slice of the vector, zeros first
+  const int lo = blockIdx.x * slice, hi = min(lo + slice, n_leaves);
+  const int n4 = max(hi - lo, 0) / 4;
+  for (int i = tid; i < n4; i += HIST_NT)
+    reinterpret_cast<float4*>(out + lo)[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int i = lo + 4 * n4 + tid; i < hi; i += HIST_NT) out[i] = 0.0f;
+  for (int i = tid; i < H; i += HIST_NT) {
+    key[i] = -1;
+    cnt[i] = 0;
+    first[i] = 0x7fffffff;
   }
-  for (int s = 16; s > 0; s >>= 1) part += __shfl_xor_sync(0xffffffffu, part, s);
+  // this thread's descriptors, their idf entries gathered at once
+  int lf[HIST_PER], slot[HIST_PER];
+  bool ok[HIST_PER];
+  float w[HIST_PER];
+#pragma unroll
+  for (int k = 0; k < HIST_PER; ++k) {
+    const int d = tid + k * HIST_NT;
+    slot[k] = 0;
+    ok[k] = d < n && valid[d] != 0;
+    lf[k] = ok[k] ? leaves[d] : 0;
+    w[k] = ok[k] ? __ldg(idf + lf[k]) : 0.0f;
+  }
+  __syncthreads();
+  // count each distinct valid leaf, keep its first valid descriptor
+#pragma unroll
+  for (int k = 0; k < HIST_PER; ++k)
+    if (ok[k]) {
+      int h = hist_slot(lf[k], bits);
+      for (;;) {
+        const int old = atomicCAS(key + h, -1, lf[k]);
+        if (old == -1 || old == lf[k]) break;
+        h = (h + 1) & (H - 1);
+      }
+      atomicAdd(cnt + h, 1);
+      atomicMin(first + h, tid + k * HIST_NT);
+      slot[k] = h;
+    }
+  __syncthreads();
+  // the first-occurrence terms and the fixed-order L1 norm
+  float part = 0.0f;
+#pragma unroll
+  for (int k = 0; k < HIST_PER; ++k) {
+    ok[k] = ok[k] && first[slot[k]] == tid + k * HIST_NT;
+    if (ok[k]) {
+      w[k] = (float)cnt[slot[k]] * w[k];
+      part += fabsf(w[k]);
+    }
+  }
+#pragma unroll
+  for (int s = 16; s > 0; s >>= 1)
+    part += __shfl_xor_sync(0xffffffffu, part, s);
   if (lane == 0) red[warp] = part;
   __syncthreads();
   if (tid == 0) {
     float s = 0.0f;
-    for (int i = 0; i < NT_HIST / 32; ++i) s += red[i];
+    for (int i = 0; i < HIST_NT / 32; ++i) s += red[i];
     total = fmaxf(s, 1e-9f);
   }
   __syncthreads();
   const float t = total;
-  for (int i = tid; i < n_leaves; i += NT_HIST) out[i] = out[i] / t;
+#pragma unroll
+  for (int k = 0; k < HIST_PER; ++k)
+    if (ok[k] && lf[k] >= lo && lf[k] < hi) out[lf[k]] = w[k] / t;
 }
 
 }  // namespace
@@ -179,12 +249,34 @@ int bow_descend(const uint32_t* desc, const uint32_t* cents, int* leaves,
   return (int)cudaGetLastError();
 }
 
+// the CTAs and the slice of the vector each writes (a multiple of 4
+// leaves), mirrored by loop/vocabulary.py::hist_layout
+static void hist_layout(int n_leaves, int* ctas, int* slice) {
+  const int c = (n_leaves + HIST_SLICE - 1) / HIST_SLICE;
+  *ctas = c < 1 ? 1 : (c > HIST_MAX_CTAS ? HIST_MAX_CTAS : c);
+  *slice = (((n_leaves + *ctas - 1) / *ctas) + 3) & ~3;
+}
+
 // leaves (n,) int32, valid (n,) u8, idf (n_leaves,) -> out (n_leaves,) the
-// L1-normalised TF-IDF vector
+// L1-normalised TF-IDF vector; n at most HIST_MAX_N, out 16-byte aligned
 int bow_hist(const int* leaves, const uint8_t* valid, const float* idf,
              float* out, int n, int n_leaves, cudaStream_t stream) {
-  bow_hist_kernel<<<1, NT_HIST, 0, stream>>>(leaves, valid, idf, n, n_leaves,
-                                             out);
+  if (n < 0 || n > HIST_MAX_N || n_leaves < 1)
+    return (int)cudaErrorInvalidValue;
+  if ((uintptr_t)out & 15) return (int)cudaErrorMisalignedAddress;
+  int bits = 1;
+  while ((1 << bits) < 2 * n) ++bits;
+  const size_t smem = (size_t)3 * sizeof(int) << bits;
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        bow_hist_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  int ctas, slice;
+  hist_layout(n_leaves, &ctas, &slice);
+  bow_hist_kernel<<<ctas, HIST_NT, smem, stream>>>(
+      leaves, valid, idf, n, n_leaves, slice, bits, out);
   return (int)cudaGetLastError();
 }
 

@@ -26,7 +26,7 @@ from __future__ import annotations
 
 import os
 import zlib
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -211,15 +211,32 @@ def bow_hist_plain(voc: Vocabulary, leaves: torch.Tensor,
     return v / torch.clamp(torch.sum(torch.abs(v)), min=1e-9)
 
 
+# bow_hist's kernel (csrc/bow.cu): threads a CTA, the most descriptors it
+# takes, the least leaves a CTA writes and the most CTAs
+HIST_NT, HIST_MAX_N, HIST_SLICE, HIST_MAX_CTAS = 1024, 4096, 1024, 128
+
+
+def hist_layout(n_leaves: int) -> Tuple[int, int]:
+    """(CTAs, leaves a CTA writes) of ``bow_hist``'s launch: CTA c writes
+    leaves c * slice .. min((c + 1) * slice, n_leaves) - 1."""
+    ctas = min(max(-(-n_leaves // HIST_SLICE), 1), HIST_MAX_CTAS)
+    return ctas, (-(-n_leaves // ctas) + 3) // 4 * 4
+
+
 def bow_hist(voc: Vocabulary, leaves: torch.Tensor,
              valid: torch.Tensor) -> torch.Tensor:
     """(N,) leaf ids and (N,) bool ``valid`` -> the TF-IDF L1-normalised
-    BoW vector (n_leaves,); one ``bow_hist`` launch on CUDA."""
+    BoW vector (n_leaves,); one ``bow_hist`` launch on CUDA (``hist_layout``
+    CTAs, N at most ``HIST_MAX_N``)."""
     if leaves.device.type == "cpu":
         return bow_hist_plain(voc, leaves, valid.to(torch.float32))
     n = leaves.shape[0]
-    leaves = leaves.contiguous()
-    va = valid.to(torch.uint8).contiguous()
+    if n > HIST_MAX_N:
+        raise ValueError(f"bow_hist takes at most {HIST_MAX_N} descriptors, "
+                         f"got {n}")
+    leaves, va = leaves.contiguous(), valid.contiguous()
+    if va.dtype == torch.bool:
+        va = va.view(torch.uint8)
     native.require(leaves, "bow_hist leaves", torch.int32, (n,))
     native.require(va, "bow_hist valid", torch.uint8, (n,))
     native.require(voc.idf, "bow_hist idf", torch.float32, (voc.n_leaves,))

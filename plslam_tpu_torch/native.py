@@ -56,7 +56,7 @@ _SIGNATURES: Dict[str, str] = {
     "lines_merge": "p" * 10 + "iii" + "fffi",
     "lbd_describe": "ppppppppiiiiiiiff",
     "pose_gn_optimize": "p" * 15 + "i" * 7 + "f" * 7,
-    "kf_scan": "p" * 21 + "iiifff",
+    "kf_scan": "ppppp" + "iii" + "fff",
     "medoid": "pppppii",
     "lba_terms": "p" * 21 + "iiiii" + "fffff",
     "lba_camera": "p" * 11 + "iiiiii",

@@ -69,8 +69,9 @@ def _sequences(seed, n_chunks=3, B=20):
     return out
 
 
-def _run_scans(cfg, seqs, kmax):
-    """Both scans over consecutive chunks, the carry threaded through."""
+def _run_scans(cfg, seqs, kmax, packed=False):
+    """Both scans over consecutive chunks, the carry threaded through (the
+    port's packed, with ``packed``: as the CUDA wrapper's carries are)."""
     jc, tc = jfs.init_crit_carry(), tfs.init_crit_carry("cpu")
     margin, n_kf, n_blocked = np.inf, 0, 0
     tcfg = convert.config_from_dict(dataclasses.asdict(cfg))
@@ -99,6 +100,9 @@ def _run_scans(cfg, seqs, kmax):
         jc = want[4]
         tc = convert.crit_carry_from_numpy(
             {f: np.asarray(x) for f, x in want[4]._asdict().items()}, "cpu")
+        if packed:
+            tc = tfs.carry_views(tfs.pack_crit_carry(tc))
+            assert tfs._packed_base(tc) is not None
     print(f"kf_scan: {n_kf} keyframes, {n_blocked} deferred, smallest "
           f"|ratio - {cfg.keyframe.min_entropy_ratio}| = {margin:g}")
     return n_kf, n_blocked
@@ -115,6 +119,116 @@ def test_kf_scan_kmax_cap_matches_reference():
     cfg = CFG.with_updates({"keyframe": {"min_entropy_ratio": 2.0}})
     n_kf, n_blocked = _run_scans(cfg, _sequences(1), kmax=2)
     assert n_kf == 6 and n_blocked > 10
+
+
+def test_init_crit_carry_packed_matches_reference():
+    """The port's first carry is packed (every field a view at its offset
+    of one buffer) and equals the reference's field by field."""
+    jc, tc = jfs.init_crit_carry(), tfs.init_crit_carry("cpu")
+    assert tfs._packed_base(tc) is not None
+    for f in jfs.CritCarry._fields:
+        g, w = getattr(tc, f), np.asarray(getattr(jc, f))
+        assert tuple(g.shape) == w.shape, f
+        assert g.numpy().dtype == w.dtype, f
+        np.testing.assert_array_equal(g.numpy(), w, err_msg=f)
+
+
+def test_crit_carry_pack_round_trip():
+    """pack_crit_carry then carry_views gives back every field (dtype,
+    shape, value) of an unpacked carry from the plain scan, as a packed
+    carry; packing a packed carry changes nothing."""
+    DT, cov, good = _sequences(5, n_chunks=1, B=7)[0]
+    c = tfs.init_crit_carry("cpu")
+    c = tfs.kf_scan_plain(torch.from_numpy(DT), torch.from_numpy(cov),
+                          torch.from_numpy(good), c, TCFG, 4)[4]
+    c = c._replace(ef=torch.tensor(-3.5), frames=torch.tensor(
+        5, dtype=torch.int32), have_cov=torch.tensor(True))
+    assert tfs._packed_base(c) is None
+    buf = tfs.pack_crit_carry(c)
+    assert buf.dtype == torch.uint8 and buf.numel() == tfs.CARRY_BYTES
+    for back in (tfs.carry_views(buf),
+                 tfs.carry_views(tfs.pack_crit_carry(tfs.carry_views(buf)))):
+        assert tfs._packed_base(back) is not None
+        for f in tfs.CritCarry._fields:
+            g, w = getattr(back, f), getattr(c, f)
+            assert g.dtype == w.dtype and g.shape == w.shape, f
+            assert torch.equal(g, w), f
+
+
+def test_kf_scan_plain_from_packed_carries_matches_reference():
+    """kf_scan_plain fed packed carries over three chunks (the port's
+    first carry, then the reference's carries packed) equals the
+    reference's kf_scan."""
+    n_kf, _ = _run_scans(CFG, _sequences(2), kmax=4, packed=True)
+    assert n_kf >= 3
+
+
+def test_carry_layout_matches_kernel():
+    """The Python layout of the packed carry (byte offsets, size) and the
+    largest chunk equal csrc/slam.cu's KF_CARRY_* and KF_SCAN_MAX_B; the
+    offsets are 16-byte aligned and the fields do not overlap."""
+    import os
+    import re
+    src = open(os.path.join(os.path.dirname(tfs.__file__), os.pardir,
+                            "csrc", "slam.cu")).read()
+    consts = {m.group(1): int(m.group(2)) for m in re.finditer(
+        r"constexpr int (KF_CARRY_\w+|KF_SCAN_MAX_B) = (\d+)", src)}
+    assert consts.pop("KF_CARRY_BYTES") == tfs.CARRY_BYTES
+    assert consts.pop("KF_SCAN_MAX_B") == tfs.KF_SCAN_MAX_B
+    assert consts == {"KF_CARRY_" + f.upper(): o
+                      for f, o in tfs.CARRY_OFFSETS.items()}
+    c = tfs.init_crit_carry("cpu")
+    spans = sorted((o, o + getattr(c, f).numel() * getattr(c, f).element_size())
+                   for f, o in tfs.CARRY_OFFSETS.items())
+    assert all(o % 16 == 0 for o, _ in spans)
+    assert all(e <= o2 for (_, e), (o2, _) in zip(spans, spans[1:]))
+    assert spans[-1][1] <= tfs.CARRY_BYTES
+
+
+def _latest_good_by_words(good):
+    """kf_scan's prologue in numpy: good packed into 32-frame words (the
+    ballots), then for frame f its word masked to bits <= f % 32, earlier
+    words while that is 0, and the highest set bit; -1 where no frame at
+    or before f is good."""
+    B = len(good)
+    words = [sum(int(good[b]) << (b - w) for b in range(w, min(w + 32, B)))
+             for w in range(0, B, 32)]
+    out = []
+    for f in range(B):
+        w = f >> 5
+        m = words[w] & (0xFFFFFFFF >> (31 - (f & 31)))
+        while m == 0 and w > 0:
+            w -= 1
+            m = words[w]
+        out.append(32 * w + m.bit_length() - 1 if m else -1)
+    return np.array(out)
+
+
+@pytest.mark.parametrize("pattern", ["leading_bad", "all_bad", "all_good",
+                                     "random"])
+@pytest.mark.parametrize("B", [20, 33, 70])
+def test_latest_good_step_prefix(pattern, B):
+    """The prologue's latest-good-frame prefix equals the plain version's
+    sequential where(good, DT, last_step) chain: index by index against
+    the chain in numpy, and the step it picks for the last frame against
+    the plain version's carry out."""
+    rng = np.random.default_rng(B)
+    good = {"leading_bad": np.arange(B) >= B - 5 - (B % 7),
+            "all_bad": np.zeros(B, bool), "all_good": np.ones(B, bool),
+            "random": rng.random(B) > 0.6}[pattern]
+    want, last = [], -1
+    for f in range(B):
+        last = f if good[f] else last
+        want.append(last)
+    got = _latest_good_by_words(good)
+    np.testing.assert_array_equal(got, want)
+    DT, cov, _ = _sequences(B, n_chunks=1, B=B)[0]
+    c = tfs.init_crit_carry("cpu")
+    c = c._replace(last_step=torch.from_numpy(DT[0] @ DT[1]))
+    out = tfs.kf_scan_plain(torch.from_numpy(DT), torch.from_numpy(cov),
+                            torch.from_numpy(good), c, TCFG, 4)[4]
+    pick = c.last_step if got[-1] < 0 else torch.from_numpy(DT[got[-1]])
+    assert torch.equal(out.last_step, pick)
 
 
 @pytest.fixture(scope="module")

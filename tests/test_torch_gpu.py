@@ -621,36 +621,109 @@ def test_optimize_pose_one_launch(cuda, B, L):
     assert bool(ref.good.all())
 
 
-def test_kf_scan_kernel(cuda):
-    """Kernel J's kf_scan (K14): flags and blocked exactly equal to the
-    plain version on the card over random chunks with the kmax cap."""
+def _kf_chunk(rng, B, cuda, bad_lead=0):
+    from plslam_tpu_torch.core import lie
+    xi = rng.normal(size=(B, 6)) * [0.05, 0.02, 0.4, 0.01, 0.03, 0.01]
+    DT = lie.exp_se3(torch.from_numpy(xi.astype(np.float32))).to(cuda)
+    A = rng.normal(size=(B, 6, 6)) * 1e-3
+    cov = torch.from_numpy((A @ A.transpose(0, 2, 1) + 1e-6 * np.eye(6))
+                           .astype(np.float32)).to(cuda)
+    good = rng.random(B) > 0.1
+    good[:bad_lead] = False
+    return DT, cov, torch.from_numpy(good).to(cuda)
+
+
+@pytest.mark.parametrize("kmax", [1, 4])
+@pytest.mark.parametrize("B", [1, 20, 33, 64])
+def test_kf_scan_kernel(cuda, B, kmax):
+    """Kernel J's kf_scan (K14), one launch a chunk: flags and blocked
+    exactly equal to the plain version on the card, T_accs within 1e-5 of
+    their largest magnitude (at least 1e-5),
+    ratios within 1e-4 and the carry's flags and counter exact, over
+    chunks (a few frames that are not good first in some, every frame
+    not good in one) with the carry alternating between the kernel's
+    packed carry and the plain version's unpacked one; the kmax cap
+    defers some."""
     from plslam_tpu_torch.backend import fused_slam
     from plslam_tpu_torch.config import SlamConfig
-    from plslam_tpu_torch.core import lie
     cfg = SlamConfig()
-    rng = np.random.default_rng(0)
+    rng = np.random.default_rng(B * 10 + kmax)
     carry = fused_slam.init_crit_carry(cuda)
-    n_kf = 0
-    for chunk in range(4):
-        xi = rng.normal(size=(20, 6)) * [0.05, 0.02, 0.4, 0.01, 0.03, 0.01]
-        DT = lie.exp_se3(torch.from_numpy(xi.astype(np.float32))).to(cuda)
-        A = rng.normal(size=(20, 6, 6)) * 1e-3
-        cov = torch.from_numpy((A @ A.transpose(0, 2, 1) + 1e-6 * np.eye(6)
-                                ).astype(np.float32)).to(cuda)
-        good = torch.from_numpy(rng.random(20) > 0.1).to(cuda)
-        kmax = 2 if chunk == 3 else 4
+    n_kf = n_blocked = 0
+    for chunk in range(6 if B > 1 else 40):
+        bad = B if chunk % 6 == 2 else min((0, 3, 0, 0, 7, 1)[chunk % 6],
+                                           B - 1)
+        DT, cov, good = _kf_chunk(rng, B, cuda, bad)
         got = _launched("kf_scan", lambda: fused_slam.kf_scan(
             DT, cov, good, carry, cfg, kmax))
         ref = fused_slam.kf_scan_plain(DT, cov, good, carry, cfg, kmax)
         assert torch.equal(got[0], ref[0]) and torch.equal(got[3], ref[3])
-        assert float((got[1] - ref[1]).abs().max()) <= 1e-5
+        # T_accs: 1e-5 of their largest magnitude, at least 1e-5 (with
+        # kmax 1 the pose since the last KF grows to tens of metres)
+        assert float((got[1] - ref[1]).abs().max()) <= 1e-5 * max(
+            1.0, float(ref[1].abs().max()))
         assert float((got[2] - ref[2]).abs().max()) <= 1e-4
+        assert fused_slam._packed_base(got[4]) is not None
         for g, r in zip(got[4], ref[4]):
+            assert g.dtype == r.dtype and g.shape == r.shape
             if g.dtype == torch.bool or not g.is_floating_point():
                 assert torch.equal(g, r)
+            else:
+                assert float((g - r).abs().max()) <= 1e-5 * max(
+                    1.0, float(r.abs().max()))
         n_kf += int(ref[0].sum())
-        carry = ref[4]
-    assert n_kf >= 4
+        n_blocked += int(ref[3].sum())
+        carry = ref[4] if chunk % 2 else got[4]
+    assert n_kf >= 3 and (kmax == 4 or B == 1 or n_blocked > 0)
+
+
+@pytest.mark.parametrize("case", ["random", "all_invalid", "one_leaf", "n1",
+                                  "ends", "ragged", "k16", "n4096"])
+def test_bow_hist_kernel(cuda, case):
+    """Kernel L's bow_hist (K17), one launch: within 1e-6 of the plain
+    version's largest entry, with exactly its zeros, |sum |v| - 1| <=
+    1e-5 (0 where nothing is valid) and the L1 scores against a database
+    of plain vectors within 1e-6; on the 10,000 leaves of a 10 x 4
+    vocabulary (the cases of test_torch_loop.py's _hist_by_ctas), on
+    2,187 (k = 3, levels 7: 3 CTAs, the last short), on 65,536 (k = 16,
+    levels 4) and with the most descriptors it takes."""
+    from plslam_tpu_torch.loop import vocabulary as voc
+    k, levels = {"ragged": (3, 7), "k16": (16, 4)}.get(case, (10, 4))
+    n_leaves = k ** levels
+    g = torch.Generator().manual_seed(len(case))
+    idf = torch.rand((n_leaves,), generator=g) * 3.0 + 0.1
+    v = voc.Vocabulary(flat=torch.zeros((1, 8), dtype=torch.int32),
+                       idf=idf, k=k, levels=levels)
+    vg = v._replace(idf=idf.to(cuda))
+    n = {"n1": 1, "n4096": voc.HIST_MAX_N, "random": 1024}.get(case, 128)
+    leaves = torch.randint(0, n_leaves, (n,), generator=g,
+                           dtype=torch.int32)
+    valid = torch.rand((n,), generator=g) > 0.2
+    if case == "all_invalid":
+        valid[:] = False
+    elif case == "one_leaf":
+        leaves[:] = 17
+    elif case in ("ends", "ragged"):
+        leaves[:4] = torch.tensor([0, n_leaves - 1, 0, n_leaves - 1])
+        valid[:4] = True
+    elif case == "n4096":
+        leaves = leaves % 700        # repeats: counts above 1
+    got = _launched("bow_hist", lambda: voc.bow_hist(vg, leaves.to(cuda),
+                                                     valid.to(cuda))).cpu()
+    ref = voc.bow_hist_plain(vg, leaves.to(cuda),
+                             valid.to(cuda).to(torch.float32)).cpu()
+    assert torch.equal(got == 0, ref == 0)
+    top = float(ref.abs().max())
+    assert float((got - ref).abs().max()) <= 1e-6 * max(top, 1e-30)
+    if valid.any():
+        assert abs(float(got.abs().sum()) - 1.0) <= 1e-5
+        db = torch.stack([voc.bow_hist_plain(v, torch.randint(
+            0, n_leaves, (n,), generator=g, dtype=torch.int32), torch.ones(
+            n)) for _ in range(4)] + [ref])
+        assert float((voc.l1_score(db, got[None])
+                      - voc.l1_score(db, ref[None])).abs().max()) <= 1e-6
+    else:
+        assert not got.any()
 
 
 @pytest.mark.parametrize("N,R", [(3000, 4), (1024, 4), (777, 1), (513, 3),

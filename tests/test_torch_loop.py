@@ -536,3 +536,134 @@ def test_bow_descend_lane_arithmetic(vocs, case):
     assert v.k <= tvoc.BOW_MAX_K
     np.testing.assert_array_equal(_descend_by_lanes(v, words),
                                   tvoc.transform_leaves_plain(v, words).numpy())
+
+
+def _hist_by_ctas(leaves, valid, idf, n_leaves):
+    """bow_hist's order in float32 numpy: each distinct valid leaf counted
+    and its first valid descriptor marked; the term count * idf[leaf] at
+    that descriptor; the L1 norm as the kernel sums it (thread t, of
+    HIST_NT, adds its descriptors t, t + HIST_NT, ... in order; a shuffle
+    butterfly in each warp of 32; the warps' sums in warp order; at least
+    1e-9); then each CTA of ``hist_layout`` zeroes its slice and writes
+    term / norm at the leaves in it. Asserts that the slices write every
+    leaf, each once."""
+    nt = tvoc.HIST_NT
+    count, first = {}, {}
+    for d in np.nonzero(valid)[0]:
+        leaf = int(leaves[d])
+        count[leaf] = count.get(leaf, 0) + 1
+        first.setdefault(leaf, d)
+    term = np.zeros(len(leaves), np.float32)
+    for leaf, d in first.items():
+        term[d] = np.float32(count[leaf]) * idf[leaf]
+    part = np.zeros(nt, np.float32)
+    for d in range(len(leaves)):
+        part[d % nt] += np.abs(term[d])
+    for s in (16, 8, 4, 2, 1):
+        part = part + part[np.arange(nt) ^ s]
+    total = np.float32(0.0)
+    for w in range(nt // 32):
+        total = np.float32(total + part[32 * w])
+    total = max(total, np.float32(1e-9))
+    ctas, size = tvoc.hist_layout(n_leaves)
+    out = np.full(n_leaves, np.nan, np.float32)
+    written = np.zeros(n_leaves, int)
+    for c in range(ctas):
+        lo, hi = c * size, min((c + 1) * size, n_leaves)
+        out[lo:hi] = 0.0
+        written[lo:hi] += 1
+        for leaf, d in first.items():
+            if lo <= leaf < hi:
+                out[leaf] = term[d] / total
+    assert (written == 1).all()
+    return out
+
+
+def _random_vocabs(k, levels, seed):
+    """(reference, port) vocabularies of random centroids and idf; the
+    nodes on the paths to the first and the last leaf share those leaves'
+    centroids, so that the two leaf centroids descend to them."""
+    rng = np.random.default_rng(seed)
+    cents = [rng.integers(0, 2, (k ** (l + 1), 256)).astype(np.uint8)
+             for l in range(levels)]
+    for c in cents[:-1]:
+        c[0], c[-1] = cents[-1][0], cents[-1][-1]
+    idf = rng.uniform(0.1, 3.0, k ** levels).astype(np.float32)
+    j = jvoc.Vocabulary(centroids=tuple(jnp.asarray(c) for c in cents),
+                        idf=jnp.asarray(idf), k=k, levels=levels)
+    return j, tvoc._from_levels(cents, idf, k, "random", "cpu")
+
+
+@pytest.mark.parametrize("voc_kind,case", [
+    ("orb", "random"), ("orb", "all_invalid"), ("orb", "one_leaf"),
+    ("orb", "n1"), ("orb", "ends"), ("k3l2", "random"),
+    ("k3l2", "all_invalid"), ("k3l2", "one_leaf"), ("k3l2", "n1"),
+    ("k3l2", "ends"), ("k3l7", "ends")])
+def test_bow_hist_order_matches_reference(vocs, voc_kind, case):
+    """_hist_by_ctas (bow_hist's counts, first-occurrence norm and slice
+    writes) is within 1e-6 of the reference's bow_vector with the same
+    zeros, on the shipped ORB vocabulary (10,000 leaves, 10 CTAs of 1,000)
+    and random ones of k = 3, levels 2 (9 leaves, one CTA whose slice of 12
+    overhangs) and levels 7 (2,187 leaves, 3 CTAs of 732, the last short):
+    all descriptors invalid (the zero vector the 1e-9 floor gives), every
+    descriptor on one leaf, N = 1, descriptors on leaves 0 and n_leaves -
+    1, and random ones."""
+    j, t = (vocs["orb"] if voc_kind == "orb" else _random_vocabs(
+        3, 2 if voc_kind == "k3l2" else 7, seed=len(voc_kind)))
+    n_leaves = t.n_leaves
+    rng = np.random.default_rng(len(case))
+    n = 1 if case == "n1" else 64
+    bits = rng.integers(0, 2, (n, 256)).astype(np.uint8)
+    valid = rng.random(n) > 0.2
+    if case == "all_invalid":
+        valid[:] = False
+    elif case == "one_leaf":
+        bits[:] = bits[0]
+        valid[:] = True
+    elif case == "n1":
+        valid[:] = True
+    elif case == "ends":
+        # descriptors that descend to the first and the last leaf: leaf
+        # centroids with a few bits flipped, and random ones
+        leaf_bits = tvoc.level_bits(t)[-1][[0, -1]]
+        pool = np.concatenate([np.repeat(leaf_bits, 200, 0),
+                               rng.integers(0, 2, (8192, 256))]).astype(
+            np.uint8)
+        flip = rng.random((400, 256)) < 0.02
+        pool[:400] ^= flip.astype(np.uint8)
+        lv = tvoc.transform_leaves_plain(t, tvoc.hamming.pack_bits(
+            torch.from_numpy(pool))).numpy()
+        at = [np.nonzero(lv == e)[0][:3] for e in (0, n_leaves - 1)]
+        assert all(len(a) for a in at)
+        bits[:6] = pool[np.concatenate(at)][np.arange(6) % sum(map(len, at))]
+        valid[:6] = True
+    leaves = tvoc.transform_leaves_plain(t, tvoc.hamming.pack_bits(
+        torch.from_numpy(bits))).numpy()
+    if case == "ends":
+        assert {0, n_leaves - 1} <= set(leaves[valid].tolist())
+    got = _hist_by_ctas(leaves, valid, t.idf.numpy(), n_leaves)
+    want = np.asarray(jvoc.bow_vector(j, jnp.asarray(bits),
+                                      jnp.asarray(valid)))
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)
+    np.testing.assert_array_equal(got == 0, want == 0)
+    if valid.any():
+        assert abs(float(np.abs(got).sum()) - 1.0) <= 1e-5
+    else:
+        assert not got.any()
+
+
+def test_bow_hist_layout_matches_kernel():
+    """hist_layout and the HIST_* constants equal csrc/bow.cu's, and the
+    slices cover every vector length once, with 16-byte aligned starts."""
+    import os
+    import re
+    src = open(os.path.join(os.path.dirname(tvoc.__file__), os.pardir,
+                            "csrc", "bow.cu")).read()
+    consts = dict(re.findall(r"(HIST_\w+) = (\d+)", src))
+    assert {k: int(v) for k, v in consts.items() if k != "HIST_PER"} == {
+        "HIST_NT": tvoc.HIST_NT, "HIST_MAX_N": tvoc.HIST_MAX_N,
+        "HIST_SLICE": tvoc.HIST_SLICE, "HIST_MAX_CTAS": tvoc.HIST_MAX_CTAS}
+    for n in (1, 9, 1000, 1024, 1025, 2187, 10_000, 65_536, 1_000_000):
+        ctas, size = tvoc.hist_layout(n)
+        assert 1 <= ctas <= tvoc.HIST_MAX_CTAS and size % 4 == 0
+        assert (ctas - 1) * size < n <= ctas * size
