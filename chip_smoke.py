@@ -333,6 +333,28 @@ class Recorder:
         check(ok, f"{name} disagrees with its plain version: {errs} > {tols}")
 
 
+def orb_sector_floor_ms(levels, uv, octave, theta, size: int = 32) -> float:
+    """The distinct ``size``-byte pieces that the 64 samples of each
+    keypoint touch (K5's pool, its centre and angle bin as
+    orient_and_describe_plain computes them), summed over the keypoints,
+    at the card's memory rate."""
+    import torch
+    from plslam_tpu_torch.ops import orb
+    dev = uv.device
+    o = octave.long().clamp(0, len(levels) - 1)
+    H = torch.tensor([lv.shape[1] for lv in levels], device=dev)[o]
+    W = torch.tensor([lv.shape[2] for lv in levels], device=dev)[o]
+    u = torch.minimum(torch.round(uv[..., 0]).long().clamp(min=15), W - 16)
+    v = torch.minimum(torch.round(uv[..., 1]).long().clamp(min=15), H - 16)
+    rot = torch.from_numpy(orb._ROT_TABLES).to(dev).long()
+    off = rot[orb.angle_bins(theta).long()]                 # (N, K, 64, 2)
+    flat = ((v[..., None] + off[..., 0]) * W[..., None] + u[..., None]
+            + off[..., 1])
+    sec = torch.sort(flat // (size // 4), dim=-1).values
+    n_sec = int((sec[..., 1:] != sec[..., :-1]).sum()) + sec[..., 0].numel()
+    return n_sec * size / HBM_BYTES_PER_S * 1e3
+
+
 def kernel_phase(images, record):
     """Kernels A-D at the points path's shapes against their plain
     versions."""
@@ -453,28 +475,36 @@ def kernel_phase(images, record):
                                      return_indices=True)),
                entry="fast_nms_block")
 
-    # C: pool gather + pair tests for K=1024 keypoints on 4 levels: 64
-    # samples, 3 ints in, 256 bit bytes out, 256 compares and selects
-    flat = torch.cat([lv.reshape(N, -1) for lv in levels], dim=1)
+    # C: orientation and bits of K=1024 keypoints an image on the
+    # pyramid's 4 levels and their moment maps, as describe_multilevel
+    # calls it (keypoints on and off the levels' edges, octaves 0-3): 8
+    # bytes of uv, 4 of octave and 8 of moments in, 64 samples of 4 bytes,
+    # 256 bit bytes and 4 of theta out; 256 compares and selects. The
+    # scattered samples' floor beside it: the distinct 32-byte sectors
+    # (and 64-byte pieces) each keypoint's 64 samples touch, at the card's
+    # memory rate
     K = 1024
     g = torch.Generator(device="cpu").manual_seed(0)
-    octv = torch.randint(0, 4, (N, K), generator=g)
-    shapes = [lv.shape[-2:] for lv in levels]
-    base = np.cumsum([0] + [h * w for h, w in shapes])[:-1]
-    fW = torch.tensor([s[1] for s in shapes])[octv]
-    fH = torch.tensor([s[0] for s in shapes])[octv]
-    u = (torch.rand((N, K), generator=g) * (fW - 31)).long() + 15
-    v = (torch.rand((N, K), generator=g) * (fH - 31)).long() + 15
-    center = (torch.tensor(base)[octv] + v * fW + u).to(torch.int32).to(dev)
-    width = fW.to(torch.int32).to(dev)
-    bins = torch.randint(0, 32, (N, K), generator=g).to(torch.int32).to(dev)
-    got = orb.pool_bits(flat, center, width, bins)
-    ref = orb.pool_bits_plain(flat, center, width, bins)
+    m10, m01, halves = orb.moment_maps(levels)
+    octv = torch.randint(0, 4, (N, K), generator=g, dtype=torch.int32)
+    wh = torch.tensor([lv.shape[:0:-1] for lv in levels],
+                      dtype=torch.float32)[octv.long()]
+    uv = (torch.rand((N, K, 2), generator=g) * 1.04 - 0.02) * wh
+    octv, uv = octv.to(dev), uv.to(dev)
+    got = orb.orient_and_describe(levels, m10, m01, halves, uv, octv)
+    ref = orb.orient_and_describe_plain(levels, m10, m01, halves, uv, octv)
     record("orb_describe", "plslam_tpu_torch/csrc/orb.cu",
-           "plslam_tpu/ops/orb.py:131", [got], [ref], 0.0,
-           lambda: orb.pool_bits(flat, center, width, bins),
-           lambda: orb.pool_bits_plain(flat, center, width, bins),
-           N * K * (64 * 4 + 12 + 256), N * K * 256 * 2)
+           "plslam_tpu/ops/orb.py:131", list(got), list(ref), 0.0,
+           lambda: orb.orient_and_describe(levels, m10, m01, halves, uv,
+                                           octv),
+           lambda: orb.orient_and_describe_plain(levels, m10, m01, halves,
+                                                 uv, octv),
+           N * K * (8 + 4 + 8 + 64 * 4 + 256 + 4), N * K * 256 * 2)
+    print(f"[k5] orb_describe: floor of the scattered samples "
+          f"{orb_sector_floor_ms(levels, uv, octv, got[1]):.4f} ms in "
+          f"32-byte sectors, "
+          f"{orb_sector_floor_ms(levels, uv, octv, got[1], 64):.4f} ms in "
+          f"64-byte pieces", flush=True)
 
     # D: a chunk's stereo point match (20 frames of 1024 x 1024 bit
     # descriptors, the stereo gate) and its f2f point match (the f2f
@@ -716,24 +746,37 @@ def detector_case(record, img, kw, tag, min_ok_per_image):
            entry="lines_moments", err_kind=rel)
     S = ref
 
-    # F: labels on the gated tiles; 4 forward tests (~12 ops each) and
-    # merge_iters sweeps of 8 neighbour reads + a hop per tile
+    # F: the gates and labels in one launch: 32 bytes in, 21 + 4 out a
+    # tile; ~60 flops a tile's gates, 4 forward tests (~12 ops each) a
+    # gated-in tile, and this run's sweeps of 8 neighbour reads + a hop
+    # over the linked tiles. Plain: tile_gates + propagate_labels_plain
     iters = kw["merge_iters"]
     ang_th, dist_th = kw["merge_ang_th"], kw["merge_dist_th"]
-    gates = lines.tile_gates(*S, tile, kw["min_support"], kw["elong_th"],
-                             kw["perp_spread_th"], kw["coherence_th"])
-    targs = gates[:6]
-    lab = lines.propagate_labels(*targs, ang_th, dist_th, iters)
-    lab_ref = lines.propagate_labels_plain(*targs, ang_th, dist_th, iters)
-    n_ok = int(targs[0].sum())
+    gargs = (*S, tile, kw["min_support"], kw["elong_th"],
+             kw["perp_spread_th"], kw["coherence_th"], ang_th, dist_th,
+             iters)
+    got = lines.gates_and_labels(*gargs)
+    gates = lines.gates_and_labels_plain(*gargs)
+    tile_ok, lab_ref = gates[0], gates[-1]
+    n_ok = int(tile_ok.sum())
+    own = lab_ref == torch.arange(Th * Tw, device=dev).reshape(Th, Tw)
+    sizes = torch.zeros((N, Th * Tw + 8), dtype=torch.long, device=dev)
+    sizes.scatter_add_(1, lab_ref.reshape(N, -1).long(),
+                       tile_ok.reshape(N, -1).long())
+    n_linked = int((tile_ok & (sizes.gather(
+        1, lab_ref.reshape(N, -1).long()).reshape(N, Th, Tw) > 1)).sum())
     check(n_ok >= min_ok_per_image * N, f"too few gated-in tiles{tag}: {n_ok}")
+    print(f"[k9] lines_label{tag}: {n_ok} gated-in tiles, {n_linked} in "
+          f"components of more than one tile, {int(own.sum())} roots, of "
+          f"{nt} tiles ({N} images of {Th}x{Tw})", flush=True)
     record("lines_label" + tag, src_l, "plslam_tpu/ops/lines.py:320",
-           [lab], [lab_ref], 0.0,
-           lambda: lines.propagate_labels(*targs, ang_th, dist_th, iters),
-           lambda: lines.propagate_labels_plain(*targs, ang_th, dist_th,
-                                                iters),
-           nt * (1 + 5 * 4 + 4), nt * (4 * 12 + iters * 10),
-           entry="lines_label")
+           list(got), list(gates), 0.0,
+           lambda: lines.gates_and_labels(*gargs),
+           lambda: lines.gates_and_labels_plain(*gargs),
+           nt * (32 + 21 + 4),
+           nt * 60 + n_ok * 4 * 12 + n_linked * iters * 10,
+           entry="lines_label",
+           err_kind="tile_ok, cx, cy, cx_l, cy_l, l1, labels: exact")
 
     # G launch 1: refit of the top-R roots, linear in the tiles: the labels
     # are read once, the 12 member planes (and tile_ok) of the member tiles
@@ -742,8 +785,7 @@ def detector_case(record, img, kw, tag, min_ok_per_image):
     # px: the image-centre moments cancel in f32, so summation order
     # (the plain version's index_add_ on the card is atomic) moves them by
     # ~0.01 px; scores (support masses) relative to the largest
-    ts = lines.TileStage(lab_ref, gates[0], *S[:6], gates[2], gates[3],
-                         gates[6], gates[7], gates[8])
+    ts = lines.TileStage(lab_ref, tile_ok, *S[:6], *gates[1:6])
     len_th = min(0.75 * tile + s, kw["min_length"])
     ml = kw["max_lines"]
     rargs = lines.refit_inputs(ts, H, W, ml)
@@ -3196,6 +3238,53 @@ def bench_slam_scene(devices) -> None:
             print("[bench_slam] identical keyframe decisions", flush=True)
 
 
+def _orb_after_filters_before(orb, image, levels, uv, octave):
+    """What a tree without ``orient_and_describe`` ran in
+    describe_multilevel after its moment filters: the levels
+    concatenated, the torch glue of the orientation, the bins and the
+    centres, and its pool_bits launch. Returns the call; the moment maps
+    are made here, outside it."""
+    import torch
+    N, dev = uv.shape[0], uv.device
+    n_lvl = len(levels)
+    full = [tuple(lv.shape[-2:]) for lv in levels]
+    halves = [image.resize_bilinear(lv, (h // 2, w // 2))
+              for lv, (h, w) in zip(levels, full)]
+    half = [tuple(x.shape[-2:]) for x in halves]
+    hb = orb._bases(half)
+    m10 = torch.empty((N, sum(h * w for h, w in half)), device=dev)
+    m01 = torch.empty_like(m10)
+    for x, b, (hh, hw) in zip(halves, hb, half):
+        image.separable_filter2d_pair(x, orb._d_h, orb._ONES_H, orb._ONES_H,
+                                      orb._d_h, m10[:, b:b + hh * hw],
+                                      m01[:, b:b + hh * hw])
+
+    def fn():
+        flat = torch.cat([lv.reshape(N, -1) for lv in levels], dim=1)
+        tab = lambda v: orb._on(np.asarray(v, np.int32), dev)
+        o = torch.clamp(octave, 0, n_lvl - 1).long()
+        fW, fH = tab([s[1] for s in full])[o], tab([s[0] for s in full])[o]
+        fB = tab(orb._bases(full))[o]
+        hW, hH = tab([s[1] for s in half])[o], tab([s[0] for s in half])[o]
+        hB = tab(hb)[o]
+        u2 = torch.minimum(torch.clamp(torch.round(uv[..., 0] * 0.5).to(
+            torch.int32), min=0), hW - 1)
+        v2 = torch.minimum(torch.clamp(torch.round(uv[..., 1] * 0.5).to(
+            torch.int32), min=0), hH - 1)
+        hidx = (hB + v2 * hW + u2).long()
+        theta = torch.atan2(torch.gather(m01, 1, hidx),
+                            torch.gather(m10, 1, hidx))
+        u = torch.minimum(torch.clamp(torch.round(uv[..., 0]).to(
+            torch.int32), min=15), fW - 16)
+        v = torch.minimum(torch.clamp(torch.round(uv[..., 1]).to(
+            torch.int32), min=15), fH - 16)
+        center = (fB + v * fW + u).to(torch.int32)
+        bits = orb.pool_bits(flat, center, fW.to(torch.int32).contiguous(),
+                             orb.angle_bins(theta).contiguous())
+        return [bits, theta]
+    return fn
+
+
 def against_side(root: str, out_path: str, desc_path: str) -> None:
     """One process of ``--against``: on 40 seeded 376x1241 images, through
     the plslam_tpu_torch of the checkout at ``root`` (its kernels built
@@ -3208,8 +3297,15 @@ def against_side(root: str, out_path: str, desc_path: str) -> None:
     solve and ``lba_backsub``) and the whole ``run_lba`` on
     ``lba_window_problem``, the GN phase (8 iterations) and the whole
     optimize_pose at 20 x (1024 points, 128 lines) (``gn_inputs``), the
-    NMS block max at level 0, kernel G (``refit_roots`` on the TileStage
-    of the line scene's 40 images through kernels E and F, and
+    NMS block max at level 0, K5 (the whole ``describe_multilevel`` on
+    the pyramid of the 40 images at 1,024 seeded keypoints an image, and
+    what it runs after its moment filters: ``orient_and_describe``, or a
+    parent's torch glue and ``pool_bits``), K9 on the line scene's 40
+    images at full and half resolution (the whole ``tile_stage``, and its
+    gates and labels alone: ``gates_and_labels``, or a parent's
+    ``tile_gates`` + ``propagate_labels``), kernel G (``refit_roots`` on
+    the TileStage of the line scene's 40 images through kernels E and F,
+    and
     ``merge_segments`` on candidates of the plain refit on the CPU, at full
     and half resolution), K16's medoid rows at 8192 and 1024 landmarks
     (``medoid_inputs``; a parent's medoid, ``unpack_bits`` and
@@ -3223,10 +3319,10 @@ def against_side(root: str, out_path: str, desc_path: str) -> None:
     (all of them, torch's too) of one point front end
     (``detect_and_describe``) under torch.profiler;
     saves the outputs and each call's device time (torch.profiler, the
-    hand kernels; for K13, K2, G, K14, K16, K17 and K18 also every device
-    kernel's time and count, ``all_kernels``; for G, K14, K15's camera
-    blocks and step, K16, K17 and K18 the wrapper's time, CUDA events) to
-    ``out_path``."""
+    hand kernels; for K13, K2, K5, K9, G, K14, K16, K17 and K18 also every
+    device kernel's time and count, ``all_kernels``; for K5, K9, G, K14,
+    K15's camera blocks and step, K16, K17 and K18 the wrapper's time, CUDA
+    events) to ``out_path``."""
     sys.path.insert(0, root)
     import torch
     from torch.autograd import DeviceType
@@ -3328,6 +3424,32 @@ def against_side(root: str, out_path: str, desc_path: str) -> None:
                 score, chi, clo, 5, 16, 48, 160)))):
         res[key] = ([x.cpu() for x in fn()], device_ms(fn, iters=20),
                     *all_kernels(fn, iters=20))
+    # K5 on the pyramid of the 40 images, 1,024 seeded keypoints an image
+    # (octaves 0-3, on and off the levels' edges): the whole
+    # describe_multilevel, and what it runs after its moment filters
+    # (orient_and_describe, or a parent's torch glue and pool_bits)
+    levels = image.build_pyramid(images, 4, 1.2)
+    g = torch.Generator(device="cpu").manual_seed(5)
+    octv = torch.randint(0, 4, (40, 1024), generator=g, dtype=torch.int32)
+    wh = torch.tensor([lv.shape[:0:-1] for lv in levels],
+                      dtype=torch.float32)[octv.long()]
+    uv = ((torch.rand((40, 1024, 2), generator=g) * 1.04 - 0.02) * wh
+          ).to(dev)
+    octv = octv.to(dev)
+    fn = lambda: list(orb.describe_multilevel(levels, uv, octv))
+    res["describe_multilevel"] = ([x.cpu() for x in fn()],
+                                  device_ms(fn, iters=20),
+                                  *all_kernels(fn, iters=20),
+                                  cuda_ms(fn, 50))
+    if hasattr(orb, "orient_and_describe"):
+        m10, m01, halves = orb.moment_maps(levels)
+        fn = lambda: list(orb.orient_and_describe(levels, m10, m01, halves,
+                                                  uv, octv))
+    else:
+        fn = _orb_after_filters_before(orb, image, levels, uv, octv)
+    res["orb_after_filters"] = ([x.cpu() for x in fn()],
+                                device_ms(fn, iters=20),
+                                *all_kernels(fn, iters=20), cuda_ms(fn, 50))
     # kernel G on the line scene's 40 images (kernel_phase's), full and
     # half res, the TileStage through kernels E and F: refit_roots, then
     # merge_segments on candidates from the plain refit on the CPU (the
@@ -3345,9 +3467,40 @@ def against_side(root: str, out_path: str, desc_path: str) -> None:
         kw = stereo_lines.detect_kwargs(cfg.lines, half, math.hypot(H, W))
         h, w = img.shape[1:]
         tile, ml, min_len = kw["tile"], kw["max_lines"], kw["min_length"]
-        ts = lines.tile_stage(img, **{k: kw[k] for k in (
+        tkw = {k: kw[k] for k in (
             "tile", "grad_th", "min_support", "elong_th", "perp_spread_th",
-            "coherence_th", "merge_iters", "merge_ang_th", "merge_dist_th")})
+            "coherence_th", "merge_iters", "merge_ang_th", "merge_dist_th")}
+        ts = lines.tile_stage(img, **tkw)
+        # K9: the whole tile_stage, and its gates and labels alone on the
+        # window moments (kernel E's, the same on both trees): this tree's
+        # gates_and_labels, or a parent's tile_gates + propagate_labels;
+        # outputs (tile_ok, cx, cy, cx_l, cy_l, l1, labels)
+        fn = lambda: list(lines.tile_stage(img, **tkw))
+        res["tile_stage" + tag] = ([x.cpu() for x in fn()],
+                                   device_ms(fn, iters=20),
+                                   *all_kernels(fn, iters=20),
+                                   cuda_ms(fn, 50))
+        wp, d2x, d2y = lines.gradient_planes(img, kw["grad_th"])
+        D2x, D2y = lines.orientation_maps(d2x, d2y, tile, tile // 2)
+        d2n = lines.sqrt_rn(D2x * D2x + D2y * D2y) + 1e-9
+        maps = lines.reweighted_moments(wp, d2x, d2y, D2x / d2n, D2y / d2n,
+                                        tile, tile // 2)
+        gkw = [tkw[k] for k in ("min_support", "elong_th", "perp_spread_th",
+                                "coherence_th")]
+        mkw = [tkw[k] for k in ("merge_ang_th", "merge_dist_th",
+                                "merge_iters")]
+        if hasattr(lines, "gates_and_labels"):
+            fn = lambda: list(lines.gates_and_labels(*maps, tile, *gkw,
+                                                     *mkw))
+        else:
+            def fn():
+                gt = lines.tile_gates(*maps, tile, *gkw)
+                lab = lines.propagate_labels(*gt[:6], *mkw)
+                return [gt[0], gt[2], gt[3], gt[6], gt[7], gt[8], lab]
+        res["gates_and_labels" + tag] = ([x.cpu() for x in fn()],
+                                         device_ms(fn, iters=20),
+                                         *all_kernels(fn, iters=20),
+                                         cuda_ms(fn, 50))
         len_th = min(0.75 * tile + tile // 2, min_len)
         fn = lambda: list(lines.refit_roots(ts, h, w, tile, ml, min_len))
         res["refit_roots" + tag] = ([x.cpu() for x in fn()],
@@ -3462,7 +3615,8 @@ def against(other: str) -> None:
     checkout at DIR and of this one, in turns (DIR, this, this, DIR), each
     in a process of its own; prints each output's largest difference
     between the two trees (the scale's and the cost's as bits too), every
-    device time and the point front end's device kernels."""
+    device time and the point front end's device kernels; fails where K5's
+    bits or K9's tile_ok or labels differ between the trees."""
     import os
     import tempfile
     import torch
@@ -3508,6 +3662,17 @@ def against(other: str) -> None:
                   for who in ("other", "this")}
             print(f"[against] {key}: wrapper ms this {wr['this']}, other "
                   f"{wr['other']}", flush=True)
+    # K5's bits and K9's tile_ok and labels equal on both trees
+    for key, idx in (("describe_multilevel", (0,)),
+                     ("orb_after_filters", (0,)),
+                     ("tile_stage", (0, 1)), ("tile_stage@half", (0, 1)),
+                     ("gates_and_labels", (0, 6)),
+                     ("gates_and_labels@half", (0, 6))):
+        check(all(torch.equal(a[key][0][i], b[key][0][i]) for i in idx),
+              f"{key}: the two trees' bits, tile_ok or labels differ")
+        same = [torch.equal(x, y) for x, y in zip(a[key][0], b[key][0])]
+        print(f"[against] {key}: bits / tile_ok / labels equal on both "
+              f"trees; the same bits per output {same}", flush=True)
     # K15's camera blocks within K15's float64 rule on both trees; K17's
     # leaf ids equal on both trees; each launch's grid
     for who, r in runs[:2]:

@@ -44,14 +44,14 @@ _SIGNATURES: Dict[str, str] = {
     "image_resize": "pppiiiii",
     "fast_score": "pppppiiiff",
     "fast_nms_block": "ppppppppiiiiiii",
-    "orb_describe": "pppppppiii",
+    "orb_describe": "pippi" + "pppppp" + "ii",
     "hamming_dist": "ppppppiii",
     "hamming_match": "pppppiiiffi",
     "hamming_scan": "pipippi" + "ppppp" + "fff" + "pppp" + "iii",
     "hamming_finish": "p" * 6 + "iiiff",
     "lines_sobel": "ppppppiiifi",
     "lines_moments": "pppppppiiiiii",
-    "lines_label": "pppppppiiiffi",
+    "lines_label": "p" * 18 + "iiii" + "ffffff" + "i",
     "lines_refit": "p" * 17 + "iii" + "fff",
     "lines_merge": "p" * 10 + "iii" + "fffi",
     "lbd_describe": "ppppppppiiiiiiiff",

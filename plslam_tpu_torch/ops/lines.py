@@ -3,11 +3,12 @@
 Port of ``plslam_tpu/ops/lines.py``: a tile-wise reformulation of LSD.
 Sobel gradients and the per-pixel support planes (kernel E launch 1), the
 overlapping (2s x 2s, stride s) window moments in window-LOCAL coordinates
-(kernel E launch 2, an orientation pass and a reweighted pass), per-tile
-gates (PyTorch), collinear min-label propagation over the tile grid
-(kernel F), the per-root refit into candidate segments (kernel G launch
-1) and the segment-level collinear merge (kernel G launch 2). The root and
-candidate selections are stable descending sorts, as ``lax.top_k``.
+(kernel E launch 2, an orientation pass and a reweighted pass), the
+per-tile gates and the collinear min-label propagation over the tile grid
+(kernel F, one launch: :func:`gates_and_labels`), the per-root refit
+into candidate segments (kernel G launch 1) and the segment-level
+collinear merge (kernel G launch 2). The root and candidate selections
+are stable descending sorts, as ``lax.top_k``.
 
 Every function takes a batch: images (N, H, W) f32, tile maps (N, Th, Tw),
 segments (N, M, ...). Python thresholds meet f32 tensors as the
@@ -218,7 +219,7 @@ def reweighted_moments(w, d2x, d2y, u2x, u2y, tile: int, stride: int):
                            tile, stride, 8)
 
 
-# -- gates (PyTorch) --------------------------------------------------------------
+# -- gates (the plain version of kernel F's first pass) -----------------------
 
 def principal_axis(sxx, syy, sxy):
     """Closed-form eigen-decomposition of [[sxx, sxy], [sxy, syy]]:
@@ -275,7 +276,7 @@ def tile_gates(S, Sx, Sy, Sxx, Syy, Sxy, D2x, D2y, tile: int,
     return tile_ok, angle, cx, cy, dx, dy, cx_l, cy_l, l1
 
 
-# -- kernel F: collinear min-label propagation ----------------------------------
+# -- kernel F: gates and collinear min-label propagation ----------------------
 
 _NEIGH = ((0, 1), (1, 0), (1, 1), (1, -1))
 
@@ -331,19 +332,82 @@ def propagate_labels(tile_ok, angle, cx, cy, dx, dy, merge_ang_th: float,
     """Connected components of compatible 8-neighbour tiles: ``iters``
     synchronous sweeps of min-label propagation, each followed by one
     pointer hop (label <- label[label]). Gated-out tiles carry Th*Tw + 7.
-    Returns (N, Th, Tw) int32."""
-    if tile_ok.device.type == "cpu":
-        return propagate_labels_plain(tile_ok, angle, cx, cy, dx, dy,
-                                      merge_ang_th, merge_dist_th, iters)
-    N, Th, Tw = tile_ok.shape
-    ok = tile_ok.to(torch.uint8).contiguous()
-    fl = [t.contiguous() for t in (angle, cx, cy, dx, dy)]
-    for t in fl:
-        native.require(t, "propagate_labels", torch.float32, (N, Th, Tw))
-    lab = torch.empty((N, Th, Tw), dtype=torch.int32, device=ok.device)
-    native.launch("lines_label", ok, *fl, lab, N, Th, Tw,
-                  merge_ang_th, merge_dist_th, iters)
-    return lab
+    Returns (N, Th, Tw) int32. CPU tensors only: on the card the labels
+    are part of the one launch of :func:`gates_and_labels`."""
+    if tile_ok.device.type != "cpu":
+        raise ValueError("propagate_labels runs on CPU tensors only; on "
+                         "CUDA tensors use gates_and_labels")
+    return propagate_labels_plain(tile_ok, angle, cx, cy, dx, dy,
+                                  merge_ang_th, merge_dist_th, iters)
+
+
+# tiles an image that the lines_label kernel takes: its last CTA of an
+# image holds 9 bytes and a bit a tile in shared memory
+# (csrc/lines_label.cu; tests/test_torch_lines.py checks the sum)
+LABEL_MAX_TILES = 25466
+# lines_label's per-image counters of finished slices, one zeroed buffer a
+# device: each launch leaves them at 0 (calls on one stream at a time)
+_LABEL_COUNTS = {}
+
+
+def _label_counts(device, N: int) -> torch.Tensor:
+    buf = _LABEL_COUNTS.get(device)
+    if buf is None or buf.numel() < N:
+        buf = torch.zeros(max(N, 64), dtype=torch.int32, device=device)
+        _LABEL_COUNTS[device] = buf
+    return buf
+
+
+def gates_and_labels_plain(S, Sx, Sy, Sxx, Syy, Sxy, D2x, D2y, tile: int,
+                           min_support: float, elong_th: float,
+                           perp_spread_th: float, coherence_th: float,
+                           merge_ang_th: float, merge_dist_th: float,
+                           iters: int):
+    """See :func:`gates_and_labels`: :func:`tile_gates`, then
+    :func:`propagate_labels_plain`."""
+    tile_ok, angle, cx, cy, dx, dy, cx_l, cy_l, l1 = tile_gates(
+        S, Sx, Sy, Sxx, Syy, Sxy, D2x, D2y, tile, min_support, elong_th,
+        perp_spread_th, coherence_th)
+    labels = propagate_labels_plain(tile_ok, angle, cx, cy, dx, dy,
+                                    merge_ang_th, merge_dist_th, iters)
+    return tile_ok, cx, cy, cx_l, cy_l, l1, labels
+
+
+def gates_and_labels(S, Sx, Sy, Sxx, Syy, Sxy, D2x, D2y, tile: int,
+                     min_support: float, elong_th: float,
+                     perp_spread_th: float, coherence_th: float,
+                     merge_ang_th: float, merge_dist_th: float, iters: int):
+    """The per-tile gates of the reweighted window moments
+    (:func:`tile_gates`) and the component labels over the gated tiles
+    (:func:`propagate_labels`). Returns (tile_ok bool, cx, cy, cx_l, cy_l,
+    l1, labels int32), each (N, Th, Tw). On CUDA tensors one
+    ``lines_label`` launch (at most :data:`LABEL_MAX_TILES` tiles an
+    image); the tiles' angle and direction stay inside it."""
+    if S.device.type == "cpu":
+        return gates_and_labels_plain(
+            S, Sx, Sy, Sxx, Syy, Sxy, D2x, D2y, tile, min_support, elong_th,
+            perp_spread_th, coherence_th, merge_ang_th, merge_dist_th, iters)
+    N, Th, Tw = S.shape
+    if Th * Tw > LABEL_MAX_TILES:
+        raise ValueError(f"gates_and_labels: {Th}x{Tw} tiles an image, the "
+                         f"kernel takes at most {LABEL_MAX_TILES}")
+    planes = [t.contiguous() for t in (S, Sx, Sy, Sxx, Syy, Sxy, D2x, D2y)]
+    for t in planes:
+        native.require(t, "gates_and_labels", torch.float32, (N, Th, Tw))
+    tile_ok = torch.empty((N, Th, Tw), dtype=torch.bool, device=S.device)
+    out = torch.empty((5, N, Th, Tw), dtype=torch.float32, device=S.device)
+    labels = torch.empty((N, Th, Tw), dtype=torch.int32, device=S.device)
+    # scratch: the gated-in tiles' angle, dx, dy; tile_ok as bits
+    scratch = torch.empty((N, 3, Th, Tw), dtype=torch.float32,
+                          device=S.device)
+    bits = torch.empty((N, (Th * Tw + 31) // 32), dtype=torch.int32,
+                       device=S.device)
+    native.launch("lines_label", *planes, tile_ok.view(torch.uint8),
+                  *out.unbind(0), labels, scratch, bits,
+                  _label_counts(S.device, N), N, Th, Tw, tile // 2,
+                  min_support * tile, elong_th, perp_spread_th,
+                  coherence_th, merge_ang_th, merge_dist_th, iters)
+    return (tile_ok, *out.unbind(0), labels)
 
 
 def tile_stage(img: torch.Tensor, tile: int = 16, grad_th: float = 0.02,
@@ -360,11 +424,10 @@ def tile_stage(img: torch.Tensor, tile: int = 16, grad_th: float = 0.02,
     u2x, u2y = D2x / d2n, D2y / d2n
     S, Sx, Sy, Sxx, Syy, Sxy, D2x, D2y = reweighted_moments(
         w, d2x, d2y, u2x, u2y, tile, stride)
-    tile_ok, angle, cx, cy, dx, dy, cx_l, cy_l, l1 = tile_gates(
+    tile_ok, cx, cy, cx_l, cy_l, l1, labels = gates_and_labels(
         S, Sx, Sy, Sxx, Syy, Sxy, D2x, D2y, tile, min_support, elong_th,
-        perp_spread_th, coherence_th)
-    labels = propagate_labels(tile_ok, angle, cx, cy, dx, dy, merge_ang_th,
-                              merge_dist_th, merge_iters)
+        perp_spread_th, coherence_th, merge_ang_th, merge_dist_th,
+        merge_iters)
     return TileStage(labels=labels, tile_ok=tile_ok, S=S, Sx=Sx, Sy=Sy,
                      Sxx=Sxx, Syy=Syy, Sxy=Sxy, cx=cx, cy=cy, cx_l=cx_l,
                      cy_l=cy_l, l1=l1)

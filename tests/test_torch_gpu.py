@@ -15,7 +15,8 @@ import torch
 from plslam_tpu_torch import native
 from plslam_tpu_torch.ops import fast, hamming, image, lbd, lines, orb
 from torch_line_cases import (G_H, G_MERGE_CASES, G_REFIT_CASES, G_W,
-                              kernel_g_merge_case, kernel_g_stage, line_field)
+                              kernel_g_merge_case, kernel_g_stage, line_field,
+                              stripe_field)
 
 pytestmark = pytest.mark.gpu
 
@@ -178,19 +179,44 @@ def test_sep_filter_pair_bit_equal_to_single_calls(cuda):
                                       bufs[1][:, 4:4 + H * W])
 
 
-def test_orb_bits_exact(cuda):
-    x = _imgs((2, 120, 200), seed=2)
-    flat = x.reshape(2, -1)
-    g = torch.Generator().manual_seed(0)
-    u = torch.randint(15, 185, (2, 300), generator=g)
-    v = torch.randint(15, 105, (2, 300), generator=g)
-    center = (v * 200 + u).to(torch.int32)
-    width = torch.full((2, 300), 200, dtype=torch.int32)
-    bins = torch.randint(0, 32, (2, 300), generator=g).to(torch.int32)
-    got = _launched("orb_describe", lambda: orb.pool_bits(
-        flat.to(cuda), center.to(cuda), width.to(cuda), bins.to(cuda)))
-    assert torch.equal(got.cpu(), orb.pool_bits_plain(flat, center, width,
-                                                      bins))
+def _orb_case(n_levels, seed=2, N=2, K=300):
+    """Pyramid levels of 120x200 images, moment maps with zeros and both
+    signs, and keypoints on and off the levels' edges, on half-integer
+    coordinates (round half to even) and with octaves outside the levels
+    (clamped)."""
+    levels = image.build_pyramid(_imgs((N, 120, 200), seed), n_levels, 1.2)
+    halves = [(lv.shape[1] // 2, lv.shape[2] // 2) for lv in levels]
+    rng = np.random.default_rng(seed)
+    n_half = sum(h * w for h, w in halves)
+    m = rng.normal(size=(2, N, n_half)).astype(np.float32)
+    m[:, :, ::7] = 0.0                        # atan2(0, 0) and +-0 moments
+    octv = rng.integers(-1, n_levels + 1, (N, K)).astype(np.int32)
+    wh = np.array([lv.shape[:0:-1] for lv in levels], np.float32)[
+        np.clip(octv, 0, n_levels - 1)]
+    uv = (rng.uniform(-0.1, 1.1, (N, K, 2)) * wh).astype(np.float32)
+    uv[:, ::5] = np.round(uv[:, ::5]) + 0.5   # ties at full res
+    uv[:, 1::5] = np.round(uv[:, 1::5])       # and, where odd, at half res
+    return (levels, torch.from_numpy(m[0]), torch.from_numpy(m[1]), halves,
+            torch.from_numpy(uv), torch.from_numpy(octv))
+
+
+@pytest.mark.parametrize("n_levels", [2, 4])
+def test_orb_bits_exact(cuda, n_levels):
+    """orient_and_describe, one launch, against its plain version on the
+    card: bits and theta bit-equal at the clamps, K not a multiple of a
+    warp's 32 keypoints or a CTA's 256."""
+    levels, m10, m01, halves, uv, octv = _orb_case(n_levels)
+    levels = [lv.to(cuda) for lv in levels]
+    m10, m01, uv, octv = (t.to(cuda) for t in (m10, m01, uv, octv))
+    bits, theta = _launched("orb_describe", lambda: orb.orient_and_describe(
+        levels, m10, m01, halves, uv, octv))
+    rbits, rtheta = orb.orient_and_describe_plain(levels, m10, m01, halves,
+                                                  uv, octv)
+    assert torch.equal(theta, rtheta)
+    assert torch.equal(bits, rbits)
+    assert bits.shape == (2, 300, 256) and bool((bits <= 1).all())
+    with pytest.raises(ValueError):               # no CUDA branch left
+        orb.pool_bits(levels[0].reshape(2, -1), octv, octv, octv)
 
 
 @pytest.mark.parametrize("mutual", [True, False])
@@ -251,24 +277,46 @@ def test_lines_sobel_and_moments(cuda):
         assert _rel_err(g.cpu(), r) <= 1e-5
 
 
-def _tile_inputs(x):
+def _tile_maps(x):
     w, d2x, d2y = lines.gradient_planes_plain(x, 0.02)
     D2x, D2y = lines.orientation_maps_plain(d2x, d2y, 16, 8)
     d2n = torch.sqrt(D2x * D2x + D2y * D2y) + 1e-9
-    m = lines.reweighted_moments_plain(w, d2x, d2y, D2x / d2n, D2y / d2n,
-                                       16, 8)
-    return lines.tile_gates(*m, 16, 1.0, 2.5, 2.2, 0.6)
+    return lines.reweighted_moments_plain(w, d2x, d2y, D2x / d2n, D2y / d2n,
+                                          16, 8)
 
 
-def test_lines_labels_exact(cuda):
-    tile_ok, angle, cx, cy, dx, dy = _tile_inputs(line_field(4))[:6]
-    args = (tile_ok, angle, cx, cy, dx, dy)
-    ref = lines.propagate_labels_plain(*args, 0.1, 2.0, 9)
-    got = _launched("lines_label", lambda: lines.propagate_labels(
-        *(t.to(cuda) for t in args), 0.1, 2.0, 9))
-    assert torch.equal(got.cpu(), ref)
-    assert int((ref == torch.arange(ref[0].numel()).reshape(ref.shape[1:])
-                ).sum()) > 10                       # real components
+@pytest.mark.parametrize("case", ["many_linked", "none", "line_field",
+                                  "chain"])
+def test_lines_labels_exact(cuda, case):
+    """gates_and_labels, one launch, against tile_gates +
+    propagate_labels_plain on the card, every output bit-equal: a stripe
+    field with more than 1,024 linked tiles an image (the list takes more
+    than one pass of the block), the line field with merge_dist_th 0 (no
+    tile linked), the line field, and the stripe field with 2 sweeps
+    (chains longer than 2^iters: the labels stop short)."""
+    x = stripe_field(0) if case in ("many_linked", "chain") else line_field(4)
+    maps = [m.to(cuda) for m in _tile_maps(x)]
+    dist_th = 0.0 if case == "none" else 2.0
+    iters = 2 if case == "chain" else 9
+    args = (*maps, 16, 1.0, 2.5, 2.2, 0.6, 0.1, dist_th, iters)
+    got = _launched("lines_label", lambda: lines.gates_and_labels(*args))
+    ref = lines.gates_and_labels_plain(*args)
+    for g, r in zip(got, ref):
+        assert g.dtype == r.dtype and torch.equal(g, r)
+    ok, lab = ref[0], ref[-1]
+    N, Th, Tw = lab.shape
+    own = lab == torch.arange(Th * Tw, device=cuda).reshape(Th, Tw)
+    linked = (ok & ~own).reshape(N, -1).sum(1)
+    assert int(ok.sum()) > 20
+    if case == "many_linked":
+        assert int(linked.min()) > 1024
+    elif case == "none":
+        assert bool(own[ok].all()) and int(linked.max()) == 0
+    else:
+        assert int(linked.min()) > 10                 # real components
+    with pytest.raises(ValueError):               # no CUDA branch left
+        lines.propagate_labels(*lines.tile_gates(*maps, 16, 1.0, 2.5, 2.2,
+                                                 0.6)[:6], 0.1, 2.0, 9)
 
 
 def test_lines_refit_and_merge(cuda):

@@ -32,8 +32,11 @@ from plslam_tpu.ops import image as jimage
 from plslam_tpu.ops import lines as jlines
 from plslam_tpu_torch.ops import image as timage
 from plslam_tpu_torch.ops import lines as tlines
+from plslam_tpu_torch.config import SlamConfig
+from plslam_tpu_torch.frontend.stereo_lines import detect_kwargs
 from torch_line_cases import (G_H, G_MERGE_CASES, G_REFIT_CASES, G_W,
-                              kernel_g_merge_case, kernel_g_stage)
+                              kernel_g_merge_case, kernel_g_stage, line_field,
+                              stripe_field)
 
 TILE = 16
 
@@ -91,14 +94,14 @@ def test_sobel_and_planes_match_reference(fields):
             atol=1e-6, rtol=0)
 
 
-def _ref_maps(f, u=None):
+def _ref_maps(f, u=None, grad_th=0.02):
     """The reference's reweighted window maps of one field, as its
     tile_stage forms them (:330-375); ``u`` replaces its unit
     orientation field."""
     H, W = f.shape
     gx, gy = jimage.sobel_gradients(jnp.asarray(f))
     mag = jnp.sqrt(gx * gx + gy * gy)
-    w = jnp.where(mag > 0.02, mag, 0.0)
+    w = jnp.where(mag > grad_th, mag, 0.0)
     ms = jnp.maximum(mag, 1e-9)
     d2x = jnp.where(w > 0, (gx * gx - gy * gy) / ms, 0.0)
     d2y = jnp.where(w > 0, 2.0 * gx * gy / ms, 0.0)
@@ -156,6 +159,153 @@ def test_gates_and_labels_exact_given_reference_maps(fields, ref_stages):
                                       2.0, 8)
         np.testing.assert_array_equal(lab[0].numpy(), ref.labels)
         assert int(np.asarray(ref.tile_ok).sum()) >= 10
+
+
+_GATE_KEYS = ("tile", "min_support", "elong_th", "perp_spread_th",
+              "coherence_th", "merge_ang_th", "merge_dist_th", "merge_iters")
+
+
+@pytest.mark.parametrize("scene,half,iters", [
+    ("lines", False, None), ("lines", True, None), ("stripes", False, None),
+    ("stripes", True, None), ("stripes", False, 2)])
+def test_gates_and_labels_plain_matches_reference(scene, half, iters):
+    """gates_and_labels' plain version (kernel F's function) on the
+    reference's own window maps against the reference's tile_stage, with
+    the detector's settings at full and half resolution: tile_ok and
+    labels identical, cx and l1 within 1e-5 of their largest magnitude.
+    The stripes are 32 rows apart, 16 at half resolution. The last case
+    runs 2 sweeps over chains of 49 tiles, longer than 2^2: its labels
+    stop short of the components, and still agree."""
+    img = (line_field(4, n=1) if scene == "lines"
+           else stripe_field(1, n=1, period=32))[0].numpy()
+    H, W = img.shape
+    kw = detect_kwargs(SlamConfig().lines, half, float(np.hypot(H, W)))
+    if half:
+        img = np.asarray(jimage.resize_bilinear(jnp.asarray(img),
+                                                (H // 2, W // 2)))
+    if iters is not None:
+        kw["merge_iters"] = iters
+    ref = jlines.tile_stage(jnp.asarray(img), grad_th=kw["grad_th"],
+                            **{k: kw[k] for k in _GATE_KEYS})
+    _, maps = _ref_maps(img, grad_th=kw["grad_th"])
+    tile_ok, cx, cy, cx_l, cy_l, l1, lab = tlines.gates_and_labels(
+        *(_t(m)[None] for m in maps), *(kw[k] for k in _GATE_KEYS))
+    np.testing.assert_array_equal(tile_ok[0].numpy(), ref.tile_ok)
+    np.testing.assert_array_equal(lab[0].numpy(), ref.labels)
+    assert _rel(cx[0].numpy(), np.asarray(ref.cx)) <= 1e-5
+    assert _rel(l1[0].numpy(), np.asarray(ref.l1)) <= 1e-5
+    n_ok = int(np.asarray(ref.tile_ok).sum())
+    n_roots = int((np.asarray(ref.labels) == np.arange(lab[0].numel())
+                   .reshape(lab.shape[1:]))[np.asarray(ref.tile_ok)].sum())
+    assert n_ok >= 10 and n_roots < n_ok             # real components
+    if iters is not None:                            # not converged
+        full = tlines.gates_and_labels(
+            *(_t(m)[None] for m in maps),
+            *(kw[k] for k in _GATE_KEYS[:-1]), 16)[-1]
+        assert not torch.equal(full, lab)
+
+
+def test_label_limit_matches_kernel():
+    """LABEL_MAX_TILES is what csrc/lines_label.cu's entry takes: its last
+    CTA's shared memory (four int16 planes, the compatibility bytes in
+    whole words, the tile_ok mask) fits the card's 232,448 bytes less the
+    entry's margin; and the labels fit an int16."""
+    import os
+    import re
+    src = open(os.path.join(os.path.dirname(tlines.__file__), os.pardir,
+                            "csrc", "lines_label.cu")).read()
+    per = eval(re.search(r"BYTES_PER_TILE = ([0-9 *+]+);", src).group(1))
+    cap = eval(re.search(r"smem > (232448 - [0-9]+)\)", src).group(1))
+    smem = lambda n: n * (per - 1) + (n + 3) // 4 * 4 + (n + 31) // 32 * 4
+    n = tlines.LABEL_MAX_TILES
+    assert smem(n) <= cap < smem(n + 1)
+    assert n + 7 <= 32767
+
+
+def _kernel_f_labels(tile_ok, angle, cx, cy, dx, dy, ang_th, dist_th, iters):
+    """What csrc/lines_label.cu's last CTA of an image does, in numpy:
+    over the gated-in tiles, the forward compatibility bits and each
+    link's reverse bit on the neighbour; the tiles without a link labelled
+    at once; the synchronous sweeps and hops over the linked tiles only,
+    stopped once an iteration changes no label."""
+    Th, Tw = tile_ok.shape
+    n = Th * Tw
+    ok = tile_ok.reshape(-1)
+    fl = [np.asarray(x, np.float32).reshape(-1)
+          for x in (angle, cx, cy, dx, dy)]
+    a, x, y, ux, uy = fl
+    comp = np.zeros(n, np.uint8)
+    for t in np.nonzero(ok)[0]:
+        i, j = divmod(t, Tw)
+        for d, (di, dj) in enumerate(tlines._NEIGH):
+            ni, nj = i + di, j + dj
+            if not (0 <= ni < Th and 0 <= nj < Tw) or not ok[ni * Tw + nj]:
+                continue
+            nt = ni * Tw + nj
+            dang = np.abs(a[t] - a[nt])
+            dang = min(dang, np.float32(np.pi) - dang)
+            off = np.abs(-uy[t] * (x[nt] - x[t]) + ux[t] * (y[nt] - y[t]))
+            if dang < np.float32(ang_th) and off < np.float32(dist_th):
+                comp[t] |= 1 << d
+                comp[nt] |= 1 << (4 + d)
+    lab = np.where(ok, np.arange(n), n + 7).astype(np.int64)
+    linked = np.nonzero(comp)[0]
+    A = lab.copy()
+    for _ in range(iters):
+        B = A.copy()
+        for t in linked:
+            for d, (di, dj) in enumerate(tlines._NEIGH):
+                off = di * Tw + dj
+                if comp[t] >> d & 1:
+                    B[t] = min(B[t], A[t + off])
+                if comp[t] >> (4 + d) & 1:
+                    B[t] = min(B[t], A[t - off])
+        hop = A.copy()
+        for t in linked:
+            hop[t] = min(B[t], B[B[t]])
+        if np.array_equal(hop, A):
+            break
+        A = hop
+    return A.reshape(Th, Tw), comp.reshape(Th, Tw)
+
+
+@pytest.mark.parametrize("field,iters", [("lines", 9), ("stripes", 9),
+                                         ("stripes", 2), ("noise", 9)])
+def test_unlinked_tiles_keep_first_label(field, iters):
+    """A tile with no compatible neighbour keeps its first label (its
+    index, or Th*Tw + 7 where gated out) through every sweep and hop of
+    the plain version; and the kernel's passes over the linked tiles alone
+    (a numpy emulation of csrc/lines_label.cu) give the plain version's
+    labels exactly, at any count of linked tiles."""
+    x = {"lines": lambda: line_field(4, n=2),
+         "stripes": lambda: stripe_field(0, n=2),
+         "noise": lambda: torch.from_numpy(np.random.default_rng(2).random(
+             (2, 160, 200)).astype(np.float32) * 0.06)}[field]()
+    w, d2x, d2y = tlines.gradient_planes(x, 0.02)
+    D2x, D2y = tlines.orientation_maps(d2x, d2y, TILE, 8)
+    d2n = tlines.sqrt_rn(D2x * D2x + D2y * D2y) + 1e-9
+    maps = tlines.reweighted_moments(w, d2x, d2y, D2x / d2n, D2y / d2n,
+                                     TILE, 8)
+    tile_ok, angle, cx, cy, dx, dy = tlines.tile_gates(
+        *maps, TILE, 1.0, 2.5, 2.2, 0.6)[:6]
+    lab = tlines.propagate_labels(tile_ok, angle, cx, cy, dx, dy, 0.1, 2.0,
+                                  iters)
+    N, Th, Tw = lab.shape
+    first = torch.where(tile_ok, torch.arange(Th * Tw, dtype=torch.int32
+                                              ).reshape(Th, Tw), Th * Tw + 7)
+    n_linked = 0
+    for b in range(N):
+        want, comp = _kernel_f_labels(
+            *(t[b].numpy() for t in (tile_ok, angle, cx, cy, dx, dy)),
+            0.1, 2.0, iters)
+        np.testing.assert_array_equal(lab[b].numpy(), want)
+        alone = torch.from_numpy(comp == 0)
+        assert torch.equal(lab[b][alone], first[b][alone])
+        n_linked += int((comp != 0).sum())
+    if field == "noise":
+        assert n_linked == 0
+    else:
+        assert n_linked > (1024 if field == "stripes" else 20)
 
 
 def test_refit_roots_matches_reference(fields, ref_stages):

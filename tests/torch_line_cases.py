@@ -24,6 +24,21 @@ def line_field(seed, n=3, H=160, W=200, n_lines=8):
     return torch.from_numpy(img)
 
 
+def stripe_field(seed, n=2, H=240, W=400, period=16, tilt=0.02):
+    """Noise plus bright full-width stripes, one every ``period`` rows,
+    slightly tilted: at 240x400 and tile 16 over 1,100 of the 1,421 tiles
+    of an image are gated in and linked, in chains 49 tiles long."""
+    rng = np.random.default_rng(seed)
+    img = rng.random((n, H, W)).astype(np.float32) * 0.06
+    xs = np.arange(W)
+    for k in range(n):
+        for y0 in np.arange(4, H - 4, period) + rng.uniform(0, 3):
+            ys = np.clip(np.round(y0 + tilt * (xs - W / 2)), 0,
+                         H - 1).astype(int)
+            img[k, ys, xs] = 1.5
+    return torch.from_numpy(img)
+
+
 G_REFIT_CASES = ("invalid_member", "no_root", "many_roots", "m40")
 G_MERGE_CASES = ("chain", "vertical")
 G_H, G_W = 160, 200
