@@ -89,9 +89,11 @@ compares their keyframe decisions (``bench_slam_scene``).
 ORB's moment pair, FAST score, resize, LBA terms, scale and cost, K13's
 GN phase and whole optimize_pose at 20 pairs, K2's NMS block max at
 level 0, kernel G (refit_roots and merge_segments at both detector
-scales), K14's kf_scan, K15's camera blocks, step and run_lba, K16's
-medoid rows, K17's descent and histogram and K18's PCG against those of
-another checkout at DIR (for example a ``git archive`` of the parent
+scales), K12's bits (from the half-res images, or a parent's Sobel launch
+and lbd_describe; and on given Sobel maps), K14's kf_scan, K15's
+landmark index, camera blocks, step and run_lba, K16's medoid rows, K17's
+descent and histogram and K18's PCG against those of another checkout at
+DIR (for example a ``git archive`` of the parent
 commit): outputs and device times (most also every device kernel's,
 torch's too, and the wrapper's), and the device kernels of one point
 front end (``against``).
@@ -924,8 +926,10 @@ def line_kernel_phase(images, cfg, record):
     detector_case(record, small, stereo_lines.detect_kwargs(l, True, diag),
                   "@half", 2)
 
-    # E launch 1 without the planes: LBD's half-res gradients, ~10 flops
-    # per pixel, 1 plane in, 2 out
+    # E launch 1 without the planes: the half-res gradients that LBD read
+    # before it formed them itself (no path caller since then; the
+    # gradient mode of H below reads them), ~10 flops per pixel, 1 plane
+    # in, 2 out
     gx, gy = image.sobel_gradients(small)
     ref = image.sobel_gradients_plain(small)
     sob = sobel_weights(small.device)
@@ -938,25 +942,54 @@ def line_kernel_phase(images, cfg, record):
                                   mode="replicate"), sob),
            entry="lines_sobel")
 
-    # H: LBD bits of the path's (fused) segments on the half-res
-    # gradients; 432 samples x ~45 flops, 36 band sums of 48, 256
-    # compares per segment
+    # H: LBD bits of the path's (fused) segments on the half-res image, one
+    # launch from the image (describe_lines_image): the image read once,
+    # the endpoints in and the bits out; ~170 flops a sample (its 2 x 2
+    # taps' Sobel from the 4 x 4 patch, bf16 rounding, bilinear weights,
+    # the rotation), 36 band sums of 48 (max and add), 256 compares a
+    # segment. Its plain version is the composition it replaced:
+    # sobel_gradients_plain, then describe_lines_plain.
     segs, _ = stereo_lines.detect_and_describe_lines(images, cfg)
     sp_h, ep_h = segs.sp * 0.5, segs.ep * 0.5
     bw = max(l.lbd_band_width // 2, 3)
-    largs = (gx, gy, sp_h, ep_h, l.lbd_bands, bw, l.lbd_samples,
-             l.lbd_band_samples)
-    got = lbd.describe_lines(*largs)
-    ref = lbd.describe_lines_plain(*largs)
+    lkw = (l.lbd_bands, bw, l.lbd_samples, l.lbd_band_samples)
+    got = lbd.describe_lines_image(small, sp_h, ep_h, *lkw)
+    ref = lbd.describe_lines_image_plain(small, sp_h, ep_h, *lkw)
     L = sp_h.shape[1]
     n_seg = N * L
     n_samp = l.lbd_samples * l.lbd_bands * l.lbd_band_samples
+    band_ops = 8 * n_samp     # 4 statistics a sample, max and add
     record("lbd_describe", "plslam_tpu_torch/csrc/lbd.cu",
            "plslam_tpu/ops/lbd.py:51", [got], [ref], 0.0,
-           lambda: lbd.describe_lines(*largs),
+           lambda: lbd.describe_lines_image(small, sp_h, ep_h, *lkw),
+           lambda: lbd.describe_lines_image_plain(small, sp_h, ep_h, *lkw),
+           nsm * 4 + n_seg * (16 + 256),
+           n_seg * (n_samp * 170 + band_ops + 256))
+    grid = launched_grid(lambda: lbd.describe_lines_image(small, sp_h, ep_h,
+                                                          *lkw), "lbd_kernel")
+    print(f"[lbd] describe_lines_image at {N} x {L} segments on "
+          f"{small.shape[1]}x{small.shape[2]}: launched with grid, block "
+          f"{grid if grid else 'not recorded by the profiler'} (a warp a "
+          f"segment, 4 a CTA)", flush=True)
+    check(grid is None or (list(grid[0]) == [-(-n_seg // 4), 1, 1]
+                           and list(grid[1]) == [128, 1, 1]),
+          f"lbd_describe: grid, block {grid}, expected {-(-n_seg // 4)} "
+          "CTAs of 128 threads")
+    # ... and its gradient mode (describe_lines, no path caller) on the
+    # Sobel maps above: both maps read, 8 taps a sample
+    largs = (gx, gy, sp_h, ep_h, *lkw)
+    record("lbd_describe@grad", "plslam_tpu_torch/csrc/lbd.cu",
+           "plslam_tpu/ops/lbd.py:51", [lbd.describe_lines(*largs)], [ref],
+           0.0, lambda: lbd.describe_lines(*largs),
            lambda: lbd.describe_lines_plain(*largs),
            2 * nsm * 4 + n_seg * (16 + 256),
-           n_seg * (n_samp * 45 + 4 * l.lbd_bands * 48 * 2 + 256))
+           n_seg * (n_samp * 90 + band_ops + 256), entry="lbd_describe")
+    rows = {r["name"]: r for r in record.rows}
+    pair = ("lines_sobel_grad@half", "lbd_describe@grad")
+    fused = rows["lbd_describe"]["device_ms"]
+    print(f"[lbd] from the image: one launch {fused:.4f} ms device; the "
+          f"Sobel launch and the gradient mode "
+          f"{sum(rows[k]['device_ms'] for k in pair):.4f} ms", flush=True)
     print(f"[lines] segments after the fusion of the two scales "
           f"{int(segs.valid.sum())} over {N} images", flush=True)
 
@@ -995,14 +1028,15 @@ def main_scene(lines: bool):
 # levels (both maps in one paired filter launch), FAST on 4 levels, one
 # stereo match each of points and lines; the line detector at 2 scales,
 # each 2 Sobel/moment launches, labels, refit and merge, the half-res
-# resize and LBD's gradients) and in one chunk's tracking (chunk_passes=2:
+# resize and LBD from the half-res image, its Sobel taps formed inside the
+# launch) and in one chunk's tracking (chunk_passes=2:
 # two f2f matches of points and, with lines, two of lines). The main
 # path's timed run, initialize + 2 chunks, is 3 extractions and 2
 # trackings.
 EXTRACT_POINTS = {"image_sep_filter": 8, "image_resize": 7, "fast_score": 4,
                   "fast_nms_block": 4, "orb_describe": 1, "hamming_scan": 1,
                   "hamming_finish": 1}
-EXTRACT_LINES = {"image_resize": 1, "lines_sobel": 3, "lines_moments": 4,
+EXTRACT_LINES = {"image_resize": 1, "lines_sobel": 2, "lines_moments": 4,
                  "lines_label": 2, "lines_refit": 2, "lines_merge": 2,
                  "lbd_describe": 1, "hamming_scan": 1, "hamming_finish": 1}
 TRACK = {"hamming_scan": 2, "hamming_finish": 2}
@@ -1901,14 +1935,32 @@ def lba_phase(dev, record, slam):
     check(n_wide > 32768 and torch.equal(sig_w, sig_wp)
           and abs(float(cost_w) - float(cost_wp)) <= 1e-5 * float(cost_wp),
           "lba_terms disagrees with its plain version at K = 4096")
-    del wide, tw
+    # the landmark index of that window (every point seen by every pose):
+    # exact
+    idx_w = lba.lba_index(wide)
+    check(all(torch.equal(x, y) for x, y in zip(
+        idx_w, lba.lba_index_plain(wide))),
+        "lba_index disagrees with its plain version at K = 4096")
+    print(f"[lba] lba_index at W={W} K=4096 L={L} ({n_wide} observations, "
+          f"layout {lba.index_layout(W, 4096, L, P, Q)}): off and lists "
+          f"equal to the plain version's, device_ms="
+          f"{device_ms(lambda: lba.lba_index(wide)):.4f}", flush=True)
+    del wide, tw, idx_w
     free = lba._free(prob)
     lam = torch.tensor(cfg.mapping.lambda_init, device=dev)
     sigma = sig_p
     # the landmark index: exact; bytes the id tables in, offsets and lists
-    # out; operations a count, a fill and a sort step per observation; the
+    # out; operations a count, a fill and a rank per observation; the
     # yardstick the stable sort of the slot keys (the lists alone)
     idx = lba.lba_index(prob)
+    C_i, S_i = lba.index_layout(W, K, L, P, Q)
+    grid = launched_grid(lambda: lba.lba_index(prob), "lba_index_kernel")
+    print(f"[lba] lba_index at W={W} K={K} L={L} P={P} Q={Q}: {C_i} CTAs of "
+          f"{S_i} slots; launched with grid, block "
+          f"{grid if grid else 'not recorded by the profiler'}", flush=True)
+    check(grid is None or (list(grid[0]) == [C_i, 1, 1]
+                           and list(grid[1]) == [1024, 1, 1]),
+          f"lba_index: grid, block {grid}, expected {C_i} CTAs of 1024")
     pt_ids, ln_ids = prob.obs_pt_id.reshape(-1).long(), torch.stack(
         [prob.obs_ln_sid, prob.obs_ln_eid], dim=1).reshape(-1).long()
     keys = torch.cat([torch.where(pt_ids >= 0, pt_ids, n_lm),
@@ -3314,15 +3366,20 @@ def against_side(root: str, out_path: str, desc_path: str) -> None:
     descriptors at ``desc_path`` (``loop_keyframe_descriptors``) and its
     histogram (``bow_hist``) of their plain leaves under their valid
     masks, K14's ``kf_scan`` on slam_kernel_phase's chunk of 20 frames
-    from the first carry, the grids the profiler saw of ``lba_camera``,
-    ``bow_descend``, ``bow_hist`` and ``kf_scan``, and the device kernels
+    from the first carry, K15's ``lba_index`` on ``lba_window_problem``,
+    K12 on the line scene's half-res images at 128 seeded segments an
+    image (``describe_lines_image``, or a parent's ``sobel_gradients`` and
+    ``describe_lines``; and ``describe_lines`` on the plain Sobel maps),
+    the grids the profiler saw of ``lba_camera``, ``bow_descend``,
+    ``bow_hist``, ``kf_scan``, ``lba_index`` and ``lbd_describe``, and the
+    device kernels
     (all of them, torch's too) of one point front end
     (``detect_and_describe``) under torch.profiler;
     saves the outputs and each call's device time (torch.profiler, the
     hand kernels; for K13, K2, K5, K9, G, K14, K16, K17 and K18 also every
-    device kernel's time and count, ``all_kernels``; for K5, K9, G, K14,
-    K15's camera blocks and step, K16, K17 and K18 the wrapper's time, CUDA
-    events) to ``out_path``."""
+    device kernel's time and count, ``all_kernels``; for K5, K9, G, K12,
+    K14, K15's index, camera blocks and step, K16, K17 and K18 the
+    wrapper's time, CUDA events) to ``out_path``."""
     sys.path.insert(0, root)
     import torch
     from torch.autograd import DeviceType
@@ -3381,6 +3438,11 @@ def against_side(root: str, out_path: str, desc_path: str) -> None:
     tp, sg, _ = lba.lba_terms_sigma_plain(prob, cam)
     bp = lba.lba_blocks_plain(tp, prob, sg, free, lam)
     idx = lba.lba_index(prob)
+    # K15's landmark index: offsets and lists
+    fn = lambda: list(lba.lba_index(prob))
+    res["lba_index"] = ([x.cpu() for x in fn()], device_ms(fn, iters=20),
+                        *all_kernels(fn, iters=20), cuda_ms(fn, 50))
+    grids["lba_index"] = launched_grid(fn, "lba_index_kernel")
     if hasattr(lba, "lba_solve"):
         fn = lambda: list(lba.lba_solve(bp, prob, free, lam, idx))
     else:
@@ -3520,6 +3582,33 @@ def against_side(root: str, out_path: str, desc_path: str) -> None:
                                        device_ms(fn, iters=20),
                                        *all_kernels(fn, iters=20),
                                        cuda_ms(fn, 50))
+    # K12 on the line scene's half-res images (the plain resize, the same
+    # on both trees) at 128 seeded segments an image: this tree's one
+    # launch from the image, or a parent's Sobel launch and lbd_describe
+    # on its gradients; and describe_lines on the plain Sobel maps
+    from plslam_tpu_torch.ops import lbd
+    small = image.resize_bilinear_plain(limgs.cpu(), (H // 2, W // 2))
+    gxy = [x.to(dev) for x in image.sobel_gradients_plain(small)]
+    small = small.to(dev)
+    g = np.random.default_rng(8)
+    sp = torch.from_numpy(g.uniform(0, [W // 2, H // 2], (N, 128, 2))
+                          .astype(np.float32)).to(dev)
+    ep = sp + torch.from_numpy(g.normal(0, 40, (N, 128, 2))
+                               .astype(np.float32)).to(dev)
+    l = cfg.lines
+    lkw = (l.lbd_bands, max(l.lbd_band_width // 2, 3), l.lbd_samples,
+           l.lbd_band_samples)
+    if hasattr(lbd, "describe_lines_image"):
+        fn = lambda: [lbd.describe_lines_image(small, sp, ep, *lkw)]
+    else:
+        fn = lambda: [lbd.describe_lines(*image.sobel_gradients(small), sp,
+                                         ep, *lkw)]
+    res["lbd@image"] = ([x.cpu() for x in fn()], device_ms(fn, iters=20),
+                        *all_kernels(fn, iters=20), cuda_ms(fn, 50))
+    grids["lbd"] = launched_grid(fn, "lbd_kernel")
+    fn = lambda: [lbd.describe_lines(*gxy, sp, ep, *lkw)]
+    res["lbd@grad"] = ([x.cpu() for x in fn()], device_ms(fn, iters=20),
+                       *all_kernels(fn, iters=20), cuda_ms(fn, 50))
     # K16 at the map's two shapes: this tree's one launch, or a parent's
     # packed medoid, unpack_bits and torch.where; K18's pg_pcg and the
     # whole PCG solve at the four slot buckets
@@ -3616,7 +3705,8 @@ def against(other: str) -> None:
     in a process of its own; prints each output's largest difference
     between the two trees (the scale's and the cost's as bits too), every
     device time and the point front end's device kernels; fails where K5's
-    bits or K9's tile_ok or labels differ between the trees."""
+    or K12's bits, K9's tile_ok or labels or K15's landmark index differ
+    between the trees."""
     import os
     import tempfile
     import torch
@@ -3662,17 +3752,23 @@ def against(other: str) -> None:
                   for who in ("other", "this")}
             print(f"[against] {key}: wrapper ms this {wr['this']}, other "
                   f"{wr['other']}", flush=True)
-    # K5's bits and K9's tile_ok and labels equal on both trees
+    # K5's and K12's bits, K9's tile_ok and labels and K15's landmark
+    # index equal on both trees
     for key, idx in (("describe_multilevel", (0,)),
                      ("orb_after_filters", (0,)),
                      ("tile_stage", (0, 1)), ("tile_stage@half", (0, 1)),
                      ("gates_and_labels", (0, 6)),
-                     ("gates_and_labels@half", (0, 6))):
+                     ("gates_and_labels@half", (0, 6)),
+                     ("lbd@image", (0,)), ("lbd@grad", (0,)),
+                     ("lba_index", (0, 1))):
         check(all(torch.equal(a[key][0][i], b[key][0][i]) for i in idx),
-              f"{key}: the two trees' bits, tile_ok or labels differ")
+              f"{key}: the two trees' bits, tile_ok, labels or lists differ")
         same = [torch.equal(x, y) for x, y in zip(a[key][0], b[key][0])]
-        print(f"[against] {key}: bits / tile_ok / labels equal on both "
-              f"trees; the same bits per output {same}", flush=True)
+        print(f"[against] {key}: bits / tile_ok / labels / lists equal on "
+              f"both trees; the same bits per output {same}", flush=True)
+    for key in ("lbd", "lba_index"):
+        print(f"[against] {key}: grid, block this {b['grids'].get(key)}, "
+              f"other {a['grids'].get(key)}", flush=True)
     # K15's camera blocks within K15's float64 rule on both trees; K17's
     # leaf ids equal on both trees; each launch's grid
     for who, r in runs[:2]:

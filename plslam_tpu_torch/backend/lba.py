@@ -373,19 +373,44 @@ def lba_index_plain(problem: LBAProblem) -> LBAIndex:
     return LBAIndex(off.to(torch.int32), obs.to(torch.int32))
 
 
+# lba_index's launch (csrc/lba.cu): CTAs of IDX_NT threads, each owning at
+# most IDX_SLOTS landmark slots (each CTA reads every id, so more CTAs
+# shorten only the work on the owned ones: 20 at the path's window were
+# the fastest of 1-20 on the H100); observation ids and slots held as
+# uint16; a CTA's dynamic shared memory, (S + 1) ints and 2 T uint16s,
+# within IDX_MAX_SMEM (the C IDX_NT, IDX_MAX_T, IDX_MAX_N, IDX_MAX_SMEM)
+IDX_NT, IDX_SLOTS, IDX_MAX_T, IDX_MAX_N = 1024, 256, 0xFFFF, 0xFFFF
+IDX_MAX_SMEM = 227 * 1024 - 1024
+
+
+def index_layout(W: int, K: int, L: int, P: int, Q: int) -> Tuple[int, int]:
+    """(C, S): ``lba_index``'s C CTAs of S landmark slots each (CTA c owns
+    slots [c S, (c + 1) S)). Raises for a shape the launch cannot take."""
+    T, N = W * K + 2 * W * L, P + Q
+    C = max(1, -(-N // IDX_SLOTS))
+    S = -(-N // C)
+    if (min(W, K, L, P, Q) < 0 or T > IDX_MAX_T or N > IDX_MAX_N
+            or 4 * (S + 1) + 4 * T > IDX_MAX_SMEM):
+        raise ValueError(f"lba_index: no launch for W={W}, K={K}, L={L}, "
+                         f"P={P}, Q={Q}")
+    return C, S
+
+
 def lba_index(problem: LBAProblem) -> LBAIndex:
-    """Each landmark's observations: one ``lba_index`` launch."""
+    """Each landmark's observations: one ``lba_index`` launch
+    (``index_layout``)."""
     if problem.obs_pt_id.device.type == "cpu":
         return lba_index_plain(problem)
     W, K = problem.obs_pt_id.shape
     L = problem.obs_ln_sid.shape[1]
     P, Q = problem.pt_pos.shape[0], problem.ep_pos.shape[0]
+    layout = index_layout(W, K, L, P, Q)
     dev = problem.obs_pt_id.device
     off = torch.empty((P + Q + 1,), dtype=torch.int32, device=dev)
     obs = torch.empty((W * K + 2 * W * L,), dtype=torch.int32, device=dev)
     native.launch("lba_index", _i32(problem.obs_pt_id),
                   _i32(problem.obs_ln_sid), _i32(problem.obs_ln_eid), off,
-                  obs, W, K, L, P, Q)
+                  obs, W, K, L, P, Q, *layout)
     return LBAIndex(off, obs)
 
 

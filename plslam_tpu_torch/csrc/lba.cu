@@ -29,12 +29,11 @@
 //   lba_camera  a thread-block cluster of up to 8 CTAs a pose: H_cc and
 //               g_c, fixed-order reductions (below, at camera_kernel).
 //   lba_index   once a window LBA (the observation ids do not
-//               change between LM steps): one block lists each landmark
-//               slot's observations in CSR form, points first, then the
-//               endpoints, each list in (pose, family, k) order. Integer
-//               shared-memory atomics count, one block scan gives the
-//               offsets, a fill, then an insertion sort of each short list
-//               by observation id: exact and deterministic.
+//               change between LM steps): lists each landmark slot's
+//               observations in CSR form, points first, then the
+//               endpoints, each list in (pose, family, k) order, built in
+//               shared memory with no sort (below, at lba_index_kernel):
+//               exact and deterministic.
 //   lba_bin     one warp per landmark slot walks its list: its
 //               lanes split the 12 + 18 entries an observation touches
 //               (H_ll, g_l; H_cl of the observation's pose, written out as
@@ -602,22 +601,59 @@ constexpr int BIN_NT = 256;
 
 // -- the landmark index and the binning that reads it ----------------------
 
+// lba_index: a stable counting sort of the T = W K + 2 W L observation ids
+// by landmark slot, over C CTAs that each own a range of S slots
+// (backend/lba.py::index_layout: 20 CTAs of 256 at the path's window).
+// Every CTA reads all T ids (each thread issuing its loads, 13 at the
+// path's window, before their first use), counts the observations of lower
+// slots (its base in the lists) and its own slots' with shared atomics,
+// and keeps each owned observation's slot in shared memory as a uint16
+// and its place among the thread's observations in a bit mask. A
+// two-level warp-shuffle scan turns the counts into each slot's end; the
+// fill then scatters each owned observation into its slot's range of a
+// shared array, in whatever order the atomics take (each slot's cursor
+// counting down to the slot's start). No sort follows: an observation's
+// place in its list is the number of the slot's members below its id, read
+// from that range (a list holds the landmark's observations: a few on the
+// path), so every list comes out in observation order, and each CTA writes
+// its offsets and lists once.
+// Bound: latency. The ids are 51 KB at the path's window and the lists as
+// much; the time is the ids' round trip and each CTA's pass over all T of
+// them, four block barriers and a few shared-memory operations an owned
+// observation; more CTAs shorten only the owned part.
 constexpr int IDX_NT = 1024;
+constexpr int IDX_UNROLL = 16;
+// observation ids and slots held as uint16; a thread's observations in a
+// 64-bit mask
+constexpr int IDX_MAX_T = 0xFFFF;
+constexpr int IDX_MAX_N = 0xFFFF;
+// dynamic shared memory a CTA: (S + 1) ints and 2 T uint16s; the 227 KB a
+// block may have less 1 KB for the static arrays
+constexpr int IDX_MAX_SMEM = 227 * 1024 - 1024;
 
-// landmark slot of observation g (points g < W K, w-major; then endpoints
-// in (w, family, k) order), or -1 where it is detached
-__device__ __forceinline__ int obs_slot(int g, const int* __restrict__ obs_id,
-                                        const int* __restrict__ sid,
-                                        const int* __restrict__ eid, int W,
-                                        int K, int L, int P, int Q) {
-  const int WK = W * K;
-  if (g < WK) {
-    const int id = obs_id[g];
-    return id >= 0 && id < P ? id : -1;
-  }
-  const int h = g - WK, w = h / (2 * L), r = h - w * 2 * L;
-  const int f = r >= L ? 1 : 0;
-  const int id = (f ? eid : sid)[w * L + r - f * L];
+// h / d for 0 <= h < 2^16 and d >= 1, from inv = 1 / d in f32, corrected
+// by one where the product rounds across a multiple
+__device__ __forceinline__ int div_small(int h, int d, float inv) {
+  int q = __float2int_rz((float)h * inv);
+  q -= q * d > h;
+  q += (q + 1) * d <= h;
+  return q;
+}
+
+// raw id of observation g (points g < W K, w-major; then endpoints in
+// (w, family, k) order); invL = 1 / L in f32
+__device__ __forceinline__ int obs_raw_id(int g, const int* __restrict__ obs_id,
+                                          const int* __restrict__ sid,
+                                          const int* __restrict__ eid, int WK,
+                                          int L, float invL) {
+  if (g < WK) return __ldg(obs_id + g);
+  const int h = g - WK, blk = div_small(h, L, invL);  // w 2 + family
+  return __ldg((blk & 1 ? eid : sid) + (blk >> 1) * L + h - blk * L);
+}
+
+// landmark slot of observation g with raw id `id`, or -1 where detached
+__device__ __forceinline__ int obs_slot(int g, int id, int WK, int P, int Q) {
+  if (g < WK) return id >= 0 && id < P ? id : -1;
   return id >= 0 && id < Q ? P + id : -1;
 }
 
@@ -625,58 +661,98 @@ __global__ void __launch_bounds__(IDX_NT)
     lba_index_kernel(const int* __restrict__ obs_id,
                      const int* __restrict__ sid, const int* __restrict__ eid,
                      int* __restrict__ off, int* __restrict__ list, int W,
-                     int K, int L, int P, int Q) {
-  extern __shared__ int cnt[];  // P + Q counters, then fill cursors
-  __shared__ int part[IDX_NT];
-  const int N = P + Q, T = W * K + 2 * W * L, tid = threadIdx.x;
-  for (int n = tid; n < N; n += IDX_NT) cnt[n] = 0;
+                     int K, int L, int P, int Q, int S) {
+  extern __shared__ int cur[];  // S + 1 counters, then the two uint16 arrays
+  __shared__ int wsum[32], wbelow[32];
+  const int N = P + Q, WK = W * K, T = WK + 2 * W * L;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int lo = blockIdx.x * S, ns = max(0, min(S, N - lo));
+  uint16_t* slot = reinterpret_cast<uint16_t*>(cur + S + 1);
+  uint16_t* mem = slot + T;
+  for (int j = tid; j <= ns; j += IDX_NT) cur[j] = 0;
   __syncthreads();
-  for (int g = tid; g < T; g += IDX_NT) {
-    const int s = obs_slot(g, obs_id, sid, eid, W, K, L, P, Q);
-    if (s >= 0) atomicAdd(&cnt[s], 1);
-  }
-  __syncthreads();
-  // exclusive scan: a run of slots a thread, then the runs' sums
-  const int per = (N + IDX_NT - 1) / IDX_NT;
-  const int lo = min(tid * per, N), hi = min(lo + per, N);
-  int sum = 0;
-  for (int n = lo; n < hi; ++n) sum += cnt[n];
-  part[tid] = sum;
-  __syncthreads();
-  for (int s = 1; s < IDX_NT; s <<= 1) {
-    const int v = tid >= s ? part[tid - s] : 0;
-    __syncthreads();
-    part[tid] += v;
-    __syncthreads();
-  }
-  int run = part[tid] - sum;
-  for (int n = lo; n < hi; ++n) {
-    const int c = cnt[n];
-    off[n] = run;
-    cnt[n] = run;
-    run += c;
-  }
-  const int total = part[IDX_NT - 1];
-  if (tid == 0) off[N] = total;
-  __syncthreads();
-  for (int g = tid; g < T; g += IDX_NT) {
-    const int s = obs_slot(g, obs_id, sid, eid, W, K, L, P, Q);
-    if (s >= 0) list[atomicAdd(&cnt[s], 1)] = g;
-  }
-  for (int g = total + tid; g < T; g += IDX_NT) list[g] = -1;
-  __syncthreads();
-  // each list in ascending observation id (a few entries: insertion sort)
-  for (int n = tid; n < N; n += IDX_NT) {
-    const int b = off[n], e = cnt[n];
-    for (int a = b + 1; a < e; ++a) {
-      const int v = list[a];
-      int c = a - 1;
-      while (c >= b && list[c] > v) {
-        list[c + 1] = list[c];
-        --c;
-      }
-      list[c + 1] = v;
+  // the slots: the ids of a batch loaded before their first use; the
+  // thread's observations g = tid + j IDX_NT, its owned ones the bits j of
+  // `own`
+  const float invL = L > 0 ? 1.f / (float)L : 0.f;
+  int below = 0;
+  unsigned long long own = 0ull;
+  for (int j0 = 0; j0 * IDX_NT < T; j0 += IDX_UNROLL) {
+    int id[IDX_UNROLL];
+#pragma unroll
+    for (int u = 0; u < IDX_UNROLL; ++u) {
+      const int g = tid + (j0 + u) * IDX_NT;
+      id[u] = g < T ? obs_raw_id(g, obs_id, sid, eid, WK, L, invL) : -1;
     }
+#pragma unroll
+    for (int u = 0; u < IDX_UNROLL; ++u) {
+      const int g = tid + (j0 + u) * IDX_NT;
+      const int s = g < T ? obs_slot(g, id[u], WK, P, Q) : -1;
+      if (s >= 0 && s < lo) ++below;
+      if (s >= lo && s < lo + ns) {
+        slot[g] = s - lo;
+        atomicAdd(&cur[s - lo], 1);
+        own |= 1ull << (j0 + u);
+      }
+    }
+  }
+  __syncthreads();
+  // each slot's end (inclusive scan): a run of slots a thread, the runs'
+  // sums scanned by warp shuffles, the warps' totals by warp 0
+  const int per = (ns + IDX_NT - 1) / IDX_NT;
+  const int r0 = min(tid * per, ns), r1 = min(r0 + per, ns);
+  int sum = 0;
+  for (int n = r0; n < r1; ++n) sum += cur[n];
+  int inc = sum;
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const int v = __shfl_up_sync(0xffffffffu, inc, d);
+    if (lane >= d) inc += v;
+  }
+  below = __reduce_add_sync(0xffffffffu, below);
+  if (lane == 31) wsum[warp] = inc;
+  if (lane == 0) wbelow[warp] = below;
+  __syncthreads();
+  if (warp == 0) {
+    const int t = wsum[lane];
+    int x = t;
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const int v = __shfl_up_sync(0xffffffffu, x, d);
+      if (lane >= d) x += v;
+    }
+    wsum[lane] = x - t;  // the warps before this one
+    wbelow[lane] = __reduce_add_sync(0xffffffffu, wbelow[lane]);
+  }
+  __syncthreads();
+  int end = wsum[warp] + inc - sum;
+  for (int n = r0; n < r1; ++n) {
+    end += cur[n];
+    cur[n] = end;
+  }
+  const int base = wbelow[0];
+  if (tid == IDX_NT - 1) cur[ns] = wsum[warp] + inc;  // the CTA's total
+  __syncthreads();
+  // the fill: each owned observation into its slot's range, the slot's
+  // cursor counting down from its end to its start
+  for (unsigned long long m = own; m; m &= m - 1) {
+    const int g = tid + (__ffsll((long long)m) - 1) * IDX_NT;
+    mem[atomicSub(&cur[slot[g]], 1) - 1] = g;
+  }
+  __syncthreads();
+  // each owned observation's place: the members of its slot below it
+  for (unsigned long long m = own; m; m &= m - 1) {
+    const int g = tid + (__ffsll((long long)m) - 1) * IDX_NT;
+    const int j = slot[g], b = cur[j], e = cur[j + 1];
+    int r = 0;
+    for (int i = b; i < e; ++i) r += mem[i] < g;
+    list[base + b + r] = g;
+  }
+  for (int j = tid; j < ns; j += IDX_NT) off[lo + j] = base + cur[j];
+  if (blockIdx.x == gridDim.x - 1) {
+    const int n_att = base + cur[ns];
+    if (tid == 0) off[N] = n_att;
+    for (int g = n_att + tid; g < T; g += IDX_NT) list[g] = -1;
   }
 }
 
@@ -1432,19 +1508,25 @@ int lba_camera(const float* Jc_pt, const float* r_pt, const float* rn,
 
 // obs_id (W, K), sid, eid (W, L) -> off (P + Q + 1) CSR offsets and list
 // (W K + 2 W L) observation ids slot by slot (points g = w K + k, then
-// endpoints W K + (w 2 + family) L + k), -1 after off[P + Q].
+// endpoints W K + (w 2 + family) L + k), -1 after off[P + Q]. C CTAs of S
+// slots each (backend/lba.py::index_layout, which mirrors these limits).
 int lba_index(const int* obs_id, const int* sid, const int* eid, int* off,
-              int* list, int W, int K, int L, int P, int Q,
+              int* list, int W, int K, int L, int P, int Q, int C, int S,
               cudaStream_t stream) {
-  const size_t smem = sizeof(int) * (size_t)(P + Q);
+  const long long T = (long long)W * K + 2LL * W * L, N = (long long)P + Q;
+  const size_t smem = sizeof(int) * ((size_t)S + 1) + 4 * (size_t)T;
+  if (W < 0 || K < 0 || L < 0 || P < 0 || Q < 0 || T > IDX_MAX_T ||
+      N > IDX_MAX_N || S < 0 || C < 1 || (long long)C * S < N ||
+      (N > 0 && (long long)(C - 1) * S >= N) || smem > IDX_MAX_SMEM)
+    return (int)cudaErrorInvalidValue;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         lba_index_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  lba_index_kernel<<<1, IDX_NT, smem, stream>>>(obs_id, sid, eid, off, list,
-                                                W, K, L, P, Q);
+  lba_index_kernel<<<C, IDX_NT, smem, stream>>>(obs_id, sid, eid, off, list,
+                                                W, K, L, P, Q, S);
   return (int)cudaGetLastError();
 }
 

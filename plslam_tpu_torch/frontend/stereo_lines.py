@@ -20,7 +20,7 @@ from plslam_tpu_torch.ops import hamming, lbd, lines
 from plslam_tpu_torch.ops.fast import top_k
 from plslam_tpu_torch.ops.gather import take
 from plslam_tpu_torch.ops.lines import sqrt_rn
-from plslam_tpu_torch.ops.image import resize_bilinear, sobel_gradients
+from plslam_tpu_torch.ops.image import resize_bilinear
 
 _PI = math.pi
 
@@ -72,20 +72,18 @@ def detect_and_describe_lines(imgs: torch.Tensor, cfg: SlamConfig,
         if l.scale_levels > 1:
             coarse = _doubled(_detect(small, l, True, diag))
             segs = fuse_levels(segs, coarse, l)
+    # the descriptor samples the image's Sobel maps, formed inside its one
+    # launch (no gradient maps are allocated)
     if l.lbd_half_res:
-        gx, gy = sobel_gradients(small)
-        desc = lbd.describe_lines(gx, gy, segs.sp * 0.5, segs.ep * 0.5,
-                                  n_bands=l.lbd_bands,
-                                  band_width=max(l.lbd_band_width // 2, 3),
-                                  n_samples=l.lbd_samples,
-                                  samples_per_band=l.lbd_band_samples)
+        desc = lbd.describe_lines_image(
+            small, segs.sp * 0.5, segs.ep * 0.5, n_bands=l.lbd_bands,
+            band_width=max(l.lbd_band_width // 2, 3),
+            n_samples=l.lbd_samples, samples_per_band=l.lbd_band_samples)
     else:
-        gx, gy = sobel_gradients(imgs, u8_wrap)
-        desc = lbd.describe_lines(gx, gy, segs.sp, segs.ep,
-                                  n_bands=l.lbd_bands,
-                                  band_width=l.lbd_band_width,
-                                  n_samples=l.lbd_samples,
-                                  samples_per_band=l.lbd_band_samples)
+        desc = lbd.describe_lines_image(
+            imgs, segs.sp, segs.ep, n_bands=l.lbd_bands,
+            band_width=l.lbd_band_width, n_samples=l.lbd_samples,
+            samples_per_band=l.lbd_band_samples, u8_wrap=u8_wrap)
     return segs, desc
 
 

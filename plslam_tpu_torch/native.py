@@ -54,13 +54,13 @@ _SIGNATURES: Dict[str, str] = {
     "lines_label": "p" * 18 + "iiii" + "ffffff" + "i",
     "lines_refit": "p" * 17 + "iii" + "fff",
     "lines_merge": "p" * 10 + "iii" + "fffi",
-    "lbd_describe": "ppppppppiiiiiiiff",
+    "lbd_describe": "p" * 9 + "iiiiiii" + "ffi",
     "pose_gn_optimize": "p" * 15 + "i" * 7 + "f" * 7,
     "kf_scan": "ppppp" + "iii" + "fff",
     "medoid": "pppppii",
     "lba_terms": "p" * 21 + "iiiii" + "fffff",
     "lba_camera": "p" * 11 + "iiiiii",
-    "lba_index": "p" * 5 + "iiiii",
+    "lba_index": "p" * 5 + "iiiii" + "ii",
     "lba_bin": "p" * 18 + "iiiii",
     "lba_solve": "p" * 13 + "iiiii" + "fi",
     "bow_descend": "pppiii",

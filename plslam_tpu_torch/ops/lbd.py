@@ -13,9 +13,12 @@ same way, so the bits agree with the reference's. Every sum runs in one
 fixed order (band sums over samples along, then across; the norm over the
 statistics in order), in the plain version and in the kernel alike.
 
-Batched: gradients (N, H, W), endpoints (N, L, 2) -> bits (N, L, 256).
-On CUDA tensors the hand-written kernel of ``csrc/lbd.cu`` runs; the plain
-version runs only for CPU tensors.
+Batched: images (N, H, W) and endpoints (N, L, 2) -> bits (N, L, 256)
+(``describe_lines_image``, the path's entry: the Sobel maps are formed
+inside the launch, as the reference's ``describe_lines`` forms them when
+it is given none), or the Sobel maps and endpoints (``describe_lines``).
+On CUDA tensors the hand-written kernel of ``csrc/lbd.cu`` runs, one
+launch either way; the plain versions run only for CPU tensors.
 """
 
 from __future__ import annotations
@@ -27,7 +30,7 @@ import numpy as np
 import torch
 
 from plslam_tpu_torch import native
-from plslam_tpu_torch.ops.image import _on
+from plslam_tpu_torch.ops.image import _on, sobel_gradients_plain
 from plslam_tpu_torch.ops.lines import sqrt_rn
 
 N_BITS = 256
@@ -163,28 +166,68 @@ def describe_lines_plain(gx, gy, sp, ep, n_bands: int, band_width: int,
     return (feats[..., pairs[:, 0]] < feats[..., pairs[:, 1]]).to(torch.uint8)
 
 
-def describe_lines(gx: torch.Tensor, gy: torch.Tensor, sp: torch.Tensor,
-                   ep: torch.Tensor, n_bands: int = 9, band_width: int = 7,
-                   n_samples: int = 24, samples_per_band: int = 2
-                   ) -> torch.Tensor:
-    """Sobel maps (N, H, W) and segment endpoints (N, L, 2) in the maps'
-    pixel coordinates -> (N, L, 256) uint8 descriptor bits."""
-    if gx.device.type == "cpu":
-        return describe_lines_plain(gx, gy, sp, ep, n_bands, band_width,
-                                    n_samples, samples_per_band)
-    N, H, W = gx.shape
+def describe_lines_image_plain(img, sp, ep, n_bands: int, band_width: int,
+                               n_samples: int, samples_per_band: int,
+                               u8_wrap: bool = False):
+    """``describe_lines_plain`` on the image's Sobel maps."""
+    gx, gy = sobel_gradients_plain(img, u8_wrap)
+    return describe_lines_plain(gx, gy, sp, ep, n_bands, band_width,
+                                n_samples, samples_per_band)
+
+
+def _launch(img, gx, gy, sp, ep, n_bands, band_width, n_samples,
+            samples_per_band, u8_wrap):
+    """One ``lbd_describe`` launch: from the image ``img``, or (img None)
+    from the Sobel maps ``gx``, ``gy``."""
+    ref = gx if img is None else img
+    N, H, W = ref.shape
     L = sp.shape[1]
-    native.require(gx, "describe_lines gx", torch.float32)
-    native.require(gy, "describe_lines gy", torch.float32, (N, H, W))
+    if 4 * n_bands > 64 or min(H, W) < 2:
+        raise ValueError(f"describe_lines: no launch for {n_bands} bands "
+                         f"on {H}x{W}")
     sp = sp.contiguous()
     ep = ep.contiguous()
     native.require(sp, "describe_lines sp", torch.float32, (N, L, 2))
     native.require(ep, "describe_lines ep", torch.float32, (N, L, 2))
     t, o = sample_grid(n_bands, band_width, n_samples, samples_per_band)
-    pairs = _make_pairs(4 * n_bands)
-    bits = torch.empty((N, L, N_BITS), dtype=torch.uint8, device=gx.device)
-    native.launch("lbd_describe", gx, gy, sp, ep, _on(t, gx.device),
-                  _on(o, gx.device), _on(pairs, gx.device), bits, N, L, H, W,
-                  n_samples, n_bands, samples_per_band,
-                  W - 1.001, H - 1.001)
+    pairs = _make_pairs(4 * n_bands).astype(np.uint8)
+    bits = torch.empty((N, L, N_BITS), dtype=torch.uint8, device=ref.device)
+    native.launch("lbd_describe", img, gx, gy, sp, ep, _on(t, ref.device),
+                  _on(o, ref.device), _on(pairs, ref.device), bits, N, L, H,
+                  W, n_samples, n_bands, samples_per_band, W - 1.001,
+                  H - 1.001, int(u8_wrap))
     return bits
+
+
+def describe_lines_image(img: torch.Tensor, sp: torch.Tensor,
+                         ep: torch.Tensor, n_bands: int = 9,
+                         band_width: int = 7, n_samples: int = 24,
+                         samples_per_band: int = 2, u8_wrap: bool = False
+                         ) -> torch.Tensor:
+    """Images (N, H, W) and segment endpoints (N, L, 2) in their pixel
+    coordinates -> (N, L, 256) uint8 descriptor bits, sampling the images'
+    Sobel maps (``u8_wrap`` as ``image.sobel_gradients``): one launch that
+    forms the maps' taps from the image itself."""
+    if img.device.type == "cpu":
+        return describe_lines_image_plain(img, sp, ep, n_bands, band_width,
+                                          n_samples, samples_per_band,
+                                          u8_wrap)
+    native.require(img, "describe_lines img", torch.float32)
+    return _launch(img, None, None, sp, ep, n_bands, band_width, n_samples,
+                   samples_per_band, u8_wrap)
+
+
+def describe_lines(gx: torch.Tensor, gy: torch.Tensor, sp: torch.Tensor,
+                   ep: torch.Tensor, n_bands: int = 9, band_width: int = 7,
+                   n_samples: int = 24, samples_per_band: int = 2
+                   ) -> torch.Tensor:
+    """Sobel maps (N, H, W) and segment endpoints (N, L, 2) in the maps'
+    pixel coordinates -> (N, L, 256) uint8 descriptor bits (the same
+    kernel, reading the maps' taps)."""
+    if gx.device.type == "cpu":
+        return describe_lines_plain(gx, gy, sp, ep, n_bands, band_width,
+                                    n_samples, samples_per_band)
+    native.require(gx, "describe_lines gx", torch.float32)
+    native.require(gy, "describe_lines gy", torch.float32, tuple(gx.shape))
+    return _launch(None, gx, gy, sp, ep, n_bands, band_width, n_samples,
+                   samples_per_band, False)

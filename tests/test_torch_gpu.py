@@ -438,6 +438,41 @@ def test_lbd_bits_exact(cuda):
     assert torch.equal(got.cpu(), ref)
 
 
+@pytest.mark.parametrize("case", ["path", "u8_wrap", "empty",
+                                  "zero_length", "border"])
+def test_lbd_image_exact(cuda, case):
+    """describe_lines_image, one launch from the image, bit-equal to its
+    plain composition (sobel_gradients_plain, then describe_lines_plain):
+    at the path's shape (40 half-res 188 x 620 images, 128 segments each,
+    band width 3), on full-res uint8 values with u8_wrap (band width 7),
+    with no segment, with zero-length segments and with segments on and
+    across the border."""
+    rng = np.random.default_rng(7)
+    N, H, W, L, bw, u8 = {"path": (40, 188, 620, 128, 3, False),
+                          "u8_wrap": (4, 376, 1241, 64, 7, True),
+                          "empty": (3, 50, 60, 0, 3, False),
+                          "zero_length": (2, 90, 150, 40, 3, False),
+                          "border": (2, 90, 150, 40, 3, False)}[case]
+    if u8:
+        img = rng.integers(0, 256, (N, H, W)).astype(np.float32)
+    else:
+        img = rng.random((N, H, W)).astype(np.float32)
+    sp = rng.uniform(0, [W, H], (N, L, 2))
+    ep = sp + rng.normal(0, 40, (N, L, 2))
+    if case == "zero_length":
+        ep[:, ::2] = sp[:, ::2]
+    if case == "border":
+        sp[:, :10, 0], ep[:, :10, 0] = 0.0, W - 1.0        # along the edges
+        sp[:, 10:20, 1], ep[:, 10:20, 1] = H - 1.0, H + 8.0
+        sp[:, 20:] = rng.uniform(-30, [W + 30, H + 30], (N, L - 20, 2))
+    img, sp, ep = (torch.from_numpy(x.astype(np.float32))
+                   for x in (img, sp, ep))
+    ref = lbd.describe_lines_image_plain(img, sp, ep, 9, bw, 24, 2, u8)
+    got = _launched("lbd_describe", lambda: lbd.describe_lines_image(
+        img.to(cuda), sp.to(cuda), ep.to(cuda), 9, bw, 24, 2, u8))
+    assert got.shape == (N, L, 256) and torch.equal(got.cpu(), ref)
+
+
 def test_hamming_kernels_at_line_shapes(cuda):
     """Kernel D at the line path's 128 x 128, with window and angle masks."""
     g = torch.Generator().manual_seed(3)
@@ -1133,6 +1168,48 @@ def test_lba_index_and_bin(cuda):
     ref = lba.lba_bin_plain(tp, prob, sigma, free, lam)
     for x, y, tol in zip(got, ref, (1e-5, 1e-3, 1e-5, 1e-5)):
         assert float((x - y).abs().max() / y.abs().max()) <= tol
+
+
+@pytest.mark.parametrize("case", ["window", "k4096", "detached",
+                                  "every_pose", "k1022"])
+def test_lba_index_exact(cuda, case):
+    """lba_index, one launch, exactly equal to its plain version: on
+    chip_smoke.py's window (W = 10, K = 1,024, L = 128, P = 4,096, Q =
+    1,024: 20 CTAs), its K = 4,096 window (every point seen by every pose),
+    with every observation detached, with one point and one line's
+    endpoints in all W poses (twice in one of them), and with K = 1,022
+    (the ids one at a time: K not a multiple of 4)."""
+    from chip_smoke import lba_window_problem
+    from plslam_tpu_torch.backend import lba
+    from plslam_tpu_torch.config import SlamConfig
+    from plslam_tpu_torch.core.camera import StereoCamera
+    cfg = SlamConfig()
+    cam = StereoCamera.from_config(cfg.camera)
+    prob = lba_window_problem(cuda, cfg, cam,
+                              K=4096 if case == "k4096" else None)
+    ids = dict(obs_pt_id=prob.obs_pt_id.clone(),
+               obs_ln_sid=prob.obs_ln_sid.clone(),
+               obs_ln_eid=prob.obs_ln_eid.clone())
+    if case == "detached":
+        for x in ids.values():
+            x.fill_(-1)
+    elif case == "every_pose":
+        ids["obs_pt_id"][:, 5] = 3
+        ids["obs_pt_id"][2, 700] = 3
+        ids["obs_ln_sid"][:, 9] = 40
+        ids["obs_ln_eid"][:, 9] = 41
+    if case == "k1022":
+        ids["obs_pt_id"] = ids["obs_pt_id"][:, :1022].contiguous()
+    prob = prob._replace(**ids)
+    idx = _launched("lba_index", lambda: lba.lba_index(prob))
+    want = lba.lba_index_plain(lba.LBAProblem(*(x.cpu() for x in prob)))
+    for x, y in zip(idx, want):
+        assert torch.equal(x.cpu(), y)
+    if case == "detached":
+        assert int(want.off[-1]) == 0
+    if case == "every_pose":
+        W = prob.obs_pt_id.shape[0]
+        assert int(want.off[4] - want.off[3]) >= W + 1
 
 
 @pytest.mark.parametrize("case", MEDIAN_CASES + ("mixed", "wide"))

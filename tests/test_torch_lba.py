@@ -331,6 +331,144 @@ def test_lba_index_plain_lists_each_observation_in_order(seed):
                         + ((eid >= 0) & (eid < Q)).sum())
 
 
+def _ids_problem(obs_id, sid, eid, P, Q):
+    """An LBAProblem of the id tables alone (lba_index reads nothing else)."""
+    (W, K), L = obs_id.shape, sid.shape[1]
+    return tlba.LBAProblem(
+        kf_pose=torch.zeros(W, 4, 4), kf_fixed=torch.zeros(W, dtype=bool),
+        kf_valid=torch.ones(W, dtype=bool), pt_pos=torch.zeros(P, 3),
+        ep_pos=torch.zeros(Q, 3), obs_pt_uv=torch.zeros(W, K, 2),
+        obs_pt_disp=torch.zeros(W, K), obs_pt_id=torch.from_numpy(obs_id),
+        obs_ln_le=torch.zeros(W, L, 3), obs_ln_sid=torch.from_numpy(sid),
+        obs_ln_eid=torch.from_numpy(eid))
+
+
+def _index_window(case, rng):
+    """Id tables of lba_index's cases: a window with detached observations,
+    out-of-range ids and empty slots; one where every landmark is seen by
+    every pose (chip_smoke.py's K = 4,096 window: P = K); every observation
+    detached; ids repeated within a pose; more slots than one CTA owns."""
+    W, K, L, P, Q = {"random": (6, 50, 12, 40, 16),
+                     "every_pose": (10, 64, 8, 64, 16),
+                     "detached": (4, 30, 5, 20, 10),
+                     "repeats": (5, 40, 6, 6, 3),
+                     "many_slots": (3, 900, 20, 2500, 300)}[case]
+    obs_id = rng.integers(-2, P + 2, (W, K))
+    sid = rng.integers(-1, Q + 1, (W, L))
+    eid = rng.integers(-1, Q + 1, (W, L))
+    if case == "every_pose":
+        obs_id = np.stack([(7 * w + np.arange(K)) % P for w in range(W)])
+        sid = np.stack([(3 * w + 2 * np.arange(L)) % Q for w in range(W)])
+        eid = sid + 1
+        obs_id[rng.random(obs_id.shape) < 0.1] = -1
+    elif case == "detached":
+        obs_id[:] = -1
+        sid[:] = Q
+        eid[:] = -3
+    elif case == "many_slots":
+        obs_id[:, ::7] = -1
+        obs_id[obs_id == 17] = 18          # an empty slot
+    return (obs_id.astype(np.int32), sid.astype(np.int32),
+            eid.astype(np.int32), P, Q)
+
+
+def _index_by_ctas(obs_id, sid, eid, P, Q, rng):
+    """lba_index_kernel's algorithm in numpy: C CTAs of S slots
+    (index_layout); each counts its slots and the observations of lower
+    slots (its base), turns the counts into each slot's end, scatters its
+    observations into their slots' ranges in an arbitrary order (a random
+    one here, as the shared atomics take it: each cursor counting down),
+    and places each observation at its slot's start plus the members of
+    the slot below it."""
+    (W, K), L = obs_id.shape, sid.shape[1]
+    T, N = W * K + 2 * W * L, P + Q
+    C, S = tlba.index_layout(W, K, L, P, Q)
+    ln = np.stack([sid, eid], axis=1).reshape(-1)            # (w, family, k)
+    slot = np.concatenate([np.where((obs_id.reshape(-1) >= 0)
+                                    & (obs_id.reshape(-1) < P),
+                                    obs_id.reshape(-1), -1),
+                           np.where((ln >= 0) & (ln < Q), ln + P, -1)])
+    off = np.full(N + 1, -7, np.int64)
+    lst = np.full(T, -7, np.int64)
+    for c in range(C):
+        lo = c * S
+        ns = max(0, min(S, N - lo))
+        base = int(((slot >= 0) & (slot < lo)).sum())
+        own = np.flatnonzero((slot >= lo) & (slot < lo + ns))
+        cur = np.cumsum(np.bincount(slot[own] - lo, minlength=ns))
+        cur = np.concatenate([cur, [cur[-1] if ns else 0]])
+        mem = np.full(T, -1, np.int64)
+        for g in rng.permutation(own):
+            cur[slot[g] - lo] -= 1
+            mem[cur[slot[g] - lo]] = g
+        for g in own:
+            b, e = cur[slot[g] - lo], cur[slot[g] - lo + 1]
+            lst[base + b + int((mem[b:e] < g).sum())] = g
+        off[lo:lo + ns] = base + cur[:ns]
+        if c == C - 1:
+            off[N] = base + cur[ns]
+            lst[base + cur[ns]:] = -1
+    return off, lst
+
+
+@pytest.mark.parametrize("case", ["random", "every_pose", "detached",
+                                  "repeats", "many_slots"])
+def test_lba_index_ranking_matches_plain(case):
+    """The kernel's stable ranking (``_index_by_ctas``, two scatter orders)
+    equals lba_index_plain: offsets and lists exactly, every entry written
+    once."""
+    rng = np.random.default_rng(["random", "every_pose", "detached",
+                                 "repeats", "many_slots"].index(case))
+    obs_id, sid, eid, P, Q = _index_window(case, rng)
+    want = tlba.lba_index_plain(_ids_problem(obs_id, sid, eid, P, Q))
+    for _ in range(2):
+        off, lst = _index_by_ctas(obs_id, sid, eid, P, Q, rng)
+        np.testing.assert_array_equal(off, want.off.numpy())
+        np.testing.assert_array_equal(lst, want.obs.numpy())
+    if case == "many_slots":
+        assert tlba.index_layout(*obs_id.shape, sid.shape[1], P, Q)[0] == 11
+
+
+@pytest.mark.parametrize("shape,layout", [
+    ((10, 1024, 128, 4096, 1024), (20, 256)),    # the path's window
+    ((10, 4096, 128, 4096, 1024), (20, 256)),    # chip_smoke.py's K = 4,096
+    ((5, 120, 12, 120, 40), (1, 160)),
+    ((1, 1, 0, 0, 0), (1, 0)),
+    ((10, 5000, 300, 100, 100), (1, 200)),       # 56,000 observations
+    ((1, 0, 0, 65535, 0), (256, 256))])
+def test_index_layout_takes_the_path_shapes(shape, layout):
+    C, S = tlba.index_layout(*shape)
+    assert (C, S) == layout
+    W, K, L, P, Q = shape
+    assert (C - 1) * S < max(P + Q, 1) and C * S >= P + Q
+    assert 4 * (S + 1) + 4 * (W * K + 2 * W * L) <= tlba.IDX_MAX_SMEM
+
+
+@pytest.mark.parametrize("shape", [
+    (10, 6000, 128, 4096, 1024),     # 62,560 observations: past the memory
+    (10, 6554, 0, 10, 10),           # 65,540 observations: past uint16
+    (1, 1, 1, 65535, 1),             # 65,536 slots
+    (-1, 10, 1, 5, 5), (2, 10, -1, 5, 5), (2, 10, 1, -5, 5)])
+def test_index_layout_refuses_what_the_launch_cannot_take(shape):
+    with pytest.raises(ValueError):
+        tlba.index_layout(*shape)
+
+
+def test_index_layout_matches_kernel():
+    """index_layout's limits are csrc/lba.cu's: the threads a CTA, the
+    uint16 limits and the shared memory."""
+    import os
+    import re
+    src = open(os.path.join(os.path.dirname(tlba.__file__), os.pardir,
+                            "csrc", "lba.cu")).read()
+    consts = {k: eval(v) for k, v in re.findall(
+        r"constexpr int (IDX_\w+) = ([^;]+);", src)}
+    assert consts["IDX_NT"] == tlba.IDX_NT
+    assert consts["IDX_MAX_T"] == tlba.IDX_MAX_T
+    assert consts["IDX_MAX_N"] == tlba.IDX_MAX_N
+    assert consts["IDX_MAX_SMEM"] == tlba.IDX_MAX_SMEM
+
+
 # -- one LM step after the blocks (lba_solve) ----------------------------------
 
 def _solve_case(case):
