@@ -63,7 +63,10 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
      its own CPU run); L (K17) on a keyframe of
      that run against the real vocabularies, D at the verification shapes,
      the covisibility gather (K7) and M (K18) launch by launch at Fb = 64
-     and 512, the whole dense and PCG solves against float64;
+     and 512 (the edge sweep, ``pg_edges`` in both modes and
+     ``pg_update``, and ``pg_pcg`` at all four slot buckets, with their
+     grids), what ``pg_update`` hands on against ``pg_edges``, a rejected
+     step, the whole dense and PCG solves against float64;
   6. the dataset paths, from files written to a temporary directory: the
      app (``apps/plstvo_dataset.py``) over bench.py's scene as a
      KITTI-layout directory of PNGs (every row filter) at 1241x376,
@@ -82,6 +85,8 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
 runs the paths' frames through the plain versions on the CPU: the
 calibration of the ATE, line-count, keyframe and loop bounds below (no
 part named: all; ``pcg``: the PCG loop run alone).
+``python3 chip_smoke.py --edge-grids`` prints the grids the profiler sees
+of K18's ``pg_edges`` and ``pg_update`` (the main run calls it).
 ``python3 chip_smoke.py --bench-slam [cuda] [cpu]`` runs bench_slam.py's
 own 201-frame scene through the loop path on each device named and
 compares their keyframe decisions (``bench_slam_scene``).
@@ -92,8 +97,9 @@ level 0, kernel G (refit_roots and merge_segments at both detector
 scales), K12's bits (from the half-res images, or a parent's Sobel launch
 and lbd_describe; and on given Sobel maps), K14's kf_scan, K15's
 landmark index, camera blocks, step and run_lba, K16's medoid rows, K17's
-descent and histogram and K18's PCG against those of another checkout at
-DIR (for example a ``git archive`` of the parent
+descent and histogram and K18's edge sweep, PCG and whole solves
+against those of another checkout at DIR (for example a ``git archive``
+of the parent
 commit): outputs and device times (most also every device kernel's,
 torch's too, and the wrapper's), and the device kernels of one point
 front end (``against``).
@@ -234,31 +240,33 @@ def all_kernels(fn, iters: int = 10):
     return _profile_device(fn, lambda k: True, iters)
 
 
-def launched_grid(fn, kernel: str):
+def launched_grid(fn, kernel: str, tries: int = 6):
     """(grid, block) of a device record of ``kernel`` in a torch.profiler
-    trace of three calls of ``fn``, or None where the trace holds no such
-    record or does not give them."""
+    trace of three calls of ``fn``, or None where no trace holds such a
+    record or gives them; up to ``tries`` traces, as the profiler may lose
+    a short kernel's records."""
     import os
     import tempfile
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(3):
-            fn()
-        torch.cuda.synchronize()
-    with tempfile.TemporaryDirectory() as tmp:
-        path = os.path.join(tmp, "trace.json")
-        prof.export_chrome_trace(path)
-        with open(path) as f:
-            trace = json.load(f)
-    for ev in trace.get("traceEvents", []):
-        args = ev.get("args") or {}
-        if ev.get("cat") == "kernel" and kernel in ev.get("name", "") \
-                and "grid" in args:
-            return args["grid"], args.get("block")
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):
+                fn()
+            torch.cuda.synchronize()
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "trace.json")
+            prof.export_chrome_trace(path)
+            with open(path) as f:
+                trace = json.load(f)
+        for ev in trace.get("traceEvents", []):
+            args = ev.get("args") or {}
+            if ev.get("cat") == "kernel" and kernel in ev.get("name", "") \
+                    and "grid" in args:
+                return args["grid"], args.get("block")
     return None
 
 
@@ -2347,10 +2355,10 @@ def expected_loop_launches(n_kfs, n_lba, p: LoopProbe, n_closed) -> dict:
     """The loop path's launches: the loops-off path's, plus per probe (every
     keyframe, the first included) the BoW descent and histogram of each
     family; per verification D twice (ORB, LBD) and one optimize_pose (K13);
-    per closure the landmark fusion (D twice); per dense solve one initial
-    pg_edges and 12 x (pg_edges, pg_assemble, pg_update); per PCG solve
-    one pg_edges and 12 x (pg_edges, pg_blocks, pg_pcg, pg_update); per
-    post-closure update one window LBA (K15)."""
+    per closure the landmark fusion (D twice); per dense solve one
+    pg_edges (r, Ji, the first cost) and 12 x (pg_assemble, pg_update);
+    per PCG solve one pg_edges and 12 x (pg_blocks, pg_pcg, pg_update);
+    per post-closure update one window LBA (K15)."""
     from collections import Counter
     n = Counter(expected_slam_launches(n_kfs, n_lba, LOOP_CHUNKS))
     g = lambda k: p.n.get(k, 0)
@@ -2359,9 +2367,9 @@ def expected_loop_launches(n_kfs, n_lba, p: LoopProbe, n_closed) -> dict:
             ({"hamming_scan": 2, "hamming_finish": 2, "pose_gn_optimize": 1},
              g("verify_loop_geometry")),
             ({"hamming_scan": 2, "hamming_finish": 2}, n_closed),
-            ({"pg_edges": 13, "pg_assemble": 12, "pg_update": 12},
+            ({"pg_edges": 1, "pg_assemble": 12, "pg_update": 12},
              g("optimize_pose_graph")),
-            ({"pg_edges": 13, "pg_blocks": 12, "pg_pcg": 12,
+            ({"pg_edges": 1, "pg_blocks": 12, "pg_pcg": 12,
               "pg_update": 12}, g("optimize_pose_graph_pcg")),
             (PER_LBA, g("_post_loop_update"))):
         for k, v in table.items():
@@ -2487,13 +2495,13 @@ def loop_kernel_phase(dev, record, slam):
     vocabularies, D at the verification and fusion shapes ((1, 1024, 1024)
     and (1, 128, 128) on packed words, mutual), the covisibility gather
     (K7), and M (K18) launch by launch at Fb = 64 (E = 256) and Fb = 512
-    (E = 2,048, a 400-KF loop graph; pg_edges and pg_pcg at every bucket of
-    PG_BUCKETS), each against its plain version on the card, pg_edges and
-    the whole solves also against the plain version in float64."""
+    (E = 2,048, a 400-KF loop graph; pg_edges in both modes, pg_pcg and
+    pg_update at every bucket of PG_BUCKETS, with the grids the profiler
+    saw), each against its plain version on the card, pg_edges and the
+    whole solves also against the plain version in float64; what
+    pg_update hands on against pg_edges, and a rejected step."""
     import torch
-    from plslam_tpu_torch import convert
-    from plslam_tpu_torch.io import synthetic
-    from plslam_tpu_torch.loop import pose_graph as pg, vocabulary as voc
+    from plslam_tpu_torch.loop import vocabulary as voc
     from plslam_tpu_torch.loop.loop_closer import covisibility_counts
     from plslam_tpu_torch.ops.gather import take
 
@@ -2586,18 +2594,44 @@ def loop_kernel_phase(dev, record, slam):
           f"{b_ms:.4f} ({b_by}) library_ms (the gather alone)={lib:.4f}",
           flush=True)
 
-    # M, launch by launch, then the whole solves against float64
+    pose_graph_phase(dev, record)
+
+
+def pose_graph_phase(dev, record):
+    """M (K18) launch by launch at the four slot buckets of PG_BUCKETS (the
+    dense system's and PCG's blocks at Fb 64 and 512; the edge sweep's
+    grids from ``--edge-grids`` in a process of its own), then the whole
+    solves against float64 (dense up to Fb 128)."""
+    import os
+    from collections import Counter
+    import torch
+    from plslam_tpu_torch import convert, native
+    from plslam_tpu_torch.io import synthetic
+    from plslam_tpu_torch.loop import pose_graph as pg
+
     src_m, rep_m = ("plslam_tpu_torch/csrc/pose_graph.cu",
                     "plslam_tpu/loop/pose_graph.py:")
     rel = "relative to each output's largest magnitude"
+    here = os.path.dirname(os.path.abspath(__file__))
+    grids = json.loads(subprocess.run(
+        [sys.executable, os.path.join(here, "chip_smoke.py"), "--edge-grids"],
+        cwd=here, capture_output=True, text=True, check=True,
+        timeout=600).stdout.strip().splitlines()[-1])
     for F, n, extra in PG_BUCKETS:
         d, n_edges = synthetic.drift_circle_graph(F, n, extra, seed=F)
         gd = convert.pose_graph_from_numpy(d, dev)
         E = 4 * F
         C, threads, smem = pg.pcg_layout(F, E)
+        ctas, nt = pg.edge_layout(E)
+        used = gd.edge_w > 0
+        # the poses an edge sweep must read: the used edges' end nodes
+        n_nodes = int(torch.unique(torch.cat([gd.edge_i[used],
+                                              gd.edge_j[used]])).numel())
         print(f"[pose_graph] Fb={F}: {n} KFs, {n_edges} of {E} edge slots "
-              f"used; pg_pcg cluster {C} CTA(s) of {threads} threads, "
-              f"{smem} bytes of shared memory each", flush=True)
+              f"used ({n_nodes} end nodes); pg_pcg cluster {C} CTA(s) of "
+              f"{threads} threads, {smem} bytes of shared memory each; "
+              f"pg_edges and pg_update {ctas} CTAs of {nt} threads",
+              flush=True)
         every = F in (64, 512)      # the other M kernels: at 64 and 512
         sc = lambda xs: [x / x.abs().max().clamp(min=1e-30) for x in xs]
         rp, Jp, cp = pg.edges_plain(gd)
@@ -2607,12 +2641,15 @@ def loop_kernel_phase(dev, record, slam):
         gbp, Hdp = pg.blocks_plain(gd, rp, Jp, diag)
         g64 = gd._replace(poses=gd.poses.double(), edge_T=gd.edge_T.double(),
                           edge_w=gd.edge_w.double())
-        # pg_edges at every bucket: the kernel and the plain version against
-        # the plain version in float64, the kernel held to K18's rule (3x
-        # the plain one's distance + 1e-5); the row holds it within 1e-5
-        # (Ji 1e-6) of the plain version, except at Fb 128, where the two
-        # differ by more than 1e-5 in r while equally far from float64
-        # (PERF.md): there the row holds the kernel's distance from float64
+        # pg_edges at every bucket, both modes: the kernel and the plain
+        # version against the plain version in float64, the kernel held to
+        # K18's rule (3x the plain one's distance + 1e-5); the rows hold it
+        # within 1e-5 (Ji 1e-6) of the plain version, except at Fb 128,
+        # where the two differ by more than 1e-5 in r while equally far
+        # from float64 (PERF.md): there the rows hold the kernel's distance
+        # from float64. Bytes: Tm and w of every slot, the used edges' ends
+        # and their poses, r (and Ji) of every slot; operations ~700 an
+        # used edge's residual, ~50 a slot's Ji
         r, J, c = pg.edges(gd)
         truth = pg.edges_plain(g64)
         dist = lambda xs, ys: [_rel_d(x, y) for x, y in zip(xs, ys)]
@@ -2627,15 +2664,28 @@ def loop_kernel_phase(dev, record, slam):
         check(all(x <= t for x, t in zip(d_k, f64_tols)),
               f"pg_edges at Fb={F}: {d_k} from float64, bound {f64_tols}")
         near = F != 128
+        f64_kind = ("" if near else ": the kernel from float64, tolerance "
+                    f"{F64_FACTOR:g}x the plain one's distance + "
+                    f"{F64_FLOOR:g}")
         record(f"pg_edges@{F}", src_m, rep_m + "89", sc([r, J, c]),
                sc([rp, Jp, cp]), [1e-5, 1e-6, 1e-5] if near else f64_tols,
                lambda: pg.edges(gd), lambda: pg.edges_plain(gd),
-               F * 64 + E * 76 + E * 168 + 4, n_edges * 700,
+               n_nodes * 64 + E * (64 + 4) + n_edges * 8 + E * (24 + 144)
+               + 4, n_edges * 700 + E * 50,
                errs=None if near else d_k, entry="pg_edges",
-               err_kind="r, Ji, cost " + rel + (
-                   "" if near else ": the kernel from float64, tolerance "
-                   f"{F64_FACTOR:g}x the plain one's distance + "
-                   f"{F64_FLOOR:g}"))
+               err_kind="r, Ji, cost " + rel + f64_kind)
+        r2, J2, c2 = pg.edges(gd, jac=False)
+        check(J2 is None and torch.equal(r2, r) and torch.equal(c2, c),
+              f"pg_edges at Fb={F}: the mode without Ji gives other r or "
+              "cost bits")
+        record(f"pg_edges_r@{F}", src_m, rep_m + "89", sc([r2, c2]),
+               sc([rp, cp]), [1e-5, 1e-5] if near
+               else [f64_tols[0], f64_tols[2]],
+               lambda: pg.edges(gd, jac=False),
+               lambda: pg.edges_plain(gd, jac=False),
+               n_nodes * 64 + E * 4 + n_edges * (64 + 8) + E * 24 + 4,
+               n_edges * 700, errs=None if near else [d_k[0], d_k[2]],
+               entry="pg_edges", err_kind="r, cost " + rel + f64_kind)
         if every:
             H, gv = pg.assemble(gd, rp, Jp, diag, inc)
             Hp, gvp = pg.assemble_plain(gd, rp, Jp, diag)
@@ -2684,40 +2734,123 @@ def loop_kernel_phase(dev, record, slam):
                96 * (n_edges * 160 + 6 * F * 20), iters=5,
                entry="pg_pcg", err_kind="dx " + rel + " (96 CG steps)",
                cluster=C)
-        if every:
-            Pn, c1 = pg.update(gd, cp, dx, 1.0)
-            Pp, c1p = pg.update_plain(gd, cp, dx, 1.0)
-            record(f"pg_update@{F}", src_m, rep_m + "155", sc([Pn, c1]),
-                   sc([Pp, c1p]), [1e-5, 1e-5],
-                   lambda: pg.update(gd, cp, dx, 1.0),
-                   lambda: pg.update_plain(gd, cp, dx, 1.0),
-                   F * (64 * 2 + 24 + 1) + E * 84 + 8,
-                   F * 300 + n_edges * 700,
-                   entry="pg_update", err_kind="poses, cost " + rel)
-        # whole solves: the kernels, the plain version, float64
+        # pg_update at every bucket: the step, the residuals there, the
+        # cost and the accept. Bytes: poses, step and valid in, the used
+        # edges' Tm and ends, w of every slot, poses and r of every slot
+        # out, r_in where the step is rejected; operations ~300 a pose's
+        # trial, ~700 an used edge's residual
+        P1, c1, r1 = pg.update(gd, cp, dx, 1.0, r)
+        Pp, c1p, _ = pg.update_plain(gd, cp, dx, 1.0)
+        rej = torch.equal(P1, gd.poses)
+        record(f"pg_update@{F}", src_m, rep_m + "155", sc([P1, c1]),
+               sc([Pp, c1p]), [1e-5, 1e-5],
+               lambda: pg.update(gd, cp, dx, 1.0, r),
+               lambda: pg.update_plain(gd, cp, dx, 1.0),
+               F * (64 * 2 + 24 + 1) + n_edges * (64 + 8) + E * (4 + 24)
+               + 8 + (E * 24 if rej else 0), F * 300 + n_edges * 700,
+               entry="pg_update", err_kind="poses, cost " + rel)
+        # what pg_update hands on: the bits of pg_edges at the poses it
+        # returns; the reversed step raises the cost and is rejected, and
+        # the launch hands back the poses, the residuals and the cost
+        re_, _, ce = pg.edges(gd._replace(poses=P1), jac=False)
+        check(torch.equal(r1, re_) and torch.equal(c1, ce),
+              f"pg_update at Fb={F}: the residuals or the cost it hands on "
+              "differ from pg_edges' at its poses")
+        Pb, cb, rb = pg.update(gd, cp, dx, -1.0, r)
+        check(torch.equal(Pb, gd.poses) and torch.equal(cb, cp)
+              and torch.equal(rb, r), f"pg_update at Fb={F}: a rejected "
+              "step did not hand back the poses, residuals and cost")
+        print(f"[pose_graph] pg_update Fb={F}: the step "
+              f"{'rejected' if rej else 'accepted'}, its residuals and cost "
+              "the bits of pg_edges at its poses; the reversed step "
+              "rejected, poses, residuals and cost handed back exactly",
+              flush=True)
+        for kern in ("pg_edges_kernel", "pg_update_kernel"):
+            grid = grids[f"{kern}@{F}"]
+            print(f"[pose_graph] {kern} at Fb={F} launched with grid, block "
+                  f"{grid} (--edge-grids); edge_layout {ctas} CTAs of {nt} "
+                  "threads", flush=True)
+            check(grid is not None and list(grid[0]) == [ctas, 1, 1]
+                  and list(grid[1]) == [nt, 1, 1],
+                  f"{kern} at Fb={F}: grid, block {grid}, expected {ctas} "
+                  f"CTAs of {nt} threads")
+        check(F != 64 or ctas > 1, "the edge sweep at Fb 64 runs on one CTA")
+        # whole solves: the kernels, the plain version, float64; the edge
+        # sweep's device time in a solve (pg_edges once, pg_update a step).
+        # The float64 rule's bound comes from the plain version on the CPU:
+        # on the card its dense assembly (index_put_ with accumulate) sums
+        # with atomics, and its distance from float64 moves between runs
+        # (dense Fb 128 on an H100: 3.1e-7 to 2.0e-5 of the largest entry,
+        # the kernel's 1.99e-5 each time); the card's is printed beside it
         solvers = [("pcg", lambda g, plain: pg._optimize_pcg(g, freeze, 12,
                                                              96))]
         if F <= 128:
             solvers.append(("dense", lambda g, plain: pg._optimize_dense(
                 g, freeze, 12)))
+        g_cpu = gd._replace(**{f: getattr(gd, f).cpu()
+                               for f in pg.PoseGraph._fields})
         for name, solve in solvers:
             got = solve(gd, False)
             torch.cuda.synchronize()
-            plain = _plain_solve(pg, name, gd, freeze)
+            plain = _plain_solve(pg, name, g_cpu, freeze.cpu())
+            plain_card = _plain_solve(pg, name, gd, freeze)
             truth = _plain_solve(pg, name, g64, freeze)
             ms = cuda_ms(lambda: solve(gd, False), 3)
+            # the sweep's device time: each kernel's mean record (the
+            # profiler may lose records) times its launches in a solve
+            before = Counter(native.LAUNCHES)
+            solve(gd, False)
+            sweeps = Counter(native.LAUNCHES) - before
+            sweep_ms = 0.0
+            for kern, entry in (("pg_edges_kernel", "pg_edges"),
+                                ("pg_update_kernel", "pg_update")):
+                k_ms, per = _profile_device(lambda: solve(gd, False),
+                                            lambda k: kern in k, 3)
+                sweep_ms += k_ms / per * sweeps[entry]
             d_k = _rel_d(got[0], truth[0])
-            d_p = _rel_d(plain[0], truth[0])
+            d_p = _rel_d(plain[0], truth[0].cpu())
+            d_pc = _rel_d(plain_card[0], truth[0])
             tol = F64_FACTOR * d_p + F64_FLOOR
-            print(f"[pose_graph] {name} solve Fb={F}: {ms:.3f} ms; cost "
-                  f"{float(got[1]):.6g} -> {float(got[2]):.6g} (plain "
+            print(f"[pose_graph] {name} solve Fb={F}: {ms:.3f} ms; the edge "
+                  f"sweep {sweep_ms:.4f} ms device in {sweeps['pg_edges']} "
+                  f"pg_edges + {sweeps['pg_update']} pg_update launches; "
+                  f"cost {float(got[1]):.6g} -> {float(got[2]):.6g} (plain "
                   f"{float(plain[2]):.6g}, float64 {float(truth[2]):.6g}); "
                   f"poses from float64 ({rel}): kernel {d_k:.3g}, plain "
-                  f"{d_p:.3g}, bound {tol:.3g}", flush=True)
+                  f"{d_p:.3g} (on the card {d_pc:.3g}), bound {tol:.3g}",
+                  flush=True)
+            check(sweeps["pg_edges"] == 1 and sweeps["pg_update"] == 12,
+                  f"{name} solve at Fb={F}: edge sweep launches {sweeps}, "
+                  "expected 1 pg_edges + 12 pg_update")
             check(float(got[2]) < 0.5 * float(got[1]),
                   f"{name} solve at Fb={F} did not lower the cost")
             check(d_k <= tol, f"{name} solve at Fb={F}: {d_k} from float64, "
                   f"bound {tol}")
+
+
+def edge_sweep_grids() -> None:
+    """``python3 chip_smoke.py --edge-grids``: one JSON line of the grid
+    and block that torch.profiler saw of ``pg_edges`` and ``pg_update`` at
+    every bucket of PG_BUCKETS (``launched_grid``). ``pose_graph_phase``
+    runs it in a process of its own: late in a chip_smoke.py run the
+    profiler keeps no record of these short kernels in most traces, in a
+    new process it keeps one in each."""
+    import torch
+    from plslam_tpu_torch import convert
+    from plslam_tpu_torch.io import synthetic
+    from plslam_tpu_torch.loop import pose_graph as pg
+    dev = torch.device("cuda", 0)
+    out = {}
+    for F, n, extra in PG_BUCKETS:
+        gd = convert.pose_graph_from_numpy(
+            synthetic.drift_circle_graph(F, n, extra, seed=F)[0], dev)
+        r, _, c = pg.edges(gd)
+        dx = torch.zeros((F, 6), device=dev)
+        for kern, fn in (("pg_edges_kernel", lambda: pg.edges(gd)),
+                         ("pg_update_kernel",
+                          lambda: pg.update(gd, c, dx, 1.0, r))):
+            out[f"{kern}@{F}"] = launched_grid(fn, kern)
+    print(json.dumps(out))
 
 
 def _plain_solve(pg, name, g, freeze):
@@ -2730,7 +2863,8 @@ def _plain_solve(pg, name, g, freeze):
                              pg.blocks_plain(g, r, J, d),
                              pcg=lambda g, J, M, d, gv, it, inc=None:
                              pg.pcg_plain(g, J, M, d, gv, it),
-                             update=pg.update_plain,
+                             update=lambda g, c, s, scale, r=None,
+                             r_out=None: pg.update_plain(g, c, s, scale, r),
                              _incidence=lambda g: None):
         if name == "pcg":
             return pg._optimize_pcg(g, freeze.to(g.poses.device), 12, 96)
@@ -3361,8 +3495,11 @@ def against_side(root: str, out_path: str, desc_path: str) -> None:
     ``merge_segments`` on candidates of the plain refit on the CPU, at full
     and half resolution), K16's medoid rows at 8192 and 1024 landmarks
     (``medoid_inputs``; a parent's medoid, ``unpack_bits`` and
-    ``torch.where``), ``pg_pcg`` and the whole PCG solve at
-    ``PG_BUCKETS``, K17's descent (``bow_descend``) of the ORB and LBD
+    ``torch.where``), K18's ``pg_edges`` (with Ji, and its mode without:
+    a tree with one mode runs it), ``pg_update`` on the plain PCG step,
+    ``pg_pcg`` and the whole PCG solve at ``PG_BUCKETS`` and the dense
+    solve up to Fb 128 (with each GN step's accept decision and its
+    margin, ``_gn_decisions``), K17's descent (``bow_descend``) of the ORB and LBD
     descriptors at ``desc_path`` (``loop_keyframe_descriptors``) and its
     histogram (``bow_hist``) of their plain leaves under their valid
     masks, K14's ``kf_scan`` on slam_kernel_phase's chunk of 20 frames
@@ -3610,8 +3747,8 @@ def against_side(root: str, out_path: str, desc_path: str) -> None:
     res["lbd@grad"] = ([x.cpu() for x in fn()], device_ms(fn, iters=20),
                        *all_kernels(fn, iters=20), cuda_ms(fn, 50))
     # K16 at the map's two shapes: this tree's one launch, or a parent's
-    # packed medoid, unpack_bits and torch.where; K18's pg_pcg and the
-    # whole PCG solve at the four slot buckets
+    # packed medoid, unpack_bits and torch.where; K18's edge sweep, pg_pcg
+    # and the whole solves at the four slot buckets
     from plslam_tpu_torch import convert
     from plslam_tpu_torch.backend import map as tmap
     from plslam_tpu_torch.loop import pose_graph as pg
@@ -3629,24 +3766,56 @@ def against_side(root: str, out_path: str, desc_path: str) -> None:
         res["medoid" + tag] = ([x.cpu() for x in fn()],
                                device_ms(fn, iters=20),
                                *all_kernels(fn, iters=20), cuda_ms(fn, 50))
+    import inspect
+    jac_mode = "jac" in inspect.signature(pg.edges).parameters
+    carry = "r" in inspect.signature(pg.update).parameters
+    decisions = {}
     for F, n, extra in PG_BUCKETS:
         gd = convert.pose_graph_from_numpy(
             synthetic.drift_circle_graph(F, n, extra, seed=F)[0], dev)
         freeze = torch.zeros(F, dtype=torch.bool, device=dev)
         diag = pg._diag(gd, freeze, True)
         inc = pg._incidence(gd)
-        rp, Jp, _ = pg.edges_plain(gd)
+        rp, Jp, cp = pg.edges_plain(gd)
         gbp, Hdp = pg.blocks_plain(gd, rp, Jp, diag)
         Minv = torch.linalg.inv_ex(Hdp)[0]
+        # the edge sweep: pg_edges (r, Ji, cost), its mode without Ji (a
+        # tree without it: its one mode, r and cost kept), pg_update on
+        # the plain PCG step (a tree that hands on no residuals: poses and
+        # cost)
+        fn = lambda: list(pg.edges(gd))
+        res[f"pg_edges@{F}"] = ([x.cpu() for x in fn()],
+                                device_ms(fn, iters=20),
+                                *all_kernels(fn, iters=20), cuda_ms(fn, 50))
+        r = pg.edges(gd)[0]
+        fn = ((lambda: [x for x in pg.edges(gd, jac=False) if x is not None])
+              if jac_mode else (lambda: (lambda o: [o[0], o[2]])(
+                  pg.edges(gd))))
+        res[f"pg_edges_r@{F}"] = ([x.cpu() for x in fn()],
+                                  device_ms(fn, iters=20),
+                                  *all_kernels(fn, iters=20),
+                                  cuda_ms(fn, 50))
+        dxp = pg.pcg_plain(gd, Jp, Minv, diag, gbp, 96)
+        fn = lambda: list(pg.update(gd, cp, dxp, 1.0,
+                                    *([r] if carry else [])))
+        res[f"pg_update@{F}"] = ([x.cpu() for x in fn()],
+                                 device_ms(fn, iters=20),
+                                 *all_kernels(fn, iters=20), cuda_ms(fn, 50))
         fn = lambda: [pg.pcg(gd, Jp, Minv, diag, gbp, 96, inc)]
         res[f"pg_pcg@{F}"] = ([x.cpu() for x in fn()],
                               device_ms(fn, iters=5),
                               *all_kernels(fn, iters=5), cuda_ms(fn, 10))
-        fn = lambda: list(pg._optimize_pcg(gd, freeze, 12, 96))
-        res[f"optimize_pcg@{F}"] = ([x.cpu() for x in fn()],
-                                    device_ms(fn, iters=3),
-                                    *all_kernels(fn, iters=3),
-                                    cuda_ms(fn, 3))
+        solves = [("optimize_pcg", lambda: list(pg._optimize_pcg(
+            gd, freeze, 12, 96)))]
+        if F <= 128:
+            solves.append(("optimize_dense", lambda: list(pg._optimize_dense(
+                gd, freeze, 12))))
+        for key, fn in solves:
+            res[f"{key}@{F}"] = ([x.cpu() for x in fn()],
+                                 device_ms(fn, iters=3),
+                                 *all_kernels(fn, iters=3), cuda_ms(fn, 3))
+            decisions[f"{key}@{F}"] = _gn_decisions(pg, fn)
+    res["decisions"] = decisions
     # K17's descent of the loop path's first keyframe's descriptors
     # (loop_keyframe_descriptors, computed once by ``against``)
     from plslam_tpu_torch.loop import vocabulary as voc
@@ -3699,6 +3868,70 @@ def against_side(root: str, out_path: str, desc_path: str) -> None:
     torch.save(res, out_path)
 
 
+def _gn_decisions(pg, solve):
+    """Each GN step of ``solve()`` (``pg.update`` wrapped): whether it was
+    accepted, and |c_try - c| / c with c_try the plain version's cost at
+    the step's trial poses (on the card)."""
+    import unittest.mock as mock
+    import torch
+    from plslam_tpu_torch.core import lie
+    out, orig = [], pg.update
+
+    def update(g, c, step, scale, *rest):
+        res = orig(g, c, step, scale, *rest)
+        dx = torch.where(g.pose_valid[:, None], scale * step, 0.0)
+        c_try = pg.edges_plain(g._replace(poses=g.poses @ lie.exp_se3(dx)))[2]
+        out.append((not torch.equal(res[0], g.poses),
+                    float((c_try - c).abs() / c)))
+        return res
+    with mock.patch.object(pg, "update", update):
+        solve()
+        torch.cuda.synchronize()
+    return out
+
+
+def _hold_pose_graph(a, b) -> None:
+    """K18's edge sweep and whole solves between two trees (``a`` the
+    other's results, ``b`` this one's): r and Ji of pg_edges, and
+    pg_update's poses, the same bits or within 1e-6 of the largest entry,
+    the costs within 1e-6 relative; a solve's poses the same bits, or
+    within 1e-5 of the largest translation where the first accept
+    decision that differs lies within 1e-6 of its threshold on both trees
+    (after it the two solves take other steps; every differing decision
+    is printed)."""
+    import torch
+    for F, _, _ in PG_BUCKETS:
+        for key in (f"pg_edges@{F}", f"pg_edges_r@{F}", f"pg_update@{F}"):
+            xs, ys = b[key][0], a[key][0]
+            rels = [max_abs_err(x, y) / max(float(y.abs().max()), 1e-30)
+                    for x, y in zip(xs, ys)]
+            same = [torch.equal(x, y) for x, y in zip(xs, ys)]
+            print(f"[against] {key}: the same bits per output {same}; "
+                  f"|this - other| relative to the other's largest entry "
+                  f"{[f'{x:g}' for x in rels]}", flush=True)
+            check(all(x <= 1e-6 for x in rels), f"{key}: the two trees "
+                  f"differ by more than 1e-6 of the largest entry: {rels}")
+        for key in (f"optimize_pcg@{F}", f"optimize_dense@{F}"):
+            if key not in a:
+                continue
+            P, Q = b[key][0][0], a[key][0][0]
+            if torch.equal(P, Q):
+                print(f"[against] {key}: poses the same bits on both trees",
+                      flush=True)
+                continue
+            da, db = a["decisions"][key], b["decisions"][key]
+            flips = [(k, x[1], y[1]) for k, (x, y) in enumerate(zip(da, db))
+                     if x[0] != y[0]]
+            scale = float(Q[:, :3, 3].abs().max())
+            d = max_abs_err(P, Q) / scale
+            print(f"[against] {key}: poses differ by {d:g} of the largest "
+                  f"translation; accept decisions that differ (step, "
+                  f"|c_try - c| / c other, this): {flips}", flush=True)
+            check(d <= 1e-5 and bool(flips) and max(flips[0][1:]) < 1e-6,
+                  f"{key}: poses {d:g} of the largest translation apart, "
+                  f"decisions {flips}")
+
+
 def against(other: str) -> None:
     """``python3 chip_smoke.py --against DIR``: ``against_side`` of the
     checkout at DIR and of this one, in turns (DIR, this, this, DIR), each
@@ -3706,7 +3939,8 @@ def against(other: str) -> None:
     between the two trees (the scale's and the cost's as bits too), every
     device time and the point front end's device kernels; fails where K5's
     or K12's bits, K9's tile_ok or labels or K15's landmark index differ
-    between the trees."""
+    between the trees, or K18's edge sweep and solves break
+    ``_hold_pose_graph``'s rule."""
     import os
     import tempfile
     import torch
@@ -3725,7 +3959,7 @@ def against(other: str) -> None:
             runs.append((who, torch.load(out)))
     (_, a), (_, b) = runs[0], runs[1]
     for key in a:
-        if key in ("front_end_kernels", "gauges", "grids"):
+        if key in ("front_end_kernels", "gauges", "grids", "decisions"):
             continue
         errs = [max_abs_err(x, y) for x, y in zip(a[key][0], b[key][0])]
         if all(x.is_floating_point() for x in a[key][0]):
@@ -3809,6 +4043,7 @@ def against(other: str) -> None:
           f"output (flags, T_accs, ratios, blocked, then the carry's "
           f"fields) {same}; grid, block this {b['grids']['kf_scan']}, "
           f"other {a['grids']['kf_scan']}", flush=True)
+    _hold_pose_graph(a, b)
     sig_cost = [(r["lba_terms+sigma"][0][-2], r["lba_terms+sigma"][0][-1])
                 for _, r in runs[:2]]
     bits = [[x.view(torch.int32).item() for x in sc] for sc in sig_cost]
@@ -3836,6 +4071,9 @@ def main() -> int:
         return 0
     if sys.argv[1:2] == ["--against-side"]:
         against_side(*sys.argv[2:5])
+        return 0
+    if sys.argv[1:2] == ["--edge-grids"]:
+        edge_sweep_grids()
         return 0
     try:
         import torch

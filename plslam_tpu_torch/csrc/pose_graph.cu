@@ -14,9 +14,13 @@
 // every sum has one fixed order (no float atomics: edge pairs repeat, and the
 // reference's CPU scatter-adds sum them in edge order).
 //
-//   pg_edges     one block: r, Ji of every edge and the cost sum w |r|^2
-//                (per-thread strided sums, then a fixed tree: the cost
-//                decides the accept test c_new <= c).
+//   pg_edges     edge_ctas(E) CTAs of 256 threads, 32 edge slots each
+//                (a lane of warp 0 an edge, the other warps beside it): r
+//                of every edge, in one mode Ji too, and the cost sum
+//                w |r|^2 (each CTA's partial in thread order, then the
+//                last CTA to finish adds the partials in CTA order: the
+//                cost decides the accept test c_new <= c). A solve
+//                launches it once, with Ji.
 //   pg_assemble  dense, one block per slot i: its 6 rows of H (6F wide) and
 //                g_i, from the node's edge lists in edge order, in the
 //                reference's four scatter phases (Hii over edges leaving i;
@@ -35,16 +39,24 @@
 //                shared memory (see pg_pcg_kernel). One CTA up to F = 128
 //                (E = 512), 2 at F = 256, 4 at F = 512. The ok gate, alpha
 //                and beta follow the reference.
-//   pg_update    one block: T <- T exp(dx) on valid slots, the trial cost,
-//                and the accept (finite and c_new <= c) into the outputs.
+//   pg_update    the same CTAs: T <- T exp(dx) on valid slots (each CTA a
+//                range of slots), every edge's residual at the trial poses
+//                (an end node's trial pose recomputed by the same
+//                function), the trial cost in the same two-level order,
+//                and in the last CTA the accept (finite and c_new <= c):
+//                on a reject it restores the old poses and the old
+//                residuals into the outputs. The residuals it hands on are
+//                the ones the next GN step needs.
 //
-// Launches per GN iteration: dense 3 (pg_edges, pg_assemble, pg_update) +
-// the library solve; PCG 4 (pg_edges, pg_blocks, pg_pcg, pg_update) + the
-// library's batched 6 x 6 inverse. Per solve one more pg_edges (the initial
-// cost): 37 dense, 49 PCG at 12 iterations.
+// Launches per solve: one pg_edges (r, Ji and the first cost; Ji depends
+// only on the edges' measurements, so it serves the whole solve), then per
+// GN iteration dense 2 (pg_assemble, pg_update) + the library solve, PCG 3
+// (pg_blocks, pg_pcg, pg_update) + the library's batched 6 x 6 inverse:
+// 25 dense, 37 PCG at 12 iterations.
 
 #include <algorithm>
 #include <cooperative_groups.h>
+#include <initializer_list>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -53,7 +65,6 @@ namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int NT = 1024;
 constexpr float kEps = 1e-8f;
 
 // C = A B, 4 x 4 row-major, each entry summed over k = 0..3 in order
@@ -190,18 +201,53 @@ struct Graph {
   int F, E;
 };
 
-// residual r = log(Tm^-1 Ti^-1 Tj) and Ji = -Ad(Tm^-1) (6 x 6 row-major)
-__device__ void edge_eval(const Graph& g, const float* poses, int e, float* r,
-                          float* J) {
+// -- the edge sweep: pg_edges and pg_update -----------------------------------
+//
+// CTA b of edge_ctas(E) owns the edge slots [32 b, 32 b + 32), a lane of
+// warp 0 each, and in pg_update the pose slots [b NC, (b + 1) NC), NC =
+// ceil(F / CTAs); loop/pose_graph.py::edge_layout and edge_partition
+// mirror it. An edge is a chain of dependent steps (~250: two inverses,
+// two 4 x 4 products, the log's acos, sin and divisions), so the CTA's
+// warps take the other chains beside it: the loads of the edges' Tm rows
+// (64 bytes each, 16-byte loads into shared memory) while warp 0 loads the
+// ends and their poses (16-byte loads); in pg_edges warp 1 forms the Ji
+// rows while warp 0 forms the residuals; in pg_update warps 1 and 2 form
+// the edges' end poses at the trial step and warps 3-7 the CTA's own
+// slots' trial poses, then warp 0 the residuals. r (24 bytes an edge) and
+// Ji (144) leave through shared memory in 16-byte stores: a warp's global
+// accesses are contiguous. Unused slots (w <= 0) skip the residual and
+// write r = 0; their Ji is written as for any slot (it depends only on
+// Tm). The cost: each CTA's partial in thread order; then the last CTA to
+// finish (a counter after a fence, which that CTA sets back to 0 for the
+// next launch) adds the partials in CTA order. No float atomics: the cost
+// is the same bits in every run, and a CUDA graph may replay the launch.
+// On a rejected step pg_update's last CTA writes back the old poses and
+// residuals, 16 loads a thread in flight.
+
+constexpr int EDGE_SLOTS = 32;  // edge slots a CTA, a lane of warp 0 each
+constexpr int EDGE_NT = 256;    // threads a CTA: warps 1-7 take the rest
+
+inline int edge_ctas(int E) {
+  return std::max(1, (E + EDGE_SLOTS - 1) / EDGE_SLOTS);
+}
+
+// r = log(Tm^-1 Ti^-1 Tj): the one evaluation of an edge that pg_edges and
+// pg_update share, not inlined, so the residuals pg_update hands on are the
+// bits pg_edges gives at the same poses
+__device__ __noinline__ void edge_residual(const float* Tm, const float* Ti,
+                                           const float* Tj, float* r) {
   float Tm_inv[16], Ti_inv[16], A[16], B[16];
-  inv_se3(g.eT + (size_t)e * 16, Tm_inv);
-  inv_se3(poses + (size_t)g.ei[e] * 16, Ti_inv);
+  inv_se3(Tm, Tm_inv);
+  inv_se3(Ti, Ti_inv);
   mm4(Tm_inv, Ti_inv, A);
-  mm4(A, poses + (size_t)g.ej[e] * 16, B);
+  mm4(A, Tj, B);
   log_se3(B, r);
-  if (J == nullptr) return;
-  // Ad(T) = [[R, skew(t) R], [0, R]]
-  const float* M = Tm_inv;
+}
+
+// Ji = -Ad(Tm^-1) (6 x 6 row-major), Ad(T) = [[R, skew(t) R], [0, R]]
+__device__ void edge_jac(const float* Tm, float* J) {
+  float M[16];
+  inv_se3(Tm, M);
   const float t[3] = {M[3], M[7], M[11]};
   const float S[3][3] = {{0.f, -t[2], t[1]}, {t[2], 0.f, -t[0]},
                          {-t[1], t[0], 0.f}};
@@ -217,50 +263,166 @@ __device__ void edge_eval(const Graph& g, const float* poses, int e, float* r,
     }
 }
 
-// fixed-order block sum of one value per thread; every thread gets it
-__device__ float block_sum(float v, float* red) {
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  for (int s = 16; s > 0; s >>= 1) v += __shfl_xor_sync(0xffffffffu, v, s);
-  __syncthreads();  // red may still be read from an earlier call
-  if (lane == 0) red[warp] = v;
+// a 4 x 4 pose at a 16-byte aligned address
+__device__ __forceinline__ void load16(const float* p, float* T) {
+  const float4* q = reinterpret_cast<const float4*>(p);
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const float4 v = q[k];
+    T[4 * k] = v.x;
+    T[4 * k + 1] = v.y;
+    T[4 * k + 2] = v.z;
+    T[4 * k + 3] = v.w;
+  }
+}
+
+__device__ __forceinline__ void store16(float* p, const float* T) {
+  float4* q = reinterpret_cast<float4*>(p);
+#pragma unroll
+  for (int k = 0; k < 4; ++k)
+    q[k] = make_float4(T[4 * k], T[4 * k + 1], T[4 * k + 2], T[4 * k + 3]);
+}
+
+// T exp(scale step) of slot n (a zero step on an invalid slot): the pose
+// pg_update's node pass writes and the one its edge pass forms for an end
+// node, the same function, so the same bits
+__device__ __noinline__ void trial_pose(const float* poses, const float* step,
+                                        const uint8_t* valid, float scale,
+                                        int n, float* T) {
+  float xi[6], E[16], P[16];
+  for (int a = 0; a < 6; ++a)
+    xi[a] = valid[n] ? scale * step[(size_t)n * 6 + a] : 0.0f;
+  exp_se3(xi, E);
+  load16(poses + (size_t)n * 16, P);
+  mm4(P, E, T);
+}
+
+// n floats between 16-byte aligned addresses by the caller's threads t =
+// 0 .. nt - 1: B 16-byte loads a thread in flight before their stores
+template <int B>
+__device__ __forceinline__ void copy_floats(float* __restrict__ dst,
+                                            const float* __restrict__ src,
+                                            int n, int t, int nt) {
+  const int n4 = n >> 2;
+  const float4* s4 = reinterpret_cast<const float4*>(src);
+  float4* d4 = reinterpret_cast<float4*>(dst);
+  for (int k0 = t; k0 < n4; k0 += B * nt) {
+    float4 v[B];
+#pragma unroll
+    for (int i = 0; i < B; ++i)
+      if (k0 + i * nt < n4) v[i] = s4[k0 + i * nt];
+#pragma unroll
+    for (int i = 0; i < B; ++i)
+      if (k0 + i * nt < n4) d4[k0 + i * nt] = v[i];
+  }
+  for (int k = 4 * n4 + t; k < n; k += nt) dst[k] = src[k];
+}
+
+__device__ __forceinline__ void fence_acq_rel_gpu() {
+  asm volatile("fence.acq_rel.gpu;\n" ::: "memory");
+}
+
+struct Sweep {
+  const float* poses;  // (F, 16)
+  const int* ei;
+  const int* ej;
+  const float* eT;  // (E, 16)
+  const float* ew;
+  float* r;           // (E, 6) out
+  float* partial;     // (CTAs,) scratch
+  unsigned* count;    // 0 before and after every launch
+  int F, E;
+};
+
+// Warp 0's lane l < n after the staging barrier: r of the CTA's edge l
+// (zero where w <= 0) into sR, w |r|^2 into sc
+__device__ void sweep_residuals(const float* sT, const float* Ti,
+                                const float* Tj, float w, float* sR,
+                                float* sc, int n) {
+  const int l = threadIdx.x;
+  if (l < n) {
+    float r[6] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+    if (w > 0.0f) edge_residual(sT + l * 16, Ti, Tj, r);
+    float q = 0.0f;
+    for (int a = 0; a < 6; ++a) q += r[a] * r[a];
+    sc[l] = w * q;
+    for (int a = 0; a < 6; ++a) sR[l * 6 + a] = r[a];
+  }
+}
+
+// The cost. After a CTA barrier (every thread's stores before it), thread
+// 0 writes the CTA's partial (sc[0 .. n) in thread order), a release
+// fence, and counts the CTA in; the last CTA to count (an acquire fence)
+// loads the partials, a thread each, into sp, and thread 0 adds them in
+// CTA order into *total. Returns, for every thread, whether this CTA is the
+// last. (A fence by one thread after the barrier, as CUTLASS's split-K
+// semaphore: the barrier orders the CTA's stores before it.)
+__device__ bool sweep_total(const Sweep& s, const float* sc, int n,
+                            float* sp, float* total, int* s_last) {
+  const int tid = threadIdx.x;
   __syncthreads();
   if (tid == 0) {
-    float s = 0.0f;
-    for (int i = 0; i < (int)(blockDim.x >> 5); ++i) s += red[i];
-    red[32] = s;
+    float p = 0.0f;
+    for (int i = 0; i < n; ++i) p += sc[i];
+    s.partial[blockIdx.x] = p;
+    fence_acq_rel_gpu();
+    const bool last = atomicAdd(s.count, 1u) == gridDim.x - 1;
+    if (last) {
+      *s.count = 0;
+      fence_acq_rel_gpu();
+    }
+    *s_last = last;
   }
   __syncthreads();
-  return red[32];
-}
-
-// the cost sum_e w |r|^2 of ``poses``; optionally r and Ji of every edge
-__device__ float graph_cost(const Graph& g, const float* poses, float* r_out,
-                            float* J_out, float* red) {
-  float part = 0.0f;
-  for (int e = threadIdx.x; e < g.E; e += blockDim.x) {
-    float r[6], J[36];
-    edge_eval(g, poses, e, r, J_out ? J : nullptr);
-    const float w = g.ew[e];
-    const bool used = w > 0.0f;
-    float s = 0.0f;
-    for (int a = 0; a < 6; ++a) {
-      if (!used) r[a] = 0.0f;
-      s += r[a] * r[a];
-    }
-    part += w * s;
-    if (r_out)
-      for (int a = 0; a < 6; ++a) r_out[(size_t)e * 6 + a] = r[a];
-    if (J_out)
-      for (int a = 0; a < 36; ++a) J_out[(size_t)e * 36 + a] = J[a];
+  if (!*s_last) return false;
+  float c = 0.0f;
+  for (int b0 = 0; b0 < (int)gridDim.x; b0 += EDGE_NT) {
+    const int m = min(EDGE_NT, (int)gridDim.x - b0);
+    if (tid < m) sp[tid] = __ldcg(s.partial + b0 + tid);
+    __syncthreads();
+    if (tid == 0)
+      for (int b = 0; b < m; ++b) c += sp[b];
+    __syncthreads();
   }
-  return block_sum(part, red);
+  if (tid == 0) *total = c;
+  __syncthreads();
+  return true;
 }
 
-__global__ void __launch_bounds__(NT)
-    pg_edges_kernel(Graph g, float* r_out, float* J_out, float* cost) {
-  __shared__ float red[33];
-  const float c = graph_cost(g, g.poses, r_out, J_out, red);
-  if (threadIdx.x == 0) *cost = c;
+template <bool JAC>
+__global__ void __launch_bounds__(EDGE_NT)
+    pg_edges_kernel(Sweep s, float* J_out, float* cost) {
+  __shared__ __align__(16) float sT[EDGE_SLOTS * 16];
+  __shared__ __align__(16) float sR[EDGE_SLOTS * 6];
+  __shared__ __align__(16) float sJ[JAC ? EDGE_SLOTS * 36 : 4];
+  __shared__ float sc[EDGE_SLOTS], sp[EDGE_NT], s_total;
+  __shared__ int s_last;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int e0 = blockIdx.x * EDGE_SLOTS, n = min(EDGE_SLOTS, s.E - e0);
+  float Ti[16], Tj[16], w = 0.0f;
+  if (warp == 0) {  // the ends' poses
+    if (lane < n) {
+      const int e = e0 + lane;
+      w = s.ew[e];
+      if (w > 0.0f) {
+        load16(s.poses + (size_t)s.ei[e] * 16, Ti);
+        load16(s.poses + (size_t)s.ej[e] * 16, Tj);
+      }
+    }
+  } else {  // the Tm rows
+    copy_floats<1>(sT, s.eT + (size_t)e0 * 16, n * 16, tid - 32,
+                   EDGE_NT - 32);
+  }
+  __syncthreads();
+  if (warp == 0)
+    sweep_residuals(sT, Ti, Tj, w, sR, sc, n);
+  else if (JAC && warp == 1 && lane < n)
+    edge_jac(sT + lane * 16, sJ + lane * 36);
+  __syncthreads();
+  copy_floats<1>(s.r + (size_t)e0 * 6, sR, n * 6, tid, EDGE_NT);
+  if (JAC) copy_floats<2>(J_out + (size_t)e0 * 36, sJ, n * 36, tid, EDGE_NT);
+  if (sweep_total(s, sc, n, sp, &s_total, &s_last) && tid == 0)
+    *cost = s_total;
 }
 
 // node lists: edges leaving n are oi[pi[n] .. pi[n+1]), entering n are
@@ -879,38 +1041,82 @@ __global__ void __launch_bounds__(1024) pg_pcg_kernel(PcgArgs a) {
   if (CL) team.barrier();  // no CTA exits while another reads its memory
 }
 
-__global__ void __launch_bounds__(NT)
-    pg_update_kernel(Graph g, const float* c_in, const float* step,
+// T <- T exp(scale step) on valid slots, the residuals and cost there, and
+// the accept; on a reject the last CTA writes back the old poses, the old
+// residuals r_in and c
+__global__ void __launch_bounds__(EDGE_NT)
+    pg_update_kernel(Sweep s, const float* c_in, const float* step,
                      float scale, const uint8_t* __restrict__ valid,
-                     float* poses_out, float* c_out) {
-  __shared__ float red[33];
-  for (int n = threadIdx.x; n < g.F; n += NT) {
-    float xi[6], E[16];
-    for (int a = 0; a < 6; ++a)
-      xi[a] = valid[n] ? scale * step[(size_t)n * 6 + a] : 0.0f;
-    exp_se3(xi, E);
-    mm4(g.poses + (size_t)n * 16, E, poses_out + (size_t)n * 16);
+                     const float* r_in, float* poses_out, float* c_out) {
+  __shared__ __align__(16) float sT[EDGE_SLOTS * 16];
+  __shared__ __align__(16) float sTi[EDGE_SLOTS * 16];
+  __shared__ __align__(16) float sTj[EDGE_SLOTS * 16];
+  __shared__ __align__(16) float sR[EDGE_SLOTS * 6];
+  __shared__ float sc[EDGE_SLOTS], sp[EDGE_NT], s_total;
+  __shared__ int s_last;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int b = blockIdx.x, e0 = b * EDGE_SLOTS;
+  const int n = min(EDGE_SLOTS, s.E - e0);
+  float w = 0.0f;
+  if (warp == 0) {  // w and the Tm rows
+    if (lane < n) w = s.ew[e0 + lane];
+    copy_floats<4>(sT, s.eT + (size_t)e0 * 16, n * 16, lane, 32);
+  } else if (warp <= 2) {  // an end's trial pose: the tail, then the head
+    if (lane < n && s.ew[e0 + lane] > 0.0f)
+      trial_pose(s.poses, step, valid, scale,
+                 (warp == 1 ? s.ei : s.ej)[e0 + lane],
+                 (warp == 1 ? sTi : sTj) + lane * 16);
+  } else {  // the CTA's own slots' trial poses
+    const int NC = (s.F + gridDim.x - 1) / gridDim.x;
+    const int n0 = min(b * NC, s.F), nn = min(n0 + NC, s.F) - n0;
+    for (int k = tid - 96; k < nn; k += EDGE_NT - 96) {
+      float T[16];
+      trial_pose(s.poses, step, valid, scale, n0 + k, T);
+      store16(poses_out + (size_t)(n0 + k) * 16, T);
+    }
   }
   __syncthreads();
-  const float c_new = graph_cost(g, poses_out, nullptr, nullptr, red);
-  const float c = *c_in;
+  if (warp == 0)
+    sweep_residuals(sT, sTi + lane * 16, sTj + lane * 16, w, sR, sc, n);
+  __syncthreads();
+  copy_floats<1>(s.r + (size_t)e0 * 6, sR, n * 6, tid, EDGE_NT);
+  if (!sweep_total(s, sc, n, sp, &s_total, &s_last)) return;
+  const float c = *c_in, c_new = s_total;
   const bool ok = isfinite(c_new) && c_new <= c;
-  if (!ok)
-    for (int k = threadIdx.x; k < g.F * 16; k += NT) poses_out[k] = g.poses[k];
-  if (threadIdx.x == 0) *c_out = ok ? c_new : c;
+  if (!ok) {
+    copy_floats<16>(poses_out, s.poses, s.F * 16, tid, EDGE_NT);
+    copy_floats<16>(s.r, r_in, s.E * 6, tid, EDGE_NT);
+  }
+  if (tid == 0) *c_out = ok ? c_new : c;
 }
 
 }  // namespace
 
 extern "C" {
 
+// the 16-byte alignment the sweep's vector accesses need
+inline bool aligned16(std::initializer_list<const void*> ps) {
+  for (const void* p : ps)
+    if ((uintptr_t)p & 15) return false;
+  return true;
+}
+
 // poses (F, 4, 4), edges ei, ej (E,) int32, eT (E, 4, 4), ew (E,) ->
-// r (E, 6) (0 on unused edges), Ji (E, 6, 6), cost (1,)
+// r (E, 6) (0 on unused edges), Ji (E, 6, 6) unless J is null, cost (1,);
+// partial (ctas,) scratch, count a zero that the launch leaves at 0; ctas
+// and threads as edge_ctas and EDGE_NT (any other plan is refused)
 int pg_edges(const float* poses, const int* ei, const int* ej,
              const float* eT, const float* ew, float* r, float* J,
-             float* cost, int F, int E, cudaStream_t stream) {
-  Graph g{poses, ei, ej, eT, ew, F, E};
-  pg_edges_kernel<<<1, NT, 0, stream>>>(g, r, J, cost);
+             float* cost, float* partial, unsigned* count, int F, int E,
+             int ctas, int threads, cudaStream_t stream) {
+  if (ctas != edge_ctas(E) || threads != EDGE_NT)
+    return (int)cudaErrorInvalidValue;
+  if (!aligned16({poses, eT, r, J})) return (int)cudaErrorMisalignedAddress;
+  Sweep s{poses, ei, ej, eT, ew, r, partial, count, F, E};
+  if (J != nullptr)
+    pg_edges_kernel<true><<<ctas, EDGE_NT, 0, stream>>>(s, J, cost);
+  else
+    pg_edges_kernel<false><<<ctas, EDGE_NT, 0, stream>>>(s, J, cost);
   return (int)cudaGetLastError();
 }
 
@@ -985,14 +1191,22 @@ int pg_pcg(const float* poses, const int* ei, const int* ej, const float* eT,
   return (int)cudaGetLastError();
 }
 
-// poses_out = accepted(poses exp(scale step on valid slots)), c_out
+// poses_out = accepted(poses exp(scale step on valid slots)), r_out the
+// residuals at poses_out (r_in, the residuals at poses, on a reject), c_out;
+// the plan as pg_edges'
 int pg_update(const float* poses, const int* ei, const int* ej,
               const float* eT, const float* ew, const float* c_in,
-              const float* step, const uint8_t* valid, float* poses_out,
-              float* c_out, int F, int E, float scale, cudaStream_t stream) {
-  Graph g{poses, ei, ej, eT, ew, F, E};
-  pg_update_kernel<<<1, NT, 0, stream>>>(g, c_in, step, scale, valid,
-                                         poses_out, c_out);
+              const float* step, const uint8_t* valid, const float* r_in,
+              float* poses_out, float* r_out, float* c_out, float* partial,
+              unsigned* count, int F, int E, int ctas, int threads,
+              float scale, cudaStream_t stream) {
+  if (ctas != edge_ctas(E) || threads != EDGE_NT)
+    return (int)cudaErrorInvalidValue;
+  if (!aligned16({poses, eT, r_in, poses_out, r_out}))
+    return (int)cudaErrorMisalignedAddress;
+  Sweep s{poses, ei, ej, eT, ew, r_out, partial, count, F, E};
+  pg_update_kernel<<<ctas, EDGE_NT, 0, stream>>>(s, c_in, step, scale, valid,
+                                                 r_in, poses_out, c_out);
   return (int)cudaGetLastError();
 }
 

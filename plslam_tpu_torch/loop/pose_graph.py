@@ -13,10 +13,13 @@ Two linear solvers: dense, the (6F)^2 system through
 ``torch.linalg.solve_ex`` (the reference calls ``jnp.linalg.solve``), and
 PCG, a matrix-free block-Jacobi-preconditioned CG with a fixed schedule.
 On CUDA tensors every step but the library solve and the batched 6 x 6
-inverse is a launch of ``csrc/pose_graph.cu`` (``pg_edges``,
-``pg_assemble``, ``pg_blocks``, ``pg_pcg`` on a thread-block cluster,
-``pg_update``); the plain versions (the reference's arithmetic in torch)
-run only for CPU tensors.
+inverse is a launch of ``csrc/pose_graph.cu`` (``pg_edges`` and
+``pg_update`` over ``edge_layout``'s CTAs, ``pg_assemble``, ``pg_blocks``,
+``pg_pcg`` on a thread-block cluster); the plain versions (the reference's
+arithmetic in torch) run only for CPU tensors. A solve evaluates its edges
+once (``edges``: r, Ji, the first cost); each GN step's ``update`` hands on
+the residuals at the poses it returns, and Ji depends only on the edges'
+measurements.
 Fixed capacity: F pose slots, E edge slots, masked by ``edge_w > 0``.
 """
 
@@ -128,35 +131,75 @@ def edge_residuals_plain(poses: torch.Tensor, g: PoseGraph) -> torch.Tensor:
     return torch.where((g.edge_w > 0)[:, None], r, 0.0)
 
 
-def _cost_plain(poses: torch.Tensor, g: PoseGraph) -> torch.Tensor:
-    r = edge_residuals_plain(poses, g)
+def _cost_of(r: torch.Tensor, g: PoseGraph) -> torch.Tensor:
     return torch.sum(g.edge_w * torch.sum(r * r, dim=-1))
 
 
-def edges_plain(g: PoseGraph):
-    """(r (E, 6), Ji (E, 6, 6), cost ()) at ``g.poses``."""
+def edges_plain(g: PoseGraph, jac: bool = True):
+    """(r (E, 6), Ji (E, 6, 6) or None, cost ()) at ``g.poses``."""
     r = edge_residuals_plain(g.poses, g)
-    return r, _jac(g), torch.sum(g.edge_w * torch.sum(r * r, dim=-1))
+    return r, _jac(g) if jac else None, _cost_of(r, g)
 
 
-def edges(g: PoseGraph):
-    """Residuals (0 on unused edges), Jacobians Ji and the cost at
-    ``g.poses``: one ``pg_edges`` launch on CUDA."""
+# pg_edges' and pg_update's plan (csrc/pose_graph.cu::edge_ctas)
+EDGE_SLOTS = 32     # edge slots a CTA, a lane of its first warp each
+EDGE_NT = 256       # threads a CTA
+
+
+def edge_layout(E: int) -> Tuple[int, int]:
+    """(CTAs, threads a CTA) of a ``pg_edges`` or ``pg_update`` launch over
+    E edge slots: ``EDGE_SLOTS`` slots a CTA. The C entries compute the
+    same plan and refuse any other."""
+    return max(1, -(-E // EDGE_SLOTS)), EDGE_NT
+
+
+def edge_partition(F: int, E: int):
+    """Per CTA of ``edge_layout(E)``, as the kernels compute them: the edge
+    slots it evaluates (e0, e1) and the pose slots whose trial poses
+    ``pg_update`` writes from it (n0, n1)."""
+    ctas = edge_layout(E)[0]
+    nc = -(-F // ctas)
+    return [((b * EDGE_SLOTS, min((b + 1) * EDGE_SLOTS, E)),
+             (min(b * nc, F), min((b + 1) * nc, F))) for b in range(ctas)]
+
+
+# per device: the CTAs' cost partials and the last-CTA counter, which every
+# launch leaves at 0 (launches on one stream; a CUDA graph may capture them)
+_SWEEP = {}
+
+
+def _sweep_scratch(device, ctas: int):
+    buf = _SWEEP.get(device)
+    if buf is None or buf[0].numel() < ctas:
+        buf = (torch.empty((max(ctas, 64),), dtype=torch.float32,
+                           device=device),
+               torch.zeros((1,), dtype=torch.int32, device=device))
+        _SWEEP[device] = buf
+    return buf
+
+
+def edges(g: PoseGraph, jac: bool = True):
+    """Residuals (0 on unused edges), the Jacobians Ji (None when ``jac``
+    is false) and the cost at ``g.poses``: one ``pg_edges`` launch on
+    CUDA, ``edge_layout(E)`` CTAs."""
     if g.poses.device.type == "cpu":
-        return edges_plain(g)
+        return edges_plain(g, jac)
     a = _args(g)
     F, E = a[0].shape[0], a[4].shape[0]
     dev = a[0].device
     r = torch.empty((E, 6), dtype=torch.float32, device=dev)
-    J = torch.empty((E, 6, 6), dtype=torch.float32, device=dev)
+    J = (torch.empty((E, 6, 6), dtype=torch.float32, device=dev) if jac
+         else None)
     cost = torch.empty((), dtype=torch.float32, device=dev)
-    native.launch("pg_edges", *a, r, J, cost, F, E)
+    ctas, threads = edge_layout(E)
+    native.launch("pg_edges", *a, r, J, cost, *_sweep_scratch(dev, ctas), F,
+                  E, ctas, threads)
     return r, J, cost
 
 
 def edge_residuals(poses: torch.Tensor, g: PoseGraph) -> torch.Tensor:
     """(E, 6) residuals log(Tm^-1 Ti^-1 Tj), zeroed for unused slots."""
-    return edges(g._replace(poses=poses))[0]
+    return edges(g._replace(poses=poses), jac=False)[0]
 
 
 # -- dense normal equations ---------------------------------------------------
@@ -346,32 +389,63 @@ def pcg(g: PoseGraph, Ji, Minv, diag, gvec, cg_iters: int, inc=None):
 
 # -- the GN update with its accept test --------------------------------------
 
-def update_plain(g: PoseGraph, c, step, scale: float):
+def update_plain(g: PoseGraph, c, step, scale: float, r=None):
     dx = torch.where(g.pose_valid[:, None], scale * step, 0.0)
     new = g.poses @ lie.exp_se3(dx)
-    c_new = _cost_plain(new, g)
+    r_new = edge_residuals_plain(new, g)
+    c_new = _cost_of(r_new, g)
     ok = torch.isfinite(c_new) & (c_new <= c)
-    return torch.where(ok, new, g.poses), torch.where(ok, c_new, c)
+    if r is None:
+        r = edge_residuals_plain(g.poses, g)
+    return (torch.where(ok, new, g.poses), torch.where(ok, c_new, c),
+            torch.where(ok, r_new, r))
 
 
-def update(g: PoseGraph, c, step, scale: float):
+def update(g: PoseGraph, c, step, scale: float, r=None, r_out=None):
     """T <- T exp(scale * step) on valid slots, kept only if the cost is
-    finite and did not rise: (poses, cost); one ``pg_update`` launch."""
+    finite and did not rise: (poses, cost, residuals at those poses); one
+    ``pg_update`` launch. ``r``: the residuals at ``g.poses``, handed back
+    on a reject (None: one ``pg_edges`` launch without Ji computes them);
+    ``r_out``: the buffer the residuals go to (a solve alternates two)."""
     if g.poses.device.type == "cpu":
-        return update_plain(g, c, step, scale)
+        return update_plain(g, c, step, scale, r)
     a = _args(g)
     F, E = a[0].shape[0], a[4].shape[0]
+    dev = a[0].device
+    if r is None:
+        r = edges(g, jac=False)[0]
+    r = r.contiguous()
+    r_out = torch.empty_like(r) if r_out is None else r_out
+    for name, t in (("residuals", r), ("residual buffer", r_out)):
+        native.require(t, f"pose graph {name}", torch.float32, (E, 6))
+    if r_out.data_ptr() == r.data_ptr():
+        raise ValueError("pg_update: r_out must not be r")
     st = step.reshape(F, 6).to(torch.float32).contiguous()
-    va = g.pose_valid.to(torch.uint8).contiguous()
+    va = g.pose_valid.to(torch.bool).contiguous().view(torch.uint8)
     c_in = c.to(torch.float32).reshape(()).contiguous()
     poses = torch.empty_like(a[0])
-    c_out = torch.empty((), dtype=torch.float32, device=st.device)
-    native.launch("pg_update", *a, c_in, st, va, poses, c_out, F, E,
+    c_out = torch.empty((), dtype=torch.float32, device=dev)
+    ctas, threads = edge_layout(E)
+    native.launch("pg_update", *a, c_in, st, va, r, poses, r_out, c_out,
+                  *_sweep_scratch(dev, ctas), F, E, ctas, threads,
                   float(scale))
-    return poses, c_out
+    return poses, c_out, r_out
 
 
 # -- the solvers --------------------------------------------------------------
+
+def _gauss_newton(g: PoseGraph, iters: int, gn_step, scale: float):
+    """One ``edges`` (r, Ji, cost0), then per iteration the step
+    ``gn_step(g, r, Ji)`` and ``update``, whose residuals the next
+    iteration uses; two residual buffers alternate."""
+    r, Ji, c0 = edges(g)
+    c, spare = c0, torch.empty_like(r)
+    for _ in range(iters):
+        poses, c, r_next = update(g, c, gn_step(g, r, Ji), scale, r, spare)
+        spare, r = r, r_next
+        g = g._replace(poses=poses)
+    return g.poses, c0, c
+
 
 def optimize_pose_graph(g: PoseGraph, iters: int = 12, fix_first: bool = True
                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -386,15 +460,11 @@ def _optimize_dense(g: PoseGraph, freeze: torch.Tensor, iters: int = 12,
     diag = _diag(g, freeze, fix_first)
     F = g.poses.shape[0]
     inc = _incidence(g) if g.poses.device.type == "cuda" else None
-    _, _, c0 = edges(g)
-    c = c0
-    for _ in range(iters):
-        r, Ji, _ = edges(g)
+
+    def gn_step(g, r, Ji):
         H, gvec = assemble(g, r, Ji, diag, inc)
-        sol = torch.linalg.solve_ex(H, gvec[:, None])[0][:, 0]
-        poses, c = update(g, c, sol.reshape(F, 6), -1.0)
-        g = g._replace(poses=poses)
-    return g.poses, c0, c
+        return torch.linalg.solve_ex(H, gvec[:, None])[0][:, 0].reshape(F, 6)
+    return _gauss_newton(g, iters, gn_step, -1.0)
 
 
 def optimize_pose_graph_pcg(g: PoseGraph, iters: int = 12,
@@ -413,13 +483,9 @@ def _optimize_pcg(g: PoseGraph, freeze: torch.Tensor, iters: int = 12,
     graphs past the dense (6F)^2 wall. Same contract as the dense one."""
     diag = _diag(g, freeze, fix_first)
     inc = _incidence(g) if g.poses.device.type == "cuda" else None
-    _, _, c0 = edges(g)
-    c = c0
-    for _ in range(iters):
-        r, Ji, _ = edges(g)
+
+    def gn_step(g, r, Ji):
         gvec, Hd = blocks(g, r, Ji, diag, inc)
         Minv = torch.linalg.inv_ex(Hd)[0]
-        dx = pcg(g, Ji, Minv, diag, gvec, cg_iters, inc)
-        poses, c = update(g, c, dx, 1.0)
-        g = g._replace(poses=poses)
-    return g.poses, c0, c
+        return pcg(g, Ji, Minv, diag, gvec, cg_iters, inc)
+    return _gauss_newton(g, iters, gn_step, 1.0)

@@ -65,11 +65,11 @@ _SIGNATURES: Dict[str, str] = {
     "lba_solve": "p" * 13 + "iiiii" + "fi",
     "bow_descend": "pppiii",
     "bow_hist": "ppppii",
-    "pg_edges": "p" * 8 + "ii",
+    "pg_edges": "p" * 10 + "iiii",
     "pg_assemble": "p" * 14 + "ii",
     "pg_blocks": "p" * 14 + "ii",
     "pg_pcg": "p" * 14 + "iii",
-    "pg_update": "p" * 10 + "iif",
+    "pg_update": "p" * 14 + "iiii" + "f",
     "remap_bilinear": "pppiiiiii",
 }
 

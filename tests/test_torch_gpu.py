@@ -1073,8 +1073,9 @@ def test_pose_graph_kernels(cuda, F, n, extra):
     dx = _launched("pg_pcg", lambda: pg.pcg(gd, Jp, Minv, diag, gvp, 96, inc))
     assert rel(dx, pg.pcg_plain(gd, Jp, Minv, diag, gvp, 96)) <= 1e-3
     if every:
-        P, c1 = _launched("pg_update", lambda: pg.update(gd, cp, dx, 1.0))
-        Pp, c1p = pg.update_plain(gd, cp, dx, 1.0)
+        P, c1, _ = _launched("pg_update", lambda: pg.update(gd, cp, dx, 1.0,
+                                                            r))
+        Pp, c1p, _ = pg.update_plain(gd, cp, dx, 1.0)
         assert rel(P, Pp) <= 1e-5 and rel(c1, c1p) <= 1e-5
     for solve in ((pg._optimize_pcg, pg._optimize_dense) if F <= 128
                   else ()):
@@ -1085,6 +1086,60 @@ def test_pose_graph_kernels(cuda, F, n, extra):
         assert float(got[2]) < 0.5 * float(got[1])
         t_scale = float(want[0][:, :3, 3].abs().max())
         assert float((got[0].cpu() - want[0]).abs().max()) <= 1e-3 * t_scale
+
+
+@pytest.mark.parametrize("F,n,extra,E", [(64, 40, 60, None),
+                                         (128, 100, 300, None),
+                                         (256, 200, 800, None),
+                                         (512, 400, 1600, None),
+                                         (64, 40, 60, 247)])
+def test_pose_graph_edge_sweep(cuda, F, n, extra, E):
+    """K18's edge sweep over edge_layout's CTAs at the loop closer's four
+    slot buckets and at a ragged E (247 slots: a last CTA of 23 edges):
+    pg_edges' two modes give the same residual and cost bits, r = 0 on
+    unused slots, Ji within 1e-6 of the plain version's largest entry, r
+    and the cost within 1e-5 (not at Fb 128: test_pose_graph_kernels holds
+    it to float64 there); pg_update's poses and cost within 1e-5 of
+    update_plain's; the residuals and cost it hands on are the bits of a
+    pg_edges launch at the accepted poses; the reversed step is rejected
+    and hands back the poses, residuals and cost exactly; a second launch
+    of each gives the same bits (the last-CTA counter is back at 0)."""
+    from plslam_tpu_torch import convert
+    from plslam_tpu_torch.io import synthetic
+    from plslam_tpu_torch.loop import pose_graph as pg
+    gd = convert.pose_graph_from_numpy(
+        synthetic.drift_circle_graph(F, n, extra, seed=F)[0], cuda)
+    if E is not None:
+        gd = gd._replace(**{f: getattr(gd, f)[:E]
+                            for f in pg.PoseGraph._fields[2:]})
+    rel = lambda a, b: float((a - b).abs().max()
+                             / b.abs().max().clamp(min=1e-30))
+    rp, Jp, cp = pg.edges_plain(gd)
+    r, J, c = _launched("pg_edges", lambda: pg.edges(gd))
+    r2, J2, c2 = _launched("pg_edges", lambda: pg.edges(gd, jac=False))
+    assert J2 is None and torch.equal(r, r2) and torch.equal(c, c2)
+    assert bool((r[gd.edge_w <= 0] == 0).all())
+    assert rel(J, Jp) <= 1e-6
+    if F != 128:
+        assert rel(r, rp) <= 1e-5 and rel(c, cp) <= 1e-5
+    for x, y in zip(pg.edges(gd), (r, J, c)):
+        assert torch.equal(x, y)
+    freeze = torch.zeros(F, dtype=torch.bool, device=cuda)
+    diag = pg._diag(gd, freeze, True)
+    gv, Hd = pg.blocks_plain(gd, rp, Jp, diag)
+    dx = pg.pcg_plain(gd, Jp, torch.linalg.inv_ex(Hd)[0], diag, gv, 96)
+    P, c1, r1 = _launched("pg_update", lambda: pg.update(gd, c, dx, 1.0, r))
+    assert float(c1) < float(c)
+    Pp, c1p, _ = pg.update_plain(gd, c, dx, 1.0, r)
+    assert rel(P, Pp) <= 1e-5 and rel(c1, c1p) <= 1e-5
+    re, _, ce = pg.edges(gd._replace(poses=P), jac=False)
+    assert torch.equal(r1, re) and torch.equal(c1, ce)
+    for x, y in zip(pg.update(gd, c, dx, 1.0, r), (P, c1, r1)):
+        assert torch.equal(x, y)
+    Pb, cb, rb = _launched("pg_update", lambda: pg.update(gd, c, dx, -1.0,
+                                                          r))
+    assert torch.equal(Pb, gd.poses) and torch.equal(cb, c)
+    assert torch.equal(rb, r)
 
 
 def test_remap_kernel_bit_equal(cuda):

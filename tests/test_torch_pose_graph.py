@@ -346,3 +346,124 @@ def test_pcg_cluster_data_flow_matches_plain(F, n, extra, C):
     want = tpg.pcg_plain(g64, Ji, Minv, diag, gvec, 24).numpy()
     got = _pcg_cluster_emulated(g, Ji, Minv, diag, gvec, 24, C)
     assert np.abs(got - want).max() <= 1e-9 * np.abs(want).max()
+
+
+# pg_edges' and pg_update's plan and the residuals a GN step hands on: the
+# CTAs of edge_layout at the loop closer's four slot buckets (E = 4F) and
+# at a ragged E; update_plain's residuals; the solves, which evaluate their
+# edges once, against a loop that evaluates them at every step
+_SWEEP = [(64, 256), (128, 512), (256, 1024), (512, 2048), (10, 37)]
+
+
+def test_edge_layout_matches_kernel():
+    """EDGE_SLOTS and EDGE_NT equal csrc/pose_graph.cu's."""
+    import os
+    import re
+    src = open(os.path.join(os.path.dirname(tpg.__file__), os.pardir,
+                            "csrc", "pose_graph.cu")).read()
+    consts = dict(re.findall(r"constexpr int (EDGE_\w+) = (\d+);", src))
+    assert {k: int(v) for k, v in consts.items()} == {
+        "EDGE_SLOTS": tpg.EDGE_SLOTS, "EDGE_NT": tpg.EDGE_NT}
+    assert tpg.EDGE_SLOTS <= tpg.EDGE_NT and tpg.EDGE_NT % 32 == 0
+
+
+@pytest.mark.parametrize("F,E", _SWEEP)
+def test_edge_layout_owns_every_slot_once(F, E):
+    """Every edge slot and every pose slot belongs to exactly one CTA,
+    contiguous ranges in CTA order, at most a thread an edge; Fb 64
+    already spans several SMs."""
+    ctas, threads = tpg.edge_layout(E)
+    parts = tpg.edge_partition(F, E)
+    assert len(parts) == ctas and threads == tpg.EDGE_NT
+    if F == 64:
+        assert ctas > 1
+    es = [e for (e0, e1), _ in parts for e in range(e0, e1)]
+    ns = [n for _, (n0, n1) in parts for n in range(n0, n1)]
+    assert es == list(range(E)) and ns == list(range(F))
+    assert all(0 < e1 - e0 <= tpg.EDGE_SLOTS for (e0, e1), _ in parts)
+
+
+@pytest.fixture
+def one_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _circle(F, n, extra):
+    from plslam_tpu_torch.io import synthetic
+    d = synthetic.drift_circle_graph(F, n, extra, seed=F)[0]
+    return convert.pose_graph_from_numpy(d, "cpu")
+
+
+def test_update_plain_hands_on_the_residuals(one_thread):
+    """An accepted step hands on the residuals and cost at the poses it
+    returns, as edge_residuals_plain computes them there; the reversed
+    step raises the cost, is rejected and hands back the input residuals
+    (with none given, the residuals at the input poses)."""
+    g = _circle(64, 40, 60)
+    r, Ji, c = tpg.edges_plain(g)
+    diag = tpg._diag(g, torch.zeros(64, dtype=torch.bool), True)
+    gvec, Hd = tpg.blocks_plain(g, r, Ji, diag)
+    dx = tpg.pcg_plain(g, Ji, torch.linalg.inv(Hd), diag, gvec, 24)
+    P, c1, r1 = tpg.update_plain(g, c, dx, 1.0, r)
+    assert float(c1) < float(c) and not torch.equal(P, g.poses)
+    assert torch.equal(r1, tpg.edge_residuals_plain(P, g))
+    assert torch.equal(c1, tpg.edges_plain(g._replace(poses=P))[2])
+    back = g.poses @ tlie.exp_se3(torch.where(g.pose_valid[:, None], -dx,
+                                              0.0))
+    assert float(tpg.edges_plain(g._replace(poses=back))[2]) > float(c)
+    mark = r + 1.0        # not the residuals at g.poses: handed back as is
+    P2, c2, r2 = tpg.update_plain(g, c, dx, -1.0, mark)
+    assert torch.equal(P2, g.poses) and torch.equal(c2, c)
+    assert torch.equal(r2, mark)
+    assert torch.equal(tpg.update_plain(g, c, dx, -1.0)[2], r)
+
+
+def _recomputing_solve(name, g, freeze, iters, cg_iters=24):
+    """The GN loop as it was: the edges at every step, the first cost from
+    an evaluation of its own, the update's trial cost from the residuals
+    at the trial poses."""
+    F = g.poses.shape[0]
+    diag = tpg._diag(g, freeze, True)
+    cost = lambda P: torch.sum(g.edge_w * torch.sum(
+        tpg.edge_residuals_plain(P, g) ** 2, dim=-1))
+    c0 = cost(g.poses)
+    c, poses = c0, g.poses
+    for _ in range(iters):
+        gi = g._replace(poses=poses)
+        r = tpg.edge_residuals_plain(poses, gi)
+        Ji = tpg._jac(gi)
+        if name == "dense":
+            H, gv = tpg.assemble_plain(gi, r, Ji, diag)
+            step = -torch.linalg.solve_ex(H, gv[:, None])[0][:, 0].reshape(
+                F, 6)
+        else:
+            gv, Hd = tpg.blocks_plain(gi, r, Ji, diag)
+            step = tpg.pcg_plain(gi, Ji, torch.linalg.inv_ex(Hd)[0], diag,
+                                 gv, cg_iters)
+        new = poses @ tlie.exp_se3(torch.where(g.pose_valid[:, None], step,
+                                               0.0))
+        c_new = cost(new)
+        ok = torch.isfinite(c_new) & (c_new <= c)
+        poses, c = torch.where(ok, new, poses), torch.where(ok, c_new, c)
+    return poses, c0, c
+
+
+@pytest.mark.parametrize("name,F,n,extra", [("dense", 64, 40, 60),
+                                            ("pcg", 64, 40, 60),
+                                            ("pcg", 128, 100, 300)])
+def test_solves_equal_recomputing_loop(one_thread, name, F, n, extra):
+    """The solves, which evaluate Ji once and take each step's residuals
+    from the last update, give the same bits as the loop that evaluates
+    every edge at every step (12 iterations, rejected steps among them
+    near convergence)."""
+    g = _circle(F, n, extra)
+    freeze = torch.zeros(F, dtype=torch.bool)
+    got = (tpg._optimize_dense(g, freeze, 12) if name == "dense"
+           else tpg._optimize_pcg(g, freeze, 12, 24))
+    want = _recomputing_solve(name, g, freeze, 12)
+    for x, y in zip(got, want):
+        assert torch.equal(x, y)
+    assert float(got[2]) < 0.5 * float(got[1])
