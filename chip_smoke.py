@@ -20,8 +20,9 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
      pyramid levels; K=1024), D's
      matcher (hamming_scan + hamming_finish) under the stereo gate and
      the f2f window at 20 x 1024 x 1024, the line kernels E-H at both
-     detector scales (G also as the whole refit_roots and merge_segments
-     calls) and D under a mask at 20 x 128 x 128, then I (K13:
+     detector scales (E's one launch also bit for bit against the chain
+     it replaced, whose launches stay as "before" rows; G also as the
+     whole refit_roots and merge_segments calls) and D under a mask at 20 x 128 x 128, then I (K13:
      its phase-only form, a GN phase of 20 pairs with and without lines;
      the whole optimize_pose, one launch, at 20 pairs with and without
      lines, the lite pass and one pair, every PoseResult field held: T,
@@ -676,6 +677,19 @@ def _rel_maps(got, ref):
             [r / s for r, s in zip(ref, scales)])
 
 
+def tile_moments_chain(img, tile, grad_th, u8_wrap=False):
+    """Kernel E as tile_stage launched it before its one launch:
+    lines_sobel's planes, lines_moments' orientation pass, torch's unit
+    field, lines_moments' reweighted pass."""
+    from plslam_tpu_torch.ops import lines
+    s = tile // 2
+    w, d2x, d2y = lines.gradient_planes(img, grad_th, u8_wrap)
+    D2x, D2y = lines.orientation_maps(d2x, d2y, tile, s)
+    d2n = lines.sqrt_rn(D2x * D2x + D2y * D2y) + 1e-9
+    return lines.reweighted_moments(w, d2x, d2y, D2x / d2n, D2y / d2n, tile,
+                                    s)
+
+
 def detector_case(record, img, kw, tag, min_ok_per_image):
     """Kernels E, F and G at one scale of the line detector, each fed by
     the one before, with that scale's settings ``kw``
@@ -697,45 +711,25 @@ def detector_case(record, img, kw, tag, min_ok_per_image):
     src_s = "plslam_tpu_torch/csrc/lines_segments.cu"
     rel = "relative to each map's largest magnitude"
 
-    # E launch 1: Sobel + support planes; ~25 flops per pixel, 1 plane in,
-    # 3 out. Library: F.conv2d of the two 3x3 Sobel kernels (gx, gy only)
-    got = lines.gradient_planes(img, th)
-    ref = lines.gradient_planes_plain(img, th)
-    sob = sobel_weights(dev)
-    record("lines_sobel" + tag, src_t, "plslam_tpu/ops/image.py:113",
-           list(got), list(ref), 0.0,
-           lambda: lines.gradient_planes(img, th),
-           lambda: lines.gradient_planes_plain(img, th),
-           npx * 16, npx * 25,
-           lambda: F.conv2d(F.pad(img[:, None], (1, 1, 1, 1),
-                                  mode="replicate"), sob),
-           entry="lines_sobel")
-    w, d2x, d2y = ref
-
-    # E launch 2, orientation pass: window sums of the two double-angle
-    # planes; 2 adds per pixel and plane, 4 per window. Library: a grouped
-    # F.conv2d(stride=s) with 2s x 2s kernels of ones
-    got = lines.orientation_maps(d2x, d2y, tile, s)
-    ref = lines.orientation_maps_plain(d2x, d2y, tile, s)
-    ones = torch.ones((2, 1, tile, tile), device=dev)
-    p2 = torch.stack([d2x, d2y], 1)
-    g_rel, r_rel = _rel_maps(got, ref)
-    record("lines_orientation" + tag, src_t, "plslam_tpu/ops/lines.py:167",
-           g_rel, r_rel, 1e-5,
-           lambda: lines.orientation_maps(d2x, d2y, tile, s),
-           lambda: lines.orientation_maps_plain(d2x, d2y, tile, s),
-           npx * 8 + nt * 8, npx * 4 + nt * 8,
-           lambda: F.conv2d(p2, ones, stride=s, groups=2),
-           entry="lines_moments", err_kind=rel)
-
-    # E launch 2, the reweighted pass: ~8 flops for the ratio and 8
-    # multiply-adds per pixel. Library: F.conv2d(stride=s) of the three
-    # planes with eight 2s x 2s window-local coordinate kernels
-    D2x, D2y = ref
-    d2n = torch.sqrt(D2x * D2x + D2y * D2y) + 1e-9
-    u = (D2x / d2n, D2y / d2n)
-    got = lines.reweighted_moments(w, d2x, d2y, *u, tile, s)
-    ref = lines.reweighted_moments_plain(w, d2x, d2y, *u, tile, s)
+    # E on the path: one launch from the image to the eight reweighted
+    # window maps (tile_moments), against its plain version (relative 1e-5:
+    # the block sums' order) and, bit for bit, against the four-step chain
+    # it replaced (tile_moments_chain: lines_sobel, lines_moments, torch's
+    # unit field, lines_moments). Bytes: the image in, 32 a window out;
+    # operations: ~25 a pixel for the Sobel taps and planes, 2 for the
+    # orientation sums, and ~24 for the ratio and the eight sums of each
+    # pixel on the support (w > 0: the others add +0), ~70 a window for
+    # the unit field and the shifts. Library: the reweighted pass's
+    # F.conv2d below (no one call computes the function)
+    tkw = (tile, th)
+    got = lines.tile_moments(img, *tkw)
+    ref = lines.tile_moments_plain(img, *tkw)
+    chain = tile_moments_chain(img, *tkw)
+    diff = [int((g != c).sum()) for g, c in zip(got, chain)]
+    check(sum(diff) == 0, f"lines_tile_moments{tag}: maps differ from the "
+          f"chain it replaced in {diff} windows")
+    w, d2x, d2y = lines.gradient_planes_plain(img, th)
+    n_sup = int((w > 0).sum())
     loc = torch.arange(tile, dtype=torch.float32)
     lx, ly = loc[None, :].expand(tile, tile), loc[:, None].expand(tile, tile)
     one = torch.ones(tile, tile)
@@ -747,13 +741,73 @@ def detector_case(record, img, kw, tag, min_ok_per_image):
     wk = wk.to(dev)
     planes = torch.stack([w, d2x, d2y], 1)
     g_rel, r_rel = _rel_maps(got, ref)
+    record("lines_tile_moments" + tag, src_t,
+           "plslam_tpu/ops/lines.py:330-375", g_rel, r_rel, 1e-5,
+           lambda: lines.tile_moments(img, *tkw),
+           lambda: lines.tile_moments_plain(img, *tkw),
+           npx * 4 + nt * 32, npx * 27 + n_sup * 24 + nt * 70,
+           lambda: F.conv2d(planes, wk, stride=s),
+           entry="lines_tile_moments",
+           err_kind=rel + "; the chain it replaced: exact, checked",
+           library_what="the reweighted pass's window sums of given planes")
+    new_dev = record.rows[-1]["device_ms"]
+    print(f"[E{tag}] lines_tile_moments on {N} x {H}x{W} ({nt} windows, "
+          f"{n_sup} support pixels): bit-equal to the chain in every map; "
+          f"device {new_dev:.4f} ms", flush=True)
+
+    # before (no path caller since the one launch): E launch 1, Sobel +
+    # support planes; ~25 flops per pixel, 1 plane in, 3 out. Library:
+    # F.conv2d of the two 3x3 Sobel kernels (gx, gy only)
+    got = lines.gradient_planes(img, th)
+    ref = lines.gradient_planes_plain(img, th)
+    sob = sobel_weights(dev)
+    record("lines_sobel" + tag, src_t, "plslam_tpu/ops/image.py:113",
+           list(got), list(ref), 0.0,
+           lambda: lines.gradient_planes(img, th),
+           lambda: lines.gradient_planes_plain(img, th),
+           npx * 16, npx * 25,
+           lambda: F.conv2d(F.pad(img[:, None], (1, 1, 1, 1),
+                                  mode="replicate"), sob),
+           entry="lines_sobel", before=True)
+
+    # before: E launch 2, orientation pass: window sums of the two
+    # double-angle planes; 2 adds per pixel and plane, 4 per window.
+    # Library: a grouped F.conv2d(stride=s) with 2s x 2s kernels of ones
+    got = lines.orientation_maps(d2x, d2y, tile, s)
+    ref = lines.orientation_maps_plain(d2x, d2y, tile, s)
+    ones = torch.ones((2, 1, tile, tile), device=dev)
+    p2 = torch.stack([d2x, d2y], 1)
+    g_rel, r_rel = _rel_maps(got, ref)
+    record("lines_orientation" + tag, src_t, "plslam_tpu/ops/lines.py:167",
+           g_rel, r_rel, 1e-5,
+           lambda: lines.orientation_maps(d2x, d2y, tile, s),
+           lambda: lines.orientation_maps_plain(d2x, d2y, tile, s),
+           npx * 8 + nt * 8, npx * 4 + nt * 8,
+           lambda: F.conv2d(p2, ones, stride=s, groups=2),
+           entry="lines_moments", err_kind=rel, before=True)
+
+    # before: E launch 2, the reweighted pass: ~8 flops for the ratio and
+    # 8 multiply-adds per pixel. Library: F.conv2d(stride=s) of the three
+    # planes with eight 2s x 2s window-local coordinate kernels
+    D2x, D2y = ref
+    d2n = torch.sqrt(D2x * D2x + D2y * D2y) + 1e-9
+    u = (D2x / d2n, D2y / d2n)
+    got = lines.reweighted_moments(w, d2x, d2y, *u, tile, s)
+    ref = lines.reweighted_moments_plain(w, d2x, d2y, *u, tile, s)
+    g_rel, r_rel = _rel_maps(got, ref)
     record("lines_moments" + tag, src_t, "plslam_tpu/ops/lines.py:84",
            g_rel, r_rel, 1e-5,
            lambda: lines.reweighted_moments(w, d2x, d2y, *u, tile, s),
            lambda: lines.reweighted_moments_plain(w, d2x, d2y, *u, tile, s),
            npx * 12 + nt * 4 * 10, npx * 24 + nt * 40,
            lambda: F.conv2d(planes, wk, stride=s),
-           entry="lines_moments", err_kind=rel)
+           entry="lines_moments", err_kind=rel, before=True)
+    rows = {r["name"]: r for r in record.rows}
+    old_dev = sum(rows[k + tag]["device_ms"] for k in (
+        "lines_sobel", "lines_orientation", "lines_moments"))
+    print(f"[E{tag}] one launch {new_dev:.4f} ms device; the chain's three "
+          f"launches (lines_sobel, lines_moments twice) {old_dev:.4f} ms, "
+          f"torch's unit field between them not counted", flush=True)
     S = ref
 
     # F: the gates and labels in one launch: 32 bytes in, 21 + 4 out a
@@ -948,7 +1002,7 @@ def line_kernel_phase(images, cfg, record):
            lambda: image.sobel_gradients_plain(small), nsm * 12, nsm * 10,
            lambda: F.conv2d(F.pad(small[:, None], (1, 1, 1, 1),
                                   mode="replicate"), sob),
-           entry="lines_sobel")
+           entry="lines_sobel", before=True)
 
     # H: LBD bits of the path's (fused) segments on the half-res image, one
     # launch from the image (describe_lines_image): the image read once,
@@ -1035,7 +1089,7 @@ def main_scene(lines: bool):
 # batch: 4 pyramid levels blurred and 3 resized, ORB's 4 half-res moment
 # levels (both maps in one paired filter launch), FAST on 4 levels, one
 # stereo match each of points and lines; the line detector at 2 scales,
-# each 2 Sobel/moment launches, labels, refit and merge, the half-res
+# each its window moments in one launch, labels, refit and merge, the half-res
 # resize and LBD from the half-res image, its Sobel taps formed inside the
 # launch) and in one chunk's tracking (chunk_passes=2:
 # two f2f matches of points and, with lines, two of lines). The main
@@ -1044,7 +1098,7 @@ def main_scene(lines: bool):
 EXTRACT_POINTS = {"image_sep_filter": 8, "image_resize": 7, "fast_score": 4,
                   "fast_nms_block": 4, "orb_describe": 1, "hamming_scan": 1,
                   "hamming_finish": 1}
-EXTRACT_LINES = {"image_resize": 1, "lines_sobel": 2, "lines_moments": 4,
+EXTRACT_LINES = {"image_resize": 1, "lines_tile_moments": 2,
                  "lines_label": 2, "lines_refit": 2, "lines_merge": 2,
                  "lbd_describe": 1, "hamming_scan": 1, "hamming_finish": 1}
 TRACK = {"hamming_scan": 2, "hamming_finish": 2}
@@ -3486,8 +3540,10 @@ def against_side(root: str, out_path: str, desc_path: str) -> None:
     NMS block max at level 0, K5 (the whole ``describe_multilevel`` on
     the pyramid of the 40 images at 1,024 seeded keypoints an image, and
     what it runs after its moment filters: ``orient_and_describe``, or a
-    parent's torch glue and ``pool_bits``), K9 on the line scene's 40
-    images at full and half resolution (the whole ``tile_stage``, and its
+    parent's torch glue and ``pool_bits``), kernel E on the line scene's
+    40 images at full and half resolution (``tile_moments``, or a parent's
+    four-step chain, ``tile_moments_chain``: the maps' bits equal), K9 on
+    the same images (the whole ``tile_stage``, and its
     gates and labels alone: ``gates_and_labels``, or a parent's
     ``tile_gates`` + ``propagate_labels``), kernel G (``refit_roots`` on
     the TileStage of the line scene's 40 images through kernels E and F,
@@ -3513,8 +3569,8 @@ def against_side(root: str, out_path: str, desc_path: str) -> None:
     (all of them, torch's too) of one point front end
     (``detect_and_describe``) under torch.profiler;
     saves the outputs and each call's device time (torch.profiler, the
-    hand kernels; for K13, K2, K5, K9, G, K14, K16, K17 and K18 also every
-    device kernel's time and count, ``all_kernels``; for K5, K9, G, K12,
+    hand kernels; for K13, K2, K5, E, K9, G, K14, K16, K17 and K18 also every
+    device kernel's time and count, ``all_kernels``; for K5, E, K9, G, K12,
     K14, K15's index, camera blocks and step, K16, K17 and K18 the
     wrapper's time, CUDA events) to ``out_path``."""
     sys.path.insert(0, root)
@@ -3670,6 +3726,17 @@ def against_side(root: str, out_path: str, desc_path: str) -> None:
             "tile", "grad_th", "min_support", "elong_th", "perp_spread_th",
             "coherence_th", "merge_iters", "merge_ang_th", "merge_dist_th")}
         ts = lines.tile_stage(img, **tkw)
+        # kernel E: the eight window maps from the image, one
+        # lines_tile_moments launch, or a parent's four-step chain
+        # (tile_moments_chain); every map's bits equal, checked
+        if hasattr(lines, "tile_moments"):
+            fn = lambda: list(lines.tile_moments(img, tile, kw["grad_th"]))
+        else:
+            fn = lambda: list(tile_moments_chain(img, tile, kw["grad_th"]))
+        res["tile_moments" + tag] = ([x.cpu() for x in fn()],
+                                     device_ms(fn, iters=20),
+                                     *all_kernels(fn, iters=20),
+                                     cuda_ms(fn, 50))
         # K9: the whole tile_stage, and its gates and labels alone on the
         # window moments (kernel E's, the same on both trees): this tree's
         # gates_and_labels, or a parent's tile_gates + propagate_labels;
@@ -3938,9 +4005,9 @@ def against(other: str) -> None:
     in a process of its own; prints each output's largest difference
     between the two trees (the scale's and the cost's as bits too), every
     device time and the point front end's device kernels; fails where K5's
-    or K12's bits, K9's tile_ok or labels or K15's landmark index differ
-    between the trees, or K18's edge sweep and solves break
-    ``_hold_pose_graph``'s rule."""
+    or K12's bits, kernel E's maps, K9's tile_ok or labels or K15's
+    landmark index differ between the trees, or K18's edge sweep and
+    solves break ``_hold_pose_graph``'s rule."""
     import os
     import tempfile
     import torch
@@ -3986,20 +4053,24 @@ def against(other: str) -> None:
                   for who in ("other", "this")}
             print(f"[against] {key}: wrapper ms this {wr['this']}, other "
                   f"{wr['other']}", flush=True)
-    # K5's and K12's bits, K9's tile_ok and labels and K15's landmark
-    # index equal on both trees
+    # K5's and K12's bits, kernel E's maps, K9's tile_ok and labels and
+    # K15's landmark index equal on both trees
     for key, idx in (("describe_multilevel", (0,)),
                      ("orb_after_filters", (0,)),
+                     ("tile_moments", range(8)), ("tile_moments@half",
+                                                  range(8)),
                      ("tile_stage", (0, 1)), ("tile_stage@half", (0, 1)),
                      ("gates_and_labels", (0, 6)),
                      ("gates_and_labels@half", (0, 6)),
                      ("lbd@image", (0,)), ("lbd@grad", (0,)),
                      ("lba_index", (0, 1))):
         check(all(torch.equal(a[key][0][i], b[key][0][i]) for i in idx),
-              f"{key}: the two trees' bits, tile_ok, labels or lists differ")
+              f"{key}: the two trees' bits, maps, tile_ok, labels or lists "
+              "differ")
         same = [torch.equal(x, y) for x, y in zip(a[key][0], b[key][0])]
-        print(f"[against] {key}: bits / tile_ok / labels / lists equal on "
-              f"both trees; the same bits per output {same}", flush=True)
+        print(f"[against] {key}: bits / maps / tile_ok / labels / lists "
+              f"equal on both trees; the same bits per output {same}",
+              flush=True)
     for key in ("lbd", "lba_index"):
         print(f"[against] {key}: grid, block this {b['grids'].get(key)}, "
               f"other {a['grids'].get(key)}", flush=True)

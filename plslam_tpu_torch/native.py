@@ -51,6 +51,7 @@ _SIGNATURES: Dict[str, str] = {
     "hamming_finish": "p" * 6 + "iiiff",
     "lines_sobel": "ppppppiiifi",
     "lines_moments": "pppppppiiiiii",
+    "lines_tile_moments": "ppiiiiiifi",
     "lines_label": "p" * 18 + "iiii" + "ffffff" + "i",
     "lines_refit": "p" * 17 + "iii" + "fff",
     "lines_merge": "p" * 10 + "iii" + "fffi",
@@ -80,7 +81,8 @@ KERNEL_FUNCTIONS = (
     "fast_score_kernel", "nms_block_kernel",
     "orb_describe_kernel", "dist_kernel", "col_argmin_kernel",
     "row_match_kernel", "hamming_scan_kernel", "hamming_finish_kernel",
-    "sobel_kernel", "block_moments", "window_moments", "label_kernel",
+    "sobel_kernel", "block_moments", "window_moments",
+    "tile_moments_kernel", "label_kernel",
     "refit_kernel", "merge_kernel", "lbd_kernel", "pose_optimize_kernel",
     "kf_scan_kernel", "medoid_kernel", "terms_kernel",
     "camera_kernel", "lba_index_kernel", "bin_index_kernel",

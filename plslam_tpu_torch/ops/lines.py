@@ -1,13 +1,16 @@
 """Line-segment detection (kernels E, F, G; K4, K8-K11).
 
 Port of ``plslam_tpu/ops/lines.py``: a tile-wise reformulation of LSD.
-Sobel gradients and the per-pixel support planes (kernel E launch 1), the
-overlapping (2s x 2s, stride s) window moments in window-LOCAL coordinates
-(kernel E launch 2, an orientation pass and a reweighted pass), the
-per-tile gates and the collinear min-label propagation over the tile grid
-(kernel F, one launch: :func:`gates_and_labels`), the per-root refit
-into candidate segments (kernel G launch 1) and the segment-level
-collinear merge (kernel G launch 2). The root and candidate selections
+Sobel gradients and the per-pixel support planes, then the overlapping
+(2s x 2s, stride s) window moments in window-LOCAL coordinates, an
+orientation pass and a reweighted pass (kernel E: on the path one launch
+from the image, :func:`tile_moments`; the planes and each pass also alone,
+:func:`gradient_planes`, :func:`orientation_maps`,
+:func:`reweighted_moments`), the per-tile gates and the collinear
+min-label propagation over the tile grid (kernel F, one launch:
+:func:`gates_and_labels`), the per-root refit into candidate segments
+(kernel G launch 1) and the segment-level collinear merge (kernel G
+launch 2). The root and candidate selections
 are stable descending sorts, as ``lax.top_k``.
 
 Every function takes a batch: images (N, H, W) f32, tile maps (N, Th, Tw),
@@ -219,6 +222,46 @@ def reweighted_moments(w, d2x, d2y, u2x, u2y, tile: int, stride: int):
                            tile, stride, 8)
 
 
+def tile_moments_plain(img: torch.Tensor, tile: int, grad_th: float,
+                       u8_wrap: bool = False):
+    """See :func:`tile_moments`: :func:`gradient_planes_plain`,
+    :func:`orientation_maps_plain`, the unit field,
+    :func:`reweighted_moments_plain`."""
+    stride = tile // 2
+    w, d2x, d2y = gradient_planes_plain(img, grad_th, u8_wrap)
+    D2x, D2y = orientation_maps_plain(d2x, d2y, tile, stride)
+    d2n = sqrt_rn(D2x * D2x + D2y * D2y) + 1e-9
+    return reweighted_moments_plain(w, d2x, d2y, D2x / d2n, D2y / d2n, tile,
+                                    stride)
+
+
+def tile_moments(img: torch.Tensor, tile: int, grad_th: float,
+                 u8_wrap: bool = False):
+    """The line detector's window moments from (N, H, W) images: the
+    support planes (:func:`gradient_planes`), the orientation pass
+    (:func:`orientation_maps`), the tiles' unit double-angle field
+    u2 = D2 / (|D2| + 1e-9), and the reweighted pass
+    (:func:`reweighted_moments`). Returns (S, Sx, Sy, Sxx, Syy, Sxy, D2x,
+    D2y), each (N, Th, Tw). On CUDA tensors one ``lines_tile_moments``
+    launch: the planes and the field stay inside it, and its maps are the
+    bits of the four-step chain on the card."""
+    stride = tile // 2
+    if tile != 2 * stride:
+        raise ValueError(f"tile_moments: the tile ({tile}) must be even")
+    if img.device.type == "cpu":
+        return tile_moments_plain(img, tile, grad_th, u8_wrap)
+    N, H, W = img.shape
+    native.require(img, "tile_moments", torch.float32)
+    Th, Tw = tile_grid(H, W, tile)
+    if Th < 1 or Tw < 1:
+        raise ValueError(f"tile_moments: {H}x{W} images hold no {tile}-pixel "
+                         "window")
+    out = torch.empty((8, N, Th, Tw), dtype=torch.float32, device=img.device)
+    native.launch("lines_tile_moments", img, out, N, H, W, Th, Tw, stride,
+                  grad_th, int(u8_wrap))
+    return tuple(out.unbind(0))
+
+
 # -- gates (the plain version of kernel F's first pass) -----------------------
 
 def principal_axis(sxx, syy, sxy):
@@ -417,13 +460,8 @@ def tile_stage(img: torch.Tensor, tile: int = 16, grad_th: float = 0.02,
                merge_dist_th: float = 2.0, u8_wrap: bool = False
                ) -> TileStage:
     """Gradients, gated tile moments, connected-component labels."""
-    stride = tile // 2
-    w, d2x, d2y = gradient_planes(img, grad_th, u8_wrap)
-    D2x, D2y = orientation_maps(d2x, d2y, tile, stride)
-    d2n = sqrt_rn(D2x * D2x + D2y * D2y) + 1e-9
-    u2x, u2y = D2x / d2n, D2y / d2n
-    S, Sx, Sy, Sxx, Syy, Sxy, D2x, D2y = reweighted_moments(
-        w, d2x, d2y, u2x, u2y, tile, stride)
+    S, Sx, Sy, Sxx, Syy, Sxy, D2x, D2y = tile_moments(img, tile, grad_th,
+                                                      u8_wrap)
     tile_ok, cx, cy, cx_l, cy_l, l1, labels = gates_and_labels(
         S, Sx, Sy, Sxx, Syy, Sxy, D2x, D2y, tile, min_support, elong_th,
         perp_spread_th, coherence_th, merge_ang_th, merge_dist_th,

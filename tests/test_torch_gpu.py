@@ -277,6 +277,50 @@ def test_lines_sobel_and_moments(cuda):
         assert _rel_err(g.cpu(), r) <= 1e-5
 
 
+@pytest.mark.parametrize("case", ["full", "half", "u8_wrap", "u8_half",
+                                  "euroc", "euroc_half", "odd", "small",
+                                  "tile12", "tile32"])
+def test_lines_tile_moments(cuda, case):
+    """lines_tile_moments, one launch, bit for bit the chain it replaced
+    on the card (chip_smoke.py's tile_moments_chain: lines_sobel,
+    lines_moments, torch's unit field, lines_moments), and within 1e-5 of each map's largest magnitude of
+    tile_moments_plain on the card: the flagship path's full and half
+    resolution with its thresholds, a uint8 frame held as f32 with
+    u8_wrap at both, the EuRoC layout's 480x752 and 240x376, odd sizes
+    (157x243: 18 x 29 windows), an image smaller than one CTA's windows
+    (40x50), and tiles 12 and 32 (the kernel's any-s form; at 32 its CTAs
+    shrink to fit shared memory)."""
+    th = 5.3 / 255.0
+    shape, tile, wrap, th = {
+        "full": ((3, 376, 1241), 16, False, th),
+        "half": ((3, 188, 620), 16, False, th * 0.5),
+        "u8_wrap": ((2, 376, 1241), 16, True, th),
+        "u8_half": ((2, 188, 620), 16, True, th * 0.5),
+        "euroc": ((2, 480, 752), 16, False, th),
+        "euroc_half": ((2, 240, 376), 16, False, th * 0.5),
+        "odd": ((3, 157, 243), 16, False, 0.02),
+        "small": ((2, 40, 50), 16, False, 0.02),
+        "tile12": ((2, 157, 243), 12, False, 0.02),
+        "tile32": ((2, 376, 620), 32, False, 0.02)}[case]
+    N, H, W = shape
+    x = line_field(len(case), n=N, H=H, W=W, n_lines=max(H * W // 6000, 8))
+    if wrap:
+        x = torch.round(x * 200 + torch.from_numpy(np.random.default_rng(
+            9).integers(0, 56, shape).astype(np.float32)))
+    x = x.to(cuda)
+    got = _launched("lines_tile_moments",
+                    lambda: lines.tile_moments(x, tile, th, wrap))
+    from chip_smoke import tile_moments_chain
+    chain = tile_moments_chain(x, tile, th, wrap)
+    plain = lines.tile_moments_plain(x, tile, th, wrap)
+    Th, Tw = lines.tile_grid(H, W, tile)
+    for g, c, p in zip(got, chain, plain):
+        assert g.shape == (N, Th, Tw)
+        assert torch.equal(g, c)
+        assert _rel_err(g, p) <= 1e-5
+    assert float(got[0].sum()) > 0
+
+
 def _tile_maps(x):
     w, d2x, d2y = lines.gradient_planes_plain(x, 0.02)
     D2x, D2y = lines.orientation_maps_plain(d2x, d2y, 16, 8)

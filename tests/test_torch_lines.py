@@ -37,6 +37,7 @@ from plslam_tpu_torch.frontend.stereo_lines import detect_kwargs
 from torch_line_cases import (G_H, G_MERGE_CASES, G_REFIT_CASES, G_W,
                               kernel_g_merge_case, kernel_g_stage, line_field,
                               stripe_field)
+from chip_smoke import tile_moments_chain
 
 TILE = 16
 
@@ -144,6 +145,43 @@ def test_tile_stage_matches_reference(fields, ref_stages):
         for f in ("S", "Sx", "Sxx", "Sxy", "cx", "l1"):
             assert _rel(getattr(got, f)[n].numpy(),
                         np.asarray(getattr(ref, f))) <= 1e-5
+
+
+def test_tile_moments_match_reference(fields, ref_stages):
+    """tile_moments (kernel E's one launch on the card) on the CPU: the
+    line fields, a uint8 first frame (u8_wrap, against the reference's
+    tile_stage of the uint8 array) and an image smaller than one CTA's
+    16 x 29 windows. Bit for bit the four-step chain it replaced; S..Sxy
+    within 1e-5 of each map's largest magnitude of the reference's
+    tile_stage, D2x and D2y of its reweighted window maps. The chain is
+    chip_smoke.py's ``tile_moments_chain`` (the public functions; on the
+    CPU their plain versions)."""
+    rng = np.random.default_rng(3)
+    u8 = np.round(_render_field(5) * 200
+                  + rng.integers(0, 56, (160, 200))).astype(np.uint8)
+    small = fields[:, :40, :50]
+    cases = [(fields, False, ref_stages),
+             (u8[None].astype(np.float32), True,
+              [jlines.tile_stage(jnp.asarray(u8), tile=TILE)]),
+             (small, False,
+              [jlines.tile_stage(jnp.asarray(f), tile=TILE) for f in small])]
+    for imgs, wrap, refs in cases:
+        x = _t(np.ascontiguousarray(imgs))
+        got = tlines.tile_moments(x, TILE, 0.02, u8_wrap=wrap)
+        chain = tile_moments_chain(x, TILE, 0.02, u8_wrap=wrap)
+        assert len(got) == 8
+        for g, c in zip(got, chain):
+            assert g.shape == (x.shape[0],) + tlines.tile_grid(
+                *x.shape[1:], TILE)
+            assert torch.equal(g, c)
+        for n, ref in enumerate(refs):
+            for g, f in zip(got[:6], ("S", "Sx", "Sy", "Sxx", "Syy", "Sxy")):
+                assert _rel(g[n].numpy(), np.asarray(getattr(ref, f))) <= 1e-5
+            rimg = np.asarray(imgs[n]).astype(u8.dtype if wrap else np.float32)
+            _, maps = _ref_maps(rimg)
+            for g, r in zip(got[6:], maps[6:]):
+                assert _rel(g[n].numpy(), np.asarray(r)) <= 1e-5
+        assert float(got[0].sum()) > 0
 
 
 def test_gates_and_labels_exact_given_reference_maps(fields, ref_stages):
