@@ -65,9 +65,12 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
      that run against the real vocabularies, D at the verification shapes,
      the covisibility gather (K7) and M (K18) launch by launch at Fb = 64
      and 512 (the edge sweep, ``pg_edges`` in both modes and
-     ``pg_update``, and ``pg_pcg`` at all four slot buckets, with their
-     grids), what ``pg_update`` hands on against ``pg_edges``, a rejected
-     step, the whole dense and PCG solves against float64;
+     ``pg_update`` with and without each order's gradient, and ``pg_pcg``
+     at all four slot buckets, with their grids), what ``pg_update`` hands
+     on against ``pg_edges``, a rejected step, the library's LU, solve and
+     inverse at the solves' sizes, the whole dense and PCG solves against
+     float64 and bit for bit against the loop that assembles and solves
+     every step (as every solve of the loop runs);
   6. the dataset paths, from files written to a temporary directory: the
      app (``apps/plstvo_dataset.py``) over bench.py's scene as a
      KITTI-layout directory of PNGs (every row filter) at 1241x376,
@@ -98,7 +101,8 @@ level 0, kernel G (refit_roots and merge_segments at both detector
 scales), K12's bits (from the half-res images, or a parent's Sobel launch
 and lbd_describe; and on given Sobel maps), K14's kf_scan, K15's
 landmark index, camera blocks, step and run_lba, K16's medoid rows, K17's
-descent and histogram and K18's edge sweep, PCG and whole solves
+descent and histogram and K18's normal equations (bit for bit), edge
+sweep, PCG and whole solves
 against those of another checkout at DIR (for example a ``git archive``
 of the parent
 commit): outputs and device times (most also every device kernel's,
@@ -2350,9 +2354,11 @@ def loop_scene():
 
 class LoopProbe:
     """Counts and times the loop closer's steps on the card (each timed
-    call is bracketed by synchronizes) and records the candidate margins.
-    Installed around the module-level functions the closer calls; it
-    changes nothing they compute."""
+    call is bracketed by synchronizes) and records the candidate margins
+    and each pose-graph solve's graph and result (``hold_solves`` holds
+    them, after the run, bit-equal to ``_per_step_solve``). Installed
+    around the module-level functions the closer calls; it changes nothing
+    they compute."""
 
     def __init__(self):
         import plslam_tpu_torch.loop.loop_closer as tlc
@@ -2360,6 +2366,7 @@ class LoopProbe:
         self.saved = {}
         self.n = {}
         self.ms = {}
+        self.solves = []         # (name, bound arguments, result)
         self.margin = math.inf       # smallest |rel - lc_mat|
         self.gap = math.inf          # smallest gap between ranked candidates
         for name in ("verify_loop_geometry", "_post_loop_update",
@@ -2385,6 +2392,7 @@ class LoopProbe:
         tlc.select_candidates = select
 
     def _wrap(self, name):
+        import inspect
         import torch
         orig = getattr(self.mod, name)
         self.saved[name] = orig
@@ -2397,12 +2405,44 @@ class LoopProbe:
             self.n[name] = self.n.get(name, 0) + 1
             self.ms.setdefault(name, []).append(
                 1e3 * (time.perf_counter() - t0))
+            if name.startswith("optimize_pose_graph"):
+                args = inspect.signature(orig).bind(*a, **k)
+                args.apply_defaults()
+                g = args.arguments["g"]
+                args.arguments["g"] = g._replace(
+                    **{f: getattr(g, f).clone() for f in g._fields})
+                self.solves.append((name, args.arguments,
+                                    [x.clone() for x in out]))
             return out
         setattr(self.mod, name, timed)
+
+    def hold_solves(self) -> int:
+        """Each recorded solve against the loop that assembles and solves
+        every GN step on the same graph, bit for bit; returns their count."""
+        import torch
+        from plslam_tpu_torch.loop import pose_graph as pg
+        for name, kw, out in self.solves:
+            g = kw["g"]
+            freeze = torch.from_numpy(pg.frozen_mask(g)).to(g.poses.device)
+            want = _per_step_solve(
+                pg, "pcg" if name.endswith("pcg") else "dense", g, freeze,
+                kw["iters"], kw.get("cg_iters", 96), kw["fix_first"])
+            check(all(torch.equal(x, y) for x, y in zip(out, want)),
+                  f"{name}: the solve differs from the loop that assembles "
+                  "and solves every GN step")
+        return len(self.solves)
 
     def close(self):
         for name, fn in self.saved.items():
             setattr(self.mod, name, fn)
+
+
+# K18's hand launches a solve at 12 GN iterations: H (dense) or its diagonal
+# blocks (PCG) and the first gradient once, each later gradient from
+# pg_update
+SOLVE_LAUNCHES = {"dense": {"pg_edges": 1, "pg_assemble": 1, "pg_update": 12},
+                  "pcg": {"pg_edges": 1, "pg_blocks": 1, "pg_pcg": 12,
+                          "pg_update": 12}}
 
 
 def expected_loop_launches(n_kfs, n_lba, p: LoopProbe, n_closed) -> dict:
@@ -2410,9 +2450,10 @@ def expected_loop_launches(n_kfs, n_lba, p: LoopProbe, n_closed) -> dict:
     keyframe, the first included) the BoW descent and histogram of each
     family; per verification D twice (ORB, LBD) and one optimize_pose (K13);
     per closure the landmark fusion (D twice); per dense solve one
-    pg_edges (r, Ji, the first cost) and 12 x (pg_assemble, pg_update);
-    per PCG solve one pg_edges and 12 x (pg_blocks, pg_pcg, pg_update);
-    per post-closure update one window LBA (K15)."""
+    pg_edges (r, Ji, the first cost), one pg_assemble (H and the first
+    gradient) and 12 pg_update (each hands on the next gradient); per PCG
+    solve one pg_edges, one pg_blocks and 12 x (pg_pcg, pg_update); per
+    post-closure update one window LBA (K15)."""
     from collections import Counter
     n = Counter(expected_slam_launches(n_kfs, n_lba, LOOP_CHUNKS))
     g = lambda k: p.n.get(k, 0)
@@ -2421,10 +2462,8 @@ def expected_loop_launches(n_kfs, n_lba, p: LoopProbe, n_closed) -> dict:
             ({"hamming_scan": 2, "hamming_finish": 2, "pose_gn_optimize": 1},
              g("verify_loop_geometry")),
             ({"hamming_scan": 2, "hamming_finish": 2}, n_closed),
-            ({"pg_edges": 1, "pg_assemble": 12, "pg_update": 12},
-             g("optimize_pose_graph")),
-            ({"pg_edges": 1, "pg_blocks": 12, "pg_pcg": 12,
-              "pg_update": 12}, g("optimize_pose_graph_pcg")),
+            (SOLVE_LAUNCHES["dense"], g("optimize_pose_graph")),
+            (SOLVE_LAUNCHES["pcg"], g("optimize_pose_graph_pcg")),
             (PER_LBA, g("_post_loop_update"))):
         for k, v in table.items():
             n[k] += v * times
@@ -2510,8 +2549,9 @@ def loop_path(dev, tag, updates=None, cpu=None):
           f"{probe.margin:.6g}, smallest gap between ranked candidates "
           f"{probe.gap:.6g}, smallest keyframe-decision margin "
           f"{margin.min():.6g}", flush=True)
-    print(f"[{tag}] launches={json.dumps(launches, sort_keys=True)}",
-          flush=True)
+    print(f"[{tag}] launches={json.dumps(launches, sort_keys=True)}; "
+          f"{probe.hold_solves()} pose-graph solve(s) bit-equal to the loop "
+          "that assembles and solves every GN step", flush=True)
     check(bool(good.all()), f"{tag}: frames not tracked: "
           f"{np.nonzero(~good)[0]}")
     check(lc.n_loops_closed >= 1, f"{tag}: no loop closed")
@@ -2653,9 +2693,12 @@ def loop_kernel_phase(dev, record, slam):
 
 def pose_graph_phase(dev, record):
     """M (K18) launch by launch at the four slot buckets of PG_BUCKETS (the
-    dense system's and PCG's blocks at Fb 64 and 512; the edge sweep's
-    grids from ``--edge-grids`` in a process of its own), then the whole
-    solves against float64 (dense up to Fb 128)."""
+    dense system's and PCG's blocks at Fb 64 and 512; ``pg_update`` with
+    each order's gradient; the library's LU, solve and inverse; the edge
+    sweep's grids from ``--edge-grids`` in a process of its own), then the
+    whole solves against float64 and against ``_per_step_solve`` (bit for
+    bit; dense up to Fb 128), with every hand kernel's device time in a
+    solve."""
     import os
     from collections import Counter
     import torch
@@ -2758,10 +2801,6 @@ def pose_graph_phase(dev, record):
                    entry="pg_assemble",
                    err_kind="H off its diagonal, H's diagonal (the pins), g "
                    + rel, library_what="the (F·F, 36) block scatter alone")
-            solve_ms = cuda_ms(lambda: torch.linalg.solve_ex(
-                Hp, gvp[:, None]), 5)
-            print(f"[pose_graph] torch.linalg.solve_ex of the {6 * F}x"
-                  f"{6 * F} dense system: {solve_ms:.4f} ms", flush=True)
             gb, Hd = pg.blocks(gd, rp, Jp, diag, inc)
             record(f"pg_blocks@{F}", src_m, rep_m + "227", sc([gb, Hd]),
                    sc([gbp, Hdp]), [1e-5, 1e-6],
@@ -2769,6 +2808,35 @@ def pose_graph_phase(dev, record):
                    lambda: pg.blocks_plain(gd, rp, Jp, diag),
                    E * 180 + F * (4 + 168), n_edges * (36 * 12 + 6 * 14),
                    entry="pg_blocks", err_kind="g, Hd " + rel)
+        # the library calls of the solves: the dense system's LU once and a
+        # solve from it each step (the parent's solve_ex each step: both
+        # bits checked equal), the PCG blocks' batched inverse once; and a
+        # memset of H, the store rate pg_assemble's band meets
+        lib = {"inv_ex": cuda_ms(lambda: torch.linalg.inv_ex(Hdp), 20)}
+        if F in (64, 128, 512):
+            Hp, gvp = pg.assemble_plain(gd, rp, Jp, diag)
+            lu = pg.lu_factor(Hp)
+            check(torch.equal(pg.lu_step(lu, gvp), torch.linalg.solve_ex(
+                Hp, gvp[:, None])[0][:, 0]), f"Fb={F}: the LU's solve differs "
+                  "from torch.linalg.solve_ex's bits")
+            Z = torch.empty_like(Hp)
+            lib.update(solve_ex=cuda_ms(lambda: torch.linalg.solve_ex(
+                Hp, gvp[:, None]), 5), lu_factor_ex=cuda_ms(
+                lambda: torch.linalg.lu_factor_ex(Hp), 5),
+                lu_solve=cuda_ms(lambda: pg.lu_step(lu, gvp), 20),
+                zero_=cuda_ms(lambda: Z.zero_(), 20))
+        # bounds: the LU 2/3 n^3 operations, a solve from it 2 n^2 (its n^2
+        # floats read), the inverse 2 x 6^3 a block (the blocks in and out)
+        n6 = 6 * F
+        bounds = {"inv_ex": bound(F * 36 * 4 * 2, F * 2 * 216),
+                  "solve_ex": bound(n6 * n6 * 4, 2 / 3 * n6 ** 3 + 2 * n6 ** 2),
+                  "lu_factor_ex": bound(2 * n6 * n6 * 4, 2 / 3 * n6 ** 3),
+                  "lu_solve": bound(n6 * n6 * 4, 2 * n6 ** 2),
+                  "zero_": bound(n6 * n6 * 4, 0)}
+        print(f"[library] Fb={F}: " + ", ".join(
+            f"{k} {v:.4f} ms (bound {bounds[k][0]:.3g}, {bounds[k][1]})"
+            for k, v in lib.items()) + f" (the {n6}x{n6} system; inv_ex of "
+              f"the ({F}, 6, 6) blocks; CUDA events)", flush=True)
         Minv = torch.linalg.inv_ex(Hdp)[0]
         dx = pg.pcg(gd, Jp, Minv, diag, gbp, 96, inc)
         dxp = pg.pcg_plain(gd, Jp, Minv, diag, gbp, 96)
@@ -2803,6 +2871,37 @@ def pose_graph_phase(dev, record):
                F * (64 * 2 + 24 + 1) + n_edges * (64 + 8) + E * (4 + 24)
                + 8 + (E * 24 if rej else 0), F * 300 + n_edges * 700,
                entry="pg_update", err_kind="poses, cost " + rel)
+        # pg_update with the next step's gradient, in each order: poses and
+        # cost against update_plain, g against gradient_plain at the
+        # residuals handed on, and the bits of pg_assemble's or pg_blocks'
+        # there. Bytes: as pg_update, and Ji of every slot, each used
+        # edge's list entries and w twice, u and r of the used edges, g
+        # out; operations: as pg_update, u = Ji^T r (72 an edge) and 4 an
+        # entry
+        for mode, tag, line in (("dense", "g", "135"), ("pcg", "gp", "228")):
+            g_in = torch.zeros((6 * F,), device=dev)
+            if mode == "pcg":
+                g_in = g_in.reshape(F, 6)
+            g_out = torch.empty_like(g_in)
+            grad = (mode, Jp, g_in, g_out, inc)
+            Pg, cg, rg, gg = pg.update(gd, cp, dx, 1.0, r, None, grad)
+            want = (pg.assemble(gd, rg, Jp, diag, inc)[1] if mode == "dense"
+                    else pg.blocks(gd, rg, Jp, diag, inc)[0])
+            check(torch.equal(gg, want), f"pg_update@{F} ({mode} gradient): "
+                  "g differs from the one-launch kernel's bits")
+            Pq, cq, _ = pg.update_plain(gd, cp, dx, 1.0)
+            record(f"pg_update_{tag}@{F}", src_m, rep_m + line,
+                   sc([Pg, cg, gg]),
+                   sc([Pq, cq, pg.gradient_plain(gd, rg, Jp, mode)]),
+                   [1e-5, 1e-5, 1e-5],
+                   lambda: pg.update(gd, cp, dx, 1.0, r, None, grad),
+                   lambda: _plain_update(pg, gd, cp, dx, 1.0, None, None,
+                                         grad),
+                   F * (64 * 2 + 24 + 1) + n_edges * (64 + 8) + E * (4 + 24)
+                   + 8 + E * 144 + n_edges * (2 * 8 + 2 * 24) + F * 24,
+                   F * 300 + n_edges * (700 + 72 + 8),
+                   entry="pg_update", err_kind="poses, cost, g " + rel
+                   + f" (the gradient in the {mode} order)")
         # what pg_update hands on: the bits of pg_edges at the poses it
         # returns; the reversed step raises the cost and is rejected, and
         # the launch hands back the poses, the residuals and the cost
@@ -2829,8 +2928,9 @@ def pose_graph_phase(dev, record):
                   f"{kern} at Fb={F}: grid, block {grid}, expected {ctas} "
                   f"CTAs of {nt} threads")
         check(F != 64 or ctas > 1, "the edge sweep at Fb 64 runs on one CTA")
-        # whole solves: the kernels, the plain version, float64; the edge
-        # sweep's device time in a solve (pg_edges once, pg_update a step).
+        # whole solves: the kernels against the loop that assembles and
+        # solves every step (bit for bit), the plain version and float64;
+        # every hand kernel's device time in a solve.
         # The float64 rule's bound comes from the plain version on the CPU:
         # on the card its dense assembly (index_put_ with accumulate) sums
         # with atomics, and its distance from float64 moves between runs
@@ -2846,36 +2946,42 @@ def pose_graph_phase(dev, record):
         for name, solve in solvers:
             got = solve(gd, False)
             torch.cuda.synchronize()
+            check(all(torch.equal(x, y) for x, y in zip(
+                got, _per_step_solve(pg, name, gd, freeze))),
+                f"{name} solve at Fb={F}: differs from the loop that "
+                "assembles and solves every GN step")
             plain = _plain_solve(pg, name, g_cpu, freeze.cpu())
             plain_card = _plain_solve(pg, name, gd, freeze)
             truth = _plain_solve(pg, name, g64, freeze)
             ms = cuda_ms(lambda: solve(gd, False), 3)
-            # the sweep's device time: each kernel's mean record (the
-            # profiler may lose records) times its launches in a solve
+            # each hand kernel's device time in a solve: its mean record
+            # (the profiler may lose records) times its launches
             before = Counter(native.LAUNCHES)
             solve(gd, False)
-            sweeps = Counter(native.LAUNCHES) - before
-            sweep_ms = 0.0
-            for kern, entry in (("pg_edges_kernel", "pg_edges"),
-                                ("pg_update_kernel", "pg_update")):
-                k_ms, per = _profile_device(lambda: solve(gd, False),
-                                            lambda k: kern in k, 3)
-                sweep_ms += k_ms / per * sweeps[entry]
+            launched = dict(Counter(native.LAUNCHES) - before)
+            kern_ms = {}
+            for entry, times in launched.items():
+                k_ms, per = _profile_device(
+                    lambda: solve(gd, False),
+                    lambda k: f"::{entry}_kernel" in k, 3)
+                kern_ms[entry] = k_ms / per * times
             d_k = _rel_d(got[0], truth[0])
             d_p = _rel_d(plain[0], truth[0].cpu())
             d_pc = _rel_d(plain_card[0], truth[0])
             tol = F64_FACTOR * d_p + F64_FLOOR
-            print(f"[pose_graph] {name} solve Fb={F}: {ms:.3f} ms; the edge "
-                  f"sweep {sweep_ms:.4f} ms device in {sweeps['pg_edges']} "
-                  f"pg_edges + {sweeps['pg_update']} pg_update launches; "
-                  f"cost {float(got[1]):.6g} -> {float(got[2]):.6g} (plain "
-                  f"{float(plain[2]):.6g}, float64 {float(truth[2]):.6g}); "
-                  f"poses from float64 ({rel}): kernel {d_k:.3g}, plain "
-                  f"{d_p:.3g} (on the card {d_pc:.3g}), bound {tol:.3g}",
-                  flush=True)
-            check(sweeps["pg_edges"] == 1 and sweeps["pg_update"] == 12,
-                  f"{name} solve at Fb={F}: edge sweep launches {sweeps}, "
-                  "expected 1 pg_edges + 12 pg_update")
+            print(f"[pose_graph] {name} solve Fb={F}: {ms:.3f} ms; the hand "
+                  f"kernels {sum(kern_ms.values()):.4f} ms device ("
+                  + ", ".join(f"{launched[k]} {k} {v:.4f}"
+                              for k, v in kern_ms.items())
+                  + f"); the same bits as the loop that assembles and "
+                  f"solves every step; cost {float(got[1]):.6g} -> "
+                  f"{float(got[2]):.6g} (plain {float(plain[2]):.6g}, "
+                  f"float64 {float(truth[2]):.6g}); poses from float64 "
+                  f"({rel}): kernel {d_k:.3g}, plain {d_p:.3g} (on the card "
+                  f"{d_pc:.3g}), bound {tol:.3g}", flush=True)
+            check(launched == SOLVE_LAUNCHES[name],
+                  f"{name} solve at Fb={F}: launches {launched}, expected "
+                  f"{SOLVE_LAUNCHES[name]}")
             check(float(got[2]) < 0.5 * float(got[1]),
                   f"{name} solve at Fb={F} did not lower the cost")
             check(d_k <= tol, f"{name} solve at Fb={F}: {d_k} from float64, "
@@ -2907,6 +3013,39 @@ def edge_sweep_grids() -> None:
     print(json.dumps(out))
 
 
+def _per_step_solve(pg, name, g, freeze, iters=12, cg_iters=96,
+                    fix_first=True):
+    """A solve as the loop that assembles and solves every GN step on the
+    card: pg_edges once, then per step pg_assemble and
+    torch.linalg.solve_ex (dense) or pg_blocks, torch.linalg.inv_ex and
+    pg_pcg (PCG), and pg_update without a gradient: (poses, cost0,
+    cost1)."""
+    import torch
+    F = g.poses.shape[0]
+    diag = pg._diag(g, freeze, fix_first)
+    inc = pg._incidence(g)
+    r, J, c0 = pg.edges(g)
+    c = c0
+    for _ in range(iters):
+        if name == "dense":
+            H, gv = pg.assemble(g, r, J, diag, inc)
+            st = torch.linalg.solve_ex(H, gv[:, None])[0][:, 0]
+            P, c, r = pg.update(g, c, st.reshape(F, 6), -1.0, r)
+        else:
+            gv, Hd = pg.blocks(g, r, J, diag, inc)
+            st = pg.pcg(g, J, torch.linalg.inv_ex(Hd)[0], diag, gv, cg_iters,
+                        inc)
+            P, c, r = pg.update(g, c, st, 1.0, r)
+        g = g._replace(poses=P)
+    return g.poses, c0, c
+
+
+def _plain_update(pg, g, c, s, scale, r=None, r_out=None, grad=None):
+    out = pg.update_plain(g, c, s, scale, r)
+    return out if grad is None else (
+        *out, pg.gradient_plain(g, out[2], grad[1], grad[0]))
+
+
 def _plain_solve(pg, name, g, freeze):
     """The plain version of a whole solve on the card's tensors."""
     import unittest.mock as mock
@@ -2917,8 +3056,7 @@ def _plain_solve(pg, name, g, freeze):
                              pg.blocks_plain(g, r, J, d),
                              pcg=lambda g, J, M, d, gv, it, inc=None:
                              pg.pcg_plain(g, J, M, d, gv, it),
-                             update=lambda g, c, s, scale, r=None,
-                             r_out=None: pg.update_plain(g, c, s, scale, r),
+                             update=functools.partial(_plain_update, pg),
                              _incidence=lambda g: None):
         if name == "pcg":
             return pg._optimize_pcg(g, freeze.to(g.poses.device), 12, 96)
@@ -3551,7 +3689,8 @@ def against_side(root: str, out_path: str, desc_path: str) -> None:
     ``merge_segments`` on candidates of the plain refit on the CPU, at full
     and half resolution), K16's medoid rows at 8192 and 1024 landmarks
     (``medoid_inputs``; a parent's medoid, ``unpack_bits`` and
-    ``torch.where``), K18's ``pg_edges`` (with Ji, and its mode without:
+    ``torch.where``), K18's ``pg_assemble`` and ``pg_blocks`` on the plain
+    inputs, ``pg_edges`` (with Ji, and its mode without:
     a tree with one mode runs it), ``pg_update`` on the plain PCG step,
     ``pg_pcg`` and the whole PCG solve at ``PG_BUCKETS`` and the dense
     solve up to Fb 128 (with each GN step's accept decision and its
@@ -3868,6 +4007,14 @@ def against_side(root: str, out_path: str, desc_path: str) -> None:
         res[f"pg_update@{F}"] = ([x.cpu() for x in fn()],
                                  device_ms(fn, iters=20),
                                  *all_kernels(fn, iters=20), cuda_ms(fn, 50))
+        # the normal equations on the plain inputs (the same on both trees):
+        # H and g, g and Hd, whose bits the trees share
+        for key, fn in (("pg_assemble", lambda: list(pg.assemble(
+                gd, rp, Jp, diag, inc))), ("pg_blocks", lambda: list(
+                    pg.blocks(gd, rp, Jp, diag, inc)))):
+            res[f"{key}@{F}"] = ([x.cpu() for x in fn()],
+                                 device_ms(fn, iters=20),
+                                 *all_kernels(fn, iters=20), cuda_ms(fn, 50))
         fn = lambda: [pg.pcg(gd, Jp, Minv, diag, gbp, 96, inc)]
         res[f"pg_pcg@{F}"] = ([x.cpu() for x in fn()],
                               device_ms(fn, iters=5),
@@ -3944,8 +4091,8 @@ def _gn_decisions(pg, solve):
     from plslam_tpu_torch.core import lie
     out, orig = [], pg.update
 
-    def update(g, c, step, scale, *rest):
-        res = orig(g, c, step, scale, *rest)
+    def update(g, c, step, scale, *rest, **kw):
+        res = orig(g, c, step, scale, *rest, **kw)
         dx = torch.where(g.pose_valid[:, None], scale * step, 0.0)
         c_try = pg.edges_plain(g._replace(poses=g.poses @ lie.exp_se3(dx)))[2]
         out.append((not torch.equal(res[0], g.poses),
@@ -3958,8 +4105,9 @@ def _gn_decisions(pg, solve):
 
 
 def _hold_pose_graph(a, b) -> None:
-    """K18's edge sweep and whole solves between two trees (``a`` the
-    other's results, ``b`` this one's): r and Ji of pg_edges, and
+    """K18's normal equations, edge sweep and whole solves between two trees
+    (``a`` the other's results, ``b`` this one's): pg_assemble's H and g
+    and pg_blocks' g and Hd the same bits; r and Ji of pg_edges, and
     pg_update's poses, the same bits or within 1e-6 of the largest entry,
     the costs within 1e-6 relative; a solve's poses the same bits, or
     within 1e-5 of the largest translation where the first accept
@@ -3968,6 +4116,11 @@ def _hold_pose_graph(a, b) -> None:
     is printed)."""
     import torch
     for F, _, _ in PG_BUCKETS:
+        for key in (f"pg_assemble@{F}", f"pg_blocks@{F}"):
+            same = [torch.equal(x, y) for x, y in zip(b[key][0], a[key][0])]
+            print(f"[against] {key}: the same bits per output {same}",
+                  flush=True)
+            check(all(same), f"{key}: the two trees' normal equations differ")
         for key in (f"pg_edges@{F}", f"pg_edges_r@{F}", f"pg_update@{F}"):
             xs, ys = b[key][0], a[key][0]
             rels = [max_abs_err(x, y) / max(float(y.abs().max()), 1e-30)

@@ -21,16 +21,20 @@
 //                last CTA to finish adds the partials in CTA order: the
 //                cost decides the accept test c_new <= c). A solve
 //                launches it once, with Ji.
-//   pg_assemble  dense, one block per slot i: its 6 rows of H (6F wide) and
-//                g_i, from the node's edge lists in edge order, in the
-//                reference's four scatter phases (Hii over edges leaving i;
-//                w I over edges entering i; the off-diagonal blocks w Ji^T
-//                and w Ji), then the pins and the 1e-5 + 1e-6 diagonal. The
-//                (6F)^2 solve stays torch.linalg.solve_ex (the reference
+//   pg_assemble  dense, once a solve, one CTA per slot i: its 6 rows of H
+//                (6F wide) and g_i, from the node's edge lists in edge
+//                order, in the reference's four scatter phases (Hii over
+//                edges leaving i; w I over edges entering i; the
+//                off-diagonal blocks w Ji^T and w Ji), then the pins and the
+//                1e-5 + 1e-6 diagonal; the touched blocks in shared memory
+//                while four warps stream the zeros. The (6F)^2 solve stays
+//                the library's: H's LU once a solve and a solve from it each
+//                step, the bits of torch.linalg.solve_ex (the reference
 //                calls jnp.linalg.solve).
-//   pg_blocks    PCG, one block per slot: g_i and the exact 6 x 6 diagonal
-//                block of H (its inverse stays torch.linalg.inv_ex, as the
-//                reference calls jnp.linalg.inv).
+//   pg_blocks    PCG, once a solve, one CTA per slot: g_i and the exact
+//                6 x 6 diagonal block of H (its inverse stays
+//                torch.linalg.inv_ex, once a solve, as the reference calls
+//                jnp.linalg.inv).
 //   pg_pcg       PCG, one thread-block cluster (sm_90) runs the whole fixed
 //                cg_iters schedule of one GN step: each CTA owns a range of
 //                nodes and of used edges, stages their Ji rows, Minv blocks
@@ -43,16 +47,21 @@
 //                range of slots), every edge's residual at the trial poses
 //                (an end node's trial pose recomputed by the same
 //                function), the trial cost in the same two-level order,
-//                and in the last CTA the accept (finite and c_new <= c):
-//                on a reject it restores the old poses and the old
-//                residuals into the outputs. The residuals it hands on are
-//                the ones the next GN step needs.
+//                then (a cooperative launch, one grid barrier) in every
+//                CTA the accept (finite and c_new <= c): on a reject each
+//                CTA restores its old poses and residuals into the
+//                outputs. The residuals it hands on are the ones the next
+//                GN step needs, and so is the gradient there, in
+//                pg_assemble's or pg_blocks' order.
 //
 // Launches per solve: one pg_edges (r, Ji and the first cost; Ji depends
-// only on the edges' measurements, so it serves the whole solve), then per
-// GN iteration dense 2 (pg_assemble, pg_update) + the library solve, PCG 3
-// (pg_blocks, pg_pcg, pg_update) + the library's batched 6 x 6 inverse:
-// 25 dense, 37 PCG at 12 iterations.
+// only on the edges' measurements, so it serves the whole solve), one
+// pg_assemble (dense) or pg_blocks (PCG): H or its diagonal blocks depend
+// only on Ji, w and the pins, so they too serve the whole solve (with the
+// library's LU or batched 6 x 6 inverse, once); then per GN iteration
+// dense 1 (pg_update) + the library's solve from the LU, PCG 2 (pg_pcg,
+// pg_update): 14 dense, 26 PCG at 12 iterations (25 and 37 while H was
+// built every step).
 
 #include <algorithm>
 #include <cooperative_groups.h>
@@ -212,17 +221,19 @@ struct Graph {
 // (64 bytes each, 16-byte loads into shared memory) while warp 0 loads the
 // ends and their poses (16-byte loads); in pg_edges warp 1 forms the Ji
 // rows while warp 0 forms the residuals; in pg_update warps 1 and 2 form
-// the edges' end poses at the trial step and warps 3-7 the CTA's own
-// slots' trial poses, then warp 0 the residuals. r (24 bytes an edge) and
+// the edges' end poses at the trial step, warps 3-4 the CTA's own slots'
+// trial poses and, with a gradient, warps 5-7 stage the edges' Ji rows and
+// the slots' list entries, then warp 0 the residuals. r (24 bytes an edge) and
 // Ji (144) leave through shared memory in 16-byte stores: a warp's global
 // accesses are contiguous. Unused slots (w <= 0) skip the residual and
 // write r = 0; their Ji is written as for any slot (it depends only on
-// Tm). The cost: each CTA's partial in thread order; then the last CTA to
-// finish (a counter after a fence, which that CTA sets back to 0 for the
-// next launch) adds the partials in CTA order. No float atomics: the cost
-// is the same bits in every run, and a CUDA graph may replay the launch.
-// On a rejected step pg_update's last CTA writes back the old poses and
-// residuals, 16 loads a thread in flight.
+// Tm). The cost: each CTA's partial in thread order; then in pg_edges the
+// last CTA to finish (a counter after a fence, which that CTA sets back to
+// 0 for the next launch), in pg_update every CTA after a grid barrier (the
+// same counter), adds the partials in CTA order. No float atomics: the
+// cost is the same bits in every run and every CTA, and a CUDA graph may
+// replay the launch. On a rejected step each pg_update CTA writes back its
+// own slots' old poses and edges' old residuals.
 
 constexpr int EDGE_SLOTS = 32;  // edge slots a CTA, a lane of warp 0 each
 constexpr int EDGE_NT = 256;    // threads a CTA: warps 1-7 take the rest
@@ -281,6 +292,25 @@ __device__ __forceinline__ void store16(float* p, const float* T) {
 #pragma unroll
   for (int k = 0; k < 4; ++k)
     q[k] = make_float4(T[4 * k], T[4 * k + 1], T[4 * k + 2], T[4 * k + 3]);
+}
+
+// six floats at an 8-byte aligned address
+__device__ __forceinline__ void load6(const float* p, float v[6]) {
+  const float2* q = reinterpret_cast<const float2*>(p);
+  const float2 a = q[0], b = q[1], c = q[2];
+  v[0] = a.x;
+  v[1] = a.y;
+  v[2] = b.x;
+  v[3] = b.y;
+  v[4] = c.x;
+  v[5] = c.y;
+}
+
+__device__ __forceinline__ void store6(float* p, const float v[6]) {
+  float2* q = reinterpret_cast<float2*>(p);
+  q[0] = make_float2(v[0], v[1]);
+  q[1] = make_float2(v[2], v[3]);
+  q[2] = make_float2(v[4], v[5]);
 }
 
 // T exp(scale step) of slot n (a zero step on an invalid slot): the pose
@@ -350,6 +380,31 @@ __device__ void sweep_residuals(const float* sT, const float* Ti,
   }
 }
 
+// thread 0: the CTA's partial of the cost, sc[0 .. n) in thread order
+__device__ __forceinline__ void write_partial(const Sweep& s, const float* sc,
+                                              int n) {
+  float p = 0.0f;
+  for (int i = 0; i < n; ++i) p += sc[i];
+  s.partial[blockIdx.x] = p;
+}
+
+// the CTAs' partials added in CTA order by thread 0 into *total (shared),
+// every thread past its barrier
+__device__ void sum_partials(const Sweep& s, float* sp, float* total) {
+  const int tid = threadIdx.x;
+  float c = 0.0f;
+  for (int b0 = 0; b0 < (int)gridDim.x; b0 += EDGE_NT) {
+    const int m = min(EDGE_NT, (int)gridDim.x - b0);
+    if (tid < m) sp[tid] = __ldcg(s.partial + b0 + tid);
+    __syncthreads();
+    if (tid == 0)
+      for (int b = 0; b < m; ++b) c += sp[b];
+    __syncthreads();
+  }
+  if (tid == 0) *total = c;
+  __syncthreads();
+}
+
 // The cost. After a CTA barrier (every thread's stores before it), thread
 // 0 writes the CTA's partial (sc[0 .. n) in thread order), a release
 // fence, and counts the CTA in; the last CTA to count (an acquire fence)
@@ -362,9 +417,7 @@ __device__ bool sweep_total(const Sweep& s, const float* sc, int n,
   const int tid = threadIdx.x;
   __syncthreads();
   if (tid == 0) {
-    float p = 0.0f;
-    for (int i = 0; i < n; ++i) p += sc[i];
-    s.partial[blockIdx.x] = p;
+    write_partial(s, sc, n);
     fence_acq_rel_gpu();
     const bool last = atomicAdd(s.count, 1u) == gridDim.x - 1;
     if (last) {
@@ -375,17 +428,7 @@ __device__ bool sweep_total(const Sweep& s, const float* sc, int n,
   }
   __syncthreads();
   if (!*s_last) return false;
-  float c = 0.0f;
-  for (int b0 = 0; b0 < (int)gridDim.x; b0 += EDGE_NT) {
-    const int m = min(EDGE_NT, (int)gridDim.x - b0);
-    if (tid < m) sp[tid] = __ldcg(s.partial + b0 + tid);
-    __syncthreads();
-    if (tid == 0)
-      for (int b = 0; b < m; ++b) c += sp[b];
-    __syncthreads();
-  }
-  if (tid == 0) *total = c;
-  __syncthreads();
+  sum_partials(s, sp, total);
   return true;
 }
 
@@ -434,97 +477,298 @@ struct Incidence {
   const int* pj;
 };
 
-__global__ void pg_assemble_kernel(Graph g, Incidence inc,
-                                   const float* __restrict__ r,
-                                   const float* __restrict__ J,
-                                   const float* __restrict__ diag, float* H,
-                                   float* gvec) {
-  const int i = blockIdx.x, tid = threadIdx.x;
-  const size_t n6 = 6 * (size_t)g.F;
-  float* band = H + (size_t)6 * i * n6;
-  for (size_t k = tid; k < 6 * n6; k += blockDim.x) band[k] = 0.0f;
-  __syncthreads();
-  const int a0 = inc.pi[i], a1 = inc.pi[i + 1];
-  const int b0 = inc.pj[i], b1 = inc.pj[i + 1];
-  if (tid < 36) {
-    const int p = tid / 6, q = tid % 6;
-    float* row = band + p * n6;
-    float hii = 0.0f;
-    for (int s = a0; s < a1; ++s) {  // H[i,i] += w Ji^T Ji (edges leaving)
-      const int e = inc.oi[s];
-      const float* Je = J + (size_t)e * 36;
-      float d = 0.0f;
-      for (int a = 0; a < 6; ++a) d += Je[a * 6 + p] * Je[a * 6 + q];
-      hii += g.ew[e] * d;
+// -- the normal equations once a solve: pg_assemble and pg_blocks -----------
+//
+// H, its diagonal blocks and the first g depend on the residuals only
+// through g: Ji, w and the pins are fixed for a solve, so a solve builds
+// them once (after pg_edges) and each GN step's pg_update computes only the
+// next g. The sums keep the reference's scatter order, as the kernels that
+// built them every step did; every product-add is one fmaf, as nvcc's
+// contraction compiled those kernels' `x += a * b`:
+//   Hii[p][q] = sum over edges leaving i (list order) of w d, d = sum_a
+//               Ji[a][p] Ji[a][q]; dense: then + w over the entering edges
+//               into the same sum (PCG: wj, a sum of its own, added after)
+//   dense H   a band of zeros, + Hii on the diagonal block, then for each
+//             leaving edge (i, j) H[i][j][p][q] += w Ji[q][p], then for each
+//             entering edge (j, i) H[i][j][p][q] += w Ji[p][q], then the
+//             diagonal + diag[i]
+//   PCG Hd    Hii + wj e + diag e (e the identity's entry)
+//   g[p]      d = sum_a Ji[a][p] r[a] over the leaving edges, w d summed in
+//             list order, then w r[p] over the entering edges: dense in the
+//             same sum, PCG in a sum of its own, g = gi + gj
+// One CTA a slot. Its building threads (dense: the first NORMAL_CT, four
+// warps with a barrier of their own; PCG: all 2 NORMAL_CT) build the sums:
+// the first NORMAL_CH entries of both lists go to shared memory together
+// (the edge ids, then w, the other end, Ji and r, 16-byte loads), then any
+// further chunk; the threads compute the entries' d in parallel, and the
+// 36 + 6 sums run down the staged entries in order. Dense: four more warps
+// stream the slot's six rows of H (one contiguous, 16-byte aligned run of
+// 36F floats) out as zeros meanwhile; the blocks the rows touch (the
+// diagonal, each neighbour's) are summed in shared memory, at a slot of
+// their own (a table of F block slots, claimed as the lists are staged),
+// and written over the zeros after a barrier of the whole CTA. Past
+// NORMAL_BLOCKS distinct blocks (a hub) a block is summed in H itself after
+// that barrier, its entries walked again in the same order.
+// Bound: the band's bytes (144F a slot, 37.7 MB at F = 512) at the store
+// rate at large F, where every byte leaves once; at small F the chain of
+// dependent loads (list offsets, edge ids, the entries).
+
+constexpr int NORMAL_CT = 128;             // threads that build the sums
+constexpr int NORMAL_CH = 32;              // list entries staged at once
+constexpr int NORMAL_BLOCKS = 64;          // 6 x 6 blocks in shared memory
+// a staged chunk: Ji, r, w, the other end and (dense) its block slot; the
+// leaving chunk also d and the gradient's d (36 + 6)
+constexpr int NORMAL_STAGE_E = NORMAL_CH * (36 + 6 + 3);
+constexpr int NORMAL_STAGE_L = NORMAL_STAGE_E + NORMAL_CH * (36 + 6);
+// dense: the blocks, their block columns and the count
+constexpr int NORMAL_DENSE = NORMAL_BLOCKS * 37 + 1;
+
+// 32-bit words of pg_assemble's (dense) or pg_blocks' shared memory
+__host__ __device__ inline size_t normal_words(int F, bool dense) {
+  return NORMAL_STAGE_L + NORMAL_STAGE_E + (dense ? NORMAL_DENSE + F : 0);
+}
+
+struct Staged {
+  float* J;  // CH x 36
+  float* R;  // CH x 6
+  float* W;  // CH
+  int* O;    // CH: the other end
+  int* S;    // CH: dense, the other end's block slot
+  float* D;  // CH x 36 (leaving only)
+  float* G;  // CH x 6 (leaving only)
+  __device__ Staged(float* s, bool leaving) {
+    J = s;
+    R = J + NORMAL_CH * 36;
+    W = R + NORMAL_CH * 6;
+    O = (int*)(W + NORMAL_CH);
+    S = O + NORMAL_CH;
+    D = leaving ? (float*)(S + NORMAL_CH) : nullptr;
+    G = leaving ? D + NORMAL_CH * 36 : nullptr;
+  }
+};
+
+// the building warps' barrier (nt threads)
+__device__ __forceinline__ void build_sync(int nt) {
+  asm volatile("bar.sync 1, %0;\n" ::"r"(nt) : "memory");
+}
+
+// nl leaving entries from position sl0 into L and ne entering entries from
+// se0 into E (the caller's barrier after): 9 float4 pieces of Ji, r and
+// (w, other end) an entry, a task a building thread (nt of them)
+__device__ void stage_entries(const Graph& g, const Incidence& inc,
+                              const float* J, const float* r, int sl0,
+                              int nl, Staged L, int se0, int ne, Staged E,
+                              int nt) {
+  for (int k = threadIdx.x; k < (nl + ne) * 11; k += nt) {
+    const bool lv = k < nl * 11;
+    const int kk = lv ? k : k - nl * 11, l = kk / 11, part = kk - l * 11;
+    const int e = lv ? inc.oi[sl0 + l] : inc.oj[se0 + l];
+    if (part < 9) {
+      reinterpret_cast<float4*>((lv ? L.J : E.J) + l * 36)[part] =
+          reinterpret_cast<const float4*>(J + (size_t)e * 36)[part];
+    } else if (part == 9) {
+      float v[6];
+      load6(r + (size_t)e * 6, v);
+      float* R = (lv ? L.R : E.R) + l * 6;
+      for (int a = 0; a < 6; ++a) R[a] = v[a];
+    } else {
+      (lv ? L.W : E.W)[l] = g.ew[e];
+      (lv ? L.O : E.O)[l] = lv ? g.ej[e] : g.ei[e];
     }
-    if (p == q)
-      for (int s = b0; s < b1; ++s) hii += g.ew[inc.oj[s]];  // w I (entering)
-    row[6 * i + q] += hii;
-    for (int s = a0; s < a1; ++s) {  // H[i,j] += w Ji^T
-      const int e = inc.oi[s];
-      row[6 * (size_t)g.ej[e] + q] += g.ew[e] * J[(size_t)e * 36 + q * 6 + p];
-    }
-    for (int s = b0; s < b1; ++s) {  // H[j,i] += w Ji, seen from row j = i
-      const int e = inc.oj[s];
-      row[6 * (size_t)g.ei[e] + q] += g.ew[e] * J[(size_t)e * 36 + p * 6 + q];
-    }
-    if (p == q) row[6 * i + p] += diag[i];
-  } else if (tid < 42) {
-    const int p = tid - 36;
-    float acc = 0.0f;
-    for (int s = a0; s < a1; ++s) {  // w Ji^T r (leaving)
-      const int e = inc.oi[s];
-      float d = 0.0f;
-      for (int a = 0; a < 6; ++a)
-        d += J[(size_t)e * 36 + a * 6 + p] * r[(size_t)e * 6 + a];
-      acc += g.ew[e] * d;
-    }
-    for (int s = b0; s < b1; ++s) {  // w r (entering)
-      const int e = inc.oj[s];
-      acc += g.ew[e] * r[(size_t)e * 6 + p];
-    }
-    gvec[6 * i + p] = acc;
   }
 }
 
-__global__ void pg_blocks_kernel(Graph g, Incidence inc,
-                                 const float* __restrict__ r,
-                                 const float* __restrict__ J,
-                                 const float* __restrict__ diag, float* Hd,
-                                 float* gvec) {
+// the staged leaving entries' d of Hii (36 an entry) and of g (6), every
+// building thread, each d in the order over a
+__device__ void entry_products(Staged st, int n, int nt) {
+  for (int k = threadIdx.x; k < n * 42; k += nt) {
+    const int l = k / 42, t = k - l * 42;
+    const float* Je = st.J + l * 36;
+    float d = 0.0f;
+    if (t < 36) {
+      const int p = t / 6, q = t - p * 6;
+      for (int a = 0; a < 6; ++a) d = fmaf(Je[a * 6 + p], Je[a * 6 + q], d);
+      st.D[l * 36 + t] = d;
+    } else {
+      const int p = t - 36;
+      for (int a = 0; a < 6; ++a) d = fmaf(Je[a * 6 + p], st.R[l * 6 + a], d);
+      st.G[l * 6 + p] = d;
+    }
+  }
+}
+
+// dense: the block slot of block column j, claimed at its first entry (a
+// slot past NORMAL_BLOCKS: summed in H itself)
+__device__ __forceinline__ void claim_block(int* slot_of, int* col_of,
+                                            int* n_slots, int j) {
+  if (atomicCAS(&slot_of[j], -1, -2) == -1) {
+    const int b = atomicAdd(n_slots, 1);
+    if (b < NORMAL_BLOCKS) col_of[b] = j;
+    slot_of[j] = b;
+  }
+}
+
+// dense: the off-diagonal phases, thread (p, q) < 36 owning entry (p, q) of
+// every block: H[i][j] += w Ji^T over the leaving entries, then += w Ji
+// over the entering ones (edge j -> i), each list in order, on the shared
+// blocks (global false) or on the blocks past NORMAL_BLOCKS in H (true);
+// a list longer than a chunk is staged again
+__device__ void band_phases(const Graph& g, const Incidence& inc,
+                            const float* J, const float* r, Staged sl,
+                            Staged se, const int* slot_of, float* blk,
+                            float* band, int a0, int a1, int b0, int b1,
+                            bool global) {
+  const int tid = threadIdx.x, p = tid / 6, q = tid - p * 6;
+  const size_t F6 = 6 * (size_t)g.F;
+  for (int pass = 0; pass < 2; ++pass) {
+    const int c0 = pass ? b0 : a0, c1 = pass ? b1 : a1;
+    const float* sJ = pass ? se.J : sl.J;
+    const float* sW = pass ? se.W : sl.W;
+    const int* sO = pass ? se.O : sl.O;
+    int* sS = pass ? se.S : sl.S;
+    // Ji^T (leaving) or Ji (entering): entry (p, q) of the block
+    const int jx = pass ? p * 6 + q : q * 6 + p;
+    for (int s = c0; s < c1; s += NORMAL_CH) {
+      const int n = min(NORMAL_CH, c1 - s);
+      build_sync(NORMAL_CT);
+      if (c1 - c0 > NORMAL_CH) {
+        stage_entries(g, inc, J, r, s, pass ? 0 : n, sl, s, pass ? n : 0,
+                      se, NORMAL_CT);
+        build_sync(NORMAL_CT);
+      }
+      for (int l = tid; l < n; l += NORMAL_CT) sS[l] = slot_of[sO[l]];
+      build_sync(NORMAL_CT);
+      if (tid < 36)
+        for (int l = 0; l < n; ++l) {
+          const int b = sS[l];
+          if ((b >= NORMAL_BLOCKS) != global) continue;
+          float* d = global ? band + p * F6 + 6 * sO[l] + q
+                            : blk + b * 36 + tid;
+          *d = fmaf(sW[l], sJ[l * 36 + jx], *d);
+        }
+    }
+  }
+}
+
+// slot i's Hii and g sums (and, dense, its band of H) or Hd and g
+template <bool DENSE>
+__device__ void normal_slot(const Graph& g, const Incidence& inc,
+                            const float* __restrict__ r,
+                            const float* __restrict__ J,
+                            const float* __restrict__ diag, float* out,
+                            float* gvec) {
+  extern __shared__ __align__(16) float sm[];
   const int i = blockIdx.x, tid = threadIdx.x;
+  const int nt = DENSE ? NORMAL_CT : blockDim.x;  // the building threads
+  const int F6 = 6 * g.F;
+  const Staged sl(sm, true);
+  const Staged se(sm + NORMAL_STAGE_L, false);
+  float* blk = sm + NORMAL_STAGE_L + NORMAL_STAGE_E;  // dense: 64 x 36
+  int* col_of = (int*)(blk + NORMAL_BLOCKS * 36);
+  int* n_slots = col_of + NORMAL_BLOCKS;
+  int* slot_of = n_slots + 1;                         // F
+  float* band = out + (size_t)6 * i * F6;
   const int a0 = inc.pi[i], a1 = inc.pi[i + 1];
   const int b0 = inc.pj[i], b1 = inc.pj[i + 1];
-  if (tid < 36) {
-    const int p = tid / 6, q = tid % 6;
-    float h = 0.0f;
-    for (int s = a0; s < a1; ++s) {
-      const int e = inc.oi[s];
-      const float* Je = J + (size_t)e * 36;
-      float d = 0.0f;
-      for (int a = 0; a < 6; ++a) d += Je[a * 6 + p] * Je[a * 6 + q];
-      h += g.ew[e] * d;
+  if (DENSE && tid >= NORMAL_CT) {  // the zeros
+    const float4 z = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int k = tid - NORMAL_CT; k < 9 * g.F; k += blockDim.x - NORMAL_CT)
+      reinterpret_cast<float4*>(band)[k] = z;
+  } else {
+    if (DENSE) {
+      for (int k = tid; k < NORMAL_BLOCKS * 36; k += nt) blk[k] = 0.0f;
+      for (int k = tid; k < g.F; k += nt) slot_of[k] = k == i ? 0 : -1;
+      if (tid == 0) {
+        col_of[0] = i;
+        *n_slots = 1;
+      }
     }
-    float wj = 0.0f;
-    for (int s = b0; s < b1; ++s) wj += g.ew[inc.oj[s]];
-    const float e = p == q ? 1.0f : 0.0f;
-    Hd[(size_t)i * 36 + tid] = h + wj * e + diag[i] * e;
-  } else if (tid < 42) {
-    const int p = tid - 36;
-    float gi = 0.0f, gj = 0.0f;
-    for (int s = a0; s < a1; ++s) {
-      const int e = inc.oi[s];
-      float d = 0.0f;
-      for (int a = 0; a < 6; ++a)
-        d += J[(size_t)e * 36 + a * 6 + p] * r[(size_t)e * 6 + a];
-      gi += g.ew[e] * d;
+    stage_entries(g, inc, J, r, a0, min(NORMAL_CH, a1 - a0), sl, b0,
+                  min(NORMAL_CH, b1 - b0), se, nt);
+    build_sync(nt);
+    const int p = tid / 6, q = tid - p * 6;  // tid < 36: Hii[p][q]
+    const int pg = tid - 36;                 // 36 <= tid < 42: g[pg]
+    float hii = 0.0f, wj = 0.0f, gi = 0.0f, gj = 0.0f;
+    for (int s = a0; s < a1; s += NORMAL_CH) {  // edges leaving i
+      const int n = min(NORMAL_CH, a1 - s);
+      if (s != a0) {
+        build_sync(nt);
+        stage_entries(g, inc, J, r, s, n, sl, 0, 0, se, nt);
+        build_sync(nt);
+      }
+      if (DENSE)
+        for (int k = tid; k < n; k += nt)
+          claim_block(slot_of, col_of, n_slots, sl.O[k]);
+      entry_products(sl, n, nt);
+      build_sync(nt);
+      if (tid < 36)
+        for (int l = 0; l < n; ++l)
+          hii = fmaf(sl.W[l], sl.D[l * 36 + tid], hii);
+      else if (tid < 42)
+        for (int l = 0; l < n; ++l) gi = fmaf(sl.W[l], sl.G[l * 6 + pg], gi);
     }
-    for (int s = b0; s < b1; ++s) {
-      const int e = inc.oj[s];
-      gj += g.ew[e] * r[(size_t)e * 6 + p];
+    for (int s = b0; s < b1; s += NORMAL_CH) {  // edges entering i
+      const int n = min(NORMAL_CH, b1 - s);
+      if (s != b0) {
+        build_sync(nt);
+        stage_entries(g, inc, J, r, 0, 0, sl, s, n, se, nt);
+        build_sync(nt);
+      }
+      if (DENSE)
+        for (int k = tid; k < n; k += nt)
+          claim_block(slot_of, col_of, n_slots, se.O[k]);
+      if (tid < 36 && p == q) {
+        for (int l = 0; l < n; ++l) {
+          if (DENSE) hii += se.W[l];
+          else wj += se.W[l];
+        }
+      } else if (tid >= 36 && tid < 42) {
+        for (int l = 0; l < n; ++l) {
+          if (DENSE) gi = fmaf(se.W[l], se.R[l * 6 + pg], gi);
+          else gj = fmaf(se.W[l], se.R[l * 6 + pg], gj);
+        }
+      }
     }
-    gvec[(size_t)i * 6 + p] = gi + gj;
+    if (tid >= 36 && tid < 42) gvec[(size_t)i * 6 + pg] = DENSE ? gi : gi + gj;
+    if (!DENSE) {
+      if (tid < 36) {
+        const float e = p == q ? 1.0f : 0.0f;
+        out[(size_t)i * 36 + tid] = hii + wj * e + diag[i] * e;
+      }
+      return;
+    }
+    // the band's shared blocks in the order of the reference's phases (the
+    // barriers in band_phases: every entry's block slot claimed first)
+    if (tid < 36) blk[tid] = blk[tid] + hii;
+    band_phases(g, inc, J, r, sl, se, slot_of, blk, band, a0, a1, b0, b1,
+                false);
+    if (tid < 36 && p == q) blk[tid] = blk[tid] + diag[i];
   }
+  __syncthreads();  // the zeros and the shared blocks are done
+  if (*n_slots > NORMAL_BLOCKS && tid < NORMAL_CT)
+    band_phases(g, inc, J, r, sl, se, slot_of, blk, band, a0, a1, b0, b1,
+                true);
+  // the shared blocks over the zeros, a row of six floats in three float2
+  const int nb = min(*n_slots, NORMAL_BLOCKS);
+  for (int k = tid; k < nb * 18; k += blockDim.x) {
+    const int b = k / 18, t = k - b * 18, pr = t / 3, h = t - pr * 3;
+    reinterpret_cast<float2*>(band + (size_t)pr * F6 + 6 * col_of[b])[h] =
+        reinterpret_cast<const float2*>(blk + b * 36 + pr * 6)[h];
+  }
+}
+
+__global__ void __launch_bounds__(2 * NORMAL_CT)
+    pg_assemble_kernel(Graph g, Incidence inc, const float* __restrict__ r,
+                       const float* __restrict__ J,
+                       const float* __restrict__ diag, float* H, float* gvec) {
+  normal_slot<true>(g, inc, r, J, diag, H, gvec);
+}
+
+__global__ void __launch_bounds__(2 * NORMAL_CT)
+    pg_blocks_kernel(Graph g, Incidence inc, const float* __restrict__ r,
+                     const float* __restrict__ J,
+                     const float* __restrict__ diag, float* Hd, float* gvec) {
+  normal_slot<false>(g, inc, r, J, diag, Hd, gvec);
 }
 
 // -- pg_pcg: one thread-block cluster, the CG state in shared memory --------
@@ -674,25 +918,6 @@ struct Team {
     return s;
   }
 };
-
-// six floats at an 8-byte aligned address
-__device__ __forceinline__ void load6(const float* p, float v[6]) {
-  const float2* q = reinterpret_cast<const float2*>(p);
-  const float2 a = q[0], b = q[1], c = q[2];
-  v[0] = a.x;
-  v[1] = a.y;
-  v[2] = b.x;
-  v[3] = b.y;
-  v[4] = c.x;
-  v[5] = c.y;
-}
-
-__device__ __forceinline__ void store6(float* p, const float v[6]) {
-  float2* q = reinterpret_cast<float2*>(p);
-  q[0] = make_float2(v[0], v[1]);
-  q[1] = make_float2(v[2], v[3]);
-  q[2] = make_float2(v[4], v[5]);
-}
 
 // z = M r for a 6 x 6 row-major block at a 16-byte aligned address, each
 // row summed over k in order
@@ -1041,22 +1266,129 @@ __global__ void __launch_bounds__(1024) pg_pcg_kernel(PcgArgs a) {
   if (CL) team.barrier();  // no CTA exits while another reads its memory
 }
 
+// -- the gradient each GN step: pg_update hands it on -----------------------
+//
+// A GN step after the first needs g at the residuals that pg_update hands
+// on. pg_update computes it in the same launch, in one of the two orders of
+// the one-launch kernels (GRAD_DENSE: pg_assemble's one sum over the leaving,
+// then the entering list; GRAD_PCG: pg_blocks' gi + gj). Each CTA's edge
+// pass also forms u = Ji^T r of its edges (d of the reference's order: Ji
+// rows staged in shared memory by warps 5-7 while warp 0 evaluates the
+// residuals), so a slot's g needs only w and u (leaving) or r (entering) of
+// its list entries: g[n][p] = sum over leaving w u[p], then over entering
+// w r[p]. On a reject the residuals handed on are r_in's, whose gradient is
+// g_in: it is handed on as is. A slot's g needs other CTAs' residuals, so
+// pg_update is a cooperative launch (every CTA co-resident) with one grid
+// barrier: each CTA adds the partials itself (in CTA order: the same bits
+// in each), takes the accept, restores its own slots and edges on a
+// reject, and computes the g of its own slots, their list entries and w
+// staged in shared memory before the barrier. (The last CTA computing
+// every slot's g alone was slower at every slot bucket past 64.)
+constexpr int GRAD_DENSE = 1, GRAD_PCG = 2;
+constexpr int GRAD_STAGE = 256;  // list entries of a CTA's slots staged
+
+struct GradArgs {
+  Incidence inc;
+  const float* J;     // (E, 36)
+  const float* g_in;  // (F * 6): the gradient at r_in
+  float* g_out;       // (F * 6)
+  float* u;           // (E, 6) scratch: Ji^T r at the trial poses
+  int mode;           // 0: no gradient
+};
+
+// the staged list entries (edge id, w) of a CTA's slots: leaving positions
+// l0 .. l0 + nl, entering q0 .. q0 + nq
+struct ListStage {
+  const int* le;
+  const float* lw;
+  const int* qe;
+  const float* qw;
+  int l0, nl, q0, nq;
+};
+
+// g[n][p] in the mode's order from u (leaving) and r (entering), eight
+// entries' loads in flight before their adds
+__device__ float node_gradient(const GradArgs& ga, const float* ew,
+                               const float* r, const ListStage& st, int n,
+                               int p) {
+  const Incidence& in = ga.inc;
+  const bool dense = ga.mode == GRAD_DENSE;
+  float gi = 0.0f, gj = 0.0f;
+  for (int pass = 0; pass < 2; ++pass) {
+    const int* list = pass ? in.oj : in.oi;
+    const int* ptr = pass ? in.pj : in.pi;
+    const float* val = pass ? r : ga.u;
+    const int* se = pass ? st.qe : st.le;
+    const float* sw = pass ? st.qw : st.lw;
+    const int base = pass ? st.q0 : st.l0, ns = pass ? st.nq : st.nl;
+    const int a0 = ptr[n], a1 = ptr[n + 1];
+    float& acc = (pass && !dense) ? gj : gi;
+    for (int s0 = a0; s0 < a1; s0 += 8) {
+      float wv[8], dv[8];
+#pragma unroll
+      for (int k = 0; k < 8; ++k) {
+        const int sidx = s0 + k, ls = sidx - base;
+        if (sidx < a1) {
+          const bool staged = ls >= 0 && ls < ns;
+          const int e = staged ? se[ls] : list[sidx];
+          wv[k] = staged ? sw[ls] : ew[e];
+          dv[k] = __ldcg(val + (size_t)e * 6 + p);
+        }
+      }
+#pragma unroll
+      for (int k = 0; k < 8; ++k)
+        if (s0 + k < a1) acc = fmaf(wv[k], dv[k], acc);
+    }
+  }
+  return dense ? gi : gi + gj;
+}
+
+// Every CTA of a cooperative launch past this point only after all have
+// reached it, their writes before it visible after it. The counter is 0
+// before and after: each CTA counts in, waits for all, counts out, and the
+// last to count out sets it back.
+__device__ void grid_barrier(unsigned* count) {
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    const unsigned G = gridDim.x;
+    fence_acq_rel_gpu();
+    atomicAdd(count, 1u);
+    unsigned v;
+    do {
+      asm volatile("ld.acquire.gpu.u32 %0, [%1];\n"
+                   : "=r"(v)
+                   : "l"(count)
+                   : "memory");
+    } while (v < G);
+    if (atomicAdd(count, 1u) == 2 * G - 1) atomicExch(count, 0u);
+  }
+  __syncthreads();
+}
+
 // T <- T exp(scale step) on valid slots, the residuals and cost there, and
-// the accept; on a reject the last CTA writes back the old poses, the old
-// residuals r_in and c
+// the accept; on a reject the old poses, the old residuals r_in, c and g_in
+// are handed back; with a gradient mode, g at the residuals handed on
 __global__ void __launch_bounds__(EDGE_NT)
     pg_update_kernel(Sweep s, const float* c_in, const float* step,
                      float scale, const uint8_t* __restrict__ valid,
-                     const float* r_in, float* poses_out, float* c_out) {
+                     const float* r_in, float* poses_out, float* c_out,
+                     GradArgs ga) {
   __shared__ __align__(16) float sT[EDGE_SLOTS * 16];
   __shared__ __align__(16) float sTi[EDGE_SLOTS * 16];
   __shared__ __align__(16) float sTj[EDGE_SLOTS * 16];
   __shared__ __align__(16) float sR[EDGE_SLOTS * 6];
+  __shared__ __align__(16) float sJ[EDGE_SLOTS * 36];
+  __shared__ __align__(16) float sU[EDGE_SLOTS * 6];
+  __shared__ int sle[GRAD_STAGE], sqe[GRAD_STAGE];
+  __shared__ float slw[GRAD_STAGE], sqw[GRAD_STAGE];
+  __shared__ int s_lists[4];
   __shared__ float sc[EDGE_SLOTS], sp[EDGE_NT], s_total;
-  __shared__ int s_last;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int b = blockIdx.x, e0 = b * EDGE_SLOTS;
   const int n = min(EDGE_SLOTS, s.E - e0);
+  const int NC = (s.F + gridDim.x - 1) / gridDim.x;
+  const int n0 = min(b * NC, s.F), nn = min(n0 + NC, s.F) - n0;
+  const bool grad = ga.mode != 0;
   float w = 0.0f;
   if (warp == 0) {  // w and the Tm rows
     if (lane < n) w = s.ew[e0 + lane];
@@ -1066,28 +1398,73 @@ __global__ void __launch_bounds__(EDGE_NT)
       trial_pose(s.poses, step, valid, scale,
                  (warp == 1 ? s.ei : s.ej)[e0 + lane],
                  (warp == 1 ? sTi : sTj) + lane * 16);
-  } else {  // the CTA's own slots' trial poses
-    const int NC = (s.F + gridDim.x - 1) / gridDim.x;
-    const int n0 = min(b * NC, s.F), nn = min(n0 + NC, s.F) - n0;
-    for (int k = tid - 96; k < nn; k += EDGE_NT - 96) {
+  } else if (warp <= 4) {  // the CTA's own slots' trial poses
+    for (int k = tid - 96; k < nn; k += 64) {
       float T[16];
       trial_pose(s.poses, step, valid, scale, n0 + k, T);
       store16(poses_out + (size_t)(n0 + k) * 16, T);
+    }
+  } else if (grad) {  // the edges' Ji rows; the slots' list entries
+    const int t = tid - 160;
+    copy_floats<3>(sJ, ga.J + (size_t)e0 * 36, n * 36, t, 96);
+    const Incidence& in = ga.inc;
+    const int l0 = in.pi[n0], q0 = in.pj[n0];
+    const int nl = min(in.pi[n0 + nn] - l0, GRAD_STAGE);
+    const int nq = min(in.pj[n0 + nn] - q0, GRAD_STAGE);
+    for (int k = t; k < nl + nq; k += 96) {
+      const bool lv = k < nl;
+      const int e = lv ? in.oi[l0 + k] : in.oj[q0 + k - nl];
+      (lv ? sle : sqe)[lv ? k : k - nl] = e;
+      (lv ? slw : sqw)[lv ? k : k - nl] = s.ew[e];
+    }
+    if (t == 0) {
+      s_lists[0] = l0;
+      s_lists[1] = nl;
+      s_lists[2] = q0;
+      s_lists[3] = nq;
     }
   }
   __syncthreads();
   if (warp == 0)
     sweep_residuals(sT, sTi + lane * 16, sTj + lane * 16, w, sR, sc, n);
   __syncthreads();
+  if (grad) {  // u = Ji^T r of the CTA's edges, each sum over a in order
+    for (int k = tid; k < n * 6; k += EDGE_NT) {
+      const int l = k / 6, p = k - l * 6;
+      float d = 0.0f;
+      for (int a = 0; a < 6; ++a)
+        d = fmaf(sJ[l * 36 + a * 6 + p], sR[l * 6 + a], d);
+      sU[k] = d;
+    }
+    __syncthreads();
+    copy_floats<1>(ga.u + (size_t)e0 * 6, sU, n * 6, tid, EDGE_NT);
+  }
   copy_floats<1>(s.r + (size_t)e0 * 6, sR, n * 6, tid, EDGE_NT);
-  if (!sweep_total(s, sc, n, sp, &s_total, &s_last)) return;
+  __syncthreads();
+  if (tid == 0) write_partial(s, sc, n);
+  grid_barrier(s.count);
+  sum_partials(s, sp, &s_total);
   const float c = *c_in, c_new = s_total;
   const bool ok = isfinite(c_new) && c_new <= c;
+  // this CTA's slots and edges
   if (!ok) {
-    copy_floats<16>(poses_out, s.poses, s.F * 16, tid, EDGE_NT);
-    copy_floats<16>(s.r, r_in, s.E * 6, tid, EDGE_NT);
+    copy_floats<1>(poses_out + (size_t)n0 * 16, s.poses + (size_t)n0 * 16,
+                   nn * 16, tid, EDGE_NT);
+    copy_floats<1>(s.r + (size_t)e0 * 6, r_in + (size_t)e0 * 6, n * 6, tid,
+                   EDGE_NT);
+    if (grad)
+      for (int k = tid; k < nn * 6; k += EDGE_NT)
+        ga.g_out[(size_t)n0 * 6 + k] = ga.g_in[(size_t)n0 * 6 + k];
+  } else if (grad) {
+    const ListStage st{sle, slw, sqe, sqw, s_lists[0], s_lists[1],
+                       s_lists[2], s_lists[3]};
+    for (int k = tid; k < nn * 6; k += EDGE_NT) {
+      const int ln = k / 6;
+      ga.g_out[(size_t)n0 * 6 + k] =
+          node_gradient(ga, s.ew, s.r, st, n0 + ln, k - ln * 6);
+    }
   }
-  if (tid == 0) *c_out = ok ? c_new : c;
+  if (tid == 0 && b == 0) *c_out = ok ? c_new : c;
 }
 
 }  // namespace
@@ -1120,27 +1497,41 @@ int pg_edges(const float* poses, const int* ei, const int* ej,
   return (int)cudaGetLastError();
 }
 
-// dense normal equations: H (6F, 6F) and g (6F,) with the pins in diag (F,)
+// dense normal equations: H (6F, 6F) and g (6F,) with the pins in diag (F,),
+// once a solve (pg_update hands on each later g): F CTAs; refuses F past
+// what a CTA's block-slot table holds (~51,000)
 int pg_assemble(const float* poses, const int* ei, const int* ej,
                 const float* eT, const float* ew, const int* oi,
                 const int* pi, const int* oj, const int* pj, const float* r,
                 const float* J, const float* diag, float* H, float* gvec,
                 int F, int E, cudaStream_t stream) {
+  if (!aligned16({r, J, H})) return (int)cudaErrorMisalignedAddress;
   Graph g{poses, ei, ej, eT, ew, F, E};
   Incidence inc{oi, pi, oj, pj};
-  pg_assemble_kernel<<<F, 64, 0, stream>>>(g, inc, r, J, diag, H, gvec);
+  const size_t smem = normal_words(F, true) * 4;
+  if (smem > 232448) return (int)cudaErrorInvalidValue;
+  const cudaError_t err = cudaFuncSetAttribute(
+      pg_assemble_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  pg_assemble_kernel<<<F, 2 * NORMAL_CT, smem, stream>>>(g, inc, r, J, diag,
+                                                         H, gvec);
   return (int)cudaGetLastError();
 }
 
-// PCG: the exact diagonal blocks Hd (F, 6, 6) and the gradient g (F, 6)
+// PCG: the exact diagonal blocks Hd (F, 6, 6) and the gradient g (F, 6),
+// once a solve: F CTAs
 int pg_blocks(const float* poses, const int* ei, const int* ej,
               const float* eT, const float* ew, const int* oi, const int* pi,
               const int* oj, const int* pj, const float* r, const float* J,
               const float* diag, float* Hd, float* gvec, int F, int E,
               cudaStream_t stream) {
+  if (!aligned16({r, J})) return (int)cudaErrorMisalignedAddress;
   Graph g{poses, ei, ej, eT, ew, F, E};
   Incidence inc{oi, pi, oj, pj};
-  pg_blocks_kernel<<<F, 64, 0, stream>>>(g, inc, r, J, diag, Hd, gvec);
+  const size_t smem = normal_words(F, false) * 4;
+  pg_blocks_kernel<<<F, 2 * NORMAL_CT, smem, stream>>>(g, inc, r, J, diag,
+                                                       Hd, gvec);
   return (int)cudaGetLastError();
 }
 
@@ -1193,20 +1584,34 @@ int pg_pcg(const float* poses, const int* ei, const int* ej, const float* eT,
 
 // poses_out = accepted(poses exp(scale step on valid slots)), r_out the
 // residuals at poses_out (r_in, the residuals at poses, on a reject), c_out;
-// the plan as pg_edges'
+// the plan as pg_edges'. mode GRAD_DENSE or GRAD_PCG: also g_out, the
+// gradient at r_out in that order (g_in, the gradient at r_in, on a
+// reject), from the node lists oi .. pj and the Jacobians J, with u (E, 6)
+// scratch; mode 0: none (those pointers unused). A cooperative launch: the
+// card refuses a grid it cannot hold at once
 int pg_update(const float* poses, const int* ei, const int* ej,
               const float* eT, const float* ew, const float* c_in,
               const float* step, const uint8_t* valid, const float* r_in,
               float* poses_out, float* r_out, float* c_out, float* partial,
-              unsigned* count, int F, int E, int ctas, int threads,
+              unsigned* count, const int* oi, const int* pi, const int* oj,
+              const int* pj, const float* J, const float* g_in, float* g_out,
+              float* u, int F, int E, int ctas, int threads, int mode,
               float scale, cudaStream_t stream) {
-  if (ctas != edge_ctas(E) || threads != EDGE_NT)
+  if (ctas != edge_ctas(E) || threads != EDGE_NT || mode < 0 ||
+      mode > GRAD_PCG)
     return (int)cudaErrorInvalidValue;
-  if (!aligned16({poses, eT, r_in, poses_out, r_out}))
+  if (!aligned16({poses, eT, r_in, poses_out, r_out}) ||
+      (mode && !aligned16({J, u})))
     return (int)cudaErrorMisalignedAddress;
   Sweep s{poses, ei, ej, eT, ew, r_out, partial, count, F, E};
-  pg_update_kernel<<<ctas, EDGE_NT, 0, stream>>>(s, c_in, step, scale, valid,
-                                                 r_in, poses_out, c_out);
+  GradArgs ga{Incidence{oi, pi, oj, pj}, J, g_in, g_out, u, mode};
+  void* args[] = {(void*)&s,         (void*)&c_in,  (void*)&step,
+                  (void*)&scale,     (void*)&valid, (void*)&r_in,
+                  (void*)&poses_out, (void*)&c_out, (void*)&ga};
+  const cudaError_t err = cudaLaunchCooperativeKernel(
+      (const void*)pg_update_kernel, dim3(ctas), dim3(EDGE_NT), args, 0,
+      stream);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 

@@ -9,17 +9,21 @@ pins on invalid slots (1e6), on slots cut off from the gauge component
 (1e8, ``frozen_mask``) and on the first valid slot (1e8), updates
 T <- T exp(dx) and accepts only a finite cost that did not rise.
 
-Two linear solvers: dense, the (6F)^2 system through
-``torch.linalg.solve_ex`` (the reference calls ``jnp.linalg.solve``), and
-PCG, a matrix-free block-Jacobi-preconditioned CG with a fixed schedule.
-On CUDA tensors every step but the library solve and the batched 6 x 6
-inverse is a launch of ``csrc/pose_graph.cu`` (``pg_edges`` and
-``pg_update`` over ``edge_layout``'s CTAs, ``pg_assemble``, ``pg_blocks``,
-``pg_pcg`` on a thread-block cluster); the plain versions (the reference's
-arithmetic in torch) run only for CPU tensors. A solve evaluates its edges
-once (``edges``: r, Ji, the first cost); each GN step's ``update`` hands on
-the residuals at the poses it returns, and Ji depends only on the edges'
-measurements.
+Two linear solvers: dense, the (6F)^2 system through the library's LU
+(the reference calls ``jnp.linalg.solve``), and PCG, a matrix-free
+block-Jacobi-preconditioned CG with a fixed schedule. On CUDA tensors
+every step but the library's LU and batched 6 x 6 inverse is a launch of
+``csrc/pose_graph.cu`` (``pg_edges`` and ``pg_update`` over
+``edge_layout``'s CTAs, ``pg_assemble``, ``pg_blocks``, ``pg_pcg`` on a
+thread-block cluster); the plain versions (the reference's arithmetic in
+torch) run only for CPU tensors. Ji, w and the pins depend only on the
+edges and the gauge, so H (dense) and its diagonal blocks (PCG) are the
+same at every GN step: a solve evaluates its edges once (``edges``: r, Ji,
+the first cost), builds H and the first gradient once (``assemble``; PCG
+``blocks``), factors H once (LU; PCG inverts the blocks once), and each GN
+step's ``update`` hands on the residuals at the poses it returns and the
+gradient there (``gradient_plain``'s arithmetic): a dense solve launches
+1 + 1 + 12 hand kernels at 12 iterations, PCG 1 + 1 + 2 x 12.
 Fixed capacity: F pose slots, E edge slots, masked by ``edge_w > 0``.
 """
 
@@ -163,17 +167,20 @@ def edge_partition(F: int, E: int):
              (min(b * nc, F), min((b + 1) * nc, F))) for b in range(ctas)]
 
 
-# per device: the CTAs' cost partials and the last-CTA counter, which every
-# launch leaves at 0 (launches on one stream; a CUDA graph may capture them)
+# per device: the CTAs' cost partials, the last-CTA (or grid barrier)
+# counter, which every launch leaves at 0 (launches on one stream; a CUDA
+# graph may capture them), and pg_update's (E, 6) products Ji^T r
 _SWEEP = {}
 
 
-def _sweep_scratch(device, ctas: int):
+def _sweep_scratch(device, ctas: int, E: int = 0):
     buf = _SWEEP.get(device)
-    if buf is None or buf[0].numel() < ctas:
+    if buf is None or buf[0].numel() < ctas or buf[2].numel() < 6 * E:
         buf = (torch.empty((max(ctas, 64),), dtype=torch.float32,
                            device=device),
-               torch.zeros((1,), dtype=torch.int32, device=device))
+               torch.zeros((1,), dtype=torch.int32, device=device),
+               torch.empty((6 * max(E, 2048),), dtype=torch.float32,
+                           device=device))
         _SWEEP[device] = buf
     return buf
 
@@ -192,8 +199,8 @@ def edges(g: PoseGraph, jac: bool = True):
          else None)
     cost = torch.empty((), dtype=torch.float32, device=dev)
     ctas, threads = edge_layout(E)
-    native.launch("pg_edges", *a, r, J, cost, *_sweep_scratch(dev, ctas), F,
-                  E, ctas, threads)
+    native.launch("pg_edges", *a, r, J, cost, *_sweep_scratch(dev, ctas)[:2],
+                  F, E, ctas, threads)
     return r, J, cost
 
 
@@ -203,6 +210,26 @@ def edge_residuals(poses: torch.Tensor, g: PoseGraph) -> torch.Tensor:
 
 
 # -- dense normal equations ---------------------------------------------------
+
+GRAD_MODES = {"dense": 1, "pcg": 2}     # csrc/pose_graph.cu GRAD_DENSE, _PCG
+
+
+def gradient_plain(g: PoseGraph, r, Ji, mode: str):
+    """The gradient sum_e w (Ji^T r_e at the tail, r_e at the head) at the
+    residuals r, in ``mode``'s order: "dense" the reference's dense
+    scatter-adds ((6F,), ``assemble_plain``'s g), "pcg" its incidence
+    matmuls ((F, 6), ``blocks_plain``'s g)."""
+    F = g.poses.shape[0]
+    w = g.edge_w
+    gi = torch.einsum("e,eap,ea->ep", w, Ji, r)
+    if mode == "dense":
+        gvec = torch.zeros((F, 6), dtype=w.dtype, device=w.device)
+        gvec.index_add_(0, g.edge_i.long(), gi)
+        gvec.index_add_(0, g.edge_j.long(), w[:, None] * r)
+        return gvec.reshape(-1)
+    Pi, Pj = _incidence_onehot(g)
+    return Pi.T @ gi + Pj.T @ (w[:, None] * r)
+
 
 def assemble_plain(g: PoseGraph, r, Ji, diag):
     """(H (6F, 6F), g (6F,)): the reference's scatter-adds in its order."""
@@ -216,16 +243,16 @@ def assemble_plain(g: PoseGraph, r, Ji, diag):
     Hij = torch.einsum("e,eap->epa", w, Ji)
     H.index_put_((ei, ej), Hij, accumulate=True)
     H.index_put_((ej, ei), Hij.transpose(-1, -2), accumulate=True)
-    gvec = torch.zeros((F, 6), dtype=w.dtype, device=w.device)
-    gvec.index_add_(0, ei, torch.einsum("e,eap,ea->ep", w, Ji, r))
-    gvec.index_add_(0, ej, w[:, None] * r)
     idx = torch.arange(F, device=w.device)
     H[idx, idx] += diag[:, None, None] * eye
-    return H.permute(0, 2, 1, 3).reshape(6 * F, 6 * F), gvec.reshape(-1)
+    return (H.permute(0, 2, 1, 3).reshape(6 * F, 6 * F),
+            gradient_plain(g, r, Ji, "dense"))
 
 
 def assemble(g: PoseGraph, r, Ji, diag, inc=None):
-    """The dense system, one ``pg_assemble`` launch (a block per slot)."""
+    """The dense system and the gradient, one ``pg_assemble`` launch (a
+    block per slot: the blocks its rows touch summed in shared memory, the
+    rest of its band streamed out as zeros); a solve launches it once."""
     if g.poses.device.type == "cpu":
         return assemble_plain(g, r, Ji, diag)
     a = _args(g)
@@ -252,11 +279,9 @@ def _incidence_onehot(g: PoseGraph):
 
 def blocks_plain(g: PoseGraph, r, Ji, diag):
     """(gradient (F, 6), exact diagonal blocks of H (F, 6, 6))."""
-    F = g.poses.shape[0]
     w = g.edge_w
     Pi, Pj = _incidence_onehot(g)
-    gi = torch.einsum("e,eap,ea->ep", w, Ji, r)
-    gvec = Pi.T @ gi + Pj.T @ (w[:, None] * r)
+    gvec = gradient_plain(g, r, Ji, "pcg")
     eye = torch.eye(6, dtype=w.dtype, device=w.device)
     Hii = torch.einsum("e,eap,eaq->epq", w, Ji, Ji)
     Hd = (torch.einsum("ef,epq->fpq", Pi, Hii)
@@ -265,6 +290,8 @@ def blocks_plain(g: PoseGraph, r, Ji, diag):
 
 
 def blocks(g: PoseGraph, r, Ji, diag, inc):
+    """(gradient, diagonal blocks of H), one ``pg_blocks`` launch (a block
+    per slot); a solve launches it once."""
     if g.poses.device.type == "cpu":
         return blocks_plain(g, r, Ji, diag)
     a = _args(g)
@@ -401,14 +428,21 @@ def update_plain(g: PoseGraph, c, step, scale: float, r=None):
             torch.where(ok, r_new, r))
 
 
-def update(g: PoseGraph, c, step, scale: float, r=None, r_out=None):
+def update(g: PoseGraph, c, step, scale: float, r=None, r_out=None,
+           grad=None):
     """T <- T exp(scale * step) on valid slots, kept only if the cost is
     finite and did not rise: (poses, cost, residuals at those poses); one
     ``pg_update`` launch. ``r``: the residuals at ``g.poses``, handed back
     on a reject (None: one ``pg_edges`` launch without Ji computes them);
-    ``r_out``: the buffer the residuals go to (a solve alternates two)."""
+    ``r_out``: the buffer the residuals go to (a solve alternates two).
+    ``grad``: None, or (mode, Ji, g_in, g_out, inc): the same launch also
+    computes the gradient at the residuals it hands on, in ``mode``'s order
+    (``gradient_plain``), into ``g_out`` (``g_in``, the gradient at ``r``,
+    is handed on after a reject), returned fourth."""
     if g.poses.device.type == "cpu":
-        return update_plain(g, c, step, scale, r)
+        out = update_plain(g, c, step, scale, r)
+        return out if grad is None else (
+            *out, gradient_plain(g, out[2], grad[1], grad[0]))
     a = _args(g)
     F, E = a[0].shape[0], a[4].shape[0]
     dev = a[0].device
@@ -426,23 +460,63 @@ def update(g: PoseGraph, c, step, scale: float, r=None, r_out=None):
     poses = torch.empty_like(a[0])
     c_out = torch.empty((), dtype=torch.float32, device=dev)
     ctas, threads = edge_layout(E)
+    partial, count, u = _sweep_scratch(dev, ctas, E)
+    mode, gargs = 0, [None] * 8
+    if grad is not None:
+        name, Ji, g_in, g_out, inc = grad
+        mode = GRAD_MODES[name]
+        for what, t in (("gradient", g_in), ("gradient buffer", g_out)):
+            native.require(t, f"pose graph {what}", torch.float32)
+            if t.numel() != 6 * F or not t.is_contiguous():
+                raise ValueError(f"pg_update: the {what} must be "
+                                 f"{6 * F} contiguous floats")
+        if g_out.data_ptr() == g_in.data_ptr():
+            raise ValueError("pg_update: g_out must not be g_in")
+        native.require(Ji, "pose graph Ji", torch.float32, (E, 6, 6))
+        inc = _incidence(g) if inc is None else inc
+        gargs = [*inc, Ji.contiguous(), g_in, g_out, u]
     native.launch("pg_update", *a, c_in, st, va, r, poses, r_out, c_out,
-                  *_sweep_scratch(dev, ctas), F, E, ctas, threads,
+                  partial, count, *gargs, F, E, ctas, threads, mode,
                   float(scale))
-    return poses, c_out, r_out
+    return (poses, c_out, r_out) if grad is None else (poses, c_out, r_out,
+                                                       g_out)
 
 
 # -- the solvers --------------------------------------------------------------
 
-def _gauss_newton(g: PoseGraph, iters: int, gn_step, scale: float):
-    """One ``edges`` (r, Ji, cost0), then per iteration the step
-    ``gn_step(g, r, Ji)`` and ``update``, whose residuals the next
-    iteration uses; two residual buffers alternate."""
+def lu_factor(H):
+    """H's LU with partial pivoting, once a solve: (LU, pivots), the factors
+    ``torch.linalg.solve_ex`` computes inside."""
+    LU, piv, _ = torch.linalg.lu_factor_ex(H)
+    return LU, piv
+
+
+def lu_step(lu, gvec):
+    """The solve of H x = gvec from ``lu_factor``'s factors: the bits of
+    ``torch.linalg.solve_ex(H, gvec[:, None])[0][:, 0]``."""
+    return torch.linalg.lu_solve(lu[0], lu[1], gvec[:, None])[:, 0]
+
+
+def _gauss_newton(g: PoseGraph, iters: int, first, step, scale: float,
+                  mode: str):
+    """One ``edges`` (r, Ji, cost0); ``first(g, r, Ji, inc)``: what the solve
+    keeps (dense H's LU, PCG the inverted diagonal blocks) and the first
+    gradient; per iteration the step ``step(g, Ji, kept, gvec, inc)`` and
+    ``update``, which hands on the residuals and the gradient there
+    (``mode``'s order; none after the last step); two buffers of each
+    alternate."""
     r, Ji, c0 = edges(g)
-    c, spare = c0, torch.empty_like(r)
-    for _ in range(iters):
-        poses, c, r_next = update(g, c, gn_step(g, r, Ji), scale, r, spare)
-        spare, r = r, r_next
+    inc = _incidence(g) if g.poses.device.type == "cuda" else None
+    kept, gvec = first(g, r, Ji, inc)
+    c, spare_r, spare_g = c0, torch.empty_like(r), torch.empty_like(gvec)
+    for k in range(iters):
+        grad = (mode, Ji, gvec, spare_g, inc) if k + 1 < iters else None
+        out = update(g, c, step(g, Ji, kept, gvec, inc), scale, r, spare_r,
+                     grad)
+        poses, c, r_next = out[:3]
+        spare_r, r = r, r_next
+        if grad is not None:
+            spare_g, gvec = gvec, out[3]
         g = g._replace(poses=poses)
     return g.poses, c0, c
 
@@ -459,12 +533,14 @@ def _optimize_dense(g: PoseGraph, freeze: torch.Tensor, iters: int = 12,
                     fix_first: bool = True):
     diag = _diag(g, freeze, fix_first)
     F = g.poses.shape[0]
-    inc = _incidence(g) if g.poses.device.type == "cuda" else None
 
-    def gn_step(g, r, Ji):
+    def first(g, r, Ji, inc):
         H, gvec = assemble(g, r, Ji, diag, inc)
-        return torch.linalg.solve_ex(H, gvec[:, None])[0][:, 0].reshape(F, 6)
-    return _gauss_newton(g, iters, gn_step, -1.0)
+        return lu_factor(H), gvec
+
+    def step(g, Ji, lu, gvec, inc):
+        return lu_step(lu, gvec).reshape(F, 6)
+    return _gauss_newton(g, iters, first, step, -1.0, "dense")
 
 
 def optimize_pose_graph_pcg(g: PoseGraph, iters: int = 12,
@@ -482,10 +558,11 @@ def _optimize_pcg(g: PoseGraph, freeze: torch.Tensor, iters: int = 12,
     linear solve (fixed ``cg_iters`` schedule): the sparse solver for
     graphs past the dense (6F)^2 wall. Same contract as the dense one."""
     diag = _diag(g, freeze, fix_first)
-    inc = _incidence(g) if g.poses.device.type == "cuda" else None
 
-    def gn_step(g, r, Ji):
+    def first(g, r, Ji, inc):
         gvec, Hd = blocks(g, r, Ji, diag, inc)
-        Minv = torch.linalg.inv_ex(Hd)[0]
+        return torch.linalg.inv_ex(Hd)[0], gvec
+
+    def step(g, Ji, Minv, gvec, inc):
         return pcg(g, Ji, Minv, diag, gvec, cg_iters, inc)
-    return _gauss_newton(g, iters, gn_step, 1.0)
+    return _gauss_newton(g, iters, first, step, 1.0, "pcg")

@@ -70,7 +70,7 @@ _SIGNATURES: Dict[str, str] = {
     "pg_assemble": "p" * 14 + "ii",
     "pg_blocks": "p" * 14 + "ii",
     "pg_pcg": "p" * 14 + "iii",
-    "pg_update": "p" * 14 + "iiii" + "f",
+    "pg_update": "p" * 22 + "iiiii" + "f",
     "remap_bilinear": "pppiiiiii",
 }
 

@@ -1070,9 +1070,10 @@ def test_bow_kernels(cuda):
                                        (256, 200, 800), (512, 400, 1600)])
 def test_pose_graph_kernels(cuda, F, n, extra):
     """Kernel M (K18) against the plain version on the card: launch by
-    launch at Fb 64 and 512 (pg_edges at every bucket, against float64),
-    pg_pcg (one CTA, one, two and four) at the
-    loop closer's four slot buckets, and both solvers up to Fb 128.
+    launch at Fb 64 and 512 (pg_edges at every bucket, against float64;
+    pg_assemble and pg_blocks, built once a solve), pg_pcg (one CTA, one,
+    two and four) at the loop closer's four slot buckets, and both solvers
+    up to Fb 128.
     Residuals and Jacobians within 1e-5 of the largest (f32 log/exp in
     another operation order), the dense system and gradient within 1e-5,
     the PCG step within 1e-3, the poses of a whole solve within 1e-3 of
@@ -1102,7 +1103,7 @@ def test_pose_graph_kernels(cuda, F, n, extra):
     freeze = torch.zeros(F, dtype=torch.bool, device=cuda)
     diag = pg._diag(gd, freeze, True)
     inc = pg._incidence(gd)
-    if every and F <= 128:
+    if every:
         H, gv = _launched("pg_assemble", lambda: pg.assemble(gd, rp, Jp, diag,
                                                              inc))
         Hp, gvp = pg.assemble_plain(gd, rp, Jp, diag)
@@ -1184,6 +1185,170 @@ def test_pose_graph_edge_sweep(cuda, F, n, extra, E):
                                                           r))
     assert torch.equal(Pb, gd.poses) and torch.equal(cb, c)
     assert torch.equal(rb, r)
+
+
+@pytest.mark.parametrize("F,n,extra,E", [(64, 40, 60, None),
+                                         (128, 100, 300, None),
+                                         (256, 200, 800, None),
+                                         (512, 400, 1600, None),
+                                         (64, 40, 60, 247)])
+def test_pose_graph_gradient(cuda, F, n, extra, E):
+    """The gradient pg_update hands on, in both orders, at the loop
+    closer's four slot buckets and a ragged E: the bits of pg_assemble's
+    (dense) and pg_blocks' (PCG) g at the residuals it hands on, within
+    1e-5 of gradient_plain's largest entry; its poses, cost and residuals
+    the bits of a launch without the gradient; a second launch the same
+    bits; a rejected step hands back the poses, residuals, cost and g_in."""
+    from plslam_tpu_torch import convert
+    from plslam_tpu_torch.io import synthetic
+    from plslam_tpu_torch.loop import pose_graph as pg
+    gd = convert.pose_graph_from_numpy(
+        synthetic.drift_circle_graph(F, n, extra, seed=F)[0], cuda)
+    if E is not None:
+        gd = gd._replace(**{f: getattr(gd, f)[:E]
+                            for f in pg.PoseGraph._fields[2:]})
+    rel = lambda a, b: float((a - b).abs().max()
+                             / b.abs().max().clamp(min=1e-30))
+    freeze = torch.zeros(F, dtype=torch.bool, device=cuda)
+    diag = pg._diag(gd, freeze, True)
+    inc = pg._incidence(gd)
+    r, J, c = pg.edges(gd)
+    gv, Hd = pg.blocks_plain(gd, r, J, diag)
+    dx = pg.pcg_plain(gd, J, torch.linalg.inv_ex(Hd)[0], diag, gv, 96)
+    P0, c0, r0 = pg.update(gd, c, dx, 1.0, r)
+    assert float(c0) < float(c)
+    for mode, shape in (("dense", (6 * F,)), ("pcg", (F, 6))):
+        g_in = torch.full(shape, 7.0, device=cuda)
+        step = lambda s: pg.update(gd, c, dx, s, r, None,
+                                   (mode, J, g_in, torch.empty_like(g_in),
+                                    inc))
+        P, c1, r1, g1 = _launched("pg_update", lambda: step(1.0))
+        for x, y in zip(step(1.0), (P, c1, r1, g1)):
+            assert torch.equal(x, y)
+        assert torch.equal(P, P0) and torch.equal(c1, c0)
+        assert torch.equal(r1, r0)
+        want = (pg.assemble(gd, r1, J, diag, inc)[1] if mode == "dense"
+                else pg.blocks(gd, r1, J, diag, inc)[0])
+        assert torch.equal(g1, want)
+        assert rel(g1, pg.gradient_plain(gd, r1, J, mode)) <= 1e-5
+        Pb, cb, rb, gb = step(-1.0)
+        assert torch.equal(Pb, gd.poses) and torch.equal(cb, c)
+        assert torch.equal(rb, r) and torch.equal(gb, g_in)
+
+
+def _per_step_solve(pg, name, g, freeze, iters, cg_iters):
+    """A solve as the loop that assembles and solves every GN step on the
+    card: pg_edges once, then per step pg_assemble and solve_ex (dense) or
+    pg_blocks, inv_ex and pg_pcg (PCG), and pg_update without a gradient."""
+    F = g.poses.shape[0]
+    diag = pg._diag(g, freeze, True)
+    inc = pg._incidence(g)
+    r, J, c0 = pg.edges(g)
+    c = c0
+    for _ in range(iters):
+        if name == "dense":
+            H, gv = pg.assemble(g, r, J, diag, inc)
+            st = torch.linalg.solve_ex(H, gv[:, None])[0][:, 0]
+            P, c, r = pg.update(g, c, st.reshape(F, 6), -1.0, r)
+        else:
+            gv, Hd = pg.blocks(g, r, J, diag, inc)
+            st = pg.pcg(g, J, torch.linalg.inv_ex(Hd)[0], diag, gv, cg_iters,
+                        inc)
+            P, c, r = pg.update(g, c, st, 1.0, r)
+        g = g._replace(poses=P)
+    return P, c0, c
+
+
+@pytest.mark.parametrize("F,n,extra", [(64, 40, 60), (128, 100, 300),
+                                       (256, 200, 800), (512, 400, 1600)])
+def test_pose_graph_solves_equal_per_step_loop(cuda, F, n, extra):
+    """Whole dense and PCG solves (H or its diagonal blocks built once, LU
+    or the inverses once, each step's gradient from pg_update) against the
+    loop that assembles and solves every step on the card (pg_assemble and
+    torch.linalg.solve_ex; pg_blocks, torch.linalg.inv_ex and pg_pcg):
+    poses and costs the same bits; the solves launch pg_edges, pg_assemble
+    or pg_blocks once and pg_update (and pg_pcg) 12 times."""
+    from collections import Counter
+    from plslam_tpu_torch import convert
+    from plslam_tpu_torch.io import synthetic
+    from plslam_tpu_torch.loop import pose_graph as pg
+    gd = convert.pose_graph_from_numpy(
+        synthetic.drift_circle_graph(F, n, extra, seed=F)[0], cuda)
+    freeze = torch.zeros(F, dtype=torch.bool, device=cuda)
+    for name in ("dense", "pcg"):
+        before = Counter(native.LAUNCHES)
+        got = (pg._optimize_dense(gd, freeze, 12) if name == "dense"
+               else pg._optimize_pcg(gd, freeze, 12, 96))
+        torch.cuda.synchronize()
+        launched = Counter(native.LAUNCHES) - before
+        for x, y in zip(got, _per_step_solve(pg, name, gd, freeze, 12, 96)):
+            assert torch.equal(x, y)
+        assert float(got[2]) < 0.5 * float(got[1])
+        assert launched == ({"pg_edges": 1, "pg_assemble": 1, "pg_update": 12}
+                            if name == "dense" else
+                            {"pg_edges": 1, "pg_blocks": 1, "pg_pcg": 12,
+                             "pg_update": 12})
+
+
+def _hub_graph(dev, F=96, seed=7):
+    """Slot 5 on two edges in three (list entries past one staged chunk,
+    more distinct neighbours than a CTA keeps in shared memory), unused
+    slots between used ones, repeated pairs, seeded poses and
+    measurements."""
+    from plslam_tpu_torch import convert
+    from plslam_tpu_torch.core import lie
+    rng = np.random.default_rng(seed)
+    E = 4 * F
+    exp = lambda n: lie.exp_se3(torch.from_numpy(
+        rng.normal(0, 0.3, (n, 6)).astype(np.float32))).numpy()
+    d = dict(poses=exp(F), pose_valid=np.arange(F) < F - 10,
+             edge_i=np.zeros(E, np.int32), edge_j=np.zeros(E, np.int32),
+             edge_T=exp(E), edge_w=np.zeros(E, np.float32))
+    for k in range(E):
+        i, j = (5, int(rng.integers(0, F - 10))) if k % 3 else tuple(
+            int(v) for v in rng.integers(0, F - 10, 2))
+        d["edge_i"][k], d["edge_j"][k] = (i, j) if k % 2 else (j, i)
+        d["edge_w"][k] = 0.0 if k % 7 == 3 else 1.0 + (k % 5) * 0.25
+    return convert.pose_graph_from_numpy(d, dev)
+
+
+def test_pose_graph_hub(cuda):
+    """K18's normal equations and gradient on a hub graph: pg_assemble and
+    pg_blocks within today's tolerances of their plain versions; the
+    gradient pg_update hands on, in both orders, the bits of theirs at its
+    residuals; whole dense and PCG solves (6 iterations) the bits of the
+    loop that assembles and solves every step."""
+    from plslam_tpu_torch.loop import pose_graph as pg
+    gd = _hub_graph(cuda)
+    inc = pg._incidence(gd)
+    assert int((inc[1][1:] - inc[1][:-1]).max()) > 64
+    rel = lambda a, b: float((a - b).abs().max()
+                             / b.abs().max().clamp(min=1e-30))
+    freeze = torch.from_numpy(pg.frozen_mask(gd)).to(cuda)
+    diag = pg._diag(gd, freeze, True)
+    r, J, c = pg.edges(gd)
+    H, gv = _launched("pg_assemble", lambda: pg.assemble(gd, r, J, diag, inc))
+    Hp, gvp = pg.assemble_plain(gd, r, J, diag)
+    assert rel(H - torch.diag(torch.diag(H)), Hp - torch.diag(
+        torch.diag(Hp))) <= 1e-5 and rel(gv, gvp) <= 1e-5
+    assert rel(torch.diag(H), torch.diag(Hp)) <= 1e-6
+    gb, Hd = _launched("pg_blocks", lambda: pg.blocks(gd, r, J, diag, inc))
+    gbp, Hdp = pg.blocks_plain(gd, r, J, diag)
+    assert rel(gb, gbp) <= 1e-5 and rel(Hd, Hdp) <= 1e-5
+    dx = pg.pcg_plain(gd, J, torch.linalg.inv_ex(Hdp)[0], diag, gbp, 24)
+    for mode, g_in in (("dense", gv), ("pcg", gb)):
+        P, c1, r1, g1 = pg.update(gd, c, dx, 1.0, r, None,
+                                  (mode, J, g_in, torch.empty_like(g_in),
+                                   inc))
+        assert not torch.equal(P, gd.poses)
+        want = (pg.assemble(gd, r1, J, diag, inc)[1] if mode == "dense"
+                else pg.blocks(gd, r1, J, diag, inc)[0])
+        assert torch.equal(g1, want)
+    for name in ("dense", "pcg"):
+        got = (pg._optimize_dense(gd, freeze, 6) if name == "dense"
+               else pg._optimize_pcg(gd, freeze, 6, 24))
+        for x, y in zip(got, _per_step_solve(pg, name, gd, freeze, 6, 24)):
+            assert torch.equal(x, y)
 
 
 def test_remap_kernel_bit_equal(cuda):

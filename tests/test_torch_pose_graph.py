@@ -452,13 +452,15 @@ def _recomputing_solve(name, g, freeze, iters, cg_iters=24):
 
 
 @pytest.mark.parametrize("name,F,n,extra", [("dense", 64, 40, 60),
+                                            ("dense", 128, 100, 300),
                                             ("pcg", 64, 40, 60),
                                             ("pcg", 128, 100, 300)])
 def test_solves_equal_recomputing_loop(one_thread, name, F, n, extra):
-    """The solves, which evaluate Ji once and take each step's residuals
-    from the last update, give the same bits as the loop that evaluates
-    every edge at every step (12 iterations, rejected steps among them
-    near convergence)."""
+    """The solves, which evaluate Ji once, build H (its LU) or the inverted
+    diagonal blocks once and take each step's residuals and gradient from
+    the last update, give the same bits as the loop that evaluates every
+    edge, assembles and solves (``solve_ex``, ``inv_ex``) at every step (12
+    iterations, rejected steps among them near convergence)."""
     g = _circle(F, n, extra)
     freeze = torch.zeros(F, dtype=torch.bool)
     got = (tpg._optimize_dense(g, freeze, 12) if name == "dense"
@@ -467,3 +469,53 @@ def test_solves_equal_recomputing_loop(one_thread, name, F, n, extra):
     for x, y in zip(got, want):
         assert torch.equal(x, y)
     assert float(got[2]) < 0.5 * float(got[1])
+
+
+@pytest.mark.parametrize("F,n,extra", [(64, 40, 60), (128, 100, 300)])
+def test_gradient_plain_is_the_assemblies_gradient(one_thread, F, n, extra):
+    """gradient_plain in the dense order is assemble_plain's g, in the PCG
+    order blocks_plain's g, bit for bit, at the first residuals and at those
+    after a step, in float32 and float64; and each equals the reference's
+    own scatter written out (dense: two index_adds over the edges; PCG: the
+    incidence matmuls)."""
+    g32 = _circle(F, n, extra)
+    for g in (g32, g32._replace(poses=g32.poses.double(),
+                                edge_T=g32.edge_T.double(),
+                                edge_w=g32.edge_w.double())):
+        r, Ji, c = tpg.edges_plain(g)
+        diag = tpg._diag(g, torch.zeros(F, dtype=torch.bool), True)
+        gv, Hd = tpg.blocks_plain(g, r, Ji, diag)
+        dx = tpg.pcg_plain(g, Ji, torch.linalg.inv(Hd), diag, gv, 24)
+        r1 = tpg.update_plain(g, c, dx, 1.0, r)[2]
+        assert not torch.equal(r1, r)
+        w = g.edge_w
+        for res in (r, r1):
+            gi = torch.einsum("e,eap,ea->ep", w, Ji, res)
+            want = torch.zeros((F, 6), dtype=w.dtype)
+            want.index_add_(0, g.edge_i.long(), gi)
+            want.index_add_(0, g.edge_j.long(), w[:, None] * res)
+            dense = tpg.gradient_plain(g, res, Ji, "dense")
+            assert torch.equal(dense, want.reshape(-1))
+            assert torch.equal(dense, tpg.assemble_plain(g, res, Ji, diag)[1])
+            Pi, Pj = tpg._incidence_onehot(g)
+            pcg = tpg.gradient_plain(g, res, Ji, "pcg")
+            assert torch.equal(pcg, Pi.T @ gi + Pj.T @ (w[:, None] * res))
+            assert torch.equal(pcg, tpg.blocks_plain(g, res, Ji, diag)[0])
+
+
+@pytest.mark.parametrize("F,n,extra", [(64, 40, 60), (128, 100, 300)])
+def test_lu_once_equals_solve_ex(one_thread, F, n, extra):
+    """The dense step from H's LU, factored once a solve (``lu_factor``,
+    ``lu_step``), has ``torch.linalg.solve_ex``'s bits at n = 6F = 384 and
+    768 for the gradients of several GN steps."""
+    g = _circle(F, n, extra)
+    r, Ji, c = tpg.edges_plain(g)
+    diag = tpg._diag(g, torch.zeros(F, dtype=torch.bool), True)
+    H, gv = tpg.assemble_plain(g, r, Ji, diag)
+    lu = tpg.lu_factor(H)
+    for _ in range(3):
+        want = torch.linalg.solve_ex(H, gv[:, None])[0][:, 0]
+        assert torch.equal(tpg.lu_step(lu, gv), want)
+        P, c, r = tpg.update_plain(g, c, want.reshape(F, 6), -1.0, r)
+        g = g._replace(poses=P)
+        gv = tpg.gradient_plain(g, r, Ji, "dense")

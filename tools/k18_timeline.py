@@ -1,17 +1,20 @@
 """Where the time of K18's edge sweep goes on the card: copies of
 plslam_tpu_torch/csrc/pose_graph.cu with globaltimer stamps in
-``pg_edges`` (with Ji) and ``pg_update`` (on an accepted and on a rejected
-step) at the loop closer's four slot buckets (chip_smoke.py's
+``pg_edges`` (with Ji) and ``pg_update`` (on an accepted step, on a
+rejected step, and on an accepted step that also hands on the gradient in
+the dense order) at the loop closer's four slot buckets (chip_smoke.py's
 ``PG_BUCKETS``).
 
 Each CTA stamps its start, the start of its first residual (after the
 barrier that follows the loads, the end poses' and the own slots' trial
 poses; a stamp right after the barrier may be scheduled before it, as the
 timer read depends on nothing), the
-end of its residuals, its partial (before the fence and the count), its
-count (the last CTA: after adding the partials) and, in the
-last CTA, its end (after the write-back of a rejected step); in
-``pg_update`` warps 1 and 3 also stamp the end of their trial poses.
+end of its residuals, its partial (before the fence and the count, or
+the grid barrier of ``pg_update``'s cooperative launch), the sum of the
+partials (``pg_edges``: the last CTA) and its end (``pg_edges``: the last
+CTA; ``pg_update``: every CTA, after its write-back of a rejected step or
+its slots' gradient); in ``pg_update`` warps 1 and 3 also stamp the end of
+their trial poses.
 
 Needs an sm_90 card and nvcc; run from the repository root:
 
@@ -59,13 +62,16 @@ INSERTS = [
     # pg_update
     ("  float w = 0.0f;\n  if (warp == 0) {  // w and the Tm rows",
      f"  if (tid == 0) {NOW % 0}\n"),
-    ("  } else {  // the CTA's own slots' trial poses",
+    ("  } else if (warp <= 4) {  // the CTA's own slots' trial poses",
      f"    if (tid == 32) {NOW % 6}\n"),
-    ("  }\n  __syncthreads();\n  if (warp == 0)\n    sweep_residuals(sT, sTi",
+    ("  } else if (grad) {  // the edges' Ji rows; the slots' list entries",
      f"    if (tid == 96) {NOW % 7}\n"),
-    ("  __syncthreads();\n  copy_floats<1>(s.r + (size_t)e0 * 6, sR, n * 6, tid, "
-     "EDGE_NT);\n  if (!sweep_total", f"  if (tid == 0) {NOW % 2}\n"),
-    ("  if (tid == 0) *c_out = ok ? c_new : c;", f"  if (tid == 0) {NOW % 5}\n"),
+    ("  if (grad) {  // u = Ji^T r of the CTA's edges",
+     f"  if (tid == 0) {NOW % 2}\n"),
+    ("    fence_acq_rel_gpu();\n    atomicAdd(count, 1u);",
+     f"    {NOW % 3}\n"),
+    ("  if (tid == 0 && b == 0) *c_out = ok ? c_new : c;",
+     f"  if (tid == 0) {NOW % 5}\n"),
     # shared: warp 0's first residual, the cost
     ("    if (w > 0.0f) edge_residual(sT + l * 16, Ti, Tj, r);",
      f"    if (l == 0) {NOW % 1}\n"),
@@ -74,8 +80,9 @@ INSERTS = [
     ("  if (tid == 0) *total = c;\n",
      f"  if (tid == 0) {NOW % 4}\n"),
 ]
-PHASES = ["staging", "residuals", "r out and partial",
-          "fence, count (and sum)", "write-back and end"]
+PHASES = ["staging", "residuals", "r (and u) out and partial",
+          "fence, count or grid barrier, sum",
+          "write-back or gradient, end"]
 
 
 def instrumented_source() -> str:
@@ -186,7 +193,7 @@ def main() -> int:
             a = pg._args(gd)
             E = a[4].shape[0]
             ctas, nt = pg.edge_layout(E)
-            part, count = pg._sweep_scratch(dev, ctas)
+            part, count, u = pg._sweep_scratch(dev, ctas, E)
             r, J, c = pg.edges(gd)
             ro, Jo = torch.empty_like(r), torch.empty_like(J)
             co = torch.empty_like(c)
@@ -201,20 +208,35 @@ def main() -> int:
             dx = pg.pcg_plain(gd, Jp, torch.linalg.inv_ex(Hd)[0], diag, gv,
                               96)
             va = gd.pose_valid.to(torch.uint8)
-            for tag, scale in (("accepted", 1.0), ("rejected", -1.0)):
-                want = pg.update(gd, c, dx, scale, r)
-                P, co, ro = (torch.empty_like(x) for x in want)
+            inc = pg._incidence(gd)
+            g_in = torch.zeros((6 * F,), device=dev)
+            for tag, scale, grad in (("accepted", 1.0, False),
+                                     ("rejected", -1.0, False),
+                                     ("accepted, gradient", 1.0, True)):
+                want = pg.update(gd, c, dx, scale, r, None, (
+                    "dense", J, g_in, torch.empty_like(g_in), inc)
+                    if grad else None)
+                outs = [torch.empty_like(x) for x in want]
+                P, co, ro = outs[:3]
+                gargs = ([*inc, J, g_in, outs[3], u] if grad
+                         else [None] * 8)
                 st = stamps(lib, fns["pg_update"],
-                            [*a, c, dx, va, r, P, ro, co, part, count, F, E,
-                             ctas, nt, scale], [P, co, ro], list(want))
+                            [*a, c, dx, va, r, P, ro, co, part, count,
+                             *gargs, F, E, ctas, nt,
+                             pg.GRAD_MODES["dense"] if grad else 0, scale],
+                            outs, list(want))
                 report(f"pg_update@{F} {tag}", st, True)
+            g_out = torch.empty_like(g_in)
             ms = [device_ms(fn, iters=20) for fn in (
                 lambda: pg.edges(gd), lambda: pg.edges(gd, jac=False),
                 lambda: pg.update(gd, c, dx, 1.0, r),
-                lambda: pg.update(gd, c, dx, -1.0, r))]
+                lambda: pg.update(gd, c, dx, -1.0, r),
+                lambda: pg.update(gd, c, dx, 1.0, r, None,
+                                  ("dense", J, g_in, g_out, inc)))]
             print(f"[k18] Fb={F}, {ctas} CTAs of {nt} threads: device_ms "
                   f"pg_edges {ms[0]:.4f}, without Ji {ms[1]:.4f}, pg_update "
-                  f"accepted {ms[2]:.4f}, rejected {ms[3]:.4f}", flush=True)
+                  f"accepted {ms[2]:.4f}, rejected {ms[3]:.4f}, accepted "
+                  f"with the gradient {ms[4]:.4f}", flush=True)
     return 0
 
 
