@@ -107,7 +107,9 @@ against those of another checkout at DIR (for example a ``git archive``
 of the parent
 commit): outputs and device times (most also every device kernel's,
 torch's too, and the wrapper's), and the device kernels of one point
-front end (``against``).
+front end (``against``); then K18's solves as the loop closer meets them
+on each tree, in processes of their own: the first four calls of each
+solver in a fresh process, and the loop path alone (``solve_calls``).
 
 Imports nothing of JAX and nothing of the JAX package.
 """
@@ -2356,7 +2358,7 @@ class LoopProbe:
     """Counts and times the loop closer's steps on the card (each timed
     call is bracketed by synchronizes) and records the candidate margins
     and each pose-graph solve's graph and result (``hold_solves`` holds
-    them, after the run, bit-equal to ``_per_step_solve``). Installed
+    them, after the run, bit-equal to ``per_step_solve``). Installed
     around the module-level functions the closer calls; it changes nothing
     they compute."""
 
@@ -2366,7 +2368,7 @@ class LoopProbe:
         self.saved = {}
         self.n = {}
         self.ms = {}
-        self.solves = []         # (name, bound arguments, result)
+        self.solves = []    # (name, function, args, kwargs, result)
         self.margin = math.inf       # smallest |rel - lc_mat|
         self.gap = math.inf          # smallest gap between ranked candidates
         for name in ("verify_loop_geometry", "_post_loop_update",
@@ -2392,7 +2394,6 @@ class LoopProbe:
         tlc.select_candidates = select
 
     def _wrap(self, name):
-        import inspect
         import torch
         orig = getattr(self.mod, name)
         self.saved[name] = orig
@@ -2406,25 +2407,32 @@ class LoopProbe:
             self.ms.setdefault(name, []).append(
                 1e3 * (time.perf_counter() - t0))
             if name.startswith("optimize_pose_graph"):
-                args = inspect.signature(orig).bind(*a, **k)
-                args.apply_defaults()
-                g = args.arguments["g"]
-                args.arguments["g"] = g._replace(
-                    **{f: getattr(g, f).clone() for f in g._fields})
-                self.solves.append((name, args.arguments,
-                                    [x.clone() for x in out]))
+                # host copies (the graph's poses are a view of the map's),
+                # bound to the signature after the run: no device memory
+                host = lambda x: (x._replace(**{f: getattr(x, f).cpu()
+                                                for f in x._fields})
+                                  if hasattr(x, "_fields") else x)
+                self.solves.append((name, orig, [host(x) for x in a],
+                                    {n: host(x) for n, x in k.items()},
+                                    [x.cpu() for x in out]))
             return out
         setattr(self.mod, name, timed)
 
-    def hold_solves(self) -> int:
+    def hold_solves(self, dev) -> int:
         """Each recorded solve against the loop that assembles and solves
         every GN step on the same graph, bit for bit; returns their count."""
+        import inspect
         import torch
         from plslam_tpu_torch.loop import pose_graph as pg
-        for name, kw, out in self.solves:
-            g = kw["g"]
+        for name, fn, a, k, out in self.solves:
+            kw = inspect.signature(fn).bind(*a, **k)
+            kw.apply_defaults()
+            kw = kw.arguments
+            g = kw["g"]._replace(**{f: getattr(kw["g"], f).to(dev)
+                                    for f in kw["g"]._fields})
+            out = [x.to(dev) for x in out]
             freeze = torch.from_numpy(pg.frozen_mask(g)).to(g.poses.device)
-            want = _per_step_solve(
+            want = per_step_solve(
                 pg, "pcg" if name.endswith("pcg") else "dense", g, freeze,
                 kw["iters"], kw.get("cg_iters", 96), kw["fix_first"])
             check(all(torch.equal(x, y) for x, y in zip(out, want)),
@@ -2550,8 +2558,8 @@ def loop_path(dev, tag, updates=None, cpu=None):
           f"{probe.gap:.6g}, smallest keyframe-decision margin "
           f"{margin.min():.6g}", flush=True)
     print(f"[{tag}] launches={json.dumps(launches, sort_keys=True)}; "
-          f"{probe.hold_solves()} pose-graph solve(s) bit-equal to the loop "
-          "that assembles and solves every GN step", flush=True)
+          f"{probe.hold_solves(dev)} pose-graph solve(s) bit-equal to the "
+          "loop that assembles and solves every GN step", flush=True)
     check(bool(good.all()), f"{tag}: frames not tracked: "
           f"{np.nonzero(~good)[0]}")
     check(lc.n_loops_closed >= 1, f"{tag}: no loop closed")
@@ -2696,7 +2704,7 @@ def pose_graph_phase(dev, record):
     dense system's and PCG's blocks at Fb 64 and 512; ``pg_update`` with
     each order's gradient; the library's LU, solve and inverse; the edge
     sweep's grids from ``--edge-grids`` in a process of its own), then the
-    whole solves against float64 and against ``_per_step_solve`` (bit for
+    whole solves against float64 and against ``per_step_solve`` (bit for
     bit; dense up to Fb 128), with every hand kernel's device time in a
     solve."""
     import os
@@ -2784,6 +2792,9 @@ def pose_graph_phase(dev, record):
                n_edges * 700, errs=None if near else [d_k[0], d_k[2]],
                entry="pg_edges", err_kind="r, cost " + rel + f64_kind)
         if every:
+            # bytes of pg_assemble and pg_blocks: the used edges' Ji, r, w
+            # and ends (the lists hold no other edge), diag, H or Hd and g
+            # out; operations: each used edge's products and sums
             H, gv = pg.assemble(gd, rp, Jp, diag, inc)
             Hp, gvp = pg.assemble_plain(gd, rp, Jp, diag)
             off = lambda M: M - torch.diag(torch.diag(M))
@@ -2794,7 +2805,7 @@ def pose_graph_phase(dev, record):
                    sc([off(Hp), torch.diag(Hp), gvp]), [1e-5, 1e-6, 1e-5],
                    lambda: pg.assemble(gd, rp, Jp, diag, inc),
                    lambda: pg.assemble_plain(gd, rp, Jp, diag),
-                   E * 180 + F * 4 + (6 * F) ** 2 * 4 + 6 * F * 4,
+                   n_edges * 180 + F * 4 + (6 * F) ** 2 * 4 + 6 * F * 4,
                    n_edges * (36 * 12 + 36 * 2 + 6 * 14),
                    lambda: torch.zeros((F * F, 36), device=dev).index_add_(
                        0, flat_idx, blocks),
@@ -2806,7 +2817,8 @@ def pose_graph_phase(dev, record):
                    sc([gbp, Hdp]), [1e-5, 1e-6],
                    lambda: pg.blocks(gd, rp, Jp, diag, inc),
                    lambda: pg.blocks_plain(gd, rp, Jp, diag),
-                   E * 180 + F * (4 + 168), n_edges * (36 * 12 + 6 * 14),
+                   n_edges * 180 + F * (4 + 168),
+                   n_edges * (36 * 12 + 6 * 14),
                    entry="pg_blocks", err_kind="g, Hd " + rel)
         # the library calls of the solves: the dense system's LU once and a
         # solve from it each step (the parent's solve_ex each step: both
@@ -2874,7 +2886,7 @@ def pose_graph_phase(dev, record):
         # pg_update with the next step's gradient, in each order: poses and
         # cost against update_plain, g against gradient_plain at the
         # residuals handed on, and the bits of pg_assemble's or pg_blocks'
-        # there. Bytes: as pg_update, and Ji of every slot, each used
+        # there. Bytes: as pg_update, and Ji of the used edges, each used
         # edge's list entries and w twice, u and r of the used edges, g
         # out; operations: as pg_update, u = Ji^T r (72 an edge) and 4 an
         # entry
@@ -2895,10 +2907,9 @@ def pose_graph_phase(dev, record):
                    sc([Pq, cq, pg.gradient_plain(gd, rg, Jp, mode)]),
                    [1e-5, 1e-5, 1e-5],
                    lambda: pg.update(gd, cp, dx, 1.0, r, None, grad),
-                   lambda: _plain_update(pg, gd, cp, dx, 1.0, None, None,
-                                         grad),
+                   lambda: pg.update_plain(gd, cp, dx, 1.0, None, grad),
                    F * (64 * 2 + 24 + 1) + n_edges * (64 + 8) + E * (4 + 24)
-                   + 8 + E * 144 + n_edges * (2 * 8 + 2 * 24) + F * 24,
+                   + 8 + n_edges * (144 + 2 * 8 + 2 * 24) + F * 24,
                    F * 300 + n_edges * (700 + 72 + 8),
                    entry="pg_update", err_kind="poses, cost, g " + rel
                    + f" (the gradient in the {mode} order)")
@@ -2947,7 +2958,7 @@ def pose_graph_phase(dev, record):
             got = solve(gd, False)
             torch.cuda.synchronize()
             check(all(torch.equal(x, y) for x, y in zip(
-                got, _per_step_solve(pg, name, gd, freeze))),
+                got, per_step_solve(pg, name, gd, freeze))),
                 f"{name} solve at Fb={F}: differs from the loop that "
                 "assembles and solves every GN step")
             plain = _plain_solve(pg, name, g_cpu, freeze.cpu())
@@ -3013,7 +3024,7 @@ def edge_sweep_grids() -> None:
     print(json.dumps(out))
 
 
-def _per_step_solve(pg, name, g, freeze, iters=12, cg_iters=96,
+def per_step_solve(pg, name, g, freeze, iters=12, cg_iters=96,
                     fix_first=True):
     """A solve as the loop that assembles and solves every GN step on the
     card: pg_edges once, then per step pg_assemble and
@@ -3040,12 +3051,6 @@ def _per_step_solve(pg, name, g, freeze, iters=12, cg_iters=96,
     return g.poses, c0, c
 
 
-def _plain_update(pg, g, c, s, scale, r=None, r_out=None, grad=None):
-    out = pg.update_plain(g, c, s, scale, r)
-    return out if grad is None else (
-        *out, pg.gradient_plain(g, out[2], grad[1], grad[0]))
-
-
 def _plain_solve(pg, name, g, freeze):
     """The plain version of a whole solve on the card's tensors."""
     import unittest.mock as mock
@@ -3056,7 +3061,8 @@ def _plain_solve(pg, name, g, freeze):
                              pg.blocks_plain(g, r, J, d),
                              pcg=lambda g, J, M, d, gv, it, inc=None:
                              pg.pcg_plain(g, J, M, d, gv, it),
-                             update=functools.partial(_plain_update, pg),
+                             update=lambda g, c, s, sc, r=None, r_out=None,
+                             grad=None: pg.update_plain(g, c, s, sc, r, grad),
                              _incidence=lambda g: None):
         if name == "pcg":
             return pg._optimize_pcg(g, freeze.to(g.poses.device), 12, 96)
@@ -4160,7 +4166,7 @@ def against(other: str) -> None:
     device time and the point front end's device kernels; fails where K5's
     or K12's bits, kernel E's maps, K9's tile_ok or labels or K15's
     landmark index differ between the trees, or K18's edge sweep and
-    solves break ``_hold_pose_graph``'s rule."""
+    solves break ``_hold_pose_graph``'s rule; then ``_against_solves``."""
     import os
     import tempfile
     import torch
@@ -4278,6 +4284,63 @@ def against(other: str) -> None:
     print(f"[against] device kernels of one point front end "
           f"(detect_and_describe, 40 images): this {kernels['this']}, "
           f"other {kernels['other']}", flush=True)
+    _against_solves(roots)
+
+
+def solve_calls(root: str, what: str) -> None:
+    """One process of ``--against``, in the checkout at ``root``: the first
+    four calls of its ``optimize_pose_graph`` (``what`` "dense") or
+    ``optimize_pose_graph_pcg`` ("pcg") at Fb 64, host clock between
+    synchronizes (the first pays the library's and the kernels' first
+    use), or ("loop") its chip_smoke.py's loop path, dense then PCG."""
+    sys.path.insert(0, root)
+    import torch
+    from plslam_tpu_torch import convert, native
+    native.lib()
+    dev = torch.device("cuda", 0)
+    if what == "loop":
+        import chip_smoke as cs           # root's
+        cs.LOOP_SCENE = cs.loop_scene()
+        cs.loop_path(dev, "loop", cpu=cs.LOOP_CPU.get("default"))
+        cs.loop_path(dev, "loop_pcg", cs.pcg_updates({}),
+                     cpu=cs.LOOP_CPU.get("pcg"))
+        return
+    from plslam_tpu_torch.io import synthetic
+    from plslam_tpu_torch.loop import pose_graph as pg
+    F, n, extra = PG_BUCKETS[0]
+    g = convert.pose_graph_from_numpy(
+        synthetic.drift_circle_graph(F, n, extra, seed=F)[0], dev)
+    pg.edges(g)                       # the kernels loaded, a first launch
+    fn = (pg.optimize_pose_graph if what == "dense"
+          else pg.optimize_pose_graph_pcg)
+    ms = []
+    for _ in range(4):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn(g)
+        torch.cuda.synchronize()
+        ms.append(round(1e3 * (time.perf_counter() - t0), 3))
+    print(f"[against] {what} solve at Fb {F}, calls 1-4 of a fresh "
+          f"process: {ms} ms", flush=True)
+
+
+def _against_solves(roots: dict) -> None:
+    """``solve_calls`` on both trees in turns (other, this, this, other),
+    each in processes of its own; prints the timing lines."""
+    import os
+    keep = ("[against] ", "] fps=", "] ms per call ", "] CPU run:")
+    for who in ("other", "this", "this", "other"):
+        for what in ("dense", "pcg", "loop"):
+            out = subprocess.run(
+                [sys.executable, os.path.abspath(__file__),
+                 "--against-solves", roots[who], what], cwd=roots[who],
+                capture_output=True, text=True, timeout=900)
+            check(out.returncode == 0, f"--against-solves {what} on the "
+                  f"{who} tree failed:\n{out.stderr[-4000:]}")
+            for line in out.stdout.splitlines():
+                if any(k in line for k in keep):
+                    line = line.removeprefix("[against] ")
+                    print(f"[against] ({who}) {line}", flush=True)
 
 
 LOOP_SCENE = None
@@ -4295,6 +4358,9 @@ def main() -> int:
         return 0
     if sys.argv[1:2] == ["--against-side"]:
         against_side(*sys.argv[2:5])
+        return 0
+    if sys.argv[1:2] == ["--against-solves"]:
+        solve_calls(*sys.argv[2:4])
         return 0
     if sys.argv[1:2] == ["--edge-grids"]:
         edge_sweep_grids()

@@ -416,7 +416,9 @@ def pcg(g: PoseGraph, Ji, Minv, diag, gvec, cg_iters: int, inc=None):
 
 # -- the GN update with its accept test --------------------------------------
 
-def update_plain(g: PoseGraph, c, step, scale: float, r=None):
+def update_plain(g: PoseGraph, c, step, scale: float, r=None, grad=None):
+    """``update``'s plain version; ``grad`` as there (its mode and Ji
+    used): the gradient at the residuals handed on, returned fourth."""
     dx = torch.where(g.pose_valid[:, None], scale * step, 0.0)
     new = g.poses @ lie.exp_se3(dx)
     r_new = edge_residuals_plain(new, g)
@@ -424,8 +426,10 @@ def update_plain(g: PoseGraph, c, step, scale: float, r=None):
     ok = torch.isfinite(c_new) & (c_new <= c)
     if r is None:
         r = edge_residuals_plain(g.poses, g)
-    return (torch.where(ok, new, g.poses), torch.where(ok, c_new, c),
-            torch.where(ok, r_new, r))
+    out = (torch.where(ok, new, g.poses), torch.where(ok, c_new, c),
+           torch.where(ok, r_new, r))
+    return out if grad is None else (
+        *out, gradient_plain(g, out[2], grad[1], grad[0]))
 
 
 def update(g: PoseGraph, c, step, scale: float, r=None, r_out=None,
@@ -440,9 +444,7 @@ def update(g: PoseGraph, c, step, scale: float, r=None, r_out=None,
     (``gradient_plain``), into ``g_out`` (``g_in``, the gradient at ``r``,
     is handed on after a reject), returned fourth."""
     if g.poses.device.type == "cpu":
-        out = update_plain(g, c, step, scale, r)
-        return out if grad is None else (
-            *out, gradient_plain(g, out[2], grad[1], grad[0]))
+        return update_plain(g, c, step, scale, r, grad)
     a = _args(g)
     F, E = a[0].shape[0], a[4].shape[0]
     dev = a[0].device

@@ -1236,29 +1236,6 @@ def test_pose_graph_gradient(cuda, F, n, extra, E):
         assert torch.equal(rb, r) and torch.equal(gb, g_in)
 
 
-def _per_step_solve(pg, name, g, freeze, iters, cg_iters):
-    """A solve as the loop that assembles and solves every GN step on the
-    card: pg_edges once, then per step pg_assemble and solve_ex (dense) or
-    pg_blocks, inv_ex and pg_pcg (PCG), and pg_update without a gradient."""
-    F = g.poses.shape[0]
-    diag = pg._diag(g, freeze, True)
-    inc = pg._incidence(g)
-    r, J, c0 = pg.edges(g)
-    c = c0
-    for _ in range(iters):
-        if name == "dense":
-            H, gv = pg.assemble(g, r, J, diag, inc)
-            st = torch.linalg.solve_ex(H, gv[:, None])[0][:, 0]
-            P, c, r = pg.update(g, c, st.reshape(F, 6), -1.0, r)
-        else:
-            gv, Hd = pg.blocks(g, r, J, diag, inc)
-            st = pg.pcg(g, J, torch.linalg.inv_ex(Hd)[0], diag, gv, cg_iters,
-                        inc)
-            P, c, r = pg.update(g, c, st, 1.0, r)
-        g = g._replace(poses=P)
-    return P, c0, c
-
-
 @pytest.mark.parametrize("F,n,extra", [(64, 40, 60), (128, 100, 300),
                                        (256, 200, 800), (512, 400, 1600)])
 def test_pose_graph_solves_equal_per_step_loop(cuda, F, n, extra):
@@ -1269,6 +1246,7 @@ def test_pose_graph_solves_equal_per_step_loop(cuda, F, n, extra):
     poses and costs the same bits; the solves launch pg_edges, pg_assemble
     or pg_blocks once and pg_update (and pg_pcg) 12 times."""
     from collections import Counter
+    from chip_smoke import per_step_solve
     from plslam_tpu_torch import convert
     from plslam_tpu_torch.io import synthetic
     from plslam_tpu_torch.loop import pose_graph as pg
@@ -1281,7 +1259,7 @@ def test_pose_graph_solves_equal_per_step_loop(cuda, F, n, extra):
                else pg._optimize_pcg(gd, freeze, 12, 96))
         torch.cuda.synchronize()
         launched = Counter(native.LAUNCHES) - before
-        for x, y in zip(got, _per_step_solve(pg, name, gd, freeze, 12, 96)):
+        for x, y in zip(got, per_step_solve(pg, name, gd, freeze, 12, 96)):
             assert torch.equal(x, y)
         assert float(got[2]) < 0.5 * float(got[1])
         assert launched == ({"pg_edges": 1, "pg_assemble": 1, "pg_update": 12}
@@ -1318,6 +1296,7 @@ def test_pose_graph_hub(cuda):
     gradient pg_update hands on, in both orders, the bits of theirs at its
     residuals; whole dense and PCG solves (6 iterations) the bits of the
     loop that assembles and solves every step."""
+    from chip_smoke import per_step_solve
     from plslam_tpu_torch.loop import pose_graph as pg
     gd = _hub_graph(cuda)
     inc = pg._incidence(gd)
@@ -1347,7 +1326,7 @@ def test_pose_graph_hub(cuda):
     for name in ("dense", "pcg"):
         got = (pg._optimize_dense(gd, freeze, 6) if name == "dense"
                else pg._optimize_pcg(gd, freeze, 6, 24))
-        for x, y in zip(got, _per_step_solve(pg, name, gd, freeze, 6, 24)):
+        for x, y in zip(got, per_step_solve(pg, name, gd, freeze, 6, 24)):
             assert torch.equal(x, y)
 
 
