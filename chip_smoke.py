@@ -70,7 +70,14 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
      on against ``pg_edges``, a rejected step, the library's LU, solve and
      inverse at the solves' sizes, the whole dense and PCG solves against
      float64 and bit for bit against the loop that assembles and solves
-     every step (as every solve of the loop runs);
+     every step (as every solve of the loop runs); then the loop path
+     checkpointed after 6 of its 11 chunks and resumed in a new driver
+     (the BoW rows rebuilt bit-equal, L launched once a family and
+     keyframe; held to a run drained at the same point and to the loop
+     run: ``checkpoint_phase``), and KF-slot compaction with pressure
+     eviction and closures on tests/test_compact_loops.py's scene
+     (512x320, points only, max_kfs 64, 281 frames) held to the port's CPU
+     run (``compact_phase``, ``COMPACT_CPU``);
   6. the dataset paths, from files written to a temporary directory: the
      app (``apps/plstvo_dataset.py``) over bench.py's scene as a
      KITTI-layout directory of PNGs (every row filter) at 1241x376,
@@ -81,14 +88,26 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
      rectification and through ``StereoRectifier`` (N, one launch a pair),
      the two rectifications equal where every tap is inside; every frame
      tracked, ATE bounds, exact launches; N at 752x480 and 1241x376
-     against its plain version (bit-equal) and ``F.grid_sample``;
+     against its plain version (bit-equal) and ``F.grid_sample``; the
+     SLAM app (``apps/plslam_dataset.py --chunk 20``) over the
+     KITTI-layout directory, equal to ``FusedPLSLAM`` in memory on the
+     same uint8 frames, and its ``--checkpoint`` / ``--resume`` equal to
+     its uninterrupted run (``slam_app_runs``); then the fused SLAM driver
+     past ``max_kfs``: bench_slam_long.py's 4,001-frame circuit (10 laps
+     of 400 frames, default ``SlamConfig()`` with min_entropy_ratio 0.89,
+     one lap rendered by 8 processes and replayed from the card): every
+     frame, at most max_kfs keyframes, at least 2 compactions, 8 evicted
+     keyframes and 5 closures, the path within 5 circuit radii, no
+     tripwire, exact launches; fps, ms per compaction, peak memory, ATE
+     overall and per lap (``long_phase``);
   7. one JSON line of the kernels (launches from the first path run that
      launched each), then the card line, then the result.
 
-``python3 chip_smoke.py --cpu-ate [vo] [slam] [loops] [pcg] [dataset]``
-runs the paths' frames through the plain versions on the CPU: the
-calibration of the ATE, line-count, keyframe and loop bounds below (no
-part named: all; ``pcg``: the PCG loop run alone).
+``python3 chip_smoke.py --cpu-ate [vo] [slam] [loops] [pcg] [dataset]
+[compact]`` runs the paths' frames through the plain versions on the CPU:
+the calibration of the ATE, line-count, keyframe, loop and compaction
+bounds below (no part named: all; ``pcg``: the PCG loop run alone;
+``compact``: the COMPACT_CPU record).
 ``python3 chip_smoke.py --edge-grids`` prints the grids the profiler sees
 of K18's ``pg_edges`` and ``pg_update`` (the main run calls it).
 ``python3 chip_smoke.py --bench-slam [cuda] [cpu]`` runs bench_slam.py's
@@ -1136,11 +1155,14 @@ def run_counts(outs):
 def cpu_reference_ate(parts) -> None:
     """The main paths' scenes through the port's plain versions on the
     CPU: the calibration run of the ATE, line-count, keyframe and loop
-    bounds. ``parts``: any of vo, slam, loops, pcg, dataset (none: all)."""
+    bounds. ``parts``: any of vo, slam, loops, pcg, dataset, compact (none:
+    all)."""
     from plslam_tpu_torch.tracking.batch_vo import BatchedStereoVO
     from plslam_tpu_torch.utils.evaluation import ate_rmse
     if not parts or "dataset" in parts:
         cpu_dataset_runs()
+    if not parts or "compact" in parts:
+        cpu_compact_run()
     for lines in ((True, False) if not parts or "vo" in parts else ()):
         cfg, cam, seq = main_scene(lines)
         vo = BatchedStereoVO(cfg, cam, device="cpu")
@@ -1743,12 +1765,21 @@ def expected_slam_launches(n_kfs: int, n_lba: int,
     return dict(n)
 
 
+def n_lba_slots(flags, n_chunks, cfg) -> int:
+    """The window LBAs of a run from its keyframe flags, chunk by chunk."""
+    from plslam_tpu_torch.backend.chunk_backend import lba_slot_flags
+    kmax = cfg.system.kf_batch
+    return sum(sum(lba_slot_flags([True] * int(f.sum())
+                                  + [False] * (kmax - int(f.sum())),
+                                  cfg.mapping.lba_kf_stride))
+               for f in np.split(flags, n_chunks))
+
+
 def slam_path(dev):
     """FusedPLSLAM (loops off) on the 101 frames: a warm-up run, then the
     timed run with device-resident chunks; returns (launches, slam)."""
     import torch
     from plslam_tpu_torch import native
-    from plslam_tpu_torch.backend.chunk_backend import lba_slot_flags
     from plslam_tpu_torch.backend.fused_slam import FusedPLSLAM
     from plslam_tpu_torch.utils.evaluation import ate_rmse
 
@@ -1777,11 +1808,7 @@ def slam_path(dev):
     kf_frames = np.nonzero(flags)[0]
     ate = float(ate_rmse(est, seq.poses[:len(est)]))
     recs = slam.summaries
-    kmax = cfg.system.kf_batch
-    n_lba = sum(sum(lba_slot_flags([True] * int(f.sum())
-                                   + [False] * (kmax - int(f.sum())),
-                                   cfg.mapping.lba_kf_stride))
-                for f in np.split(flags, SLAM_CHUNKS))
+    n_lba = n_lba_slots(flags, SLAM_CHUNKS, cfg)
     n_pts, n_lns = slam.n_landmarks()
     print(f"[slam] frames={n_frames} good={int(good.sum())} keyframes="
           f"{len(recs)} (frames {kf_frames.tolist()}) lba_slots={n_lba} "
@@ -2453,7 +2480,8 @@ SOLVE_LAUNCHES = {"dense": {"pg_edges": 1, "pg_assemble": 1, "pg_update": 12},
                           "pg_update": 12}}
 
 
-def expected_loop_launches(n_kfs, n_lba, p: LoopProbe, n_closed) -> dict:
+def expected_loop_launches(n_kfs, n_lba, p: LoopProbe, n_closed,
+                           n_chunks: int = LOOP_CHUNKS) -> dict:
     """The loop path's launches: the loops-off path's, plus per probe (every
     keyframe, the first included) the BoW descent and histogram of each
     family; per verification D twice (ORB, LBD) and one optimize_pose (K13);
@@ -2463,7 +2491,7 @@ def expected_loop_launches(n_kfs, n_lba, p: LoopProbe, n_closed) -> dict:
     solve one pg_edges, one pg_blocks and 12 x (pg_pcg, pg_update); per
     post-closure update one window LBA (K15)."""
     from collections import Counter
-    n = Counter(expected_slam_launches(n_kfs, n_lba, LOOP_CHUNKS))
+    n = Counter(expected_slam_launches(n_kfs, n_lba, n_chunks))
     g = lambda k: p.n.get(k, 0)
     for table, times in (
             ({"bow_descend": 2, "bow_hist": 2}, n_kfs),
@@ -2497,7 +2525,6 @@ def loop_path(dev, tag, updates=None, cpu=None):
     counts)."""
     import torch
     from plslam_tpu_torch import native
-    from plslam_tpu_torch.backend.chunk_backend import lba_slot_flags
     from plslam_tpu_torch.backend.fused_slam import FusedPLSLAM
     from plslam_tpu_torch.utils.evaluation import ate_rmse
 
@@ -2532,11 +2559,7 @@ def loop_path(dev, tag, updates=None, cpu=None):
     flags[kf_frames] = True
     ate = float(ate_rmse(est, seq.poses[:len(est)]))
     recs = slam.summaries
-    kmax = cfg.system.kf_batch
-    n_lba = sum(sum(lba_slot_flags([True] * int(f.sum())
-                                   + [False] * (kmax - int(f.sum())),
-                                   cfg.mapping.lba_kf_stride))
-                for f in np.split(flags, LOOP_CHUNKS))
+    n_lba = n_lba_slots(flags, LOOP_CHUNKS, cfg)
     lc = slam.loop_closer
     ms = {k: [round(x, 3) for x in v] for k, v in probe.ms.items()}
     print(f"[{tag}] frames={n_frames} good={int(good.sum())} keyframes="
@@ -3511,6 +3534,8 @@ def dataset_path(dev, record):
         check(d_mem == 0.0, "the chunked app differs from the in-memory "
               f"run by {d_mem}")
         check(d_cf < CHUNK_VS_FRAME_M, f"chunked vs per frame {d_cf} m")
+        print(f"[slam_app] phase {slam_app_runs(dev, kitti):.1f} s",
+              flush=True)
 
         # the EuRoC-layout raw rig, host and device rectification
         eu, ds, raw = euroc_runs(dev.type, euroc)
@@ -3570,6 +3595,563 @@ def dataset_path(dev, record):
                    (seq.images_l[0], seq.images_r[0]), kitti_rig(),
                    "@1241x376")
     return eu["euroc_device"]["launches"]
+
+
+# -- slice 20: KF-slot compaction, checkpoints, the SLAM app ------------------
+
+class Tripwires:
+    """stdout passed through, counting the settle tripwires' lines
+    (``[fused_slam] WARNING``)."""
+
+    def __init__(self, out):
+        self.out = out
+        self.n = 0
+
+    def write(self, s):
+        self.n += s.count("[fused_slam] WARNING")
+        return self.out.write(s)
+
+    def flush(self):
+        self.out.flush()
+
+
+def watch_compactions(slam, sync=True):
+    """Wraps ``slam._compact``: each event's ms (the drain included, host
+    clock between synchronizes on the card) and the frames settled when it
+    ended. Returns the two lists, filled as the run goes."""
+    import torch
+    ms, frames = [], []
+    orig = slam._compact
+
+    def timed():
+        if sync:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        orig()
+        if sync:
+            torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t0))
+        frames.append(len(slam.trajectory))
+    slam._compact = timed
+    return ms, frames
+
+
+# (b): tests/test_compact_loops.py's scene and settings: 512x320, points
+# only, max_kfs 64, a keyframe every frame, loops on; 7 laps of a 40-frame
+# lap in chunks of 10 (281 frames)
+COMPACT_LAP, COMPACT_LAPS, COMPACT_CHUNK = 40, 7, 10
+COMPACT_UPDATES = {
+    "camera": {"width": 512, "height": 320, "fx": 400.0, "fy": 400.0,
+               "cx": 256.0, "cy": 160.0, "baseline": 0.3},
+    "points": {"max_kpts": 384, "orb_nlevels": 2},
+    "lines": {"has_lines": False},
+    "matching": {"f2f_window": 128.0},
+    "mapping": {"max_kfs": 64, "max_points": 4096, "max_lines": 256,
+                "window_kfs": 4, "fixed_kfs": 2, "lba_iters": 5},
+    "keyframe": {"min_entropy_ratio": 2.0},
+    "system": {"async_mapping": False, "kf_batch": 4},
+    "loop": {"enabled": True, "min_kf_separation": 12,
+             "consistency_window": 2, "lc_inl": 15,
+             "lc_trs": 3.0, "lc_rot": 60.0, "lc_cooldown": 5}}
+# The port's own CPU run of (b) (``python3 chip_smoke.py --cpu-ate
+# compact``: the plain versions, device="cpu", the same frames): keyframe
+# frames, the frames at which each compaction ended, the eviction events
+# (frame, slots), loop events (from, to, inliers), the funnel and the ATE.
+COMPACT_CPU = {
+    "kf_frames": [0, 1, 2, 3, 10, 11, 12, 13, 20, 21, 22, 23, 30, 31, 32, 33,
+        40, 41, 42, 43, 50, 51, 52, 53, 60, 61, 62, 63, 70, 71, 72, 73, 80,
+        81, 82, 83, 90, 91, 92, 93, 100, 101, 102, 103, 110, 111, 112, 113,
+        120, 121, 122, 123, 130, 131, 132, 133, 140, 141, 142, 143, 150, 151,
+        152, 153, 160, 161, 162, 163, 170, 171, 172, 173, 180, 181, 182, 183,
+        190, 191, 192, 193, 200, 201, 202, 203, 210, 211, 212, 213, 220, 221,
+        222, 223, 230, 231, 232, 233, 240, 241, 242, 243, 250, 251, 252, 253,
+        260, 261, 262, 263, 270, 271, 272, 273],
+    "compactions": [161, 211, 241, 271],
+    "evictions": [[161, [1, 3, 5, 7, 9, 11, 13, 15, 17, 19, 21, 23]], [211,
+        [1, 3, 5, 7, 9, 11, 13, 15, 17, 19, 21, 23]], [241, [1, 3, 5, 7, 9,
+        11, 13, 15, 17, 19, 21, 23]], [271, [1, 3, 5, 7, 9, 11, 13, 15, 17,
+        19, 21, 23]]],
+    "events": [[1, 17, 140], [6, 22, 136], [11, 27, 143], [16, 32, 167], [5,
+        37, 132], [10, 42, 149], [16, 48, 167], [6, 54, 136], [12, 60, 143],
+        [1, 47, 160], [37, 52, 141], [14, 58, 141], [18, 63, 160], [12, 55,
+        146], [3, 61, 144], [2, 55, 147], [31, 61, 149], [24, 54, 167]],
+    "funnel": [119, 20, 2, 0, 0, 18],
+    "ate": 0.10339306082482994}
+
+
+def compact_scene():
+    """(cfg, cam, lap frames l and r (uint8), the run's ground truth, the
+    circuit radius), rendered as tests/test_compact_loops.py renders them."""
+    from plslam_tpu_torch.config import SlamConfig
+    from plslam_tpu_torch.core.camera import StereoCamera
+    from plslam_tpu_torch.io import synthetic
+    cfg = SlamConfig().with_updates(COMPACT_UPDATES)
+    cam = StereoCamera.from_config(cfg.camera)
+    lap = COMPACT_LAP
+    S = synthetic._exp_se3_np(
+        np.array([0, 0, 0.3, 0, 2.0 * np.pi / lap, 0], np.float32))
+    T = np.eye(4, dtype=np.float32)
+    lap_poses = []
+    for _ in range(lap):
+        lap_poses.append(T)
+        T = (T @ S).astype(np.float32)
+    lap_poses = np.stack(lap_poses)
+    poses = np.concatenate([lap_poses] * COMPACT_LAPS + [lap_poses[:1]])
+    center = lap_poses[:, :3, 3].mean(0)
+    R_cam = float(np.linalg.norm(lap_poses[0, :3, 3] - center))
+    rng = np.random.default_rng(3)
+    n_pts = 700
+    ang = rng.uniform(0, 2 * np.pi, n_pts)
+    rad = rng.uniform(max(R_cam - 8.0, 1.5), R_cam + 10.0, n_pts)
+    pts = np.stack([center[0] + rad * np.sin(ang),
+                    rng.uniform(-2.5, 2.5, n_pts),
+                    center[2] + rad * np.cos(ang)], -1).astype(np.float32)
+    world = synthetic.SyntheticWorld(
+        pts, np.zeros((0, 3), np.float32), np.zeros((0, 3), np.float32),
+        rng.integers(0, 2 ** 31 - 1, n_pts))
+    il = np.empty((lap, cam.height, cam.width), np.uint8)
+    ir = np.empty_like(il)
+    for i in range(lap):
+        l_, r_ = synthetic.render_frame(world, lap_poses[i], cam, rng,
+                                        noise=0.004)
+        il[i], ir[i] = to_u8(l_), to_u8(r_)
+    return cfg, cam, il, ir, poses, R_cam
+
+
+def compact_run(device):
+    """(b) on ``device``: returns the run's record (decisions, events,
+    compactions, ATE, the floors' measures)."""
+    import torch
+    from plslam_tpu_torch.backend.fused_slam import FusedPLSLAM
+    from plslam_tpu_torch.utils.evaluation import ate_rmse
+    cfg, cam, il, ir, poses, R_cam = compact_scene()
+    n = COMPACT_LAPS * COMPACT_LAP + 1
+    sync = torch.device(device).type == "cuda"
+    slam = FusedPLSLAM(cfg, cam, device=device)
+    ms, comp_frames = watch_compactions(slam, sync)
+    t0 = time.perf_counter()
+    slam.initialize(il[0], ir[0])
+    for g in range(1, n, COMPACT_CHUNK):
+        idx = np.arange(g, g + COMPACT_CHUNK) % COMPACT_LAP
+        slam.process_chunk(il[idx], ir[idx])
+    est = slam.finish()
+    if sync:
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    kf_frames, events, funnel, good, margin = loop_summary(slam, cfg)
+    lc = slam.loop_closer
+    return dict(
+        kf_frames=kf_frames, compactions=comp_frames,
+        evictions=[[f, s] for f, s in slam.eviction_events],
+        events=[list(e) for e in events], funnel=list(funnel),
+        ate=float(ate_rmse(est, poses[:len(est)])),
+        max_pos=float(np.abs(est[:, :3, 3]).max()), R_cam=R_cam,
+        n_frames=len(est), n_evicted=slam.n_evicted_kfs,
+        loops=lc.n_loops_closed, good=good, margin=margin, ms=ms,
+        wall=wall, n_kfs=int(slam.state.n_kfs), max_kfs=cfg.mapping.max_kfs)
+
+
+def compact_floors(tag, r) -> None:
+    """tests/test_compact_loops.py's floors."""
+    check(r["n_frames"] == COMPACT_LAPS * COMPACT_LAP + 1,
+          f"{tag}: {r['n_frames']} frames in the trajectory")
+    check(len(r["compactions"]) >= 2, f"{tag}: compactions "
+          f"{r['compactions']}")
+    check(r["n_evicted"] >= 8, f"{tag}: {r['n_evicted']} evicted")
+    check(r["loops"] >= 5, f"{tag}: {r['loops']} closures")
+    check(r["max_pos"] < 5 * r["R_cam"], f"{tag}: |t| {r['max_pos']} m, "
+          f"circuit radius {r['R_cam']} m")
+    check(r["ate"] < 1.0, f"{tag}: ATE {r['ate']} m")
+
+
+def cpu_compact_run() -> None:
+    """(b) on the CPU: the COMPACT_CPU values."""
+    t0 = time.perf_counter()
+    r = compact_run("cpu")
+    print(f"[cpu] compact: good={int(r['good'].sum())}/{len(r['good'])} "
+          f"smallest decision margin {r['margin'].min():.6g} "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    compact_floors("[cpu] compact", r)
+    print("[cpu] COMPACT_CPU = " + json.dumps({
+        k: r[k] for k in ("kf_frames", "compactions", "evictions", "events",
+                          "funnel", "ate")}), flush=True)
+
+
+def compact_phase(dev) -> float:
+    """(b) on the card against COMPACT_CPU; returns the phase's seconds."""
+    t0 = time.perf_counter()
+    probe = LoopProbe()
+    try:
+        r = compact_run(dev)
+    finally:
+        probe.close()
+    cpu = COMPACT_CPU
+    print(f"[compact] frames={r['n_frames']} good={int(r['good'].sum())}/"
+          f"{len(r['good'])} keyframes={len(r['kf_frames'])} compactions at "
+          f"frames {r['compactions']} ({[round(x, 1) for x in r['ms']]} ms) "
+          f"evictions {r['evictions']} closures={r['loops']} events="
+          f"{r['events']} funnel={r['funnel']} ate_m={r['ate']:.6f} "
+          f"max|t|={r['max_pos']:.3f} m (radius {r['R_cam']:.3f}) n_kfs="
+          f"{r['n_kfs']}/{r['max_kfs']} fps="
+          f"{(r['n_frames'] - 1) / r['wall']:.2f}", flush=True)
+    check(cpu is not None, "compact: no CPU record (python3 chip_smoke.py "
+          "--cpu-ate compact)")
+    keys = ("kf_frames", "compactions", "evictions", "events", "funnel")
+    same = all(r[k] == cpu[k] for k in keys)
+    near = min(r["margin"].min(), probe.margin, probe.gap)
+    print(f"[compact] CPU run: keyframes {len(cpu['kf_frames'])}, "
+          f"compactions {cpu['compactions']}, evictions {cpu['evictions']}, "
+          f"events {cpu['events']}, funnel {cpu['funnel']}, ATE "
+          f"{cpu['ate']}; identical: {same} "
+          f"({[k for k in keys if r[k] != cpu[k]]} differ); smallest margin "
+          f"{near:.6g}", flush=True)
+    check(bool(r["good"].all()), "compact: frames not tracked")
+    check(same or near < THRESHOLD_MARGIN, "compact: decisions differ from "
+          f"the CPU run with the smallest margin {near}")
+    bound_m = 2 * cpu["ate"] + 0.02
+    check(r["ate"] <= bound_m, f"compact: ATE {r['ate']} m outside its "
+          f"bound {bound_m} m")
+    compact_floors("compact", r)
+    return time.perf_counter() - t0
+
+
+# (c): loop_scene checkpointed after 6 of its 11 chunks
+CK_CHUNKS = 6
+
+
+def _funnel(lc):
+    return np.array((lc.n_candidates, lc.n_votes_fired, lc.n_rej_geom,
+                     lc.n_rej_unc, lc.n_rej_corr))
+
+
+def checkpoint_phase(dev, full) -> float:
+    """(c): ``FusedPLSLAM(SlamConfig())`` over loop_scene's first 6 chunks,
+    ``save_checkpoint``, ``resume`` in a new driver (the BoW rows rebuilt
+    bit-equal, L's launches one a family and keyframe), the last 5 chunks;
+    held to a run that drains its pipeline at the same point, as
+    ``save_checkpoint`` does (everything equal), and to the loop path's
+    run ``full`` (keyframes, events and funnel equal or under the margin
+    rule). Returns the phase's seconds."""
+    import os
+    import tempfile
+    import torch
+    from plslam_tpu_torch import native
+    from plslam_tpu_torch.backend.fused_slam import FusedPLSLAM
+    from plslam_tpu_torch.utils.evaluation import ate_rmse
+    t_phase = time.perf_counter()
+    cfg, cam, seq, il, ir = LOOP_SCENE
+    dev_chunks = [torch.from_numpy(np.stack([il[lo:lo + CHUNK],
+                                             ir[lo:lo + CHUNK]])).to(dev)
+                  for lo in range(1, 1 + LOOP_CHUNKS * CHUNK, CHUNK)]
+    drive = lambda s, lo, hi: [s.process_chunk(c) for c in dev_chunks[lo:hi]]
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "loop.npz")
+        half = FusedPLSLAM(cfg, cam)
+        half.initialize(il[0], ir[0])
+        drive(half, 0, CK_CHUNKS)
+        t0 = time.perf_counter()
+        half.save_checkpoint(path)
+        save_ms = 1e3 * (time.perf_counter() - t0)
+        size = os.path.getsize(path)
+        db0 = half.loop_closer.db
+        saved = {k: getattr(db0, k).clone() for k in ("bows_p", "bows_l",
+                                                      "ln_valid")}
+        f0, ev0 = _funnel(half.loop_closer), list(half.loop_closer.events)
+        n_kfs = int(half.state.n_kfs)
+        del half
+        torch.cuda.synchronize()
+        native.reset_counts()
+        t0 = time.perf_counter()
+        res = FusedPLSLAM.resume(path, cam)
+        torch.cuda.synchronize()
+        resume_ms = 1e3 * (time.perf_counter() - t0)
+        rebuild = dict(native.LAUNCHES)
+    db = res.loop_closer.db
+    rows_equal = all(torch.equal(getattr(db, k), v) for k, v in saved.items())
+    drive(res, CK_CHUNKS, LOOP_CHUNKS)
+    est = res.finish()
+    drained = FusedPLSLAM(cfg, cam)
+    drained.initialize(il[0], ir[0])
+    drive(drained, 0, CK_CHUNKS)
+    drained.online_pose(drain=True)
+    drive(drained, CK_CHUNKS, LOOP_CHUNKS)
+    est_d = drained.finish()
+    torch.cuda.synchronize()
+    lr, ld, lf = res.loop_closer, drained.loop_closer, full.loop_closer
+    ev = lambda e: [(x.kf_from, x.kf_to, x.n_inliers) for x in e]
+    flags_r, _, margin_r = decisions(res, cfg)
+    flags_d, _, margin_d = decisions(drained, cfg)
+    flags_f, _, margin_f = decisions(full, cfg)
+    cut = CK_CHUNKS * CHUNK
+    print(f"[checkpoint] saved {n_kfs} keyframes after {cut + 1} frames in "
+          f"{save_ms:.1f} ms ({size} bytes, npz); resume {resume_ms:.1f} ms "
+          f"with the BoW rebuild's launches {rebuild}; rows bit-equal: "
+          f"{rows_equal}", flush=True)
+    d_drained = float(np.abs(est - est_d).max())
+    d_full = float(np.linalg.norm(est[:, :3, 3] - full.finish()[:, :3, 3],
+                                  axis=1).max())
+    same_d = (np.array_equal(flags_r, flags_d[cut:])
+              and ev(ev0) + ev(lr.events) == ev(ld.events)
+              and (f0 + _funnel(lr) == _funnel(ld)).all())
+    same_f = (np.array_equal(flags_r, flags_f[cut:])
+              and ev(ev0) + ev(lr.events) == ev(lf.events)
+              and (f0 + _funnel(lr) == _funnel(lf)).all())
+    ate = float(ate_rmse(est, seq.poses[:len(est)]))
+    print(f"[checkpoint] resumed: events {ev(ev0)} + {ev(lr.events)}, "
+          f"funnel {f0.tolist()} + {_funnel(lr).tolist()}, ate_m={ate:.6f}; "
+          f"against the run drained at the checkpoint: decisions equal "
+          f"{same_d}, trajectory max difference {d_drained:.3g}; against "
+          f"the loop path's run: decisions equal {same_f}, positions within "
+          f"{d_full:.3g} m", flush=True)
+    check(rebuild == {"bow_descend": 2 * n_kfs, "bow_hist": 2 * n_kfs},
+          f"checkpoint: the BoW rebuild launched {rebuild}, not one "
+          f"bow_descend and bow_hist a family and keyframe ({n_kfs})")
+    check(rows_equal, "checkpoint: the rebuilt BoW rows differ from the "
+          "saved driver's")
+    near = min(margin_r.min(), margin_d.min(), margin_f.min())
+    check((same_d and d_drained == 0.0) or near < THRESHOLD_MARGIN,
+          "checkpoint: the resumed run differs from the run drained at the "
+          f"checkpoint (trajectory {d_drained}) with the smallest margin "
+          f"{near}")
+    check(same_f or near < THRESHOLD_MARGIN, "checkpoint: keyframes, events "
+          "or funnel differ from the loop path's run with the smallest "
+          f"margin {near}")
+    bound_m = 2 * LOOP_CPU["default"]["ate"] + 0.02
+    check(ate < bound_m, f"checkpoint: ATE {ate} m outside {bound_m} m")
+    return time.perf_counter() - t_phase
+
+
+def slam_app_runs(dev, kitti) -> float:
+    """(d): the SLAM app (``--chunk 20``, the default SlamConfig()) over the
+    KITTI-layout directory, held to ``FusedPLSLAM`` in memory on the same
+    uint8 frames; its ``--checkpoint`` after 21 frames, then ``--resume``,
+    held to the uninterrupted app run. Returns the phase's seconds."""
+    import os
+    from plslam_tpu_torch.apps import plslam_dataset
+    from plslam_tpu_torch.backend.fused_slam import FusedPLSLAM
+    from plslam_tpu_torch.io.dataset import open_dataset
+    from plslam_tpu_torch.utils.evaluation import ate_rmse
+    t0 = time.perf_counter()
+    cfg, cam, seq = main_scene(lines=True)
+    n = len(seq.poses)
+    half = CHUNK + 1
+    runs = {}
+    for tag, extra in (("app", ["--out", os.path.join(kitti, "slam.txt")]),
+                       ("app_half", ["--frames", str(half), "--checkpoint",
+                                     os.path.join(kitti, "half.npz")]),
+                       ("app_resumed", ["--resume",
+                                        os.path.join(kitti, "half.npz")])):
+        rec = {}
+        t1 = time.perf_counter()
+        rc = plslam_dataset.main([kitti, "--chunk", str(CHUNK), "--quiet",
+                                  "--device", dev.type, *extra], record=rec)
+        check(rc == 0, f"{tag}: the SLAM app returned {rc}")
+        rec["wall_all"] = time.perf_counter() - t1
+        runs[tag] = rec
+    ul, ur = to_u8(seq.images_l), to_u8(seq.images_r)
+    inv = np.float32(1.0) / np.float32(255.0)
+    mem = FusedPLSLAM(cfg, cam, device=dev)
+    mem.initialize(ul[0].astype(np.float32) * inv,
+                   ur[0].astype(np.float32) * inv)
+    for lo in range(1, n, CHUNK):
+        mem.process_chunk(ul[lo:lo + CHUNK], ur[lo:lo + CHUNK],
+                          n_valid=min(CHUNK, n - lo))
+    est_mem = mem.finish()
+    app, res = runs["app"], runs["app_resumed"]
+    gt = open_dataset(kitti).gt_poses
+    d_mem = float(np.abs(app["est"] - est_mem).max())
+    d_res = float(np.abs(app["est"] - res["est"]).max())
+    print(f"[slam_app] frames={n} keyframes={app['slam']._kf_slot + 1} "
+          f"ate_m={float(ate_rmse(app['est'], gt[:n])):.6f} fps="
+          f"{app['fps']:.2f} (the app's clock), the run "
+          f"{app['wall_all']:.2f} s; against FusedPLSLAM in memory on the "
+          f"same uint8 frames: {d_mem:.3g}; --checkpoint after {half} "
+          f"frames then --resume ({res['wall_all']:.2f} s) against the "
+          f"uninterrupted run: {d_res:.3g}", flush=True)
+    check(len(app["est"]) == n == len(res["est"]), "slam_app: frames missing")
+    check(d_mem == 0.0, f"slam_app: the app differs from the in-memory run "
+          f"by {d_mem}")
+    check(d_res == 0.0, f"slam_app: the resumed app run differs from the "
+          f"uninterrupted one by {d_res}")
+    return time.perf_counter() - t0
+
+
+# (a): bench_slam_long.py's circuit (:88-125): 10 laps of 400 frames at
+# 0.3 m a frame around a ring of 1,600 points and 240 lines (seed 7), noise
+# 0.004, keyframe.min_entropy_ratio 0.89, chunks of 20 (4,001 frames)
+LONG_LAP, LONG_LAPS, LONG_STEP, LONG_MINENT = 400, 10, 0.3, 0.89
+LONG_RENDERERS = 8
+
+
+def long_circuit():
+    """(world, the lap's poses, the circuit radius), as bench_slam_long.py
+    makes them."""
+    from plslam_tpu_torch.io import synthetic
+    lap = LONG_LAP
+    S = synthetic._exp_se3_np(np.array([0, 0, LONG_STEP, 0, 2.0 * np.pi / lap,
+                                        0], np.float32))
+    T, lap_poses = np.eye(4, dtype=np.float32), []
+    for _ in range(lap):
+        lap_poses.append(T)
+        T = (T @ S).astype(np.float32)
+    lap_poses = np.stack(lap_poses)
+    center = lap_poses[:, :3, 3].mean(0)
+    rng = np.random.default_rng(7)
+    n_pts, n_lns = 1600, 240
+    R_cam = float(np.linalg.norm(lap_poses[0, :3, 3] - center))
+    ang = rng.uniform(0, 2 * np.pi, n_pts)
+    rad = rng.uniform(max(R_cam - 12.0, 2.0), R_cam + 14.0, n_pts)
+    pts = np.stack([center[0] + rad * np.sin(ang),
+                    rng.uniform(-3.5, 3.5, n_pts),
+                    center[2] + rad * np.cos(ang)], -1).astype(np.float32)
+    angl = rng.uniform(0, 2 * np.pi, n_lns)
+    radl = rng.uniform(max(R_cam - 12.0, 2.0), R_cam + 14.0, n_lns)
+    sp = np.stack([center[0] + radl * np.sin(angl),
+                   rng.uniform(-3.5, 3.5, n_lns),
+                   center[2] + radl * np.cos(angl)], -1).astype(np.float32)
+    d = rng.normal(size=(n_lns, 3))
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    ep = (sp + d * rng.uniform(1.0, 4.0, (n_lns, 1))).astype(np.float32)
+    world = synthetic.SyntheticWorld(pts, sp, ep,
+                                     rng.integers(0, 2 ** 31 - 1, n_pts))
+    return world, lap_poses, R_cam
+
+
+def render_long(span):
+    """Frames ``span`` (lo, hi) of the circuit's lap as uint8 (2, n, H, W);
+    frame i's sensor noise from its own generator (seed (7, i)), so that
+    processes can share the lap."""
+    from plslam_tpu_torch.config import SlamConfig
+    from plslam_tpu_torch.core.camera import StereoCamera
+    from plslam_tpu_torch.io import synthetic
+    cam = StereoCamera.from_config(SlamConfig().camera)
+    world, lap_poses, _ = long_circuit()
+    lo, hi = span
+    out = np.empty((2, hi - lo, cam.height, cam.width), np.uint8)
+    for i in range(lo, hi):
+        l_, r_ = synthetic.render_frame(world, lap_poses[i], cam,
+                                        np.random.default_rng([7, i]),
+                                        noise=0.004)
+        out[0, i - lo], out[1, i - lo] = to_u8(l_), to_u8(r_)
+    return out
+
+
+def long_phase(dev) -> float:
+    """(a): the default SlamConfig() (KITTI calibration at 1241x376, lines
+    and loops on, max_kfs 512, kf_batch 4) with min_entropy_ratio 0.89 over
+    the 4,001-frame circuit: one lap rendered (8 processes) and kept on the
+    card as uint8 (2, 400, 376, 1241), every chunk gathered from it. No
+    warm-up. Returns the phase's seconds."""
+    import contextlib
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+    import torch
+    from plslam_tpu_torch import native
+    from plslam_tpu_torch.backend.fused_slam import FusedPLSLAM
+    from plslam_tpu_torch.config import SlamConfig
+    from plslam_tpu_torch.core.camera import StereoCamera
+    from plslam_tpu_torch.utils.evaluation import ate_rmse, umeyama_alignment
+    t_phase = time.perf_counter()
+    cfg = SlamConfig().with_updates(
+        {"keyframe": {"min_entropy_ratio": LONG_MINENT}})
+    cam = StereoCamera.from_config(cfg.camera)
+    _, lap_poses, R_cam = long_circuit()
+    lap, n = LONG_LAP, LONG_LAPS * LONG_LAP + 1
+    bounds = np.linspace(0, lap, LONG_RENDERERS + 1).astype(int)
+    with ProcessPoolExecutor(
+            LONG_RENDERERS,
+            mp_context=multiprocessing.get_context("spawn")) as pool:
+        parts = list(pool.map(render_long, zip(bounds[:-1], bounds[1:])))
+    lap_t = torch.from_numpy(np.concatenate(parts, axis=1)).to(dev)
+    del parts
+    t_render = time.perf_counter() - t_phase
+    poses = np.concatenate([lap_poses] * LONG_LAPS + [lap_poses[:1]])
+    slam = FusedPLSLAM(cfg, cam)
+    ms, comp_frames = watch_compactions(slam)
+    next_slots = []
+    probe = LoopProbe()
+    tw = Tripwires(sys.stdout)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    native.reset_counts()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(tw):
+            slam.initialize(lap_t[0, 0], lap_t[1, 0])
+            for g in range(1, n, CHUNK):
+                idx = torch.arange(g, g + CHUNK, device=dev) % lap
+                slam.process_chunk(lap_t[:, idx])
+                next_slots.append(slam._next_slot)
+            est = slam.finish()
+            torch.cuda.synchronize()
+    finally:
+        probe.close()
+    wall = time.perf_counter() - t0
+    launches = dict(native.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    n_chunks = (n - 1) // CHUNK
+    flags, good, margin = decisions(slam, cfg)
+    n_lba = n_lba_slots(flags, n_chunks, cfg)
+    recs = slam.summaries
+    lc = slam.loop_closer
+    ate = float(ate_rmse(est, poses[:len(est)]))
+    p_est, p_gt = est[:, :3, 3], poses[:len(est), :3, 3]
+    Ra, ta, _ = umeyama_alignment(p_est, p_gt)
+    err = np.linalg.norm(p_est @ Ra.T + ta - p_gt, axis=-1)
+    ate_lap = [round(float(np.sqrt((err[k * lap:(k + 1) * lap] ** 2).mean())),
+                     4) for k in range(LONG_LAPS)]
+    ate_shape = [round(float(ate_rmse(est[k * lap:(k + 1) * lap],
+                                      poses[k * lap:(k + 1) * lap])), 4)
+                 for k in range(LONG_LAPS)]
+    max_pos = float(np.abs(p_est).max())
+    F = cfg.mapping.max_kfs
+    print(f"[long] rendered a lap of {lap} frames in {t_render:.1f} s ("
+          f"{LONG_RENDERERS} processes, host), "
+          f"{lap_t.numel()} bytes on the card; frames={n - 1} good="
+          f"{int(good.sum())} keyframes={len(recs)} lba_slots={n_lba}",
+          flush=True)
+    print(f"[long] fps={(n - 1) / wall:.2f} ms_per_frame="
+          f"{1e3 * wall / (n - 1):.3f} (host clock, initialize + {n_chunks} "
+          f"chunks + finish, ends in synchronize; timed loop steps and "
+          f"compactions synchronize) max_memory_allocated_bytes={peak}",
+          flush=True)
+    print(f"[long] compactions={slam.n_compactions} at frames {comp_frames} "
+          f"ms each (drain included) {[round(x, 1) for x in ms]} evicted="
+          f"{slam.n_evicted_kfs} in {len(slam.eviction_events)} events at "
+          f"frames {[f for f, _ in slam.eviction_events]}; n_kfs settled max "
+          f"{max(next_slots)} / {F}, final {int(slam.state.n_kfs)}",
+          flush=True)
+    print(f"[long] closures={lc.n_loops_closed} funnel (candidates, votes, "
+          f"rejected geometry, uncertainty, correction, closed)="
+          f"{loop_summary(slam, cfg)[2]} graph edges odo/covis/loop="
+          f"{len(lc.odo_edges)}/{len(lc.covis_edges)}/{len(lc.loop_edges)} "
+          f"edges_dropped={lc.n_edges_dropped} frozen_events="
+          f"{lc.n_frozen_events} solves dense/pcg="
+          f"{probe.n.get('optimize_pose_graph', 0)}/"
+          f"{probe.n.get('optimize_pose_graph_pcg', 0)}", flush=True)
+    print(f"[long] ate_m={ate:.6f} per lap (global alignment) {ate_lap} per "
+          f"lap (each aligned alone) {ate_shape}; max|t|={max_pos:.2f} m "
+          f"(circuit radius {R_cam:.2f} m); tripwires {tw.n}", flush=True)
+    want = expected_loop_launches(1 + len(recs), n_lba, probe,
+                                  lc.n_loops_closed, n_chunks)
+    print(f"[long] launches={json.dumps(launches, sort_keys=True)}; "
+          f"{probe.hold_solves(dev)} pose-graph solve(s) bit-equal to the "
+          "loop that assembles and solves every GN step", flush=True)
+    check(len(est) == n, f"long: {len(est)} frames in the trajectory")
+    check(bool(good.all()), f"long: frames not tracked: "
+          f"{np.nonzero(~good)[0][:20]}")
+    check(max(next_slots) <= F and int(slam.state.n_kfs) <= F,
+          f"long: more than max_kfs={F} keyframes")
+    check(slam.n_compactions >= 2 and slam.n_evicted_kfs >= 8,
+          f"long: {slam.n_compactions} compactions, {slam.n_evicted_kfs} "
+          "evicted")
+    check(lc.n_loops_closed >= 5, f"long: {lc.n_loops_closed} closures")
+    check(max_pos < 5 * R_cam, f"long: |t| {max_pos} m beyond 5 x the "
+          f"circuit radius {R_cam} m")
+    check(tw.n == 0, f"long: the settle tripwires printed {tw.n} time(s)")
+    check(launches == want, f"long: launches {launches} differ from the "
+          f"path's {want}")
+    return time.perf_counter() - t_phase
 
 
 def bench_slam_scene(devices) -> None:
@@ -4436,10 +5018,18 @@ def main() -> int:
     loop_kernel_phase(dev, record, runs[0][1])
     runs.append(loop_path(dev, "loop_pcg", pcg_updates(solve),
                           cpu=LOOP_CPU.get("pcg")))
+    # the loop path checkpointed and resumed, then compaction with pressure
+    # eviction and closures held to the CPU run
+    print(f"[checkpoint] phase {checkpoint_phase(dev, runs[0][1]):.1f} s",
+          flush=True)
+    print(f"[compact] phase {compact_phase(dev):.1f} s", flush=True)
 
-    # 6. the dataset paths: the app over a KITTI-layout directory, the
-    # EuRoC-layout raw rig through host and device rectification, N
+    # 6. the dataset paths: the VO app over a KITTI-layout directory, the
+    # EuRoC-layout raw rig through host and device rectification, N; the
+    # SLAM app over the KITTI-layout directory
     runs.append((dataset_path(dev, record),))
+    # 6b. the fused SLAM driver past max_kfs: 4,001 frames at full width
+    print(f"[long] phase {long_phase(dev):.1f} s", flush=True)
     entries = set(r["entry"] for r in record.rows)
     check(entries == set(native._SIGNATURES),
           f"kernels not checked: {set(native._SIGNATURES) - entries}")

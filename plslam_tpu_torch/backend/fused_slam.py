@@ -15,9 +15,13 @@ everything else stays on the device until the settle fetches the one
 packed host block, whose probe rows the loop closer then consumes
 (verification, the pose graph of kernel M, the correction).
 
-Not ported yet (they raise): KF-slot compaction (the compaction slice:
-``force_retire_kfs``, ``compact_keyframes``, ``LoopCloser.remap_slots``),
-``save_checkpoint`` / ``resume`` and ``loop.distributed=True``.
+When the KF slots near ``max_kfs`` the driver compacts them after a settle
+(``_compact``: pressure eviction with ``force_retire_kfs`` where the
+sweeps freed too little, ``compact_keyframes``, the host's slot-valued
+records and ``LoopCloser.remap_slots``), so a run may be longer than the
+map's capacity; ``save_checkpoint`` / ``resume`` persist and restore a
+run (``backend/checkpoint.py``, the reference's keys and dtypes).
+``loop.distributed=True`` is not ported yet (it raises).
 """
 
 from __future__ import annotations
@@ -31,12 +35,15 @@ import torch
 
 from plslam_tpu_torch import native, resolve_device
 from plslam_tpu_torch.backend.chunk_backend import backend_slots
-from plslam_tpu_torch.backend.map import init_map_state
+from plslam_tpu_torch.backend.map import (compact_keyframes,
+                                          force_retire_kfs, init_map_state)
 from plslam_tpu_torch.backend.map_handler import (KeyFrameSummary,
                                                   mapping_step_traced_lba)
 from plslam_tpu_torch.config import SlamConfig
 from plslam_tpu_torch.core import lie
 from plslam_tpu_torch.core.camera import StereoCamera
+from plslam_tpu_torch.frontend.features import (LineObservations,
+                                                PointObservations)
 from plslam_tpu_torch.frontend.stereo_frame import extract_stereo_frame
 from plslam_tpu_torch.loop.loop_closer import LoopCloser, probe_core
 from plslam_tpu_torch.tracking.batch_vo import (_chunk_tracking_batched,
@@ -254,15 +261,17 @@ def fused_step(imgs: torch.Tensor, prev_pts, prev_lns, T_prior0, crit,
 class FusedPLSLAM:
     """Single-step-per-chunk full SLAM driver: ``initialize`` /
     ``process_chunk`` / ``finish``, plus ``summaries``, ``online_pose``,
-    ``kf_poses``, ``n_landmarks`` and ``loop_closer`` (None with loops
-    off). To the loop closer it is the map handler (``_lock``, ``state``).
+    ``kf_poses``, ``n_landmarks``, ``loop_closer`` (None with loops off),
+    ``save_checkpoint`` and ``resume``. To the loop closer it is the map
+    handler (``_lock``, ``state``).
 
     Runs on ``device`` (default: the CUDA device; raises without one).
-    Host chunks are stacked and copied to the device synchronously in
-    ``process_chunk`` and dispatched at once (the reference hands the copy
-    to an upload thread and dispatches a chunk once the next is queued;
-    here the step waits on its keyframe flags anyway, so a queue would buy
-    no overlap); a (2, B, H, W) device tensor is taken as it is."""
+    Host chunks are stacked and copied to the device in ``process_chunk``;
+    a (2, B, H, W) device tensor is taken as it is. A chunk is dispatched
+    once the next one is queued and settled once two are in flight, the
+    reference's order (its upload queue, then its depth-2 settle queue),
+    so a compaction drains the same chunks at the same point of the run.
+    """
 
     def __init__(self, cfg: SlamConfig, cam: Optional[StereoCamera] = None,
                  enable_loops: Optional[bool] = None, device=None):
@@ -283,7 +292,7 @@ class FusedPLSLAM:
             has_lines = db.bows_l is not None
             self._probe = lambda st, slot: probe_core(
                 db.voc_p, db.voc_l, cfg, has_lines, st, db.bows_p, db.bows_l,
-                slot)[2:4]
+                slot, db.ln_valid)[2:4]
         self._next_slot = 0
         self._crit = init_crit_carry(self.device)
         self.prev_pts = None
@@ -293,11 +302,17 @@ class FusedPLSLAM:
         self._frame_anchor: List[Tuple[int, np.ndarray]] = []
         self._kf_slot = -1
         self._records: List[KeyFrameSummary] = []
+        self._queued: List[Tuple[torch.Tensor, Optional[int]]] = []
         self._pending: List[Tuple[torch.Tensor, Optional[int]]] = []
         self._last_step_host = np.eye(4, dtype=np.float32)
         self._T_wc = np.eye(4, dtype=np.float32)
         self._last_settled = None
+        self._compacting = False
+        self.n_compactions = 0
         self.n_kf_deferral_chunks = 0   # chunks where kf_batch bound
+        self.n_evicted_kfs = 0      # non-redundant KFs lost to pressure
+        # (frames so far, [evicted slots]) per pressure-eviction event
+        self.eviction_events: List[Tuple[int, List[int]]] = []
         # telemetry: the settled per-frame rows of the packed host block
         # (good, keyframe flag, entropy ratio, pose since the last KF, ...)
         self.frame_rows: List[np.ndarray] = []
@@ -322,16 +337,18 @@ class FusedPLSLAM:
 
     def process_chunk(self, imgs_l, imgs_r=None,
                       n_valid: Optional[int] = None) -> None:
-        """Dispatch a (B, H, W) stereo chunk, or a device-resident stacked
-        (2, B, H, W) tensor with ``imgs_r=None``. A chunk's host block is
-        settled once two chunks are in flight (the reference's depth-2
-        settle queue)."""
+        """Queue a (B, H, W) stereo chunk, or a device-resident stacked
+        (2, B, H, W) tensor with ``imgs_r=None``. The previous queued
+        chunk is dispatched, and a chunk's host block is settled once two
+        chunks are in flight."""
         if imgs_r is None:
             imgs = imgs_l
         else:
             imgs = self._put(np.stack([np.asarray(imgs_l),
                                        np.asarray(imgs_r)]))
-        self._dispatch(imgs, n_valid)
+        self._queued.append((imgs, n_valid))
+        if len(self._queued) >= 2:
+            self._dispatch(*self._queued.pop(0))
         if len(self._pending) >= 2:
             self._settle_one()
 
@@ -429,17 +446,105 @@ class FusedPLSLAM:
                     corrected = out
         self._last_settled = (np.asarray(kf_poses) if corrected is None
                               else corrected)
-        if self._next_slot >= self.cfg.mapping.max_kfs - 2 * self.kmax:
-            raise RuntimeError(
-                f"FusedPLSLAM: {self._next_slot} KF slots used of max_kfs="
-                f"{self.cfg.mapping.max_kfs}: KF-slot compaction is not "
-                "ported yet (the compaction slice: force_retire_kfs, "
-                "compact_keyframes); raise mapping.max_kfs")
+        # when the next chunks could run into the slot ceiling, compact the
+        # retired slots away (after the settle: everything above used one
+        # slot numbering)
+        if (not self._compacting
+                and self._next_slot >= self.cfg.mapping.max_kfs
+                - 2 * self.kmax):
+            self._compact()
         return n_kfs_new
 
     def _settle_all(self):
+        while self._queued:
+            self._dispatch(*self._queued.pop(0))
         while self._pending:
             self._settle_one()
+
+    def _compact(self):
+        """Stop-the-world KF-slot compaction: drain the pipeline; where the
+        regular sweeps left at least ``max_kfs - 2 kf_batch`` live KFs,
+        evict ``min(max(3 kf_batch, F // 32), F // 4)`` of them
+        (``force_retire_kfs``); drop the retired slots on the device
+        (``compact_keyframes``); then remap every slot-valued host record:
+        the frame anchors (re-expressed against the nearest surviving
+        earlier KF with the pre-compaction poses), the current KF slot, the
+        next slot, and the loop closer's edges and BoW rows. Raises when
+        compaction cannot free a chunk's worth of slots."""
+        self._compacting = True
+        try:
+            self._settle_all()
+            F = self.cfg.mapping.max_kfs
+            target = F - 2 * self.kmax       # room the next chunks need
+            with self._lock:
+                n_live = int(self.state.kf_valid.sum())
+                if n_live >= target:
+                    # the sequence is longer than max_kfs and the sweeps
+                    # found nothing redundant: evict under pressure, a
+                    # config-constant count above the 2 kf_batch headroom
+                    n_evict = min(max(3 * self.kmax, F // 32), F // 4)
+                    valid_before = self.state.kf_valid.cpu().numpy()
+                    self.state, _ = force_retire_kfs(self.state, self.cfg,
+                                                     n_evict)
+                    valid_after = self.state.kf_valid.cpu().numpy()
+                    evicted = np.nonzero(valid_before & ~valid_after)[0]
+                    self.n_evicted_kfs += int(evicted.size)
+                    self.eviction_events.append(
+                        (len(self.trajectory), [int(s) for s in evicted]))
+                    if len(self.eviction_events) == 1:
+                        warnings.warn(
+                            "FusedPLSLAM: KF capacity pressure forced "
+                            f"eviction of {evicted.size} NON-redundant "
+                            "keyframe(s) — map history is being lost. "
+                            "Raise mapping.max_kfs for this sequence "
+                            "scale. (Further evictions are recorded in "
+                            "eviction_events without warning.)")
+                old_poses = self.state.kf_pose.cpu().numpy()
+                self.state, exact_d, _, nv_d = compact_keyframes(self.state)
+                exact = exact_d.cpu().numpy()
+                nv = int(nv_d)
+            if nv >= target:
+                raise RuntimeError(
+                    f"KF capacity exhausted: {nv} live keyframes of "
+                    f"max_kfs={F} after compaction + eviction (window "
+                    "span leaves nothing evictable). Raise "
+                    "mapping.max_kfs for this sequence scale.")
+            # old slot of each surviving new slot (anchor re-expression)
+            old_of_new = np.zeros((F,), np.int32)
+            for old, new in enumerate(exact):
+                if new >= 0:
+                    old_of_new[new] = old
+            # nearest surviving slot at or before each old slot
+            floor = np.maximum.accumulate(np.where(exact >= 0, exact, -1))
+
+            def remap_anchor(s, T_rel):
+                s = min(int(s), F - 1)
+                if exact[s] >= 0:
+                    return (int(exact[s]), T_rel)
+                v = int(floor[s])            # new slot of the survivor
+                if v < 0:
+                    return (0, T_rel)
+                T_surv = old_poses[old_of_new[v]]
+                T_new = (np.linalg.inv(T_surv) @ old_poses[s]
+                         @ T_rel).astype(np.float32)
+                return (v, T_new)
+
+            self._frame_anchor = [remap_anchor(s, T) for s, T in
+                                  self._frame_anchor]
+            self._kf_slot = remap_anchor(self._kf_slot,
+                                         np.eye(4, dtype=np.float32))[0]
+            self._next_slot = nv
+            if self.loop_closer is not None:
+                self.loop_closer.remap_slots(exact, nv, old_poses=old_poses)
+            with self._lock:
+                self._last_settled = self.state.kf_pose.cpu().numpy()
+            pm = float(np.abs(self._last_settled[:nv, :3, 3]).max())
+            if pm > 1e3:
+                print(f"[fused_slam] WARNING: post-compaction KF pose "
+                      f"|t|max={pm:.3g} — compaction-era corruption")
+            self.n_compactions += 1
+        finally:
+            self._compacting = False
 
     # -- queries -------------------------------------------------------------
     @property
@@ -471,21 +576,164 @@ class FusedPLSLAM:
         return np.stack([kf_poses[min(slot, len(kf_poses) - 1)] @ T_rel
                          for slot, T_rel in self._frame_anchor])
 
+    # -- checkpoint / resume -------------------------------------------------
     def save_checkpoint(self, path: str) -> None:
-        raise NotImplementedError(
-            "FusedPLSLAM.save_checkpoint is not ported yet (the checkpoint "
-            "slice: backend/checkpoint.py)")
+        """Settle the pipeline and write the MapState, the config and the
+        host continuation (trajectory, frame anchors, the criterion carry
+        as the reference's ``crit_<i>`` arrays, the last frame's features,
+        the prior, counters and the loop closer's packed edges) with
+        ``checkpoint.save_map``. The BoW rows are not written: ``resume``
+        recomputes them from the per-KF descriptors in the MapState."""
+        from plslam_tpu_torch.backend.checkpoint import save_map
+        self._settle_all()
+        host = lambda t: t.detach().cpu().numpy()
+        extra = {
+            "trajectory": np.stack(self.trajectory),
+            "anchor_slots": np.asarray([s for s, _ in self._frame_anchor],
+                                       np.int32),
+            "anchor_T": (np.stack([T for _, T in self._frame_anchor])
+                         if self._frame_anchor else
+                         np.zeros((0, 4, 4), np.float32)),
+            "kf_slot": np.asarray(self._kf_slot, np.int32),
+            "next_slot": np.asarray(self._next_slot, np.int32),
+            "T_wc": self._T_wc,
+            "last_step": self._last_step_host,
+            "DT_prev": host(self.DT_prev),
+            "n_compactions": np.asarray(self.n_compactions, np.int32),
+            "n_kf_deferral_chunks": np.asarray(self.n_kf_deferral_chunks,
+                                               np.int32),
+            "n_evicted_kfs": np.asarray(self.n_evicted_kfs, np.int32),
+        }
+        for i, leaf in enumerate(self._crit):     # CritCarry's field order
+            extra[f"crit_{i}"] = host(leaf)
+        for i, leaf in enumerate(self.prev_pts):
+            extra[f"prev_pts_{i}"] = host(leaf)
+        if self.prev_lns is not None:
+            for i, leaf in enumerate(self.prev_lns):
+                extra[f"prev_lns_{i}"] = host(leaf)
+        if self.loop_closer is not None:
+            lc = self.loop_closer
+            extra["lc_odo"] = _pack_edges(lc.odo_edges, 4)
+            extra["lc_covis"] = _pack_edges(lc.covis_edges, 5)
+            extra["lc_loop"] = _pack_edges(lc.loop_edges, 4)
+            extra["lc_n_loops"] = np.asarray(lc.n_loops_closed, np.int32)
+            # the post-closure lockout survives a resume
+            extra["lc_probes_since_close"] = np.asarray(
+                min(lc.probes_since_close, 10 ** 9), np.int64)
+            # two keys of this package alone (the reference's resume reads
+            # neither): the line masks of the BoW rows, which culling has
+            # since changed in the map, and the voter's streaks, so that a
+            # resumed run continues as the run it was saved from
+            if lc.db.ln_valid is not None:
+                extra["lc_bow_ln_valid"] = host(lc.db.ln_valid)
+            extra["lc_streaks"] = np.asarray(
+                list(lc.voter._streaks.items()), np.int64).reshape(-1, 2)
+        save_map(path, self.state, self.cfg, extra=extra)
 
     @classmethod
-    def resume(cls, path: str, cam=None, enable_loops=None, device=None):
-        raise NotImplementedError(
-            "FusedPLSLAM.resume is not ported yet (the checkpoint slice: "
-            "backend/checkpoint.py)")
+    def resume(cls, path: str, cam: Optional[StereoCamera] = None,
+               enable_loops: Optional[bool] = None,
+               device=None) -> "FusedPLSLAM":
+        """A live driver from a checkpoint (this package's or the
+        reference's): the MapState and the tracker's carry exactly, the
+        loop closer's edges reloaded and its BoW rows rebuilt from the
+        per-KF descriptors (``_rebuild_bows``)."""
+        from plslam_tpu_torch import convert
+        from plslam_tpu_torch.backend.checkpoint import load_map
+        dev = resolve_device(device)
+        state, cfg, extra = load_map(path, dev)
+        self = cls(cfg, cam, enable_loops=enable_loops, device=dev)
+        with self._lock:
+            self.state = state
+        self.trajectory = [t.astype(np.float32) for t in extra["trajectory"]]
+        self._frame_anchor = [
+            (int(s), np.asarray(T, np.float32)) for s, T in
+            zip(extra["anchor_slots"], extra["anchor_T"])]
+        self._kf_slot = int(extra["kf_slot"])
+        self._next_slot = int(extra["next_slot"])
+        self._T_wc = np.asarray(extra["T_wc"], np.float32)
+        self._last_step_host = np.asarray(extra["last_step"], np.float32)
+        self.DT_prev = torch.from_numpy(
+            np.asarray(extra["DT_prev"], np.float32)).to(dev)
+        self.n_compactions = int(extra.get("n_compactions", 0))
+        self.n_kf_deferral_chunks = int(extra.get("n_kf_deferral_chunks", 0))
+        self.n_evicted_kfs = int(extra.get("n_evicted_kfs", 0))
+        self._crit = carry_views(pack_crit_carry(convert.crit_carry_from_numpy(
+            {f: extra[f"crit_{i}"] for i, f in enumerate(CritCarry._fields)},
+            dev)))
+        self.prev_pts = convert.points_from_numpy(
+            {f: extra[f"prev_pts_{i}"]
+             for i, f in enumerate(PointObservations._fields)}, dev)
+        if any(k.startswith("prev_lns_") for k in extra):
+            self.prev_lns = convert.lines_from_numpy(
+                {f: extra[f"prev_lns_{i}"]
+                 for i, f in enumerate(LineObservations._fields)}, dev)
+        if self.loop_closer is not None:
+            lc = self.loop_closer
+            lc.odo_edges = [(i, j, T, float(w)) for (i, j, T, w) in
+                            _unpack_edges(extra.get("lc_odo",
+                                                    np.zeros((0, 19))), 1)]
+            lc.covis_edges = [(i, j, T, float(w), int(ns)) for
+                              (i, j, T, w, ns) in
+                              _unpack_edges(extra.get("lc_covis",
+                                                      np.zeros((0, 20))), 2)]
+            lc.loop_edges = [(i, j, T, float(w)) for (i, j, T, w) in
+                             _unpack_edges(extra.get("lc_loop",
+                                                     np.zeros((0, 19))), 1)]
+            lc.n_loops_closed = int(extra.get("lc_n_loops", 0))
+            lc.probes_since_close = int(
+                extra.get("lc_probes_since_close", 10 ** 9))
+            lc.voter._streaks = {int(c): int(n) for c, n in
+                                 extra.get("lc_streaks", np.zeros((0, 2)))}
+            ln_valid = extra.get("lc_bow_ln_valid")
+            self._rebuild_bows(None if ln_valid is None else
+                               torch.from_numpy(ln_valid).to(dev))
+        self._last_settled = self.state.kf_pose.cpu().numpy()
+        return self
+
+    def _rebuild_bows(self, ln_valid: Optional[torch.Tensor] = None):
+        """The loop database's BoW rows from the per-KF descriptors in the
+        MapState, slot by slot through the probe (each slot launches L's
+        ``bow_descend`` and ``bow_hist`` for each family on the card). The
+        line rows take the masks ``ln_valid`` (F, L) their probes used,
+        where the checkpoint kept them: the rows then equal the saved
+        driver's bit for bit. Without them (a checkpoint of the reference)
+        they take the map's current masks, as the reference does."""
+        db = self.loop_closer.db
+        state = self.state
+        if ln_valid is not None:
+            state = state._replace(obs_ln_lm=torch.where(
+                ln_valid, 0, -1).to(state.obs_ln_lm.dtype))
+        for slot in range(int(state.n_kfs)):
+            probe_core(db.voc_p, db.voc_l, self.cfg, db.bows_l is not None,
+                       state, db.bows_p, db.bows_l, slot, db.ln_valid)
 
     def close(self):
-        if self._pending:
+        if self._queued or self._pending:
             warnings.warn(
-                f"FusedPLSLAM.close() with {len(self._pending)} chunk(s) "
-                "not settled — call finish() first to settle them; "
-                "settling now", stacklevel=2)
+                f"FusedPLSLAM.close() with "
+                f"{len(self._queued) + len(self._pending)} chunk(s) not "
+                "settled — call finish() first to settle them; settling "
+                "now", stacklevel=2)
             self._settle_all()
+
+
+def _pack_edges(edges, width: int) -> np.ndarray:
+    """Graph edges as the reference's checkpoint rows: i, j, T (16), then
+    the edge's trailing scalars (width - 3 of them)."""
+    out = np.zeros((len(edges), 15 + width), np.float32)
+    for n, e in enumerate(edges):
+        out[n, 0], out[n, 1] = e[0], e[1]
+        out[n, 2:18] = np.asarray(e[2]).reshape(16)
+        out[n, 18:] = e[3:width]
+    return out
+
+
+def _unpack_edges(arr: np.ndarray, extra_cols: int) -> list:
+    out = []
+    for row in arr:
+        e = (int(row[0]), int(row[1]),
+             row[2:18].reshape(4, 4).astype(np.float32))
+        out.append(e + tuple((int(c) if float(c).is_integer() else float(c))
+                             for c in row[18:18 + extra_cols]))
+    return out

@@ -4,10 +4,11 @@ triangulation, redundant-KF retirement and landmark culling.
 Port of ``plslam_tpu/backend/map.py`` (``MapState``, ``init_map_state``,
 ``_medoid_desc``, ``_view_dirs``, ``_allocate_slots``, ``add_keyframe``,
 ``remove_redundant_kfs``, ``remove_redundant_kfs_global``,
-``cull_landmarks``): the same fixed-capacity slot arrays, functional
-updates (every function returns a new state and leaves its input alone),
-every scatter of the reference's ``mode="drop"`` kind dropped at an
-out-of-range index, never clamped. Packed descriptors are 8 int32 words
+``force_retire_kfs``, ``compact_keyframes``, ``cull_landmarks``): the
+same fixed-capacity slot arrays, functional updates (every function
+returns a new state and leaves its input alone), every scatter of the
+reference's ``mode="drop"`` kind dropped at an out-of-range index, never
+clamped. Packed descriptors are 8 int32 words
 holding the reference's uint32 bit patterns (``ops/hamming.pack_bits``).
 Scalar decisions (room for a KF, which KF retires, the pool-pressure
 tier) stay device tensors: no function here waits for the device.
@@ -20,7 +21,9 @@ allocation is a stable ``torch.sort`` + ``cumsum``, and the reference's
 index, as the reference does. Map matching runs kernel D at (1, P, K) and
 (1, M, L). ``fuse_loop_landmarks`` (the loop slice) matches the two loop
 KFs' stored descriptors with kernel D at (1, K, K) and (1, L, L).
-``force_retire_kfs`` and ``compact_keyframes`` are not ported yet.
+Pressure eviction (``force_retire_kfs``, its observer counts K7's
+``take``) and KF-slot compaction (``compact_keyframes``) are rare
+stop-the-world events of the driver and run in native torch.
 """
 
 from __future__ import annotations
@@ -36,6 +39,7 @@ from plslam_tpu_torch.core.camera import StereoCamera
 from plslam_tpu_torch.frontend.features import (LineObservations,
                                                 PointObservations)
 from plslam_tpu_torch.ops import hamming
+from plslam_tpu_torch.ops.gather import take
 
 
 class MapState(NamedTuple):
@@ -482,6 +486,98 @@ def remove_redundant_kfs_global(state: MapState, cfg: SlamConfig,
     for j in range(max_retire):
         state = _detach_kf(state, cand[j], do[j])
     return state, torch.sum(do)
+
+
+def force_retire_kfs(state: MapState, cfg: SlamConfig, n_retire: int
+                     ) -> Tuple[MapState, torch.Tensor]:
+    """Memory-pressure eviction: retire up to ``n_retire`` keyframes even
+    below the redundancy bar, most redundant first (the fraction of a KF's
+    landmarks with at least min_lm_obs observers), odd slots before even
+    ones among comparably redundant KFs, oldest on ties. Protected: slot
+    0, the LBA window and its fixed span, the newest KF. The score is the
+    reference's float32 expression in its order, and the top ``n_retire``
+    take ``lax.top_k``'s tie order. Returns (state, n_removed)."""
+    m = cfg.mapping
+    F = state.kf_pose.shape[0]
+    dev = state.kf_pose.device
+    f32 = torch.float32
+    slots = torch.arange(F, device=dev)
+    span = m.window_kfs + m.fixed_kfs
+    lm = state.obs_pt_lm                                         # (F, K)
+    ok = lm >= 0
+    nobs = take(state.pt_nobs.expand(F, -1), lm)                 # K7
+    well = ok & (nobs >= m.min_lm_obs)
+    frac = torch.sum(well, dim=1) / torch.clamp(torch.sum(ok, dim=1), min=1)
+    removable = (state.kf_valid & (slots > 0) & (slots < state.n_kfs - span)
+                 & (slots != state.n_kfs - 1))
+    score = torch.where(
+        removable,
+        frac + torch.tensor(0.1, dtype=f32) * (slots % 2).to(f32)
+        - torch.tensor(1e-4, dtype=f32) * slots.to(f32), -torch.inf)
+    vals, cand = _stable_top_k(score, n_retire)
+    do = torch.isfinite(vals)
+    P = state.pt_pos.shape[0]
+    M = state.ln_spos.shape[0]
+    rows_p = state.obs_pt_lm[cand]
+    rows_l = state.obs_ln_lm[cand]
+    # the candidates are distinct slots: one integer index_add a family
+    pt_nobs = _add_drop(state.pt_nobs, torch.where(
+        (rows_p >= 0) & do[:, None], rows_p, P).reshape(-1), -1)
+    ln_nobs = _add_drop(state.ln_nobs, torch.where(
+        (rows_l >= 0) & do[:, None], rows_l, M).reshape(-1), -1)
+    hit = _set_drop(torch.zeros_like(state.kf_valid), cand, do)
+    return state._replace(
+        kf_valid=state.kf_valid & ~hit, pt_nobs=pt_nobs, ln_nobs=ln_nobs,
+        obs_pt_lm=torch.where(hit[:, None], -1, state.obs_pt_lm),
+        obs_ln_lm=torch.where(hit[:, None], -1, state.obs_ln_lm)
+    ), torch.sum(do).to(torch.int32)
+
+
+def compact_keyframes(state: MapState) -> Tuple[MapState, torch.Tensor,
+                                                torch.Tensor, torch.Tensor]:
+    """Order-preserving KF-slot compaction: the valid slots below n_kfs
+    move down in their order, the tail is freed (identity poses, -1
+    landmark ids, 0 elsewhere). Returns (state, exact_map (F,),
+    floor_map (F,), n_valid): exact_map[old] is the new slot or -1 for a
+    dropped one, floor_map[old] the new slot of the nearest surviving KF
+    at or before ``old`` (-1 if none), through which the landmarks' first
+    and last KFs are remapped."""
+    F = state.kf_pose.shape[0]
+    dev = state.kf_pose.device
+    i32 = torch.int32
+    idx = torch.arange(F, dtype=i32, device=dev)
+    valid = state.kf_valid & (idx < state.n_kfs)
+    inc = torch.cumsum(valid.to(i32), 0, dtype=i32)               # inclusive
+    n_valid = inc[-1]
+    exact_map = torch.where(valid, inc - 1, -1)
+    floor_map = torch.where(inc > 0, inc - 1, -1)
+    # survivors in their order, then the dropped slots
+    perm = torch.sort(torch.where(valid, idx, F + idx), stable=True).indices
+    live = idx < n_valid
+
+    def g(a, fill):
+        return torch.where(live.reshape((F,) + (1,) * (a.ndim - 1)), a[perm],
+                           torch.tensor(fill, dtype=a.dtype, device=dev))
+
+    eye = torch.eye(4, dtype=state.kf_pose.dtype, device=dev)
+    remap_time = lambda t: torch.where(
+        t >= 0, floor_map[torch.clamp(t, 0, F - 1).long()], -1)
+    return state._replace(
+        kf_pose=torch.where(live[:, None, None], state.kf_pose[perm], eye),
+        kf_valid=live, n_kfs=n_valid,
+        pt_first_kf=remap_time(state.pt_first_kf),
+        pt_last_kf=remap_time(state.pt_last_kf),
+        ln_first_kf=remap_time(state.ln_first_kf),
+        ln_last_kf=remap_time(state.ln_last_kf),
+        obs_pt_uv=g(state.obs_pt_uv, 0.0),
+        obs_pt_disp=g(state.obs_pt_disp, 0.0),
+        obs_pt_lm=g(state.obs_pt_lm, -1),
+        obs_ln_le=g(state.obs_ln_le, 0.0),
+        obs_ln_lm=g(state.obs_ln_lm, -1),
+        obs_ln_ends=g(state.obs_ln_ends, 0.0),
+        kf_pt_desc=g(state.kf_pt_desc, 0),
+        kf_ln_desc=g(state.kf_ln_desc, 0),
+    ), exact_map, floor_map, n_valid
 
 
 def cull_landmarks(state: MapState, cfg: SlamConfig) -> MapState:

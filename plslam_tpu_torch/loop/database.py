@@ -22,7 +22,10 @@ from plslam_tpu_torch.loop.vocabulary import Vocabulary
 class BowDatabase:
     """The two vocabularies plus the dense (F, n_leaves) BoW matrices for
     points and lines. The per-KF probe (``loop_closer.probe_core``)
-    writes a keyframe's row in place."""
+    writes a keyframe's row in place, and with lines also the row of
+    ``ln_valid`` (F, L): the line mask its BoW vector was made from. Later
+    culling and retirement clear entries of the map's ``obs_ln_lm``, so
+    that mask is kept for a rebuild of the rows after a resume."""
 
     def __init__(self, cfg: SlamConfig, voc_p: Vocabulary,
                  voc_l: Optional[Vocabulary] = None):
@@ -36,6 +39,9 @@ class BowDatabase:
         self.bows_l = (torch.zeros((F, voc_l.n_leaves), dtype=torch.float32,
                                    device=dev)
                        if voc_l is not None else None)
+        self.ln_valid = (torch.zeros((F, cfg.lines.max_lines),
+                                     dtype=torch.bool, device=dev)
+                         if voc_l is not None else None)
 
 
 class LoopCandidate(NamedTuple):

@@ -13,11 +13,11 @@ reference's numpy, copied.
 
 The probe writes a keyframe's row of the BoW matrices in place
 (``index_copy_``; the reference's ``.at[slot].set`` is functional and
-would copy 2 x 20 MB per keyframe). Not ported, and raising: the sharded
-database (``loop.distributed=True``, the parallel slice) and
-``remap_slots`` (the compaction slice). ``on_probe_batch(es)``, which only
-the worker-thread driver calls, and the reference's ``PLSLAM_LC_DEBUG``
-staging branch are left out (ROADMAP.md Queue 1).
+would copy 2 x 20 MB per keyframe). ``remap_slots`` follows a KF-slot
+compaction. Not ported, and raising: the sharded database
+(``loop.distributed=True``, the parallel slice). ``on_probe_batch(es)``,
+which only the worker-thread driver calls, and the reference's
+``PLSLAM_LC_DEBUG`` staging branch are left out (ROADMAP.md Queue 1).
 """
 
 from __future__ import annotations
@@ -134,19 +134,24 @@ def apply_graph_correction(state, new_poses: torch.Tensor):
 
 
 def probe_core(voc_p, voc_l, cfg: SlamConfig, has_lines: bool, state,
-               bows_p, bows_l, slot):
+               bows_p, bows_l, slot, ln_valid=None):
     """insertKFBowVectorP/L + the database query + covisibility counts for
     KF ``slot`` (host int or 0-d device tensor). The BoW rows are written
-    in place. Returns (bows_p, bows_l, scores (F,), covis (F,), pose)."""
+    in place, and the slot's line mask into ``ln_valid`` (F, L) where it
+    is given (``BowDatabase.ln_valid``). Returns (bows_p, bows_l, scores
+    (F,), covis (F,), pose)."""
     idx = torch.as_tensor(slot, device=bows_p.device).reshape(1).long()
     vp = vocabulary.bow_vector(voc_p, _row(state.kf_pt_desc, idx),
                                _row(state.obs_pt_disp, idx) > 0)
     bows_p.index_copy_(0, idx, vp[None])
     s = vocabulary.l1_score(bows_p, vp[None, :])
     if has_lines:
+        valid_l = _row(state.obs_ln_lm, idx) >= 0
         vl = vocabulary.bow_vector(voc_l, _row(state.kf_ln_desc, idx),
-                                   _row(state.obs_ln_lm, idx) >= 0)
+                                   valid_l)
         bows_l.index_copy_(0, idx, vl[None])
+        if ln_valid is not None:
+            ln_valid.index_copy_(0, idx, valid_l[None])
         s = 0.5 * (s + vocabulary.l1_score(bows_l, vl[None, :]))
     covis = covisibility_counts(state.obs_pt_lm, idx,
                                 cfg.mapping.max_points)
@@ -222,9 +227,103 @@ class LoopCloser:
         self._last_costs = (0.0, 0.0)
 
     def remap_slots(self, exact_map, n_valid: int, old_poses=None) -> None:
-        raise NotImplementedError(
-            "LoopCloser.remap_slots follows KF-slot compaction, which is not "
-            "ported yet (the compaction slice, ROADMAP.md Queue 1)")
+        """Rewrite the slot-valued host state after a KF-slot compaction
+        (``backend.map.compact_keyframes``): ``exact_map[old]`` is the new
+        slot or -1 for a dropped one. Odometry edges across dropped KFs
+        are composed into one; covisibility and loop edges with a dropped
+        end are re-expressed through the nearest surviving earlier KF
+        when ``old_poses`` (the pre-compaction poses) is given, and
+        dropped otherwise. The BoW rows are permuted on the device (tail
+        zeroed; the line masks the same) and the consistency streaks
+        reset."""
+        exact = np.asarray(exact_map)
+        F = exact.shape[0]
+        # nearest surviving old slot at or before s (for re-expression)
+        floor_old = np.full((F,), -1, np.int64)
+        last = -1
+        for s in range(F):
+            if exact[s] >= 0:
+                last = s
+            floor_old[s] = last
+
+        def move_end(s):
+            """old slot -> (new slot, T_corr = T_s'^-1 T_s) through the
+            nearest surviving earlier KF s' (identity if s survives)."""
+            if exact[s] >= 0:
+                return int(exact[s]), np.eye(4, dtype=np.float32)
+            sp = int(floor_old[s])
+            if sp < 0 or old_poses is None:
+                return -1, None
+            T_corr = (np.linalg.inv(old_poses[sp])
+                      @ old_poses[s]).astype(np.float32)
+            return int(exact[sp]), T_corr
+
+        odo = sorted(self.odo_edges, key=lambda e: e[0])
+        new_odo = []
+        chain = None            # (old start slot, old last slot, composed T)
+        for (i, j, T, w) in odo:
+            if chain is None or chain[1] != i:
+                chain = (i, i, np.eye(4, dtype=np.float32))  # a new chain
+            start, _, T_acc = chain
+            T_acc = (T_acc @ T).astype(np.float32)
+            if exact[j] >= 0:
+                if exact[start] >= 0:
+                    new_odo.append((int(exact[start]), int(exact[j]),
+                                    T_acc, w))
+                chain = (j, j, np.eye(4, dtype=np.float32))
+            else:
+                chain = (start, j, T_acc)    # j dropped: keep composing
+        self.odo_edges = new_odo
+
+        def remap_pair(i, j, T):
+            """Edge T = T_i^-1 T_j re-expressed between survivors:
+            T' = T_corr_i @ T @ T_corr_j^-1."""
+            i2, Ci = move_end(i)
+            j2, Cj = move_end(j)
+            if i2 < 0 or j2 < 0 or i2 == j2:
+                return None
+            T2 = T
+            if Ci is not None and not np.array_equal(Ci, np.eye(4)):
+                T2 = Ci @ T2
+            if Cj is not None and not np.array_equal(Cj, np.eye(4)):
+                T2 = T2 @ np.linalg.inv(Cj)
+            return (min(i2, j2), max(i2, j2),
+                    (T2 if i2 < j2 else np.linalg.inv(T2)
+                     ).astype(np.float32))
+
+        new_covis = []
+        for (i, j, T, w, ns) in self.covis_edges:
+            r = remap_pair(i, j, T)
+            if r is not None:
+                new_covis.append((r[0], r[1], r[2], w, ns))
+        self.covis_edges = new_covis
+        new_loops = []
+        for (i, j, T, w) in self.loop_edges:
+            r = remap_pair(i, j, T)
+            if r is not None:
+                new_loops.append((r[0], r[1], r[2], w))
+        self.loop_edges = new_loops
+
+        # new BoW row n reads old row perm[n]; the tail is zeroed
+        perm = np.zeros((F,), np.int64)
+        for old, new in enumerate(exact):
+            if new >= 0:
+                perm[new] = old
+        dev = self.db.bows_p.device
+        perm_d = torch.from_numpy(perm).to(dev)
+        live = (torch.arange(F, device=dev) < n_valid)[:, None]
+
+        def permute(b):
+            if b is None:
+                return None
+            return torch.where(live, b.index_select(0, perm_d), 0.0)
+
+        self.db.bows_p = permute(self.db.bows_p)
+        self.db.bows_l = permute(self.db.bows_l)
+        if self.db.ln_valid is not None:
+            self.db.ln_valid = (self.db.ln_valid.index_select(0, perm_d)
+                                & live)
+        self.voter._streaks.clear()
 
     # -- main entry ------------------------------------------------------------
     def on_keyframe(self, map_handler, slot: int) -> Optional[np.ndarray]:
@@ -236,7 +335,7 @@ class LoopCloser:
             _, _, s_d, covis_d, _ = probe_core(
                 self.db.voc_p, self.db.voc_l, self.cfg,
                 self.db.bows_l is not None, state, self.db.bows_p,
-                self.db.bows_l, slot)
+                self.db.bows_l, slot, self.db.ln_valid)
             scores, covis = s_d.cpu().numpy(), covis_d.cpu().numpy()
             n_kfs, kf_poses = int(state.n_kfs), state.kf_pose.cpu().numpy()
         out = self._handle_probe_result(map_handler, slot, scores, covis,

@@ -104,6 +104,27 @@ def test_import_leaves_jax_out():
     assert len(mods) >= 17
 
 
+NEW_MODULES = ("plslam_tpu_torch.apps.plslam_dataset",
+               "plslam_tpu_torch.utils.viz",
+               "plslam_tpu_torch.backend.checkpoint")
+
+
+@pytest.mark.parametrize("module", NEW_MODULES)
+def test_slam_app_modules_load_no_matplotlib_or_jax(module):
+    """The SLAM app, the renders and the checkpoints are port files, and
+    importing each loads neither JAX, nor the reference, nor matplotlib
+    (the renders import it at their first call)."""
+    path = os.path.join(ROOT, *module.split(".")) + ".py"
+    assert path in _port_files()
+    code = (f"import sys, {module}\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'plslam_tpu', 'matplotlib')]\n"
+            "assert not bad, bad\n")
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr
+
+
 def test_default_device_is_cuda():
     cfg = SlamConfig().with_updates({"lines": {"has_lines": False}})
     if torch.cuda.is_available():
