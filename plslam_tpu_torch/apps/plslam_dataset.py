@@ -122,8 +122,6 @@ def main(argv=None, record=None) -> int:
     ap = build_argparser(__doc__)
     ap.add_argument("--no-loops", action="store_true",
                     help="disable loop closure")
-    ap.add_argument("--sync", action="store_true",
-                    help="synchronous mapping (no mapping thread)")
     ap.add_argument("--viz", default=None, metavar="PNG",
                     help="render the final 3D scene to this PNG")
     ap.add_argument("--checkpoint", default=None, metavar="NPZ",
@@ -133,8 +131,6 @@ def main(argv=None, record=None) -> int:
                          "(continues after its last saved frame)")
     args = ap.parse_args(argv)
     cfg = load_config(args)
-    if args.sync:
-        cfg = cfg.with_updates({"system": {"async_mapping": False}})
     if args.no_loops:
         cfg = cfg.with_updates({"loop": {"enabled": False}})
     if args.chunk <= 0:
