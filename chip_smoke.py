@@ -1155,10 +1155,17 @@ def run_counts(outs):
 def cpu_reference_ate(parts) -> None:
     """The main paths' scenes through the port's plain versions on the
     CPU: the calibration run of the ATE, line-count, keyframe and loop
-    bounds. ``parts``: any of vo, slam, loops, pcg, dataset, compact (none:
-    all)."""
+    bounds. ``parts``: any of vo, slam, loops, pcg, dataset, compact,
+    slam_system (or one of its runs: plslam_sync, plslam_async,
+    chunked_sync) (none: all)."""
     from plslam_tpu_torch.tracking.batch_vo import BatchedStereoVO
     from plslam_tpu_torch.utils.evaluation import ate_rmse
+    tags = [t for t, _, _ in SYSTEM_RUNS[:3]
+            if not parts or "slam_system" in parts or t in parts]
+    if tags:
+        cpu_system_runs(tags)
+        if parts and set(parts) <= {"slam_system", *tags}:
+            return
     if not parts or "dataset" in parts:
         cpu_dataset_runs()
     if not parts or "compact" in parts:
@@ -1743,6 +1750,8 @@ def decisions(slam, cfg):
 # run_lba counts the same launches.
 PER_LBA = {"lba_terms": 14, "lba_camera": 6, "lba_index": 1, "lba_bin": 6,
            "lba_solve": 6}
+# a keyframe's insertion: a medoid and a map match for points and lines
+PER_KF = {"medoid": 2, "hamming_scan": 2, "hamming_finish": 2}
 
 
 def expected_slam_launches(n_kfs: int, n_lba: int,
@@ -1754,12 +1763,11 @@ def expected_slam_launches(n_kfs: int, n_lba: int,
     (``PER_LBA``)."""
     from collections import Counter
     n = Counter()
-    per_kf = {"medoid": 2, "hamming_scan": 2, "hamming_finish": 2}
-    per_chunk = {"pose_gn_optimize": 2, "kf_scan": 1}
     for table, times in ((EXTRACT_POINTS, n_chunks + 1),
                          (EXTRACT_LINES, n_chunks + 1),
-                         (TRACK, 2 * n_chunks), (per_chunk, n_chunks),
-                         (per_kf, n_kfs), (PER_LBA, n_lba)):
+                         (TRACK, 2 * n_chunks), (GN, n_chunks),
+                         ({"kf_scan": 1}, n_chunks),
+                         (PER_KF, n_kfs), (PER_LBA, n_lba)):
         for k, v in table.items():
             n[k] += v * times
     return dict(n)
@@ -2482,28 +2490,11 @@ SOLVE_LAUNCHES = {"dense": {"pg_edges": 1, "pg_assemble": 1, "pg_update": 12},
 
 def expected_loop_launches(n_kfs, n_lba, p: LoopProbe, n_closed,
                            n_chunks: int = LOOP_CHUNKS) -> dict:
-    """The loop path's launches: the loops-off path's, plus per probe (every
-    keyframe, the first included) the BoW descent and histogram of each
-    family; per verification D twice (ORB, LBD) and one optimize_pose (K13);
-    per closure the landmark fusion (D twice); per dense solve one
-    pg_edges (r, Ji, the first cost), one pg_assemble (H and the first
-    gradient) and 12 pg_update (each hands on the next gradient); per PCG
-    solve one pg_edges, one pg_blocks and 12 x (pg_pcg, pg_update); per
-    post-closure update one window LBA (K15)."""
+    """The loop path's launches: the loops-off path's
+    (``expected_slam_launches``) and the loop closer's (``_loop_part``)."""
     from collections import Counter
-    n = Counter(expected_slam_launches(n_kfs, n_lba, n_chunks))
-    g = lambda k: p.n.get(k, 0)
-    for table, times in (
-            ({"bow_descend": 2, "bow_hist": 2}, n_kfs),
-            ({"hamming_scan": 2, "hamming_finish": 2, "pose_gn_optimize": 1},
-             g("verify_loop_geometry")),
-            ({"hamming_scan": 2, "hamming_finish": 2}, n_closed),
-            (SOLVE_LAUNCHES["dense"], g("optimize_pose_graph")),
-            (SOLVE_LAUNCHES["pcg"], g("optimize_pose_graph_pcg")),
-            (PER_LBA, g("_post_loop_update"))):
-        for k, v in table.items():
-            n[k] += v * times
-    return {k: v for k, v in n.items() if v}
+    return _loop_part(Counter(expected_slam_launches(n_kfs, n_lba, n_chunks)),
+                      n_kfs, p, n_closed)
 
 
 def loop_summary(slam, cfg):
@@ -3948,26 +3939,39 @@ def slam_app_runs(dev, kitti) -> float:
     """(d): the SLAM app (``--chunk 20``, the default SlamConfig()) over the
     KITTI-layout directory, held to ``FusedPLSLAM`` in memory on the same
     uint8 frames; its ``--checkpoint`` after 21 frames, then ``--resume``,
-    held to the uninterrupted app run. Returns the phase's seconds."""
+    held to the uninterrupted app run; the per-frame app (``--chunk 0``,
+    the default: PLSLAM with the mapping worker) held to ``PLSLAM`` in
+    memory on the same frames; the host-KF app (``--config`` with
+    ``system.fused_slam: false``: ChunkedPLSLAM) every frame and its ATE
+    bound. Returns the phase's seconds."""
     import os
     from plslam_tpu_torch.apps import plslam_dataset
     from plslam_tpu_torch.backend.fused_slam import FusedPLSLAM
+    from plslam_tpu_torch.backend.slam_system import PLSLAM
     from plslam_tpu_torch.io.dataset import open_dataset
     from plslam_tpu_torch.utils.evaluation import ate_rmse
     t0 = time.perf_counter()
     cfg, cam, seq = main_scene(lines=True)
     n = len(seq.poses)
     half = CHUNK + 1
+    host_kf = os.path.join(kitti, "host_kf.yaml")
+    with open(host_kf, "w") as f:
+        f.write("system:\n  fused_slam: false\n")
     runs = {}
-    for tag, extra in (("app", ["--out", os.path.join(kitti, "slam.txt")]),
-                       ("app_half", ["--frames", str(half), "--checkpoint",
+    for tag, extra in (("app", ["--chunk", str(CHUNK), "--out",
+                                os.path.join(kitti, "slam.txt")]),
+                       ("app_half", ["--chunk", str(CHUNK), "--frames",
+                                     str(half), "--checkpoint",
                                      os.path.join(kitti, "half.npz")]),
-                       ("app_resumed", ["--resume",
-                                        os.path.join(kitti, "half.npz")])):
+                       ("app_resumed", ["--chunk", str(CHUNK), "--resume",
+                                        os.path.join(kitti, "half.npz")]),
+                       ("app_frame", []),
+                       ("app_host_kf", ["--chunk", str(CHUNK), "--config",
+                                        host_kf])):
         rec = {}
         t1 = time.perf_counter()
-        rc = plslam_dataset.main([kitti, "--chunk", str(CHUNK), "--quiet",
-                                  "--device", dev.type, *extra], record=rec)
+        rc = plslam_dataset.main([kitti, "--quiet", "--device", dev.type,
+                                  *extra], record=rec)
         check(rc == 0, f"{tag}: the SLAM app returned {rc}")
         rec["wall_all"] = time.perf_counter() - t1
         runs[tag] = rec
@@ -3980,22 +3984,49 @@ def slam_app_runs(dev, kitti) -> float:
         mem.process_chunk(ul[lo:lo + CHUNK], ur[lo:lo + CHUNK],
                           n_valid=min(CHUNK, n - lo))
     est_mem = mem.finish()
+    per = PLSLAM(cfg, cam, device=dev)
+    per.initialize(ul[0].astype(np.float32) * inv,
+                   ur[0].astype(np.float32) * inv)
+    for i in range(1, n):
+        per.process(ul[i].astype(np.float32) * inv,
+                    ur[i].astype(np.float32) * inv)
+    est_per = per.finish()
     app, res = runs["app"], runs["app_resumed"]
+    frame, hkf = runs["app_frame"], runs["app_host_kf"]
     gt = open_dataset(kitti).gt_poses
     d_mem = float(np.abs(app["est"] - est_mem).max())
     d_res = float(np.abs(app["est"] - res["est"]).max())
+    d_per = float(np.abs(frame["est"] - est_per).max())
+    ate = {k: float(ate_rmse(runs[k]["est"], gt[:n]))
+           for k in ("app", "app_frame", "app_host_kf")}
     print(f"[slam_app] frames={n} keyframes={app['slam']._kf_slot + 1} "
-          f"ate_m={float(ate_rmse(app['est'], gt[:n])):.6f} fps="
+          f"ate_m={ate['app']:.6f} fps="
           f"{app['fps']:.2f} (the app's clock), the run "
           f"{app['wall_all']:.2f} s; against FusedPLSLAM in memory on the "
           f"same uint8 frames: {d_mem:.3g}; --checkpoint after {half} "
           f"frames then --resume ({res['wall_all']:.2f} s) against the "
           f"uninterrupted run: {d_res:.3g}", flush=True)
+    print(f"[slam_app] --chunk 0 (PLSLAM): {frame['n_good']}/{n - 1} "
+          f"tracked, keyframes={frame['slam']._kf_slot + 1} ate_m="
+          f"{ate['app_frame']:.6f} fps={frame['fps']:.2f} (the app's clock),"
+          f" against PLSLAM in memory on the same frames: {d_per:.3g}; "
+          f"fused_slam=false (ChunkedPLSLAM): keyframes="
+          f"{hkf['slam']._kf_slot + 1} ate_m={ate['app_host_kf']:.6f} fps="
+          f"{hkf['fps']:.2f}", flush=True)
     check(len(app["est"]) == n == len(res["est"]), "slam_app: frames missing")
     check(d_mem == 0.0, f"slam_app: the app differs from the in-memory run "
           f"by {d_mem}")
     check(d_res == 0.0, f"slam_app: the resumed app run differs from the "
           f"uninterrupted one by {d_res}")
+    check(len(frame["est"]) == n == len(hkf["est"])
+          and frame["n_good"] == n - 1, "slam_app: per-frame or host-KF "
+          "frames missing or untracked")
+    check(d_per == 0.0, f"slam_app: the per-frame app differs from PLSLAM "
+          f"in memory by {d_per}")
+    for k in ("app_frame", "app_host_kf"):
+        bound_m = 2 * DATASET_CPU["kitti_frame"] + 0.02
+        check(ate[k] < bound_m, f"slam_app: {k} ATE {ate[k]} m outside "
+              f"{bound_m} m")
     return time.perf_counter() - t0
 
 
@@ -4148,6 +4179,459 @@ def long_phase(dev) -> float:
     check(tw.n == 0, f"long: the settle tripwires printed {tw.n} time(s)")
     check(launches == want, f"long: launches {launches} differ from the "
           f"path's {want}")
+    return time.perf_counter() - t_phase
+
+
+# -- slice 21: the per-frame and host-KF drivers, run_concurrent, the band ---
+
+# frames of [slam_system]'s per-frame runs: 1 + 7 x 20 of loop_scene (the
+# second lap starts at frame 110; the fused run's first closure is at its
+# keyframe 23, frame 115); the host-KF runs take all 1 + 11 x 20
+SYSTEM_PER_FRAME = 1 + 7 * CHUNK
+# (tag, driver, async mapping) of the [slam_system] runs
+SYSTEM_RUNS = (("plslam_sync", "PLSLAM", False),
+               ("plslam_async", "PLSLAM", True),
+               ("chunked_sync", "ChunkedPLSLAM", False),
+               ("chunked_async", "ChunkedPLSLAM", True))
+# The [slam_system] runs' CPU record (``--cpu-ate slam_system``: the port's
+# plain versions, device="cpu", the same frames): keyframe frames, loop
+# events (from, to, inliers), the funnel and the ATE of the first three
+# runs; the host-KF async run is held to the sync run's ATE
+_PF_KF = list(range(5, 141, 5))
+SYSTEM_CPU = {
+    "plslam_sync": {"kf_frames": _PF_KF, "events": [[1, 23, 252]],
+                    "funnel": [6, 1, 0, 0, 0, 1],
+                    "ate": 0.01936535637057954},
+    "plslam_async": {"kf_frames": _PF_KF, "events": [[1, 23, 252]],
+                     "funnel": [6, 1, 0, 0, 0, 1],
+                     "ate": 0.019168474539823153},
+    "chunked_sync": {"kf_frames": list(range(5, 221, 5)),
+                     "events": [[1, 23, 252], [13, 35, 259]],
+                     "funnel": [18, 4, 2, 0, 0, 2],
+                     "ate": 0.020055909667509947}}
+
+
+class CritRecorder:
+    """Wraps a ``KeyframeCriterion``'s ``update``: per decided frame its
+    good flag, keyframe flag and the margin of its closest threshold (as
+    ``decisions``). It changes nothing the criterion computes."""
+
+    def __init__(self, crit, cfg):
+        k = cfg.keyframe
+        self.good, self.flags, self.margins = [], [], []
+        orig = crit.update
+
+        def update(DT, cov, good, T_from_kf):
+            is_kf, ratio = orig(DT, cov, good, T_from_kf)
+            T = np.asarray(T_from_kf, np.float64)
+            t = float(np.linalg.norm(T[:3, 3]))
+            r = float(np.arccos(np.clip((np.trace(T[:3, :3]) - 1) * 0.5,
+                                        -1, 1)))
+            self.good.append(bool(good))
+            self.flags.append(bool(is_kf))
+            self.margins.append(min(
+                abs(ratio - k.min_entropy_ratio) if np.isfinite(ratio)
+                else math.inf, abs(t - k.max_kf_t_dist),
+                abs(r - np.deg2rad(k.max_kf_r_dist))))
+            return is_kf, ratio
+        crit.update = update
+
+
+def system_run(device, tag, n_frames):
+    """One [slam_system] run over loop_scene's first ``n_frames`` frames:
+    ``PLSLAM`` a float pair at a time (the app's frames: uint8 / 255), or
+    ``ChunkedPLSLAM`` initialized on the float first pair, then uint8
+    chunks of 20 (the app's way). Returns what the holds read."""
+    import torch
+    from plslam_tpu_torch.backend.chunk_backend import lba_slot_flags
+    from plslam_tpu_torch.backend.slam_system import ChunkedPLSLAM, PLSLAM
+    from plslam_tpu_torch.utils.evaluation import ate_rmse
+    kind, async_mapping = {t: (k, a) for t, k, a in SYSTEM_RUNS}[tag]
+    cfg, cam, seq, il, ir = LOOP_SCENE
+    cfg = cfg.with_updates({"system": {"async_mapping": async_mapping}})
+    per_frame = kind == "PLSLAM"
+    slam = (PLSLAM if per_frame else ChunkedPLSLAM)(cfg, cam, device=device)
+    rec = CritRecorder(slam.vo.kf_criterion if per_frame
+                       else slam.kf_criterion, cfg)
+    inv = np.float32(1.0) / np.float32(255.0)
+    f32 = lambda a: a.astype(np.float32) * inv
+    t0 = time.perf_counter()
+    slam.initialize(f32(il[0]), f32(ir[0]))
+    if per_frame:
+        for i in range(1, n_frames):
+            slam.process(f32(il[i]), f32(ir[i]))
+    else:
+        for lo in range(1, n_frames, CHUNK):
+            slam.process_chunk(il[lo:lo + CHUNK], ir[lo:lo + CHUNK])
+    est = slam.finish()
+    if device != "cpu":
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    recs = slam.map.summaries
+    if per_frame:
+        n_lba = len(recs) - 1          # every keyframe but the first
+    else:
+        kmax, stride = cfg.system.kf_batch, cfg.mapping.lba_kf_stride
+        n_lba = sum(sum(lba_slot_flags([True] * len(r) + [False] * (
+            kmax - len(r)), stride)) for r in slam.map._records
+            if isinstance(r, list))
+    lc = slam.loop_closer
+    return dict(
+        slam=slam, cfg=cfg, est=est, wall=wall, n_frames=n_frames,
+        per_frame=per_frame, recs=recs, n_lba=n_lba,
+        good=np.array(rec.good), margins=np.array(rec.margins),
+        kf_frames=[i + 1 for i, f in enumerate(rec.flags) if f],
+        events=[[e.kf_from, e.kf_to, e.n_inliers] for e in lc.events],
+        funnel=[lc.n_candidates, lc.n_votes_fired, lc.n_rej_geom,
+                lc.n_rej_unc, lc.n_rej_corr, lc.n_loops_closed],
+        ate=float(ate_rmse(est, seq.poses[:len(est)])))
+
+
+def _loop_part(n, n_kfs, p: LoopProbe, n_closed) -> dict:
+    """Add the loop closer's launches to ``n``: per probe (every keyframe,
+    the first included) the BoW descent and histogram of each family; per
+    verification D twice (ORB, LBD) and one optimize_pose (K13); per
+    closure the landmark fusion (D twice); per dense solve one pg_edges,
+    one pg_assemble and 12 pg_update; per PCG solve one pg_edges, one
+    pg_blocks and 12 x (pg_pcg, pg_update); per post-closure update one
+    window LBA (K15)."""
+    g = lambda k: p.n.get(k, 0)
+    for table, times in (
+            ({"bow_descend": 2, "bow_hist": 2}, n_kfs),
+            ({"hamming_scan": 2, "hamming_finish": 2, "pose_gn_optimize": 1},
+             g("verify_loop_geometry")),
+            ({"hamming_scan": 2, "hamming_finish": 2}, n_closed),
+            (SOLVE_LAUNCHES["dense"], g("optimize_pose_graph")),
+            (SOLVE_LAUNCHES["pcg"], g("optimize_pose_graph_pcg")),
+            (PER_LBA, g("_post_loop_update"))):
+        for k, v in table.items():
+            n[k] += v * times
+    return {k: v for k, v in n.items() if v}
+
+
+def expected_system_launches(r, p: LoopProbe) -> dict:
+    """A [slam_system] run's launches: per frame an extraction and (after
+    the first) a tracked pair (``expected_frame_launches``), or per chunk
+    an extraction and a chunk's tracking (the first pair extracted alone);
+    every keyframe's insertion (``PER_KF``); each window LBA (the per-KF
+    cadence: every keyframe but the first; the host-KF step: its slots by
+    ``lba_kf_stride``); and the loop closer's (``_loop_part``). No kf_scan:
+    these drivers decide keyframes on the host."""
+    from collections import Counter
+    n_frames = r["n_frames"]
+    n_chunks = (n_frames - 1) // CHUNK
+    if r["per_frame"]:
+        n = Counter(expected_frame_launches(n_frames))
+    else:
+        n = Counter()
+        for table, times in ((EXTRACT_POINTS, n_chunks + 1),
+                             (EXTRACT_LINES, n_chunks + 1),
+                             (TRACK, 2 * n_chunks), (GN, n_chunks)):
+            for k, v in table.items():
+                n[k] += v * times
+    n_kfs = len(r["recs"])
+    for table, times in ((PER_KF, n_kfs), (PER_LBA, r["n_lba"])):
+        for k, v in table.items():
+            n[k] += v * times
+    return _loop_part(n, n_kfs, p, r["slam"].loop_closer.n_loops_closed)
+
+
+def cpu_system_runs(tags) -> None:
+    """The [slam_system] runs on the CPU: the SYSTEM_CPU values."""
+    global LOOP_SCENE
+    if LOOP_SCENE is None:
+        LOOP_SCENE = loop_scene()
+    for tag in tags:
+        kind = {t: k for t, k, _ in SYSTEM_RUNS}[tag]
+        t0 = time.perf_counter()
+        r = system_run("cpu", tag, SYSTEM_PER_FRAME if kind == "PLSLAM"
+                       else 1 + LOOP_CHUNKS * CHUNK)
+        print(f"[cpu] {tag}: good={int(r['good'].sum())}/{len(r['good'])} "
+              f"keyframes={len(r['recs'])} events {r['events']} smallest "
+              f"decision margin {r['margins'].min():.6g} "
+              f"({time.perf_counter() - t0:.1f} s)", flush=True)
+        print(f"[cpu] SYSTEM_CPU[{tag!r}] = " + json.dumps({
+            k: r[k] for k in ("kf_frames", "events", "funnel", "ate")}),
+            flush=True)
+
+
+def slam_system_phase(dev) -> float:
+    """[slam_system]: loop_scene (1241x376, the default SlamConfig(): lines
+    and loops on) through PLSLAM sync and async (SYSTEM_PER_FRAME frames)
+    and ChunkedPLSLAM sync and async (221 frames, chunks of 20), after a
+    short async warm-up run of each driver (the LBA graphs captured on
+    its mapping worker). Holds every frame tracked, no LBA
+    raising its cost, exact launches, the keyframes, loop events and
+    funnel of the CPU run (or a decision within THRESHOLD_MARGIN of its
+    threshold) and the ATE bound; the host-KF async run (its probe
+    flushes timed by the worker's queue) at least one closure and the sync
+    CPU run's ATE bound. Prints fps and peak bytes. Returns the phase's
+    seconds."""
+    import torch
+    from plslam_tpu_torch import native
+    from plslam_tpu_torch.backend import lba
+    t_phase = time.perf_counter()
+    # warm-ups, the LBA's CUDA graphs dropped first: each window shape is
+    # captured anew on a mapping worker thread
+    lba._GRAPHS.clear()
+    for tag, n in (("plslam_async", 1 + CHUNK // 2),
+                   ("chunked_async", 1 + 2 * CHUNK)):
+        system_run(dev, tag, n)
+    for tag, kind, async_mapping in SYSTEM_RUNS:
+        n_frames = (SYSTEM_PER_FRAME if kind == "PLSLAM"
+                    else 1 + LOOP_CHUNKS * CHUNK)
+        probe = LoopProbe()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        native.reset_counts()
+        try:
+            r = system_run(dev, tag, n_frames)
+        finally:
+            probe.close()
+        launches = dict(native.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated()
+        lba = [(s.lba_cost0, s.lba_cost1) for s in r["recs"]
+               if s.lba_cost0 != 0.0]
+        near = min(r["margins"].min(), probe.margin, probe.gap)
+        print(f"[{tag}] frames={n_frames} good={int(r['good'].sum())}/"
+              f"{len(r['good'])} keyframes={len(r['recs'])} (frames "
+              f"{r['kf_frames']}) lba_runs={r['n_lba']} ate_m="
+              f"{r['ate']:.6f} events={r['events']} funnel (candidates, "
+              f"votes, rejected geometry, uncertainty, correction, closed)="
+              f"{r['funnel']}", flush=True)
+        print(f"[{tag}] fps={n_frames / r['wall']:.2f} ms_per_frame="
+              f"{1e3 * r['wall'] / n_frames:.3f} (host clock, initialize + "
+              f"{n_frames - 1} frames + finish, ends in synchronize; timed "
+              f"loop steps synchronize) max_memory_allocated_bytes={peak}; "
+              f"smallest decision margin {near:.6g}", flush=True)
+        want = expected_system_launches(r, probe)
+        print(f"[{tag}] launches={json.dumps(launches, sort_keys=True)}; "
+              f"{probe.hold_solves(dev)} pose-graph solve(s) bit-equal to "
+              "the loop that assembles and solves every GN step", flush=True)
+        check(bool(r["good"].all()) and len(r["good"]) == n_frames - 1,
+              f"{tag}: frames not tracked: {np.nonzero(~r['good'])[0]}")
+        check(len(lba) == r["n_lba"] >= 1, f"{tag}: {r['n_lba']} window "
+              f"LBAs, {len(lba)} with costs")
+        check(all(c1 <= c0 for c0, c1 in lba), f"{tag}: an LBA raised its "
+              "cost")
+        check(launches == want, f"{tag}: launches {launches} differ from "
+              f"the run's {want}")
+        if tag == "chunked_async":
+            cpu = SYSTEM_CPU.get("chunked_sync")
+            check(r["funnel"][5] >= 1, f"{tag}: no loop closed")
+        else:
+            cpu = SYSTEM_CPU.get(tag)
+            check(cpu is not None, f"{tag}: no CPU record of this run in "
+                  "SYSTEM_CPU (python3 chip_smoke.py --cpu-ate slam_system)")
+            same = all(r[k] == cpu[k] for k in ("kf_frames", "events",
+                                                "funnel"))
+            print(f"[{tag}] CPU run: keyframes {len(cpu['kf_frames'])}, "
+                  f"events {cpu['events']}, funnel {cpu['funnel']}, ATE "
+                  f"{cpu['ate']}; identical: {same}", flush=True)
+            check(same or near < THRESHOLD_MARGIN,
+                  f"{tag}: keyframes, events or funnel differ from the CPU "
+                  f"run with the smallest margin {near}")
+        bound_m = 2 * cpu["ate"] + 0.02
+        check(math.isfinite(r["ate"]) and r["ate"] < bound_m,
+              f"{tag}: ATE {r['ate']} m outside its bound {bound_m} m")
+        del r
+    return time.perf_counter() - t_phase
+
+
+def multiseq_phase(dev) -> float:
+    """[multiseq]: run_concurrent over two sessions on two scenes this
+    script renders (loop_scene and the main paths' scene, their first 41
+    frames as uint8): FusedPLSLAM with the default SlamConfig(), then
+    ChunkedPLSLAM with loops off (two mapping workers; the LBA's CUDA graphs
+    are captured anew during that run, on a worker thread). Each session's
+    trajectory equals the same session run alone, bit for bit. Returns the
+    phase's seconds."""
+    from types import SimpleNamespace
+    import torch
+    from plslam_tpu_torch.apps.plslam_multiseq import run_concurrent
+    from plslam_tpu_torch.backend import lba
+    from plslam_tpu_torch.backend.fused_slam import FusedPLSLAM
+    from plslam_tpu_torch.backend.slam_system import ChunkedPLSLAM
+    from plslam_tpu_torch.utils.evaluation import ate_rmse
+    t_phase = time.perf_counter()
+    cfg, cam, seq_loop, il, ir = LOOP_SCENE
+    _, _, seq_main = main_scene(lines=True)
+    n = len(seq_main.poses)
+    scenes = [SimpleNamespace(images_l=il[:n], images_r=ir[:n],
+                              poses=seq_loop.poses[:n]),
+              SimpleNamespace(images_l=to_u8(seq_main.images_l),
+                              images_r=to_u8(seq_main.images_r),
+                              poses=seq_main.poses)]
+    for tag, make in (
+            ("fused", lambda: FusedPLSLAM(cfg, cam)),
+            ("chunked", lambda: ChunkedPLSLAM(
+                cfg.with_updates({"loop": {"enabled": False}}), cam))):
+        if tag == "chunked":
+            # the LBA graphs dropped: a mapping worker captures the first
+            # window LBA while the other session's tracker runs
+            lba._GRAPHS.clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        both = run_concurrent([make(), make()], scenes, CHUNK)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        alone = [run_concurrent([make()], [s], CHUNK)[0] for s in scenes]
+        d = [float(np.abs(a - b).max()) for a, b in zip(both, alone)]
+        ate = [float(ate_rmse(t, s.poses[:len(t)]))
+               for t, s in zip(both, scenes)]
+        print(f"[multiseq] {tag}: 2 sessions x {n} frames, {2 * n / wall:.2f} "
+              f"fps together (host clock, ends in synchronize); ATE "
+              f"{[round(a, 6) for a in ate]}; each against the session run "
+              f"alone: {d}", flush=True)
+        check(all(len(t) == n for t in both) and d == [0.0, 0.0],
+              f"multiseq {tag}: a session differs from its run alone by {d}")
+    return time.perf_counter() - t_phase
+
+
+# [knob_band]: tests/test_knob_parity.py's scene and variants (:29-53) on
+# the card: 501 frames at 384x240, seed 13, kind "loop", 600 points, noise
+# 0.004, step 0.05, uint8 frames in chunks of 20 (the port's io/synthetic.py
+# renders the reference's frames bit for bit: checked once on the CPU; the
+# hash of the left then the right uint8 stack)
+KNOB_N = 501
+KNOB_SHA256 = ("01e1704f16de1208cf1b2cdc5c13e2f3"
+               "c59ec71c2294ee5be0c4ac07a4c10738")
+KNOB_BASE = {
+    "camera": {"width": 384, "height": 240, "fx": 300.0, "fy": 300.0,
+               "cx": 192.0, "cy": 120.0, "baseline": 0.25},
+    "points": {"max_kpts": 256, "orb_nlevels": 2},
+    "lines": {"has_lines": False},
+    "matching": {"f2f_window": 96.0},
+    "mapping": {"max_kfs": 128, "max_points": 8192, "max_lines": 128,
+                "window_kfs": 5, "fixed_kfs": 3, "lba_iters": 5,
+                "lba_max_points": 2048, "lba_max_lines": 64},
+    "loop": {"enabled": True, "min_kf_separation": 15,
+             "consistency_window": 2, "lc_inl": 15,
+             "lc_trs": 3.0, "lc_rot": 60.0},
+    "system": {"kf_batch": 4},
+}
+KNOB_VARIANTS = {
+    "baseline": {},
+    "stride1": {"mapping": {"lba_kf_stride": 1}},
+    "stride5": {"mapping": {"lba_kf_stride": 5}},
+    "no_lite": {"tracking": {"lite_pass_iters": 0}},
+    "kf_batch2": {"system": {"kf_batch": 2}},
+    "kf_batch8": {"system": {"kf_batch": 8}},
+}
+# the JAX package's own run of the test's _child_main on a CPU (JAX_PLATFORMS
+# =cpu, 8 host devices): (ATE m, loops, keyframes) a variant. CPU figures of
+# the reference, not the card's.
+KNOB_JAX_CPU = {"baseline": (0.150916, 2, 62), "stride1": (0.146405, 2, 62),
+                "stride5": (0.150950, 2, 62), "no_lite": (0.151032, 2, 62),
+                "kf_batch2": (0.160231, 1, 51),
+                "kf_batch8": (0.150916, 2, 62)}
+
+
+def render_knob(path: str) -> None:
+    """The knob scene's uint8 frames, (2, KNOB_N, 240, 384), to ``path``
+    (.npy): run in a process of its own while the card works."""
+    from plslam_tpu_torch.config import SlamConfig
+    from plslam_tpu_torch.core.camera import StereoCamera
+    from plslam_tpu_torch.io import synthetic
+    cam = StereoCamera.from_config(SlamConfig().with_updates(
+        KNOB_BASE).camera)
+    seq = synthetic.make_sequence(cam, n_frames=KNOB_N, seed=13, kind="loop",
+                                  n_points=600, n_lines=0, noise=0.004,
+                                  step=0.05)
+    np.save(path + ".tmp.npy", np.stack([to_u8(seq.images_l),
+                                         to_u8(seq.images_r)]))
+    np.save(path + ".poses.npy", np.asarray(seq.poses))
+    import os
+    os.replace(path + ".tmp.npy", path)
+
+
+def start_knob_render():
+    """Start render_knob in a spawned process; returns (process, path)."""
+    import multiprocessing
+    import os
+    import tempfile
+    path = os.path.join(tempfile.mkdtemp(prefix="knob_"), "frames.npy")
+    proc = multiprocessing.get_context("spawn").Process(
+        target=render_knob, args=(path,), daemon=True)
+    proc.start()
+    return proc, path
+
+
+def knob_band_phase(dev, render) -> float:
+    """[knob_band]: the six variants through the port's FusedPLSLAM on the
+    card, held to tests/test_knob_parity.py's own assertions (:107-138),
+    and the baseline within the band around the JAX package's CPU
+    baseline (KNOB_JAX_CPU) with its loop count. Returns the phase's
+    seconds."""
+    import hashlib
+    import os
+    import shutil
+    import torch
+    from plslam_tpu_torch.backend.fused_slam import FusedPLSLAM
+    from plslam_tpu_torch.config import SlamConfig
+    from plslam_tpu_torch.core.camera import StereoCamera
+    from plslam_tpu_torch.utils.evaluation import ate_rmse
+    t_phase = time.perf_counter()
+    proc, path = render
+    proc.join(timeout=900)
+    check(proc.exitcode == 0 and os.path.exists(path),
+          f"knob_band: the render process ended with {proc.exitcode}")
+    frames = np.load(path)
+    gt = np.load(path + ".poses.npy")
+    shutil.rmtree(os.path.dirname(path), ignore_errors=True)
+    il, ir = frames[0], frames[1]
+    h = hashlib.sha256()
+    h.update(il.tobytes())
+    h.update(ir.tobytes())
+    check(h.hexdigest() == KNOB_SHA256, f"knob_band: the frames' hash "
+          f"{h.hexdigest()} is not the reference frames' {KNOB_SHA256}")
+    base = SlamConfig().with_updates(KNOB_BASE)
+    cam = StereoCamera.from_config(base.camera)
+    stats = {}
+    for name, upd in KNOB_VARIANTS.items():
+        cfg = base.with_updates(upd) if upd else base
+        slam = FusedPLSLAM(cfg, cam)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        slam.initialize(il[0], ir[0])
+        for lo in range(1, KNOB_N, CHUNK):
+            slam.process_chunk(il[lo:lo + CHUNK], ir[lo:lo + CHUNK])
+        est = slam.finish()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        stats[name] = {"ate": float(ate_rmse(est, gt[:len(est)])),
+                       "loops": slam.loop_closer.n_loops_closed,
+                       "kfs": slam._kf_slot + 1,
+                       "fps": round((KNOB_N - 1) / wall, 2)}
+        slam.close()
+        del slam
+    print("[knob_band] KNOB_STATS " + json.dumps(stats), flush=True)
+    b = stats["baseline"]
+    jax_ate, jax_loops, _ = KNOB_JAX_CPU["baseline"]
+    jax_band = max(1.15 * jax_ate, jax_ate + 0.01)
+    band = max(1.15 * b["ate"], b["ate"] + 0.01)
+    print(f"[knob_band] baseline ATE {b['ate']:.6f} m, {b['loops']} loops, "
+          f"{b['kfs']} KFs (the JAX package on a CPU: {KNOB_JAX_CPU}; its "
+          f"band {jax_band:.6f} m); the variants' band {band:.6f} m",
+          flush=True)
+    check(b["loops"] >= 1 and b["ate"] < 0.30, f"knob_band: baseline {b}")
+    check(b["ate"] < jax_band and b["loops"] == jax_loops,
+          f"knob_band: the baseline {b} is outside the band {jax_band} m "
+          f"around the JAX package's, or closes other than {jax_loops} loops")
+    for name, v in stats.items():
+        if name == "baseline":
+            continue
+        check(v["ate"] < band, f"knob_band: {name} ATE {v['ate']} outside "
+              f"the baseline's band {band}")
+        if name == "kf_batch2":
+            check(v["loops"] >= 1 and v["kfs"] <= b["kfs"],
+                  f"knob_band: {name} {v}")
+            continue
+        check(v["loops"] == b["loops"], f"knob_band: {name} closes "
+              f"{v['loops']} loops, the baseline {b['loops']}")
+        check(abs(v["kfs"] - b["kfs"]) <= max(2, b["kfs"] // 20),
+              f"knob_band: {name} {v['kfs']} keyframes, the baseline "
+              f"{b['kfs']}")
     return time.perf_counter() - t_phase
 
 
@@ -4969,6 +5453,9 @@ def main() -> int:
           f"cuda {torch.version.cuda}", flush=True)
     dev = torch.device("cuda", 0)
 
+    # the knob band's frames render on the host while the card works
+    knob_render = start_knob_render()
+
     # 2. build
     native.lib()
     print(f"[build] kernels built in {native.BUILD_SECONDS or 0.0:.1f} s "
@@ -5020,6 +5507,12 @@ def main() -> int:
     print(f"[checkpoint] phase {checkpoint_phase(dev, runs[0][1]):.1f} s",
           flush=True)
     print(f"[compact] phase {compact_phase(dev):.1f} s", flush=True)
+    # the per-frame and host-KF drivers (the mapping worker), two sessions
+    # through run_concurrent, the north star's band on the knob scene
+    print(f"[slam_system] phase {slam_system_phase(dev):.1f} s", flush=True)
+    print(f"[multiseq] phase {multiseq_phase(dev):.1f} s", flush=True)
+    print(f"[knob_band] phase {knob_band_phase(dev, knob_render):.1f} s",
+          flush=True)
 
     # 6. the dataset paths: the VO app over a KITTI-layout directory, the
     # EuRoC-layout raw rig through host and device rectification, N; the

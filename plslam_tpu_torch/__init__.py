@@ -3,9 +3,12 @@
 The chunked stereo VO with and without lines (``tracking.batch_vo``), the
 per-frame VO (``tracking.frame_handler.StereoVO``), the fused SLAM chunk
 with and without loop closure (``backend.fused_slam``: KF-slot compaction
-past ``max_kfs``, checkpoints through ``backend.checkpoint``), the dataset
-VO app (``apps.plstvo_dataset`` over ``io.dataset``) and the SLAM app
-(``apps.plslam_dataset``). The JAX package
+past ``max_kfs``, checkpoints through ``backend.checkpoint``), the
+per-frame and host-KF SLAM drivers with the mapping worker thread
+(``backend.slam_system``, ``backend.map_handler.MapHandler``), the dataset
+VO app (``apps.plstvo_dataset`` over ``io.dataset``), the SLAM app
+(``apps.plslam_dataset``) and concurrent sessions
+(``apps.plslam_multiseq``). The JAX package
 ``plslam_tpu`` is the reference; this package imports nothing of it (nor
 of JAX) and keeps its own copies of the numpy-only modules.
 

@@ -32,6 +32,7 @@ Landmarks are indexed in one space: points [0, P), endpoints [P, P + Q).
 
 from __future__ import annotations
 
+import threading
 from collections import Counter
 from typing import Dict, NamedTuple, Tuple
 
@@ -645,6 +646,10 @@ class _Graph(NamedTuple):
 # one captured run per device, shapes, dtypes and the Python values the
 # capture bakes in (the camera, the LM's settings)
 _GRAPHS: Dict[tuple, _Graph] = {}
+# held for a lookup with its capture, and for a replay's copy-in, replay
+# and clone: the graphs and their static buffers are shared by every
+# caller in the process (the tracker thread and the mapping workers)
+_GRAPH_LOCK = threading.Lock()
 
 
 def _graph_key(problem: LBAProblem, cam: StereoCamera, cfg: SlamConfig):
@@ -659,17 +664,15 @@ def _capture(problem: LBAProblem, cam: StereoCamera, cfg: SlamConfig
              ) -> _Graph:
     """Capture ``_run`` with the kernels on static copies of ``problem``.
     A capture executes nothing: its launches are recorded for the replays
-    and taken out of ``native.LAUNCHES`` again. Raises if capture fails."""
+    and not counted in ``native.LAUNCHES``. The capture mode is the
+    thread's own, so another thread's allocations, synchronizes and
+    fetches while it is open neither fail nor spoil it. Raises if capture
+    fails."""
     inputs = LBAProblem(*(x.clone() for x in problem))
-    before = Counter(native.LAUNCHES)
     graph = torch.cuda.CUDAGraph()
-    try:
-        with torch.cuda.graph(graph):
+    with native.counting_into(Counter()) as launches:
+        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
             outputs = _run(inputs, cam, cfg, _KERNELS)
-    finally:
-        launches = native.LAUNCHES - before
-        native.LAUNCHES.clear()
-        native.LAUNCHES.update(before)
     return _Graph(graph, inputs, outputs, launches)
 
 
@@ -684,21 +687,23 @@ def run_lba(problem: LBAProblem, cam: StereoCamera, cfg: SlamConfig
     counterpart of the reference's single jitted program: the first call
     of a shape runs the loop eagerly (building the kernels and their
     scratch) and then captures it; later calls copy the problem into the
-    graph's inputs, replay it and clone its outputs. ``native.LAUNCHES``
-    counts each replay's launches, as an eager run would."""
+    graph's inputs, replay it and clone its outputs, all on the caller's
+    stream and under ``_GRAPH_LOCK``. ``native.LAUNCHES`` counts each
+    replay's launches, as an eager run would."""
     if problem.kf_pose.device.type == "cpu":
         return _run(problem, cam, cfg, _KERNELS)
     key = _graph_key(problem, cam, cfg)
-    g = _GRAPHS.get(key)
-    if g is None:
-        res = _run(problem, cam, cfg, _KERNELS)
-        _GRAPHS[key] = _capture(problem, cam, cfg)
-        return res
-    for x, y in zip(g.inputs, problem):
-        x.copy_(y)
-    g.graph.replay()
-    native.LAUNCHES.update(g.launches)
-    return LBAResult(*(x.clone() for x in g.outputs))
+    with _GRAPH_LOCK:
+        g = _GRAPHS.get(key)
+        if g is None:
+            res = _run(problem, cam, cfg, _KERNELS)
+            _GRAPHS[key] = _capture(problem, cam, cfg)
+            return res
+        for x, y in zip(g.inputs, problem):
+            x.copy_(y)
+        g.graph.replay()
+        native.add_counts(g.launches)
+        return LBAResult(*(x.clone() for x in g.outputs))
 
 
 def run_lba_plain(problem: LBAProblem, cam: StereoCamera, cfg: SlamConfig

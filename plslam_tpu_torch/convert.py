@@ -110,3 +110,24 @@ def pose_graph_from_numpy(arrays: Mapping[str, np.ndarray], device):
            "edge_j": torch.int32}
     return PoseGraph(**{f: _tensor(arrays[f], dts.get(f, torch.float32),
                                    device) for f in PoseGraph._fields})
+
+
+def host_copies(*xs) -> list:
+    """Host numpy copies of tensors in one device-to-host transfer (float64
+    on the wire: exact for float32 and for integers below 2**53, each copy
+    back in its own dtype); other values pass through."""
+    ts = [x for x in xs if isinstance(x, torch.Tensor)]
+    if not ts:
+        return list(xs)
+    flat = torch.cat([t.detach().reshape(-1).to(torch.float64)
+                      for t in ts]).cpu().numpy()
+    out, off = [], 0
+    for x in xs:
+        if isinstance(x, torch.Tensor):
+            n = x.numel()
+            dt = torch.empty(0, dtype=x.dtype).numpy().dtype
+            out.append(flat[off:off + n].reshape(tuple(x.shape)).astype(dt))
+            off += n
+        else:
+            out.append(x)
+    return out

@@ -14,10 +14,14 @@ reference's numpy, copied.
 The probe writes a keyframe's row of the BoW matrices in place
 (``index_copy_``; the reference's ``.at[slot].set`` is functional and
 would copy 2 x 20 MB per keyframe). ``remap_slots`` follows a KF-slot
-compaction. Not ported, and raising: the sharded database
-(``loop.distributed=True``, the parallel slice). ``on_probe_batch(es)``,
-which only the worker-thread driver calls, and the reference's
-``PLSLAM_LC_DEBUG`` staging branch are left out (ROADMAP.md Queue 1).
+compaction. The host-KF driver's hooks are ported too:
+``closure_imminent`` (the mapping worker's switch to strict ordering) and
+``on_probe_batch(es)`` (the probe rows of one or more chunk-backend
+dispatches, fetched once). The reference's ``_make_kf_probe`` is only a
+``jax.jit`` of ``probe_core``, which ``on_keyframe`` calls directly here.
+Not ported, and raising: the sharded database (``loop.distributed=True``,
+the parallel slice). The reference's ``PLSLAM_LC_DEBUG`` staging branch is
+left out (ROADMAP.md Queue 1).
 """
 
 from __future__ import annotations
@@ -28,6 +32,7 @@ import numpy as np
 import torch
 
 from plslam_tpu_torch.config import SlamConfig
+from plslam_tpu_torch.convert import host_copies
 from plslam_tpu_torch.core import lie
 from plslam_tpu_torch.core.camera import StereoCamera
 from plslam_tpu_torch.loop import vocabulary
@@ -226,6 +231,16 @@ class LoopCloser:
         self.probes_since_close = 10 ** 9
         self._last_costs = (0.0, 0.0)
 
+    @property
+    def closure_imminent(self) -> bool:
+        """True when a candidate streak is one vote from firing or a
+        closure fired in the last 8 probes: the mapping worker then reverts
+        from pipelined to strict ordering, so corrections land before
+        further insertions."""
+        near = any(c >= self.voter.window - 1
+                   for c in self.voter._streaks.values())
+        return near or self.probes_since_close < 8
+
     def remap_slots(self, exact_map, n_valid: int, old_poses=None) -> None:
         """Rewrite the slot-valued host state after a KF-slot compaction
         (``backend.map.compact_keyframes``): ``exact_map[old]`` is the new
@@ -341,6 +356,37 @@ class LoopCloser:
         out = self._handle_probe_result(map_handler, slot, scores, covis,
                                         n_kfs, kf_poses)
         return out[slot] if out is not None else None
+
+    def on_probe_batch(self, map_handler, slots, scores_d, covis_d, poses_d
+                       ) -> Optional[np.ndarray]:
+        """One chunk-backend dispatch's probe rows (on_probe_batches)."""
+        return self.on_probe_batches(map_handler,
+                                     [(slots, scores_d, covis_d, poses_d)])
+
+    def on_probe_batches(self, map_handler, batches) -> Optional[np.ndarray]:
+        """The stacked probe rows of one or more chunk-backend dispatches
+        ``(slots, scores (kmax, F), covis (kmax, F), poses)``, fetched with
+        the map's KF count and poses in one transfer, then each keyframe's
+        host logic in slot order. Returns the last correction (the full
+        (F, 4, 4) poses) if a loop closed with a graph solve."""
+        with map_handler._lock:
+            state = map_handler.state
+            flat = host_copies(*[t for _, s, c, _ in batches for t in (s, c)],
+                               state.n_kfs, state.kf_pose)
+        n_kfs, kf_poses = int(flat[-2]), flat[-1]
+        corrected = None
+        for b, (slots, *_) in enumerate(batches):
+            scores, covis = flat[2 * b], flat[2 * b + 1]
+            for j, slot in enumerate(slots):
+                if corrected is not None:
+                    # a closure earlier in this flush moved every KF: the
+                    # fetched snapshot is stale, use the corrected poses
+                    kf_poses = corrected
+                out = self._handle_probe_result(
+                    map_handler, slot, scores[j], covis[j], n_kfs, kf_poses)
+                if out is not None:
+                    corrected = out
+        return corrected
 
     def _handle_probe_result(self, map_handler, slot: int, scores, covis,
                              n_kfs: int, kf_poses) -> Optional[np.ndarray]:

@@ -102,16 +102,43 @@ def is_own_kernel(name: str) -> bool:
 
 
 # launches per C entry point since the last reset (plain versions on CPU
-# tensors are never counted)
+# tensors are never counted); the tracker and the mapping worker launch
+# from two threads, so every update holds _count_lock
 LAUNCHES: Counter = Counter()
 
 _lock = threading.Lock()
+_count_lock = threading.Lock()
+_sink = threading.local()     # a thread's redirect of its own launches
 _lib: Optional[ctypes.CDLL] = None
 BUILD_SECONDS: Optional[float] = None
 
 
 def reset_counts() -> None:
-    LAUNCHES.clear()
+    with _count_lock:
+        LAUNCHES.clear()
+
+
+def add_counts(counts: Counter) -> None:
+    """Count launches made elsewhere (a CUDA graph replay's)."""
+    with _count_lock:
+        LAUNCHES.update(counts)
+
+
+class counting_into:
+    """Context manager: the calling thread's launches go to ``counts``
+    instead of LAUNCHES (a CUDA graph capture records launches that only
+    its replays execute); other threads keep counting in LAUNCHES."""
+
+    def __init__(self, counts: Counter):
+        self.counts = counts
+
+    def __enter__(self) -> Counter:
+        self.prev = getattr(_sink, "counts", None)
+        _sink.counts = self.counts
+        return self.counts
+
+    def __exit__(self, *exc) -> None:
+        _sink.counts = self.prev
 
 
 def _nvcc() -> str:
@@ -194,7 +221,9 @@ def launch(name: str, *args) -> None:
     rc = getattr(lib(), name)(*conv, stream)
     if rc != 0:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: error {rc}")
-    LAUNCHES[name] += 1
+    sink = getattr(_sink, "counts", None)
+    with _count_lock:
+        (LAUNCHES if sink is None else sink)[name] += 1
 
 
 def require(t: torch.Tensor, name: str, dtype: torch.dtype, shape=None) -> None:

@@ -6,8 +6,10 @@ feature-extracted as one batch, then all B consecutive-pair matches and
 robust GN solves run batched, for ``chunk_passes`` passes; non-final
 passes run the shortened "lite" GN. With ``lines.has_lines`` (the
 default, flagship configuration) line segments are extracted, matched and
-solved jointly with the points. Scan mode (``batched_chunks=False``),
-``keep_feats`` and the lines-only configuration are not ported yet.
+solved jointly with the points. ``keep_feats`` keeps the chunk's feature
+stacks, descriptors bit-packed (``_pack_feats``), for the host-KF SLAM
+driver to slice its keyframes from. Scan mode (``batched_chunks=False``)
+and the lines-only configuration are not ported yet.
 
 Every tensor op is enqueued on the current CUDA stream; ``submit_chunk``
 does not wait for the device, ``drain`` fetches the per-frame poses.
@@ -27,6 +29,7 @@ from plslam_tpu_torch.frontend.features import (LineObservations,
                                                 PointObservations)
 from plslam_tpu_torch.frontend.stereo_frame import (
     _frame, extract_one, extract_stereo_frame)
+from plslam_tpu_torch.ops import hamming
 from plslam_tpu_torch.tracking import pose_gn
 from plslam_tpu_torch.tracking.frame_handler import (build_line_terms,
                                                      build_point_terms,
@@ -45,6 +48,8 @@ class ChunkOutput(NamedTuple):
     DT_next: torch.Tensor = None  # (4, 4) next chunk's constant-velocity prior
     n_lines: Optional[torch.Tensor] = None  # (B,) valid stereo lines per frame
     n_line_inliers: torch.Tensor = None     # (B,) line terms among n_inliers
+    all_pts: Optional[PointObservations] = None   # keep_feats: (B, ...)
+    all_lns: Optional[LineObservations] = None    # stacks, packed desc
 
 
 def _to_f32(imgs: torch.Tensor) -> torch.Tensor:
@@ -65,19 +70,35 @@ def vo_chunk(imgs_l: torch.Tensor, imgs_r: torch.Tensor,
              prev_pts: PointObservations,
              prev_lns: Optional[LineObservations],
              T_prior0: torch.Tensor, cam: StereoCamera,
-             cfg: SlamConfig) -> ChunkOutput:
+             cfg: SlamConfig, keep_feats: bool = False) -> ChunkOutput:
     """(B, H, W) stereo chunk (uint8 or f32) -> per-frame results.
 
     ``prev_pts`` / ``prev_lns`` are the previous frame's features (no
     batch axis; ``prev_lns`` None in the points-only configuration),
-    ``T_prior0`` (4, 4) the chunk-level constant-velocity prior."""
+    ``T_prior0`` (4, 4) the chunk-level constant-velocity prior. With
+    ``keep_feats`` the output carries the chunk's feature stacks
+    (``all_pts``, ``all_lns``) with bit-packed descriptors."""
     if not cfg.tracking.batched_chunks:
         raise NotImplementedError(
             "scan mode (tracking.batched_chunks=False) is not ported yet")
     pts, lns = extract_stereo_frame(_to_f32(imgs_l), _to_f32(imgs_r), cam,
                                     cfg)
-    return _chunk_tracking_batched(pts, lns, prev_pts, prev_lns, T_prior0,
-                                   cam, cfg)
+    out = _chunk_tracking_batched(pts, lns, prev_pts, prev_lns, T_prior0,
+                                  cam, cfg)
+    if keep_feats:
+        all_pts, all_lns = _pack_feats(pts, lns)
+        out = out._replace(all_pts=all_pts, all_lns=all_lns)
+    return out
+
+
+def _pack_feats(pts: PointObservations, lns: Optional[LineObservations]):
+    """The chunk's feature stacks with their (B, N, 256) descriptor bits
+    packed into (B, N, 8) int32 words (``hamming.pack_bits``); the SLAM
+    driver unpacks a keyframe's at slice time."""
+    all_pts = pts._replace(desc=hamming.pack_bits(pts.desc))
+    all_lns = (lns._replace(desc=hamming.pack_bits(lns.desc))
+               if lns is not None else None)
+    return all_pts, all_lns
 
 
 def _chunk_tracking_batched(pts: PointObservations,
@@ -166,12 +187,15 @@ class BatchedStereoVO:
         self._integrate(out)
         return out
 
-    def submit_chunk(self, imgs_l, imgs_r) -> ChunkOutput:
-        """Enqueue one chunk; the carry stays on the device."""
+    def submit_chunk(self, imgs_l, imgs_r, keep_feats: bool = False
+                     ) -> ChunkOutput:
+        """Enqueue one chunk; the carry stays on the device. With
+        ``keep_feats`` the output keeps the chunk's packed feature stacks."""
         if self.prev_pts is None:
             raise RuntimeError("call initialize() first")
         out = vo_chunk(self._put(imgs_l), self._put(imgs_r), self.prev_pts,
-                       self.prev_lns, self.DT_prev, self.cam, self.cfg)
+                       self.prev_lns, self.DT_prev, self.cam, self.cfg,
+                       keep_feats=keep_feats)
         self.prev_pts, self.prev_lns = out.last_pts, out.last_lns
         self.DT_prev = out.DT_next
         self._pending.append(out)
@@ -183,10 +207,16 @@ class BatchedStereoVO:
             self._integrate(out, update_prior=False)
         self._pending = []
 
-    def _integrate(self, out: ChunkOutput, update_prior: bool = True) -> None:
+    def _integrate(self, out: ChunkOutput, update_prior: bool = True,
+                   fetched=None) -> None:
+        """``fetched=(DT, good)``: the host copies the caller already
+        holds (no second fetch)."""
         self._pending = [p for p in self._pending if p is not out]
-        DT = out.DT.cpu().numpy()
-        good = out.good.cpu().numpy()
+        if fetched is not None:
+            DT, good = fetched
+        else:
+            DT = out.DT.cpu().numpy()
+            good = out.good.cpu().numpy()
         DT_prev = self._last_step_host
         for i in range(DT.shape[0]):
             step = DT[i] if good[i] else DT_prev

@@ -106,7 +106,9 @@ def test_import_leaves_jax_out():
 
 NEW_MODULES = ("plslam_tpu_torch.apps.plslam_dataset",
                "plslam_tpu_torch.utils.viz",
-               "plslam_tpu_torch.backend.checkpoint")
+               "plslam_tpu_torch.backend.checkpoint",
+               "plslam_tpu_torch.backend.slam_system",
+               "plslam_tpu_torch.apps.plslam_multiseq")
 
 
 @pytest.mark.parametrize("module", NEW_MODULES)
@@ -163,6 +165,37 @@ def test_dataset_entry_points_default_to_cuda():
     assert StereoVO(cfg, device="cpu").device.type == "cpu"
     assert StereoRectifier(m, m, device="cpu").maps.device.type == "cpu"
     make_extractor(None, cfg, device="cpu")
+
+
+def test_slam_drivers_default_to_cuda():
+    """PLSLAM, ChunkedPLSLAM and MapHandler run on the CUDA device unless
+    told otherwise, and raise without one; with device="cpu" they build
+    (the MapHandler's worker thread stops at close)."""
+    from plslam_tpu_torch.backend.map_handler import MapHandler
+    from plslam_tpu_torch.backend.slam_system import ChunkedPLSLAM, PLSLAM
+    from plslam_tpu_torch.core.camera import StereoCamera
+    cfg = SlamConfig().with_updates({"lines": {"has_lines": False},
+                                     "loop": {"enabled": False},
+                                     "mapping": {"max_kfs": 8,
+                                                 "max_points": 256}})
+    cam = StereoCamera.from_config(cfg.camera)
+    makers = (lambda **kw: PLSLAM(cfg, cam, **kw),
+              lambda **kw: ChunkedPLSLAM(cfg, cam, **kw),
+              lambda **kw: MapHandler(cfg, cam, **kw))
+    for make in makers:
+        if torch.cuda.is_available():
+            obj = make()
+            assert obj.device.type == "cuda"
+            (obj if isinstance(obj, MapHandler) else obj.map).close()
+        else:
+            with pytest.raises(RuntimeError, match="device='cpu'"):
+                make()
+        obj = make(device="cpu")
+        assert obj.device.type == "cpu"
+        mh = obj if isinstance(obj, MapHandler) else obj.map
+        assert mh._async and mh._worker.is_alive()
+        mh.close()
+        assert mh._worker is None
 
 
 def test_tf32_is_off():
