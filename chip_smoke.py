@@ -25,7 +25,8 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
      whole refit_roots and merge_segments calls) and D under a mask at 20 x 128 x 128, then I (K13:
      its phase-only form, a GN phase of 20 pairs with and without lines;
      the whole optimize_pose, one launch, at 20 pairs with and without
-     lines, the lite pass and one pair, every PoseResult field held: T,
+     lines, the lite pass, one pair, and lines only (K = 0 point terms) at
+     20 pairs and one, every PoseResult field held: T,
      the covariance against float64, err, and the decisions exactly or
      within 1e-4 of their threshold), J (K14: a chunk's
      keyframe scan; K16: the 8192 and 1024 landmark rings) and D at the
@@ -65,8 +66,9 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
      that run against the real vocabularies, D at the verification shapes,
      the covisibility gather (K7) and M (K18) launch by launch at Fb = 64
      and 512 (the edge sweep, ``pg_edges`` in both modes and
-     ``pg_update`` with and without each order's gradient, and ``pg_pcg``
-     at all four slot buckets, with their grids), what ``pg_update`` hands
+     ``pg_update`` with and without each order's gradient, ``pg_blocks``
+     also at 1,024, and ``pg_pcg`` at all five slot buckets, a cluster of
+     16 CTAs at 1,024, with their grids), what ``pg_update`` hands
      on against ``pg_edges``, a rejected step, the library's LU, solve and
      inverse at the solves' sizes, the whole dense and PCG solves against
      float64 and bit for bit against the loop that assembles and solves
@@ -99,17 +101,29 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
      frame, at most max_kfs keyframes, at least 2 compactions, 8 evicted
      keyframes and 5 closures, the path within 5 circuit radii, no
      tripwire, exact launches; fps, ms per compaction, peak memory, ATE
-     overall and per lap (``long_phase``);
+     overall and per lap (``long_phase``); then the same frames with
+     max_kfs 1,024 (the reference's provisioned run): no compaction, a
+     graph solve at the 1,024-slot bucket, the same floors. Before the
+     circuit, after every phase that reads torch.profiler: the lines-only
+     VO (``[lines_only]``: on bench.py's frames, where too few stereo
+     lines pass the pose gate, and on the lines scene, chunked and per
+     frame; the app's ``--no-points`` runs in the dataset phase) and scan
+     mode (``[scan]``: point+line and lines-only), each held to its CPU
+     run;
   7. one JSON line of the kernels (launches from the first path run that
      launched each), then the card line, then the result.
 
 ``python3 chip_smoke.py --cpu-ate [vo] [slam] [loops] [pcg] [dataset]
-[compact]`` runs the paths' frames through the plain versions on the CPU:
-the calibration of the ATE, line-count, keyframe, loop and compaction
-bounds below (no part named: all; ``pcg``: the PCG loop run alone;
-``compact``: the COMPACT_CPU record).
+[compact] [lines_only] [scan]`` runs the paths' frames through the plain
+versions on the CPU: the calibration of the ATE, line-count, keyframe,
+loop and compaction bounds below (no part named: all; ``pcg``: the PCG
+loop run alone; ``compact``: the COMPACT_CPU record; ``lines_only`` and
+``scan``: the LINES_ONLY_CPU and SCAN_CPU records).
 ``python3 chip_smoke.py --edge-grids`` prints the grids the profiler sees
-of K18's ``pg_edges`` and ``pg_update`` (the main run calls it).
+of K18's ``pg_edges`` and ``pg_update``, ``--chunk-device-times`` a VO
+chunk's device time in each configuration and mode, and ``--pose-graph``
+runs ``pose_graph_phase`` and prints its kernel rows (the main run calls
+each in a process of its own).
 ``python3 chip_smoke.py --bench-slam [cuda] [cpu]`` runs bench_slam.py's
 own 201-frame scene through the loop path on each device named and
 compares their keyframe decisions (``bench_slam_scene``).
@@ -227,9 +241,9 @@ def _profile_device(fn, keep, iters: int):
     fn()
     torch.cuda.synchronize()
     # a profile now and then comes back without the device's records (on
-    # the H100 about once in 70, at times three in a row): take it again,
-    # up to five times
-    for attempt in range(6):
+    # the H100 about once in 70, at times six in a row late in a run):
+    # take it again, up to eleven times
+    for attempt in range(12):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
@@ -246,7 +260,7 @@ def _profile_device(fn, keep, iters: int):
             us = sum(e.device_time_total / e.count * n
                      for e, n in zip(ev, per))
             return us / 1e3, sum(per)
-    fail("torch.profiler gave no device records in 6 tries: device time "
+    fail("torch.profiler gave no device records in 12 tries: device time "
          "not measured")
 
 
@@ -1130,15 +1144,24 @@ TRACK = {"hamming_scan": 2, "hamming_finish": 2}
 GN = {"pose_gn_optimize": 2}  # 2 passes, one optimize_pose launch each
 
 
-def expected_launches(lines: bool) -> dict:
-    """Each kernel's launches in the main path's timed run."""
+def expected_launches(lines: bool, points: bool = True, scan: bool = False,
+                      chunks: int = 2) -> dict:
+    """Each kernel's launches in a chunked run of initialize + ``chunks``
+    chunks (the main path's timed run: 2): 1 + ``chunks`` extractions;
+    a chunk's tracking batched (two passes) or, in scan mode, a pair at a
+    time (each family's f2f match and one optimize_pose a frame). The
+    lines-only configuration (``points`` False) extracts and matches no
+    points."""
     from collections import Counter
+    track, gn, times = ((TRACK_PAIR, GN_PAIR, CHUNK * chunks) if scan
+                        else (TRACK, GN, chunks))
     n = Counter()
-    for table, times in ((EXTRACT_POINTS, 3), (TRACK, 2), (GN, 2),
-                         (EXTRACT_LINES if lines else {}, 3),
-                         (TRACK if lines else {}, 2)):
-        for k, v in table.items():
-            n[k] += v * times
+    for table, k in ((EXTRACT_POINTS if points else {}, 1 + chunks),
+                     (EXTRACT_LINES if lines else {}, 1 + chunks),
+                     (track if points else {}, times),
+                     (track if lines else {}, times), (gn, times)):
+        for name, v in table.items():
+            n[name] += v * k
     return dict(n)
 
 
@@ -1157,9 +1180,14 @@ def cpu_reference_ate(parts) -> None:
     CPU: the calibration run of the ATE, line-count, keyframe and loop
     bounds. ``parts``: any of vo, slam, loops, pcg, dataset, compact,
     slam_system (or one of its runs: plslam_sync, plslam_async,
-    chunked_sync) (none: all)."""
+    chunked_sync), lines_only, scan (none: all)."""
     from plslam_tpu_torch.tracking.batch_vo import BatchedStereoVO
     from plslam_tpu_torch.utils.evaluation import ate_rmse
+    vo_parts = [p for p in ("lines_only", "scan") if not parts or p in parts]
+    if vo_parts:
+        cpu_vo_runs(vo_parts)
+        if parts and set(parts) <= {"lines_only", "scan"}:
+            return
     tags = [t for t, _, _ in SYSTEM_RUNS[:3]
             if not parts or "slam_system" in parts or t in parts]
     if tags:
@@ -1508,10 +1536,36 @@ def hold_pose(got, ref, margins, H, sse):
     return errs, smallest, s(err_rel), (~same).nonzero().flatten().tolist()
 
 
-def gn_inputs(dev, B, K, L, seed):
+# K13 with lines only (K = 0): T within 1e-5 of the plain version, the
+# decisions exact (or within 1e-4 of their threshold), and cov and err
+# within 1e-3 of the plain version's, relative. The float64 rule of the
+# other rows anchors its statistics at the plain version's pose, but with
+# lines only err moves ~1e-3 relative a 1e-6 twist of the pose, the
+# distance of either f32 pose from a float64 solve of the same problems
+# (the [k13] lines print both), so a pose difference well inside f32
+# rounding fails that rule
+LINES_ONLY_GN_TOLS = [1e-5, 1e-3, 1e-3, 0]
+LINES_ONLY_GN_KIND = ("T abs; cov relative to its largest entry, err "
+                      "relative, against the plain version; decisions "
+                      "beyond 1e-4 of their threshold")
+
+
+def lines_only_cov_rel(got, ref, differ) -> float:
+    """The covariances' largest difference relative to the plain one's
+    largest entry, over the pairs whose inlier masks agree."""
+    same = [b for b in range(got.cov.shape[0]) if b not in differ]
+    d = ((got.cov[same].double() - ref.cov[same].double()).abs()
+         .amax((-1, -2)) / ref.cov[same].double().abs().amax((-1, -2)))
+    return float(d.max()) if same else 0.0
+
+
+def gn_inputs(dev, B, K, L, seed, line_px=0.0):
     """B tracking problems at the main path's term counts: K point terms
     (15% gross outliers, 5% invalid) and L line terms (2 behind the camera,
-    15% invalid), as tests/test_torch_pose_gn.py builds them."""
+    15% invalid), as tests/test_torch_pose_gn.py builds them. ``line_px``
+    > 0: the observed lines through endpoints with that pixel noise, a
+    tenth of them 40 px off (the lines-only problems, whose scale the
+    lines alone set; else the lines are exact)."""
     import torch
     from plslam_tpu_torch.config import SlamConfig
     from plslam_tpu_torch.core import lie
@@ -1533,8 +1587,13 @@ def gn_inputs(dev, B, K, L, seed):
     sP = box(L, 4, 30)
     d = rng.normal(size=(B, L, 3))
     eP = sP + t(2.0 * d / np.linalg.norm(d, axis=-1, keepdims=True))
-    le = line_equation(cam.project(lie.transform_points(T, sP)),
-                       cam.project(lie.transform_points(T, eP)))
+    us = cam.project(lie.transform_points(T, sP))
+    ue = cam.project(lie.transform_points(T, eP))
+    if line_px:
+        n_out = L // 10
+        us, ue = (u + t(rng.normal(0, line_px, (B, L, 2))) for u in (us, ue))
+        us[:, :n_out] += t(rng.normal(0, 40, (B, n_out, 2)))
+    le = line_equation(us, ue)
     sP[:, :2, 2] = -1.0
     mask = lambda n, p: torch.from_numpy(rng.random((B, n)) > p).to(dev)
     pts = pose_gn.PointTerms(P.to(dev), uv.to(dev), mask(K, 0.05))
@@ -1589,37 +1648,58 @@ def slam_kernel_phase(dev, record):
                err_kind="pose entries")
     # I, whole (optimize_pose, one launch): the chunk's final pass (8 + 8
     # iterations) with and without lines, its lite pass (6 + 4), and one
-    # pair (B = 1: a per-frame step, a loop verification)
+    # pair (B = 1: a per-frame step, a loop verification, a scan-mode
+    # frame); lines only (K = 0 point terms) at 20 pairs and one
+    L_max = cfg.lines.max_lines
     lite = cfg.with_updates({"tracking": {
         "max_iters": t.lite_pass_iters,
         "max_iters_ref": t.lite_pass_iters_ref}})
-    for B, L, c, tag in ((CHUNK, cfg.lines.max_lines, cfg, ""),
-                         (CHUNK, 0, cfg, "@points"),
-                         (CHUNK, cfg.lines.max_lines, lite, "@lite"),
-                         (1, cfg.lines.max_lines, cfg, "@b1")):
-        cam, pts, lns = gn_inputs(dev, B, K, L, seed=5 + L + B)
+    for B, K, L, c, tag in ((CHUNK, K, L_max, cfg, ""),
+                            (CHUNK, K, 0, cfg, "@points"),
+                            (CHUNK, K, L_max, lite, "@lite"),
+                            (1, K, L_max, cfg, "@b1"),
+                            (CHUNK, 0, L_max, cfg, "@lines_only"),
+                            (1, 0, L_max, cfg, "@lines_only_b1")):
+        cam, pts, lns = gn_inputs(dev, B, K, L, seed=5 + L + B,
+                                  line_px=0.0 if K else 0.5)
         lns = lns if L else None
         T0 = torch.eye(4, device=dev).expand(B, 4, 4)
         margins, ref, H, sse = pose_margins(T0, cam, pts, lns, c)
         got = pose_gn.optimize_pose(T0, cam, pts, lns, c)
         errs, smallest, err_rel, differ = hold_pose(got, ref, margins, H,
                                                     sse)
-        print(f"[k13] optimize_pose{tag}: B={B} L={L} good "
+        print(f"[k13] optimize_pose{tag}: B={B} K={K} L={L} good "
               f"{int(got.good.sum())}/{B} (plain {int(ref.good.sum())}); "
               f"smallest decision margin {smallest:.6g}; err's largest "
               f"relative difference from the plain version's {err_rel:.3g}"
-              f"; pairs whose inlier masks differ {differ}", flush=True)
+              f"; pairs whose inlier masks differ {differ}; cov and err "
+              f"against the float64 statistics at the plain version's pose "
+              f"{errs[1]:.3g}, {errs[2]:.3g} of K15's bound", flush=True)
         n_it = c.tracking.max_iters + c.tracking.max_iters_ref
+        tols, kind = [1e-5, 1.0, 1.0, 0], (
+            "T abs; cov and err: distance from float64 / (3 x the plain "
+            "version's + 1e-5 of the float64 value); decisions beyond 1e-4 "
+            "of their threshold")
+        if not K:
+            errs = [errs[0], lines_only_cov_rel(got, ref, differ), err_rel,
+                    errs[3]]
+            tols, kind = LINES_ONLY_GN_TOLS, LINES_ONLY_GN_KIND
+            r64 = pose_gn.optimize_pose_plain(T0.double(), cam, _as_f64(pts),
+                                              _as_f64(lns), c)
+            d_T = lambda r: float((r.T.double() - r64.T).abs().max())
+            d_e = lambda r: float(((r.err.double() - r64.err).abs()
+                                   / r64.err).max())
+            print(f"[k13] optimize_pose{tag}: from a float64 solve of the "
+                  f"same problems: T kernel {d_T(got):.3g}, plain "
+                  f"{d_T(ref):.3g}; err (relative) kernel {d_e(got):.3g}, "
+                  f"plain {d_e(ref):.3g}", flush=True)
         record("pose_gn_optimize" + tag, "plslam_tpu_torch/csrc/pose_gn.cu",
-               "plslam_tpu/tracking/pose_gn.py:130", None, None,
-               [1e-5, 1.0, 1.0, 0],
+               "plslam_tpu/tracking/pose_gn.py:130", None, None, tols,
                lambda: pose_gn.optimize_pose(T0, cam, pts, lns, c),
                lambda: pose_gn.optimize_pose_plain(T0, cam, pts, lns, c),
                B * (64 * 2 + K * 22 + L * 38 + 144 + 9),
                gn_ops(B, K, L, n_it + 2), entry="pose_gn_optimize",
-               errs=errs, err_kind="T abs; cov and err: distance from "
-               "float64 / (3 x the plain version's + 1e-5 of the float64 "
-               "value); decisions beyond 1e-4 of their threshold")
+               errs=errs, err_kind=kind)
 
     # J, kf_scan: a chunk of 20 tracked frames against the carry
     rng = np.random.default_rng(4)
@@ -2600,10 +2680,11 @@ def loop_path(dev, tag, updates=None, cpu=None):
 
 
 # M's graphs (``synthetic.drift_circle_graph``: slots, keyframes, extra
-# chords) at the loop closer's four slot buckets (E = 4 Fb; 512: a 400-KF
-# loop graph)
+# chords) at the loop closer's five slot buckets (E = 4 Fb; 512: a 400-KF
+# loop graph; 1,024: the provisioned long run's bucket, a 700-KF graph whose
+# 3,100 used edges fill 3/4 of its 4,096 edge slots)
 PG_BUCKETS = ((64, 40, 60), (128, 100, 300), (256, 200, 800),
-              (512, 400, 1600))
+              (512, 400, 1600), (1024, 700, 2400))
 
 
 def loop_kernel_phase(dev, record, slam):
@@ -2710,12 +2791,31 @@ def loop_kernel_phase(dev, record, slam):
           f"{b_ms:.4f} ({b_by}) library_ms (the gather alone)={lib:.4f}",
           flush=True)
 
-    pose_graph_phase(dev, record)
+    pose_graph_child(record)
+
+
+def pose_graph_child(record) -> None:
+    """``pose_graph_phase`` in a process of its own (``python3
+    chip_smoke.py --pose-graph``): late in a long process torch.profiler
+    keeps no device record of M's short kernels in most traces, in a new
+    one it keeps them. Its output passes through; its kernel rows join
+    ``record``'s; its failure fails the run."""
+    import os
+    here = os.path.dirname(os.path.abspath(__file__))
+    out = subprocess.run(
+        [sys.executable, os.path.join(here, "chip_smoke.py"), "--pose-graph"],
+        cwd=here, capture_output=True, text=True, timeout=1200)
+    lines = out.stdout.strip().splitlines()
+    print("\n".join(lines[:-1]), flush=True)
+    check(out.returncode == 0, "the pose-graph phase failed: "
+          + out.stderr.strip()[-2000:])
+    record.rows.extend(json.loads(lines[-1]))
 
 
 def pose_graph_phase(dev, record):
-    """M (K18) launch by launch at the four slot buckets of PG_BUCKETS (the
-    dense system's and PCG's blocks at Fb 64 and 512; ``pg_update`` with
+    """M (K18) launch by launch at the five slot buckets of PG_BUCKETS (the
+    dense system's blocks at Fb 64 and 512, PCG's at 64, 512 and 1,024;
+    ``pg_update`` with
     each order's gradient; the library's LU, solve and inverse; the edge
     sweep's grids from ``--edge-grids`` in a process of its own), then the
     whole solves against float64 and against ``per_step_solve`` (bit for
@@ -2751,7 +2851,8 @@ def pose_graph_phase(dev, record):
               f"{threads} threads, {smem} bytes of shared memory each; "
               f"pg_edges and pg_update {ctas} CTAs of {nt} threads",
               flush=True)
-        every = F in (64, 512)      # the other M kernels: at 64 and 512
+        # the dense system's blocks at 64 and 512, PCG's also at 1,024
+        every, blocks_too = F in (64, 512), F in (64, 512, 1024)
         sc = lambda xs: [x / x.abs().max().clamp(min=1e-30) for x in xs]
         rp, Jp, cp = pg.edges_plain(gd)
         freeze = torch.zeros(F, dtype=torch.bool, device=dev)
@@ -2826,6 +2927,7 @@ def pose_graph_phase(dev, record):
                    entry="pg_assemble",
                    err_kind="H off its diagonal, H's diagonal (the pins), g "
                    + rel, library_what="the (F·F, 36) block scatter alone")
+        if blocks_too:
             gb, Hd = pg.blocks(gd, rp, Jp, diag, inc)
             record(f"pg_blocks@{F}", src_m, rep_m + "227", sc([gb, Hd]),
                    sc([gbp, Hdp]), [1e-5, 1e-6],
@@ -3302,15 +3404,16 @@ TRACK_PAIR = {"hamming_scan": 1, "hamming_finish": 1}
 GN_PAIR = {"pose_gn_optimize": 1}
 
 
-def expected_frame_launches(n_frames: int, remaps: int = 0) -> dict:
+def expected_frame_launches(n_frames: int, remaps: int = 0,
+                            points: bool = True) -> dict:
     """Each kernel's launches in a per-frame run with lines: n_frames
-    extractions, n_frames - 1 tracked pairs (points and lines), and
-    ``remaps`` launches of N."""
+    extractions, n_frames - 1 tracked pairs (points and lines; lines only
+    without ``points``), and ``remaps`` launches of N."""
     from collections import Counter
     n = Counter()
-    for table, times in ((EXTRACT_POINTS, n_frames),
+    for table, times in ((EXTRACT_POINTS if points else {}, n_frames),
                          (EXTRACT_LINES, n_frames),
-                         (TRACK_PAIR, 2 * (n_frames - 1)),
+                         (TRACK_PAIR, (1 + points) * (n_frames - 1)),
                          (GN_PAIR, n_frames - 1)):
         for k, v in table.items():
             n[k] += v * times
@@ -3328,9 +3431,10 @@ def _ate_check(tag, ate):
           f"{tag}: ATE {ate} m outside its bound {bound_m} m")
 
 
-def kitti_app_runs(device, root):
-    """The port's app over the KITTI-layout directory, chunked (B = 20) and
-    per frame; returns each run's record with its launches and ATE."""
+def kitti_app_runs(device, root, flags=(), prefix="kitti"):
+    """The port's app over the KITTI-layout directory with ``flags``,
+    chunked (B = 20) and per frame (``{prefix}_chunk``, ``{prefix}_frame``);
+    returns each run's record with its launches and ATE."""
     import os
     from plslam_tpu_torch import native
     from plslam_tpu_torch.apps import plstvo_dataset
@@ -3338,14 +3442,14 @@ def kitti_app_runs(device, root):
     from plslam_tpu_torch.utils.evaluation import ate_rmse
     gt = open_dataset(root).gt_poses
     out = {}
-    for tag, extra in (("kitti_chunk", ["--chunk", str(CHUNK)]),
-                       ("kitti_frame", [])):
+    for tag, extra in ((prefix + "_chunk", ["--chunk", str(CHUNK)]),
+                       (prefix + "_frame", [])):
         rec = {}
         native.reset_counts()
         t0 = time.perf_counter()
         rc = plstvo_dataset.main([root, "--quiet", "--device", device,
                                   "--out", os.path.join(root, tag + ".txt"),
-                                  *extra], record=rec)
+                                  *flags, *extra], record=rec)
         rec["wall"] = time.perf_counter() - t0
         rec["launches"] = dict(native.LAUNCHES)
         check(rc == 0, f"{tag}: the app returned {rc}")
@@ -3354,9 +3458,10 @@ def kitti_app_runs(device, root):
     return out
 
 
-def euroc_vo(device, frames, cam, cfg):
-    """The per-frame StereoVO with lines over ``frames(i)`` pairs; returns
-    the trajectory, the per-frame good flags and the launches."""
+def euroc_vo(device, frames, cam, cfg, n_frames=EUROC_FRAMES):
+    """The per-frame StereoVO with lines over ``frames(i)`` pairs, i <
+    ``n_frames``; returns the trajectory, the per-frame good flags and the
+    launches."""
     from plslam_tpu_torch import native
     from plslam_tpu_torch.frontend.stereo_frame import make_extractor
     from plslam_tpu_torch.tracking.frame_handler import StereoVO
@@ -3366,10 +3471,10 @@ def euroc_vo(device, frames, cam, cfg):
     t0 = time.perf_counter()
     vo.initialize(*frames(0))
     good = [vo.insert_stereo_pair(*frames(i)).good
-            for i in range(1, EUROC_FRAMES)]
+            for i in range(1, n_frames)]
     return dict(est=np.stack(vo.trajectory), good=np.array(good),
                 launches=dict(native.LAUNCHES),
-                ms=1e3 * (time.perf_counter() - t0) / EUROC_FRAMES)
+                ms=1e3 * (time.perf_counter() - t0) / n_frames)
 
 
 def euroc_runs(device, root):
@@ -3525,6 +3630,21 @@ def dataset_path(dev, record):
         check(d_mem == 0.0, "the chunked app differs from the in-memory "
               f"run by {d_mem}")
         check(d_cf < CHUNK_VS_FRAME_M, f"chunked vs per frame {d_cf} m")
+
+        # the app's --no-points (lines only), chunked and per frame
+        lo = kitti_app_runs(dev.type, kitti, ["--no-points"], "app")
+        for tag, want in (("app_chunk", expected_launches(True,
+                                                          points=False)),
+                          ("app_frame", expected_frame_launches(
+                              n, points=False))):
+            r = lo[tag]
+            print(f"[lines_only {tag}] fps={r['fps']:.2f} (the app's clock)"
+                  f" run {r['wall']:.2f} s; launches="
+                  f"{json.dumps(r['launches'], sort_keys=True)}", flush=True)
+            hold_cpu(f"lines_only {tag}", r, seq.poses,
+                     LINES_ONLY_CPU[tag])
+            check(r["launches"] == want, f"lines_only {tag}: launches "
+                  f"{r['launches']} differ from the path's {want}")
         print(f"[slam_app] phase {slam_app_runs(dev, kitti):.1f} s",
               flush=True)
 
@@ -4064,35 +4184,18 @@ def render_long(span):
     return out
 
 
-def long_phase(dev) -> float:
-    """(a): the default SlamConfig() (KITTI calibration at 1241x376, lines
-    and loops on, max_kfs 512, kf_batch 4) with min_entropy_ratio 0.89 over
-    the 4,001-frame circuit: one lap rendered (8 processes) and kept on the
-    card as uint8 (2, 400, 376, 1241), every chunk gathered from it. No
-    warm-up. Returns the phase's seconds."""
+def long_run(dev, cfg, cam, lap_t, lap_poses, tag):
+    """One ``FusedPLSLAM`` run over the 4,001-frame circuit, every chunk
+    gathered from the lap on the card (no warm-up): prints its counts and
+    returns them."""
     import contextlib
-    import multiprocessing
-    from concurrent.futures import ProcessPoolExecutor
+    from collections import Counter
+    from types import SimpleNamespace
     import torch
     from plslam_tpu_torch import native
     from plslam_tpu_torch.backend.fused_slam import FusedPLSLAM
-    from plslam_tpu_torch.config import SlamConfig
-    from plslam_tpu_torch.core.camera import StereoCamera
     from plslam_tpu_torch.utils.evaluation import ate_rmse, umeyama_alignment
-    t_phase = time.perf_counter()
-    cfg = SlamConfig().with_updates(
-        {"keyframe": {"min_entropy_ratio": LONG_MINENT}})
-    cam = StereoCamera.from_config(cfg.camera)
-    _, lap_poses, R_cam = long_circuit()
     lap, n = LONG_LAP, LONG_LAPS * LONG_LAP + 1
-    bounds = np.linspace(0, lap, LONG_RENDERERS + 1).astype(int)
-    with ProcessPoolExecutor(
-            LONG_RENDERERS,
-            mp_context=multiprocessing.get_context("spawn")) as pool:
-        parts = list(pool.map(render_long, zip(bounds[:-1], bounds[1:])))
-    lap_t = torch.from_numpy(np.concatenate(parts, axis=1)).to(dev)
-    del parts
-    t_render = time.perf_counter() - t_phase
     poses = np.concatenate([lap_poses] * LONG_LAPS + [lap_poses[:1]])
     slam = FusedPLSLAM(cfg, cam)
     ms, comp_frames = watch_compactions(slam)
@@ -4131,54 +4234,119 @@ def long_phase(dev) -> float:
     ate_shape = [round(float(ate_rmse(est[k * lap:(k + 1) * lap],
                                       poses[k * lap:(k + 1) * lap])), 4)
                  for k in range(LONG_LAPS)]
-    max_pos = float(np.abs(p_est).max())
+    # each pose-graph solve's slot bucket (Fb) and host ms (synchronized)
+    fb = [("pcg" if name.endswith("pcg") else "dense",
+           int((a[0] if a else k["g"]).poses.shape[0]))
+          for name, _, a, k, _ in probe.solves]
+    buckets = Counter(b for _, b in fb)
+    solve_ms = {}
+    for (kind, b), x in zip(fb, [probe.ms[name].pop(0)
+                                 for name, *_ in probe.solves]):
+        solve_ms.setdefault(f"{kind}@{b}", []).append(round(x, 2))
     F = cfg.mapping.max_kfs
-    print(f"[long] rendered a lap of {lap} frames in {t_render:.1f} s ("
-          f"{LONG_RENDERERS} processes, host), "
-          f"{lap_t.numel()} bytes on the card; frames={n - 1} good="
-          f"{int(good.sum())} keyframes={len(recs)} lba_slots={n_lba}",
-          flush=True)
-    print(f"[long] fps={(n - 1) / wall:.2f} ms_per_frame="
+    print(f"[{tag}] frames={n - 1} good={int(good.sum())} keyframes="
+          f"{len(recs)} lba_slots={n_lba}", flush=True)
+    print(f"[{tag}] fps={(n - 1) / wall:.2f} ms_per_frame="
           f"{1e3 * wall / (n - 1):.3f} (host clock, initialize + {n_chunks} "
           f"chunks + finish, ends in synchronize; timed loop steps and "
           f"compactions synchronize) max_memory_allocated_bytes={peak}",
           flush=True)
-    print(f"[long] compactions={slam.n_compactions} at frames {comp_frames} "
-          f"ms each (drain included) {[round(x, 1) for x in ms]} evicted="
-          f"{slam.n_evicted_kfs} in {len(slam.eviction_events)} events at "
-          f"frames {[f for f, _ in slam.eviction_events]}; n_kfs settled max "
+    print(f"[{tag}] compactions={slam.n_compactions} at frames "
+          f"{comp_frames} ms each (drain included) "
+          f"{[round(x, 1) for x in ms]} evicted={slam.n_evicted_kfs} in "
+          f"{len(slam.eviction_events)} events at frames "
+          f"{[f for f, _ in slam.eviction_events]}; n_kfs settled max "
           f"{max(next_slots)} / {F}, final {int(slam.state.n_kfs)}",
           flush=True)
-    print(f"[long] closures={lc.n_loops_closed} funnel (candidates, votes, "
+    print(f"[{tag}] closures={lc.n_loops_closed} funnel (candidates, votes, "
           f"rejected geometry, uncertainty, correction, closed)="
           f"{loop_summary(slam, cfg)[2]} graph edges odo/covis/loop="
           f"{len(lc.odo_edges)}/{len(lc.covis_edges)}/{len(lc.loop_edges)} "
           f"edges_dropped={lc.n_edges_dropped} frozen_events="
           f"{lc.n_frozen_events} solves dense/pcg="
           f"{probe.n.get('optimize_pose_graph', 0)}/"
-          f"{probe.n.get('optimize_pose_graph_pcg', 0)}", flush=True)
-    print(f"[long] ate_m={ate:.6f} per lap (global alignment) {ate_lap} per "
-          f"lap (each aligned alone) {ate_shape}; max|t|={max_pos:.2f} m "
-          f"(circuit radius {R_cam:.2f} m); tripwires {tw.n}", flush=True)
+          f"{probe.n.get('optimize_pose_graph_pcg', 0)} by slot bucket "
+          f"{dict(sorted(buckets.items()))}; solve ms (host clock) "
+          f"{json.dumps(solve_ms)}", flush=True)
+    print(f"[{tag}] ate_m={ate:.6f} per lap (global alignment) {ate_lap} "
+          f"per lap (each aligned alone) {ate_shape}; max|t|="
+          f"{float(np.abs(p_est).max()):.2f} m; tripwires {tw.n}", flush=True)
     want = expected_loop_launches(1 + len(recs), n_lba, probe,
                                   lc.n_loops_closed, n_chunks)
-    print(f"[long] launches={json.dumps(launches, sort_keys=True)}; "
+    print(f"[{tag}] launches={json.dumps(launches, sort_keys=True)}; "
           f"{probe.hold_solves(dev)} pose-graph solve(s) bit-equal to the "
           "loop that assembles and solves every GN step", flush=True)
-    check(len(est) == n, f"long: {len(est)} frames in the trajectory")
-    check(bool(good.all()), f"long: frames not tracked: "
-          f"{np.nonzero(~good)[0][:20]}")
-    check(max(next_slots) <= F and int(slam.state.n_kfs) <= F,
-          f"long: more than max_kfs={F} keyframes")
-    check(slam.n_compactions >= 2 and slam.n_evicted_kfs >= 8,
-          f"long: {slam.n_compactions} compactions, {slam.n_evicted_kfs} "
-          "evicted")
-    check(lc.n_loops_closed >= 5, f"long: {lc.n_loops_closed} closures")
-    check(max_pos < 5 * R_cam, f"long: |t| {max_pos} m beyond 5 x the "
-          f"circuit radius {R_cam} m")
-    check(tw.n == 0, f"long: the settle tripwires printed {tw.n} time(s)")
-    check(launches == want, f"long: launches {launches} differ from the "
-          f"path's {want}")
+    return SimpleNamespace(
+        slam=slam, n=n, est=est, good=good, next_slots=next_slots,
+        launches=launches, want=want, ate=ate, ate_lap=ate_lap,
+        fps=(n - 1) / wall, peak=peak, tripwires=tw.n, buckets=buckets,
+        max_pos=float(np.abs(p_est).max()), compaction_ms=ms)
+
+
+def long_phase(dev) -> float:
+    """(a): the default SlamConfig() (KITTI calibration at 1241x376, lines
+    and loops on, kf_batch 4) with min_entropy_ratio 0.89 over the
+    4,001-frame circuit: one lap rendered (8 processes) and kept on the
+    card as uint8 (2, 400, 376, 1241), every chunk gathered from it; run
+    with max_kfs 512 (compactions and evictions) and again on the same lap
+    with max_kfs 1,024 (the reference's provisioned configuration:
+    bench_slam_long.py's PLSLAM_LONG_MAXKFS=1024; no compaction, its graphs
+    solved at the 1,024-slot bucket with PCG). Returns the phase's
+    seconds."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+    import torch
+    from plslam_tpu_torch.core.camera import StereoCamera
+    t_phase = time.perf_counter()
+    cfg = flagship({"keyframe": {"min_entropy_ratio": LONG_MINENT}})
+    cam = StereoCamera.from_config(cfg.camera)
+    _, lap_poses, R_cam = long_circuit()
+    bounds = np.linspace(0, LONG_LAP, LONG_RENDERERS + 1).astype(int)
+    with ProcessPoolExecutor(
+            LONG_RENDERERS,
+            mp_context=multiprocessing.get_context("spawn")) as pool:
+        parts = list(pool.map(render_long, zip(bounds[:-1], bounds[1:])))
+    lap_t = torch.from_numpy(np.concatenate(parts, axis=1)).to(dev)
+    del parts
+    print(f"[long] rendered a lap of {LONG_LAP} frames in "
+          f"{time.perf_counter() - t_phase:.1f} s ({LONG_RENDERERS} "
+          f"processes, host), {lap_t.numel()} bytes on the card; circuit "
+          f"radius {R_cam:.2f} m", flush=True)
+    runs = {}
+    for tag, F in (("long", 512), ("long_1024", 1024)):
+        c = cfg.with_updates({"mapping": {"max_kfs": F}})
+        r = runs[tag] = long_run(dev, c, cam, lap_t, lap_poses, tag)
+        slam, lc = r.slam, r.slam.loop_closer
+        check(len(r.est) == r.n, f"{tag}: {len(r.est)} frames in the "
+              "trajectory")
+        check(bool(r.good.all()), f"{tag}: frames not tracked: "
+              f"{np.nonzero(~r.good)[0][:20]}")
+        check(max(r.next_slots) <= F and int(slam.state.n_kfs) <= F,
+              f"{tag}: more than max_kfs={F} keyframes")
+        if F == 512:
+            check(slam.n_compactions >= 2 and slam.n_evicted_kfs >= 8,
+                  f"{tag}: {slam.n_compactions} compactions, "
+                  f"{slam.n_evicted_kfs} evicted")
+        else:
+            check(slam.n_compactions == 0 and slam.n_evicted_kfs == 0,
+                  f"{tag}: {slam.n_compactions} compactions, "
+                  f"{slam.n_evicted_kfs} evicted")
+            check(r.buckets.get(1024, 0) >= 1, f"{tag}: no pose-graph solve"
+                  f" at the 1,024-slot bucket ({dict(r.buckets)})")
+        check(lc.n_loops_closed >= 5, f"{tag}: {lc.n_loops_closed} closures")
+        check(r.max_pos < 5 * R_cam, f"{tag}: |t| {r.max_pos} m beyond 5 x "
+              f"the circuit radius {R_cam} m")
+        check(r.tripwires == 0, f"{tag}: the settle tripwires printed "
+              f"{r.tripwires} time(s)")
+        check(r.launches == r.want, f"{tag}: launches {r.launches} differ "
+              f"from the path's {r.want}")
+        del slam, lc
+        runs[tag].slam = None
+    a, b = runs["long"], runs["long_1024"]
+    print(f"[long] max_kfs 512 vs 1,024 on the same frames: ATE "
+          f"{a.ate:.6f} vs {b.ate:.6f} m; per lap (global alignment) "
+          f"{list(zip(a.ate_lap, b.ate_lap))}; fps {a.fps:.2f} vs "
+          f"{b.fps:.2f}; peak bytes {a.peak} vs {b.peak}", flush=True)
     return time.perf_counter() - t_phase
 
 
@@ -4633,6 +4801,291 @@ def knob_band_phase(dev, render) -> float:
               f"knob_band: {name} {v['kfs']} keyframes, the baseline "
               f"{b['kfs']}")
     return time.perf_counter() - t_phase
+
+
+# -- slice 22: lines-only VO, scan mode -------------------------------------
+
+# SlamConfig() updates: the lines-only configuration and scan mode
+LINES_ONLY = {"points": {"has_points": False}}
+SCAN = {"tracking": {"batched_chunks": False}}
+# frames of [lines_only]'s per-frame run (10 tracked pairs)
+LINES_ONLY_FRAMES = 11
+# The [lines_only] and [scan] runs' CPU record (``python3 chip_smoke.py
+# --cpu-ate lines_only scan``: the port's plain versions, device="cpu", the
+# same frames): each run's untracked frames and its ATE. A run without its
+# record fails. On bench.py's scene (``chunk``, the app's) the 500 point
+# patches leave 10-21 stereo lines a frame and 4-8 line inliers, below the
+# pose gate's min_features 12: no frame tracks there, on the CPU as on the
+# card. Lines-only tracking runs on the lines scene (``lines_scene``).
+LINES_ONLY_CPU = {"chunk": {"bad": [0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15, 16, 17, 18, 19, 20, 21, 22, 23, 24, 25, 26, 27, 28, 29, 30, 31, 32, 33, 34, 35, 36, 37, 38, 39], "ate": 2.9665989115070417}, "lines_chunk": {"bad": [], "ate": 0.04301205457784803}, "lines_frame": {"bad": [], "ate": 0.009258958394456663}, "app_chunk": {"bad": [0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15, 16, 17, 18, 19, 20, 21, 22, 23, 24, 25, 26, 27, 28, 29, 30, 31, 32, 33, 34, 35, 36, 37, 38, 39], "ate": 2.9665989115070417}, "app_frame": {"bad": [0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15, 16, 17, 18, 19, 20, 21, 22, 23, 24, 25, 26, 27, 28, 29, 30, 31, 32, 33, 34, 35, 36, 37, 38, 39], "ate": 2.9665989115070417}}
+SCAN_CPU = {"lines": {"bad": [], "ate": 0.014731720530925203}, "lines_only": {"bad": [], "ate": 0.013192395387722242}}
+
+
+@functools.lru_cache(maxsize=None)
+def lines_scene():
+    """The lines-only runs' scene at 1241x376, 1 + 2 x 20 frames: bench.py's
+    seed and noise with no point patches, 200 lines and 0.12 m a frame
+    (tests/test_lines_frontend.py's step), 33-55 stereo lines a frame
+    (with 60 lines or at 0.25 m a frame too few pass the pose gate to
+    track); rendered once a process, ~5 s on the host."""
+    from plslam_tpu_torch.io import synthetic
+    _, cam, _ = main_scene(lines=True)
+    t0 = time.perf_counter()
+    seq = synthetic.make_sequence(cam, n_frames=2 * CHUNK + 1, seed=0,
+                                  n_points=0, n_lines=200, noise=0.003,
+                                  step=0.12)
+    print(f"[lines_only] rendered the lines scene ({2 * CHUNK + 1} frames) "
+          f"in {time.perf_counter() - t0:.1f} s (host)", flush=True)
+    return seq
+
+
+def flagship(*updates):
+    """SlamConfig() with ``updates`` applied in order."""
+    from plslam_tpu_torch.config import SlamConfig
+    cfg = SlamConfig()
+    for u in updates:
+        cfg = cfg.with_updates(u)
+    return cfg
+
+
+def chunked_vo(device, cfg, cam, il, ir, n_chunks):
+    """``BatchedStereoVO`` over initialize + ``n_chunks`` chunks of 20 of
+    the frames (device tensors, or host arrays): the trajectory, ``good``,
+    the launches, the host seconds (ending in a synchronize on the card),
+    the peak device bytes, and the stereo lines and line inliers a
+    frame."""
+    import torch
+    from plslam_tpu_torch import native
+    from plslam_tpu_torch.tracking.batch_vo import BatchedStereoVO
+    cuda = torch.device(device).type == "cuda"
+    vo = BatchedStereoVO(cfg, cam, device=device)
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    native.reset_counts()
+    t0 = time.perf_counter()
+    vo.initialize(il[0], ir[0])
+    outs = [vo.submit_chunk(il[lo:lo + CHUNK], ir[lo:lo + CHUNK])
+            for lo in range(1, 1 + n_chunks * CHUNK, CHUNK)]
+    vo.drain()
+    if cuda:
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    _, n_lines, n_li = run_counts(outs)
+    return dict(est=np.stack(vo.trajectory), launches=dict(native.LAUNCHES),
+                good=torch.cat([o.good for o in outs]).cpu().numpy(),
+                wall=wall, n_lines=n_lines, n_line_inl=n_li,
+                peak=torch.cuda.max_memory_allocated() if cuda else 0)
+
+
+def cpu_record(r, poses):
+    """A run's record: its untracked frames and its ATE."""
+    from plslam_tpu_torch.utils.evaluation import ate_rmse
+    return dict(bad=np.nonzero(~r["good"])[0].tolist(),
+                ate=float(ate_rmse(r["est"], poses[:len(r["est"])])))
+
+
+def hold_cpu(tag, r, poses, cpu):
+    """A card run against its CPU record: the same untracked frames, ATE
+    <= 2 x CPU + 2 cm."""
+    check(cpu is not None, f"{tag}: no CPU record (python3 chip_smoke.py "
+          "--cpu-ate lines_only scan)")
+    got = cpu_record(r, poses)
+    bound_m = 2 * cpu["ate"] + 0.02
+    print(f"[{tag}] frames={len(r['good'])} good={int(r['good'].sum())} "
+          f"ate_m={got['ate']:.6f} (bound {bound_m:.6f}; CPU run "
+          f"{cpu['ate']:.6f}); untracked {got['bad']} (CPU {cpu['bad']})",
+          flush=True)
+    check(got["bad"] == cpu["bad"], f"{tag}: untracked frames "
+          f"{got['bad']}, the CPU run's {cpu['bad']}")
+    check(math.isfinite(got["ate"]) and got["ate"] < bound_m,
+          f"{tag}: ATE {got['ate']} m outside its bound {bound_m} m")
+
+
+def cpu_vo_runs(parts) -> dict:
+    """[lines_only] and [scan] on the CPU: prints and returns the
+    LINES_ONLY_CPU and SCAN_CPU records (``parts``: lines_only, scan)."""
+    import os
+    import tempfile
+    _, cam, seq = main_scene(lines=True)
+    ln = lines_scene()
+    t0 = time.perf_counter()
+    out = {}
+    if "lines_only" in parts:
+        cfg = flagship(LINES_ONLY)
+        runs = {"chunk": chunked_vo("cpu", cfg, cam, seq.images_l,
+                                    seq.images_r, 2),
+                "lines_chunk": chunked_vo("cpu", cfg, cam, ln.images_l,
+                                          ln.images_r, 2),
+                "lines_frame": euroc_vo(
+                    "cpu", lambda i: (ln.images_l[i], ln.images_r[i]), cam,
+                    cfg, LINES_ONLY_FRAMES)}
+        with tempfile.TemporaryDirectory() as tmp:
+            root = os.path.join(tmp, "kitti")
+            write_kitti(root, seq)
+            runs.update(kitti_app_runs("cpu", root, ["--no-points"], "app"))
+        out["LINES_ONLY_CPU"] = {
+            k: cpu_record(r, (ln if k.startswith("lines") else seq).poses)
+            for k, r in runs.items()}
+    if "scan" in parts:
+        runs = {"lines": chunked_vo("cpu", flagship(SCAN), cam, seq.images_l,
+                                    seq.images_r, 2),
+                "lines_only": chunked_vo("cpu", flagship(SCAN, LINES_ONLY),
+                                         cam, ln.images_l, ln.images_r, 1)}
+        out["SCAN_CPU"] = {k: cpu_record(r, (ln if k == "lines_only"
+                                             else seq).poses)
+                           for k, r in runs.items()}
+    for name, rec in out.items():
+        print(f"[cpu] {name} = {json.dumps(rec)} "
+              f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    return out
+
+
+def lines_only_phase(dev) -> float:
+    """[lines_only]: ``BatchedStereoVO`` with SlamConfig()'s lines-only
+    configuration at 1241x376 (no point kernel A-C, no point match:
+    ``expected_launches``): over the main paths' frames (bench.py's scene),
+    then over the lines scene after a warm-up chunk, initialize + 2 chunks
+    of 20 each; the per-frame ``StereoVO`` with the line extractor over the
+    lines scene's first 11 frames; each held to its CPU run (the app's
+    ``--no-points`` runs in the dataset phase). Returns the phase's
+    seconds."""
+    import torch
+    from plslam_tpu_torch.tracking.batch_vo import BatchedStereoVO
+    t_phase = time.perf_counter()
+    _, cam, seq = main_scene(lines=True)
+    ln = lines_scene()
+    cfg = flagship(LINES_ONLY)
+    for tag, sc in (("chunk", seq), ("lines_chunk", ln)):
+        il = torch.from_numpy(sc.images_l).to(dev)
+        ir = torch.from_numpy(sc.images_r).to(dev)
+        if tag == "lines_chunk":
+            warm = BatchedStereoVO(cfg, cam)
+            warm.initialize(il[0], ir[0])
+            warm.process_chunk(il[1:1 + CHUNK], ir[1:1 + CHUNK])
+        r = chunked_vo(dev, cfg, cam, il, ir, 2)
+        n = 2 * CHUNK
+        print(f"[lines_only {tag}] fps={n / r['wall']:.2f} ms_per_frame="
+              f"{1e3 * r['wall'] / n:.3f} (host clock, initialize + 2 "
+              f"chunks, ends in synchronize) max_memory_allocated_bytes="
+              f"{r['peak']}; stereo lines per frame min/median="
+              f"{int(r['n_lines'].min())}/{float(np.median(r['n_lines']))}"
+              f", line inliers min/median={int(r['n_line_inl'].min())}/"
+              f"{float(np.median(r['n_line_inl']))}; launches="
+              f"{json.dumps(r['launches'], sort_keys=True)}", flush=True)
+        hold_cpu(f"lines_only {tag}", r, sc.poses, LINES_ONLY_CPU[tag])
+        check(tag == "chunk" or int(r["good"].sum()) >= 0.75 * n,
+              f"lines_only {tag}: {int(r['good'].sum())} of {n} frames "
+              "tracked on the lines scene")
+        want = expected_launches(True, points=False)
+        check(r["launches"] == want, f"lines_only {tag}: launches "
+              f"{r['launches']} differ from the path's {want}")
+    f = euroc_vo(dev.type, lambda i: (ln.images_l[i], ln.images_r[i]),
+                 cam, cfg, LINES_ONLY_FRAMES)
+    print(f"[lines_only lines_frame] {f['ms']:.2f} ms a frame (host clock, "
+          f"{LINES_ONLY_FRAMES} frames, the first's extraction included)",
+          flush=True)
+    hold_cpu("lines_only lines_frame", f, ln.poses,
+             LINES_ONLY_CPU["lines_frame"])
+    want = expected_frame_launches(LINES_ONLY_FRAMES, points=False)
+    check(f["launches"] == want, f"lines_only per frame: launches "
+          f"{f['launches']} differ from the path's {want}")
+    return time.perf_counter() - t_phase
+
+
+def scan_phase(dev) -> float:
+    """[scan]: scan mode (``tracking.batched_chunks=False``) at 1241x376:
+    point+line over the main paths' frames, initialize + 2 chunks of 20,
+    and lines-only over the lines scene, initialize + 1 chunk, each after a
+    warm-up chunk, held to its CPU run and to ``expected_launches``' scan
+    form (20 K13 launches at B = 1 a chunk); the point+line run within 5 mm
+    of the batched run on the same frames (the reference's own bound
+    between per-frame and chunked tracking, tests/test_batch_vo.py:117).
+    Then a chunk's device time in each mode (``chunk_device_times``).
+    Returns the phase's seconds."""
+    import os
+    import torch
+    from plslam_tpu_torch.tracking.batch_vo import BatchedStereoVO
+    t_phase = time.perf_counter()
+    _, cam, seq = main_scene(lines=True)
+    on_card = lambda sc: (torch.from_numpy(sc.images_l).to(dev),
+                          torch.from_numpy(sc.images_r).to(dev))
+    frames = {"main": (seq, *on_card(seq))}
+    ln = lines_scene()
+    frames["lines"] = (ln, *on_card(ln))
+    _, il, ir = frames["main"]
+    batched = chunked_vo(dev, flagship(), cam, il, ir, 2)
+    for tag, upd, n_chunks, scene in (("lines", {}, 2, "main"),
+                                      ("lines_only", LINES_ONLY, 1,
+                                       "lines")):
+        sc, il, ir = frames[scene]
+        cfg = flagship(SCAN, upd)
+        warm = BatchedStereoVO(cfg, cam)
+        warm.initialize(il[0], ir[0])
+        warm.process_chunk(il[1:1 + CHUNK], ir[1:1 + CHUNK])
+        r = chunked_vo(dev, cfg, cam, il, ir, n_chunks)
+        n = n_chunks * CHUNK
+        print(f"[scan] {tag}: fps={n / r['wall']:.2f} ms_per_frame="
+              f"{1e3 * r['wall'] / n:.3f} (host clock, initialize + "
+              f"{n_chunks} chunk(s), ends in synchronize) "
+              f"max_memory_allocated_bytes={r['peak']}; launches="
+              f"{json.dumps(r['launches'], sort_keys=True)}", flush=True)
+        hold_cpu(f"scan {tag}", r, sc.poses, SCAN_CPU[tag])
+        want = expected_launches(True, points=not upd, scan=True,
+                                 chunks=n_chunks)
+        check(r["launches"] == want, f"scan {tag}: launches "
+              f"{r['launches']} differ from the path's {want}")
+        if tag == "lines":
+            d = float(np.linalg.norm(r["est"][:, :3, 3]
+                                     - batched["est"][:, :3, 3],
+                                     axis=1).max())
+            print(f"[scan] lines: positions within {d:.3g} m of the batched"
+                  f" run on the same frames (bound {CHUNK_VS_FRAME_M})",
+                  flush=True)
+            check(d < CHUNK_VS_FRAME_M, f"scan vs batched: {d} m")
+
+    # a chunk's device time by mode, in a process of its own (the
+    # profiler keeps fewer records late in a long process)
+    here = os.path.dirname(os.path.abspath(__file__))
+    print(subprocess.run(
+        [sys.executable, os.path.join(here, "chip_smoke.py"),
+         "--chunk-device-times"], cwd=here, capture_output=True, text=True,
+        check=True, timeout=600).stdout.strip(), flush=True)
+    return time.perf_counter() - t_phase
+
+
+def chunk_device_times() -> None:
+    """``python3 chip_smoke.py --chunk-device-times``: the device time of
+    one chunk of 20 of bench.py's frames in each configuration and mode
+    (``vo_chunk`` from the first frame's features: every device kernel,
+    the hand kernels, K13's; and the front end, ``extract_stereo_frame``
+    of the chunk, alone). ``scan_phase`` runs it in a process of its own."""
+    import torch
+    from plslam_tpu_torch.frontend.stereo_frame import extract_stereo_frame
+    from plslam_tpu_torch.tracking.batch_vo import extract_one, vo_chunk
+    dev = torch.device("cuda", 0)
+    _, cam, seq = main_scene(lines=True)
+    il = torch.from_numpy(seq.images_l).to(dev)
+    ir = torch.from_numpy(seq.images_r).to(dev)
+    f32 = lambda x: x[1:1 + CHUNK].to(torch.float32)
+    for tag, cfg in (("batched", flagship()),
+                     ("batched lines_only", flagship(LINES_ONLY)),
+                     ("scan", flagship(SCAN)),
+                     ("scan lines_only", flagship(SCAN, LINES_ONLY))):
+        p0, l0 = extract_one(il[0], ir[0], cam, cfg)
+        T0 = torch.eye(4, device=dev)
+        chunk = lambda: vo_chunk(il[1:1 + CHUNK], ir[1:1 + CHUNK], p0, l0,
+                                 T0, cam, cfg)
+        all_ms, n_k = all_kernels(chunk, iters=5)
+        own = device_ms(chunk, iters=5)
+        gn_ms, n_gn = _profile_device(
+            chunk, lambda k: "pose_optimize_kernel" in k, 5)
+        fe_ms, _ = all_kernels(lambda: extract_stereo_frame(
+            f32(il), f32(ir), cam, cfg), iters=5)
+        print(f"[scan] device ms a chunk of {CHUNK}, {tag}: all "
+              f"{all_ms:.4f} ({n_k} device kernels), hand kernels "
+              f"{own:.4f}, K13 {gn_ms:.4f} ({n_gn} launches), front end "
+              f"{fe_ms:.4f} (torch.profiler)", flush=True)
 
 
 def bench_slam_scene(devices) -> None:
@@ -5425,6 +5878,17 @@ def main() -> int:
     if sys.argv[1:2] == ["--against-solves"]:
         solve_calls(*sys.argv[2:4])
         return 0
+    if sys.argv[1:2] == ["--pose-graph"]:
+        from plslam_tpu_torch import native
+        import torch
+        native.lib()
+        record = Recorder()
+        pose_graph_phase(torch.device("cuda", 0), record)
+        print(json.dumps(record.rows))
+        return 0
+    if sys.argv[1:2] == ["--chunk-device-times"]:
+        chunk_device_times()
+        return 0
     if sys.argv[1:2] == ["--edge-grids"]:
         edge_sweep_grids()
         return 0
@@ -5518,6 +5982,11 @@ def main() -> int:
     # EuRoC-layout raw rig through host and device rectification, N; the
     # SLAM app over the KITTI-layout directory
     runs.append((dataset_path(dev, record),))
+    # 6a. the lines-only configuration and scan mode on the main paths'
+    # frames; after every phase that reads torch.profiler, which keeps
+    # fewer device records the more a process has launched
+    print(f"[lines_only] phase {lines_only_phase(dev):.1f} s", flush=True)
+    print(f"[scan] phase {scan_phase(dev):.1f} s", flush=True)
     # 6b. the fused SLAM driver past max_kfs: 4,001 frames at full width
     print(f"[long] phase {long_phase(dev):.1f} s", flush=True)
     entries = set(r["entry"] for r in record.rows)

@@ -36,7 +36,8 @@ import torch
 from plslam_tpu_torch import native, resolve_device
 from plslam_tpu_torch.backend.chunk_backend import backend_slots
 from plslam_tpu_torch.backend.map import (compact_keyframes,
-                                          force_retire_kfs, init_map_state)
+                                          force_retire_kfs, init_map_state,
+                                          require_points)
 from plslam_tpu_torch.backend.map_handler import (KeyFrameSummary,
                                                   mapping_step_traced_lba)
 from plslam_tpu_torch.config import SlamConfig
@@ -275,6 +276,7 @@ class FusedPLSLAM:
 
     def __init__(self, cfg: SlamConfig, cam: Optional[StereoCamera] = None,
                  enable_loops: Optional[bool] = None, device=None):
+        require_points(cfg, "FusedPLSLAM")
         self.device = resolve_device(device)
         self.cfg = cfg
         self.cam = cam if cam is not None else StereoCamera.from_config(

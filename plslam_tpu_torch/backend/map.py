@@ -80,6 +80,19 @@ class MapState(NamedTuple):
     kf_ln_desc: torch.Tensor     # (F, L, 8) int32 words
 
 
+def require_points(cfg: SlamConfig, driver: str) -> None:
+    """The SLAM drivers' refusal of the lines-only configuration: the
+    reference's keyframe insertion cannot take a zero-capacity point set
+    (``plslam_tpu/backend/map.py:193``, add_keyframe's map-point match
+    raises on it), so no driver of either package maps without points."""
+    if not cfg.points.has_points:
+        raise NotImplementedError(
+            f"{driver}: points.has_points=False (lines-only) runs the VO "
+            "drivers only; the reference's add_keyframe (backend/map.py:193)"
+            " fails on a zero-capacity point set, so there is no lines-only "
+            "SLAM to port (ROADMAP.md, reference behaviours)")
+
+
 def init_map_state(cfg: SlamConfig, device) -> MapState:
     m = cfg.mapping
     F, P, M = m.max_kfs, m.max_points, m.max_lines

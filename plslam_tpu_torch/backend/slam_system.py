@@ -32,6 +32,7 @@ from typing import List, NamedTuple, Optional, Tuple
 import numpy as np
 
 from plslam_tpu_torch import resolve_device
+from plslam_tpu_torch.backend.map import require_points
 from plslam_tpu_torch.backend.map_handler import MapHandler
 from plslam_tpu_torch.config import SlamConfig
 from plslam_tpu_torch.convert import host_copies
@@ -63,6 +64,7 @@ class PLSLAM:
 
     def __init__(self, cfg: SlamConfig, cam: Optional[StereoCamera] = None,
                  enable_loops: Optional[bool] = None, device=None):
+        require_points(cfg, "PLSLAM")
         self.device = resolve_device(device)
         self.cfg = cfg
         self.cam = cam if cam is not None else StereoCamera.from_config(
@@ -144,6 +146,7 @@ class ChunkedPLSLAM:
 
     def __init__(self, cfg: SlamConfig, cam: Optional[StereoCamera] = None,
                  enable_loops: Optional[bool] = None, device=None):
+        require_points(cfg, "ChunkedPLSLAM")
         self.device = resolve_device(device)
         self.cfg = cfg
         self.cam = cam if cam is not None else StereoCamera.from_config(

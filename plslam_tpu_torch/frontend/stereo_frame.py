@@ -32,11 +32,9 @@ def extract_stereo_frame(imgs_l: torch.Tensor, imgs_r: torch.Tensor,
     """(B, H, W) f32 left/right images -> points and (with
     ``lines.has_lines``) lines, each with a leading B axis. ``u8_wrap``:
     the images are uint8 values taken unscaled, and the line detector's
-    full-resolution Sobel wraps as the reference's uint8 subtraction."""
-    if not cfg.points.has_points:
-        raise NotImplementedError(
-            "the lines-only configuration (points.has_points=False) is "
-            "ROADMAP Queue 1 of the port")
+    full-resolution Sobel wraps as the reference's uint8 subtraction.
+    Without ``points.has_points`` (the lines-only configuration) the
+    points are a zero-capacity set and the point front end does not run."""
     B = imgs_l.shape[0]
     both = torch.cat([imgs_l, imgs_r])
     lns = None
@@ -45,7 +43,20 @@ def extract_stereo_frame(imgs_l: torch.Tensor, imgs_r: torch.Tensor,
         segs_l = type(segs)(*(x[:B] for x in segs))
         segs_r = type(segs)(*(x[B:] for x in segs))
         lns = match_stereo_lines(segs_l, d[:B], segs_r, d[B:], cam, cfg)
+    if not cfg.points.has_points:
+        return no_points(B, imgs_l.device), lns
     return stereo_points_of(both, cam, cfg), lns
+
+
+def no_points(B: int, device) -> PointObservations:
+    """The lines-only configuration's point set: capacity 0, a leading B
+    axis, the reference's fields and dtypes."""
+    z = lambda *s, dtype=torch.float32: torch.zeros((B, 0) + s, dtype=dtype,
+                                                    device=device)
+    return PointObservations(uv=z(2), uv_r=z(2), disp=z(), P=z(3),
+                             desc=z(256, dtype=torch.uint8),
+                             octave=z(dtype=torch.int32), angle=z(),
+                             score=z(), valid=z(dtype=torch.bool))
 
 
 def _frame(feats, i):

@@ -1,15 +1,19 @@
 """Chunked stereo VO: a chunk of B frames per call.
 
-Port of ``plslam_tpu/tracking/batch_vo.py``, batched mode
-(``tracking.batched_chunks=True``): the B stereo pairs of a chunk are
-feature-extracted as one batch, then all B consecutive-pair matches and
-robust GN solves run batched, for ``chunk_passes`` passes; non-final
-passes run the shortened "lite" GN. With ``lines.has_lines`` (the
+Port of ``plslam_tpu/tracking/batch_vo.py``. The B stereo pairs of a
+chunk are feature-extracted as one batch. In batched mode
+(``tracking.batched_chunks=True``, the default) all B consecutive-pair
+matches and robust GN solves then run batched, for ``chunk_passes``
+passes; non-final passes run the shortened "lite" GN. In scan mode
+(``batched_chunks=False``, the reference's ``lax.scan``) the frames are
+tracked one after another, each from the pose the previous one left as its
+prior: one full GN at B = 1 a frame. With ``lines.has_lines`` (the
 default, flagship configuration) line segments are extracted, matched and
-solved jointly with the points. ``keep_feats`` keeps the chunk's feature
-stacks, descriptors bit-packed (``_pack_feats``), for the host-KF SLAM
-driver to slice its keyframes from. Scan mode (``batched_chunks=False``)
-and the lines-only configuration are not ported yet.
+solved jointly with the points; without ``points.has_points`` (the
+lines-only configuration) the point set has capacity 0 and only lines are
+matched. ``keep_feats`` keeps the chunk's feature stacks, descriptors
+bit-packed (``_pack_feats``), for the host-KF SLAM driver to slice its
+keyframes from.
 
 Every tensor op is enqueued on the current CUDA stream; ``submit_chunk``
 does not wait for the device, ``drain`` fetches the per-frame poses.
@@ -78,13 +82,11 @@ def vo_chunk(imgs_l: torch.Tensor, imgs_r: torch.Tensor,
     ``T_prior0`` (4, 4) the chunk-level constant-velocity prior. With
     ``keep_feats`` the output carries the chunk's feature stacks
     (``all_pts``, ``all_lns``) with bit-packed descriptors."""
-    if not cfg.tracking.batched_chunks:
-        raise NotImplementedError(
-            "scan mode (tracking.batched_chunks=False) is not ported yet")
     pts, lns = extract_stereo_frame(_to_f32(imgs_l), _to_f32(imgs_r), cam,
                                     cfg)
-    out = _chunk_tracking_batched(pts, lns, prev_pts, prev_lns, T_prior0,
-                                  cam, cfg)
+    track = (_chunk_tracking_batched if cfg.tracking.batched_chunks
+             else _chunk_tracking_scan)
+    out = track(pts, lns, prev_pts, prev_lns, T_prior0, cam, cfg)
     if keep_feats:
         all_pts, all_lns = _pack_feats(pts, lns)
         out = out._replace(all_pts=all_pts, all_lns=all_lns)
@@ -101,6 +103,60 @@ def _pack_feats(pts: PointObservations, lns: Optional[LineObservations]):
     return all_pts, all_lns
 
 
+def _solve_pairs(prev_p: PointObservations, prev_l: Optional[LineObservations],
+                 pts: PointObservations, lns: Optional[LineObservations],
+                 T_pri: torch.Tensor, cam: StereoCamera,
+                 cfg: SlamConfig) -> pose_gn.PoseResult:
+    """Match and solve the pairs (previous, current) along the leading
+    axis from their priors (B, 4, 4): D on the points (none at capacity 0,
+    the lines-only configuration) and on the lines, then one launch of
+    K13."""
+    if pts.uv.shape[1] > 0:
+        mres = match_f2f_points(prev_p, pts, T_pri, cam, cfg)
+        terms = build_point_terms(prev_p, pts, mres)
+    else:
+        terms = pose_gn.no_point_terms(T_pri.shape[0], T_pri.device)
+    ln_terms = None
+    if prev_l is not None:
+        ml = match_f2f_lines(prev_l, lns, T_pri, cam, cfg)
+        ln_terms = build_line_terms(prev_l, lns, ml)
+    return pose_gn.optimize_pose(T_pri, cam, terms, ln_terms, cfg)
+
+
+def _chunk_output(res: pose_gn.PoseResult, pts: PointObservations,
+                  lns: Optional[LineObservations],
+                  DT_next: torch.Tensor) -> ChunkOutput:
+    return ChunkOutput(res.T, res.cov, res.n_inliers, res.err, res.good,
+                       _frame(pts, -1), _frame(lns, -1), DT_next=DT_next,
+                       n_lines=lns.valid.sum(-1) if lns is not None else None,
+                       n_line_inliers=res.inlier_ln.sum(-1))
+
+
+def _chunk_tracking_scan(pts: PointObservations,
+                         lns: Optional[LineObservations],
+                         prev_pts: PointObservations,
+                         prev_lns: Optional[LineObservations],
+                         T_prior0: torch.Tensor, cam: StereoCamera,
+                         cfg: SlamConfig) -> ChunkOutput:
+    """The B pairs of an extracted chunk one after another (the
+    reference's ``lax.scan``): each frame matched against the one before
+    it (the carry for the first) from the carried prior, one full GN, and
+    the prior for the next frame ``where(good, T, prior)``, on the device."""
+    one = lambda f, i: None if f is None else type(f)(*(x[i:i + 1]
+                                                        for x in f))
+    head = lambda f: None if f is None else type(f)(*(x[None] for x in f))
+    prev_p, prev_l, T_pri = head(prev_pts), head(prev_lns), T_prior0[None]
+    steps = []
+    for i in range(pts.uv.shape[0]):
+        pts_i, lns_i = one(pts, i), one(lns, i)
+        res = _solve_pairs(prev_p, prev_l, pts_i, lns_i, T_pri, cam, cfg)
+        steps.append(res)
+        T_pri = torch.where(res.good[:, None, None], res.T, T_pri)
+        prev_p, prev_l = pts_i, lns_i
+    res = pose_gn.PoseResult(*(torch.cat(x) for x in zip(*steps)))
+    return _chunk_output(res, pts, lns, T_pri[0])
+
+
 def _chunk_tracking_batched(pts: PointObservations,
                             lns: Optional[LineObservations],
                             prev_pts: PointObservations,
@@ -114,13 +170,7 @@ def _chunk_tracking_batched(pts: PointObservations,
     prev_l = _shift(prev_lns, lns) if lns is not None else None
 
     def solve(T_pri, c):
-        mres = match_f2f_points(prev_p, pts, T_pri, cam, c)
-        terms = build_point_terms(prev_p, pts, mres)
-        ln_terms = None
-        if prev_l is not None:
-            ml = match_f2f_lines(prev_l, lns, T_pri, cam, c)
-            ln_terms = build_line_terms(prev_l, lns, ml)
-        return pose_gn.optimize_pose(T_pri, cam, terms, ln_terms, c)
+        return _solve_pairs(prev_p, prev_l, pts, lns, T_pri, cam, c)
 
     # non-final passes only produce the next pass's prior: shortened GN
     lp = cfg.tracking.lite_pass_iters
@@ -146,11 +196,8 @@ def _chunk_tracking_batched(pts: PointObservations,
             torch.where(keep_new.reshape((B,) + (1,) * (a.ndim - 1)), a, b)
             for a, b in zip(res_new, res)))
 
-    DT_next = torch.where(res.good[-1], res.T[-1], T_pri[-1])
-    n_lines = lns.valid.sum(-1) if lns is not None else None
-    return ChunkOutput(res.T, res.cov, res.n_inliers, res.err, res.good,
-                       _frame(pts, -1), _frame(lns, -1), DT_next=DT_next,
-                       n_lines=n_lines, n_line_inliers=res.inlier_ln.sum(-1))
+    return _chunk_output(res, pts, lns,
+                         torch.where(res.good[-1], res.T[-1], T_pri[-1]))
 
 
 class BatchedStereoVO:

@@ -100,10 +100,7 @@ def track_step(prev_pts: PointObservations,
         pt_terms = build_point_terms(prev_p, cur_p, mp)
         mp_idx, n_pt = mp.idx[0], mp.valid[0].sum()
     else:
-        pt_terms = pose_gn.PointTerms(
-            torch.zeros((1, 0, 3), device=dev),
-            torch.zeros((1, 0, 2), device=dev),
-            torch.zeros((1, 0), dtype=torch.bool, device=dev))
+        pt_terms = pose_gn.no_point_terms(1, dev)
         mp_idx = torch.zeros((0,), dtype=torch.int32, device=dev)
         n_pt = torch.zeros((), dtype=torch.int64, device=dev)
     if prev_lns is not None and cfg.lines.has_lines:

@@ -125,6 +125,14 @@ def _no_lines(pts: PointTerms) -> LineTerms:
     return LineTerms(z, z, z, pts.valid.new_zeros(pts.valid.shape[:-1] + (0,)))
 
 
+def no_point_terms(B: int, device) -> PointTerms:
+    """Zero-capacity point terms of B pairs: the lines-only
+    configuration's (K = 0)."""
+    z = lambda *s, dtype=torch.float32: torch.zeros((B, 0) + s, dtype=dtype,
+                                                    device=device)
+    return PointTerms(z(3), z(2), z(dtype=torch.bool))
+
+
 _DAMP = 1e-6   # tiny Tikhonov term: the GN solve stays defined
 
 

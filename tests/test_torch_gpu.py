@@ -748,6 +748,34 @@ def test_optimize_pose_one_launch(cuda, B, L):
     assert bool(ref.good.all())
 
 
+@pytest.mark.parametrize("B", [20, 1])
+def test_optimize_pose_lines_only(cuda, B):
+    """Kernel I's whole optimize_pose with K = 0 point terms (the
+    lines-only configuration: zero-size point tensors, a null pointer to
+    the kernel) and 128 line terms with 0.5 px endpoint noise, a tenth 40
+    px off: one launch, held to optimize_pose_plain on the card by
+    chip_smoke.py's lines-only rule (LINES_ONLY_GN_TOLS: T within 1e-5,
+    cov and err within 1e-3 relative, the decisions exactly equal or
+    within 1e-4 of their threshold); its point masks of size 0."""
+    from chip_smoke import (LINES_ONLY_GN_TOLS, gn_inputs, hold_pose,
+                            lines_only_cov_rel, pose_margins)
+    from plslam_tpu_torch.config import SlamConfig
+    from plslam_tpu_torch.tracking import pose_gn
+    cfg = SlamConfig()
+    cam, pts, lns = gn_inputs(cuda, B, 0, 128, seed=5 + 128 + B,
+                              line_px=0.5)
+    T0 = torch.eye(4, device=cuda).expand(B, 4, 4)
+    margins, ref, H, sse = pose_margins(T0, cam, pts, lns, cfg)
+    got = _launched("pose_gn_optimize", lambda: pose_gn.optimize_pose(
+        T0, cam, pts, lns, cfg))
+    assert got.inlier_pt.shape == (B, 0)
+    errs, _, err_rel, differ = hold_pose(got, ref, margins, H, sse)
+    errs = [errs[0], lines_only_cov_rel(got, ref, differ), err_rel, errs[3]]
+    assert all(e <= t for e, t in zip(errs, LINES_ONLY_GN_TOLS)), errs
+    assert bool(ref.good.all())
+    assert torch.equal(got.n_inliers, got.inlier_ln.sum(-1).int())
+
+
 def _kf_chunk(rng, B, cuda, bad_lead=0):
     from plslam_tpu_torch.core import lie
     xi = rng.normal(size=(B, 6)) * [0.05, 0.02, 0.4, 0.01, 0.03, 0.01]
@@ -1067,13 +1095,14 @@ def test_bow_kernels(cuda):
 
 
 @pytest.mark.parametrize("F,n,extra", [(64, 40, 60), (128, 100, 300),
-                                       (256, 200, 800), (512, 400, 1600)])
+                                       (256, 200, 800), (512, 400, 1600),
+                                       (1024, 700, 2400)])
 def test_pose_graph_kernels(cuda, F, n, extra):
     """Kernel M (K18) against the plain version on the card: launch by
     launch at Fb 64 and 512 (pg_edges at every bucket, against float64;
-    pg_assemble and pg_blocks, built once a solve), pg_pcg (one CTA, one,
-    two and four) at the loop closer's four slot buckets, and both solvers
-    up to Fb 128.
+    pg_assemble and pg_blocks, built once a solve; pg_blocks and pg_update
+    also at 1,024), pg_pcg (one CTA, one, two, four and sixteen) at the
+    loop closer's five slot buckets, and both solvers up to Fb 128.
     Residuals and Jacobians within 1e-5 of the largest (f32 log/exp in
     another operation order), the dense system and gradient within 1e-5,
     the PCG step within 1e-3, the poses of a whole solve within 1e-3 of
@@ -1086,6 +1115,7 @@ def test_pose_graph_kernels(cuda, F, n, extra):
     rel = lambda a, b: float((a - b).abs().max()
                              / b.abs().max().clamp(min=1e-30))
     every = F in (64, 512)      # the other M kernels, as chip_smoke.py
+    blocks_too = F in (64, 512, 1024)
     rp, Jp, cp = pg.edges_plain(gd)
     # pg_edges at every bucket: the kernel against the plain version in
     # float64 (K18's rule: 3x the plain version's own distance + 1e-5); as
@@ -1110,14 +1140,14 @@ def test_pose_graph_kernels(cuda, F, n, extra):
         assert rel(H - torch.diag(torch.diag(H)), Hp - torch.diag(
             torch.diag(Hp))) <= 1e-5 and rel(gv, gvp) <= 1e-5
     gvp, Hdp = pg.blocks_plain(gd, rp, Jp, diag)
-    if every:
+    if blocks_too:
         gv, Hd = _launched("pg_blocks", lambda: pg.blocks(gd, rp, Jp, diag,
                                                           inc))
         assert rel(gv, gvp) <= 1e-5 and rel(Hd, Hdp) <= 1e-5
     Minv = torch.linalg.inv_ex(Hdp)[0]
     dx = _launched("pg_pcg", lambda: pg.pcg(gd, Jp, Minv, diag, gvp, 96, inc))
     assert rel(dx, pg.pcg_plain(gd, Jp, Minv, diag, gvp, 96)) <= 1e-3
-    if every:
+    if blocks_too:
         P, c1, _ = _launched("pg_update", lambda: pg.update(gd, cp, dx, 1.0,
                                                             r))
         Pp, c1p, _ = pg.update_plain(gd, cp, dx, 1.0)
@@ -1137,10 +1167,12 @@ def test_pose_graph_kernels(cuda, F, n, extra):
                                          (128, 100, 300, None),
                                          (256, 200, 800, None),
                                          (512, 400, 1600, None),
+                                         (1024, 700, 2400, None),
                                          (64, 40, 60, 247)])
 def test_pose_graph_edge_sweep(cuda, F, n, extra, E):
-    """K18's edge sweep over edge_layout's CTAs at the loop closer's four
-    slot buckets and at a ragged E (247 slots: a last CTA of 23 edges):
+    """K18's edge sweep over edge_layout's CTAs at the loop closer's five
+    slot buckets (128 CTAs at Fb 1,024) and at a ragged E (247 slots: a
+    last CTA of 23 edges):
     pg_edges' two modes give the same residual and cost bits, r = 0 on
     unused slots, Ji within 1e-6 of the plain version's largest entry, r
     and the cost within 1e-5 (not at Fb 128: test_pose_graph_kernels holds
@@ -1191,10 +1223,11 @@ def test_pose_graph_edge_sweep(cuda, F, n, extra, E):
                                          (128, 100, 300, None),
                                          (256, 200, 800, None),
                                          (512, 400, 1600, None),
+                                         (1024, 700, 2400, None),
                                          (64, 40, 60, 247)])
 def test_pose_graph_gradient(cuda, F, n, extra, E):
     """The gradient pg_update hands on, in both orders, at the loop
-    closer's four slot buckets and a ragged E: the bits of pg_assemble's
+    closer's five slot buckets and a ragged E: the bits of pg_assemble's
     (dense) and pg_blocks' (PCG) g at the residuals it hands on, within
     1e-5 of gradient_plain's largest entry; its poses, cost and residuals
     the bits of a launch without the gradient; a second launch the same

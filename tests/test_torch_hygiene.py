@@ -204,9 +204,23 @@ def test_tf32_is_off():
 
 
 def test_line_front_end_is_refused_by_name():
-    """The lines-only configuration is not ported yet and says where it
-    is queued; the flagship point+line configuration runs."""
-    img = torch.zeros(1, 64, 64)
-    cfg = SlamConfig().with_updates({"points": {"has_points": False}})
-    with pytest.raises(NotImplementedError, match="Queue 1"):
-        extract_one(img[0], img[0], None, cfg)
+    """The lines-only configuration's front end runs on the CPU (a
+    zero-capacity point set beside the lines); the SLAM drivers, which the
+    reference cannot run without points, refuse it by name."""
+    from plslam_tpu_torch.backend.fused_slam import FusedPLSLAM
+    from plslam_tpu_torch.backend.slam_system import ChunkedPLSLAM, PLSLAM
+    from plslam_tpu_torch.core.camera import StereoCamera
+    cfg = SlamConfig().with_updates({
+        "camera": {"width": 96, "height": 64, "cx": 48.0, "cy": 32.0},
+        "points": {"has_points": False}})
+    cam = StereoCamera.from_config(cfg.camera)
+    img = torch.zeros(64, 96)
+    img[20:44, 30:70] = 1.0
+    pts, lns = extract_one(img, img, cam, cfg)
+    assert pts.uv.shape == (0, 2) and pts.desc.shape == (0, 256)
+    assert pts.desc.dtype == torch.uint8 and pts.valid.dtype == torch.bool
+    assert lns.valid.ndim == 1 and lns.desc.shape == (len(lns.valid), 256)
+    for driver in (FusedPLSLAM, PLSLAM, ChunkedPLSLAM):
+        with pytest.raises(NotImplementedError,
+                           match=driver.__name__ + ": points.has_points"):
+            driver(cfg, cam, device="cpu")

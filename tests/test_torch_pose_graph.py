@@ -212,11 +212,13 @@ def test_pcg_respects_invalid_slots():
 
 
 # pg_pcg's cluster: the partition the kernel computes, mirrored by
-# pcg_partition, at the loop closer's four slot buckets (E = 4F; the graphs
-# chip_smoke.py times), on a hub graph with unused slots between used ones,
-# and at larger clusters than pcg_layout picks
+# pcg_partition, at the loop closer's five slot buckets (E = 4F; the graphs
+# chip_smoke.py times; 1,024 is the provisioned long run's, a cluster of
+# 16), on a hub graph with unused slots between used ones, and at larger
+# clusters than pcg_layout picks
 _BUCKETS = [(64, 40, 60, None), (128, 100, 300, None), (256, 200, 800, None),
-            (512, 400, 1600, None), (64, 40, 60, 16), (512, 400, 1600, 16)]
+            (512, 400, 1600, None), (1024, 700, 2400, None),
+            (64, 40, 60, 16), (512, 400, 1600, 16)]
 
 
 def _hub_graph(F=96, seed=7):
@@ -246,7 +248,7 @@ def test_pcg_partition_owns_every_edge_once(F, n, extra, C):
     E = g.edge_w.shape[0]
     C_, threads, smem = tpg.pcg_layout(F, E)
     assert smem <= tpg.PCG_SMEM_MAX and threads % 32 == 0 and threads <= 1024
-    assert C_ == {64: 1, 96: 1, 128: 1, 256: 2, 512: 4}[F]
+    assert C_ == {64: 1, 96: 1, 128: 1, 256: 2, 512: 4, 1024: 16}[F]
     C = C or C_
     inc = tpg._incidence(g)
     oi, pi, oj, pj = (np.asarray(x) for x in inc)
@@ -349,10 +351,11 @@ def test_pcg_cluster_data_flow_matches_plain(F, n, extra, C):
 
 
 # pg_edges' and pg_update's plan and the residuals a GN step hands on: the
-# CTAs of edge_layout at the loop closer's four slot buckets (E = 4F) and
+# CTAs of edge_layout at the loop closer's five slot buckets (E = 4F) and
 # at a ragged E; update_plain's residuals; the solves, which evaluate their
 # edges once, against a loop that evaluates them at every step
-_SWEEP = [(64, 256), (128, 512), (256, 1024), (512, 2048), (10, 37)]
+_SWEEP = [(64, 256), (128, 512), (256, 1024), (512, 2048), (1024, 4096),
+          (10, 37)]
 
 
 def test_edge_layout_matches_kernel():
@@ -371,12 +374,15 @@ def test_edge_layout_matches_kernel():
 def test_edge_layout_owns_every_slot_once(F, E):
     """Every edge slot and every pose slot belongs to exactly one CTA,
     contiguous ranges in CTA order, at most a thread an edge; Fb 64
-    already spans several SMs."""
+    already spans several SMs; Fb 1,024's cooperative pg_update is 128
+    CTAs, within the card's 132 SMs."""
     ctas, threads = tpg.edge_layout(E)
     parts = tpg.edge_partition(F, E)
     assert len(parts) == ctas and threads == tpg.EDGE_NT
     if F == 64:
         assert ctas > 1
+    if F == 1024:
+        assert (ctas, threads) == (128, 256)
     es = [e for (e0, e1), _ in parts for e in range(e0, e1)]
     ns = [n for _, (n0, n1) in parts for n in range(n0, n1)]
     assert es == list(range(E)) and ns == list(range(F))
