@@ -110,15 +110,33 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
      frame; the app's ``--no-points`` runs in the dataset phase) and scan
      mode (``[scan]``: point+line and lines-only), each held to its CPU
      run;
+  6c. ``[dist]``, the distributed back end (``parallel/``), in a process
+     of its own (``python3 chip_smoke.py --dist``; ``dist_phase``), its
+     shards on cuda:0: (a) on ``lba_window_problem`` cut into 2 and 4
+     owner shards, every K15 launch of the sharded step on every shard
+     against its plain version (lba_schur_corr and lba_solve_reduced, the
+     two halves of lba_solve around the collective, by K15's rule, timed
+     as JSON rows at 4 shards), the sharded LM's exact launches, its
+     states held to the plain versions in float32 and float64 and to the
+     CPU run, by direction to run_lba, one step's collectives
+     (``comm_bytes_per_step``); (b) ``PLSLAM`` with mapping.distributed
+     (4 shards) on tests/test_dist_lba.py's 25-frame scene against the
+     single-device run (the slice's main path: its launches join the JSON
+     line); (c) loop.distributed on tests/test_dist_vocab.py's 40-frame
+     loop scene, the same loop events and keyframes; (d)
+     ``apps/plslam_multiseq.py --synthetic --distributed``; (e)
+     ``parallel/multihost_check.py`` in two processes joined by gloo
+     against the in-process 4-shard mesh;
   7. one JSON line of the kernels (launches from the first path run that
      launched each), then the card line, then the result.
 
 ``python3 chip_smoke.py --cpu-ate [vo] [slam] [loops] [pcg] [dataset]
-[compact] [lines_only] [scan]`` runs the paths' frames through the plain
-versions on the CPU: the calibration of the ATE, line-count, keyframe,
-loop and compaction bounds below (no part named: all; ``pcg``: the PCG
-loop run alone; ``compact``: the COMPACT_CPU record; ``lines_only`` and
-``scan``: the LINES_ONLY_CPU and SCAN_CPU records).
+[compact] [lines_only] [scan] [dist]`` runs the paths' frames through the
+plain versions on the CPU: the calibration of the ATE, line-count,
+keyframe, loop and compaction bounds below (no part named: all; ``pcg``:
+the PCG loop run alone; ``compact``: the COMPACT_CPU record;
+``lines_only`` and ``scan``: the LINES_ONLY_CPU and SCAN_CPU records;
+``dist``: the sharded LM's CPU run, which ``[dist]`` computes itself).
 ``python3 chip_smoke.py --edge-grids`` prints the grids the profiler sees
 of K18's ``pg_edges`` and ``pg_update``, ``--chunk-device-times`` a VO
 chunk's device time in each configuration and mode, and ``--pose-graph``
@@ -1180,9 +1198,17 @@ def cpu_reference_ate(parts) -> None:
     CPU: the calibration run of the ATE, line-count, keyframe and loop
     bounds. ``parts``: any of vo, slam, loops, pcg, dataset, compact,
     slam_system (or one of its runs: plslam_sync, plslam_async,
-    chunked_sync), lines_only, scan (none: all)."""
+    chunked_sync), lines_only, scan, dist (none: all)."""
     from plslam_tpu_torch.tracking.batch_vo import BatchedStereoVO
     from plslam_tpu_torch.utils.evaluation import ate_rmse
+    if not parts or "dist" in parts:
+        from plslam_tpu_torch.config import SlamConfig
+        from plslam_tpu_torch.core.camera import StereoCamera
+        cfg = SlamConfig()
+        cam = StereoCamera.from_config(cfg.camera)
+        cpu_dist_lm(lba_window_problem("cpu", cfg, cam), cam, cfg)
+        if parts and set(parts) == {"dist"}:
+            return
     vo_parts = [p for p in ("lines_only", "scan") if not parts or p in parts]
     if vo_parts:
         cpu_vo_runs(vo_parts)
@@ -2031,6 +2057,31 @@ F64_FACTOR = 3.0
 F64_FLOOR = 1e-5
 
 
+def f64_gauge(name, got, ref, truth, typical=None, hold=False, tag="lba"):
+    """K15's rule: prints each output's distances (kernel from float64,
+    plain from float64, kernel from plain; relative to each output's
+    largest magnitude); with ``typical`` or ``hold``, holds the first and
+    the last to F64_FACTOR x the second + F64_FLOOR, a bound that with
+    ``typical`` must stay under a tenth of it. Returns the bounds."""
+    d_k = [_rel_d(g, x) for g, x in zip(got, truth)]
+    d_p = [_rel_d(r, x) for r, x in zip(ref, truth)]
+    d_kp = [_rel_d(g, r) for g, r in zip(got, ref)]
+    tols = [F64_FACTOR * p + F64_FLOOR for p in d_p]
+    fmt = lambda xs: [f"{x:.3g}" for x in xs]
+    print(f"[{tag}] {name} (relative to each output's largest magnitude): "
+          f"kernel from float64 {fmt(d_k)}, plain from float64 {fmt(d_p)}, "
+          f"kernel from plain {fmt(d_kp)}; bound {fmt(tols)}"
+          + ("" if typical is None else f", against {fmt(typical)}"),
+          flush=True)
+    if typical is not None or hold:
+        typical = typical or [math.inf] * len(tols)
+        check(all(k <= t and kp <= t and t <= 0.1 * x for k, kp, t, x
+                  in zip(d_k, d_kp, tols, typical)),
+              f"{name}: kernel from float64 {d_k}, from plain {d_kp}, "
+              f"bound {tols}, against {typical}")
+    return tols
+
+
 def lba_phase(dev, record, slam):
     """Kernel K (K15) on two window problems at the path's shapes.
 
@@ -2170,30 +2221,6 @@ def lba_phase(dev, record, slam):
            bin_bytes, bin_ops, bin_lib,
            err_kind="H_ll, H_inv, g_l, H_cl " + rel)
     b64 = _as_f64(bp)
-
-    def f64_gauge(name, got, ref, truth, typical=None, hold=False):
-        """Prints each output's distances (kernel from float64, plain from
-        float64, kernel from plain); with ``typical`` or ``hold``, holds the
-        first and the last to F64_FACTOR x the second + F64_FLOOR, a bound
-        that with ``typical`` must stay under a tenth of it. Returns the
-        bounds."""
-        d_k = [_rel_d(g, x) for g, x in zip(got, truth)]
-        d_p = [_rel_d(r, x) for r, x in zip(ref, truth)]
-        d_kp = [_rel_d(g, r) for g, r in zip(got, ref)]
-        tols = [F64_FACTOR * p + F64_FLOOR for p in d_p]
-        fmt = lambda xs: [f"{x:.3g}" for x in xs]
-        print(f"[lba] {name} ({rel}): kernel from float64 {fmt(d_k)}, plain "
-              f"from float64 {fmt(d_p)}, kernel from plain {fmt(d_kp)}; "
-              f"bound {fmt(tols)}"
-              + ("" if typical is None else f", against {fmt(typical)}"),
-              flush=True)
-        if typical is not None or hold:
-            typical = typical or [math.inf] * len(tols)
-            check(all(k <= t and kp <= t and t <= 0.1 * x for k, kp, t, x
-                      in zip(d_k, d_kp, tols, typical)),
-                  f"{name}: kernel from float64 {d_k}, from plain {d_kp}, "
-                  f"bound {tols}, against {typical}")
-        return tols
 
     def graph_vs_eager(problem, res):
         """run_lba (a replay of its CUDA graph: the SLAM path captured this
@@ -5859,6 +5886,506 @@ def _against_solves(roots: dict) -> None:
                     print(f"[against] ({who}) {line}", flush=True)
 
 
+# -- the distributed back end ---------------------------------------------------
+
+DIST_SHARDS = (2, 4)
+# tests/test_dist_lba.py:210's live scene and configuration (512x320, 25
+# frames, seed 5, points only) and tests/test_dist_vocab.py:104's loop scene
+# (40 frames, seed 21, a keyframe a frame)
+DIST_BASE = {
+    "camera": {"width": 512, "height": 320, "fx": 400.0, "fy": 400.0,
+               "cx": 256.0, "cy": 160.0, "baseline": 0.3},
+    "points": {"max_kpts": 256, "orb_nlevels": 2},
+    "lines": {"has_lines": False},
+    "matching": {"f2f_window": 128.0},
+    "mapping": {"max_kfs": 32, "max_points": 4096, "max_lines": 256,
+                "window_kfs": 4, "fixed_kfs": 2, "lba_iters": 5,
+                "lba_max_points": 1024, "lba_max_lines": 64},
+    "keyframe": {"min_entropy_ratio": 0.97},
+    "loop": {"enabled": False},
+    "system": {"async_mapping": False},
+}
+DIST_LOOP = {
+    "camera": DIST_BASE["camera"],
+    "points": {"max_kpts": 384, "orb_nlevels": 2},
+    "lines": {"has_lines": False},
+    "matching": {"f2f_window": 128.0},
+    "mapping": {"max_kfs": 64, "max_points": 4096, "max_lines": 256,
+                "window_kfs": 4, "fixed_kfs": 2, "lba_iters": 5},
+    "keyframe": {"min_entropy_ratio": 2.0},
+    "system": {"async_mapping": False},
+    "loop": {"enabled": True, "min_kf_separation": 12,
+             "consistency_window": 2, "lc_inl": 15, "lc_trs": 3.0,
+             "lc_rot": 60.0},
+}
+MULTIHOST_PROCS = 2
+
+
+def dist_lm(prob, cam, cfg, n, device, ops=None):
+    """make_dist_lba_lm over n shards on ``device`` of ``prob`` bucketed by
+    owner (its landmarks back in the original order): (kf_pose, pt_pos,
+    ep_pos, cost0, cost1) and the mesh."""
+    from plslam_tpu_torch.parallel import dist_lba as D
+    from plslam_tpu_torch.parallel.mesh import make_mesh
+    m = cfg.mapping
+    b = D.bucket_problem_by_owner(prob, n)
+    mesh = make_mesh(n, ("lm",), device)
+    out = D.make_dist_lba_lm(mesh, cam, m.lba_iters, m.lambda_init,
+                             m.lambda_factor, ops=ops or D.KERNELS)(b.problem)
+    return (out[0], D.unbucket_landmarks(out[1], b.pt_perm),
+            D.unbucket_landmarks(out[2], b.ep_perm), *out[3:]), mesh
+
+
+def cpu_dist_lm(prob, cam, cfg):
+    """The sharded LM of ``lba_window_problem`` through the plain versions
+    on the CPU at each of DIST_SHARDS (``--cpu-ate dist``): {n: outputs on
+    the CPU}."""
+    cpu = type(prob)(*(x.cpu() for x in prob))
+    out = {}
+    for n in DIST_SHARDS:
+        t0 = time.perf_counter()
+        out[n] = dist_lm(cpu, cam, cfg, n, "cpu")[0]
+        print(f"[cpu] dist LM at {n} shards: cost {float(out[n][3])!r} -> "
+              f"{float(out[n][4])!r} ({time.perf_counter() - t0:.1f} s)",
+              flush=True)
+    return out
+
+
+def dist_kernel_holds(dev, record, cfg, cam, prob, n):
+    """Each K15 launch of the sharded step on every shard of n, against its
+    plain version on the same inputs (the plain terms, the global scale
+    and the all-reduced sums of the plain versions): lba_terms (masks
+    exact, floats 1e-5 of each output's largest magnitude), lba_index
+    (exact), lba_bin (lba_phase's tolerances), lba_camera, lba_schur_corr
+    and lba_solve_reduced by K15's rule (float64 the truth). At 4 shards
+    shard 0's two new launches are timed as the JSON rows."""
+    import torch
+    from plslam_tpu_torch.backend import lba
+    from plslam_tpu_torch.parallel import dist_lba as D
+    from plslam_tpu_torch.parallel.mesh import make_mesh
+    mesh = make_mesh(n, ("lm",), dev)
+    print(f"[dist] {n} shards placed on {[str(d) for d in mesh.devices]} "
+          "(shard i on visible device i % count)", flush=True)
+    probs = D.shard_problem(mesh, D.bucket_problem_by_owner(prob, n).problem)
+    lam = torch.tensor(cfg.mapping.lambda_init, device=dev)
+    tp = [lba.lba_terms_plain(p, cam) for p in probs]
+    sigma = D._shard_scale(mesh, tp, "lm")
+    free = [lba._free(p) for p in probs]
+    cams = [lba.lba_camera_plain(t, s, f) for t, s, f in zip(tp, sigma, free)]
+    H_cc = mesh.psum([c[0] for c in cams], "lm")
+    g_c = mesh.psum([c[1] for c in cams], "lm")
+    bp = [lba.LandmarkBlocks(h, g, *lba.lba_bin_plain(t, p, s, f, lam))
+          for h, g, t, p, s, f in zip(H_cc, g_c, tp, probs, sigma, free)]
+    sums = [lba.lba_schur_corr_plain(b, f) for b, f in zip(bp, free)]
+    corr = mesh.psum([x[0] for x in sums], "lm")
+    g_corr = mesh.psum([x[1] for x in sums], "lm")
+    rel = lambda a, b: _rel_d(a, b)
+    for i, (p, t, s, f, b) in enumerate(zip(probs, tp, sigma, free, bp)):
+        # lba_phase's tolerances: residuals and norms 4e-4 px, Jacobians
+        # 1e-5 of their largest magnitude, masks exact
+        tk = lba.lba_terms_sigma(p, cam)[0]
+        check(all(torch.equal(x, y) if not x.is_floating_point() else (
+            max_abs_err(x, y) <= 4e-4 if j in (0, 4, 5) else rel(x, y) <= 1e-5)
+            for j, (x, y) in enumerate(zip(tk, t))),
+            f"dist: lba_terms on shard {i} of {n} disagrees")
+        idx = lba.lba_index(p)
+        check(all(torch.equal(x, y) for x, y in zip(
+            idx, lba.lba_index_plain(p))), f"dist: lba_index, shard {i}")
+        b64 = _as_f64(b)
+        f64_gauge(f"{n} shards, shard {i}: lba_camera", lba.lba_camera(
+            t, s, f), lba.lba_camera_plain(t, s, f), lba.lba_camera_plain(
+            _as_f64(t), s.double(), f), hold=True, tag="dist")
+        kb = lba.lba_bin(t, p, s, f, lam, idx)
+        check(all(rel(x, y) <= tol for x, y, tol in zip(
+            kb, b[2:], (1e-5, 1e-3, 1e-5, 1e-5))),
+            f"dist: lba_bin on shard {i} of {n} disagrees")
+        scratch = lba.new_solve_scratch(b.H_cl.shape[0], b.H_cl.shape[1], dev)
+        ks = lba.lba_schur_corr(b, p, f, idx, scratch)
+        f64_gauge(f"{n} shards, shard {i}: lba_schur_corr (corr, g_corr)",
+                  ks, lba.lba_schur_corr_plain(b, f),
+                  lba.lba_schur_corr_plain(b64, f), hold=True, tag="dist")
+        P = p.pt_pos.shape[0]
+        args = (H_cc[i], g_c[i], corr[i], g_corr[i], b)
+        ksol = lba.lba_solve_reduced(*args, p, f, lam, scratch=scratch)
+        f64_gauge(f"{n} shards, shard {i}: lba_solve_reduced (dxi, d_pt, "
+                  "d_ep)", ksol, lba.lba_solve_reduced_plain(
+                      *args, f, lam, P), lba.lba_solve_reduced_plain(
+                      *(x.double() for x in args[:4]), b64, f, lam.double(),
+                      P), hold=True, tag="dist")
+        if n != 4 or i != 0:
+            continue
+        # the JSON rows: bytes each input read once and each output
+        # written once (the observed blocks of H_cl, H_inv, g_l, the index;
+        # corr and g_corr out; then H_cc, g_c, corr, g_corr, H_ll's
+        # diagonal, the blocks again for the landmark steps, dxi and the
+        # landmark steps); operations: lba_solve's row's counts split
+        # between the two (the products and sums over observed pairs; the
+        # LU of the free poses' block, its solves and the landmark steps)
+        W, n_lm = b.H_cl.shape[:2]
+        total = int(idx.off[-1])
+        K, L = p.obs_pt_id.shape[1], p.obs_ln_sid.shape[1]
+        g_obs = idx.obs[:total].long()
+        pose = torch.where(g_obs < W * K, g_obs // K,
+                           (g_obs - W * K) // (2 * L))
+        lm_of = torch.repeat_interleave(torch.arange(n_lm, device=dev),
+                                        (idx.off[1:] - idx.off[:-1]).long())
+        seen = torch.zeros((n_lm, W), dtype=torch.bool, device=dev)
+        seen[lm_of, pose] = True
+        seen &= f[None, :]
+        per_lm = seen.sum(1)
+        n_obs_pairs = int(per_lm.sum())
+        n_pose_pairs = int((per_lm * (per_lm + 1) // 2).sum())
+        nf = 6 * int(f.sum())
+        print(f"[dist] shard 0 of 4: W={W} K={K} L={L} P={P} "
+              f"Q={p.ep_pos.shape[0]}; {n_obs_pairs} observed (landmark, "
+              f"free pose) pairs, {n_pose_pairs} pose pairs", flush=True)
+        src = "plslam_tpu_torch/csrc/lba.cu"
+        rep = "plslam_tpu/parallel/dist_lba.py:"
+        pk = lambda xs, ys: ([x / y.abs().max().clamp(min=1e-30)
+                              for x, y in zip(xs, ys)],
+                             [y / y.abs().max().clamp(min=1e-30) for y in ys])
+        ref = lba.lba_schur_corr_plain(b, f)
+        tols = f64_gauge("lba_schur_corr row", ks, ref,
+                         lba.lba_schur_corr_plain(b64, f), tag="dist")
+        g_, r_ = pk(ks, ref)
+        record("lba_schur_corr", src, rep + "297", g_, r_, tols,
+               lambda: lba.lba_schur_corr(b, p, f, idx, scratch),
+               lambda: lba.lba_schur_corr_plain(b, f),
+               n_obs_pairs * 72 + n_lm * 48 + (n_lm + 1 + total) * 4 + W
+               + W * W * 144 + W * 24,
+               n_obs_pairs * (108 + 36) + n_pose_pairs * 216 + n_lm * 24,
+               err_kind="relative to each output's largest magnitude, "
+               f"tolerance {F64_FACTOR:g}x the plain one's distance from "
+               f"float64 + {F64_FLOOR:g}")
+        ref = lba.lba_solve_reduced_plain(*args, f, lam, P)
+        tols = f64_gauge("lba_solve_reduced row", ksol, ref,
+                         lba.lba_solve_reduced_plain(
+                             *(x.double() for x in args[:4]), b64, f,
+                             lam.double(), P), tag="dist")
+        g_, r_ = pk(ksol, ref)
+        Sm, gm = lba._reduced_system(*args[:4], f, lam, lba.PIN_WEIGHT)
+        record("lba_solve_reduced", src, rep + "304", g_, r_, tols,
+               lambda: lba.lba_solve_reduced(*args, p, f, lam,
+                                             scratch=scratch),
+               lambda: lba.lba_solve_reduced_plain(*args, f, lam, P),
+               W * 168 + W * W * 144 + W * 24 + n_obs_pairs * 72
+               + n_lm * (36 + 36 + 12 + 4 + 12) + W * 24 + 4,
+               2 * nf ** 3 // 3 + 2 * nf ** 2 + n_obs_pairs * 36 + n_lm * 28,
+               lambda: torch.linalg.solve_ex(Sm, gm[:, None]),
+               library_what=f"torch.linalg.solve_ex of the {6 * W}x{6 * W} "
+               "reduced system alone",
+               err_kind="relative to each output's largest magnitude, "
+               f"tolerance {F64_FACTOR:g}x the plain one's distance from "
+               f"float64 + {F64_FLOOR:g}")
+
+
+def dist_lm_phase(dev, cfg, cam, prob):
+    """(a) the sharded LM on ``lba_window_problem`` at each of DIST_SHARDS:
+    each kernel's exact launches, the states held by K15's rule to the
+    plain versions on the card in float32 and float64, and to the CPU run
+    (``cpu_dist_lm``: within F64_FACTOR x the card plain version's distance
+    from float64 plus the CPU run's own, plus F64_FLOOR), each bound a
+    tenth of how far the LM moved the state; the LM's movement of the
+    poses, points and endpoints against run_lba's by direction (cos >
+    0.99, magnitude ratio in (0.7, 1.4): the scales differ, mean |r|
+    against the median; one step's direction printed); the collectives of
+    one step, comm_bytes_per_step(W) bytes."""
+    import torch
+    from plslam_tpu_torch import native
+    from plslam_tpu_torch.backend import lba
+    from plslam_tpu_torch.parallel import dist_lba as D
+    from plslam_tpu_torch.parallel.mesh import make_mesh
+    m = cfg.mapping
+    W = prob.kf_pose.shape[0]
+    cpu = cpu_dist_lm(prob, cam, cfg)
+    p64 = _as_f64(prob)
+    single = lba.run_lba(prob, cam, cfg)
+    lam = torch.tensor(m.lambda_init, device=dev)
+    dense = lba._assemble_and_solve(prob, cam, lam)
+    fields = ("poses", "points", "endpoints")
+
+    def direction(tag, a, b, hold=True):
+        a, b = a.double().reshape(-1), b.double().reshape(-1)
+        cos = float(a @ b / (a.norm() * b.norm()).clamp(min=1e-30))
+        ratio = float(a.norm() / b.norm().clamp(min=1e-30))
+        print(f"[dist] {tag}: cos {cos:.6f}, magnitude ratio {ratio:.4f}",
+              flush=True)
+        check(not hold or (cos > 0.99 and 0.7 < ratio < 1.4),
+              f"dist: {tag}: cos {cos}, ratio {ratio}")
+    for n in DIST_SHARDS:
+        native.reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out, mesh = dist_lm(prob, cam, cfg, n, dev)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        counts = dict(native.LAUNCHES)
+        it = m.lba_iters
+        want = {"lba_terms": (1 + 2 * it) * n, "lba_index": n,
+                "lba_camera": it * n, "lba_bin": it * n,
+                "lba_schur_corr": it * n, "lba_solve_reduced": it * n}
+        print(f"[dist] LM at {n} shards: cost {float(out[3]):.6g} -> "
+              f"{float(out[4]):.6g} (single-device run_lba "
+              f"{float(single.cost0):.6g} -> {float(single.cost1):.6g}), "
+              f"{wall:.2f} ms host clock (first call; ends in synchronize), "
+              f"launches {counts}, collectives {mesh.reduce_bytes} bytes "
+              f"over {it} iterations", flush=True)
+        check(counts == want, f"dist LM at {n} shards: launches {counts}, "
+              f"expected {want}")
+        check(float(out[4]) < float(out[3]), "dist LM raised the cost")
+        plain = dist_lm(prob, cam, cfg, n, dev, D.PLAIN)[0]
+        truth = dist_lm(p64, cam, cfg, n, dev, D.PLAIN)[0]
+        moved = [_rel_d(x, y) for x, y in zip(truth[:3], p64[:1] + p64[3:5])]
+        f64_gauge(f"LM at {n} shards (poses, points, endpoints; bound "
+                  "against how far it moved each)", out[:3], plain[:3],
+                  truth[:3], moved, tag="dist")
+        c = [x.to(dev) for x in cpu[n][:3]]
+        for name, k, p_, t, cc, mv in zip(fields, out, plain, truth, c,
+                                          moved):
+            d_c = _rel_d(cc, t)
+            bound = F64_FACTOR * _rel_d(p_, t) + d_c + F64_FLOOR
+            print(f"[dist] LM at {n} shards, {name}: card from the CPU run "
+                  f"{_rel_d(k, cc):.3g} (CPU from float64 {d_c:.3g}), bound "
+                  f"{bound:.3g}, moved {mv:.3g}", flush=True)
+            check(_rel_d(k, cc) <= bound and bound <= 0.1 * mv,
+                  f"dist LM at {n} shards: {name} from the CPU run")
+        for name, k, x0, x1 in zip(fields, out, prob[:1] + prob[3:5],
+                                   single):
+            direction(f"LM at {n} shards against run_lba, {name}' movement",
+                      k - x0, x1 - x0)
+        b = D.bucket_problem_by_owner(prob, n)
+        smesh = make_mesh(n, ("lm",), dev)
+        dxi, d_pt, _ = D.make_dist_lba_step(smesh, cam)(b.problem, lam)
+        check(smesh.reduce_bytes == D.comm_bytes_per_step(W),
+              f"dist: one step's collectives moved {smesh.reduce_bytes} "
+              f"bytes, comm_bytes_per_step({W}) = "
+              f"{D.comm_bytes_per_step(W)}")
+        print(f"[dist] one step at {n} shards: collectives "
+              f"{smesh.reduce_bytes} bytes = comm_bytes_per_step({W})",
+              flush=True)
+        # printed only: one step at lambda 1e-3 of this window, where a
+        # tenth of the observations are detached, parts more from the
+        # dense step than the LM's result does (d_pt's cos 0.978 in the
+        # CPU run)
+        direction(f"one step at {n} shards against the dense step, dxi",
+                  dxi, dense[0], hold=False)
+        direction(f"one step at {n} shards against the dense step, d_pt",
+                  D.unbucket_landmarks(d_pt, b.pt_perm), dense[1], hold=False)
+
+
+def dist_live_runs(dev):
+    """(b) PLSLAM with mapping.distributed (4 shards) on
+    tests/test_dist_lba.py:210's scene, against the single-device run and
+    a 1-shard run: the same keyframes, ATE within max(1.5 x, + 1 cm) of
+    the single-device run's, 4 shards within 1 mm of 1; (c) loop.distributed
+    (4 shards) on tests/test_dist_vocab.py:104's loop scene: the loop
+    events and keyframes of the single-device run, the trajectory within
+    1 mm. Returns the launches of the 4-shard mapping run (the slice's
+    main path)."""
+    import torch
+    from plslam_tpu_torch import native
+    from plslam_tpu_torch.backend.slam_system import PLSLAM
+    from plslam_tpu_torch.config import SlamConfig
+    from plslam_tpu_torch.core.camera import StereoCamera
+    from plslam_tpu_torch.io import synthetic
+    from plslam_tpu_torch.utils.evaluation import ate_rmse
+    base = SlamConfig().with_updates(DIST_BASE)
+    cam = StereoCamera.from_config(base.camera)
+    seq = synthetic.make_sequence(cam, n_frames=25, seed=5, n_points=500,
+                                  n_lines=0, noise=0.004, step=0.25)
+
+    def run(cfg, s, n):
+        slam = PLSLAM(cfg, cam, device=dev)
+        slam.initialize(s.images_l[0], s.images_r[0])
+        for i in range(1, n):
+            slam.process(s.images_l[i], s.images_r[i])
+        est = slam.finish()
+        torch.cuda.synchronize()
+        return est, slam
+    est_1, s1 = run(base, seq, 25)
+    native.reset_counts()
+    t0 = time.perf_counter()
+    est_d, sd = run(base.with_updates({"mapping": {
+        "distributed": True, "dist_devices": 4}}), seq, 25)
+    wall = time.perf_counter() - t0
+    launches = dict(native.LAUNCHES)
+    est_d1, sd1 = run(base.with_updates({"mapping": {
+        "distributed": True, "dist_devices": 1}}), seq, 25)
+    kfs = [s._kf_slot + 1 for s in (s1, sd, sd1)]
+    d = max(float(np.linalg.norm(a[:3, 3] - b[:3, 3]))
+            for a, b in zip(est_d, est_d1))
+    a1 = float(ate_rmse(est_1, seq.poses[:len(est_1)]))
+    ad = float(ate_rmse(est_d, seq.poses[:len(est_d)]))
+    n_lm = launches.get("lba_index", 0)
+    it = base.mapping.lba_iters
+    print(f"[dist] (b) PLSLAM mapping.distributed, 4 shards: 25 frames in "
+          f"{wall:.2f} s host clock; keyframes {kfs} (single device, 4 "
+          f"shards, 1 shard); ATE {ad:.6f} m against the single-device "
+          f"{a1:.6f} m; 4 shards against 1: {d:.3g} m; {n_lm // 4} sharded "
+          f"LMs; launches {launches}", flush=True)
+    check(kfs[0] == kfs[1] == kfs[2], f"dist (b): keyframes {kfs}")
+    check(d < 1e-3, f"dist (b): 4 shards {d} m from 1 shard")
+    check(ad < max(1.5 * a1, a1 + 0.01), f"dist (b): ATE {ad} against {a1}")
+    check(n_lm > 0 and n_lm % 4 == 0 and all(
+        launches.get(k, 0) == it * n_lm for k in (
+            "lba_camera", "lba_bin", "lba_schur_corr", "lba_solve_reduced"))
+        and launches.get("lba_solve", 0) == 0,
+        f"dist (b): launches {launches}")
+
+    loop = SlamConfig().with_updates(DIST_LOOP)
+    lseq = synthetic.make_sequence(cam, n_frames=40, seed=21, kind="loop",
+                                   n_points=700, n_lines=0, noise=0.004,
+                                   step=0.35)
+    res = []
+    for cfg in (loop, loop.with_updates({"loop": {"distributed": True,
+                                                  "dist_devices": 4}})):
+        est, slam = run(cfg, lseq, 40)
+        lc = slam.loop_closer
+        res.append((est, lc.n_loops_closed,
+                    [(e.kf_from, e.kf_to) for e in lc.events],
+                    slam._kf_slot + 1))
+    d = max(float(np.linalg.norm(a[:3, 3] - b[:3, 3]))
+            for a, b in zip(res[0][0], res[1][0]))
+    print(f"[dist] (c) loop.distributed, 4 shards: loops {res[1][1]} "
+          f"(single device {res[0][1]}), events {res[1][2]} "
+          f"({res[0][2]}), keyframes {res[1][3]} ({res[0][3]}); "
+          f"trajectories {d:.3g} m apart", flush=True)
+    check(res[0][1] >= 1 and res[1][1:] == res[0][1:] and d < 1e-3,
+          "dist (c): the sharded retrieval's run differs")
+    return launches
+
+
+def dist_multiseq():
+    """(d) plslam_multiseq --synthetic --distributed, 2 sessions of 40
+    frames, 4 shards (mapping.dist_devices from a --config file), to its
+    end."""
+    import os
+    import tempfile
+    from plslam_tpu_torch.apps import plslam_multiseq
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "dist.yaml")
+        with open(path, "w") as f:
+            f.write("mapping:\n  dist_devices: 4\n")
+        t0 = time.perf_counter()
+        rc = plslam_multiseq.main(["--synthetic", "--distributed",
+                                   "--frames", "40", "--config", path])
+    print(f"[dist] (d) plslam_multiseq --synthetic --distributed: exit {rc} "
+          f"in {time.perf_counter() - t0:.1f} s", flush=True)
+    check(rc == 0, "dist (d): plslam_multiseq --distributed failed")
+
+
+def dist_multihost(dev):
+    """(e) parallel/multihost_check.py in MULTIHOST_PROCS processes joined
+    by gloo (two shards each, all on cuda:0), against the in-process
+    4-shard mesh and the plain versions in float64: each output within 4x
+    the larger of the in-process kernels' and plain version's distances
+    from float64, plus F64_FLOOR (the cross-process sum adds the
+    processes' partial sums: another f32 order); the collectives of its
+    step, comm_bytes_per_step(W)."""
+    import os
+    import tempfile
+    import torch
+    from plslam_tpu_torch.convert import lba_problem_from_numpy
+    from plslam_tpu_torch.parallel import dist_lba as D
+    from plslam_tpu_torch.parallel import multihost_check as mh
+    from plslam_tpu_torch.parallel.mesh import make_mesh
+    here = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(
+            [sys.executable, "-m", "plslam_tpu_torch.parallel.multihost_check",
+             "--rank", str(r), "--nprocs", str(MULTIHOST_PROCS), "--init",
+             f"file://{os.path.join(tmp, 'rendezvous')}", "--out", tmp,
+             "--local-shards", "2", "--backend", "gloo", "--device", "cuda"],
+            cwd=here, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True) for r in range(MULTIHOST_PROCS)]
+        logs = []
+        try:
+            for p in procs:
+                logs.append(p.communicate(timeout=300)[0])
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        for p, log in zip(procs, logs):
+            check(p.returncode == 0, f"dist (e): a rank failed:\n{log[-2000:]}")
+        z = np.load(os.path.join(tmp, "rank0.npz"))
+        wall = time.perf_counter() - t0
+    n = int(z["n_shards"])
+    one = mh.dist_step(make_mesh(n, ("lm",), dev), dev)
+    tb = D.bucket_problem_by_owner(lba_problem_from_numpy(
+        mh.make_problem_np(), dev), n)
+    mk = lambda ops, p: D.make_dist_lba_step(
+        make_mesh(n, ("lm",), dev), mh.camera(), ops=ops)(p, 1e-3)
+    un = lambda o: [o[0], o[1][tb.pt_perm], o[2][tb.ep_perm]]
+    plain = un(mk(D.PLAIN, tb.problem))
+    truth = un(mk(D.PLAIN, _as_f64(tb.problem)))
+    dists = []
+    for name, got, o, p_, t in zip(("dxi", "d_pt", "d_ep"),
+                                   (z["dxi"], z["d_pt"], z["d_ep"]), one,
+                                   plain, truth):
+        got, o = torch.from_numpy(got), torch.from_numpy(o)
+        t = t.cpu()
+        bound = 4 * max(_rel_d(o, t), _rel_d(p_.cpu(), t)) + F64_FLOOR
+        d = (_rel_d(got, t), _rel_d(got, o))
+        dists.append((name, d, bound))
+        check(max(d) <= bound, f"dist (e): {name} {d} against {bound}")
+    print(f"[dist] (e) multihost_check: {MULTIHOST_PROCS} processes x 2 "
+          f"shards on cuda:0 (gloo, host copies), {wall:.1f} s; its step's "
+          f"collectives {int(z['reduce_bytes'])} bytes; (from float64, from "
+          f"the in-process {n}-shard mesh), bound: {dists}", flush=True)
+    check(int(z["reduce_bytes"]) == D.comm_bytes_per_step(4),
+          "dist (e): collectives")
+
+
+def dist_phase(record) -> dict:
+    """[dist]: the distributed back end on the card (``python3
+    chip_smoke.py --dist``): (a) K15's launches on the shards and the
+    sharded LM (``dist_kernel_holds``, ``dist_lm_phase``), (b) and (c)
+    the live mapping.distributed and loop.distributed runs
+    (``dist_live_runs``), (d) ``dist_multiseq``, (e) ``dist_multihost``.
+    Returns the launches of (b)'s 4-shard run."""
+    import torch
+    from plslam_tpu_torch.config import SlamConfig
+    from plslam_tpu_torch.core.camera import StereoCamera
+    dev = torch.device("cuda", 0)
+    t0 = time.perf_counter()
+    cfg = SlamConfig()
+    cam = StereoCamera.from_config(cfg.camera)
+    prob = lba_window_problem(dev, cfg, cam)
+    for n in DIST_SHARDS:
+        dist_kernel_holds(dev, record, cfg, cam, prob, n)
+    dist_lm_phase(dev, cfg, cam, prob)
+    print(f"[dist] (a) {time.perf_counter() - t0:.1f} s", flush=True)
+    launches = dist_live_runs(dev)
+    dist_multiseq()
+    dist_multihost(dev)
+    print(f"[dist] phase {time.perf_counter() - t0:.1f} s", flush=True)
+    return launches
+
+
+def dist_child(record, runs) -> None:
+    """``dist_phase`` in a process of its own (``python3 chip_smoke.py
+    --dist``), so that its launches leave this process's profiler records
+    alone; its output passes through, its kernel rows join ``record``'s
+    and its main-path launches join ``runs``; its failure fails the
+    run."""
+    import os
+    from collections import Counter
+    here = os.path.dirname(os.path.abspath(__file__))
+    out = subprocess.run(
+        [sys.executable, os.path.join(here, "chip_smoke.py"), "--dist"],
+        cwd=here, capture_output=True, text=True, timeout=900)
+    lines = out.stdout.strip().splitlines()
+    print("\n".join(lines[:-1]), flush=True)
+    check(out.returncode == 0, "the dist phase failed: "
+          + out.stderr.strip()[-2000:])
+    res = json.loads(lines[-1])
+    record.rows.extend(res["rows"])
+    runs.append((Counter(res["launches"]),))
+
+
 LOOP_SCENE = None
 
 
@@ -5885,6 +6412,13 @@ def main() -> int:
         record = Recorder()
         pose_graph_phase(torch.device("cuda", 0), record)
         print(json.dumps(record.rows))
+        return 0
+    if sys.argv[1:2] == ["--dist"]:
+        from plslam_tpu_torch import native
+        native.lib()
+        record = Recorder()
+        launches = dist_phase(record)
+        print(json.dumps({"rows": record.rows, "launches": launches}))
         return 0
     if sys.argv[1:2] == ["--chunk-device-times"]:
         chunk_device_times()
@@ -5975,6 +6509,8 @@ def main() -> int:
     # through run_concurrent, the north star's band on the knob scene
     print(f"[slam_system] phase {slam_system_phase(dev):.1f} s", flush=True)
     print(f"[multiseq] phase {multiseq_phase(dev):.1f} s", flush=True)
+    # the distributed back end, in a process of its own
+    dist_child(record, runs)
     print(f"[knob_band] phase {knob_band_phase(dev, knob_render):.1f} s",
           flush=True)
 

@@ -7,8 +7,10 @@ past ``max_kfs``, checkpoints through ``backend.checkpoint``), the
 per-frame and host-KF SLAM drivers with the mapping worker thread
 (``backend.slam_system``, ``backend.map_handler.MapHandler``), the dataset
 VO app (``apps.plstvo_dataset`` over ``io.dataset``), the SLAM app
-(``apps.plslam_dataset``) and concurrent sessions
-(``apps.plslam_multiseq``). The JAX package
+(``apps.plslam_dataset``), concurrent sessions
+(``apps.plslam_multiseq``) and the distributed back end (``parallel``: the
+owner-sharded window LBA, sharded BoW retrieval, meshes over torch devices
+and processes). The JAX package
 ``plslam_tpu`` is the reference; this package imports nothing of it (nor
 of JAX) and keeps its own copies of the numpy-only modules.
 

@@ -4,9 +4,11 @@ Port of ``plslam_tpu/apps/plslam_multiseq.py`` (``run_concurrent``,
 ``main``): each session has its own map, loop closer and (with
 ``ChunkedPLSLAM``) mapping worker, and the sessions' chunks interleave in
 the card's stream. The driver is ``FusedPLSLAM`` by default and
-``ChunkedPLSLAM`` with ``system.fused_slam=false``. ``--distributed`` (the
-sharded window LBA of every session) is not ported yet and raises.
-Runs on the CUDA device unless ``--device cpu``.
+``ChunkedPLSLAM`` with ``system.fused_slam=false``. ``--distributed``
+routes every session's window LBA through the owner-sharded solve
+(``mapping.distributed``): per-frame ``PLSLAM`` sessions with sync mapping,
+their frames interleaved (``mapping.dist_devices`` from ``--config`` sets
+the shards). Runs on the CUDA device unless ``--device cpu``.
 
 Usage:
   python -m plslam_tpu_torch.apps.plslam_multiseq --synthetic \\
@@ -36,6 +38,18 @@ def run_concurrent(slams: List, sequences: List, chunk: int
     return [slam.finish() for slam in slams]
 
 
+def run_interleaved(slams: List, sequences: List) -> List[np.ndarray]:
+    """Per-frame sessions, their frames interleaved; returns each
+    session's trajectory."""
+    n_frames = min(len(s.images_l) for s in sequences)
+    for slam, seq in zip(slams, sequences):
+        slam.initialize(seq.images_l[0], seq.images_r[0])
+    for i in range(1, n_frames):
+        for slam, seq in zip(slams, sequences):
+            slam.process(seq.images_l[i], seq.images_r[i])
+    return [slam.finish() for slam in slams]
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--synthetic", action="store_true")
@@ -52,10 +66,6 @@ def main(argv=None) -> int:
                     help="every session's window LBA on the sharded "
                          "multi-device solver (mapping.distributed)")
     args = ap.parse_args(argv)
-    if args.distributed:
-        raise NotImplementedError(
-            "--distributed (mapping.distributed, the sharded window LBA) "
-            "is not ported yet (ROADMAP.md Queue 1 item 11)")
 
     from plslam_tpu_torch.config import SlamConfig
     from plslam_tpu_torch.core.camera import StereoCamera
@@ -63,7 +73,14 @@ def main(argv=None) -> int:
     from plslam_tpu_torch.utils.evaluation import ate_rmse
 
     cfg = SlamConfig.from_yaml(args.config) if args.config else SlamConfig()
-    if cfg.system.fused_slam:
+    if args.distributed:
+        # the sharded LBA lives on the per-KF mapping path: per-frame
+        # PLSLAM sessions route every window solve through
+        # map_handler.mapping_step_distributed, mapping in sync
+        cfg = cfg.with_updates({"mapping": {"distributed": True},
+                                "system": {"async_mapping": False}})
+        from plslam_tpu_torch.backend.slam_system import PLSLAM as Driver
+    elif cfg.system.fused_slam:
         from plslam_tpu_torch.backend.fused_slam import FusedPLSLAM as Driver
     else:
         from plslam_tpu_torch.backend.slam_system import (
@@ -77,7 +94,10 @@ def main(argv=None) -> int:
     slams = [Driver(cfg, cam, enable_loops=not args.no_loops,
                     device=args.device) for _ in range(args.sequences)]
     t0 = time.perf_counter()
-    trajs = run_concurrent(slams, seqs, args.chunk)
+    if args.distributed:
+        trajs = run_interleaved(slams, seqs)
+    else:
+        trajs = run_concurrent(slams, seqs, args.chunk)
     wall = time.perf_counter() - t0
     total = sum(len(t) for t in trajs)
     for s, (traj, seq) in enumerate(zip(trajs, seqs)):

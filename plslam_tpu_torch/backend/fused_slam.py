@@ -21,7 +21,9 @@ sweeps freed too little, ``compact_keyframes``, the host's slot-valued
 records and ``LoopCloser.remap_slots``), so a run may be longer than the
 map's capacity; ``save_checkpoint`` / ``resume`` persist and restore a
 run (``backend/checkpoint.py``, the reference's keys and dtypes).
-``loop.distributed=True`` is not ported yet (it raises).
+``loop.distributed=True`` takes the loop closer's candidates from the
+sharded database (``parallel/dist_vocab.py``), into which a resume mirrors
+the rebuilt rows.
 """
 
 from __future__ import annotations
@@ -706,9 +708,12 @@ class FusedPLSLAM:
         if ln_valid is not None:
             state = state._replace(obs_ln_lm=torch.where(
                 ln_valid, 0, -1).to(state.obs_ln_lm.dtype))
+        lc = self.loop_closer
         for slot in range(int(state.n_kfs)):
             probe_core(db.voc_p, db.voc_l, self.cfg, db.bows_l is not None,
                        state, db.bows_p, db.bows_l, slot, db.ln_valid)
+            if lc._dist is not None:        # mirror into the sharded DB
+                lc._dist.insert(slot, *lc._bow_rows(slot))
 
     def close(self):
         if self._queued or self._pending:

@@ -22,7 +22,11 @@ inside the launch, where the reference calls ``jnp.linalg.solve``, and
 the landmark steps: two kernels, float64 inside); ``lba_index`` lists
 each landmark's observations once a ``run_lba`` (the ids do not change
 between its LM steps) for every ``lba_bin`` and ``lba_solve``.
-``run_lba`` replays the whole LM loop as one CUDA graph.
+``run_lba`` replays the whole LM loop as one CUDA graph. The owner-sharded
+LBA (``parallel/dist_lba.py``) splits ``lba_solve`` around its collective:
+``lba_schur_corr`` (a shard's Schur sums) and ``lba_solve_reduced`` (the
+solve of the all-reduced system and the shard's landmark steps), the same
+device code.
 The ``*_plain`` functions are the reference's arithmetic in PyTorch (the
 one-hot binning included, which is deterministic on the card too; the
 dense solve ``torch.linalg.solve_ex``) and run only for CPU tensors.
@@ -446,18 +450,32 @@ def lba_blocks(t: LBATerms, problem: LBAProblem, sigma, free, lam,
                           *lba_bin(t, problem, sigma, free, lam, index))
 
 
+def _schur_sums(b: LandmarkBlocks):
+    """sum_n B_wn C_vn^T (W, W, 6, 6) and sum_n B_wn g_l[n] (W, 6), B = C
+    H_inv, C = H_cl."""
+    B = torch.einsum("wnab,nbc->wnac", b.H_cl, b.H_inv)
+    return (torch.einsum("wnab,vncb->wvac", B, b.H_cl),
+            torch.einsum("wnab,nb->wa", B, b.g_l))
+
+
 def lba_schur_plain(b: LandmarkBlocks, free, lam,
                     pin_weight: float = PIN_WEIGHT):
-    W = b.H_cc.shape[0]
-    B = torch.einsum("wnab,nbc->wnac", b.H_cl, b.H_inv)
-    S = -torch.einsum("wnab,vncb->wvac", B, b.H_cl)
+    return _reduced_system(b.H_cc, b.g_c, *_schur_sums(b), free, lam,
+                           pin_weight)
+
+
+def _reduced_system(H_cc, g_c, corr, g_corr, free, lam, pin_weight):
+    """S = H_cc - corr, g_red = g_c - g_corr, damped and pinned, as the
+    (6W, 6W) matrix and its (6W,) right-hand side."""
+    W = H_cc.shape[0]
+    S = -corr
     idx = torch.arange(W, device=S.device)
-    S[idx, idx] += b.H_cc
-    g_red = b.g_c - torch.einsum("wnab,nb->wa", B, b.g_l)
+    S[idx, idx] += H_cc
+    g_red = g_c - g_corr
     # LM damps the diagonal of the ORIGINAL H_cc (the Schur step equals
     # the damped dense step); pins hold fixed/invalid poses and free
     # poses without residual support (no information => do not move)
-    diag = torch.diagonal(b.H_cc, dim1=-2, dim2=-1)
+    diag = torch.diagonal(H_cc, dim1=-2, dim2=-1)
     damp = lam * torch.clamp(diag, min=1e-3)
     eye6 = _eye(6, S)
     S[idx, idx] += damp[..., None] * eye6 + 1e-6 * eye6
@@ -498,10 +516,37 @@ def lba_solve_plain(b: LandmarkBlocks, free, lam, P: int,
     ``jnp.linalg.solve``: LU with partial pivoting; ``solve_ex`` does not
     raise on a singular system, whose non-finite step the LM rejects), the
     free mask and the back-substitution."""
-    Sm, gm = lba_schur_plain(b, free, lam, pin_weight)
+    return _solve_system(lba_schur_plain(b, free, lam, pin_weight), b, free,
+                         P, cap)
+
+
+def _solve_system(system, b: LandmarkBlocks, free, P: int, cap: bool):
+    Sm, gm = system
     dxi = -torch.linalg.solve_ex(Sm, gm[:, None])[0][:, 0].reshape(-1, 6)
     dxi = torch.where(free[:, None], dxi, 0.0)
     return lba_backsub_plain(b, dxi, P, cap)
+
+
+def lba_schur_corr_plain(b: LandmarkBlocks, free):
+    """A shard's Schur sums for the collective (``lba_schur_corr``):
+    corr (W, W, 6, 6) = sum_n B_wn C_vn^T and g_corr (W, 6) = sum_n B_wn
+    g_l[n] over the shard's landmarks, zero where a pose is not free."""
+    corr, g_corr = _schur_sums(b)
+    pair = free[:, None] & free[None, :]
+    return (torch.where(pair[..., None, None], corr, 0.0),
+            torch.where(free[:, None], g_corr, 0.0))
+
+
+def lba_solve_reduced_plain(H_cc, g_c, corr, g_corr, b: LandmarkBlocks,
+                            free, lam, P: int,
+                            pin_weight: float = PIN_WEIGHT,
+                            cap: bool = True):
+    """The step from the all-reduced H_cc, g_c and Schur sums
+    (``lba_solve_reduced``): the damped and pinned reduced system, its
+    dense solve, the free mask and the back-substitution of the landmarks
+    of ``b`` (a shard's blocks; its H_cc and g_c are not read)."""
+    return _solve_system(_reduced_system(H_cc, g_c, corr, g_corr, free, lam,
+                                         pin_weight), b, free, P, cap)
 
 
 # lba_solve's scratch (csrc/lba.cu SolveScratch), one per device and size,
@@ -517,6 +562,84 @@ def _solve_words(W: int, n: int) -> int:
     G = -(-n // _SOLVE_CH)
     return (_SOLVE_HEAD + n + G * _SOLVE_PW + 1
             + 2 * G * (W * (W + 1) // 2) * _SOLVE_SLOT)
+
+
+def new_solve_scratch(W: int, n: int, dev) -> torch.Tensor:
+    """A zeroed scratch of lba_solve's size for W poses and n landmarks: a
+    shard's own, for its ``lba_schur_corr`` and ``lba_solve_reduced``,
+    whose launches leave it zeroed but for the pose masks that the first
+    hands the second."""
+    return torch.zeros(_solve_words(W, n), dtype=torch.int32, device=dev)
+
+
+def _require_blocks(b: LandmarkBlocks, entry: str, W: int, n: int
+                    ) -> LandmarkBlocks:
+    b = LandmarkBlocks(*(_f32(x) for x in b))
+    for name, x, shape in zip(b._fields, b, ((W, 6, 6), (W, 6), (n, 3, 3),
+                                             (n, 3, 3), (n, 3), (W, n, 6, 3))):
+        native.require(x, f"{entry} {name}", torch.float32, shape)
+    return b
+
+
+def lba_schur_corr(b: LandmarkBlocks, problem: LBAProblem, free,
+                   index: LBAIndex, scratch: torch.Tensor):
+    """A shard's Schur sums (corr (W, W, 6, 6), g_corr (W, 6); float32,
+    for the collective) over ``index``, the shard's ``lba_index``: one
+    ``lba_schur_corr`` launch, ``lba_solve``'s sums. ``scratch``: the
+    shard's ``new_solve_scratch``, which its ``lba_solve_reduced`` then
+    reads (no other launch may use it in between)."""
+    if b.H_cc.device.type == "cpu":
+        return lba_schur_corr_plain(b, free)
+    W, n = b.H_cl.shape[:2]
+    K, L = problem.obs_pt_id.shape[1], problem.obs_ln_sid.shape[1]
+    if W > 16:
+        raise ValueError(f"lba_schur_corr: at most 16 poses, got {W}")
+    dev = b.H_cc.device
+    b = _require_blocks(b, "lba_schur_corr", W, n)
+    words = _solve_words(W, n)
+    native.require(scratch, "lba_schur_corr scratch", torch.int32, (words,))
+    corr = torch.empty((W, W, 6, 6), dtype=torch.float32, device=dev)
+    g_corr = torch.empty((W, 6), dtype=torch.float32, device=dev)
+    native.launch("lba_schur_corr", index.off, index.obs, b.H_inv, b.g_l,
+                  b.H_cl, free.to(torch.uint8).contiguous(), corr, g_corr,
+                  scratch, words, W, K, L, n)
+    return corr, g_corr
+
+
+def lba_solve_reduced(H_cc, g_c, corr, g_corr, b: LandmarkBlocks,
+                      problem: LBAProblem, free, lam,
+                      pin_weight: float = PIN_WEIGHT, cap: bool = True,
+                      scratch: torch.Tensor = None):
+    """The shard's step from the all-reduced H_cc, g_c, corr and g_corr:
+    (dxi (W,6), d_pt (P,3), d_ep (Q,3)) of the shard's landmarks, masked,
+    floored and (``cap``) capped as ``lba_solve``'s: one
+    ``lba_solve_reduced`` launch (the solve in one block, then the
+    landmark steps from the pose masks that the shard's ``lba_schur_corr``
+    left in ``scratch``)."""
+    P = problem.pt_pos.shape[0]
+    if H_cc.device.type == "cpu":
+        return lba_solve_reduced_plain(H_cc, g_c, corr, g_corr, b, free, lam,
+                                       P, pin_weight, cap)
+    W, n = b.H_cl.shape[:2]
+    if W > 16:
+        raise ValueError(f"lba_solve_reduced: at most 16 poses, got {W}")
+    dev = H_cc.device
+    b = _require_blocks(b._replace(H_cc=H_cc, g_c=g_c), "lba_solve_reduced",
+                        W, n)
+    corr, g_corr = _f32(corr), _f32(g_corr)
+    native.require(corr, "lba_solve_reduced corr", torch.float32,
+                   (W, W, 6, 6))
+    native.require(g_corr, "lba_solve_reduced g_corr", torch.float32, (W, 6))
+    words = _solve_words(W, n)
+    native.require(scratch, "lba_solve_reduced scratch", torch.int32,
+                   (words,))
+    dxi = torch.empty((W, 6), dtype=torch.float32, device=dev)
+    d = torch.empty((n, 3), dtype=torch.float32, device=dev)
+    native.launch("lba_solve_reduced", b.H_cc, b.g_c, corr, g_corr, b.H_ll,
+                  b.H_inv, b.g_l, b.H_cl, _f32(lam.reshape(())),
+                  free.to(torch.uint8).contiguous(), dxi, d, scratch, words,
+                  W, n, float(pin_weight), int(cap))
+    return dxi, d[:P], d[P:]
 
 
 def lba_solve(b: LandmarkBlocks, problem: LBAProblem, free, lam,
@@ -537,10 +660,7 @@ def lba_solve(b: LandmarkBlocks, problem: LBAProblem, free, lam,
     if W > 16:
         raise ValueError(f"lba_solve: at most 16 poses, got {W}")
     dev = b.H_cc.device
-    b = LandmarkBlocks(*(_f32(x) for x in b))
-    for name, x, shape in zip(b._fields, b, ((W, 6, 6), (W, 6), (n, 3, 3),
-                                             (n, 3, 3), (n, 3), (W, n, 6, 3))):
-        native.require(x, f"lba_solve {name}", torch.float32, shape)
+    b = _require_blocks(b, "lba_solve", W, n)
     words = _solve_words(W, n)
     scratch = _SOLVE_SCRATCH.get((dev, words))
     if scratch is None:

@@ -3,8 +3,10 @@ mapping worker.
 
 Port of ``plslam_tpu/backend/map_handler.py`` (``_compact_landmarks``,
 ``_build_window_problem``, ``run_window_lba``, ``_apply_lba_result``,
-``mapping_step``, ``mapping_step_traced_lba``, ``KeyFrameSummary``,
-``PendingSummary``, ``PendingBatch`` and ``MapHandler``): the last window +
+``DistLBA``, ``run_window_lba_distributed``, ``mapping_step``,
+``mapping_step_distributed``, ``mapping_step_traced_lba``,
+``KeyFrameSummary``, ``PendingSummary``, ``PendingBatch`` and
+``MapHandler``): the last window +
 fixed KF slots and the landmarks they touched, compacted (newest-touched
 first, stable sort as the reference's ``argsort``), solved by
 ``backend/lba.py::run_lba`` and scattered back with the solved outliers
@@ -21,8 +23,10 @@ a worker thread takes the keyframe jobs, the reference's mapping thread:
 it launches on the stream that was current where the handler was made,
 so its kernels and the tracker's stay in one stream order, and it keeps
 the first exception a job raised and raises it again from ``wait_idle``,
-``wait_dispatched`` and ``close``. ``mapping.distributed=True`` (``DistLBA``,
-the sharded LBA) is not ported yet and raises.
+``wait_dispatched`` and ``close``. With ``mapping.distributed=True`` the
+per-KF steps (both modes) solve the window on the owner-sharded LM
+(``DistLBA``, ``parallel/dist_lba.py``) over ``mapping.dist_devices``
+shards (0: one a visible device of the map's type).
 """
 
 from __future__ import annotations
@@ -147,6 +151,66 @@ def run_window_lba(state: MapState, cam: StereoCamera, cfg: SlamConfig
     return _apply_lba_result(state, lba.run_lba(prob, cam, cfg), ctx)
 
 
+class DistLBA:
+    """The distributed window LBA of a MapHandler (``mapping.distributed``):
+    the shard mesh ('lm' axis, ``mapping.dist_devices`` shards, 0 meaning
+    one a visible device of ``device``'s type, placed as
+    ``parallel/mesh.py::make_mesh`` places them) and the sharded LM
+    (``make_dist_lba_lm``)."""
+
+    def __init__(self, cfg: SlamConfig, cam: StereoCamera, device=None):
+        from plslam_tpu_torch.parallel.dist_lba import make_dist_lba_lm
+        from plslam_tpu_torch.parallel.mesh import make_mesh
+        dev = resolve_device(device)
+        n = cfg.mapping.dist_devices or (
+            torch.cuda.device_count() if dev.type == "cuda" else 1)
+        self.mesh = mesh = make_mesh(n, axes=("lm",), device=dev)
+        self.n = mesh.size
+        self.lm_fn = make_dist_lba_lm(
+            mesh, cam, cfg.mapping.lba_iters, cfg.mapping.lambda_init,
+            cfg.mapping.lambda_factor, axis="lm")
+
+
+def run_window_lba_distributed(state: MapState, cam: StereoCamera,
+                               cfg: SlamConfig, dist: DistLBA
+                               ) -> Tuple[MapState, torch.Tensor,
+                                          torch.Tensor, dict]:
+    """``run_window_lba`` with the solve on the owner-sharded LM: the
+    compact window problem, bucketed into the round-robin owner layout,
+    solved across the mesh (its collectives: the reduced camera system, a
+    step), the landmarks gathered and unpermuted, the outliers flagged on
+    the whole problem, the result scattered into the map."""
+    from plslam_tpu_torch.parallel.dist_lba import bucket_problem_by_owner
+    prob, ctx = _build_window_problem(state, cam, cfg)
+    bucketed = bucket_problem_by_owner(prob, dist.n)
+    kf_pose, pt_b, ep_b, c0, c1 = dist.lm_fn(bucketed.problem)
+    pt_pos = pt_b[bucketed.pt_perm]
+    ep_pos = ep_b[bucketed.ep_perm]
+    solved = prob._replace(kf_pose=kf_pose, pt_pos=pt_pos, ep_pos=ep_pos)
+    pt_inl, ln_inl = lba.posthoc_inliers(solved, cam, cfg)
+    res = lba.LBAResult(kf_pose, pt_pos, ep_pos, c0, c1, pt_inl, ln_inl)
+    return _apply_lba_result(state, res, ctx)
+
+
+def mapping_step_distributed(state: MapState, pts, lns, T_w_kf: torch.Tensor,
+                             cam: StereoCamera, cfg: SlamConfig,
+                             dist: DistLBA, run_lba_flag: bool = True):
+    """``mapping_step`` with the window LBA on the shard mesh; with
+    ``run_lba_flag`` the global sweep runs at every step (as the
+    reference's; an extra sweep finds nothing more to retire)."""
+    state, diag = add_keyframe(state, pts, lns, T_w_kf, cam, cfg)
+    c0 = c1 = torch.zeros((), dtype=torch.float32, device=T_w_kf.device)
+    if run_lba_flag:
+        state, c0, c1, lba_diag = run_window_lba_distributed(
+            state, cam, cfg, dist)
+        diag = {**diag, **lba_diag}
+        state, _ = remove_redundant_kfs(state, cfg)
+        if cfg.mapping.global_kf_sweep_every > 0:
+            state, _ = remove_redundant_kfs_global(state, cfg)
+    state = cull_landmarks(state, cfg)
+    return state, diag, c0, c1
+
+
 def mapping_step(state: MapState, pts, lns, T_w_kf: torch.Tensor,
                  cam: StereoCamera, cfg: SlamConfig,
                  run_lba_flag: bool = True):
@@ -252,14 +316,12 @@ class MapHandler:
     handler (``_lock``, ``state``)."""
 
     def __init__(self, cfg: SlamConfig, cam: StereoCamera, device=None):
-        if cfg.mapping.distributed:
-            raise NotImplementedError(
-                "mapping.distributed=True (DistLBA, the sharded window LBA) "
-                "is not ported yet (ROADMAP.md Queue 1 item 11)")
         self.device = resolve_device(device)
         self.cfg = cfg
         self.cam = cam
         self.state = init_map_state(cfg, self.device)
+        self._dist = (DistLBA(cfg, cam, device=self.device)
+                      if cfg.mapping.distributed else None)
         self._records = []          # KeyFrameSummary | Pending* | list
         self._next_slot = 0
         self._lock = threading.Lock()
@@ -461,9 +523,14 @@ class MapHandler:
         self._check_capacity(1)
         T = torch.from_numpy(np.array(T_w_kf, np.float32)).to(self.device)
         with self._lock:
-            state, diag, c0, c1 = mapping_step(
-                self.state, pts, lns, T, self.cam, self.cfg,
-                run_lba_flag=bool(run_lba_flag))
+            if self._dist is not None:
+                state, diag, c0, c1 = mapping_step_distributed(
+                    self.state, pts, lns, T, self.cam, self.cfg, self._dist,
+                    run_lba_flag=bool(run_lba_flag))
+            else:
+                state, diag, c0, c1 = mapping_step(
+                    self.state, pts, lns, T, self.cam, self.cfg,
+                    run_lba_flag=bool(run_lba_flag))
             self.state = state
             slot = self._next_slot
             self._next_slot += 1

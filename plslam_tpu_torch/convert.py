@@ -112,6 +112,19 @@ def pose_graph_from_numpy(arrays: Mapping[str, np.ndarray], device):
                                    device) for f in PoseGraph._fields})
 
 
+_LBA_DTYPES = {"kf_fixed": torch.bool, "kf_valid": torch.bool,
+               "obs_pt_id": torch.int32, "obs_ln_sid": torch.int32,
+               "obs_ln_eid": torch.int32}
+
+
+def lba_problem_from_numpy(arrays: Mapping[str, np.ndarray], device):
+    """Dict of LBAProblem field arrays (a reference problem's, bucketed or
+    not) -> the port's LBAProblem on ``device``."""
+    from plslam_tpu_torch.backend.lba import LBAProblem
+    return LBAProblem(**{f: _tensor(arrays[f], _LBA_DTYPES.get(
+        f, torch.float32), device) for f in LBAProblem._fields})
+
+
 def host_copies(*xs) -> list:
     """Host numpy copies of tensors in one device-to-host transfer (float64
     on the wire: exact for float32 and for integers below 2**53, each copy

@@ -553,22 +553,26 @@ __global__ void __launch_bounds__(CAM_MAX_T) camera_kernel(CamArgs a) {
     asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
   }
   if (c != 0) return;
-  if (tid < 36) {
-    int p = tid / 6, q = tid % 6;
-    if (p > q) {
-      const int t = p;
-      p = q;
-      q = t;
+  // the 36 entries of H_cc and the 6 of g_c, one a thread (in rounds of T:
+  // a CTA of one warp takes two)
+  for (int e = tid; e < 42; e += T) {
+    if (e < 36) {
+      int p = e / 6, q = e % 6;
+      if (p > q) {
+        const int t = p;
+        p = q;
+        q = t;
+      }
+      // index of (p, q), p <= q, in the row-major upper triangle
+      const int o = p * 6 - p * (p - 1) / 2 + (q - p);
+      float x = 0.0f;
+      for (int k = 0; k < C; ++k) x += part[k][o];
+      a.H_cc[36 * w + e] = x;
+    } else {
+      float x = 0.0f;
+      for (int k = 0; k < C; ++k) x += part[k][21 + e - 36];
+      a.g_c[6 * w + e - 36] = x;
     }
-    // index of (p, q), p <= q, in the row-major upper triangle
-    const int o = p * 6 - p * (p - 1) / 2 + (q - p);
-    float x = 0.0f;
-    for (int k = 0; k < C; ++k) x += part[k][o];
-    a.H_cc[36 * w + tid] = x;
-  } else if (tid < 42) {
-    float x = 0.0f;
-    for (int k = 0; k < C; ++k) x += part[k][21 + tid - 36];
-    a.g_c[6 * w + tid - 36] = x;
   }
 }
 
@@ -894,6 +898,25 @@ __global__ void __launch_bounds__(BIN_NT)
 // Inputs and outputs stay float32. No float atomics: two launches give the
 // same bits.
 //
+// The owner-sharded window LBA (parallel/dist_lba.py) splits the step: each
+// shard sums its landmarks' Schur correction, the collective adds the
+// shards' corrections, and every shard solves the one reduced system. The
+// kernel's MODE template parameter gives the three uses of one device code:
+//   - MODE 0, entry lba_solve: the whole step, as above;
+//   - MODE 1, entry lba_schur_corr: the sums alone. The last block writes
+//     each free pose pair's sum, sum_n B_wn C_vn^T and sum_n B_wn g_l[n],
+//     out dense as corr (W, W, 6, 6) (both triangles: corr[v][w] is the
+//     transpose of corr[w][v]) and g_corr (W, 6) in float32 for the
+//     collective, zero where a pose is not free; no LU, no landmark step;
+//   - MODE 2, entry lba_solve_reduced: one block assembles S and g from the
+//     all-reduced H_cc, g_c, corr and g_corr (the same damping, floor and
+//     pins; the sum over the chunks' partials replaced by corr's entry),
+//     factors and solves them as MODE 0 does, and the landmark step kernel
+//     then steps the shard's landmarks from the pose masks that the same
+//     shard's MODE 1 launch left in the scratch. So the two launches of a
+//     shard share one scratch, which no other shard's launches may use in
+//     between.
+//
 // Bound: the bytes of the blocks it must read (H_cl's observed blocks,
 // H_inv, g_l, H_ll, H_cc, g_c) and the products B C^T over the observed
 // pose pairs, a few microseconds. The LU is a chain of 6F pivot steps (F
@@ -1015,6 +1038,7 @@ __device__ __forceinline__ double ldl_dot(const double* a, const double* d,
   return a[0] * d[0] * b[0] + a[1] * d[1] * b[1] + a[2] * d[2] * b[2];
 }
 
+template <int MODE>
 __global__ void __launch_bounds__(SOLVE_NT, 1) schur_solve_kernel(
     const int* __restrict__ off, const int* __restrict__ list,
     const float* __restrict__ H_cc, const float* __restrict__ g_c,
@@ -1022,7 +1046,7 @@ __global__ void __launch_bounds__(SOLVE_NT, 1) schur_solve_kernel(
     const float* __restrict__ H_cl, const float* lam_p,
     const uint8_t* __restrict__ free_, float* dxi_out,
     unsigned int* scratch, int W, int K, int L, int N, float pin_weight,
-    int cap) {
+    int cap, float* corr, float* g_corr) {
   extern __shared__ float dyn[];
   __shared__ unsigned int s_mask[SOLVE_CH], s_pm[SOLVE_PW];
   __shared__ int s_off[SOLVE_CH + 1], s_pstart[SOLVE_CH + 1];
@@ -1047,9 +1071,11 @@ __global__ void __launch_bounds__(SOLVE_NT, 1) schur_solve_kernel(
 
   // 1. each landmark's factors; its observing free poses, the chunk's
   // poses and pairs
-  if (tid < nch) ldl_factor(H_inv + 9 * (n0 + tid), g_l + 3 * (n0 + tid),
-                            sLD + 6 * tid, sz + 3 * tid);
-  if (tid <= nch) s_off[tid] = off[n0 + tid];
+  if constexpr (MODE != 2) {
+    if (tid < nch) ldl_factor(H_inv + 9 * (n0 + tid), g_l + 3 * (n0 + tid),
+                              sLD + 6 * tid, sz + 3 * tid);
+    if (tid <= nch) s_off[tid] = off[n0 + tid];
+  }
   if (tid < W) s_free[tid] = free_[tid];
   if (tid < SOLVE_CH) s_mask[tid] = 0;
   if (tid < SOLVE_PW) s_pm[tid] = 0;
@@ -1060,6 +1086,7 @@ __global__ void __launch_bounds__(SOLVE_NT, 1) schur_solve_kernel(
     s_pv[p] = (unsigned char)(w + r);
   }
   __syncthreads();
+  if constexpr (MODE != 2) {
   const int WK = W * K;
   for (int e = s_off[0] + tid; e < s_off[nch]; e += SOLVE_NT) {
     const int g = list[e];
@@ -1208,6 +1235,7 @@ __global__ void __launch_bounds__(SOLVE_NT, 1) schur_solve_kernel(
   __syncthreads();
   if (!s_last) return;
   __threadfence();
+  }  // MODE != 2
 
   // 4. the last block: each pair's partials over the chunks that touched
   // it, in chunk order (a warp a pair, a lane an entry, 8 loads in
@@ -1216,7 +1244,7 @@ __global__ void __launch_bounds__(SOLVE_NT, 1) schur_solve_kernel(
   // of S are zero off its diagonal and its step is masked to 0: the
   // system is the free poses' alone, nf = 6 x their number (rank[w]:
   // pose w's place among them).
-  if (tid == 0) *scr.ticket = 0;
+  if (MODE != 2 && tid == 0) *scr.ticket = 0;
   if (warp == 0) {
     const unsigned int fm =
         __ballot_sync(FULL, lane < W && s_free[lane] != 0);
@@ -1225,19 +1253,34 @@ __global__ void __launch_bounds__(SOLVE_NT, 1) schur_solve_kernel(
   }
   const int n6 = 6 * W;
   double* A = reinterpret_cast<double*>(dyn);
-  unsigned int* spm = reinterpret_cast<unsigned int*>(A + n6 * (n6 + 1));
-  for (int i = tid; i < G * SOLVE_PW; i += SOLVE_NT) spm[i] = __ldcg(scr.pm + i);
+  unsigned int* spm =
+      MODE == 1 ? reinterpret_cast<unsigned int*>(dyn)
+                : reinterpret_cast<unsigned int*>(A + n6 * (n6 + 1));
+  if constexpr (MODE != 2)
+    for (int i = tid; i < G * SOLVE_PW; i += SOLVE_NT)
+      spm[i] = __ldcg(scr.pm + i);
+  if constexpr (MODE == 1)           // pairs with a pose that is not free
+    for (int i = tid; i < W * W * 36 + W * 6; i += SOLVE_NT) {
+      if (i < W * W * 36) corr[i] = 0.0f;
+      else g_corr[i - W * W * 36] = 0.0f;
+    }
   __syncthreads();
   int nfree = 0;
   for (int w = 0; w < W; ++w) nfree += s_free[w] != 0;
   const int nf = 6 * nfree, LD = nf + 1;
-  const float lam = *lam_p;
+  const float lam = MODE == 1 ? 0.0f : *lam_p;   // MODE 1: no lam
   for (int p = warp; p < NPAIR; p += NWARP) {
     const int w = s_pw[p], v = s_pv[p], word = p >> 5;
     if (s_rank[w] < 0 || s_rank[v] < 0) continue;
     const int fw = 6 * s_rank[w], fv = 6 * s_rank[v];
     const unsigned int bit = 1u << (p & 31);
     double acc0 = 0.0, acc1 = 0.0;
+    if constexpr (MODE == 2) {       // the all-reduced sums, slot by slot
+      const float* cw = corr + ((size_t)w * W + v) * 36;
+      acc0 = cw[lane];
+      if (lane < 4) acc1 = cw[32 + lane];
+      else if (w == v && lane < 10) acc1 = g_corr[6 * w + lane - 4];
+    } else
     for (int b0 = 0; b0 < G; b0 += 32) {
       unsigned int tm = __ballot_sync(
           FULL, b0 + lane < G && (spm[(b0 + lane) * SOLVE_PW + word] & bit));
@@ -1260,6 +1303,22 @@ __global__ void __launch_bounds__(SOLVE_NT, 1) schur_solve_kernel(
           acc1 += x1[u];
         }
       }
+    }
+    if constexpr (MODE == 1) {       // the sums out, for the collective
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int e = lane + 32 * h;
+        const double acc = h ? acc1 : acc0;
+        if (e >= SOLVE_SLOT || (e >= 36 && w != v)) continue;
+        if (e >= 36) {
+          g_corr[6 * w + e - 36] = (float)acc;
+          continue;
+        }
+        const int r = e / 6, c = e - 6 * r;
+        corr[((size_t)w * W + v) * 36 + e] = (float)acc;
+        if (w != v) corr[((size_t)v * W + w) * 36 + 6 * c + r] = (float)acc;
+      }
+      continue;
     }
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
@@ -1290,6 +1349,7 @@ __global__ void __launch_bounds__(SOLVE_NT, 1) schur_solve_kernel(
     }
   }
   __syncthreads();
+  if constexpr (MODE == 1) return;
 
   // 5. LU with partial pivoting of [S | g] (getrf's and getrs's
   // operations: the reference's jnp.linalg.solve), one barrier a column.
@@ -1570,12 +1630,71 @@ int lba_solve(const int* off, const int* list, const float* H_cc,
   // with the kernel's static shared memory, the default 48 KB limit may be
   // passed below 48 KB of dynamic: set the limit at every launch
   const cudaError_t e0 = cudaFuncSetAttribute(
-      schur_solve_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      schur_solve_kernel<0>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (e0 != cudaSuccess) return (int)e0;
-  schur_solve_kernel<<<G, SOLVE_NT, smem, stream>>>(
+  schur_solve_kernel<0><<<G, SOLVE_NT, smem, stream>>>(
       off, list, H_cc, g_c, H_inv, g_l, H_cl, lam, free_, dxi, scratch, W, K,
-      L, N, pin_weight, cap);
+      L, N, pin_weight, cap, nullptr, nullptr);
+  const cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  landmark_step_kernel<<<(N + STEP_NT - 1) / STEP_NT, STEP_NT, 0, stream>>>(
+      scratch, H_cl, H_inv, g_l, H_ll, d, W, N, cap);
+  return (int)cudaGetLastError();
+}
+
+// The owner-sharded step's first half on one shard (MODE 1): the Schur sums
+// over lba_index's lists of the shard's landmarks -> corr (W, W, 6, 6) =
+// sum_n B_wn C_vn^T and g_corr (W, 6) = sum_n B_wn g_l[n], B = H_cl H_inv,
+// for the free pose pairs (zero elsewhere). scratch: as lba_solve's, and
+// lba_solve_reduced of the same shard reads the pose masks it leaves there.
+int lba_schur_corr(const int* off, const int* list, const float* H_inv,
+                   const float* g_l, const float* H_cl, const uint8_t* free_,
+                   float* corr, float* g_corr, unsigned int* scratch,
+                   int scratch_words, int W, int K, int L, int N,
+                   cudaStream_t stream) {
+  if (W < 1 || W > SOLVE_MAX_W || N < 1) return (int)cudaErrorInvalidValue;
+  const int G = (N + SOLVE_CH - 1) / SOLVE_CH, npair = W * (W + 1) / 2;
+  const long long need = SOLVE_HEAD + (long long)N + (long long)G * SOLVE_PW +
+                        1 + 2LL * G * npair * SOLVE_SLOT;
+  if (scratch_words < need) return (int)cudaErrorInvalidValue;
+  const size_t smem1 = sizeof(double) * (SOLVE_CH * W * 18 + SOLVE_CH * 9);
+  const size_t smem2 = sizeof(unsigned int) * G * SOLVE_PW;
+  const size_t smem = smem1 > smem2 ? smem1 : smem2;
+  const cudaError_t e0 = cudaFuncSetAttribute(
+      schur_solve_kernel<1>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (e0 != cudaSuccess) return (int)e0;
+  schur_solve_kernel<1><<<G, SOLVE_NT, smem, stream>>>(
+      off, list, nullptr, nullptr, H_inv, g_l, H_cl, nullptr, free_, nullptr,
+      scratch, W, K, L, N, 0.0f, 0, corr, g_corr);
+  return (int)cudaGetLastError();
+}
+
+// The second half (MODE 2): from the all-reduced H_cc (W, 6, 6), g_c (W, 6),
+// corr and g_corr, the damped and pinned reduced system's solve in one
+// block, then the shard's landmark steps -> dxi (W, 6) masked and (cap)
+// capped, d (N, 3) floored and capped, as lba_solve's. scratch: the one the
+// shard's lba_schur_corr launch wrote.
+int lba_solve_reduced(const float* H_cc, const float* g_c, const float* corr,
+                      const float* g_corr, const float* H_ll,
+                      const float* H_inv, const float* g_l, const float* H_cl,
+                      const float* lam, const uint8_t* free_, float* dxi,
+                      float* d, unsigned int* scratch, int scratch_words,
+                      int W, int N, float pin_weight, int cap,
+                      cudaStream_t stream) {
+  if (W < 1 || W > SOLVE_MAX_W || N < 1) return (int)cudaErrorInvalidValue;
+  const long long need = SOLVE_HEAD + (long long)N;
+  if (scratch_words < need) return (int)cudaErrorInvalidValue;
+  const size_t smem = sizeof(double) * 6 * W * (6 * W + 1);
+  const cudaError_t e0 = cudaFuncSetAttribute(
+      schur_solve_kernel<2>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (e0 != cudaSuccess) return (int)e0;
+  schur_solve_kernel<2><<<1, SOLVE_NT, smem, stream>>>(
+      nullptr, nullptr, H_cc, g_c, H_inv, g_l, H_cl, lam, free_, dxi, scratch,
+      W, 0, 0, N, pin_weight, cap, const_cast<float*>(corr),
+      const_cast<float*>(g_corr));
   const cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   landmark_step_kernel<<<(N + STEP_NT - 1) / STEP_NT, STEP_NT, 0, stream>>>(

@@ -19,9 +19,11 @@ compaction. The host-KF driver's hooks are ported too:
 ``on_probe_batch(es)`` (the probe rows of one or more chunk-backend
 dispatches, fetched once). The reference's ``_make_kf_probe`` is only a
 ``jax.jit`` of ``probe_core``, which ``on_keyframe`` calls directly here.
-Not ported, and raising: the sharded database (``loop.distributed=True``,
-the parallel slice). The reference's ``PLSLAM_LC_DEBUG`` staging branch is
-left out (ROADMAP.md Queue 1).
+With ``loop.distributed=True`` the candidates come from the sharded
+database (``parallel/dist_vocab.py::DistRetrieval``): each keyframe's BoW
+rows are mirrored into it, it answers the query, and it follows
+compactions. The reference's ``PLSLAM_LC_DEBUG`` staging branch is left
+out (ROADMAP.md Queue 1).
 """
 
 from __future__ import annotations
@@ -37,7 +39,7 @@ from plslam_tpu_torch.core import lie
 from plslam_tpu_torch.core.camera import StereoCamera
 from plslam_tpu_torch.loop import vocabulary
 from plslam_tpu_torch.loop.database import (BowDatabase, ConsistencyVoter,
-                                            select_candidates)
+                                            LoopCandidate, select_candidates)
 from plslam_tpu_torch.loop.pose_graph import (PoseGraph, frozen_mask,
                                               optimize_pose_graph,
                                               optimize_pose_graph_pcg)
@@ -202,10 +204,6 @@ class LoopCloser:
     handler it is given (``FusedPLSLAM``) exposes ``_lock`` and ``state``."""
 
     def __init__(self, cfg: SlamConfig, cam: StereoCamera, device=None):
-        if cfg.loop.distributed:
-            raise NotImplementedError(
-                "loop.distributed=True (the sharded BoW database) is not "
-                "ported yet (the parallel/ slice, ROADMAP.md Queue 1)")
         self.cfg = cfg
         self.cam = cam
         voc_p = vocabulary.default_vocabulary("orb", cfg.loop.vocab_k,
@@ -214,6 +212,14 @@ class LoopCloser:
                                                cfg.loop.vocab_l, device)
                  if cfg.lines.has_lines else None)
         self.db = BowDatabase(cfg, voc_p, voc_l)
+        # sharded place recognition: candidate retrieval on a 'kf' mesh
+        self._dist = None
+        if cfg.loop.distributed:
+            from plslam_tpu_torch.parallel.dist_vocab import DistRetrieval
+            self._dist = DistRetrieval(
+                cfg, voc_p.n_leaves,
+                voc_l.n_leaves if voc_l is not None else None,
+                device=voc_p.idf.device)
         self.voter = ConsistencyVoter(cfg.loop.consistency_window)
         self.odo_edges = []          # (i, j, T_rel np, w)
         self.covis_edges = []        # (i, j, T_rel np, w, n_shared)
@@ -338,6 +344,8 @@ class LoopCloser:
         if self.db.ln_valid is not None:
             self.db.ln_valid = (self.db.ln_valid.index_select(0, perm_d)
                                 & live)
+        if self._dist is not None:
+            self._dist.remap_slots(perm_d, n_valid)
         self.voter._streaks.clear()
 
     # -- main entry ------------------------------------------------------------
@@ -412,20 +420,41 @@ class LoopCloser:
                 self.covis_edges.append(
                     (int(f), slot, T_rel.astype(np.float32),
                      cfg.loop.covis_edge_weight, int(covis[f])))
+        if self._dist is not None:
+            # mirror the keyframe's BoW rows (the probe wrote them to
+            # db.bows_*) into the sharded database
+            self._dist.insert(slot, *self._bow_rows(slot))
         if slot < cfg.loop.min_kf_separation:
             return None
         if self.probes_since_close < cfg.loop.lc_cooldown:
             return None             # post-closure lockout (lc_cooldown)
-        scores = scores.copy()          # db.query masking, host-side
-        scores[slot:] = 0.0
-        scores[n_kfs:] = 0.0
-        candidates, baseline = select_candidates(scores, slot, cfg)
+        if self._dist is not None:
+            # the sharded query: global top-k and covisible baseline, the
+            # semantics of select_candidates
+            ts, ti, base = host_copies(*self._dist.query(
+                slot, n_kfs, *self._bow_rows(slot)))
+            baseline = max(float(base), 1e-3)
+            candidates = [
+                LoopCandidate(int(i), float(s) / baseline)
+                for s, i in zip(ts, ti)
+                if s > 0 and float(s) / baseline >= cfg.loop.lc_mat]
+        else:
+            scores = scores.copy()          # db.query masking, host-side
+            scores[slot:] = 0.0
+            scores[n_kfs:] = 0.0
+            candidates, baseline = select_candidates(scores, slot, cfg)
         self.n_candidates += len(candidates)
         fired = self.voter.vote(candidates)
         if fired is None:
             return None
         self.n_votes_fired += 1
         return self._close_loop(map_handler, fired, slot, kf_poses)
+
+    def _bow_rows(self, slot: int):
+        """The database's BoW row(s) of ``slot`` (None for lines where the
+        database has none)."""
+        return (self.db.bows_p[slot],
+                self.db.bows_l[slot] if self.db.bows_l is not None else None)
 
     # -- verification + optimization -------------------------------------------
     def _close_loop(self, map_handler, slot_a: int, slot_b: int, kf_poses

@@ -64,6 +64,8 @@ _SIGNATURES: Dict[str, str] = {
     "lba_index": "p" * 5 + "iiiii" + "ii",
     "lba_bin": "p" * 18 + "iiiii",
     "lba_solve": "p" * 13 + "iiiii" + "fi",
+    "lba_schur_corr": "p" * 9 + "iiiii",
+    "lba_solve_reduced": "p" * 13 + "iii" + "fi",
     "bow_descend": "pppiii",
     "bow_hist": "ppppii",
     "pg_edges": "p" * 10 + "iiii",

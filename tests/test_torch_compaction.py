@@ -187,6 +187,7 @@ def _closer(mod, voter, rng_seed, n, F=24):
     poses = np.stack(poses)
     rel = lambda i, j: (np.linalg.inv(poses[i]) @ poses[j]).astype(np.float32)
     lc = mod.LoopCloser.__new__(mod.LoopCloser)
+    lc._dist = None                  # no sharded database
     lc.odo_edges = [(i - 1, i, rel(i - 1, i), 1.0) for i in range(1, n)]
     pairs = {(int(i), int(j)) for i, j in rng.integers(0, n, (40, 2))
              if j > i + 1}
@@ -197,7 +198,6 @@ def _closer(mod, voter, rng_seed, n, F=24):
     bows = rng.random((F, 50)).astype(np.float32)
     bows_l = rng.random((F, 30)).astype(np.float32)
     if mod is jlc:
-        lc._dist = None
         lc.db = type("Db", (), {"bows_p": jnp.asarray(bows),
                                 "bows_l": jnp.asarray(bows_l)})()
     else:

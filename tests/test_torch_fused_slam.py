@@ -293,17 +293,17 @@ def test_fused_slam_matches_reference(scene):
 
 
 def test_fused_slam_raises_where_not_ported(scene):
-    """Loops run; the sharded database (loop.distributed) raises, naming
-    where it is queued. Slot remapping runs (checkpoints:
+    """Loops run, also with the sharded database (loop.distributed, two
+    CPU shards of the BoW rows). Slot remapping runs (checkpoints:
     test_torch_checkpoint.py), and a map too small for the compaction to
     make room raises the reference's capacity error."""
     looped = tfs.FusedPLSLAM(TCFG.with_updates({"loop": {"enabled": True}}),
                              TCAM, device="cpu")
     assert looped.loop_closer is not None
-    with pytest.raises(NotImplementedError, match="parallel"):
-        tfs.FusedPLSLAM(TCFG.with_updates({"loop": {"enabled": True,
-                                                    "distributed": True}}),
-                        TCAM, device="cpu")
+    sharded = tfs.FusedPLSLAM(TCFG.with_updates(
+        {"loop": {"enabled": True, "distributed": True, "dist_devices": 2}}),
+        TCAM, device="cpu")
+    assert sharded.loop_closer._dist.n == 2
     F = TCFG.mapping.max_kfs
     looped.loop_closer.remap_slots(np.arange(F), F)
     if not torch.cuda.is_available():

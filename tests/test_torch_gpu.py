@@ -1027,6 +1027,69 @@ def test_lba_solve_at_the_window_shape(cuda):
               lba.lba_solve_plain(_f64(b), free, lam.double(), P))
 
 
+def _window_shard(cuda, n):
+    """Shard 0 of n of chip_smoke.py's lba_window_problem, bucketed by
+    owner, with its plain blocks at the plain terms' MAD scale (the shard's
+    own H_cc and g_c standing for the all-reduced ones)."""
+    from chip_smoke import lba_window_problem
+    from plslam_tpu_torch.backend import lba
+    from plslam_tpu_torch.config import SlamConfig
+    from plslam_tpu_torch.core.camera import StereoCamera
+    from plslam_tpu_torch.parallel.dist_lba import (bucket_problem_by_owner,
+                                                    shard_problem)
+    from plslam_tpu_torch.parallel.mesh import make_mesh
+    cfg = SlamConfig()
+    cam = StereoCamera.from_config(cfg.camera)
+    whole = lba_window_problem(cuda, cfg, cam)
+    prob = shard_problem(make_mesh(n, ("lm",), cuda),
+                         bucket_problem_by_owner(whole, n).problem)[0]
+    free = lba._free(prob)
+    lam = torch.tensor(cfg.mapping.lambda_init, device=cuda)
+    t, sigma, _ = lba.lba_terms_sigma_plain(prob, cam)
+    return prob, free, lam, lba.lba_blocks_plain(t, prob, sigma, free, lam)
+
+
+@pytest.mark.parametrize("n", [1, 4])
+def test_lba_schur_corr_and_solve_reduced(cuda, n):
+    """The owner-sharded step's two entries on shard 0 of n of the path's
+    window (n = 4: W = 10, K = 256, L = 32, 1,280 landmarks), one launch
+    each: lba_schur_corr's sums against lba_schur_corr_plain and
+    lba_solve_reduced's step against lba_solve_reduced_plain, each under
+    K15's rule (float64 the truth); two launches give the same bits."""
+    from plslam_tpu_torch.backend import lba
+    prob, free, lam, b = _window_shard(cuda, n)
+    idx = lba.lba_index(prob)
+    scratch = lba.new_solve_scratch(b.H_cl.shape[0], b.H_cl.shape[1], cuda)
+    corr = _launched("lba_schur_corr", lambda: lba.lba_schur_corr(
+        b, prob, free, idx, scratch))
+    _hold_f64(corr, lba.lba_schur_corr_plain(b, free),
+              lba.lba_schur_corr_plain(_f64(b), free))
+    P = prob.pt_pos.shape[0]
+    for cap in (True, False):
+        got = _launched("lba_solve_reduced", lambda: lba.lba_solve_reduced(
+            b.H_cc, b.g_c, *corr, b, prob, free, lam, cap=cap,
+            scratch=scratch))
+        c64 = [x.double() for x in corr]
+        _hold_f64(got, lba.lba_solve_reduced_plain(
+            b.H_cc, b.g_c, *corr, b, free, lam, P, cap=cap),
+            lba.lba_solve_reduced_plain(b.H_cc.double(), b.g_c.double(),
+                                        *c64, _f64(b), free, lam.double(),
+                                        P, cap=cap))
+    again = lba.lba_schur_corr(b, prob, free, idx, scratch)
+    assert all(torch.equal(x, y) for x, y in zip(corr, again))
+    for x, y in zip(got, lba.lba_solve_reduced(
+            b.H_cc, b.g_c, *corr, b, prob, free, lam, cap=False,
+            scratch=scratch)):
+        assert torch.equal(x, y)
+    if n == 1:
+        # the whole window: the split step against lba_solve, one launch
+        # of each, by K15's rule
+        whole = _launched("lba_solve", lambda: lba.lba_solve(
+            b, prob, free, lam, idx, cap=False))
+        _hold_f64(got, whole, lba.lba_solve_plain(_f64(b), free,
+                                                  lam.double(), P, cap=False))
+
+
 def test_run_lba_graph_replay(cuda):
     """run_lba on a CUDA device: its first call of a shape runs eagerly and
     captures, later calls replay the graph. On two successive problems of
@@ -1518,14 +1581,15 @@ def test_lba_terms_sigma_exact(cuda, case):
 # K = 1,024, L = 128: clusters of 8); K + 2L not a multiple of the cluster's
 # slice, with two rounds a CTA, odd K (rows off 16-byte alignment) and the
 # Jacobians' last 16-byte piece past the tensor's end
-CAMERA_CASES = ("fixed", "empty", "W1", "W10", "ragged")
+CAMERA_CASES = ("fixed", "empty", "W1", "W10", "ragged", "one_warp")
 
 
 def camera_case_np(case):
     """lba_problem_np's construction for one of CAMERA_CASES: the dict of
     LBAProblem fields and the camera."""
     kw = {"W1": dict(W=1), "W10": dict(W=10, P=1024, Q=256),
-          "ragged": dict(W=3, P=2501, Q=100)}.get(case, {})
+          "ragged": dict(W=3, P=2501, Q=100),
+          "one_warp": dict(W=4, P=16, Q=8)}.get(case, {})
     d, cam = lba_problem_np(13, **kw)
     if case == "fixed":
         d["kf_fixed"][2] = True
@@ -1553,6 +1617,10 @@ def test_lba_camera_cluster(cuda, case):
         assert (C, S, T) == (8, 160, 160)
     if case == "ragged":
         assert C * S != K + 2 * L and S > T and K % 2 == 1
+    if case == "one_warp":
+        # a shard of the sharded step at the smallest shapes: a CTA of one
+        # warp writes the 42 outputs in two rounds
+        assert (C, S, T) == (1, 24, 32)
     t, sigma, _ = lba.lba_terms_sigma_plain(prob, cam)
     free = lba._free(prob)
     got = _launched("lba_camera", lambda: lba.lba_camera(t, sigma, free))

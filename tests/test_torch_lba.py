@@ -574,7 +574,7 @@ def test_run_lba_on_cpu_is_the_plain_loop():
 # of the slice with two rounds a CTA, a wide window, many rounds
 CAMERA_SHAPES = [(10, 1024, 128), (1, 1, 0), (7, 64, 0), (2, 0, 33),
                  (5, 120, 20), (3, 2501, 50), (20, 4096, 128),
-                 (1, 100003, 7)]
+                 (1, 100003, 7), (4, 16, 4)]
 
 
 def camera_rounds(W, K, L):
@@ -604,6 +604,16 @@ def test_camera_rounds_cover_each_observation_once(W, K, L):
         assert c * S <= r0 < r1 <= (c + 1) * S and r1 - r0 <= T
     if (W, K, L) == (10, 1024, 128):
         assert (C, S, T) == (8, 160, 160)
+
+
+@pytest.mark.parametrize("W,K,L", CAMERA_SHAPES)
+def test_camera_final_write_covers_each_output(W, K, L):
+    """CTA 0 writes H_cc's 36 entries and g_c's 6 in rounds of its T
+    threads (e = tid, tid + T, ...): each once, also where T is one warp
+    (the 4 x 16 x 4 shard of the sharded step, T = 32)."""
+    T = tlba.camera_layout(W, K, L)[2]
+    written = sorted(e for tid in range(T) for e in range(tid, 42, T))
+    assert written == list(range(42))
 
 
 @pytest.mark.parametrize("W,K,L", [(0, 10, 1), (65536, 10, 1), (3, 0, 0),
@@ -659,7 +669,8 @@ def _camera_data_flow(t, sigma, free):
     return H, g
 
 
-@pytest.mark.parametrize("case", ["fixed", "empty", "W1", "ragged"])
+@pytest.mark.parametrize("case", ["fixed", "empty", "W1", "ragged",
+                                  "one_warp"])
 def test_camera_kernel_data_flow_matches_plain(case):
     """The kernel's reading of the terms (its rounds, the staged rows'
     offsets, the endpoint indices, the fixed poses) in float64 against

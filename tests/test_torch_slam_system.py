@@ -336,10 +336,21 @@ def test_map_handler_worker_error_is_raised():
 
 
 def test_distributed_mapping_is_refused_by_name():
+    """mapping.distributed builds the sharded LBA over
+    mapping.dist_devices shards on the map's device type (one a visible
+    device by default); without a card its default, cuda, is refused with
+    the device='cpu' hint, never moved to the CPU."""
     cfg, cam = _port(BACKEND_CFG.with_updates(
-        {"mapping": {"distributed": True}}), CAM)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
-        MapHandler(cfg, cam, device="cpu")
+        {"mapping": {"distributed": True, "dist_devices": 4}}), CAM)
+    mh = MapHandler(cfg, cam, device="cpu")
+    assert mh._dist.n == 4 and mh._dist.mesh.devices == [
+        torch.device("cpu")] * 4
+    one = MapHandler(cfg.with_updates({"mapping": {"dist_devices": 0}}), cam,
+                     device="cpu")
+    assert one._dist.n == 1
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            MapHandler(cfg, cam)
 
 
 def test_run_concurrent_sessions_equal_alone():
@@ -377,7 +388,8 @@ def test_run_concurrent_sessions_equal_alone():
 
 def test_multiseq_main(tmp_path, capsys):
     """The multi-sequence app: system.fused_slam=false selects
-    ChunkedPLSLAM for every session; --distributed is refused by name."""
+    ChunkedPLSLAM for every session; --distributed runs per-frame PLSLAM
+    sessions on the sharded LBA (two CPU shards) to the end."""
     from plslam_tpu_torch.apps import plslam_multiseq
     conf = tmp_path / "small.yaml"
     conf.write_text(
@@ -390,5 +402,10 @@ def test_multiseq_main(tmp_path, capsys):
                                  "--config", str(conf)]) == 0
     out = capsys.readouterr().out
     assert "seq 1: 9 frames" in out and "across 2 sessions" in out
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
-        plslam_multiseq.main(["--synthetic", "--distributed"])
+    conf.write_text(conf.read_text().replace(
+        "mapping: {", "mapping: {dist_devices: 2, "))
+    assert plslam_multiseq.main(["--synthetic", "--distributed", "--frames",
+                                 "5", "--no-loops", "--device", "cpu",
+                                 "--config", str(conf)]) == 0
+    out = capsys.readouterr().out
+    assert "seq 1: 5 frames" in out and "across 2 sessions" in out
