@@ -123,7 +123,8 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
      (4 shards) on tests/test_dist_lba.py's 25-frame scene against the
      single-device run (the slice's main path: its launches join the JSON
      line); (c) loop.distributed on tests/test_dist_vocab.py's 40-frame
-     loop scene, the same loop events and keyframes; (d)
+     loop scene, the same loop events and keyframes, with PLSLAM,
+     FusedPLSLAM (one compaction) and ChunkedPLSLAM; (d)
      ``apps/plslam_multiseq.py --synthetic --distributed``; (e)
      ``parallel/multihost_check.py`` in two processes joined by gloo
      against the in-process 4-shard mesh;
@@ -151,7 +152,9 @@ GN phase and whole optimize_pose at 20 pairs, K2's NMS block max at
 level 0, kernel G (refit_roots and merge_segments at both detector
 scales), K12's bits (from the half-res images, or a parent's Sobel launch
 and lbd_describe; and on given Sobel maps), K14's kf_scan, K15's
-landmark index, camera blocks, step and run_lba, K16's medoid rows, K17's
+landmark index, camera blocks, step and run_lba (and K15's bits of
+lba_camera, lba_solve capped and not and run_lba eager and replayed, at
+the window and its K = 256 cut: ``k15_bits``), K16's medoid rows, K17's
 descent and histogram and K18's normal equations (bit for bit), edge
 sweep, PCG and whole solves
 against those of another checkout at DIR (for example a ``git archive``
@@ -5212,6 +5215,36 @@ def _orb_after_filters_before(orb, image, levels, uv, octave):
     return fn
 
 
+def k15_bits(dev, cfg, cam, lam) -> dict:
+    """K15's single-device launches for ``--against``'s bit comparison, on
+    the plain terms and blocks of ``lba_window_problem`` and of its K = 256
+    cut (a shard's point slots at 4 shards): ``lba_camera``, ``lba_solve``
+    capped and not, and ``run_lba`` twice (the process's first call
+    eager, then its CUDA graph's replay). Returns
+    {"out": {name: outputs on the host}, "launches": the launches made}."""
+    import torch
+    from plslam_tpu_torch import native
+    from plslam_tpu_torch.backend import lba
+    out = {}
+    native.reset_counts()
+    for K in (None, 256):
+        prob = lba_window_problem(dev, cfg, cam, K=K)
+        free = lba._free(prob)
+        t, sigma, _ = lba.lba_terms_sigma_plain(prob, cam)
+        b = lba.lba_blocks_plain(t, prob, sigma, free, lam)
+        idx = lba.lba_index(prob)
+        tag = f"K={K or cfg.points.max_kpts}"
+        out[f"{tag} lba_camera"] = lba.lba_camera(t, sigma, free)
+        for cap in (True, False):
+            out[f"{tag} lba_solve cap={cap}"] = lba.lba_solve(
+                b, prob, free, lam, idx, cap=cap)
+        for run in ("eager", "replay"):
+            out[f"{tag} run_lba {run}"] = tuple(lba.run_lba(prob, cam, cfg))
+    torch.cuda.synchronize()
+    return {"out": {k: [x.cpu() for x in v] for k, v in out.items()},
+            "launches": dict(native.LAUNCHES)}
+
+
 def against_side(root: str, out_path: str, desc_path: str) -> None:
     """One process of ``--against``: on 40 seeded 376x1241 images, through
     the plslam_tpu_torch of the checkout at ``root`` (its kernels built
@@ -5316,6 +5349,8 @@ def against_side(root: str, out_path: str, desc_path: str) -> None:
     # lba_backsub; then the whole run_lba (a parent's eager loop)
     free = lba._free(prob)
     lam = torch.tensor(cfg.mapping.lambda_init, device=dev)
+    res["k15_bits"] = k15_bits(dev, cfg, cam, lam) if hasattr(
+        lba, "lba_solve") else None
     tp, sg, _ = lba.lba_terms_sigma_plain(prob, cam)
     bp = lba.lba_blocks_plain(tp, prob, sg, free, lam)
     idx = lba.lba_index(prob)
@@ -5728,7 +5763,8 @@ def against(other: str) -> None:
             runs.append((who, torch.load(out)))
     (_, a), (_, b) = runs[0], runs[1]
     for key in a:
-        if key in ("front_end_kernels", "gauges", "grids", "decisions"):
+        if key in ("front_end_kernels", "gauges", "grids", "decisions",
+                   "k15_bits"):
             continue
         errs = [max_abs_err(x, y) for x, y in zip(a[key][0], b[key][0])]
         if all(x.is_floating_point() for x in a[key][0]):
@@ -5773,6 +5809,7 @@ def against(other: str) -> None:
         print(f"[against] {key}: bits / maps / tile_ok / labels / lists "
               f"equal on both trees; the same bits per output {same}",
               flush=True)
+    _k15_bits(runs)
     for key in ("lbd", "lba_index"):
         print(f"[against] {key}: grid, block this {b['grids'].get(key)}, "
               f"other {a['grids'].get(key)}", flush=True)
@@ -5828,6 +5865,28 @@ def against(other: str) -> None:
           f"(detect_and_describe, 40 images): this {kernels['this']}, "
           f"other {kernels['other']}", flush=True)
     _against_solves(roots)
+
+
+def _k15_bits(runs) -> None:
+    """Prints, of ``k15_bits`` in each of ``--against``'s four runs, each
+    tree's launches and which outputs differ from the first run's bit for
+    bit (a tree that changes K15's arithmetic on purpose differs here)."""
+    import torch
+    if any(r["k15_bits"] is None for _, r in runs):
+        print("[against] K15 bits: a tree without lba_solve", flush=True)
+        return
+    first = runs[0][1]["k15_bits"]["out"]
+    differ = [(who, k) for who, r in runs
+              for k, v in r["k15_bits"]["out"].items()
+              if k not in first or not all(
+                  torch.equal(x, y) for x, y in zip(v, first[k]))]
+    for who, r in runs:
+        print(f"[against] K15 bits ({who}): launches "
+              f"{r['k15_bits']['launches']}", flush=True)
+    print(f"[against] K15 bits: {len(first)} outputs (lba_camera, lba_solve "
+          f"capped and not, run_lba eager and replayed, at K = 1024 and "
+          f"256) x 4 runs; differing from the first run: {differ or 'none'}",
+          flush=True)
 
 
 def solve_calls(root: str, what: str) -> None:
@@ -6069,7 +6128,7 @@ def dist_kernel_holds(dev, record, cfg, cam, prob, n):
                                              scratch=scratch),
                lambda: lba.lba_solve_reduced_plain(*args, f, lam, P),
                W * 168 + W * W * 144 + W * 24 + n_obs_pairs * 72
-               + n_lm * (36 + 36 + 12 + 4 + 12) + W * 24 + 4,
+               + n_lm * (36 + 12 + 12 + 4 + 12) + W * 24 + 4,
                2 * nf ** 3 // 3 + 2 * nf ** 2 + n_obs_pairs * 36 + n_lm * 28,
                lambda: torch.linalg.solve_ex(Sm, gm[:, None]),
                library_what=f"torch.linalg.solve_ex of the {6 * W}x{6 * W} "
@@ -6252,7 +6311,63 @@ def dist_live_runs(dev):
           f"trajectories {d:.3g} m apart", flush=True)
     check(res[0][1] >= 1 and res[1][1:] == res[0][1:] and d < 1e-3,
           "dist (c): the sharded retrieval's run differs")
+    dist_chunk_drivers(dev, cam, loop, lseq)
     return launches
+
+
+def dist_chunk_drivers(dev, cam, loop, lseq):
+    """(c) for the chunk drivers, which flush several keyframes' probes
+    a settle (``on_probe_batches``, ``_handle_probe_result``):
+    ``FusedPLSLAM`` at max_kfs 40 (a compaction, with a pressure
+    eviction, between two settles) and ``ChunkedPLSLAM``, kf_batch 4,
+    over the loop scene with and without loop.distributed (4 shards):
+    the same loop events (slots, inliers), funnel counters, frame anchors
+    and compactions, the trajectory within 1 mm, at least one closure
+    and (fused) one compaction, and the sharded database's rows the bits
+    of the host database's."""
+    import torch
+    from plslam_tpu_torch.backend.fused_slam import FusedPLSLAM
+    from plslam_tpu_torch.backend.slam_system import ChunkedPLSLAM
+    B, N = 4, lseq.images_l.shape[0]
+    for cls, mk in ((FusedPLSLAM, 40), (ChunkedPLSLAM,
+                                        loop.mapping.max_kfs)):
+        cfg = loop.with_updates({"mapping": {"max_kfs": mk},
+                                 "system": {"kf_batch": B}})
+        res = []
+        for c in (cfg, cfg.with_updates({"loop": {"distributed": True,
+                                                  "dist_devices": 4}})):
+            slam = cls(c, cam, device=dev)
+            slam.initialize(lseq.images_l[0], lseq.images_r[0])
+            t0 = time.perf_counter()
+            for lo in range(1, N, B):
+                slam.process_chunk(lseq.images_l[lo:lo + B],
+                                   lseq.images_r[lo:lo + B])
+            est = slam.finish()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            lc = slam.loop_closer
+            res.append((est, [(e.kf_from, e.kf_to, e.n_inliers)
+                              for e in lc.events],
+                        (lc.n_candidates, lc.n_votes_fired, lc.n_rej_geom,
+                         lc.n_rej_unc, lc.n_rej_corr, lc.n_loops_closed,
+                         len(lc.odo_edges), len(lc.covis_edges),
+                         len(lc.loop_edges)),
+                        [a for a, _ in slam._frame_anchor],
+                        getattr(slam, "n_compactions", 0), wall))
+        rows_equal = torch.equal(torch.cat(lc._dist.bows_p), lc.db.bows_p)
+        d = max(float(np.linalg.norm(a[:3, 3] - b[:3, 3]))
+                for a, b in zip(res[0][0], res[1][0]))
+        print(f"[dist] (c) {cls.__name__} loop.distributed, 4 shards: "
+              f"events {res[1][1]} ({res[0][1]}), funnel {res[1][2]} "
+              f"({res[0][2]}), compactions {res[1][4]} ({res[0][4]}), "
+              f"last KF slot {max(res[1][3])}; trajectories {d:.3g} m "
+              f"apart; sharded rows = host rows: {rows_equal}; "
+              f"{N - 1} frames in {res[1][5]:.2f} s ({res[0][5]:.2f} s) "
+              "host clock", flush=True)
+        check(res[1][1:5] == res[0][1:5] and d < 1e-3 and rows_equal,
+              f"dist (c): {cls.__name__}'s sharded retrieval run differs")
+        check(res[0][2][5] >= 1 and (cls is ChunkedPLSLAM or res[0][4] >= 1),
+              f"dist (c): {cls.__name__} closed no loop or never compacted")
 
 
 def dist_multiseq():

@@ -12,7 +12,10 @@ tolerance); the rows after ``remap_slots`` bit for bit. The loop closer
 with ``loop.distributed`` counts the same candidates and keeps the same
 consistency streaks as the one without, keyframe by keyframe, and its
 sharded rows follow a compaction and, bit for bit, ``FusedPLSLAM``'s
-rebuild of the rows after a resume.
+rebuild of the rows after a resume. ``FusedPLSLAM`` (through a
+compaction) and ``ChunkedPLSLAM`` with ``loop.distributed`` make the loop
+events, funnel counters and frame anchors of their runs without it, their
+trajectories within 1 mm and their sharded rows the host rows' bits.
 """
 
 import dataclasses
@@ -198,3 +201,79 @@ def test_fused_resume_rebuild_mirrors_into_the_sharded_database():
         got = torch.cat(rows)
         assert torch.equal(got, db) and bool(got[:n].any(-1).all())
         assert not got[n:].any()
+
+
+# test_torch_fused_slam's 41-frame loop scene and configuration: a keyframe
+# a frame, KF 0 -> KF 32 closes, kf_batch 4
+LOOP_CFG = SlamConfig().with_updates({
+    "camera": {"width": 320, "height": 240, "fx": 260.0, "fy": 260.0,
+               "cx": 160.0, "cy": 120.0, "baseline": 0.3},
+    "points": {"max_kpts": 128, "orb_nlevels": 2},
+    "lines": {"max_lines": 32},
+    "mapping": {"max_kfs": 64, "max_points": 512, "max_lines": 64,
+                "lba_max_points": 256, "lba_max_lines": 32,
+                "window_kfs": 4, "fixed_kfs": 2, "lba_iters": 3},
+    "system": {"kf_batch": 4},
+    "keyframe": {"min_entropy_ratio": 2.0},
+    "loop": {"enabled": True, "min_kf_separation": 12,
+             "consistency_window": 2, "lc_inl": 15, "lc_trs": 3.0,
+             "lc_rot": 60.0, "lc_min_correction_t": 0.0,
+             "lc_min_correction_r": 0.0, "dist_devices": 4}})
+
+
+@pytest.mark.parametrize("driver", ["fused", "chunked"])
+def test_chunk_drivers_with_the_sharded_database(driver):
+    """FusedPLSLAM (max_kfs 40: a compaction, with a pressure eviction,
+    between two settles) and ChunkedPLSLAM, which hand several keyframes'
+    probes to the loop closer a settle, over the 41-frame loop scene with
+    and without loop.distributed (4 CPU shards): the same loop events
+    (slots, inliers), funnel counters, frame anchors and compactions, at
+    least one closure (and, fused, one compaction), the trajectories
+    within 1 mm, and the sharded rows the bits of the host database's."""
+    from plslam_tpu_torch.backend.fused_slam import FusedPLSLAM
+    from plslam_tpu_torch.backend.slam_system import ChunkedPLSLAM
+    from plslam_tpu_torch.core.camera import StereoCamera
+    from plslam_tpu_torch.io import synthetic
+    cls = FusedPLSLAM if driver == "fused" else ChunkedPLSLAM
+    cfg = _tcfg(LOOP_CFG.with_updates(
+        {"mapping": {"max_kfs": 40}} if driver == "fused" else {}))
+    cam = StereoCamera.from_config(cfg.camera)
+    seq = synthetic.make_sequence(cam, n_frames=41, seed=3, kind="loop",
+                                  n_points=300, n_lines=40, noise=0.004,
+                                  step=0.15)
+    u8 = lambda a: np.clip(np.asarray(a) * 255.0 + 0.5, 0, 255).astype(
+        np.uint8)
+    il, ir = u8(seq.images_l), u8(seq.images_r)
+    runs = []
+    # one intra-op thread: the runs' thousands of small ops crawl under
+    # oversubscribed threads when the suite runs workers
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        for c in (cfg, cfg.with_updates({"loop": {"distributed": True}})):
+            slam = cls(c, cam, device="cpu")
+            slam.initialize(il[0], ir[0])
+            for lo in range(1, len(il), 4):
+                slam.process_chunk(il[lo:lo + 4], ir[lo:lo + 4])
+            est = slam.finish()
+            lc = slam.loop_closer
+            runs.append((est, [(e.kf_from, e.kf_to, e.n_inliers)
+                               for e in lc.events],
+                         (lc.n_candidates, lc.n_votes_fired, lc.n_rej_geom,
+                          lc.n_rej_unc, lc.n_rej_corr, lc.n_loops_closed,
+                          len(lc.odo_edges), len(lc.covis_edges),
+                          len(lc.loop_edges)),
+                         [a for a, _ in slam._frame_anchor],
+                         getattr(slam, "n_compactions", 0)))
+    finally:
+        torch.set_num_threads(n)
+    (est_h, *host), (est_d, *dist) = runs
+    print(f"{driver}: events {dist[0]}, funnel {dist[1]}, compactions "
+          f"{dist[3]}")
+    assert dist == host
+    assert host[1][5] >= 1 and (driver == "chunked" or host[3] >= 1)
+    assert float(np.abs(est_d[:, :3, 3] - est_h[:, :3, 3]).max()) < 1e-3
+    assert lc._dist.n == 4
+    for rows, db in ((lc._dist.bows_p, lc.db.bows_p),
+                     (lc._dist.bows_l, lc.db.bows_l)):
+        assert torch.equal(torch.cat(rows), db)

@@ -292,11 +292,10 @@ def test_fused_slam_matches_reference(scene):
     assert abs(ate(est_t) - ate(est_j)) < 0.005, (ate(est_t), ate(est_j))
 
 
-def test_fused_slam_raises_where_not_ported(scene):
+def test_fused_slam_loops_and_sharded_database():
     """Loops run, also with the sharded database (loop.distributed, two
-    CPU shards of the BoW rows). Slot remapping runs (checkpoints:
-    test_torch_checkpoint.py), and a map too small for the compaction to
-    make room raises the reference's capacity error."""
+    CPU shards of the BoW rows), and slot remapping runs (checkpoints:
+    test_torch_checkpoint.py)."""
     looped = tfs.FusedPLSLAM(TCFG.with_updates({"loop": {"enabled": True}}),
                              TCAM, device="cpu")
     assert looped.loop_closer is not None
@@ -306,6 +305,12 @@ def test_fused_slam_raises_where_not_ported(scene):
     assert sharded.loop_closer._dist.n == 2
     F = TCFG.mapping.max_kfs
     looped.loop_closer.remap_slots(np.arange(F), F)
+
+
+def test_fused_slam_raises_where_not_ported(scene):
+    """Without a card the default device is refused, and a map too small
+    for the compaction to make room raises the reference's capacity
+    error."""
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError):
             tfs.FusedPLSLAM(TCFG, TCAM)          # the default is the card

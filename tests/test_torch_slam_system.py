@@ -335,11 +335,10 @@ def test_map_handler_worker_error_is_raised():
     assert mh._worker is None
 
 
-def test_distributed_mapping_is_refused_by_name():
+def test_distributed_mapping_builds_sharded_lba():
     """mapping.distributed builds the sharded LBA over
     mapping.dist_devices shards on the map's device type (one a visible
-    device by default); without a card its default, cuda, is refused with
-    the device='cpu' hint, never moved to the CPU."""
+    device by default)."""
     cfg, cam = _port(BACKEND_CFG.with_updates(
         {"mapping": {"distributed": True, "dist_devices": 4}}), CAM)
     mh = MapHandler(cfg, cam, device="cpu")
@@ -348,9 +347,20 @@ def test_distributed_mapping_is_refused_by_name():
     one = MapHandler(cfg.with_updates({"mapping": {"dist_devices": 0}}), cam,
                      device="cpu")
     assert one._dist.n == 1
+
+
+def test_distributed_mapping_is_refused_by_name():
+    """Without a card, mapping.distributed's default device, cuda, is
+    refused with the device='cpu' hint, and so is a cuda mesh: never
+    moved to the CPU."""
+    from plslam_tpu_torch.parallel.mesh import make_mesh
+    cfg, cam = _port(BACKEND_CFG.with_updates(
+        {"mapping": {"distributed": True, "dist_devices": 4}}), CAM)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             MapHandler(cfg, cam)
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            make_mesh(4, ("lm",), "cuda")
 
 
 def test_run_concurrent_sessions_equal_alone():
