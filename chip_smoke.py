@@ -28,9 +28,13 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
      lines, the lite pass, one pair, and lines only (K = 0 point terms) at
      20 pairs and one, every PoseResult field held: T,
      the covariance against float64, err, and the decisions exactly or
-     within 1e-4 of their threshold), J (K14: a chunk's
-     keyframe scan; K16: the 8192 and 1024 landmark rings) and D at the
-     map matching's 8192 x 1024 and 1024 x 128; at each of D's shapes the
+     within 1e-4 of their threshold; its LM mode, optimize_pose_lm, at 20
+     pairs with and without lines, one pair and lines only, also its
+     accept sequence and lambda: ``lm_rows``; counted apart, as
+     ``pose_gn_optimize@lm``, and 0 on the paths, which never call it), J
+     (K14: a chunk's keyframe scan; K16: the 8192 and 1024 landmark
+     rings) and D at the map matching's 8192 x 1024 and 1024 x 128; at
+     each of D's shapes the
      matrix-based hamming_dist + hamming_match it replaced, on the same
      inputs, as the "before" (no path launches them);
   4. the paths: the flagship point+line chunked VO (``BatchedStereoVO``,
@@ -128,8 +132,17 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
      ``apps/plslam_multiseq.py --synthetic --distributed``; (e)
      ``parallel/multihost_check.py`` in two processes joined by gloo
      against the in-process 4-shard mesh;
+  6d. ``[vocab]``, in a process of its own (``python3 chip_smoke.py
+     --vocab``; ``vocab_phase``): the trainer's corpus of 4 scenes a
+     family on the card against the CPU's, both vocabularies trained at
+     the reference's full corpus, tests/test_vocab_quality.py's
+     assertions on them and on the tracked ones, and whether the ORB
+     artifact is the tracked one's bytes; after the dataset phase,
+     ``[slam_system]``'s PLSLAM sync with and without ``PLSLAM_LC_DEBUG``
+     (the staged closure, ``lc_debug_rerun``);
   7. one JSON line of the kernels (launches from the first path run that
-     launched each), then the card line, then the result.
+     launched each; 0 for the "before" rows and the LM mode, marked
+     ``no_path_caller``), then the card line, then the result.
 
 ``python3 chip_smoke.py --cpu-ate [vo] [slam] [loops] [pcg] [dataset]
 [compact] [lines_only] [scan] [dist]`` runs the paths' frames through the
@@ -148,7 +161,8 @@ own 201-frame scene through the loop path on each device named and
 compares their keyframe decisions (``bench_slam_scene``).
 ``python3 chip_smoke.py --against DIR`` holds this tree's level-0 blur,
 ORB's moment pair, FAST score, resize, LBA terms, scale and cost, K13's
-GN phase and whole optimize_pose at 20 pairs, K2's NMS block max at
+GN phase and whole optimize_pose at 20 pairs (and at phase 3's other
+whole-call shapes), K2's NMS block max at
 level 0, kernel G (refit_roots and merge_segments at both detector
 scales), K12's bits (from the half-res images, or a parent's Sobel launch
 and lbd_describe; and on given Sobel maps), K14's kf_scan, K15's
@@ -179,11 +193,17 @@ import time
 
 import numpy as np
 
-HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3
-F32_OPS_PER_S = 67e12          # H100 SXM f32, outside the tensor cores
-# int8 on the tensor cores, dense: a Hamming distance of 256 bits is a
-# 256-deep +-1 product (the reference's own formulation, on the MXU)
-INT8_OPS_PER_S = 1979e12
+try:
+    # the card's peak rates (HBM, f32, int8) and the profiler's records
+    from plslam_tpu_torch.utils.devtime import (all_kernels, cuda_ms,
+                                                profile_device)
+    from plslam_tpu_torch.utils.flops import (F32_OPS_PER_S,
+                                              HBM_BYTES_PER_S,
+                                              INT8_OPS_PER_S)
+except ImportError as e:
+    print(f"FAIL: run from the repository root, with PyTorch ({e})",
+          file=sys.stderr)
+    sys.exit(2)
 # __popc: 16 results a clock per SM (the CUDA C++ programming guide's
 # arithmetic-instruction throughput table, compute capability 9.0) x 132
 # SMs x the H100 SXM's 1.98 GHz boost clock: the floor of the popcount
@@ -231,74 +251,14 @@ def check(cond: bool, msg: str) -> None:
         fail(msg)
 
 
-def cuda_ms(fn, iters: int) -> float:
-    """Mean device time of ``fn`` over ``iters`` launches after warm-up."""
-    import torch
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
-
-
-def _profile_device(fn, keep, iters: int):
-    """(device ms, device kernels) a call of ``fn`` spends in the device
-    records whose name ``keep`` accepts, from torch.profiler over
-    ``iters`` calls after a warm-up. torch.profiler may lose some of a
-    kernel's records (on the H100 often: 6 to 9 of 10 one-launch calls
-    recorded): each kernel counts its mean record's time as many times a
-    call as its records a call round up to, exact while it loses fewer
-    than ``iters`` of them. Fails the run where the profiler gave no
-    device records."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    # a profile now and then comes back without the device's records (on
-    # the H100 about once in 70, at times six in a row late in a run):
-    # take it again, up to eleven times
-    for attempt in range(12):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(iters):
-                fn()
-            torch.cuda.synchronize()
-        ev = [e for e in prof.key_averages()
-              if e.device_type != DeviceType.CPU and keep(e.key)
-              and e.count > 0]
-        if sum(e.device_time_total for e in ev) > 0:
-            if attempt:
-                print(f"[profile] device records came on try {attempt + 1}",
-                      flush=True)
-            per = [math.ceil(e.count / iters) for e in ev]
-            us = sum(e.device_time_total / e.count * n
-                     for e, n in zip(ev, per))
-            return us / 1e3, sum(per)
-    fail("torch.profiler gave no device records in 12 tries: device time "
-         "not measured")
-
-
 def device_ms(fn, memsets: bool = False, iters: int = 10) -> float:
     """Mean device time a call of ``fn`` spends in the hand-written
     kernels (and, with ``memsets``, in the memsets that the entry's own C
     code issues): the kernels' own time, apart from the host's launch path
     that ``cuda_ms`` includes whenever the host is the slower side."""
     from plslam_tpu_torch import native
-    return _profile_device(fn, lambda k: native.is_own_kernel(k)
-                           or (memsets and "Memset" in k), iters)[0]
-
-
-def all_kernels(fn, iters: int = 10):
-    """(device ms, device kernels) a call of ``fn`` over every kernel and
-    copy on the device, torch's included."""
-    return _profile_device(fn, lambda k: True, iters)
+    return profile_device(fn, lambda k: native.is_own_kernel(k)
+                          or (memsets and "Memset" in k), iters)[0]
 
 
 def launched_grid(fn, kernel: str, tries: int = 6):
@@ -339,6 +299,8 @@ def bound(nbytes: float, ops: float, ops_per_s: float = F32_OPS_PER_S):
 
 def max_abs_err(a, b) -> float:
     import torch
+    if a.numel() == 0 and b.numel() == 0:     # (B, 0) masks: no entries
+        return 0.0
     if a.dtype == torch.bool or not a.is_floating_point():
         return float((a.long() - b.long()).abs().max().item())
     a, b = a.double(), b.double()
@@ -356,7 +318,8 @@ class Recorder:
     def __call__(self, name, source, replaces, got, plain, tol, fn, plain_fn,
                  nbytes, ops, library_fn=None, iters=20, entry=None,
                  err_kind="absolute", ops_per_s=F32_OPS_PER_S, before=False,
-                 popc_ops=None, library_what=None, errs=None, cluster=None):
+                 popc_ops=None, library_what=None, errs=None, cluster=None,
+                 count=None, no_path_caller=False):
         """``tol`` is one tolerance for every output, or a list of one per
         output (``err_kind`` then names the unit of each). ``errs``: the
         errors, measured by the caller, in place of the largest absolute
@@ -367,7 +330,10 @@ class Recorder:
         gives (``popc_bound_ms``) beside the card's bound.
         ``library_what``: what ``library_fn`` computes where that is less
         than the whole function. ``cluster``: the CTAs of a kernel launched
-        as a thread-block cluster."""
+        as a thread-block cluster. ``count``: the key its launches count
+        under in ``native.LAUNCHES`` (``entry@mode``; default the entry).
+        ``no_path_caller``: a mode that no path launches (its launches 0,
+        held so)."""
         if errs is None:
             errs = [max_abs_err(g, p) for g, p in zip(got, plain)]
         tols = (list(tol) if isinstance(tol, (list, tuple))
@@ -381,7 +347,8 @@ class Recorder:
         b_ms, b_by = bound(nbytes, ops, ops_per_s)
         popc_ms = None if popc_ops is None else popc_ops / POPC_PER_S * 1e3
         self.rows.append(dict(
-            name=name, entry=entry or name, route="cuda", source=source,
+            name=name, entry=entry or name, count=count or entry or name,
+            no_path_caller=no_path_caller, route="cuda", source=source,
             replaces=replaces, max_abs_err=err, errs=errs, tols=tols,
             err_kind=err_kind, ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
             bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms, ok=ok,
@@ -1588,6 +1555,101 @@ def lines_only_cov_rel(got, ref, differ) -> float:
     return float(d.max()) if same else 0.0
 
 
+def lm_ops(B, K, L, cfg):
+    """gn_ops of optimize_pose_lm: one evaluation of the terms (norms,
+    median, normal equations with the cost) at the start and one an LM
+    iteration (the trial pose's, whose H and g are the next iteration's
+    when it is accepted), then the tail's 1 + max_iters_ref iterations,
+    gate and final statistics."""
+    t = cfg.tracking
+    return gn_ops(B, K, L, 1 + 2 * t.max_iters + 1 + t.max_iters_ref + 2)
+
+
+def hold_lm(got, ref):
+    """The LM iterations on the card (``got``, an LMTrace) against the
+    plain version's (``ref``): per pair, the first iteration whose lambda
+    differs (so whose accept decision differs) must be one where the plain
+    version's trial cost lies within DECISION_MARGIN of its cost, relative.
+    Returns (the count of pairs that break this, the pairs whose sequence
+    differs, the smallest margin of any decision, the largest relative
+    difference of the trial costs over the pairs that agree)."""
+    import torch
+    c, c_try = ref.cost[..., 0].double(), ref.cost[..., 1].double()
+    margin = ((c_try - c).abs() / c.abs().clamp(min=1e-30))
+    margin = torch.where(torch.isfinite(margin), margin,
+                         torch.full_like(margin, math.inf))
+    bad, differ = 0, []
+    for b in range(got.lam.shape[0]):
+        d = (got.lam[b] != ref.lam[b]).nonzero()
+        if len(d):
+            differ.append(b)
+            bad += int(margin[b, int(d[0])] >= DECISION_MARGIN)
+    keep = [b for b in range(got.lam.shape[0]) if b not in differ]
+    rel = ((got.cost[keep].double() - ref.cost[keep].double()).abs()
+           / ref.cost[keep].double().abs().clamp(min=1e-30))
+    rel = float(rel[torch.isfinite(rel)].max()) if rel.numel() else 0.0
+    return bad, differ, float(margin.min()) if margin.numel() else math.inf, \
+        rel
+
+
+def lm_rows(dev, record, cfg):
+    """Kernel I's LM mode (optimize_pose_lm, one launch) at K13's shapes:
+    20 pairs with and without lines (K 1,024, L 128), one pair, lines only
+    (K = 0) at 20 pairs: every PoseResult field held by K13's whole-call
+    rule (the lines-only rule at K = 0), and the accept sequence and
+    lambda by ``hold_lm``."""
+    import torch
+    from plslam_tpu_torch.tracking import pose_gn
+    K, L_max = cfg.points.max_kpts, cfg.lines.max_lines
+    tail = pose_gn._lm_tail_cfg(cfg)
+    n_lm = 2 * cfg.tracking.max_iters
+    for B, K_, L, tag in ((CHUNK, K, L_max, ""), (CHUNK, K, 0, "_points"),
+                          (1, K, L_max, "_b1"),
+                          (CHUNK, 0, L_max, "_lines_only")):
+        cam, pts, lns = gn_inputs(dev, B, K_, L, seed=7 + L + B,
+                                  line_px=0.0 if K_ else 0.5)
+        lns = lns if L else None
+        T0 = torch.eye(4, device=dev).expand(B, 4, 4)
+        T_lm, tr_ref = pose_gn.lm_iters_plain(
+            T0, cam, pts, pose_gn._no_lines(pts) if lns is None else lns,
+            n_lm, cfg.tracking.lm_init_lambda)
+        # the plain version's tail from its own LM pose: optimize_pose_plain
+        # with a first phase of one iteration, and its decisions' margins
+        margins, ref, H, sse = pose_margins(T_lm, cam, pts, lns, tail)
+        got, tr = pose_gn.optimize_pose_lm(T0, cam, pts, lns, cfg,
+                                           trace=True)
+        bad_lm, lm_differ, lm_margin, c_rel = hold_lm(tr, tr_ref)
+        errs, smallest, err_rel, differ = hold_pose(got, ref, margins, H,
+                                                    sse)
+        n_acc = int((tr.lam[:, 1:] < tr.lam[:, :-1]).sum()
+                    + (tr.lam[:, 0] < cfg.tracking.lm_init_lambda).sum())
+        print(f"[k13] optimize_pose_lm{tag}: B={B} K={K_} L={L} good "
+              f"{int(got.good.sum())}/{B} (plain {int(ref.good.sum())}); "
+              f"{n_acc} of {B * n_lm} LM steps accepted; pairs whose "
+              f"accept sequence differs {lm_differ} (smallest LM decision "
+              f"margin {lm_margin:.3g}, beyond 1e-4: {bad_lm}); trial costs' "
+              f"largest relative difference {c_rel:.3g}; smallest tail "
+              f"decision margin {smallest:.6g}; pairs whose inlier masks "
+              f"differ {differ}", flush=True)
+        tols, kind = [1e-5, 1.0, 1.0, 0, 0], (
+            "T abs; cov and err: distance from float64 / (3 x the plain "
+            "version's + 1e-5 of the float64 value); tail decisions beyond "
+            "1e-4 of their threshold; LM accept decisions beyond 1e-4")
+        if not K_:
+            errs = [errs[0], lines_only_cov_rel(got, ref, differ), err_rel,
+                    errs[3]]
+            tols, kind = LINES_ONLY_GN_TOLS + [0], (
+                LINES_ONLY_GN_KIND + "; LM accept decisions beyond 1e-4")
+        record("pose_gn_optimize@lm" + tag, "plslam_tpu_torch/csrc/pose_gn.cu",
+               "plslam_tpu/tracking/pose_gn.py:198", None, None, tols,
+               lambda: pose_gn.optimize_pose_lm(T0, cam, pts, lns, cfg),
+               lambda: pose_gn.optimize_pose_lm_plain(T0, cam, pts, lns, cfg),
+               B * (64 * 2 + K_ * 22 + L * 38 + 144 + 9),
+               lm_ops(B, K_, L, cfg), entry="pose_gn_optimize",
+               count="pose_gn_optimize@lm", no_path_caller=True,
+               errs=errs + [float(bad_lm)], err_kind=kind)
+
+
 def gn_inputs(dev, B, K, L, seed, line_px=0.0):
     """B tracking problems at the main path's term counts: K point terms
     (15% gross outliers, 5% invalid) and L line terms (2 behind the camera,
@@ -1729,6 +1791,8 @@ def slam_kernel_phase(dev, record):
                B * (64 * 2 + K * 22 + L * 38 + 144 + 9),
                gn_ops(B, K, L, n_it + 2), entry="pose_gn_optimize",
                errs=errs, err_kind=kind)
+    # I, LM mode (optimize_pose_lm, one launch)
+    lm_rows(dev, record, cfg)
 
     # J, kf_scan: a chunk of 20 tracked frames against the carry
     rng = np.random.default_rng(4)
@@ -3118,7 +3182,7 @@ def pose_graph_phase(dev, record):
             launched = dict(Counter(native.LAUNCHES) - before)
             kern_ms = {}
             for entry, times in launched.items():
-                k_ms, per = _profile_device(
+                k_ms, per = profile_device(
                     lambda: solve(gd, False),
                     lambda k: f"::{entry}_kernel" in k, 3)
                 kern_ms[entry] = k_ms / per * times
@@ -4435,11 +4499,12 @@ class CritRecorder:
         crit.update = update
 
 
-def system_run(device, tag, n_frames):
+def system_run(device, tag, n_frames, updates=None):
     """One [slam_system] run over loop_scene's first ``n_frames`` frames:
     ``PLSLAM`` a float pair at a time (the app's frames: uint8 / 255), or
     ``ChunkedPLSLAM`` initialized on the float first pair, then uint8
-    chunks of 20 (the app's way). Returns what the holds read."""
+    chunks of 20 (the app's way); ``updates`` on loop_scene's config.
+    Returns what the holds read."""
     import torch
     from plslam_tpu_torch.backend.chunk_backend import lba_slot_flags
     from plslam_tpu_torch.backend.slam_system import ChunkedPLSLAM, PLSLAM
@@ -4447,6 +4512,8 @@ def system_run(device, tag, n_frames):
     kind, async_mapping = {t: (k, a) for t, k, a in SYSTEM_RUNS}[tag]
     cfg, cam, seq, il, ir = LOOP_SCENE
     cfg = cfg.with_updates({"system": {"async_mapping": async_mapping}})
+    if updates:
+        cfg = cfg.with_updates(updates)
     per_frame = kind == "PLSLAM"
     slam = (PLSLAM if per_frame else ChunkedPLSLAM)(cfg, cam, device=device)
     rec = CritRecorder(slam.vo.kf_criterion if per_frame
@@ -4634,6 +4701,57 @@ def slam_system_phase(dev) -> float:
               f"{tag}: ATE {r['ate']} m outside its bound {bound_m} m")
         del r
     return time.perf_counter() - t_phase
+
+
+# the largest distance (m) of a keyframe position between the staged
+# closure (PLSLAM_LC_DEBUG) and the fused one
+LC_DEBUG_M = 1e-3
+
+
+def lc_debug_rerun(dev) -> None:
+    """[slam_system]'s PLSLAM sync over SYSTEM_PER_FRAME frames with the
+    graph solve at every closure (SOLVE_ALWAYS, so a closure takes
+    _close_loop's correction branch), then again with PLSLAM_LC_DEBUG=1
+    (the staged correction, ``LoopCloser._close_staged``): the staged
+    branch ran, and the events and funnel are the same, the keyframe poses
+    within LC_DEBUG_M. It runs after the dataset phase, the last to read
+    torch.profiler in this process: run before it, its two PLSLAM runs'
+    launches made the profiler lose that phase's device records."""
+    import os
+    from plslam_tpu_torch.loop.loop_closer import LoopCloser
+    runs, staged = [], []
+    orig = LoopCloser._close_staged
+
+    def count(self, *a):
+        staged.append(a[2:4])
+        return orig(self, *a)
+
+    LoopCloser._close_staged = count
+    try:
+        for debug in (False, True):
+            if debug:
+                os.environ["PLSLAM_LC_DEBUG"] = "1"
+            try:
+                r = system_run(dev, "plslam_sync", SYSTEM_PER_FRAME,
+                               SOLVE_ALWAYS)
+            finally:
+                os.environ.pop("PLSLAM_LC_DEBUG", None)
+            runs.append((r["events"], r["funnel"], r["slam"].map.kf_poses()))
+            del r
+    finally:
+        LoopCloser._close_staged = orig
+    (ev0, fu0, kp0), (ev1, fu1, kp1) = runs
+    d = (float(np.abs(kp0[:, :3, 3] - kp1[:, :3, 3]).max())
+         if kp0.shape == kp1.shape else math.inf)
+    print(f"[slam_system] PLSLAM_LC_DEBUG rerun (plslam_sync, graph solve "
+          f"at every closure): staged closures {staged}; events {ev1} "
+          f"(without it {ev0}), funnel {fu1} ({fu0}); keyframe positions "
+          f"{d:.3g} m apart", flush=True)
+    check(len(staged) >= 1, "PLSLAM_LC_DEBUG: no closure took the staged "
+          "branch")
+    check(ev0 == ev1 and fu0 == fu1 and d <= LC_DEBUG_M,
+          f"PLSLAM_LC_DEBUG: the staged run differs: events {ev1} vs {ev0}, "
+          f"funnel {fu1} vs {fu0}, keyframes {d} m")
 
 
 def multiseq_phase(dev) -> float:
@@ -5108,7 +5226,7 @@ def chunk_device_times() -> None:
                                  T0, cam, cfg)
         all_ms, n_k = all_kernels(chunk, iters=5)
         own = device_ms(chunk, iters=5)
-        gn_ms, n_gn = _profile_device(
+        gn_ms, n_gn = profile_device(
             chunk, lambda k: "pose_optimize_kernel" in k, 5)
         fe_ms, _ = all_kernels(lambda: extract_stereo_frame(
             f32(il), f32(ir), cam, cfg), iters=5)
@@ -5245,6 +5363,17 @@ def k15_bits(dev, cfg, cam, lam) -> dict:
             "launches": dict(native.LAUNCHES)}
 
 
+def _use_tree(root: str) -> None:
+    """Import plslam_tpu_torch from the checkout at ``root`` from here on:
+    the package this script imported at its start (the profiler helpers
+    and the card's rates) is dropped from ``sys.modules``, so no module of
+    this tree stands in for the other tree's."""
+    sys.path.insert(0, root)
+    for m in [m for m in sys.modules if m == "plslam_tpu_torch"
+              or m.startswith("plslam_tpu_torch.")]:
+        del sys.modules[m]
+
+
 def against_side(root: str, out_path: str, desc_path: str) -> None:
     """One process of ``--against``: on 40 seeded 376x1241 images, through
     the plslam_tpu_torch of the checkout at ``root`` (its kernels built
@@ -5256,7 +5385,9 @@ def against_side(root: str, out_path: str, desc_path: str) -> None:
     after the blocks (``lba_solve``, or a parent's ``lba_schur``, library
     solve and ``lba_backsub``) and the whole ``run_lba`` on
     ``lba_window_problem``, the GN phase (8 iterations) and the whole
-    optimize_pose at 20 x (1024 points, 128 lines) (``gn_inputs``), the
+    optimize_pose at 20 x (1024 points, 128 lines) (``gn_inputs``) and
+    at phase 3's other whole-call shapes (points only, lite, one pair,
+    lines only at 20 pairs and one), the
     NMS block max at level 0, K5 (the whole ``describe_multilevel`` on
     the pyramid of the 40 images at 1,024 seeded keypoints an image, and
     what it runs after its moment filters: ``orient_and_describe``, or a
@@ -5294,7 +5425,7 @@ def against_side(root: str, out_path: str, desc_path: str) -> None:
     device kernel's time and count, ``all_kernels``; for K5, E, K9, G, K12,
     K14, K15's index, camera blocks and step, K16, K17 and K18 the
     wrapper's time, CUDA events) to ``out_path``."""
-    sys.path.insert(0, root)
+    _use_tree(root)
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -5402,6 +5533,28 @@ def against_side(root: str, out_path: str, desc_path: str) -> None:
                 score, chi, clo, 5, 16, 48, 160)))):
         res[key] = ([x.cpu() for x in fn()], device_ms(fn, iters=20),
                     *all_kernels(fn, iters=20))
+    # K13's other whole-call shapes, on phase 3's inputs: points only, the
+    # lite pass, one pair, lines only at 20 pairs and one
+    tk = cfg.tracking
+    lite = cfg.with_updates({"tracking": {
+        "max_iters": tk.lite_pass_iters,
+        "max_iters_ref": tk.lite_pass_iters_ref}})
+    K, L_max = cfg.points.max_kpts, cfg.lines.max_lines
+    for B, K_, L, c, tag in ((CHUNK, K, 0, cfg, "@points"),
+                             (CHUNK, K, L_max, lite, "@lite"),
+                             (1, K, L_max, cfg, "@b1"),
+                             (CHUNK, 0, L_max, cfg, "@lines_only"),
+                             (1, 0, L_max, cfg, "@lines_only_b1")):
+        cam_w, pts_w, lns_w = gn_inputs(dev, B, K_, L, seed=5 + L + B,
+                                        line_px=0.0 if K_ else 0.5)
+        lns_w = lns_w if L else None
+        T0_w = torch.eye(4, device=dev).expand(B, 4, 4)
+        fn = functools.partial(
+            lambda *a: list(pose_gn.optimize_pose(*a)), T0_w, cam_w, pts_w,
+            lns_w, c)
+        res["optimize_pose" + tag] = ([x.cpu() for x in fn()],
+                                      device_ms(fn, iters=20),
+                                      *all_kernels(fn, iters=20))
     # K5 on the pyramid of the 40 images, 1,024 seeded keypoints an image
     # (octaves 0-3, on and off the levels' edges): the whole
     # describe_multilevel, and what it runs after its moment filters
@@ -5895,7 +6048,7 @@ def solve_calls(root: str, what: str) -> None:
     ``optimize_pose_graph_pcg`` ("pcg") at Fb 64, host clock between
     synchronizes (the first pays the library's and the kernels' first
     use), or ("loop") its chip_smoke.py's loop path, dense then PCG."""
-    sys.path.insert(0, root)
+    _use_tree(root)
     import torch
     from plslam_tpu_torch import convert, native
     native.lib()
@@ -6501,6 +6654,177 @@ def dist_child(record, runs) -> None:
     runs.append((Counter(res["launches"]),))
 
 
+# -- [vocab]: the vocabulary trainer on the card's front end ------------------
+
+# scenes of each family whose card corpus is held to the CPU's
+VOCAB_CHECK_SCENES = 4
+# tests/test_vocab_quality.py's assertions: the share of leaves at the
+# largest idf (empty or singleton), the idf spread, held-out revisits found
+VOCAB_STARVING, VOCAB_SPREAD, VOCAB_REVISITS, VOCAB_HITS = 0.20, 1.0, 20, 19
+
+
+def vocab_quality(voc_p, voc_l, revisits, tag) -> None:
+    """tests/test_vocab_quality.py's assertions on an ORB and an LBD
+    vocabulary: starving leaves < 20% and an idf spread > 1 in each, and
+    the held-out revisits (``revisits``: the BoW inputs of frames 0 and 5
+    of 20 unseen scenes) found top-1 at least 19 times with the ORB one."""
+    import torch
+    from plslam_tpu_torch.loop import vocabulary as V
+    for kind, voc in (("orb", voc_p), ("lbd", voc_l)):
+        idf = voc.idf.cpu().numpy()
+        starving = float(np.mean(idf >= idf.max() - 1e-6))
+        spread = float(idf.max() - idf.min())
+        print(f"[vocab] {tag} {kind}: starving leaves {starving * 100:.2f}% "
+              f"(< {VOCAB_STARVING * 100:.0f}%), idf spread {spread:.3f} "
+              f"(> {VOCAB_SPREAD})", flush=True)
+        check(starving < VOCAB_STARVING and spread > VOCAB_SPREAD,
+              f"[vocab] {tag} {kind}: starving {starving}, spread {spread}")
+    visits = torch.stack([V.bow_vector(voc_p, d, v) for d, v in revisits[0]])
+    hits = sum(int(torch.argmax(V.l1_score(visits, V.bow_vector(
+        voc_p, d, v)[None])) == s) for s, (d, v) in enumerate(revisits[1]))
+    print(f"[vocab] {tag}: held-out revisits top-1 {hits}/{VOCAB_REVISITS} "
+          f"(>= {VOCAB_HITS})", flush=True)
+    check(hits >= VOCAB_HITS, f"[vocab] {tag}: revisits {hits}")
+
+
+# tests/test_vocab_quality.py's configuration of the held-out scenes
+VOCAB_REVISIT_CFG = {
+    "camera": {"width": 512, "height": 320, "fx": 400.0, "fy": 400.0,
+               "cx": 256.0, "cy": 160.0, "baseline": 0.3},
+    "points": {"max_kpts": 512, "orb_nlevels": 3}}
+
+
+def render_revisit(s: int) -> np.ndarray:
+    """Frames 0 and 5 of held-out scene ``s`` (seed 5000 + s), (2, 320,
+    512) float32."""
+    from plslam_tpu_torch.config import SlamConfig
+    from plslam_tpu_torch.core.camera import StereoCamera
+    from plslam_tpu_torch.io import synthetic
+    cam = StereoCamera.from_config(
+        SlamConfig().with_updates(VOCAB_REVISIT_CFG).camera)
+    seq = synthetic.make_sequence(
+        cam, n_frames=6, seed=5000 + s, n_points=250, n_lines=40,
+        step=0.25, degrade=synthetic.Degradation(texture=0.06, noise=0.012))
+    return np.asarray(seq.images_l[[0, 5]], np.float32)
+
+
+def vocab_revisits(dev):
+    """tests/test_vocab_quality.py's held-out scenes (512x320, seeds
+    5000+, 6 frames; rendered by 8 processes) through the port's ORB front
+    end on the card: (frame 0's, frame 5's) (desc, valid) a scene."""
+    import torch
+    from plslam_tpu_torch.config import SlamConfig
+    from plslam_tpu_torch.frontend.stereo_points import detect_and_describe
+    from plslam_tpu_torch.loop.vocabulary import render_pool
+    cfg = SlamConfig().with_updates(VOCAB_REVISIT_CFG)
+    out = ([], [])
+    pool = render_pool(8)
+    try:
+        frames = pool.map(render_revisit, range(VOCAB_REVISITS))
+    finally:
+        pool.terminate()
+        pool.join()
+    for f in frames:
+        imgs = torch.from_numpy(f).to(dev)
+        _, desc, _, _, _, valid = detect_and_describe(imgs, cfg)
+        for i in range(2):
+            out[i].append((desc[i], valid[i]))
+    return out
+
+
+def _sha(*arrays) -> str:
+    """The first 16 hex digits of the SHA-256 of the arrays' bytes."""
+    import hashlib
+    h = hashlib.sha256()
+    for a in arrays:
+        h.update(np.ascontiguousarray(a).tobytes())
+    return h.hexdigest()[:16]
+
+
+def vocab_phase() -> None:
+    """[vocab] (``python3 chip_smoke.py --vocab``): the first
+    VOCAB_CHECK_SCENES scenes of each family's corpus described on the card
+    and on the CPU (equal row counts, >= 99.98% of bits equal; ORB
+    predicted bit-equal); both vocabularies trained at the reference's
+    full corpus (120 ORB, 400 LBD scenes; rendered by 8 processes) into a
+    temporary directory; tests/test_vocab_quality.py's assertions on them
+    and on the tracked artifacts; whether the ORB artifact is byte-equal to
+    the tracked one (predicted, not held; else the first differing level
+    and row)."""
+    import os
+    import tempfile
+    import torch
+    from plslam_tpu_torch.loop import vocabulary as V
+    dev = torch.device("cuda", 0)
+    t0 = time.perf_counter()
+    for kind in ("orb", "lbd"):
+        card = V.build_default_corpus(kind, VOCAB_CHECK_SCENES, device=dev)
+        cpu = V.build_default_corpus(kind, VOCAB_CHECK_SCENES, device="cpu")
+        frac = (float((card == cpu).mean()) if card.shape == cpu.shape
+                else 0.0)
+        print(f"[vocab] {kind}: {VOCAB_CHECK_SCENES} scenes, card "
+              f"{card.shape[0]} rows, CPU {cpu.shape[0]}; bits equal "
+              f"{frac:.6f}; bit-equal {card.shape == cpu.shape and frac == 1}",
+              flush=True)
+        check(card.shape == cpu.shape and frac >= 0.9998,
+              f"[vocab] {kind}: the card's corpus differs from the CPU's")
+    revisits = vocab_revisits(dev)
+    tracked = [V.load_vocabulary(V.default_path(k), dev)
+               for k in ("orb", "lbd")]
+    vocab_quality(*tracked, revisits, "tracked")
+    with tempfile.TemporaryDirectory() as tmp:
+        vocs = []
+        for kind in ("orb", "lbd"):
+            t1 = time.perf_counter()
+            desc = V.build_default_corpus(kind, device=dev, workers=8)
+            t2 = time.perf_counter()
+            voc = V.build_vocabulary(desc, k=10, levels=4, seed=1,
+                                     device=dev)
+            path = os.path.join(tmp, os.path.basename(V.default_path(kind)))
+            V.save_vocabulary(voc, path)
+            idf = voc.idf.cpu().numpy()
+            z = np.load(path)
+            print(f"[vocab] {kind}: corpus {desc.shape[0]} descriptors "
+                  f"({t2 - t1:.1f} s, sha256 {_sha(desc)}), trained in "
+                  f"{time.perf_counter() - t2:.1f} s; idf [{idf.min():.2f}, "
+                  f"{idf.max():.2f}] median {np.median(idf):.2f}; the "
+                  f"artifact's arrays' sha256 "
+                  f"{_sha(*(z[k] for k in sorted(z.files)))}", flush=True)
+            vocs.append(V.load_vocabulary(path, dev))
+            if kind == "orb":
+                same = (open(path, "rb").read()
+                        == open(V.default_path(kind), "rb").read())
+                where = ""
+                if not same:
+                    a, b = np.load(path), np.load(V.default_path(kind))
+                    rows = {}
+                    for key in [f"level_{i}" for i in range(4)] + ["idf"]:
+                        d = np.nonzero(np.any((a[key] != b[key]).reshape(
+                            len(a[key]), -1), -1))[0]
+                        rows[key] = (f"{len(d)} rows, the first {d[0]}"
+                                     if len(d) else "equal")
+                    where = f"; differing rows by key {rows}"
+                print(f"[vocab] orb: artifact byte-equal to the tracked "
+                      f"one: {same}{where}", flush=True)
+        vocab_quality(*vocs, revisits, "trained")
+    print(f"[vocab] phase {time.perf_counter() - t0:.1f} s", flush=True)
+
+
+def vocab_child() -> float:
+    """``vocab_phase`` in a process of its own; its output passes
+    through, its failure fails the run. Returns its seconds."""
+    import os
+    t0 = time.perf_counter()
+    here = os.path.dirname(os.path.abspath(__file__))
+    out = subprocess.run(
+        [sys.executable, os.path.join(here, "chip_smoke.py"), "--vocab"],
+        cwd=here, capture_output=True, text=True, timeout=900)
+    print(out.stdout.strip(), flush=True)
+    check(out.returncode == 0, "the vocab phase failed: "
+          + out.stderr.strip()[-2000:])
+    return time.perf_counter() - t0
+
+
 LOOP_SCENE = None
 
 
@@ -6535,25 +6859,21 @@ def main() -> int:
         launches = dist_phase(record)
         print(json.dumps({"rows": record.rows, "launches": launches}))
         return 0
+    if sys.argv[1:2] == ["--vocab"]:
+        vocab_phase()
+        return 0
     if sys.argv[1:2] == ["--chunk-device-times"]:
         chunk_device_times()
         return 0
     if sys.argv[1:2] == ["--edge-grids"]:
         edge_sweep_grids()
         return 0
-    try:
-        import torch
-    except ImportError:
-        print("FAIL: PyTorch is not installed", file=sys.stderr)
-        return 2
+    t_start = time.perf_counter()
+    import torch
     if not torch.cuda.is_available():
         print("FAIL: no CUDA device", file=sys.stderr)
         return 2
-    try:
-        from plslam_tpu_torch import native
-    except ImportError as e:
-        print(f"FAIL: run from the repository root ({e})", file=sys.stderr)
-        return 2
+    from plslam_tpu_torch import native
 
     # 1. the card
     name = torch.cuda.get_device_name(0)
@@ -6624,8 +6944,10 @@ def main() -> int:
     # through run_concurrent, the north star's band on the knob scene
     print(f"[slam_system] phase {slam_system_phase(dev):.1f} s", flush=True)
     print(f"[multiseq] phase {multiseq_phase(dev):.1f} s", flush=True)
-    # the distributed back end, in a process of its own
+    # the distributed back end and the vocabulary trainer, each in a
+    # process of its own
     dist_child(record, runs)
+    print(f"[vocab] child {vocab_child():.1f} s", flush=True)
     print(f"[knob_band] phase {knob_band_phase(dev, knob_render):.1f} s",
           flush=True)
 
@@ -6633,6 +6955,7 @@ def main() -> int:
     # EuRoC-layout raw rig through host and device rectification, N; the
     # SLAM app over the KITTI-layout directory
     runs.append((dataset_path(dev, record),))
+    lc_debug_rerun(dev)
     # 6a. the lines-only configuration and scan mode on the main paths'
     # frames; after every phase that reads torch.profiler, which keeps
     # fewer device records the more a process has launched
@@ -6650,13 +6973,17 @@ def main() -> int:
     # run)
     rows = record.rows
     for r in rows:
-        r["launches"] = next((run[0][r["entry"]] for run in runs
-                              if run[0].get(r["entry"])), 0)
+        r["launches"] = next((run[0][r["count"]] for run in runs
+                              if run[0].get(r["count"])), 0)
         if r["before"]:
             check(r["launches"] == 0, f"{r['entry']}, replaced, still "
                   "launches on a path")
+        elif r["no_path_caller"]:
+            check(r["launches"] == 0, f"{r['count']}: a path launches it")
         else:
             check(r["launches"] > 0, f"{r['entry']} never launched on a path")
+    print(f"[chip_smoke] the whole script {time.perf_counter() - t_start:.1f}"
+          " s", flush=True)
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

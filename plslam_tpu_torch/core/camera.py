@@ -56,6 +56,12 @@ class StereoCamera(NamedTuple):
         v = self.fy * P[..., 1] / z + self.cy
         return torch.stack([u, v], dim=-1)
 
+    def project_stereo(self, P: torch.Tensor
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """-> ((..., 2) left pixel, (...,) disparity fx b / z)."""
+        z = self._safe_z(P[..., 2])
+        return self.project(P), torch.full_like(z, self.fxb) / z
+
     def back_project(self, uv: torch.Tensor, disp: torch.Tensor
                      ) -> torch.Tensor:
         """(..., 2) left pixels + (...,) disparity -> (..., 3) 3D points."""

@@ -24,6 +24,12 @@ _EPS = 1e-8
 _SMALL_THETA2 = 1e-4
 
 
+def mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Full-precision matmul for small pose/covariance matrices (TF32 is
+    off package-wide, so this is ``a @ b``)."""
+    return torch.matmul(a, b)
+
+
 def skew(w: torch.Tensor) -> torch.Tensor:
     """(..., 3) -> (..., 3, 3) skew-symmetric matrix."""
     wx, wy, wz = w[..., 0], w[..., 1], w[..., 2]

@@ -2,6 +2,8 @@
 // optimize_pose call for all B frame pairs: both GN phases, the outlier
 // gate, the final statistics, the covariance and the isGoodSolution gates.
 // A phase-only form (gn_iters) runs n iterations and writes the pose alone.
+// An LM mode (optimize_pose_lm) runs n_lm Levenberg-Marquardt iterations
+// first, in the same launch, and then the whole tail.
 //
 // Replaces plslam_tpu/tracking/pose_gn.py::optimize_pose (:130): gn_iter
 // (:144-154) with point_terms_rj (:67), line_terms_rj (:81), _weights
@@ -41,6 +43,20 @@
 // (pose_gn.py:152-153).
 // After the phases, thread 0 inverts H + 1e-6 I by Gauss-Jordan with
 // partial pivoting in f32 for the covariance.
+//
+// The LM mode replaces optimize_pose_lm (plslam_tpu/tracking/pose_gn.py
+// :198): 2 max_iters iterations on every valid term, each solving
+// (H + lambda diag(H) + 1e-9 I) dxi = -g, trying T_try = exp(dxi) T and
+// accepting it iff its cost (the weighted SSE under its own MAD scale) is
+// finite and below the cost at T; lambda x 0.33 on accept, x 3 on reject;
+// then optimize_pose's tail with a first phase of one iteration. The
+// reference evaluates the terms twice an iteration (H and g at T, the
+// cost at T_try). Here one evaluation at T_try gives its cost and its H
+// and g with its own scale, which are the next iteration's H and g when
+// it is accepted; a reject keeps the H and g at T. So an iteration is one
+// norm pass, one median and one normal-equation pass, as a GN iteration.
+// The decision compares two sums in the kernel's order: a NaN trial
+// (a singular solve) is rejected, as isfinite(c_try) rejects it.
 //
 // On an NVIDIA H100 80GB HBM3 at 700 W (chip_smoke.py): a phase of 20
 // pairs, K = 1,024, L = 128, 8 iterations, 0.075 ms (the bitonic kernel
@@ -312,6 +328,8 @@ struct Block {
   unsigned int* scan;    // NWARP
   float (*red)[NV + 1];  // NWARP x (NV + 1)
   float* tot;            // NV + 1
+  float* cur;            // NV + 1: H, g and cost at the LM's current pose
+  float* Tk;             // 16: the LM's current pose while T holds T_try
   const float *P, *uvo, *sP, *eP, *le;
   int K, L;
   Cam cam;
@@ -466,6 +484,61 @@ __device__ void gn_phase(const Block& s, int n, int n_iters) {
   }
 }
 
+// n_lm Levenberg-Marquardt iterations on the current masks (n keys valid),
+// damping from lam0; trace (n_lm x 3: the cost at T, at T_try and lambda
+// after the iteration) where not null
+__device__ void lm_phase(const Block& s, int n, int n_lm, float lam0,
+                         float* trace) {
+  const int tid = threadIdx.x;
+  normal_eqs<true>(s, mad_scale(s, n));
+  if (tid <= NV) s.cur[tid] = s.tot[tid];
+  float lam = lam0;   // thread 0's
+  __syncthreads();
+  for (int it = 0; it < n_lm; ++it) {
+    if (tid == 0) {
+      float A[6][7];
+      int o = 0;
+#pragma unroll
+      for (int p = 0; p < 6; ++p)
+#pragma unroll
+        for (int q = p; q < 6; ++q) {
+          A[p][q] = A[q][p] = s.cur[o++];
+        }
+#pragma unroll
+      for (int p = 0; p < 6; ++p) {
+        A[p][p] = __fadd_rn(__fadd_rn(A[p][p], __fmul_rn(lam, A[p][p])),
+                            1e-9f);
+        A[p][6] = s.cur[21 + p];
+      }
+      solve6(A);
+      float dxi[6];
+#pragma unroll
+      for (int p = 0; p < 6; ++p) dxi[p] = -A[p][6];
+#pragma unroll
+      for (int k = 0; k < 16; ++k) s.Tk[k] = s.T[k];
+      exp_left(dxi, s.T);
+    }
+    __syncthreads();
+    normal_eqs<true>(s, mad_scale(s, n));
+    if (tid == 0) {
+      const float c = s.cur[NV], c_try = s.tot[NV];
+      const bool accept = isfinite(c_try) && c_try < c;
+      lam = accept ? __fmul_rn(lam, 0.33f) : __fmul_rn(lam, 3.0f);
+      if (accept) {
+        for (int v = 0; v <= NV; ++v) s.cur[v] = s.tot[v];
+      } else {
+        for (int k = 0; k < 16; ++k) s.T[k] = s.Tk[k];
+      }
+      if (trace) {
+        trace[3 * it] = c;
+        trace[3 * it + 1] = c_try;
+        trace[3 * it + 2] = lam;
+      }
+    }
+    __syncthreads();
+  }
+}
+
 // lie.is_valid_rotation (tol 1e-3) and finiteness of a row-major 4 x 4
 __device__ bool pose_ok(const float* T) {
   bool ok = true;
@@ -487,7 +560,9 @@ __device__ bool pose_ok(const float* T) {
   return ok && fabsf(det - 1.0f) < 1e-3f;
 }
 
-template <bool WHOLE>
+// LM (with WHOLE): the LM mode, its own instance, so the other two compile
+// as they did before it
+template <bool WHOLE, bool LM>
 __global__ void __launch_bounds__(NT) pose_optimize_kernel(
     const float* __restrict__ T0, const float* __restrict__ P,
     const float* __restrict__ uvo, const uint8_t* __restrict__ pmask,
@@ -496,14 +571,17 @@ __global__ void __launch_bounds__(NT) pose_optimize_kernel(
     float* __restrict__ Tout, float* __restrict__ cov_out,
     int* __restrict__ ninl_out, float* __restrict__ err_out,
     uint8_t* __restrict__ inl_pt, uint8_t* __restrict__ inl_ln,
-    uint8_t* __restrict__ good_out, int K, int L, int n_iters, int n_ref,
-    Cam cam, Gates gates) {
+    uint8_t* __restrict__ good_out, float* __restrict__ lm_trace, int K,
+    int L, int n_iters, int n_ref, int n_lm, float lam0, Cam cam,
+    Gates gates) {
   extern __shared__ unsigned int dyn[];
   __shared__ unsigned int h1[SEL_D1], h2[SEL_D2], h3[SEL_D3];
   __shared__ unsigned int scan[NWARP];
   __shared__ float T[16];
   __shared__ float red[NWARP][NV + 1];
   __shared__ float tot[NV + 1];
+  __shared__ float cur[LM ? NV + 1 : 1];
+  __shared__ float Tk[LM ? 16 : 1];
   __shared__ int counts[4];  // valid points, lines; inlier points, lines
   const int b = blockIdx.x, tid = threadIdx.x;
   Block s;
@@ -517,6 +595,8 @@ __global__ void __launch_bounds__(NT) pose_optimize_kernel(
   s.scan = scan;
   s.red = red;
   s.tot = tot;
+  s.cur = cur;
+  s.Tk = Tk;
   s.P = P + (size_t)b * K * 3;
   s.uvo = uvo + (size_t)b * K * 2;
   s.sP = sP + (size_t)b * L * 3;
@@ -547,6 +627,11 @@ __global__ void __launch_bounds__(NT) pose_optimize_kernel(
   }
   __syncthreads();
   const int n_pt = counts[0], n_ln = counts[1];
+
+  // the LM mode's iterations on every valid term
+  if constexpr (LM)
+    lm_phase(s, n_pt + 2 * n_ln, n_lm, lam0,
+             lm_trace ? lm_trace + (size_t)b * n_lm * 3 : nullptr);
 
   // the robust phase on every valid term
   gn_phase(s, n_pt + 2 * n_ln, n_iters);
@@ -624,24 +709,30 @@ extern "C" {
 // robust GN iterations (the other outputs are not touched and may be null).
 // whole = 1: optimize_pose, n_iters robust and n_ref refinement iterations:
 // T, cov (B, 6, 6), n_inliers (B,) int32, err (B,), the inlier masks (B, K)
-// and (B, L) and good (B,), as bytes of 0 or 1.
+// and (B, L) and good (B,), as bytes of 0 or 1. n_lm > 0 (whole only): n_lm
+// Levenberg-Marquardt iterations from lambda lam0 before the robust phase
+// (optimize_pose_lm), and, where lm_trace is not null, each iteration's
+// cost at T, cost at T_try and lambda after it, (B, n_lm, 3).
 int pose_gn_optimize(const float* T0, const float* P, const float* uv,
                      const uint8_t* pmask, const float* sP, const float* eP,
                      const float* le, const uint8_t* lmask, float* T,
                      float* cov, int* n_inliers, float* err, uint8_t* inl_pt,
-                     uint8_t* inl_ln, uint8_t* good, int B, int K, int L,
-                     int n_iters, int n_ref, int whole, int min_features,
-                     float fx, float fy, float cx, float cy, float inlier_k,
+                     uint8_t* inl_ln, uint8_t* good, float* lm_trace, int B,
+                     int K, int L, int n_iters, int n_ref, int whole,
+                     int min_features, int n_lm, float fx, float fy,
+                     float cx, float cy, float inlier_k,
                      float min_inlier_ratio, float max_optim_error,
-                     cudaStream_t stream) {
+                     float lam0, cudaStream_t stream) {
   if (B == 0) return 0;
   const Cam cam{fx, fy, cx, cy};
   const Gates gates{inlier_k, min_inlier_ratio, max_optim_error,
                     min_features};
   const size_t smem = sizeof(unsigned int) * ((size_t)K + 2 * (size_t)L) +
                       (size_t)K + (size_t)L;
-  auto kernel =
-      whole ? pose_optimize_kernel<true> : pose_optimize_kernel<false>;
+  if (n_lm > 0 && !whole) return (int)cudaErrorInvalidValue;
+  auto kernel = n_lm > 0 ? pose_optimize_kernel<true, true>
+                : whole  ? pose_optimize_kernel<true, false>
+                         : pose_optimize_kernel<false, false>;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -649,7 +740,8 @@ int pose_gn_optimize(const float* T0, const float* P, const float* uv,
   }
   kernel<<<B, NT, smem, stream>>>(T0, P, uv, pmask, sP, eP, le, lmask, T,
                                   cov, n_inliers, err, inl_pt, inl_ln, good,
-                                  K, L, n_iters, n_ref, cam, gates);
+                                  lm_trace, K, L, n_iters, n_ref, n_lm, lam0,
+                                  cam, gates);
   return (int)cudaGetLastError();
 }
 

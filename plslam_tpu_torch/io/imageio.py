@@ -18,8 +18,20 @@ weights 6968, 23434, 2366 over 2^15 (truncated at 8 bits, rounded at 16),
 then 16-bit samples keep their high byte. The reference's two reader
 quirks are kept: binary PNM with maxval > 255 reads its bytes as
 samples, and a tRNS chunk leaves an alpha byte after each gray byte, of
-which the first W bytes of a row are read. JPEG, BMP and interlaced PNG
-raise (ROADMAP.md Queue 1).
+which the first W bytes of a row are read.
+
+What the reference's native decoder refuses goes to PIL there
+(``plslam_tpu/io/dataset.py::_load_gray``): every file that is neither PNG
+nor PGM/PPM. Of those the port decodes BMP itself (uncompressed, 1, 4, 8,
+24 and 32 bits a pixel), as PIL does: palette entries and pixels reduce to
+gray by PIL's ``convert("L")``, ``(19595 R + 38470 G + 7471 B + 0x8000)
+>> 16``. JPEG and any other format go to PIL where it imports and raise an
+``ImportError`` that names the format where it does not (the card's
+machine has no PIL). An interlaced (Adam7) PNG is de-interlaced here and
+reduced to gray by PIL's rule: the reference's libpng path reads it
+without interlace handling (the passes' rows as the image's rows, no
+error), and PIL, its fallback where the native decoder is not built,
+decodes it; the port gives PIL's image.
 
 ``Prefetcher`` decodes ahead in a thread pool and, given a map, rectifies
 with ``_remap_np``: the reference's host remap, which clamps the source
@@ -61,8 +73,21 @@ _lib: Optional[ctypes.CDLL] = None
 
 def _unsupported(what: str) -> NotImplementedError:
     return NotImplementedError(
-        f"{what} is not decoded by plslam_tpu_torch (ROADMAP.md Queue 1: "
-        "the port reads PGM/PPM and PNG)")
+        f"{what} is not decoded by plslam_tpu_torch (it reads PGM/PPM, PNG "
+        "and uncompressed BMP, and hands other formats to PIL)")
+
+
+def _pil_float(gray: np.ndarray) -> np.ndarray:
+    """8-bit gray as the reference's PIL branch scales it: a division by
+    255 (the native decoder multiplies by 1/255, an ulp apart at times)."""
+    return gray.astype(np.uint8).astype(np.float32) / np.float32(255.0)
+
+
+def _pil_gray(rgb: np.ndarray) -> np.ndarray:
+    """(..., 3) integer RGB -> PIL's ``convert("L")`` gray."""
+    rgb = rgb.astype(np.int64)
+    return (19595 * rgb[..., 0] + 38470 * rgb[..., 1] + 7471 * rgb[..., 2]
+            + 0x8000) >> 16
 
 
 # -- the host C++ row filter ---------------------------------------------------
@@ -210,14 +235,14 @@ def _decode_png(buf: bytes) -> np.ndarray:
     if ihdr is None:
         raise ValueError("PNG: no IHDR")
     W, H, depth, color, _, _, interlace = ihdr
-    if interlace:
-        raise _unsupported("an interlaced (Adam7) PNG")
     if color not in _CHANNELS:
         raise ValueError(f"PNG: bad color type {color}")
     ch = _CHANNELS[color]
     bpp = max(1, ch * depth // 8)
-    rowbytes = (W * ch * depth + 7) // 8
     data = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
+    if interlace:
+        return _adam7_gray(data, W, H, depth, color, plte)
+    rowbytes = (W * ch * depth + 7) // 8
     if data.size < H * (rowbytes + 1):
         raise ValueError("PNG: image data too short")
     raw = png_unfilter(data[:H * (rowbytes + 1)].copy(), H, rowbytes, bpp)
@@ -266,6 +291,104 @@ def _decode_png(buf: bytes) -> np.ndarray:
     return gray.astype(np.uint8).astype(np.float32) * _INV255
 
 
+# Adam7's passes: (first row, first column, row step, column step)
+_ADAM7 = ((0, 0, 8, 8), (0, 4, 8, 8), (4, 0, 8, 4), (0, 2, 4, 4),
+          (2, 0, 4, 2), (0, 1, 2, 2), (1, 0, 2, 1))
+
+
+def _adam7_gray(data: np.ndarray, W: int, H: int, depth: int, color: int,
+                plte: Optional[bytes]) -> np.ndarray:
+    """An interlaced PNG's passes unfiltered and put in place, then gray
+    as PIL's ``convert("L")`` gives it (alpha dropped; 16-bit samples are
+    refused: PIL reads them as 32-bit integers)."""
+    if depth == 16:
+        raise _unsupported("a 16-bit interlaced PNG")
+    ch = _CHANNELS[color]
+    bpp = max(1, ch * depth // 8)
+    s = np.zeros((H, W, ch), np.int64)
+    pos = 0
+    for y0, x0, dy, dx in _ADAM7:
+        h, w = -(-(H - y0) // dy), -(-(W - x0) // dx)
+        if h <= 0 or w <= 0:
+            continue
+        rowbytes = (w * ch * depth + 7) // 8
+        n = h * (rowbytes + 1)
+        if data.size < pos + n:
+            raise ValueError("PNG: image data too short")
+        raw = png_unfilter(data[pos:pos + n].copy(), h, rowbytes, bpp)
+        s[y0::dy, x0::dx] = _samples(raw, w, ch, depth)
+        pos += n
+    if color == 3:
+        pal = np.zeros((256, 3), np.int64)
+        p = np.frombuffer(plte or b"", np.uint8).reshape(-1, 3)
+        pal[:len(p)] = p
+        gray = _pil_gray(pal)[s[..., 0]]
+    elif color in (2, 6):
+        gray = _pil_gray(s[..., :3])
+    else:
+        gray = s[..., 0] * (255 // ((1 << depth) - 1))
+    return _pil_float(gray)
+
+
+# -- BMP (the reference hands it to PIL) ------------------------------------------
+
+def _decode_bmp(buf: bytes) -> np.ndarray:
+    """An uncompressed Windows bitmap (BITMAPINFOHEADER or later) as PIL
+    reads it: rows bottom-up where the height is positive, padded to 4
+    bytes; 1, 4 and 8 bits index the palette (4-byte BGRx entries), 24
+    and 32 bits are BGR(x) pixels; gray by :func:`_pil_gray`."""
+    off, = struct.unpack_from("<I", buf, 10)
+    hsize, W, H, _, bits, comp = struct.unpack_from("<IiiHHI", buf, 14)
+    if hsize < 40 or comp != 0 or bits not in (1, 4, 8, 24, 32):
+        raise _unsupported(f"a BMP of {bits} bits a pixel, compression "
+                           f"{comp}")
+    rows = abs(H)
+    stride = (W * bits + 31) // 32 * 4
+    data = np.frombuffer(buf, np.uint8, rows * stride, off).reshape(
+        rows, stride)
+    if bits <= 8:
+        n_pal, = struct.unpack_from("<I", buf, 46)
+        n_pal = n_pal or (1 << bits)
+        bgr = np.frombuffer(buf, np.uint8, 4 * n_pal, 14 + hsize).reshape(
+            -1, 4)[:, 2::-1]
+        lut = np.zeros(256, np.int64)
+        lut[:len(bgr)] = _pil_gray(bgr)
+        idx = (data[:, :W].astype(np.int64) if bits == 8
+               else _samples(data, W, 1, bits)[..., 0])
+        gray = lut[idx]
+    else:
+        px = data[:, :W * bits // 8].reshape(rows, W, bits // 8)
+        gray = _pil_gray(px[..., 2::-1])
+    if H > 0:
+        gray = gray[::-1]
+    return _pil_float(gray)
+
+
+def _format_of(buf: bytes) -> str:
+    if buf[:3] == b"\xff\xd8\xff":
+        return "JPEG"
+    if buf[:4] in (b"II*\x00", b"MM\x00*"):
+        return "TIFF"
+    if buf[:6] in (b"GIF87a", b"GIF89a"):
+        return "GIF"
+    if buf[:4] == b"RIFF" and buf[8:12] == b"WEBP":
+        return "WebP"
+    return f"an image of magic {buf[:2]!r}"
+
+
+def _decode_pil(path: str, buf: bytes) -> np.ndarray:
+    """What the reference's PIL fallback gives: ``convert("L")`` / 255."""
+    what = _format_of(buf)
+    try:
+        from PIL import Image
+    except ImportError as e:
+        raise ImportError(f"{path}: {what} is read through PIL, which is not "
+                          "installed (the port decodes PGM/PPM, PNG and BMP "
+                          "itself)") from e
+    with Image.open(path) as im:
+        return np.asarray(im.convert("L"), dtype=np.float32) / 255.0
+
+
 # -- PNM -------------------------------------------------------------------------
 
 def _decode_pnm(buf: bytes) -> np.ndarray:
@@ -277,7 +400,7 @@ def _decode_pnm(buf: bytes) -> np.ndarray:
     kinds = {b"P5": (1, True), b"P6": (3, True), b"P2": (1, False),
              b"P3": (3, False)}
     if magic not in kinds:
-        raise _unsupported(f"an image of magic {magic!r}")
+        raise ValueError(f"PNM: bad magic {magic!r}")
     ch, binary = kinds[magic]
 
     def header_int():
@@ -327,7 +450,11 @@ def load_gray(path: str) -> np.ndarray:
         buf = f.read()
     if path.lower().endswith(".png"):
         return _decode_png(buf)
-    return _decode_pnm(buf)
+    if buf.lstrip()[:2] in (b"P2", b"P3", b"P5", b"P6"):
+        return _decode_pnm(buf)
+    if buf[:2] == b"BM":
+        return _decode_bmp(buf)
+    return _decode_pil(path, buf)
 
 
 # -- host rectification and prefetch ---------------------------------------------

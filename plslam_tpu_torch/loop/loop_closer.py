@@ -22,12 +22,15 @@ dispatches, fetched once). The reference's ``_make_kf_probe`` is only a
 With ``loop.distributed=True`` the candidates come from the sharded
 database (``parallel/dist_vocab.py::DistRetrieval``): each keyframe's BoW
 rows are mirrored into it, it answers the query, and it follows
-compactions. The reference's ``PLSLAM_LC_DEBUG`` staging branch is left
-out (ROADMAP.md Queue 1).
+compactions. With ``PLSLAM_LC_DEBUG`` set in the environment a closure
+applies its correction in stages (the reference's map-corruption hunt):
+the same three steps as ``_post_loop_update``, each stage's largest
+keyframe translation read back and printed where one passes 1e4.
 """
 
 from __future__ import annotations
 
+import os
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -523,6 +526,9 @@ class LoopCloser:
                       f"|t|max={pm:.3g} at slots {bad.tolist()[:8]} "
                       f"(loop {slot_a}->{slot_b})")
         corrected = None
+        if os.environ.get("PLSLAM_LC_DEBUG") and new_full is not None:
+            return self._close_staged(map_handler, new_full, slot_a, slot_b,
+                                      n_inl, err, t_mag, r_mag)
         with map_handler._lock:
             if new_full is not None:
                 state, _ = _post_loop_update(
@@ -539,6 +545,40 @@ class LoopCloser:
                 state, _ = fuse_loop_landmarks(map_handler.state, slot_a,
                                                slot_b, cfg)
             map_handler.state = state
+        self.n_loops_closed += 1
+        self.probes_since_close = 0
+        self.events.append(LoopEvent(slot_a, slot_b, n_inl, err, t_mag, r_mag,
+                                     self._last_costs[0],
+                                     self._last_costs[1]))
+        return corrected
+
+    def _close_staged(self, map_handler, new_full, slot_a, slot_b, n_inl,
+                      err, t_mag, r_mag) -> np.ndarray:
+        """``_close_loop``'s ``PLSLAM_LC_DEBUG`` branch: the correction,
+        the landmark fusion and the window LBA one at a time, with each
+        stage's largest |t| of a keyframe (and of a valid landmark after
+        the fusion) read back; printed where one passes 1e4."""
+        from plslam_tpu_torch.backend.map import fuse_loop_landmarks
+        from plslam_tpu_torch.backend.map_handler import run_window_lba
+        cfg = self.cfg
+        t_max = lambda st: float(st.kf_pose[:, :3, 3].abs().max())
+        with map_handler._lock:
+            st = apply_graph_correction(
+                map_handler.state, torch.from_numpy(new_full).to(
+                    map_handler.state.kf_pose.device))
+            m1 = t_max(st)
+            st, _ = fuse_loop_landmarks(st, slot_a, slot_b, cfg)
+            m2 = t_max(st)
+            mp = float(torch.where(st.pt_valid[:, None], st.pt_pos,
+                                   0.0).abs().max())
+            st, _, _, _ = run_window_lba(st, self.cam, cfg)
+            m3 = t_max(st)
+            if max(m1, m2, m3) > 1e4 or mp > 1e4:
+                print(f"[lc-debug] loop {slot_a}->{slot_b} stage "
+                      f"|t|max: corr {m1:.3g} fuse {m2:.3g} "
+                      f"(pt {mp:.3g}) lba {m3:.3g}")
+            map_handler.state = st
+            corrected = st.kf_pose.cpu().numpy()
         self.n_loops_closed += 1
         self.probes_since_close = 0
         self.events.append(LoopEvent(slot_a, slot_b, n_inl, err, t_mag, r_mag,

@@ -16,10 +16,15 @@ launches of ``csrc/bow.cu`` (``bow_descend``, ``bow_hist``); the plain
 versions run only for CPU tensors. ``l1_score`` stays torch (the reference leaves it to XLA).
 
 ``build_vocabulary`` runs on host numpy with the reference's random calls,
-so the same descriptors and seed give the same centroids. The default
-artifacts (``data/vocab_default_{orb,lbd}_10_4_v2.npz``) are byte copies of
-the reference's; ``build_default_corpus``, the offline tool that trains
-them, is not ported yet (ROADMAP.md Queue 1).
+so the same descriptors and seed give the same centroids (the k-majority
+stays on the host, as in the reference); its IDF statistics descend the
+corpus with kernel L. The default artifacts
+(``data/vocab_default_{orb,lbd}_10_4_v2.npz``) are byte copies of the
+reference's. ``build_default_corpus`` draws the reference's randomized
+synthetic training scenes and describes them with the port's front end
+(kernels A-C for ORB, E-H for LBD) on the device; ``default_vocabulary``
+trains and saves an artifact that is missing, and
+``tools/train_vocabulary_torch.py`` trains both families.
 """
 
 from __future__ import annotations
@@ -280,16 +285,124 @@ def default_path(kind: str = "orb", k: int = 10, levels: int = 4) -> str:
 def default_vocabulary(kind: str = "orb", k: int = 10, levels: int = 4,
                        device=None) -> Vocabulary:
     """The shipped corpus-trained vocabulary (DBoW2's vocabulary file),
-    loaded once per path and device. Raises where the artifact is
-    missing: ``build_default_corpus``, which trains one, is not ported."""
+    loaded once per path and device; where the artifact is missing it is
+    trained on ``build_default_corpus`` (seed 1) and saved, as the
+    reference does."""
     path = default_path(kind, k, levels)
     device = resolve_device(device)
     key = (path, str(device))
     if key not in _VOCAB_CACHE:
         if not os.path.exists(path):
-            raise FileNotFoundError(
-                f"{path}: no default vocabulary artifact for kind={kind!r} "
-                f"k={k} levels={levels}; training one (build_default_corpus)"
-                " is not ported yet (ROADMAP.md Queue 1, item 9)")
+            os.makedirs(os.path.dirname(path), exist_ok=True)
+            desc = build_default_corpus(kind, device=device)
+            save_vocabulary(build_vocabulary(desc, k=k, levels=levels,
+                                             seed=1, device=device), path)
         _VOCAB_CACHE[key] = load_vocabulary(path, device)
     return _VOCAB_CACHE[key]
+
+
+# the default corpus: its camera and front-end settings, and its scenes'
+# counts (lines are ~10x sparser a frame than keypoints: more scenes, and
+# line-denser worlds, for a healthy leaf occupancy)
+CORPUS_UPDATES = {
+    "camera": {"width": 640, "height": 384, "fx": 450.0, "fy": 450.0,
+               "cx": 320.0, "cy": 192.0, "baseline": 0.3},
+    "points": {"max_kpts": 512, "orb_nlevels": 3}}
+CORPUS_SCENES = {"orb": 120, "lbd": 400}
+CORPUS_BATCH = 8          # scenes described a launch of the front end
+
+
+def corpus_scenes(kind: str, n_scenes: int, seed0: int = 1000) -> list:
+    """The keyword arguments of ``make_sequence`` for each training scene,
+    drawn from the reference's rng in its order (Degradation's texture,
+    noise and vignette, then the point and line counts and the step;
+    forward and arc alternate)."""
+    from plslam_tpu_torch.io.synthetic import Degradation
+    rng = np.random.default_rng(seed0)
+    out = []
+    for s in range(n_scenes):
+        deg = Degradation(texture=float(rng.uniform(0.0, 0.15)),
+                          noise=float(rng.uniform(0.002, 0.02)),
+                          vignette=float(rng.uniform(0.0, 0.3)))
+        out.append(dict(
+            n_frames=2, seed=seed0 + s,
+            n_points=int(rng.integers(150, 380)),
+            n_lines=(int(rng.integers(30, 90)) if kind == "orb"
+                     else int(rng.integers(70, 128))),
+            step=float(rng.uniform(0.1, 0.5)),
+            kind="forward" if s % 2 == 0 else "arc", degrade=deg))
+    return out
+
+
+def render_corpus_scene(kw: dict) -> np.ndarray:
+    """One training scene's two left images (2, 384, 640) float32."""
+    from plslam_tpu_torch.config import SlamConfig
+    from plslam_tpu_torch.core.camera import StereoCamera
+    from plslam_tpu_torch.io import synthetic
+    cam = StereoCamera.from_config(
+        SlamConfig().with_updates(CORPUS_UPDATES).camera)
+    return np.asarray(synthetic.make_sequence(cam, **kw).images_l[:2],
+                      np.float32)
+
+
+def render_pool(workers: int):
+    """A spawned pool of ``workers`` rendering processes, each with one
+    thread in its numeric libraries (the workers are the parallelism)."""
+    import multiprocessing as mp
+    keys = ("OMP_NUM_THREADS", "OPENBLAS_NUM_THREADS", "MKL_NUM_THREADS")
+    saved = {k: os.environ.get(k) for k in keys}
+    os.environ.update({k: "1" for k in keys})
+    try:
+        return mp.get_context("spawn").Pool(workers)
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k)
+            else:
+                os.environ[k] = v
+
+
+def build_default_corpus(kind: str, n_scenes: Optional[int] = None,
+                         seed0: int = 1000, device=None, workers: int = 0
+                         ) -> np.ndarray:
+    """Training descriptors (N, 256) uint8 from ``n_scenes`` randomized
+    synthetic scenes (120 ORB, 400 LBD by default; 2 views each), in the
+    reference's order: ``corpus_scenes`` rendered on the host (in
+    ``workers`` processes where > 0), the left images CORPUS_BATCH scenes
+    at a time through the port's ``detect_and_describe`` (``kind`` "orb") or
+    ``detect_and_describe_lines`` ("lbd") on ``device`` (None: the CUDA
+    device), each image's valid rows kept."""
+    from plslam_tpu_torch.config import SlamConfig
+    from plslam_tpu_torch.frontend.stereo_lines import (
+        detect_and_describe_lines)
+    from plslam_tpu_torch.frontend.stereo_points import detect_and_describe
+    if kind not in CORPUS_SCENES:
+        raise ValueError(f"build_default_corpus: kind {kind!r}, not one of "
+                         f"{sorted(CORPUS_SCENES)}")
+    device = resolve_device(device)
+    cfg = SlamConfig().with_updates(CORPUS_UPDATES)
+    scenes = corpus_scenes(kind, CORPUS_SCENES[kind] if n_scenes is None
+                           else n_scenes, seed0)
+    if workers > 0:
+        pool = render_pool(workers)
+        images = pool.imap(render_corpus_scene, scenes)
+    else:
+        pool, images = None, map(render_corpus_scene, scenes)
+    out = []
+    try:
+        for lo in range(0, len(scenes), CORPUS_BATCH):
+            imgs = torch.from_numpy(np.concatenate(
+                [next(images) for _ in scenes[lo:lo + CORPUS_BATCH]])).to(
+                device)
+            if kind == "orb":
+                _, desc, _, _, _, valid = detect_and_describe(imgs, cfg)
+            else:
+                segs, desc = detect_and_describe_lines(imgs, cfg)
+                valid = segs.valid
+            desc, valid = desc.cpu().numpy(), valid.cpu().numpy()
+            out += [d[v] for d, v in zip(desc, valid)]
+    finally:
+        if pool is not None:
+            pool.terminate()
+            pool.join()
+    return np.concatenate(out, axis=0)

@@ -9,7 +9,8 @@ rebuilt. Nothing is built or loaded at import time.
 Every C entry point takes raw device pointers and the current CUDA
 stream last, launches without synchronising, and returns
 ``cudaGetLastError()``; :func:`launch` raises when that is not 0 and
-counts the launch in :data:`LAUNCHES`.
+counts the launch in :data:`LAUNCHES`, under ``name@mode`` where the
+caller names a mode that no path launches (kernel I's ``lm``).
 """
 
 from __future__ import annotations
@@ -56,7 +57,7 @@ _SIGNATURES: Dict[str, str] = {
     "lines_refit": "p" * 17 + "iii" + "fff",
     "lines_merge": "p" * 10 + "iii" + "fffi",
     "lbd_describe": "p" * 9 + "iiiiiii" + "ffi",
-    "pose_gn_optimize": "p" * 15 + "i" * 7 + "f" * 7,
+    "pose_gn_optimize": "p" * 16 + "i" * 8 + "f" * 8,
     "kf_scan": "ppppp" + "iii" + "fff",
     "medoid": "pppppii",
     "lba_terms": "p" * 21 + "iiiii" + "fffff",
@@ -103,9 +104,9 @@ def is_own_kernel(name: str) -> bool:
                for f in KERNEL_FUNCTIONS)
 
 
-# launches per C entry point since the last reset (plain versions on CPU
-# tensors are never counted); the tracker and the mapping worker launch
-# from two threads, so every update holds _count_lock
+# launches per C entry point (or entry@mode) since the last reset (plain
+# versions on CPU tensors are never counted); the tracker and the mapping
+# worker launch from two threads, so every update holds _count_lock
 LAUNCHES: Counter = Counter()
 
 _lock = threading.Lock()
@@ -212,12 +213,13 @@ def lib() -> ctypes.CDLL:
         return _lib
 
 
-def launch(name: str, *args) -> None:
+def launch(name: str, *args, mode: Optional[str] = None) -> None:
     """Call C entry point ``name`` on the current stream; raise on error.
 
     Tensor arguments pass as their data pointers; they must stay alive
     until the kernel has run, which the caller guarantees by holding them
-    (PyTorch's caching allocator keeps stream order)."""
+    (PyTorch's caching allocator keeps stream order). The launch counts
+    under ``name``, or under ``name@mode`` where ``mode`` is given."""
     conv = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
     stream = torch.cuda.current_stream().cuda_stream
     rc = getattr(lib(), name)(*conv, stream)
@@ -225,7 +227,8 @@ def launch(name: str, *args) -> None:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: error {rc}")
     sink = getattr(_sink, "counts", None)
     with _count_lock:
-        (LAUNCHES if sink is None else sink)[name] += 1
+        key = name if mode is None else f"{name}@{mode}"
+        (LAUNCHES if sink is None else sink)[key] += 1
 
 
 def require(t: torch.Tensor, name: str, dtype: torch.dtype, shape=None) -> None:

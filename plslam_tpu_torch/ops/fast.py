@@ -102,6 +102,14 @@ def fast_score_map2(img: torch.Tensor, th_hi: float, th_lo: float
     return chi, clo, score
 
 
+def fast_score_map(img: torch.Tensor, th: float
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(N, H, W) -> corner mask and SAD score at threshold ``th``: kernel
+    B's ``fast_score`` with both thresholds equal."""
+    corner, _, score = fast_score_map2(img, th, th)
+    return corner, score
+
+
 def nms(score: torch.Tensor, radius: int) -> torch.Tensor:
     """(N, H, W) bool: local maxima within a (2r+1)^2 window (-inf pad)."""
     w = 2 * radius + 1

@@ -272,3 +272,39 @@ def sobel_gradients(img: torch.Tensor, u8_wrap: bool = False
     if img.device.type == "cpu":
         return sobel_gradients_plain(img, u8_wrap)
     return sobel_launch(img, u8_wrap=u8_wrap)
+
+
+# -- gathers the reference leaves to XLA (no TPU-shaped kernel) ---------------
+
+def extract_patches(img: torch.Tensor, uv: torch.Tensor, half: int
+                    ) -> torch.Tensor:
+    """(N, H, W) images, (N, K, 2) pixels -> (N, K, 2h+1, 2h+1) patches
+    centred at the rounded pixels, the centres clamped so that every patch
+    lies inside its image (the reference's ``extract_patches`` a batch)."""
+    N, H, W = img.shape
+    u = torch.clamp(torch.round(uv[..., 0]).long(), half, W - 1 - half)
+    v = torch.clamp(torch.round(uv[..., 1]).long(), half, H - 1 - half)
+    d = torch.arange(-half, half + 1, device=img.device)
+    idx = ((v[..., None, None] + d[:, None]) * W
+           + (u[..., None, None] + d[None, :]))             # (N, K, s, s)
+    return torch.gather(img.reshape(N, -1), 1,
+                        idx.reshape(N, -1)).reshape(idx.shape)
+
+
+def bilinear_sample(img: torch.Tensor, xy: torch.Tensor) -> torch.Tensor:
+    """Bilinear samples of (N, H, W) images at (N, ..., 2) float (x, y),
+    clamped to [0, W - 1.001] x [0, H - 1.001]: (N, ...)."""
+    N, H, W = img.shape
+    x = torch.clamp(xy[..., 0], 0.0, W - 1.001)
+    y = torch.clamp(xy[..., 1], 0.0, H - 1.001)
+    x0 = torch.floor(x).long()
+    y0 = torch.floor(y).long()
+    fx = x - x0.to(x.dtype)
+    fy = y - y0.to(y.dtype)
+    flat = img.reshape(N, -1)
+    tap = lambda yi, xi: torch.gather(flat, 1, (yi * W + xi).reshape(
+        N, -1)).reshape(x.shape)
+    p00, p01 = tap(y0, x0), tap(y0, x0 + 1)
+    p10, p11 = tap(y0 + 1, x0), tap(y0 + 1, x0 + 1)
+    return ((p00 * (1 - fx) + p01 * fx) * (1 - fy)
+            + (p10 * (1 - fx) + p11 * fx) * fy)

@@ -252,3 +252,25 @@ def describe_multilevel(levels: List[torch.Tensor], uv: torch.Tensor,
         f"{full_shapes} — drop levels below that at pyramid construction")
     m10, m01, half_shapes = moment_maps(levels)
     return orient_and_describe(levels, m10, m01, half_shapes, uv, octave)
+
+
+def orientations_at(img: torch.Tensor, uv: torch.Tensor) -> torch.Tensor:
+    """(N, H, W) images, (N, K, 2) pixels -> (N, K) intensity-centroid
+    angles: the half-res moment maps of the image (kernel A, as
+    :func:`moment_maps`) read at the rounded half pixels, ``atan2``."""
+    m10, m01, ((hh, hw),) = moment_maps([img])
+    u = torch.clamp(torch.round(uv[..., 0] * 0.5).long(), 0, hw - 1)
+    v = torch.clamp(torch.round(uv[..., 1] * 0.5).long(), 0, hh - 1)
+    idx = v * hw + u
+    return torch.atan2(torch.gather(m01, 1, idx), torch.gather(m10, 1, idx))
+
+
+def describe(img: torch.Tensor, uv: torch.Tensor
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Describe K keypoints an image on one (blurred) level: (N, H, W),
+    (N, K, 2) -> (bits (N, K, 256) u8, angle (N, K)). The reference's
+    single-level ``describe`` orients at :func:`orientations_at`'s angle,
+    which is the multilevel path's at one level, so this is one
+    ``orb_describe`` launch (kernel C) with every keypoint at octave 0."""
+    octave = torch.zeros(uv.shape[:-1], dtype=torch.int32, device=uv.device)
+    return describe_multilevel([img], uv.to(torch.float32), octave)

@@ -8,10 +8,13 @@ kernel I (``csrc/pose_gn.cu``) for all B pairs: both GN phases (residuals,
 Jacobians, the joint lower-median MAD scale, t-student weights, the 6x6
 normal equations, the damped solve and the exp update, every iteration),
 the outlier gate, the final statistics, the covariance and the gates.
-``gn_iters`` launches the same kernel's phase-only form. Their plain
-versions, ``optimize_pose_plain`` and ``gn_iters_plain`` (f32 ``einsum``s
-and batched ``torch.linalg`` solves), run only for CPU tensors.
-``optimize_pose_lm`` is not ported yet.
+``gn_iters`` launches the same kernel's phase-only form, and
+``optimize_pose_lm`` (``optimize_pose_lm`` :198, the Levenberg-Marquardt
+fallback) its LM mode: the LM iterations, then optimize_pose's tail with a
+first phase of one iteration, in one launch. Their plain versions,
+``optimize_pose_plain``, ``gn_iters_plain`` and ``optimize_pose_lm_plain``
+(f32 ``einsum``s and batched ``torch.linalg`` solves), run only for CPU
+tensors.
 
 Residual/Jacobian conventions (left-multiplicative perturbation, twist
 ordering (v, w) as in core.lie):
@@ -159,10 +162,14 @@ _GN_SMEM_MAX = 200 * 1024
 
 
 def _launch_gn(T: torch.Tensor, cam: StereoCamera, pts: PointTerms,
-               lns: LineTerms, n_iters: int, n_ref: int,
-               tcfg) -> Tuple[torch.Tensor, ...]:
+               lns: LineTerms, n_iters: int, n_ref: int, tcfg, n_lm: int = 0,
+               lam0: float = 0.0, trace: bool = False
+               ) -> Tuple[torch.Tensor, ...]:
     """One launch of kernel I: ``tcfg`` None is the phase-only form (the
-    pose after ``n_iters`` iterations), else the whole optimize_pose."""
+    pose after ``n_iters`` iterations), else the whole optimize_pose;
+    ``n_lm`` > 0 runs that many LM iterations first (damping from
+    ``lam0``; counted as ``pose_gn_optimize@lm``), and ``trace`` appends
+    their (B, n_lm, 3) trace."""
     B, K = pts.valid.shape
     L = lns.valid.shape[1]
     smem = 4 * (K + 2 * L) + K + L
@@ -193,10 +200,14 @@ def _launch_gn(T: torch.Tensor, cam: StereoCamera, pts: PointTerms,
                  torch.empty((B,), dtype=torch.bool, device=dev)]
         gates = (int(tcfg.min_features), float(tcfg.inlier_k),
                  float(tcfg.min_inlier_ratio), float(tcfg.max_optim_error))
+    lm_trace = (torch.empty((B, n_lm, 3), dtype=torch.float32, device=dev)
+                if trace else None)
     native.launch("pose_gn_optimize", *args, *outs, *(None,) * (7 - len(outs)),
-                  B, K, L, int(n_iters), int(n_ref), int(tcfg is not None),
-                  gates[0], cam.fx, cam.fy, cam.cx, cam.cy, *gates[1:])
-    return tuple(outs)
+                  lm_trace, B, K, L, int(n_iters), int(n_ref),
+                  int(tcfg is not None), gates[0], int(n_lm), cam.fx, cam.fy,
+                  cam.cx, cam.cy, *gates[1:], float(lam0),
+                  mode="lm" if n_lm else None)
+    return tuple(outs) + ((lm_trace,) if trace else ())
 
 
 def gn_iters(T: torch.Tensor, cam: StereoCamera, pts: PointTerms,
@@ -278,3 +289,93 @@ def optimize_pose(T0: torch.Tensor, cam: StereoCamera, pts: PointTerms,
     return PoseResult(*_launch_gn(T0, cam, pts,
                                   _no_lines(pts) if lns is None else lns,
                                   tcfg.max_iters, tcfg.max_iters_ref, tcfg))
+
+
+class LMTrace(NamedTuple):
+    """optimize_pose_lm's iterations: the cost at T and at the trial pose
+    (B, n, 2), and lambda after each iteration (B, n)."""
+    cost: torch.Tensor
+    lam: torch.Tensor
+
+
+def lm_cost(T: torch.Tensor, cam: StereoCamera, pts: PointTerms,
+            lns: LineTerms) -> torch.Tensor:
+    """The LM's cost (B,): the t-student weighted SSE of every valid term
+    under the joint MAD scale at ``T``."""
+    _, _, n_pt = point_terms_rj(T, cam, pts)
+    _, _, a_ln = line_terms_rj(T, cam, lns)
+    w_pt, w_ln, _ = _weights(n_pt, pts.valid, a_ln, lns.valid)
+    return (torch.sum(w_pt * n_pt ** 2, dim=-1)
+            + torch.sum(w_ln * a_ln ** 2, dim=(-2, -1)))
+
+
+def lm_iters_plain(T: torch.Tensor, cam: StereoCamera, pts: PointTerms,
+                   lns: LineTerms, n_iters: int, lam0: float
+                   ) -> Tuple[torch.Tensor, LMTrace]:
+    """``n_iters`` Levenberg-Marquardt iterations (B, 4, 4) -> (B, 4, 4)
+    and their trace: optimize_pose_lm's ``lm_iter`` (pose_gn.py:214-226)
+    batched, lambda a pair."""
+    B = T.shape[0]
+    eye = torch.eye(6, dtype=T.dtype, device=T.device)
+    c = lm_cost(T, cam, pts, lns)
+    lam = torch.full((B,), lam0, dtype=T.dtype, device=T.device)
+    costs, lams = [], []
+    for _ in range(n_iters):
+        r_pt, J_pt, n_pt = point_terms_rj(T, cam, pts)
+        r_ln, J_ln, a_ln = line_terms_rj(T, cam, lns)
+        w_pt, w_ln, _ = _weights(n_pt, pts.valid, a_ln, lns.valid)
+        H, g = _assemble_normal_eqs(r_pt, J_pt, w_pt, r_ln, J_ln, w_ln)
+        Hd = (H + lam[:, None, None] * torch.diag_embed(
+            torch.diagonal(H, dim1=-2, dim2=-1)) + 1e-9 * eye)
+        # no finiteness guard: a NaN trial's cost is NaN and is rejected
+        dxi = -torch.linalg.solve_ex(Hd, g[..., None])[0][..., 0]
+        T_try = lie.exp_se3(dxi) @ T
+        c_try = lm_cost(T_try, cam, pts, lns)
+        accept = torch.isfinite(c_try) & (c_try < c)
+        T = torch.where(accept[:, None, None], T_try, T)
+        lam = torch.where(accept, lam * 0.33, lam * 3.0)
+        costs.append(torch.stack([c, c_try], dim=-1))
+        lams.append(lam)
+        c = torch.where(accept, c_try, c)
+    if not costs:
+        z = T.new_zeros((B, 0))
+        return T, LMTrace(z[..., None].expand(B, 0, 2), z)
+    return T, LMTrace(torch.stack(costs, dim=1), torch.stack(lams, dim=1))
+
+
+def _lm_tail_cfg(cfg: SlamConfig) -> SlamConfig:
+    return cfg.with_updates({"tracking": {"max_iters": 1}})
+
+
+def optimize_pose_lm_plain(T0: torch.Tensor, cam: StereoCamera,
+                           pts: PointTerms, lns: Optional[LineTerms],
+                           cfg: SlamConfig, trace: bool = False):
+    tcfg = cfg.tracking
+    if lns is None:
+        lns = _no_lines(pts)
+    T1, tr = lm_iters_plain(T0, cam, pts, lns, 2 * tcfg.max_iters,
+                            tcfg.lm_init_lambda)
+    res = optimize_pose_plain(T1, cam, pts, lns, _lm_tail_cfg(cfg))
+    return (res, tr) if trace else res
+
+
+def optimize_pose_lm(T0: torch.Tensor, cam: StereoCamera, pts: PointTerms,
+                     lns: Optional[LineTerms], cfg: SlamConfig,
+                     trace: bool = False):
+    """levenbergMarquardtOptimization: 2 max_iters LM iterations over
+    every valid term (lambda from ``tracking.lm_init_lambda``, x 0.33 on
+    an accepted step, x 3 on a rejected one), then optimize_pose's outlier
+    gate, refinement and gates after one GN iteration; B problems at once,
+    one launch of kernel I's LM mode for a CUDA tensor. ``trace`` also
+    returns the iterations' :class:`LMTrace`."""
+    if T0.device.type == "cpu":
+        return optimize_pose_lm_plain(T0, cam, pts, lns, cfg, trace)
+    tcfg = cfg.tracking
+    n_lm = 2 * tcfg.max_iters
+    outs = _launch_gn(T0, cam, pts, _no_lines(pts) if lns is None else lns,
+                      1, tcfg.max_iters_ref, tcfg, n_lm, tcfg.lm_init_lambda,
+                      trace)
+    res = PoseResult(*outs[:7])
+    if not trace:
+        return res
+    return res, LMTrace(outs[7][..., :2], outs[7][..., 2])

@@ -50,12 +50,12 @@ import json
 import subprocess
 import sys
 import time
-from collections import defaultdict
 
 import numpy as np
 import torch
 
 from plslam_tpu_torch import native
+from plslam_tpu_torch.utils.devtime import device_table
 
 
 def host_ms(fn, reps: int) -> float:
@@ -67,18 +67,6 @@ def host_ms(fn, reps: int) -> float:
         fn()
     torch.cuda.synchronize()
     return (time.perf_counter() - t0) * 1e3 / reps
-
-
-def device_table(prof):
-    """{kernel name: (launches, device us)} from a profile: device-side
-    events only (a CPU op's own device time repeats its kernels')."""
-    from torch.autograd import DeviceType
-    out = defaultdict(lambda: [0, 0.0])
-    for e in prof.key_averages():
-        if e.device_type != DeviceType.CPU:
-            out[e.key][0] += e.count
-            out[e.key][1] += e.device_time_total
-    return out
 
 
 def take_calls(chunk) -> dict:

@@ -158,17 +158,26 @@ def test_png_unfilter_host_equals_plain(bpp):
         tio.png_unfilter(data.ravel().copy(), 9, n, bpp, plain=True))
 
 
-def test_other_formats_raise(tmp_path, pngs):
+def test_other_formats_raise(tmp_path, pngs, monkeypatch):
+    """What the port does not decode itself goes to PIL, as the
+    reference's ``_load_gray`` sends it: without PIL, an ImportError that
+    names the format. A 16-bit interlaced PNG, which PIL reads as 32-bit
+    integers, is refused."""
     p = tmp_path / "x.jpg"
     p.write_bytes(b"\xff\xd8\xff\xe0 not decoded")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    t = tmp_path / "x.tif"
+    t.write_bytes(b"II*\x00 not decoded")
+    monkeypatch.setitem(sys.modules, "PIL", None)
+    with pytest.raises(ImportError, match="JPEG"):
         tio.load_gray(str(p))
-    buf = bytearray(open(pngs["gray8"], "rb").read())
+    with pytest.raises(ImportError, match="TIFF"):
+        tio.load_gray(str(t))
+    buf = bytearray(open(pngs["gray16"], "rb").read())
     buf[28] = 1                                  # the IHDR interlace byte
     buf[29:33] = struct.pack(">I", zlib.crc32(bytes(buf[12:29])))
     q = tmp_path / "interlaced.png"
     q.write_bytes(bytes(buf))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="16-bit interlaced"):
         tio.load_gray(str(q))
 
 

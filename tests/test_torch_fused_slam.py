@@ -409,3 +409,71 @@ def test_fused_slam_with_loops_matches_reference(loop_scene, branch):
           f"trajectory {dtraj:.3g} m; ATE {ate(est_t):.4f} (reference "
           f"{ate(est_j):.4f})")
     assert dt < 0.01 and dr < 3e-3 and dtraj < 0.01
+
+
+def test_lc_debug_staged_closure_equals_fused(loop_scene, monkeypatch):
+    """``PLSLAM_LC_DEBUG``'s staged closure (``LoopCloser._close_staged``:
+    the correction, the fusion and the window LBA one at a time, each
+    stage's largest |t| read back) against the closure path the port
+    takes without it (``_post_loop_update``), from the same map at the
+    same closure: the port's run of this scene up to its closure KF 0 ->
+    KF 32, taken both ways from one snapshot. The corrected poses and the
+    whole map state are equal, and so are the event and the funnel."""
+    from plslam_tpu_torch.loop import loop_closer as tlc
+    il, ir, _ = loop_scene
+    tcfg = convert.config_from_dict(dataclasses.asdict(CFG_LOOP))
+    close = tlc.LoopCloser._close_loop
+    staged = []
+    clone = lambda st: type(st)(*(x.clone() if torch.is_tensor(x) else x
+                                  for x in st))
+    keep = ("events", "loop_edges", "n_loops_closed", "probes_since_close",
+            "_last_costs", "n_rej_geom", "n_rej_unc", "n_rej_corr",
+            "n_frozen_events", "n_edges_dropped")
+
+    def both(self, mh, slot_a, slot_b, kf_poses):
+        st0 = clone(mh.state)
+        fields0 = {k: list(getattr(self, k)) if isinstance(
+            getattr(self, k), list) else getattr(self, k) for k in keep}
+        monkeypatch.delenv("PLSLAM_LC_DEBUG", raising=False)
+        fused = close(self, mh, slot_a, slot_b, kf_poses)
+        st_f = clone(mh.state)
+        fields_f = {k: list(getattr(self, k)) if isinstance(
+            getattr(self, k), list) else getattr(self, k) for k in keep}
+        mh.state = st0
+        for k, v in fields0.items():
+            setattr(self, k, list(v) if isinstance(v, list) else v)
+        monkeypatch.setenv("PLSLAM_LC_DEBUG", "1")
+        out = close(self, mh, slot_a, slot_b, kf_poses)
+        monkeypatch.delenv("PLSLAM_LC_DEBUG")
+        if fused is not None:
+            staged.append((slot_a, slot_b))
+            np.testing.assert_array_equal(out, fused)
+            for a, b in zip(mh.state, st_f):
+                if torch.is_tensor(a):
+                    assert torch.equal(a, b)
+        assert repr({k: getattr(self, k) for k in keep}) == repr(fields_f)
+        return out
+
+    monkeypatch.setattr(tlc.LoopCloser, "_close_loop", both)
+    calls = []
+    stage = tlc.LoopCloser._close_staged
+    monkeypatch.setattr(tlc.LoopCloser, "_close_staged",
+                        lambda self, *a: calls.append(a[2:4]) or
+                        stage(self, *a))
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        # the chunks up to the closure's (nothing after it is checked)
+        port = tfs.FusedPLSLAM(tcfg, TCAM, device="cpu")
+        port.initialize(il[0], ir[0])
+        k = CFG_LOOP.system.kf_batch
+        for lo in range(1, N_LOOP, k):
+            port.process_chunk(il[lo:lo + k], ir[lo:lo + k])
+            if staged:
+                break
+        port.finish()
+    finally:
+        torch.set_num_threads(n)
+    assert staged == [(0, 32)] and calls == [(0, 32)]
+    assert [(e.kf_from, e.kf_to) for e in port.loop_closer.events] == \
+        [(0, 32)]

@@ -776,6 +776,75 @@ def test_optimize_pose_lines_only(cuda, B):
     assert torch.equal(got.n_inliers, got.inlier_ln.sum(-1).int())
 
 
+@pytest.mark.parametrize("B,K,L", [(20, 1024, 128), (20, 1024, 0),
+                                   (1, 1024, 128), (20, 0, 128)])
+def test_optimize_pose_lm_one_launch(cuda, B, K, L):
+    """Kernel I's LM mode (optimize_pose_lm) is one launch, counted as
+    pose_gn_optimize@lm, held against optimize_pose_lm_plain on the card
+    by chip_smoke.py's rules: the
+    accept sequence and lambda equal, or the first differing decision
+    within 1e-4 of its threshold (hold_lm); then the tail as
+    test_optimize_pose_one_launch holds optimize_pose (the lines-only rule
+    at K = 0)."""
+    from chip_smoke import (LINES_ONLY_GN_TOLS, gn_inputs, hold_lm,
+                            hold_pose, lines_only_cov_rel, pose_margins)
+    from plslam_tpu_torch.config import SlamConfig
+    from plslam_tpu_torch.tracking import pose_gn
+    cfg = SlamConfig()
+    cam, pts, lns = gn_inputs(cuda, B, K, L, seed=7 + L + B,
+                              line_px=0.0 if K else 0.5)
+    lns = lns if L else None
+    T0 = torch.eye(4, device=cuda).expand(B, 4, 4)
+    T_lm, tr_ref = pose_gn.lm_iters_plain(
+        T0, cam, pts, pose_gn._no_lines(pts) if lns is None else lns,
+        2 * cfg.tracking.max_iters, cfg.tracking.lm_init_lambda)
+    margins, ref, H, sse = pose_margins(T_lm, cam, pts, lns,
+                                        pose_gn._lm_tail_cfg(cfg))
+    got, tr = _launched("pose_gn_optimize@lm", lambda: pose_gn.optimize_pose_lm(
+        T0, cam, pts, lns, cfg, trace=True))
+    bad, _, _, _ = hold_lm(tr, tr_ref)
+    assert bad == 0
+    errs, _, err_rel, differ = hold_pose(got, ref, margins, H, sse)
+    if K:
+        assert errs[0] <= 1e-5 and errs[1] <= 1.0 and errs[2] <= 1.0
+        assert errs[3] == 0
+    else:
+        errs = [errs[0], lines_only_cov_rel(got, ref, differ), err_rel,
+                errs[3]]
+        assert all(e <= t for e, t in zip(errs, LINES_ONLY_GN_TOLS)), errs
+    assert bool(ref.good.all())
+    # without the trace, the same launch gives the same result
+    again = _launched("pose_gn_optimize@lm", lambda: pose_gn.optimize_pose_lm(
+        T0, cam, pts, lns, cfg))
+    assert torch.equal(again.T, got.T)
+
+
+def test_optimize_pose_lm_degenerate(cuda):
+    """The LM mode where every term is invalid (pose_gn's
+    test_all_invalid_is_finite) and with 8 features: finite, not good,
+    every LM step rejected where the cost is 0, as the plain version."""
+    from plslam_tpu_torch.config import SlamConfig
+    from plslam_tpu_torch.core.camera import StereoCamera
+    from plslam_tpu_torch.tracking import pose_gn
+    cfg = SlamConfig()
+    cam = StereoCamera.from_config(cfg.camera)
+    P = torch.ones((2, 16, 3), device=cuda)
+    P[1, :, 2] = torch.linspace(5, 20, 16, device=cuda)
+    valid = torch.zeros((2, 16), dtype=torch.bool, device=cuda)
+    valid[1, :8] = True
+    pts = pose_gn.PointTerms(P, torch.ones((2, 16, 2), device=cuda) * 300,
+                             valid)
+    T0 = torch.eye(4, device=cuda).expand(2, 4, 4)
+    got, tr = _launched("pose_gn_optimize@lm", lambda: pose_gn.optimize_pose_lm(
+        T0, cam, pts, None, cfg, trace=True))
+    ref, tr_ref = pose_gn.optimize_pose_lm_plain(T0, cam, pts, None, cfg,
+                                                 trace=True)
+    assert torch.isfinite(got.T).all() and not bool(got.good.any())
+    assert torch.equal(tr.lam[0], tr_ref.lam[0])
+    assert float(tr.lam[0, -1]) > 1.0                    # all rejected
+    assert torch.equal(got.n_inliers, ref.n_inliers)
+
+
 def _kf_chunk(rng, B, cuda, bad_lead=0):
     from plslam_tpu_torch.core import lie
     xi = rng.normal(size=(B, 6)) * [0.05, 0.02, 0.4, 0.01, 0.03, 0.01]
