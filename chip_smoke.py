@@ -5384,7 +5384,10 @@ def against_side(root: str, out_path: str, desc_path: str) -> None:
     blocks (``lba_camera``, with their distances from float64), its step
     after the blocks (``lba_solve``, or a parent's ``lba_schur``, library
     solve and ``lba_backsub``) and the whole ``run_lba`` on
-    ``lba_window_problem``, the GN phase (8 iterations) and the whole
+    ``lba_window_problem``, the sharded step's ``lba_schur_corr`` and
+    ``lba_solve_reduced`` on shard 0 of 4 (``dist_plain_inputs``) and the
+    sharded LM's host clock (LM_HOST_CALLS warm calls at each of
+    DIST_SHARDS), the GN phase (8 iterations) and the whole
     optimize_pose at 20 x (1024 points, 128 lines) (``gn_inputs``) and
     at phase 3's other whole-call shapes (points only, lite, one pair,
     lines only at 20 pairs and one), the
@@ -5512,6 +5515,50 @@ def against_side(root: str, out_path: str, desc_path: str) -> None:
         [_rel_d(x, y) for x, y in zip(lba.lba_camera_plain(tp, sg, free),
                                       truth)])
     grids["lba_camera"] = launched_grid(fn, "camera_kernel")
+    # K15's sharded step on shard 0 of 4 (dist_plain_inputs: the same
+    # inputs on both trees): lba_schur_corr, then lba_solve_reduced on the
+    # plain sums all-reduced, each with its distances from float64 and the
+    # plain version's own
+    mesh, probs, _, _, frees, H_ccs, g_cs, bps, corrs, g_corrs, lam_d = (
+        dist_plain_inputs(dev, cfg, cam, prob, 4))
+    p0, f0, b0 = probs[0], frees[0], bps[0]
+    idx0 = lba.lba_index(p0)
+    scr = lba.new_solve_scratch(b0.H_cl.shape[0], b0.H_cl.shape[1], dev)
+    b64 = _as_f64(b0)
+    fn = lambda: list(lba.lba_schur_corr(b0, p0, f0, idx0, scr))
+    res["lba_schur_corr"] = ([x.cpu() for x in fn()], device_ms(fn, iters=20),
+                             *all_kernels(fn, iters=20), cuda_ms(fn, 50))
+    truth = lba.lba_schur_corr_plain(b64, f0)
+    gauges["lba_schur_corr"] = (
+        [_rel_d(x, y) for x, y in zip(fn(), truth)],
+        [_rel_d(x, y) for x, y in zip(lba.lba_schur_corr_plain(b0, f0),
+                                      truth)])
+    args = (H_ccs[0], g_cs[0], corrs[0], g_corrs[0], b0)
+    P0 = p0.pt_pos.shape[0]
+    fn = lambda: list(lba.lba_solve_reduced(*args, p0, f0, lam_d,
+                                            scratch=scr))
+    res["lba_solve_reduced"] = ([x.cpu() for x in fn()],
+                                device_ms(fn, iters=20),
+                                *all_kernels(fn, iters=20), cuda_ms(fn, 50))
+    truth = lba.lba_solve_reduced_plain(*(x.double() for x in args[:4]), b64,
+                                        f0, lam_d.double(), P0)
+    gauges["lba_solve_reduced"] = (
+        [_rel_d(x, y) for x, y in zip(fn(), truth)],
+        [_rel_d(x, y) for x, y in zip(lba.lba_solve_reduced_plain(
+            *args, f0, lam_d, P0), truth)])
+    # the sharded LM's host clock at each of DIST_SHARDS: one call to warm
+    # up, then LM_HOST_CALLS calls, each ending in synchronize
+    res["lm_host"] = {}
+    for n in DIST_SHARDS:
+        dist_lm(prob, cam, cfg, n, dev)
+        ms = []
+        for _ in range(LM_HOST_CALLS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            dist_lm(prob, cam, cfg, n, dev)
+            torch.cuda.synchronize()
+            ms.append(1e3 * (time.perf_counter() - t0))
+        res["lm_host"][n] = ms
     fn = lambda: list(lba.run_lba(prob, cam, cfg))
     fn()
     res["run_lba"] = ([x.cpu() for x in fn()], device_ms(fn, iters=5),
@@ -5894,7 +5941,8 @@ def against(other: str) -> None:
     checkout at DIR and of this one, in turns (DIR, this, this, DIR), each
     in a process of its own; prints each output's largest difference
     between the two trees (the scale's and the cost's as bits too), every
-    device time and the point front end's device kernels; fails where K5's
+    device time, the point front end's device kernels and the sharded
+    LM's warm host clock (``_lm_host``); fails where K5's
     or K12's bits, kernel E's maps, K9's tile_ok or labels or K15's
     landmark index differ between the trees, or K18's edge sweep and
     solves break ``_hold_pose_graph``'s rule; then ``_against_solves``."""
@@ -5917,7 +5965,7 @@ def against(other: str) -> None:
     (_, a), (_, b) = runs[0], runs[1]
     for key in a:
         if key in ("front_end_kernels", "gauges", "grids", "decisions",
-                   "k15_bits"):
+                   "k15_bits", "lm_host"):
             continue
         errs = [max_abs_err(x, y) for x, y in zip(a[key][0], b[key][0])]
         if all(x.is_floating_point() for x in a[key][0]):
@@ -5963,20 +6011,25 @@ def against(other: str) -> None:
               f"equal on both trees; the same bits per output {same}",
               flush=True)
     _k15_bits(runs)
+    _lm_host(runs)
     for key in ("lbd", "lba_index"):
         print(f"[against] {key}: grid, block this {b['grids'].get(key)}, "
               f"other {a['grids'].get(key)}", flush=True)
-    # K15's camera blocks within K15's float64 rule on both trees; K17's
-    # leaf ids equal on both trees; each launch's grid
+    # K15's camera blocks and the sharded step's two entries within K15's
+    # float64 rule on both trees; K17's leaf ids equal on both trees; each
+    # launch's grid
     for who, r in runs[:2]:
-        d_k, d_p = r["gauges"]["lba_camera"]
-        tols = [F64_FACTOR * p + F64_FLOOR for p in d_p]
-        print(f"[against] lba_camera ({who}): H_cc, g_c from float64 "
-              f"{[f'{x:.3g}' for x in d_k]}, the plain version's "
-              f"{[f'{x:.3g}' for x in d_p]}, bound {[f'{x:.3g}' for x in tols]}"
-              f"; grid, block {r['grids'].get('lba_camera')}", flush=True)
-        check(all(x <= t for x, t in zip(d_k, tols)),
-              f"lba_camera ({who}) outside the float64 rule: {d_k} > {tols}")
+        for key in ("lba_camera", "lba_schur_corr", "lba_solve_reduced"):
+            d_k, d_p = r["gauges"][key]
+            tols = [F64_FACTOR * p + F64_FLOOR for p in d_p]
+            print(f"[against] {key} ({who}): from float64 "
+                  f"{[f'{x:.3g}' for x in d_k]}, the plain version's "
+                  f"{[f'{x:.3g}' for x in d_p]}, bound "
+                  f"{[f'{x:.3g}' for x in tols]}"
+                  + (f"; grid, block {r['grids'].get(key)}"
+                     if key == "lba_camera" else ""), flush=True)
+            check(all(x <= t for x, t in zip(d_k, tols)),
+                  f"{key} ({who}) outside the float64 rule: {d_k} > {tols}")
     for kind in ("orb", "lbd"):
         key = "bow_descend@" + kind
         check(torch.equal(a[key][0][0], b[key][0][0]),
@@ -6018,6 +6071,25 @@ def against(other: str) -> None:
           f"(detect_and_describe, 40 images): this {kernels['this']}, "
           f"other {kernels['other']}", flush=True)
     _against_solves(roots)
+
+
+def _lm_host(runs) -> None:
+    """Prints the sharded LM's warm host-clock calls in each of
+    ``--against``'s four runs (other, this, this, other), and each tree's
+    median and range over its two runs."""
+    import statistics
+    for n in DIST_SHARDS:
+        for who, r in runs:
+            ms = r["lm_host"][n]
+            print(f"[against] sharded LM at {n} shards ({who}), host ms of "
+                  f"{len(ms)} warm calls: {[f'{x:.3f}' for x in ms]}",
+                  flush=True)
+        for who in ("other", "this"):
+            ms = [x for w, r in runs if w == who for x in r["lm_host"][n]]
+            print(f"[against] sharded LM at {n} shards ({who}): median "
+                  f"{statistics.median(ms):.3f} ms host, range "
+                  f"{min(ms):.3f}-{max(ms):.3f} over {len(ms)} calls",
+                  flush=True)
 
 
 def _k15_bits(runs) -> None:
@@ -6101,6 +6173,7 @@ def _against_solves(roots: dict) -> None:
 # -- the distributed back end ---------------------------------------------------
 
 DIST_SHARDS = (2, 4)
+LM_HOST_CALLS = 9      # --against's warm calls of the sharded LM a tree
 # tests/test_dist_lba.py:210's live scene and configuration (512x320, 25
 # frames, seed 5, points only) and tests/test_dist_vocab.py:104's loop scene
 # (40 frames, seed 21, a keyframe a frame)
@@ -6163,6 +6236,36 @@ def cpu_dist_lm(prob, cam, cfg):
     return out
 
 
+def dist_plain_inputs(dev, cfg, cam, prob, n):
+    """The sharded step's launches' inputs on every shard of n of ``prob``
+    (bucketed by owner) through the plain versions, at lambda_init: (mesh,
+    shards, terms, the global MAD scale, free masks, then a list a shard of
+    H_cc, g_c (all-reduced), the blocks (contiguous), corr and g_corr
+    (lba_schur_corr_plain's, all-reduced), and lam)."""
+    import torch
+    from plslam_tpu_torch.backend import lba
+    from plslam_tpu_torch.parallel import dist_lba as D
+    from plslam_tpu_torch.parallel.mesh import make_mesh
+    mesh = make_mesh(n, ("lm",), dev)
+    probs = D.shard_problem(mesh, D.bucket_problem_by_owner(prob, n).problem)
+    lam = torch.tensor(cfg.mapping.lambda_init, device=dev)
+    tp = [lba.lba_terms_plain(p, cam) for p in probs]
+    sigma = D._shard_scale(mesh, tp, "lm")
+    free = [lba._free(p) for p in probs]
+    cams = [lba.lba_camera_plain(t, s, f) for t, s, f in zip(tp, sigma, free)]
+    H_cc = mesh.psum([c[0] for c in cams], "lm")
+    g_c = mesh.psum([c[1] for c in cams], "lm")
+    # contiguous, as the sharded LM hands the blocks to the kernels (the
+    # plain einsums may give permuted views, which the wrappers would copy)
+    bp = [lba.LandmarkBlocks(*(x.contiguous() for x in (
+              h, g, *lba.lba_bin_plain(t, p, s, f, lam))))
+          for h, g, t, p, s, f in zip(H_cc, g_c, tp, probs, sigma, free)]
+    sums = [lba.lba_schur_corr_plain(b, f) for b, f in zip(bp, free)]
+    corr = mesh.psum([x[0] for x in sums], "lm")
+    g_corr = mesh.psum([x[1] for x in sums], "lm")
+    return mesh, probs, tp, sigma, free, H_cc, g_c, bp, corr, g_corr, lam
+
+
 def dist_kernel_holds(dev, record, cfg, cam, prob, n):
     """Each K15 launch of the sharded step on every shard of n, against its
     plain version on the same inputs (the plain terms, the global scale
@@ -6173,24 +6276,10 @@ def dist_kernel_holds(dev, record, cfg, cam, prob, n):
     shard 0's two new launches are timed as the JSON rows."""
     import torch
     from plslam_tpu_torch.backend import lba
-    from plslam_tpu_torch.parallel import dist_lba as D
-    from plslam_tpu_torch.parallel.mesh import make_mesh
-    mesh = make_mesh(n, ("lm",), dev)
+    mesh, probs, tp, sigma, free, H_cc, g_c, bp, corr, g_corr, lam = (
+        dist_plain_inputs(dev, cfg, cam, prob, n))
     print(f"[dist] {n} shards placed on {[str(d) for d in mesh.devices]} "
           "(shard i on visible device i % count)", flush=True)
-    probs = D.shard_problem(mesh, D.bucket_problem_by_owner(prob, n).problem)
-    lam = torch.tensor(cfg.mapping.lambda_init, device=dev)
-    tp = [lba.lba_terms_plain(p, cam) for p in probs]
-    sigma = D._shard_scale(mesh, tp, "lm")
-    free = [lba._free(p) for p in probs]
-    cams = [lba.lba_camera_plain(t, s, f) for t, s, f in zip(tp, sigma, free)]
-    H_cc = mesh.psum([c[0] for c in cams], "lm")
-    g_c = mesh.psum([c[1] for c in cams], "lm")
-    bp = [lba.LandmarkBlocks(h, g, *lba.lba_bin_plain(t, p, s, f, lam))
-          for h, g, t, p, s, f in zip(H_cc, g_c, tp, probs, sigma, free)]
-    sums = [lba.lba_schur_corr_plain(b, f) for b, f in zip(bp, free)]
-    corr = mesh.psum([x[0] for x in sums], "lm")
-    g_corr = mesh.psum([x[1] for x in sums], "lm")
     rel = lambda a, b: _rel_d(a, b)
     for i, (p, t, s, f, b) in enumerate(zip(probs, tp, sigma, free, bp)):
         # lba_phase's tolerances: residuals and norms 4e-4 px, Jacobians
@@ -6266,6 +6355,7 @@ def dist_kernel_holds(dev, record, cfg, cam, prob, n):
                n_obs_pairs * 72 + n_lm * 48 + (n_lm + 1 + total) * 4 + W
                + W * W * 144 + W * 24,
                n_obs_pairs * (108 + 36) + n_pose_pairs * 216 + n_lm * 24,
+               cluster=lba.schur_corr_layout(W, n_lm)[0],
                err_kind="relative to each output's largest magnitude, "
                f"tolerance {F64_FACTOR:g}x the plain one's distance from "
                f"float64 + {F64_FLOOR:g}")
@@ -6286,6 +6376,7 @@ def dist_kernel_holds(dev, record, cfg, cam, prob, n):
                lambda: torch.linalg.solve_ex(Sm, gm[:, None]),
                library_what=f"torch.linalg.solve_ex of the {6 * W}x{6 * W} "
                "reduced system alone",
+               cluster=lba.solve_reduced_cluster(n_lm),
                err_kind="relative to each output's largest magnitude, "
                f"tolerance {F64_FACTOR:g}x the plain one's distance from "
                f"float64 + {F64_FLOOR:g}")

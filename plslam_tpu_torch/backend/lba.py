@@ -24,9 +24,9 @@ each landmark's observations once a ``run_lba`` (the ids do not change
 between its LM steps) for every ``lba_bin`` and ``lba_solve``.
 ``run_lba`` replays the whole LM loop as one CUDA graph. The owner-sharded
 LBA (``parallel/dist_lba.py``) splits ``lba_solve`` around its collective:
-``lba_schur_corr`` (a shard's Schur sums) and ``lba_solve_reduced`` (the
-solve of the all-reduced system and the shard's landmark steps), the same
-device code.
+``lba_schur_corr`` (a shard's Schur sums, a thread-block cluster) and
+``lba_solve_reduced`` (the block L D L^T solve of the all-reduced system
+and the shard's landmark steps, one launch), kernels of their own.
 The ``*_plain`` functions are the reference's arithmetic in PyTorch (the
 one-hot binning included, which is deterministic on the card too; the
 dense solve ``torch.linalg.solve_ex``) and run only for CPU tensors.
@@ -572,37 +572,110 @@ def new_solve_scratch(W: int, n: int, dev) -> torch.Tensor:
     return torch.zeros(_solve_words(W, n), dtype=torch.int32, device=dev)
 
 
+def _f32_inputs(entry: str, *named) -> list:
+    """Each (name, tensor, shape) as a kernel takes it, float32 and
+    contiguous: converted only where it is not (the sharded LM's tensors,
+    the kernels' own outputs, never are), then checked
+    (``native.require``)."""
+    out = []
+    for name, x, shape in named:
+        if x.dtype != torch.float32 or not x.is_contiguous():
+            x = x.to(torch.float32).contiguous()
+        native.require(x, f"{entry} {name}", torch.float32, shape)
+        out.append(x)
+    return out
+
+
 def _require_blocks(b: LandmarkBlocks, entry: str, W: int, n: int
                     ) -> LandmarkBlocks:
-    b = LandmarkBlocks(*(_f32(x) for x in b))
-    for name, x, shape in zip(b._fields, b, ((W, 6, 6), (W, 6), (n, 3, 3),
-                                             (n, 3, 3), (n, 3), (W, n, 6, 3))):
-        native.require(x, f"{entry} {name}", torch.float32, shape)
-    return b
+    return LandmarkBlocks(*_f32_inputs(entry, *zip(
+        b._fields, b, ((W, 6, 6), (W, 6), (n, 3, 3), (n, 3, 3), (n, 3),
+                       (W, n, 6, 3)))))
+
+
+# lba_schur_corr's launch (csrc/lba.cu schur_corr_kernel): a cluster of at
+# most CORR_MAX_C CTAs (past 8 the non-portable size, which the H100
+# launches) of 512 threads, chunks of a multiple of 32 landmarks up to the
+# largest of CORR_CHUNKS whose dynamic shared memory (corr_smem) fits
+# CORR_MAX_SMEM, 16 KB below the 227 KB a CTA may hold, for the static
+# arrays (the C CORR_MAX_C, CORR_MAX_CH, CORR_MAX_SMEM)
+CORR_MAX_C, CORR_MAX_SMEM = 16, 227 * 1024 - 16 * 1024
+CORR_CHUNKS = (128, 96, 64, 32)
+
+
+def corr_smem(W: int, CH: int) -> int:
+    """A schur_corr_kernel CTA's dynamic shared bytes: its pose pairs'
+    float64 sums (42 a pair) and the receive buffer of its slice of the
+    cluster's, a chunk's E (18 a landmark and pose), L D L^T factors and z
+    (9 a landmark), each pair's landmark bits and list."""
+    npair = W * (W + 1) // 2
+    return (8 * (2 * npair * _SOLVE_SLOT + CORR_MAX_C + CH * W * 18 + CH * 9)
+            + 4 * npair * (CH // 32) + npair * CH)
+
+
+def schur_corr_layout(W: int, N: int) -> Tuple[int, int, int]:
+    """(C, CH, per): ``lba_schur_corr``'s cluster of C CTAs, chunks of CH
+    landmarks, CTA c taking chunks [c per, (c + 1) per) of the ceil(N /
+    CH) (the last CTAs may take fewer, none takes none). CH is the least
+    multiple of 32 that spreads the landmarks over CORR_MAX_C CTAs, up to
+    the largest chunk whose shared memory fits (128 up to W = 9, 96 up to
+    11, 64 up to 14, then 32); past 16 chunks of that a CTA takes more.
+    Raises for a shape the launch cannot take."""
+    if not (1 <= W <= 16 and 1 <= N <= IDX_MAX_N):
+        raise ValueError(f"lba_schur_corr: no launch for W={W}, N={N}")
+    cap = next(c for c in CORR_CHUNKS if corr_smem(W, c) <= CORR_MAX_SMEM)
+    CH = min(cap, 32 * -(-N // (32 * CORR_MAX_C)))
+    G = -(-N // CH)
+    per = -(-G // CORR_MAX_C)
+    return -(-G // per), CH, per
+
+
+# lba_solve_reduced's launch (csrc/lba.cu solve_reduced_kernel): CTA 0
+# solves, up to RED_MAX_S more step RED_NT landmarks each a round (the C
+# RED_NT, RED_MAX_S)
+RED_NT, RED_MAX_S = 512, 7
+
+
+def solve_reduced_cluster(N: int) -> int:
+    """The CTAs of ``lba_solve_reduced``'s cluster for N landmarks."""
+    return 1 + min(RED_MAX_S, -(-N // RED_NT))
+
+
+def _u8(free: torch.Tensor) -> torch.Tensor:
+    """The free mask as the kernels' bytes: a bool mask's own storage."""
+    if free.dtype == torch.bool and free.is_contiguous():
+        return free.view(torch.uint8)
+    return free.to(torch.uint8).contiguous()
 
 
 def lba_schur_corr(b: LandmarkBlocks, problem: LBAProblem, free,
                    index: LBAIndex, scratch: torch.Tensor):
     """A shard's Schur sums (corr (W, W, 6, 6), g_corr (W, 6); float32,
     for the collective) over ``index``, the shard's ``lba_index``: one
-    ``lba_schur_corr`` launch, ``lba_solve``'s sums. ``scratch``: the
-    shard's ``new_solve_scratch``, which its ``lba_solve_reduced`` then
-    reads (no other launch may use it in between)."""
+    ``lba_schur_corr`` launch, a thread-block cluster
+    (``schur_corr_layout``). ``scratch``: the shard's
+    ``new_solve_scratch``, which its ``lba_solve_reduced`` then reads (no
+    other launch may use it in between). The blocks go to the kernel as
+    it takes them, float32 and contiguous (converted only where they are
+    not; the sharded LM's always are)."""
     if b.H_cc.device.type == "cpu":
         return lba_schur_corr_plain(b, free)
     W, n = b.H_cl.shape[:2]
     K, L = problem.obs_pt_id.shape[1], problem.obs_ln_sid.shape[1]
-    if W > 16:
-        raise ValueError(f"lba_schur_corr: at most 16 poses, got {W}")
-    dev = b.H_cc.device
-    b = _require_blocks(b, "lba_schur_corr", W, n)
+    layout = schur_corr_layout(W, n)
     words = _solve_words(W, n)
+    _, _, _, H_inv, g_l, H_cl = _f32_inputs(
+        "lba_schur_corr", ("H_cc", b.H_cc, (W, 6, 6)), ("g_c", b.g_c, (W, 6)),
+        ("H_ll", b.H_ll, (n, 3, 3)), ("H_inv", b.H_inv, (n, 3, 3)),
+        ("g_l", b.g_l, (n, 3)), ("H_cl", b.H_cl, (W, n, 6, 3)))
     native.require(scratch, "lba_schur_corr scratch", torch.int32, (words,))
-    corr = torch.empty((W, W, 6, 6), dtype=torch.float32, device=dev)
-    g_corr = torch.empty((W, 6), dtype=torch.float32, device=dev)
-    native.launch("lba_schur_corr", index.off, index.obs, b.H_inv, b.g_l,
-                  b.H_cl, free.to(torch.uint8).contiguous(), corr, g_corr,
-                  scratch, words, W, K, L, n)
+    out = torch.empty(W * W * 36 + W * 6, dtype=torch.float32,
+                      device=H_cl.device)
+    corr, g_corr = out[:W * W * 36].view(W, W, 6, 6), out[W * W * 36:].view(
+        W, 6)
+    native.launch("lba_schur_corr", index.off, index.obs, H_inv, g_l, H_cl,
+                  _u8(free), corr, g_corr, scratch, words, W, K, L, n,
+                  *layout)
     return corr, g_corr
 
 
@@ -613,9 +686,12 @@ def lba_solve_reduced(H_cc, g_c, corr, g_corr, b: LandmarkBlocks,
     """The shard's step from the all-reduced H_cc, g_c, corr and g_corr:
     (dxi (W,6), d_pt (P,3), d_ep (Q,3)) of the shard's landmarks, masked,
     floored and (``cap``) capped as ``lba_solve``'s: one
-    ``lba_solve_reduced`` launch (the solve in one block, then the
-    landmark steps from the pose masks that the shard's ``lba_schur_corr``
-    left in ``scratch``)."""
+    ``lba_solve_reduced`` launch, one kernel (a cluster: one CTA factors
+    the reduced system by 6 x 6 pose blocks, L D L^T in float64, and
+    solves it, the others step the landmarks from the pose masks that the
+    shard's ``lba_schur_corr`` left in ``scratch``). A system that is not
+    positive definite gives a NaN step, which the LM rejects. Tensors as
+    ``lba_schur_corr``'s."""
     P = problem.pt_pos.shape[0]
     if H_cc.device.type == "cpu":
         return lba_solve_reduced_plain(H_cc, g_c, corr, g_corr, b, free, lam,
@@ -623,22 +699,19 @@ def lba_solve_reduced(H_cc, g_c, corr, g_corr, b: LandmarkBlocks,
     W, n = b.H_cl.shape[:2]
     if W > 16:
         raise ValueError(f"lba_solve_reduced: at most 16 poses, got {W}")
-    dev = H_cc.device
-    b = _require_blocks(b._replace(H_cc=H_cc, g_c=g_c), "lba_solve_reduced",
-                        W, n)
-    corr, g_corr = _f32(corr), _f32(g_corr)
-    native.require(corr, "lba_solve_reduced corr", torch.float32,
-                   (W, W, 6, 6))
-    native.require(g_corr, "lba_solve_reduced g_corr", torch.float32, (W, 6))
     words = _solve_words(W, n)
+    ins = _f32_inputs(
+        "lba_solve_reduced", ("H_cc", H_cc, (W, 6, 6)), ("g_c", g_c, (W, 6)),
+        ("corr", corr, (W, W, 6, 6)), ("g_corr", g_corr, (W, 6)),
+        ("H_ll", b.H_ll, (n, 3, 3)), ("H_inv", b.H_inv, (n, 3, 3)),
+        ("g_l", b.g_l, (n, 3)), ("H_cl", b.H_cl, (W, n, 6, 3)),
+        ("lam", lam if lam.dim() == 0 else lam.reshape(()), ()))
     native.require(scratch, "lba_solve_reduced scratch", torch.int32,
                    (words,))
-    dxi = torch.empty((W, 6), dtype=torch.float32, device=dev)
-    d = torch.empty((n, 3), dtype=torch.float32, device=dev)
-    native.launch("lba_solve_reduced", b.H_cc, b.g_c, corr, g_corr, b.H_ll,
-                  b.H_inv, b.g_l, b.H_cl, _f32(lam.reshape(())),
-                  free.to(torch.uint8).contiguous(), dxi, d, scratch, words,
-                  W, n, float(pin_weight), int(cap))
+    out = torch.empty(W * 6 + n * 3, dtype=torch.float32, device=H_cc.device)
+    dxi, d = out[:W * 6].view(W, 6), out[W * 6:].view(n, 3)
+    native.launch("lba_solve_reduced", *ins, _u8(free), dxi, d,
+                  scratch, words, W, n, float(pin_weight), int(cap))
     return dxi, d[:P], d[P:]
 
 

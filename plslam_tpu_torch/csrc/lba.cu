@@ -896,26 +896,8 @@ __global__ void __launch_bounds__(BIN_NT)
 // final window's did. H_inv is symmetric (lba_bin and the plain inv3 write
 // one value for each pair of mirrored entries); its lower triangle is read.
 // Inputs and outputs stay float32. No float atomics: two launches give the
-// same bits.
-//
-// The owner-sharded window LBA (parallel/dist_lba.py) splits the step: each
-// shard sums its landmarks' Schur correction, the collective adds the
-// shards' corrections, and every shard solves the one reduced system. The
-// kernel's MODE template parameter gives the three uses of one device code:
-//   - MODE 0, entry lba_solve: the whole step, as above;
-//   - MODE 1, entry lba_schur_corr: the sums alone. The last block writes
-//     each free pose pair's sum, sum_n B_wn C_vn^T and sum_n B_wn g_l[n],
-//     out dense as corr (W, W, 6, 6) (both triangles: corr[v][w] is the
-//     transpose of corr[w][v]) and g_corr (W, 6) in float32 for the
-//     collective, zero where a pose is not free; no LU, no landmark step;
-//   - MODE 2, entry lba_solve_reduced: one block assembles S and g from the
-//     all-reduced H_cc, g_c, corr and g_corr (the same damping, floor and
-//     pins; the sum over the chunks' partials replaced by corr's entry),
-//     factors and solves them as MODE 0 does, and the landmark step kernel
-//     then steps the shard's landmarks from the pose masks that the same
-//     shard's MODE 1 launch left in the scratch. So the two launches of a
-//     shard share one scratch, which no other shard's launches may use in
-//     between.
+// same bits. The owner-sharded step's two entries (lba_schur_corr,
+// lba_solve_reduced) are kernels of their own, below, at schur_corr_kernel.
 //
 // Bound: the bytes of the blocks it must read (H_cl's observed blocks,
 // H_inv, g_l, H_ll, H_cc, g_c) and the products B C^T over the observed
@@ -1038,7 +1020,6 @@ __device__ __forceinline__ double ldl_dot(const double* a, const double* d,
   return a[0] * d[0] * b[0] + a[1] * d[1] * b[1] + a[2] * d[2] * b[2];
 }
 
-template <int MODE>
 __global__ void __launch_bounds__(SOLVE_NT, 1) schur_solve_kernel(
     const int* __restrict__ off, const int* __restrict__ list,
     const float* __restrict__ H_cc, const float* __restrict__ g_c,
@@ -1046,7 +1027,7 @@ __global__ void __launch_bounds__(SOLVE_NT, 1) schur_solve_kernel(
     const float* __restrict__ H_cl, const float* lam_p,
     const uint8_t* __restrict__ free_, float* dxi_out,
     unsigned int* scratch, int W, int K, int L, int N, float pin_weight,
-    int cap, float* corr, float* g_corr) {
+    int cap) {
   extern __shared__ float dyn[];
   __shared__ unsigned int s_mask[SOLVE_CH], s_pm[SOLVE_PW];
   __shared__ int s_off[SOLVE_CH + 1], s_pstart[SOLVE_CH + 1];
@@ -1071,11 +1052,9 @@ __global__ void __launch_bounds__(SOLVE_NT, 1) schur_solve_kernel(
 
   // 1. each landmark's factors; its observing free poses, the chunk's
   // poses and pairs
-  if constexpr (MODE != 2) {
-    if (tid < nch) ldl_factor(H_inv + 9 * (n0 + tid), g_l + 3 * (n0 + tid),
-                              sLD + 6 * tid, sz + 3 * tid);
-    if (tid <= nch) s_off[tid] = off[n0 + tid];
-  }
+  if (tid < nch) ldl_factor(H_inv + 9 * (n0 + tid), g_l + 3 * (n0 + tid),
+                            sLD + 6 * tid, sz + 3 * tid);
+  if (tid <= nch) s_off[tid] = off[n0 + tid];
   if (tid < W) s_free[tid] = free_[tid];
   if (tid < SOLVE_CH) s_mask[tid] = 0;
   if (tid < SOLVE_PW) s_pm[tid] = 0;
@@ -1086,7 +1065,6 @@ __global__ void __launch_bounds__(SOLVE_NT, 1) schur_solve_kernel(
     s_pv[p] = (unsigned char)(w + r);
   }
   __syncthreads();
-  if constexpr (MODE != 2) {
   const int WK = W * K;
   for (int e = s_off[0] + tid; e < s_off[nch]; e += SOLVE_NT) {
     const int g = list[e];
@@ -1235,7 +1213,6 @@ __global__ void __launch_bounds__(SOLVE_NT, 1) schur_solve_kernel(
   __syncthreads();
   if (!s_last) return;
   __threadfence();
-  }  // MODE != 2
 
   // 4. the last block: each pair's partials over the chunks that touched
   // it, in chunk order (a warp a pair, a lane an entry, 8 loads in
@@ -1244,7 +1221,7 @@ __global__ void __launch_bounds__(SOLVE_NT, 1) schur_solve_kernel(
   // of S are zero off its diagonal and its step is masked to 0: the
   // system is the free poses' alone, nf = 6 x their number (rank[w]:
   // pose w's place among them).
-  if (MODE != 2 && tid == 0) *scr.ticket = 0;
+  if (tid == 0) *scr.ticket = 0;
   if (warp == 0) {
     const unsigned int fm =
         __ballot_sync(FULL, lane < W && s_free[lane] != 0);
@@ -1253,34 +1230,20 @@ __global__ void __launch_bounds__(SOLVE_NT, 1) schur_solve_kernel(
   }
   const int n6 = 6 * W;
   double* A = reinterpret_cast<double*>(dyn);
-  unsigned int* spm =
-      MODE == 1 ? reinterpret_cast<unsigned int*>(dyn)
-                : reinterpret_cast<unsigned int*>(A + n6 * (n6 + 1));
-  if constexpr (MODE != 2)
-    for (int i = tid; i < G * SOLVE_PW; i += SOLVE_NT)
-      spm[i] = __ldcg(scr.pm + i);
-  if constexpr (MODE == 1)           // pairs with a pose that is not free
-    for (int i = tid; i < W * W * 36 + W * 6; i += SOLVE_NT) {
-      if (i < W * W * 36) corr[i] = 0.0f;
-      else g_corr[i - W * W * 36] = 0.0f;
-    }
+  unsigned int* spm = reinterpret_cast<unsigned int*>(A + n6 * (n6 + 1));
+  for (int i = tid; i < G * SOLVE_PW; i += SOLVE_NT)
+    spm[i] = __ldcg(scr.pm + i);
   __syncthreads();
   int nfree = 0;
   for (int w = 0; w < W; ++w) nfree += s_free[w] != 0;
   const int nf = 6 * nfree, LD = nf + 1;
-  const float lam = MODE == 1 ? 0.0f : *lam_p;   // MODE 1: no lam
+  const float lam = *lam_p;
   for (int p = warp; p < NPAIR; p += NWARP) {
     const int w = s_pw[p], v = s_pv[p], word = p >> 5;
     if (s_rank[w] < 0 || s_rank[v] < 0) continue;
     const int fw = 6 * s_rank[w], fv = 6 * s_rank[v];
     const unsigned int bit = 1u << (p & 31);
     double acc0 = 0.0, acc1 = 0.0;
-    if constexpr (MODE == 2) {       // the all-reduced sums, slot by slot
-      const float* cw = corr + ((size_t)w * W + v) * 36;
-      acc0 = cw[lane];
-      if (lane < 4) acc1 = cw[32 + lane];
-      else if (w == v && lane < 10) acc1 = g_corr[6 * w + lane - 4];
-    } else
     for (int b0 = 0; b0 < G; b0 += 32) {
       unsigned int tm = __ballot_sync(
           FULL, b0 + lane < G && (spm[(b0 + lane) * SOLVE_PW + word] & bit));
@@ -1303,22 +1266,6 @@ __global__ void __launch_bounds__(SOLVE_NT, 1) schur_solve_kernel(
           acc1 += x1[u];
         }
       }
-    }
-    if constexpr (MODE == 1) {       // the sums out, for the collective
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int e = lane + 32 * h;
-        const double acc = h ? acc1 : acc0;
-        if (e >= SOLVE_SLOT || (e >= 36 && w != v)) continue;
-        if (e >= 36) {
-          g_corr[6 * w + e - 36] = (float)acc;
-          continue;
-        }
-        const int r = e / 6, c = e - 6 * r;
-        corr[((size_t)w * W + v) * 36 + e] = (float)acc;
-        if (w != v) corr[((size_t)v * W + w) * 36 + 6 * c + r] = (float)acc;
-      }
-      continue;
     }
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
@@ -1349,7 +1296,6 @@ __global__ void __launch_bounds__(SOLVE_NT, 1) schur_solve_kernel(
     }
   }
   __syncthreads();
-  if constexpr (MODE == 1) return;
 
   // 5. LU with partial pivoting of [S | g] (getrf's and getrs's
   // operations: the reference's jnp.linalg.solve), one barrier a column.
@@ -1507,6 +1453,786 @@ __global__ void __launch_bounds__(STEP_NT) landmark_step_kernel(
                   cap);
 }
 
+// -- the owner-sharded step: lba_schur_corr and lba_solve_reduced ----------
+//
+// Replace plslam_tpu/parallel/dist_lba.py::_owner_shard_step_local's Schur
+// correction and g_corr before their psum (:293-300), and its damped and
+// pinned reduced system, jnp.linalg.solve and back-substitution (:304-326).
+// The owner-sharded window LBA splits lba_solve's step around the
+// collective: each shard sums its landmarks' corrections (lba_schur_corr),
+// the collective adds the shards' sums, and every shard solves the one
+// reduced system and steps its own landmarks (lba_solve_reduced). A shard's
+// two launches share its scratch: the first leaves each landmark's pose
+// mask there for the second, and no other launch may use it in between.
+//
+// Bound: bytes, tens of KB at a shard of the path's window (~7e-5 ms at
+// 3.35 TB/s). What takes the time is latency: dependent loads, barriers and
+// the factorization's chain of block steps.
+//
+// schur_corr_kernel, one launch of a thread-block cluster of C <= 16 CTAs
+// (backend/lba.py::schur_corr_layout plans C, the chunk CH and the chunks a
+// CTA, per): CTA c takes the chunks [c per, (c + 1) per) in chunk order and,
+// chunk by chunk, does what lba_solve's blocks do (the landmarks' masks,
+// E = C L in float64 into sE[pose][landmark], the touched pairs; here the
+// factors' loads overlap the masks' and E's the pair bits), but keeps its
+// pairs' float64 sums in its own shared memory across its chunks. Each
+// touched pair gets the list of the chunk's landmarks that observe both its
+// poses, in order; the lists are cut into pieces of about equal length, a
+// warp a piece, whose 5 groups of 6 lanes (a lane a row of S_wv) take every
+// fifth landmark of the piece; the groups' sums are added in group order
+// and a pair's pieces in piece order. After one cluster barrier each CTA
+// adds its slice of the (pair, entry) sums over the CTAs in rank order
+// through distributed shared memory and writes corr (W, W, 6, 6; both
+// triangles) and g_corr (W, 6) in float32: zero where a pose is not free,
+// since no landmark adds to such a pair. No global partials, no ticket, no
+// last block; no float atomics and a fixed order: two launches give the
+// same bits.
+//
+// solve_reduced_kernel, one launch of a cluster of 1 + S CTAs (S <= 7
+// stepping CTAs, a landmark a thread and round). CTA 0 assembles S and g
+// from the all-reduced H_cc, g_c, corr and g_corr over the F free poses
+// (lba_solve's damping, floor and pins) and factors S = L D L^T by 6 x 6
+// pose blocks in float64 (D block diagonal, L unit block lower triangular),
+// the gradient carried as one more block row, so the forward substitution
+// comes with the factorization. Block step k:
+//   - warps 1-15 form the panel, L_ik = A_ik D_k^-1 for i > k (a thread an
+//     entry), written transposed above the diagonal, and z_k = D_k^-1 y_k,
+//     then, after a barrier of their own, update the trailing blocks and
+//     the gradient row, A_ij -= L_ik A_jk^T (a thread a row's run);
+//   - meanwhile warp 0 forms D_k+1 from its own L_k+1,k and inverts it (a
+//     look-ahead) by the symmetric sweep: Gauss-Jordan with no pivoting, a
+//     lane an entry of the lower triangle, in registers (sweep_inverse;
+//     an inverse of D_k's 3 x 3 blocks by cofactors, two reciprocals and
+//     six levels of small dot products, took longer on the card). S is
+//     symmetric and positive definite in exact arithmetic (the Schur
+//     complement of the damped Gauss-Newton Hessian, plus 1e-6 I and the
+//     pins), and so is each D_k.
+// One barrier of the CTA a block step, F + 1 in all, where lba_solve's LU
+// takes 6F column steps behind barriers. Then warp 0 solves L^T x = z by
+// blocks, writes the masked and capped pose step and pushes the uncapped
+// one into every stepping CTA's shared memory before a cluster barrier. A
+// D_k that is not positive definite (an S made indefinite by the float32
+// collective) meets a pivot that is not positive, which is made NaN, and
+// NaN then fills the step, which the LM rejects, as the LU's zero pivot
+// did. Meanwhile each stepping CTA has loaded its first round of
+// landmarks' inputs (the pose mask lba_schur_corr left, g_l, H_inv,
+// whether it moves, the blocks of its first two poses); after the barrier
+// it takes landmark_step's arithmetic from them.
+constexpr int CORR_NT = 512;
+constexpr int CORR_MAX_C = 16;      // CTAs a cluster (past 8: non-portable)
+constexpr int CORR_MAX_CH = 128;    // landmarks a chunk
+constexpr int CORR_MAX_SMEM = 227 * 1024 - 16 * 1024;   // dynamic, a CTA
+constexpr int RED_NT = 512;
+constexpr int RED_MAX_S = 7;        // stepping CTAs: a portable cluster
+constexpr int RED_AS = 6;           // S's entries a thread, loads first
+constexpr int ATTR_DEVICES = 64;
+
+// a schur_corr_kernel CTA's dynamic shared bytes: its pairs' sums and the
+// receive buffer of its slice of the cluster's, a chunk's E, L D L^T
+// factors and z (float64), each pair's landmark bits and landmark list
+__host__ __device__ inline size_t corr_smem(int W, int CH) {
+  const size_t np = (size_t)W * (W + 1) / 2;
+  return sizeof(double) * (2 * np * SOLVE_SLOT + CORR_MAX_C +
+                           (size_t)CH * W * 18 + (size_t)CH * 9) +
+         sizeof(unsigned int) * np * (CH / 32) + np * CH;
+}
+
+// After a CTA barrier: thread 0's cluster-scope fence (cumulative over the
+// CTA's writes the barrier ordered before it), every thread's relaxed
+// arrive, the aligned wait (pose_graph.cu's cluster_arrive_wait)
+__device__ __forceinline__ void cluster_sync_all() {
+  if (threadIdx.x == 0) asm volatile("fence.acq_rel.cluster;\n" ::: "memory");
+  __syncwarp();
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+}
+
+struct CorrArgs {
+  const int* off;
+  const int* list;
+  const float* H_inv;
+  const float* g_l;
+  const float* H_cl;
+  const uint8_t* free_;
+  float* corr;
+  float* g_corr;
+  unsigned int* lm_mask;
+  int W, K, L, N, CH, per;
+};
+
+__global__ void __launch_bounds__(CORR_NT, 1) schur_corr_kernel(CorrArgs a) {
+  constexpr int NWARP = CORR_NT / 32;
+  extern __shared__ double cdyn[];
+  __shared__ unsigned int s_mask[CORR_MAX_CH], s_pm[SOLVE_PW];
+  __shared__ int s_off[CORR_MAX_CH + 1];
+  __shared__ unsigned char s_pw[SOLVE_PAIRS], s_pv[SOLVE_PAIRS],
+      s_plist[SOLVE_PAIRS], s_free[SOLVE_MAX_W];
+  __shared__ int s_npl, s_items, s_split;
+  // the pieces of the pairs' landmark runs: pair (its place in s_plist),
+  // first landmark, landmarks; each split pair's first piece
+  __shared__ unsigned char s_ipair[2 * NWARP];
+  __shared__ short s_it0[2 * NWARP], s_icnt[2 * NWARP];
+  __shared__ int s_first[NWARP + 1];
+  __shared__ double s_part[2 * NWARP][SOLVE_SLOT];
+  const unsigned int FULL = 0xffffffffu;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int W = a.W, N = a.N, CH = a.CH, CW = CH / 32;
+  const int NPAIR = W * (W + 1) / 2, G = (N + CH - 1) / CH;
+  const int rank = blockIdx.x, C = gridDim.x;
+  // the cluster barrier's first phase: this CTA runs
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+  double* sums = cdyn;                          // NPAIR x SOLVE_SLOT
+  double* rb = sums + NPAIR * SOLVE_SLOT;       // the receive buffer
+  double* sE = rb + NPAIR * SOLVE_SLOT + CORR_MAX_C;   // (W, CH, 18)
+  double* sLD = sE + CH * W * 18;               // CH x 6
+  double* sz = sLD + CH * 6;                    // CH x 3
+  unsigned int* s_lm = reinterpret_cast<unsigned int*>(sz + CH * 3);
+  unsigned char* s_list =                       // NPAIR x CH
+      reinterpret_cast<unsigned char*>(s_lm + NPAIR * CW);
+  if (tid < W) s_free[tid] = a.free_[tid];
+  for (int p = tid; p < NPAIR; p += CORR_NT) {
+    int w = 0, r = p;
+    while (r >= W - w) r -= W - w++;
+    s_pw[p] = (unsigned char)w;
+    s_pv[p] = (unsigned char)(w + r);
+  }
+  for (int i = tid; i < NPAIR * SOLVE_SLOT; i += CORR_NT) sums[i] = 0.0;
+  const int WK = W * a.K;
+  const int q1 = min((rank + 1) * a.per, G);
+  for (int q = rank * a.per; q < q1; ++q) {
+    const int n0 = q * CH, nch = min(CH, N - n0);
+    __syncthreads();                 // the last chunk's reads are done
+    // 1. the chunk's offsets; the masks cleared
+    if (tid <= nch) s_off[tid] = a.off[n0 + tid];
+    if (tid < CH) s_mask[tid] = 0;
+    if (tid < SOLVE_PW) s_pm[tid] = 0;
+    for (int i = tid; i < NPAIR * CW; i += CORR_NT) s_lm[i] = 0;
+    __syncthreads();
+    // 2. each landmark's observing free poses; and (threads t < nch, their
+    // loads in flight with the lists') each landmark's factors, lba_solve's
+    if (tid < nch)
+      ldl_factor(a.H_inv + 9 * (n0 + tid), a.g_l + 3 * (n0 + tid),
+                 sLD + 6 * tid, sz + 3 * tid);
+    for (int e = s_off[0] + tid; e < s_off[nch]; e += CORR_NT) {
+      const int g = a.list[e];
+      const int w = g < WK ? g / a.K : (g - WK) / (2 * a.L);
+      if (!s_free[w]) continue;
+      int lo = 0, hi = nch;          // the last t with s_off[t] <= e
+      while (hi - lo > 1) {
+        const int mid = (lo + hi) >> 1;
+        if (s_off[mid] <= e) lo = mid;
+        else hi = mid;
+      }
+      atomicOr(&s_mask[lo], 1u << w);
+    }
+    __syncthreads();
+    // 3. warps 0-1: each landmark's mask out, its pairs' landmark bits and
+    // the touched pairs; warps 2-15: E = C L of each observed block C =
+    // H_cl[w, n] into sE[w][t], a thread the k-th observing pose of a
+    // landmark (k = i / nch, t = i % nch), two in flight, 18 floats loaded
+    // at once
+    if (warp < 2) {
+      for (int t = tid; t < nch; t += 64) {
+        const unsigned int m = s_mask[t];
+        a.lm_mask[n0 + t] = m;
+        for (unsigned int mw = m; mw; mw &= mw - 1) {
+          const int w = __ffs(mw) - 1;
+          for (unsigned int mv = mw; mv; mv &= mv - 1) {
+            const int p = pair_index(w, __ffs(mv) - 1, W);
+            atomicOr(&s_pm[p >> 5], 1u << (p & 31));
+            atomicOr(&s_lm[p * CW + (t >> 5)], 1u << (t & 31));
+          }
+        }
+      }
+    } else {
+      constexpr int NE = CORR_NT - 64;
+      for (int i0 = tid - 64; i0 < W * nch; i0 += 2 * NE) {
+        float v[2][18];
+        int dst[2], lm[2];
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {
+          const int i = i0 + u * NE;
+          dst[u] = -1;
+          lm[u] = 0;
+          if (i < W * nch) {
+            const int k = i / nch, t = i - k * nch;
+            unsigned int m = s_mask[t];
+            for (int c = 0; c < k && m; ++c) m &= m - 1;
+            if (m) {
+              const int j = __ffs(m) - 1;
+              const float2* row = reinterpret_cast<const float2*>(
+                  a.H_cl + ((size_t)j * N + n0 + t) * 18);
+#pragma unroll
+              for (int q = 0; q < 9; ++q) {
+                const float2 x = row[q];
+                v[u][2 * q] = x.x;
+                v[u][2 * q + 1] = x.y;
+              }
+              dst[u] = (j * CH + t) * 18;
+              lm[u] = t;
+            }
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < 2; ++u)
+          if (dst[u] >= 0) {
+            const double* f = sLD + 6 * lm[u];
+            double* e = sE + dst[u];
+#pragma unroll
+            for (int r = 0; r < 6; ++r) {
+              const float* c = v[u] + 3 * r;
+              e[3 * r] = c[0] + c[1] * f[0] + c[2] * f[1];
+              e[3 * r + 1] = c[1] + c[2] * f[2];
+              e[3 * r + 2] = c[2];
+            }
+          }
+      }
+    }
+    __syncthreads();
+    // 4. warp 0: the touched pairs, and their landmark runs cut into pieces
+    // of about equal length (a pair a piece where there are at least as many
+    // pairs as warps); warps 1-4: each pair's landmarks in order, s_list[p
+    // CH + rank] (rank: the landmark's place among the pair's bits)
+    if (warp == 0) {
+      int npl = 0;                   // the touched pairs in order, by ballots
+      for (int p0 = 0; p0 < NPAIR; p0 += 32) {
+        const int p = p0 + lane;
+        const bool on = p < NPAIR && ((s_pm[p >> 5] >> (p & 31)) & 1u);
+        const unsigned int bal = __ballot_sync(FULL, on);
+        if (on) s_plist[npl + __popc(bal & ((1u << lane) - 1u))] =
+            (unsigned char)p;
+        npl += __popc(bal);
+      }
+      __syncwarp();
+      const bool split = npl > 0 && npl < NWARP;
+      int cnt = 0;
+      if (split && lane < npl)
+        for (int wd = 0; wd < CW; ++wd)
+          cnt += __popc(s_lm[s_plist[lane] * CW + wd]);
+      const int total = __reduce_add_sync(FULL, cnt);
+      const int len = split ? (total + NWARP - 1) / NWARP : 0;
+      const int np = split && lane < npl ? (cnt + len - 1) / len : 0;
+      int f = np;                    // each pair's first piece: a scan
+#pragma unroll
+      for (int s = 1; s < 32; s <<= 1) {
+        const int y = __shfl_up_sync(FULL, f, s);
+        if (lane >= s) f += y;
+      }
+      const int pieces = __shfl_sync(FULL, f, 31);
+      if (split) {
+        if (lane <= npl) s_first[lane] = f - np;
+        for (int k = 0; k < np; ++k) {
+          s_ipair[f - np + k] = (unsigned char)lane;
+          s_it0[f - np + k] = (short)(k * len);
+          s_icnt[f - np + k] = (short)min(len, cnt - k * len);
+        }
+      }
+      if (lane == 0) {
+        s_npl = npl;
+        s_split = split;
+        s_items = split ? pieces : npl;
+      }
+    } else if (warp <= 4) {
+      for (int t = tid - 32; t < nch; t += 128) {
+        const unsigned int m = s_mask[t], low = (1u << (t & 31)) - 1u;
+        for (unsigned int mw = m; mw; mw &= mw - 1) {
+          const int w = __ffs(mw) - 1;
+          for (unsigned int mv = mw; mv; mv &= mv - 1) {
+            const int p = pair_index(w, __ffs(mv) - 1, W);
+            const unsigned int* lb = s_lm + p * CW;
+            int r = __popc(lb[t >> 5] & low);
+            for (int wd = 0; wd < (t >> 5); ++wd) r += __popc(lb[wd]);
+            s_list[p * CH + r] = (unsigned char)t;
+          }
+        }
+      }
+    }
+    __syncthreads();
+    // 5. the pieces: a warp a piece, ranks [r0, r0 + n) of a pair's
+    // landmark list. Lane l < 30 is row r = l % 6 of group l / 6 of 5; group
+    // g takes the piece's landmarks g, g + 5, ... in order and sums row r of
+    // B_wn C_vn^T = E_w D E_v^T and, on a diagonal pair, B_wn g_l[r] =
+    // (E_w z)[r], in float64. The groups' sums are added in group order, a
+    // pair's pieces in piece order.
+    const int items = s_items, split = s_split, npl = s_npl;
+    const int grp = lane / 6, row = lane - 6 * grp;   // lanes 30, 31: none
+    for (int k = warp; k < items; k += NWARP) {
+      const int pi = split ? s_ipair[k] : k;
+      const int p = s_plist[pi], w = s_pw[p], v = s_pv[p];
+      int r0 = 0, n = 0;
+      if (split) {
+        r0 = s_it0[k];
+        n = s_icnt[k];
+      } else {
+        for (int wd = 0; wd < CW; ++wd) n += __popc(s_lm[p * CW + wd]);
+      }
+      const unsigned char* list = s_list + p * CH + r0;
+      double acc[7] = {0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0};
+      for (int j = grp; grp < 5 && j < n; j += 5) {
+        const int t = list[j];
+        const double* Ew = sE + (w * CH + t) * 18 + 3 * row;
+        const double* Ev = sE + (v * CH + t) * 18;   // 16-byte aligned
+        const double* d = sLD + 6 * t + 3;
+        const double* z = sz + 3 * t;
+        const double e0 = Ew[0], e1 = Ew[1], e2 = Ew[2];
+        const double f0 = e0 * d[0], f1 = e1 * d[1], f2 = e2 * d[2];
+#pragma unroll
+        for (int c = 0; c < 6; c += 2) {  // rows c, c + 1: 16 + 8 + 8 + 16 B
+          const double2 p = *reinterpret_cast<const double2*>(Ev + 3 * c);
+          const double q = Ev[3 * c + 2], s = Ev[3 * c + 3];
+          const double2 u = *reinterpret_cast<const double2*>(Ev + 3 * c + 4);
+          acc[c] += f0 * p.x + f1 * p.y + f2 * q;
+          acc[c + 1] += f0 * s + f1 * u.x + f2 * u.y;
+        }
+        acc[6] += e0 * z[0] + e1 * z[1] + e2 * z[2];
+      }
+#pragma unroll
+      for (int c = 0; c < 7; ++c) {  // group 0's lanes: the 5 groups' sums
+        double s = acc[c];
+#pragma unroll
+        for (int g = 1; g < 5; ++g) s += __shfl_sync(FULL, acc[c], 6 * g + row);
+        acc[c] = s;
+      }
+      if (lane < 6) {
+        double* slot = split ? s_part[k] : sums + p * SOLVE_SLOT;
+#pragma unroll
+        for (int c = 0; c < 6; ++c) {
+          if (split) slot[6 * row + c] = acc[c];
+          else slot[6 * row + c] += acc[c];
+        }
+        if (w == v) {
+          if (split) slot[36 + row] = acc[6];
+          else slot[36 + row] += acc[6];
+        }
+      }
+    }
+    if (split) {
+      __syncthreads();
+      for (int i = tid; i < npl * SOLVE_SLOT; i += CORR_NT) {
+        const int pi = i / SOLVE_SLOT, e = i - pi * SOLVE_SLOT;
+        const int p = s_plist[pi];
+        if (e >= 36 && s_pw[p] != s_pv[p]) continue;
+        double acc = 0.0;
+        for (int k = s_first[pi]; k < s_first[pi + 1]; ++k)
+          acc += s_part[k][e];
+        sums[p * SOLVE_SLOT + e] += acc;
+      }
+    }
+  }
+  // 6. every CTA runs (the first phase, arrived at the start): each CTA
+  // sends its sums to their owners, slices of sl = ceil(M / C) (pair,
+  // entry) sums, into the owner's receive buffer at its rank; after the
+  // second phase each CTA adds its slice's C sums in rank order and writes
+  // them out
+  __syncthreads();
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+  cg::cluster_group cl = cg::this_cluster();
+  const int M = NPAIR * SOLVE_SLOT, sl = (M + C - 1) / C;
+  for (int i = tid; i < M; i += CORR_NT) {
+    const int r = i / sl;
+    cl.map_shared_rank(rb, r)[rank * sl + i - r * sl] = sums[i];
+  }
+  __syncthreads();
+  cluster_sync_all();
+  const int lo = rank * sl, hi = min(lo + sl, M);
+  for (int i = lo + tid; i < hi; i += CORR_NT) {
+    const int p = i / SOLVE_SLOT, e = i - p * SOLVE_SLOT;
+    const int w = s_pw[p], v = s_pv[p];
+    if (e >= 36 && w != v) continue;
+    double acc = 0.0;
+    for (int k = 0; k < C; ++k) acc += rb[k * sl + i - lo];
+    const float f = (float)acc;
+    if (e >= 36) {
+      a.g_corr[6 * w + e - 36] = f;
+      continue;
+    }
+    const int r = e / 6, c = e - 6 * r;
+    a.corr[((size_t)w * W + v) * 36 + e] = f;
+    if (w != v) a.corr[((size_t)v * W + w) * 36 + 6 * c + r] = f;
+  }
+}
+
+struct RedArgs {
+  const float* H_cc;
+  const float* g_c;
+  const float* corr;
+  const float* g_corr;
+  const float* H_ll;
+  const float* H_inv;
+  const float* g_l;
+  const float* H_cl;
+  const float* lam;
+  const uint8_t* free_;
+  float* dxi;
+  float* d;
+  const unsigned int* lm_mask;
+  int W, N;
+  float pin_weight;
+  int cap;
+};
+
+// landmark n's inputs to landmark_step that do not depend on the pose step:
+// its pose mask, g_l, H_inv, whether it moves, its first two poses' blocks
+struct LmIn {
+  unsigned int m;
+  float g[3], Hi[9], A[2][18];
+  bool moves;
+};
+
+__device__ __forceinline__ void lm_load(int n, const RedArgs& a, LmIn& in) {
+  in.m = a.lm_mask[n];
+#pragma unroll
+  for (int b = 0; b < 3; ++b) in.g[b] = a.g_l[3 * n + b];
+#pragma unroll
+  for (int i = 0; i < 9; ++i) in.Hi[i] = a.H_inv[9 * n + i];
+  const float* H = a.H_ll + 9 * (size_t)n;
+  in.moves = H[0] + H[4] + H[8] > 1e-2f;
+  unsigned int m = in.m;
+#pragma unroll
+  for (int s = 0; s < 2; ++s) {
+    const int w = m ? __ffs(m) - 1 : 0;
+    const float* A = a.H_cl + ((size_t)w * a.N + n) * 18;
+#pragma unroll
+    for (int i = 0; i < 18; ++i) in.A[s][i] = m ? A[i] : 0.0f;
+    m &= m - 1;
+  }
+}
+
+// landmark_step's arithmetic from lm_load's inputs and the pose step x
+__device__ __forceinline__ void lm_finish(int n, const LmIn& in,
+                                          const double* x, const RedArgs& a) {
+  double rhs[3] = {in.g[0], in.g[1], in.g[2]};
+  unsigned int m = in.m;
+#pragma unroll
+  for (int s = 0; s < 2; ++s) {
+    if (!m) break;
+    const double* xw = x + 6 * (__ffs(m) - 1);
+    m &= m - 1;
+#pragma unroll
+    for (int b = 0; b < 3; ++b)
+#pragma unroll
+      for (int j = 0; j < 6; ++j) rhs[b] += (double)in.A[s][3 * j + b] * xw[j];
+  }
+  for (; m; m &= m - 1) {
+    const int w = __ffs(m) - 1;
+    const float* A = a.H_cl + ((size_t)w * a.N + n) * 18;
+    const double* xw = x + 6 * w;
+#pragma unroll
+    for (int b = 0; b < 3; ++b)
+#pragma unroll
+      for (int j = 0; j < 6; ++j) rhs[b] += (double)A[3 * j + b] * xw[j];
+  }
+  float d[3];
+#pragma unroll
+  for (int j = 0; j < 3; ++j)
+    d[j] = (float)-(in.Hi[3 * j] * rhs[0] + in.Hi[3 * j + 1] * rhs[1] +
+                    in.Hi[3 * j + 2] * rhs[2]);
+  float sc = 1.0f;
+  if (a.cap) {
+    const float nn = sqrtf(d[0] * d[0] + d[1] * d[1] + d[2] * d[2]);
+    sc = fminf(1.0f, 10.0f / fmaxf(nn, 1e-12f));
+  }
+#pragma unroll
+  for (int j = 0; j < 3; ++j) a.d[3 * n + j] = in.moves ? d[j] * sc : 0.0f;
+}
+
+// the place of the i-th set bit (i from 0) of m
+__device__ __forceinline__ int nth_bit(unsigned int m, int i) {
+  for (; i > 0; --i) m &= m - 1;
+  return __ffs(m) - 1;
+}
+
+// warp 0: lane l < 21 holds v, entry (ra, cb), ra >= cb, l = ra (ra + 1) / 2
+// + cb, of a symmetric 6 x 6 block D; the symmetric sweep on each index in
+// turn (Gauss-Jordan with no pivoting) leaves -D^-1 there, and Q (6 x 6,
+// both triangles) gets D^-1. D is positive definite iff every pivot is
+// positive; a pivot that is not is made NaN, and NaN then fills Q.
+__device__ __forceinline__ void sweep_inverse(double v, int ra, int cb,
+                                              int lane, double* Q) {
+  const unsigned int FULL = 0xffffffffu;
+#pragma unroll
+  for (int k = 0; k < 6; ++k) {
+    const int la = ra >= k ? ra * (ra + 1) / 2 + k : k * (k + 1) / 2 + ra;
+    const int lb = cb >= k ? cb * (cb + 1) / 2 + k : k * (k + 1) / 2 + cb;
+    double p = __shfl_sync(FULL, v, k * (k + 1) / 2 + k);
+    const double vak = __shfl_sync(FULL, v, la);
+    const double vbk = __shfl_sync(FULL, v, lb);
+    if (!(p > 0.0)) p = __longlong_as_double(0x7ff8000000000000LL);
+    double inv;                      // 1 / p to ~2^-40: one Newton step
+    asm("rcp.approx.ftz.f64 %0, %1;" : "=d"(inv) : "d"(p));
+    inv = fma(inv, fma(-p, inv, 1.0), inv);
+    if (ra == k && cb == k) v = -inv;
+    else if (ra == k || cb == k) v *= inv;
+    else v = fma(-vak * inv, vbk, v);
+  }
+  if (lane < 21) {
+    Q[6 * ra + cb] = -v;
+    Q[6 * cb + ra] = -v;
+  }
+}
+
+__global__ void __launch_bounds__(RED_NT, 1) solve_reduced_kernel(RedArgs a) {
+  extern __shared__ double rdyn[];
+  __shared__ double s_step[6 * SOLVE_MAX_W], s_Q[2][36],
+      s_z[6 * SOLVE_MAX_W], s_x[6 * SOLVE_MAX_W];
+  const unsigned int FULL = 0xffffffffu;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int W = a.W, N = a.N, rank = blockIdx.x, C = gridDim.x;
+  // the cluster barrier's first phase: this CTA runs
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+  if (rank > 0) {
+    // a stepping CTA: its first round's inputs while CTA 0 solves, then the
+    // step CTA 0 pushed here
+    const int stride = (C - 1) * RED_NT;
+    int n = (rank - 1) * RED_NT + tid;
+    LmIn in;
+    if (n < N) lm_load(n, a, in);
+    __syncwarp();
+    asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+    asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+    asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+    if (n < N) lm_finish(n, in, s_step, a);
+    for (n += stride; n < N; n += stride)
+      landmark_step(n, a.lm_mask[n], s_step, a.H_cl, a.H_inv, a.g_l, a.H_ll,
+                    a.d, N, a.cap);
+    return;
+  }
+  // 1. the free poses, a bit each: every warp's own ballot, no barrier
+  const unsigned int fm = __ballot_sync(FULL, lane < W && a.free_[lane] != 0);
+  // A, (nf + 1) x LD: S's lower blocks, L^T's blocks above them as the
+  // factorization writes them, the gradient's row nf
+  const int F = __popc(fm), nf = 6 * F, LD = nf + 1;
+  double* A = rdyn;
+  const float lam = *a.lam;
+  // 2. S and g (lba_solve's arithmetic, corr's entry for the chunks' sum):
+  // a thread an entry of a free pair's block (i <= j, pf = j (j + 1) / 2 +
+  // i: the lower triangle of the diagonal blocks, the blocks below them),
+  // or of a free pose's gradient, RED_AS entries at a time, their loads
+  // first. Each entry of S is the mean of the inputs' two mirrored ones:
+  // the same where H_cc and corr are symmetric, as lba_camera and
+  // lba_schur_corr write them; S's symmetric part where they are not.
+  const int items = F * (F + 1) / 2 * SOLVE_SLOT;
+  for (int i0 = tid; i0 < items; i0 += RED_AS * RED_NT) {
+    float x[RED_AS][4], support[RED_AS];
+    int dst[RED_AS], kind[RED_AS];
+#pragma unroll
+    for (int u = 0; u < RED_AS; ++u) {
+      const int it = i0 + u * RED_NT;
+      kind[u] = 0;     // 0 none, 1 gradient, 2 S, 3 a diagonal block's,
+                       // 4 on the diagonal
+      if (it >= items) continue;
+      const int pf = it / SOLVE_SLOT, e = it - pf * SOLVE_SLOT;
+      int j = (int)((sqrtf(8.0f * pf + 1.0f) - 1.0f) * 0.5f);
+      while ((j + 1) * (j + 2) / 2 <= pf) ++j;
+      while (j * (j + 1) / 2 > pf) --j;
+      const int i = pf - j * (j + 1) / 2;
+      const int w = nth_bit(fm, i), v = nth_bit(fm, j);
+      if (e >= 36) {
+        if (i != j) continue;
+        kind[u] = 1;
+        dst[u] = nf * LD + 6 * i + e - 36;
+        x[u][0] = a.g_c[6 * w + e - 36];
+        x[u][1] = a.g_corr[6 * w + e - 36];
+        continue;
+      }
+      const int rr = e / 6, cc = e - 6 * rr;
+      if (i == j && rr < cc) continue;
+      x[u][0] = a.corr[((size_t)w * W + v) * 36 + e];
+      x[u][1] = a.corr[((size_t)v * W + w) * 36 + 6 * cc + rr];
+      if (i == j) {
+        kind[u] = rr == cc ? 4 : 3;
+        x[u][2] = a.H_cc[36 * w + e];
+        x[u][3] = a.H_cc[36 * w + 6 * cc + rr];
+        dst[u] = (6 * i + rr) * LD + 6 * i + cc;
+        support[u] = 0.0f;           // the trace of H_cc[w], lba_solve's order
+        if (rr == cc)
+          for (int q = 0; q < 6; ++q) support[u] += a.H_cc[36 * w + 7 * q];
+      } else {
+        kind[u] = 2;
+        dst[u] = (6 * j + cc) * LD + 6 * i + rr;   // block (j, i), below
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < RED_AS; ++u) {
+      if (kind[u] == 0) continue;
+      if (kind[u] == 1) {
+        A[dst[u]] = (double)x[u][0] - (double)x[u][1];
+        continue;
+      }
+      double s = -0.5 * ((double)x[u][0] + (double)x[u][1]);
+      if (kind[u] >= 3) {
+        s += 0.5 * ((double)x[u][2] + (double)x[u][3]);
+        if (kind[u] == 4) {
+          const float pin = support[u] > 1.0f ? 0.0f : a.pin_weight;
+          s += lam * fmaxf(x[u][2], 1e-3f) + 1e-6f;
+          s += pin;
+        }
+      }
+      A[dst[u]] = s;
+    }
+  }
+  __syncthreads();
+  // 3. the block L D L^T. Warp 0 inverts the diagonal blocks (lanes 0-20
+  // each an entry (ra, cb) of a block's lower triangle; sweep_inverse) a
+  // block ahead:
+  // while warps 1-15 form step k's panel and, after a barrier of their
+  // own, its trailing update, warp 0 forms D_k+1 = A_k+1,k+1 - L_k+1,k
+  // A_k+1,k^T from its own L_k+1,k and inverts it into the other half of
+  // s_Q; one barrier of the whole CTA a step.
+  int ra = 0;
+  if (lane < 21)
+    while ((ra + 1) * (ra + 2) / 2 <= lane) ++ra;
+  const int cb = lane < 21 ? lane - ra * (ra + 1) / 2 : 0;
+  if (F > 0 && warp == 0)
+    sweep_inverse(lane < 21 ? A[ra * LD + cb] : 0.0, ra, cb, lane, s_Q[0]);
+  __syncthreads();
+  for (int k = 0; k < F; ++k) {
+    const int b = 6 * (k + 1), nt = nf - b;   // the trailing rows
+    const double* Q = s_Q[k & 1];
+    if (warp == 0) {
+      if (k + 1 < F) {
+        const int m = b + ra, col = b + cb;
+        double v = 0.0;
+        if (lane < 21) {
+          const double* ar = A + m * LD + 6 * k;
+          const double* ac = A + col * LD + 6 * k;
+          double l[6], v1 = 0.0;
+#pragma unroll
+          for (int t = 0; t < 6; ++t) {   // two chains of three a term
+            const double h = fma(ar[0], Q[t], fma(ar[1], Q[6 + t],
+                                                  ar[2] * Q[12 + t]));
+            l[t] = h + fma(ar[3], Q[18 + t], fma(ar[4], Q[24 + t],
+                                                 ar[5] * Q[30 + t]));
+          }
+          v = A[m * LD + col];
+#pragma unroll
+          for (int t = 0; t < 3; ++t) {
+            v = fma(-l[t], ac[t], v);
+            v1 = fma(-l[t + 3], ac[t + 3], v1);
+          }
+          v += v1;
+        }
+        sweep_inverse(v, ra, cb, lane, s_Q[(k + 1) & 1]);
+      }
+    } else {
+      const int o = tid - 32;
+      // the panel, a thread an entry (m, c), m in b .. nf: L_mk = A_mk
+      // D_k^-1, written transposed above the diagonal (m < nf), and for the
+      // gradient's row z_k = D_k^-1 y_k
+      for (int it = o; it < (nt + 1) * 6; it += RED_NT - 32) {
+        const int m = b + it / 6, c = it - 6 * (it / 6);
+        const double* ar = A + m * LD + 6 * k;
+        const double l =
+            fma(ar[0], Q[c], fma(ar[1], Q[6 + c], ar[2] * Q[12 + c])) +
+            fma(ar[3], Q[18 + c], fma(ar[4], Q[24 + c], ar[5] * Q[30 + c]));
+        if (m < nf) A[(6 * k + c) * LD + m] = l;
+        else s_z[6 * k + c] = l;
+      }
+      asm volatile("bar.sync 1, %0;" ::"r"(RED_NT - 32) : "memory");
+      // the trailing update A_ij -= L_ik A_jk^T of the lower triangle and
+      // the gradient's row (rows b .. nf), but for D_k+1 (warp 0's): a
+      // thread a row and a run of its columns (every ncg-th), the row's
+      // L_mk loaded once
+      const int ncg = (RED_NT - 32) / (nt + 1);
+      const int m = b + o % (nt + 1), cg0 = o / (nt + 1);
+      if (cg0 < ncg) {
+        double l[6];
+#pragma unroll
+        for (int t = 0; t < 6; ++t)
+          l[t] = m < nf ? A[(6 * k + t) * LD + m] : s_z[6 * k + t];
+        const int last = m < nf ? m : nf - 1;
+        for (int col = b + cg0; col <= last; col += ncg) {
+          if (m < b + 6 && col < b + 6) continue;
+          const double* ac = A + col * LD + 6 * k;
+          double v = A[m * LD + col], v1 = 0.0;
+#pragma unroll
+          for (int t = 0; t < 3; ++t) {
+            v = fma(-l[t], ac[t], v);
+            v1 = fma(-l[t + 3], ac[t + 3], v1);
+          }
+          A[m * LD + col] = v + v1;
+        }
+      }
+    }
+    __syncthreads();
+  }
+  // 4. warp 0: L^T x = z by blocks (a lane the rows lane + 32 q), then the
+  // step out, masked and capped, and the uncapped one for the landmarks
+  if (warp == 0) {
+    double y[3];
+#pragma unroll
+    for (int q = 0; q < 3; ++q) {
+      const int m = lane + 32 * q;
+      y[q] = m < nf ? s_z[m] : 0.0;
+    }
+    for (int i = F - 1; i >= 0; --i) {
+#pragma unroll
+      for (int q = 0; q < 3; ++q) {
+        const int m = lane + 32 * q;
+        if (m >= 6 * i && m < 6 * i + 6) s_x[m] = y[q];
+      }
+      __syncwarp();
+#pragma unroll
+      for (int q = 0; q < 3; ++q) {
+        const int m = lane + 32 * q;
+        if (m < 6 * i) {
+          const double* u = A + m * LD + 6 * i;
+#pragma unroll
+          for (int c = 0; c < 6; ++c) y[q] = fma(-u[c], s_x[6 * i + c], y[q]);
+        }
+      }
+    }
+    __syncwarp();
+    if (lane < W) {
+      const int rw = (fm >> lane) & 1u ? __popc(fm & ((1u << lane) - 1u))
+                                       : -1;
+      float x6[6], s = 0.0f;
+#pragma unroll
+      for (int j = 0; j < 6; ++j) {
+        x6[j] = rw >= 0 ? (float)-s_x[6 * rw + j] : 0.0f;
+        s += x6[j] * x6[j];
+      }
+      const float sc =
+          a.cap ? fminf(1.0f, 1.0f / fmaxf(sqrtf(s), 1e-12f)) : 1.0f;
+#pragma unroll
+      for (int j = 0; j < 6; ++j) {
+        a.dxi[6 * lane + j] = x6[j] * sc;
+        s_step[6 * lane + j] = rw >= 0 ? -s_x[6 * rw + j] : 0.0;
+      }
+    }
+  }
+  __syncthreads();
+  // 5. every CTA runs (the first phase): the step into each stepping CTA's
+  // shared memory, then the second phase
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+  cg::cluster_group cl = cg::this_cluster();
+  for (int i = tid; i < 6 * W * (C - 1); i += RED_NT)
+    cl.map_shared_rank(s_step, 1 + i / (6 * W))[i % (6 * W)] =
+        s_step[i % (6 * W)];
+  __syncthreads();
+  cluster_sync_all();
+}
+
+// cudaFuncSetAttribute once a device for a kernel, at the largest size its
+// entry launches (done: a flag a device)
+template <typename Kernel>
+cudaError_t attributes_once(Kernel kernel, unsigned char* done, int smem,
+                            bool non_portable) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev < ATTR_DEVICES && done[dev]) return cudaSuccess;
+  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           smem);
+  if (e == cudaSuccess && non_portable)
+    e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (e == cudaSuccess && dev < ATTR_DEVICES) done[dev] = 1;
+  return e;
+}
+
+unsigned char corr_attr[ATTR_DEVICES], red_attr[ATTR_DEVICES];
+
 }  // namespace
 
 extern "C" {
@@ -1630,12 +2356,12 @@ int lba_solve(const int* off, const int* list, const float* H_cc,
   // with the kernel's static shared memory, the default 48 KB limit may be
   // passed below 48 KB of dynamic: set the limit at every launch
   const cudaError_t e0 = cudaFuncSetAttribute(
-      schur_solve_kernel<0>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      schur_solve_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (e0 != cudaSuccess) return (int)e0;
-  schur_solve_kernel<0><<<G, SOLVE_NT, smem, stream>>>(
+  schur_solve_kernel<<<G, SOLVE_NT, smem, stream>>>(
       off, list, H_cc, g_c, H_inv, g_l, H_cl, lam, free_, dxi, scratch, W, K,
-      L, N, pin_weight, cap, nullptr, nullptr);
+      L, N, pin_weight, cap);
   const cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   landmark_step_kernel<<<(N + STEP_NT - 1) / STEP_NT, STEP_NT, 0, stream>>>(
@@ -1643,39 +2369,53 @@ int lba_solve(const int* off, const int* list, const float* H_cc,
   return (int)cudaGetLastError();
 }
 
-// The owner-sharded step's first half on one shard (MODE 1): the Schur sums
-// over lba_index's lists of the shard's landmarks -> corr (W, W, 6, 6) =
+// The owner-sharded step's first half on one shard: the Schur sums over
+// lba_index's lists of the shard's landmarks -> corr (W, W, 6, 6) =
 // sum_n B_wn C_vn^T and g_corr (W, 6) = sum_n B_wn g_l[n], B = H_cl H_inv,
-// for the free pose pairs (zero elsewhere). scratch: as lba_solve's, and
-// lba_solve_reduced of the same shard reads the pose masks it leaves there.
+// for the free pose pairs (zero elsewhere): one launch of a cluster of C
+// CTAs, chunks of CH landmarks, per chunks a CTA (backend/lba.py::
+// schur_corr_layout). scratch: lba_solve's size; lba_solve_reduced of the
+// same shard reads the pose masks it leaves there.
 int lba_schur_corr(const int* off, const int* list, const float* H_inv,
                    const float* g_l, const float* H_cl, const uint8_t* free_,
                    float* corr, float* g_corr, unsigned int* scratch,
-                   int scratch_words, int W, int K, int L, int N,
-                   cudaStream_t stream) {
-  if (W < 1 || W > SOLVE_MAX_W || N < 1) return (int)cudaErrorInvalidValue;
-  const int G = (N + SOLVE_CH - 1) / SOLVE_CH, npair = W * (W + 1) / 2;
-  const long long need = SOLVE_HEAD + (long long)N + (long long)G * SOLVE_PW +
-                        1 + 2LL * G * npair * SOLVE_SLOT;
-  if (scratch_words < need) return (int)cudaErrorInvalidValue;
-  const size_t smem1 = sizeof(double) * (SOLVE_CH * W * 18 + SOLVE_CH * 9);
-  const size_t smem2 = sizeof(unsigned int) * G * SOLVE_PW;
-  const size_t smem = smem1 > smem2 ? smem1 : smem2;
-  const cudaError_t e0 = cudaFuncSetAttribute(
-      schur_solve_kernel<1>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (e0 != cudaSuccess) return (int)e0;
-  schur_solve_kernel<1><<<G, SOLVE_NT, smem, stream>>>(
-      off, list, nullptr, nullptr, H_inv, g_l, H_cl, nullptr, free_, nullptr,
-      scratch, W, K, L, N, 0.0f, 0, corr, g_corr);
+                   int scratch_words, int W, int K, int L, int N, int C,
+                   int CH, int per, cudaStream_t stream) {
+  if (W < 1 || W > SOLVE_MAX_W || N < 1 || N > IDX_MAX_N || CH < 32 ||
+      CH > CORR_MAX_CH || CH % 32 != 0 || C < 1 || C > CORR_MAX_C ||
+      per < 1 || (long long)C * per * CH < N ||
+      (long long)scratch_words < SOLVE_HEAD + (long long)N ||
+      corr_smem(W, CH) > (size_t)CORR_MAX_SMEM)
+    return (int)cudaErrorInvalidValue;
+  cudaError_t e =
+      attributes_once(schur_corr_kernel, corr_attr, CORR_MAX_SMEM, true);
+  if (e != cudaSuccess) return (int)e;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(C, 1, 1);
+  cfg.blockDim = dim3(CORR_NT, 1, 1);
+  cfg.dynamicSmemBytes = corr_smem(W, CH);
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = C;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const CorrArgs args{off,    list,   H_inv, g_l, H_cl, free_,
+                      corr,   g_corr, scratch + SOLVE_HEAD,
+                      W,      K,      L,     N,   CH,   per};
+  e = cudaLaunchKernelEx(&cfg, schur_corr_kernel, args);
+  if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
 
-// The second half (MODE 2): from the all-reduced H_cc (W, 6, 6), g_c (W, 6),
-// corr and g_corr, the damped and pinned reduced system's solve in one
-// block, then the shard's landmark steps -> dxi (W, 6) masked and (cap)
-// capped, d (N, 3) floored and capped, as lba_solve's. scratch: the one the
-// shard's lba_schur_corr launch wrote.
+// The second half: from the all-reduced H_cc (W, 6, 6), g_c (W, 6), corr and
+// g_corr, the damped and pinned reduced system's block L D L^T and solve,
+// and the shard's landmark steps -> dxi (W, 6) masked and (cap) capped,
+// d (N, 3) floored and capped, as lba_solve's: one launch of a cluster of
+// 1 + min(7, ceil(N / 512)) CTAs. scratch: the one the shard's
+// lba_schur_corr launch wrote.
 int lba_solve_reduced(const float* H_cc, const float* g_c, const float* corr,
                       const float* g_corr, const float* H_ll,
                       const float* H_inv, const float* g_l, const float* H_cl,
@@ -1683,22 +2423,32 @@ int lba_solve_reduced(const float* H_cc, const float* g_c, const float* corr,
                       float* d, unsigned int* scratch, int scratch_words,
                       int W, int N, float pin_weight, int cap,
                       cudaStream_t stream) {
-  if (W < 1 || W > SOLVE_MAX_W || N < 1) return (int)cudaErrorInvalidValue;
-  const long long need = SOLVE_HEAD + (long long)N;
-  if (scratch_words < need) return (int)cudaErrorInvalidValue;
-  const size_t smem = sizeof(double) * 6 * W * (6 * W + 1);
-  const cudaError_t e0 = cudaFuncSetAttribute(
-      schur_solve_kernel<2>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (e0 != cudaSuccess) return (int)e0;
-  schur_solve_kernel<2><<<1, SOLVE_NT, smem, stream>>>(
-      nullptr, nullptr, H_cc, g_c, H_inv, g_l, H_cl, lam, free_, dxi, scratch,
-      W, 0, 0, N, pin_weight, cap, const_cast<float*>(corr),
-      const_cast<float*>(g_corr));
-  const cudaError_t e = cudaGetLastError();
+  if (W < 1 || W > SOLVE_MAX_W || N < 1 ||
+      (long long)scratch_words < SOLVE_HEAD + (long long)N)
+    return (int)cudaErrorInvalidValue;
+  constexpr int most = 6 * SOLVE_MAX_W + 1;
+  cudaError_t e = attributes_once(solve_reduced_kernel, red_attr,
+                                  (int)sizeof(double) * most * most, false);
   if (e != cudaSuccess) return (int)e;
-  landmark_step_kernel<<<(N + STEP_NT - 1) / STEP_NT, STEP_NT, 0, stream>>>(
-      scratch, H_cl, H_inv, g_l, H_ll, d, W, N, cap);
+  const int S = (N + RED_NT - 1) / RED_NT;
+  const int C = 1 + (S < RED_MAX_S ? S : RED_MAX_S);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(C, 1, 1);
+  cfg.blockDim = dim3(RED_NT, 1, 1);
+  cfg.dynamicSmemBytes = sizeof(double) * (6 * W + 1) * (6 * W + 1);
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = C;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const RedArgs args{H_cc,  g_c, corr, g_corr, H_ll, H_inv,
+                     g_l,   H_cl, lam, free_,  dxi,  d,
+                     scratch + SOLVE_HEAD, W, N, pin_weight, cap};
+  e = cudaLaunchKernelEx(&cfg, solve_reduced_kernel, args);
+  if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
 

@@ -65,7 +65,7 @@ _SIGNATURES: Dict[str, str] = {
     "lba_index": "p" * 5 + "iiiii" + "ii",
     "lba_bin": "p" * 18 + "iiiii",
     "lba_solve": "p" * 13 + "iiiii" + "fi",
-    "lba_schur_corr": "p" * 9 + "iiiii",
+    "lba_schur_corr": "p" * 9 + "iiiii" + "iii",
     "lba_solve_reduced": "p" * 13 + "iii" + "fi",
     "bow_descend": "pppiii",
     "bow_hist": "ppppii",
@@ -89,7 +89,8 @@ KERNEL_FUNCTIONS = (
     "refit_kernel", "merge_kernel", "lbd_kernel", "pose_optimize_kernel",
     "kf_scan_kernel", "medoid_kernel", "terms_kernel",
     "camera_kernel", "lba_index_kernel", "bin_index_kernel",
-    "schur_solve_kernel", "landmark_step_kernel", "bow_descend_kernel",
+    "schur_solve_kernel", "landmark_step_kernel", "schur_corr_kernel",
+    "solve_reduced_kernel", "bow_descend_kernel",
     "bow_hist_kernel",
     "pg_edges_kernel", "pg_assemble_kernel", "pg_blocks_kernel",
     "pg_pcg_kernel", "pg_update_kernel", "remap_kernel")

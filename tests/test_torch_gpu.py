@@ -1037,6 +1037,8 @@ def _hold_f64(got, ref, truth):
     rel = lambda a, c: float((a.double() - c.double()).abs().max()
                              / c.double().abs().max().clamp(min=1e-30))
     for g, r, t in zip(got, ref, truth):
+        if not t.numel():            # a landmark family with no slot
+            continue
         bound = 3.0 * rel(r, t) + 1e-5
         assert rel(g, t) <= bound and rel(g, r) <= bound, (
             rel(g, t), rel(g, r), bound)
@@ -1118,39 +1120,113 @@ def _window_shard(cuda, n):
     return prob, free, lam, lba.lba_blocks_plain(t, prob, sigma, free, lam)
 
 
-@pytest.mark.parametrize("n", [1, 4])
-def test_lba_schur_corr_and_solve_reduced(cuda, n):
-    """The owner-sharded step's two entries on shard 0 of n of the path's
-    window (n = 4: W = 10, K = 256, L = 32, 1,280 landmarks), one launch
-    each: lba_schur_corr's sums against lba_schur_corr_plain and
-    lba_solve_reduced's step against lba_solve_reduced_plain, each under
-    K15's rule (float64 the truth); two launches give the same bits."""
+def _reduced_case(dev, case, n):
+    """Shard 0 of n of a problem for the sharded step's two entries, with
+    its plain blocks at the plain terms' MAD scale (the shard's own H_cc
+    and g_c standing for the all-reduced ones): "window", chip_smoke.py's
+    lba_window_problem (W = 10, 6 free poses; shard 0 of 1, 2, 4 has
+    5,120, 2,560, 1,280 landmarks: 3, 2, 1 chunks a CTA); "w1", one free
+    pose; "w16", 16 poses (the chunk shrinks to 64 landmarks); "nofree",
+    every pose fixed; "n1", one landmark (no sharding). The blocks are
+    contiguous, as the sharded LM hands them (_contiguous)."""
     from plslam_tpu_torch.backend import lba
-    prob, free, lam, b = _window_shard(cuda, n)
+    from plslam_tpu_torch.parallel.dist_lba import (bucket_problem_by_owner,
+                                                    shard_problem)
+    from plslam_tpu_torch.parallel.mesh import make_mesh
+    if case == "window":
+        prob, free, lam, b = _window_shard(dev, n)
+        return prob, free, lam, _contiguous(b)
+    W, P, Q = {"w1": (1, 120, 40), "w16": (16, 120, 40),
+               "nofree": (5, 120, 40), "n1": (3, 1, 0)}[case]
+    d, cam = lba_problem_np(11, W=W, P=P, Q=Q)
+    if case == "w1":
+        d["kf_fixed"][:] = False
+    if case == "nofree":
+        d["kf_fixed"][:] = True
+    prob = _lba_problem(d, dev)
+    if n > 1:
+        prob = shard_problem(make_mesh(n, ("lm",), dev),
+                             bucket_problem_by_owner(prob, n).problem)[0]
+    free = lba._free(prob)
+    lam = torch.tensor(1e-3, device=dev)
+    t, sigma, _ = lba.lba_terms_sigma_plain(prob, cam)
+    return prob, free, lam, _contiguous(lba.lba_blocks_plain(
+        t, prob, sigma, free, lam))
+
+
+def _contiguous(b):
+    """The blocks laid out as the kernels write them (the plain versions'
+    einsums may hand back permuted views, which the wrappers would copy)."""
+    return type(b)(*(x.contiguous() for x in b))
+
+
+def _one_kernel(fn, name):
+    """The device kernels of a call (torch.profiler): exactly one, ``name``."""
+    from plslam_tpu_torch.utils.devtime import all_kernels, profile_device
+    assert all_kernels(fn, iters=10)[1] == 1
+    assert profile_device(fn, lambda k: name in k, iters=10)[1] == 1
+
+
+def _same_bits(xs, ys):
+    return all(torch.equal(x.view(torch.int32), y.view(torch.int32))
+               for x, y in zip(xs, ys))
+
+
+REDUCED_CASES = [("window", 1), ("window", 2), ("window", 4), ("w1", 2),
+                 ("w1", 4), ("w16", 2), ("w16", 4), ("nofree", 2),
+                 ("nofree", 4), ("n1", 1), ("indefinite", 4)]
+
+
+@pytest.mark.parametrize("case,n", REDUCED_CASES)
+def test_lba_schur_corr_and_solve_reduced(cuda, case, n):
+    """The owner-sharded step's two entries on shard 0 of n (_reduced_case;
+    "indefinite": the window's shard with a free pose's H_cc entry made
+    -1e12), one launch each, one device kernel each (torch.profiler):
+    lba_schur_corr's sums against lba_schur_corr_plain and
+    lba_solve_reduced's step against lba_solve_reduced_plain, each under
+    K15's rule (float64 the truth); two launches give the same bits. An
+    indefinite S gives a NaN step on every free pose (zero on the others)
+    and NaN landmark steps where a free pose observes the landmark: the
+    step the LM rejects."""
+    from plslam_tpu_torch.backend import lba
+    bad = case == "indefinite"
+    prob, free, lam, b = _reduced_case(cuda, "window" if bad else case, n)
     idx = lba.lba_index(prob)
-    scratch = lba.new_solve_scratch(b.H_cl.shape[0], b.H_cl.shape[1], cuda)
+    W, N = b.H_cl.shape[:2]
+    scratch = lba.new_solve_scratch(W, N, cuda)
     corr = _launched("lba_schur_corr", lambda: lba.lba_schur_corr(
         b, prob, free, idx, scratch))
     _hold_f64(corr, lba.lba_schur_corr_plain(b, free),
               lba.lba_schur_corr_plain(_f64(b), free))
+    again = lba.lba_schur_corr(b, prob, free, idx, scratch)
+    assert _same_bits(corr, again)
+    _one_kernel(lambda: lba.lba_schur_corr(b, prob, free, idx, scratch),
+                "schur_corr_kernel")
+    H_cc = b.H_cc
+    if bad:
+        H_cc = H_cc.clone()
+        H_cc[int(free.nonzero()[0, 0]), 0, 0] = -1e12
     P = prob.pt_pos.shape[0]
+    call = lambda cap: lba.lba_solve_reduced(
+        H_cc, b.g_c, *corr, b, prob, free, lam, cap=cap, scratch=scratch)
     for cap in (True, False):
-        got = _launched("lba_solve_reduced", lambda: lba.lba_solve_reduced(
-            b.H_cc, b.g_c, *corr, b, prob, free, lam, cap=cap,
-            scratch=scratch))
+        got = _launched("lba_solve_reduced", lambda: call(cap))
+        assert _same_bits(got, call(cap))
+        if bad:
+            seen = (b.H_cl.abs().sum((2, 3)) > 0).any(0)
+            d = torch.cat(got[1:])
+            assert torch.isnan(got[0][free]).all()
+            assert not got[0][~free].any()
+            assert torch.isnan(d[seen]).all() and torch.isfinite(d[~seen]).all()
+            continue
         c64 = [x.double() for x in corr]
         _hold_f64(got, lba.lba_solve_reduced_plain(
-            b.H_cc, b.g_c, *corr, b, free, lam, P, cap=cap),
-            lba.lba_solve_reduced_plain(b.H_cc.double(), b.g_c.double(),
+            H_cc, b.g_c, *corr, b, free, lam, P, cap=cap),
+            lba.lba_solve_reduced_plain(H_cc.double(), b.g_c.double(),
                                         *c64, _f64(b), free, lam.double(),
                                         P, cap=cap))
-    again = lba.lba_schur_corr(b, prob, free, idx, scratch)
-    assert all(torch.equal(x, y) for x, y in zip(corr, again))
-    for x, y in zip(got, lba.lba_solve_reduced(
-            b.H_cc, b.g_c, *corr, b, prob, free, lam, cap=False,
-            scratch=scratch)):
-        assert torch.equal(x, y)
-    if n == 1:
+    _one_kernel(lambda: call(True), "solve_reduced_kernel")
+    if case == "window" and n == 1:
         # the whole window: the split step against lba_solve, one launch
         # of each, by K15's rule
         whole = _launched("lba_solve", lambda: lba.lba_solve(
